@@ -1,0 +1,499 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Phases, each of which fails the run (non-zero exit, no result line):
+
+1. build: compile every kernel of the serving path from the repo's
+   ``.cu`` sources with ``nvcc`` for sm_90a, one process per source,
+   all started together;
+2. kernels: at every shape the main path gives them (full-width
+   starcoder2-3b, M = 1 and M = 8 rows), hold each CUDA kernel against
+   its plain PyTorch version on the same inputs on the card, within the
+   stated tolerance, and time kernel, plain version, one PyTorch library
+   call as a yardstick, and the card's bound (bytes over 3.35 TB/s, or
+   operations over the bf16 peak, whichever is larger);
+3. slice: full-width starcoder2-3b (random weights from a seeded
+   generator, int8 W8A16 weights, int8 KV cache) served through
+   ``Engine.serve`` — 8 slots, chunked prefill of 4, 24 requests so slots
+   are reused — with the kernels' launch counters zeroed just before and
+   read just after; then three requests compared with the sequential
+   ``reference_outputs`` on the card.
+
+It prints the card's name and power limit, a JSON line with every kernel's
+numbers, and, last, ``{"ok": true, "device": {...}}``.  Without a CUDA
+device, or without the repo's ``src/repro_torch`` beside it, it exits
+non-zero and prints no result.
+"""
+from __future__ import annotations
+
+import dataclasses
+import json
+import math
+import subprocess
+import sys
+import time
+import warnings
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+SRC = ROOT / "src"
+
+SEED = 0
+NUM_SLOTS = 8
+PREFILL_CHUNK = 4
+N_REQUESTS = 24
+PROMPT_LEN = 16
+MAX_NEW = 32
+N_COMPARE = 3            # requests held against the sequential reference
+TIE_TOL = 1e-3           # a greedy mismatch is allowed only where the
+                         # reference's top-2 logit gap is below this
+
+HBM_BYTES_PER_S = 3.35e12        # H100 SXM data sheet
+BF16_OPS_PER_S = 989e12          # dense bf16 tensor-core peak
+L2_FLUSH_BYTES = 128 << 20       # > the 50 MB L2: every launch starts cold
+
+KERNELS = {
+    "qmatmul_w8a16": {
+        "source": "src/repro_torch/kernels/csrc/qmatmul_w8a16.cu",
+        "replaces": "src/repro/kernels/qmatmul.py:195",
+    },
+    "decode_attention_int8": {
+        "source": "src/repro_torch/kernels/csrc/decode_attention_int8.cu",
+        "replaces": "src/repro/kernels/decode_attention.py:119",
+    },
+}
+
+
+def fail(msg: str) -> int:
+    print(f"chip_smoke: FAILED: {msg}", file=sys.stderr)
+    return 1
+
+
+# ---------------------------------------------------------------------------
+# timing
+# ---------------------------------------------------------------------------
+
+def time_ms(fn, iters: int, flush) -> float:
+    """Mean device time of one call of ``fn``, from CUDA events around each
+    of ``iters`` calls, each after an L2 flush (the serving path streams
+    3 GB of weights per tick, so every weight read is cold).  The calls
+    are queued behind a sleep kernel, so the card runs them back to back
+    and the events time the device, not the host's launch overhead."""
+    import torch
+    fn()                                          # warm up
+    torch.cuda.synchronize()
+    events = [(torch.cuda.Event(enable_timing=True),
+               torch.cuda.Event(enable_timing=True)) for _ in range(iters)]
+    torch.cuda._sleep(200_000_000)                # ~0.1 s of queue head start
+    for start, end in events:
+        flush()
+        start.record()
+        fn()
+        end.record()
+    torch.cuda.synchronize()
+    return sum(s.elapsed_time(e) for s, e in events) / iters
+
+
+# ---------------------------------------------------------------------------
+# kernel phase
+# ---------------------------------------------------------------------------
+
+def bf16_close(out, ref, *, f32_out: bool):
+    """(max |out - ref|, worst err / tol).  Tolerance: the kernel and the
+    plain version add the same f32 products in different orders, so they
+    differ by f32 rounding (~1e-7 of the output's scale); rounded to bf16
+    that can flip the last bit, so a bf16 output may differ by one bf16
+    ulp (2^-7 relative).  tol = 2^-7 |ref| (bf16) or 1e-5 |ref| (f32),
+    plus 1e-5 of the output's rms for values near zero."""
+    o, r = out.float(), ref.float()
+    err = (o - r).abs()
+    rms = r.pow(2).mean().sqrt()
+    tol = (2.0 ** -7 if not f32_out else 1e-5) * r.abs() + 1e-5 * rms
+    return float(err.max()), float((err / tol).max())
+
+
+def qmatmul_phase(flush):
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.core.quant import quantize_weight
+    from repro_torch.kernels import qmatmul as K
+
+    d, ff, kvd, vocab = 3072, 12288, 256, 49152
+    # (name, K, N, bias, activation, out dtype, launches per slot tick)
+    shapes = [("wq", d, d, True, "none", torch.bfloat16, 30),
+              ("wk|wv", d, kvd, True, "none", torch.bfloat16, 60),
+              ("wo", d, d, False, "none", torch.bfloat16, 30),
+              ("w_up", d, ff, False, "gelu", torch.bfloat16, 30),
+              ("w_down", ff, d, False, "none", torch.bfloat16, 30),
+              ("lm_head", d, vocab, False, "none", torch.float32, 1)]
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    tick = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0,
+            "bytes_ms": 0.0, "ops_ms": 0.0}
+    worst_err, worst_ratio = 0.0, 0.0
+    for name, k, n, has_bias, act, odt, per_tick in shapes:
+        wf = torch.randn((k, n), generator=gen, device="cuda") * k ** -0.5
+        q = quantize_weight(wf)
+        del wf
+        w, ws = q.values, q.scale.reshape(-1).contiguous()
+        bias = (torch.randn((n,), generator=gen, device="cuda") * 0.1
+                if has_bias else None)
+        w_lib = (w.float() * ws).to(torch.bfloat16).t()   # (N, K) view
+        for m in (1, NUM_SLOTS):
+            x = torch.randn((m, k), generator=gen,
+                            device="cuda").to(torch.bfloat16)
+            out = K.qmatmul_w8a16(x, w, ws, bias, activation=act,
+                                  out_dtype=odt)
+            ref = K.qmatmul_w8a16_ref(x, w, ws, bias, activation=act,
+                                      out_dtype=odt)
+            torch.cuda.synchronize()
+            if out.shape != ref.shape or not torch.isfinite(out).all():
+                raise AssertionError(f"qmatmul {name} M={m}: bad output")
+            err, ratio = bf16_close(out, ref, f32_out=odt == torch.float32)
+            worst_err, worst_ratio = max(worst_err, err), max(worst_ratio,
+                                                              ratio)
+            ms = time_ms(lambda: K.qmatmul_w8a16(
+                x, w, ws, bias, activation=act, out_dtype=odt), 20, flush)
+            plain = time_ms(lambda: K.qmatmul_w8a16_ref(
+                x, w, ws, bias, activation=act, out_dtype=odt), 3, flush)
+            lib = time_ms(lambda: F.linear(x, w_lib, None if bias is None
+                                           else bias.to(torch.bfloat16)),
+                          20, flush)
+            nbytes = (x.numel() * 2 + w.numel() + ws.numel() * 4
+                      + (n * 4 if has_bias else 0)
+                      + m * n * out.element_size())
+            bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+            ops_ms = 2 * m * k * n / BF16_OPS_PER_S * 1e3
+            bound = max(bytes_ms, ops_ms)
+            print(f"  qmatmul_w8a16 {name:7s} M={m} K={k:5d} N={n:5d} "
+                  f"act={act:4s} max_abs_err={err:.3e} err/tol={ratio:.3f} "
+                  f"ms={ms:.4f} plain_ms={plain:.4f} library_ms={lib:.4f} "
+                  f"bound_ms={bound:.4f}")
+            if ratio > 1.0:
+                raise AssertionError(
+                    f"qmatmul {name} M={m}: kernel disagrees with its plain "
+                    f"version beyond tolerance (err/tol={ratio:.3f})")
+            if m == NUM_SLOTS:
+                tick["ms"] += per_tick * ms
+                tick["plain_ms"] += per_tick * plain
+                tick["bound_ms"] += per_tick * bound
+                tick["library_ms"] += per_tick * lib
+                tick["bytes_ms"] += per_tick * bytes_ms
+                tick["ops_ms"] += per_tick * ops_ms
+    K.qmatmul_w8a16.launches = 0
+    K.qmatmul_w8a16_ref.calls = 0
+    return worst_err, tick
+
+
+def attention_phase(flush, s_slots: int):
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import decode_attention as A
+
+    kvh, g, hd = 2, 12, 128
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    ragged = [0, 1, 5, 17, s_slots - 1, s_slots, s_slots // 2, 12]
+    cases = [(NUM_SLOTS, ragged[:NUM_SLOTS], False),
+             (NUM_SLOTS, ragged[:NUM_SLOTS], True),
+             (1, [s_slots // 2 + 3], False),
+             (1, [0], True)]
+    tick = {}
+    worst = 0.0
+    for b, vls, append in cases:
+        q = torch.randn((b, kvh, g, hd), generator=gen,
+                        device="cuda").to(torch.bfloat16)
+        k = torch.randint(-127, 128, (b, s_slots, kvh, hd), generator=gen,
+                          device="cuda", dtype=torch.int8)
+        v = torch.randint(-127, 128, (b, s_slots, kvh, hd), generator=gen,
+                          device="cuda", dtype=torch.int8)
+        ks = torch.rand((b, s_slots, kvh, 1), generator=gen,
+                        device="cuda") * 0.02 + 1e-3
+        vs = torch.rand((b, s_slots, kvh, 1), generator=gen,
+                        device="cuda") * 0.02 + 1e-3
+        vl = torch.tensor(vls, dtype=torch.int32, device="cuda")
+        kn = vn = None
+        if append:
+            kn = torch.randn((b, kvh, hd), generator=gen, device="cuda")
+            vn = torch.randn((b, kvh, hd), generator=gen, device="cuda")
+        out = A.decode_attention_int8(q, k, v, ks, vs, vl, k_new=kn,
+                                      v_new=vn)
+        ref = A.decode_attention_int8_ref(q, k, v, ks, vs, vl, k_new=kn,
+                                          v_new=vn)
+        torch.cuda.synchronize()
+        if out.shape != ref.shape or not torch.isfinite(out).all():
+            raise AssertionError(f"decode_attention B={b}: bad output")
+        # f32 online softmax vs dense softmax: same terms, other order and
+        # another exp per running max; tolerance 1e-4 relative + 1e-5 abs
+        err = float((out - ref).abs().max())
+        tol_ok = bool(((out - ref).abs()
+                       <= 1e-4 * ref.abs() + 1e-5).all())
+        worst = max(worst, err)
+        ms = time_ms(lambda: A.decode_attention_int8(
+            q, k, v, ks, vs, vl, k_new=kn, v_new=vn), 20, flush)
+        plain = time_ms(lambda: A.decode_attention_int8_ref(
+            q, k, v, ks, vs, vl, k_new=kn, v_new=vn), 3, flush)
+        # yardstick: SDPA over K/V dequantized beforehand, masked per row
+        kd = (k.float() * ks).to(torch.bfloat16).transpose(1, 2)
+        vd = (v.float() * vs).to(torch.bfloat16).transpose(1, 2)
+        qd = q.reshape(b, kvh * g, 1, hd)
+        mask = (torch.arange(s_slots, device="cuda")[None, :]
+                < vl[:, None])[:, None, None, :]
+        lib = time_ms(lambda: F.scaled_dot_product_attention(
+            qd, kd, vd, attn_mask=mask, enable_gqa=True), 20, flush)
+        used = sum(vls)
+        nbytes = (q.numel() * 2 + used * kvh * (2 * hd + 2 * 4) + b * 4
+                  + out.numel() * 4 + (2 * b * kvh * hd * 4 if append else 0))
+        ops = 4 * (used + (b if append else 0)) * kvh * g * hd
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        ops_ms = ops / BF16_OPS_PER_S * 1e3
+        bound = max(bytes_ms, ops_ms)
+        print(f"  decode_attention_int8 B={b} S={s_slots} valid_len={vls} "
+              f"append={append} max_abs_err={err:.3e} ms={ms:.4f} "
+              f"plain_ms={plain:.4f} library_ms={lib:.4f} "
+              f"bound_ms={bound:.5f}")
+        if not tol_ok:
+            raise AssertionError(
+                f"decode_attention B={b} append={append}: kernel disagrees "
+                f"with its plain version beyond tolerance (max err {err})")
+        if b == NUM_SLOTS and not append:      # the slot tick's form
+            tick = {"ms": 30 * ms, "plain_ms": 30 * plain,
+                    "bound_ms": 30 * bound, "library_ms": 30 * lib,
+                    "bytes_ms": 30 * bytes_ms, "ops_ms": 30 * ops_ms}
+    A.decode_attention_int8.launches = 0
+    A.decode_attention_int8_ref.calls = 0
+    return worst, tick
+
+
+# ---------------------------------------------------------------------------
+# slice phase
+# ---------------------------------------------------------------------------
+
+def slice_phase():
+    import torch
+    from repro_torch import engine as E
+    from repro_torch.configs import get_config
+    from repro_torch.core.qlinear import W8A16
+    from repro_torch.core.quant import quantize_tree, tree_weight_bytes
+    from repro_torch.kernels import decode_attention as A
+    from repro_torch.kernels import qmatmul as K
+    from repro_torch.models import registry as R
+
+    cfg = dataclasses.replace(get_config("starcoder2-3b"), kv_quant=True)
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    with torch.inference_mode():
+        params = quantize_tree(R.init(gen, cfg, device="cuda"),
+                               min_size=2048)
+    torch.cuda.synchronize()
+    print(f"slice: {cfg.name} full width ({cfg.n_layers} layers, "
+          f"d={cfg.d_model}), W8A16 weights {tree_weight_bytes(params)} "
+          f"bytes, init+quantize {time.perf_counter() - t0:.1f}s")
+    eng = E.Engine(cfg, params, mode=W8A16, num_slots=NUM_SLOTS,
+                   max_seq=PROMPT_LEN + MAX_NEW,
+                   prefill_chunk=PREFILL_CHUNK)
+    reqs = E.synthetic_requests(N_REQUESTS, rate_per_s=400.0,
+                                vocab=cfg.vocab, prompt_len=PROMPT_LEN,
+                                max_new_tokens=MAX_NEW, seed=SEED)
+    # the tick watchdog flags chunked-prefill ticks as stragglers; they
+    # are counted in the report (stuck_ticks) rather than printed
+    warnings.filterwarnings("ignore", message=".*straggler.*")
+    eng.serve(reqs[:2], clock="wall")              # first-call warm-up
+
+    K.qmatmul_w8a16.launches = 0
+    K.qmatmul_w8a16_ref.calls = 0
+    A.decode_attention_int8.launches = 0
+    A.decode_attention_int8_ref.calls = 0
+    rep = eng.serve(reqs, clock="wall")
+    launches = {"qmatmul_w8a16": K.qmatmul_w8a16.launches,
+                "decode_attention_int8": A.decode_attention_int8.launches}
+    plain_calls = {"qmatmul_w8a16_ref": K.qmatmul_w8a16_ref.calls,
+                   "decode_attention_int8_ref":
+                       A.decode_attention_int8_ref.calls}
+    print(f"slice: served {len(rep.results)} requests in {rep.ticks} ticks, "
+          f"{rep.generated_tokens} tokens, wall {rep.wall_s:.3f}s, "
+          f"decoded tok/s {rep.generated_tokens / rep.wall_s:.1f}, "
+          f"ms/tick {1e3 * rep.wall_s / rep.ticks:.2f}, "
+          f"p99 latency {rep.p99_latency_s:.3f}s, "
+          f"mean ttft {rep.mean_ttft_s:.3f}s, "
+          f"mean occupancy {rep.mean_occupancy:.3f}, "
+          f"watchdog stuck ticks {rep.stuck_ticks}")
+    print(f"slice: kernel launches {launches}, plain-version calls "
+          f"{plain_calls}")
+    if any(v <= 0 for v in launches.values()):
+        raise AssertionError(f"a kernel of the path never launched: "
+                             f"{launches}")
+    if any(plain_calls.values()):
+        raise AssertionError(f"the CUDA path reached a plain version: "
+                             f"{plain_calls}")
+    outs = rep.outputs()
+    for r in rep.results:
+        toks = outs[r.rid]
+        if (r.status != "ok" or len(toks) != MAX_NEW
+                or not all(0 <= t < cfg.vocab for t in toks)):
+            raise AssertionError(f"request {r.rid}: status {r.status}, "
+                                 f"tokens {toks}")
+    tick_breakdown(cfg, params, eng)
+    margins = {}
+    ref = E.reference_outputs(cfg, params, reqs[:N_COMPARE], mode=W8A16,
+                              max_seq=eng.max_seq, margins=margins)
+    near_ties = 0
+    for rid, toks in ref.items():
+        got = outs[rid]
+        first = next((i for i, (a, b) in enumerate(zip(got, toks))
+                      if a != b), None)
+        if first is None:
+            continue
+        gap = margins[rid][first]
+        print(f"slice: request {rid} diverges at token {first}: engine "
+              f"{got[first]} reference {toks[first]}, reference top-2 gap "
+              f"{gap:.3e}")
+        if gap >= TIE_TOL:
+            raise AssertionError(f"request {rid}: engine and reference "
+                                 f"disagree at a step that is no near-tie")
+        near_ties += 1
+    print(f"slice: {len(ref)} requests compared with reference_outputs on "
+          f"the card: {len(ref) - near_ties} equal token for token, "
+          f"{near_ties} diverging at a near-tie (top-2 gap < {TIE_TOL}); "
+          f"smallest reference top-2 gap "
+          f"{min(min(v) for v in margins.values()):.3e}")
+    return launches
+
+
+def tick_breakdown(cfg, params, eng, ticks: int = 10) -> None:
+    """Where one steady-state slot tick's time goes: all slots active at a
+    mid-sequence position; host wall clock per tick (ending in a wait for
+    the card) beside the device's busy time from the profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core.qlinear import W8A16
+    from repro_torch.models import registry as R
+    from repro_torch.runtime import steps as ST
+
+    S = eng.num_slots
+    step = ST.make_slot_decode_step(cfg, mode=W8A16)
+    with torch.inference_mode():
+        cache = R.init_cache(cfg, S, eng.max_seq, device="cuda")
+        toks = torch.ones((S, 1), dtype=torch.int32, device="cuda")
+        idx = torch.full((S,), eng.max_seq // 2, dtype=torch.int32,
+                         device="cuda")
+        active = torch.ones((S,), dtype=torch.bool, device="cuda")
+
+        def tick():
+            nxt, _, _ = step(params, toks, cache, idx, active)
+            return nxt.cpu()
+
+        tick()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(ticks):
+            tick()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / ticks
+        warnings.filterwarnings("ignore", message=".*Profiler clears")
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(ticks):
+                tick()
+        # device-side events (kernels, copies) only: host ops carry the
+        # device time of what they launched too
+        events = [e for e in prof.key_averages()
+                  if str(e.device_type).endswith("CUDA")]
+        dev_us = sum(e.self_device_time_total for e in events)
+        per_kernel = sorted(((e.self_device_time_total, e.key)
+                             for e in events), reverse=True)[:6]
+        host = [e for e in prof.key_averages()
+                if not str(e.device_type).endswith("CUDA")]
+        per_op = sorted(((e.self_cpu_time_total, e.count, e.key)
+                         for e in host), reverse=True)[:8]
+    if dev_us > 0:
+        busy_ms = dev_us / 1e3 / ticks
+        print(f"tick: steady-state slot tick ({S} active rows) wall "
+              f"{wall_ms:.2f} ms, device busy {busy_ms:.3f} ms "
+              f"({100 * busy_ms / wall_ms:.1f}%), idle "
+              f"{100 * (1 - busy_ms / wall_ms):.1f}%")
+        for us, key in per_kernel:
+            print(f"  device time per tick {us / 1e3 / ticks:.3f} ms: "
+                  f"{key[:90]}")
+        for us, n, key in per_op:
+            print(f"  host time per tick {us / 1e3 / ticks:.3f} ms in "
+                  f"{n // ticks} calls: {key[:60]}")
+    else:
+        print(f"tick: steady-state slot tick ({S} active rows) wall "
+              f"{wall_ms:.2f} ms, device busy not measured (the profiler "
+              f"reported no device time)")
+
+
+def main() -> int:
+    try:
+        import torch
+    except ImportError:
+        return fail("PyTorch is not installed")
+    if not torch.cuda.is_available():
+        return fail("no CUDA device")
+    if not (SRC / "repro_torch").is_dir():
+        return fail(f"the port's sources are missing under {SRC}")
+    sys.path.insert(0, str(SRC))
+    from repro_torch.kernels import _build
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()
+    print(smi[0])
+    kind = torch.cuda.get_device_name(0)
+    print(f"torch {torch.__version__} cuda {torch.version.cuda} "
+          f"device {kind}")
+
+    t0 = time.perf_counter()
+    reports = _build.build(list(KERNELS))
+    print(f"build: {len(reports)} kernels compiled from the repo's sources "
+          f"in {time.perf_counter() - t0:.1f}s")
+    for name, log in reports.items():
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"  {name}: {line.strip()}")
+
+    # the flush READS a buffer larger than L2: a write would leave dirty
+    # lines whose write-back the next timed kernel would pay for
+    flush_buf = torch.ones(L2_FLUSH_BYTES // 4, dtype=torch.int32,
+                           device="cuda")
+    flush = flush_buf.max
+    warm = torch.randn((4096, 4096), device="cuda")
+    for _ in range(200):                  # bring the clocks up before timing
+        warm @ warm
+    torch.cuda.synchronize()
+    del warm
+    print("kernels: each CUDA kernel against its plain version on the card")
+    q_err, q_tick = qmatmul_phase(flush)
+    max_seq = PROMPT_LEN + MAX_NEW
+    a_err, a_tick = attention_phase(flush, max_seq + (-max_seq) % 16)
+    del flush_buf
+
+    launches = slice_phase()
+
+    kernels = []
+    for name, err, tick in (("qmatmul_w8a16", q_err, q_tick),
+                            ("decode_attention_int8", a_err, a_tick)):
+        kernels.append({
+            "name": name, "route": "cuda", **KERNELS[name],
+            "launches": launches[name], "max_abs_err": err,
+            "ms": tick["ms"], "plain_ms": tick["plain_ms"],
+            "bound_ms": tick["bound_ms"],
+            "bound_by": ("bytes" if tick["bytes_ms"] >= tick["ops_ms"]
+                         else "operations"),
+            "library_ms": tick["library_ms"],
+            "basis": f"one slot tick of {NUM_SLOTS} rows at full width: "
+                     f"the sum over that tick's launches"})
+    for k in kernels:
+        for key in ("ms", "plain_ms", "bound_ms", "library_ms"):
+            if not math.isfinite(k[key]):
+                return fail(f"{k['name']}: {key} is not finite")
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": kind,
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,57 @@
+"""Quantization-aware linear layers.
+
+Every matmul of the port's models goes through :func:`linear`, so
+post-training quantization (``quant.quantize_tree``) switches a model from
+the bf16 path to the paper's int8 serving path:
+
+- fp weight (tensor)          -> plain ``torch.matmul``, bf16 inputs, f32
+                                 accumulate (the reference leaves it to XLA)
+- QTensor weight, W8A16       -> ``kernels.ops.qmatmul`` (weight-only int8)
+- QTensor weight, W8A8        -> not ported yet: its kernel is ROADMAP
+                                 queue 2, kernel 4
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from repro_torch.core.quant import QTensor
+from repro_torch.kernels import ops
+from repro_torch.kernels.qmatmul import activate
+
+
+@dataclasses.dataclass(frozen=True)
+class QuantMode:
+    """Static quantization mode threaded through model apply fns."""
+    enabled: bool = False          # weights are QTensors
+    act_bits: int = 16             # 8 -> w8a8 integer path, else w8a16
+
+    @property
+    def w8a8(self) -> bool:
+        return self.enabled and self.act_bits == 8
+
+
+FP = QuantMode(enabled=False)
+W8A16 = QuantMode(enabled=True, act_bits=16)
+W8A8 = QuantMode(enabled=True, act_bits=8)
+
+
+def linear(params: dict, x: torch.Tensor, *, activation: str = "none",
+           mode: QuantMode = FP,
+           compute_dtype=torch.bfloat16) -> torch.Tensor:
+    """y = act(x @ w + b), dispatching on the weight's quantization state.
+    The result has ``x``'s dtype."""
+    w = params["w"]
+    b = params.get("b")
+    if isinstance(w, QTensor):
+        if mode.w8a8:
+            raise NotImplementedError(
+                "W8A8 needs the qmatmul_w8a8 kernel, which is not ported "
+                "yet (ROADMAP queue 2, kernel 4)")
+        return ops.qmatmul(x, w, b, activation=activation,
+                           out_dtype=x.dtype)
+    y = torch.matmul(x.to(compute_dtype).float(), w.to(compute_dtype).float())
+    if b is not None:
+        y = y + b.float()
+    return activate(y, activation).to(x.dtype)

@@ -1,0 +1,148 @@
+"""Symmetric integer quantization — the TPU paper's numerical contract.
+
+Port of ``repro/core/quant.py``'s inference subset: symmetric int8
+quantization per tensor / per channel, the ``QTensor`` record (int values
++ f32 scales) consumed by ``kernels.ops.qmatmul`` and ``core.qlinear``,
+and post-training quantization of a parameter tree.
+
+Quantization is bitwise equal to the JAX reference as it runs under jit:
+the scale is ``max(amax, 1e-8) * f32(1 / qmax)`` (XLA turns the
+reference's division by the constant qmax into that multiply), values are
+``x / scale`` (a true division, never a multiply by the reciprocal)
+rounded half-to-even and clipped to the symmetric range.  Calibration and
+gradient compression are not ported yet (ROADMAP queue 1, item 15).
+"""
+from __future__ import annotations
+
+import dataclasses
+import re
+from typing import Tuple
+
+import torch
+
+_QUANT_PATH_RE = re.compile(r"(\.w$|(^|\.)table$|experts.*w_(gate|up|down)$)")
+
+
+def int_bounds(bits: int, signed: bool = True) -> Tuple[int, int]:
+    """Inclusive (min, max) representable values for a `bits`-wide integer."""
+    if signed:
+        return -(2 ** (bits - 1)) + 1, 2 ** (bits - 1) - 1  # symmetric: drop -128
+    return 0, 2**bits - 1
+
+
+@dataclasses.dataclass(frozen=True)
+class QTensor:
+    """Quantized tensor: int values + float scale(s).
+
+    ``values``  int8 data, shape S.
+    ``scale``   f32 scale, broadcastable to S (per-tensor or per-channel).
+    ``bits``    nominal bit width.
+    Dequantization: ``values.float() * scale``.
+    """
+
+    values: torch.Tensor
+    scale: torch.Tensor
+    bits: int = 8
+
+    @property
+    def shape(self):
+        return self.values.shape
+
+    @property
+    def nbytes_weights(self) -> int:
+        """Bytes of weight-memory traffic to stream this tensor once."""
+        return self.values.numel() * self.bits // 8 + self.scale.numel() * 4
+
+
+def compute_scale(x: torch.Tensor, bits: int = 8, axis=None) -> torch.Tensor:
+    """Symmetric scale so that max|x| maps to qmax (reduced over ``axis``,
+    kept as size-1 dims; ``None`` is per-tensor)."""
+    _, qmax = int_bounds(bits)
+    ax = x.abs()
+    if axis is None:
+        amax = ax.amax()
+    else:
+        amax = ax.amax(dim=tuple(a % x.ndim for a in axis), keepdim=True)
+    amax = torch.clamp_min(amax, 1e-8)     # avoid div-by-zero on dead channels
+    # The reference's ``amax / qmax`` runs under jit, where XLA rewrites a
+    # division by a constant into a multiply by its f32 reciprocal; do the
+    # same to stay bitwise equal.
+    return (amax * (1.0 / qmax)).to(torch.float32)
+
+
+def quantize(x: torch.Tensor, bits: int = 8, axis=None) -> QTensor:
+    """Quantize ``x`` symmetrically to ``bits`` ints.
+
+    ``axis`` names the REDUCED axes (as in the reference): ``(0,)`` on a
+    (d_in, d_out) weight gives one scale per output column."""
+    if isinstance(axis, int):
+        axis = (axis,)
+    scale = compute_scale(x, bits=bits, axis=axis)
+    qmin, qmax = int_bounds(bits)
+    rounded = torch.round(x / scale)      # round half to even, as jnp.round
+    q = torch.clamp(rounded, qmin, qmax).to(
+        torch.int8 if bits <= 8 else torch.int16)
+    return QTensor(values=q, scale=scale, bits=bits)
+
+
+def quantize_weight(w: torch.Tensor, bits: int = 8) -> QTensor:
+    """Per-output-channel quantization of a linear weight (..., d_in, d_out):
+    only the contraction axis d_in is reduced, so scales are (..., 1, d_out)."""
+    return quantize(w, bits=bits, axis=(w.ndim - 2,))
+
+
+def quantize_embedding(w: torch.Tensor, bits: int = 8) -> QTensor:
+    """Per-row (per-vocab-entry) quantization for embedding tables: gathers
+    dequantize row-wise, and the tied LM head folds scales per output."""
+    return quantize(w, bits=bits, axis=tuple(range(1, w.ndim)))
+
+
+def _default_quant_predicate(path_str: str, leaf) -> bool:
+    """Quantize matmul weights only: paths ending '.w' or embedding
+    'table's.  Norm scales, biases and positional tables stay fp."""
+    if not (isinstance(leaf, torch.Tensor) and leaf.ndim >= 2
+            and leaf.is_floating_point()):
+        return False
+    if "dec_pos" in path_str:
+        return False
+    return bool(_QUANT_PATH_RE.search(path_str))
+
+
+def quantize_tree(params, bits: int = 8, min_size: int = 4096,
+                  predicate=None):
+    """Post-training quantization of a nested dict/list parameter tree.
+
+    Matmul weights (path allowlist, >= ``min_size`` elements) become
+    QTensors; everything else is returned as is.  Path strings join dict
+    keys and list indices with '.', so a layer weight reads
+    ``layers.3.attn.wq.w``.  ``predicate(path_str, leaf) -> bool``
+    overrides the allowlist."""
+    def walk(node, path):
+        if isinstance(node, dict):
+            return {k: walk(v, path + (str(k),)) for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return type(node)(walk(v, path + (str(i),))
+                              for i, v in enumerate(node))
+        path_str = ".".join(path)
+        if predicate is not None:
+            do_q = predicate(path_str, node)
+        else:
+            do_q = (_default_quant_predicate(path_str, node)
+                    and node.numel() >= min_size)
+        if not do_q:
+            return node
+        if "table" in path_str:
+            return quantize_embedding(node, bits=bits)
+        return quantize_weight(node, bits=bits)
+    return walk(params, ())
+
+
+def tree_weight_bytes(params) -> int:
+    """Total weight-memory bytes of a (possibly quantized) param tree."""
+    if isinstance(params, dict):
+        return sum(tree_weight_bytes(v) for v in params.values())
+    if isinstance(params, (list, tuple)):
+        return sum(tree_weight_bytes(v) for v in params)
+    if isinstance(params, QTensor):
+        return params.nbytes_weights
+    return params.numel() * params.element_size()

@@ -1,0 +1,136 @@
+"""Weight-only int8 matmul: the CUDA kernel's wrapper and its plain version.
+
+``qmatmul_w8a16`` launches ``csrc/qmatmul_w8a16.cu``, the Hopper port of the
+Pallas TPU kernel ``repro/kernels/qmatmul.py::qmatmul_w8a16``.  It takes
+CUDA tensors only, checks them, allocates the output, launches on the
+current stream and raises if the launch was refused.  Each launch adds one
+to ``qmatmul_w8a16.launches``.
+
+``qmatmul_w8a16_ref`` is the plain PyTorch version of the same function
+(the port of ``repro/kernels/ref.py::qmatmul_w8a16_ref``).  It computes
+each row on its own, as a broadcast multiply and sum, so a row's result
+does not depend on how many rows are in the batch — a plain CPU
+``x @ w`` does not have that property.  Each call adds one to
+``qmatmul_w8a16_ref.calls``.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels import _build
+
+ACTIVATIONS = ("none", "relu", "gelu", "silu", "tanh", "sigmoid")
+_FLOAT_TYPES = (torch.float32, torch.bfloat16)
+
+
+def activate(y: torch.Tensor, activation: str) -> torch.Tensor:
+    """The reference's activations; ``gelu`` is the tanh approximation,
+    as ``jax.nn.gelu`` defaults to."""
+    if activation == "none":
+        return y
+    if activation == "relu":
+        return torch.clamp_min(y, 0.0)
+    if activation == "gelu":
+        return F.gelu(y, approximate="tanh")
+    if activation == "silu":
+        return y * torch.sigmoid(y)
+    if activation == "tanh":
+        return torch.tanh(y)
+    if activation == "sigmoid":
+        return torch.sigmoid(y)
+    raise ValueError(f"unknown activation {activation!r}")
+
+
+def qmatmul_w8a16_ref(x: torch.Tensor, w: torch.Tensor,
+                      w_scale: torch.Tensor,
+                      bias: Optional[torch.Tensor] = None, *,
+                      activation: str = "none",
+                      out_dtype=torch.bfloat16) -> torch.Tensor:
+    """fp acts (M, K) x dequantized int8 weights (K, N), f32 accumulate,
+    one row at a time."""
+    qmatmul_w8a16_ref.calls += 1
+    w_fp = w.float() * w_scale.reshape(1, -1).float()
+    xf = x.float()
+    acc = torch.empty((xf.shape[0], w.shape[1]), dtype=torch.float32,
+                      device=x.device)
+    for i in range(xf.shape[0]):
+        acc[i] = (xf[i][:, None] * w_fp).sum(0)
+    if bias is not None:
+        acc = acc + bias.reshape(1, -1).float()
+    return activate(acc, activation).to(out_dtype)
+
+
+qmatmul_w8a16_ref.calls = 0
+
+
+@functools.lru_cache(maxsize=None)
+def _lib():
+    """The kernel's C entry point, built and bound once per process."""
+    lib = _build.load("qmatmul_w8a16")
+    fn = lib.qmatmul_w8a16
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                   ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def qmatmul_w8a16(x: torch.Tensor, w: torch.Tensor, w_scale: torch.Tensor,
+                  bias: Optional[torch.Tensor] = None, *,
+                  activation: str = "none",
+                  out_dtype=torch.bfloat16) -> torch.Tensor:
+    """act((x @ dequant(w)) + bias) on the card.
+
+    x: (M, K) bf16/f32 with K % 8 == 0; w: (K, N) int8 with N % 4 == 0;
+    w_scale: N f32 values; bias: (N,) f32 or None; out: (M, N)
+    ``out_dtype`` (bf16/f32).  All CUDA tensors, contiguous, on one
+    device."""
+    if activation not in ACTIVATIONS:
+        raise ValueError(f"unknown activation {activation!r}")
+    if not x.is_cuda:
+        raise ValueError("qmatmul_w8a16 launches a CUDA kernel: x must be a "
+                         "CUDA tensor (CPU tensors go to qmatmul_w8a16_ref)")
+    if x.ndim != 2 or w.ndim != 2 or x.shape[1] != w.shape[0]:
+        raise ValueError(f"shapes x{tuple(x.shape)} @ w{tuple(w.shape)}")
+    m, k = x.shape
+    n = w.shape[1]
+    if x.dtype not in _FLOAT_TYPES or out_dtype not in _FLOAT_TYPES:
+        raise ValueError(f"x {x.dtype} / out {out_dtype} must be f32 or bf16")
+    if w.dtype != torch.int8 or n % 4 or k % 8:
+        raise ValueError(f"w must be int8 with K % 8 == 0 and N % 4 == 0, "
+                         f"got {w.dtype} K={k} N={n}")
+    if w_scale.dtype != torch.float32 or w_scale.numel() != n:
+        raise ValueError("w_scale must hold N f32 values")
+    if bias is not None and (bias.dtype != torch.float32
+                             or bias.numel() != n):
+        raise ValueError("bias must hold N f32 values")
+    tensors = [x, w, w_scale] + ([bias] if bias is not None else [])
+    for t in tensors:
+        if t.device != x.device or not t.is_contiguous():
+            raise ValueError("qmatmul_w8a16 needs contiguous tensors on "
+                             "x's device")
+    if w.data_ptr() % 4 or x.data_ptr() % 16:
+        raise ValueError("w must be 4-byte and x 16-byte aligned")
+    out = torch.empty((m, n), dtype=out_dtype, device=x.device)
+    if m == 0:
+        return out
+    fn = _lib()
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    err = fn(x.data_ptr(), int(x.dtype == torch.bfloat16), w.data_ptr(),
+             w_scale.data_ptr(),
+             bias.data_ptr() if bias is not None else None,
+             out.data_ptr(), int(out_dtype == torch.bfloat16), m, k, n,
+             ACTIVATIONS.index(activation), stream)
+    if err:
+        raise RuntimeError(f"qmatmul_w8a16 launch failed: CUDA error {err}")
+    qmatmul_w8a16.launches += 1
+    return out
+
+
+qmatmul_w8a16.launches = 0

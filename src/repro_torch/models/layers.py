@@ -1,0 +1,191 @@
+"""Shared model components, decode subset: norms, RoPE, GQA decode
+attention over the int8 KV cache, the MLP, and the int8 embedding and LM
+head.
+
+Conventions (as in ``repro/models/layers.py``):
+- plain functions over param dicts of tensors;
+- every matmul routes through :func:`repro_torch.core.qlinear.linear`;
+- the KV cache keeps the reference's (B, S, KV, hd) layout with scales
+  (B, S, KV, 1), and is written in place.
+
+Not ported yet: the no-cache (prefill / training) attention, which needs
+the flash-attention kernel (ROADMAP queue 2, kernel 5); the bf16 KV cache
+and sliding windows (queue 1, items 4 and 13); cross-attention (item 13).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.core.qlinear import FP, QuantMode, linear
+from repro_torch.core.quant import QTensor
+from repro_torch.kernels import ops as kops
+
+Tensor = torch.Tensor
+
+
+# ---------------------------------------------------------------------------
+# Norms (f32 compute, cast back)
+# ---------------------------------------------------------------------------
+
+def rmsnorm(p: dict, x: Tensor, eps: float = 1e-6) -> Tensor:
+    xf = x.float()
+    var = (xf * xf).mean(-1, keepdim=True)
+    out = xf * torch.rsqrt(var + eps) * p["scale"].float()
+    return out.to(x.dtype)
+
+
+def layernorm(p: dict, x: Tensor, eps: float = 1e-5) -> Tensor:
+    """f32 LayerNorm, cast back.  ``F.layer_norm`` reduces each row in one
+    fixed order whatever the number of rows (one block per row on the
+    card), which the engine's bit parity with its batch-1 reference needs;
+    a ``mean`` over the last dim does not promise that on the card."""
+    out = F.layer_norm(x.float(), x.shape[-1:], p["scale"].float(),
+                       p["bias"].float(), eps)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Rotary position embeddings (half-split)
+# ---------------------------------------------------------------------------
+
+def rope_frequencies(head_dim: int, theta: float = 10000.0,
+                     device=None) -> Tensor:
+    exps = torch.arange(0, head_dim, 2, dtype=torch.float32,
+                        device=device) / head_dim
+    return 1.0 / (theta ** exps)
+
+
+def rope_cos_sin(positions: Tensor, head_dim: int,
+                 theta: float = 10000.0) -> Tuple[Tensor, Tensor]:
+    """cos / sin of the rotation angles, (B, S, 1, hd/2), for positions
+    (B, S).  With :func:`rotate` this is the reference's ``apply_rope``,
+    split so that one decode step computes the angles once for every
+    layer."""
+    freqs = rope_frequencies(head_dim, theta, device=positions.device)
+    angles = (positions[..., None].float() * freqs)[..., None, :]
+    return torch.cos(angles), torch.sin(angles)
+
+
+def rotate(x: Tensor, cos: Tensor, sin: Tensor) -> Tensor:
+    """Half-split rotation of x (B, S, H, hd) in f32, cast back."""
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Attention (GQA decode against the int8 cache)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class AttnConfig:
+    n_heads: int
+    n_kv_heads: int
+    head_dim: int
+    rope_theta: float = 10000.0
+
+
+def q8(t: Tensor) -> Tuple[Tensor, Tensor]:
+    """Per-(token, head) int8 quantization of new k/v (..., hd): scale is
+    max(amax, 1e-6) / 127 — as a multiply by f32(1/127), which is what XLA
+    makes of the reference's division by a constant under jit — and values
+    round(t / scale) half-to-even."""
+    tf = t.float()
+    amax = torch.clamp_min(tf.abs().amax(-1, keepdim=True), 1e-6)
+    sc = amax * (1.0 / 127.0)
+    return torch.round(tf / sc).to(torch.int8), sc
+
+
+def cache_write(c: Tensor, new: Tensor, idx) -> None:
+    """Write ``new`` (B, 1, ...) into ``c`` (B, S, ...) in place at
+    position ``idx``: an int for lockstep decode, or a ``(rows, positions)``
+    pair of (B,) long tensors where every row writes at its own position
+    (the slot engine)."""
+    if isinstance(idx, int):
+        c[:, idx] = new[:, 0]
+    else:
+        c[idx] = new[:, 0]
+
+
+def attention(p: dict, x: Tensor, cfg: AttnConfig, *,
+              mode: QuantMode = FP, rope: Tuple[Tensor, Tensor],
+              kv_cache: Tuple[Tensor, Tensor, Tensor, Tensor],
+              cache_index, valid_len: Tensor) -> Tensor:
+    """One-token GQA decode attention (x is (B, 1, D)) against the int8
+    cache ``kv_cache = (k, v, k_scale, v_scale)`` of one layer.
+
+    ``rope`` is :func:`rope_cos_sin` of the token positions and
+    ``cache_index`` the write position (see :func:`cache_write`).  The new
+    token's k/v are quantized and written into the cache in place first;
+    the fused kernel then attends over every slot below ``valid_len``
+    (B,) int32, the new token included — the reference's non-append form.
+    Head h reads kv head h // G."""
+    b, s, _ = x.shape
+    if s != 1:
+        raise NotImplementedError(
+            "the port decodes one token per step; multi-token attention "
+            "needs the flash-attention kernel (ROADMAP queue 2, kernel 5)")
+    h, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    q = linear(p["wq"], x, mode=mode).reshape(b, s, h, hd)
+    k = linear(p["wk"], x, mode=mode).reshape(b, s, kvh, hd)
+    v = linear(p["wv"], x, mode=mode).reshape(b, s, kvh, hd)
+    q = rotate(q, *rope)
+    k = rotate(k, *rope)
+    ck, cv, cks, cvs = kv_cache
+    kq, ks = q8(k)
+    vq, vs = q8(v)
+    for c, new in ((ck, kq), (cv, vq), (cks, ks), (cvs, vs)):
+        cache_write(c, new, cache_index)
+    g = h // kvh
+    out = kops.decode_attention(q.reshape(b, kvh, g, hd), ck, cv, cks, cvs,
+                                valid_len, out_dtype=torch.float32)
+    out = out.to(x.dtype).reshape(b, s, h * hd)
+    return linear(p["wo"], out, mode=mode)
+
+
+# ---------------------------------------------------------------------------
+# MLP
+# ---------------------------------------------------------------------------
+
+def mlp(p: dict, x: Tensor, *, gated: bool, activation: str,
+        mode: QuantMode = FP) -> Tensor:
+    if gated:
+        g = linear(p["w_gate"], x, activation=activation, mode=mode)
+        u = linear(p["w_up"], x, mode=mode)
+        h = g * u
+    else:
+        h = linear(p["w_up"], x, activation=activation, mode=mode)
+    return linear(p["w_down"], h, mode=mode)
+
+
+# ---------------------------------------------------------------------------
+# Embedding / LM head
+# ---------------------------------------------------------------------------
+
+def embed(p: dict, tokens: Tensor, compute_dtype=torch.bfloat16) -> Tensor:
+    table = p["table"]
+    if isinstance(table, QTensor):
+        # per-row scales: gather int8 rows, dequantize the gathered slice
+        rows = table.values[tokens].to(compute_dtype)
+        scale = table.scale.reshape(-1)[tokens][..., None]
+        return rows * scale.to(compute_dtype)
+    return table.to(compute_dtype)[tokens]
+
+
+def unembed(p: dict, x: Tensor, compute_dtype=torch.bfloat16) -> Tensor:
+    """(Tied) LM head: f32 logits = x @ table.T.  A quantized table's
+    per-row scales are per-output-column scales of the head, so the head
+    runs through the same int8 matmul as every projection (f32 out), on a
+    (D, V) transposed copy of the table."""
+    table = p["table"]
+    if isinstance(table, QTensor):
+        head = QTensor(values=table.values.t().contiguous(),
+                       scale=table.scale.reshape(-1))
+        return kops.qmatmul(x.to(compute_dtype), head,
+                            out_dtype=torch.float32)
+    return torch.matmul(x.to(compute_dtype).float(),
+                        table.to(compute_dtype).float().t())

@@ -1,0 +1,59 @@
+"""Family -> model module dispatch (dense subset).
+
+Uniform API per family, as in ``repro/models/registry.py``:
+    init(gen, cfg, dtype, device) -> params
+    init_cache(cfg, batch, s_max, device) -> cache
+    decode_step(params, tokens, cache, cache_index, cfg, *, mode)
+        -> (logits, cache)
+
+Only the dense family is ported; the others arrive with their model
+modules (ROADMAP queue 1, item 13).
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.core.qlinear import FP, QuantMode
+from repro_torch.models import transformer
+
+_MODULES = {"dense": transformer}
+
+
+def module_for(cfg: ArchConfig):
+    if cfg.family not in _MODULES:
+        raise NotImplementedError(
+            f"family {cfg.family!r} is not ported yet (ROADMAP queue 1, "
+            f"item 13); ported: {sorted(_MODULES)}")
+    return _MODULES[cfg.family]
+
+
+def init(gen: torch.Generator, cfg: ArchConfig, dtype=torch.float32,
+         device=None):
+    return module_for(cfg).init(gen, cfg, dtype, device)
+
+
+def init_cache(cfg: ArchConfig, batch: int, s_max: int, device=None):
+    return module_for(cfg).init_cache(cfg, batch, s_max, device)
+
+
+def apply_decode(params, cfg: ArchConfig, batch: dict, cache, *,
+                 mode: QuantMode = FP, logits: bool = True):
+    return module_for(cfg).decode_step(params, batch["tokens"], cache,
+                                       batch["cache_index"], cfg, mode=mode,
+                                       logits=logits)
+
+
+def cache_batch_axes(cfg: ArchConfig, cache: dict) -> dict:
+    """Batch (slot) axis per cache leaf: right behind the layer axis."""
+    module_for(cfg)
+    return {k: 1 for k in cache}
+
+
+def mask_inactive_slots(cfg: ArchConfig, old_cache: dict, new_cache: dict,
+                        active):
+    """Slot-engine isolation hook.  KV caches need nothing: stale positional
+    entries are invisible behind each row's ``valid_len`` frontier, so the
+    dense family returns ``new_cache`` unchanged."""
+    module_for(cfg)
+    return new_cache

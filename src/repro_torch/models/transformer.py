@@ -1,0 +1,182 @@
+"""Dense decoder-only LM (starcoder2), decode path.
+
+Structure: embedding -> a loop over decoder layers -> final norm -> (tied)
+unembed.  One decoder layer = norm -> GQA attention -> residual -> norm ->
+MLP -> residual.  Quantization mode threads through every matmul.
+
+Layout differences from ``repro/models/transformer.py``, where PyTorch
+idiom asks for them:
+- ``params["layers"]`` is a list of per-layer dicts (the reference stacks
+  them on a leading L axis for ``lax.scan``);
+- the KV cache keeps the reference's stacked (L, B, S, KV, hd) leaves,
+  and ``decode_step`` writes them in place.  The reference's switch
+  between an in-scan cache update and an append after the scan
+  (``n_kv_heads >= 16``, ``transformer.py:219``) is a choice about
+  functional updates; with in-place writes the port always writes first
+  and then attends (the non-append form).
+"""
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.core.qlinear import FP, QuantMode
+from repro_torch.device import resolve_device
+from repro_torch.models import layers as L
+
+Tensor = torch.Tensor
+
+
+def attn_config(cfg: ArchConfig) -> L.AttnConfig:
+    return L.AttnConfig(
+        n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
+        head_dim=cfg.head_dim, rope_theta=cfg.rope_theta)
+
+
+def norm_apply(cfg: ArchConfig, p, x):
+    return (L.layernorm if cfg.norm == "layernorm" else L.rmsnorm)(p, x)
+
+
+def _check_supported(cfg: ArchConfig) -> None:
+    if cfg.window is not None:
+        raise NotImplementedError(
+            "sliding-window (ring) KV caches are not ported yet (ROADMAP "
+            "queue 1, item 13)")
+    if not cfg.kv_quant:
+        raise NotImplementedError(
+            "the port decodes from the int8 KV cache (kv_quant=True); the "
+            "bf16 cache path is not ported yet (ROADMAP queue 1, item 4)")
+
+
+# ---------------------------------------------------------------------------
+# init
+# ---------------------------------------------------------------------------
+
+def _linear(gen, d_in, d_out, *, bias, dtype, device, scale=None) -> dict:
+    """Truncated-normal init in [-2, 2] std units, std = 1/sqrt(d_in)
+    unless overridden (the reference's ``init_linear``)."""
+    std = scale if scale is not None else d_in ** -0.5
+    w = torch.empty((d_in, d_out), dtype=torch.float32, device=device)
+    torch.nn.init.trunc_normal_(w, mean=0.0, std=1.0, a=-2.0, b=2.0,
+                                generator=gen)
+    p = {"w": (w * std).to(dtype)}
+    if bias:
+        p["b"] = torch.zeros((d_out,), dtype=dtype, device=device)
+    return p
+
+
+def _norm(cfg: ArchConfig, dtype, device) -> dict:
+    p = {"scale": torch.ones((cfg.d_model,), dtype=dtype, device=device)}
+    if cfg.norm == "layernorm":
+        p["bias"] = torch.zeros((cfg.d_model,), dtype=dtype, device=device)
+    return p
+
+
+def init_layer(gen, cfg: ArchConfig, dtype, device) -> dict:
+    d, h, kvh, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    kw = dict(dtype=dtype, device=device)
+    mlp = {"w_up": _linear(gen, d, cfg.d_ff, bias=False, **kw),
+           "w_down": _linear(gen, cfg.d_ff, d, bias=False,
+                             scale=cfg.d_ff ** -0.5, **kw)}
+    if cfg.gated_mlp:
+        mlp["w_gate"] = _linear(gen, d, cfg.d_ff, bias=False, **kw)
+    return {
+        "ln_attn": _norm(cfg, dtype, device),
+        "attn": {
+            "wq": _linear(gen, d, h * hd, bias=cfg.qkv_bias, **kw),
+            "wk": _linear(gen, d, kvh * hd, bias=cfg.qkv_bias, **kw),
+            "wv": _linear(gen, d, kvh * hd, bias=cfg.qkv_bias, **kw),
+            "wo": _linear(gen, h * hd, d, bias=False,
+                          scale=(h * hd) ** -0.5, **kw),
+        },
+        "ln_mlp": _norm(cfg, dtype, device),
+        "mlp": mlp,
+    }
+
+
+def init(gen: torch.Generator, cfg: ArchConfig, dtype=torch.float32,
+         device=None) -> dict:
+    """Random params from ``gen`` (its device must be ``device``'s type).
+    Same distributions as the reference's ``init``, other numbers: tests
+    that compare with the reference copy its params over instead
+    (``models/bridge.py``)."""
+    device = resolve_device(device)
+
+    def table():
+        t = torch.empty((cfg.vocab, cfg.d_model), dtype=torch.float32,
+                        device=device)
+        t.normal_(generator=gen)
+        return {"table": (t * cfg.d_model ** -0.5).to(dtype)}
+
+    params = {"embed": table(),
+              "layers": [init_layer(gen, cfg, dtype, device)
+                         for _ in range(cfg.n_layers)],
+              "ln_f": _norm(cfg, dtype, device)}
+    if not cfg.tie_embeddings:
+        params["unembed"] = table()
+    return params
+
+
+# ---------------------------------------------------------------------------
+# cache + decode
+# ---------------------------------------------------------------------------
+
+def init_cache(cfg: ArchConfig, batch: int, s_max: int,
+               device=None) -> dict:
+    """Stacked (L, B, S, KV, hd) int8 KV cache with per-(token, head) f32
+    scales shaped (L, B, S, KV, 1)."""
+    _check_supported(cfg)
+    device = resolve_device(device)
+    shape = (cfg.n_layers, batch, s_max, cfg.n_kv_heads, cfg.head_dim)
+    return {"k": torch.zeros(shape, dtype=torch.int8, device=device),
+            "v": torch.zeros(shape, dtype=torch.int8, device=device),
+            "k_scale": torch.zeros(shape[:-1] + (1,), dtype=torch.float32,
+                                   device=device),
+            "v_scale": torch.zeros(shape[:-1] + (1,), dtype=torch.float32,
+                                   device=device)}
+
+
+def decode_step(params: dict, tokens: Tensor, cache: dict, cache_index,
+                cfg: ArchConfig, *, mode: QuantMode = FP,
+                logits: bool = True) -> Tuple[Optional[Tensor], dict]:
+    """One decode step: tokens (B, 1) -> logits (B, 1, V) f32, with the
+    cache updated in place (and returned, for the reference's signature).
+
+    ``cache_index`` is an int when the whole batch advances in lockstep,
+    or a (B,) int tensor when every row is an independent request at its
+    own position (the slot engine).  ``logits=False`` skips the final norm
+    and LM head (chunked prefill discards them) and returns None."""
+    _check_supported(cfg)
+    b, s = tokens.shape
+    device = tokens.device
+    s_alloc = cache["k"].shape[2]
+    if isinstance(cache_index, int):
+        positions = torch.full((b, s), cache_index, dtype=torch.int32,
+                               device=device)
+        valid_len = torch.full((b,), min(cache_index + s, s_alloc),
+                               dtype=torch.int32, device=device)
+        write_idx = cache_index
+    else:
+        positions = cache_index.reshape(b, 1).int()
+        valid_len = torch.clamp_max(cache_index.int() + s, s_alloc)
+        write_idx = (torch.arange(b, device=device), cache_index.long())
+    acfg = attn_config(cfg)
+    rope = L.rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta)
+    x = L.embed(params["embed"], tokens)
+    for i, lp in enumerate(params["layers"]):
+        kv = (cache["k"][i], cache["v"][i], cache["k_scale"][i],
+              cache["v_scale"][i])
+        h = norm_apply(cfg, lp["ln_attn"], x)
+        x = x + L.attention(lp["attn"], h, acfg, mode=mode, rope=rope,
+                            kv_cache=kv, cache_index=write_idx,
+                            valid_len=valid_len)
+        h = norm_apply(cfg, lp["ln_mlp"], x)
+        x = x + L.mlp(lp["mlp"], h, gated=cfg.gated_mlp,
+                      activation=cfg.activation, mode=mode)
+    if not logits:
+        return None, cache
+    x = norm_apply(cfg, params["ln_f"], x)
+    head = params.get("unembed", params["embed"])
+    return L.unembed(head, x), cache

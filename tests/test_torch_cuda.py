@@ -1,0 +1,115 @@
+"""The port on the card: each CUDA kernel against its plain version, and
+the engine bit-for-bit against its sequential reference, at small shapes.
+
+Every test here is marked ``gpu`` and skips without a CUDA device; the
+module imports no JAX, so it also runs where only the port is installed:
+
+    PYTHONPATH=src python -m pytest -m gpu tests/test_torch_cuda.py
+
+``chip_smoke.py`` does the same checks at full starcoder2-3b width.
+"""
+import dataclasses
+
+import pytest
+import torch
+
+from repro_torch import engine as E
+from repro_torch.configs import get_config
+from repro_torch.core.qlinear import W8A16
+from repro_torch.core.quant import quantize_tree, quantize_weight
+from repro_torch.kernels import decode_attention as A
+from repro_torch.kernels import qmatmul as K
+from repro_torch.models import registry as R
+
+pytestmark = pytest.mark.gpu
+
+ACTS = ("none", "relu", "gelu", "silu", "tanh", "sigmoid")
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("x_dtype", [torch.bfloat16, torch.float32])
+def test_qmatmul_kernel_matches_plain(cuda, x_dtype, out_dtype):
+    """Every activation, with bias, M from 1 to 11 (two row slabs).  The
+    kernel and the plain version add the same f32 products in other
+    orders: f32 outputs agree to 1e-5 relative, bf16 ones to one ulp."""
+    g = torch.Generator(device=cuda).manual_seed(0)
+    q = quantize_weight(torch.randn((264, 96), generator=g, device=cuda))
+    w, s = q.values, q.scale.reshape(-1).contiguous()
+    b = torch.randn(96, generator=g, device=cuda)
+    for m in (1, 3, 8, 11):
+        x = torch.randn((m, 264), generator=g, device=cuda).to(x_dtype)
+        for act in ACTS:
+            got = K.qmatmul_w8a16(x, w, s, b, activation=act,
+                                  out_dtype=out_dtype).float()
+            want = K.qmatmul_w8a16_ref(x, w, s, b, activation=act,
+                                       out_dtype=out_dtype).float()
+            rel = 2.0 ** -7 if out_dtype == torch.bfloat16 else 1e-5
+            assert ((got - want).abs()
+                    <= rel * want.abs() + 1e-5).all(), (m, act)
+
+
+def test_qmatmul_kernel_rows_are_batch_invariant(cuda):
+    g = torch.Generator(device=cuda).manual_seed(1)
+    q = quantize_weight(torch.randn((512, 64), generator=g, device=cuda))
+    w, s = q.values, q.scale.reshape(-1).contiguous()
+    x = torch.randn((11, 512), generator=g, device=cuda).to(torch.bfloat16)
+    full = K.qmatmul_w8a16(x, w, s, activation="gelu")
+    for i in range(11):
+        one = K.qmatmul_w8a16(x[i:i + 1].contiguous(), w, s,
+                              activation="gelu")
+        assert torch.equal(one[0], full[i])
+
+
+@pytest.mark.parametrize("append", [False, True])
+@pytest.mark.parametrize("g_heads", [1, 12])
+def test_decode_attention_kernel_matches_plain(cuda, g_heads, append):
+    """Ragged valid_len including 0 and a full row, more than one slot
+    tile (S=300), with and without the append column."""
+    g = torch.Generator(device=cuda).manual_seed(2)
+    b, s, kvh, hd = 4, 300, 2, 128
+    q = torch.randn((b, kvh, g_heads, hd), generator=g,
+                    device=cuda).to(torch.bfloat16)
+    k = torch.randint(-127, 128, (b, s, kvh, hd), generator=g, device=cuda,
+                      dtype=torch.int8)
+    v = torch.randint(-127, 128, (b, s, kvh, hd), generator=g, device=cuda,
+                      dtype=torch.int8)
+    ks = torch.rand((b, s, kvh, 1), generator=g, device=cuda) * 0.02 + 1e-3
+    vs = torch.rand((b, s, kvh, 1), generator=g, device=cuda) * 0.02 + 1e-3
+    vl = torch.tensor([0, 1, 130, 300], dtype=torch.int32, device=cuda)
+    kn = vn = None
+    if append:
+        kn = torch.randn((b, kvh, hd), generator=g, device=cuda)
+        vn = torch.randn((b, kvh, hd), generator=g, device=cuda)
+    got = A.decode_attention_int8(q, k, v, ks, vs, vl, k_new=kn, v_new=vn)
+    want = A.decode_attention_int8_ref(q, k, v, ks, vs, vl, k_new=kn,
+                                       v_new=vn)
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5)
+
+
+def test_engine_on_card_equals_reference(cuda):
+    """Reduced starcoder2-3b on the card: 12 requests through 4 slots with
+    chunked prefill, every token equal to the sequential reference, and
+    only the kernels launched (no plain version)."""
+    cfg = dataclasses.replace(get_config("starcoder2-3b").reduced(),
+                              kv_quant=True)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    params = quantize_tree(R.init(gen, cfg, device=cuda), min_size=2048)
+    reqs = E.synthetic_requests(12, rate_per_s=2000.0, vocab=cfg.vocab,
+                                prompt_len=5, max_new_tokens=6)
+    eng = E.Engine(cfg, params, mode=W8A16, num_slots=4, max_seq=11,
+                   prefill_chunk=4)
+    K.qmatmul_w8a16_ref.calls = A.decode_attention_int8_ref.calls = 0
+    launches = K.qmatmul_w8a16.launches
+    rep = eng.serve(reqs)
+    assert K.qmatmul_w8a16.launches > launches
+    assert K.qmatmul_w8a16_ref.calls == 0
+    assert A.decode_attention_int8_ref.calls == 0
+    assert rep.outputs() == E.reference_outputs(
+        cfg, params, reqs, mode=W8A16, max_seq=eng.max_seq)
