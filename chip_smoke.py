@@ -13,13 +13,20 @@ Phases, each of which fails the run (non-zero exit, no result line):
    its plain PyTorch version on the same inputs on the card, within the
    stated tolerance, and time kernel, plain version, one PyTorch library
    call as a yardstick, and the card's bound (bytes over 3.35 TB/s, or
-   operations over the bf16 peak, whichever is larger);
+   operations over the bf16 peak, whichever is larger); the paged
+   attention kernel is also held bitwise against the contiguous one on
+   the gathered view;
 3. slice: full-width starcoder2-3b (random weights from a seeded
    generator, int8 W8A16 weights, int8 KV cache) served through
    ``Engine.serve`` — 8 slots, chunked prefill of 4, 24 requests so slots
    are reused — with the kernels' launch counters zeroed just before and
    read just after; then three requests compared with the sequential
-   ``reference_outputs`` on the card.
+   ``reference_outputs`` on the card;
+4. paged slice: the same model served from the paged KV cache
+   (``Engine(block_size=16, num_blocks=25)``, 24 requests sharing a
+   16-token prompt prefix), counters zeroed just before and read just
+   after; prefix blocks must be shared, none leaked, and three requests
+   (one that shared) equal the contiguous sequential reference.
 
 It prints the card's name and power limit, a JSON line with every kernel's
 numbers, and, last, ``{"ok": true, "device": {...}}``.  Without a CUDA
@@ -50,6 +57,22 @@ N_COMPARE = 3            # requests held against the sequential reference
 TIE_TOL = 1e-3           # a greedy mismatch is allowed only where the
                          # reference's top-2 logit gap is below this
 
+# the paged slice: prompts of two 16-token blocks, the first common to all
+# requests; a pool of 25 blocks (one the trash block) holds six requests'
+# worth of private rows (ceil(64 / 16) = 4 blocks each), below the 33 of
+# the contiguous equivalent.  Arrivals at 2/s: a prefix block is
+# registered only after its tenant's first four prefill chunks, and a
+# burst (400/s puts all 24 requests in the first 76 ms) has every request
+# admitted or queued behind the block budget by then, so none could share
+# (tests/test_torch_paged.py::test_prefix_sharing_needs_arrivals_spread_
+# past_prefill holds both cases on the CPU).
+PAGED_BLOCK = 16
+PAGED_PROMPT_LEN = 32
+PAGED_SHARED_PREFIX = 16
+PAGED_NUM_BLOCKS = 1 + 6 * math.ceil((PAGED_PROMPT_LEN + MAX_NEW)
+                                     / PAGED_BLOCK)
+PAGED_RATE_PER_S = 2.0
+
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM data sheet
 BF16_OPS_PER_S = 989e12          # dense bf16 tensor-core peak
 L2_FLUSH_BYTES = 128 << 20       # > the 50 MB L2: every launch starts cold
@@ -62,6 +85,11 @@ KERNELS = {
     "decode_attention_int8": {
         "source": "src/repro_torch/kernels/csrc/decode_attention_int8.cu",
         "replaces": "src/repro/kernels/decode_attention.py:119",
+    },
+    "decode_attention_int8_paged": {
+        "source":
+            "src/repro_torch/kernels/csrc/decode_attention_int8_paged.cu",
+        "replaces": "src/repro/kernels/decode_attention.py:185",
     },
 }
 
@@ -265,18 +293,123 @@ def attention_phase(flush, s_slots: int):
     return worst, tick
 
 
+def paged_attention_phase(flush):
+    """The paged kernel at the paged slice's shapes: blocks of 16, 4 per
+    row (64 positions), the slice's 25-block pool, tables drawn at random
+    (rows may share blocks, as prefix sharing makes them) with trash
+    entries past each row's frontier."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import decode_attention as A
+
+    kvh, g, hd, bs = 2, 12, 128, PAGED_BLOCK
+    s_row = PAGED_PROMPT_LEN + MAX_NEW
+    mb, nb = s_row // bs, PAGED_NUM_BLOCKS
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    cpu_gen = torch.Generator().manual_seed(SEED + 3)
+    ragged = [0, 1, 5, 17, s_row - 1, s_row, s_row // 2, 12]
+    cases = [(NUM_SLOTS, ragged[:NUM_SLOTS], False),
+             (NUM_SLOTS, ragged[:NUM_SLOTS], True),
+             (1, [s_row // 2 + 3], False),
+             (1, [0], True)]
+    k = torch.randint(-127, 128, (nb, bs, kvh, hd), generator=gen,
+                      device="cuda", dtype=torch.int8)
+    v = torch.randint(-127, 128, (nb, bs, kvh, hd), generator=gen,
+                      device="cuda", dtype=torch.int8)
+    ks = torch.rand((nb, bs, kvh, 1), generator=gen, device="cuda") * 0.02 \
+        + 1e-3
+    vs = torch.rand((nb, bs, kvh, 1), generator=gen, device="cuda") * 0.02 \
+        + 1e-3
+    tick = {}
+    worst = 0.0
+    for b, vls, append in cases:
+        q = torch.randn((b, kvh, g, hd), generator=gen,
+                        device="cuda").to(torch.bfloat16)
+        tables = torch.zeros((b, mb), dtype=torch.int32)
+        for r, n in enumerate(vls):
+            used = -(-n // bs)
+            tables[r, :used] = (torch.randperm(nb - 1, generator=cpu_gen)
+                                [:used] + 1)
+        tables = tables.to("cuda")
+        vl = torch.tensor(vls, dtype=torch.int32, device="cuda")
+        kn = vn = None
+        if append:
+            kn = torch.randn((b, kvh, hd), generator=gen, device="cuda")
+            vn = torch.randn((b, kvh, hd), generator=gen, device="cuda")
+        out = A.decode_attention_int8_paged(q, k, v, ks, vs, vl, tables,
+                                            k_new=kn, v_new=vn)
+        ref = A.decode_attention_int8_paged_ref(q, k, v, ks, vs, vl, tables,
+                                                k_new=kn, v_new=vn)
+        gk, gv, gks, gvs = (A.paged_gather(c, tables).contiguous()
+                            for c in (k, v, ks, vs))
+        same = None
+        if not append:
+            # the contiguous kernel on the gathered view: the same bits
+            same = torch.equal(out, A.decode_attention_int8(
+                q, gk, gv, gks, gvs, vl))
+        torch.cuda.synchronize()
+        if out.shape != ref.shape or not torch.isfinite(out).all():
+            raise AssertionError(f"paged decode_attention B={b}: bad "
+                                 f"output")
+        # the same tolerance as the contiguous kernel's, for the same reason
+        err = float((out - ref).abs().max())
+        tol_ok = bool(((out - ref).abs()
+                       <= 1e-4 * ref.abs() + 1e-5).all())
+        worst = max(worst, err)
+        ms = time_ms(lambda: A.decode_attention_int8_paged(
+            q, k, v, ks, vs, vl, tables, k_new=kn, v_new=vn), 20, flush)
+        plain = time_ms(lambda: A.decode_attention_int8_paged_ref(
+            q, k, v, ks, vs, vl, tables, k_new=kn, v_new=vn), 3, flush)
+        # yardstick: SDPA over K/V gathered and dequantized beforehand
+        kd = (gk.float() * gks).to(torch.bfloat16).transpose(1, 2)
+        vd = (gv.float() * gvs).to(torch.bfloat16).transpose(1, 2)
+        qd = q.reshape(b, kvh * g, 1, hd)
+        mask = (torch.arange(mb * bs, device="cuda")[None, :]
+                < vl[:, None])[:, None, None, :]
+        lib = time_ms(lambda: F.scaled_dot_product_attention(
+            qd, kd, vd, attn_mask=mask, enable_gqa=True), 20, flush)
+        used = sum(vls)
+        nbytes = (q.numel() * 2 + used * kvh * (2 * hd + 2 * 4)
+                  + tables.numel() * 4 + b * 4 + out.numel() * 4
+                  + (2 * b * kvh * hd * 4 if append else 0))
+        ops = 4 * (used + (b if append else 0)) * kvh * g * hd
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        ops_ms = ops / BF16_OPS_PER_S * 1e3
+        bound = max(bytes_ms, ops_ms)
+        print(f"  decode_attention_int8_paged B={b} bs={bs} MB={mb} NB={nb} "
+              f"valid_len={vls} append={append} max_abs_err={err:.3e} "
+              f"bitwise_vs_contiguous={same} ms={ms:.4f} "
+              f"plain_ms={plain:.4f} library_ms={lib:.4f} "
+              f"bound_ms={bound:.5f}")
+        if not tol_ok:
+            raise AssertionError(
+                f"paged decode_attention B={b} append={append}: kernel "
+                f"disagrees with its plain version beyond tolerance (max "
+                f"err {err})")
+        if same is False:
+            raise AssertionError(
+                f"paged decode_attention B={b}: not bitwise equal to the "
+                f"contiguous kernel on the gathered view")
+        if b == NUM_SLOTS and not append:      # the paged slot tick's form
+            tick = {"ms": 30 * ms, "plain_ms": 30 * plain,
+                    "bound_ms": 30 * bound, "library_ms": 30 * lib,
+                    "bytes_ms": 30 * bytes_ms, "ops_ms": 30 * ops_ms}
+    A.decode_attention_int8.launches = 0
+    A.decode_attention_int8_paged.launches = 0
+    A.decode_attention_int8_paged_ref.calls = 0
+    return worst, tick
+
+
 # ---------------------------------------------------------------------------
 # slice phase
 # ---------------------------------------------------------------------------
 
-def slice_phase():
+def build_model():
+    """Full-width starcoder2-3b with random weights from SEED, quantized
+    to W8A16 on the card."""
     import torch
-    from repro_torch import engine as E
     from repro_torch.configs import get_config
-    from repro_torch.core.qlinear import W8A16
     from repro_torch.core.quant import quantize_tree, tree_weight_bytes
-    from repro_torch.kernels import decode_attention as A
-    from repro_torch.kernels import qmatmul as K
     from repro_torch.models import registry as R
 
     cfg = dataclasses.replace(get_config("starcoder2-3b"), kv_quant=True)
@@ -289,27 +422,95 @@ def slice_phase():
     print(f"slice: {cfg.name} full width ({cfg.n_layers} layers, "
           f"d={cfg.d_model}), W8A16 weights {tree_weight_bytes(params)} "
           f"bytes, init+quantize {time.perf_counter() - t0:.1f}s")
+    return cfg, params
+
+
+def zero_counts() -> None:
+    from repro_torch.kernels import decode_attention as A
+    from repro_torch.kernels import qmatmul as K
+    for fn in (K.qmatmul_w8a16, A.decode_attention_int8,
+               A.decode_attention_int8_paged):
+        fn.launches = 0
+    for fn in (K.qmatmul_w8a16_ref, A.decode_attention_int8_ref,
+               A.decode_attention_int8_paged_ref):
+        fn.calls = 0
+
+
+def read_counts():
+    """(kernel launches, plain-version calls) since :func:`zero_counts`."""
+    from repro_torch.kernels import decode_attention as A
+    from repro_torch.kernels import qmatmul as K
+    launches = {f.__name__: f.launches
+                for f in (K.qmatmul_w8a16, A.decode_attention_int8,
+                          A.decode_attention_int8_paged)}
+    plain = {f.__name__: f.calls
+             for f in (K.qmatmul_w8a16_ref, A.decode_attention_int8_ref,
+                       A.decode_attention_int8_paged_ref)}
+    return launches, plain
+
+
+def check_served(label, cfg, rep, reqs) -> None:
+    outs = rep.outputs()
+    if len(rep.results) != len(reqs):
+        raise AssertionError(f"{label}: {len(rep.results)} results for "
+                             f"{len(reqs)} requests")
+    for r in rep.results:
+        toks = outs[r.rid]
+        if (r.status != "ok" or len(toks) != MAX_NEW
+                or not all(0 <= t < cfg.vocab for t in toks)):
+            raise AssertionError(f"{label}: request {r.rid}: status "
+                                 f"{r.status}, tokens {toks}")
+
+
+def compare_with_reference(label, cfg, params, eng, reqs, outs) -> None:
+    """The engine's tokens for ``reqs`` against the sequential batch-1
+    ``reference_outputs`` (contiguous cache) on the card: equal, except
+    that a request may part ways where the reference's top-2 logit gap
+    is below TIE_TOL."""
+    from repro_torch import engine as E
+    from repro_torch.core.qlinear import W8A16
+
+    margins = {}
+    ref = E.reference_outputs(cfg, params, reqs, mode=W8A16,
+                              max_seq=eng.max_seq, margins=margins)
+    near_ties = 0
+    for rid, toks in ref.items():
+        got = outs[rid]
+        first = next((i for i, (a, b) in enumerate(zip(got, toks))
+                      if a != b), None)
+        if first is None:
+            continue
+        gap = margins[rid][first]
+        print(f"{label}: request {rid} diverges at token {first}: engine "
+              f"{got[first]} reference {toks[first]}, reference top-2 gap "
+              f"{gap:.3e}")
+        if gap >= TIE_TOL:
+            raise AssertionError(f"{label}: request {rid}: engine and "
+                                 f"reference disagree at a step that is no "
+                                 f"near-tie")
+        near_ties += 1
+    print(f"{label}: {len(ref)} requests {sorted(ref)} compared with "
+          f"reference_outputs on the card: {len(ref) - near_ties} equal "
+          f"token for token, {near_ties} diverging at a near-tie (top-2 gap "
+          f"< {TIE_TOL}); smallest reference top-2 gap "
+          f"{min(min(v) for v in margins.values()):.3e}")
+
+
+def slice_phase(cfg, params):
+    from repro_torch import engine as E
+    from repro_torch.core.qlinear import W8A16
+
     eng = E.Engine(cfg, params, mode=W8A16, num_slots=NUM_SLOTS,
                    max_seq=PROMPT_LEN + MAX_NEW,
                    prefill_chunk=PREFILL_CHUNK)
     reqs = E.synthetic_requests(N_REQUESTS, rate_per_s=400.0,
                                 vocab=cfg.vocab, prompt_len=PROMPT_LEN,
                                 max_new_tokens=MAX_NEW, seed=SEED)
-    # the tick watchdog flags chunked-prefill ticks as stragglers; they
-    # are counted in the report (stuck_ticks) rather than printed
-    warnings.filterwarnings("ignore", message=".*straggler.*")
     eng.serve(reqs[:2], clock="wall")              # first-call warm-up
 
-    K.qmatmul_w8a16.launches = 0
-    K.qmatmul_w8a16_ref.calls = 0
-    A.decode_attention_int8.launches = 0
-    A.decode_attention_int8_ref.calls = 0
+    zero_counts()
     rep = eng.serve(reqs, clock="wall")
-    launches = {"qmatmul_w8a16": K.qmatmul_w8a16.launches,
-                "decode_attention_int8": A.decode_attention_int8.launches}
-    plain_calls = {"qmatmul_w8a16_ref": K.qmatmul_w8a16_ref.calls,
-                   "decode_attention_int8_ref":
-                       A.decode_attention_int8_ref.calls}
+    launches, plain_calls = read_counts()
     print(f"slice: served {len(rep.results)} requests in {rep.ticks} ticks, "
           f"{rep.generated_tokens} tokens, wall {rep.wall_s:.3f}s, "
           f"decoded tok/s {rep.generated_tokens / rep.wall_s:.1f}, "
@@ -320,50 +521,92 @@ def slice_phase():
           f"watchdog stuck ticks {rep.stuck_ticks}")
     print(f"slice: kernel launches {launches}, plain-version calls "
           f"{plain_calls}")
-    if any(v <= 0 for v in launches.values()):
+    path = ("qmatmul_w8a16", "decode_attention_int8")
+    if any(launches[k] <= 0 for k in path):
         raise AssertionError(f"a kernel of the path never launched: "
                              f"{launches}")
     if any(plain_calls.values()):
         raise AssertionError(f"the CUDA path reached a plain version: "
                              f"{plain_calls}")
-    outs = rep.outputs()
-    for r in rep.results:
-        toks = outs[r.rid]
-        if (r.status != "ok" or len(toks) != MAX_NEW
-                or not all(0 <= t < cfg.vocab for t in toks)):
-            raise AssertionError(f"request {r.rid}: status {r.status}, "
-                                 f"tokens {toks}")
+    check_served("slice", cfg, rep, reqs)
     tick_breakdown(cfg, params, eng)
-    margins = {}
-    ref = E.reference_outputs(cfg, params, reqs[:N_COMPARE], mode=W8A16,
-                              max_seq=eng.max_seq, margins=margins)
-    near_ties = 0
-    for rid, toks in ref.items():
-        got = outs[rid]
-        first = next((i for i, (a, b) in enumerate(zip(got, toks))
-                      if a != b), None)
-        if first is None:
-            continue
-        gap = margins[rid][first]
-        print(f"slice: request {rid} diverges at token {first}: engine "
-              f"{got[first]} reference {toks[first]}, reference top-2 gap "
-              f"{gap:.3e}")
-        if gap >= TIE_TOL:
-            raise AssertionError(f"request {rid}: engine and reference "
-                                 f"disagree at a step that is no near-tie")
-        near_ties += 1
-    print(f"slice: {len(ref)} requests compared with reference_outputs on "
-          f"the card: {len(ref) - near_ties} equal token for token, "
-          f"{near_ties} diverging at a near-tie (top-2 gap < {TIE_TOL}); "
-          f"smallest reference top-2 gap "
-          f"{min(min(v) for v in margins.values()):.3e}")
+    compare_with_reference("slice", cfg, params, eng, reqs[:N_COMPARE],
+                           rep.outputs())
     return launches
 
 
-def tick_breakdown(cfg, params, eng, ticks: int = 10) -> None:
+def paged_slice_phase(cfg, params):
+    from repro_torch import engine as E
+    from repro_torch.core.qlinear import W8A16
+
+    eng = E.Engine(cfg, params, mode=W8A16, num_slots=NUM_SLOTS,
+                   max_seq=PAGED_PROMPT_LEN + MAX_NEW,
+                   prefill_chunk=PREFILL_CHUNK, block_size=PAGED_BLOCK,
+                   num_blocks=PAGED_NUM_BLOCKS)
+    reqs = E.synthetic_requests(N_REQUESTS, rate_per_s=PAGED_RATE_PER_S,
+                                vocab=cfg.vocab,
+                                prompt_len=PAGED_PROMPT_LEN,
+                                shared_prefix_len=PAGED_SHARED_PREFIX,
+                                max_new_tokens=MAX_NEW, seed=SEED)
+    eng.serve(reqs[:1], clock="wall")              # first-call warm-up
+
+    zero_counts()
+    rep = eng.serve(reqs, clock="wall")
+    launches, plain_calls = read_counts()
+    print(f"paged: served {len(rep.results)} requests in {rep.ticks} ticks, "
+          f"{rep.generated_tokens} tokens, wall {rep.wall_s:.3f}s")
+    print(f"paged: decoded tok/s {rep.generated_tokens / rep.wall_s:.1f}")
+    print(f"paged: ms/tick {1e3 * rep.wall_s / rep.ticks:.2f}")
+    print(f"paged: p99 latency {rep.p99_latency_s:.3f}s")
+    print(f"paged: mean ttft {rep.mean_ttft_s:.3f}s")
+    print(f"paged: mean occupancy {rep.mean_occupancy:.3f}, watchdog stuck "
+          f"ticks {rep.stuck_ticks}")
+    print(f"paged: block_size {rep.block_size}, num_blocks {rep.num_blocks}, "
+          f"kv_hbm_bytes {rep.kv_hbm_bytes}")
+    print(f"paged: peak_blocks_used {rep.peak_blocks_used}, mean_block_util "
+          f"{rep.mean_block_util:.3f}, leaked_blocks {rep.leaked_blocks}")
+    print(f"paged: shared_block_hits {rep.shared_block_hits}, "
+          f"shared_hit_rate {rep.shared_hit_rate:.3f}, "
+          f"prefill_tokens_skipped {rep.prefill_tokens_skipped}")
+    print(f"paged: kernel launches {launches}, plain-version calls "
+          f"{plain_calls}")
+    path = ("qmatmul_w8a16", "decode_attention_int8_paged")
+    if any(launches[k] <= 0 for k in path):
+        raise AssertionError(f"a kernel of the paged path never launched: "
+                             f"{launches}")
+    if launches["decode_attention_int8"]:
+        raise AssertionError("the paged path reached the contiguous "
+                             "attention kernel")
+    if any(plain_calls.values()):
+        raise AssertionError(f"the CUDA path reached a plain version: "
+                             f"{plain_calls}")
+    check_served("paged", cfg, rep, reqs)
+    if rep.shared_block_hits <= 0:
+        raise AssertionError("no prefix block was shared")
+    if rep.prefill_tokens_skipped != rep.shared_block_hits * PAGED_BLOCK:
+        raise AssertionError("prefill_tokens_skipped != hits * block_size")
+    if rep.peak_blocks_used > rep.num_blocks - 1 or rep.leaked_blocks:
+        raise AssertionError(f"block accounting: peak "
+                             f"{rep.peak_blocks_used}, leaked "
+                             f"{rep.leaked_blocks}")
+    tick_breakdown(cfg, params, eng, paged=True)
+    # the first request that shared a prefix block, and the first others
+    sharer = min(r.rid for r in rep.results if r.shared_blocks)
+    rids = [sharer] + [r.rid for r in rep.results
+                       if r.rid != sharer][:N_COMPARE - 1]
+    compare_with_reference("paged", cfg, params, eng,
+                           [r for r in reqs if r.rid in rids],
+                           rep.outputs())
+    return launches
+
+
+def tick_breakdown(cfg, params, eng, ticks: int = 10,
+                   paged: bool = False) -> None:
     """Where one steady-state slot tick's time goes: all slots active at a
     mid-sequence position; host wall clock per tick (ending in a wait for
-    the card) beside the device's busy time from the profiler."""
+    the card) beside the device's busy time from the profiler.  ``paged``:
+    the same tick on a paged cache, every slot's row on blocks of its own
+    (the default pool of ``num_slots * max_blocks + 1`` blocks)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.core.qlinear import W8A16
@@ -371,9 +614,17 @@ def tick_breakdown(cfg, params, eng, ticks: int = 10) -> None:
     from repro_torch.runtime import steps as ST
 
     S = eng.num_slots
+    label = "paged tick" if paged else "tick"
     step = ST.make_slot_decode_step(cfg, mode=W8A16)
     with torch.inference_mode():
-        cache = R.init_cache(cfg, S, eng.max_seq, device="cuda")
+        if paged:
+            mb = eng.max_blocks
+            cache = R.init_paged_cache(cfg, S, eng.max_seq, eng.block_size,
+                                       S * mb + 1, device="cuda")
+            cache["block_tables"].copy_(torch.arange(
+                1, S * mb + 1, dtype=torch.int32).reshape(S, mb))
+        else:
+            cache = R.init_cache(cfg, S, eng.max_seq, device="cuda")
         toks = torch.ones((S, 1), dtype=torch.int32, device="cuda")
         idx = torch.full((S,), eng.max_seq // 2, dtype=torch.int32,
                          device="cuda")
@@ -407,7 +658,7 @@ def tick_breakdown(cfg, params, eng, ticks: int = 10) -> None:
                          for e in host), reverse=True)[:8]
     if dev_us > 0:
         busy_ms = dev_us / 1e3 / ticks
-        print(f"tick: steady-state slot tick ({S} active rows) wall "
+        print(f"{label}: steady-state slot tick ({S} active rows) wall "
               f"{wall_ms:.2f} ms, device busy {busy_ms:.3f} ms "
               f"({100 * busy_ms / wall_ms:.1f}%), idle "
               f"{100 * (1 - busy_ms / wall_ms):.1f}%")
@@ -418,7 +669,7 @@ def tick_breakdown(cfg, params, eng, ticks: int = 10) -> None:
             print(f"  host time per tick {us / 1e3 / ticks:.3f} ms in "
                   f"{n // ticks} calls: {key[:60]}")
     else:
-        print(f"tick: steady-state slot tick ({S} active rows) wall "
+        print(f"{label}: steady-state slot tick ({S} active rows) wall "
               f"{wall_ms:.2f} ms, device busy not measured (the profiler "
               f"reported no device time)")
 
@@ -467,22 +718,31 @@ def main() -> int:
     q_err, q_tick = qmatmul_phase(flush)
     max_seq = PROMPT_LEN + MAX_NEW
     a_err, a_tick = attention_phase(flush, max_seq + (-max_seq) % 16)
+    p_err, p_tick = paged_attention_phase(flush)
     del flush_buf
 
-    launches = slice_phase()
+    # the tick watchdog flags chunked-prefill ticks as stragglers; they
+    # are counted in the report (stuck_ticks) rather than printed
+    warnings.filterwarnings("ignore", message=".*straggler.*")
+    cfg, params = build_model()
+    launches = slice_phase(cfg, params)
+    paged_launches = paged_slice_phase(cfg, params)
 
     kernels = []
-    for name, err, tick in (("qmatmul_w8a16", q_err, q_tick),
-                            ("decode_attention_int8", a_err, a_tick)):
+    for name, err, tick, n, basis in (
+            ("qmatmul_w8a16", q_err, q_tick, launches, "slot tick"),
+            ("decode_attention_int8", a_err, a_tick, launches, "slot tick"),
+            ("decode_attention_int8_paged", p_err, p_tick, paged_launches,
+             "paged slot tick")):
         kernels.append({
             "name": name, "route": "cuda", **KERNELS[name],
-            "launches": launches[name], "max_abs_err": err,
+            "launches": n[name], "max_abs_err": err,
             "ms": tick["ms"], "plain_ms": tick["plain_ms"],
             "bound_ms": tick["bound_ms"],
             "bound_by": ("bytes" if tick["bytes_ms"] >= tick["ops_ms"]
                          else "operations"),
             "library_ms": tick["library_ms"],
-            "basis": f"one slot tick of {NUM_SLOTS} rows at full width: "
+            "basis": f"one {basis} of {NUM_SLOTS} rows at full width: "
                      f"the sum over that tick's launches"})
     for k in kernels:
         for key in ("ms", "plain_ms", "bound_ms", "library_ms"):

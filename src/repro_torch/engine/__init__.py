@@ -1,5 +1,5 @@
-"""Continuous-batching slot engine (single model, contiguous slots,
-greedy sampling) — see ``engine.py`` and ``dispatch.py``."""
+"""Continuous-batching slot engine (single model, contiguous or paged
+slots, greedy sampling) — see ``engine.py`` and ``dispatch.py``."""
 from repro_torch.engine.dispatch import (DispatchCore, EngineRequest,
                                          ExecutorBackend, RequestResult,
                                          ShardedExecutor,
@@ -7,10 +7,11 @@ from repro_torch.engine.dispatch import (DispatchCore, EngineRequest,
 from repro_torch.engine.engine import (Engine, EngineReport,
                                        reference_outputs, synthetic_requests)
 from repro_torch.engine.scheduler import SlotScheduler
-from repro_torch.engine.slots import RequestTooLong, SlotPool, SlotState
+from repro_torch.engine.slots import (BlockPool, RequestTooLong, SlotPool,
+                                      SlotState)
 
-__all__ = ["DispatchCore", "Engine", "EngineReport", "EngineRequest",
-           "ExecutorBackend", "RequestResult", "RequestTooLong",
-           "ShardedExecutor", "SingleDeviceExecutor", "SlotPool",
-           "SlotScheduler", "SlotState", "reference_outputs",
+__all__ = ["BlockPool", "DispatchCore", "Engine", "EngineReport",
+           "EngineRequest", "ExecutorBackend", "RequestResult",
+           "RequestTooLong", "ShardedExecutor", "SingleDeviceExecutor",
+           "SlotPool", "SlotScheduler", "SlotState", "reference_outputs",
            "synthetic_requests"]

@@ -1,7 +1,7 @@
 """Dispatch core: the tick loop behind the Engine's policy face.
 
-The port of ``repro/engine/dispatch.py`` for ONE model lane on contiguous
-slots with greedy sampling:
+The port of ``repro/engine/dispatch.py`` for ONE model lane with greedy
+sampling, on contiguous slots or on the paged KV cache:
 
 - ``Engine`` (engine.py) — policy + reporting: request validation,
   admission policy configuration, and ``EngineReport`` assembly.
@@ -10,10 +10,18 @@ slots with greedy sampling:
 - ``ExecutorBackend`` — the narrow seam the core runs device steps
   through; :class:`SingleDeviceExecutor` is the one-card step set.
 
+Paged mode (``Engine(block_size=...)``) adds a :class:`BlockPool` of
+physical KV blocks behind per-slot block tables: refcounted sharing of
+whole prompt-prefix blocks (a hit skips their prefill outright),
+block-cost admission against the pool's free blocks, and a host mirror
+of the tables pushed to the card when it changed.  Its prefix keys are
+the token chain alone: the reference's prime-source and model-tag seeds
+belong to families and lanes not ported yet.
+
 Not ported yet, and refused with an error naming their ROADMAP item where
-a caller asks for them: the paged cache (queue 1, item 11), preemption
-and fault injection (item 12), prime families (item 13), speculation,
-multiplexing and the sharded executor (item 14).
+a caller asks for them: preemption and fault injection (queue 1, item
+12), prime families (item 13), speculation, multiplexing and the sharded
+executor (item 14).
 """
 from __future__ import annotations
 
@@ -28,7 +36,7 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.qlinear import QuantMode
 from repro_torch.engine.scheduler import SlotScheduler
-from repro_torch.engine.slots import SlotPool
+from repro_torch.engine.slots import BlockPool, SlotPool
 from repro_torch.models import registry as R
 from repro_torch.runtime import steps as ST
 from repro_torch.runtime.watchdog import StepWatchdog
@@ -62,6 +70,7 @@ class RequestResult:
     status: str = "ok"
     priority: str = "interactive"
     deadline_s: float = float("inf")
+    shared_blocks: int = 0            # paged: prefix blocks it reused
 
     @property
     def latency_s(self) -> float:
@@ -141,6 +150,13 @@ class DispatchOutcome:
     nonfinite: int = 0
     stuck_ticks: int = 0
     kv_bytes: int = 0                 # resident KV-cache bytes (all leaves)
+    # paged mode
+    shared_hits: int = 0              # prefix blocks reused at admission
+    skipped_tokens: int = 0           # prompt tokens those blocks held
+    blocks_demanded: int = 0          # worst-case blocks of every admission
+    peak_used: int = 0                # high-water mark of held blocks
+    util_sum: float = 0.0             # sum over ticks of held / usable
+    leaked_blocks: int = 0            # pool deficit at drain (must be 0)
     now: float = 0.0                  # engine-clock duration
     wall: float = 0.0                 # measured host time
 
@@ -153,6 +169,46 @@ class DispatchCore:
 
     def __init__(self, eng):
         self.eng = eng
+        self.bpool: Optional[BlockPool] = None
+
+    # -- paged-mode admission helpers (host-side) ----------------------
+
+    def _prefix_keys(self, req: EngineRequest) -> Tuple:
+        """Exact prefix hash chain, one key per FULL prompt block:
+        ``key_j = (key_{j-1}, block_j_tokens)`` — nested tuples compared
+        by value, so equal keys mean equal token prefixes (no hash
+        collisions by construction)."""
+        bs = self.eng.block_size
+        key: Tuple = ()
+        keys = []
+        for j in range(len(req.prompt) // bs):
+            key = (key, tuple(req.prompt[j * bs:(j + 1) * bs]))
+            keys.append(key)
+        return tuple(keys)
+
+    def _usable_hits(self, req: EngineRequest,
+                     keys: Optional[Tuple] = None) -> int:
+        """Leading prompt blocks already resident (registered by an
+        earlier tenant).  Capped at ``(prompt-1) // bs``: the LAST prompt
+        token always rides the fused step, and its KV write must land in
+        a privately owned block, never a shared one."""
+        if keys is None:
+            keys = self._prefix_keys(req)
+        cap = (len(req.prompt) - 1) // self.eng.block_size
+        hits = 0
+        for j in range(min(cap, len(keys))):
+            if self.bpool.lookup(keys[j]) is None:
+                break
+            hits += 1
+        return hits
+
+    def _block_cost(self, req: EngineRequest) -> int:
+        """Worst-case FRESH blocks this request claims if admitted now:
+        ceil((prompt + max_new) / bs) minus currently shareable prefix
+        blocks — what memory-aware admission prices against the pool."""
+        bs = self.eng.block_size
+        need = -(-(len(req.prompt) + req.max_new_tokens) // bs)
+        return need - self._usable_hits(req)
 
     def run(self, reqs: List[EngineRequest], *, clock: str,
             tick_s: Union[float, Callable[[int], float]],
@@ -162,7 +218,18 @@ class DispatchCore:
         S = eng.num_slots
         dev = eng.device
         pool = SlotPool(S, max_seq=eng.max_seq)
-        cache = R.init_cache(eng.cfg, S, eng.max_seq, device=dev)
+        paged = eng.block_size is not None
+        if paged:
+            bpool = self.bpool = BlockPool(eng.num_blocks, eng.block_size)
+            cache = R.init_paged_cache(eng.cfg, S, eng.max_seq,
+                                       eng.block_size, eng.num_blocks,
+                                       device=dev)
+            tables_np = np.zeros((S, eng.max_blocks), np.int32)
+        else:
+            cache = R.init_cache(eng.cfg, S, eng.max_seq, device=dev)
+        tables_dirty = False
+        shared_hits = skipped_tokens = blocks_demanded = peak_used = 0
+        util_sum = 0.0
         tokens = np.zeros((S, 1), np.int32)
         index = np.zeros((S,), np.int32)
         step = eng.backend.slot_step(eng.cfg, mode=eng.mode,
@@ -182,13 +249,36 @@ class DispatchCore:
         nonfinite = ticks = gen_tokens = 0
         wd = StepWatchdog(name=eng.name) if clock == "wall" else None
 
+        def register_blocks(st) -> None:
+            # publish each prompt block for prefix sharing the moment the
+            # slot's frontier passes its end (its KV writes are already
+            # issued in stream order, so any later read sees them)
+            while (st.registered < len(st.prompt_keys)
+                   and st.pos >= (st.registered + 1) * eng.block_size):
+                bpool.register(st.prompt_keys[st.registered],
+                               st.block_table[st.registered])
+                st.registered += 1
+
+        def release_blocks(st) -> None:
+            nonlocal tables_dirty
+            for bid in st.block_table:
+                bpool.release(bid)
+            st.block_table, st.prompt_keys, st.registered = None, (), 0
+            tables_np[st.sid, :] = 0          # retired row writes to trash
+            tables_dirty = True
+
+        hits_of = {}                          # rid -> shared prefix blocks
+
         def retire(st, status: str) -> None:
             results.append(RequestResult(
                 rid=st.rid, tokens=list(st.generated or []),
                 arrival_s=st.arrival_s, admit_s=st.admit_s,
                 first_token_s=st.first_token_s, finish_s=now, slot=st.sid,
                 dropped=status == "dropped", status=status,
-                priority=st.priority, deadline_s=st.deadline_s))
+                priority=st.priority, deadline_s=st.deadline_s,
+                shared_blocks=hits_of.get(st.rid, 0)))
+            if paged:
+                release_blocks(st)
             pool.free(st.sid)
             index[st.sid] = 0
             tokens[st.sid, 0] = 0
@@ -207,7 +297,10 @@ class DispatchCore:
             # 2) admit into free slots — mid-flight, no drain barrier
             generating = any(s.active and not s.in_prefill
                              for s in pool.slots)
-            cohort = sched.admit(now, pool.free_count, next_arrival)
+            cohort = sched.admit(
+                now, pool.free_count, next_arrival,
+                cost_fn=self._block_cost if paged else None,
+                budget=bpool.free_blocks if paged else None)
             admitted = 0
             for req in cohort:
                 if drop_missed_deadlines and now > req.deadline_s:
@@ -224,10 +317,38 @@ class DispatchCore:
                                 now=now, arrival_s=req.arrival_s,
                                 deadline_s=req.deadline_s,
                                 priority=req.priority)
-                index[st.sid] = 0
-                left = len(st.prompt) - 1
+                if paged:
+                    # build the slot's block table: ref every shared
+                    # prefix block (their prefill chunks are skipped
+                    # entirely), alloc the rest privately — the admission
+                    # decision priced exactly this claim
+                    keys = self._prefix_keys(req)
+                    hits = self._usable_hits(req, keys)
+                    need = -(-(len(req.prompt) + req.max_new_tokens)
+                             // eng.block_size)
+                    table = []
+                    for j in range(hits):
+                        bid = bpool.lookup(keys[j])
+                        bpool.ref(bid)
+                        table.append(bid)
+                    for _ in range(need - hits):
+                        table.append(bpool.alloc())
+                    st.block_table = table
+                    st.prompt_keys = keys
+                    st.registered = hits
+                    st.pos = hits * eng.block_size
+                    tables_np[st.sid, :] = 0
+                    tables_np[st.sid, :len(table)] = table
+                    tables_dirty = True
+                    hits_of[req.rid] = hits
+                    shared_hits += hits
+                    skipped_tokens += hits * eng.block_size
+                    blocks_demanded += need
+                index[st.sid] = st.pos
+                left = len(st.prompt) - 1 - st.pos
                 if eng.prefill_chunk and left > 0:
-                    # all but the last prompt token go through chunked
+                    # all but the last prompt token (less any shared
+                    # prefix already resident) go through chunked
                     # prefill; the last rides the fused step (its sample
                     # is the first output token)
                     st.chunk_left = left
@@ -235,6 +356,11 @@ class DispatchCore:
                     tokens[st.sid, 0] = st.next_input()
             if generating:
                 admissions_while_busy += admitted
+            if tables_dirty:
+                # push the host table mirror before any dispatch this
+                # tick writes or reads through it
+                cache["block_tables"].copy_(torch.from_numpy(tables_np))
+                tables_dirty = False
             # 3) idle: nothing active -> jump to the next event
             if pool.active_count == 0:
                 if next_arrival is None and not sched.pending:
@@ -268,6 +394,8 @@ class DispatchCore:
                 st.pos += n
                 st.chunk_left -= n
                 index[st.sid] = st.pos
+                if paged:
+                    register_blocks(st)
                 if st.chunk_left == 0:
                     tokens[st.sid, 0] = st.prompt[st.pos]
             # 5) one fused slot-masked step: every ready slot, one token
@@ -285,6 +413,10 @@ class DispatchCore:
                 torch.cuda.synchronize(dev)      # charge chunk time here
             ticks += 1
             occupancy.append(pool.active_count)
+            if paged:
+                used = bpool.used_blocks
+                peak_used = max(peak_used, used)
+                util_sum += used / max(1, eng.num_blocks - 1)
             if clock == "wall":
                 prev = now
                 now = time.perf_counter() - t0
@@ -306,6 +438,8 @@ class DispatchCore:
                 if st.chunk_left > 0:              # mid-chunk: no sample
                     continue
                 st.pos += 1
+                if paged:
+                    register_blocks(st)
                 if st.pos < len(st.prompt):        # still prefilling
                     tokens[st.sid, 0] = st.prompt[st.pos]
                     continue
@@ -354,5 +488,10 @@ class DispatchCore:
             failed=failed, unfinished=unfinished, nonfinite=nonfinite,
             stuck_ticks=wd.slow_steps if wd is not None else 0,
             kv_bytes=sum(t.numel() * t.element_size()
-                         for t in cache.values()), now=now,
+                         for t in cache.values()),
+            shared_hits=shared_hits, skipped_tokens=skipped_tokens,
+            blocks_demanded=blocks_demanded, peak_used=peak_used,
+            util_sum=util_sum,
+            leaked_blocks=((eng.num_blocks - 1) - bpool.free_blocks
+                           if paged else 0), now=now,
             wall=time.perf_counter() - t0)

@@ -1,12 +1,15 @@
 """The continuous-batching engine: one fused slot-masked step per tick.
 
-Port of ``repro/engine/engine.py`` for one model on contiguous slots with
-greedy sampling:
+Port of ``repro/engine/engine.py`` for one model with greedy sampling:
 
 - The KV cache is a fixed pool of ``num_slots`` rows of ``max_seq``
   positions; every tick advances every ready slot by one token in one
   ``make_slot_decode_step`` call (active mask folded into sampling and
   index advance).
+- With ``block_size=bs`` the rows are paged: ``num_blocks`` physical KV
+  blocks of ``bs`` positions behind per-slot block tables, with
+  refcounted sharing of whole prompt-prefix blocks (a hit skips their
+  prefill) and admission priced in blocks against the pool.
 - With ``prefill_chunk=c``, a newly admitted slot's prompt (all but the
   last token) is written by the chunked prefill step, ``c`` tokens per
   tick, concurrently with other slots' decoding.
@@ -14,8 +17,10 @@ greedy sampling:
   retired slots return to the pool the same tick they finish.
 
 ``reference_outputs`` is the sequential per-token loop (batch 1, same
-decode math) the engine must match bit for bit: every kernel and plain
-version computes a row independently of the batch it sits in.
+decode math, contiguous cache) the engine must match bit for bit, paged
+or not: every kernel and plain version computes a row independently of
+the batch it sits in, and the paged kernel reads a row in the very order
+the contiguous one does.
 """
 from __future__ import annotations
 
@@ -56,7 +61,17 @@ class EngineReport:
     p99_ttft_s: float = 0.0           # admission-to-first-token, p99
     prefill_chunk: Optional[int] = None
     dropped: int = 0                  # requests retired on deadline miss
+    # paged KV cache (Engine(block_size=...)) memory accounting — all
+    # defaults when the engine runs contiguous rows
+    block_size: Optional[int] = None
+    num_blocks: int = 0               # physical blocks incl. reserved trash
     kv_hbm_bytes: int = 0             # resident KV-cache bytes (all leaves)
+    peak_blocks_used: int = 0         # high-water mark of held blocks
+    mean_block_util: float = 0.0      # mean held / usable blocks, per tick
+    shared_block_hits: int = 0        # prefix blocks reused at admission
+    shared_hit_rate: float = 0.0      # hits / worst-case blocks demanded
+    prefill_tokens_skipped: int = 0   # prompt tokens served from shared blocks
+    leaked_blocks: int = 0            # pool deficit at drain (must be 0)
     effective_concurrency: float = 0.0  # mean active requests per tick
     failed: int = 0                   # requests retired on non-finite logits
     unfinished: int = 0               # requests retired by the tick cap
@@ -79,13 +94,16 @@ class Engine:
     """Continuous-batching serving engine over a slot-based KV cache.
 
     ``Engine(cfg, params, mode=W8A16, num_slots=8, max_seq=..,
-    prefill_chunk=4).serve(requests)``.  ``device`` defaults to the card;
-    pass ``device="cpu"`` to serve on the CPU with the kernels' plain
-    versions.  ``params`` must already lie on that device.
+    prefill_chunk=4).serve(requests)``; add ``block_size=bs`` (a power of
+    two) for the paged cache, and ``num_blocks`` to size its pool (default
+    ``num_slots * max_seq // bs + 1``: every slot can hold a full row,
+    plus the trash block).  ``device`` defaults to the card; pass
+    ``device="cpu"`` to serve on the CPU with the kernels' plain versions.
+    ``params`` must already lie on that device.
 
-    The JAX engine's other options — paging, temperature sampling,
-    speculation, multiplexing, a sharded backend — raise
-    ``NotImplementedError`` naming their ROADMAP item."""
+    The JAX engine's other options — temperature sampling, speculation,
+    multiplexing, a sharded backend — raise ``NotImplementedError``
+    naming their ROADMAP item."""
 
     def __init__(self, cfg: ArchConfig, params, *,
                  mode: QuantMode = FP,
@@ -94,6 +112,7 @@ class Engine:
                  prefill_chunk: Optional[int] = None,
                  device: DeviceLike = None,
                  block_size: Optional[int] = None,
+                 num_blocks: Optional[int] = None,
                  temperature: float = 0.0,
                  spec_k: int = 0,
                  models=None,
@@ -101,8 +120,6 @@ class Engine:
                  name: Optional[str] = None):
         if models is not None:
             raise _not_ported("multi-model multiplexing", "14")
-        if block_size is not None:
-            raise _not_ported("the paged KV cache", "11")
         if temperature > 0.0:
             raise _not_ported("temperature sampling", "10")
         if spec_k:
@@ -115,13 +132,37 @@ class Engine:
             raise ValueError(f"params lie on {table_dev}, the engine runs "
                              f"on {self.device}")
         R.module_for(cfg)
+        if num_blocks is not None and block_size is None:
+            raise ValueError("num_blocks needs block_size: paged mode is "
+                             "enabled by Engine(..., block_size=...)")
+        if block_size is not None:
+            if block_size < 1 or block_size & (block_size - 1):
+                raise ValueError(
+                    f"block_size must be a power of two, got {block_size}")
+            if not R.supports_paging(cfg):
+                raise ValueError(
+                    f"family {cfg.family!r} (window={cfg.window}) does "
+                    f"not support the paged KV cache")
         self.cfg, self.params = cfg, params
         self.mode = mode
         self.temperature = temperature
         self.name = name
         # the pool size rounds up the bucket ladder, the cache length to 16
+        # (paged: to whole blocks as well)
         self.num_slots = ST.bucket_batch(num_slots)
-        self.max_seq = max_seq + (-max_seq) % 16
+        align = max(16, block_size) if block_size else 16
+        self.max_seq = max_seq + (-max_seq) % align
+        self.block_size = block_size
+        if block_size:
+            self.max_blocks = self.max_seq // block_size
+            self.num_blocks = (num_blocks if num_blocks is not None
+                               else self.num_slots * self.max_blocks + 1)
+            if self.num_blocks < 2:
+                raise ValueError(f"num_blocks must be >= 2, "
+                                 f"got {self.num_blocks}")
+        else:
+            self.max_blocks = 0
+            self.num_blocks = 0
         self.prefill_chunk = (ST.bucket_batch(prefill_chunk)
                               if prefill_chunk else None)
         self.policy = policy or bt.AdmissionPolicy(
@@ -161,6 +202,13 @@ class Engine:
                 raise RequestTooLong(
                     f"request {r.rid} needs {need} cache positions > "
                     f"max_seq={self.max_seq}")
+            if self.block_size:
+                nb = -(-need // self.block_size)
+                if nb > self.num_blocks - 1:
+                    # would wait forever even against an empty pool
+                    raise RequestTooLong(
+                        f"request {r.rid} needs {nb} KV blocks > "
+                        f"{self.num_blocks - 1} usable in the pool")
         reqs = sorted(requests, key=lambda r: r.arrival_s)
         S = self.num_slots
         with torch.inference_mode():
@@ -191,7 +239,17 @@ class Engine:
             p99_ttft_s=bt.p99(ttft),
             prefill_chunk=self.prefill_chunk,
             dropped=out.dropped,
+            block_size=self.block_size,
+            num_blocks=self.num_blocks,
             kv_hbm_bytes=out.kv_bytes,
+            peak_blocks_used=out.peak_used,
+            mean_block_util=(out.util_sum / out.ticks
+                             if self.block_size and out.ticks else 0.0),
+            shared_block_hits=out.shared_hits,
+            shared_hit_rate=(out.shared_hits / out.blocks_demanded
+                             if out.blocks_demanded else 0.0),
+            prefill_tokens_skipped=out.skipped_tokens,
+            leaked_blocks=out.leaked_blocks,
             effective_concurrency=(sum(occupancy) / len(occupancy)
                                    if occupancy else 0.0),
             failed=out.failed, unfinished=out.unfinished,

@@ -14,7 +14,7 @@ nothing to scrub between tenants.
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 
 class RequestTooLong(ValueError):
@@ -143,3 +143,88 @@ class SlotPool:
         st.rid = -1
         st.prompt, st.generated = (), None
         self._free.append(sid)
+
+
+class BlockPool:
+    """Fixed pool of physical KV blocks for the paged cache: a free list,
+    per-block refcounts, and a prefix-hash registry for shared blocks.
+
+    Block 0 is the reserved *trash* block: it is never allocated, every
+    unallocated/inactive table entry points at it, so inactive rows'
+    per-tick scatter-writes land there harmlessly, and reads never see
+    it because attention masks positions past each row's own frontier.
+
+    Sharing is copy-on-extend: a registered block is immutable (its
+    logical positions hold a fully-written prompt-prefix block, keyed by
+    the exact token chain that produced it), extra refs only ever read
+    it, and each tenant's own writes always land in privately allocated
+    blocks.  ``alloc`` therefore never hands out a block whose refcount
+    is nonzero, and ``release`` drops the hash entry the moment the last
+    ref goes away so a recycled block can never be found by lookup."""
+
+    def __init__(self, num_blocks: int, block_size: int,
+                 model: Optional[str] = None):
+        self.model = model               # lane tag; None = single-model.
+        # A BlockPool belongs to exactly one model lane: its free list,
+        # refcounts, and prefix-hash registry are all lane-private, so
+        # paged sharing can never cross models — no key collision or
+        # refcount bug could hand one model another model's block.
+        if num_blocks < 2:
+            raise ValueError(f"num_blocks must be >= 2 (block 0 is the "
+                             f"reserved trash block), got {num_blocks}")
+        if block_size < 1:
+            raise ValueError(f"block_size must be >= 1, got {block_size}")
+        self.num_blocks = num_blocks
+        self.block_size = block_size
+        self.refcounts = [0] * num_blocks
+        self._free = list(range(num_blocks - 1, 0, -1))   # pop() -> block 1
+        self._hash_to_block: Dict[Any, int] = {}
+        self._block_to_hash: Dict[int, Any] = {}
+
+    @property
+    def free_blocks(self) -> int:
+        return len(self._free)
+
+    @property
+    def used_blocks(self) -> int:
+        return (self.num_blocks - 1) - len(self._free)
+
+    def alloc(self) -> int:
+        """Take a private block (refcount 0 -> 1)."""
+        if not self._free:
+            raise RuntimeError("KV block pool exhausted (admission must "
+                               "respect free_blocks)")
+        bid = self._free.pop()
+        assert self.refcounts[bid] == 0, bid
+        self.refcounts[bid] = 1
+        return bid
+
+    def ref(self, bid: int) -> None:
+        """Add a ref to a live block (shared-prefix hit)."""
+        if bid <= 0 or self.refcounts[bid] <= 0:
+            raise RuntimeError(f"ref on dead block {bid}")
+        self.refcounts[bid] += 1
+
+    def release(self, bid: int) -> None:
+        """Drop one ref; the last ref frees the block and evicts its
+        hash entry so no future lookup can alias the recycled block."""
+        if bid <= 0 or self.refcounts[bid] <= 0:
+            raise RuntimeError(f"release on dead block {bid} "
+                               f"(refcount must never go negative)")
+        self.refcounts[bid] -= 1
+        if self.refcounts[bid] == 0:
+            key = self._block_to_hash.pop(bid, None)
+            if key is not None:
+                del self._hash_to_block[key]
+            self._free.append(bid)
+
+    def register(self, key: Any, bid: int) -> None:
+        """Publish a fully-written prompt block for prefix sharing."""
+        if self.refcounts[bid] <= 0:
+            raise RuntimeError(f"register of dead block {bid}")
+        if key not in self._hash_to_block:
+            self._hash_to_block[key] = bid
+            self._block_to_hash[bid] = key
+
+    def lookup(self, key: Any) -> Optional[int]:
+        return self._hash_to_block.get(key)

@@ -7,8 +7,9 @@ compiled at first use for Hopper:
          -Xcompiler -fPIC -o build/kernels/<name>-<hash>.so csrc/<name>.cu
 
 into ``build/kernels/`` at the root of the checkout, keyed by a hash of
-the source and the flags, so an edited source rebuilds and an unchanged
-one loads the library already built.  :func:`build` compiles several
+the source, the headers beside it (``csrc/*.cuh``) and the flags, so an
+edited source or header rebuilds and an unchanged one loads the library
+already built.  :func:`build` compiles several
 sources at once, one ``nvcc`` process each, all started together.
 Nothing here runs at import: the CPU tests import every module, on
 machines that may have no CUDA toolkit.
@@ -48,6 +49,7 @@ def nvcc_path() -> str:
 
 def library_path(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
+    src += b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"{name}-{digest[:16]}.so"
 

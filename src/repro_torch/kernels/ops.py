@@ -44,22 +44,35 @@ def qmatmul(x: torch.Tensor, w, bias: Optional[torch.Tensor] = None, *,
 
 
 def decode_attention(q, k, v, k_scale, v_scale, valid_len, *,
-                     k_new=None, v_new=None,
+                     block_tables=None, k_new=None, v_new=None,
                      out_dtype=torch.float32) -> torch.Tensor:
     """Fused one-token attention against an int8 KV cache.
 
     q: (B, KV, G, hd) bf16/f32; k, v: (B, S, KV, hd) int8; k_scale,
     v_scale: (B, S, KV) or (B, S, KV, 1) f32; valid_len: int, () or (B,)
     — slots with index < valid_len[b] take part.  ``k_new``/``v_new``
-    (B, 1, KV, hd) or (B, KV, hd): the append column.  The paged form
-    (``block_tables``) is not ported yet (ROADMAP queue 2, kernel 3)."""
+    (B, 1, KV, hd) or (B, KV, hd): the append column.
+
+    ``block_tables`` (B, MB) int32 switches to the PAGED cache: k, v are
+    then physical blocks (NB, bs, KV, hd) (scales (NB, bs, KV[, 1])),
+    logical slot s of row b lies in block ``block_tables[b, s // bs]`` at
+    offset ``s % bs``, and valid_len counts logical slots."""
     b = q.shape[0]
     vl = valid_len
     if not (isinstance(vl, torch.Tensor) and vl.dtype == torch.int32
             and vl.shape == (b,)):
         vl = torch.as_tensor(vl, dtype=torch.int32, device=q.device)
         vl = vl.reshape(-1).expand(b).contiguous()
-    if q.is_cuda:
+    if block_tables is not None:
+        if q.is_cuda:
+            out = _da.decode_attention_int8_paged(
+                q, k, v, k_scale, v_scale, vl, block_tables,
+                k_new=k_new, v_new=v_new)
+        else:
+            out = _da.decode_attention_int8_paged_ref(
+                q, k, v, k_scale, v_scale, vl, block_tables,
+                k_new=k_new, v_new=v_new)
+    elif q.is_cuda:
         out = _da.decode_attention_int8(q, k, v, k_scale, v_scale, vl,
                                         k_new=k_new, v_new=v_new)
     else:

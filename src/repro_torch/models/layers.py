@@ -6,7 +6,8 @@ Conventions (as in ``repro/models/layers.py``):
 - plain functions over param dicts of tensors;
 - every matmul routes through :func:`repro_torch.core.qlinear.linear`;
 - the KV cache keeps the reference's (B, S, KV, hd) layout with scales
-  (B, S, KV, 1), and is written in place.
+  (B, S, KV, 1), or its paged (NB, bs, KV, hd) physical blocks behind
+  per-row block tables, and is written in place.
 
 Not ported yet: the no-cache (prefill / training) attention, which needs
 the flash-attention kernel (ROADMAP queue 2, kernel 5); the bf16 KV cache
@@ -15,7 +16,7 @@ and sliding windows (queue 1, items 4 and 13); cross-attention (item 13).
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -23,6 +24,9 @@ import torch.nn.functional as F
 from repro_torch.core.qlinear import FP, QuantMode, linear
 from repro_torch.core.quant import QTensor
 from repro_torch.kernels import ops as kops
+# the reference keeps paged_gather here; it lives beside the paged plain
+# version, which needs it (kernels import nothing from models)
+from repro_torch.kernels.decode_attention import paged_gather  # noqa: F401
 
 Tensor = torch.Tensor
 
@@ -101,10 +105,15 @@ def q8(t: Tensor) -> Tuple[Tensor, Tensor]:
 
 
 def cache_write(c: Tensor, new: Tensor, idx) -> None:
-    """Write ``new`` (B, 1, ...) into ``c`` (B, S, ...) in place at
-    position ``idx``: an int for lockstep decode, or a ``(rows, positions)``
-    pair of (B,) long tensors where every row writes at its own position
-    (the slot engine)."""
+    """Write ``new`` (B, 1, ...) into ``c`` in place at position ``idx``:
+    an int for lockstep decode into (B, S, ...), or a pair of (B,) long
+    tensors where every row writes at its own place — ``(rows,
+    positions)`` into contiguous rows (B, S, ...) (the slot engine), or
+    ``(blocks, offsets)`` into paged blocks (NB, bs, ...), the in-place
+    form of the reference's ``paged_append``.  Retired rows' tables point
+    at trash block 0, so several rows may write the same place: plain
+    assignment (never an accumulating one) leaves one of them there, and
+    trash is never read unmasked."""
     if isinstance(idx, int):
         c[:, idx] = new[:, 0]
     else:
@@ -114,7 +123,8 @@ def cache_write(c: Tensor, new: Tensor, idx) -> None:
 def attention(p: dict, x: Tensor, cfg: AttnConfig, *,
               mode: QuantMode = FP, rope: Tuple[Tensor, Tensor],
               kv_cache: Tuple[Tensor, Tensor, Tensor, Tensor],
-              cache_index, valid_len: Tensor) -> Tensor:
+              cache_index, valid_len: Tensor,
+              block_tables: Optional[Tensor] = None) -> Tensor:
     """One-token GQA decode attention (x is (B, 1, D)) against the int8
     cache ``kv_cache = (k, v, k_scale, v_scale)`` of one layer.
 
@@ -123,7 +133,10 @@ def attention(p: dict, x: Tensor, cfg: AttnConfig, *,
     token's k/v are quantized and written into the cache in place first;
     the fused kernel then attends over every slot below ``valid_len``
     (B,) int32, the new token included — the reference's non-append form.
-    Head h reads kv head h // G."""
+    With ``block_tables`` (B, MB) int32 the cache is paged: its leaves are
+    physical blocks, ``cache_index`` a ``(blocks, offsets)`` pair, and
+    the kernel reads each row through its table.  Head h reads kv head
+    h // G."""
     b, s, _ = x.shape
     if s != 1:
         raise NotImplementedError(
@@ -142,7 +155,8 @@ def attention(p: dict, x: Tensor, cfg: AttnConfig, *,
         cache_write(c, new, cache_index)
     g = h // kvh
     out = kops.decode_attention(q.reshape(b, kvh, g, hd), ck, cv, cks, cvs,
-                                valid_len, out_dtype=torch.float32)
+                                valid_len, block_tables=block_tables,
+                                out_dtype=torch.float32)
     out = out.to(x.dtype).reshape(b, s, h * hd)
     return linear(p["wo"], out, mode=mode)
 

@@ -3,6 +3,8 @@
 Uniform API per family, as in ``repro/models/registry.py``:
     init(gen, cfg, dtype, device) -> params
     init_cache(cfg, batch, s_max, device) -> cache
+    init_paged_cache(cfg, num_slots, s_max, block_size, num_blocks,
+                     device) -> cache (families that page)
     decode_step(params, tokens, cache, cache_index, cfg, *, mode)
         -> (logits, cache)
 
@@ -42,6 +44,34 @@ def apply_decode(params, cfg: ArchConfig, batch: dict, cache, *,
     return module_for(cfg).decode_step(params, batch["tokens"], cache,
                                        batch["cache_index"], cfg, mode=mode,
                                        logits=logits)
+
+
+def supports_paging(cfg: ArchConfig) -> bool:
+    """True when the family can serve from a paged (block-table) KV
+    cache: it must have a growing positional KV frontier and full
+    attention (a sliding window's ring overwrite has no stable position
+    -> block mapping)."""
+    return (cfg.window is None
+            and hasattr(module_for(cfg), "init_paged_cache"))
+
+
+def init_paged_cache(cfg: ArchConfig, num_slots: int, s_max: int,
+                     block_size: int, num_blocks: int, device=None):
+    """Paged KV cache: positional leaves become physical blocks
+    (L, num_blocks, block_size, KV, hd) shared by all slots through the
+    per-slot ``cache["block_tables"]`` (num_slots, s_max // block_size)
+    int32 leaf; block 0 is the reserved trash block."""
+    if not supports_paging(cfg):
+        raise ValueError(f"family {cfg.family!r} (window={cfg.window}) "
+                         f"does not support the paged KV cache")
+    return module_for(cfg).init_paged_cache(cfg, num_slots, s_max,
+                                            block_size, num_blocks, device)
+
+
+def paged_block_axes(cfg: ArchConfig, cache: dict) -> dict:
+    """Physical-block (NB) axis per paged cache leaf — the axis a block
+    table entry indexes.  The table itself is absent from this dict."""
+    return module_for(cfg).paged_block_axes(cache)
 
 
 def cache_batch_axes(cfg: ArchConfig, cache: dict) -> dict:

@@ -13,7 +13,10 @@ idiom asks for them:
   between an in-scan cache update and an append after the scan
   (``n_kv_heads >= 16``, ``transformer.py:219``) is a choice about
   functional updates; with in-place writes the port always writes first
-  and then attends (the non-append form).
+  and then attends (the non-append form).  The paged cache follows the
+  same rule: the new token's entry is written into its physical block
+  before the kernel reads the row through its table (the reference
+  attends with the append column and scatters after the scan).
 """
 from __future__ import annotations
 
@@ -138,6 +141,39 @@ def init_cache(cfg: ArchConfig, batch: int, s_max: int,
                                    device=device)}
 
 
+def init_paged_cache(cfg: ArchConfig, num_slots: int, s_max: int,
+                     block_size: int, num_blocks: int, device=None) -> dict:
+    """Paged int8 KV cache: physical blocks (L, NB, bs, KV, hd) with f32
+    scales (L, NB, bs, KV, 1), plus a per-slot block table
+    (num_slots, s_max // bs) int32.  Block 0 is the reserved trash block
+    every unallocated entry points at.  Only full attention pages (a
+    window's ring overwrite has no stable position to map through a
+    table)."""
+    if cfg.window:
+        raise ValueError("paged KV cache requires full attention "
+                         f"(window=None), got window={cfg.window}")
+    if s_max % block_size:
+        raise ValueError(f"s_max={s_max} must tile into whole blocks of "
+                         f"{block_size}")
+    _check_supported(cfg)
+    device = resolve_device(device)
+    shape = (cfg.n_layers, num_blocks, block_size, cfg.n_kv_heads,
+             cfg.head_dim)
+    return {"k": torch.zeros(shape, dtype=torch.int8, device=device),
+            "v": torch.zeros(shape, dtype=torch.int8, device=device),
+            "k_scale": torch.zeros(shape[:-1] + (1,), dtype=torch.float32,
+                                   device=device),
+            "v_scale": torch.zeros(shape[:-1] + (1,), dtype=torch.float32,
+                                   device=device),
+            "block_tables": torch.zeros((num_slots, s_max // block_size),
+                                        dtype=torch.int32, device=device)}
+
+
+def paged_block_axes(cache: dict) -> dict:
+    """Physical-block (NB) axis of each paged cache leaf."""
+    return {k: 1 for k in cache if k != "block_tables"}
+
+
 def decode_step(params: dict, tokens: Tensor, cache: dict, cache_index,
                 cfg: ArchConfig, *, mode: QuantMode = FP,
                 logits: bool = True) -> Tuple[Optional[Tensor], dict]:
@@ -147,11 +183,21 @@ def decode_step(params: dict, tokens: Tensor, cache: dict, cache_index,
     ``cache_index`` is an int when the whole batch advances in lockstep,
     or a (B,) int tensor when every row is an independent request at its
     own position (the slot engine).  ``logits=False`` skips the final norm
-    and LM head (chunked prefill discards them) and returns None."""
+    and LM head (chunked prefill discards them) and returns None.
+
+    A cache with ``block_tables`` (B, MB) is paged (:func:`init_paged_cache`
+    with the slots' tables, or a slice of them): row b's position p is
+    written to block ``block_tables[b, p // bs]`` at offset ``p % bs``,
+    and attention reads the row through its table."""
     _check_supported(cfg)
     b, s = tokens.shape
     device = tokens.device
-    s_alloc = cache["k"].shape[2]
+    tables = cache.get("block_tables")
+    if tables is not None:
+        bs = cache["k"].shape[2]
+        s_alloc = tables.shape[1] * bs
+    else:
+        s_alloc = cache["k"].shape[2]
     if isinstance(cache_index, int):
         positions = torch.full((b, s), cache_index, dtype=torch.int32,
                                device=device)
@@ -162,6 +208,10 @@ def decode_step(params: dict, tokens: Tensor, cache: dict, cache_index,
         positions = cache_index.reshape(b, 1).int()
         valid_len = torch.clamp_max(cache_index.int() + s, s_alloc)
         write_idx = (torch.arange(b, device=device), cache_index.long())
+    if tables is not None:
+        pos = positions[:, 0].long()
+        rows = torch.arange(b, device=device)
+        write_idx = (tables[rows, pos // bs].long(), pos % bs)
     acfg = attn_config(cfg)
     rope = L.rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta)
     x = L.embed(params["embed"], tokens)
@@ -171,7 +221,7 @@ def decode_step(params: dict, tokens: Tensor, cache: dict, cache_index,
         h = norm_apply(cfg, lp["ln_attn"], x)
         x = x + L.attention(lp["attn"], h, acfg, mode=mode, rope=rope,
                             kv_cache=kv, cache_index=write_idx,
-                            valid_len=valid_len)
+                            valid_len=valid_len, block_tables=tables)
         h = norm_apply(cfg, lp["ln_mlp"], x)
         x = x + L.mlp(lp["mlp"], h, gated=cfg.gated_mlp,
                       activation=cfg.activation, mode=mode)

@@ -70,7 +70,8 @@ def make_slot_decode_step(cfg: ArchConfig, *, mode: QuantMode = FP,
     Inactive rows emit 0 and keep their index; a row whose logits hold a
     NaN/Inf emits the sentinel -1.  Inactive rows still write their k/v at
     their frozen index, which no read can see (every read is masked at the
-    row's own frontier)."""
+    row's own frontier); on a paged cache they write through their table,
+    into trash block 0 once the row is retired."""
     if temperature > 0.0:
         raise NotImplementedError(
             "temperature sampling is not ported yet (ROADMAP queue 1, "
@@ -102,15 +103,26 @@ def make_prefill_chunk_step(cfg: ArchConfig, *, mode: QuantMode = FP,
     sequential reference (batch 1, lockstep index) on a view of the slot's
     cache row, so the written bytes are the per-token path's.  Padding
     tokens past ``n_valid`` are never run, which leaves the cache exactly
-    as unpadded prefill would."""
+    as unpadded prefill would.
+
+    Paged cache: the step runs on the physical pool itself with the
+    slot's table row as a (1, MB) table, and writes only positions
+    ``start .. start + n_valid - 1``, which lie in blocks the slot owns
+    privately — a shared prefix block is never written.  (The reference
+    gathers the row into a contiguous view and scatters every block back,
+    which keeps its CPU path byte-identical under a functional update.)"""
     decode = make_decode_step(cfg, mode=mode)
 
     def step(params, tokens, cache, sid: int, start: int, n_valid: int):
         if len(tokens) != chunk:
             raise ValueError(f"chunk step of {chunk} got {len(tokens)} "
                              f"tokens")
-        axes = R.cache_batch_axes(cfg, cache)
-        row = {k: v.narrow(axes[k], int(sid), 1) for k, v in cache.items()}
+        sid = int(sid)
+        if "block_tables" in cache:
+            row = dict(cache, block_tables=cache["block_tables"][sid:sid + 1])
+        else:
+            axes = R.cache_batch_axes(cfg, cache)
+            row = {k: v.narrow(axes[k], sid, 1) for k, v in cache.items()}
         toks = torch.as_tensor(tokens, dtype=torch.int32,
                                device=cache["k"].device)
         for i in range(int(n_valid)):

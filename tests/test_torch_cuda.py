@@ -1,5 +1,6 @@
 """The port on the card: each CUDA kernel against its plain version, and
-the engine bit-for-bit against its sequential reference, at small shapes.
+the engine, contiguous and paged, bit-for-bit against its sequential
+reference, at small shapes.
 
 Every test here is marked ``gpu`` and skips without a CUDA device; the
 module imports no JAX, so it also runs where only the port is installed:
@@ -111,5 +112,90 @@ def test_engine_on_card_equals_reference(cuda):
     assert K.qmatmul_w8a16.launches > launches
     assert K.qmatmul_w8a16_ref.calls == 0
     assert A.decode_attention_int8_ref.calls == 0
+    assert rep.outputs() == E.reference_outputs(
+        cfg, params, reqs, mode=W8A16, max_seq=eng.max_seq)
+
+
+def _paged_case(cuda, g, seed, b=4, bs=16, mb=20, kvh=2, hd=128):
+    """Physical blocks, shuffled non-contiguous tables with trash entries
+    past each row's frontier, ragged valid_len including 0, one block and
+    more than two 128-slot tiles."""
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    nb = b * mb + 1
+    q = torch.randn((b, kvh, g, hd), generator=gen,
+                    device=cuda).to(torch.bfloat16)
+    k = torch.randint(-127, 128, (nb, bs, kvh, hd), generator=gen,
+                      device=cuda, dtype=torch.int8)
+    v = torch.randint(-127, 128, (nb, bs, kvh, hd), generator=gen,
+                      device=cuda, dtype=torch.int8)
+    ks = torch.rand((nb, bs, kvh, 1), generator=gen, device=cuda) * 0.02 \
+        + 1e-3
+    vs = torch.rand((nb, bs, kvh, 1), generator=gen, device=cuda) * 0.02 \
+        + 1e-3
+    vls = [0, 1, 130, mb * bs][:b]
+    perm = torch.randperm(nb - 1, generator=torch.Generator().manual_seed(
+        seed)) + 1
+    tables = torch.zeros((b, mb), dtype=torch.int32)
+    for r, n in enumerate(vls):
+        used = -(-n // bs)
+        tables[r, :used] = perm[r * mb:r * mb + used]
+    vl = torch.tensor(vls, dtype=torch.int32, device=cuda)
+    return q, k, v, ks, vs, vl, tables.to(cuda)
+
+
+@pytest.mark.parametrize("append", [False, True])
+@pytest.mark.parametrize("g_heads", [1, 12])
+def test_paged_kernel_matches_plain(cuda, g_heads, append):
+    """The paged kernel against its plain version: the same f32 online
+    softmax against a dense one, as for the contiguous kernel (1e-4
+    relative, 1e-5 absolute)."""
+    q, k, v, ks, vs, vl, tables = _paged_case(cuda, g_heads, 3)
+    kn = vn = None
+    if append:
+        g = torch.Generator(device=cuda).manual_seed(4)
+        kn = torch.randn((q.shape[0], q.shape[1], q.shape[3]), generator=g,
+                         device=cuda)
+        vn = torch.randn(kn.shape, generator=g, device=cuda)
+    got = A.decode_attention_int8_paged(q, k, v, ks, vs, vl, tables,
+                                        k_new=kn, v_new=vn)
+    want = A.decode_attention_int8_paged_ref(q, k, v, ks, vs, vl, tables,
+                                             k_new=kn, v_new=vn)
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("bs", [8, 16, 256])
+def test_paged_kernel_bitwise_equals_contiguous_kernel(cuda, bs):
+    """Whatever the block size, the paged kernel computes a row's bits as
+    the contiguous kernel does on the gathered view — the property the
+    paged engine's parity with its contiguous reference needs."""
+    q, k, v, ks, vs, vl, tables = _paged_case(cuda, 12, 5, bs=bs,
+                                              mb=320 // bs)
+    got = A.decode_attention_int8_paged(q, k, v, ks, vs, vl, tables)
+    g = A.paged_gather
+    want = A.decode_attention_int8(
+        q, g(k, tables).contiguous(), g(v, tables).contiguous(),
+        g(ks, tables).contiguous(), g(vs, tables).contiguous(), vl)
+    assert torch.equal(got, want)
+
+
+def test_paged_engine_on_card_equals_reference(cuda):
+    """Reduced starcoder2-3b on the card, paged with shared prefix blocks:
+    every token equal to the contiguous sequential reference, blocks
+    shared and all returned, and only the kernels launched."""
+    cfg = dataclasses.replace(get_config("starcoder2-3b").reduced(),
+                              kv_quant=True)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    params = quantize_tree(R.init(gen, cfg, device=cuda), min_size=2048)
+    reqs = E.synthetic_requests(12, rate_per_s=2000.0, vocab=cfg.vocab,
+                                prompt_len=6, max_new_tokens=5,
+                                shared_prefix_len=4)
+    eng = E.Engine(cfg, params, mode=W8A16, num_slots=4, max_seq=16,
+                   prefill_chunk=4, block_size=4)
+    A.decode_attention_int8_paged_ref.calls = 0
+    launches = A.decode_attention_int8_paged.launches
+    rep = eng.serve(reqs)
+    assert A.decode_attention_int8_paged.launches > launches
+    assert A.decode_attention_int8_paged_ref.calls == 0
+    assert rep.shared_block_hits > 0 and rep.leaked_blocks == 0
     assert rep.outputs() == E.reference_outputs(
         cfg, params, reqs, mode=W8A16, max_seq=eng.max_seq)

@@ -203,7 +203,7 @@ def test_engine_rejects_oversized_request(setup):
 
 def test_unported_options_name_their_roadmap_item(setup):
     _, cfg, _, params, reqs = setup
-    for kw in ({"block_size": 16}, {"temperature": 0.5}, {"spec_k": 2},
+    for kw in ({"temperature": 0.5}, {"spec_k": 2},
                {"models": {"a": (cfg, params)}}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             _engine(cfg, params, **kw)
