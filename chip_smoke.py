@@ -13,7 +13,7 @@ Phases, each of which fails the run (non-zero exit, no result line):
    its plain PyTorch version on the same inputs on the card, within the
    stated tolerance, and time kernel, plain version, one PyTorch library
    call as a yardstick, and the card's bound (bytes over 3.35 TB/s, or
-   operations over the bf16 peak, whichever is larger); the paged
+   operations over the bf16 or int8 peak, whichever is larger); the paged
    attention kernel is also held bitwise against the contiguous one on
    the gathered view;
 3. slice: full-width starcoder2-3b (random weights from a seeded
@@ -26,7 +26,20 @@ Phases, each of which fails the run (non-zero exit, no result line):
    (``Engine(block_size=16, num_blocks=25)``, 24 requests sharing a
    16-token prompt prefix), counters zeroed just before and read just
    after; prefix blocks must be shared, none leaked, and three requests
-   (one that shared) equal the contiguous sequential reference.
+   (one that shared) equal the contiguous sequential reference;
+5. serve: the serve launcher (``repro_torch.launch.serve.run``) at full
+   starcoder2-3b width with the bf16 KV cache, once with ``--quant w8a16``
+   and once with ``--quant w8a8``: the service curve through the
+   full-sequence forward (flash attention), the Table 4 batch choice, the
+   decode loop and a wall-clock ``Engine.serve``, counters zeroed just
+   before each run and read just after, then where one 16 x 32-token
+   prefill spends its time; the w8a16 run's first three requests are
+   compared with ``reference_outputs`` (bf16 cache) on the card.
+
+The kernel phase also holds ``qmatmul_w8a8`` (every projection at M = 8
+and M = 512, its int32 accumulate bitwise) and ``flash_attention_bhsd``
+(the service curve's shapes, plus a window and a ``kv_len < Skv`` case)
+against their plain versions and times them.
 
 It prints the card's name and power limit, a JSON line with every kernel's
 numbers, and, last, ``{"ok": true, "device": {...}}``.  Without a CUDA
@@ -73,8 +86,24 @@ PAGED_NUM_BLOCKS = 1 + 6 * math.ceil((PAGED_PROMPT_LEN + MAX_NEW)
                                      / PAGED_BLOCK)
 PAGED_RATE_PER_S = 2.0
 
+# the serve phase: the launcher's flags.  The deadline is chosen from the
+# first full-width run's curve (PERF.md, Findings): there the modeled p99 of
+# batch 16 was 244 ms (w8a16) and 215 ms (w8a8), so 500 ms leaves twice
+# that for run-to-run spread and the Table 4 policy picks the largest
+# measured batch, which fills the 16-slot pool.
+SERVE_DEADLINE_MS = 500.0
+SERVE_MAX_BATCH = 16
+SERVE_SEQ = 32
+SERVE_ROWS = SERVE_MAX_BATCH * SERVE_SEQ     # M of the curve's largest prefill
+SERVE_ARGS = ["--arch", "starcoder2-3b", "--max-batch", str(SERVE_MAX_BATCH),
+              "--seq", str(SERVE_SEQ), "--decode-tokens", "16",
+              "--n-requests", "16", "--prompt-len", "16",
+              "--gen-tokens", "16", "--prefill-chunk", str(PREFILL_CHUNK),
+              "--deadline-ms", str(SERVE_DEADLINE_MS), "--seed", str(SEED)]
+
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM data sheet
 BF16_OPS_PER_S = 989e12          # dense bf16 tensor-core peak
+INT8_OPS_PER_S = 1979e12         # dense int8 tensor-core peak
 L2_FLUSH_BYTES = 128 << 20       # > the 50 MB L2: every launch starts cold
 
 KERNELS = {
@@ -90,6 +119,14 @@ KERNELS = {
         "source":
             "src/repro_torch/kernels/csrc/decode_attention_int8_paged.cu",
         "replaces": "src/repro/kernels/decode_attention.py:185",
+    },
+    "qmatmul_w8a8": {
+        "source": "src/repro_torch/kernels/csrc/qmatmul_w8a8.cu",
+        "replaces": "src/repro/kernels/qmatmul.py:111",
+    },
+    "flash_attention_bhsd": {
+        "source": "src/repro_torch/kernels/csrc/flash_attention_bhsd.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:87",
     },
 }
 
@@ -400,6 +437,171 @@ def paged_attention_phase(flush):
     return worst, tick
 
 
+def qmatmul_w8a8_phase(flush):
+    """Every projection of full-width starcoder2-3b under W8A8, at a decode
+    tick's M = 8 and at the service curve's largest prefill (M = 512),
+    with the activation each projection uses and bf16 out.  The int32
+    accumulate is held bitwise (unit scales, no bias, no activation); the
+    full drain to one bf16 ulp (bf16_close).  Yardstick: torch._int_mm and
+    the drain in PyTorch, or, where the build refuses that M, F.linear on
+    pre-dequantized bf16 weights."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import qmatmul as K
+
+    d, ff, kvd = 3072, 12288, 256
+    # (name, K, N, bias, activation, launches per forward)
+    shapes = [("wq", d, d, True, "none", 30),
+              ("wk|wv", d, kvd, True, "none", 60),
+              ("wo", d, d, False, "none", 30),
+              ("w_up", d, ff, False, "gelu", 30),
+              ("w_down", ff, d, False, "none", 30)]
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
+    keys = ("ms", "plain_ms", "bound_ms", "library_ms", "bytes_ms", "ops_ms")
+    per_m = {m: dict.fromkeys(keys, 0.0) for m in (NUM_SLOTS, SERVE_ROWS)}
+    worst_err, worst_ratio, library = 0.0, 0.0, set()
+    for name, k, n, has_bias, act, per_fwd in shapes:
+        w = torch.randint(-127, 128, (k, n), generator=gen, device="cuda",
+                          dtype=torch.int8)
+        ws = torch.rand((n,), generator=gen, device="cuda") * 2e-3 + 1e-4
+        bias = (torch.randn((n,), generator=gen, device="cuda") * 0.1
+                if has_bias else None)
+        ones = torch.ones((n,), device="cuda")
+        w_lib = (w.float() * ws).to(torch.bfloat16).t()   # (N, K) view
+        for m in (NUM_SLOTS, SERVE_ROWS):
+            x = torch.randint(-127, 128, (m, k), generator=gen,
+                              device="cuda", dtype=torch.int8)
+            xs = torch.rand((), generator=gen, device="cuda") * 0.05 + 1e-3
+            one = torch.ones((), device="cuda")
+            acc = K.qmatmul_w8a8(x, w, one, ones)
+            acc_ref = K.qmatmul_w8a8_ref(x, w, one, ones)
+            out = K.qmatmul_w8a8(x, w, xs, ws, bias, activation=act,
+                                 out_dtype=torch.bfloat16)
+            ref = K.qmatmul_w8a8_ref(x, w, xs, ws, bias, activation=act,
+                                     out_dtype=torch.bfloat16)
+            torch.cuda.synchronize()
+            if float(acc_ref.abs().max()) >= 2 ** 24:
+                raise AssertionError("int32 check: a sum is not exact in f32")
+            if not torch.equal(acc, acc_ref):
+                raise AssertionError(f"qmatmul_w8a8 {name} M={m}: the int32 "
+                                     f"accumulate is not bitwise equal to "
+                                     f"the plain version's")
+            if out.shape != ref.shape or not torch.isfinite(out).all():
+                raise AssertionError(f"qmatmul_w8a8 {name} M={m}: bad output")
+            err, ratio = bf16_close(out, ref, f32_out=False)
+            worst_err = max(worst_err, err)
+            worst_ratio = max(worst_ratio, ratio)
+            ms = time_ms(lambda: K.qmatmul_w8a8(
+                x, w, xs, ws, bias, activation=act,
+                out_dtype=torch.bfloat16), 20, flush)
+            plain = time_ms(lambda: K.qmatmul_w8a8_ref(
+                x, w, xs, ws, bias, activation=act,
+                out_dtype=torch.bfloat16), 3, flush)
+
+            def int_mm():
+                y = torch._int_mm(x, w).float() * xs * ws
+                if bias is not None:
+                    y = y + bias
+                return K.activate(y, act).to(torch.bfloat16)
+
+            try:
+                int_mm()
+                lib_fn, lib_name = int_mm, "torch._int_mm + drain"
+            except RuntimeError:
+                lib_fn = lambda: F.linear(  # noqa: E731
+                    x.to(torch.bfloat16) * xs.to(torch.bfloat16), w_lib,
+                    None if bias is None else bias.to(torch.bfloat16))
+                lib_name = "F.linear, bf16 weights"
+            library.add(lib_name)
+            lib = time_ms(lib_fn, 20, flush)
+            nbytes = (m * k + k * n + 4 + 4 * n + (4 * n if has_bias else 0)
+                      + 2 * m * n)
+            bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+            ops_ms = 2 * m * k * n / INT8_OPS_PER_S * 1e3
+            bound = max(bytes_ms, ops_ms)
+            print(f"  qmatmul_w8a8 {name:7s} M={m:3d} K={k:5d} N={n:5d} "
+                  f"act={act:4s} int32_bitwise=True "
+                  f"drain_bitwise={torch.equal(out, ref)} "
+                  f"max_abs_err={err:.3e} err/tol={ratio:.3f} ms={ms:.4f} "
+                  f"plain_ms={plain:.4f} library_ms={lib:.4f} ({lib_name}) "
+                  f"bound_ms={bound:.4f}")
+            if ratio > 1.0:
+                raise AssertionError(
+                    f"qmatmul_w8a8 {name} M={m}: kernel disagrees with its "
+                    f"plain version beyond tolerance (err/tol={ratio:.3f})")
+            for key, val in zip(keys, (ms, plain, bound, lib, bytes_ms,
+                                       ops_ms)):
+                per_m[m][key] += per_fwd * val
+    tick = per_m[NUM_SLOTS]
+    print(f"  qmatmul_w8a8 per {NUM_SLOTS}-row decode tick (30 layers x 6 "
+          f"projections): ms={tick['ms']:.4f} bound_ms={tick['bound_ms']:.4f} "
+          f"plain_ms={tick['plain_ms']:.4f} "
+          f"library_ms={tick['library_ms']:.4f}")
+    K.qmatmul_w8a8.launches = 0
+    K.qmatmul_w8a8_ref.calls = 0
+    return worst_err, per_m[SERVE_ROWS], " or ".join(sorted(library))
+
+
+def flash_phase(flush):
+    """flash_attention_bhsd at the service curve's shapes (BH = 24 heads x
+    batch 1, 4, 16; Sq = Skv = 32; hd 128; bf16; causal), plus a window
+    case and a kv_len < Skv case, against its plain version (bf16 out: one
+    bf16 ulp, bf16_close) and timed against its bound and SDPA."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as FA
+
+    h, s, hd = 24, SERVE_SEQ, 128
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    cases = [(h * b, None, None) for b in (1, 4, SERVE_MAX_BATCH)]
+    cases += [(h * 4, 8, None), (h * 4, None, 20)]
+    worst, fwd = 0.0, {}
+    for bh, window, kv_len in cases:
+        q, k, v = (torch.randn((bh, s, hd), generator=gen, device="cuda")
+                   .to(torch.bfloat16) for _ in range(3))
+        kw = dict(causal=True, window=window, kv_len=kv_len)
+        out = FA.flash_attention_bhsd(q, k, v, **kw)
+        ref = FA.flash_attention_ref(q, k, v, **kw)
+        torch.cuda.synchronize()
+        if out.shape != ref.shape or not torch.isfinite(out).all():
+            raise AssertionError(f"flash BH={bh}: bad output")
+        err, ratio = bf16_close(out, ref, f32_out=False)
+        worst = max(worst, err)
+        ms = time_ms(lambda: FA.flash_attention_bhsd(q, k, v, **kw), 20,
+                     flush)
+        plain = time_ms(lambda: FA.flash_attention_ref(q, k, v, **kw), 3,
+                        flush)
+        lib = time_ms(lambda: F.scaled_dot_product_attention(
+            q[None], k[None], v[None], is_causal=True), 20, flush)
+        kvl = s if kv_len is None else kv_len
+        qpos = torch.arange(s)[:, None]
+        kpos = torch.arange(s)[None, :]
+        valid = (kpos <= qpos) & (kpos < kvl)
+        if window is not None:
+            valid &= kpos > qpos - window
+        pairs = int(valid.sum())
+        bytes_ms = 4 * bh * s * hd * 2 / HBM_BYTES_PER_S * 1e3
+        ops_ms = 4 * bh * pairs * hd / BF16_OPS_PER_S * 1e3
+        bound = max(bytes_ms, ops_ms)
+        print(f"  flash_attention_bhsd BH={bh} S={s} hd={hd} causal "
+              f"window={window} kv_len={kv_len} max_abs_err={err:.3e} "
+              f"err/tol={ratio:.3f} ms={ms:.4f} plain_ms={plain:.4f} "
+              f"library_ms={lib:.4f} (SDPA, causal only) "
+              f"bound_ms={bound:.5f}")
+        if ratio > 1.0:
+            raise AssertionError(
+                f"flash BH={bh} window={window} kv_len={kv_len}: kernel "
+                f"disagrees with its plain version beyond tolerance "
+                f"(err/tol={ratio:.3f})")
+        if bh == h * SERVE_MAX_BATCH:     # one forward at the largest batch
+            fwd = {"ms": 30 * ms, "plain_ms": 30 * plain,
+                   "bound_ms": 30 * bound, "library_ms": 30 * lib,
+                   "bytes_ms": 30 * bytes_ms, "ops_ms": 30 * ops_ms}
+    FA.flash_attention_bhsd.launches = 0
+    FA.flash_attention_ref.calls = 0
+    return worst, fwd
+
+
 # ---------------------------------------------------------------------------
 # slice phase
 # ---------------------------------------------------------------------------
@@ -425,28 +627,32 @@ def build_model():
     return cfg, params
 
 
-def zero_counts() -> None:
+def _counted():
+    """(every kernel wrapper, every plain version)."""
     from repro_torch.kernels import decode_attention as A
+    from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import qmatmul as K
-    for fn in (K.qmatmul_w8a16, A.decode_attention_int8,
-               A.decode_attention_int8_paged):
+    return ((K.qmatmul_w8a16, A.decode_attention_int8,
+             A.decode_attention_int8_paged, K.qmatmul_w8a8,
+             FA.flash_attention_bhsd),
+            (K.qmatmul_w8a16_ref, A.decode_attention_int8_ref,
+             A.decode_attention_int8_paged_ref, K.qmatmul_w8a8_ref,
+             FA.flash_attention_ref))
+
+
+def zero_counts() -> None:
+    kernels, plains = _counted()
+    for fn in kernels:
         fn.launches = 0
-    for fn in (K.qmatmul_w8a16_ref, A.decode_attention_int8_ref,
-               A.decode_attention_int8_paged_ref):
+    for fn in plains:
         fn.calls = 0
 
 
 def read_counts():
     """(kernel launches, plain-version calls) since :func:`zero_counts`."""
-    from repro_torch.kernels import decode_attention as A
-    from repro_torch.kernels import qmatmul as K
-    launches = {f.__name__: f.launches
-                for f in (K.qmatmul_w8a16, A.decode_attention_int8,
-                          A.decode_attention_int8_paged)}
-    plain = {f.__name__: f.calls
-             for f in (K.qmatmul_w8a16_ref, A.decode_attention_int8_ref,
-                       A.decode_attention_int8_paged_ref)}
-    return launches, plain
+    kernels, plains = _counted()
+    return ({f.__name__: f.launches for f in kernels},
+            {f.__name__: f.calls for f in plains})
 
 
 def check_served(label, cfg, rep, reqs) -> None:
@@ -600,21 +806,131 @@ def paged_slice_phase(cfg, params):
     return launches
 
 
+def serve_phase():
+    """The serve launcher at full width, --quant w8a16 then w8a8 (bf16 KV
+    cache), counters zeroed just before each run and read just after."""
+    from repro_torch.launch import serve
+
+    counts = {}
+    for quant in ("w8a16", "w8a8"):
+        label = f"serve {quant}"
+        print(f"{label}: python -m repro_torch.launch.serve "
+              f"{' '.join(SERVE_ARGS)} --quant {quant}")
+        t0 = time.perf_counter()
+        zero_counts()
+        res = serve.run(serve.parse_args(SERVE_ARGS + ["--quant", quant]))
+        launches, plain_calls = read_counts()
+        print(f"{label}: run {time.perf_counter() - t0:.1f}s, exit code "
+              f"{res.code}, curve {res.curve}, chosen batch {res.batch}, "
+              f"decode tok/s {res.decode_tokens_per_s}")
+        print(f"{label}: kernel launches {launches}, plain-version calls "
+              f"{plain_calls}")
+        if res.code != 0 or res.batch < 1:
+            raise AssertionError(f"{label}: exit code {res.code}, chosen "
+                                 f"batch {res.batch}")
+        rep = res.report
+        print(f"{label}: engine {rep.num_slots} slots, {len(rep.results)} "
+              f"requests in {rep.ticks} ticks, wall {rep.wall_s:.3f}s, "
+              f"p99 latency {rep.p99_latency_s:.3f}s, mean ttft "
+              f"{rep.mean_ttft_s:.3f}s, p99 ttft {rep.p99_ttft_s:.3f}s, "
+              f"decoded tok/s {rep.tokens_per_s:.1f}, mean occupancy "
+              f"{rep.mean_occupancy:.3f}, watchdog stuck ticks "
+              f"{rep.stuck_ticks}")
+        need = ["flash_attention_bhsd"] + (["qmatmul_w8a8"]
+                                           if quant == "w8a8" else [])
+        if any(launches[k] <= 0 for k in need):
+            raise AssertionError(f"{label}: a kernel of the path never "
+                                 f"launched: {launches}")
+        if any(plain_calls.values()):
+            raise AssertionError(f"{label}: the CUDA path reached a plain "
+                                 f"version: {plain_calls}")
+        if rep.failed or rep.dropped or rep.unfinished or len(
+                rep.results) != len(res.requests) or any(
+                r.status != "ok" for r in rep.results):
+            raise AssertionError(f"{label}: a request failed: failed "
+                                 f"{rep.failed}, dropped {rep.dropped}, "
+                                 f"unfinished {rep.unfinished}")
+        counts[quant] = launches
+        forward_breakdown(label, res)
+        if quant == "w8a16":
+            w8a16 = res               # compared after both runs
+        del res
+    compare_with_reference("serve w8a16", w8a16.cfg, w8a16.params,
+                           w8a16.engine, w8a16.requests[:N_COMPARE],
+                           w8a16.report.outputs())
+    del w8a16
+    torch_cuda_empty()
+    return counts
+
+
+def torch_cuda_empty() -> None:
+    import gc
+
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def device_breakdown(label: str, what: str, fn, reps: int) -> None:
+    """Where one call of ``fn`` spends its time: host wall clock per call
+    (each ending in a wait for the card) over ``reps`` calls, then the
+    device's busy time, its largest kernels and the host's largest ops
+    from torch.profiler over ``reps`` more."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    def call():
+        fn()
+        torch.cuda.synchronize()
+
+    with torch.inference_mode():
+        call()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            call()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / reps
+        warnings.filterwarnings("ignore", message=".*Profiler clears")
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                call()
+    # device-side events (kernels, copies) only: host ops carry the device
+    # time of what they launched too
+    events = [e for e in prof.key_averages()
+              if str(e.device_type).endswith("CUDA")]
+    dev_us = sum(e.self_device_time_total for e in events)
+    if dev_us <= 0:
+        print(f"{label}: {what} wall {wall_ms:.2f} ms, device busy not "
+              f"measured (the profiler reported no device time)")
+        return
+    busy_ms = dev_us / 1e3 / reps
+    print(f"{label}: {what} wall {wall_ms:.2f} ms, device busy "
+          f"{busy_ms:.3f} ms ({100 * busy_ms / wall_ms:.1f}%), idle "
+          f"{100 * (1 - busy_ms / wall_ms):.1f}%")
+    for us, key in sorted(((e.self_device_time_total, e.key)
+                           for e in events), reverse=True)[:6]:
+        print(f"  device time per call {us / 1e3 / reps:.3f} ms: "
+              f"{key[:90]}")
+    host = [e for e in prof.key_averages()
+            if not str(e.device_type).endswith("CUDA")]
+    for us, n, key in sorted(((e.self_cpu_time_total, e.count, e.key)
+                              for e in host), reverse=True)[:8]:
+        print(f"  host time per call {us / 1e3 / reps:.3f} ms in "
+              f"{n // reps} calls: {key[:60]}")
+
+
 def tick_breakdown(cfg, params, eng, ticks: int = 10,
                    paged: bool = False) -> None:
     """Where one steady-state slot tick's time goes: all slots active at a
-    mid-sequence position; host wall clock per tick (ending in a wait for
-    the card) beside the device's busy time from the profiler.  ``paged``:
-    the same tick on a paged cache, every slot's row on blocks of its own
-    (the default pool of ``num_slots * max_blocks + 1`` blocks)."""
+    mid-sequence position.  ``paged``: the same tick on a paged cache,
+    every slot's row on blocks of its own (the default pool of
+    ``num_slots * max_blocks + 1`` blocks)."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
     from repro_torch.core.qlinear import W8A16
     from repro_torch.models import registry as R
     from repro_torch.runtime import steps as ST
 
     S = eng.num_slots
-    label = "paged tick" if paged else "tick"
     step = ST.make_slot_decode_step(cfg, mode=W8A16)
     with torch.inference_mode():
         if paged:
@@ -629,49 +945,23 @@ def tick_breakdown(cfg, params, eng, ticks: int = 10,
         idx = torch.full((S,), eng.max_seq // 2, dtype=torch.int32,
                          device="cuda")
         active = torch.ones((S,), dtype=torch.bool, device="cuda")
+    device_breakdown("paged tick" if paged else "tick",
+                     f"steady-state slot tick ({S} active rows)",
+                     lambda: step(params, toks, cache, idx, active)[0].cpu(),
+                     ticks)
 
-        def tick():
-            nxt, _, _ = step(params, toks, cache, idx, active)
-            return nxt.cpu()
 
-        tick()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(ticks):
-            tick()
-        wall_ms = (time.perf_counter() - t0) * 1e3 / ticks
-        warnings.filterwarnings("ignore", message=".*Profiler clears")
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(ticks):
-                tick()
-        # device-side events (kernels, copies) only: host ops carry the
-        # device time of what they launched too
-        events = [e for e in prof.key_averages()
-                  if str(e.device_type).endswith("CUDA")]
-        dev_us = sum(e.self_device_time_total for e in events)
-        per_kernel = sorted(((e.self_device_time_total, e.key)
-                             for e in events), reverse=True)[:6]
-        host = [e for e in prof.key_averages()
-                if not str(e.device_type).endswith("CUDA")]
-        per_op = sorted(((e.self_cpu_time_total, e.count, e.key)
-                         for e in host), reverse=True)[:8]
-    if dev_us > 0:
-        busy_ms = dev_us / 1e3 / ticks
-        print(f"{label}: steady-state slot tick ({S} active rows) wall "
-              f"{wall_ms:.2f} ms, device busy {busy_ms:.3f} ms "
-              f"({100 * busy_ms / wall_ms:.1f}%), idle "
-              f"{100 * (1 - busy_ms / wall_ms):.1f}%")
-        for us, key in per_kernel:
-            print(f"  device time per tick {us / 1e3 / ticks:.3f} ms: "
-                  f"{key[:90]}")
-        for us, n, key in per_op:
-            print(f"  host time per tick {us / 1e3 / ticks:.3f} ms in "
-                  f"{n // ticks} calls: {key[:60]}")
-    else:
-        print(f"{label}: steady-state slot tick ({S} active rows) wall "
-              f"{wall_ms:.2f} ms, device busy not measured (the profiler "
-              f"reported no device time)")
+def forward_breakdown(label: str, res) -> None:
+    """Where the service curve's largest prefill spends its time: one
+    full-sequence forward of SERVE_MAX_BATCH x SERVE_SEQ tokens."""
+    import torch
+    from repro_torch.runtime import steps as ST
+
+    prefill = ST.make_prefill_step(res.cfg, mode=res.mode)
+    batch = {"tokens": torch.zeros((SERVE_MAX_BATCH, SERVE_SEQ),
+                                   dtype=torch.int32, device="cuda")}
+    device_breakdown(label, f"prefill of {SERVE_MAX_BATCH} x {SERVE_SEQ} "
+                     f"tokens", lambda: prefill(res.params, batch), 3)
 
 
 def main() -> int:
@@ -719,6 +1009,8 @@ def main() -> int:
     max_seq = PROMPT_LEN + MAX_NEW
     a_err, a_tick = attention_phase(flush, max_seq + (-max_seq) % 16)
     p_err, p_tick = paged_attention_phase(flush)
+    w8_err, w8_fwd, w8_lib = qmatmul_w8a8_phase(flush)
+    f_err, f_fwd = flash_phase(flush)
     del flush_buf
 
     # the tick watchdog flags chunked-prefill ticks as stragglers; they
@@ -727,27 +1019,49 @@ def main() -> int:
     cfg, params = build_model()
     launches = slice_phase(cfg, params)
     paged_launches = paged_slice_phase(cfg, params)
+    del params
+    torch_cuda_empty()
+    serve_launches = serve_phase()
 
+    tick_basis = (f"one {{}} of {NUM_SLOTS} rows at full width: the sum "
+                  f"over that tick's launches")
+    fwd_basis = (f"one full-width forward of {SERVE_MAX_BATCH} x "
+                 f"{SERVE_SEQ} tokens (the service curve's largest "
+                 f"prefill): the sum over its launches")
+    flash_runs = sum(c["flash_attention_bhsd"]
+                     for c in serve_launches.values())
     kernels = []
     for name, err, tick, n, basis in (
-            ("qmatmul_w8a16", q_err, q_tick, launches, "slot tick"),
-            ("decode_attention_int8", a_err, a_tick, launches, "slot tick"),
-            ("decode_attention_int8_paged", p_err, p_tick, paged_launches,
-             "paged slot tick")):
+            ("qmatmul_w8a16", q_err, q_tick, launches["qmatmul_w8a16"],
+             tick_basis.format("slot tick")),
+            ("decode_attention_int8", a_err, a_tick,
+             launches["decode_attention_int8"],
+             tick_basis.format("slot tick")),
+            ("decode_attention_int8_paged", p_err, p_tick,
+             paged_launches["decode_attention_int8_paged"],
+             tick_basis.format("paged slot tick")),
+            ("qmatmul_w8a8", w8_err, w8_fwd,
+             serve_launches["w8a8"]["qmatmul_w8a8"],
+             f"{fwd_basis}; library {w8_lib}; launches: the w8a8 serve "
+             f"run"),
+            ("flash_attention_bhsd", f_err, f_fwd, flash_runs,
+             f"{fwd_basis}; library SDPA (is_causal); launches: the w8a16 "
+             f"and w8a8 serve runs")):
         kernels.append({
             "name": name, "route": "cuda", **KERNELS[name],
-            "launches": n[name], "max_abs_err": err,
+            "launches": n, "max_abs_err": err,
             "ms": tick["ms"], "plain_ms": tick["plain_ms"],
             "bound_ms": tick["bound_ms"],
             "bound_by": ("bytes" if tick["bytes_ms"] >= tick["ops_ms"]
                          else "operations"),
             "library_ms": tick["library_ms"],
-            "basis": f"one {basis} of {NUM_SLOTS} rows at full width: "
-                     f"the sum over that tick's launches"})
+            "basis": basis})
     for k in kernels:
         for key in ("ms", "plain_ms", "bound_ms", "library_ms"):
             if not math.isfinite(k[key]):
                 return fail(f"{k['name']}: {key} is not finite")
+        if k["launches"] <= 0:
+            return fail(f"{k['name']}: no launch on its path")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

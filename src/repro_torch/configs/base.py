@@ -3,15 +3,17 @@
 Each assigned architecture file instantiates one ``ArchConfig`` with the
 exact published dimensions and registers it.  ``reduced()`` derives the
 small same-family variant used by CPU smoke tests.  ``model_flops``
-feeds roofline arithmetic.  The JAX package's ``input_specs`` (dry-run
-``ShapeDtypeStruct`` stand-ins) has no counterpart here: the port has no
-dry-run yet (ROADMAP queue 1, item 16).
+feeds roofline arithmetic.  ``input_specs`` gives the (shape, dtype) of
+every model input of a cell, as the JAX package's ``ShapeDtypeStruct``
+stand-ins do, for the token-only families.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
 from typing import Dict, Optional, Tuple
+
+import torch
 
 
 FAMILIES = ("dense", "moe", "ssm", "hybrid", "encdec", "vlm")
@@ -159,6 +161,24 @@ class ArchConfig:
         if shape.kind == "prefill":
             return 2.0 * n_act * shape.seq_len * shape.global_batch
         return 2.0 * n_act * shape.global_batch
+
+    def input_specs(self, shape: ShapeSpec
+                    ) -> Dict[str, Tuple[Tuple[int, ...], torch.dtype]]:
+        """``{name: (shape, dtype)}`` of every model input of this cell.
+        The encoder-conditioned families' stub embeds come with those
+        families (ROADMAP queue 1, item 13)."""
+        if self.family in ("encdec", "vlm"):
+            raise NotImplementedError(
+                f"input specs of family {self.family!r} are not ported yet "
+                f"(ROADMAP queue 1, item 13)")
+        b, s = shape.global_batch, shape.seq_len
+        i32 = torch.int32
+        if shape.kind == "train":
+            return {"tokens": ((b, s), i32), "labels": ((b, s), i32)}
+        if shape.kind == "prefill":
+            return {"tokens": ((b, s), i32)}
+        # decode: one new token against an S-long cache
+        return {"tokens": ((b, 1), i32), "cache_index": ((), i32)}
 
     def supports(self, shape: ShapeSpec) -> Tuple[bool, str]:
         """(runnable, reason-if-not) for an (arch x shape) cell."""

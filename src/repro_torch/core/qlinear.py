@@ -7,8 +7,8 @@ the bf16 path to the paper's int8 serving path:
 - fp weight (tensor)          -> plain ``torch.matmul``, bf16 inputs, f32
                                  accumulate (the reference leaves it to XLA)
 - QTensor weight, W8A16       -> ``kernels.ops.qmatmul`` (weight-only int8)
-- QTensor weight, W8A8        -> not ported yet: its kernel is ROADMAP
-                                 queue 2, kernel 4
+- QTensor weight, W8A8        -> ``kernels.ops.qmatmul_dynamic`` (int8
+                                 activations, one scale per tensor)
 """
 from __future__ import annotations
 
@@ -45,12 +45,8 @@ def linear(params: dict, x: torch.Tensor, *, activation: str = "none",
     w = params["w"]
     b = params.get("b")
     if isinstance(w, QTensor):
-        if mode.w8a8:
-            raise NotImplementedError(
-                "W8A8 needs the qmatmul_w8a8 kernel, which is not ported "
-                "yet (ROADMAP queue 2, kernel 4)")
-        return ops.qmatmul(x, w, b, activation=activation,
-                           out_dtype=x.dtype)
+        fn = ops.qmatmul_dynamic if mode.w8a8 else ops.qmatmul
+        return fn(x, w, b, activation=activation, out_dtype=x.dtype)
     y = torch.matmul(x.to(compute_dtype).float(), w.to(compute_dtype).float())
     if b is not None:
         y = y + b.float()

@@ -143,6 +143,8 @@ class Engine:
                 raise ValueError(
                     f"family {cfg.family!r} (window={cfg.window}) does "
                     f"not support the paged KV cache")
+            if not cfg.kv_quant:
+                raise _not_ported("the paged bf16 KV cache", "17")
         self.cfg, self.params = cfg, params
         self.mode = mode
         self.temperature = temperature
@@ -170,6 +172,33 @@ class Engine:
         self.backend = backend if backend is not None \
             else SingleDeviceExecutor()
         self.backend.validate(self)
+
+    def warmup(self) -> None:
+        """Run the slot step (and, with chunked prefill, the chunk step)
+        once on a throwaway cache, so that a wall-clock ``serve`` charges
+        its first tick to serving, not to building and loading the
+        kernels or to the libraries' first-call set-up."""
+        S = self.num_slots
+        dev = self.device
+        with torch.inference_mode():
+            if self.block_size:
+                cache = R.init_paged_cache(self.cfg, S, self.max_seq,
+                                           self.block_size, self.num_blocks,
+                                           device=dev)
+            else:
+                cache = R.init_cache(self.cfg, S, self.max_seq, device=dev)
+            step = self.backend.slot_step(self.cfg, mode=self.mode,
+                                          temperature=self.temperature)
+            step(self.params, torch.zeros((S, 1), dtype=torch.int32,
+                                          device=dev), cache,
+                 torch.zeros((S,), dtype=torch.int32, device=dev),
+                 torch.zeros((S,), dtype=torch.bool, device=dev))
+            if self.prefill_chunk:
+                chunk = self.backend.chunk_step(self.cfg, mode=self.mode,
+                                                chunk=self.prefill_chunk)
+                chunk(self.params, [0] * self.prefill_chunk, cache, 0, 0, 1)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
 
     def serve(self, requests: Sequence[EngineRequest], *,
               clock: str = "virtual",

@@ -32,6 +32,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "epilogue.cuh"
+
 namespace {
 
 constexpr int BN = 32;             // output columns per block
@@ -63,29 +65,6 @@ __device__ __forceinline__ void load_x8(const float* p, float (&out)[G]) {
 __device__ __forceinline__ void load_w(const int8_t* w, size_t row_stride, int (&out)[G]) {
 #pragma unroll
   for (int u = 0; u < G; ++u) out[u] = __ldg(reinterpret_cast<const int*>(w + u * row_stride));
-}
-
-__device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float v) { *p = __float2bfloat16(v); }
-
-// Activation codes follow ACTIVATIONS in kernels/qmatmul.py.
-__device__ __forceinline__ float activate(float v, int act) {
-  switch (act) {
-    case 1:
-      return fmaxf(v, 0.f);
-    case 2: {  // tanh-approximated GELU, as jax.nn.gelu
-      const float inner = 0.7978845608028654f * (v + 0.044715f * v * v * v);
-      return 0.5f * v * (1.f + tanhf(inner));
-    }
-    case 3:
-      return v / (1.f + expf(-v));
-    case 4:
-      return tanhf(v);
-    case 5:
-      return 1.f / (1.f + expf(-v));
-    default:
-      return v;
-  }
 }
 
 template <typename XT, typename OT>

@@ -17,20 +17,35 @@ from typing import Optional
 
 import torch
 
+from repro_torch.core.quant import QTensor, quantize
 from repro_torch.kernels import decode_attention as _da
+from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import qmatmul as _k
 
 
 def qmatmul(x: torch.Tensor, w, bias: Optional[torch.Tensor] = None, *,
-            activation: str = "none",
+            x_q: Optional[QTensor] = None, activation: str = "none",
             out_dtype=torch.bfloat16) -> torch.Tensor:
-    """act((x @ dequant(w)) + bias) with int8 weights (weight-only W8A16).
+    """act((x @ dequant(w)) + bias) with int8 weights.
 
     ``x`` (..., K) bf16/f32; ``w`` a QTensor (K, N) with one scale per
-    column.  The per-tensor-activation W8A8 form (``qmatmul_dynamic``) is
-    not ported yet (ROADMAP queue 2, kernel 4)."""
+    column.  If ``x_q`` is given (``x`` quantized to int8 with one scale
+    for the whole tensor), the W8A8 integer path runs; otherwise
+    weight-only W8A16."""
     lead = x.shape[:-1]
     n = w.shape[-1]
+    if x_q is not None:
+        xq2 = x_q.values.reshape(-1, x.shape[-1])
+        xs = x_q.scale.reshape(())
+        if xq2.is_cuda:
+            out = _k.qmatmul_w8a8(xq2.contiguous(), w.values, xs, w.scale,
+                                  bias, activation=activation,
+                                  out_dtype=out_dtype)
+        else:
+            out = _k.qmatmul_w8a8_ref(xq2, w.values, xs, w.scale, bias,
+                                      activation=activation,
+                                      out_dtype=out_dtype)
+        return out.reshape(*lead, n)
     x2 = x.reshape(-1, x.shape[-1])
     if x2.is_cuda:
         out = _k.qmatmul_w8a16(x2.contiguous(), w.values, w.scale,
@@ -41,6 +56,16 @@ def qmatmul(x: torch.Tensor, w, bias: Optional[torch.Tensor] = None, *,
                                    activation=activation,
                                    out_dtype=out_dtype)
     return out.reshape(*lead, n)
+
+
+def qmatmul_dynamic(x: torch.Tensor, w, bias: Optional[torch.Tensor] = None,
+                    *, activation: str = "none",
+                    out_dtype=torch.bfloat16) -> torch.Tensor:
+    """W8A8 with the activations quantized on the fly, one scale for the
+    whole tensor (the TPU's quantize-on-entry to the Unified Buffer)."""
+    x_q = quantize(x.float(), bits=8, axis=None)
+    return qmatmul(x, w, bias, x_q=x_q, activation=activation,
+                   out_dtype=out_dtype)
 
 
 def decode_attention(q, k, v, k_scale, v_scale, valid_len, *,
@@ -79,3 +104,23 @@ def decode_attention(q, k, v, k_scale, v_scale, valid_len, *,
         out = _da.decode_attention_int8_ref(q, k, v, k_scale, v_scale, vl,
                                             k_new=k_new, v_new=v_new)
     return out.to(out_dtype)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: Optional[int] = None,
+                    out_dtype=None) -> torch.Tensor:
+    """Fused attention over a whole sequence.  q: (B, Sq, H, hd); k, v:
+    (B, Skv, H, hd) (KV already expanded to H heads); out (B, Sq, H, hd)
+    in ``out_dtype`` (default q's).  Every key is valid (kv_len = Skv) and
+    the scores are scaled by hd**-0.5."""
+    b, sq, h, hd = q.shape
+    skv = k.shape[1]
+    out_dtype = out_dtype or q.dtype
+    # at b == 1 the reshape is a strided view, not a copy
+    qr = q.transpose(1, 2).reshape(b * h, sq, hd).contiguous()
+    kr = k.transpose(1, 2).reshape(b * h, skv, hd).contiguous()
+    vr = v.transpose(1, 2).reshape(b * h, skv, hd).contiguous()
+    fn = _fa.flash_attention_bhsd if qr.is_cuda else _fa.flash_attention_ref
+    out = fn(qr, kr, vr, causal=causal, window=window, kv_len=skv,
+             sm_scale=hd ** -0.5, out_dtype=out_dtype)
+    return out.reshape(b, h, sq, hd).transpose(1, 2)

@@ -1,7 +1,8 @@
-"""Weight-only int8 matmul: the CUDA kernel's wrapper and its plain version.
+"""Quantized matmuls: the CUDA kernels' wrappers and their plain versions.
 
-``qmatmul_w8a16`` launches ``csrc/qmatmul_w8a16.cu``, the Hopper port of the
-Pallas TPU kernel ``repro/kernels/qmatmul.py::qmatmul_w8a16``.  It takes
+``qmatmul_w8a16`` (weight-only int8) launches ``csrc/qmatmul_w8a16.cu``,
+the Hopper port of the Pallas TPU kernel
+``repro/kernels/qmatmul.py::qmatmul_w8a16``.  It takes
 CUDA tensors only, checks them, allocates the output, launches on the
 current stream and raises if the launch was refused.  Each launch adds one
 to ``qmatmul_w8a16.launches``.
@@ -12,6 +13,14 @@ each row on its own, as a broadcast multiply and sum, so a row's result
 does not depend on how many rows are in the batch — a plain CPU
 ``x @ w`` does not have that property.  Each call adds one to
 ``qmatmul_w8a16_ref.calls``.
+
+``qmatmul_w8a8`` (int8 activations with one scale per tensor, int8
+weights, int32 accumulation) launches ``csrc/qmatmul_w8a8.cu``, the port
+of ``repro/kernels/qmatmul.py::qmatmul_w8a8``; each launch adds one to
+``qmatmul_w8a8.launches``.  Its plain version ``qmatmul_w8a8_ref`` (the
+port of ``ref.py::qmatmul_w8a8_ref``) sums each row's integer products
+exactly and drains them in the reference's order; each call adds one to
+``qmatmul_w8a8_ref.calls``.
 """
 from __future__ import annotations
 
@@ -68,9 +77,32 @@ def qmatmul_w8a16_ref(x: torch.Tensor, w: torch.Tensor,
 qmatmul_w8a16_ref.calls = 0
 
 
+def qmatmul_w8a8_ref(x: torch.Tensor, w: torch.Tensor, x_scale: torch.Tensor,
+                     w_scale: torch.Tensor,
+                     bias: Optional[torch.Tensor] = None, *,
+                     activation: str = "none",
+                     out_dtype=torch.float32) -> torch.Tensor:
+    """int8 acts (M, K) x int8 weights (K, N): exact integer sums, one row
+    at a time, then ``(float(acc) * x_scale) * w_scale[col]``, ``+ bias``
+    and the activation in f32."""
+    qmatmul_w8a8_ref.calls += 1
+    wi = w.int()
+    acc = torch.empty((x.shape[0], w.shape[1]), dtype=torch.int64,
+                      device=x.device)
+    for i in range(x.shape[0]):
+        acc[i] = (x[i].int()[:, None] * wi).sum(0)
+    out = acc.float() * x_scale.float() * w_scale.reshape(1, -1).float()
+    if bias is not None:
+        out = out + bias.reshape(1, -1).float()
+    return activate(out, activation).to(out_dtype)
+
+
+qmatmul_w8a8_ref.calls = 0
+
+
 @functools.lru_cache(maxsize=None)
 def _lib():
-    """The kernel's C entry point, built and bound once per process."""
+    """The w8a16 kernel's C entry point, built and bound once per process."""
     lib = _build.load("qmatmul_w8a16")
     fn = lib.qmatmul_w8a16
     fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
@@ -134,3 +166,74 @@ def qmatmul_w8a16(x: torch.Tensor, w: torch.Tensor, w_scale: torch.Tensor,
 
 
 qmatmul_w8a16.launches = 0
+
+
+@functools.lru_cache(maxsize=None)
+def _lib_w8a8():
+    """The w8a8 kernel's C entry point, built and bound once per process."""
+    lib = _build.load("qmatmul_w8a8")
+    fn = lib.qmatmul_w8a8
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                   ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def qmatmul_w8a8(x: torch.Tensor, w: torch.Tensor, x_scale: torch.Tensor,
+                 w_scale: torch.Tensor, bias: Optional[torch.Tensor] = None,
+                 *, activation: str = "none",
+                 out_dtype=torch.float32) -> torch.Tensor:
+    """act(float(x @ w) * x_scale * w_scale[col] + bias) on the card, with
+    int32 accumulation.
+
+    x: (M, K) int8 with K % 16 == 0; w: (K, N) int8 with N % 4 == 0;
+    x_scale: one f32 value (a device scalar); w_scale: N f32 values;
+    bias: (N,) f32 or None; out: (M, N) ``out_dtype`` (bf16/f32).  All
+    CUDA tensors, contiguous, on one device."""
+    if activation not in ACTIVATIONS:
+        raise ValueError(f"unknown activation {activation!r}")
+    if not x.is_cuda:
+        raise ValueError("qmatmul_w8a8 launches a CUDA kernel: x must be a "
+                         "CUDA tensor (CPU tensors go to qmatmul_w8a8_ref)")
+    if x.ndim != 2 or w.ndim != 2 or x.shape[1] != w.shape[0]:
+        raise ValueError(f"shapes x{tuple(x.shape)} @ w{tuple(w.shape)}")
+    m, k = x.shape
+    n = w.shape[1]
+    if out_dtype not in _FLOAT_TYPES:
+        raise ValueError(f"out {out_dtype} must be f32 or bf16")
+    if x.dtype != torch.int8 or w.dtype != torch.int8 or n % 4 or k % 16:
+        raise ValueError(f"x and w must be int8 with K % 16 == 0 and "
+                         f"N % 4 == 0, got {x.dtype} @ {w.dtype} K={k} N={n}")
+    if x_scale.dtype != torch.float32 or x_scale.numel() != 1:
+        raise ValueError("x_scale must be one f32 value")
+    if w_scale.dtype != torch.float32 or w_scale.numel() != n:
+        raise ValueError("w_scale must hold N f32 values")
+    if bias is not None and (bias.dtype != torch.float32
+                             or bias.numel() != n):
+        raise ValueError("bias must hold N f32 values")
+    tensors = [x, w, x_scale, w_scale] + ([bias] if bias is not None else [])
+    for t in tensors:
+        if t.device != x.device or not t.is_contiguous():
+            raise ValueError("qmatmul_w8a8 needs contiguous tensors on x's "
+                             "device")
+    if w.data_ptr() % 4 or x.data_ptr() % 16:
+        raise ValueError("w must be 4-byte and x 16-byte aligned")
+    out = torch.empty((m, n), dtype=out_dtype, device=x.device)
+    if m == 0:
+        return out
+    fn = _lib_w8a8()
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    err = fn(x.data_ptr(), w.data_ptr(), x_scale.data_ptr(),
+             w_scale.data_ptr(),
+             bias.data_ptr() if bias is not None else None,
+             out.data_ptr(), int(out_dtype == torch.bfloat16), m, k, n,
+             ACTIVATIONS.index(activation), stream)
+    if err:
+        raise RuntimeError(f"qmatmul_w8a8 launch failed: CUDA error {err}")
+    qmatmul_w8a8.launches += 1
+    return out
+
+
+qmatmul_w8a8.launches = 0

@@ -1,0 +1,329 @@
+"""Serving launcher: the port of ``repro/launch/serve.py``'s single-model
+path, end to end on one card.
+
+Init a model from a seed, post-training int8 quantization, measure the
+prefill service-time curve through the full-sequence ``forward`` (every
+attention layer through the flash-attention kernel; ``--max-batch`` joins
+the measured set, so batch selection interpolates), pick the largest batch
+meeting the p99 deadline (the paper's Table 4 policy), time the multi-token
+decode loop at that batch, then size a slot pool at that batch and drive
+the continuous-batching ``Engine`` against a pseudo-Poisson request stream
+under the wall clock — or, with ``--sim``, the virtual-time ``BatchQueue``
+simulator (same admission policy, no model execution).  The KV cache is
+bf16 (``starcoder2-3b`` leaves ``kv_quant`` off, as the reference's CLI
+does); ``--quant w8a8`` runs every projection through the int8 x int8
+kernel, the LM head staying weight-only int8.
+
+  python -m repro_torch.launch.serve --arch starcoder2-3b --reduced \\
+      --deadline-ms 50 --rate 200                  # on the card
+  python -m repro_torch.launch.serve --arch starcoder2-3b --reduced \\
+      --device cpu                                 # plain versions, CPU
+
+The reference's other serving options stay in the parser; given a value
+other than their default, each prints which ROADMAP item will port it and
+exits 1.
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import sys
+import time
+from typing import Dict, List, Optional
+
+import numpy as np
+import torch
+
+from repro_torch import engine as E
+from repro_torch.configs import get_config
+from repro_torch.configs.base import ArchConfig, ShapeSpec
+from repro_torch.core import batching as bt
+from repro_torch.core.qlinear import FP, W8A8, W8A16, QuantMode
+from repro_torch.core.quant import quantize_tree, tree_weight_bytes
+from repro_torch.device import resolve_device
+from repro_torch.models import registry as R
+from repro_torch.runtime import steps as ST
+
+# flag -> ROADMAP queue 1 item that will port it
+UNPORTED = {
+    "models": 14, "model_quota": 14,
+    "block_size": 17, "num_blocks": 17, "shared_prefix_len": 17,
+    "temperature": 10,
+    "interactive_frac": 12, "batch_quota": 12, "arrival": 12,
+    "preemption": 12, "fault_seed": 12, "n_faults": 12,
+    "spec_k": 14, "draft": 14, "draft_layers": 14,
+    "replicas": 14, "tp": 14,
+}
+CURVE_BATCHES = (1, 4, 16)    # measured batch sizes, with --max-batch
+TIMED_CALLS = 3               # timed calls per measurement, after one warm
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def measure_service_curve(step_fn, params, cfg: ArchConfig, *, seq: int,
+                          max_batch: int, device=None):
+    """Measured service time at several batch sizes -> (LatencyModel,
+    {batch: seconds}).
+
+    ``max_batch`` joins the measured set: the model is an interpolation
+    over the whole batch range ``choose_batch`` searches, never an
+    extrapolation beyond what was measured.  Each time is host clock
+    around TIMED_CALLS calls, each ending in a wait for the card."""
+    device = resolve_device(device)
+    batches = sorted(set(CURVE_BATCHES) | {int(max_batch)})
+    times = {}
+    with torch.inference_mode():
+        for b in batches:
+            spec = ShapeSpec("serve_curve", seq, b, "prefill")
+            batch = {k: torch.zeros(shape, dtype=dtype, device=device)
+                     for k, (shape, dtype) in cfg.input_specs(spec).items()}
+            step_fn(params, batch)          # one warmup call
+            _sync(device)
+            t0 = time.perf_counter()
+            for _ in range(TIMED_CALLS):
+                step_fn(params, batch)
+                _sync(device)
+            times[b] = (time.perf_counter() - t0) / TIMED_CALLS
+    bs = sorted(times)
+    b1, b2 = bs[0], bs[-1]
+    per_item = max((times[b2] - times[b1]) / (b2 - b1), 1e-9)
+    fixed = max(times[b1] - b1 * per_item, 1e-9)
+    model = bt.LatencyModel("measured", fixed * 2.0, per_item * 1.5,
+                            fixed, per_item)
+    return model, times
+
+
+def measure_decode_tps(cfg: ArchConfig, params, mode: QuantMode, batch: int,
+                       *, s_max: int, num_tokens: int, device=None):
+    """Tokens/s of the multi-token decode loop for ``batch`` useful
+    requests.  The loop runs at the *bucketed* batch (requests padded up
+    to the static ladder), but throughput counts only the ``batch`` real
+    requests' tokens.  Returns (bucketed_batch, tokens_per_s,
+    seconds_per_loop)."""
+    device = resolve_device(device)
+    b = ST.bucket_batch(batch)
+    loop = ST.make_decode_loop(cfg, mode=mode, num_tokens=num_tokens)
+    tokens = torch.ones((b, 1), dtype=torch.int32, device=device)
+    with torch.inference_mode():
+        cache = R.init_cache(cfg, b, s_max, device=device)
+        loop(params, tokens, cache, 0)                 # warm
+        _sync(device)
+        t0 = time.perf_counter()
+        for _ in range(TIMED_CALLS):
+            # the cache is rewritten from step 0 on every run
+            loop(params, tokens, cache, 0)
+        _sync(device)
+    dt = (time.perf_counter() - t0) / TIMED_CALLS
+    return b, batch * num_tokens / dt, dt
+
+
+def build_parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser(prog="python -m repro_torch.launch.serve")
+    ap.add_argument("--arch", default=None,
+                    help="single-model serving: one registry arch")
+    ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--quant", default="w8a16",
+                    choices=["fp", "w8a16", "w8a8"])
+    ap.add_argument("--deadline-ms", type=float, default=50.0)
+    ap.add_argument("--rate", type=float, default=200.0,
+                    help="requests/s for the simulated stream")
+    ap.add_argument("--n-requests", type=int, default=200)
+    ap.add_argument("--seq", type=int, default=32)
+    ap.add_argument("--max-batch", type=int, default=64)
+    ap.add_argument("--decode-tokens", type=int, default=16,
+                    help="steps of the decode loop to time (0 disables "
+                         "the decode measurement)")
+    ap.add_argument("--prompt-len", type=int, default=4,
+                    help="engine: synthetic prompt tokens per request")
+    ap.add_argument("--gen-tokens", type=int, default=8,
+                    help="engine: tokens to generate per request")
+    ap.add_argument("--sim", action="store_true",
+                    help="run the virtual-time BatchQueue simulator "
+                         "backend instead of the live engine")
+    ap.add_argument("--prefill-chunk", type=int, default=0,
+                    help="engine: chunked-prefill bucket cap (0 = "
+                         "per-token prefill)")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--device", default=None,
+                    help="torch device (default: the card; 'cpu' runs the "
+                         "kernels' plain versions)")
+    unported = ap.add_argument_group(
+        "not ported yet (each exits 1 when given a non-default value)")
+    unported.add_argument("--models", default=None, metavar="A,B")
+    unported.add_argument("--model-quota", action="append", default=[],
+                          metavar="TAG=N")
+    unported.add_argument("--block-size", type=int, default=0)
+    unported.add_argument("--num-blocks", type=int, default=0)
+    unported.add_argument("--shared-prefix-len", type=int, default=0)
+    unported.add_argument("--temperature", type=float, default=0.0)
+    unported.add_argument("--interactive-frac", type=float, default=1.0)
+    unported.add_argument("--batch-quota", type=int, default=0)
+    unported.add_argument("--arrival", default="poisson",
+                          choices=["poisson", "mmpp", "diurnal"])
+    unported.add_argument("--spec-k", type=int, default=0)
+    unported.add_argument("--draft", default=None)
+    unported.add_argument("--draft-layers", type=int, default=0)
+    unported.add_argument("--preemption", action="store_true")
+    unported.add_argument("--fault-seed", type=int, default=None)
+    unported.add_argument("--n-faults", type=int, default=8)
+    unported.add_argument("--replicas", type=int, default=1)
+    unported.add_argument("--tp", type=int, default=1)
+    return ap
+
+
+def parse_args(argv=None) -> argparse.Namespace:
+    return build_parser().parse_args(argv)
+
+
+@dataclasses.dataclass
+class ServeRun:
+    """What :func:`run` built, for callers that check it further."""
+    code: int                                 # main's exit code
+    cfg: Optional[ArchConfig] = None
+    params: Optional[dict] = None
+    mode: QuantMode = FP
+    curve: Dict[int, float] = dataclasses.field(default_factory=dict)
+    batch: int = 0                            # the Table 4 choice
+    decode_tokens_per_s: Optional[float] = None
+    engine: Optional[E.Engine] = None
+    report: Optional[E.EngineReport] = None
+    requests: List[E.EngineRequest] = dataclasses.field(default_factory=list)
+
+
+def run(args: argparse.Namespace) -> ServeRun:
+    """The launcher's work for parsed ``args``; ``ServeRun.code`` is 0 on
+    success and 1 on a rejected configuration."""
+    defaults = build_parser().parse_args([])
+    for flag, item in UNPORTED.items():
+        if getattr(args, flag) != getattr(defaults, flag):
+            print(f"[serve] --{flag.replace('_', '-')}: not ported yet "
+                  f"(ROADMAP queue 1, item {item})")
+            return ServeRun(code=1)
+    if args.arch is None:
+        print("[serve] need --arch")
+        return ServeRun(code=1)
+    device = resolve_device(args.device)
+    mode = {"fp": FP, "w8a16": W8A16, "w8a8": W8A8}[args.quant]
+    cfg = get_config(args.arch)
+    if args.reduced:
+        cfg = cfg.reduced()
+    with torch.inference_mode():
+        gen = torch.Generator(device=device).manual_seed(args.seed)
+        params = R.init(gen, cfg, device=device)
+        if mode.enabled:
+            fp_bytes = tree_weight_bytes(params)
+            params = quantize_tree(params, min_size=2048)
+            print(f"[quant] {args.arch} weights {fp_bytes / 1e6:.1f} MB -> "
+                  f"{tree_weight_bytes(params) / 1e6:.1f} MB ({args.quant})")
+    out = ServeRun(code=1, cfg=cfg, params=params, mode=mode)
+
+    prefill = ST.make_prefill_step(cfg, mode=mode)
+    model, curve = measure_service_curve(prefill, params, cfg, seq=args.seq,
+                                         max_batch=args.max_batch,
+                                         device=device)
+    out.curve = curve
+    print("[serve] service curve (s per prefill of "
+          f"{args.seq} tokens): "
+          + "  ".join(f"b={b}: {t:.6f}" for b, t in sorted(curve.items())))
+    deadline = args.deadline_ms * 1e-3
+    # the chosen batch stays inside the measured range: max_batch is in
+    # the measured set, so the Table 4 policy never extrapolates.
+    batch = min(bt.choose_batch(model, deadline, args.max_batch),
+                max(curve))
+    out.batch = batch
+    if batch == 0:
+        print(f"[serve] deadline {args.deadline_ms} ms unattainable "
+              f"(p99(1) = {model.p99_latency(1) * 1e3:.1f} ms)")
+        return out
+    print(f"[serve] service(1)={model.service_time(1)*1e3:.2f} ms  "
+          f"chosen batch={batch}  modeled p99="
+          f"{model.p99_latency(batch)*1e3:.2f} ms"
+          f"  modeled IPS={model.ips(batch):,.0f}")
+
+    if args.decode_tokens > 0:
+        bb, tps, dt = measure_decode_tps(
+            cfg, params, mode, batch, s_max=max(args.seq * 2, 64),
+            num_tokens=args.decode_tokens, device=device)
+        out.decode_tokens_per_s = tps
+        print(f"[decode] loop batch={batch} (shape bucket {bb}) "
+              f"{args.decode_tokens} steps in {dt*1e3:.1f} ms -> "
+              f"{tps:,.0f} tok/s")
+
+    if args.sim:
+        reqs = bt.poisson_arrivals(args.rate, args.n_requests, deadline,
+                                   args.seed)
+        q = bt.BatchQueue(model.service_time, max_batch=batch)
+        recs = q.run(reqs)
+        lat = []
+        arrival = {r.rid: r.arrival_s for r in reqs}
+        for rec in recs:
+            for rid in rec.rids:
+                lat.append(rec.finish_s - arrival[rid])
+        met = np.mean([rec.deadlines_met for rec in recs])
+        print(f"[sim] {len(recs)} batches, mean size "
+              f"{np.mean([len(r.rids) for r in recs]):.1f}; "
+              f"p99 latency {bt.p99(lat)*1e3:.2f} ms "
+              f"(deadline {args.deadline_ms} ms); "
+              f"batches meeting deadline: {met:.1%}; "
+              f"throughput {len(lat)/max(r.finish_s for r in recs):,.0f} "
+              f"req/s")
+        out.code = 0
+        return out
+
+    # ---- the live continuous-batching engine -------------------------
+    num_slots = ST.bucket_batch(max(batch, 1))
+    policy = bt.AdmissionPolicy(model.service_time, max_batch=num_slots)
+    try:
+        eng = E.Engine(cfg, params, mode=mode, num_slots=num_slots,
+                       max_seq=args.prompt_len + args.gen_tokens,
+                       policy=policy,
+                       prefill_chunk=args.prefill_chunk or None,
+                       device=device)
+    except ValueError as e:
+        print(f"[engine] config rejected: {e}")
+        return out
+    out.engine = eng
+    reqs = E.synthetic_requests(
+        args.n_requests, rate_per_s=args.rate, vocab=cfg.vocab,
+        prompt_len=args.prompt_len, max_new_tokens=args.gen_tokens,
+        deadline_s=deadline, seed=args.seed)
+    out.requests = reqs
+    eng.warmup()         # build and load before the clock starts: the
+    try:                 # measured p99 is serving, not set-up
+        rep = eng.serve(reqs, clock="wall")
+    except E.RequestTooLong as e:
+        print(f"[engine] request rejected at admission: {e}")
+        return out
+    out.report = rep
+    deadline_of = {r.rid: r.deadline_s for r in reqs}
+    met = np.mean([r.finish_s <= deadline_of[r.rid]
+                   for r in rep.results]) if rep.results else 0.0
+    print(f"[engine] {rep.num_slots} slots x {eng.max_seq} positions; "
+          f"{len(rep.results)} requests in {rep.ticks} ticks "
+          f"({rep.wall_s:.2f} s wall)")
+    print(f"[engine] achieved p99 {rep.p99_latency_s*1e3:.2f} ms "
+          f"(deadline {args.deadline_ms} ms, met {met:.1%}); "
+          f"{rep.tokens_per_s:,.0f} tok/s decoded; "
+          f"slot occupancy {rep.mean_occupancy:.1%} mean / "
+          f"{max(rep.occupancy) if rep.occupancy else 0} peak; "
+          f"{rep.admissions_while_busy} admissions while mid-generation "
+          f"(no drain barrier)")
+    print(f"[engine] time-to-first-token {rep.mean_ttft_s*1e3:.2f} ms mean "
+          f"/ {rep.p99_ttft_s*1e3:.2f} ms p99 "
+          f"(prefill chunk {rep.prefill_chunk or 'off'})")
+    if rep.dropped or rep.failed or rep.unfinished:
+        print(f"[engine] retirement: {rep.dropped} dropped, {rep.failed} "
+              f"failed, {rep.unfinished} unfinished")
+    out.code = 0
+    return out
+
+
+def main(argv=None) -> int:
+    return run(parse_args(argv)).code
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,17 +1,17 @@
-"""Shared model components, decode subset: norms, RoPE, GQA decode
-attention over the int8 KV cache, the MLP, and the int8 embedding and LM
-head.
+"""Shared model components: norms, RoPE, GQA attention (the full-sequence
+form through the flash-attention kernel, and one-token decode against the
+int8 or the bf16 KV cache), the MLP, and the int8 embedding and LM head.
 
 Conventions (as in ``repro/models/layers.py``):
 - plain functions over param dicts of tensors;
 - every matmul routes through :func:`repro_torch.core.qlinear.linear`;
-- the KV cache keeps the reference's (B, S, KV, hd) layout with scales
-  (B, S, KV, 1), or its paged (NB, bs, KV, hd) physical blocks behind
-  per-row block tables, and is written in place.
+- the KV cache keeps the reference's (B, S, KV, hd) layout — int8 with
+  scales (B, S, KV, 1), or bf16 — or, int8 only, its paged
+  (NB, bs, KV, hd) physical blocks behind per-row block tables, and is
+  written in place.
 
-Not ported yet: the no-cache (prefill / training) attention, which needs
-the flash-attention kernel (ROADMAP queue 2, kernel 5); the bf16 KV cache
-and sliding windows (queue 1, items 4 and 13); cross-attention (item 13).
+Not ported yet: sliding-window ring caches and cross-attention (ROADMAP
+queue 1, item 13); multi-token attention against a cache (item 14).
 """
 from __future__ import annotations
 
@@ -24,6 +24,7 @@ import torch.nn.functional as F
 from repro_torch.core.qlinear import FP, QuantMode, linear
 from repro_torch.core.quant import QTensor
 from repro_torch.kernels import ops as kops
+from repro_torch.kernels.decode_attention import NEG_INF
 # the reference keeps paged_gather here; it lives beside the paged plain
 # version, which needs it (kernels import nothing from models)
 from repro_torch.kernels.decode_attention import paged_gather  # noqa: F401
@@ -82,7 +83,7 @@ def rotate(x: Tensor, cos: Tensor, sin: Tensor) -> Tensor:
 
 
 # ---------------------------------------------------------------------------
-# Attention (GQA decode against the int8 cache)
+# Attention (GQA: full sequence, or decode against the int8 or bf16 cache)
 # ---------------------------------------------------------------------------
 
 @dataclasses.dataclass(frozen=True)
@@ -91,6 +92,17 @@ class AttnConfig:
     n_kv_heads: int
     head_dim: int
     rope_theta: float = 10000.0
+    window: Optional[int] = None     # sliding-window size (None = full)
+    causal: bool = True
+
+
+def _expand_kv(k: Tensor, n_heads: int) -> Tensor:
+    """(B, S, KV, hd) -> (B, S, H, hd) by repeating each KV group: head h
+    reads kv head h // G."""
+    kvh = k.shape[2]
+    if kvh == n_heads:
+        return k
+    return torch.repeat_interleave(k, n_heads // kvh, dim=2)
 
 
 def q8(t: Tensor) -> Tuple[Tensor, Tensor]:
@@ -120,45 +132,95 @@ def cache_write(c: Tensor, new: Tensor, idx) -> None:
         c[idx] = new[:, 0]
 
 
+def bf16_cache_attention(q: Tensor, ck: Tensor, cv: Tensor,
+                         valid_len: Tensor) -> Tensor:
+    """One-token GQA attention against a bf16 cache, the reference's einsum
+    path (``layers.py:403-446``, non-append form): q (B, KV, G, hd), the
+    cache (B, S, KV, hd), slots below ``valid_len`` (B,) take part; f32
+    out (B, KV, G, hd).  q, the cache and the probabilities are rounded to
+    bf16 and multiplied in f32, so no reduced-precision (tf32, bf16)
+    product or sum enters.  Plain PyTorch: the reference has no kernel
+    here."""
+    hd = q.shape[-1]
+    smax = ck.shape[1]
+    qf = q.to(torch.bfloat16).float()
+    kf = ck.to(torch.bfloat16).float().permute(0, 2, 3, 1)   # (B, KV, hd, S)
+    scores = torch.matmul(qf, kf) * hd ** -0.5               # (B, KV, G, S)
+    valid = (torch.arange(smax, device=q.device)[None, :]
+             < valid_len.reshape(-1, 1))                     # (B, S)
+    scores = torch.where(valid[:, None, None, :], scores, NEG_INF)
+    probs = torch.softmax(scores, dim=-1)
+    vf = cv.to(torch.bfloat16).float().permute(0, 2, 1, 3)   # (B, KV, S, hd)
+    return torch.matmul(probs.to(torch.bfloat16).float(), vf)
+
+
 def attention(p: dict, x: Tensor, cfg: AttnConfig, *,
               mode: QuantMode = FP, rope: Tuple[Tensor, Tensor],
-              kv_cache: Tuple[Tensor, Tensor, Tensor, Tensor],
-              cache_index, valid_len: Tensor,
+              kv_cache: Optional[Tuple[Tensor, ...]] = None,
+              cache_index=None, valid_len: Optional[Tensor] = None,
               block_tables: Optional[Tensor] = None) -> Tensor:
-    """One-token GQA decode attention (x is (B, 1, D)) against the int8
-    cache ``kv_cache = (k, v, k_scale, v_scale)`` of one layer.
+    """GQA attention in two modes.
 
-    ``rope`` is :func:`rope_cos_sin` of the token positions and
-    ``cache_index`` the write position (see :func:`cache_write`).  The new
-    token's k/v are quantized and written into the cache in place first;
-    the fused kernel then attends over every slot below ``valid_len``
-    (B,) int32, the new token included — the reference's non-append form.
-    With ``block_tables`` (B, MB) int32 the cache is paged: its leaves are
-    physical blocks, ``cache_index`` a ``(blocks, offsets)`` pair, and
-    the kernel reads each row through its table.  Head h reads kv head
-    h // G."""
+    - Full sequence (``kv_cache=None``; prefill, the service curve): x is
+      (B, S, D), RoPE at ``rope`` (the positions 0..S-1), KV expanded to H
+      heads and the fused flash-attention kernel with ``cfg.causal`` and
+      ``cfg.window``.
+    - Decode (x is (B, 1, D)) against one layer's cache: ``kv_cache`` is
+      the int8 ``(k, v, k_scale, v_scale)`` or the bf16 ``(k, v)``;
+      ``rope`` is :func:`rope_cos_sin` of the token positions and
+      ``cache_index`` the write position (see :func:`cache_write`).  The
+      new token's k/v (int8: quantized) are written into the cache in
+      place first; attention then covers every slot below ``valid_len``
+      (B,) int32, the new token included — the reference's non-append
+      form: the fused int8 kernel, or :func:`bf16_cache_attention`.  With
+      ``block_tables`` (B, MB) int32 the int8 cache is paged: its leaves
+      are physical blocks, ``cache_index`` a ``(blocks, offsets)`` pair,
+      and the kernel reads each row through its table.
+
+    Head h reads kv head h // G."""
     b, s, _ = x.shape
-    if s != 1:
-        raise NotImplementedError(
-            "the port decodes one token per step; multi-token attention "
-            "needs the flash-attention kernel (ROADMAP queue 2, kernel 5)")
     h, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     q = linear(p["wq"], x, mode=mode).reshape(b, s, h, hd)
     k = linear(p["wk"], x, mode=mode).reshape(b, s, kvh, hd)
     v = linear(p["wv"], x, mode=mode).reshape(b, s, kvh, hd)
     q = rotate(q, *rope)
     k = rotate(k, *rope)
-    ck, cv, cks, cvs = kv_cache
-    kq, ks = q8(k)
-    vq, vs = q8(v)
-    for c, new in ((ck, kq), (cv, vq), (cks, ks), (cvs, vs)):
-        cache_write(c, new, cache_index)
+    if kv_cache is None:
+        out = kops.flash_attention(q, _expand_kv(k, h), _expand_kv(v, h),
+                                   causal=cfg.causal, window=cfg.window)
+        return linear(p["wo"], out.reshape(b, s, h * hd), mode=mode)
+    if s != 1:
+        raise NotImplementedError(
+            "the port attends one token per step against a cache; "
+            "multi-token cache attention comes with speculative decoding "
+            "(ROADMAP queue 1, item 14)")
     g = h // kvh
-    out = kops.decode_attention(q.reshape(b, kvh, g, hd), ck, cv, cks, cvs,
-                                valid_len, block_tables=block_tables,
-                                out_dtype=torch.float32)
+    if len(kv_cache) == 4:
+        ck, cv, cks, cvs = kv_cache
+        kq, ks = q8(k)
+        vq, vs = q8(v)
+        for c, new in ((ck, kq), (cv, vq), (cks, ks), (cvs, vs)):
+            cache_write(c, new, cache_index)
+        out = kops.decode_attention(q.reshape(b, kvh, g, hd), ck, cv, cks,
+                                    cvs, valid_len,
+                                    block_tables=block_tables,
+                                    out_dtype=torch.float32)
+    else:
+        ck, cv = kv_cache
+        cache_write(ck, k.to(ck.dtype), cache_index)
+        cache_write(cv, v.to(cv.dtype), cache_index)
+        out = bf16_cache_attention(q.reshape(b, kvh, g, hd), ck, cv,
+                                   valid_len)
     out = out.to(x.dtype).reshape(b, s, h * hd)
     return linear(p["wo"], out, mode=mode)
+
+
+def init_kv_cache(batch: int, s_max: int, n_kv: int, head_dim: int,
+                  dtype=torch.bfloat16, device=None) -> Tuple[Tensor, Tensor]:
+    """One layer's zeroed (B, S, KV, hd) k and v cache."""
+    shape = (batch, s_max, n_kv, head_dim)
+    return (torch.zeros(shape, dtype=dtype, device=device),
+            torch.zeros(shape, dtype=dtype, device=device))
 
 
 # ---------------------------------------------------------------------------

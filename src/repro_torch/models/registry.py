@@ -2,6 +2,7 @@
 
 Uniform API per family, as in ``repro/models/registry.py``:
     init(gen, cfg, dtype, device) -> params
+    forward(params, tokens, cfg, *, mode, remat) -> logits
     init_cache(cfg, batch, s_max, device) -> cache
     init_paged_cache(cfg, num_slots, s_max, block_size, num_blocks,
                      device) -> cache (families that page)
@@ -33,6 +34,14 @@ def module_for(cfg: ArchConfig):
 def init(gen: torch.Generator, cfg: ArchConfig, dtype=torch.float32,
          device=None):
     return module_for(cfg).init(gen, cfg, dtype, device)
+
+
+def apply_forward(params, cfg: ArchConfig, batch: dict, *,
+                  mode: QuantMode = FP, remat: bool = True):
+    """batch: dict from ``cfg.input_specs`` (tokens only: the ported
+    families take no modality embeds)."""
+    return module_for(cfg).forward(params, batch["tokens"], cfg, mode=mode,
+                                   remat=remat)
 
 
 def init_cache(cfg: ArchConfig, batch: int, s_max: int, device=None):

@@ -1,4 +1,5 @@
-"""Dense decoder-only LM (starcoder2), decode path.
+"""Dense decoder-only LM (starcoder2): the full-sequence forward and the
+decode step.
 
 Structure: embedding -> a loop over decoder layers -> final norm -> (tied)
 unembed.  One decoder layer = norm -> GQA attention -> residual -> norm ->
@@ -9,8 +10,9 @@ idiom asks for them:
 - ``params["layers"]`` is a list of per-layer dicts (the reference stacks
   them on a leading L axis for ``lax.scan``);
 - the KV cache keeps the reference's stacked (L, B, S, KV, hd) leaves,
-  and ``decode_step`` writes them in place.  The reference's switch
-  between an in-scan cache update and an append after the scan
+  int8 with f32 scales or bf16, and ``decode_step`` writes them in
+  place.  The reference's switch between an in-scan cache update and an
+  append after the scan
   (``n_kv_heads >= 16``, ``transformer.py:219``) is a choice about
   functional updates; with in-place writes the port always writes first
   and then attends (the non-append form).  The paged cache follows the
@@ -35,7 +37,8 @@ Tensor = torch.Tensor
 def attn_config(cfg: ArchConfig) -> L.AttnConfig:
     return L.AttnConfig(
         n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
-        head_dim=cfg.head_dim, rope_theta=cfg.rope_theta)
+        head_dim=cfg.head_dim, rope_theta=cfg.rope_theta,
+        window=cfg.window)
 
 
 def norm_apply(cfg: ArchConfig, p, x):
@@ -43,14 +46,11 @@ def norm_apply(cfg: ArchConfig, p, x):
 
 
 def _check_supported(cfg: ArchConfig) -> None:
+    """The KV caches the port decodes from: full attention (no ring)."""
     if cfg.window is not None:
         raise NotImplementedError(
             "sliding-window (ring) KV caches are not ported yet (ROADMAP "
             "queue 1, item 13)")
-    if not cfg.kv_quant:
-        raise NotImplementedError(
-            "the port decodes from the int8 KV cache (kv_quant=True); the "
-            "bf16 cache path is not ported yet (ROADMAP queue 1, item 4)")
 
 
 # ---------------------------------------------------------------------------
@@ -123,16 +123,47 @@ def init(gen: torch.Generator, cfg: ArchConfig, dtype=torch.float32,
 
 
 # ---------------------------------------------------------------------------
+# full-sequence forward
+# ---------------------------------------------------------------------------
+
+def forward(params: dict, tokens: Tensor, cfg: ArchConfig, *,
+            mode: QuantMode = FP, remat: bool = True) -> Tensor:
+    """Full-sequence forward (prefill): tokens (B, S) -> logits (B, S, V)
+    f32.  Every attention layer runs the flash-attention kernel, causal
+    (and windowed for a windowed config).  ``remat`` is the reference's
+    rematerialization switch for training; it has no effect here."""
+    b, s = tokens.shape
+    positions = torch.arange(s, device=tokens.device)[None, :]
+    rope = L.rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta)
+    acfg = attn_config(cfg)
+    x = L.embed(params["embed"], tokens)
+    for lp in params["layers"]:
+        h = norm_apply(cfg, lp["ln_attn"], x)
+        x = x + L.attention(lp["attn"], h, acfg, mode=mode, rope=rope)
+        h = norm_apply(cfg, lp["ln_mlp"], x)
+        x = x + L.mlp(lp["mlp"], h, gated=cfg.gated_mlp,
+                      activation=cfg.activation, mode=mode)
+    x = norm_apply(cfg, params["ln_f"], x)
+    head = params.get("unembed", params["embed"])
+    return L.unembed(head, x)
+
+
+# ---------------------------------------------------------------------------
 # cache + decode
 # ---------------------------------------------------------------------------
 
 def init_cache(cfg: ArchConfig, batch: int, s_max: int,
                device=None) -> dict:
-    """Stacked (L, B, S, KV, hd) int8 KV cache with per-(token, head) f32
-    scales shaped (L, B, S, KV, 1)."""
+    """Stacked (L, B, S, KV, hd) KV cache: with ``cfg.kv_quant`` int8 with
+    per-(token, head) f32 scales shaped (L, B, S, KV, 1), else bf16 k and
+    v."""
     _check_supported(cfg)
     device = resolve_device(device)
     shape = (cfg.n_layers, batch, s_max, cfg.n_kv_heads, cfg.head_dim)
+    if not cfg.kv_quant:       # L * B rows of one layer's form, viewed as L
+        k, v = L.init_kv_cache(cfg.n_layers * batch, s_max, cfg.n_kv_heads,
+                               cfg.head_dim, device=device)
+        return {"k": k.reshape(shape), "v": v.reshape(shape)}
     return {"k": torch.zeros(shape, dtype=torch.int8, device=device),
             "v": torch.zeros(shape, dtype=torch.int8, device=device),
             "k_scale": torch.zeros(shape[:-1] + (1,), dtype=torch.float32,
@@ -156,6 +187,10 @@ def init_paged_cache(cfg: ArchConfig, num_slots: int, s_max: int,
         raise ValueError(f"s_max={s_max} must tile into whole blocks of "
                          f"{block_size}")
     _check_supported(cfg)
+    if not cfg.kv_quant:
+        raise NotImplementedError(
+            "the paged bf16 KV cache is not ported yet (ROADMAP queue 1, "
+            "item 17); the port pages the int8 cache (kv_quant=True)")
     device = resolve_device(device)
     shape = (cfg.n_layers, num_blocks, block_size, cfg.n_kv_heads,
              cfg.head_dim)
@@ -215,9 +250,10 @@ def decode_step(params: dict, tokens: Tensor, cache: dict, cache_index,
     acfg = attn_config(cfg)
     rope = L.rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta)
     x = L.embed(params["embed"], tokens)
+    leaves = (("k", "v", "k_scale", "v_scale") if "k_scale" in cache
+              else ("k", "v"))
     for i, lp in enumerate(params["layers"]):
-        kv = (cache["k"][i], cache["v"][i], cache["k_scale"][i],
-              cache["v_scale"][i])
+        kv = tuple(cache[name][i] for name in leaves)
         h = norm_apply(cfg, lp["ln_attn"], x)
         x = x + L.attention(lp["attn"], h, acfg, mode=mode, rope=rope,
                             kv_cache=kv, cache_index=write_idx,

@@ -1,10 +1,12 @@
-"""Serving steps: the decode step, the continuous-batching slot tick, and
-chunked prefill of one slot — the serving subset of
+"""Serving steps: the prefill step (the full-sequence forward), the decode
+step and the multi-token decode loop, the continuous-batching slot tick,
+and chunked prefill of one slot — the serving subset of
 ``repro/runtime/steps.py``.
 
 PyTorch runs eagerly, so there is no ``jit`` boundary and no buffer
 donation: the cache is a dict of tensors updated in place, and each step
-returns it to keep the reference's signatures.  Capturing the slot step
+returns it to keep the reference's signatures.  ``jit_decode_loop`` has no
+counterpart (it only jits and donates).  Capturing the slot step
 as a CUDA graph (the counterpart of the reference's one compiled shape)
 is later work (ROADMAP queue 1, item 6).
 """
@@ -17,6 +19,13 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.qlinear import FP, QuantMode
 from repro_torch.models import registry as R
+
+
+def make_prefill_step(cfg: ArchConfig, *, mode: QuantMode = FP) -> Callable:
+    def prefill_step(params, batch):
+        # inference: no remat needed (no backward pass)
+        return R.apply_forward(params, cfg, batch, mode=mode, remat=False)
+    return prefill_step
 
 
 def make_decode_step(cfg: ArchConfig, *, mode: QuantMode = FP) -> Callable:
@@ -57,6 +66,34 @@ def bucket_batch(b: int, buckets=BATCH_BUCKETS,
 def greedy_sample(logits: torch.Tensor) -> torch.Tensor:
     """Last-position argmax (first index among ties, as ``jnp.argmax``)."""
     return torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
+
+
+def make_decode_loop(cfg: ArchConfig, *, mode: QuantMode = FP,
+                     num_tokens: int, temperature: float = 0.0) -> Callable:
+    """Multi-token greedy decode of a lockstep batch.
+
+    Returns ``loop(params, tokens, cache, cache_index) -> (out, cache)``
+    with ``tokens`` (B, 1) int32 seed, ``cache_index`` the int position of
+    the first step, and ``out`` (B, num_tokens) int32 generated tokens;
+    the cache is updated in place.  The reference scans the steps inside
+    one jit; here they are a Python loop over the same decode step."""
+    if temperature > 0.0:
+        raise NotImplementedError(
+            "temperature sampling is not ported yet (ROADMAP queue 1, "
+            "item 10)")
+    decode = make_decode_step(cfg, mode=mode)
+
+    def loop(params, tokens, cache, cache_index):
+        tok, idx, out = tokens, int(cache_index), []
+        for _ in range(num_tokens):
+            logits, cache = decode(params, {"tokens": tok,
+                                            "cache_index": idx}, cache)
+            nxt = greedy_sample(logits)
+            out.append(nxt)
+            tok, idx = nxt[:, None], idx + 1
+        return torch.stack(out, dim=1), cache
+
+    return loop
 
 
 def make_slot_decode_step(cfg: ArchConfig, *, mode: QuantMode = FP,

@@ -1,6 +1,7 @@
-"""The port on the card: each CUDA kernel against its plain version, and
-the engine, contiguous and paged, bit-for-bit against its sequential
-reference, at small shapes.
+"""The port on the card: each CUDA kernel against its plain version, the
+engine, contiguous and paged, int8 and bf16 cache, bit-for-bit against its
+sequential reference, and the serve launcher's forward through its
+kernels, at small shapes.
 
 Every test here is marked ``gpu`` and skips without a CUDA device; the
 module imports no JAX, so it also runs where only the port is installed:
@@ -16,11 +17,13 @@ import torch
 
 from repro_torch import engine as E
 from repro_torch.configs import get_config
-from repro_torch.core.qlinear import W8A16
+from repro_torch.core.qlinear import W8A8, W8A16
 from repro_torch.core.quant import quantize_tree, quantize_weight
 from repro_torch.kernels import decode_attention as A
+from repro_torch.kernels import flash_attention as FA
 from repro_torch.kernels import qmatmul as K
 from repro_torch.models import registry as R
+from repro_torch.runtime import steps as ST
 
 pytestmark = pytest.mark.gpu
 
@@ -199,3 +202,143 @@ def test_paged_engine_on_card_equals_reference(cuda):
     assert rep.shared_block_hits > 0 and rep.leaked_blocks == 0
     assert rep.outputs() == E.reference_outputs(
         cfg, params, reqs, mode=W8A16, max_seq=eng.max_seq)
+
+
+def _w8a8_case(cuda, seed, m, k, n):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    x = torch.randint(-127, 128, (m, k), generator=g, device=cuda,
+                      dtype=torch.int8)
+    w = torch.randint(-127, 128, (k, n), generator=g, device=cuda,
+                      dtype=torch.int8)
+    xs = torch.rand((), generator=g, device=cuda) * 0.05 + 1e-3
+    ws = torch.rand((n,), generator=g, device=cuda) * 0.05 + 1e-3
+    b = torch.randn((n,), generator=g, device=cuda)
+    return x, w, xs, ws, b
+
+
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
+def test_qmatmul_w8a8_kernel_matches_plain(cuda, out_dtype):
+    """Every activation, with bias, M from 1 to 19 (three row slabs), K of
+    17 groups of 16 over 32 slices, N ragged against the 32-column block.
+    Without an activation the drain is the plain version's, step for step:
+    bitwise.  With one, the kernel's tanhf/expf and PyTorch's activation
+    kernels differ by a few f32 ulps: 1e-5 relative (f32) or one bf16 ulp
+    (2^-7 relative), plus 1e-6 absolute for the activations' tails."""
+    for m in (1, 8, 19):
+        x, w, xs, ws, b = _w8a8_case(cuda, m, m, 272, 100)
+        for act in ACTS:
+            got = K.qmatmul_w8a8(x, w, xs, ws, b, activation=act,
+                                 out_dtype=out_dtype).float()
+            want = K.qmatmul_w8a8_ref(x, w, xs, ws, b, activation=act,
+                                      out_dtype=out_dtype).float()
+            if act in ("none", "relu"):
+                assert torch.equal(got, want), (m, act)
+            rel = 2.0 ** -7 if out_dtype == torch.bfloat16 else 1e-5
+            assert ((got - want).abs()
+                    <= rel * want.abs() + 1e-6).all(), (m, act)
+
+
+def test_qmatmul_w8a8_int32_accumulate_bitwise(cuda):
+    """Unit scales, no bias, no activation, f32 out: the integer sums
+    themselves (each |sum| < 2^24, exact in f32)."""
+    x, w, _, _, _ = _w8a8_case(cuda, 5, 16, 3072, 256)
+    one = torch.ones((), device=cuda)
+    got = K.qmatmul_w8a8(x, w, one, torch.ones(256, device=cuda))
+    want = K.qmatmul_w8a8_ref(x, w, one, torch.ones(256, device=cuda))
+    assert float(want.abs().max()) < 2 ** 24
+    assert torch.equal(got, want)
+
+
+def test_qmatmul_w8a8_rows_are_batch_invariant(cuda):
+    x, w, xs, ws, b = _w8a8_case(cuda, 6, 11, 512, 64)
+    full = K.qmatmul_w8a8(x, w, xs, ws, b, activation="gelu",
+                          out_dtype=torch.bfloat16)
+    for i in range(11):
+        one = K.qmatmul_w8a8(x[i:i + 1].contiguous(), w, xs, ws, b,
+                             activation="gelu", out_dtype=torch.bfloat16)
+        assert torch.equal(one[0], full[i])
+
+
+FLASH_CASES = [
+    (3, 64, 64, 32, True, None, None),
+    (2, 48, 48, 64, True, 16, None),
+    (2, 40, 64, 32, True, None, 50),
+    (1, 37, 90, 128, False, None, 77),
+    (2, 33, 33, 16, True, 5, 20),
+    (24, 32, 32, 128, True, None, None),          # the service curve's
+    (2, 200, 200, 128, True, None, None),         # several tiles each way
+]
+
+
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bh,sq,skv,hd,causal,window,kv_len", FLASH_CASES)
+def test_flash_kernel_matches_plain(cuda, bh, sq, skv, hd, causal, window,
+                                    kv_len, out_dtype):
+    """bf16 inputs.  The kernel's online softmax over 64-key tiles against
+    the plain version's dense f32 softmax: the same terms in other orders,
+    2e-5 relative and absolute in f32 (as the JAX package holds its kernel
+    to its oracle), one bf16 ulp in bf16."""
+    g = torch.Generator(device=cuda).manual_seed(bh + sq + skv)
+    q, k, v = (torch.randn((bh, n, hd), generator=g, device=cuda)
+               .to(torch.bfloat16) for n in (sq, skv, skv))
+    kw = dict(causal=causal, window=window, kv_len=kv_len,
+              out_dtype=out_dtype)
+    got = FA.flash_attention_bhsd(q, k, v, **kw).float()
+    want = FA.flash_attention_ref(q, k, v, **kw).float()
+    if out_dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
+    else:
+        assert ((got - want).abs() <= 2.0 ** -7 * want.abs() + 1e-5).all()
+
+
+def test_bf16_engine_on_card_equals_reference(cuda):
+    """Reduced starcoder2-3b on the bf16 cache on the card: 12 requests
+    through 4 slots with chunked prefill, every token equal to the
+    sequential batch-1 reference (the bf16 attention's products are
+    batched over the rows of the tick there and over one row here)."""
+    cfg = get_config("starcoder2-3b").reduced()
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    params = quantize_tree(R.init(gen, cfg, device=cuda), min_size=2048)
+    reqs = E.synthetic_requests(12, rate_per_s=2000.0, vocab=cfg.vocab,
+                                prompt_len=5, max_new_tokens=6)
+    eng = E.Engine(cfg, params, mode=W8A16, num_slots=4, max_seq=11,
+                   prefill_chunk=4)
+    rep = eng.serve(reqs)
+    assert rep.outputs() == E.reference_outputs(
+        cfg, params, reqs, mode=W8A16, max_seq=eng.max_seq)
+
+
+@pytest.mark.parametrize("batch", [1, 2])
+def test_forward_on_card_runs_its_kernels(cuda, batch):
+    """The prefill step at reduced width on the card, W8A8 (batch 1 too:
+    there the head-major reshape is a strided view): the flash and
+    the w8a8 kernels launch (and the w8a16 one for the LM head), no plain
+    version is called, and the logits are close to the CPU forward's on
+    the same weights (bf16 rounding of other f32 sums: within 0.2, as the
+    CPU tests hold W8A8 logits to the JAX forward)."""
+    cfg = get_config("starcoder2-3b").reduced()
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    params = quantize_tree(R.init(gen, cfg, device=cuda), min_size=2048)
+    toks = torch.randint(1, cfg.vocab, (batch, 16), device=cuda,
+                         dtype=torch.int32)
+    FA.flash_attention_ref.calls = K.qmatmul_w8a8_ref.calls = 0
+    launches = (FA.flash_attention_bhsd.launches, K.qmatmul_w8a8.launches)
+    out = ST.make_prefill_step(cfg, mode=W8A8)(params, {"tokens": toks})
+    assert FA.flash_attention_bhsd.launches - launches[0] == cfg.n_layers
+    assert K.qmatmul_w8a8.launches - launches[1] == 6 * cfg.n_layers
+    assert FA.flash_attention_ref.calls == K.qmatmul_w8a8_ref.calls == 0
+    assert out.shape == (batch, 16, cfg.vocab) and torch.isfinite(out).all()
+
+    def to_cpu(node):
+        if isinstance(node, dict):
+            return {k: to_cpu(v) for k, v in node.items()}
+        if isinstance(node, list):
+            return [to_cpu(v) for v in node]
+        if isinstance(node, torch.Tensor):
+            return node.cpu()
+        return dataclasses.replace(node, values=node.values.cpu(),
+                                   scale=node.scale.cpu())
+
+    cpu = ST.make_prefill_step(cfg, mode=W8A8)(to_cpu(params),
+                                               {"tokens": toks.cpu()})
+    assert float((out.cpu() - cpu).abs().max()) <= 0.2

@@ -1,0 +1,101 @@
+"""The port's serve launcher (``python -m repro_torch.launch.serve``) on the
+CPU at reduced size: the reference CLI's single-model path end to end —
+quantize, the service curve through ``forward``, the Table 4 batch choice,
+the decode loop, and the engine under the wall clock or the ``--sim``
+simulator — and its refusals."""
+import pytest
+import torch
+
+from repro_torch.launch import serve
+
+# small enough for the CPU: the curve measures batches 1, 4 and 16 of
+# 8 tokens; 6 requests through the engine
+BASE = ["--arch", "starcoder2-3b", "--reduced", "--device", "cpu",
+        "--seq", "8", "--max-batch", "4", "--n-requests", "6",
+        "--decode-tokens", "4", "--prompt-len", "5", "--gen-tokens", "4",
+        "--prefill-chunk", "4", "--deadline-ms", "60000"]
+
+
+@pytest.fixture(autouse=True)
+def _one_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.mark.parametrize("quant", ["w8a16", "w8a8", "fp"])
+def test_serve_runs_end_to_end(quant, capsys):
+    res = serve.run(serve.parse_args(BASE + ["--quant", quant]))
+    assert res.code == 0
+    out = capsys.readouterr().out
+    for tag in (["[quant]"] if quant != "fp" else []) + [
+            "[serve] service curve", "[serve] service(1)=", "[decode]",
+            "[engine] achieved p99", "[engine] time-to-first-token"]:
+        assert tag in out, tag
+    assert sorted(res.curve) == [1, 4, 16]
+    assert all(t > 0 for t in res.curve.values())
+    assert 1 <= res.batch <= 4
+    assert res.engine.num_slots == res.batch       # 4 is on the ladder
+    assert res.decode_tokens_per_s > 0
+    rep = res.report
+    assert len(rep.results) == 6
+    assert all(r.status == "ok" and len(r.tokens) == 4 for r in rep.results)
+    assert rep.failed == rep.dropped == rep.unfinished == 0
+    assert res.cfg.kv_quant is False               # the bf16 cache
+
+
+def test_serve_main_returns_zero():
+    assert serve.main(BASE) == 0
+
+
+def test_serve_sim_backend(capsys):
+    assert serve.main(BASE + ["--sim", "--decode-tokens", "0"]) == 0
+    out = capsys.readouterr().out
+    assert "[sim]" in out and "[engine]" not in out and "[decode]" not in out
+
+
+def test_serve_unattainable_deadline_returns_one(capsys):
+    args = [a if a != "60000" else "0.001" for a in BASE]
+    res = serve.run(serve.parse_args(args))
+    assert res.code == 1 and res.batch == 0
+    assert "unattainable" in capsys.readouterr().out
+
+
+UNPORTED = [("--models", "starcoder2-3b,starcoder2-3b"),
+            ("--model-quota", "starcoder2-3b=2"), ("--block-size", "8"),
+            ("--num-blocks", "9"), ("--shared-prefix-len", "2"),
+            ("--temperature", "0.7"), ("--interactive-frac", "0.5"),
+            ("--batch-quota", "2"), ("--arrival", "mmpp"),
+            ("--spec-k", "2"), ("--draft", "starcoder2-3b"),
+            ("--draft-layers", "1"), ("--preemption", None),
+            ("--fault-seed", "3"), ("--n-faults", "2"),
+            ("--replicas", "2"), ("--tp", "2")]
+
+
+def test_unported_flag_list_covers_the_table():
+    assert {f for f, _ in UNPORTED} == {
+        "--" + k.replace("_", "-") for k in serve.UNPORTED}
+
+
+@pytest.mark.parametrize("flag,value", UNPORTED)
+def test_unported_flag_returns_one(flag, value, capsys):
+    extra = [flag] + ([value] if value is not None else [])
+    assert serve.main(BASE + extra) == 1
+    out = capsys.readouterr().out
+    assert f"{flag}: not ported yet (ROADMAP queue 1, item" in out
+    assert "[quant]" not in out                # refused before any work
+
+
+def test_serve_needs_an_arch(capsys):
+    assert serve.main(["--device", "cpu"]) == 1
+    assert "need --arch" in capsys.readouterr().out
+
+
+def test_serve_defaults_to_the_card():
+    """Without --device the launcher runs on CUDA, and raises on a machine
+    without a card instead of falling back to the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve.main(["--arch", "starcoder2-3b", "--reduced"])
