@@ -36,10 +36,14 @@ Phases, each of which fails the run (non-zero exit, no result line):
    prefill spends its time; the w8a16 run's first three requests are
    compared with ``reference_outputs`` (bf16 cache) on the card.
 
-The kernel phase also holds ``qmatmul_w8a8`` (every projection at M = 8
-and M = 512, its int32 accumulate bitwise) and ``flash_attention_bhsd``
-(the service curve's shapes, plus a window and a ``kv_len < Skv`` case)
-against their plain versions and times them.
+The kernel phase also times ``qmatmul_w8a16`` at the prefill's M = 512
+(per forward, on a line of its own), holds ``qmatmul_w8a8`` (every
+projection at M = 8, M = 512 and either side of its path threshold, and
+one ragged shape: its int32 accumulate bitwise, the tensor-core kernel's
+bf16 rows equal to the __dp4a kernel's) and ``flash_attention_bhsd`` (the
+service curve's shapes, plus a window and a ``kv_len < Skv`` case)
+against their plain versions, and times them; ``qmatmul_w8a8``'s two
+kernels are timed at M = 8, 16, 32, 64 and 512.
 
 It prints the card's name and power limit, a JSON line with every kernel's
 numbers, and, last, ``{"ok": true, "device": {...}}``.  Without a CUDA
@@ -95,6 +99,8 @@ SERVE_DEADLINE_MS = 500.0
 SERVE_MAX_BATCH = 16
 SERVE_SEQ = 32
 SERVE_ROWS = SERVE_MAX_BATCH * SERVE_SEQ     # M of the curve's largest prefill
+# qmatmul_w8a8's two kernels are timed at these M, whatever the wrapper picks
+W8A8_PATH_ROWS = (NUM_SLOTS, 16, 32, 64, SERVE_ROWS)
 SERVE_ARGS = ["--arch", "starcoder2-3b", "--max-batch", str(SERVE_MAX_BATCH),
               "--seq", str(SERVE_SEQ), "--decode-tokens", "16",
               "--n-requests", "16", "--prompt-len", "16",
@@ -180,13 +186,18 @@ def bf16_close(out, ref, *, f32_out: bool):
 
 
 def qmatmul_phase(flush):
+    """qmatmul_w8a16 at every full-width projection and the LM head, at
+    M = 1, a decode tick's M = 8 (summed per tick: the kernels line) and
+    the service curve's largest prefill, M = SERVE_ROWS (summed per
+    forward, printed on a line of its own)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.core.quant import quantize_weight
     from repro_torch.kernels import qmatmul as K
 
     d, ff, kvd, vocab = 3072, 12288, 256, 49152
-    # (name, K, N, bias, activation, out dtype, launches per slot tick)
+    # (name, K, N, bias, activation, out dtype, launches per slot tick and
+    # per forward)
     shapes = [("wq", d, d, True, "none", torch.bfloat16, 30),
               ("wk|wv", d, kvd, True, "none", torch.bfloat16, 60),
               ("wo", d, d, False, "none", torch.bfloat16, 30),
@@ -194,8 +205,8 @@ def qmatmul_phase(flush):
               ("w_down", ff, d, False, "none", torch.bfloat16, 30),
               ("lm_head", d, vocab, False, "none", torch.float32, 1)]
     gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
-    tick = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0,
-            "bytes_ms": 0.0, "ops_ms": 0.0}
+    keys = ("ms", "plain_ms", "bound_ms", "library_ms", "bytes_ms", "ops_ms")
+    per_m = {m: dict.fromkeys(keys, 0.0) for m in (NUM_SLOTS, SERVE_ROWS)}
     worst_err, worst_ratio = 0.0, 0.0
     for name, k, n, has_bias, act, odt, per_tick in shapes:
         wf = torch.randn((k, n), generator=gen, device="cuda") * k ** -0.5
@@ -205,7 +216,7 @@ def qmatmul_phase(flush):
         bias = (torch.randn((n,), generator=gen, device="cuda") * 0.1
                 if has_bias else None)
         w_lib = (w.float() * ws).to(torch.bfloat16).t()   # (N, K) view
-        for m in (1, NUM_SLOTS):
+        for m in (1, NUM_SLOTS, SERVE_ROWS):
             x = torch.randn((m, k), generator=gen,
                             device="cuda").to(torch.bfloat16)
             out = K.qmatmul_w8a16(x, w, ws, bias, activation=act,
@@ -221,7 +232,8 @@ def qmatmul_phase(flush):
             ms = time_ms(lambda: K.qmatmul_w8a16(
                 x, w, ws, bias, activation=act, out_dtype=odt), 20, flush)
             plain = time_ms(lambda: K.qmatmul_w8a16_ref(
-                x, w, ws, bias, activation=act, out_dtype=odt), 3, flush)
+                x, w, ws, bias, activation=act, out_dtype=odt),
+                3 if m < SERVE_ROWS else 1, flush)
             lib = time_ms(lambda: F.linear(x, w_lib, None if bias is None
                                            else bias.to(torch.bfloat16)),
                           20, flush)
@@ -231,7 +243,7 @@ def qmatmul_phase(flush):
             bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
             ops_ms = 2 * m * k * n / BF16_OPS_PER_S * 1e3
             bound = max(bytes_ms, ops_ms)
-            print(f"  qmatmul_w8a16 {name:7s} M={m} K={k:5d} N={n:5d} "
+            print(f"  qmatmul_w8a16 {name:7s} M={m:3d} K={k:5d} N={n:5d} "
                   f"act={act:4s} max_abs_err={err:.3e} err/tol={ratio:.3f} "
                   f"ms={ms:.4f} plain_ms={plain:.4f} library_ms={lib:.4f} "
                   f"bound_ms={bound:.4f}")
@@ -239,16 +251,20 @@ def qmatmul_phase(flush):
                 raise AssertionError(
                     f"qmatmul {name} M={m}: kernel disagrees with its plain "
                     f"version beyond tolerance (err/tol={ratio:.3f})")
-            if m == NUM_SLOTS:
-                tick["ms"] += per_tick * ms
-                tick["plain_ms"] += per_tick * plain
-                tick["bound_ms"] += per_tick * bound
-                tick["library_ms"] += per_tick * lib
-                tick["bytes_ms"] += per_tick * bytes_ms
-                tick["ops_ms"] += per_tick * ops_ms
+            if m in per_m:
+                for key, val in zip(keys, (ms, plain, bound, lib, bytes_ms,
+                                           ops_ms)):
+                    per_m[m][key] += per_tick * val
+    fwd = per_m[SERVE_ROWS]
+    print(f"  qmatmul_w8a16 per {SERVE_MAX_BATCH} x {SERVE_SEQ}-token forward "
+          f"(M = {SERVE_ROWS}; 30 layers x 6 projections + the LM head): "
+          f"ms={fwd['ms']:.4f} bound_ms={fwd['bound_ms']:.4f} "
+          f"({'bytes' if fwd['bytes_ms'] >= fwd['ops_ms'] else 'operations'})"
+          f" plain_ms={fwd['plain_ms']:.4f} library_ms="
+          f"{fwd['library_ms']:.4f} (F.linear, bf16 weights)")
     K.qmatmul_w8a16.launches = 0
     K.qmatmul_w8a16_ref.calls = 0
-    return worst_err, tick
+    return worst_err, per_m[NUM_SLOTS]
 
 
 def attention_phase(flush, s_slots: int):
@@ -437,14 +453,60 @@ def paged_attention_phase(flush):
     return worst, tick
 
 
+def w8a8_check(label, x, w, xs, ws, bias, act):
+    """qmatmul_w8a8 (the wrapper's own choice of kernel) on one input:
+    its int32 sums bitwise equal to the plain version's (unit scales, no
+    bias, no activation), its bf16 drain within one bf16 ulp (bf16_close),
+    and, where the wrapper takes the tensor-core kernel, its bf16 output
+    torch.equal to the same rows launched in slices that the __dp4a kernel
+    takes.  Returns (max_abs_err, err / tol, drain bitwise)."""
+    import torch
+    from repro_torch.kernels import qmatmul as K
+
+    m, n = x.shape[0], w.shape[1]
+    one, ones = torch.ones((), device="cuda"), torch.ones((n,), device="cuda")
+    acc = K.qmatmul_w8a8(x, w, one, ones)
+    acc_ref = K.qmatmul_w8a8_ref(x, w, one, ones)
+    kw = dict(activation=act, out_dtype=torch.bfloat16)
+    out = K.qmatmul_w8a8(x, w, xs, ws, bias, **kw)
+    ref = K.qmatmul_w8a8_ref(x, w, xs, ws, bias, **kw)
+    torch.cuda.synchronize()
+    if float(acc_ref.abs().max()) >= 2 ** 24:
+        raise AssertionError("int32 check: a sum is not exact in f32")
+    if not torch.equal(acc, acc_ref):
+        raise AssertionError(f"qmatmul_w8a8 {label}: the int32 accumulate is "
+                             f"not bitwise equal to the plain version's")
+    if out.shape != ref.shape or not torch.isfinite(out).all():
+        raise AssertionError(f"qmatmul_w8a8 {label}: bad output")
+    err, ratio = bf16_close(out, ref, f32_out=False)
+    if ratio > 1.0:
+        raise AssertionError(
+            f"qmatmul_w8a8 {label}: kernel disagrees with its plain version "
+            f"beyond tolerance (err/tol={ratio:.3f})")
+    size = K.W8A8_DP4A_MAX_ROWS
+    if K.w8a8_path(m) == "mma":
+        for i in range(0, m, size):
+            part = K.qmatmul_w8a8(x[i:i + size].contiguous(), w, xs, ws,
+                                  bias, **kw)
+            if not torch.equal(part, out[i:i + size]):
+                raise AssertionError(
+                    f"qmatmul_w8a8 {label}: rows {i}..{i + size - 1} of the "
+                    f"tensor-core launch differ from the same rows through "
+                    f"the __dp4a kernel")
+    return err, ratio, torch.equal(out, ref)
+
+
 def qmatmul_w8a8_phase(flush):
-    """Every projection of full-width starcoder2-3b under W8A8, at a decode
-    tick's M = 8 and at the service curve's largest prefill (M = 512),
-    with the activation each projection uses and bf16 out.  The int32
-    accumulate is held bitwise (unit scales, no bias, no activation); the
-    full drain to one bf16 ulp (bf16_close).  Yardstick: torch._int_mm and
-    the drain in PyTorch, or, where the build refuses that M, F.linear on
-    pre-dequantized bf16 weights."""
+    """Every projection of full-width starcoder2-3b under W8A8, with the
+    activation each projection uses and bf16 out, at a decode tick's M = 8,
+    at the service curve's largest prefill (M = 512), and either side of
+    the wrapper's path threshold, plus one ragged shape (M = 513, K = 3088,
+    N = 260): each held by w8a8_check.  Timed at M = 8 (per tick) and
+    M = 512 (per forward) through the wrapper, against the plain version,
+    the bound and a yardstick: torch._int_mm and the drain in PyTorch, or,
+    where the build refuses that M, F.linear on pre-dequantized bf16
+    weights.  Then both kernels are timed at M = 8, 16, 32, 64 and 512,
+    whatever the wrapper would pick."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import qmatmul as K
@@ -456,50 +518,48 @@ def qmatmul_w8a8_phase(flush):
               ("wo", d, d, False, "none", 30),
               ("w_up", d, ff, False, "gelu", 30),
               ("w_down", ff, d, False, "none", 30)]
+    threshold = K.W8A8_DP4A_MAX_ROWS
     gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
     keys = ("ms", "plain_ms", "bound_ms", "library_ms", "bytes_ms", "ops_ms")
     per_m = {m: dict.fromkeys(keys, 0.0) for m in (NUM_SLOTS, SERVE_ROWS)}
-    worst_err, worst_ratio, library = 0.0, 0.0, set()
-    for name, k, n, has_bias, act, per_fwd in shapes:
+    path_ms = {m: dict.fromkeys(K.W8A8_PATHS, 0.0) for m in W8A8_PATH_ROWS}
+    worst_err, library = 0.0, set()
+
+    def data(m, k, n, has_bias):
+        x = torch.randint(-127, 128, (m, k), generator=gen, device="cuda",
+                          dtype=torch.int8)
         w = torch.randint(-127, 128, (k, n), generator=gen, device="cuda",
                           dtype=torch.int8)
+        xs = torch.rand((), generator=gen, device="cuda") * 0.05 + 1e-3
         ws = torch.rand((n,), generator=gen, device="cuda") * 2e-3 + 1e-4
         bias = (torch.randn((n,), generator=gen, device="cuda") * 0.1
                 if has_bias else None)
-        ones = torch.ones((n,), device="cuda")
+        return x, w, xs, ws, bias
+
+    for name, k, n, has_bias, act, per_fwd in shapes:
+        x, w, xs, ws, bias = data(max(SERVE_ROWS, threshold + 1), k, n,
+                                  has_bias)
         w_lib = (w.float() * ws).to(torch.bfloat16).t()   # (N, K) view
-        for m in (NUM_SLOTS, SERVE_ROWS):
-            x = torch.randint(-127, 128, (m, k), generator=gen,
-                              device="cuda", dtype=torch.int8)
-            xs = torch.rand((), generator=gen, device="cuda") * 0.05 + 1e-3
-            one = torch.ones((), device="cuda")
-            acc = K.qmatmul_w8a8(x, w, one, ones)
-            acc_ref = K.qmatmul_w8a8_ref(x, w, one, ones)
-            out = K.qmatmul_w8a8(x, w, xs, ws, bias, activation=act,
-                                 out_dtype=torch.bfloat16)
-            ref = K.qmatmul_w8a8_ref(x, w, xs, ws, bias, activation=act,
-                                     out_dtype=torch.bfloat16)
-            torch.cuda.synchronize()
-            if float(acc_ref.abs().max()) >= 2 ** 24:
-                raise AssertionError("int32 check: a sum is not exact in f32")
-            if not torch.equal(acc, acc_ref):
-                raise AssertionError(f"qmatmul_w8a8 {name} M={m}: the int32 "
-                                     f"accumulate is not bitwise equal to "
-                                     f"the plain version's")
-            if out.shape != ref.shape or not torch.isfinite(out).all():
-                raise AssertionError(f"qmatmul_w8a8 {name} M={m}: bad output")
-            err, ratio = bf16_close(out, ref, f32_out=False)
+        for m in sorted({NUM_SLOTS, threshold, threshold + 1, SERVE_ROWS}):
+            xm = x[:m].contiguous()
+            label = f"{name} M={m} ({K.w8a8_path(m)})"
+            err, ratio, bitwise = w8a8_check(label, xm, w, xs, ws, bias, act)
             worst_err = max(worst_err, err)
-            worst_ratio = max(worst_ratio, ratio)
+            if m not in per_m:
+                print(f"  qmatmul_w8a8 {name:7s} M={m:3d} K={k:5d} N={n:5d} "
+                      f"path={K.w8a8_path(m)} int32_bitwise=True "
+                      f"drain_bitwise={bitwise} max_abs_err={err:.3e} "
+                      f"err/tol={ratio:.3f}")
+                continue
             ms = time_ms(lambda: K.qmatmul_w8a8(
-                x, w, xs, ws, bias, activation=act,
+                xm, w, xs, ws, bias, activation=act,
                 out_dtype=torch.bfloat16), 20, flush)
             plain = time_ms(lambda: K.qmatmul_w8a8_ref(
-                x, w, xs, ws, bias, activation=act,
+                xm, w, xs, ws, bias, activation=act,
                 out_dtype=torch.bfloat16), 3, flush)
 
             def int_mm():
-                y = torch._int_mm(x, w).float() * xs * ws
+                y = torch._int_mm(xm, w).float() * xs * ws
                 if bias is not None:
                     y = y + bias
                 return K.activate(y, act).to(torch.bfloat16)
@@ -509,7 +569,7 @@ def qmatmul_w8a8_phase(flush):
                 lib_fn, lib_name = int_mm, "torch._int_mm + drain"
             except RuntimeError:
                 lib_fn = lambda: F.linear(  # noqa: E731
-                    x.to(torch.bfloat16) * xs.to(torch.bfloat16), w_lib,
+                    xm.to(torch.bfloat16) * xs.to(torch.bfloat16), w_lib,
                     None if bias is None else bias.to(torch.bfloat16))
                 lib_name = "F.linear, bf16 weights"
             library.add(lib_name)
@@ -520,26 +580,51 @@ def qmatmul_w8a8_phase(flush):
             ops_ms = 2 * m * k * n / INT8_OPS_PER_S * 1e3
             bound = max(bytes_ms, ops_ms)
             print(f"  qmatmul_w8a8 {name:7s} M={m:3d} K={k:5d} N={n:5d} "
-                  f"act={act:4s} int32_bitwise=True "
-                  f"drain_bitwise={torch.equal(out, ref)} "
-                  f"max_abs_err={err:.3e} err/tol={ratio:.3f} ms={ms:.4f} "
-                  f"plain_ms={plain:.4f} library_ms={lib:.4f} ({lib_name}) "
-                  f"bound_ms={bound:.4f}")
-            if ratio > 1.0:
-                raise AssertionError(
-                    f"qmatmul_w8a8 {name} M={m}: kernel disagrees with its "
-                    f"plain version beyond tolerance (err/tol={ratio:.3f})")
+                  f"act={act:4s} path={K.w8a8_path(m)} int32_bitwise=True "
+                  f"drain_bitwise={bitwise} max_abs_err={err:.3e} "
+                  f"err/tol={ratio:.3f} ms={ms:.4f} plain_ms={plain:.4f} "
+                  f"library_ms={lib:.4f} ({lib_name}) bound_ms={bound:.4f}")
             for key, val in zip(keys, (ms, plain, bound, lib, bytes_ms,
                                        ops_ms)):
                 per_m[m][key] += per_fwd * val
+        times = []
+        for m in W8A8_PATH_ROWS:
+            xm = x[:m].contiguous()
+            for path in K.W8A8_PATHS:
+                t = time_ms(lambda: K.qmatmul_w8a8_on_path(
+                    path, xm, w, xs, ws, bias, activation=act,
+                    out_dtype=torch.bfloat16), 20, flush)
+                path_ms[m][path] += per_fwd * t
+                times.append(f"M={m} {path}={t:.4f}")
+        print(f"  qmatmul_w8a8 {name:7s} paths: {' '.join(times)}")
+    x, w, xs, ws, bias = data(513, 3088, 260, True)
+    err, ratio, bitwise = w8a8_check("ragged M=513 K=3088 N=260", x, w, xs,
+                                     ws, bias, "gelu")
+    worst_err = max(worst_err, err)
+    print(f"  qmatmul_w8a8 ragged  M=513 K= 3088 N=  260 act=gelu "
+          f"path={K.w8a8_path(513)} int32_bitwise=True drain_bitwise="
+          f"{bitwise} max_abs_err={err:.3e} err/tol={ratio:.3f}")
+    faster = [m for m in W8A8_PATH_ROWS
+              if path_ms[m]["mma"] < path_ms[m]["dp4a"]]
+    print("  qmatmul_w8a8 per 30 layers x 6 projections, by path: " + "; ".join(
+        f"M={m} dp4a={t['dp4a']:.4f} mma={t['mma']:.4f}"
+        for m, t in path_ms.items()))
+    print(f"  qmatmul_w8a8 threshold: M <= {threshold} takes __dp4a, more "
+          f"rows mma.sync; of the timed M, mma.sync was faster at "
+          f"{faster or 'none'}")
     tick = per_m[NUM_SLOTS]
     print(f"  qmatmul_w8a8 per {NUM_SLOTS}-row decode tick (30 layers x 6 "
           f"projections): ms={tick['ms']:.4f} bound_ms={tick['bound_ms']:.4f} "
           f"plain_ms={tick['plain_ms']:.4f} "
           f"library_ms={tick['library_ms']:.4f}")
+    fwd = per_m[SERVE_ROWS]
+    print(f"  qmatmul_w8a8 per {SERVE_MAX_BATCH} x {SERVE_SEQ}-token forward "
+          f"(M = {SERVE_ROWS}): ms={fwd['ms']:.4f} "
+          f"bound_ms={fwd['bound_ms']:.4f} plain_ms={fwd['plain_ms']:.4f} "
+          f"library_ms={fwd['library_ms']:.4f}")
     K.qmatmul_w8a8.launches = 0
     K.qmatmul_w8a8_ref.calls = 0
-    return worst_err, per_m[SERVE_ROWS], " or ".join(sorted(library))
+    return worst_err, fwd, " or ".join(sorted(library))
 
 
 def flash_phase(flush):

@@ -1,5 +1,5 @@
-// Shared by the kernels: a store of one f32 value as the output type, and
-// the quantized matmuls' activations (the reference's).
+// Shared by the kernels: a store of one f32 value as the output type, the
+// quantized matmuls' activations (the reference's), and the W8A8 drain.
 #pragma once
 #include <cuda_bf16.h>
 
@@ -26,6 +26,18 @@ __device__ __forceinline__ float activate(float v, int act) {
     default:
       return v;
   }
+}
+
+// One W8A8 output from its int32 sum: (float(acc) * x_scale) * w_scale,
+// then + bias, then the activation, rounded step by step as the reference
+// rounds (no contraction into a fused multiply-add).  Both W8A8 kernels
+// drain through this one function, so they give an output the same bits.
+template <typename OT>
+__device__ __forceinline__ void drain_w8a8(OT* p, int acc, float x_scale, float w_scale,
+                                           const float* bias, int col, int act) {
+  float v = __fmul_rn(__fmul_rn(static_cast<float>(acc), x_scale), w_scale);
+  if (bias != nullptr) v = __fadd_rn(v, bias[col]);
+  store(p, activate(v, act));
 }
 
 }  // namespace

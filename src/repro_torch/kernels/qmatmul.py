@@ -16,11 +16,13 @@ does not depend on how many rows are in the batch — a plain CPU
 
 ``qmatmul_w8a8`` (int8 activations with one scale per tensor, int8
 weights, int32 accumulation) launches ``csrc/qmatmul_w8a8.cu``, the port
-of ``repro/kernels/qmatmul.py::qmatmul_w8a8``; each launch adds one to
-``qmatmul_w8a8.launches``.  Its plain version ``qmatmul_w8a8_ref`` (the
-port of ``ref.py::qmatmul_w8a8_ref``) sums each row's integer products
-exactly and drains them in the reference's order; each call adds one to
-``qmatmul_w8a8_ref.calls``.
+of ``repro/kernels/qmatmul.py::qmatmul_w8a8``: its ``__dp4a`` kernel for
+a decode tick's few rows, its ``mma.sync`` tensor-core kernel for a
+prefill's many (``w8a8_path``), with identical bits either way.  Each
+launch adds one to ``qmatmul_w8a8.launches``.  Its plain version
+``qmatmul_w8a8_ref`` (the port of ``ref.py::qmatmul_w8a8_ref``) sums each
+row's integer products exactly and drains them in the reference's order;
+each call adds one to ``qmatmul_w8a8_ref.calls``.
 """
 from __future__ import annotations
 
@@ -168,15 +170,32 @@ def qmatmul_w8a16(x: torch.Tensor, w: torch.Tensor, w_scale: torch.Tensor,
 qmatmul_w8a16.launches = 0
 
 
+# The W8A8 wrapper's two kernels: rows up to W8A8_DP4A_MAX_ROWS (a decode
+# tick's) go to the __dp4a kernel, which streams the weights once; more rows
+# (a prefill's) go to the mma.sync kernel on the int8 tensor cores.  The
+# value is set from chip_smoke.py's times of both at M = 8, 16, 32, 64 and
+# 512 (PERF.md): __dp4a was faster at 8 and 16, mma.sync from 32 on.
+# Integer sums are exact and both kernels drain through one function, so
+# the choice decides speed only: a row's bits never depend on M or on the
+# path.
+W8A8_PATHS = ("dp4a", "mma")
+W8A8_DP4A_MAX_ROWS = 16
+
+
+def w8a8_path(m: int) -> str:
+    """The kernel ``qmatmul_w8a8`` launches for ``m`` rows."""
+    return "dp4a" if m <= W8A8_DP4A_MAX_ROWS else "mma"
+
+
 @functools.lru_cache(maxsize=None)
 def _lib_w8a8():
-    """The w8a8 kernel's C entry point, built and bound once per process."""
+    """The w8a8 kernels' C entry point, built and bound once per process."""
     lib = _build.load("qmatmul_w8a8")
     fn = lib.qmatmul_w8a8
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_int, ctypes.c_void_p]
+                   ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -186,12 +205,28 @@ def qmatmul_w8a8(x: torch.Tensor, w: torch.Tensor, x_scale: torch.Tensor,
                  *, activation: str = "none",
                  out_dtype=torch.float32) -> torch.Tensor:
     """act(float(x @ w) * x_scale * w_scale[col] + bias) on the card, with
-    int32 accumulation.
+    int32 accumulation, through the kernel :func:`w8a8_path` picks.
 
     x: (M, K) int8 with K % 16 == 0; w: (K, N) int8 with N % 4 == 0;
     x_scale: one f32 value (a device scalar); w_scale: N f32 values;
     bias: (N,) f32 or None; out: (M, N) ``out_dtype`` (bf16/f32).  All
     CUDA tensors, contiguous, on one device."""
+    return qmatmul_w8a8_on_path(w8a8_path(x.shape[0]), x, w, x_scale,
+                                w_scale, bias, activation=activation,
+                                out_dtype=out_dtype)
+
+
+def qmatmul_w8a8_on_path(path: str, x: torch.Tensor, w: torch.Tensor,
+                         x_scale: torch.Tensor, w_scale: torch.Tensor,
+                         bias: Optional[torch.Tensor] = None, *,
+                         activation: str = "none",
+                         out_dtype=torch.float32) -> torch.Tensor:
+    """:func:`qmatmul_w8a8` through the named kernel (one of
+    ``W8A8_PATHS``) whatever M is: for the measurements and tests that
+    hold the two kernels against each other.  Counts as a launch of
+    ``qmatmul_w8a8``."""
+    if path not in W8A8_PATHS:
+        raise ValueError(f"unknown path {path!r}")
     if activation not in ACTIVATIONS:
         raise ValueError(f"unknown activation {activation!r}")
     if not x.is_cuda:
@@ -229,9 +264,10 @@ def qmatmul_w8a8(x: torch.Tensor, w: torch.Tensor, x_scale: torch.Tensor,
              w_scale.data_ptr(),
              bias.data_ptr() if bias is not None else None,
              out.data_ptr(), int(out_dtype == torch.bfloat16), m, k, n,
-             ACTIVATIONS.index(activation), stream)
+             ACTIVATIONS.index(activation), int(path == "mma"), stream)
     if err:
-        raise RuntimeError(f"qmatmul_w8a8 launch failed: CUDA error {err}")
+        raise RuntimeError(f"qmatmul_w8a8 ({path}) launch failed: CUDA "
+                           f"error {err}")
     qmatmul_w8a8.launches += 1
     return out
 

@@ -216,47 +216,71 @@ def _w8a8_case(cuda, seed, m, k, n):
     return x, w, xs, ws, b
 
 
+# M on both sides of the path threshold and of the tensor-core kernel's
+# 128-row tiles; K % 32 == 16 (a ragged last k step of either kernel); N %
+# 8 == 4 (a ragged n8 tile and 128-column strip)
+W8A8_ROWS = (1, 8, 16, 17, 33, 128, 512, 513)
+W8A8_KN = ((272, 100), (3088, 260))
+
+
 @pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
 def test_qmatmul_w8a8_kernel_matches_plain(cuda, out_dtype):
-    """Every activation, with bias, M from 1 to 19 (three row slabs), K of
-    17 groups of 16 over 32 slices, N ragged against the 32-column block.
-    Without an activation the drain is the plain version's, step for step:
-    bitwise.  With one, the kernel's tanhf/expf and PyTorch's activation
-    kernels differ by a few f32 ulps: 1e-5 relative (f32) or one bf16 ulp
-    (2^-7 relative), plus 1e-6 absolute for the activations' tails."""
-    for m in (1, 8, 19):
-        x, w, xs, ws, b = _w8a8_case(cuda, m, m, 272, 100)
-        for act in ACTS:
-            got = K.qmatmul_w8a8(x, w, xs, ws, b, activation=act,
-                                 out_dtype=out_dtype).float()
-            want = K.qmatmul_w8a8_ref(x, w, xs, ws, b, activation=act,
-                                      out_dtype=out_dtype).float()
-            if act in ("none", "relu"):
-                assert torch.equal(got, want), (m, act)
-            rel = 2.0 ** -7 if out_dtype == torch.bfloat16 else 1e-5
-            assert ((got - want).abs()
-                    <= rel * want.abs() + 1e-6).all(), (m, act)
+    """Every activation, with bias, at every M of W8A8_ROWS (so through
+    both kernels) and both (K, N) of W8A8_KN.  Without an activation the
+    drain is the plain version's, step for step: bitwise.  With one, the
+    kernel's tanhf/expf and PyTorch's activation kernels differ by a few
+    f32 ulps: 1e-5 relative (f32) or one bf16 ulp (2^-7 relative), plus
+    1e-6 absolute for the activations' tails."""
+    for k, n in W8A8_KN:
+        for m in W8A8_ROWS:
+            x, w, xs, ws, b = _w8a8_case(cuda, m + k, m, k, n)
+            for act in ACTS:
+                got = K.qmatmul_w8a8(x, w, xs, ws, b, activation=act,
+                                     out_dtype=out_dtype).float()
+                want = K.qmatmul_w8a8_ref(x, w, xs, ws, b, activation=act,
+                                          out_dtype=out_dtype).float()
+                if act in ("none", "relu"):
+                    assert torch.equal(got, want), (m, k, n, act)
+                rel = 2.0 ** -7 if out_dtype == torch.bfloat16 else 1e-5
+                assert ((got - want).abs()
+                        <= rel * want.abs() + 1e-6).all(), (m, k, n, act)
 
 
 def test_qmatmul_w8a8_int32_accumulate_bitwise(cuda):
     """Unit scales, no bias, no activation, f32 out: the integer sums
-    themselves (each |sum| < 2^24, exact in f32)."""
-    x, w, _, _, _ = _w8a8_case(cuda, 5, 16, 3072, 256)
-    one = torch.ones((), device=cuda)
-    got = K.qmatmul_w8a8(x, w, one, torch.ones(256, device=cuda))
-    want = K.qmatmul_w8a8_ref(x, w, one, torch.ones(256, device=cuda))
-    assert float(want.abs().max()) < 2 ** 24
-    assert torch.equal(got, want)
+    themselves (each |sum| < 2^24, exact in f32), through each kernel at
+    every M of W8A8_ROWS, and through the wrapper's own choice."""
+    for k, n in W8A8_KN + ((3072, 256),):
+        for m in W8A8_ROWS:
+            x, w, _, _, _ = _w8a8_case(cuda, 5 + m, m, k, n)
+            one = torch.ones((), device=cuda)
+            ones = torch.ones(n, device=cuda)
+            want = K.qmatmul_w8a8_ref(x, w, one, ones)
+            assert float(want.abs().max()) < 2 ** 24
+            assert torch.equal(K.qmatmul_w8a8(x, w, one, ones), want)
+            for path in K.W8A8_PATHS:
+                got = K.qmatmul_w8a8_on_path(path, x, w, one, ones)
+                assert torch.equal(got, want), (path, m, k, n)
 
 
 def test_qmatmul_w8a8_rows_are_batch_invariant(cuda):
-    x, w, xs, ws, b = _w8a8_case(cuda, 6, 11, 512, 64)
-    full = K.qmatmul_w8a8(x, w, xs, ws, b, activation="gelu",
-                          out_dtype=torch.bfloat16)
-    for i in range(11):
-        one = K.qmatmul_w8a8(x[i:i + 1].contiguous(), w, xs, ws, b,
-                             activation="gelu", out_dtype=torch.bfloat16)
-        assert torch.equal(one[0], full[i])
+    """A row's bits do not depend on M or on the kernel: the rows of an
+    M = 512 and an M = 513 launch (the tensor-core kernel) equal the same
+    rows launched one at a time (the __dp4a kernel), and in slices of
+    W8A8_DP4A_MAX_ROWS and one row more (either side of the threshold)."""
+    t = K.W8A8_DP4A_MAX_ROWS
+    for m, k, n in ((11, 512, 64), (512, 3088, 260), (513, 272, 100)):
+        x, w, xs, ws, b = _w8a8_case(cuda, 6 + m, m, k, n)
+        kw = dict(activation="gelu", out_dtype=torch.bfloat16)
+        full = K.qmatmul_w8a8(x, w, xs, ws, b, **kw)
+        for i in range(m):
+            one = K.qmatmul_w8a8(x[i:i + 1].contiguous(), w, xs, ws, b, **kw)
+            assert torch.equal(one[0], full[i]), (m, i)
+        for size in (t, t + 1):
+            for i in range(0, m, size):
+                part = K.qmatmul_w8a8(x[i:i + size].contiguous(), w, xs, ws,
+                                      b, **kw)
+                assert torch.equal(part, full[i:i + size]), (m, size, i)
 
 
 FLASH_CASES = [

@@ -36,9 +36,18 @@ from repro_torch.kernels import ops
 from repro_torch.kernels import qmatmul as K
 
 ACTS = ("none", "relu", "gelu", "silu", "tanh", "sigmoid")
-# (M, K, N), each a multiple of the interpret-mode blocks below
-SHAPES = [(8, 256, 128), (24, 512, 256), (1, 128, 384)]
-BLOCKS = dict(bm=1, bn=128, bk=128)
+# (M, K, N); the last two sit on the CUDA tensor-core kernel's tile edges:
+# M one past a 32- or 128-row tile, K % 32 == 16 (a ragged last k step), N
+# % 8 == 4 (a ragged n8 tile) and past a 128-column strip
+SHAPES = [(8, 256, 128), (24, 512, 256), (1, 128, 384), (33, 544, 132),
+          (129, 272, 260)]
+
+
+def _blocks(m, k, n):
+    """Interpret-mode blocks that divide the shape: one row block, 128 wide
+    where 128 divides, else the whole of N and K in 16-row steps."""
+    return dict(bm=m, bn=128 if n % 128 == 0 else n,
+                bk=128 if k % 128 == 0 else 16)
 
 
 @pytest.fixture(autouse=True)
@@ -74,7 +83,7 @@ def test_w8a8_plain_matches_jax(m, k, n, with_bias, activation):
              jb)
     interp = np.asarray(JK.qmatmul_w8a8(
         *jargs, activation=activation, out_dtype=jnp.float32,
-        interpret=True, **dict(BLOCKS, bm=m)))
+        interpret=True, **_blocks(m, k, n)))
     oracle = np.asarray(JREF.qmatmul_w8a8_ref(
         *jargs, activation=activation, out_dtype=jnp.float32))
     got = K.qmatmul_w8a8_ref(
@@ -195,8 +204,25 @@ def test_w8a8_rows_are_independent_of_the_batch():
 
 def test_w8a8_kernel_wrapper_takes_only_cuda_tensors():
     x, w, xs, ws, _ = _case(1, 8, 128, 128)
+    args = (torch.from_numpy(x), torch.from_numpy(w), torch.tensor(xs),
+            torch.from_numpy(ws))
     calls = K.qmatmul_w8a8_ref.calls
     with pytest.raises(ValueError, match="CUDA"):
-        K.qmatmul_w8a8(torch.from_numpy(x), torch.from_numpy(w),
-                       torch.tensor(xs), torch.from_numpy(ws))
+        K.qmatmul_w8a8(*args)
+    for path in K.W8A8_PATHS:
+        with pytest.raises(ValueError, match="CUDA"):
+            K.qmatmul_w8a8_on_path(path, *args)
+    with pytest.raises(ValueError, match="path"):
+        K.qmatmul_w8a8_on_path("wmma", *args)
     assert K.qmatmul_w8a8_ref.calls == calls
+
+
+@pytest.mark.parametrize("m", sorted({1, 8, 16, K.W8A8_DP4A_MAX_ROWS,
+                                      K.W8A8_DP4A_MAX_ROWS + 1, 512}))
+def test_w8a8_path_is_chosen_by_rows_alone(m):
+    """A decode tick's rows go to the __dp4a kernel, a prefill's to the
+    tensor-core kernel, split at W8A8_DP4A_MAX_ROWS, which keeps the ticks
+    of 8 and 16 rows on __dp4a."""
+    assert K.W8A8_DP4A_MAX_ROWS >= 16
+    want = "dp4a" if m <= K.W8A8_DP4A_MAX_ROWS else "mma"
+    assert K.w8a8_path(m) == want
