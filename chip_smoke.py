@@ -8,8 +8,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
 1. build: compile every kernel of the serving path from the repo's
    ``.cu`` sources with ``nvcc`` for sm_90a, one process per source,
    all started together;
-2. kernels: at every shape the main path gives them (full-width
-   starcoder2-3b, M = 1 and M = 8 rows), hold each CUDA kernel against
+2. kernels: at every shape the main paths give them (full-width
+   starcoder2-3b: M = 1 and 8 rows for the decode steps, 32 to 512 for
+   the service curve's forward), hold each CUDA kernel against
    its plain PyTorch version on the same inputs on the card, within the
    stated tolerance, and time kernel, plain version, one PyTorch library
    call as a yardstick, and the card's bound (bytes over 3.35 TB/s, or
@@ -20,35 +21,45 @@ Phases, each of which fails the run (non-zero exit, no result line):
    generator, int8 W8A16 weights, int8 KV cache) served through
    ``Engine.serve`` — 8 slots, chunked prefill of 4, 24 requests so slots
    are reused — with the kernels' launch counters zeroed just before and
-   read just after; then three requests compared with the sequential
-   ``reference_outputs`` on the card;
+   read just after (no launch of qmatmul_w8a16's mma path); then three
+   requests compared with the sequential ``reference_outputs`` on the
+   card;
 4. paged slice: the same model served from the paged KV cache
    (``Engine(block_size=16, num_blocks=25)``, 24 requests sharing a
    16-token prompt prefix), counters zeroed just before and read just
-   after; prefix blocks must be shared, none leaked, and three requests
-   (one that shared) equal the contiguous sequential reference;
+   after (again no mma launch); prefix blocks must be shared, none leaked,
+   and three requests (one that shared) equal the contiguous sequential
+   reference;
 5. serve: the serve launcher (``repro_torch.launch.serve.run``) at full
    starcoder2-3b width with the bf16 KV cache, once with ``--quant w8a16``
    and once with ``--quant w8a8``: the service curve through the
-   full-sequence forward (flash attention), the Table 4 batch choice, the
-   decode loop and a wall-clock ``Engine.serve``, counters zeroed just
+   full-sequence forward (flash attention; under w8a16 every
+   qmatmul_w8a16 launch of it on the mma path, counted around the curve
+   alone), the Table 4 batch choice, the decode loop and a wall-clock
+   ``Engine.serve`` (no mma launch in either), counters zeroed just
    before each run and read just after, then where one 16 x 32-token
    prefill spends its time; the w8a16 run's first three requests are
    compared with ``reference_outputs`` (bf16 cache) on the card.
 
-The kernel phase also times ``qmatmul_w8a16`` at the prefill's M = 512
-(per forward, on a line of its own), holds ``qmatmul_w8a8`` (every
-projection at M = 8, M = 512 and either side of its path threshold, and
-one ragged shape: its int32 accumulate bitwise, the tensor-core kernel's
-bf16 rows equal to the __dp4a kernel's) and ``flash_attention_bhsd`` (the
-service curve's shapes, plus a window and a ``kv_len < Skv`` case)
-against their plain versions, and times them; ``qmatmul_w8a8``'s two
-kernels are timed at M = 8, 16, 32, 64 and 512.
+The kernel phase holds both of ``qmatmul_w8a16``'s kernels (the GEMV and
+the ``mma.sync`` bf16 tensor-core path) at every projection and the LM
+head at M = 1, 8, 32, 128 and 512 and at one ragged shape, checks the
+mma path's row independence, times both at M = 8, 32, 128 and 512 and
+prints their per-forward sums on lines of their own; it holds
+``qmatmul_w8a8`` (every projection at M = 8, M = 512 and either side of
+its path threshold, and one ragged shape: its int32 accumulate bitwise,
+the tensor-core kernel's bf16 rows equal to the __dp4a kernel's) and
+``flash_attention_bhsd`` (the service curve's shapes, plus a window and a
+``kv_len < Skv`` case) against their plain versions, and times them;
+``qmatmul_w8a8``'s two kernels are timed at M = 8, 16, 32, 64 and 512.
+Then ``rmsnorm``'s rows at d = 3072 are checked bitwise at B = 1, 8 and
+16.
 
-It prints the card's name and power limit, a JSON line with every kernel's
-numbers, and, last, ``{"ok": true, "device": {...}}``.  Without a CUDA
-device, or without the repo's ``src/repro_torch`` beside it, it exits
-non-zero and prints no result.
+It prints the card's name and power limit, a JSON line with every
+kernel's numbers (qmatmul_w8a16's with both paths under ``paths``), and,
+last, ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
+without the repo's ``src/repro_torch`` beside it, it exits non-zero and
+prints no result.
 """
 from __future__ import annotations
 
@@ -101,6 +112,9 @@ SERVE_SEQ = 32
 SERVE_ROWS = SERVE_MAX_BATCH * SERVE_SEQ     # M of the curve's largest prefill
 # qmatmul_w8a8's two kernels are timed at these M, whatever the wrapper picks
 W8A8_PATH_ROWS = (NUM_SLOTS, 16, 32, 64, SERVE_ROWS)
+# qmatmul_w8a16's two kernels are checked and timed at a slot tick's rows
+# and at the service curve's batches 1, 4 and 16 of SERVE_SEQ tokens
+W8A16_PATH_ROWS = (NUM_SLOTS, SERVE_SEQ, 4 * SERVE_SEQ, SERVE_ROWS)
 SERVE_ARGS = ["--arch", "starcoder2-3b", "--max-batch", str(SERVE_MAX_BATCH),
               "--seq", str(SERVE_SEQ), "--decode-tokens", "16",
               "--n-requests", "16", "--prompt-len", "16",
@@ -185,11 +199,63 @@ def bf16_close(out, ref, *, f32_out: bool):
     return float(err.max()), float((err / tol).max())
 
 
+def w8a16_check(label, x, w, ws, bias, act, odt, ref):
+    """qmatmul_w8a16 through each of its kernels on one input, held against
+    the plain version's ``ref`` with bf16_close.  Returns the worst
+    (max_abs_err, err / tol)."""
+    import torch
+    from repro_torch.kernels import qmatmul as K
+
+    worst = (0.0, 0.0)
+    for path in K.W8A16_PATHS:
+        out = K.qmatmul_w8a16_on_path(path, x, w, ws, bias, activation=act,
+                                      out_dtype=odt)
+        torch.cuda.synchronize()
+        if out.shape != ref.shape or not torch.isfinite(out).all():
+            raise AssertionError(f"qmatmul_w8a16 {label} ({path}): bad output")
+        err, ratio = bf16_close(out, ref, f32_out=odt == torch.float32)
+        if ratio > 1.0:
+            raise AssertionError(
+                f"qmatmul_w8a16 {label} ({path}): kernel disagrees with its "
+                f"plain version beyond tolerance (err/tol={ratio:.3f})")
+        worst = (max(worst[0], err), max(worst[1], ratio))
+    return worst
+
+
+def w8a16_rows_check(x, w, ws, bias, act, odt) -> None:
+    """The mma path's rows do not depend on M: the rows of one launch equal
+    the same rows launched alone and in slices of 17 through the same
+    path."""
+    import torch
+    from repro_torch.kernels import qmatmul as K
+
+    kw = dict(activation=act, out_dtype=odt)
+    full = K.qmatmul_w8a16_on_path("mma", x, w, ws, bias, **kw)
+    m = x.shape[0]
+    for i in sorted({0, 1, 15, 16, 127, 128, m // 2, m - 1}):
+        one = K.qmatmul_w8a16_on_path("mma", x[i:i + 1].contiguous(), w, ws,
+                                      bias, **kw)
+        if not torch.equal(one[0], full[i]):
+            raise AssertionError(f"qmatmul_w8a16 (mma): row {i} of an M = "
+                                 f"{m} launch differs from the row alone")
+    for i in range(0, m, 17):
+        part = K.qmatmul_w8a16_on_path("mma", x[i:i + 17].contiguous(), w, ws,
+                                       bias, **kw)
+        if not torch.equal(part, full[i:i + 17]):
+            raise AssertionError(f"qmatmul_w8a16 (mma): rows {i}.. of an M = "
+                                 f"{m} launch differ from the same 17 rows")
+
+
 def qmatmul_phase(flush):
-    """qmatmul_w8a16 at every full-width projection and the LM head, at
-    M = 1, a decode tick's M = 8 (summed per tick: the kernels line) and
-    the service curve's largest prefill, M = SERVE_ROWS (summed per
-    forward, printed on a line of its own)."""
+    """qmatmul_w8a16 at every full-width projection and the LM head, through
+    both kernels (the GEMV and the mma path), at M = 1, a decode tick's
+    M = 8 and the service curve's M = 32, 128 and 512 (batches 1, 4 and 16
+    of SERVE_SEQ tokens), plus one ragged shape (M = 513, K = 3088,
+    N = 260): each held against the plain version (bf16_close).  Row
+    independence of the mma path on one projection.  Both paths timed at
+    M = 8, 32, 128 and 512 against F.linear and the bound; the GEMV's
+    per-tick sum (M = 8) goes to the kernels line, and both paths'
+    per-forward sums are printed on their own lines."""
     import torch
     import torch.nn.functional as F
     from repro_torch.core.quant import quantize_weight
@@ -206,7 +272,8 @@ def qmatmul_phase(flush):
               ("lm_head", d, vocab, False, "none", torch.float32, 1)]
     gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
     keys = ("ms", "plain_ms", "bound_ms", "library_ms", "bytes_ms", "ops_ms")
-    per_m = {m: dict.fromkeys(keys, 0.0) for m in (NUM_SLOTS, SERVE_ROWS)}
+    per_m = {(path, m): dict.fromkeys(keys, 0.0)
+             for path in K.W8A16_PATHS for m in W8A16_PATH_ROWS}
     worst_err, worst_ratio = 0.0, 0.0
     for name, k, n, has_bias, act, odt, per_tick in shapes:
         wf = torch.randn((k, n), generator=gen, device="cuda") * k ** -0.5
@@ -216,55 +283,81 @@ def qmatmul_phase(flush):
         bias = (torch.randn((n,), generator=gen, device="cuda") * 0.1
                 if has_bias else None)
         w_lib = (w.float() * ws).to(torch.bfloat16).t()   # (N, K) view
-        for m in (1, NUM_SLOTS, SERVE_ROWS):
+        for m in (1,) + W8A16_PATH_ROWS:
             x = torch.randn((m, k), generator=gen,
                             device="cuda").to(torch.bfloat16)
-            out = K.qmatmul_w8a16(x, w, ws, bias, activation=act,
-                                  out_dtype=odt)
             ref = K.qmatmul_w8a16_ref(x, w, ws, bias, activation=act,
                                       out_dtype=odt)
-            torch.cuda.synchronize()
-            if out.shape != ref.shape or not torch.isfinite(out).all():
-                raise AssertionError(f"qmatmul {name} M={m}: bad output")
-            err, ratio = bf16_close(out, ref, f32_out=odt == torch.float32)
+            err, ratio = w8a16_check(f"{name} M={m}", x, w, ws, bias, act,
+                                     odt, ref)
             worst_err, worst_ratio = max(worst_err, err), max(worst_ratio,
                                                               ratio)
-            ms = time_ms(lambda: K.qmatmul_w8a16(
-                x, w, ws, bias, activation=act, out_dtype=odt), 20, flush)
-            plain = time_ms(lambda: K.qmatmul_w8a16_ref(
+            if name == "wq" and m == SERVE_ROWS:
+                w8a16_rows_check(x, w, ws, bias, act, odt)
+            line = (f"  qmatmul_w8a16 {name:7s} M={m:3d} K={k:5d} N={n:5d} "
+                    f"act={act:4s} max_abs_err={err:.3e} err/tol={ratio:.3f}")
+            if m not in W8A16_PATH_ROWS:
+                print(line)
+                continue
+            ms = {path: time_ms(lambda: K.qmatmul_w8a16_on_path(
+                path, x, w, ws, bias, activation=act, out_dtype=odt), 20,
+                flush) for path in K.W8A16_PATHS}
+            plain = (time_ms(lambda: K.qmatmul_w8a16_ref(
                 x, w, ws, bias, activation=act, out_dtype=odt),
                 3 if m < SERVE_ROWS else 1, flush)
+                if m in (NUM_SLOTS, SERVE_ROWS) else float("nan"))
             lib = time_ms(lambda: F.linear(x, w_lib, None if bias is None
                                            else bias.to(torch.bfloat16)),
                           20, flush)
             nbytes = (x.numel() * 2 + w.numel() + ws.numel() * 4
                       + (n * 4 if has_bias else 0)
-                      + m * n * out.element_size())
+                      + m * n * torch.empty(0, dtype=odt).element_size())
             bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
             ops_ms = 2 * m * k * n / BF16_OPS_PER_S * 1e3
             bound = max(bytes_ms, ops_ms)
-            print(f"  qmatmul_w8a16 {name:7s} M={m:3d} K={k:5d} N={n:5d} "
-                  f"act={act:4s} max_abs_err={err:.3e} err/tol={ratio:.3f} "
-                  f"ms={ms:.4f} plain_ms={plain:.4f} library_ms={lib:.4f} "
+            print(f"{line} gemv_ms={ms['gemv']:.4f} mma_ms={ms['mma']:.4f} "
+                  f"plain_ms={plain:.4f} library_ms={lib:.4f} "
                   f"bound_ms={bound:.4f}")
-            if ratio > 1.0:
-                raise AssertionError(
-                    f"qmatmul {name} M={m}: kernel disagrees with its plain "
-                    f"version beyond tolerance (err/tol={ratio:.3f})")
-            if m in per_m:
-                for key, val in zip(keys, (ms, plain, bound, lib, bytes_ms,
-                                           ops_ms)):
-                    per_m[m][key] += per_tick * val
-    fwd = per_m[SERVE_ROWS]
-    print(f"  qmatmul_w8a16 per {SERVE_MAX_BATCH} x {SERVE_SEQ}-token forward "
-          f"(M = {SERVE_ROWS}; 30 layers x 6 projections + the LM head): "
-          f"ms={fwd['ms']:.4f} bound_ms={fwd['bound_ms']:.4f} "
-          f"({'bytes' if fwd['bytes_ms'] >= fwd['ops_ms'] else 'operations'})"
-          f" plain_ms={fwd['plain_ms']:.4f} library_ms="
-          f"{fwd['library_ms']:.4f} (F.linear, bf16 weights)")
-    K.qmatmul_w8a16.launches = 0
-    K.qmatmul_w8a16_ref.calls = 0
-    return worst_err, per_m[NUM_SLOTS]
+            for path in K.W8A16_PATHS:
+                for key, val in zip(keys, (ms[path], plain, bound, lib,
+                                           bytes_ms, ops_ms)):
+                    per_m[path, m][key] += per_tick * val
+    x = torch.randn((513, 3088), generator=gen, device="cuda").to(
+        torch.bfloat16)
+    q = quantize_weight(torch.randn((3088, 260), generator=gen,
+                                    device="cuda") * 3088 ** -0.5)
+    w, ws = q.values, q.scale.reshape(-1).contiguous()
+    bias = torch.randn((260,), generator=gen, device="cuda") * 0.1
+    for odt in (torch.bfloat16, torch.float32):
+        ref = K.qmatmul_w8a16_ref(x, w, ws, bias, activation="gelu",
+                                  out_dtype=odt)
+        err, ratio = w8a16_check("ragged", x, w, ws, bias, "gelu", odt, ref)
+        worst_err, worst_ratio = max(worst_err, err), max(worst_ratio, ratio)
+        print(f"  qmatmul_w8a16 ragged  M=513 K= 3088 N=  260 act=gelu "
+              f"out={str(odt)[6:]} max_abs_err={err:.3e} "
+              f"err/tol={ratio:.3f} (both paths)")
+    print(f"  qmatmul_w8a16 both paths within bf16_close everywhere (worst "
+          f"err/tol {worst_ratio:.3f}); mma rows of an M = {SERVE_ROWS} "
+          f"launch equal to the same rows launched alone (wq)")
+    print("  qmatmul_w8a16 per 30 layers x 6 projections + the LM head, by "
+          "path: " + "; ".join(
+              f"M={m} gemv={per_m['gemv', m]['ms']:.4f} "
+              f"mma={per_m['mma', m]['ms']:.4f} "
+              f"F.linear={per_m['mma', m]['library_ms']:.4f} "
+              f"bound={per_m['mma', m]['bound_ms']:.4f}"
+              for m in W8A16_PATH_ROWS))
+    for path in K.W8A16_PATHS:
+        fwd = per_m[path, SERVE_ROWS]
+        print(f"  qmatmul_w8a16 ({path}) per {SERVE_MAX_BATCH} x {SERVE_SEQ}"
+              f"-token forward (M = {SERVE_ROWS}; 30 layers x 6 projections "
+              f"+ the LM head): ms={fwd['ms']:.4f} "
+              f"bound_ms={fwd['bound_ms']:.4f} "
+              f"({'bytes' if fwd['bytes_ms'] >= fwd['ops_ms'] else 'operations'})"
+              f" plain_ms={fwd['plain_ms']:.4f} library_ms="
+              f"{fwd['library_ms']:.4f} (F.linear, bf16 weights)")
+    zero_counts()
+    return worst_err, {path: (per_m[path, NUM_SLOTS], per_m[path, SERVE_ROWS])
+                       for path in K.W8A16_PATHS}
 
 
 def attention_phase(flush, s_slots: int):
@@ -687,6 +780,30 @@ def flash_phase(flush):
     return worst, fwd
 
 
+def rmsnorm_phase() -> None:
+    """layers.rmsnorm at d = 3072 (f32 and bf16 x): every row of B = 8 and
+    B = 16 calls bit-for-bit equal to the row normalised alone (B = 1); a
+    row reduction on the card must not take its layout from the batch."""
+    import torch
+    from repro_torch.models import layers as L
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 6)
+    p = {"scale": 1 + 0.1 * torch.randn((3072,), generator=gen,
+                                        device="cuda")}
+    for dtype in (torch.float32, torch.bfloat16):
+        x = (torch.randn((16, 3072), generator=gen, device="cuda")
+             * 3).to(dtype)
+        full = L.rmsnorm(p, x)
+        ok = torch.equal(L.rmsnorm(p, x[:8]), full[:8]) and all(
+            torch.equal(L.rmsnorm(p, x[i:i + 1])[0], full[i])
+            for i in range(16))
+        if not ok or not torch.isfinite(full).all():
+            raise AssertionError(f"rmsnorm {dtype}: rows of B = 8 / 16 are "
+                                 f"not bitwise equal to B = 1")
+    print("rmsnorm: d = 3072, f32 and bf16: rows of B = 1, 8 and 16 bitwise "
+          "equal")
+
+
 # ---------------------------------------------------------------------------
 # slice phase
 # ---------------------------------------------------------------------------
@@ -726,18 +843,34 @@ def _counted():
 
 
 def zero_counts() -> None:
+    from repro_torch.kernels import qmatmul as K
     kernels, plains = _counted()
     for fn in kernels:
         fn.launches = 0
+    for path in K.qmatmul_w8a16.launches_by_path:
+        K.qmatmul_w8a16.launches_by_path[path] = 0
     for fn in plains:
         fn.calls = 0
 
 
 def read_counts():
-    """(kernel launches, plain-version calls) since :func:`zero_counts`."""
+    """(kernel launches, plain-version calls) since :func:`zero_counts`;
+    qmatmul_w8a16's launches also by path, as ``qmatmul_w8a16[<path>]``."""
+    from repro_torch.kernels import qmatmul as K
     kernels, plains = _counted()
-    return ({f.__name__: f.launches for f in kernels},
-            {f.__name__: f.calls for f in plains})
+    launches = {f.__name__: f.launches for f in kernels}
+    for path, n in K.qmatmul_w8a16.launches_by_path.items():
+        launches[f"qmatmul_w8a16[{path}]"] = n
+    return launches, {f.__name__: f.calls for f in plains}
+
+
+def mma_free(label, launches) -> None:
+    """The engine's steps and the decode loop run the GEMV only: their
+    rows must not depend on the batch, and the mma path's differ from the
+    GEMV's by f32 rounding."""
+    if launches["qmatmul_w8a16[mma]"]:
+        raise AssertionError(f"{label}: a decode step took qmatmul_w8a16's "
+                             f"mma path: {launches}")
 
 
 def check_served(label, cfg, rep, reqs) -> None:
@@ -816,6 +949,7 @@ def slice_phase(cfg, params):
     if any(launches[k] <= 0 for k in path):
         raise AssertionError(f"a kernel of the path never launched: "
                              f"{launches}")
+    mma_free("slice", launches)
     if any(plain_calls.values()):
         raise AssertionError(f"the CUDA path reached a plain version: "
                              f"{plain_calls}")
@@ -868,6 +1002,7 @@ def paged_slice_phase(cfg, params):
     if launches["decode_attention_int8"]:
         raise AssertionError("the paged path reached the contiguous "
                              "attention kernel")
+    mma_free("paged", launches)
     if any(plain_calls.values()):
         raise AssertionError(f"the CUDA path reached a plain version: "
                              f"{plain_calls}")
@@ -893,59 +1028,98 @@ def paged_slice_phase(cfg, params):
 
 def serve_phase():
     """The serve launcher at full width, --quant w8a16 then w8a8 (bf16 KV
-    cache), counters zeroed just before each run and read just after."""
+    cache), counters zeroed just before each run and read just after.
+    qmatmul_w8a16's launches by path are also read around the service
+    curve alone: under w8a16 every one of them is on the mma path, and
+    the rest of the run (the decode loop and the engine) takes none."""
     from repro_torch.launch import serve
 
+    real_curve = serve.measure_service_curve
+    curve_paths = {}
+
+    def curve(*args, **kwargs):
+        from repro_torch.kernels import qmatmul as K
+        before = dict(K.qmatmul_w8a16.launches_by_path)
+        try:
+            return real_curve(*args, **kwargs)
+        finally:
+            for path, n in K.qmatmul_w8a16.launches_by_path.items():
+                curve_paths[path] = n - before[path]
+
     counts = {}
-    for quant in ("w8a16", "w8a8"):
-        label = f"serve {quant}"
-        print(f"{label}: python -m repro_torch.launch.serve "
-              f"{' '.join(SERVE_ARGS)} --quant {quant}")
-        t0 = time.perf_counter()
-        zero_counts()
-        res = serve.run(serve.parse_args(SERVE_ARGS + ["--quant", quant]))
-        launches, plain_calls = read_counts()
-        print(f"{label}: run {time.perf_counter() - t0:.1f}s, exit code "
-              f"{res.code}, curve {res.curve}, chosen batch {res.batch}, "
-              f"decode tok/s {res.decode_tokens_per_s}")
-        print(f"{label}: kernel launches {launches}, plain-version calls "
-              f"{plain_calls}")
-        if res.code != 0 or res.batch < 1:
-            raise AssertionError(f"{label}: exit code {res.code}, chosen "
-                                 f"batch {res.batch}")
-        rep = res.report
-        print(f"{label}: engine {rep.num_slots} slots, {len(rep.results)} "
-              f"requests in {rep.ticks} ticks, wall {rep.wall_s:.3f}s, "
-              f"p99 latency {rep.p99_latency_s:.3f}s, mean ttft "
-              f"{rep.mean_ttft_s:.3f}s, p99 ttft {rep.p99_ttft_s:.3f}s, "
-              f"decoded tok/s {rep.tokens_per_s:.1f}, mean occupancy "
-              f"{rep.mean_occupancy:.3f}, watchdog stuck ticks "
-              f"{rep.stuck_ticks}")
-        need = ["flash_attention_bhsd"] + (["qmatmul_w8a8"]
-                                           if quant == "w8a8" else [])
-        if any(launches[k] <= 0 for k in need):
-            raise AssertionError(f"{label}: a kernel of the path never "
-                                 f"launched: {launches}")
-        if any(plain_calls.values()):
-            raise AssertionError(f"{label}: the CUDA path reached a plain "
-                                 f"version: {plain_calls}")
-        if rep.failed or rep.dropped or rep.unfinished or len(
-                rep.results) != len(res.requests) or any(
-                r.status != "ok" for r in rep.results):
-            raise AssertionError(f"{label}: a request failed: failed "
-                                 f"{rep.failed}, dropped {rep.dropped}, "
-                                 f"unfinished {rep.unfinished}")
-        counts[quant] = launches
-        forward_breakdown(label, res)
-        if quant == "w8a16":
-            w8a16 = res               # compared after both runs
-        del res
+    serve.measure_service_curve = curve
+    try:
+        for quant in ("w8a16", "w8a8"):
+            counts[quant], res = serve_run(quant, curve_paths)
+            if quant == "w8a16":
+                w8a16 = res           # compared after both runs
+            del res
+    finally:
+        serve.measure_service_curve = real_curve
     compare_with_reference("serve w8a16", w8a16.cfg, w8a16.params,
                            w8a16.engine, w8a16.requests[:N_COMPARE],
                            w8a16.report.outputs())
     del w8a16
     torch_cuda_empty()
     return counts
+
+
+def serve_run(quant, curve_paths):
+    """One serve launcher run, counters zeroed just before and read just
+    after, and checked: (its kernel launches, its ServeRun)."""
+    from repro_torch.launch import serve
+
+    label = f"serve {quant}"
+    print(f"{label}: python -m repro_torch.launch.serve "
+          f"{' '.join(SERVE_ARGS)} --quant {quant}")
+    t0 = time.perf_counter()
+    zero_counts()
+    res = serve.run(serve.parse_args(SERVE_ARGS + ["--quant", quant]))
+    launches, plain_calls = read_counts()
+    print(f"{label}: run {time.perf_counter() - t0:.1f}s, exit code "
+          f"{res.code}, curve {res.curve}, chosen batch {res.batch}, "
+          f"decode tok/s {res.decode_tokens_per_s}")
+    print(f"{label}: kernel launches {launches}, plain-version calls "
+          f"{plain_calls}; qmatmul_w8a16 by path in the service curve "
+          f"{curve_paths}")
+    if res.code != 0 or res.batch < 1:
+        raise AssertionError(f"{label}: exit code {res.code}, chosen "
+                             f"batch {res.batch}")
+    rep = res.report
+    print(f"{label}: engine {rep.num_slots} slots, {len(rep.results)} "
+          f"requests in {rep.ticks} ticks, wall {rep.wall_s:.3f}s, "
+          f"p99 latency {rep.p99_latency_s:.3f}s, mean ttft "
+          f"{rep.mean_ttft_s:.3f}s, p99 ttft {rep.p99_ttft_s:.3f}s, "
+          f"decoded tok/s {rep.tokens_per_s:.1f}, mean occupancy "
+          f"{rep.mean_occupancy:.3f}, watchdog stuck ticks "
+          f"{rep.stuck_ticks}")
+    need = ["flash_attention_bhsd"] + (["qmatmul_w8a8"]
+                                       if quant == "w8a8" else [])
+    if any(launches[k] <= 0 for k in need):
+        raise AssertionError(f"{label}: a kernel of the path never "
+                             f"launched: {launches}")
+    if any(plain_calls.values()):
+        raise AssertionError(f"{label}: the CUDA path reached a plain "
+                             f"version: {plain_calls}")
+    outside = launches["qmatmul_w8a16[mma]"] - curve_paths["mma"]
+    if outside:
+        raise AssertionError(f"{label}: the decode loop or the engine took "
+                             f"qmatmul_w8a16's mma path {outside} times")
+    if quant == "w8a16" and (curve_paths["gemv"] or curve_paths["mma"] <= 0):
+        raise AssertionError(f"{label}: the service curve's forward must "
+                             f"launch only the mma path: {curve_paths}")
+    if quant == "w8a8" and curve_paths["mma"]:
+        raise AssertionError(f"{label}: the W8A8 forward took qmatmul_w8a16's "
+                             f"mma path: {curve_paths}")
+    if rep.failed or rep.dropped or rep.unfinished or len(
+            rep.results) != len(res.requests) or any(
+            r.status != "ok" for r in rep.results):
+        raise AssertionError(f"{label}: a request failed: failed "
+                             f"{rep.failed}, dropped {rep.dropped}, "
+                             f"unfinished {rep.unfinished}")
+    launches["curve_mma"] = curve_paths["mma"]
+    forward_breakdown(label, res)
+    return launches, res
 
 
 def torch_cuda_empty() -> None:
@@ -1090,13 +1264,14 @@ def main() -> int:
     torch.cuda.synchronize()
     del warm
     print("kernels: each CUDA kernel against its plain version on the card")
-    q_err, q_tick = qmatmul_phase(flush)
+    q_err, q_paths = qmatmul_phase(flush)
     max_seq = PROMPT_LEN + MAX_NEW
     a_err, a_tick = attention_phase(flush, max_seq + (-max_seq) % 16)
     p_err, p_tick = paged_attention_phase(flush)
     w8_err, w8_fwd, w8_lib = qmatmul_w8a8_phase(flush)
     f_err, f_fwd = flash_phase(flush)
     del flush_buf
+    rmsnorm_phase()
 
     # the tick watchdog flags chunked-prefill ticks as stragglers; they
     # are counted in the report (stuck_ticks) rather than printed
@@ -1115,10 +1290,28 @@ def main() -> int:
                  f"prefill): the sum over its launches")
     flash_runs = sum(c["flash_attention_bhsd"]
                      for c in serve_launches.values())
+
+    def numbers(t):
+        return {"ms": t["ms"], "plain_ms": t["plain_ms"],
+                "bound_ms": t["bound_ms"],
+                "bound_by": ("bytes" if t["bytes_ms"] >= t["ops_ms"]
+                             else "operations"),
+                "library_ms": t["library_ms"]}
+
+    # qmatmul_w8a16's row carries both paths: the GEMV on the slot tick
+    # (its main fields) and the mma path on the service curve's forward
+    w8a16_paths = {
+        "gemv": {**numbers(q_paths["gemv"][0]),
+                 "launches": launches["qmatmul_w8a16[gemv]"],
+                 "basis": tick_basis.format("slot tick")},
+        "mma": {**numbers(q_paths["mma"][1]),
+                "launches": serve_launches["w8a16"]["curve_mma"],
+                "basis": f"{fwd_basis}; library F.linear on bf16 weights; "
+                         f"launches: the w8a16 serve run's service curve"}}
     kernels = []
     for name, err, tick, n, basis in (
-            ("qmatmul_w8a16", q_err, q_tick, launches["qmatmul_w8a16"],
-             tick_basis.format("slot tick")),
+            ("qmatmul_w8a16", q_err, q_paths["gemv"][0],
+             launches["qmatmul_w8a16"], tick_basis.format("slot tick")),
             ("decode_attention_int8", a_err, a_tick,
              launches["decode_attention_int8"],
              tick_basis.format("slot tick")),
@@ -1134,19 +1327,17 @@ def main() -> int:
              f"and w8a8 serve runs")):
         kernels.append({
             "name": name, "route": "cuda", **KERNELS[name],
-            "launches": n, "max_abs_err": err,
-            "ms": tick["ms"], "plain_ms": tick["plain_ms"],
-            "bound_ms": tick["bound_ms"],
-            "bound_by": ("bytes" if tick["bytes_ms"] >= tick["ops_ms"]
-                         else "operations"),
-            "library_ms": tick["library_ms"],
+            "launches": n, "max_abs_err": err, **numbers(tick),
             "basis": basis})
-    for k in kernels:
+    kernels[0]["paths"] = w8a16_paths
+    for k in kernels + list(w8a16_paths.values()):
         for key in ("ms", "plain_ms", "bound_ms", "library_ms"):
             if not math.isfinite(k[key]):
-                return fail(f"{k['name']}: {key} is not finite")
+                return fail(f"{k.get('name', 'qmatmul_w8a16 path')}: {key} "
+                            f"is not finite")
         if k["launches"] <= 0:
-            return fail(f"{k['name']}: no launch on its path")
+            return fail(f"{k.get('name', 'qmatmul_w8a16 path')}: no launch "
+                        f"on its path")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

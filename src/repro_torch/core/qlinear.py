@@ -6,7 +6,9 @@ the bf16 path to the paper's int8 serving path:
 
 - fp weight (tensor)          -> plain ``torch.matmul``, bf16 inputs, f32
                                  accumulate (the reference leaves it to XLA)
-- QTensor weight, W8A16       -> ``kernels.ops.qmatmul`` (weight-only int8)
+- QTensor weight, W8A16       -> ``kernels.ops.qmatmul`` (weight-only int8),
+                                 through the kernel ``QuantMode.w8a16_path``
+                                 names
 - QTensor weight, W8A8        -> ``kernels.ops.qmatmul_dynamic`` (int8
                                  activations, one scale per tensor)
 """
@@ -26,6 +28,11 @@ class QuantMode:
     """Static quantization mode threaded through model apply fns."""
     enabled: bool = False          # weights are QTensors
     act_bits: int = 16             # 8 -> w8a8 integer path, else w8a16
+    # the W8A16 kernel on the card (kernels/qmatmul.py W8A16_PATHS), set
+    # by the model per caller: models/transformer.py's forward asks for
+    # "mma" (tensor cores), its decode_step pins "gemv" (rows independent
+    # of the batch, which the engine's parity with its reference needs)
+    w8a16_path: str = "gemv"
 
     @property
     def w8a8(self) -> bool:
@@ -45,8 +52,11 @@ def linear(params: dict, x: torch.Tensor, *, activation: str = "none",
     w = params["w"]
     b = params.get("b")
     if isinstance(w, QTensor):
-        fn = ops.qmatmul_dynamic if mode.w8a8 else ops.qmatmul
-        return fn(x, w, b, activation=activation, out_dtype=x.dtype)
+        if mode.w8a8:
+            return ops.qmatmul_dynamic(x, w, b, activation=activation,
+                                       out_dtype=x.dtype)
+        return ops.qmatmul(x, w, b, activation=activation, out_dtype=x.dtype,
+                           path=mode.w8a16_path)
     y = torch.matmul(x.to(compute_dtype).float(), w.to(compute_dtype).float())
     if b is not None:
         y = y + b.float()

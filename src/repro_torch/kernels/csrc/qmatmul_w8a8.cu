@@ -64,6 +64,7 @@
 #include <stdint.h>
 
 #include "epilogue.cuh"
+#include "mma.cuh"
 
 namespace {
 
@@ -201,22 +202,6 @@ static_assert(TC_MI >= 1 && TC_NI % 2 == 0, "m16 tiles, pairs of n8 tiles");
 // (one phase of w's transposed stores) fall on eight different bank groups.
 __device__ __forceinline__ int swz(int r, int c) {
   return r * TC_BK + ((c ^ ((r ^ (r >> 2)) & 7)) << 4);
-}
-
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes from global to shared memory, asynchronously; zeros if !valid.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
-               "l"(src), "r"(valid ? 16 : 0));
-}
-
-__device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
 }
 
 // c += a (16 x 32, row-major) * b (32 x 8, column-major), int8 in, int32 sums.

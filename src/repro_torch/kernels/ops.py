@@ -25,13 +25,17 @@ from repro_torch.kernels import qmatmul as _k
 
 def qmatmul(x: torch.Tensor, w, bias: Optional[torch.Tensor] = None, *,
             x_q: Optional[QTensor] = None, activation: str = "none",
-            out_dtype=torch.bfloat16) -> torch.Tensor:
+            out_dtype=torch.bfloat16, path: str = "gemv") -> torch.Tensor:
     """act((x @ dequant(w)) + bias) with int8 weights.
 
     ``x`` (..., K) bf16/f32; ``w`` a QTensor (K, N) with one scale per
     column.  If ``x_q`` is given (``x`` quantized to int8 with one scale
     for the whole tensor), the W8A8 integer path runs; otherwise
-    weight-only W8A16."""
+    weight-only W8A16, on the card through the kernel ``path`` names (one
+    of ``qmatmul.W8A16_PATHS``; the plain version runs on the CPU
+    whatever it is)."""
+    if path not in _k.W8A16_PATHS:
+        raise ValueError(f"unknown path {path!r}")
     lead = x.shape[:-1]
     n = w.shape[-1]
     if x_q is not None:
@@ -48,9 +52,9 @@ def qmatmul(x: torch.Tensor, w, bias: Optional[torch.Tensor] = None, *,
         return out.reshape(*lead, n)
     x2 = x.reshape(-1, x.shape[-1])
     if x2.is_cuda:
-        out = _k.qmatmul_w8a16(x2.contiguous(), w.values, w.scale,
-                               bias, activation=activation,
-                               out_dtype=out_dtype)
+        out = _k.qmatmul_w8a16_on_path(path, x2.contiguous(), w.values,
+                                       w.scale, bias, activation=activation,
+                                       out_dtype=out_dtype)
     else:
         out = _k.qmatmul_w8a16_ref(x2, w.values, w.scale, bias,
                                    activation=activation,

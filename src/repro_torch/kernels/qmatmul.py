@@ -2,10 +2,13 @@
 
 ``qmatmul_w8a16`` (weight-only int8) launches ``csrc/qmatmul_w8a16.cu``,
 the Hopper port of the Pallas TPU kernel
-``repro/kernels/qmatmul.py::qmatmul_w8a16``.  It takes
-CUDA tensors only, checks them, allocates the output, launches on the
-current stream and raises if the launch was refused.  Each launch adds one
-to ``qmatmul_w8a16.launches``.
+``repro/kernels/qmatmul.py::qmatmul_w8a16``: its GEMV, whose rows do not
+depend on M (every decode step), or, through ``qmatmul_w8a16_on_path``,
+its ``mma.sync`` bf16 tensor-core kernel (the full-sequence forward).  It
+takes CUDA tensors only, checks them, allocates the output, launches on
+the current stream and raises if the launch was refused.  Each launch adds
+one to ``qmatmul_w8a16.launches`` and to its path's count in
+``qmatmul_w8a16.launches_by_path``.
 
 ``qmatmul_w8a16_ref`` is the plain PyTorch version of the same function
 (the port of ``repro/kernels/ref.py::qmatmul_w8a16_ref``).  It computes
@@ -102,31 +105,61 @@ def qmatmul_w8a8_ref(x: torch.Tensor, w: torch.Tensor, x_scale: torch.Tensor,
 qmatmul_w8a8_ref.calls = 0
 
 
+# The W8A16 wrapper's two kernels: the GEMV, for every launch whose row
+# bits must not depend on the path (the decode step, at any M), and
+# mma.sync on the bf16 tensor cores, for the full-sequence forward.  Unlike
+# W8A8's integer sums, the two add f32 products in other orders, so the
+# choice is made by the caller (``QuantMode.w8a16_path``), never by M.
+W8A16_PATHS = ("gemv", "mma")
+
+
 @functools.lru_cache(maxsize=None)
 def _lib():
-    """The w8a16 kernel's C entry point, built and bound once per process."""
+    """The w8a16 kernels' C entry points, built and bound once per
+    process: ``{path: fn}``."""
     lib = _build.load("qmatmul_w8a16")
-    fn = lib.qmatmul_w8a16
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
-                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
+    gemv, mma = lib.qmatmul_w8a16, lib.qmatmul_w8a16_mma
+    gemv.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+                     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                     ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                     ctypes.c_int, ctypes.c_void_p]
+    mma.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                    ctypes.c_void_p]
+    gemv.restype = mma.restype = ctypes.c_int
+    return {"gemv": gemv, "mma": mma}
 
 
 def qmatmul_w8a16(x: torch.Tensor, w: torch.Tensor, w_scale: torch.Tensor,
                   bias: Optional[torch.Tensor] = None, *,
                   activation: str = "none",
                   out_dtype=torch.bfloat16) -> torch.Tensor:
-    """act((x @ dequant(w)) + bias) on the card.
+    """act((x @ dequant(w)) + bias) on the card, through the GEMV.
 
     x: (M, K) bf16/f32 with K % 8 == 0; w: (K, N) int8 with N % 4 == 0;
     w_scale: N f32 values; bias: (N,) f32 or None; out: (M, N)
     ``out_dtype`` (bf16/f32).  All CUDA tensors, contiguous, on one
     device."""
+    return qmatmul_w8a16_on_path("gemv", x, w, w_scale, bias,
+                                 activation=activation, out_dtype=out_dtype)
+
+
+def qmatmul_w8a16_on_path(path: str, x: torch.Tensor, w: torch.Tensor,
+                          w_scale: torch.Tensor,
+                          bias: Optional[torch.Tensor] = None, *,
+                          activation: str = "none",
+                          out_dtype=torch.bfloat16) -> torch.Tensor:
+    """:func:`qmatmul_w8a16` through the named kernel (one of
+    ``W8A16_PATHS``); ``"mma"`` takes bf16 x only.  Each launch adds one
+    to ``qmatmul_w8a16.launches`` and to
+    ``qmatmul_w8a16.launches_by_path[path]``."""
+    if path not in W8A16_PATHS:
+        raise ValueError(f"unknown path {path!r}")
     if activation not in ACTIVATIONS:
         raise ValueError(f"unknown activation {activation!r}")
+    if path == "mma" and x.dtype != torch.bfloat16:
+        raise ValueError(f"the mma path takes bf16 x, got {x.dtype}")
     if not x.is_cuda:
         raise ValueError("qmatmul_w8a16 launches a CUDA kernel: x must be a "
                          "CUDA tensor (CPU tensors go to qmatmul_w8a16_ref)")
@@ -154,20 +187,28 @@ def qmatmul_w8a16(x: torch.Tensor, w: torch.Tensor, w_scale: torch.Tensor,
     out = torch.empty((m, n), dtype=out_dtype, device=x.device)
     if m == 0:
         return out
-    fn = _lib()
+    fn = _lib()[path]
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = fn(x.data_ptr(), int(x.dtype == torch.bfloat16), w.data_ptr(),
-             w_scale.data_ptr(),
-             bias.data_ptr() if bias is not None else None,
-             out.data_ptr(), int(out_dtype == torch.bfloat16), m, k, n,
-             ACTIVATIONS.index(activation), stream)
+    bias_ptr = bias.data_ptr() if bias is not None else None
+    out_bf16 = int(out_dtype == torch.bfloat16)
+    act = ACTIVATIONS.index(activation)
+    if path == "gemv":
+        err = fn(x.data_ptr(), int(x.dtype == torch.bfloat16), w.data_ptr(),
+                 w_scale.data_ptr(), bias_ptr, out.data_ptr(), out_bf16, m,
+                 k, n, act, stream)
+    else:
+        err = fn(x.data_ptr(), w.data_ptr(), w_scale.data_ptr(), bias_ptr,
+                 out.data_ptr(), out_bf16, m, k, n, act, stream)
     if err:
-        raise RuntimeError(f"qmatmul_w8a16 launch failed: CUDA error {err}")
+        raise RuntimeError(f"qmatmul_w8a16 ({path}) launch failed: CUDA "
+                           f"error {err}")
     qmatmul_w8a16.launches += 1
+    qmatmul_w8a16.launches_by_path[path] += 1
     return out
 
 
 qmatmul_w8a16.launches = 0
+qmatmul_w8a16.launches_by_path = dict.fromkeys(W8A16_PATHS, 0)
 
 
 # The W8A8 wrapper's two kernels: rows up to W8A8_DP4A_MAX_ROWS (a decode

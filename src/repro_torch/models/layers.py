@@ -37,9 +37,11 @@ Tensor = torch.Tensor
 # ---------------------------------------------------------------------------
 
 def rmsnorm(p: dict, x: Tensor, eps: float = 1e-6) -> Tensor:
-    xf = x.float()
-    var = (xf * xf).mean(-1, keepdim=True)
-    out = xf * torch.rsqrt(var + eps) * p["scale"].float()
+    """f32 RMSNorm, cast back.  ``F.rms_norm`` reduces each row on its
+    own (one block per row on the card), as ``F.layer_norm`` does; a
+    ``mean`` over the last dim picks its reduction layout from the row
+    count on the card, so a row's bits would depend on the batch."""
+    out = F.rms_norm(x.float(), x.shape[-1:], p["scale"].float(), eps)
     return out.to(x.dtype)
 
 
@@ -252,16 +254,18 @@ def embed(p: dict, tokens: Tensor, compute_dtype=torch.bfloat16) -> Tensor:
     return table.to(compute_dtype)[tokens]
 
 
-def unembed(p: dict, x: Tensor, compute_dtype=torch.bfloat16) -> Tensor:
+def unembed(p: dict, x: Tensor, compute_dtype=torch.bfloat16, *,
+            path: str = "gemv") -> Tensor:
     """(Tied) LM head: f32 logits = x @ table.T.  A quantized table's
     per-row scales are per-output-column scales of the head, so the head
-    runs through the same int8 matmul as every projection (f32 out), on a
-    (D, V) transposed copy of the table."""
+    runs through the same weight-only int8 matmul as every W8A16
+    projection (f32 out, through the kernel ``path`` names), on a (D, V)
+    transposed copy of the table."""
     table = p["table"]
     if isinstance(table, QTensor):
         head = QTensor(values=table.values.t().contiguous(),
                        scale=table.scale.reshape(-1))
         return kops.qmatmul(x.to(compute_dtype), head,
-                            out_dtype=torch.float32)
+                            out_dtype=torch.float32, path=path)
     return torch.matmul(x.to(compute_dtype).float(),
                         table.to(compute_dtype).float().t())

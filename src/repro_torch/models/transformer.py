@@ -22,6 +22,7 @@ idiom asks for them:
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional, Tuple
 
 import torch
@@ -130,8 +131,13 @@ def forward(params: dict, tokens: Tensor, cfg: ArchConfig, *,
             mode: QuantMode = FP, remat: bool = True) -> Tensor:
     """Full-sequence forward (prefill): tokens (B, S) -> logits (B, S, V)
     f32.  Every attention layer runs the flash-attention kernel, causal
-    (and windowed for a windowed config).  ``remat`` is the reference's
-    rematerialization switch for training; it has no effect here."""
+    (and windowed for a windowed config).  Under W8A16 every projection
+    and the LM head take the tensor-core kernel (``w8a16_path="mma"``):
+    this forward's rows need not match a decode step's bits.  ``remat``
+    is the reference's rematerialization switch for training; it has no
+    effect here."""
+    if mode.enabled and not mode.w8a8:
+        mode = dataclasses.replace(mode, w8a16_path="mma")
     b, s = tokens.shape
     positions = torch.arange(s, device=tokens.device)[None, :]
     rope = L.rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta)
@@ -145,7 +151,7 @@ def forward(params: dict, tokens: Tensor, cfg: ArchConfig, *,
                       activation=cfg.activation, mode=mode)
     x = norm_apply(cfg, params["ln_f"], x)
     head = params.get("unembed", params["embed"])
-    return L.unembed(head, x)
+    return L.unembed(head, x, path=mode.w8a16_path)
 
 
 # ---------------------------------------------------------------------------
@@ -223,8 +229,14 @@ def decode_step(params: dict, tokens: Tensor, cache: dict, cache_index,
     A cache with ``block_tables`` (B, MB) is paged (:func:`init_paged_cache`
     with the slots' tables, or a slice of them): row b's position p is
     written to block ``block_tables[b, p // bs]`` at offset ``p % bs``,
-    and attention reads the row through its table."""
+    and attention reads the row through its table.
+
+    Every W8A16 matmul takes the GEMV (``w8a16_path="gemv"``), whatever
+    the mode asks: a row's bits then do not depend on the batch, which
+    the engine's parity with its batch-1 reference needs."""
     _check_supported(cfg)
+    if mode.w8a16_path != "gemv":
+        mode = dataclasses.replace(mode, w8a16_path="gemv")
     b, s = tokens.shape
     device = tokens.device
     tables = cache.get("block_tables")

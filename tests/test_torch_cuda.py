@@ -1,7 +1,9 @@
-"""The port on the card: each CUDA kernel against its plain version, the
-engine, contiguous and paged, int8 and bf16 cache, bit-for-bit against its
-sequential reference, and the serve launcher's forward through its
-kernels, at small shapes.
+"""The port on the card: each CUDA kernel against its plain version (both
+of qmatmul_w8a16's paths and both of qmatmul_w8a8's), the engine,
+contiguous and paged, int8 and bf16 cache, bit-for-bit against its
+sequential reference, the serve launcher's forward through its kernels,
+which path each caller takes, and rmsnorm's row invariance, at small
+shapes.
 
 Every test here is marked ``gpu`` and skips without a CUDA device; the
 module imports no JAX, so it also runs where only the port is installed:
@@ -22,6 +24,7 @@ from repro_torch.core.quant import quantize_tree, quantize_weight
 from repro_torch.kernels import decode_attention as A
 from repro_torch.kernels import flash_attention as FA
 from repro_torch.kernels import qmatmul as K
+from repro_torch.models import layers as L
 from repro_torch.models import registry as R
 from repro_torch.runtime import steps as ST
 
@@ -69,6 +72,117 @@ def test_qmatmul_kernel_rows_are_batch_invariant(cuda):
         one = K.qmatmul_w8a16(x[i:i + 1].contiguous(), w, s,
                               activation="gelu")
         assert torch.equal(one[0], full[i])
+
+
+# the mma path's edges: M one past 16-, 32- and 128-row tiles, K % 64 ==
+# 16 (a ragged last stage), N % 16 == 4 (4-byte weight copies, a ragged
+# 128-column strip) and a full-width projection
+MMA_ROWS = (1, 17, 32, 33, 128, 512, 513)
+MMA_KN = ((272, 100), (272, 260), (3088, 260), (3088, 3072))
+
+
+def _close(got, want, out_dtype):
+    """chip_smoke.bf16_close's tolerance: the kernel and the plain version
+    add the same f32 products in other orders (the kernel scales each
+    column's sum once, the plain version each weight), so they differ by
+    f32 rounding: one bf16 ulp (2^-7 relative) in bf16, 1e-5 relative in
+    f32, plus 1e-5 of the output's rms for values near zero."""
+    got, want = got.float(), want.float()
+    rel = 2.0 ** -7 if out_dtype == torch.bfloat16 else 1e-5
+    rms = want.pow(2).mean().sqrt()
+    return bool(((got - want).abs() <= rel * want.abs() + 1e-5 * rms).all())
+
+
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("k,n", MMA_KN)
+def test_qmatmul_w8a16_mma_matches_plain(cuda, k, n, out_dtype):
+    """The tensor-core path at every M of MMA_ROWS, every activation, with
+    and without bias, against the plain version."""
+    g = torch.Generator(device=cuda).manual_seed(k + n)
+    q = quantize_weight(torch.randn((k, n), generator=g, device=cuda)
+                        * k ** -0.5)
+    w, s = q.values, q.scale.reshape(-1).contiguous()
+    b = torch.randn(n, generator=g, device=cuda) * 0.1
+    for m in MMA_ROWS:
+        x = torch.randn((m, k), generator=g, device=cuda).to(torch.bfloat16)
+        for act in ACTS:
+            for bias in (None, b):
+                got = K.qmatmul_w8a16_on_path("mma", x, w, s, bias,
+                                              activation=act,
+                                              out_dtype=out_dtype)
+                want = K.qmatmul_w8a16_ref(x, w, s, bias, activation=act,
+                                           out_dtype=out_dtype)
+                assert got.dtype == out_dtype and got.shape == (m, n)
+                assert _close(got, want, out_dtype), (m, act, bias is None)
+
+
+def test_qmatmul_w8a16_mma_rows_are_batch_invariant(cuda):
+    """A row's bits through the tensor-core path do not depend on M: the
+    rows of an M = 512 and an M = 513 launch equal the same rows launched
+    alone and in slices of 17 through the same path."""
+    for m, k, n in ((512, 3072, 3072), (513, 3088, 260)):
+        g = torch.Generator(device=cuda).manual_seed(m + k)
+        q = quantize_weight(torch.randn((k, n), generator=g, device=cuda))
+        w, s = q.values, q.scale.reshape(-1).contiguous()
+        b = torch.randn(n, generator=g, device=cuda)
+        x = torch.randn((m, k), generator=g, device=cuda).to(torch.bfloat16)
+        for out_dtype in (torch.bfloat16, torch.float32):
+            kw = dict(activation="gelu", out_dtype=out_dtype)
+            full = K.qmatmul_w8a16_on_path("mma", x, w, s, b, **kw)
+            for i in (0, 1, 15, 16, 127, 128, 300, m - 1):
+                one = K.qmatmul_w8a16_on_path("mma", x[i:i + 1].contiguous(),
+                                              w, s, b, **kw)
+                assert torch.equal(one[0], full[i]), (m, i)
+            for i in range(0, m, 17):
+                part = K.qmatmul_w8a16_on_path("mma", x[i:i + 17].contiguous(),
+                                               w, s, b, **kw)
+                assert torch.equal(part, full[i:i + 17]), (m, i)
+
+
+def test_qmatmul_w8a16_mma_refuses_f32_x(cuda):
+    x = torch.zeros((4, 16), device=cuda)
+    w = torch.zeros((16, 8), dtype=torch.int8, device=cuda)
+    with pytest.raises(ValueError, match="bf16"):
+        K.qmatmul_w8a16_on_path("mma", x, w, torch.ones(8, device=cuda))
+
+
+def test_forward_takes_the_w8a16_mma_path_and_the_engine_the_gemv(cuda):
+    """On the card at reduced width: the W8A16 forward launches only the
+    tensor-core path (every projection and the LM head), an engine run
+    only the GEMV."""
+    cfg = dataclasses.replace(get_config("starcoder2-3b").reduced(),
+                              kv_quant=True)
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    params = quantize_tree(R.init(gen, cfg, device=cuda), min_size=2048)
+    by_path = K.qmatmul_w8a16.launches_by_path
+    before = dict(by_path)
+    out = ST.make_prefill_step(cfg, mode=W8A16)(
+        params, {"tokens": torch.ones((2, 16), dtype=torch.int32,
+                                      device=cuda)})
+    assert out.shape == (2, 16, cfg.vocab) and torch.isfinite(out).all()
+    assert by_path["mma"] - before["mma"] == 6 * cfg.n_layers + 1
+    assert by_path["gemv"] == before["gemv"]
+    before = dict(by_path)
+    reqs = E.synthetic_requests(6, rate_per_s=2000.0, vocab=cfg.vocab,
+                                prompt_len=5, max_new_tokens=4)
+    eng = E.Engine(cfg, params, mode=W8A16, num_slots=4, max_seq=9,
+                   prefill_chunk=4)
+    eng.serve(reqs)
+    assert by_path["gemv"] > before["gemv"]
+    assert by_path["mma"] == before["mma"]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rmsnorm_rows_are_batch_invariant_on_card(cuda, dtype):
+    """At d = 3072, each row of B = 8 and B = 16 calls equals the same
+    row normalised alone, bit for bit."""
+    g = torch.Generator(device=cuda).manual_seed(3)
+    x = (torch.randn((16, 3072), generator=g, device=cuda) * 3).to(dtype)
+    p = {"scale": 1 + 0.1 * torch.randn(3072, generator=g, device=cuda)}
+    full = L.rmsnorm(p, x)
+    assert torch.equal(L.rmsnorm(p, x[:8]), full[:8])
+    for i in range(16):
+        assert torch.equal(L.rmsnorm(p, x[i:i + 1])[0], full[i])
 
 
 @pytest.mark.parametrize("append", [False, True])
