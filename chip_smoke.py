@@ -44,8 +44,11 @@ Phases, each of which fails the run (non-zero exit, no result line):
 The kernel phase holds both of ``qmatmul_w8a16``'s kernels (the GEMV and
 the ``mma.sync`` bf16 tensor-core path) at every projection and the LM
 head at M = 1, 8, 32, 128 and 512 and at one ragged shape, checks the
-mma path's row independence, times both at M = 8, 32, 128 and 512 and
-prints their per-forward sums on lines of their own; it holds
+row independence of the mma path (M = 512) and of the GEMV (M = 8 and 16
+on wq, wk|wv and w_down, whose K the GEMV splits across blocks), prints
+the GEMV's split plan of each projection, times both at M = 8, 32, 128
+and 512 and prints the per-tick and per-forward sums on lines of their
+own, beside the times before the redesign; it holds
 ``qmatmul_w8a8`` (every projection at M = 8, M = 512 and either side of
 its path threshold, and one ragged shape: its int32 accumulate bitwise,
 the tensor-core kernel's bf16 rows equal to the __dp4a kernel's) and
@@ -53,7 +56,9 @@ the tensor-core kernel's bf16 rows equal to the __dp4a kernel's) and
 ``kv_len < Skv`` case) against their plain versions, and times them;
 ``qmatmul_w8a8``'s two kernels are timed at M = 8, 16, 32, 64 and 512.
 Then ``rmsnorm``'s rows at d = 3072 are checked bitwise at B = 1, 8 and
-16.
+16.  The tick breakdowns check that a tick launches 181 ``qmatmul_w8a16``
+GEMVs and no more ``cudaLaunchKernel`` calls than before the GEMV's
+split-K redesign.
 
 It prints the card's name and power limit, a JSON line with every
 kernel's numbers (qmatmul_w8a16's with both paths under ``paths``), and,
@@ -125,6 +130,13 @@ HBM_BYTES_PER_S = 3.35e12        # H100 SXM data sheet
 BF16_OPS_PER_S = 989e12          # dense bf16 tensor-core peak
 INT8_OPS_PER_S = 1979e12         # dense int8 tensor-core peak
 L2_FLUSH_BYTES = 128 << 20       # > the 50 MB L2: every launch starts cold
+
+# the GEMV's and flash attention's times before their split-K and
+# tensor-core redesigns, and the tick's launches then, which the redesign
+# must not grow (PERF.md §5-6: chip_smoke runs 1 / 2 on an NVIDIA H100
+# 80GB HBM3 at 700.00 W), printed beside this run's
+BEFORE_MS = {"gemv_tick": "6.005 / 5.968", "flash_forward": "0.853 / 0.852"}
+BEFORE_TICK_LAUNCH_CALLS = {"tick": 1659, "paged tick": 1665}
 
 KERNELS = {
     "qmatmul_w8a16": {
@@ -246,6 +258,24 @@ def w8a16_rows_check(x, w, ws, bias, act, odt) -> None:
                                  f"{m} launch differ from the same 17 rows")
 
 
+def gemv_rows_check(label, x, w, ws, bias, act, odt) -> None:
+    """The GEMV's rows do not depend on M: the rows of an M = 8 and an
+    M = 16 launch (one and two row slabs, K split by the plan and combined
+    in the last block to arrive) equal the same rows launched alone."""
+    import torch
+    from repro_torch.kernels import qmatmul as K
+
+    kw = dict(activation=act, out_dtype=odt)
+    for m in (NUM_SLOTS, 2 * NUM_SLOTS):
+        full = K.qmatmul_w8a16(x[:m].contiguous(), w, ws, bias, **kw)
+        for i in range(m):
+            one = K.qmatmul_w8a16(x[i:i + 1].contiguous(), w, ws, bias, **kw)
+            if not torch.equal(one[0], full[i]):
+                raise AssertionError(f"qmatmul_w8a16 (gemv) {label}: row {i} "
+                                     f"of an M = {m} launch differs from the "
+                                     f"row alone")
+
+
 def qmatmul_phase(flush):
     """qmatmul_w8a16 at every full-width projection and the LM head, through
     both kernels (the GEMV and the mma path), at M = 1, a decode tick's
@@ -275,6 +305,7 @@ def qmatmul_phase(flush):
     per_m = {(path, m): dict.fromkeys(keys, 0.0)
              for path in K.W8A16_PATHS for m in W8A16_PATH_ROWS}
     worst_err, worst_ratio = 0.0, 0.0
+    plans = []
     for name, k, n, has_bias, act, odt, per_tick in shapes:
         wf = torch.randn((k, n), generator=gen, device="cuda") * k ** -0.5
         q = quantize_weight(wf)
@@ -283,6 +314,14 @@ def qmatmul_phase(flush):
         bias = (torch.randn((n,), generator=gen, device="cuda") * 0.1
                 if has_bias else None)
         w_lib = (w.float() * ws).to(torch.bfloat16).t()   # (N, K) view
+        plan = K.gemv_split_plan(k, n)
+        plans.append(f"{name} K={k} N={n}: {plan.strips} strips x "
+                     f"{plan.splits} splits of {plan.split_rows} rows = "
+                     f"{plan.strips * plan.splits} blocks at M = 8")
+        if name in ("wq", "wk|wv", "w_down"):
+            gemv_rows_check(name, torch.randn(
+                (2 * NUM_SLOTS, k), generator=gen, device="cuda").to(
+                torch.bfloat16), w, ws, bias, act, odt)
         for m in (1,) + W8A16_PATH_ROWS:
             x = torch.randn((m, k), generator=gen,
                             device="cuda").to(torch.bfloat16)
@@ -338,7 +377,10 @@ def qmatmul_phase(flush):
               f"err/tol={ratio:.3f} (both paths)")
     print(f"  qmatmul_w8a16 both paths within bf16_close everywhere (worst "
           f"err/tol {worst_ratio:.3f}); mma rows of an M = {SERVE_ROWS} "
-          f"launch equal to the same rows launched alone (wq)")
+          f"launch equal to the same rows launched alone (wq); GEMV rows of "
+          f"M = {NUM_SLOTS} and {2 * NUM_SLOTS} launches equal to the same "
+          f"rows launched alone (wq, wk|wv, w_down)")
+    print("  qmatmul_w8a16 GEMV split plan: " + "; ".join(plans))
     print("  qmatmul_w8a16 per 30 layers x 6 projections + the LM head, by "
           "path: " + "; ".join(
               f"M={m} gemv={per_m['gemv', m]['ms']:.4f} "
@@ -346,6 +388,12 @@ def qmatmul_phase(flush):
               f"F.linear={per_m['mma', m]['library_ms']:.4f} "
               f"bound={per_m['mma', m]['bound_ms']:.4f}"
               for m in W8A16_PATH_ROWS))
+    tick = per_m["gemv", NUM_SLOTS]
+    print(f"  qmatmul_w8a16 (gemv) per {NUM_SLOTS}-row slot tick (30 layers x "
+          f"6 projections + the LM head): ms={tick['ms']:.4f} (before the "
+          f"redesign: {BEFORE_MS['gemv_tick']}) "
+          f"library_ms={tick['library_ms']:.4f} "
+          f"(F.linear, bf16 weights) bound_ms={tick['bound_ms']:.4f}")
     for path in K.W8A16_PATHS:
         fwd = per_m[path, SERVE_ROWS]
         print(f"  qmatmul_w8a16 ({path}) per {SERVE_MAX_BATCH} x {SERVE_SEQ}"
@@ -775,6 +823,12 @@ def flash_phase(flush):
             fwd = {"ms": 30 * ms, "plain_ms": 30 * plain,
                    "bound_ms": 30 * bound, "library_ms": 30 * lib,
                    "bytes_ms": 30 * bytes_ms, "ops_ms": 30 * ops_ms}
+    print(f"  flash_attention_bhsd per {SERVE_MAX_BATCH} x {SERVE_SEQ}-token "
+          f"forward (30 launches, BH={h * SERVE_MAX_BATCH}): "
+          f"ms={fwd['ms']:.4f} (before the redesign: "
+          f"{BEFORE_MS['flash_forward']}) "
+          f"library_ms={fwd['library_ms']:.4f} (SDPA) "
+          f"bound_ms={fwd['bound_ms']:.4f}")
     FA.flash_attention_bhsd.launches = 0
     FA.flash_attention_ref.calls = 0
     return worst, fwd
@@ -1158,10 +1212,12 @@ def device_breakdown(label: str, what: str, fn, reps: int) -> None:
     events = [e for e in prof.key_averages()
               if str(e.device_type).endswith("CUDA")]
     dev_us = sum(e.self_device_time_total for e in events)
+    launch_calls = sum(e.count for e in prof.key_averages()
+                       if e.key == "cudaLaunchKernel") / reps
     if dev_us <= 0:
         print(f"{label}: {what} wall {wall_ms:.2f} ms, device busy not "
               f"measured (the profiler reported no device time)")
-        return
+        return launch_calls
     busy_ms = dev_us / 1e3 / reps
     print(f"{label}: {what} wall {wall_ms:.2f} ms, device busy "
           f"{busy_ms:.3f} ms ({100 * busy_ms / wall_ms:.1f}%), idle "
@@ -1176,6 +1232,7 @@ def device_breakdown(label: str, what: str, fn, reps: int) -> None:
                               for e in host), reverse=True)[:8]:
         print(f"  host time per call {us / 1e3 / reps:.3f} ms in "
               f"{n // reps} calls: {key[:60]}")
+    return launch_calls
 
 
 def tick_breakdown(cfg, params, eng, ticks: int = 10,
@@ -1204,10 +1261,28 @@ def tick_breakdown(cfg, params, eng, ticks: int = 10,
         idx = torch.full((S,), eng.max_seq // 2, dtype=torch.int32,
                          device="cuda")
         active = torch.ones((S,), dtype=torch.bool, device="cuda")
-    device_breakdown("paged tick" if paged else "tick",
-                     f"steady-state slot tick ({S} active rows)",
-                     lambda: step(params, toks, cache, idx, active)[0].cpu(),
-                     ticks)
+    label = "paged tick" if paged else "tick"
+    zero_counts()
+    with torch.inference_mode():
+        step(params, toks, cache, idx, active)[0].cpu()
+    launches, _ = read_counts()
+    per_tick = 6 * cfg.n_layers + 1
+    print(f"{label}: qmatmul_w8a16 launches per tick "
+          f"{launches['qmatmul_w8a16']} (gemv "
+          f"{launches['qmatmul_w8a16[gemv]']}, mma "
+          f"{launches['qmatmul_w8a16[mma]']}; {per_tick} expected)")
+    if (launches["qmatmul_w8a16[gemv]"] != per_tick
+            or launches["qmatmul_w8a16[mma]"]):
+        raise AssertionError(f"{label}: {launches}")
+    calls = device_breakdown(
+        label, f"steady-state slot tick ({S} active rows)",
+        lambda: step(params, toks, cache, idx, active)[0].cpu(), ticks)
+    print(f"{label}: cudaLaunchKernel calls per tick {calls:.0f} (before "
+          f"the redesign: {BEFORE_TICK_LAUNCH_CALLS[label]})")
+    if calls > BEFORE_TICK_LAUNCH_CALLS[label]:
+        raise AssertionError(f"{label}: {calls} cudaLaunchKernel calls per "
+                             f"tick, more than before the redesign: "
+                             f"{BEFORE_TICK_LAUNCH_CALLS[label]}")
 
 
 def forward_breakdown(label: str, res) -> None:
@@ -1250,7 +1325,8 @@ def main() -> int:
           f"in {time.perf_counter() - t0:.1f}s")
     for name, log in reports.items():
         for line in log.splitlines():
-            if "registers" in line or "spill" in line:
+            if ("registers" in line or "spill" in line
+                    or "Compiling entry" in line):
                 print(f"  {name}: {line.strip()}")
 
     # the flush READS a buffer larger than L2: a write would leave dirty

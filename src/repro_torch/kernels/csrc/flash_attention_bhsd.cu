@@ -12,63 +12,104 @@
 //
 // What bounds it: the bytes are q + k + v + out, read and written once;
 // the operations are 4 * hd per (query, valid key) pair.  At the service
-// curve's prefill (Sq = Skv = 32, hd 128) a block does 64 operations per
-// byte of K/V it stages, and the whole call is a few microseconds of
-// either, so launch and latency bound it.  The design keeps what the TPU
-// kernel keeps out of device memory -- the scores, the probabilities and
-// the running max / sum / context -- and carries it differently:
+// curve's prefill (BH = 384, Sq = Skv = 32, hd 128) that is 12.6 MB and
+// 0.4 GFLOP per call: bytes and latency bound it, a few microseconds.  The
+// design keeps what the TPU kernel keeps out of device memory -- the
+// scores, the probabilities and the running max / sum / context -- in
+// registers, and puts the products on the tensor cores:
 //
-// - The TPU grid walks the KV blocks in order on one core, carrying
-//   acc/m/l in VMEM scratch across grid steps.  Here one block owns one
-//   (bh, tile of BQ queries) and the KV sweep is a loop inside it, with
-//   the running state in registers: each warp owns RPW query rows, each
-//   lane one key pair of the tile for the scores and NC output columns
-//   for the context.
-// - K and V tiles of BK rows are staged in shared memory once per block
-//   and read by every warp; K rows are padded to an odd number of words so
-//   the lanes of a warp, each reading its own key's row, hit 32 banks.
-// - A KV tile masked for every query of the block is skipped (causal:
-//   past the block's last query; window: before its first query's window;
-//   kv_len: past the valid keys).  That is exact: the TPU kernel's
-//   arithmetic leaves m, l and acc unchanged on such a tile.
-// - Scores and the context are f32 FMAs in a fixed order per element; the
-//   tile's row max and sum are warp butterflies, so every lane holds the
-//   same bits.
-//
-// Tensor cores (mma / wgmma) for long prefills are later work.
+// - One block owns one bh and BQ = 32 queries: two warps of 16 query rows
+//   each.  The TPU grid walks the KV blocks in order on one core, carrying
+//   acc/m/l in VMEM scratch; here the KV sweep is a loop inside the block.
+//   At the serve shapes that is 384 blocks of 64 threads and 43 KB of
+//   shared memory, all resident at once on the 132 SMs (five fit on one).
+// - Q, the first K tile and the first V tile are issued together with
+//   cp.async; for longer sequences the next K/V tile is copied while the
+//   current one is used (two buffers).  Key tiles are BKV = 32 keys, the
+//   serve shapes' whole sequence, and a tile's products cover only the
+//   keys that exist (n8 tiles of scores, k16 steps of the context), so
+//   Skv = 32 computes no empty half tile.  hd is padded to 16 in shared
+//   memory with zeros (exact); rows are padded to 272 bytes so that
+//   ldmatrix's eight rows fall on distinct banks.
+// - S = Q K^T is mma.sync m16n8k16 (bf16 in, f32 sums) from ldmatrix
+//   fragments of Q and of K as it lies (k-contiguous).  The row max and
+//   sum are quad butterflies, so every lane holding a row has its bits.
+// - P stays in registers as the A fragment of P V, with V's B fragments
+//   read by ldmatrix.trans.  P rounded once to bf16 would err by 2^-9 of
+//   |p| |v|, far above the f32 tolerance and the 1e-5 rms floor near zero,
+//   so p is split exactly into three bf16 terms p1 + p2 + p3 (8 + 8 + 8
+//   significant bits: p1 = bf16(p), p2 = bf16(p - p1), p3 = p - p1 - p2)
+//   and the three products are added into one f32 sum: P V as exact as
+//   f32 P, at three times the (here negligible) tensor-core work.  The
+//   tensor cores truncate their f32 sums, so each tile's context is summed
+//   from zero (at most 8 steps of S, 6 of P V) and added to the running one
+//   with IEEE f32 operations, as the softmax's max and sums are.
+// - A KV tile masked for every query of the block is not copied, and one
+//   masked for every row of a warp is not computed by it (causal: past the
+//   last query; window: before the first query's window; kv_len: past the
+//   valid keys).  That is exact: the TPU kernel's arithmetic leaves m, l
+//   and acc unchanged on such a tile.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "epilogue.cuh"
+#include "mma.cuh"
 
 namespace {
 
 constexpr int MAX_HD = 128;
-constexpr int BQ = 32;              // queries per block
-constexpr int BK = 64;              // keys per shared-memory tile (two per lane)
-constexpr int WARPS = 8;
+constexpr int WARPS = 2;
 constexpr int THREADS = 32 * WARPS;
-constexpr int RPW = BQ / WARPS;     // query rows per warp
-constexpr int KW = MAX_HD / 2 + 1;  // words per staged K row: odd, conflict-free
-constexpr int NC = MAX_HD / 32;     // output columns per lane
+constexpr int BQ = 16 * WARPS;      // queries per block: 16 rows per warp
+constexpr int BKV = 32;             // keys per tile
+constexpr int ROW = MAX_HD + 8;     // elements of a shared row: 272 bytes
+constexpr int NT_S = BKV / 8;       // n8 tiles of scores per tile
+constexpr int NT_O = MAX_HD / 8;    // n8 tiles of the context
 constexpr float NEG_INF = -1e30f;
 constexpr unsigned FULL = 0xffffffffu;
 
-__device__ __forceinline__ float lo(uint32_t w) { return __uint_as_float(w << 16); }
-__device__ __forceinline__ float hi(uint32_t w) { return __uint_as_float(w & 0xffff0000u); }
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(FULL, v, o));
-  return v;
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(FULL, v, 1));
+  return fmaxf(v, __shfl_xor_sync(FULL, v, 2));
 }
 // A butterfly: every lane adds the same two operands at every stage, so
-// every lane ends with the same bits.
-__device__ __forceinline__ float warp_sum(float v) {
+// the four lanes of a row end with the same bits.
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(FULL, v, 1);
+  return v + __shfl_xor_sync(FULL, v, 2);
+}
+
+// Two f32 values as a bf16 pair, each split into three exact terms:
+// a = a1 + a2 + a3; out[i] holds (a_i+1, b_i+1), a in the low half.
+__device__ __forceinline__ void split3(float a, float b, unsigned (&out)[3]) {
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(FULL, v, o);
-  return v;
+  for (int i = 0; i < 3; ++i) {
+    const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+    out[i] = *reinterpret_cast<const unsigned*>(&h);
+    a = __fsub_rn(a, __low2float(h));
+    b = __fsub_rn(b, __high2float(h));
+  }
+}
+
+__device__ __forceinline__ void store2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+__device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+
+// rows [0, nrows) of a (rows, hd) bf16 matrix into shared rows of ROW
+// elements, hd padded to hd16 with zeros, rows from `valid` on zero.
+__device__ __forceinline__ void copy_rows(__nv_bfloat16* dst, const __nv_bfloat16* src,
+                                          const __nv_bfloat16* base, int valid, int nrows,
+                                          int hd, int hd16, int tid) {
+  const int ch = hd16 / 8, chv = hd / 8;
+  for (int i = tid; i < nrows * ch; i += THREADS) {
+    const int r = i / ch, c = i % ch;
+    const bool ok = r < valid && c < chv;
+    cp_async16(dst + r * ROW + 8 * c, ok ? src + (size_t)r * hd + 8 * c : base, ok);
+  }
 }
 
 template <typename OT>
@@ -76,144 +117,160 @@ __global__ void __launch_bounds__(THREADS)
 flash_attention_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                        const __nv_bfloat16* __restrict__ v, OT* __restrict__ out, int Sq,
                        int Skv, int hd, int kv_len, int causal, int window, float sm_scale) {
-  __shared__ uint32_t sQ[BQ][MAX_HD / 2];         // bf16 pairs
-  __shared__ uint32_t sK[BK][KW];                 // bf16 pairs, padded rows
-  __shared__ __align__(16) __nv_bfloat16 sV[BK][MAX_HD];
+  __shared__ __align__(16) __nv_bfloat16 sQ[BQ * ROW];
+  __shared__ __align__(16) __nv_bfloat16 sK[2][BKV * ROW];
+  __shared__ __align__(16) __nv_bfloat16 sV[2][BKV * ROW];
 
   const int bh = blockIdx.x;
   const int q0 = blockIdx.y * BQ;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int hw = hd / 2;  // words per row
-  const int hv = hd / 8;  // 16-byte vectors per row
+  const int g = lane >> 2, t = lane & 3;  // a fragment's row group and column pair
+  const int hd16 = (hd + 15) & ~15;
+  const int ksteps = hd16 / 16, nt_o = hd / 8;
   const __nv_bfloat16* qb = q + (size_t)bh * Sq * hd;
   const __nv_bfloat16* kb = k + (size_t)bh * Skv * hd;
   const __nv_bfloat16* vb = v + (size_t)bh * Skv * hd;
-
-  for (int i = tid; i < BQ * hv; i += THREADS) {  // the query tile; rows past Sq are 0
-    const int r = i / hv, c = i % hv;
-    uint4 u = make_uint4(0u, 0u, 0u, 0u);
-    if (q0 + r < Sq) u = __ldg(reinterpret_cast<const uint4*>(qb + (size_t)(q0 + r) * hd) + c);
-    sQ[r][4 * c] = u.x; sQ[r][4 * c + 1] = u.y; sQ[r][4 * c + 2] = u.z; sQ[r][4 * c + 3] = u.w;
-  }
 
   // the KV tiles that hold a key some query of this block may see
   const int q_last = min(q0 + BQ, Sq) - 1;
   int kv_end = kv_len;
   if (causal) kv_end = min(kv_end, q_last + 1);
   const int kv_begin = window > 0 ? max(0, q0 - window + 1) : 0;
-  const int t_begin = kv_begin / BK;
-  const int t_end = (kv_end + BK - 1) / BK;
+  const int t_begin = kv_begin / BKV;
+  const int t_end = (kv_end + BKV - 1) / BKV;
+  // the keys the rows of this warp may see
+  const int r0 = 16 * warp, w_first = q0 + r0;
+  const int w_last = min(w_first + 15, Sq - 1);
+  const int w_end = causal ? min(kv_len, w_last + 1) : kv_len;
+  const int w_begin = window > 0 ? w_first - window + 1 : 0;
 
-  float m[RPW], l[RPW], acc[RPW][NC];
-#pragma unroll
-  for (int i = 0; i < RPW; ++i) {
-    m[i] = NEG_INF;
-    l[i] = 0.f;
-#pragma unroll
-    for (int c = 0; c < NC; ++c) acc[i][c] = 0.f;
-  }
+  auto load_tile = [&](int tile, int buf) {
+    const int k0 = tile * BKV, nk = min(BKV, Skv - k0);
+    copy_rows(sK[buf], kb + (size_t)k0 * hd, k, nk, BKV, hd, hd16, tid);
+    copy_rows(sV[buf], vb + (size_t)k0 * hd, v, nk, BKV, hd, hd16, tid);
+  };
+  copy_rows(sQ, qb + (size_t)q0 * hd, q, Sq - q0, BQ, hd, hd16, tid);
+  if (t_begin < t_end) load_tile(t_begin, 0);
+  cp_async_commit();
 
-  for (int t = t_begin; t < t_end; ++t) {
-    const int k0 = t * BK;
-    const int nk = min(BK, Skv - k0);  // rows of the tile that exist
-    __syncthreads();                   // the previous tile is consumed
-    for (int i = tid; i < BK * hv; i += THREADS) {
-      const int r = i / hv, c = i % hv;
-      uint4 ku = make_uint4(0u, 0u, 0u, 0u), vu = ku;
-      if (r < nk) {
-        ku = __ldg(reinterpret_cast<const uint4*>(kb + (size_t)(k0 + r) * hd) + c);
-        vu = __ldg(reinterpret_cast<const uint4*>(vb + (size_t)(k0 + r) * hd) + c);
-      }
-      sK[r][4 * c] = ku.x; sK[r][4 * c + 1] = ku.y; sK[r][4 * c + 2] = ku.z; sK[r][4 * c + 3] = ku.w;
-      *reinterpret_cast<uint4*>(&sV[r][8 * c]) = vu;
-    }
+  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};  // rows g and g + 8
+  float acc[NT_O][4];
+#pragma unroll
+  for (int j = 0; j < NT_O; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+
+  for (int tile = t_begin; tile < t_end; ++tile) {
+    const int buf = (tile - t_begin) & 1;
+    if (tile + 1 < t_end) load_tile(tile + 1, buf ^ 1);
+    cp_async_commit();
+    cp_async_wait<1>();
     __syncthreads();
-
-    // scores of the warp's rows against keys lane and lane + 32
-    float s[RPW][2];
+    const int k0 = tile * BKV, nk = min(BKV, Skv - k0);
+    const int nt_s = (nk + 7) / 8, kst = (nk + 15) / 16;
+    const bool seen = w_first < Sq && k0 < w_end && k0 + nk - 1 >= w_begin;
+    if (seen) {
+      // S = Q K^T for this warp's 16 rows and the tile's keys
+      float s[NT_S][4];
 #pragma unroll
-    for (int i = 0; i < RPW; ++i) s[i][0] = s[i][1] = 0.f;
-    for (int w = 0; w < hw; ++w) {
-      const uint32_t ka = sK[lane][w], kc = sK[lane + 32][w];
-      const float k0a = lo(ka), k0b = hi(ka), k1a = lo(kc), k1b = hi(kc);
+      for (int j = 0; j < NT_S; ++j)
 #pragma unroll
-      for (int i = 0; i < RPW; ++i) {
-        const uint32_t qw = sQ[warp * RPW + i][w];
-        const float qa = lo(qw), qb2 = hi(qw);
-        s[i][0] = fmaf(qb2, k0b, fmaf(qa, k0a, s[i][0]));
-        s[i][1] = fmaf(qb2, k1b, fmaf(qa, k1a, s[i][1]));
-      }
-    }
-
-    // online softmax: mask, the tile's max, rescale, probabilities
-    float p[RPW][2], alpha[RPW];
+        for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
 #pragma unroll
-    for (int i = 0; i < RPW; ++i) {
-      const int qpos = q0 + warp * RPW + i;
-      bool ok[2];
-      float tmax = NEG_INF;
+      for (int kk = 0; kk < MAX_HD / 16; ++kk) {
+        if (kk >= ksteps) break;
+        unsigned a[4];
+        ldmatrix_x4(a, sQ + (r0 + (lane & 15)) * ROW + 16 * kk + 8 * (lane >> 4));
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int kpos = k0 + lane + 32 * h;
-        ok[h] = kpos < kv_len && (!causal || kpos <= qpos) &&
-                (window <= 0 || kpos > qpos - window);
-        s[i][h] = ok[h] ? s[i][h] * sm_scale : NEG_INF;
-        tmax = fmaxf(tmax, s[i][h]);
-      }
-      const float m_new = fmaxf(m[i], warp_max(tmax));
-      alpha[i] = expf(m[i] - m_new);
-      float psum = 0.f;
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        p[i][h] = ok[h] ? expf(s[i][h] - m_new) : 0.f;
-        psum += p[i][h];
-      }
-      l[i] = l[i] * alpha[i] + warp_sum(psum);
-      m[i] = m_new;
-    }
-
-    // context: sum over the tile's keys of p_j v_j, p_j broadcast from its lane
-    float ctx[RPW][NC];
-#pragma unroll
-    for (int i = 0; i < RPW; ++i)
-#pragma unroll
-      for (int c = 0; c < NC; ++c) ctx[i][c] = 0.f;
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int jn = min(32, nk - 32 * h);
-      for (int jj = 0; jj < jn; ++jj) {
-        const int j = 32 * h + jj;
-        float vj[NC];
-#pragma unroll
-        for (int c = 0; c < NC; ++c) {
-          const int d = lane + 32 * c;
-          vj[c] = d < hd ? __bfloat162float(sV[j][d]) : 0.f;
-        }
-#pragma unroll
-        for (int i = 0; i < RPW; ++i) {
-          const float pj = __shfl_sync(FULL, p[i][h], jj);
-#pragma unroll
-          for (int c = 0; c < NC; ++c) ctx[i][c] = fmaf(pj, vj[c], ctx[i][c]);
+        for (int np = 0; np < NT_S / 2; ++np) {
+          if (2 * np >= nt_s) break;
+          unsigned b[4];
+          ldmatrix_x4(b, sK[buf] + (16 * np + 8 * (lane >> 4) + (lane & 7)) * ROW + 16 * kk +
+                             8 * ((lane >> 3) & 1));
+          mma_bf16(s[2 * np], a, b[0], b[1]);
+          if (2 * np + 1 < nt_s) mma_bf16(s[2 * np + 1], a, b[2], b[3]);
         }
       }
+
+      // online softmax: mask, the tile's max, rescale, probabilities
+      float tmax[2] = {NEG_INF, NEG_INF};
+      unsigned valid = 0;  // bit 4 j + e: element e of score tile j is seen
+#pragma unroll
+      for (int j = 0; j < NT_S; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int kpos = k0 + 8 * j + 2 * t + (e & 1);
+          const int qpos = w_first + g + 8 * (e >> 1);
+          const bool ok = j < nt_s && kpos < kv_len && (!causal || kpos <= qpos) &&
+                          (window <= 0 || kpos > qpos - window);
+          valid |= unsigned(ok) << (4 * j + e);
+          s[j][e] = ok ? s[j][e] * sm_scale : NEG_INF;
+          tmax[e >> 1] = fmaxf(tmax[e >> 1], s[j][e]);
+        }
+      float alpha[2], psum[2] = {0.f, 0.f};
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const float m_new = fmaxf(m[h], quad_max(tmax[h]));
+        alpha[h] = expf(m[h] - m_new);
+        m[h] = m_new;
+      }
+#pragma unroll
+      for (int j = 0; j < NT_S; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float p = (valid >> (4 * j + e)) & 1u ? expf(s[j][e] - m[e >> 1]) : 0.f;
+          s[j][e] = p;
+          psum[e >> 1] += p;
+        }
+#pragma unroll
+      for (int h = 0; h < 2; ++h) l[h] = l[h] * alpha[h] + quad_sum(psum[h]);
+
+      // context: P V, P as three exact bf16 terms, summed from zero per tile
+      float ctx[NT_O][4];
+#pragma unroll
+      for (int j = 0; j < NT_O; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) ctx[j][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < BKV / 16; ++kk) {
+        if (kk >= kst) break;
+        unsigned pa[4][3];  // the A fragment's four registers, three terms each
+        split3(s[2 * kk][0], s[2 * kk][1], pa[0]);
+        split3(s[2 * kk][2], s[2 * kk][3], pa[1]);
+        split3(s[2 * kk + 1][0], s[2 * kk + 1][1], pa[2]);
+        split3(s[2 * kk + 1][2], s[2 * kk + 1][3], pa[3]);
+#pragma unroll
+        for (int np = 0; np < NT_O / 2; ++np) {
+          if (2 * np >= nt_o) break;
+          unsigned b[4];
+          ldmatrix_x4_trans(b, sV[buf] + (16 * kk + 8 * ((lane >> 3) & 1) + (lane & 7)) * ROW +
+                                   16 * np + 8 * (lane >> 4));
+#pragma unroll
+          for (int term = 0; term < 3; ++term) {
+            const unsigned a[4] = {pa[0][term], pa[1][term], pa[2][term], pa[3][term]};
+            mma_bf16(ctx[2 * np], a, b[0], b[1]);
+            if (2 * np + 1 < nt_o) mma_bf16(ctx[2 * np + 1], a, b[2], b[3]);
+          }
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < NT_O; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[j][e] = acc[j][e] * alpha[e >> 1] + ctx[j][e];
     }
-#pragma unroll
-    for (int i = 0; i < RPW; ++i)
-#pragma unroll
-      for (int c = 0; c < NC; ++c) acc[i][c] = acc[i][c] * alpha[i] + ctx[i][c];
+    __syncthreads();  // the buffer is consumed before the next copy into it
   }
+  cp_async_wait<0>();
 
 #pragma unroll
-  for (int i = 0; i < RPW; ++i) {
-    const int qpos = q0 + warp * RPW + i;
+  for (int h = 0; h < 2; ++h) {
+    const int qpos = w_first + g + 8 * h;
     if (qpos >= Sq) continue;
-    const float denom = fmaxf(l[i], 1e-30f);
-    OT* o = out + ((size_t)bh * Sq + qpos) * hd;
+    const float denom = fmaxf(l[h], 1e-30f);
+    OT* o = out + ((size_t)bh * Sq + qpos) * hd + 2 * t;
 #pragma unroll
-    for (int c = 0; c < NC; ++c) {
-      const int d = lane + 32 * c;
-      if (d < hd) store(o + d, acc[i][c] / denom);
-    }
+    for (int j = 0; j < NT_O; ++j)
+      if (j < nt_o) store2(o + 8 * j, acc[j][2 * h] / denom, acc[j][2 * h + 1] / denom);
   }
 }
 

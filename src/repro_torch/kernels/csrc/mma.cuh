@@ -1,5 +1,5 @@
-// Shared by the tensor-core kernels: asynchronous copies from global to
-// shared memory and ldmatrix fragment loads.
+// Shared by the kernels: asynchronous copies from global to shared memory,
+// ldmatrix fragment loads and the bf16 m16n8k16 tensor-core product.
 #pragma once
 #include <cuda_runtime.h>
 
@@ -43,6 +43,24 @@ __device__ __forceinline__ void ldmatrix_x4_trans(unsigned (&r)[4], const void* 
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
                : "r"(smem_addr(p)));
+}
+
+// c += a (16 x 16, row-major) * b (16 x 8, column-major), bf16 in, f32 sums.
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const unsigned (&a)[4], unsigned b0,
+                                         unsigned b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// c = a * b, the same product summed from zero.
+__device__ __forceinline__ void mma_bf16_zero(float (&c)[4], const unsigned (&a)[4], unsigned b0,
+                                              unsigned b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%10, %10, %10, %10};\n"
+      : "=f"(c[0]), "=f"(c[1]), "=f"(c[2]), "=f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1), "f"(0.f));
 }
 
 }  // namespace

@@ -17,29 +17,56 @@
 //
 // Path 1, the GEMV.
 //
-// What bounds it: at decode M is 1 to 8, so the product does about 2*M
-// operations per weight byte -- far below the ~295 the card needs before
-// its arithmetic, not its memory, is the limit.  The kernel is bound by
-// reading w once, and its design keeps every weight byte read exactly once
-// and enough of them in flight:
+// What bounds it: at a decode tick (M = 8) the product does 16 operations
+// per weight byte, far below the ~295 at which the card's tensor cores,
+// not its memory, are the limit; the floor is reading w once (3.03 GB per
+// tick of full-width starcoder2-3b, 0.91 ms at 3.35 TB/s).  Three things
+// stand between the kernel and that floor:
 //
-// - A block owns a strip of BN output columns.  Each thread owns CPT
-//   neighbouring columns and reads them as one 4-byte word, so a warp reads
-//   whole 32-byte sectors of w's rows.
-// - The block's KS k-slices each own one contiguous range of w's rows and
-//   walk it in groups of G rows, the next group's weights loaded while the
-//   current one is multiplied, with no barrier in the loop.  x (a few KB)
-//   is read through the L1 cache, 16 bytes per row and group.
-// - Each weight is dequantized as float(w) * w_scale[n], as the reference
-//   oracle does, and folded into f32 FMAs.  The KS partial sums of a column
-//   are added in a fixed order at the end, through shared memory.
+// - Blocks and bytes in flight.  Little's law at 3.35 TB/s and ~1 us of
+//   latency asks for ~3 MB in flight, ~25 KB per SM.  A block owns a strip
+//   of BN output columns and one contiguous range of w's rows, walked in
+//   BK-row stages through a ring of STAGES shared-memory buffers filled by
+//   cp.async STAGES - 1 stages ahead (16 KB of w in flight per block, in no
+//   registers).  The split plan, computed by the wrapper from (K, N) alone
+//   (kernels/qmatmul.py::gemv_split_plan) and passed in, cuts K into
+//   `splits` ranges of `split_rows` rows so that a projection whose strips
+//   alone do not fill the card gets about three blocks on every SM (the
+//   launch bounds let three stay resident): one wave, equal work per SM.
+// - Instructions.  Every weight byte costs 8 FMAs (one per row of x) plus
+//   its dequantization, and an SM issues 128 such operations per cycle, so
+//   at M = 8 the kernel is nearly as much bound by issue as by bytes.  Each
+//   weight is converted once (int8 -> f32, exact) and multiplied once by
+//   its column's scale, float(w) * w_scale[n] as the reference oracle
+//   dequantizes, then used by the 8 FMAs of its rows; x's tile is converted
+//   to f32 once per stage by the whole block (k-major, so a thread reads
+//   the 8 rows of x for one k as two 16-byte loads), not by every thread
+//   that uses it.
+// - The combine.  The partial sums are combined in a fixed order, all in
+//   one launch and with no float atomics: the k-slices of a block through
+//   shared memory in slice order (two per warp by one butterfly step); the
+//   splits of a strip through a workspace (allocated by the wrapper) and a
+//   per-tile arrival counter: every block stores its partial tile and takes
+//   a ticket with an integer atomicAdd, and the block that arrives last
+//   adds all the partials in split order, applies bias and activation,
+//   stores the output and sets the counter back to 0 for the next launch.
+//   With one split the block drains directly.
 //
-// Rows are independent: row m's arithmetic depends only on row m of x and
-// on w, never on M or on the other rows (no split-K chosen by shape, no
-// atomics).  The serving engine's bit-for-bit parity with its batch-1
-// sequential reference depends on that.  M larger than MT is covered by
-// gridDim.y, one MT-row slab per block row, with the same per-row math.
-// K must be a multiple of G and x 16-byte aligned (the wrapper checks).
+// The stage's thread layout: thread (tn, ks) owns the CPT = 4 columns
+// 4 tn .. 4 tn + 3 of the strip and the rows ks, ks + KS, ... of each
+// stage, reading one word of w per row; the two halves of a warp read
+// neighbouring rows, on distinct banks.
+//
+// Rows are independent: the plan, the stages, the slices and every add are
+// fixed by (K, N), so row m's arithmetic depends only on row m of x and on
+// w, never on M or on the other rows.  The serving engine's bit-for-bit
+// parity with its batch-1 sequential reference depends on that.  M larger
+// than MT is covered by gridDim.y, one MT-row slab per block row, with the
+// same per-row math.  Rows past M, columns past N and rows past a split's
+// range are zero-filled in shared memory and add nothing.  K must be a
+// multiple of 8, x 16-byte and w 4-byte aligned (the wrapper checks); w is
+// copied in 16-byte pieces when N % 16 == 0 and it is 16-byte aligned, in
+// 4-byte pieces otherwise.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -49,126 +76,218 @@
 
 namespace {
 
-constexpr int BN = 32;             // output columns per block
-constexpr int CPT = 4;             // columns per thread (one 4-byte load)
-constexpr int TN = BN / CPT;       // column threads per block
-constexpr int KS = 32;             // k-slices per block
-constexpr int THREADS = TN * KS;   // 256
-constexpr int G = 8;               // rows of w per group (one 16-byte x load)
+constexpr int BN = 64;             // output columns per block (a strip)
+constexpr int CPT = 4;             // columns per thread (one word of w per row)
+constexpr int TN = BN / CPT;       // column threads
+constexpr int THREADS = 256;
+constexpr int WARPS = THREADS / 32;
+constexpr int KS = THREADS / TN;   // k-slices per block
 constexpr int MT = 8;              // rows of x per block
-static_assert(THREADS == MT * BN, "the drain gives one output per thread");
+constexpr int BK = 128;            // rows of w per stage
+constexpr int RPT = BK / KS;       // rows per thread per stage: ks, ks + KS, ...
+constexpr int STAGES = 3;          // the cp.async ring
+constexpr int W_BYTES = BK * BN;   // one stage of w
+constexpr int W_COPIES = W_BYTES / 16 / THREADS;  // 16-byte copies of w per thread and stage
+constexpr int XF_ROW = 12;         // floats of a row of the converted x tile
+constexpr int XPT = MT * BK / THREADS;            // elements of x converted per thread
+constexpr int OPT = MT * BN / THREADS;            // outputs drained per thread
+static_assert(TN == 16, "a strip spans a half warp: two k-slices per warp");
+static_assert(W_COPIES * 16 * THREADS == W_BYTES && XPT * THREADS == MT * BK &&
+                  OPT * THREADS == MT * BN,
+              "whole copies, conversions and outputs per thread");
 
-// Eight consecutive elements of x as f32.
-__device__ __forceinline__ void load_x8(const __nv_bfloat16* p, float (&out)[G]) {
-  const uint4 u = __ldg(reinterpret_cast<const uint4*>(p));
-  const unsigned words[4] = {u.x, u.y, u.z, u.w};
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {  // bf16 -> f32 is the bf16 bits in the high half
-    out[2 * i] = __uint_as_float(words[i] << 16);
-    out[2 * i + 1] = __uint_as_float(words[i] & 0xffff0000u);
-  }
-}
-__device__ __forceinline__ void load_x8(const float* p, float (&out)[G]) {
-  const float4 a = __ldg(reinterpret_cast<const float4*>(p));
-  const float4 b = __ldg(reinterpret_cast<const float4*>(p) + 1);
-  out[0] = a.x; out[1] = a.y; out[2] = a.z; out[3] = a.w;
-  out[4] = b.x; out[5] = b.y; out[6] = b.z; out[7] = b.w;
+template <typename XT>
+struct Smem {
+  static constexpr int X_ROW = BK * sizeof(XT) + 16;    // bytes of a row of raw x (padded)
+  static constexpr int X_BYTES = MT * X_ROW;            // one stage of raw x
+  static constexpr int STAGE = W_BYTES + X_BYTES;
+  static constexpr int RING = STAGES * STAGE;
+  static constexpr int XF = BK * XF_ROW * 4;            // the stage's x, f32, k-major
+  static constexpr int RED = WARPS * MT * BN * 4;       // the block's partials
+  static constexpr int BYTES = (RING > RED ? RING : RED) + XF;
+  static constexpr int X_COPIES = MT * BK * sizeof(XT) / 16;  // 16-byte copies of x
+};
+
+__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ float to_f32(float v) { return v; }
+
+// Byte J of the word u (four int8 weights) as f32, exactly.
+template <int J>
+__device__ __forceinline__ float s8_to_f32(unsigned u) {
+  return static_cast<float>(static_cast<int8_t>(u >> (8 * J)));
 }
 
-__device__ __forceinline__ void load_w(const int8_t* w, size_t row_stride, int (&out)[G]) {
-#pragma unroll
-  for (int u = 0; u < G; ++u) out[u] = __ldg(reinterpret_cast<const int*>(w + u * row_stride));
-}
-
-template <typename XT, typename OT>
-__global__ void __launch_bounds__(THREADS, 2)
+template <typename XT, typename OT, bool COPY16>
+__global__ void __launch_bounds__(THREADS, 3)
 qmatmul_w8a16_kernel(const XT* __restrict__ x, const int8_t* __restrict__ w,
                      const float* __restrict__ w_scale, const float* __restrict__ bias,
-                     OT* __restrict__ out, int M, int K, int N, int act) {
-  __shared__ float red[KS][MT][BN];
+                     OT* __restrict__ out, int M, int K, int N, int act, int splits,
+                     int split_rows, float* __restrict__ work, int* __restrict__ counters) {
+  using S = Smem<XT>;
+  __shared__ __align__(16) unsigned char smem[S::BYTES];
+  __shared__ int ticket;
 
-  const int tid = threadIdx.x;
-  const int tn = tid % TN;
-  const int ks = tid / TN;
-  const int m0 = blockIdx.y * MT;
-  const int n = blockIdx.x * BN + tn * CPT;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int tn = tid % TN, ks = tid / TN;
+  const int strip = blockIdx.x / splits, split = blockIdx.x % splits;
+  const int n0 = strip * BN, m0 = blockIdx.y * MT;
+  const int kb = split * split_rows, ke = min(K, kb + split_rows);
+  const int nst = (ke - kb + BK - 1) / BK;  // stages of this block's range
+  float* xf = reinterpret_cast<float*>(smem + (S::RING > S::RED ? S::RING : S::RED));
 
+  auto stage_w = [&](int slot) { return smem + slot * S::STAGE; };
+  auto stage_x = [&](int slot) { return smem + slot * S::STAGE + W_BYTES; };
+  // Copies of stage s into its ring slot: w's BK x BN tile, x's MT x BK tile.
+  auto load_stage = [&](int s) {
+    const int k0 = kb + s * BK;
+    unsigned char* sw = stage_w(s % STAGES);
+    constexpr int PIECE = COPY16 ? 16 : 4;  // bytes per copy
+#pragma unroll
+    for (int i = 0; i < W_COPIES * 16 / PIECE; ++i) {
+      const int e = tid + i * THREADS, r = e / (BN / PIECE), c = (e % (BN / PIECE)) * PIECE;
+      const bool ok = k0 + r < ke && n0 + c < N;
+      const int8_t* src = ok ? w + (size_t)(k0 + r) * N + n0 + c : w;
+      if (COPY16)
+        cp_async16(sw + r * BN + c, src, ok);
+      else
+        cp_async4(sw + r * BN + c, src, ok);
+    }
+    for (int e = tid; e < S::X_COPIES; e += THREADS) {
+      constexpr int E = 16 / sizeof(XT);  // elements per copy
+      const int m = e / (BK / E), c = (e % (BK / E)) * E;
+      const bool ok = m0 + m < M && k0 + c < ke;
+      cp_async16(stage_x(s % STAGES) + m * S::X_ROW + c * sizeof(XT),
+                 ok ? x + (size_t)(m0 + m) * K + k0 + c : x, ok);
+    }
+  };
+
+  float sc[CPT];
+#pragma unroll
+  for (int j = 0; j < CPT; ++j) sc[j] = n0 + CPT * tn + j < N ? w_scale[n0 + CPT * tn + j] : 0.f;
   float acc[MT][CPT];
 #pragma unroll
   for (int m = 0; m < MT; ++m)
 #pragma unroll
     for (int j = 0; j < CPT; ++j) acc[m][j] = 0.f;
 
-  if (n < N) {  // N % CPT == 0, so a column group is all in or all out
-    float sc[CPT];
 #pragma unroll
-    for (int j = 0; j < CPT; ++j) sc[j] = w_scale[n + j];
-    // this slice's rows: [kb, kb + groups * G), G-aligned, in order
-    const int per = ((K + KS - 1) / KS + G - 1) / G * G;
-    const int kb = min(K, ks * per);
-    const int groups = (min(K, kb + per) - kb) / G;
-    const size_t row_stride = (size_t)N;
-    const int8_t* wp = w + (size_t)kb * N + n;
-    int wv[G];
-    if (groups > 0) load_w(wp, row_stride, wv);
-    for (int gi = 0; gi < groups; ++gi) {
-      const int k = kb + gi * G;
-      const bool more = gi + 1 < groups;
-      int nv[G];
-      if (more) load_w(wp + (size_t)(gi + 1) * G * N, row_stride, nv);  // prefetch
-      float wf[G][CPT];
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < nst) load_stage(s);
+    cp_async_commit();
+  }
+#pragma unroll 1
+  for (int s = 0; s < nst; ++s) {
+    cp_async_wait<STAGES - 2>();
+    __syncthreads();  // stage s has landed; the slot refilled below and xf are consumed
+    if (s + STAGES - 1 < nst) load_stage(s + STAGES - 1);
+    cp_async_commit();
+    {  // x's tile once as f32, k-major: xf[k][m]
+      const int m = tid % MT, c = XPT * (tid / MT);
+      const XT* rx = reinterpret_cast<const XT*>(stage_x(s % STAGES) + m * S::X_ROW) + c;
 #pragma unroll
-      for (int u = 0; u < G; ++u) {
+      for (int i = 0; i < XPT; ++i) xf[(c + i) * XF_ROW + m] = to_f32(rx[i]);
+    }
+    __syncthreads();
+    const unsigned char* sw = stage_w(s % STAGES) + ks * BN + CPT * tn;
+    const float* sx = xf + ks * XF_ROW;
 #pragma unroll
-        for (int j = 0; j < CPT; ++j)  // byte j of the word, sign-extended
-          wf[u][j] = float((wv[u] << (24 - 8 * j)) >> 24) * sc[j];
-      }
+    for (int i = 0; i < RPT; ++i) {  // the rows ks + KS i, in order
+      const unsigned u = *reinterpret_cast<const unsigned*>(sw + i * KS * BN);
+      const float4 xa = *reinterpret_cast<const float4*>(sx + i * KS * XF_ROW);
+      const float4 xb = *reinterpret_cast<const float4*>(sx + i * KS * XF_ROW + 4);
+      const float xv[MT] = {xa.x, xa.y, xa.z, xa.w, xb.x, xb.y, xb.z, xb.w};
+      const float wf[CPT] = {__fmul_rn(s8_to_f32<0>(u), sc[0]), __fmul_rn(s8_to_f32<1>(u), sc[1]),
+                             __fmul_rn(s8_to_f32<2>(u), sc[2]), __fmul_rn(s8_to_f32<3>(u), sc[3])};
 #pragma unroll
-      for (int m = 0; m < MT; ++m) {
-        float xv[G];
-        if (m0 + m < M) {
-          load_x8(x + (size_t)(m0 + m) * K + k, xv);
-        } else {
+      for (int m = 0; m < MT; ++m)
 #pragma unroll
-          for (int u = 0; u < G; ++u) xv[u] = 0.f;
-        }
-#pragma unroll
-        for (int u = 0; u < G; ++u)
-#pragma unroll
-          for (int j = 0; j < CPT; ++j) acc[m][j] = fmaf(xv[u], wf[u][j], acc[m][j]);
-      }
-      if (more) {
-#pragma unroll
-        for (int u = 0; u < G; ++u) wv[u] = nv[u];
-      }
+        for (int j = 0; j < CPT; ++j) acc[m][j] = fmaf(xv[m], wf[j], acc[m][j]);
     }
   }
+  cp_async_wait<0>();
+  __syncthreads();  // the ring is free for the partials
 
+  // k-slices 2 warp and 2 warp + 1 by one butterfly step, then the warps in order
+  float* red = reinterpret_cast<float*>(smem);  // [WARPS][MT][BN]
 #pragma unroll
-  for (int m = 0; m < MT; ++m)
+  for (int m = 0; m < MT; ++m) {
+    float v[CPT];
 #pragma unroll
-    for (int j = 0; j < CPT; ++j) red[ks][m][tn * CPT + j] = acc[m][j];
+    for (int j = 0; j < CPT; ++j)
+      v[j] = acc[m][j] + __shfl_xor_sync(0xffffffffu, acc[m][j], 16);
+    if (lane < 16)
+      *reinterpret_cast<float4*>(red + (warp * MT + m) * BN + CPT * tn) =
+          make_float4(v[0], v[1], v[2], v[3]);
+  }
   __syncthreads();
+  float sum[OPT];
+  int row[OPT], col[OPT];
+  bool live[OPT];
+#pragma unroll
+  for (int h = 0; h < OPT; ++h) {
+    const int o = tid + h * THREADS, m = o / BN, c = o % BN;
+    float s = 0.f;
+#pragma unroll
+    for (int q = 0; q < WARPS; ++q) s += red[(q * MT + m) * BN + c];
+    sum[h] = s;
+    row[h] = m0 + m;
+    col[h] = n0 + c;
+    live[h] = row[h] < M && col[h] < N;
+  }
 
-  const int m = tid / BN, c = tid % BN;
-  float s = 0.f;
-#pragma unroll 8
-  for (int q = 0; q < KS; ++q) s += red[q][m][c];
-  const int row = m0 + m, col = blockIdx.x * BN + c;
-  if (row < M && col < N) {
-    if (bias != nullptr) s += bias[col];
-    store(out + (size_t)row * N + col, activate(s, act));
+  if (splits > 1) {  // the splits of this tile: the last block to arrive adds them
+#pragma unroll
+    for (int h = 0; h < OPT; ++h)
+      if (live[h]) work[((size_t)split * M + row[h]) * N + col[h]] = sum[h];
+    __threadfence();
+    __syncthreads();
+    int* counter = counters + blockIdx.y * (gridDim.x / splits) + strip;
+    if (tid == 0) ticket = atomicAdd(counter, 1);
+    __syncthreads();
+    if (ticket != splits - 1) return;
+    __threadfence();
+    const size_t stride = (size_t)M * N;  // one split's partials
+#pragma unroll
+    for (int h = 0; h < OPT; ++h) {
+      if (!live[h]) continue;
+      const float* p = work + (size_t)row[h] * N + col[h];
+      float s = 0.f;
+      int q = 0;
+      for (; q + 4 <= splits; q += 4) {  // four loads in flight, added in order
+        const float a0 = __ldcg(p + q * stride), a1 = __ldcg(p + (q + 1) * stride);
+        const float a2 = __ldcg(p + (q + 2) * stride), a3 = __ldcg(p + (q + 3) * stride);
+        s += a0;
+        s += a1;
+        s += a2;
+        s += a3;
+      }
+      for (; q < splits; ++q) s += __ldcg(p + q * stride);
+      sum[h] = s;
+    }
+    if (tid == 0) *counter = 0;
+  }
+#pragma unroll
+  for (int h = 0; h < OPT; ++h) {
+    if (!live[h]) continue;
+    float s = sum[h];
+    if (bias != nullptr) s += bias[col[h]];
+    store(out + (size_t)row[h] * N + col[h], activate(s, act));
   }
 }
 
 template <typename XT, typename OT>
 void launch(const void* x, const void* w, const void* w_scale, const void* bias, void* out,
-            int M, int K, int N, int act, cudaStream_t stream) {
-  const dim3 grid((N + BN - 1) / BN, (M + MT - 1) / MT);
-  qmatmul_w8a16_kernel<XT, OT><<<grid, THREADS, 0, stream>>>(
+            int M, int K, int N, int act, int splits, int split_rows, void* work, void* counters,
+            cudaStream_t stream) {
+  const dim3 grid((N + BN - 1) / BN * splits, (M + MT - 1) / MT);
+  const bool copy16 = N % 16 == 0 && reinterpret_cast<uintptr_t>(w) % 16 == 0;
+  const auto kernel = copy16 ? qmatmul_w8a16_kernel<XT, OT, true>
+                             : qmatmul_w8a16_kernel<XT, OT, false>;
+  kernel<<<grid, THREADS, 0, stream>>>(
       static_cast<const XT*>(x), static_cast<const int8_t*>(w),
       static_cast<const float*>(w_scale), static_cast<const float*>(bias),
-      static_cast<OT*>(out), M, K, N, act);
+      static_cast<OT*>(out), M, K, N, act, splits, split_rows, static_cast<float*>(work),
+      static_cast<int*>(counters));
 }
 
 // Path 2, mma.sync on the bf16 tensor cores, for the full-sequence forward.
@@ -274,24 +393,6 @@ __device__ __forceinline__ unsigned s8x2_to_bf16x2(unsigned w, unsigned c43) {
   const __nv_bfloat162 d = __hsub2(*reinterpret_cast<const __nv_bfloat162*>(&lo),
                                    *reinterpret_cast<const __nv_bfloat162*>(&hi));
   return *reinterpret_cast<const unsigned*>(&d);
-}
-
-// c += a (16 x 16, row-major) * b (16 x 8, column-major), bf16 in, f32 sums.
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const unsigned (&a)[4], unsigned b0,
-                                         unsigned b1) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// c = a * b, the same product summed from zero.
-__device__ __forceinline__ void mma_bf16_zero(float (&c)[4], const unsigned (&a)[4], unsigned b0,
-                                              unsigned b1) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%10, %10, %10, %10};\n"
-      : "=f"(c[0]), "=f"(c[1]), "=f"(c[2]), "=f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1), "f"(0.f));
 }
 
 __device__ __forceinline__ void store4(float* p, const float (&v)[4]) {
@@ -518,20 +619,29 @@ cudaError_t launch_mma(const void* x, const void* w, const void* w_scale, const 
 
 }  // namespace
 
-// Plain C entry point, bound with ctypes.  Returns cudaGetLastError() after
-// the launch, so a refused launch is reported to the caller.
+// Plain C entry point, bound with ctypes: the GEMV under the split plan
+// (splits ranges of split_rows rows, G-aligned, covering [0, K)), with a
+// workspace of splits * M * N f32 and one int counter per (slab, strip), all
+// 0, when splits > 1 (the kernel leaves them 0).  Returns
+// cudaGetLastError() after the launch, so a refused launch is reported to
+// the caller.
 extern "C" int qmatmul_w8a16(const void* x, int x_bf16, const void* w, const void* w_scale,
                              const void* bias, void* out, int out_bf16, int M, int K, int N,
-                             int act, void* stream) {
+                             int act, int splits, int split_rows, void* work, void* counters,
+                             void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (x_bf16 && out_bf16)
-    launch<__nv_bfloat16, __nv_bfloat16>(x, w, w_scale, bias, out, M, K, N, act, s);
+    launch<__nv_bfloat16, __nv_bfloat16>(x, w, w_scale, bias, out, M, K, N, act, splits,
+                                         split_rows, work, counters, s);
   else if (x_bf16)
-    launch<__nv_bfloat16, float>(x, w, w_scale, bias, out, M, K, N, act, s);
+    launch<__nv_bfloat16, float>(x, w, w_scale, bias, out, M, K, N, act, splits, split_rows,
+                                 work, counters, s);
   else if (out_bf16)
-    launch<float, __nv_bfloat16>(x, w, w_scale, bias, out, M, K, N, act, s);
+    launch<float, __nv_bfloat16>(x, w, w_scale, bias, out, M, K, N, act, splits, split_rows,
+                                 work, counters, s);
   else
-    launch<float, float>(x, w, w_scale, bias, out, M, K, N, act, s);
+    launch<float, float>(x, w, w_scale, bias, out, M, K, N, act, splits, split_rows, work,
+                         counters, s);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -30,7 +30,7 @@ import torch
 from repro_torch.kernels import _build
 
 NEG_INF = -1e30
-MAX_HD = 128        # the kernel's largest head_dim (four columns per lane)
+MAX_HD = 128        # the kernel's largest head_dim (16 n8 tiles of the context)
 _OUT_TYPES = (torch.float32, torch.bfloat16)
 
 

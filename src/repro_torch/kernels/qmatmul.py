@@ -3,8 +3,10 @@
 ``qmatmul_w8a16`` (weight-only int8) launches ``csrc/qmatmul_w8a16.cu``,
 the Hopper port of the Pallas TPU kernel
 ``repro/kernels/qmatmul.py::qmatmul_w8a16``: its GEMV, whose rows do not
-depend on M (every decode step), or, through ``qmatmul_w8a16_on_path``,
-its ``mma.sync`` bf16 tensor-core kernel (the full-sequence forward).  It
+depend on M (every decode step; K split across blocks by
+:func:`gemv_split_plan`, a function of (K, N) alone), or, through
+``qmatmul_w8a16_on_path``, its ``mma.sync`` bf16 tensor-core kernel (the
+full-sequence forward).  It
 takes CUDA tensors only, checks them, allocates the output, launches on
 the current stream and raises if the launch was refused.  Each launch adds
 one to ``qmatmul_w8a16.launches`` and to its path's count in
@@ -30,6 +32,7 @@ each call adds one to ``qmatmul_w8a8_ref.calls``.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 from typing import Optional
 
@@ -113,6 +116,80 @@ qmatmul_w8a8_ref.calls = 0
 W8A16_PATHS = ("gemv", "mma")
 
 
+# The GEMV's split plan.  A block owns GEMV_BN output columns (a strip) and
+# one range of K.  Three blocks fit on an SM at once (the kernel's launch
+# bounds), so a launch of GEMV_TARGET_BLOCKS = 3 x 132 blocks fills the
+# card in one wave with equal work per SM: a projection gets as many
+# splits of K as its strips leave room for in that wave (none where the
+# strips alone fill it), each at least GEMV_MIN_ROWS rows and at most
+# GEMV_MAX_SPLITS of them (the last block to arrive adds them all).  The
+# plan is a function of (K, N) alone -- never of M -- so a row's bits do
+# not depend on how many rows are in the launch.
+GEMV_BN = 64               # csrc/qmatmul_w8a16.cu: BN
+GEMV_G = 8                 # rows of a split are a multiple of this
+GEMV_MT = 8                # csrc/qmatmul_w8a16.cu: MT (rows of x per block)
+GEMV_MIN_ROWS = 64
+GEMV_MAX_SPLITS = 64
+GEMV_TARGET_BLOCKS = 3 * 132
+
+
+@dataclasses.dataclass(frozen=True)
+class GemvPlan:
+    """``splits`` ranges of ``split_rows`` rows of K (the last one shorter)
+    for each of ``strips`` column strips."""
+    k: int
+    n: int
+    strips: int
+    splits: int
+    split_rows: int
+
+    @property
+    def ranges(self):
+        """The K ranges, in the order their partial sums are added."""
+        return [(s * self.split_rows, min(self.k, (s + 1) * self.split_rows))
+                for s in range(self.splits)]
+
+
+@functools.lru_cache(maxsize=None)
+def gemv_split_plan(k: int, n: int) -> GemvPlan:
+    """The GEMV's split of K for a (K, N) weight."""
+    if k <= 0 or n <= 0 or k % GEMV_G or n % 4:
+        raise ValueError(f"the GEMV needs K % {GEMV_G} == 0 and N % 4 == 0, "
+                         f"got K={k} N={n}")
+    strips = -(-n // GEMV_BN)
+    splits = max(1, min(GEMV_TARGET_BLOCKS // strips, k // GEMV_MIN_ROWS,
+                        GEMV_MAX_SPLITS))
+    rows = -(-k // splits)
+    rows += -rows % GEMV_G
+    return GemvPlan(k, n, strips, -(-k // rows), rows)
+
+
+@functools.lru_cache(maxsize=None)
+def gemv_launch(m: int, k: int, n: int):
+    """(plan, workspace f32 elements, counters) of one GEMV launch of m
+    rows: the plan does not depend on m, the scratch does (none for one
+    split)."""
+    plan = gemv_split_plan(k, n)
+    if plan.splits == 1:
+        return plan, 0, 0
+    return plan, plan.splits * m * n, -(-m // GEMV_MT) * plan.strips
+
+
+# (device index, stream) -> [workspace, counters]: kept between launches;
+# the kernel sets every counter back to 0, and launches on one stream run in
+# order, so each launch finds them as it needs them.
+_GEMV_SCRATCH = {}
+
+
+def _gemv_scratch(device, stream, work_elems, n_counters):
+    entry = _GEMV_SCRATCH.setdefault((device.index, stream), [None, None])
+    if entry[0] is None or entry[0].numel() < work_elems:
+        entry[0] = torch.empty(work_elems, dtype=torch.float32, device=device)
+    if entry[1] is None or entry[1].numel() < n_counters:
+        entry[1] = torch.zeros(n_counters, dtype=torch.int32, device=device)
+    return entry[0].data_ptr(), entry[1].data_ptr()
+
+
 @functools.lru_cache(maxsize=None)
 def _lib():
     """The w8a16 kernels' C entry points, built and bound once per
@@ -122,7 +199,8 @@ def _lib():
     gemv.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
                      ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                      ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                     ctypes.c_int, ctypes.c_void_p]
+                     ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
     mma.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
                     ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
@@ -193,9 +271,15 @@ def qmatmul_w8a16_on_path(path: str, x: torch.Tensor, w: torch.Tensor,
     out_bf16 = int(out_dtype == torch.bfloat16)
     act = ACTIVATIONS.index(activation)
     if path == "gemv":
+        plan, work_elems, n_counters = gemv_launch(m, k, n)
+        work = counters = None
+        if plan.splits > 1:
+            work, counters = _gemv_scratch(x.device, stream, work_elems,
+                                           n_counters)
         err = fn(x.data_ptr(), int(x.dtype == torch.bfloat16), w.data_ptr(),
                  w_scale.data_ptr(), bias_ptr, out.data_ptr(), out_bf16, m,
-                 k, n, act, stream)
+                 k, n, act, plan.splits, plan.split_rows, work, counters,
+                 stream)
     else:
         err = fn(x.data_ptr(), w.data_ptr(), w_scale.data_ptr(), bias_ptr,
                  out.data_ptr(), out_bf16, m, k, n, act, stream)

@@ -63,15 +63,24 @@ def test_qmatmul_kernel_matches_plain(cuda, x_dtype, out_dtype):
 
 
 def test_qmatmul_kernel_rows_are_batch_invariant(cuda):
-    g = torch.Generator(device=cuda).manual_seed(1)
-    q = quantize_weight(torch.randn((512, 64), generator=g, device=cuda))
-    w, s = q.values, q.scale.reshape(-1).contiguous()
-    x = torch.randn((11, 512), generator=g, device=cuda).to(torch.bfloat16)
-    full = K.qmatmul_w8a16(x, w, s, activation="gelu")
-    for i in range(11):
-        one = K.qmatmul_w8a16(x[i:i + 1].contiguous(), w, s,
-                              activation="gelu")
-        assert torch.equal(one[0], full[i])
+    """The GEMV's rows do not depend on M: the rows of an M = 11 launch
+    and of an M = 16 launch (two row slabs) equal the same rows launched
+    alone, on a narrow weight (one strip, K split in eight), wk|wv's
+    N = 256 and w_down's K = 12288 (K split across blocks and combined
+    in the last block to arrive)."""
+    for m, k, n in ((11, 512, 64), (16, 3072, 256), (16, 12288, 256)):
+        assert K.gemv_split_plan(k, n).splits > 1
+        g = torch.Generator(device=cuda).manual_seed(1 + k)
+        q = quantize_weight(torch.randn((k, n), generator=g, device=cuda))
+        w, s = q.values, q.scale.reshape(-1).contiguous()
+        x = torch.randn((m, k), generator=g, device=cuda).to(torch.bfloat16)
+        full = K.qmatmul_w8a16(x, w, s, activation="gelu")
+        for i in range(m):
+            one = K.qmatmul_w8a16(x[i:i + 1].contiguous(), w, s,
+                                  activation="gelu")
+            assert torch.equal(one[0], full[i]), (m, k, n, i)
+        assert torch.equal(K.qmatmul_w8a16(x[:8].contiguous(), w, s,
+                                           activation="gelu"), full[:8])
 
 
 # the mma path's edges: M one past 16-, 32- and 128-row tiles, K % 64 ==
@@ -405,6 +414,8 @@ FLASH_CASES = [
     (2, 33, 33, 16, True, 5, 20),
     (24, 32, 32, 128, True, None, None),          # the service curve's
     (2, 200, 200, 128, True, None, None),         # several tiles each way
+    (3, 45, 45, 24, True, None, None),            # hd not a multiple of 16
+    (2, 50, 75, 64, False, 20, None),             # Skv not a multiple of 32
 ]
 
 
@@ -412,7 +423,7 @@ FLASH_CASES = [
 @pytest.mark.parametrize("bh,sq,skv,hd,causal,window,kv_len", FLASH_CASES)
 def test_flash_kernel_matches_plain(cuda, bh, sq, skv, hd, causal, window,
                                     kv_len, out_dtype):
-    """bf16 inputs.  The kernel's online softmax over 64-key tiles against
+    """bf16 inputs.  The kernel's online softmax over 32-key tiles against
     the plain version's dense f32 softmax: the same terms in other orders,
     2e-5 relative and absolute in f32 (as the JAX package holds its kernel
     to its oracle), one bf16 ulp in bf16."""
