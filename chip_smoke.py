@@ -29,7 +29,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
    16-token prompt prefix), counters zeroed just before and read just
    after (again no mma launch); prefix blocks must be shared, none leaked,
    and three requests (one that shared) equal the contiguous sequential
-   reference;
+   reference; then the steady tick at a long context (``max_seq`` 4,096,
+   8 rows at 2,048), contiguous and paged, with the decode attention
+   kernels' share of its device time;
 5. serve: the serve launcher (``repro_torch.launch.serve.run``) at full
    starcoder2-3b width with the bf16 KV cache, once with ``--quant w8a16``
    and once with ``--quant w8a8``: the service curve through the
@@ -55,13 +57,25 @@ the tensor-core kernel's bf16 rows equal to the __dp4a kernel's) and
 ``flash_attention_bhsd`` (the service curve's shapes, plus a window and a
 ``kv_len < Skv`` case) against their plain versions, and times them;
 ``qmatmul_w8a8``'s two kernels are timed at M = 8, 16, 32, 64 and 512.
-Then ``rmsnorm``'s rows at d = 3072 are checked bitwise at B = 1, 8 and
-16.  The tick breakdowns check that a tick launches 181 ``qmatmul_w8a16``
-GEMVs and no more ``cudaLaunchKernel`` calls than before the GEMV's
-split-K redesign.
+The two decode attention kernels are held and timed at the slot tick's
+shapes and at a long-context case (8 ragged rows of a 4,096-slot cache,
+paged: blocks of 16), beside their times before the split redesign; every
+row of every case is checked bitwise equal launched alone and in its
+batch, in a 48- and a 4,096-slot cache (paged: through 4- and 256-entry
+tables), and at valid_len on either side of the split's chunk and tile
+edges.  Then ``rmsnorm``'s rows at d = 3072 are checked bitwise at B = 1,
+8 and 16.  The tick breakdowns check that a tick launches 181
+``qmatmul_w8a16`` GEMVs and no more ``cudaLaunchKernel`` calls than before
+the redesigns.
+
+``--only attention`` / ``--only long_tick`` run just the two attention
+kernel phases or the long-context ticks, and ``--src DIR`` takes the port
+from another checkout's ``src/`` (so the same phases time a parent
+commit's kernels); such a partial run prints no result line.
 
 It prints the card's name and power limit, a JSON line with every
-kernel's numbers (qmatmul_w8a16's with both paths under ``paths``), and,
+kernel's numbers (qmatmul_w8a16's with both paths under ``paths``, the
+attention kernels' long-context case under ``long_context``), and,
 last, ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
 without the repo's ``src/repro_torch`` beside it, it exits non-zero and
 prints no result.
@@ -131,11 +145,30 @@ BF16_OPS_PER_S = 989e12          # dense bf16 tensor-core peak
 INT8_OPS_PER_S = 1979e12         # dense int8 tensor-core peak
 L2_FLUSH_BYTES = 128 << 20       # > the 50 MB L2: every launch starts cold
 
-# the GEMV's and flash attention's times before their split-K and
-# tensor-core redesigns, and the tick's launches then, which the redesign
-# must not grow (PERF.md §5-6: chip_smoke runs 1 / 2 on an NVIDIA H100
-# 80GB HBM3 at 700.00 W), printed beside this run's
-BEFORE_MS = {"gemv_tick": "6.005 / 5.968", "flash_forward": "0.853 / 0.852"}
+# the decode attention kernels' long-context case: 8 ragged rows of a
+# 4,096-slot cache (paged: blocks of 16, 256 per row), a row at each of the
+# split's shapes and an empty one
+LONG_SLOTS = 4096
+LONG_VALID = [4096, 4095, 3000, 2048, 1024, 517, 129, 0]
+# valid_len just before, at and after the split's chunk and tile edges
+BOUNDARY_VALID = [15, 16, 17, 63, 64, 65, 255, 256, 257, 1023, 1024, 1025]
+
+# the times before each kernel's redesign, printed beside this run's: the
+# GEMV's and flash attention's before their split-K and tensor-core
+# redesigns and the decode attention kernels' per slot tick before their
+# split (PERF.md §5-6: two chip_smoke runs of the commit before each
+# redesign); the decode attention kernels' per long-context launch and the
+# long ticks before the split (`chip_smoke.py --src <parent>/src --only
+# attention --only long_tick` on a `git archive` of the commit before it,
+# two runs); all on an NVIDIA H100 80GB HBM3 at 700.00 W; and the tick's
+# launches, which no redesign may grow
+BEFORE_MS = {"gemv_tick": "6.005 / 5.968", "flash_forward": "0.853 / 0.852",
+             "attention_tick": "0.650 / 0.655",
+             "paged_attention_tick": "0.735 / 0.745",
+             "attention_long": "0.6813 / 0.6836",
+             "paged_attention_long": "0.7931 / 0.7902"}
+BEFORE_LONG_TICK = {"long tick": "10.500 / 10.495 ms of 17.670 / 17.656",
+                    "long paged tick": "12.124 / 12.106 ms of 19.305 / 19.279"}
 BEFORE_TICK_LAUNCH_CALLS = {"tick": 1659, "paged tick": 1665}
 
 KERNELS = {
@@ -408,190 +441,299 @@ def qmatmul_phase(flush):
                        for path in K.W8A16_PATHS}
 
 
-def attention_phase(flush, s_slots: int):
+def _attn_cache(gen, shape):
+    """A random int8 K/V cache of ``shape`` (..., KV, hd) and its f32
+    per-(slot, head) scales (..., KV, 1)."""
+    import torch
+    k, v = (torch.randint(-127, 128, shape, generator=gen, device="cuda",
+                          dtype=torch.int8) for _ in range(2))
+    ks, vs = (torch.rand(shape[:-1] + (1,), generator=gen, device="cuda")
+              * 0.02 + 1e-3 for _ in range(2))
+    return k, v, ks, vs
+
+
+def _attn_close(label, out, ref) -> float:
+    """max |out - ref|, after checking the shape, finiteness and the
+    tolerance: f32 online softmax (split into chunks, the products on the
+    tensor cores with exact bf16 terms) against a dense softmax -- the
+    same terms in another order and another exp per running max: 1e-4
+    relative + 1e-5 absolute."""
+    import torch
+    torch.cuda.synchronize()
+    if out.shape != ref.shape or not torch.isfinite(out).all():
+        raise AssertionError(f"{label}: bad output")
+    err = float((out - ref).abs().max())
+    if not bool(((out - ref).abs() <= 1e-4 * ref.abs() + 1e-5).all()):
+        raise AssertionError(f"{label}: kernel disagrees with its plain "
+                             f"version beyond tolerance (max err {err})")
+    return err
+
+
+def _rows_alone(label, out, launch_row, b) -> None:
+    """Each row of a batch launch bitwise equal to the row launched alone:
+    the engine's parity with its batch-1 reference needs it."""
+    import torch
+    for r in range(b):
+        if not torch.equal(launch_row(r), out[r:r + 1]):
+            raise AssertionError(f"{label}: row {r} launched alone differs "
+                                 f"from the row in the batch")
+
+
+def _attn_numbers(label, b, vls, append, err, ms, plain, lib, q, extra_bytes,
+                  before=None):
+    """Print one case's line; return its times and bound (ms)."""
+    kvh, g, hd = q.shape[1:]
+    used = sum(vls)
+    nbytes = (q.numel() * 2 + used * kvh * (2 * hd + 2 * 4) + b * 4
+              + b * kvh * g * hd * 4 + extra_bytes
+              + (2 * b * kvh * hd * 4 if append else 0))
+    ops = 4 * (used + (b if append else 0)) * kvh * g * hd
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / BF16_OPS_PER_S * 1e3
+    bound = max(bytes_ms, ops_ms)
+    print(f"  {label} valid_len={vls} append={append} max_abs_err={err:.3e} "
+          f"ms={ms:.4f} plain_ms={plain:.4f} library_ms={lib:.4f} "
+          f"bound_ms={bound:.5f}"
+          + (f" (before the split redesign: {before})" if before else ""))
+    return {"ms": ms, "plain_ms": plain, "bound_ms": bound,
+            "library_ms": lib, "bytes_ms": bytes_ms, "ops_ms": ops_ms}
+
+
+def _sdpa_ms(flush, q, kd, vd, vl, s_slots):
+    """The yardstick: SDPA over K/V dequantized to bf16 beforehand, masked
+    per row."""
     import torch
     import torch.nn.functional as F
+    b, kvh, g, hd = q.shape
+    qd = q.reshape(b, kvh * g, 1, hd)
+    mask = (torch.arange(s_slots, device="cuda")[None, :]
+            < vl[:, None])[:, None, None, :]
+    return time_ms(lambda: F.scaled_dot_product_attention(
+        qd, kd, vd, attn_mask=mask, enable_gqa=True), 20, flush)
+
+
+def _per_tick(t):
+    return {key: 30 * val for key, val in t.items()}
+
+
+def attention_phase(flush, s_slots: int):
+    """The contiguous kernel at the slot tick's shapes (B = 8 ragged rows
+    of ``s_slots``, with and without the append column, and B = 1) and at
+    the long-context case (B = 8 ragged rows of LONG_SLOTS): against the
+    plain version, timed beside SDPA and the bound; each multi-row
+    launch's rows bitwise equal to the rows launched alone, rows bitwise
+    equal in a cache of ``s_slots`` and of LONG_SLOTS slots, and rows at
+    the split's chunk and tile edges (BOUNDARY_VALID)."""
+    import torch
     from repro_torch.kernels import decode_attention as A
 
     kvh, g, hd = 2, 12, 128
     gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
     ragged = [0, 1, 5, 17, s_slots - 1, s_slots, s_slots // 2, 12]
-    cases = [(NUM_SLOTS, ragged[:NUM_SLOTS], False),
-             (NUM_SLOTS, ragged[:NUM_SLOTS], True),
-             (1, [s_slots // 2 + 3], False),
-             (1, [0], True)]
-    tick = {}
+    cases = [(NUM_SLOTS, s_slots, ragged[:NUM_SLOTS], False),
+             (NUM_SLOTS, s_slots, ragged[:NUM_SLOTS], True),
+             (1, s_slots, [s_slots // 2 + 3], False),
+             (1, s_slots, [0], True),
+             (NUM_SLOTS, LONG_SLOTS, LONG_VALID, False)]
+    tick = long = {}
     worst = 0.0
-    for b, vls, append in cases:
+    for b, s, vls, append in cases:
         q = torch.randn((b, kvh, g, hd), generator=gen,
                         device="cuda").to(torch.bfloat16)
-        k = torch.randint(-127, 128, (b, s_slots, kvh, hd), generator=gen,
-                          device="cuda", dtype=torch.int8)
-        v = torch.randint(-127, 128, (b, s_slots, kvh, hd), generator=gen,
-                          device="cuda", dtype=torch.int8)
-        ks = torch.rand((b, s_slots, kvh, 1), generator=gen,
-                        device="cuda") * 0.02 + 1e-3
-        vs = torch.rand((b, s_slots, kvh, 1), generator=gen,
-                        device="cuda") * 0.02 + 1e-3
+        k, v, ks, vs = _attn_cache(gen, (b, s, kvh, hd))
         vl = torch.tensor(vls, dtype=torch.int32, device="cuda")
         kn = vn = None
         if append:
             kn = torch.randn((b, kvh, hd), generator=gen, device="cuda")
             vn = torch.randn((b, kvh, hd), generator=gen, device="cuda")
+        label = f"decode_attention_int8 B={b} S={s}"
         out = A.decode_attention_int8(q, k, v, ks, vs, vl, k_new=kn,
                                       v_new=vn)
         ref = A.decode_attention_int8_ref(q, k, v, ks, vs, vl, k_new=kn,
                                           v_new=vn)
-        torch.cuda.synchronize()
-        if out.shape != ref.shape or not torch.isfinite(out).all():
-            raise AssertionError(f"decode_attention B={b}: bad output")
-        # f32 online softmax vs dense softmax: same terms, other order and
-        # another exp per running max; tolerance 1e-4 relative + 1e-5 abs
-        err = float((out - ref).abs().max())
-        tol_ok = bool(((out - ref).abs()
-                       <= 1e-4 * ref.abs() + 1e-5).all())
+        err = _attn_close(label, out, ref)
         worst = max(worst, err)
+        _rows_alone(label, out, lambda r: A.decode_attention_int8(
+            q[r:r + 1], k[r:r + 1], v[r:r + 1], ks[r:r + 1], vs[r:r + 1],
+            vl[r:r + 1], k_new=None if kn is None else kn[r:r + 1],
+            v_new=None if vn is None else vn[r:r + 1]), b)
         ms = time_ms(lambda: A.decode_attention_int8(
             q, k, v, ks, vs, vl, k_new=kn, v_new=vn), 20, flush)
         plain = time_ms(lambda: A.decode_attention_int8_ref(
             q, k, v, ks, vs, vl, k_new=kn, v_new=vn), 3, flush)
-        # yardstick: SDPA over K/V dequantized beforehand, masked per row
-        kd = (k.float() * ks).to(torch.bfloat16).transpose(1, 2)
-        vd = (v.float() * vs).to(torch.bfloat16).transpose(1, 2)
-        qd = q.reshape(b, kvh * g, 1, hd)
-        mask = (torch.arange(s_slots, device="cuda")[None, :]
-                < vl[:, None])[:, None, None, :]
-        lib = time_ms(lambda: F.scaled_dot_product_attention(
-            qd, kd, vd, attn_mask=mask, enable_gqa=True), 20, flush)
-        used = sum(vls)
-        nbytes = (q.numel() * 2 + used * kvh * (2 * hd + 2 * 4) + b * 4
-                  + out.numel() * 4 + (2 * b * kvh * hd * 4 if append else 0))
-        ops = 4 * (used + (b if append else 0)) * kvh * g * hd
-        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-        ops_ms = ops / BF16_OPS_PER_S * 1e3
-        bound = max(bytes_ms, ops_ms)
-        print(f"  decode_attention_int8 B={b} S={s_slots} valid_len={vls} "
-              f"append={append} max_abs_err={err:.3e} ms={ms:.4f} "
-              f"plain_ms={plain:.4f} library_ms={lib:.4f} "
-              f"bound_ms={bound:.5f}")
-        if not tol_ok:
-            raise AssertionError(
-                f"decode_attention B={b} append={append}: kernel disagrees "
-                f"with its plain version beyond tolerance (max err {err})")
-        if b == NUM_SLOTS and not append:      # the slot tick's form
-            tick = {"ms": 30 * ms, "plain_ms": 30 * plain,
-                    "bound_ms": 30 * bound, "library_ms": 30 * lib,
-                    "bytes_ms": 30 * bytes_ms, "ops_ms": 30 * ops_ms}
+        lib = _sdpa_ms(flush, q, (k.float() * ks).to(torch.bfloat16)
+                       .transpose(1, 2), (v.float() * vs).to(torch.bfloat16)
+                       .transpose(1, 2), vl, s)
+        long_case = s == LONG_SLOTS
+        before = (BEFORE_MS["attention_long"] if long_case
+                  else BEFORE_MS["attention_tick"]
+                  if b == NUM_SLOTS and not append else None)
+        t = _attn_numbers(label, b, vls, append, err, ms, plain, lib, q, 0,
+                          before)
+        if long_case:
+            long = t
+        elif b == NUM_SLOTS and not append:      # the slot tick's form
+            tick = _per_tick(t)
+            # capacity: the same rows, the same data, in a LONG_SLOTS cache
+            big = [torch.zeros((b, LONG_SLOTS) + c.shape[2:], dtype=c.dtype,
+                               device="cuda") for c in (k, v, ks, vs)]
+            for dst, src in zip(big, (k, v, ks, vs)):
+                dst[:, :s] = src
+            if not torch.equal(A.decode_attention_int8(q, *big, vl), out):
+                raise AssertionError(f"{label}: rows differ in a "
+                                     f"{LONG_SLOTS}-slot cache")
+    print(f"  decode_attention_int8 per slot tick (30 launches, B={NUM_SLOTS}"
+          f", S={s_slots}): ms={tick['ms']:.4f} library_ms="
+          f"{tick['library_ms']:.4f} (before the split redesign: "
+          f"{BEFORE_MS['attention_tick']}); long context (B={NUM_SLOTS}, "
+          f"S={LONG_SLOTS}) per launch: ms={long['ms']:.4f} library_ms="
+          f"{long['library_ms']:.4f} (before: {BEFORE_MS['attention_long']})")
+    # the split's edges: rows ending just before, at and after a chunk or
+    # tile boundary, within tolerance and each equal to itself alone
+    b, s = len(BOUNDARY_VALID), max(BOUNDARY_VALID) + 11
+    q = torch.randn((b, kvh, g, hd), generator=gen,
+                    device="cuda").to(torch.bfloat16)
+    k, v, ks, vs = _attn_cache(gen, (b, s, kvh, hd))
+    vl = torch.tensor(BOUNDARY_VALID, dtype=torch.int32, device="cuda")
+    label = f"decode_attention_int8 boundaries B={b} S={s}"
+    out = A.decode_attention_int8(q, k, v, ks, vs, vl)
+    worst = max(worst, _attn_close(
+        label, out, A.decode_attention_int8_ref(q, k, v, ks, vs, vl)))
+    _rows_alone(label, out, lambda r: A.decode_attention_int8(
+        q[r:r + 1], k[r:r + 1], v[r:r + 1], ks[r:r + 1], vs[r:r + 1],
+        vl[r:r + 1]), b)
+    print(f"  {label} valid_len={BOUNDARY_VALID}: within tolerance; every "
+          f"row of every case bitwise equal alone and in its batch, and in "
+          f"a {LONG_SLOTS}-slot cache")
     A.decode_attention_int8.launches = 0
     A.decode_attention_int8_ref.calls = 0
-    return worst, tick
+    return worst, tick, long
+
+
+def _paged_tables(cpu_gen, vls, mb, nb, bs):
+    """Per-row tables of ``mb`` entries drawn at random from blocks 1 ..
+    nb - 1 (rows may share blocks, as prefix sharing makes them), trash
+    block 0 past each row's frontier."""
+    import torch
+    tables = torch.zeros((len(vls), mb), dtype=torch.int32)
+    for r, n in enumerate(vls):
+        used = -(-n // bs)
+        tables[r, :used] = torch.randperm(nb - 1, generator=cpu_gen)[:used] + 1
+    return tables.to("cuda")
 
 
 def paged_attention_phase(flush):
-    """The paged kernel at the paged slice's shapes: blocks of 16, 4 per
+    """The paged kernel at the paged slice's shapes -- blocks of 16, 4 per
     row (64 positions), the slice's 25-block pool, tables drawn at random
-    (rows may share blocks, as prefix sharing makes them) with trash
-    entries past each row's frontier."""
+    with trash entries past each row's frontier -- and at the long-context
+    case (bs 16, MB 256, 2,049 blocks): against the plain version, bitwise
+    against the contiguous kernel on the gathered view, timed beside SDPA
+    and the bound; rows bitwise equal alone and in the batch, with 4 and
+    with 256 table entries, and at the split's edges."""
     import torch
-    import torch.nn.functional as F
     from repro_torch.kernels import decode_attention as A
 
     kvh, g, hd, bs = 2, 12, 128, PAGED_BLOCK
     s_row = PAGED_PROMPT_LEN + MAX_NEW
-    mb, nb = s_row // bs, PAGED_NUM_BLOCKS
     gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
     cpu_gen = torch.Generator().manual_seed(SEED + 3)
     ragged = [0, 1, 5, 17, s_row - 1, s_row, s_row // 2, 12]
-    cases = [(NUM_SLOTS, ragged[:NUM_SLOTS], False),
-             (NUM_SLOTS, ragged[:NUM_SLOTS], True),
-             (1, [s_row // 2 + 3], False),
-             (1, [0], True)]
-    k = torch.randint(-127, 128, (nb, bs, kvh, hd), generator=gen,
-                      device="cuda", dtype=torch.int8)
-    v = torch.randint(-127, 128, (nb, bs, kvh, hd), generator=gen,
-                      device="cuda", dtype=torch.int8)
-    ks = torch.rand((nb, bs, kvh, 1), generator=gen, device="cuda") * 0.02 \
-        + 1e-3
-    vs = torch.rand((nb, bs, kvh, 1), generator=gen, device="cuda") * 0.02 \
-        + 1e-3
-    tick = {}
+    long_mb = LONG_SLOTS // bs
+    pools = {PAGED_NUM_BLOCKS: _attn_cache(gen, (PAGED_NUM_BLOCKS, bs, kvh,
+                                                 hd)),
+             NUM_SLOTS * long_mb + 1: _attn_cache(
+                 gen, (NUM_SLOTS * long_mb + 1, bs, kvh, hd))}
+    cases = [(NUM_SLOTS, s_row // bs, PAGED_NUM_BLOCKS, ragged[:NUM_SLOTS],
+              False),
+             (NUM_SLOTS, s_row // bs, PAGED_NUM_BLOCKS, ragged[:NUM_SLOTS],
+              True),
+             (1, s_row // bs, PAGED_NUM_BLOCKS, [s_row // 2 + 3], False),
+             (1, s_row // bs, PAGED_NUM_BLOCKS, [0], True),
+             (NUM_SLOTS, long_mb, NUM_SLOTS * long_mb + 1, LONG_VALID, False)]
+    tick = long = {}
     worst = 0.0
-    for b, vls, append in cases:
+    for b, mb, nb, vls, append in cases:
+        k, v, ks, vs = pools[nb]
         q = torch.randn((b, kvh, g, hd), generator=gen,
                         device="cuda").to(torch.bfloat16)
-        tables = torch.zeros((b, mb), dtype=torch.int32)
-        for r, n in enumerate(vls):
-            used = -(-n // bs)
-            tables[r, :used] = (torch.randperm(nb - 1, generator=cpu_gen)
-                                [:used] + 1)
-        tables = tables.to("cuda")
+        tables = _paged_tables(cpu_gen, vls, mb, nb, bs)
         vl = torch.tensor(vls, dtype=torch.int32, device="cuda")
         kn = vn = None
         if append:
             kn = torch.randn((b, kvh, hd), generator=gen, device="cuda")
             vn = torch.randn((b, kvh, hd), generator=gen, device="cuda")
+        label = f"decode_attention_int8_paged B={b} bs={bs} MB={mb} NB={nb}"
         out = A.decode_attention_int8_paged(q, k, v, ks, vs, vl, tables,
                                             k_new=kn, v_new=vn)
         ref = A.decode_attention_int8_paged_ref(q, k, v, ks, vs, vl, tables,
                                                 k_new=kn, v_new=vn)
+        err = _attn_close(label, out, ref)
+        worst = max(worst, err)
         gk, gv, gks, gvs = (A.paged_gather(c, tables).contiguous()
                             for c in (k, v, ks, vs))
-        same = None
-        if not append:
-            # the contiguous kernel on the gathered view: the same bits
-            same = torch.equal(out, A.decode_attention_int8(
-                q, gk, gv, gks, gvs, vl))
-        torch.cuda.synchronize()
-        if out.shape != ref.shape or not torch.isfinite(out).all():
-            raise AssertionError(f"paged decode_attention B={b}: bad "
-                                 f"output")
-        # the same tolerance as the contiguous kernel's, for the same reason
-        err = float((out - ref).abs().max())
-        tol_ok = bool(((out - ref).abs()
-                       <= 1e-4 * ref.abs() + 1e-5).all())
-        worst = max(worst, err)
+        # the contiguous kernel on the gathered view: the same bits
+        if not torch.equal(out, A.decode_attention_int8(
+                q, gk, gv, gks, gvs, vl, k_new=kn, v_new=vn)):
+            raise AssertionError(f"{label}: not bitwise equal to the "
+                                 f"contiguous kernel on the gathered view")
+        _rows_alone(label, out, lambda r: A.decode_attention_int8_paged(
+            q[r:r + 1], k, v, ks, vs, vl[r:r + 1], tables[r:r + 1],
+            k_new=None if kn is None else kn[r:r + 1],
+            v_new=None if vn is None else vn[r:r + 1]), b)
         ms = time_ms(lambda: A.decode_attention_int8_paged(
             q, k, v, ks, vs, vl, tables, k_new=kn, v_new=vn), 20, flush)
         plain = time_ms(lambda: A.decode_attention_int8_paged_ref(
             q, k, v, ks, vs, vl, tables, k_new=kn, v_new=vn), 3, flush)
-        # yardstick: SDPA over K/V gathered and dequantized beforehand
-        kd = (gk.float() * gks).to(torch.bfloat16).transpose(1, 2)
-        vd = (gv.float() * gvs).to(torch.bfloat16).transpose(1, 2)
-        qd = q.reshape(b, kvh * g, 1, hd)
-        mask = (torch.arange(mb * bs, device="cuda")[None, :]
-                < vl[:, None])[:, None, None, :]
-        lib = time_ms(lambda: F.scaled_dot_product_attention(
-            qd, kd, vd, attn_mask=mask, enable_gqa=True), 20, flush)
-        used = sum(vls)
-        nbytes = (q.numel() * 2 + used * kvh * (2 * hd + 2 * 4)
-                  + tables.numel() * 4 + b * 4 + out.numel() * 4
-                  + (2 * b * kvh * hd * 4 if append else 0))
-        ops = 4 * (used + (b if append else 0)) * kvh * g * hd
-        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-        ops_ms = ops / BF16_OPS_PER_S * 1e3
-        bound = max(bytes_ms, ops_ms)
-        print(f"  decode_attention_int8_paged B={b} bs={bs} MB={mb} NB={nb} "
-              f"valid_len={vls} append={append} max_abs_err={err:.3e} "
-              f"bitwise_vs_contiguous={same} ms={ms:.4f} "
-              f"plain_ms={plain:.4f} library_ms={lib:.4f} "
-              f"bound_ms={bound:.5f}")
-        if not tol_ok:
-            raise AssertionError(
-                f"paged decode_attention B={b} append={append}: kernel "
-                f"disagrees with its plain version beyond tolerance (max "
-                f"err {err})")
-        if same is False:
-            raise AssertionError(
-                f"paged decode_attention B={b}: not bitwise equal to the "
-                f"contiguous kernel on the gathered view")
-        if b == NUM_SLOTS and not append:      # the paged slot tick's form
-            tick = {"ms": 30 * ms, "plain_ms": 30 * plain,
-                    "bound_ms": 30 * bound, "library_ms": 30 * lib,
-                    "bytes_ms": 30 * bytes_ms, "ops_ms": 30 * ops_ms}
+        lib = _sdpa_ms(flush, q, (gk.float() * gks).to(torch.bfloat16)
+                       .transpose(1, 2), (gv.float() * gvs)
+                       .to(torch.bfloat16).transpose(1, 2), vl, mb * bs)
+        long_case = mb == long_mb
+        before = (BEFORE_MS["paged_attention_long"] if long_case
+                  else BEFORE_MS["paged_attention_tick"]
+                  if b == NUM_SLOTS and not append else None)
+        t = _attn_numbers(label, b, vls, append, err, ms, plain, lib, q,
+                          tables.numel() * 4, before)
+        if long_case:
+            long = t
+        elif b == NUM_SLOTS and not append:      # the paged slot tick's form
+            tick = _per_tick(t)
+            # capacity: the same rows through tables of long_mb entries
+            wide = torch.zeros((b, long_mb), dtype=torch.int32,
+                               device="cuda")
+            wide[:, :mb] = tables
+            if not torch.equal(A.decode_attention_int8_paged(
+                    q, k, v, ks, vs, vl, wide), out):
+                raise AssertionError(f"{label}: rows differ through "
+                                     f"{long_mb}-entry tables")
+    print(f"  decode_attention_int8_paged per slot tick (30 launches, "
+          f"B={NUM_SLOTS}): ms={tick['ms']:.4f} library_ms="
+          f"{tick['library_ms']:.4f} (before the split redesign: "
+          f"{BEFORE_MS['paged_attention_tick']}); long context (B="
+          f"{NUM_SLOTS}, MB={long_mb}) per launch: ms={long['ms']:.4f} "
+          f"library_ms={long['library_ms']:.4f} (before: "
+          f"{BEFORE_MS['paged_attention_long']})")
+    b = len(BOUNDARY_VALID)
+    mb = -(-max(BOUNDARY_VALID) // bs)
+    nb = b * mb + 1
+    k, v, ks, vs = _attn_cache(gen, (nb, bs, kvh, hd))
+    q = torch.randn((b, kvh, g, hd), generator=gen,
+                    device="cuda").to(torch.bfloat16)
+    tables = _paged_tables(cpu_gen, BOUNDARY_VALID, mb, nb, bs)
+    vl = torch.tensor(BOUNDARY_VALID, dtype=torch.int32, device="cuda")
+    label = f"decode_attention_int8_paged boundaries B={b} MB={mb}"
+    out = A.decode_attention_int8_paged(q, k, v, ks, vs, vl, tables)
+    worst = max(worst, _attn_close(label, out, A.decode_attention_int8_paged_ref(
+        q, k, v, ks, vs, vl, tables)))
+    _rows_alone(label, out, lambda r: A.decode_attention_int8_paged(
+        q[r:r + 1], k, v, ks, vs, vl[r:r + 1], tables[r:r + 1]), b)
+    print(f"  {label} valid_len={BOUNDARY_VALID}: within tolerance; every "
+          f"row of every case bitwise equal alone and in its batch, to the "
+          f"contiguous kernel on the gathered view, and through "
+          f"{long_mb}-entry tables")
     A.decode_attention_int8.launches = 0
     A.decode_attention_int8_paged.launches = 0
     A.decode_attention_int8_paged_ref.calls = 0
-    return worst, tick
+    return worst, tick, long
 
 
 def w8a8_check(label, x, w, xs, ws, bias, act):
@@ -1008,7 +1150,7 @@ def slice_phase(cfg, params):
         raise AssertionError(f"the CUDA path reached a plain version: "
                              f"{plain_calls}")
     check_served("slice", cfg, rep, reqs)
-    tick_breakdown(cfg, params, eng)
+    tick_breakdown(cfg, params, eng.num_slots, eng.max_seq)
     compare_with_reference("slice", cfg, params, eng, reqs[:N_COMPARE],
                            rep.outputs())
     return launches
@@ -1069,7 +1211,8 @@ def paged_slice_phase(cfg, params):
         raise AssertionError(f"block accounting: peak "
                              f"{rep.peak_blocks_used}, leaked "
                              f"{rep.leaked_blocks}")
-    tick_breakdown(cfg, params, eng, paged=True)
+    tick_breakdown(cfg, params, eng.num_slots, eng.max_seq,
+                   eng.block_size, label="paged tick")
     # the first request that shared a prefix block, and the first others
     sharer = min(r.rid for r in rep.results if r.shared_blocks)
     rids = [sharer] + [r.rid for r in rep.results
@@ -1184,11 +1327,13 @@ def torch_cuda_empty() -> None:
     torch.cuda.empty_cache()
 
 
-def device_breakdown(label: str, what: str, fn, reps: int) -> None:
+def device_breakdown(label: str, what: str, fn, reps: int):
     """Where one call of ``fn`` spends its time: host wall clock per call
     (each ending in a wait for the card) over ``reps`` calls, then the
     device's busy time, its largest kernels and the host's largest ops
-    from torch.profiler over ``reps`` more."""
+    from torch.profiler over ``reps`` more.  Returns (cudaLaunchKernel
+    calls, device busy ms, {kernel: device ms}) per call; busy is None
+    where the profiler reported no device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1217,7 +1362,7 @@ def device_breakdown(label: str, what: str, fn, reps: int) -> None:
     if dev_us <= 0:
         print(f"{label}: {what} wall {wall_ms:.2f} ms, device busy not "
               f"measured (the profiler reported no device time)")
-        return launch_calls
+        return launch_calls, None, {}
     busy_ms = dev_us / 1e3 / reps
     print(f"{label}: {what} wall {wall_ms:.2f} ms, device busy "
           f"{busy_ms:.3f} ms ({100 * busy_ms / wall_ms:.1f}%), idle "
@@ -1232,36 +1377,37 @@ def device_breakdown(label: str, what: str, fn, reps: int) -> None:
                               for e in host), reverse=True)[:8]:
         print(f"  host time per call {us / 1e3 / reps:.3f} ms in "
               f"{n // reps} calls: {key[:60]}")
-    return launch_calls
+    return launch_calls, busy_ms, {e.key: e.self_device_time_total / 1e3 / reps
+                                   for e in events}
 
 
-def tick_breakdown(cfg, params, eng, ticks: int = 10,
-                   paged: bool = False) -> None:
+def tick_breakdown(cfg, params, num_slots: int, max_seq: int,
+                   block_size: int = 0, ticks: int = 10,
+                   label: str = "tick") -> None:
     """Where one steady-state slot tick's time goes: all slots active at a
-    mid-sequence position.  ``paged``: the same tick on a paged cache,
-    every slot's row on blocks of its own (the default pool of
-    ``num_slots * max_blocks + 1`` blocks)."""
+    mid-sequence position.  ``block_size``: the same tick on a paged
+    cache, every slot's row on blocks of its own (a pool of
+    ``num_slots * max_seq / block_size + 1`` blocks)."""
     import torch
     from repro_torch.core.qlinear import W8A16
     from repro_torch.models import registry as R
     from repro_torch.runtime import steps as ST
 
-    S = eng.num_slots
+    S = num_slots
     step = ST.make_slot_decode_step(cfg, mode=W8A16)
     with torch.inference_mode():
-        if paged:
-            mb = eng.max_blocks
-            cache = R.init_paged_cache(cfg, S, eng.max_seq, eng.block_size,
+        if block_size:
+            mb = max_seq // block_size
+            cache = R.init_paged_cache(cfg, S, max_seq, block_size,
                                        S * mb + 1, device="cuda")
             cache["block_tables"].copy_(torch.arange(
                 1, S * mb + 1, dtype=torch.int32).reshape(S, mb))
         else:
-            cache = R.init_cache(cfg, S, eng.max_seq, device="cuda")
+            cache = R.init_cache(cfg, S, max_seq, device="cuda")
         toks = torch.ones((S, 1), dtype=torch.int32, device="cuda")
-        idx = torch.full((S,), eng.max_seq // 2, dtype=torch.int32,
+        idx = torch.full((S,), max_seq // 2, dtype=torch.int32,
                          device="cuda")
         active = torch.ones((S,), dtype=torch.bool, device="cuda")
-    label = "paged tick" if paged else "tick"
     zero_counts()
     with torch.inference_mode():
         step(params, toks, cache, idx, active)[0].cpu()
@@ -1274,15 +1420,36 @@ def tick_breakdown(cfg, params, eng, ticks: int = 10,
     if (launches["qmatmul_w8a16[gemv]"] != per_tick
             or launches["qmatmul_w8a16[mma]"]):
         raise AssertionError(f"{label}: {launches}")
-    calls = device_breakdown(
-        label, f"steady-state slot tick ({S} active rows)",
+    calls, busy, by_kernel = device_breakdown(
+        label, f"steady-state slot tick ({S} active rows at position "
+        f"{max_seq // 2} of {max_seq})",
         lambda: step(params, toks, cache, idx, active)[0].cpu(), ticks)
+    limit = BEFORE_TICK_LAUNCH_CALLS["paged tick" if block_size else "tick"]
     print(f"{label}: cudaLaunchKernel calls per tick {calls:.0f} (before "
-          f"the redesign: {BEFORE_TICK_LAUNCH_CALLS[label]})")
-    if calls > BEFORE_TICK_LAUNCH_CALLS[label]:
+          f"the redesigns: {limit})")
+    if calls > limit:
         raise AssertionError(f"{label}: {calls} cudaLaunchKernel calls per "
-                             f"tick, more than before the redesign: "
-                             f"{BEFORE_TICK_LAUNCH_CALLS[label]}")
+                             f"tick, more than before the redesigns: "
+                             f"{limit}")
+    if busy is not None:
+        attn = sum(ms for key, ms in by_kernel.items()
+                   if "decode_attention_int8" in key)
+        print(f"{label}: decode attention {attn:.3f} ms of the tick's "
+              f"{busy:.3f} ms of device time ({100 * attn / busy:.1f}%)"
+              + (f"; before the split redesign: {BEFORE_LONG_TICK[label]}"
+                 if label in BEFORE_LONG_TICK else ""))
+    del cache
+    torch_cuda_empty()
+
+
+def long_tick_phase(cfg, params) -> None:
+    """The steady tick at a context users run: max_seq LONG_SLOTS, all
+    NUM_SLOTS rows at LONG_SLOTS / 2, contiguous and paged (blocks of
+    PAGED_BLOCK).  The cache is zeroed, which does not change the
+    kernels' times."""
+    tick_breakdown(cfg, params, NUM_SLOTS, LONG_SLOTS, label="long tick")
+    tick_breakdown(cfg, params, NUM_SLOTS, LONG_SLOTS, PAGED_BLOCK,
+                   label="long paged tick")
 
 
 def forward_breakdown(label: str, res) -> None:
@@ -1298,16 +1465,35 @@ def forward_breakdown(label: str, res) -> None:
                      f"tokens", lambda: prefill(res.params, batch), 3)
 
 
-def main() -> int:
+PHASES = ("attention", "long_tick")
+
+
+def parse_args(argv):
+    import argparse
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--src", type=Path, default=SRC,
+                    help="the directory holding repro_torch (default: the "
+                         "checkout's src/); another checkout's src/ runs "
+                         "its kernels under this script's phases")
+    ap.add_argument("--only", choices=PHASES, action="append",
+                    help="run only this phase (repeatable): the two decode "
+                         "attention kernel phases, or the long-context "
+                         "ticks; prints no result line")
+    return ap.parse_args(argv)
+
+
+def main(argv=None) -> int:
+    args = parse_args(sys.argv[1:] if argv is None else argv)
     try:
         import torch
     except ImportError:
         return fail("PyTorch is not installed")
     if not torch.cuda.is_available():
         return fail("no CUDA device")
-    if not (SRC / "repro_torch").is_dir():
-        return fail(f"the port's sources are missing under {SRC}")
-    sys.path.insert(0, str(SRC))
+    src = args.src.resolve()
+    if not (src / "repro_torch").is_dir():
+        return fail(f"the port's sources are missing under {src}")
+    sys.path.insert(0, str(src))
     from repro_torch.kernels import _build
 
     smi = subprocess.run(
@@ -1339,11 +1525,23 @@ def main() -> int:
         warm @ warm
     torch.cuda.synchronize()
     del warm
+    max_seq = PROMPT_LEN + MAX_NEW
+    if args.only:
+        print(f"partial run of {src}: {', '.join(args.only)}")
+        if "attention" in args.only:
+            attention_phase(flush, max_seq + (-max_seq) % 16)
+            paged_attention_phase(flush)
+        del flush_buf
+        if "long_tick" in args.only:
+            cfg, params = build_model()
+            long_tick_phase(cfg, params)
+        print("chip_smoke: partial run passed; no result line")
+        return 0
     print("kernels: each CUDA kernel against its plain version on the card")
     q_err, q_paths = qmatmul_phase(flush)
-    max_seq = PROMPT_LEN + MAX_NEW
-    a_err, a_tick = attention_phase(flush, max_seq + (-max_seq) % 16)
-    p_err, p_tick = paged_attention_phase(flush)
+    a_err, a_tick, a_long = attention_phase(flush,
+                                            max_seq + (-max_seq) % 16)
+    p_err, p_tick, p_long = paged_attention_phase(flush)
     w8_err, w8_fwd, w8_lib = qmatmul_w8a8_phase(flush)
     f_err, f_fwd = flash_phase(flush)
     del flush_buf
@@ -1355,6 +1553,7 @@ def main() -> int:
     cfg, params = build_model()
     launches = slice_phase(cfg, params)
     paged_launches = paged_slice_phase(cfg, params)
+    long_tick_phase(cfg, params)
     del params
     torch_cuda_empty()
     serve_launches = serve_phase()
@@ -1406,6 +1605,10 @@ def main() -> int:
             "launches": n, "max_abs_err": err, **numbers(tick),
             "basis": basis})
     kernels[0]["paths"] = w8a16_paths
+    for row, t in ((kernels[1], a_long), (kernels[2], p_long)):
+        row["long_context"] = {
+            **numbers(t), "basis": f"one launch of {NUM_SLOTS} rows of "
+            f"valid_len {LONG_VALID} ({LONG_SLOTS}-slot rows)"}
     for k in kernels + list(w8a16_paths.values()):
         for key in ("ms", "plain_ms", "bound_ms", "library_ms"):
             if not math.isfinite(k[key]):

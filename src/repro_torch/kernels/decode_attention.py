@@ -7,7 +7,11 @@ Hopper port of the Pallas TPU kernel
 ``decode_attention_int8_paged`` launches
 ``csrc/decode_attention_int8_paged.cu``, the port of
 ``::decode_attention_int8_paged``.  Both share one kernel body
-(``csrc/decode_attention_int8.cuh``).  A wrapper takes CUDA tensors only,
+(``csrc/decode_attention_int8.cuh``), which cuts each row's valid slots
+into at most ``DECODE_NSPLIT`` chunks (:func:`decode_chunk_bounds`), one
+block each, and combines the chunks in chunk order in the same launch,
+through a workspace and counters kept per (device, stream)
+(``kernels/scratch.py``).  A wrapper takes CUDA tensors only,
 checks them, allocates the f32 output, launches on the current stream and
 raises if the launch was refused.  Each launch adds one to its
 ``.launches``.
@@ -38,11 +42,34 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, scratch
 
 NEG_INF = -1e30
-MAX_G = 16          # query heads per kv head the kernel holds in registers
-MAX_HD = 128        # head_dim: one thread per column
+MAX_G = 16          # query heads per kv head: one m16 tile of the products
+MAX_HD = 128        # head_dim: the width of the kernel's tiles
+
+# The kernels' split of a row's slots (csrc/decode_attention_int8.cuh:
+# NSPLIT, CHUNK_ALIGN): at most DECODE_NSPLIT chunks, each a multiple of
+# DECODE_CHUNK_ALIGN slots long.
+DECODE_NSPLIT = 16
+DECODE_CHUNK_ALIGN = 64
+
+
+def decode_chunk_bounds(valid_len: int):
+    """The chunks ``[(start, end), ...]`` that the kernels cut a row with
+    ``valid_len`` valid slots into, in the order they are combined: chunks
+    of ``roundup(ceil(valid_len / DECODE_NSPLIT), DECODE_CHUNK_ALIGN)``
+    slots, the last one shorter, and one empty chunk for an empty row.  A
+    function of ``valid_len`` alone -- never of the batch, the cache's
+    capacity or its block size -- so a row's bits do not depend on them.
+    The kernels compute the same bounds on the device; this function
+    documents them and is what the tests check."""
+    vl = max(int(valid_len), 0)
+    if vl == 0:
+        return [(0, 0)]
+    per = -(-vl // DECODE_NSPLIT)
+    length = -(-per // DECODE_CHUNK_ALIGN) * DECODE_CHUNK_ALIGN
+    return [(s, min(vl, s + length)) for s in range(0, vl, length)]
 
 
 def _attend_rows(q, k, v, ks, vs, vl, k_new, v_new, sm_scale):
@@ -131,9 +158,9 @@ decode_attention_int8_paged_ref.calls = 0
 _PTR, _INT = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = {
     "decode_attention_int8":
-        [_PTR, _INT] + [_PTR] * 8 + [_INT] * 5 + [ctypes.c_float, _PTR],
+        [_PTR, _INT] + [_PTR] * 10 + [_INT] * 5 + [ctypes.c_float, _PTR],
     "decode_attention_int8_paged":
-        [_PTR, _INT] + [_PTR] * 9 + [_INT] * 6 + [ctypes.c_float, _PTR],
+        [_PTR, _INT] + [_PTR] * 11 + [_INT] * 6 + [ctypes.c_float, _PTR],
 }
 
 
@@ -193,6 +220,16 @@ def _check(name: str, q, k, v, k_scale, v_scale, valid_len, k_new, v_new,
     return k_new, v_new
 
 
+def _scratch(q: torch.Tensor, stream: int):
+    """The split's workspace (one (acc, m, l) partial per chunk of each
+    (row, kv head), rounded up to whole float4s) and counters (one per
+    (row, kv head))."""
+    b, kvh, g, hd = q.shape
+    partial = -(-g * (hd + 2) // 4) * 4
+    return scratch.get(q.device, stream, b * kvh * DECODE_NSPLIT * partial,
+                       b * kvh)
+
+
 def decode_attention_int8(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           k_scale: torch.Tensor, v_scale: torch.Tensor,
                           valid_len: torch.Tensor, *,
@@ -215,12 +252,14 @@ def decode_attention_int8(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     sm_scale = hd ** -0.5 if sm_scale is None else sm_scale
     fn = _lib("decode_attention_int8")
     stream = torch.cuda.current_stream(q.device).cuda_stream
+    work, counters = _scratch(q, stream)
     err = fn(q.data_ptr(), int(q.dtype == torch.bfloat16), k.data_ptr(),
              v.data_ptr(), k_scale.data_ptr(), v_scale.data_ptr(),
              valid_len.data_ptr(),
              k_new.data_ptr() if k_new is not None else None,
              v_new.data_ptr() if v_new is not None else None,
-             out.data_ptr(), b, s_slots, kvh, g, hd, float(sm_scale), stream)
+             out.data_ptr(), work, counters, b, s_slots, kvh, g, hd,
+             float(sm_scale), stream)
     if err:
         raise RuntimeError(
             f"decode_attention_int8 launch failed: CUDA error {err}")
@@ -263,12 +302,14 @@ def decode_attention_int8_paged(q: torch.Tensor, k: torch.Tensor,
     sm_scale = hd ** -0.5 if sm_scale is None else sm_scale
     fn = _lib("decode_attention_int8_paged")
     stream = torch.cuda.current_stream(q.device).cuda_stream
+    work, counters = _scratch(q, stream)
     err = fn(q.data_ptr(), int(q.dtype == torch.bfloat16), k.data_ptr(),
              v.data_ptr(), k_scale.data_ptr(), v_scale.data_ptr(),
              valid_len.data_ptr(), block_tables.data_ptr(),
              k_new.data_ptr() if k_new is not None else None,
              v_new.data_ptr() if v_new is not None else None,
-             out.data_ptr(), b, mb, bs, kvh, g, hd, float(sm_scale), stream)
+             out.data_ptr(), work, counters, b, mb, bs, kvh, g, hd,
+             float(sm_scale), stream)
     if err:
         raise RuntimeError(
             f"decode_attention_int8_paged launch failed: CUDA error {err}")

@@ -39,7 +39,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, scratch
 
 ACTIVATIONS = ("none", "relu", "gelu", "silu", "tanh", "sigmoid")
 _FLOAT_TYPES = (torch.float32, torch.bfloat16)
@@ -175,21 +175,6 @@ def gemv_launch(m: int, k: int, n: int):
     return plan, plan.splits * m * n, -(-m // GEMV_MT) * plan.strips
 
 
-# (device index, stream) -> [workspace, counters]: kept between launches;
-# the kernel sets every counter back to 0, and launches on one stream run in
-# order, so each launch finds them as it needs them.
-_GEMV_SCRATCH = {}
-
-
-def _gemv_scratch(device, stream, work_elems, n_counters):
-    entry = _GEMV_SCRATCH.setdefault((device.index, stream), [None, None])
-    if entry[0] is None or entry[0].numel() < work_elems:
-        entry[0] = torch.empty(work_elems, dtype=torch.float32, device=device)
-    if entry[1] is None or entry[1].numel() < n_counters:
-        entry[1] = torch.zeros(n_counters, dtype=torch.int32, device=device)
-    return entry[0].data_ptr(), entry[1].data_ptr()
-
-
 @functools.lru_cache(maxsize=None)
 def _lib():
     """The w8a16 kernels' C entry points, built and bound once per
@@ -274,8 +259,8 @@ def qmatmul_w8a16_on_path(path: str, x: torch.Tensor, w: torch.Tensor,
         plan, work_elems, n_counters = gemv_launch(m, k, n)
         work = counters = None
         if plan.splits > 1:
-            work, counters = _gemv_scratch(x.device, stream, work_elems,
-                                           n_counters)
+            work, counters = scratch.get(x.device, stream, work_elems,
+                                         n_counters)
         err = fn(x.data_ptr(), int(x.dtype == torch.bfloat16), w.data_ptr(),
                  w_scale.data_ptr(), bias_ptr, out.data_ptr(), out_bf16, m,
                  k, n, act, plan.splits, plan.split_rows, work, counters,

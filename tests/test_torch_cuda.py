@@ -24,6 +24,7 @@ from repro_torch.core.quant import quantize_tree, quantize_weight
 from repro_torch.kernels import decode_attention as A
 from repro_torch.kernels import flash_attention as FA
 from repro_torch.kernels import qmatmul as K
+from repro_torch.kernels import scratch
 from repro_torch.models import layers as L
 from repro_torch.models import registry as R
 from repro_torch.runtime import steps as ST
@@ -302,6 +303,127 @@ def test_paged_kernel_bitwise_equals_contiguous_kernel(cuda, bs):
         q, g(k, tables).contiguous(), g(v, tables).contiguous(),
         g(ks, tables).contiguous(), g(vs, tables).contiguous(), vl)
     assert torch.equal(got, want)
+
+
+# valid_len just before, at and after the edges of the chunks and warp
+# tiles that the kernels split a row's slots into
+# (kernels/decode_attention.py::decode_chunk_bounds)
+SPLIT_EDGES = [0, 1, 15, 16, 17, 63, 64, 65, 255, 256, 257, 1023, 1024, 1025]
+
+
+def _split_case(cuda, seed, vls, cap, bs=16, kvh=2, g=12, hd=128):
+    """Rows of valid_len ``vls`` in a contiguous cache of ``cap`` slots,
+    and the same rows in a paged pool of blocks of ``bs`` (each row's
+    blocks at shuffled physical blocks, trash block 0 unused)."""
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    b, mb = len(vls), cap // bs
+    q = torch.randn((b, kvh, g, hd), generator=gen,
+                    device=cuda).to(torch.bfloat16)
+    cont = [torch.randint(-127, 128, (b, cap, kvh, hd), generator=gen,
+                          device=cuda, dtype=torch.int8) for _ in range(2)]
+    cont += [torch.rand((b, cap, kvh, 1), generator=gen, device=cuda) * 0.02
+             + 1e-3 for _ in range(2)]
+    nb = b * mb + 1
+    tables = (torch.randperm(nb - 1, generator=torch.Generator().manual_seed(
+        seed)) + 1).reshape(b, mb).to(torch.int32).to(cuda)
+    pool = []
+    for c in cont:
+        phys = torch.zeros((nb, bs) + c.shape[2:], dtype=c.dtype, device=cuda)
+        phys[tables.long().reshape(-1)] = c.reshape((b * mb, bs)
+                                                    + c.shape[2:])
+        pool.append(phys)
+    vl = torch.tensor(vls, dtype=torch.int32, device=cuda)
+    return q, cont, pool, tables, vl
+
+
+def _attend(paged, q, cont, pool, tables, vl, rows=slice(None), **kw):
+    """The paged or the contiguous kernel on ``rows`` of a _split_case."""
+    if paged:
+        return A.decode_attention_int8_paged(q[rows], *pool, vl[rows],
+                                             tables[rows], **kw)
+    return A.decode_attention_int8(q[rows], *(c[rows] for c in cont),
+                                   vl[rows], **kw)
+
+
+@pytest.mark.parametrize("paged", [False, True])
+def test_decode_attention_split_matches_plain_at_chunk_edges(cuda, paged):
+    """Rows on either side of every chunk and tile edge below 1,040
+    slots: within the plain version's tolerance, and the paged kernel
+    bitwise equal to the contiguous one."""
+    q, cont, pool, tables, vl = _split_case(cuda, 11, SPLIT_EDGES, 1040)
+    got = _attend(paged, q, cont, pool, tables, vl)
+    want = (A.decode_attention_int8_paged_ref(q, *pool, vl, tables) if paged
+            else A.decode_attention_int8_ref(q, *cont, vl))
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5)
+    assert torch.equal(got, _attend(not paged, q, cont, pool, tables, vl))
+
+
+@pytest.mark.parametrize("paged", [False, True])
+def test_decode_attention_rows_are_batch_invariant(cuda, paged):
+    """Each row of an 8-row launch bitwise equal to the row launched
+    alone: the chunks depend on the row's valid_len only."""
+    vls = [1025, 17, 0, 640, 64, 300, 1, 129]
+    q, cont, pool, tables, vl = _split_case(cuda, 12, vls, 1040)
+    full = _attend(paged, q, cont, pool, tables, vl)
+    for r in range(len(vls)):
+        one = _attend(paged, q, cont, pool, tables, vl, slice(r, r + 1))
+        assert torch.equal(one, full[r:r + 1])
+
+
+@pytest.mark.parametrize("paged", [False, True])
+def test_decode_attention_rows_are_capacity_invariant(cuda, paged):
+    """The same rows bitwise equal in a 48-slot and in a 4,096-slot cache
+    (paged: through 3- and 256-entry tables)."""
+    vls = [0, 1, 5, 17, 47, 48, 24, 12]
+    q, cont, pool, tables, vl = _split_case(cuda, 13, vls, 48)
+    small = _attend(paged, q, cont, pool, tables, vl)
+    if paged:
+        wide = torch.zeros((len(vls), 256), dtype=torch.int32, device=cuda)
+        wide[:, :tables.shape[1]] = tables
+        big = A.decode_attention_int8_paged(q, *pool, vl, wide)
+    else:
+        cap = [torch.zeros((len(vls), 4096) + c.shape[2:], dtype=c.dtype,
+                           device=cuda) for c in cont]
+        for dst, src in zip(cap, cont):
+            dst[:, :48] = src
+        big = A.decode_attention_int8(q, *cap, vl)
+    assert torch.equal(small, big)
+
+
+@pytest.mark.parametrize("paged", [False, True])
+def test_decode_attention_append_column_at_edges(cuda, paged):
+    """The append column with an empty cache gives exactly v_new, with
+    none the row is zeros, and at chunk edges it matches the plain
+    version."""
+    vls = [0, 0, 64, 65, 1024, 1025]
+    q, cont, pool, tables, vl = _split_case(cuda, 14, vls, 1040)
+    gen = torch.Generator(device=cuda).manual_seed(15)
+    kn = torch.randn((len(vls), 2, 128), generator=gen, device=cuda)
+    vn = torch.randn(kn.shape, generator=gen, device=cuda)
+    got = _attend(paged, q, cont, pool, tables, vl, k_new=kn, v_new=vn)
+    want = (A.decode_attention_int8_paged_ref(q, *pool, vl, tables,
+                                              k_new=kn, v_new=vn) if paged
+            else A.decode_attention_int8_ref(q, *cont, vl, k_new=kn,
+                                             v_new=vn))
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5)
+    assert torch.equal(got[0], vn[0][:, None, :].expand(2, 12, 128))
+    bare = _attend(paged, q, cont, pool, tables, vl)
+    assert torch.equal(bare[0], torch.zeros((2, 12, 128), device=cuda))
+
+
+@pytest.mark.parametrize("paged", [False, True])
+def test_decode_attention_back_to_back_launches_agree(cuda, paged):
+    """Two launches of multi-chunk rows give the same bits, and leave the
+    shared arrival counters at 0: the last block of each row resets its
+    counter."""
+    q, cont, pool, tables, vl = _split_case(cuda, 16, [1025, 300, 64, 0],
+                                            1040)
+    first = _attend(paged, q, cont, pool, tables, vl)
+    second = _attend(paged, q, cont, pool, tables, vl)
+    assert torch.equal(first, second)
+    stream = torch.cuda.current_stream(cuda).cuda_stream
+    counters = scratch._SCRATCH[(q.device.index, stream)][1]
+    assert not counters.any()
 
 
 def test_paged_engine_on_card_equals_reference(cuda):
