@@ -31,7 +31,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
    and three requests (one that shared) equal the contiguous sequential
    reference; then the steady tick at a long context (``max_seq`` 4,096,
    8 rows at 2,048), contiguous and paged, with the decode attention
-   kernels' share of its device time;
+   kernels' share of its device time, and the steady tick under W8A8 at
+   16 slots, with ``qmatmul_w8a8``'s share;
 5. serve: the serve launcher (``repro_torch.launch.serve.run``) at full
    starcoder2-3b width with the bf16 KV cache, once with ``--quant w8a16``
    and once with ``--quant w8a8``: the service curve through the
@@ -51,12 +52,14 @@ on wq, wk|wv and w_down, whose K the GEMV splits across blocks), prints
 the GEMV's split plan of each projection, times both at M = 8, 32, 128
 and 512 and prints the per-tick and per-forward sums on lines of their
 own, beside the times before the redesign; it holds
-``qmatmul_w8a8`` (every projection at M = 8, M = 512 and either side of
-its path threshold, and one ragged shape: its int32 accumulate bitwise,
-the tensor-core kernel's bf16 rows equal to the __dp4a kernel's) and
+``qmatmul_w8a8`` (every projection at M = 8 and 16, M = 512 and either
+side of its path threshold, and one ragged shape: its int32 accumulate
+bitwise, the tensor-core kernel's bf16 rows equal to the GEMV's) and
 ``flash_attention_bhsd`` (the service curve's shapes, plus a window and a
 ``kv_len < Skv`` case) against their plain versions, and times them;
-``qmatmul_w8a8``'s two kernels are timed at M = 8, 16, 32, 64 and 512.
+``qmatmul_w8a8``'s GEMV split plan of each projection is printed, its
+per-tick sums at M = 8 and 16 beside the times before the redesign, and
+its two kernels are timed at M = 8, 16, 32, 64, 128 and 512.
 The two decode attention kernels are held and timed at the slot tick's
 shapes and at a long-context case (8 ragged rows of a 4,096-slot cache,
 paged: blocks of 16), beside their times before the split redesign; every
@@ -65,13 +68,15 @@ batch, in a 48- and a 4,096-slot cache (paged: through 4- and 256-entry
 tables), and at valid_len on either side of the split's chunk and tile
 edges.  Then ``rmsnorm``'s rows at d = 3072 are checked bitwise at B = 1,
 8 and 16.  The tick breakdowns check that a tick launches 181
-``qmatmul_w8a16`` GEMVs and no more ``cudaLaunchKernel`` calls than before
-the redesigns.
+``qmatmul_w8a16`` GEMVs (under W8A8, at 16 slots: 180 ``qmatmul_w8a8``
+launches and the LM head's GEMV) and no more ``cudaLaunchKernel`` calls
+than before the redesigns.
 
-``--only attention`` / ``--only long_tick`` run just the two attention
-kernel phases or the long-context ticks, and ``--src DIR`` takes the port
-from another checkout's ``src/`` (so the same phases time a parent
-commit's kernels); such a partial run prints no result line.
+``--only attention`` / ``--only long_tick`` / ``--only w8a8`` run just the
+two attention kernel phases, the long-context ticks, or ``qmatmul_w8a8``'s
+kernel phase and the W8A8 tick, and ``--src DIR`` takes the port from
+another checkout's ``src/`` (so the same phases time a parent commit's
+kernels); such a partial run prints no result line.
 
 It prints the card's name and power limit, a JSON line with every
 kernel's numbers (qmatmul_w8a16's with both paths under ``paths``, the
@@ -130,7 +135,10 @@ SERVE_MAX_BATCH = 16
 SERVE_SEQ = 32
 SERVE_ROWS = SERVE_MAX_BATCH * SERVE_SEQ     # M of the curve's largest prefill
 # qmatmul_w8a8's two kernels are timed at these M, whatever the wrapper picks
-W8A8_PATH_ROWS = (NUM_SLOTS, 16, 32, 64, SERVE_ROWS)
+W8A8_PATH_ROWS = (NUM_SLOTS, 16, 32, 64, 128, SERVE_ROWS)
+# ... and the wrapper at the rows of a slot tick: the smoke's 8 slots and
+# the W8A8 serve engine's 16
+W8A8_TICK_ROWS = (NUM_SLOTS, SERVE_MAX_BATCH)
 # qmatmul_w8a16's two kernels are checked and timed at a slot tick's rows
 # and at the service curve's batches 1, 4 and 16 of SERVE_SEQ tokens
 W8A16_PATH_ROWS = (NUM_SLOTS, SERVE_SEQ, 4 * SERVE_SEQ, SERVE_ROWS)
@@ -155,21 +163,26 @@ BOUNDARY_VALID = [15, 16, 17, 63, 64, 65, 255, 256, 257, 1023, 1024, 1025]
 
 # the times before each kernel's redesign, printed beside this run's: the
 # GEMV's and flash attention's before their split-K and tensor-core
-# redesigns and the decode attention kernels' per slot tick before their
-# split (PERF.md §5-6: two chip_smoke runs of the commit before each
-# redesign); the decode attention kernels' per long-context launch and the
-# long ticks before the split (`chip_smoke.py --src <parent>/src --only
-# attention --only long_tick` on a `git archive` of the commit before it,
-# two runs); all on an NVIDIA H100 80GB HBM3 at 700.00 W; and the tick's
-# launches, which no redesign may grow
+# redesigns, the decode attention kernels' per slot tick before their
+# split and qmatmul_w8a8's 8-row tick before its split-K GEMV (PERF.md
+# §5-6: two chip_smoke runs of the commit before each redesign); the
+# decode attention kernels' per long-context launch and the long ticks
+# before the split (`chip_smoke.py --src <parent>/src --only attention
+# --only long_tick` on a `git archive` of the commit before it, two runs),
+# and qmatmul_w8a8's 16-row tick and the W8A8 tick's launches before its
+# redesign (the same with `--only w8a8`); all on an NVIDIA H100 80GB HBM3
+# at 700.00 W; and the tick's launches, which no redesign may grow
 BEFORE_MS = {"gemv_tick": "6.005 / 5.968", "flash_forward": "0.853 / 0.852",
              "attention_tick": "0.650 / 0.655",
              "paged_attention_tick": "0.735 / 0.745",
              "attention_long": "0.6813 / 0.6836",
-             "paged_attention_long": "0.7931 / 0.7902"}
+             "paged_attention_long": "0.7931 / 0.7902",
+             "w8a8_tick": "5.519 / 5.593",
+             "w8a8_tick16": "6.197 / 6.164"}
 BEFORE_LONG_TICK = {"long tick": "10.500 / 10.495 ms of 17.670 / 17.656",
                     "long paged tick": "12.124 / 12.106 ms of 19.305 / 19.279"}
-BEFORE_TICK_LAUNCH_CALLS = {"tick": 1659, "paged tick": 1665}
+BEFORE_TICK_LAUNCH_CALLS = {"tick": 1659, "paged tick": 1665,
+                            "w8a8 tick": 3279}
 
 KERNELS = {
     "qmatmul_w8a16": {
@@ -736,13 +749,19 @@ def paged_attention_phase(flush):
     return worst, tick, long
 
 
+def _w8a8_threshold(K) -> int:
+    """The wrapper's path threshold (named W8A8_DP4A_MAX_ROWS before the
+    GEMV took the decode tick, so a parent's kernels run under --src)."""
+    return getattr(K, "W8A8_GEMV_MAX_ROWS", None) or K.W8A8_DP4A_MAX_ROWS
+
+
 def w8a8_check(label, x, w, xs, ws, bias, act):
     """qmatmul_w8a8 (the wrapper's own choice of kernel) on one input:
     its int32 sums bitwise equal to the plain version's (unit scales, no
     bias, no activation), its bf16 drain within one bf16 ulp (bf16_close),
     and, where the wrapper takes the tensor-core kernel, its bf16 output
-    torch.equal to the same rows launched in slices that the __dp4a kernel
-    takes.  Returns (max_abs_err, err / tol, drain bitwise)."""
+    torch.equal to the same rows launched in slices that the GEMV takes.
+    Returns (max_abs_err, err / tol, drain bitwise)."""
     import torch
     from repro_torch.kernels import qmatmul as K
 
@@ -766,7 +785,7 @@ def w8a8_check(label, x, w, xs, ws, bias, act):
         raise AssertionError(
             f"qmatmul_w8a8 {label}: kernel disagrees with its plain version "
             f"beyond tolerance (err/tol={ratio:.3f})")
-    size = K.W8A8_DP4A_MAX_ROWS
+    size = _w8a8_threshold(K)
     if K.w8a8_path(m) == "mma":
         for i in range(0, m, size):
             part = K.qmatmul_w8a8(x[i:i + size].contiguous(), w, xs, ws,
@@ -775,21 +794,23 @@ def w8a8_check(label, x, w, xs, ws, bias, act):
                 raise AssertionError(
                     f"qmatmul_w8a8 {label}: rows {i}..{i + size - 1} of the "
                     f"tensor-core launch differ from the same rows through "
-                    f"the __dp4a kernel")
+                    f"the GEMV")
     return err, ratio, torch.equal(out, ref)
 
 
 def qmatmul_w8a8_phase(flush):
     """Every projection of full-width starcoder2-3b under W8A8, with the
-    activation each projection uses and bf16 out, at a decode tick's M = 8,
-    at the service curve's largest prefill (M = 512), and either side of
-    the wrapper's path threshold, plus one ragged shape (M = 513, K = 3088,
-    N = 260): each held by w8a8_check.  Timed at M = 8 (per tick) and
-    M = 512 (per forward) through the wrapper, against the plain version,
-    the bound and a yardstick: torch._int_mm and the drain in PyTorch, or,
-    where the build refuses that M, F.linear on pre-dequantized bf16
-    weights.  Then both kernels are timed at M = 8, 16, 32, 64 and 512,
-    whatever the wrapper would pick."""
+    activation each projection uses and bf16 out, at a decode tick's M = 8
+    and 16, at the service curve's largest prefill (M = 512), and either
+    side of the wrapper's path threshold, plus one ragged shape (M = 513,
+    K = 3088, N = 260): each held by w8a8_check.  Timed at M = 8 and 16 (per tick)
+    and M = 512 (per forward) through the wrapper, against the plain
+    version, the bound and a yardstick: torch._int_mm and the drain in
+    PyTorch, or, where the build refuses that M, F.linear on
+    pre-dequantized bf16 weights.  Then both kernels are timed at every M
+    of W8A8_PATH_ROWS, whatever the wrapper would pick.  Returns (worst
+    error, per-forward numbers, library name, {tick rows: per-tick
+    numbers})."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import qmatmul as K
@@ -801,12 +822,14 @@ def qmatmul_w8a8_phase(flush):
               ("wo", d, d, False, "none", 30),
               ("w_up", d, ff, False, "gelu", 30),
               ("w_down", ff, d, False, "none", 30)]
-    threshold = K.W8A8_DP4A_MAX_ROWS
+    threshold = _w8a8_threshold(K)
+    few = K.W8A8_PATHS[0]      # the decode tick's kernel ("dp4a" before)
     gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
     keys = ("ms", "plain_ms", "bound_ms", "library_ms", "bytes_ms", "ops_ms")
-    per_m = {m: dict.fromkeys(keys, 0.0) for m in (NUM_SLOTS, SERVE_ROWS)}
+    per_m = {m: dict.fromkeys(keys, 0.0)
+             for m in W8A8_TICK_ROWS + (SERVE_ROWS,)}
     path_ms = {m: dict.fromkeys(K.W8A8_PATHS, 0.0) for m in W8A8_PATH_ROWS}
-    worst_err, library = 0.0, set()
+    worst_err, library, plans = 0.0, set(), []
 
     def data(m, k, n, has_bias):
         x = torch.randint(-127, 128, (m, k), generator=gen, device="cuda",
@@ -823,7 +846,14 @@ def qmatmul_w8a8_phase(flush):
         x, w, xs, ws, bias = data(max(SERVE_ROWS, threshold + 1), k, n,
                                   has_bias)
         w_lib = (w.float() * ws).to(torch.bfloat16).t()   # (N, K) view
-        for m in sorted({NUM_SLOTS, threshold, threshold + 1, SERVE_ROWS}):
+        if hasattr(K, "w8a8_split_plan"):
+            plan = K.w8a8_split_plan(k, n)
+            plans.append(f"{name} K={k} N={n}: {plan.strips} strips x "
+                          f"{plan.splits} splits of {plan.split_rows} rows "
+                          f"= {plan.strips * plan.splits} blocks at M <= "
+                          f"{K.W8A8_MR}")
+        for m in sorted({*W8A8_TICK_ROWS, threshold, threshold + 1,
+                         SERVE_ROWS}):
             xm = x[:m].contiguous()
             label = f"{name} M={m} ({K.w8a8_path(m)})"
             err, ratio, bitwise = w8a8_check(label, xm, w, xs, ws, bias, act)
@@ -888,18 +918,22 @@ def qmatmul_w8a8_phase(flush):
           f"path={K.w8a8_path(513)} int32_bitwise=True drain_bitwise="
           f"{bitwise} max_abs_err={err:.3e} err/tol={ratio:.3f}")
     faster = [m for m in W8A8_PATH_ROWS
-              if path_ms[m]["mma"] < path_ms[m]["dp4a"]]
+              if path_ms[m]["mma"] < path_ms[m][few]]
+    if plans:
+        print("  qmatmul_w8a8 GEMV split plan: " + "; ".join(plans))
     print("  qmatmul_w8a8 per 30 layers x 6 projections, by path: " + "; ".join(
-        f"M={m} dp4a={t['dp4a']:.4f} mma={t['mma']:.4f}"
+        f"M={m} {few}={t[few]:.4f} mma={t['mma']:.4f}"
         for m, t in path_ms.items()))
-    print(f"  qmatmul_w8a8 threshold: M <= {threshold} takes __dp4a, more "
+    print(f"  qmatmul_w8a8 threshold: M <= {threshold} takes {few}, more "
           f"rows mma.sync; of the timed M, mma.sync was faster at "
           f"{faster or 'none'}")
-    tick = per_m[NUM_SLOTS]
-    print(f"  qmatmul_w8a8 per {NUM_SLOTS}-row decode tick (30 layers x 6 "
-          f"projections): ms={tick['ms']:.4f} bound_ms={tick['bound_ms']:.4f} "
-          f"plain_ms={tick['plain_ms']:.4f} "
-          f"library_ms={tick['library_ms']:.4f}")
+    for m, before in zip(W8A8_TICK_ROWS, ("w8a8_tick", "w8a8_tick16")):
+        tick = per_m[m]
+        print(f"  qmatmul_w8a8 per {m}-row decode tick (30 layers x 6 "
+              f"projections): ms={tick['ms']:.4f} (before the redesign: "
+              f"{BEFORE_MS[before]}) bound_ms={tick['bound_ms']:.4f} "
+              f"plain_ms={tick['plain_ms']:.4f} "
+              f"library_ms={tick['library_ms']:.4f}")
     fwd = per_m[SERVE_ROWS]
     print(f"  qmatmul_w8a8 per {SERVE_MAX_BATCH} x {SERVE_SEQ}-token forward "
           f"(M = {SERVE_ROWS}): ms={fwd['ms']:.4f} "
@@ -907,7 +941,8 @@ def qmatmul_w8a8_phase(flush):
           f"library_ms={fwd['library_ms']:.4f}")
     K.qmatmul_w8a8.launches = 0
     K.qmatmul_w8a8_ref.calls = 0
-    return worst_err, fwd, " or ".join(sorted(library))
+    return (worst_err, fwd, " or ".join(sorted(library)),
+            {m: per_m[m] for m in W8A8_TICK_ROWS})
 
 
 def flash_phase(flush):
@@ -1383,18 +1418,21 @@ def device_breakdown(label: str, what: str, fn, reps: int):
 
 def tick_breakdown(cfg, params, num_slots: int, max_seq: int,
                    block_size: int = 0, ticks: int = 10,
-                   label: str = "tick") -> None:
+                   label: str = "tick", mode: str = "w8a16") -> None:
     """Where one steady-state slot tick's time goes: all slots active at a
     mid-sequence position.  ``block_size``: the same tick on a paged
     cache, every slot's row on blocks of its own (a pool of
-    ``num_slots * max_seq / block_size + 1`` blocks)."""
+    ``num_slots * max_seq / block_size + 1`` blocks).  ``mode``: the
+    projections' quantization, "w8a16" (181 qmatmul_w8a16 GEMV launches a
+    tick) or "w8a8" (180 qmatmul_w8a8 launches and the LM head's GEMV)."""
     import torch
-    from repro_torch.core.qlinear import W8A16
+    from repro_torch.core.qlinear import W8A8, W8A16
     from repro_torch.models import registry as R
     from repro_torch.runtime import steps as ST
 
     S = num_slots
-    step = ST.make_slot_decode_step(cfg, mode=W8A16)
+    step = ST.make_slot_decode_step(cfg, mode={"w8a16": W8A16,
+                                               "w8a8": W8A8}[mode])
     with torch.inference_mode():
         if block_size:
             mb = max_seq // block_size
@@ -1412,26 +1450,34 @@ def tick_breakdown(cfg, params, num_slots: int, max_seq: int,
     with torch.inference_mode():
         step(params, toks, cache, idx, active)[0].cpu()
     launches, _ = read_counts()
-    per_tick = 6 * cfg.n_layers + 1
+    w8a8 = 6 * cfg.n_layers if mode == "w8a8" else 0
+    gemv = 6 * cfg.n_layers + 1 - w8a8
     print(f"{label}: qmatmul_w8a16 launches per tick "
           f"{launches['qmatmul_w8a16']} (gemv "
           f"{launches['qmatmul_w8a16[gemv]']}, mma "
-          f"{launches['qmatmul_w8a16[mma]']}; {per_tick} expected)")
-    if (launches["qmatmul_w8a16[gemv]"] != per_tick
-            or launches["qmatmul_w8a16[mma]"]):
+          f"{launches['qmatmul_w8a16[mma]']}; {gemv} expected), "
+          f"qmatmul_w8a8 {launches['qmatmul_w8a8']} ({w8a8} expected)")
+    if (launches["qmatmul_w8a16[gemv]"] != gemv
+            or launches["qmatmul_w8a16[mma]"]
+            or launches["qmatmul_w8a8"] != w8a8):
         raise AssertionError(f"{label}: {launches}")
     calls, busy, by_kernel = device_breakdown(
         label, f"steady-state slot tick ({S} active rows at position "
         f"{max_seq // 2} of {max_seq})",
         lambda: step(params, toks, cache, idx, active)[0].cpu(), ticks)
-    limit = BEFORE_TICK_LAUNCH_CALLS["paged tick" if block_size else "tick"]
+    limit = BEFORE_TICK_LAUNCH_CALLS["w8a8 tick" if mode == "w8a8" else
+                                     "paged tick" if block_size else "tick"]
     print(f"{label}: cudaLaunchKernel calls per tick {calls:.0f} (before "
           f"the redesigns: {limit})")
     if calls > limit:
         raise AssertionError(f"{label}: {calls} cudaLaunchKernel calls per "
                              f"tick, more than before the redesigns: "
                              f"{limit}")
-    if busy is not None:
+    if busy is not None and mode == "w8a8":
+        mm = sum(ms for key, ms in by_kernel.items() if "qmatmul_w8a8" in key)
+        print(f"{label}: qmatmul_w8a8 {mm:.3f} ms of the tick's {busy:.3f} "
+              f"ms of device time ({100 * mm / busy:.1f}%)")
+    elif busy is not None:
         attn = sum(ms for key, ms in by_kernel.items()
                    if "decode_attention_int8" in key)
         print(f"{label}: decode attention {attn:.3f} ms of the tick's "
@@ -1440,6 +1486,14 @@ def tick_breakdown(cfg, params, num_slots: int, max_seq: int,
                  if label in BEFORE_LONG_TICK else ""))
     del cache
     torch_cuda_empty()
+
+
+def w8a8_tick_phase(cfg, params) -> None:
+    """The steady tick under W8A8 at the W8A8 serve engine's 16 slots (all
+    at position 24 of the smoke's 48): the tick that qmatmul_w8a8's GEMV
+    runs."""
+    tick_breakdown(cfg, params, SERVE_MAX_BATCH, PROMPT_LEN + MAX_NEW,
+                   label="w8a8 tick", mode="w8a8")
 
 
 def long_tick_phase(cfg, params) -> None:
@@ -1465,7 +1519,7 @@ def forward_breakdown(label: str, res) -> None:
                      f"tokens", lambda: prefill(res.params, batch), 3)
 
 
-PHASES = ("attention", "long_tick")
+PHASES = ("attention", "long_tick", "w8a8")
 
 
 def parse_args(argv):
@@ -1477,8 +1531,9 @@ def parse_args(argv):
                          "its kernels under this script's phases")
     ap.add_argument("--only", choices=PHASES, action="append",
                     help="run only this phase (repeatable): the two decode "
-                         "attention kernel phases, or the long-context "
-                         "ticks; prints no result line")
+                         "attention kernel phases, the long-context ticks, "
+                         "or qmatmul_w8a8's kernel phase and the W8A8 tick; "
+                         "prints no result line")
     return ap.parse_args(argv)
 
 
@@ -1531,10 +1586,15 @@ def main(argv=None) -> int:
         if "attention" in args.only:
             attention_phase(flush, max_seq + (-max_seq) % 16)
             paged_attention_phase(flush)
+        if "w8a8" in args.only:
+            qmatmul_w8a8_phase(flush)
         del flush_buf
-        if "long_tick" in args.only:
+        if {"long_tick", "w8a8"} & set(args.only):
             cfg, params = build_model()
+        if "long_tick" in args.only:
             long_tick_phase(cfg, params)
+        if "w8a8" in args.only:
+            w8a8_tick_phase(cfg, params)
         print("chip_smoke: partial run passed; no result line")
         return 0
     print("kernels: each CUDA kernel against its plain version on the card")
@@ -1542,7 +1602,7 @@ def main(argv=None) -> int:
     a_err, a_tick, a_long = attention_phase(flush,
                                             max_seq + (-max_seq) % 16)
     p_err, p_tick, p_long = paged_attention_phase(flush)
-    w8_err, w8_fwd, w8_lib = qmatmul_w8a8_phase(flush)
+    w8_err, w8_fwd, w8_lib, w8_ticks = qmatmul_w8a8_phase(flush)
     f_err, f_fwd = flash_phase(flush)
     del flush_buf
     rmsnorm_phase()
@@ -1554,6 +1614,7 @@ def main(argv=None) -> int:
     launches = slice_phase(cfg, params)
     paged_launches = paged_slice_phase(cfg, params)
     long_tick_phase(cfg, params)
+    w8a8_tick_phase(cfg, params)
     del params
     torch_cuda_empty()
     serve_launches = serve_phase()
@@ -1605,6 +1666,10 @@ def main(argv=None) -> int:
             "launches": n, "max_abs_err": err, **numbers(tick),
             "basis": basis})
     kernels[0]["paths"] = w8a16_paths
+    kernels[3]["ticks"] = {
+        f"M={m}": {**numbers(t), "basis": f"one slot tick of {m} rows at "
+                   f"full width (30 layers x 6 projections): the sum over "
+                   f"its launches"} for m, t in w8_ticks.items()}
     for row, t in ((kernels[1], a_long), (kernels[2], p_long)):
         row["long_context"] = {
             **numbers(t), "basis": f"one launch of {NUM_SLOTS} rows of "

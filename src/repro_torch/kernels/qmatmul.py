@@ -21,8 +21,9 @@ does not depend on how many rows are in the batch — a plain CPU
 
 ``qmatmul_w8a8`` (int8 activations with one scale per tensor, int8
 weights, int32 accumulation) launches ``csrc/qmatmul_w8a8.cu``, the port
-of ``repro/kernels/qmatmul.py::qmatmul_w8a8``: its ``__dp4a`` kernel for
-a decode tick's few rows, its ``mma.sync`` tensor-core kernel for a
+of ``repro/kernels/qmatmul.py::qmatmul_w8a8``: its GEMV for a decode
+tick's few rows (K split across blocks by :func:`w8a8_split_plan`, a
+function of (K, N) alone), its ``mma.sync`` tensor-core kernel for a
 prefill's many (``w8a8_path``), with identical bits either way.  Each
 launch adds one to ``qmatmul_w8a8.launches``.  Its plain version
 ``qmatmul_w8a8_ref`` (the port of ``ref.py::qmatmul_w8a8_ref``) sums each
@@ -116,21 +117,25 @@ qmatmul_w8a8_ref.calls = 0
 W8A16_PATHS = ("gemv", "mma")
 
 
-# The GEMV's split plan.  A block owns GEMV_BN output columns (a strip) and
-# one range of K.  Three blocks fit on an SM at once (the kernel's launch
-# bounds), so a launch of GEMV_TARGET_BLOCKS = 3 x 132 blocks fills the
-# card in one wave with equal work per SM: a projection gets as many
-# splits of K as its strips leave room for in that wave (none where the
-# strips alone fill it), each at least GEMV_MIN_ROWS rows and at most
-# GEMV_MAX_SPLITS of them (the last block to arrive adds them all).  The
-# plan is a function of (K, N) alone -- never of M -- so a row's bits do
-# not depend on how many rows are in the launch.
+# The GEMVs' split plans.  A block owns BN output columns (a strip) and one
+# range of K.  Three blocks fit on an SM at once (each kernel's launch
+# bounds), so a launch of TARGET_BLOCKS = 3 x 132 blocks fills the card in
+# one wave with equal work per SM: a projection gets as many splits of K as
+# its strips leave room for in that wave (none where the strips alone fill
+# it), each at least MIN_ROWS rows and at most MAX_SPLITS of them (the last
+# block to arrive adds them all).  The plan is a function of (K, N) alone --
+# never of M -- so a row's bits do not depend on how many rows are in the
+# launch.
 GEMV_BN = 64               # csrc/qmatmul_w8a16.cu: BN
 GEMV_G = 8                 # rows of a split are a multiple of this
 GEMV_MT = 8                # csrc/qmatmul_w8a16.cu: MT (rows of x per block)
 GEMV_MIN_ROWS = 64
 GEMV_MAX_SPLITS = 64
 GEMV_TARGET_BLOCKS = 3 * 132
+# qmatmul_w8a8's GEMV: the same plan for its own strip and row group
+W8A8_BN = 64               # csrc/qmatmul_w8a8.cu: BN
+W8A8_G = 32                # one m16n8k32 k step; K % 16 == 0 ends the last
+W8A8_MR = 16               # csrc/qmatmul_w8a8.cu: MR (rows of x per block)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -150,18 +155,38 @@ class GemvPlan:
                 for s in range(self.splits)]
 
 
-@functools.lru_cache(maxsize=None)
-def gemv_split_plan(k: int, n: int) -> GemvPlan:
-    """The GEMV's split of K for a (K, N) weight."""
-    if k <= 0 or n <= 0 or k % GEMV_G or n % 4:
-        raise ValueError(f"the GEMV needs K % {GEMV_G} == 0 and N % 4 == 0, "
-                         f"got K={k} N={n}")
-    strips = -(-n // GEMV_BN)
+def _split_plan(k: int, n: int, bn: int, g: int) -> GemvPlan:
+    strips = -(-n // bn)
     splits = max(1, min(GEMV_TARGET_BLOCKS // strips, k // GEMV_MIN_ROWS,
                         GEMV_MAX_SPLITS))
     rows = -(-k // splits)
-    rows += -rows % GEMV_G
+    rows += -rows % g
     return GemvPlan(k, n, strips, -(-k // rows), rows)
+
+
+@functools.lru_cache(maxsize=None)
+def gemv_split_plan(k: int, n: int) -> GemvPlan:
+    """The W8A16 GEMV's split of K for a (K, N) weight."""
+    if k <= 0 or n <= 0 or k % GEMV_G or n % 4:
+        raise ValueError(f"the GEMV needs K % {GEMV_G} == 0 and N % 4 == 0, "
+                         f"got K={k} N={n}")
+    return _split_plan(k, n, GEMV_BN, GEMV_G)
+
+
+@functools.lru_cache(maxsize=None)
+def w8a8_split_plan(k: int, n: int) -> GemvPlan:
+    """``qmatmul_w8a8``'s GEMV's split of K for a (K, N) weight: ranges of
+    a multiple of ``W8A8_G`` rows (the last ends at K)."""
+    if k <= 0 or n <= 0 or k % 16 or n % 4:
+        raise ValueError(f"the W8A8 GEMV needs K % 16 == 0 and N % 4 == 0, "
+                         f"got K={k} N={n}")
+    return _split_plan(k, n, W8A8_BN, W8A8_G)
+
+
+def _launch(plan: GemvPlan, m: int, slab: int):
+    if plan.splits == 1:
+        return plan, 0, 0
+    return plan, plan.splits * m * plan.n, -(-m // slab) * plan.strips
 
 
 @functools.lru_cache(maxsize=None)
@@ -169,10 +194,14 @@ def gemv_launch(m: int, k: int, n: int):
     """(plan, workspace f32 elements, counters) of one GEMV launch of m
     rows: the plan does not depend on m, the scratch does (none for one
     split)."""
-    plan = gemv_split_plan(k, n)
-    if plan.splits == 1:
-        return plan, 0, 0
-    return plan, plan.splits * m * n, -(-m // GEMV_MT) * plan.strips
+    return _launch(gemv_split_plan(k, n), m, GEMV_MT)
+
+
+@functools.lru_cache(maxsize=None)
+def w8a8_launch(m: int, k: int, n: int):
+    """(plan, workspace int32 elements, counters) of one launch of
+    ``qmatmul_w8a8``'s GEMV of m rows, as :func:`gemv_launch`."""
+    return _launch(w8a8_split_plan(k, n), m, W8A8_MR)
 
 
 @functools.lru_cache(maxsize=None)
@@ -280,21 +309,21 @@ qmatmul_w8a16.launches = 0
 qmatmul_w8a16.launches_by_path = dict.fromkeys(W8A16_PATHS, 0)
 
 
-# The W8A8 wrapper's two kernels: rows up to W8A8_DP4A_MAX_ROWS (a decode
-# tick's) go to the __dp4a kernel, which streams the weights once; more rows
-# (a prefill's) go to the mma.sync kernel on the int8 tensor cores.  The
-# value is set from chip_smoke.py's times of both at M = 8, 16, 32, 64 and
-# 512 (PERF.md): __dp4a was faster at 8 and 16, mma.sync from 32 on.
-# Integer sums are exact and both kernels drain through one function, so
-# the choice decides speed only: a row's bits never depend on M or on the
-# path.
-W8A8_PATHS = ("dp4a", "mma")
-W8A8_DP4A_MAX_ROWS = 16
+# The W8A8 wrapper's two kernels: rows up to W8A8_GEMV_MAX_ROWS go to the
+# GEMV, which reads w once per 16 rows (a decode tick's 8 or 16: once);
+# more rows (a prefill's) go to the mma.sync kernel's 64 x 128 tiles.  The
+# value is set from chip_smoke.py's times of both at M = 8, 16, 32, 64, 128
+# and 512, summed over a tick's projections (PERF.md): the GEMV was faster
+# up to 64 rows, the mma.sync kernel from 128 on.  Integer sums are exact
+# and both kernels drain through one function, so the choice decides speed
+# only: a row's bits never depend on M or on the path.
+W8A8_PATHS = ("gemv", "mma")
+W8A8_GEMV_MAX_ROWS = 64
 
 
 def w8a8_path(m: int) -> str:
     """The kernel ``qmatmul_w8a8`` launches for ``m`` rows."""
-    return "dp4a" if m <= W8A8_DP4A_MAX_ROWS else "mma"
+    return "gemv" if m <= W8A8_GEMV_MAX_ROWS else "mma"
 
 
 @functools.lru_cache(maxsize=None)
@@ -305,7 +334,8 @@ def _lib_w8a8():
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+                   ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -370,11 +400,20 @@ def qmatmul_w8a8_on_path(path: str, x: torch.Tensor, w: torch.Tensor,
         return out
     fn = _lib_w8a8()
     stream = torch.cuda.current_stream(x.device).cuda_stream
+    splits = split_rows = 0
+    work = counters = None
+    if path == "gemv":
+        plan, work_elems, n_counters = w8a8_launch(m, k, n)
+        splits, split_rows = plan.splits, plan.split_rows
+        if splits > 1:
+            work, counters = scratch.get(x.device, stream, work_elems,
+                                         n_counters)
     err = fn(x.data_ptr(), w.data_ptr(), x_scale.data_ptr(),
              w_scale.data_ptr(),
              bias.data_ptr() if bias is not None else None,
              out.data_ptr(), int(out_dtype == torch.bfloat16), m, k, n,
-             ACTIVATIONS.index(activation), int(path == "mma"), stream)
+             ACTIVATIONS.index(activation), int(path == "mma"), splits,
+             split_rows, work, counters, stream)
     if err:
         raise RuntimeError(f"qmatmul_w8a8 ({path}) launch failed: CUDA "
                            f"error {err}")

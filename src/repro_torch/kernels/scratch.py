@@ -1,16 +1,18 @@
 """Scratch memory kept between launches by the kernels that combine
 partial results across blocks in the same launch.
 
-The W8A16 GEMV (its splits of K, ``kernels/qmatmul.py``) and the decode
-attention kernels (their chunks of a row's slots,
-``kernels/decode_attention.py``) write each block's partials to an f32
+The W8A16 and W8A8 GEMVs (their splits of K, ``kernels/qmatmul.py``) and
+the decode attention kernels (their chunks of a row's slots,
+``kernels/decode_attention.py``) write each block's partials to a
 workspace and count arrivals in an int32 counter per output group; the
 last block of a group to arrive adds the partials in a fixed order and
-sets its counter back to 0.  One workspace and one counter array serve
-every such kernel on a (device, stream): launches on one stream run in
-order and each leaves every counter at 0, so each launch finds the pair as
-it needs it.  The pair grows to the largest launch seen and is kept, so a
-decode tick allocates nothing and launches nothing for it.
+sets its counter back to 0.  The workspace's elements are f32; the W8A8
+GEMV stores its int32 partial sums in them, 4 bytes each, as int32.  One
+workspace and one counter array serve every such kernel on a (device,
+stream): launches on one stream run in order and each leaves every
+counter at 0, so each launch finds the pair as it needs it.  The pair
+grows to the largest launch seen and is kept, so a decode tick allocates
+nothing and launches nothing for it.
 """
 from __future__ import annotations
 

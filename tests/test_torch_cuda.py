@@ -461,10 +461,11 @@ def _w8a8_case(cuda, seed, m, k, n):
     return x, w, xs, ws, b
 
 
-# M on both sides of the path threshold and of the tensor-core kernel's
-# 128-row tiles; K % 32 == 16 (a ragged last k step of either kernel); N %
-# 8 == 4 (a ragged n8 tile and 128-column strip)
-W8A8_ROWS = (1, 8, 16, 17, 33, 128, 512, 513)
+# M on both sides of the GEMV's 8- and 16-row tiles, of the path threshold
+# (64) and of the tensor-core kernel's 128-row tiles; K % 32 == 16 (a
+# ragged last k step of either kernel); N % 8 == 4 (a ragged n8 tile and
+# 64- and 128-column strip)
+W8A8_ROWS = (1, 8, 9, 16, 17, 33, 64, 65, 128, 512, 513)
 W8A8_KN = ((272, 100), (3088, 260))
 
 
@@ -511,9 +512,9 @@ def test_qmatmul_w8a8_int32_accumulate_bitwise(cuda):
 def test_qmatmul_w8a8_rows_are_batch_invariant(cuda):
     """A row's bits do not depend on M or on the kernel: the rows of an
     M = 512 and an M = 513 launch (the tensor-core kernel) equal the same
-    rows launched one at a time (the __dp4a kernel), and in slices of
-    W8A8_DP4A_MAX_ROWS and one row more (either side of the threshold)."""
-    t = K.W8A8_DP4A_MAX_ROWS
+    rows launched one at a time (the GEMV), and in slices of
+    W8A8_GEMV_MAX_ROWS and one row more (either side of the threshold)."""
+    t = K.W8A8_GEMV_MAX_ROWS
     for m, k, n in ((11, 512, 64), (512, 3088, 260), (513, 272, 100)):
         x, w, xs, ws, b = _w8a8_case(cuda, 6 + m, m, k, n)
         kw = dict(activation="gelu", out_dtype=torch.bfloat16)
@@ -526,6 +527,88 @@ def test_qmatmul_w8a8_rows_are_batch_invariant(cuda):
                 part = K.qmatmul_w8a8(x[i:i + size].contiguous(), w, xs, ws,
                                       b, **kw)
                 assert torch.equal(part, full[i:i + size]), (m, size, i)
+
+
+# (K, N) of each W8A8 projection of full-width starcoder2-3b (wq and wo
+# share one) and a ragged shape: 4-byte weight copies, a ragged strip and a
+# ragged last split
+W8A8_PROJECTIONS = {"wq|wo": (3072, 3072), "wk|wv": (3072, 256),
+                    "w_up": (3072, 12288), "w_down": (12288, 3072),
+                    "ragged": (3088, 260)}
+
+
+def _counters_zero(t):
+    """The arrival counters of ``t``'s device and current stream are all
+    0."""
+    stream = torch.cuda.current_stream(t.device).cuda_stream
+    return not scratch._SCRATCH[(t.device.index, stream)][1].any()
+
+
+@pytest.mark.parametrize("name", list(W8A8_PROJECTIONS))
+def test_qmatmul_w8a8_gemv_at_tick_rows(cuda, name):
+    """The GEMV at M = 1, 8 and 16 on each projection shape (K split
+    across blocks by w8a8_split_plan): its int32 accumulate bitwise equal
+    to the plain version's and to the tensor-core kernel's, every row of
+    the 16-row launch bitwise equal launched alone (bf16 drain, gelu, bias),
+    and the arrival counters back at 0."""
+    k, n = W8A8_PROJECTIONS[name]
+    assert K.w8a8_split_plan(k, n).splits > 1
+    x, w, xs, ws, b = _w8a8_case(cuda, 7 + k + n, 16, k, n)
+    one, ones = torch.ones((), device=cuda), torch.ones(n, device=cuda)
+    for m in (1, 8, 16):
+        xm = x[:m].contiguous()
+        assert K.w8a8_path(m) == "gemv"
+        got = K.qmatmul_w8a8(xm, w, one, ones)
+        want = K.qmatmul_w8a8_ref(xm, w, one, ones)
+        assert float(want.abs().max()) < 2 ** 24
+        assert torch.equal(got, want), (name, m)
+        assert torch.equal(K.qmatmul_w8a8_on_path("mma", xm, w, one, ones),
+                           got), (name, m)
+        assert _counters_zero(x)
+    kw = dict(activation="gelu", out_dtype=torch.bfloat16)
+    full = K.qmatmul_w8a8(x, w, xs, ws, b, **kw)
+    for i in range(16):
+        alone = K.qmatmul_w8a8(x[i:i + 1].contiguous(), w, xs, ws, b, **kw)
+        assert torch.equal(alone[0], full[i]), (name, i)
+    assert torch.equal(K.qmatmul_w8a8(x[:8].contiguous(), w, xs, ws, b,
+                                      **kw), full[:8])
+    assert _counters_zero(x)
+
+
+def test_w8a8_tick_shares_the_scratch_with_the_other_split_kernels(cuda):
+    """A W8A8 tick's launches, a W8A16 GEMV launch and a decode attention
+    launch, each splitting its work across blocks through the one
+    workspace and counter array of the stream, back to back and twice
+    over: each output equals its plain version (the W8A8 sums bitwise, the
+    others within the tolerances of their own tests) and is the same both
+    times, and the counters end at 0."""
+    cases = [_w8a8_case(cuda, 30 + i, 16, k, n)[:2]
+             for i, (k, n) in enumerate(W8A8_PROJECTIONS.values())]
+    one = torch.ones((), device=cuda)
+    g = torch.Generator(device=cuda).manual_seed(31)
+    q16 = quantize_weight(torch.randn((12288, 256), generator=g, device=cuda))
+    w16, s16 = q16.values, q16.scale.reshape(-1).contiguous()
+    x16 = torch.randn((16, 12288), generator=g, device=cuda).to(torch.bfloat16)
+    assert K.gemv_split_plan(12288, 256).splits > 1
+    q, cont, pool, tables, vl = _split_case(cuda, 32, [1025, 300, 64, 0],
+                                            1040)
+    runs = []
+    for _ in range(2):
+        outs = [K.qmatmul_w8a8(x, w, one, torch.ones(w.shape[1], device=cuda))
+                for x, w in cases]
+        outs.append(K.qmatmul_w8a16(x16, w16, s16, out_dtype=torch.float32))
+        outs.append(_attend(False, q, cont, pool, tables, vl))
+        runs.append(outs)
+    for (x, w), got in zip(cases, runs[0]):
+        assert torch.equal(got, K.qmatmul_w8a8_ref(
+            x, w, one, torch.ones(w.shape[1], device=cuda)))
+    assert _close(runs[0][-2], K.qmatmul_w8a16_ref(
+        x16, w16, s16, out_dtype=torch.float32), torch.float32)
+    torch.testing.assert_close(runs[0][-1], A.decode_attention_int8_ref(
+        q, *cont, vl), rtol=1e-4, atol=1e-5)
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+    assert _counters_zero(q)
 
 
 FLASH_CASES = [

@@ -217,12 +217,12 @@ def test_w8a8_kernel_wrapper_takes_only_cuda_tensors():
     assert K.qmatmul_w8a8_ref.calls == calls
 
 
-@pytest.mark.parametrize("m", sorted({1, 8, 16, K.W8A8_DP4A_MAX_ROWS,
-                                      K.W8A8_DP4A_MAX_ROWS + 1, 512}))
+@pytest.mark.parametrize("m", sorted({1, 8, 16, 17, K.W8A8_GEMV_MAX_ROWS,
+                                      K.W8A8_GEMV_MAX_ROWS + 1, 512}))
 def test_w8a8_path_is_chosen_by_rows_alone(m):
-    """A decode tick's rows go to the __dp4a kernel, a prefill's to the
-    tensor-core kernel, split at W8A8_DP4A_MAX_ROWS, which keeps the ticks
-    of 8 and 16 rows on __dp4a."""
-    assert K.W8A8_DP4A_MAX_ROWS >= 16
-    want = "dp4a" if m <= K.W8A8_DP4A_MAX_ROWS else "mma"
+    """A decode tick's rows (8 or 16) go to the GEMV, a prefill's 512 to
+    the tensor-core kernel, split at W8A8_GEMV_MAX_ROWS (64: the GEMV reads
+    w once per 16 rows and was still the faster up to 64)."""
+    assert K.W8A8_GEMV_MAX_ROWS == 64
+    want = "gemv" if m <= K.W8A8_GEMV_MAX_ROWS else "mma"
     assert K.w8a8_path(m) == want
