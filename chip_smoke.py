@@ -20,7 +20,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
 3. slice: full-width starcoder2-3b (random weights from a seeded
    generator, int8 W8A16 weights, int8 KV cache) served through
    ``Engine.serve`` — 8 slots, chunked prefill of 4, 24 requests so slots
-   are reused — with the kernels' launch counters zeroed just before and
+   are reused, every tick a replay of the slot step captured as a CUDA
+   graph — with the kernels' launch counters zeroed just before and
    read just after (no launch of qmatmul_w8a16's mma path); then three
    requests compared with the sequential ``reference_outputs`` on the
    card;
@@ -32,14 +33,30 @@ Phases, each of which fails the run (non-zero exit, no result line):
    reference; then the steady tick at a long context (``max_seq`` 4,096,
    8 rows at 2,048), contiguous and paged, with the decode attention
    kernels' share of its device time, and the steady tick under W8A8 at
-   16 slots, with ``qmatmul_w8a8``'s share;
-5. serve: the serve launcher (``repro_torch.launch.serve.run``) at full
+   16 slots, with ``qmatmul_w8a8``'s share (these breakdowns run the
+   eager step);
+5. graphs: each of those five ticks eager against the captured step
+   (``runtime/steps.py::jit_slot_decode_step``) on two copies of one
+   randomly filled cache, over four ticks with a row retiring and one
+   admitted (paged: a table row changed): next tokens, indices and every
+   cache leaf ``torch.equal``, the kernel counts of a replay equal to the
+   eager tick's; then the captured steady tick's wall, device busy and
+   ``cudaLaunchKernel`` / ``cudaGraphLaunch`` calls beside the eager
+   tick's of this run, its wall required below the eager one; the
+   serve CLI's decode loop (batch 16, 16 tokens, ``max_seq`` 32, bf16
+   cache) under w8a16 and w8a8, captured (``jit_decode_loop``) against
+   eager at starts 0 and 5, with tok/s of both; and the workspace a
+   capture holds: the 8-row tick, captured first, replays equal to the
+   eager tick after the 16-row captures grew the capture stream's
+   workspace, with every arrival counter back at 0;
+6. serve: the serve launcher (``repro_torch.launch.serve.run``) at full
    starcoder2-3b width with the bf16 KV cache, once with ``--quant w8a16``
    and once with ``--quant w8a8``: the service curve through the
    full-sequence forward (flash attention; under w8a16 every
    qmatmul_w8a16 launch of it on the mma path, counted around the curve
    alone), the Table 4 batch choice, the decode loop and a wall-clock
-   ``Engine.serve`` (no mma launch in either), counters zeroed just
+   ``Engine.serve`` (no mma launch in either; the loop and the engine's
+   tick captured as CUDA graphs), counters zeroed just
    before each run and read just after, then where one 16 x 32-token
    prefill spends its time; the w8a16 run's first three requests are
    compared with ``reference_outputs`` (bf16 cache) on the card.
@@ -72,9 +89,10 @@ edges.  Then ``rmsnorm``'s rows at d = 3072 are checked bitwise at B = 1,
 launches and the LM head's GEMV) and no more ``cudaLaunchKernel`` calls
 than before the redesigns.
 
-``--only attention`` / ``--only long_tick`` / ``--only w8a8`` run just the
-two attention kernel phases, the long-context ticks, or ``qmatmul_w8a8``'s
-kernel phase and the W8A8 tick, and ``--src DIR`` takes the port from
+``--only attention`` / ``--only long_tick`` / ``--only w8a8`` / ``--only
+graphs`` run just the two attention kernel phases, the long-context
+ticks, ``qmatmul_w8a8``'s kernel phase and the W8A8 tick, or the five
+eager tick breakdowns and the graph phase, and ``--src DIR`` takes the port from
 another checkout's ``src/`` (so the same phases time a parent commit's
 kernels); such a partial run prints no result line.
 
@@ -183,6 +201,17 @@ BEFORE_LONG_TICK = {"long tick": "10.500 / 10.495 ms of 17.670 / 17.656",
                     "long paged tick": "12.124 / 12.106 ms of 19.305 / 19.279"}
 BEFORE_TICK_LAUNCH_CALLS = {"tick": 1659, "paged tick": 1665,
                             "w8a8 tick": 3279}
+
+# the serves before their tick and decode loop were captured as CUDA
+# graphs (PERF.md §5: two chip_smoke runs of the commit before the
+# capture, NVIDIA H100 80GB HBM3 at 700.00 W), printed beside this run's
+BEFORE_GRAPHS = {
+    "slice": "96.2 / 49.8 tok/s, p99 7.93 / 15.37 s, TTFT not recorded",
+    "paged": "44.3 / 42.5 tok/s, p99 and TTFT not recorded",
+    "serve w8a16": "decode loop 549 / 343 tok/s, engine 31.6 / 21.2 tok/s, "
+                   "p99 and TTFT not recorded",
+    "serve w8a8": "decode loop 355 / 180 tok/s, engine 16.3 / 11.8 tok/s, "
+                  "p99 and TTFT not recorded"}
 
 KERNELS = {
     "qmatmul_w8a16": {
@@ -1174,6 +1203,7 @@ def slice_phase(cfg, params):
           f"mean ttft {rep.mean_ttft_s:.3f}s, "
           f"mean occupancy {rep.mean_occupancy:.3f}, "
           f"watchdog stuck ticks {rep.stuck_ticks}")
+    print(f"slice: before the captured tick: {BEFORE_GRAPHS['slice']}")
     print(f"slice: kernel launches {launches}, plain-version calls "
           f"{plain_calls}")
     path = ("qmatmul_w8a16", "decode_attention_int8")
@@ -1215,6 +1245,7 @@ def paged_slice_phase(cfg, params):
     print(f"paged: ms/tick {1e3 * rep.wall_s / rep.ticks:.2f}")
     print(f"paged: p99 latency {rep.p99_latency_s:.3f}s")
     print(f"paged: mean ttft {rep.mean_ttft_s:.3f}s")
+    print(f"paged: before the captured tick: {BEFORE_GRAPHS['paged']}")
     print(f"paged: mean occupancy {rep.mean_occupancy:.3f}, watchdog stuck "
           f"ticks {rep.stuck_ticks}")
     print(f"paged: block_size {rep.block_size}, num_blocks {rep.num_blocks}, "
@@ -1325,6 +1356,8 @@ def serve_run(quant, curve_paths):
           f"decoded tok/s {rep.tokens_per_s:.1f}, mean occupancy "
           f"{rep.mean_occupancy:.3f}, watchdog stuck ticks "
           f"{rep.stuck_ticks}")
+    print(f"{label}: before the captured tick and loop: "
+          f"{BEFORE_GRAPHS[label]}")
     need = ["flash_attention_bhsd"] + (["qmatmul_w8a8"]
                                        if quant == "w8a8" else [])
     if any(launches[k] <= 0 for k in need):
@@ -1366,9 +1399,10 @@ def device_breakdown(label: str, what: str, fn, reps: int):
     """Where one call of ``fn`` spends its time: host wall clock per call
     (each ending in a wait for the card) over ``reps`` calls, then the
     device's busy time, its largest kernels and the host's largest ops
-    from torch.profiler over ``reps`` more.  Returns (cudaLaunchKernel
-    calls, device busy ms, {kernel: device ms}) per call; busy is None
-    where the profiler reported no device time."""
+    from torch.profiler over ``reps`` more.  Returns, per call, ``wall``
+    ms, ``busy`` ms (None where the profiler reported no device time),
+    ``launch_calls`` (cudaLaunchKernel), ``graph_launches``
+    (cudaGraphLaunch) and ``by_kernel`` ({kernel: device ms})."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1392,12 +1426,15 @@ def device_breakdown(label: str, what: str, fn, reps: int):
     events = [e for e in prof.key_averages()
               if str(e.device_type).endswith("CUDA")]
     dev_us = sum(e.self_device_time_total for e in events)
-    launch_calls = sum(e.count for e in prof.key_averages()
-                       if e.key == "cudaLaunchKernel") / reps
+    launch_calls, graph_launches = (
+        sum(e.count for e in prof.key_averages() if e.key == key) / reps
+        for key in ("cudaLaunchKernel", "cudaGraphLaunch"))
+    out = {"wall": wall_ms, "busy": None, "launch_calls": launch_calls,
+           "graph_launches": graph_launches, "by_kernel": {}}
     if dev_us <= 0:
         print(f"{label}: {what} wall {wall_ms:.2f} ms, device busy not "
               f"measured (the profiler reported no device time)")
-        return launch_calls, None, {}
+        return out
     busy_ms = dev_us / 1e3 / reps
     print(f"{label}: {what} wall {wall_ms:.2f} ms, device busy "
           f"{busy_ms:.3f} ms ({100 * busy_ms / wall_ms:.1f}%), idle "
@@ -1412,15 +1449,21 @@ def device_breakdown(label: str, what: str, fn, reps: int):
                               for e in host), reverse=True)[:8]:
         print(f"  host time per call {us / 1e3 / reps:.3f} ms in "
               f"{n // reps} calls: {key[:60]}")
-    return launch_calls, busy_ms, {e.key: e.self_device_time_total / 1e3 / reps
-                                   for e in events}
+    out["busy"] = busy_ms
+    out["by_kernel"] = {e.key: e.self_device_time_total / 1e3 / reps
+                        for e in events}
+    return out
+
+
+# label -> device_breakdown of the eager steady tick, for the graph phase
+EAGER_TICKS = {}
 
 
 def tick_breakdown(cfg, params, num_slots: int, max_seq: int,
                    block_size: int = 0, ticks: int = 10,
                    label: str = "tick", mode: str = "w8a16") -> None:
     """Where one steady-state slot tick's time goes: all slots active at a
-    mid-sequence position.  ``block_size``: the same tick on a paged
+    mid-sequence position, through the eager step.  ``block_size``: the same tick on a paged
     cache, every slot's row on blocks of its own (a pool of
     ``num_slots * max_seq / block_size + 1`` blocks).  ``mode``: the
     projections' quantization, "w8a16" (181 qmatmul_w8a16 GEMV launches a
@@ -1461,10 +1504,12 @@ def tick_breakdown(cfg, params, num_slots: int, max_seq: int,
             or launches["qmatmul_w8a16[mma]"]
             or launches["qmatmul_w8a8"] != w8a8):
         raise AssertionError(f"{label}: {launches}")
-    calls, busy, by_kernel = device_breakdown(
+    res = EAGER_TICKS[label] = device_breakdown(
         label, f"steady-state slot tick ({S} active rows at position "
         f"{max_seq // 2} of {max_seq})",
         lambda: step(params, toks, cache, idx, active)[0].cpu(), ticks)
+    calls, busy, by_kernel = (res["launch_calls"], res["busy"],
+                              res["by_kernel"])
     limit = BEFORE_TICK_LAUNCH_CALLS["w8a8 tick" if mode == "w8a8" else
                                      "paged tick" if block_size else "tick"]
     print(f"{label}: cudaLaunchKernel calls per tick {calls:.0f} (before "
@@ -1506,6 +1551,306 @@ def long_tick_phase(cfg, params) -> None:
                    label="long paged tick")
 
 
+# the graph phase: each tick tick_breakdown drives, eager against captured
+# on two copies of one randomly filled cache, (label, slots, max_seq,
+# block size, mode); then the serve CLI's decode loop at its shape
+GRAPH_TICKS = 4
+GRAPH_CASES = (
+    ("tick", NUM_SLOTS, PROMPT_LEN + MAX_NEW, 0, "w8a16"),
+    ("paged tick", NUM_SLOTS, PAGED_PROMPT_LEN + MAX_NEW, PAGED_BLOCK,
+     "w8a16"),
+    ("long tick", NUM_SLOTS, LONG_SLOTS, 0, "w8a16"),
+    ("long paged tick", NUM_SLOTS, LONG_SLOTS, PAGED_BLOCK, "w8a16"),
+    ("w8a8 tick", SERVE_MAX_BATCH, PROMPT_LEN + MAX_NEW, 0, "w8a8"))
+LOOP_STARTS = (0, 5)
+LOOP_TOKENS = 16           # the serve CLI's --decode-tokens
+TIMED_LOOPS = 3
+
+
+def _graph_tick_inputs(S: int, max_seq: int, mb: int, vocab: int):
+    """The inputs of GRAPH_TICKS ticks over S rows, on the CPU: (tokens,
+    index, active, tables or None) per tick.  Rows sit at ragged positions
+    below max_seq / 2 and advance while active; row 1 retires at tick 1
+    (position 0; paged: its table row pointed at the trash block) and is
+    admitted again at tick 2 at position 0 (paged: on blocks no other row
+    holds); the last row retires at tick 3; the tokens are random.  Paged:
+    tables into a pool of S * mb + mb + 1 blocks, shuffled."""
+    import torch
+    g = torch.Generator().manual_seed(SEED)
+    index = (max_seq // 2 - 3 * torch.arange(S, dtype=torch.int32)) \
+        .clamp_min(0)
+    active = torch.ones(S, dtype=torch.bool)
+    perm = torch.randperm(S * mb + mb, generator=g).to(torch.int32) + 1
+    tables = perm[:S * mb].reshape(S, mb).clone() if mb else None
+    out = []
+    for t in range(GRAPH_TICKS):
+        if t == 1:
+            active[1], index[1] = False, 0
+            if mb:
+                tables[1] = 0
+        if t == 2:
+            active[1] = True
+            if mb:
+                tables[1] = perm[S * mb:]
+        if t == 3:
+            active[-1] = False
+        out.append((torch.randint(1, vocab, (S, 1), generator=g,
+                                  dtype=torch.int32),
+                    index.clone(), active.clone(),
+                    None if tables is None else tables.clone()))
+        index = index + active.to(torch.int32)
+    return out
+
+
+def _random_cache(cfg, S: int, max_seq: int, block_size: int) -> dict:
+    """An int8 cache (paged: a pool of S * mb + mb + 1 blocks) filled with
+    random values and scales, so that every tick attends to a history."""
+    import torch
+    from repro_torch.models import registry as R
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    with torch.inference_mode():
+        if block_size:
+            mb = max_seq // block_size
+            cache = R.init_paged_cache(cfg, S, max_seq, block_size,
+                                       S * mb + mb + 1, device="cuda")
+        else:
+            cache = R.init_cache(cfg, S, max_seq, device="cuda")
+        for name, t in cache.items():
+            if t.dtype == torch.int8:
+                t.copy_(torch.randint(-127, 128, t.shape, generator=g,
+                                      device="cuda", dtype=torch.int8))
+            elif t.dtype == torch.float32:
+                t.copy_(torch.rand(t.shape, generator=g, device="cuda")
+                        * 0.04 + 0.005)
+    return cache
+
+
+def graph_tick_case(cfg, params, label, S, max_seq, block_size, mode):
+    """One tick eager against captured: GRAPH_TICKS ticks of
+    :func:`_graph_tick_inputs` on two copies of one random cache, next
+    tokens, indices and every cache leaf ``torch.equal`` after each, the
+    launch counts of each replay equal to the eager tick's (the first
+    call: twice, its warm-up's and its replay's); then the captured
+    steady tick's breakdown beside the eager one's of this run
+    (``EAGER_TICKS``), whose wall it must beat.  Returns the case's
+    (captured step, eager step, eager cache, captured cache)."""
+    import torch
+    from repro_torch.core.qlinear import W8A8, W8A16
+    from repro_torch.runtime import steps as ST
+
+    qm = {"w8a16": W8A16, "w8a8": W8A8}[mode]
+    mb = max_seq // block_size if block_size else 0
+    cache = _random_cache(cfg, S, max_seq, block_size)
+    other = {k: v.clone() for k, v in cache.items()}
+    eager = ST.make_slot_decode_step(cfg, mode=qm)
+    graphed = ST.jit_slot_decode_step(ST.make_slot_decode_step(cfg, mode=qm))
+    w8a8 = 6 * cfg.n_layers if mode == "w8a8" else 0
+    attn = ("decode_attention_int8_paged" if block_size
+            else "decode_attention_int8")
+    want = {"qmatmul_w8a16[gemv]": 6 * cfg.n_layers + 1 - w8a8,
+            "qmatmul_w8a16[mma]": 0, "qmatmul_w8a8": w8a8,
+            attn: cfg.n_layers}
+    capture_s = 0.0
+    for t, (toks, idx, active, tables) in enumerate(
+            _graph_tick_inputs(S, max_seq, mb, cfg.vocab)):
+        with torch.inference_mode():
+            if tables is not None:
+                for c in (cache, other):
+                    c["block_tables"].copy_(tables)
+            args = [x.cuda() for x in (toks, idx, active)]
+            zero_counts()
+            n_e, _, i_e = eager(params, args[0], cache, *args[1:])
+            per_eager, _ = read_counts()
+            zero_counts()
+            t0 = time.perf_counter()
+            n_g, _, i_g = graphed(params, args[0], other, *args[1:])
+            torch.cuda.synchronize()
+            capture_s = capture_s or time.perf_counter() - t0
+            per_graph, plain = read_counts()
+        if not (torch.equal(n_g, n_e) and torch.equal(i_g, i_e)):
+            raise AssertionError(f"{label}: tick {t}: the captured tick's "
+                                 f"next tokens or indices differ")
+        if not torch.equal(i_e.cpu(), idx + active.to(torch.int32)):
+            raise AssertionError(f"{label}: tick {t}: wrong indices")
+        for name in cache:
+            if not torch.equal(other[name], cache[name]):
+                raise AssertionError(f"{label}: tick {t}: cache leaf "
+                                     f"{name} differs")
+        if any(plain.values()):
+            raise AssertionError(f"{label}: a plain version ran: {plain}")
+        if any(per_eager[k] != n for k, n in want.items()):
+            raise AssertionError(f"{label}: eager tick launches "
+                                 f"{per_eager}, expected {want}")
+        if per_graph != {k: n * (2 if t == 0 else 1)
+                         for k, n in per_eager.items()}:
+            raise AssertionError(f"{label}: tick {t}: captured launches "
+                                 f"{per_graph} against eager {per_eager}")
+    reserved, allocated = graphed.captured.pool_bytes
+    print(f"{label} graph: {GRAPH_TICKS} ticks (a row retiring, a row "
+          f"admitted{', a table row changed' if block_size else ''}) "
+          f"bitwise equal to the eager tick: next tokens, indices and "
+          f"{len(cache)} cache leaves; launches per replay "
+          f"{ {k: per_graph[k] for k in want} } = the eager tick's; "
+          f"capture {capture_s:.2f} s with its warm-up, private pool "
+          f"{reserved} bytes reserved, {allocated} allocated")
+    with torch.inference_mode():
+        toks = torch.ones((S, 1), dtype=torch.int32, device="cuda")
+        idx = torch.full((S,), max_seq // 2, dtype=torch.int32,
+                         device="cuda")
+        active = torch.ones((S,), dtype=torch.bool, device="cuda")
+    res = device_breakdown(
+        f"{label} graph", f"captured steady-state slot tick ({S} active "
+        f"rows at position {max_seq // 2} of {max_seq})",
+        lambda: graphed(params, toks, other, idx, active)[0].cpu(), 10)
+    with torch.inference_mode():
+        # the breakdown's replays all wrote the same k/v at max_seq // 2
+        # into the captured copy: one eager tick writes them into the other
+        eager(params, toks, cache, idx, active)
+    if any(not torch.equal(other[k], cache[k]) for k in cache):
+        raise AssertionError(f"{label}: the breakdown's replays left the "
+                             f"cache unlike one eager tick's")
+    eag = EAGER_TICKS[label]
+
+    def ms(x):
+        return "not measured" if x is None else f"{x:.3f} ms"
+
+    print(f"{label}: eager / captured per tick: wall {eag['wall']:.2f} / "
+          f"{res['wall']:.2f} ms, device busy {ms(eag['busy'])} / "
+          f"{ms(res['busy'])}, cudaLaunchKernel {eag['launch_calls']:.0f} "
+          f"/ {res['launch_calls']:.0f}, cudaGraphLaunch "
+          f"{eag['graph_launches']:.0f} / {res['graph_launches']:.0f}"
+          + (f"; captured wall / busy {res['wall'] / res['busy']:.2f}"
+             if res["busy"] else ""))
+    if graphed.captured.captures != 1:
+        raise AssertionError(f"{label}: captured "
+                             f"{graphed.captured.captures} times")
+    if res["wall"] >= eag["wall"]:
+        raise AssertionError(f"{label}: the captured tick's wall "
+                             f"{res['wall']:.2f} ms is not below the eager "
+                             f"tick's {eag['wall']:.2f} ms")
+    return graphed, eager, cache, other
+
+
+def graph_loop_case(cfg, params, quant: str) -> None:
+    """The serve CLI's decode loop (bf16 cache, batch SERVE_MAX_BATCH,
+    LOOP_TOKENS tokens, max_seq SERVE_SEQ) eager against captured: tokens
+    and cache ``torch.equal`` at every start of LOOP_STARTS on one graph,
+    a replay's launch counts equal to the eager loop's; then tok/s of
+    both, host clock over TIMED_LOOPS loops each ending in a wait."""
+    import torch
+    from repro_torch.core.qlinear import W8A8, W8A16
+    from repro_torch.models import registry as R
+    from repro_torch.runtime import steps as ST
+
+    qm = {"w8a16": W8A16, "w8a8": W8A8}[quant]
+    bcfg = dataclasses.replace(cfg, kv_quant=False)
+    b = SERVE_MAX_BATCH
+    eager = ST.make_decode_loop(bcfg, mode=qm, num_tokens=LOOP_TOKENS)
+    graphed = ST.jit_decode_loop(ST.make_decode_loop(
+        bcfg, mode=qm, num_tokens=LOOP_TOKENS))
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    label = f"decode loop {quant}"
+    with torch.inference_mode():
+        toks = torch.randint(1, cfg.vocab, (b, 1), generator=g,
+                             device="cuda", dtype=torch.int32)
+        cache = R.init_cache(bcfg, b, SERVE_SEQ, device="cuda")
+        other = R.init_cache(bcfg, b, SERVE_SEQ, device="cuda")
+        for start in LOOP_STARTS:
+            zero_counts()
+            want, _ = eager(params, toks, cache, start)
+            per_eager, _ = read_counts()
+            zero_counts()
+            got, _ = graphed(params, toks, other, start)
+            per_graph, _ = read_counts()
+            if not torch.equal(got, want) or any(
+                    not torch.equal(other[k], cache[k]) for k in cache):
+                raise AssertionError(f"{label}: start {start}: the captured "
+                                     f"loop's tokens or cache differ")
+            if start and per_graph != per_eager:
+                raise AssertionError(f"{label}: replay launches "
+                                     f"{per_graph}, eager {per_eager}")
+
+        def tps(fn, c):
+            fn(params, toks, c, 0)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(TIMED_LOOPS):
+                fn(params, toks, c, 0)
+            torch.cuda.synchronize()
+            return b * LOOP_TOKENS * TIMED_LOOPS / (time.perf_counter() - t0)
+
+        eager_tps = tps(eager, cache)
+        graph_tps = tps(graphed, other)
+    if graphed.captured.captures != 1:
+        raise AssertionError(f"{label}: captured "
+                             f"{graphed.captured.captures} times")
+    reserved, allocated = graphed.captured.pool_bytes
+    print(f"{label}: batch {b}, {LOOP_TOKENS} tokens, max_seq {SERVE_SEQ}: "
+          f"captured loop bitwise equal to the eager loop (tokens and "
+          f"cache) at starts {LOOP_STARTS} on one graph; launches per "
+          f"replay {per_graph['qmatmul_w8a16']} qmatmul_w8a16, "
+          f"{per_graph['qmatmul_w8a8']} qmatmul_w8a8 = the eager loop's; "
+          f"tok/s eager {eager_tps:.1f}, captured {graph_tps:.1f}; private "
+          f"pool {reserved} bytes reserved, {allocated} allocated")
+
+
+def graph_phase(cfg, params) -> None:
+    """The captured steps against the eager ones: every tick of
+    GRAPH_CASES, the decode loop under w8a16 and w8a8, then the workspace
+    a captured step holds: the 8-row tick, captured first, replays equal
+    to the eager tick after the 16-row W8A8 tick and the 16-row loops
+    grew the capture stream's workspace, and every arrival counter is
+    back at 0."""
+    import torch
+    from repro_torch.kernels import scratch
+    from repro_torch.runtime import graphs as G
+
+    kept = None
+    for case in GRAPH_CASES:
+        out = graph_tick_case(cfg, params, *case)
+        if kept is None:
+            kept = out
+        del out
+        torch_cuda_empty()
+    for quant in ("w8a16", "w8a8"):
+        graph_loop_case(cfg, params, quant)
+        torch_cuda_empty()
+    graphed, eager, cache, other = kept
+    held = graphed.captured.scratch
+    side = G.capture_stream(cache["k"].device).cuda_stream
+    now = scratch.held(cache["k"].device, side)
+    S, max_seq = GRAPH_CASES[0][1:3]
+    with torch.inference_mode():
+        toks, idx, active, _ = _graph_tick_inputs(S, max_seq, 0,
+                                                  cfg.vocab)[0]
+        toks = (toks + 1) % cfg.vocab
+        args = [x.cuda() for x in (toks, idx + GRAPH_TICKS, active)]
+        n_e, _, i_e = eager(params, args[0], cache, *args[1:])
+        n_g, _, i_g = graphed(params, args[0], other, *args[1:])
+    torch.cuda.synchronize()
+    if not (torch.equal(n_g, n_e) and torch.equal(i_g, i_e)) or any(
+            not torch.equal(other[k], cache[k]) for k in cache):
+        raise AssertionError("graph scratch: the first captured tick, "
+                             "replayed after larger captures, differs from "
+                             "the eager tick")
+    if graphed.captured.captures != 1:
+        raise AssertionError("graph scratch: the first tick was captured "
+                             "again")
+    grown = now[0].data_ptr() != held[0].data_ptr()
+    pairs = [held, now] + list(scratch._SCRATCH.values())
+    if any(pair[1].any() for pair in pairs):
+        raise AssertionError("graph scratch: an arrival counter is not 0")
+    print(f"graph scratch: the {S}-row tick, captured first, replayed equal "
+          f"to the eager tick after the 16-row captures; the capture "
+          f"stream's workspace {'grew' if grown else 'did not grow'} "
+          f"({held[0].numel()} -> {now[0].numel()} f32), the tick holds "
+          f"its own; every arrival counter of {len(pairs)} pairs at 0")
+    if not grown:
+        raise AssertionError("graph scratch: the 16-row captures did not "
+                             "grow the workspace, so the check shows "
+                             "nothing")
+
+
 def forward_breakdown(label: str, res) -> None:
     """Where the service curve's largest prefill spends its time: one
     full-sequence forward of SERVE_MAX_BATCH x SERVE_SEQ tokens."""
@@ -1519,7 +1864,7 @@ def forward_breakdown(label: str, res) -> None:
                      f"tokens", lambda: prefill(res.params, batch), 3)
 
 
-PHASES = ("attention", "long_tick", "w8a8")
+PHASES = ("attention", "long_tick", "w8a8", "graphs")
 
 
 def parse_args(argv):
@@ -1532,8 +1877,9 @@ def parse_args(argv):
     ap.add_argument("--only", choices=PHASES, action="append",
                     help="run only this phase (repeatable): the two decode "
                          "attention kernel phases, the long-context ticks, "
-                         "or qmatmul_w8a8's kernel phase and the W8A8 tick; "
-                         "prints no result line")
+                         "qmatmul_w8a8's kernel phase and the W8A8 tick, or "
+                         "the five eager tick breakdowns and the graph "
+                         "phase; prints no result line")
     return ap.parse_args(argv)
 
 
@@ -1589,12 +1935,19 @@ def main(argv=None) -> int:
         if "w8a8" in args.only:
             qmatmul_w8a8_phase(flush)
         del flush_buf
-        if {"long_tick", "w8a8"} & set(args.only):
+        if {"long_tick", "w8a8", "graphs"} & set(args.only):
             cfg, params = build_model()
-        if "long_tick" in args.only:
+        if "graphs" in args.only:
+            tick_breakdown(cfg, params, NUM_SLOTS, PROMPT_LEN + MAX_NEW)
+            tick_breakdown(cfg, params, NUM_SLOTS,
+                           PAGED_PROMPT_LEN + MAX_NEW, PAGED_BLOCK,
+                           label="paged tick")
+        if {"long_tick", "graphs"} & set(args.only):
             long_tick_phase(cfg, params)
-        if "w8a8" in args.only:
+        if {"w8a8", "graphs"} & set(args.only):
             w8a8_tick_phase(cfg, params)
+        if "graphs" in args.only:
+            graph_phase(cfg, params)
         print("chip_smoke: partial run passed; no result line")
         return 0
     print("kernels: each CUDA kernel against its plain version on the card")
@@ -1615,6 +1968,9 @@ def main(argv=None) -> int:
     paged_launches = paged_slice_phase(cfg, params)
     long_tick_phase(cfg, params)
     w8a8_tick_phase(cfg, params)
+    graph_phase(cfg, params)
+    from repro_torch.runtime import steps as ST
+    ST.clear_step_cache()           # the engines' captured tick and cache
     del params
     torch_cuda_empty()
     serve_launches = serve_phase()

@@ -37,7 +37,6 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.core.qlinear import QuantMode
 from repro_torch.engine.scheduler import SlotScheduler
 from repro_torch.engine.slots import BlockPool, SlotPool
-from repro_torch.models import registry as R
 from repro_torch.runtime import steps as ST
 from repro_torch.runtime.watchdog import StepWatchdog
 
@@ -114,13 +113,16 @@ class ExecutorBackend:
 
 
 class SingleDeviceExecutor(ExecutorBackend):
-    """The one-card step set."""
+    """The one-card step set: the slot tick captured as a CUDA graph and
+    memoized process-wide (``runtime/steps.py::cached_slot_decode_step``),
+    as the reference's executor hands out its compiled step; the chunk
+    step eager."""
 
     kind = "single"
 
     def slot_step(self, cfg, *, mode, temperature):
-        return ST.make_slot_decode_step(cfg, mode=mode,
-                                        temperature=temperature)
+        return ST.cached_slot_decode_step(cfg, mode=mode,
+                                          temperature=temperature)
 
     def chunk_step(self, cfg, *, mode, chunk):
         return ST.make_prefill_chunk_step(cfg, mode=mode, chunk=chunk)
@@ -164,8 +166,10 @@ class DispatchOutcome:
 class DispatchCore:
     """The tick loop: ingest -> admit -> chunk prefill -> one fused slot
     step -> host bookkeeping, repeated until the trace drains.  One
-    instance per ``serve`` call; the pool, the device cache and the host
-    token / index mirrors are built fresh for every run."""
+    instance per ``serve`` call; the pool and the host token / index
+    mirrors are built fresh for every run, and the device cache is the
+    engine's, zeroed in place (``Engine.zeroed_cache``), so the captured
+    tick stays bound to it from run to run."""
 
     def __init__(self, eng):
         self.eng = eng
@@ -219,14 +223,10 @@ class DispatchCore:
         dev = eng.device
         pool = SlotPool(S, max_seq=eng.max_seq)
         paged = eng.block_size is not None
+        cache = eng.zeroed_cache()
         if paged:
             bpool = self.bpool = BlockPool(eng.num_blocks, eng.block_size)
-            cache = R.init_paged_cache(eng.cfg, S, eng.max_seq,
-                                       eng.block_size, eng.num_blocks,
-                                       device=dev)
             tables_np = np.zeros((S, eng.max_blocks), np.int32)
-        else:
-            cache = R.init_cache(eng.cfg, S, eng.max_seq, device=dev)
         tables_dirty = False
         shared_hits = skipped_tokens = blocks_demanded = peak_used = 0
         util_sum = 0.0
@@ -403,6 +403,8 @@ class DispatchCore:
                                for s in pool.slots], bool)
             nxt = None
             if active.any():
+                # the captured step's outputs are static buffers that the
+                # next tick overwrites: read here, within this tick
                 nxt_d, cache, new_index = step(
                     eng.params, torch.as_tensor(tokens, device=dev), cache,
                     torch.as_tensor(index, device=dev),

@@ -3,9 +3,11 @@
 Port of ``repro/engine/engine.py`` for one model with greedy sampling:
 
 - The KV cache is a fixed pool of ``num_slots`` rows of ``max_seq``
-  positions; every tick advances every ready slot by one token in one
-  ``make_slot_decode_step`` call (active mask folded into sampling and
-  index advance).
+  positions, owned by the engine and zeroed in place for each run; every
+  tick advances every ready slot by one token in one call of the slot
+  step (active mask folded into sampling and index advance), which on
+  the card replays a CUDA graph captured over that cache
+  (``runtime/steps.py::jit_slot_decode_step``).
 - With ``block_size=bs`` the rows are paged: ``num_blocks`` physical KV
   blocks of ``bs`` positions behind per-slot block tables, with
   refcounted sharing of whole prompt-prefix blocks (a hit skips their
@@ -172,21 +174,39 @@ class Engine:
         self.backend = backend if backend is not None \
             else SingleDeviceExecutor()
         self.backend.validate(self)
+        self._cache: Optional[dict] = None
+
+    def zeroed_cache(self) -> dict:
+        """The engine's KV cache (paged: with its block tables), all zeros:
+        built at the first call, zeroed in place at every later one —
+        byte for byte a fresh cache, in the same tensors, which the
+        captured slot step stays bound to from one run to the next."""
+        with torch.inference_mode():
+            if self._cache is None:
+                S, dev = self.num_slots, self.device
+                if self.block_size:
+                    self._cache = R.init_paged_cache(
+                        self.cfg, S, self.max_seq, self.block_size,
+                        self.num_blocks, device=dev)
+                else:
+                    self._cache = R.init_cache(self.cfg, S, self.max_seq,
+                                               device=dev)
+            else:
+                for t in self._cache.values():
+                    t.zero_()
+        return self._cache
 
     def warmup(self) -> None:
         """Run the slot step (and, with chunked prefill, the chunk step)
-        once on a throwaway cache, so that a wall-clock ``serve`` charges
+        once on the engine's cache, so that a wall-clock ``serve`` charges
         its first tick to serving, not to building and loading the
-        kernels or to the libraries' first-call set-up."""
+        kernels, the libraries' first-call set-up or, on the card, the
+        capture of the slot step's graph: the next ``serve`` zeroes the
+        cache in place and replays that graph."""
         S = self.num_slots
         dev = self.device
         with torch.inference_mode():
-            if self.block_size:
-                cache = R.init_paged_cache(self.cfg, S, self.max_seq,
-                                           self.block_size, self.num_blocks,
-                                           device=dev)
-            else:
-                cache = R.init_cache(self.cfg, S, self.max_seq, device=dev)
+            cache = self.zeroed_cache()
             step = self.backend.slot_step(self.cfg, mode=self.mode,
                                           temperature=self.temperature)
             step(self.params, torch.zeros((S, 1), dtype=torch.int32,

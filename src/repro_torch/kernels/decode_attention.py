@@ -14,7 +14,7 @@ through a workspace and counters kept per (device, stream)
 (``kernels/scratch.py``).  A wrapper takes CUDA tensors only,
 checks them, allocates the f32 output, launches on the current stream and
 raises if the launch was refused.  Each launch adds one to its
-``.launches``.
+``.launches`` (``kernels/counts.py``).
 
 ``decode_attention_int8_ref`` is the plain PyTorch version (the port of
 ``repro/kernels/ref.py::decode_attention_int8_ref``): it dequantizes the
@@ -42,7 +42,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import _build, scratch
+from repro_torch.kernels import _build, counts, scratch
 
 NEG_INF = -1e30
 MAX_G = 16          # query heads per kv head: one m16 tile of the products
@@ -268,6 +268,7 @@ def decode_attention_int8(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 decode_attention_int8.launches = 0
+counts.register(decode_attention_int8)
 
 
 def decode_attention_int8_paged(q: torch.Tensor, k: torch.Tensor,
@@ -318,3 +319,4 @@ def decode_attention_int8_paged(q: torch.Tensor, k: torch.Tensor,
 
 
 decode_attention_int8_paged.launches = 0
+counts.register(decode_attention_int8_paged)

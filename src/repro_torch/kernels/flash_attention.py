@@ -6,7 +6,7 @@ Hopper port of the Pallas TPU kernel
 ``repro/kernels/flash_attention.py::flash_attention_bhsd``.  It takes CUDA
 tensors only, checks them, allocates the output, launches on the current
 stream and raises if the launch was refused.  Each launch adds one to
-``flash_attention_bhsd.launches``.
+``flash_attention_bhsd.launches`` (``kernels/counts.py``).
 
 ``flash_attention_ref`` is the plain PyTorch version (the port of
 ``repro/kernels/ref.py::flash_attention_ref``, with the kernel's ``kv_len``
@@ -27,7 +27,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, counts
 
 NEG_INF = -1e30
 MAX_HD = 128        # the kernel's largest head_dim (16 n8 tiles of the context)
@@ -129,3 +129,4 @@ def flash_attention_bhsd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 flash_attention_bhsd.launches = 0
+counts.register(flash_attention_bhsd)

@@ -10,7 +10,8 @@ full-sequence forward).  It
 takes CUDA tensors only, checks them, allocates the output, launches on
 the current stream and raises if the launch was refused.  Each launch adds
 one to ``qmatmul_w8a16.launches`` and to its path's count in
-``qmatmul_w8a16.launches_by_path``.
+``qmatmul_w8a16.launches_by_path`` (``kernels/counts.py``: a captured
+step adds its capture's counts on every replay).
 
 ``qmatmul_w8a16_ref`` is the plain PyTorch version of the same function
 (the port of ``repro/kernels/ref.py::qmatmul_w8a16_ref``).  It computes
@@ -40,7 +41,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels import _build, scratch
+from repro_torch.kernels import _build, counts, scratch
 
 ACTIVATIONS = ("none", "relu", "gelu", "silu", "tanh", "sigmoid")
 _FLOAT_TYPES = (torch.float32, torch.bfloat16)
@@ -307,6 +308,7 @@ def qmatmul_w8a16_on_path(path: str, x: torch.Tensor, w: torch.Tensor,
 
 qmatmul_w8a16.launches = 0
 qmatmul_w8a16.launches_by_path = dict.fromkeys(W8A16_PATHS, 0)
+counts.register(qmatmul_w8a16)
 
 
 # The W8A8 wrapper's two kernels: rows up to W8A8_GEMV_MAX_ROWS go to the
@@ -422,3 +424,4 @@ def qmatmul_w8a8_on_path(path: str, x: torch.Tensor, w: torch.Tensor,
 
 
 qmatmul_w8a8.launches = 0
+counts.register(qmatmul_w8a8)

@@ -6,9 +6,10 @@ prefill service-time curve through the full-sequence ``forward`` (every
 attention layer through the flash-attention kernel; ``--max-batch`` joins
 the measured set, so batch selection interpolates), pick the largest batch
 meeting the p99 deadline (the paper's Table 4 policy), time the multi-token
-decode loop at that batch, then size a slot pool at that batch and drive
-the continuous-batching ``Engine`` against a pseudo-Poisson request stream
-under the wall clock — or, with ``--sim``, the virtual-time ``BatchQueue``
+decode loop at that batch (captured as a CUDA graph), then size a slot
+pool at that batch and drive the continuous-batching ``Engine`` (its tick
+captured likewise) against a pseudo-Poisson request stream under the wall
+clock — or, with ``--sim``, the virtual-time ``BatchQueue``
 simulator (same admission policy, no model execution).  The KV cache is
 bf16 (``starcoder2-3b`` leaves ``kv_quant`` off, as the reference's CLI
 does); ``--quant w8a8`` runs every projection through the int8 x int8
@@ -99,17 +100,20 @@ def measure_service_curve(step_fn, params, cfg: ArchConfig, *, seq: int,
 def measure_decode_tps(cfg: ArchConfig, params, mode: QuantMode, batch: int,
                        *, s_max: int, num_tokens: int, device=None):
     """Tokens/s of the multi-token decode loop for ``batch`` useful
-    requests.  The loop runs at the *bucketed* batch (requests padded up
-    to the static ladder), but throughput counts only the ``batch`` real
-    requests' tokens.  Returns (bucketed_batch, tokens_per_s,
-    seconds_per_loop)."""
+    requests, as it runs when served: captured once as a CUDA graph over
+    its cache (``runtime/steps.py::jit_decode_loop``, the reference's
+    jitted loop with the cache donated) and replayed.  The loop runs at
+    the *bucketed* batch (requests padded up to the static ladder), but
+    throughput counts only the ``batch`` real requests' tokens.  Returns
+    (bucketed_batch, tokens_per_s, seconds_per_loop)."""
     device = resolve_device(device)
     b = ST.bucket_batch(batch)
-    loop = ST.make_decode_loop(cfg, mode=mode, num_tokens=num_tokens)
+    loop = ST.jit_decode_loop(
+        ST.make_decode_loop(cfg, mode=mode, num_tokens=num_tokens))
     tokens = torch.ones((b, 1), dtype=torch.int32, device=device)
     with torch.inference_mode():
         cache = R.init_cache(cfg, b, s_max, device=device)
-        loop(params, tokens, cache, 0)                 # warm
+        loop(params, tokens, cache, 0)                 # capture + warm
         _sync(device)
         t0 = time.perf_counter()
         for _ in range(TIMED_CALLS):

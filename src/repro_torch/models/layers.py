@@ -20,6 +20,7 @@ from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.weak import WeakIdKeyDictionary
 
 from repro_torch.core.qlinear import FP, QuantMode, linear
 from repro_torch.core.quant import QTensor
@@ -119,19 +120,20 @@ def q8(t: Tensor) -> Tuple[Tensor, Tensor]:
 
 
 def cache_write(c: Tensor, new: Tensor, idx) -> None:
-    """Write ``new`` (B, 1, ...) into ``c`` in place at position ``idx``:
-    an int for lockstep decode into (B, S, ...), or a pair of (B,) long
-    tensors where every row writes at its own place — ``(rows,
-    positions)`` into contiguous rows (B, S, ...) (the slot engine), or
-    ``(blocks, offsets)`` into paged blocks (NB, bs, ...), the in-place
-    form of the reference's ``paged_append``.  Retired rows' tables point
-    at trash block 0, so several rows may write the same place: plain
-    assignment (never an accumulating one) leaves one of them there, and
-    trash is never read unmasked."""
+    """Write ``new`` (B, s, ...) into ``c`` in place: at positions ``idx
+    .. idx + s - 1`` for an int ``idx`` (lockstep decode into (B, S,
+    ...)), or, where every row writes at its own places, through a pair
+    of long tensors that index (B, s) places — ``(rows, positions)`` into
+    contiguous rows (B, S, ...) (the slot engine), or ``(blocks,
+    offsets)`` into paged blocks (NB, bs, ...), the in-place form of the
+    reference's ``paged_append``.  Retired rows' tables point at trash
+    block 0, so several rows may write the same place: plain assignment
+    (never an accumulating one) leaves one of them there, and trash is
+    never read unmasked."""
     if isinstance(idx, int):
-        c[:, idx] = new[:, 0]
+        c[:, idx:idx + new.shape[1]] = new
     else:
-        c[idx] = new[:, 0]
+        c[idx] = new
 
 
 def bf16_cache_attention(q: Tensor, ck: Tensor, cv: Tensor,
@@ -254,18 +256,34 @@ def embed(p: dict, tokens: Tensor, compute_dtype=torch.bfloat16) -> Tensor:
     return table.to(compute_dtype)[tokens]
 
 
+# int8 table (V, D) -> its (D, V) head, made once per table
+_HEADS = WeakIdKeyDictionary()
+
+
+def lm_head(table: QTensor) -> QTensor:
+    """The (D, V) int8 head of a quantized (V, D) table, with the table's
+    per-row scales as per-column scales: a transposed, contiguous copy of
+    the values, made at the table's first use and kept for as long as the
+    table lives (the weights are not written after they are made).  A
+    decode step then reads the head and copies nothing."""
+    head = _HEADS.get(table.values)
+    if head is None:
+        head = _HEADS[table.values] = QTensor(
+            values=table.values.t().contiguous(),
+            scale=table.scale.reshape(-1))
+    return head
+
+
 def unembed(p: dict, x: Tensor, compute_dtype=torch.bfloat16, *,
             path: str = "gemv") -> Tensor:
     """(Tied) LM head: f32 logits = x @ table.T.  A quantized table's
     per-row scales are per-output-column scales of the head, so the head
     runs through the same weight-only int8 matmul as every W8A16
-    projection (f32 out, through the kernel ``path`` names), on a (D, V)
-    transposed copy of the table."""
+    projection (f32 out, through the kernel ``path`` names), on the
+    table's (D, V) head (:func:`lm_head`)."""
     table = p["table"]
     if isinstance(table, QTensor):
-        head = QTensor(values=table.values.t().contiguous(),
-                       scale=table.scale.reshape(-1))
-        return kops.qmatmul(x.to(compute_dtype), head,
+        return kops.qmatmul(x.to(compute_dtype), lm_head(table),
                             out_dtype=torch.float32, path=path)
     return torch.matmul(x.to(compute_dtype).float(),
                         table.to(compute_dtype).float().t())

@@ -215,6 +215,21 @@ def paged_block_axes(cache: dict) -> dict:
     return {k: 1 for k in cache if k != "block_tables"}
 
 
+def decode_positions(cache_index, b: int, s: int, device) -> Tensor:
+    """(B, s) int32 positions of ``s`` tokens written from ``cache_index``
+    on: an int (every row at the same place) or a (B,) tensor (each row at
+    its own), plus ``arange(s)``, as the reference's ``decode_step``
+    computes them.  One kernel for the int form, none for one token of
+    the tensor form (the slot tick's)."""
+    if isinstance(cache_index, int):
+        return torch.arange(cache_index, cache_index + s, dtype=torch.int32,
+                            device=device).expand(b, s)
+    rows = cache_index.reshape(b, 1).int()
+    if s == 1:
+        return rows
+    return rows + torch.arange(s, dtype=torch.int32, device=device)
+
+
 def decode_step(params: dict, tokens: Tensor, cache: dict, cache_index,
                 cfg: ArchConfig, *, mode: QuantMode = FP,
                 logits: bool = True) -> Tuple[Optional[Tensor], dict]:
@@ -223,8 +238,12 @@ def decode_step(params: dict, tokens: Tensor, cache: dict, cache_index,
 
     ``cache_index`` is an int when the whole batch advances in lockstep,
     or a (B,) int tensor when every row is an independent request at its
-    own position (the slot engine).  ``logits=False`` skips the final norm
-    and LM head (chunked prefill discards them) and returns None.
+    own position (the slot engine, and the captured decode loop with
+    every row at one place: the two forms give the same bits).  Token j
+    sits at ``cache_index + j`` (:func:`decode_positions`) and is written
+    there; attention against the cache still takes one token a step
+    (``layers.attention``).  ``logits=False`` skips the final norm and LM
+    head (chunked prefill discards them) and returns None.
 
     A cache with ``block_tables`` (B, MB) is paged (:func:`init_paged_cache`
     with the slots' tables, or a slice of them): row b's position p is
@@ -245,19 +264,19 @@ def decode_step(params: dict, tokens: Tensor, cache: dict, cache_index,
         s_alloc = tables.shape[1] * bs
     else:
         s_alloc = cache["k"].shape[2]
+    positions = decode_positions(cache_index, b, s, device)
     if isinstance(cache_index, int):
-        positions = torch.full((b, s), cache_index, dtype=torch.int32,
-                               device=device)
         valid_len = torch.full((b,), min(cache_index + s, s_alloc),
                                dtype=torch.int32, device=device)
         write_idx = cache_index
     else:
-        positions = cache_index.reshape(b, 1).int()
-        valid_len = torch.clamp_max(cache_index.int() + s, s_alloc)
-        write_idx = (torch.arange(b, device=device), cache_index.long())
+        valid_len = torch.clamp_max(cache_index.reshape(b).int() + s,
+                                    s_alloc)
+        write_idx = (torch.arange(b, device=device)[:, None],
+                     positions.long())
     if tables is not None:
-        pos = positions[:, 0].long()
-        rows = torch.arange(b, device=device)
+        pos = positions.long()
+        rows = torch.arange(b, device=device)[:, None]
         write_idx = (tables[rows, pos // bs].long(), pos % bs)
     acfg = attn_config(cfg)
     rope = L.rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta)

@@ -3,12 +3,16 @@ step and the multi-token decode loop, the continuous-batching slot tick,
 and chunked prefill of one slot — the serving subset of
 ``repro/runtime/steps.py``.
 
-PyTorch runs eagerly, so there is no ``jit`` boundary and no buffer
-donation: the cache is a dict of tensors updated in place, and each step
-returns it to keep the reference's signatures.  ``jit_decode_loop`` has no
-counterpart (it only jits and donates).  Capturing the slot step
-as a CUDA graph (the counterpart of the reference's one compiled shape)
-is later work (ROADMAP queue 1, item 6).
+The ``make_*`` builders run eagerly: the cache is a dict of tensors
+updated in place, and each step returns it to keep the reference's
+signatures.  The reference's compile boundary, ``jax.jit`` with the cache
+donated, is a CUDA graph here (``runtime/graphs.py``): the
+``jit_slot_decode_step`` and ``jit_decode_loop`` wrappers capture the
+slot tick and the decode loop once over static buffers and the caller's
+cache and replay them, bit for bit the eager steps they wrap, and
+``cached_slot_decode_step`` memoizes the captured tick as the reference
+memoizes its compiled one.  The chunk step and the prefill step stay
+eager (ROADMAP queue 1, item 6).
 """
 from __future__ import annotations
 
@@ -19,6 +23,7 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.qlinear import FP, QuantMode
 from repro_torch.models import registry as R
+from repro_torch.runtime.graphs import CapturedStep
 
 
 def make_prefill_step(cfg: ArchConfig, *, mode: QuantMode = FP) -> Callable:
@@ -73,10 +78,14 @@ def make_decode_loop(cfg: ArchConfig, *, mode: QuantMode = FP,
     """Multi-token greedy decode of a lockstep batch.
 
     Returns ``loop(params, tokens, cache, cache_index) -> (out, cache)``
-    with ``tokens`` (B, 1) int32 seed, ``cache_index`` the int position of
+    with ``tokens`` (B, 1) int32 seed, ``cache_index`` the position of
     the first step, and ``out`` (B, num_tokens) int32 generated tokens;
     the cache is updated in place.  The reference scans the steps inside
-    one jit; here they are a Python loop over the same decode step."""
+    one jit; here they are a Python loop over the same decode step.
+    ``cache_index`` is an int, or a device tensor of one or B values (all
+    equal: the batch is in lockstep), which runs the decode step's
+    per-row form with every row at that place, as the captured loop does
+    (:func:`jit_decode_loop`); both forms give the same bits."""
     if temperature > 0.0:
         raise NotImplementedError(
             "temperature sampling is not ported yet (ROADMAP queue 1, "
@@ -84,7 +93,11 @@ def make_decode_loop(cfg: ArchConfig, *, mode: QuantMode = FP,
     decode = make_decode_step(cfg, mode=mode)
 
     def loop(params, tokens, cache, cache_index):
-        tok, idx, out = tokens, int(cache_index), []
+        if isinstance(cache_index, torch.Tensor):
+            idx = cache_index.reshape(-1).expand(tokens.shape[0])
+        else:
+            idx = int(cache_index)
+        tok, out = tokens, []
         for _ in range(num_tokens):
             logits, cache = decode(params, {"tokens": tok,
                                             "cache_index": idx}, cache)
@@ -94,6 +107,27 @@ def make_decode_loop(cfg: ArchConfig, *, mode: QuantMode = FP,
         return torch.stack(out, dim=1), cache
 
     return loop
+
+
+def jit_decode_loop(loop: Callable) -> Callable:
+    """A decode loop captured as one CUDA graph over its cache (the
+    reference's ``jax.jit`` with the cache donated): ``loop(params,
+    tokens, cache, cache_index) -> (out, cache)`` as
+    :func:`make_decode_loop`'s, with ``cache_index`` an int or a tensor
+    of one or B values.  The start position lives in a static buffer, so
+    one graph serves every start; ``out`` is a static buffer that the
+    next call overwrites."""
+    captured = CapturedStep(
+        lambda params, cache, tokens, start: loop(params, tokens, cache,
+                                                  start)[:1])
+
+    def graphed(params, tokens, cache, cache_index):
+        start = torch.as_tensor(cache_index, dtype=torch.int32).reshape(-1)
+        out, = captured(params, cache, tokens, start)
+        return out, cache
+
+    graphed.captured = captured
+    return graphed
 
 
 def make_slot_decode_step(cfg: ArchConfig, *, mode: QuantMode = FP,
@@ -126,6 +160,28 @@ def make_slot_decode_step(cfg: ArchConfig, *, mode: QuantMode = FP,
         return nxt, cache, slot_index + active.to(slot_index.dtype)
 
     return step
+
+
+def jit_slot_decode_step(step: Callable) -> Callable:
+    """A slot tick captured as one CUDA graph over its cache (the
+    reference's ``jax.jit`` with the cache donated): ``step(params,
+    tokens, cache, slot_index, active) -> (next_tokens, cache,
+    slot_index)`` as :func:`make_slot_decode_step`'s.  ``next_tokens``
+    and the new ``slot_index`` are static buffers that the next call
+    overwrites; a paged cache's ``block_tables`` is read where it lies, so
+    the caller updates it in place."""
+    def body(params, cache, tokens, slot_index, active):
+        nxt, _, new_index = step(params, tokens, cache, slot_index, active)
+        return nxt, new_index
+
+    captured = CapturedStep(body)
+
+    def graphed(params, tokens, cache, slot_index, active):
+        nxt, new_index = captured(params, cache, tokens, slot_index, active)
+        return nxt, cache, new_index
+
+    graphed.captured = captured
+    return graphed
 
 
 def make_prefill_chunk_step(cfg: ArchConfig, *, mode: QuantMode = FP,
@@ -169,3 +225,30 @@ def make_prefill_chunk_step(cfg: ArchConfig, *, mode: QuantMode = FP,
         return cache
 
     return step
+
+
+# Process-wide memo of the captured steps, keyed as the reference's
+# (``repro/runtime/steps.py`` ``_STEP_CACHE``) on the step's
+# specialization: engines over one config share one captured step.  A
+# captured step holds ONE graph, bound to the params and cache it last
+# ran on, so engines that take turns on one step capture anew at their
+# first tick.
+_STEP_CACHE: dict = {}
+
+
+def cached_slot_decode_step(cfg: ArchConfig, *, mode: QuantMode = FP,
+                            temperature: float = 0.0) -> Callable:
+    """Memoized ``jit_slot_decode_step(make_slot_decode_step(...))``."""
+    key = ("slot_decode", cfg, mode, temperature)
+    if key not in _STEP_CACHE:
+        _STEP_CACHE[key] = jit_slot_decode_step(make_slot_decode_step(
+            cfg, mode=mode, temperature=temperature))
+    return _STEP_CACHE[key]
+
+
+def clear_step_cache() -> None:
+    """Drop every memoized step, its graph and the params and cache it
+    holds."""
+    for fn in _STEP_CACHE.values():
+        fn.captured.release()
+    _STEP_CACHE.clear()

@@ -2,8 +2,10 @@
 of qmatmul_w8a16's paths and both of qmatmul_w8a8's), the engine,
 contiguous and paged, int8 and bf16 cache, bit-for-bit against its
 sequential reference, the serve launcher's forward through its kernels,
-which path each caller takes, and rmsnorm's row invariance, at small
-shapes.
+which path each caller takes, rmsnorm's row invariance, and the slot
+tick and the decode loop captured as CUDA graphs (bitwise the eager
+steps, recaptured on other tensors, holding their workspace, a failed
+capture raising), at small shapes.
 
 Every test here is marked ``gpu`` and skips without a CUDA device; the
 module imports no JAX, so it also runs where only the port is installed:
@@ -13,7 +15,12 @@ module imports no JAX, so it also runs where only the port is installed:
 ``chip_smoke.py`` does the same checks at full starcoder2-3b width.
 """
 import dataclasses
+import os
+import subprocess
+import sys
+from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -22,6 +29,7 @@ from repro_torch.configs import get_config
 from repro_torch.core.qlinear import W8A8, W8A16
 from repro_torch.core.quant import quantize_tree, quantize_weight
 from repro_torch.kernels import decode_attention as A
+from repro_torch.kernels import counts
 from repro_torch.kernels import flash_attention as FA
 from repro_torch.kernels import qmatmul as K
 from repro_torch.kernels import scratch
@@ -696,3 +704,286 @@ def test_forward_on_card_runs_its_kernels(cuda, batch):
     cpu = ST.make_prefill_step(cfg, mode=W8A8)(to_cpu(params),
                                                {"tokens": toks.cpu()})
     assert float((out.cpu() - cpu).abs().max()) <= 0.2
+
+
+# ---------------------------------------------------------------------------
+# the captured steps (runtime/graphs.py, runtime/steps.py jit_*)
+# ---------------------------------------------------------------------------
+
+GRAPH_BS = 4         # block size of the paged cases
+
+
+def tick_schedule(slots, max_seq, ticks, vocab, seed, mb=0):
+    """The inputs of ``ticks`` slot ticks over ``slots`` rows, as numpy:
+    ``tokens`` (S, 1), ``index`` (S,), ``active`` (S,) and, with ``mb``
+    blocks a row, ``tables`` (S, mb) into a pool of ``slots * mb + mb +
+    1`` blocks (block 0 the trash block).  Rows start at spread positions
+    (each below ``max_seq - ticks``) and advance while active; row 1
+    retires at tick 2 (index 0, its table pointed at trash) and is
+    admitted again at tick 3 at position 0 on spare blocks; the last row
+    retires at tick 4.  Tokens are random, each tick's own."""
+    rng = np.random.default_rng(seed)
+    index = (np.arange(slots) * 7 % (max_seq - ticks)).astype(np.int32)
+    active = np.ones(slots, bool)
+    blocks = rng.permutation(np.arange(1, slots * mb + mb + 1))
+    tables = blocks[:slots * mb].reshape(slots, mb).astype(np.int32) \
+        if mb else None
+    out = []
+    for t in range(ticks):
+        if t == 2:
+            active[1], index[1] = False, 0
+            if mb:
+                tables[1] = 0
+        if t == 3:
+            active[1] = True
+            if mb:
+                tables[1] = blocks[slots * mb:]
+        if t == 4:
+            active[-1] = False
+        out.append({"tokens": rng.integers(1, vocab, (slots, 1)).astype(
+                        np.int32),
+                    "index": index.copy(), "active": active.copy(),
+                    "tables": None if tables is None else tables.copy()})
+        index = index + active
+    return out
+
+
+def fill_history(cfg, params, mode, cache, upto, seed):
+    """Write positions 0 .. upto-1 of every row (through a paged cache's
+    tables) with the eager decode step on random tokens, so that the
+    ticks attend to a history of real k/v."""
+    decode = ST.make_decode_step(cfg, mode=mode)
+    rows = (cache["block_tables"] if "block_tables" in cache
+            else cache["k"][0]).shape[0]
+    rng = np.random.default_rng(seed)
+    with torch.inference_mode():
+        for t in range(upto):
+            toks = torch.from_numpy(rng.integers(1, cfg.vocab, (rows, 1))
+                                    .astype(np.int32))
+            decode(params, {"tokens": toks.to(cache["k"].device),
+                            "cache_index": t}, cache, logits=False)
+
+
+def tick_args(tick, device):
+    return tuple(torch.from_numpy(tick[k]).to(device)
+                 for k in ("tokens", "index", "active"))
+
+
+# name -> (mode, paged, kv_quant)
+GRAPH_KINDS = {"contiguous": (W8A16, False, True),
+               "paged": (W8A16, True, True),
+               "w8a8": (W8A8, False, True),
+               "bf16": (W8A16, False, False)}
+
+
+def _graph_case(cuda, kind, slots=4, max_seq=16, ticks=6, seed=0):
+    """Reduced starcoder2-3b on the card, a cache with a history and a
+    tick schedule."""
+    mode, paged, kv_quant = GRAPH_KINDS[kind]
+    cfg = dataclasses.replace(get_config("starcoder2-3b").reduced(),
+                              kv_quant=kv_quant)
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    params = quantize_tree(R.init(gen, cfg, device=cuda), min_size=2048)
+    mb = max_seq // GRAPH_BS if paged else 0
+    sched = tick_schedule(slots, max_seq, ticks, cfg.vocab, seed, mb)
+    if paged:
+        cache = R.init_paged_cache(cfg, slots, max_seq, GRAPH_BS,
+                                   slots * mb + mb + 1, device=cuda)
+        cache["block_tables"].copy_(torch.from_numpy(sched[0]["tables"]))
+    else:
+        cache = R.init_cache(cfg, slots, max_seq, device=cuda)
+    fill_history(cfg, params, mode, cache, max_seq - ticks, seed)
+    return cfg, params, mode, cache, sched
+
+
+def _clone(cache):
+    return {k: v.clone() for k, v in cache.items()}
+
+
+def _counted_call(fn, *args):
+    before = counts.snapshot()
+    out = fn(*args)
+    return out, counts.difference(counts.snapshot(), before)
+
+
+@pytest.mark.parametrize("kind", list(GRAPH_KINDS))
+def test_captured_tick_equals_eager(cuda, kind):
+    """Six ticks, rows retiring and admitted between them (paged: a table
+    row changed in place): the captured tick's next tokens, indices and
+    every cache leaf bitwise equal to the eager tick's on a copy of the
+    cache; one capture; the launch counts of a replay equal the eager
+    tick's (the first call: twice, the warm-up's and the replay's)."""
+    cfg, params, mode, cache, sched = _graph_case(cuda, kind)
+    eager = ST.make_slot_decode_step(cfg, mode=mode)
+    graphed = ST.jit_slot_decode_step(ST.make_slot_decode_step(cfg,
+                                                               mode=mode))
+    other = _clone(cache)
+    with torch.inference_mode():
+        for t, tick in enumerate(sched):
+            if tick["tables"] is not None:
+                for c in (cache, other):
+                    c["block_tables"].copy_(torch.from_numpy(tick["tables"]))
+            args = tick_args(tick, cuda)
+            (n_e, _, i_e), per_eager = _counted_call(
+                eager, params, args[0], cache, args[1], args[2])
+            (n_g, _, i_g), per_graph = _counted_call(
+                graphed, params, args[0], other, args[1], args[2])
+            assert torch.equal(n_g, n_e) and torch.equal(i_g, i_e), t
+            assert (i_e.cpu().numpy()
+                    == tick["index"] + tick["active"]).all()
+            for name in cache:
+                assert torch.equal(other[name], cache[name]), (t, name)
+            assert per_eager and per_graph == {
+                k: n * (2 if t == 0 else 1) for k, n in per_eager.items()}
+    assert graphed.captured.captures == 1
+    assert graphed.captured.launches == per_eager
+
+
+def test_captured_tick_recaptures_on_other_tensors(cuda):
+    """A captured tick called on a second cache, back on the first, and
+    with one param leaf replaced captures anew each time (never replaying
+    against tensors it did not capture), and each result equals the
+    eager tick's on the same cache."""
+    cfg, params, mode, cache, sched = _graph_case(cuda, "contiguous")
+    eager = ST.make_slot_decode_step(cfg, mode=mode)
+    graphed = ST.jit_slot_decode_step(ST.make_slot_decode_step(cfg,
+                                                               mode=mode))
+    caches = {"a": _clone(cache), "b": _clone(cache)}
+    mirrors = {"a": _clone(cache), "b": _clone(cache)}
+    swapped = dict(params, ln_f={k: v.clone()
+                                 for k, v in params["ln_f"].items()})
+    with torch.inference_mode():
+        for t, (name, p, want) in enumerate((
+                ("a", params, 1), ("a", params, 1), ("b", params, 2),
+                ("a", params, 3), ("a", swapped, 4), ("a", swapped, 4))):
+            args = tick_args(sched[t], cuda)
+            n_g, _, i_g = graphed(p, args[0], caches[name], *args[1:])
+            n_e, _, i_e = eager(p, args[0], mirrors[name], *args[1:])
+            assert graphed.captured.captures == want, t
+            assert torch.equal(n_g, n_e) and torch.equal(i_g, i_e), t
+            for c in caches:
+                for leaf in caches[c]:
+                    assert torch.equal(caches[c][leaf], mirrors[c][leaf])
+
+
+def test_captured_steps_keep_their_workspace(cuda):
+    """The 8-row tick captured first, then a 16-row W8A8 tick and a
+    16-row decode loop, whose larger launches replace the capture
+    stream's workspace: the 8-row tick holds on to the one it was
+    captured with, replays equal to the eager tick, and every arrival
+    counter ends at 0."""
+    from repro_torch.runtime import graphs as G
+    cfg, params, mode, cache, sched = _graph_case(cuda, "contiguous",
+                                                  slots=8)
+    eager8 = ST.make_slot_decode_step(cfg, mode=mode)
+    tick8 = ST.jit_slot_decode_step(ST.make_slot_decode_step(cfg, mode=mode))
+    mirror = _clone(cache)
+    with torch.inference_mode():
+        args = tick_args(sched[0], cuda)
+        tick8(params, args[0], cache, *args[1:])
+        eager8(params, args[0], mirror, *args[1:])
+        held = tick8.captured.scratch
+        assert held
+        _, params16, _, cache16, sched16 = _graph_case(cuda, "w8a8",
+                                                       slots=16, seed=1)
+        tick16 = ST.jit_slot_decode_step(ST.make_slot_decode_step(
+            cfg, mode=W8A8))
+        args16 = tick_args(sched16[0], cuda)
+        mirror16 = _clone(cache16)
+        n16, _, _ = tick16(params16, args16[0], cache16, *args16[1:])
+        e16 = ST.make_slot_decode_step(cfg, mode=W8A8)(
+            params16, args16[0], mirror16, *args16[1:])[0]
+        assert torch.equal(n16, e16)
+        bcfg = dataclasses.replace(cfg, kv_quant=False)
+        loop = ST.jit_decode_loop(ST.make_decode_loop(bcfg, mode=W8A16,
+                                                      num_tokens=3))
+        lcache = R.init_cache(bcfg, 16, 16, device=cuda)
+        loop(params16, torch.ones((16, 1), dtype=torch.int32,
+                                  device=cuda), lcache, 0)
+        side = G.capture_stream(cuda).cuda_stream
+        now = scratch.held(cache["k"].device, side)
+        assert now[0].data_ptr() != held[0].data_ptr()     # it grew
+        for tick in sched[1:3]:
+            args = tick_args(tick, cuda)
+            n_g, _, i_g = tick8(params, args[0], cache, *args[1:])
+            n_e, _, i_e = eager8(params, args[0], mirror, *args[1:])
+            assert torch.equal(n_g, n_e) and torch.equal(i_g, i_e)
+            for name in cache:
+                assert torch.equal(cache[name], mirror[name])
+    torch.cuda.synchronize()
+    assert tick8.captured.captures == 1
+    for pair in [held, now] + [e for e in scratch._SCRATCH.values()]:
+        assert not pair[1].any()
+
+
+@pytest.mark.parametrize("mode", [W8A16, W8A8], ids=["w8a16", "w8a8"])
+def test_captured_decode_loop_equals_eager(cuda, mode):
+    """The serve CLI's loop form (bf16 cache), 5 tokens at starts 0 and
+    3 on one graph: tokens and cache bitwise the eager loop's, which
+    steps an int position where the captured loop steps a tensor."""
+    cfg = get_config("starcoder2-3b").reduced()
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    params = quantize_tree(R.init(gen, cfg, device=cuda), min_size=2048)
+    eager = ST.make_decode_loop(cfg, mode=mode, num_tokens=5)
+    graphed = ST.jit_decode_loop(ST.make_decode_loop(cfg, mode=mode,
+                                                     num_tokens=5))
+    cache = R.init_cache(cfg, 4, 16, device=cuda)
+    other = R.init_cache(cfg, 4, 16, device=cuda)
+    toks = torch.randint(1, cfg.vocab, (4, 1), generator=gen, device=cuda,
+                         dtype=torch.int32)
+    with torch.inference_mode():
+        for start in (0, 3):
+            want, _ = eager(params, toks, cache, start)
+            got, _ = graphed(params, toks, other, start)
+            assert torch.equal(got, want), start
+            for name in cache:
+                assert torch.equal(other[name], cache[name]), start
+    assert graphed.captured.captures == 1
+
+
+def test_engine_on_card_serves_twice_through_one_capture(cuda):
+    """Engine.warmup captures the tick on the engine's own cache; two
+    serves then replay that one graph (the cache zeroed in place between
+    them) and give the same tokens, equal to the reference."""
+    cfg = dataclasses.replace(get_config("starcoder2-3b").reduced(),
+                              kv_quant=True)
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    params = quantize_tree(R.init(gen, cfg, device=cuda), min_size=2048)
+    reqs = E.synthetic_requests(8, rate_per_s=2000.0, vocab=cfg.vocab,
+                                prompt_len=5, max_new_tokens=4)
+    eng = E.Engine(cfg, params, mode=W8A16, num_slots=4, max_seq=9,
+                   prefill_chunk=4)
+    eng.warmup()
+    step = eng.backend.slot_step(cfg, mode=W8A16, temperature=0.0)
+    captures = step.captured.captures
+    first = eng.serve(reqs).outputs()
+    assert eng.serve(reqs).outputs() == first
+    assert step.captured.captures == captures
+    assert first == E.reference_outputs(cfg, params, reqs, mode=W8A16,
+                                        max_seq=eng.max_seq)
+
+
+def test_failed_capture_raises(cuda):
+    """A step that waits for the card inside its capture raises
+    GraphCaptureError and keeps no graph; nothing runs it eagerly
+    instead.  In a process of its own: a failed capture may leave the
+    CUDA context unusable."""
+    code = r"""
+import torch
+from repro_torch.runtime import graphs as G
+step = G.CapturedStep(lambda params, cache, x: (x * float(x.sum()),))
+cache = {"k": torch.zeros(4, device="cuda")}
+try:
+    step({}, cache, torch.ones(4, device="cuda"))
+except G.GraphCaptureError as e:
+    assert step.graph is None and step.outputs == ()
+    print("raised:", type(e.__cause__).__name__)
+else:
+    raise SystemExit("no error")
+"""
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(Path(__file__).resolve().parents[1] / "src"),
+         os.environ.get("PYTHONPATH", "")]))
+    res = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0 and "raised:" in res.stdout, res.stderr
