@@ -20,15 +20,17 @@ Phases, each of which fails the run (non-zero exit, no result line):
 3. slice: full-width starcoder2-3b (random weights from a seeded
    generator, int8 W8A16 weights, int8 KV cache) served through
    ``Engine.serve`` — 8 slots, chunked prefill of 4, 24 requests so slots
-   are reused, every tick a replay of the slot step captured as a CUDA
-   graph — with the kernels' launch counters zeroed just before and
-   read just after (no launch of qmatmul_w8a16's mma path); then three
-   requests compared with the sequential ``reference_outputs`` on the
-   card;
+   are reused, every tick and every chunk a replay of a step captured as
+   a CUDA graph by ``Engine.warmup`` (each chunk one decode pass, its
+   attention through the paged kernel on the slot's row), no capture
+   inside the serve — with the kernels' launch counters zeroed just
+   before and read just after (no launch of qmatmul_w8a16's mma path);
+   then three requests compared with the sequential
+   ``reference_outputs`` on the card;
 4. paged slice: the same model served from the paged KV cache
    (``Engine(block_size=16, num_blocks=25)``, 24 requests sharing a
-   16-token prompt prefix), counters zeroed just before and read just
-   after (again no mma launch); prefix blocks must be shared, none leaked,
+   16-token prompt prefix), warmed up and counted the same way (again no
+   mma launch, no capture); prefix blocks must be shared, none leaked,
    and three requests (one that shared) equal the contiguous sequential
    reference; then the steady tick at a long context (``max_seq`` 4,096,
    8 rows at 2,048), contiguous and paged, with the decode attention
@@ -45,7 +47,13 @@ Phases, each of which fails the run (non-zero exit, no result line):
    tick's of this run, its wall required below the eager one; the
    serve CLI's decode loop (batch 16, 16 tokens, ``max_seq`` 32, bf16
    cache) under w8a16 and w8a8, captured (``jit_decode_loop``) against
-   eager at starts 0 and 5, with tok/s of both; and the workspace a
+   eager at starts 0 and 5, with tok/s of both; the chunk step
+   (``jit_prefill_chunk_step``) on the slice's, the paged slice's (across
+   a block edge), a 4,096-slot and the serve CLI's bf16 cache, and under
+   W8A8: for every n_valid up to the chunk, the one-pass eager and the
+   captured chunk bitwise equal to the eager per-token step (every cache
+   leaf), then a chunk's wall, device busy and launch calls three ways
+   (per-token eager, one-pass eager, captured); and the workspace a
    capture holds: the 8-row tick, captured first, replays equal to the
    eager tick after the 16-row captures grew the capture stream's
    workspace, with every arrival counter back at 0;
@@ -56,7 +64,7 @@ Phases, each of which fails the run (non-zero exit, no result line):
    qmatmul_w8a16 launch of it on the mma path, counted around the curve
    alone), the Table 4 batch choice, the decode loop and a wall-clock
    ``Engine.serve`` (no mma launch in either; the loop and the engine's
-   tick captured as CUDA graphs), counters zeroed just
+   tick and chunks captured as CUDA graphs), counters zeroed just
    before each run and read just after, then where one 16 x 32-token
    prefill spends its time; the w8a16 run's first three requests are
    compared with ``reference_outputs`` (bf16 cache) on the card.
@@ -202,16 +210,20 @@ BEFORE_LONG_TICK = {"long tick": "10.500 / 10.495 ms of 17.670 / 17.656",
 BEFORE_TICK_LAUNCH_CALLS = {"tick": 1659, "paged tick": 1665,
                             "w8a8 tick": 3279}
 
-# the serves before their tick and decode loop were captured as CUDA
-# graphs (PERF.md §5: two chip_smoke runs of the commit before the
-# capture, NVIDIA H100 80GB HBM3 at 700.00 W), printed beside this run's
-BEFORE_GRAPHS = {
-    "slice": "96.2 / 49.8 tok/s, p99 7.93 / 15.37 s, TTFT not recorded",
-    "paged": "44.3 / 42.5 tok/s, p99 and TTFT not recorded",
-    "serve w8a16": "decode loop 549 / 343 tok/s, engine 31.6 / 21.2 tok/s, "
-                   "p99 and TTFT not recorded",
-    "serve w8a8": "decode loop 355 / 180 tok/s, engine 16.3 / 11.8 tok/s, "
-                  "p99 and TTFT not recorded"}
+# the serves before their chunk step was captured and taken in one pass
+# (PERF.md §5: chip_smoke runs 1 / 2 of the commit before, NVIDIA H100
+# 80GB HBM3 at 700.00 W), printed beside this run's
+BEFORE_CHUNK = {
+    "slice": "72.7 / 108.8 tok/s, p99 10.52 / 7.01 s, mean TTFT 3.13 / "
+             "2.03 s, 99.7 / 66.6 ms per tick",
+    "paged": "46.2 / 48.4 tok/s, p99 5.28 / 4.45 s, mean TTFT 1.80 / "
+             "1.03 s, 72.2 / 63.0 ms per tick",
+    "serve w8a16": "engine 22.6 / 34.4 tok/s, p99 11.29 / 7.42 s, mean "
+                   "TTFT 10.87 / 7.06 s, 565.3 / 371.7 ms per tick; decode "
+                   "loop 1,669.5 / 1,690.8 tok/s",
+    "serve w8a8": "engine 16.8 / 24.4 tok/s, p99 15.26 / 10.47 s, mean "
+                  "TTFT 14.73 / 10.02 s, 763.9 / 524.6 ms per tick; decode "
+                  "loop 1,601.9 / 1,784.6 tok/s"}
 
 KERNELS = {
     "qmatmul_w8a16": {
@@ -664,6 +676,61 @@ def _paged_tables(cpu_gen, vls, mb, nb, bs):
     return tables.to("cuda")
 
 
+def chunk_attention_checks(gen, cpu_gen, kvh, g, hd) -> float:
+    """The paged kernel at the chunk step's shapes (``layers.attention``
+    of s > 1 tokens, every int8 case of CHUNK_CASES): the chunk's n query
+    rows with the slot's table repeated n times and frontiers start + 1
+    .. start + n -- the contiguous slices' (B, S, KV, hd) leaves read as
+    B blocks of bs = S through a one-entry table holding the slot, the
+    paged slice's pool through the slot's row -- against the plain
+    version within tolerance, and each row bitwise equal to the one-token
+    launch the per-token step makes at its frontier (the contiguous
+    kernel on the slot's row; the paged kernel through a one-row table).
+    Returns the largest error."""
+    import torch
+    from repro_torch.kernels import decode_attention as A
+
+    worst = 0.0
+    for (label, S, max_seq, bs, _, kv_quant, sid,
+         start) in CHUNK_CASES:
+        if not kv_quant:
+            continue
+        if bs:
+            mb = max_seq // bs
+            k, v, ks, vs = _attn_cache(gen, (S * mb + mb + 1, bs, kvh, hd))
+            row = (torch.randperm(S * mb + mb, generator=cpu_gen)[:mb]
+                   + 1).to(torch.int32).reshape(1, mb).cuda()
+        else:
+            k, v, ks, vs = _attn_cache(gen, (S, max_seq, kvh, hd))
+            row = torch.tensor([[sid]], dtype=torch.int32, device="cuda")
+        for n in range(1, PREFILL_CHUNK + 1):
+            q = torch.randn((n, kvh, g, hd), generator=gen,
+                            device="cuda").to(torch.bfloat16)
+            table = row.expand(n, row.shape[1]).contiguous()
+            vl = torch.arange(start + 1, start + n + 1, dtype=torch.int32,
+                              device="cuda")
+            form = (f"decode_attention_int8_paged {label} form n={n} "
+                    f"bs={bs or max_seq} MB={row.shape[1]}")
+            out = A.decode_attention_int8_paged(q, k, v, ks, vs, vl, table)
+            worst = max(worst, _attn_close(
+                form, out, A.decode_attention_int8_paged_ref(
+                    q, k, v, ks, vs, vl, table)))
+            if bs:
+                _rows_alone(form, out, lambda r: A.decode_attention_int8_paged(
+                    q[r:r + 1], k, v, ks, vs, vl[r:r + 1], row), n)
+            else:
+                _rows_alone(form, out, lambda r: A.decode_attention_int8(
+                    q[r:r + 1], k[sid:sid + 1], v[sid:sid + 1],
+                    ks[sid:sid + 1], vs[sid:sid + 1], vl[r:r + 1]), n)
+        print(f"  decode_attention_int8_paged in the chunk step's form "
+              f"({label}: slot {sid}, frontiers {start + 1}.., "
+              f"{'blocks of ' + str(bs) if bs else f'{S} blocks of {max_seq}'}"
+              f", n = 1..{PREFILL_CHUNK} rows): within tolerance of the "
+              f"plain version; every row bitwise the per-token step's "
+              f"one-token launch")
+    return worst
+
+
 def paged_attention_phase(flush):
     """The paged kernel at the paged slice's shapes -- blocks of 16, 4 per
     row (64 positions), the slice's 25-block pool, tables drawn at random
@@ -671,7 +738,8 @@ def paged_attention_phase(flush):
     case (bs 16, MB 256, 2,049 blocks): against the plain version, bitwise
     against the contiguous kernel on the gathered view, timed beside SDPA
     and the bound; rows bitwise equal alone and in the batch, with 4 and
-    with 256 table entries, and at the split's edges."""
+    with 256 table entries, and at the split's edges; then at the chunk
+    step's shapes (:func:`chunk_attention_checks`)."""
     import torch
     from repro_torch.kernels import decode_attention as A
 
@@ -772,6 +840,7 @@ def paged_attention_phase(flush):
           f"row of every case bitwise equal alone and in its batch, to the "
           f"contiguous kernel on the gathered view, and through "
           f"{long_mb}-entry tables")
+    worst = max(worst, chunk_attention_checks(gen, cpu_gen, kvh, g, hd))
     A.decode_attention_int8.launches = 0
     A.decode_attention_int8_paged.launches = 0
     A.decode_attention_int8_paged_ref.calls = 0
@@ -1180,6 +1249,39 @@ def compare_with_reference(label, cfg, params, eng, reqs, outs) -> None:
           f"{min(min(v) for v in margins.values()):.3e}")
 
 
+def step_captures(eng):
+    """The captures of the engine's memoized tick and chunk steps (every
+    bucket its chunks can take)."""
+    from repro_torch.runtime import steps as ST
+    be = eng.backend
+    steps = [be.slot_step(eng.cfg, mode=eng.mode, temperature=0.0)]
+    steps += [be.chunk_step(eng.cfg, mode=eng.mode, chunk=c)
+              for c in sorted({ST.bucket_batch(n)
+                               for n in range(1, eng.prefill_chunk + 1)})]
+    return [s.captured.captures for s in steps]
+
+
+def warm(label, eng, reqs):
+    """``Engine.warmup`` (every graph of the tick and the chunk step),
+    then a short first-call serve that must capture nothing more;
+    returns the steps' captures after the warm-up, which the measured
+    serve must leave as they are too."""
+    eng.warmup()
+    bound = step_captures(eng)
+    eng.serve(reqs, clock="wall")
+    same_captures(f"{label} first-call serve", eng, bound)
+    print(f"{label}: warm-up captured the tick and "
+          f"{sum(bound[1:])} chunk graphs (one per chunk length); a "
+          f"first-call serve captured none")
+    return bound
+
+
+def same_captures(label, eng, bound) -> None:
+    if step_captures(eng) != bound:
+        raise AssertionError(f"{label}: the serve captured a graph: "
+                             f"{bound} -> {step_captures(eng)}")
+
+
 def slice_phase(cfg, params):
     from repro_torch import engine as E
     from repro_torch.core.qlinear import W8A16
@@ -1190,11 +1292,12 @@ def slice_phase(cfg, params):
     reqs = E.synthetic_requests(N_REQUESTS, rate_per_s=400.0,
                                 vocab=cfg.vocab, prompt_len=PROMPT_LEN,
                                 max_new_tokens=MAX_NEW, seed=SEED)
-    eng.serve(reqs[:2], clock="wall")              # first-call warm-up
+    bound = warm("slice", eng, reqs[:2])
 
     zero_counts()
     rep = eng.serve(reqs, clock="wall")
     launches, plain_calls = read_counts()
+    same_captures("slice", eng, bound)
     print(f"slice: served {len(rep.results)} requests in {rep.ticks} ticks, "
           f"{rep.generated_tokens} tokens, wall {rep.wall_s:.3f}s, "
           f"decoded tok/s {rep.generated_tokens / rep.wall_s:.1f}, "
@@ -1203,10 +1306,12 @@ def slice_phase(cfg, params):
           f"mean ttft {rep.mean_ttft_s:.3f}s, "
           f"mean occupancy {rep.mean_occupancy:.3f}, "
           f"watchdog stuck ticks {rep.stuck_ticks}")
-    print(f"slice: before the captured tick: {BEFORE_GRAPHS['slice']}")
+    print(f"slice: before the captured chunk: {BEFORE_CHUNK['slice']}")
     print(f"slice: kernel launches {launches}, plain-version calls "
           f"{plain_calls}")
-    path = ("qmatmul_w8a16", "decode_attention_int8")
+    # the chunks read the contiguous slot rows through the paged kernel
+    path = ("qmatmul_w8a16", "decode_attention_int8",
+            "decode_attention_int8_paged")
     if any(launches[k] <= 0 for k in path):
         raise AssertionError(f"a kernel of the path never launched: "
                              f"{launches}")
@@ -1234,18 +1339,19 @@ def paged_slice_phase(cfg, params):
                                 prompt_len=PAGED_PROMPT_LEN,
                                 shared_prefix_len=PAGED_SHARED_PREFIX,
                                 max_new_tokens=MAX_NEW, seed=SEED)
-    eng.serve(reqs[:1], clock="wall")              # first-call warm-up
+    bound = warm("paged", eng, reqs[:1])
 
     zero_counts()
     rep = eng.serve(reqs, clock="wall")
     launches, plain_calls = read_counts()
+    same_captures("paged", eng, bound)
     print(f"paged: served {len(rep.results)} requests in {rep.ticks} ticks, "
           f"{rep.generated_tokens} tokens, wall {rep.wall_s:.3f}s")
     print(f"paged: decoded tok/s {rep.generated_tokens / rep.wall_s:.1f}")
     print(f"paged: ms/tick {1e3 * rep.wall_s / rep.ticks:.2f}")
     print(f"paged: p99 latency {rep.p99_latency_s:.3f}s")
     print(f"paged: mean ttft {rep.mean_ttft_s:.3f}s")
-    print(f"paged: before the captured tick: {BEFORE_GRAPHS['paged']}")
+    print(f"paged: before the captured chunk: {BEFORE_CHUNK['paged']}")
     print(f"paged: mean occupancy {rep.mean_occupancy:.3f}, watchdog stuck "
           f"ticks {rep.stuck_ticks}")
     print(f"paged: block_size {rep.block_size}, num_blocks {rep.num_blocks}, "
@@ -1356,8 +1462,8 @@ def serve_run(quant, curve_paths):
           f"decoded tok/s {rep.tokens_per_s:.1f}, mean occupancy "
           f"{rep.mean_occupancy:.3f}, watchdog stuck ticks "
           f"{rep.stuck_ticks}")
-    print(f"{label}: before the captured tick and loop: "
-          f"{BEFORE_GRAPHS[label]}")
+    print(f"{label}: engine ms/tick {1e3 * rep.wall_s / rep.ticks:.1f}; "
+          f"before the captured chunk: {BEFORE_CHUNK[label]}")
     need = ["flash_attention_bhsd"] + (["qmatmul_w8a8"]
                                        if quant == "w8a8" else [])
     if any(launches[k] <= 0 for k in need):
@@ -1603,8 +1709,9 @@ def _graph_tick_inputs(S: int, max_seq: int, mb: int, vocab: int):
 
 
 def _random_cache(cfg, S: int, max_seq: int, block_size: int) -> dict:
-    """An int8 cache (paged: a pool of S * mb + mb + 1 blocks) filled with
-    random values and scales, so that every tick attends to a history."""
+    """A cache (paged: a pool of S * mb + mb + 1 blocks, int8) filled
+    with random values (and scales), so that every tick attends to a
+    history."""
     import torch
     from repro_torch.models import registry as R
     g = torch.Generator(device="cuda").manual_seed(SEED)
@@ -1622,6 +1729,9 @@ def _random_cache(cfg, S: int, max_seq: int, block_size: int) -> dict:
             elif t.dtype == torch.float32:
                 t.copy_(torch.rand(t.shape, generator=g, device="cuda")
                         * 0.04 + 0.005)
+            elif t.dtype == torch.bfloat16:
+                t.copy_(torch.randn(t.shape, generator=g, device="cuda")
+                        * 0.5)
     return cache
 
 
@@ -1685,7 +1795,8 @@ def graph_tick_case(cfg, params, label, S, max_seq, block_size, mode):
                          for k, n in per_eager.items()}:
             raise AssertionError(f"{label}: tick {t}: captured launches "
                                  f"{per_graph} against eager {per_eager}")
-    reserved, allocated = graphed.captured.pool_bytes
+    reserved, allocated = graphed.binding(params, args[0], other,
+                                          *args[1:]).pool_bytes
     print(f"{label} graph: {GRAPH_TICKS} ticks (a row retiring, a row "
           f"admitted{', a table row changed' if block_size else ''}) "
           f"bitwise equal to the eager tick: next tokens, indices and "
@@ -1784,7 +1895,8 @@ def graph_loop_case(cfg, params, quant: str) -> None:
     if graphed.captured.captures != 1:
         raise AssertionError(f"{label}: captured "
                              f"{graphed.captured.captures} times")
-    reserved, allocated = graphed.captured.pool_bytes
+    reserved, allocated = graphed.binding(params, toks, other,
+                                          0).pool_bytes
     print(f"{label}: batch {b}, {LOOP_TOKENS} tokens, max_seq {SERVE_SEQ}: "
           f"captured loop bitwise equal to the eager loop (tokens and "
           f"cache) at starts {LOOP_STARTS} on one graph; launches per "
@@ -1794,9 +1906,153 @@ def graph_loop_case(cfg, params, quant: str) -> None:
           f"pool {reserved} bytes reserved, {allocated} allocated")
 
 
+# the chunk step: each cache the engines prefill, the per-token step
+# eager against the one pass eager and captured on three copies of one
+# randomly filled cache, (label, slots, max_seq, block size, mode,
+# kv_quant, slot, start): the slice's contiguous rows, the paged slice's
+# blocks (positions 14..17 cross a block edge), a 4,096-slot row and the
+# serve CLI's bf16 rows, the last also under W8A8 (its per-token loop)
+CHUNK_CASES = (
+    ("chunk", NUM_SLOTS, PROMPT_LEN + MAX_NEW, 0, "w8a16", True, 3, 13),
+    ("paged chunk", NUM_SLOTS, PAGED_PROMPT_LEN + MAX_NEW, PAGED_BLOCK,
+     "w8a16", True, 3, 14),
+    ("long chunk", NUM_SLOTS, LONG_SLOTS, 0, "w8a16", True, 3, 2046),
+    ("bf16 chunk", SERVE_MAX_BATCH, SERVE_SEQ, 0, "w8a16", False, 5, 9),
+    ("w8a8 chunk", SERVE_MAX_BATCH, SERVE_SEQ, 0, "w8a8", False, 5, 9))
+CHUNK_REPS = 5
+
+
+def graph_chunk_case(cfg, params, label, S, max_seq, block_size, mode,
+                     kv_quant, sid, start) -> dict:
+    """The chunk step of slot ``sid`` from ``start`` for every n_valid up
+    to PREFILL_CHUNK: the eager per-token step
+    (``make_per_token_chunk_step``), the
+    eager step (under W8A16 one pass) and the captured step (one graph
+    per n_valid), each on its copy of one random cache, every cache leaf
+    ``torch.equal`` to the per-token step's; a replay's launch counts the
+    eager one pass's (under W8A16: 6 x layers GEMVs and one paged
+    attention launch a layer, where the per-token step launches n
+    times that); then a full chunk's wall, device busy and launch calls
+    three ways.  Returns the breakdowns by way."""
+    import torch
+    from repro_torch.core.qlinear import W8A8, W8A16
+    from repro_torch.runtime import steps as ST
+
+    qm = {"w8a16": W8A16, "w8a8": W8A8}[mode]
+    one_pass = mode == "w8a16"
+    ccfg = dataclasses.replace(cfg, kv_quant=kv_quant)
+    cache = _random_cache(ccfg, S, max_seq, block_size)
+    if block_size:
+        mb = max_seq // block_size
+        g = torch.Generator().manual_seed(SEED)
+        with torch.inference_mode():
+            cache["block_tables"].copy_(
+                (torch.randperm(S * mb, generator=g).to(torch.int32) + 1)
+                .reshape(S, mb))
+    copies = [{k: v.clone() for k, v in cache.items()} for _ in range(3)]
+    want, one, got = copies
+    per_token = ST.make_per_token_chunk_step(ccfg, mode=qm,
+                                             chunk=PREFILL_CHUNK)
+    eager = ST.make_prefill_chunk_step(ccfg, mode=qm, chunk=PREFILL_CHUNK)
+    graphed = ST.jit_prefill_chunk_step(ST.make_prefill_chunk_step(
+        ccfg, mode=qm, chunk=PREFILL_CHUNK))
+    g = torch.Generator().manual_seed(SEED + 1)
+    toks = torch.randint(1, cfg.vocab, (PREFILL_CHUNK,), generator=g,
+                         dtype=torch.int32).numpy()
+    passes_of = {}
+    capture_s = []
+    for n in range(1, PREFILL_CHUNK + 1):
+        with torch.inference_mode():
+            for c in copies:
+                for k, t in c.items():
+                    t.copy_(cache[k])
+            zero_counts()
+            per_token(params, toks, want, sid, start, n)
+            per_tok, _ = read_counts()
+            zero_counts()
+            eager(params, toks, one, sid, start, n)
+            per_eager, _ = read_counts()
+            t0 = time.perf_counter()
+            graphed(params, toks, got, sid, start, n)        # the capture
+            torch.cuda.synchronize()
+            capture_s.append(time.perf_counter() - t0)
+            for k, t in got.items():
+                t.copy_(cache[k])
+            zero_counts()
+            graphed(params, toks, got, sid, start, n)
+            per_graph, plain = read_counts()
+        for name in cache:
+            for way, c in (("eager", one), ("captured", got)):
+                if not torch.equal(c[name], want[name]):
+                    raise AssertionError(f"{label}: n_valid {n}: the {way} "
+                                         f"chunk's cache leaf {name} differs "
+                                         f"from the per-token step's")
+        if any(plain.values()):
+            raise AssertionError(f"{label}: a plain version ran: {plain}")
+        projections = 6 * cfg.n_layers
+        key = "qmatmul_w8a16[gemv]" if one_pass else "qmatmul_w8a8"
+        passes = 1 if one_pass else n
+        if (per_graph != per_eager and one_pass) \
+                or per_graph[key] != passes * projections \
+                or per_tok[key] != n * projections \
+                or per_graph["qmatmul_w8a16[mma]"] \
+                or (kv_quant and per_graph["decode_attention_int8_paged"]
+                    != passes * cfg.n_layers):
+            raise AssertionError(f"{label}: n_valid {n}: launches per "
+                                 f"replay {per_graph}, eager {per_eager}, "
+                                 f"per-token {per_tok}")
+        passes_of[n] = (per_tok[key], per_graph[key])
+    if graphed.captured.captures != PREFILL_CHUNK:
+        raise AssertionError(f"{label}: {graphed.captured.captures} "
+                             f"captures for {PREFILL_CHUNK} chunk lengths")
+    reserved, allocated = graphed.binding(params, got,
+                                          PREFILL_CHUNK).pool_bytes
+    print(f"{label}: slot {sid} of {S}, positions {start}.. of {max_seq}"
+          f"{f', blocks of {block_size}' if block_size else ''}, "
+          f"{'bf16' if not kv_quant else 'int8'} cache, {mode}: for every "
+          f"n_valid 1..{PREFILL_CHUNK} the "
+          f"{'one-pass eager and ' if one_pass else ''}captured chunk "
+          f"bitwise equal to the per-token step ({len(cache)} cache "
+          f"leaves); {key} launches per-token / per replay "
+          f"{passes_of}; captures {graphed.captured.captures} "
+          f"({', '.join(f'{t:.2f}' for t in capture_s)} s with their "
+          f"warm-ups), the n_valid {PREFILL_CHUNK} graph's private pool "
+          f"{reserved} bytes reserved, {allocated} allocated")
+    ways = {"per-token eager": (per_token, want)}
+    if one_pass:
+        ways["one-pass eager"] = (eager, one)
+    ways["captured"] = (graphed, got)
+    res = {}
+    for way, (fn, c) in ways.items():
+        res[way] = device_breakdown(
+            f"{label} {way}", f"chunk of {PREFILL_CHUNK} tokens",
+            lambda fn=fn, c=c: fn(params, toks, c, sid, start,
+                                  PREFILL_CHUNK), CHUNK_REPS)
+    for name in cache:                 # the timed calls rewrote the same bytes
+        if not (torch.equal(got[name], want[name])
+                and (not one_pass or torch.equal(one[name], want[name]))):
+            raise AssertionError(f"{label}: after timing, cache leaf {name} "
+                                 f"differs")
+
+    def ms(x):
+        return "not measured" if x is None else f"{x:.3f} ms"
+
+    print(f"{label}: per chunk of {PREFILL_CHUNK}, "
+          + "; ".join(f"{way} wall {r['wall']:.2f} ms, busy "
+                      f"{ms(r['busy'])}, cudaLaunchKernel "
+                      f"{r['launch_calls']:.0f}, cudaGraphLaunch "
+                      f"{r['graph_launches']:.0f}"
+                      for way, r in res.items()))
+    if res["captured"]["wall"] >= res["per-token eager"]["wall"]:
+        raise AssertionError(f"{label}: the captured chunk is not faster "
+                             f"than the eager per-token step")
+    return res
+
+
 def graph_phase(cfg, params) -> None:
     """The captured steps against the eager ones: every tick of
-    GRAPH_CASES, the decode loop under w8a16 and w8a8, then the workspace
+    GRAPH_CASES, the decode loop under w8a16 and w8a8, the chunk step on
+    every cache of CHUNK_CASES, then the workspace
     a captured step holds: the 8-row tick, captured first, replays equal
     to the eager tick after the 16-row W8A8 tick and the 16-row loops
     grew the capture stream's workspace, and every arrival counter is
@@ -1815,16 +2071,19 @@ def graph_phase(cfg, params) -> None:
     for quant in ("w8a16", "w8a8"):
         graph_loop_case(cfg, params, quant)
         torch_cuda_empty()
+    for case in CHUNK_CASES:
+        graph_chunk_case(cfg, params, *case)
+        torch_cuda_empty()
     graphed, eager, cache, other = kept
-    held = graphed.captured.scratch
-    side = G.capture_stream(cache["k"].device).cuda_stream
-    now = scratch.held(cache["k"].device, side)
     S, max_seq = GRAPH_CASES[0][1:3]
     with torch.inference_mode():
         toks, idx, active, _ = _graph_tick_inputs(S, max_seq, 0,
                                                   cfg.vocab)[0]
         toks = (toks + 1) % cfg.vocab
         args = [x.cuda() for x in (toks, idx + GRAPH_TICKS, active)]
+        held = graphed.binding(params, args[0], other, *args[1:]).scratch
+        side = G.capture_stream(cache["k"].device).cuda_stream
+        now = scratch.held(cache["k"].device, side)
         n_e, _, i_e = eager(params, args[0], cache, *args[1:])
         n_g, _, i_g = graphed(params, args[0], other, *args[1:])
     torch.cuda.synchronize()

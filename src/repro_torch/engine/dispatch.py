@@ -113,10 +113,11 @@ class ExecutorBackend:
 
 
 class SingleDeviceExecutor(ExecutorBackend):
-    """The one-card step set: the slot tick captured as a CUDA graph and
-    memoized process-wide (``runtime/steps.py::cached_slot_decode_step``),
-    as the reference's executor hands out its compiled step; the chunk
-    step eager."""
+    """The one-card step set: the slot tick and the chunk step captured
+    as CUDA graphs and memoized process-wide
+    (``runtime/steps.py::cached_slot_decode_step``,
+    ``cached_prefill_chunk_step``), as the reference's executor hands out
+    its compiled steps."""
 
     kind = "single"
 
@@ -125,7 +126,7 @@ class SingleDeviceExecutor(ExecutorBackend):
                                           temperature=temperature)
 
     def chunk_step(self, cfg, *, mode, chunk):
-        return ST.make_prefill_chunk_step(cfg, mode=mode, chunk=chunk)
+        return ST.cached_prefill_chunk_step(cfg, mode=mode, chunk=chunk)
 
 
 class ShardedExecutor(ExecutorBackend):

@@ -197,12 +197,14 @@ class Engine:
         return self._cache
 
     def warmup(self) -> None:
-        """Run the slot step (and, with chunked prefill, the chunk step)
-        once on the engine's cache, so that a wall-clock ``serve`` charges
-        its first tick to serving, not to building and loading the
-        kernels, the libraries' first-call set-up or, on the card, the
-        capture of the slot step's graph: the next ``serve`` zeroes the
-        cache in place and replays that graph."""
+        """Run the slot step once (and, with chunked prefill, the chunk
+        step once for every chunk length it can be given: ``n`` tokens in
+        a chunk of ``bucket_batch(n)``, for n up to ``prefill_chunk``) on
+        the engine's cache, so that a wall-clock ``serve`` charges its
+        first tick to serving, not to building and loading the kernels,
+        the libraries' first-call set-up or, on the card, the capture of
+        the steps' graphs: the next ``serve`` zeroes the cache in place
+        and replays those graphs."""
         S = self.num_slots
         dev = self.device
         with torch.inference_mode():
@@ -213,10 +215,11 @@ class Engine:
                                           device=dev), cache,
                  torch.zeros((S,), dtype=torch.int32, device=dev),
                  torch.zeros((S,), dtype=torch.bool, device=dev))
-            if self.prefill_chunk:
+            for n in range(1, (self.prefill_chunk or 0) + 1):
+                c = ST.bucket_batch(n)
                 chunk = self.backend.chunk_step(self.cfg, mode=self.mode,
-                                                chunk=self.prefill_chunk)
-                chunk(self.params, [0] * self.prefill_chunk, cache, 0, 0, 1)
+                                                chunk=c)
+                chunk(self.params, [0] * c, cache, 0, 0, n)
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
 

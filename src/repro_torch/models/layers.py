@@ -11,7 +11,7 @@ Conventions (as in ``repro/models/layers.py``):
   written in place.
 
 Not ported yet: sliding-window ring caches and cross-attention (ROADMAP
-queue 1, item 13); multi-token attention against a cache (item 14).
+queue 1, item 13).
 """
 from __future__ import annotations
 
@@ -28,7 +28,7 @@ from repro_torch.kernels import ops as kops
 from repro_torch.kernels.decode_attention import NEG_INF
 # the reference keeps paged_gather here; it lives beside the paged plain
 # version, which needs it (kernels import nothing from models)
-from repro_torch.kernels.decode_attention import paged_gather  # noqa: F401
+from repro_torch.kernels.decode_attention import paged_gather
 
 Tensor = torch.Tensor
 
@@ -169,17 +169,28 @@ def attention(p: dict, x: Tensor, cfg: AttnConfig, *,
       (B, S, D), RoPE at ``rope`` (the positions 0..S-1), KV expanded to H
       heads and the fused flash-attention kernel with ``cfg.causal`` and
       ``cfg.window``.
-    - Decode (x is (B, 1, D)) against one layer's cache: ``kv_cache`` is
+    - Decode (x is (B, s, D)) against one layer's cache: ``kv_cache`` is
       the int8 ``(k, v, k_scale, v_scale)`` or the bf16 ``(k, v)``;
       ``rope`` is :func:`rope_cos_sin` of the token positions and
-      ``cache_index`` the write position (see :func:`cache_write`).  The
-      new token's k/v (int8: quantized) are written into the cache in
-      place first; attention then covers every slot below ``valid_len``
-      (B,) int32, the new token included — the reference's non-append
-      form: the fused int8 kernel, or :func:`bf16_cache_attention`.  With
-      ``block_tables`` (B, MB) int32 the int8 cache is paged: its leaves
-      are physical blocks, ``cache_index`` a ``(blocks, offsets)`` pair,
-      and the kernel reads each row through its table.
+      ``cache_index`` the write positions (see :func:`cache_write`).  The
+      s new tokens' k/v (int8: quantized) are written into the cache in
+      place first; attention then covers every slot below ``valid_len``,
+      the new tokens included — the reference's non-append form: the
+      fused int8 kernel, or :func:`bf16_cache_attention`.  ``valid_len``
+      is (B,) int32, one frontier for every query row of a batch row (the
+      reference's s > 1 form), or (B, s), one per query row (chunked
+      prefill: row i at its own token's place).  With ``block_tables``
+      (B, MB) int32 the cache is paged: its leaves are physical blocks,
+      ``cache_index`` a ``(blocks, offsets)`` pair, and each row is read
+      through its table.
+
+    For s > 1 (or a (B, s) ``valid_len``) the B·s query rows attend as
+    rows of their own, through the paged kernel with each batch row's
+    table repeated s times; a contiguous int8 cache (B, S, ...) is read
+    as B blocks of S slots, row b's table ``[b]``, and a bf16 cache is
+    gathered once per query row.  A row's bits are then the one-token
+    step's at its frontier (the kernels' rows do not depend on the batch,
+    the block size or the cache's capacity).
 
     Head h reads kv head h // G."""
     b, s, _ = x.shape
@@ -193,27 +204,37 @@ def attention(p: dict, x: Tensor, cfg: AttnConfig, *,
         out = kops.flash_attention(q, _expand_kv(k, h), _expand_kv(v, h),
                                    causal=cfg.causal, window=cfg.window)
         return linear(p["wo"], out.reshape(b, s, h * hd), mode=mode)
-    if s != 1:
-        raise NotImplementedError(
-            "the port attends one token per step against a cache; "
-            "multi-token cache attention comes with speculative decoding "
-            "(ROADMAP queue 1, item 14)")
     g = h // kvh
+    rows = b * s
+    if s != 1 or valid_len.ndim == 2:
+        # every query row on its own: (B·s,) frontiers and tables (the
+        # kernels take contiguous tensors; a reshape of an expand may be a
+        # strided view)
+        valid_len = valid_len.reshape(b, -1).expand(b, s).reshape(
+            rows).contiguous()
+        if block_tables is None:
+            block_tables = torch.arange(b, dtype=torch.int32,
+                                        device=x.device)[:, None]
+        block_tables = block_tables[:, None].expand(
+            b, s, block_tables.shape[1]).reshape(rows, -1).contiguous()
     if len(kv_cache) == 4:
         ck, cv, cks, cvs = kv_cache
         kq, ks = q8(k)
         vq, vs = q8(v)
         for c, new in ((ck, kq), (cv, vq), (cks, ks), (cvs, vs)):
             cache_write(c, new, cache_index)
-        out = kops.decode_attention(q.reshape(b, kvh, g, hd), ck, cv, cks,
-                                    cvs, valid_len,
+        out = kops.decode_attention(q.reshape(rows, kvh, g, hd), ck, cv,
+                                    cks, cvs, valid_len,
                                     block_tables=block_tables,
                                     out_dtype=torch.float32)
     else:
         ck, cv = kv_cache
         cache_write(ck, k.to(ck.dtype), cache_index)
         cache_write(cv, v.to(cv.dtype), cache_index)
-        out = bf16_cache_attention(q.reshape(b, kvh, g, hd), ck, cv,
+        if block_tables is not None:
+            ck, cv = paged_gather(ck, block_tables), paged_gather(
+                cv, block_tables)
+        out = bf16_cache_attention(q.reshape(rows, kvh, g, hd), ck, cv,
                                    valid_len)
     out = out.to(x.dtype).reshape(b, s, h * hd)
     return linear(p["wo"], out, mode=mode)

@@ -49,10 +49,11 @@ def init_cache(cfg: ArchConfig, batch: int, s_max: int, device=None):
 
 
 def apply_decode(params, cfg: ArchConfig, batch: dict, cache, *,
-                 mode: QuantMode = FP, logits: bool = True):
+                 mode: QuantMode = FP, logits: bool = True,
+                 causal: bool = False):
     return module_for(cfg).decode_step(params, batch["tokens"], cache,
                                        batch["cache_index"], cfg, mode=mode,
-                                       logits=logits)
+                                       logits=logits, causal=causal)
 
 
 def supports_paging(cfg: ArchConfig) -> bool:

@@ -232,8 +232,9 @@ def decode_positions(cache_index, b: int, s: int, device) -> Tensor:
 
 def decode_step(params: dict, tokens: Tensor, cache: dict, cache_index,
                 cfg: ArchConfig, *, mode: QuantMode = FP,
-                logits: bool = True) -> Tuple[Optional[Tensor], dict]:
-    """One decode step: tokens (B, 1) -> logits (B, 1, V) f32, with the
+                logits: bool = True, causal: bool = False
+                ) -> Tuple[Optional[Tensor], dict]:
+    """One decode step: tokens (B, s) -> logits (B, s, V) f32, with the
     cache updated in place (and returned, for the reference's signature).
 
     ``cache_index`` is an int when the whole batch advances in lockstep,
@@ -241,14 +242,19 @@ def decode_step(params: dict, tokens: Tensor, cache: dict, cache_index,
     own position (the slot engine, and the captured decode loop with
     every row at one place: the two forms give the same bits).  Token j
     sits at ``cache_index + j`` (:func:`decode_positions`) and is written
-    there; attention against the cache still takes one token a step
-    (``layers.attention``).  ``logits=False`` skips the final norm and LM
-    head (chunked prefill discards them) and returns None.
+    there, every token's k/v before any attends.  Token j then attends
+    the slots below ``cache_index + s``, the reference's form; with
+    ``causal=True`` it attends those below its own ``cache_index + j +
+    1``, as the one-token step at its place does (the chunk step's one
+    pass, ``runtime/steps.py``).  ``logits=False`` skips the final norm
+    and LM head (chunked prefill discards them) and returns None.
 
     A cache with ``block_tables`` (B, MB) is paged (:func:`init_paged_cache`
-    with the slots' tables, or a slice of them): row b's position p is
-    written to block ``block_tables[b, p // bs]`` at offset ``p % bs``,
-    and attention reads the row through its table.
+    with the slots' tables, or rows of them; or a contiguous cache's
+    (L, B, S, ...) leaves read as B blocks of S slots, with (B, 1) slot
+    ids as the table): row b's position p is written to block
+    ``block_tables[b, p // bs]`` at offset ``p % bs``, and attention
+    reads the row through its table.
 
     Every W8A16 matmul takes the GEMV (``w8a16_path="gemv"``), whatever
     the mode asks: a row's bits then do not depend on the batch, which
@@ -274,6 +280,8 @@ def decode_step(params: dict, tokens: Tensor, cache: dict, cache_index,
                                     s_alloc)
         write_idx = (torch.arange(b, device=device)[:, None],
                      positions.long())
+    if causal and s > 1:
+        valid_len = torch.clamp_max(positions + 1, s_alloc)
     if tables is not None:
         pos = positions.long()
         rows = torch.arange(b, device=device)[:, None]

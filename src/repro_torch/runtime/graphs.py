@@ -4,8 +4,9 @@ over buffers updated in place).
 
 :class:`CapturedStep` wraps ``fn(params, cache, *inputs) -> outputs``:
 ``cache`` a dict of tensors that ``fn`` updates in place, ``inputs`` and
-``outputs`` tuples of tensors.  On the card, its first call, and the
-first after ``params``, the cache or an input's shape or dtype changed:
+``outputs`` tuples of tensors.  It keeps one graph per binding: the
+params and cache leaves (by identity) and the inputs' shapes and dtypes
+it was called with.  On the card, the first call of a binding:
 
 1. allocates a static buffer for each input on the cache's device and
    copies the inputs in;
@@ -21,20 +22,26 @@ first after ``params``, the cache or an input's shape or dtype changed:
    alive, and takes back the launch counts the capture added
    (``kernels/counts.py``): the capture ran nothing.
 
-Every call copies its inputs into the static buffers, replays the graph,
-adds the capture's launch counts, and returns the static outputs, which
-the next call overwrites: the caller copies them out first (``.cpu()``).
-A call whose params or cache are not the tensors captured (leaf by leaf,
-by identity) captures anew; no graph replays against other tensors.  A
+Every later call of a binding copies its inputs into the binding's static
+buffers (without waiting for the card when an input lies on it or in
+pinned memory), replays its graph, adds the capture's launch counts, and
+returns its static outputs, which the next call of that binding
+overwrites: the caller copies them out first (``.cpu()``).  No graph
+replays against tensors it did not capture.  At most ``max_bindings``
+bindings are kept: a new one past that evicts the least recently called,
+whose graph and pool are released, so that engines taking turns on one
+step (the memo in ``runtime/steps.py``) each replay their own graph.  A
 capture or a replay that fails raises: nothing falls back to running
 ``fn`` eagerly on the card.
 
 On the CPU (a cache the caller put there) there is nothing to capture:
-every call runs ``fn`` eagerly on the static inputs and copies its
-results into static outputs, the buffers the card's path returns.
+every call runs ``fn`` eagerly on the binding's static inputs and copies
+its results into its static outputs, the buffers the card's path
+returns.
 """
 from __future__ import annotations
 
+from collections import OrderedDict
 from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
@@ -71,10 +78,6 @@ def _tree_leaves(tree) -> List[Tensor]:
     return out
 
 
-def _same(a, b) -> bool:
-    return len(a) == len(b) and all(x is y for x, y in zip(a, b))
-
-
 # device index -> the side stream every capture on it warms up and
 # captures on
 _CAPTURE_STREAMS: Dict[int, torch.cuda.Stream] = {}
@@ -88,90 +91,118 @@ def capture_stream(device: torch.device) -> torch.cuda.Stream:
     return _CAPTURE_STREAMS[index]
 
 
-class CapturedStep:
-    """``fn`` behind static buffers, captured as one CUDA graph on the
-    card (see the module's docstring).
+# bindings a captured step keeps by default: a few engines (or lanes) of
+# one config taking turns
+MAX_BINDINGS = 4
 
-    ``captures`` counts the bindings to new tensors (on the card, each a
-    capture); ``launches`` holds the launch counts one replay adds;
-    ``pool_bytes`` the bytes the last capture's private pool holds
-    (``torch.cuda.memory_reserved`` after less before, and
+
+class Binding:
+    """One graph of a captured step and every tensor it points to:
+    ``graph`` (None on the CPU), its static ``inputs`` and ``outputs``,
+    the workspace it holds (``scratch``), ``launches`` (the launch counts
+    one replay adds) and ``pool_bytes`` (the bytes the capture's private
+    pool holds: ``torch.cuda.memory_reserved`` after less before, and
     ``memory_allocated`` likewise, as ``(reserved, allocated)``)."""
 
-    def __init__(self, fn: Callable):
-        self.fn = fn
-        self.captures = 0
+    def __init__(self, leaves: List[Tensor], cache: dict,
+                 inputs: Tuple[Tensor, ...]):
+        self.leaves = leaves
+        self.cache_leaves = tuple(cache.values())
+        self.inputs = inputs
+        self.outputs: Tuple[Tensor, ...] = ()
+        self.graph: Optional[torch.cuda.CUDAGraph] = None
+        self.scratch: Tuple[Tensor, ...] = ()
         self.launches: counts.Counts = {}
         self.pool_bytes: Tuple[int, int] = (0, 0)
+
+
+class CapturedStep:
+    """``fn`` behind static buffers, captured as one CUDA graph per
+    binding on the card (see the module's docstring).
+
+    ``captures`` counts the bindings made (on the card, each a capture),
+    ``bindings`` those kept; :meth:`binding` returns the one a call would
+    replay."""
+
+    def __init__(self, fn: Callable, max_bindings: int = MAX_BINDINGS):
+        if max_bindings < 1:
+            raise ValueError(f"max_bindings must be >= 1, got {max_bindings}")
+        self.fn = fn
+        self.max_bindings = max_bindings
+        self.captures = 0
         self.release()
 
     def release(self) -> None:
-        """Drop the graph, its pool and every tensor held for it."""
-        self.graph: Optional[torch.cuda.CUDAGraph] = None
-        self.inputs: Tuple[Tensor, ...] = ()
-        self.outputs: Tuple[Tensor, ...] = ()
-        self.scratch: Tuple[Tensor, ...] = ()
-        self._leaves: List[Tensor] = []
-        self._cache_keys: Tuple = ()
-        self._cache_leaves: Tuple = ()
-        self._specs: Tuple = ()
+        """Drop every graph, its pool and every tensor held for it."""
+        self._bindings: "OrderedDict[tuple, Binding]" = OrderedDict()
 
-    def bound_to(self, params, cache: dict, inputs) -> bool:
-        """True when a call with these arguments replays the graph as it
-        stands (no capture)."""
-        specs = tuple((x.shape, x.dtype) for x in inputs)
-        return (bool(self._cache_leaves) and specs == self._specs
-                and tuple(cache) == self._cache_keys
-                and _same(tuple(cache.values()), self._cache_leaves)
-                and _same(_tree_leaves(params), self._leaves))
+    @property
+    def bindings(self) -> int:
+        return len(self._bindings)
+
+    def binding(self, params, cache: dict, *inputs: Tensor
+                ) -> Optional[Binding]:
+        """The binding that a call on ``params``, ``cache`` and inputs of
+        these shapes and dtypes replays, or None if none is kept (the
+        call would bind anew)."""
+        return self._bindings.get(self._key(_tree_leaves(params), cache,
+                                            inputs))
+
+    @staticmethod
+    def _key(leaves: List[Tensor], cache: dict, inputs) -> tuple:
+        # identities are unique while the binding holds the tensors
+        return (tuple(map(id, leaves)), tuple(cache),
+                tuple(map(id, cache.values())),
+                tuple((x.shape, x.dtype) for x in inputs))
 
     def __call__(self, params, cache: dict, *inputs: Tensor
                  ) -> Tuple[Tensor, ...]:
         with torch.inference_mode():
-            if not self.bound_to(params, cache, inputs):
-                self._bind(params, cache, inputs)
-            else:
-                for buf, x in zip(self.inputs, inputs):
-                    buf.copy_(x)
-                self._run(params, cache)
-            return self.outputs
+            leaves = _tree_leaves(params)
+            key = self._key(leaves, cache, inputs)
+            b = self._bindings.get(key)
+            if b is None:
+                return self._bind(key, leaves, params, cache, inputs).outputs
+            self._bindings.move_to_end(key)
+            for buf, x in zip(b.inputs, inputs):
+                buf.copy_(x, non_blocking=x.is_cuda or x.is_pinned())
+            self._run(b, params, cache)
+            return b.outputs
 
-    def _run(self, params, cache) -> None:
-        if self.graph is None:
-            outs = self.fn(params, cache, *self.inputs)
-            for buf, o in zip(self.outputs, outs):
+    def _run(self, b: Binding, params, cache) -> None:
+        if b.graph is None:
+            outs = self.fn(params, cache, *b.inputs)
+            for buf, o in zip(b.outputs, outs):
                 buf.copy_(o)
             return
-        self.graph.replay()
-        counts.add(self.launches)
+        b.graph.replay()
+        counts.add(b.launches)
 
-    def _bind(self, params, cache: dict, inputs) -> None:
-        self.release()
+    def _bind(self, key: tuple, leaves: List[Tensor], params, cache: dict,
+              inputs) -> Binding:
+        while len(self._bindings) >= self.max_bindings:
+            self._bindings.popitem(last=False)
         device = next(iter(cache.values())).device
-        self.inputs = tuple(x.to(device, copy=True) for x in inputs)
-        self._leaves = _tree_leaves(params)
-        self._cache_keys = tuple(cache)
-        self._cache_leaves = tuple(cache.values())
-        self._specs = tuple((x.shape, x.dtype) for x in inputs)
+        b = Binding(leaves, cache,
+                     tuple(x.to(device, copy=True) for x in inputs))
         self.captures += 1
         if device.type != "cuda":
-            self.outputs = tuple(o.clone() for o in
-                                 self.fn(params, cache, *self.inputs))
-            return
-        try:
-            self._capture(params, cache, device)
-        except BaseException:
-            self.release()
-            raise
-        self._run(params, cache)
+            b.outputs = tuple(o.clone() for o in
+                              self.fn(params, cache, *b.inputs))
+        else:
+            self._capture(b, params, cache, device)
+            self._run(b, params, cache)
+        self._bindings[key] = b
+        return b
 
-    def _capture(self, params, cache: dict, device: torch.device) -> None:
+    def _capture(self, b: Binding, params, cache: dict,
+                 device: torch.device) -> None:
         side = capture_stream(device)
         main = torch.cuda.current_stream(device)
         side.wait_stream(main)
         with torch.cuda.stream(side):
             copy = {k: v.clone() for k, v in cache.items()}
-            self.fn(params, copy, *self.inputs)
+            self.fn(params, copy, *b.inputs)
             del copy
         main.wait_stream(side)
         torch.cuda.synchronize(device)
@@ -180,16 +211,16 @@ class CapturedStep:
         allocated = torch.cuda.memory_allocated(device)
         graph = torch.cuda.CUDAGraph()
         try:
-            with counts.recorded() as self.launches, \
+            with counts.recorded() as b.launches, \
                     torch.cuda.graph(graph, stream=side,
                                      capture_error_mode="global"):
-                outs = self.fn(params, cache, *self.inputs)
+                outs = self.fn(params, cache, *b.inputs)
         except Exception as e:
             raise GraphCaptureError(
                 f"capturing {getattr(self.fn, '__name__', self.fn)!r} as a "
                 f"CUDA graph failed: {e}") from e
-        self.graph = graph
-        self.outputs = tuple(outs)
-        self.scratch = scratch.held(device, side.cuda_stream)
-        self.pool_bytes = (torch.cuda.memory_reserved(device) - reserved,
-                           torch.cuda.memory_allocated(device) - allocated)
+        b.graph = graph
+        b.outputs = tuple(outs)
+        b.scratch = scratch.held(device, side.cuda_stream)
+        b.pool_bytes = (torch.cuda.memory_reserved(device) - reserved,
+                        torch.cuda.memory_allocated(device) - allocated)

@@ -7,12 +7,16 @@ The ``make_*`` builders run eagerly: the cache is a dict of tensors
 updated in place, and each step returns it to keep the reference's
 signatures.  The reference's compile boundary, ``jax.jit`` with the cache
 donated, is a CUDA graph here (``runtime/graphs.py``): the
-``jit_slot_decode_step`` and ``jit_decode_loop`` wrappers capture the
-slot tick and the decode loop once over static buffers and the caller's
-cache and replay them, bit for bit the eager steps they wrap, and
-``cached_slot_decode_step`` memoizes the captured tick as the reference
-memoizes its compiled one.  The chunk step and the prefill step stay
-eager (ROADMAP queue 1, item 6).
+``jit_slot_decode_step``, ``jit_decode_loop`` and ``jit_prefill_chunk_step``
+wrappers capture the slot tick, the decode loop and the chunk step over
+static buffers and the caller's cache and replay them, bit for bit the
+eager steps they wrap, and ``cached_slot_decode_step`` and
+``cached_prefill_chunk_step`` memoize the captured tick and chunk step as
+the reference memoizes its compiled ones.  Under W8A16 the chunk step
+prefills a chunk in one (1, n) decode pass whose cache bytes are the
+per-token path's (:func:`make_prefill_chunk_step`; the per-token
+reference is :func:`make_per_token_chunk_step`).  The prefill step
+stays eager (ROADMAP queue 1, item 6).
 """
 from __future__ import annotations
 
@@ -22,8 +26,9 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.qlinear import FP, QuantMode
+from repro_torch.core.quant import QTensor
 from repro_torch.models import registry as R
-from repro_torch.runtime.graphs import CapturedStep
+from repro_torch.runtime.graphs import MAX_BINDINGS, CapturedStep
 
 
 def make_prefill_step(cfg: ArchConfig, *, mode: QuantMode = FP) -> Callable:
@@ -34,9 +39,10 @@ def make_prefill_step(cfg: ArchConfig, *, mode: QuantMode = FP) -> Callable:
 
 
 def make_decode_step(cfg: ArchConfig, *, mode: QuantMode = FP) -> Callable:
-    def decode_step(params, batch, cache, logits: bool = True):
+    def decode_step(params, batch, cache, logits: bool = True,
+                    causal: bool = False):
         return R.apply_decode(params, cfg, batch, cache, mode=mode,
-                              logits=logits)
+                              logits=logits, causal=causal)
     return decode_step
 
 
@@ -116,17 +122,24 @@ def jit_decode_loop(loop: Callable) -> Callable:
     :func:`make_decode_loop`'s, with ``cache_index`` an int or a tensor
     of one or B values.  The start position lives in a static buffer, so
     one graph serves every start; ``out`` is a static buffer that the
-    next call overwrites."""
+    next call overwrites.  ``graphed.binding(params, tokens, cache,
+    cache_index)`` is the binding such a call replays
+    (``CapturedStep.binding``)."""
     captured = CapturedStep(
         lambda params, cache, tokens, start: loop(params, tokens, cache,
                                                   start)[:1])
 
+    def inputs(tokens, cache_index):
+        return tokens, torch.as_tensor(cache_index,
+                                       dtype=torch.int32).reshape(-1)
+
     def graphed(params, tokens, cache, cache_index):
-        start = torch.as_tensor(cache_index, dtype=torch.int32).reshape(-1)
-        out, = captured(params, cache, tokens, start)
+        out, = captured(params, cache, *inputs(tokens, cache_index))
         return out, cache
 
     graphed.captured = captured
+    graphed.binding = lambda params, tokens, cache, cache_index: \
+        captured.binding(params, cache, *inputs(tokens, cache_index))
     return graphed
 
 
@@ -169,7 +182,9 @@ def jit_slot_decode_step(step: Callable) -> Callable:
     slot_index)`` as :func:`make_slot_decode_step`'s.  ``next_tokens``
     and the new ``slot_index`` are static buffers that the next call
     overwrites; a paged cache's ``block_tables`` is read where it lies, so
-    the caller updates it in place."""
+    the caller updates it in place.  ``graphed.binding(params, tokens,
+    cache, slot_index, active)`` is the binding such a call replays
+    (``CapturedStep.binding``)."""
     def body(params, cache, tokens, slot_index, active):
         nxt, _, new_index = step(params, tokens, cache, slot_index, active)
         return nxt, new_index
@@ -181,29 +196,23 @@ def jit_slot_decode_step(step: Callable) -> Callable:
         return nxt, cache, new_index
 
     graphed.captured = captured
+    graphed.binding = lambda params, tokens, cache, slot_index, active: \
+        captured.binding(params, cache, tokens, slot_index, active)
     return graphed
 
 
-def make_prefill_chunk_step(cfg: ArchConfig, *, mode: QuantMode = FP,
-                            chunk: int) -> Callable:
-    """Chunked prefill for ONE slot of the pool: write up to ``chunk``
-    teacher-forced prompt tokens of KV state in one step.
+def make_per_token_chunk_step(cfg: ArchConfig, *, mode: QuantMode = FP,
+                              chunk: int) -> Callable:
+    """Chunked prefill for ONE slot, one token at a time: the reference
+    path that :func:`make_prefill_chunk_step` is held to.
 
     Returns ``step(params, tokens, cache, sid, start, n_valid) -> cache``
-    with ``tokens`` (chunk,) int32, ``sid`` the slot row, ``start`` its
-    current frontier and ``n_valid`` how many of the tokens are real.  The
-    step runs the SAME per-token decode step as the slot tick and the
-    sequential reference (batch 1, lockstep index) on a view of the slot's
-    cache row, so the written bytes are the per-token path's.  Padding
-    tokens past ``n_valid`` are never run, which leaves the cache exactly
-    as unpadded prefill would.
-
-    Paged cache: the step runs on the physical pool itself with the
-    slot's table row as a (1, MB) table, and writes only positions
-    ``start .. start + n_valid - 1``, which lie in blocks the slot owns
-    privately — a shared prefix block is never written.  (The reference
-    gathers the row into a contiguous view and scatters every block back,
-    which keeps its CPU path byte-identical under a functional update.)"""
+    as :func:`make_prefill_chunk_step`'s.  It runs the SAME one-token
+    decode step as the slot tick and the sequential reference (batch 1,
+    lockstep index) once per real token on a view of the slot's cache
+    row, so the written bytes are the per-token path's; padding tokens
+    past ``n_valid`` are never run.  A paged cache runs on the physical
+    pool with the slot's table row as a (1, MB) table."""
     decode = make_decode_step(cfg, mode=mode)
 
     def step(params, tokens, cache, sid: int, start: int, n_valid: int):
@@ -227,28 +236,166 @@ def make_prefill_chunk_step(cfg: ArchConfig, *, mode: QuantMode = FP,
     return step
 
 
+def _projections_quantized(params) -> bool:
+    """True when every projection of every layer is an int8 ``QTensor``."""
+    return all(isinstance(lin["w"], QTensor) for lp in params["layers"]
+               for block in (lp["attn"], lp["mlp"]) for lin in block.values())
+
+
+def make_prefill_chunk_step(cfg: ArchConfig, *, mode: QuantMode = FP,
+                            chunk: int) -> Callable:
+    """Chunked prefill for ONE slot of the pool: write up to ``chunk``
+    teacher-forced prompt tokens of KV state in one step.
+
+    Returns ``step(params, tokens, cache, sid, start, n_valid) -> cache``
+    with ``tokens`` (chunk,) int32, ``sid`` the slot row, ``start`` its
+    current frontier and ``n_valid`` how many of the tokens are real.  The
+    written bytes are those of the per-token path
+    (:func:`make_per_token_chunk_step`).  Padding tokens past ``n_valid``
+    are never run, which leaves the cache exactly as unpadded prefill
+    would.
+
+    Under W8A16, where every projection is a ``QTensor``, the chunk runs
+    as ONE decode pass of tokens (1, n_valid) at ``cache_index = start``,
+    causal (token i attends the slots below ``start + i + 1``): it writes
+    every token's k/v, then attends each as a query row of its own
+    (``layers.attention``), so the weights are read once per chunk.  Its
+    bytes are still the per-token path's, because every op of that pass
+    computes a row the same whatever the rows beside it: the GEMV (its
+    split a function of (K, N) alone), the decode attention kernels and
+    ``bf16_cache_attention`` (one frontier per row), the row-wise norms,
+    ``q8`` and RoPE.  Otherwise the chunk runs the one-token decode step
+    once per real token: under W8A8 one pass would quantize the n tokens'
+    activations with one scale (``kernels/ops.py::qmatmul_dynamic``)
+    where the reference's scan quantizes each token alone, and under FP
+    ``torch.matmul`` promises no row invariance.
+
+    The step reads the slot's row through a table, so no Python ``sid``
+    narrows the cache: the paged cache's table row, or, on a contiguous
+    cache, ``[sid]`` over its leaves read as blocks of one slot row each.
+    On a paged cache it writes only positions ``start .. start + n_valid
+    - 1``, which lie in blocks the slot owns privately — a shared prefix
+    block is never written.  (The reference gathers the row into a
+    contiguous view and scatters every block back, which keeps its CPU
+    path byte-identical under a functional update.)
+
+    ``step.body(params, cache, toks, sid, start)`` is the step on device
+    tensors, what :func:`jit_prefill_chunk_step` captures: ``toks`` the
+    n real tokens (n,), ``sid`` and ``start`` (1,) int32."""
+    decode = make_decode_step(cfg, mode=mode)
+
+    def body(params, cache, toks, sid, start):
+        if "block_tables" in cache:
+            table = cache["block_tables"].index_select(0, sid)
+        else:
+            table = sid.reshape(1, 1)
+        view = dict(cache, block_tables=table)
+        n = toks.shape[0]
+        if mode.enabled and not mode.w8a8 and _projections_quantized(params):
+            decode(params, {"tokens": toks.reshape(1, n),
+                            "cache_index": start}, view, logits=False,
+                   causal=True)
+        else:
+            for i in range(n):
+                decode(params, {"tokens": toks[i:i + 1].reshape(1, 1),
+                                "cache_index": start + i}, view,
+                       logits=False)
+        return ()
+
+    def step(params, tokens, cache, sid: int, start: int, n_valid: int):
+        if len(tokens) != chunk:
+            raise ValueError(f"chunk step of {chunk} got {len(tokens)} "
+                             f"tokens")
+        n = int(n_valid)
+        if n:
+            dev = cache["k"].device
+            body(params, cache,
+                 torch.as_tensor(tokens[:n], dtype=torch.int32, device=dev),
+                 torch.tensor([int(sid)], dtype=torch.int32, device=dev),
+                 torch.tensor([int(start)], dtype=torch.int32, device=dev))
+        return cache
+
+    step.body = body
+    step.chunk = chunk
+    return step
+
+
+def jit_prefill_chunk_step(step: Callable) -> Callable:
+    """A chunk step captured as CUDA graphs over its cache (the
+    reference's ``jax.jit`` with the cache donated): ``step(params,
+    tokens, cache, sid, start, n_valid) -> cache`` as
+    :func:`make_prefill_chunk_step`'s.  ``sid``, ``start`` and the
+    ``n_valid`` real tokens go to the card in one copy into a static
+    buffer (from pinned memory, so the host does not wait for the card),
+    and each ``n_valid`` has a graph of its own, captured at its first
+    call: the padding is never run, where the reference runs it and
+    masks its writes with ``jnp.where``.  ``graphed.binding(params,
+    cache, n_valid)`` is the binding that a call of ``n_valid`` real
+    tokens on ``params`` and ``cache`` replays (``CapturedStep.binding``).
+    """
+    chunk = step.chunk
+
+    def chunk_body(params, cache, packed):
+        return step.body(params, cache, packed[2:], packed[:1], packed[1:2])
+
+    captured = CapturedStep(chunk_body, max_bindings=MAX_BINDINGS * chunk)
+
+    def graphed(params, tokens, cache, sid, start, n_valid):
+        if len(tokens) != chunk:
+            raise ValueError(f"chunk step of {chunk} got {len(tokens)} "
+                             f"tokens")
+        n = int(n_valid)
+        if not 0 <= n <= chunk:
+            raise ValueError(f"n_valid must lie in [0, {chunk}], got {n}")
+        if n:
+            packed = torch.tensor([int(sid), int(start)]
+                                  + [int(t) for t in tokens[:n]],
+                                  dtype=torch.int32)
+            if cache["k"].is_cuda:
+                packed = packed.pin_memory()
+            captured(params, cache, packed)
+        return cache
+
+    graphed.captured = captured
+    graphed.binding = lambda params, cache, n_valid: captured.binding(
+        params, cache, torch.empty(2 + int(n_valid), dtype=torch.int32))
+    return graphed
+
+
 # Process-wide memo of the captured steps, keyed as the reference's
 # (``repro/runtime/steps.py`` ``_STEP_CACHE``) on the step's
-# specialization: engines over one config share one captured step.  A
-# captured step holds ONE graph, bound to the params and cache it last
-# ran on, so engines that take turns on one step capture anew at their
-# first tick.
+# specialization: engines over one config share one captured step, which
+# keeps a graph per binding (each engine's params and cache), so engines
+# that take turns each replay their own.
 _STEP_CACHE: dict = {}
+
+
+def _cached(key, build):
+    fn = _STEP_CACHE.get(key)
+    if fn is None:
+        fn = _STEP_CACHE[key] = build()
+    return fn
 
 
 def cached_slot_decode_step(cfg: ArchConfig, *, mode: QuantMode = FP,
                             temperature: float = 0.0) -> Callable:
     """Memoized ``jit_slot_decode_step(make_slot_decode_step(...))``."""
-    key = ("slot_decode", cfg, mode, temperature)
-    if key not in _STEP_CACHE:
-        _STEP_CACHE[key] = jit_slot_decode_step(make_slot_decode_step(
-            cfg, mode=mode, temperature=temperature))
-    return _STEP_CACHE[key]
+    return _cached(("slot_decode", cfg, mode, temperature),
+                   lambda: jit_slot_decode_step(make_slot_decode_step(
+                       cfg, mode=mode, temperature=temperature)))
+
+
+def cached_prefill_chunk_step(cfg: ArchConfig, *, mode: QuantMode = FP,
+                              chunk: int) -> Callable:
+    """Memoized ``jit_prefill_chunk_step(make_prefill_chunk_step(...))``."""
+    return _cached(("prefill_chunk", cfg, mode, chunk),
+                   lambda: jit_prefill_chunk_step(make_prefill_chunk_step(
+                       cfg, mode=mode, chunk=chunk)))
 
 
 def clear_step_cache() -> None:
-    """Drop every memoized step, its graph and the params and cache it
-    holds."""
+    """Drop every memoized step, its graphs and the params and caches they
+    hold."""
     for fn in _STEP_CACHE.values():
         fn.captured.release()
     _STEP_CACHE.clear()

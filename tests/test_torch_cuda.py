@@ -3,9 +3,10 @@ of qmatmul_w8a16's paths and both of qmatmul_w8a8's), the engine,
 contiguous and paged, int8 and bf16 cache, bit-for-bit against its
 sequential reference, the serve launcher's forward through its kernels,
 which path each caller takes, rmsnorm's row invariance, and the slot
-tick and the decode loop captured as CUDA graphs (bitwise the eager
-steps, recaptured on other tensors, holding their workspace, a failed
-capture raising), at small shapes.
+tick, the decode loop and the chunk step captured as CUDA graphs
+(bitwise the eager steps, the one-pass chunk bitwise the per-token one,
+recaptured on other tensors, holding their workspace, engines taking
+turns capturing once each, a failed capture raising), at small shapes.
 
 Every test here is marked ``gpu`` and skips without a CUDA device; the
 module imports no JAX, so it also runs where only the port is installed:
@@ -836,14 +837,16 @@ def test_captured_tick_equals_eager(cuda, kind):
             assert per_eager and per_graph == {
                 k: n * (2 if t == 0 else 1) for k, n in per_eager.items()}
     assert graphed.captured.captures == 1
-    assert graphed.captured.launches == per_eager
+    assert graphed.binding(params, args[0], other, args[1],
+                           args[2]).launches == per_eager
 
 
 def test_captured_tick_recaptures_on_other_tensors(cuda):
-    """A captured tick called on a second cache, back on the first, and
-    with one param leaf replaced captures anew each time (never replaying
-    against tensors it did not capture), and each result equals the
-    eager tick's on the same cache."""
+    """A captured tick called on a second cache and with one param leaf
+    replaced captures anew each time (never replaying against tensors it
+    did not capture); back on the first cache it replays the graph it
+    keeps for it; each result equals the eager tick's on the same
+    cache."""
     cfg, params, mode, cache, sched = _graph_case(cuda, "contiguous")
     eager = ST.make_slot_decode_step(cfg, mode=mode)
     graphed = ST.jit_slot_decode_step(ST.make_slot_decode_step(cfg,
@@ -855,7 +858,7 @@ def test_captured_tick_recaptures_on_other_tensors(cuda):
     with torch.inference_mode():
         for t, (name, p, want) in enumerate((
                 ("a", params, 1), ("a", params, 1), ("b", params, 2),
-                ("a", params, 3), ("a", swapped, 4), ("a", swapped, 4))):
+                ("a", params, 2), ("a", swapped, 3), ("a", swapped, 3))):
             args = tick_args(sched[t], cuda)
             n_g, _, i_g = graphed(p, args[0], caches[name], *args[1:])
             n_e, _, i_e = eager(p, args[0], mirrors[name], *args[1:])
@@ -882,7 +885,7 @@ def test_captured_steps_keep_their_workspace(cuda):
         args = tick_args(sched[0], cuda)
         tick8(params, args[0], cache, *args[1:])
         eager8(params, args[0], mirror, *args[1:])
-        held = tick8.captured.scratch
+        held = tick8.binding(params, args[0], cache, *args[1:]).scratch
         assert held
         _, params16, _, cache16, sched16 = _graph_case(cuda, "w8a8",
                                                        slots=16, seed=1)
@@ -963,6 +966,77 @@ def test_engine_on_card_serves_twice_through_one_capture(cuda):
                                         max_seq=eng.max_seq)
 
 
+@pytest.mark.parametrize("kind", list(GRAPH_KINDS))
+def test_captured_chunk_equals_per_token(cuda, kind):
+    """The chunk step of slot 1 from position 6 (paged: across a block
+    edge) for every n_valid of a chunk of 4: captured (one graph per
+    n_valid) and eager, each cache leaf bitwise the eager per-token
+    step's (which reads a contiguous slot row through the contiguous
+    kernel) on copies of a cache with a history; a replay launches, under
+    W8A16, the eager one pass's 6 x layers GEMVs and one paged attention
+    launch a layer (a contiguous cache read through the slot's one-entry
+    table), under W8A8 one pass per token."""
+    cfg, params, mode, cache, _ = _graph_case(cuda, kind)
+    per_token = ST.make_per_token_chunk_step(cfg, mode=mode, chunk=4)
+    eager = ST.make_prefill_chunk_step(cfg, mode=mode, chunk=4)
+    graphed = ST.jit_prefill_chunk_step(ST.make_prefill_chunk_step(
+        cfg, mode=mode, chunk=4))
+    toks = np.random.default_rng(9).integers(1, cfg.vocab, 4).astype(
+        np.int32)
+    one_pass = mode is W8A16
+    with torch.inference_mode():
+        for n in range(1, 5):
+            want, one, got = _clone(cache), _clone(cache), _clone(cache)
+            per_token(params, toks, want, 1, 6, n)
+            _, per_eager = _counted_call(eager, params, toks, one, 1, 6, n)
+            graphed(params, toks, got, 1, 6, n)           # the capture
+            for name in got:                 # the captured tensors, reset
+                got[name].copy_(cache[name])
+            _, per_graph = _counted_call(graphed, params, toks, got, 1, 6, n)
+            for name in cache:
+                assert torch.equal(one[name], want[name]), (n, name)
+                assert torch.equal(got[name], want[name]), (n, name)
+            passes = 1 if one_pass else n
+            if one_pass:
+                assert per_graph == per_eager, n
+            projections = 6 * cfg.n_layers * passes
+            assert per_graph.get("qmatmul_w8a16[gemv]", 0) == (
+                projections if one_pass else 0), n
+            assert per_graph.get("qmatmul_w8a8", 0) == (
+                0 if one_pass else projections), n
+            if kind != "bf16":
+                assert per_graph["decode_attention_int8_paged"] == \
+                    cfg.n_layers * passes, n
+    assert graphed.captured.captures == 4
+    torch.cuda.synchronize()
+    for pair in scratch._SCRATCH.values():
+        assert not pair[1].any()
+
+
+def test_engines_on_card_serving_in_turn_capture_once_each(cuda):
+    """A contiguous and a paged engine of one config, warmed up, serve in
+    turn: the memoized tick and chunk steps capture nothing more (each
+    engine replays its own graphs), and both equal the reference."""
+    cfg = dataclasses.replace(get_config("starcoder2-3b").reduced(),
+                              kv_quant=True)
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    params = quantize_tree(R.init(gen, cfg, device=cuda), min_size=2048)
+    reqs = E.synthetic_requests(8, rate_per_s=2000.0, vocab=cfg.vocab,
+                                prompt_len=7, max_new_tokens=4)
+    engines = [E.Engine(cfg, params, mode=W8A16, num_slots=4, max_seq=12,
+                        prefill_chunk=4, block_size=bs) for bs in (None, 4)]
+    for eng in engines:
+        eng.warmup()
+    steps = [engines[0].backend.slot_step(cfg, mode=W8A16, temperature=0.0)]
+    steps += [engines[0].backend.chunk_step(cfg, mode=W8A16, chunk=c)
+              for c in (1, 2, 4)]
+    bound = [s.captured.captures for s in steps]
+    want = E.reference_outputs(cfg, params, reqs, mode=W8A16, max_seq=12)
+    for eng in engines + engines[:1]:
+        assert eng.serve(reqs).outputs() == want
+    assert [s.captured.captures for s in steps] == bound
+
+
 def test_failed_capture_raises(cuda):
     """A step that waits for the card inside its capture raises
     GraphCaptureError and keeps no graph; nothing runs it eagerly
@@ -976,7 +1050,7 @@ cache = {"k": torch.zeros(4, device="cuda")}
 try:
     step({}, cache, torch.ones(4, device="cuda"))
 except G.GraphCaptureError as e:
-    assert step.graph is None and step.outputs == ()
+    assert step.bindings == 0
     print("raised:", type(e.__cause__).__name__)
 else:
     raise SystemExit("no error")

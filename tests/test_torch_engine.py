@@ -59,11 +59,12 @@ def _engine(cfg, params, **kw):
                     **kw)
 
 
-@pytest.mark.parametrize("chunk", [4, None])
+@pytest.mark.parametrize("chunk", [1, 2, 4, None])
 def test_engine_equals_reference_bit_for_bit(setup, chunk):
-    """24 requests through 4 slots (each slot reused), chunked prefill of 4
-    (prompts of 5 leave 4 tokens: one bucket) or per-token prefill: every
-    request's tokens equal the sequential batch-1 reference exactly."""
+    """24 requests through 4 slots (each slot reused), chunked prefill of
+    1, 2 or 4 (prompts of 5 leave 4 tokens: four, two or one captured
+    chunk) or per-token prefill: every request's tokens equal the
+    sequential batch-1 reference exactly."""
     _, cfg, _, params, reqs = setup
     eng = E.Engine(cfg, params, mode=W8A16, num_slots=4,
                    max_seq=PROMPT + GEN, prefill_chunk=chunk, device="cpu")

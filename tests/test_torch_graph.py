@@ -282,9 +282,13 @@ def test_captured_step_binds_anew_on_other_tensors():
     step({"w": torch.ones(2)}, cache, torch.ones(3))
     assert step.captures == 3
     step(params, cache, torch.ones((2, 3)))
-    assert step.captures == 4 and step.outputs[0].shape == (2, 3)
+    assert step.captures == 4 and step.bindings == 4
+    b = step.binding(params, cache, torch.empty((2, 3)))
+    assert b.graph is None and b.outputs[0].shape == (2, 3)
+    assert step.binding(params, cache, torch.empty(3)).outputs[0] is out[0]
     step.release()
-    assert step.outputs == () and step.graph is None
+    assert step.bindings == 0
+    assert step.binding(params, cache, torch.empty((2, 3))) is None
 
 
 def test_single_device_executor_hands_out_the_captured_tick():
@@ -327,8 +331,8 @@ def test_two_serves_on_one_engine_give_the_same_tokens(setup, block_size):
 def test_decode_step_positions_are_the_references(setup, monkeypatch):
     """``decode_step`` of s = 3 tokens gives token j the position
     ``cache_index + j`` in both forms, as the JAX formula
-    (``repro/models/transformer.py`` decode_step) computes it; attention
-    against a cache still takes one token a step and raises."""
+    (``repro/models/transformer.py`` decode_step) computes it, and the
+    step attends all three tokens against the cache (logits (2, 3, V))."""
     _, tq = setup
     _, cfg = _cfgs(True)
     seen = []
@@ -344,8 +348,9 @@ def test_decode_step_positions_are_the_references(setup, monkeypatch):
                      (torch.tensor([4, 9], dtype=torch.int32),
                       jnp.asarray([4, 9])[:, None] + jnp.arange(3)[None, :])):
         cache = R.init_cache(cfg, 2, 16, device="cpu")
-        with pytest.raises(NotImplementedError, match="item 14"):
-            T.decode_step(tq, toks, cache, ci, cfg, mode=W8A16)
+        logits, _ = T.decode_step(tq, toks, cache, ci, cfg, mode=W8A16)
+        assert logits.shape == (2, 3, cfg.vocab)
+        assert torch.isfinite(logits).all()
         got = seen.pop()
         assert got.dtype == torch.int32 and got.shape == (2, 3)
         np.testing.assert_array_equal(
