@@ -37,7 +37,25 @@ Phases, each of which fails the run (non-zero exit, no result line):
    kernels' share of its device time, and the steady tick under W8A8 at
    16 slots, with ``qmatmul_w8a8``'s share (these breakdowns run the
    eager step);
-5. graphs: each of those five ticks eager against the captured step
+5. overload: the same model served through the overload paths, each
+   serve warmed up (no capture inside it; no plain version, no mma
+   launch) and held against a control serve of the same engine on the
+   same trace without preemption or faults.  Paged:
+   ``Engine(num_slots=8, block_size=16, num_blocks=13, max_seq=48)``
+   (12 usable blocks against 24 worst-case), 24 requests (prompt 16, 32
+   new, Poisson at 400/s, batch for odd rids, interactive for even),
+   ``preemption=True``, ``max_retries=2`` and a fixed ``FaultPlan``: a
+   dispatch fault retried twice, a non-finite sample, a block-table row
+   torn in place and a dispatch fault that fails its culprit.  Every fault
+   fires, exactly one request fails, no block leaks, every other request
+   equals the control, and every preempted one (the non-finite victim
+   and the torn row's tenant among them) equals the sequential
+   reference.  Contiguous: the same trace at 100/s (at 400/s the
+   class-ordered queue holds every interactive request before a slot
+   frees, so nothing is evicted), ``class_quotas={"batch": 2}``,
+   ``preemption=True``: slot pressure evicts, the batch class never holds
+   more than 2 slots in a tick, and the outputs equal the control;
+6. graphs: each of those five ticks eager against the captured step
    (``runtime/steps.py::jit_slot_decode_step``) on two copies of one
    randomly filled cache, over four ticks with a row retiring and one
    admitted (paged: a table row changed): next tokens, indices and every
@@ -57,7 +75,7 @@ Phases, each of which fails the run (non-zero exit, no result line):
    capture holds: the 8-row tick, captured first, replays equal to the
    eager tick after the 16-row captures grew the capture stream's
    workspace, with every arrival counter back at 0;
-6. serve: the serve launcher (``repro_torch.launch.serve.run``) at full
+7. serve: the serve launcher (``repro_torch.launch.serve.run``) at full
    starcoder2-3b width with the bf16 KV cache, once with ``--quant w8a16``
    and once with ``--quant w8a8``: the service curve through the
    full-sequence forward (flash attention; under w8a16 every
@@ -67,7 +85,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
    tick and chunks captured as CUDA graphs), counters zeroed just
    before each run and read just after, then where one 16 x 32-token
    prefill spends its time; the w8a16 run's first three requests are
-   compared with ``reference_outputs`` (bf16 cache) on the card.
+   compared with ``reference_outputs`` (bf16 cache) on the card; then one
+   more w8a16 run with the overload flags (``--interactive-frac 0.5
+   --batch-quota 4 --preemption --fault-seed 3 --n-faults 4``), which
+   must exit 0 and print its retirement and faults lines.
 
 The kernel phase holds both of ``qmatmul_w8a16``'s kernels (the GEMV and
 the ``mma.sync`` bf16 tensor-core path) at every projection and the LM
@@ -150,6 +171,27 @@ PAGED_SHARED_PREFIX = 16
 PAGED_NUM_BLOCKS = 1 + 6 * math.ceil((PAGED_PROMPT_LEN + MAX_NEW)
                                      / PAGED_BLOCK)
 PAGED_RATE_PER_S = 2.0
+
+# the overload phase: the paged slice's geometry on a pool of 13 blocks (12
+# usable: four requests' rows of 48 positions, against 24 for 8 slots), two
+# SLO classes, and this fault plan (kind, tick, slot, repeat): a dispatch
+# fault retried twice, a non-finite sample, a torn table row and a dispatch
+# fault that fails its culprit past OVERLOAD_MAX_RETRIES.  The contiguous
+# serve caps the batch class at OVERLOAD_BATCH_QUOTA slots; its trace
+# arrives at 100/s: at the paged serve's 400/s every request is queued
+# before a slot frees, the queue is class-ordered, and nothing is ever
+# evicted; at 100/s interactive requests keep arriving while batch ones
+# hold slots
+OVERLOAD_BLOCKS = 13
+OVERLOAD_RATE_PER_S = 400.0
+OVERLOAD_CONTIG_RATE_PER_S = 100.0
+OVERLOAD_BATCH_QUOTA = 2
+OVERLOAD_MAX_RETRIES = 2
+OVERLOAD_FAULTS = (("dispatch", 20, 1, 2), ("nan_logits", 40, 2, 1),
+                   ("torn_table", 60, 0, 1), ("dispatch", 80, 3, 99))
+SERVE_OVERLOAD_FLAGS = ["--interactive-frac", "0.5", "--batch-quota", "4",
+                        "--preemption", "--fault-seed", "3",
+                        "--n-faults", "4"]
 
 # the serve phase: the launcher's flags.  The deadline is chosen from the
 # first full-width run's curve (PERF.md, Findings): there the modeled p99 of
@@ -1395,6 +1437,166 @@ def paged_slice_phase(cfg, params):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# overload phase
+# ---------------------------------------------------------------------------
+
+def overload_trace(cfg, rate):
+    from repro_torch import engine as E
+    return E.synthetic_requests(
+        N_REQUESTS, rate_per_s=rate, vocab=cfg.vocab, prompt_len=PROMPT_LEN,
+        max_new_tokens=MAX_NEW, seed=SEED,
+        priority=lambda rid: "batch" if rid % 2 else "interactive")
+
+
+def overload_serve(label, eng, reqs, bound, path, **kw):
+    """One wall-clock serve with the counters zeroed just before and read
+    just after: no capture, no plain version, no mma launch, every kernel
+    of ``path`` launched, every request retired once; prints its
+    numbers and returns the report."""
+    zero_counts()
+    rep = eng.serve(reqs, clock="wall", **kw)
+    launches, plain_calls = read_counts()
+    same_captures(label, eng, bound)
+    mma_free(label, launches)
+    if any(plain_calls.values()):
+        raise AssertionError(f"{label}: the CUDA path reached a plain "
+                             f"version: {plain_calls}")
+    if any(launches[k] <= 0 for k in path):
+        raise AssertionError(f"{label}: a kernel of the path never "
+                             f"launched: {launches}")
+    if sorted(r.rid for r in rep.results) != sorted(r.rid for r in reqs):
+        raise AssertionError(f"{label}: not every request retired once")
+
+    def per_class(d, scale):
+        return ", ".join(f"{c} {v * scale:.3f}" for c, v in d.items())
+
+    print(f"{label}: {len(rep.results)} requests in {rep.ticks} ticks, "
+          f"{rep.generated_tokens} tokens, wall {rep.wall_s:.3f}s, "
+          f"decoded tok/s {rep.generated_tokens / rep.wall_s:.1f}, "
+          f"ms/tick {1e3 * rep.wall_s / rep.ticks:.2f}, goodput "
+          f"{rep.goodput_tokens_per_s:.1f} tok/s, p99 latency "
+          f"{rep.p99_latency_s:.3f}s, mean ttft {rep.mean_ttft_s:.3f}s")
+    print(f"{label}: class p99 latency (s) "
+          f"{per_class(rep.class_p99_latency_s, 1)}; class mean ttft (s) "
+          f"{per_class(rep.class_mean_ttft_s, 1)}; class p99 ttft (s) "
+          f"{per_class(rep.class_p99_ttft_s, 1)}")
+    print(f"{label}: preempted {rep.preempted}, dispatch_retries "
+          f"{rep.dispatch_retries}, nonfinite_samples "
+          f"{rep.nonfinite_samples}, torn_rows_repaired "
+          f"{rep.torn_rows_repaired}, failed {rep.failed}, unfinished "
+          f"{rep.unfinished}, leaked_blocks {rep.leaked_blocks}, tokens "
+          f"re-prefilled by resumes {rep.resumed_prefill_tokens}, most "
+          f"slots held per class "
+          f"{ {c: max(v) for c, v in rep.class_occupancy.items()} }, "
+          f"watchdog stuck ticks {rep.stuck_ticks}")
+    print(f"{label}: kernel launches {launches}")
+    return rep
+
+
+def same_as_control(label, rep, control) -> None:
+    """Every ok request's tokens equal the control serve's."""
+    want = control.outputs()
+    bad = [r.rid for r in rep.results
+           if r.status == "ok" and r.tokens != want[r.rid]]
+    if bad:
+        raise AssertionError(f"{label}: requests {bad} differ from the "
+                             f"control serve")
+    print(f"{label}: {sum(r.status == 'ok' for r in rep.results)} ok "
+          f"requests equal the control serve token for token")
+
+
+def overload_phase(cfg, params) -> None:
+    from repro_torch import engine as E
+    from repro_torch.core import batching as bt
+    from repro_torch.core.qlinear import W8A16
+
+    # 1) paged: block pressure, and one fault of each kind
+    label = "overload paged"
+    reqs = overload_trace(cfg, OVERLOAD_RATE_PER_S)
+    eng = E.Engine(cfg, params, mode=W8A16, num_slots=NUM_SLOTS,
+                   max_seq=PROMPT_LEN + MAX_NEW, prefill_chunk=PREFILL_CHUNK,
+                   block_size=PAGED_BLOCK, num_blocks=OVERLOAD_BLOCKS)
+    bound = warm(label, eng, reqs[:2])
+    path = ("qmatmul_w8a16", "decode_attention_int8_paged")
+    control = overload_serve(f"{label} control", eng, reqs, bound, path)
+    check_served(f"{label} control", cfg, control, reqs)
+    faults = list(OVERLOAD_FAULTS)
+    last = max(t for _, t, _, _ in faults)
+    if last >= control.ticks // 2:
+        # the serve is shorter than the plan: spread it over its first half
+        faults = [(k, (j + 1) * control.ticks // (2 * len(faults)), s, r)
+                  for j, (k, _, s, r) in enumerate(faults)]
+    print(f"{label}: fault plan (kind, tick, slot, repeat) {faults}; the "
+          f"control serve ran {control.ticks} ticks")
+    plan = E.FaultPlan([E.Fault(t, k, s, r) for k, t, s, r in faults])
+    rep = overload_serve(label, eng, reqs, bound, path, preemption=True,
+                         fault_plan=plan, max_retries=OVERLOAD_MAX_RETRIES)
+    print(f"{label}: fired {plan.fired}")
+    missing = [f for f in plan.faults
+               if not any(t == f.tick and k == f.kind
+                          for t, k, _ in plan.fired)]
+    if missing:
+        raise AssertionError(f"{label}: faults that never fired: {missing}")
+    if not (rep.preempted > 0 and rep.torn_rows_repaired >= 1
+            and rep.nonfinite_samples >= 1 and rep.dispatch_retries >= 2):
+        raise AssertionError(f"{label}: counters {rep.preempted}, "
+                             f"{rep.torn_rows_repaired}, "
+                             f"{rep.nonfinite_samples}, "
+                             f"{rep.dispatch_retries}")
+    statuses = sorted(r.status for r in rep.results)
+    if rep.failed != 1 or statuses.count("failed") != 1 or set(
+            statuses) != {"ok", "failed"}:
+        raise AssertionError(f"{label}: want exactly one failed request, "
+                             f"the rest ok: {statuses}")
+    if rep.leaked_blocks or rep.peak_blocks_used > rep.num_blocks - 1:
+        raise AssertionError(f"{label}: leaked {rep.leaked_blocks} blocks, "
+                             f"peak {rep.peak_blocks_used}")
+    same_as_control(label, rep, control)
+    # every preempted request: the non-finite victim, the torn row's
+    # tenant and the evicted ones among them
+    resumed = [r.rid for r in rep.results
+               if r.status == "ok" and r.preemptions]
+    print(f"{label}: preempted requests (rid: preemptions) "
+          f"{ {r.rid: r.preemptions for r in rep.results if r.preemptions} }")
+    if len(resumed) < 2:
+        raise AssertionError(f"{label}: fewer than two resumed requests")
+    compare_with_reference(label, cfg, params, eng,
+                           [r for r in reqs if r.rid in resumed],
+                           rep.outputs())
+    del eng
+    torch_cuda_empty()
+
+    # 2) contiguous: slot pressure under a batch quota
+    label = "overload contiguous"
+    policy = bt.AdmissionPolicy(
+        lambda b: 0.0, max_batch=NUM_SLOTS, max_wait_s=0.0,
+        class_quotas={"batch": OVERLOAD_BATCH_QUOTA})
+    eng = E.Engine(cfg, params, mode=W8A16, num_slots=NUM_SLOTS,
+                   max_seq=PROMPT_LEN + MAX_NEW, prefill_chunk=PREFILL_CHUNK,
+                   policy=policy)
+    bound = warm(label, eng, overload_trace(cfg, OVERLOAD_RATE_PER_S)[:2])
+    path = ("qmatmul_w8a16", "decode_attention_int8",
+            "decode_attention_int8_paged")
+    reqs = overload_trace(cfg, OVERLOAD_CONTIG_RATE_PER_S)
+    print(f"{label}: {N_REQUESTS} requests at {OVERLOAD_CONTIG_RATE_PER_S}/s"
+          f", batch quota {OVERLOAD_BATCH_QUOTA}")
+    control = overload_serve(f"{label} control", eng, reqs, bound, path)
+    check_served(f"{label} control", cfg, control, reqs)
+    rep = overload_serve(label, eng, reqs, bound, path, preemption=True)
+    if rep.preempted <= 0:
+        raise AssertionError(f"{label}: slot pressure evicted nothing")
+    for name, r in (("control", control), ("overload", rep)):
+        most = max(r.class_occupancy.get("batch", [0]))
+        if most > OVERLOAD_BATCH_QUOTA:
+            raise AssertionError(f"{label} {name}: the batch class held "
+                                 f"{most} slots in a tick")
+    check_served(label, cfg, rep, reqs)
+    same_as_control(label, rep, control)
+    del eng
+    torch_cuda_empty()
+
+
 def serve_phase():
     """The serve launcher at full width, --quant w8a16 then w8a8 (bf16 KV
     cache), counters zeroed just before each run and read just after.
@@ -1423,6 +1625,8 @@ def serve_phase():
             if quant == "w8a16":
                 w8a16 = res           # compared after both runs
             del res
+        torch_cuda_empty()
+        serve_run("w8a16", curve_paths, SERVE_OVERLOAD_FLAGS)
     finally:
         serve.measure_service_curve = real_curve
     compare_with_reference("serve w8a16", w8a16.cfg, w8a16.params,
@@ -1433,18 +1637,26 @@ def serve_phase():
     return counts
 
 
-def serve_run(quant, curve_paths):
+def serve_run(quant, curve_paths, flags=()):
     """One serve launcher run, counters zeroed just before and read just
-    after, and checked: (its kernel launches, its ServeRun)."""
+    after, and checked: (its kernel launches, its ServeRun).  With the
+    overload ``flags`` the run must print its retirement and faults
+    lines, and every request retire once (a fault may fail one)."""
+    import contextlib
+    import io
+
     from repro_torch.launch import serve
 
-    label = f"serve {quant}"
-    print(f"{label}: python -m repro_torch.launch.serve "
-          f"{' '.join(SERVE_ARGS)} --quant {quant}")
+    label = f"serve {quant}" + (" overload" if flags else "")
+    argv = SERVE_ARGS + ["--quant", quant] + list(flags)
+    print(f"{label}: python -m repro_torch.launch.serve {' '.join(argv)}")
     t0 = time.perf_counter()
     zero_counts()
-    res = serve.run(serve.parse_args(SERVE_ARGS + ["--quant", quant]))
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        res = serve.run(serve.parse_args(argv))
     launches, plain_calls = read_counts()
+    print(out.getvalue(), end="")
     print(f"{label}: run {time.perf_counter() - t0:.1f}s, exit code "
           f"{res.code}, curve {res.curve}, chosen batch {res.batch}, "
           f"decode tok/s {res.decode_tokens_per_s}")
@@ -1463,7 +1675,7 @@ def serve_run(quant, curve_paths):
           f"{rep.mean_occupancy:.3f}, watchdog stuck ticks "
           f"{rep.stuck_ticks}")
     print(f"{label}: engine ms/tick {1e3 * rep.wall_s / rep.ticks:.1f}; "
-          f"before the captured chunk: {BEFORE_CHUNK[label]}")
+          f"before the captured chunk: {BEFORE_CHUNK.get(label, 'not run')}")
     need = ["flash_attention_bhsd"] + (["qmatmul_w8a8"]
                                        if quant == "w8a8" else [])
     if any(launches[k] <= 0 for k in need):
@@ -1482,14 +1694,31 @@ def serve_run(quant, curve_paths):
     if quant == "w8a8" and curve_paths["mma"]:
         raise AssertionError(f"{label}: the W8A8 forward took qmatmul_w8a16's "
                              f"mma path: {curve_paths}")
-    if rep.failed or rep.dropped or rep.unfinished or len(
+    if flags:
+        lines = [ln for ln in out.getvalue().splitlines()
+                 if ln.startswith(("[engine] retirement:",
+                                   "[engine] faults:"))]
+        if len(lines) != 2:
+            raise AssertionError(f"{label}: want its retirement and faults "
+                                 f"lines, got {lines}")
+        if sorted(r.rid for r in rep.results) != sorted(
+                r.rid for r in res.requests):
+            raise AssertionError(f"{label}: not every request retired once")
+        print(f"{label}: fault plan {res.fault_plan.faults}, fired "
+              f"{res.fault_plan.fired}; classes "
+              f"{ {c: max(v) for c, v in rep.class_occupancy.items()} } "
+              f"most slots held; preempted {rep.preempted}, tokens "
+              f"re-prefilled by resumes {rep.resumed_prefill_tokens}; "
+              f"class p99 latency {rep.class_p99_latency_s}")
+    elif rep.failed or rep.dropped or rep.unfinished or len(
             rep.results) != len(res.requests) or any(
             r.status != "ok" for r in rep.results):
         raise AssertionError(f"{label}: a request failed: failed "
                              f"{rep.failed}, dropped {rep.dropped}, "
                              f"unfinished {rep.unfinished}")
     launches["curve_mma"] = curve_paths["mma"]
-    forward_breakdown(label, res)
+    if not flags:
+        forward_breakdown(label, res)
     return launches, res
 
 
@@ -2225,6 +2454,7 @@ def main(argv=None) -> int:
     cfg, params = build_model()
     launches = slice_phase(cfg, params)
     paged_launches = paged_slice_phase(cfg, params)
+    overload_phase(cfg, params)
     long_tick_phase(cfg, params)
     w8a8_tick_phase(cfg, params)
     graph_phase(cfg, params)

@@ -1,7 +1,9 @@
 """Dispatch core: the tick loop behind the Engine's policy face.
 
 The port of ``repro/engine/dispatch.py`` for ONE model lane with greedy
-sampling, on contiguous slots or on the paged KV cache:
+sampling, on contiguous slots or on the paged KV cache, with the
+reference's overload paths (SLO-class quotas, preemption with exact
+resume, fault injection and recovery):
 
 - ``Engine`` (engine.py) — policy + reporting: request validation,
   admission policy configuration, and ``EngineReport`` assembly.
@@ -19,22 +21,23 @@ the token chain alone: the reference's prime-source and model-tag seeds
 belong to families and lanes not ported yet.
 
 Not ported yet, and refused with an error naming their ROADMAP item where
-a caller asks for them: preemption and fault injection (queue 1, item
-12), prime families (item 13), speculation, multiplexing and the sharded
-executor (item 14).
+a caller asks for them: prime families (queue 1, item 13), speculation,
+multiplexing and the sharded executor (item 14).
 """
 from __future__ import annotations
 
 import dataclasses
 import time
 import warnings
-from typing import Callable, List, Optional, Tuple, Union
+from typing import Callable, Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.core import batching as bt
 from repro_torch.core.qlinear import QuantMode
+from repro_torch.engine.faults import FaultPlan
 from repro_torch.engine.scheduler import SlotScheduler
 from repro_torch.engine.slots import BlockPool, SlotPool
 from repro_torch.runtime import steps as ST
@@ -49,7 +52,9 @@ class EngineRequest:
     arrival_s: float = 0.0
     deadline_s: float = float("inf")
     # SLO class (see core.batching.PRIORITY_CLASSES): admission orders
-    # cohorts class-first
+    # cohorts class-first, per-class slot quotas cap how many slots a
+    # class may hold, and preemption only ever evicts a slot of strictly
+    # lower class than the request it makes room for
     priority: str = "interactive"
 
 
@@ -64,10 +69,11 @@ class RequestResult:
     slot: int
     dropped: bool = False             # retired before completing (deadline)
     # typed outcome: "ok" (completed), "dropped" (deadline miss),
-    # "failed" (its logits went non-finite), "unfinished" (still in
-    # flight when the tick cap hit)
+    # "failed" (retired by fault recovery after max_retries),
+    # "unfinished" (still in flight when the tick cap hit)
     status: str = "ok"
     priority: str = "interactive"
+    preemptions: int = 0              # times evicted + exactly resumed
     deadline_s: float = float("inf")
     shared_blocks: int = 0            # paged: prefix blocks it reused
 
@@ -84,6 +90,21 @@ class RequestResult:
     def ttft_s(self) -> float:
         """Admission-to-first-token; only defined when ``emitted``."""
         return self.first_token_s - self.admit_s
+
+
+@dataclasses.dataclass
+class _Stash:
+    """A preempted request's host-side progress, held between eviction
+    and re-admission.  Device state is deliberately NOT kept: resume
+    rebuilds every cache byte by teacher-forcing ``prompt + generated``
+    through the chunk steps the engine already captured (every op
+    computes a row independently of its batch, so the rebuilt run is bit
+    for bit the never-preempted run)."""
+    generated: List[int]
+    first_token_s: float
+    admit_s: float
+    preemptions: int
+    retries: int
 
 
 # ---------------------------------------------------------------------------
@@ -144,6 +165,7 @@ class DispatchOutcome:
     """Raw counters out of one :meth:`DispatchCore.run`."""
     results: List[RequestResult]
     occupancy: List[int]
+    occ_by_class: Dict[str, List[int]]   # active slots per class, per tick
     ticks: int = 0
     gen_tokens: int = 0
     admissions_while_busy: int = 0
@@ -151,6 +173,10 @@ class DispatchOutcome:
     failed: int = 0
     unfinished: int = 0
     nonfinite: int = 0
+    preempted: int = 0                # eviction events (exact resume each)
+    dispatch_retries: int = 0         # failed fused-step dispatch attempts
+    torn_repaired: int = 0            # torn table rows audited + rebuilt
+    resumed_tokens: int = 0           # tokens re-prefilled by resumes
     stuck_ticks: int = 0
     kv_bytes: int = 0                 # resident KV-cache bytes (all leaves)
     # paged mode
@@ -165,8 +191,9 @@ class DispatchOutcome:
 
 
 class DispatchCore:
-    """The tick loop: ingest -> admit -> chunk prefill -> one fused slot
-    step -> host bookkeeping, repeated until the trace drains.  One
+    """The tick loop: ingest -> (preempt) -> admit -> chunk prefill ->
+    (fault injection) -> one fused slot step -> host bookkeeping (and
+    recovery), repeated until the trace drains.  One
     instance per ``serve`` call; the pool and the host token / index
     mirrors are built fresh for every run, and the device cache is the
     engine's, zeroed in place (``Engine.zeroed_cache``), so the captured
@@ -218,10 +245,14 @@ class DispatchCore:
     def run(self, reqs: List[EngineRequest], *, clock: str,
             tick_s: Union[float, Callable[[int], float]],
             max_ticks: Optional[int],
-            drop_missed_deadlines: bool) -> DispatchOutcome:
+            drop_missed_deadlines: bool,
+            preemption: bool = False,
+            fault_plan: Optional[FaultPlan] = None,
+            max_retries: int = 3) -> DispatchOutcome:
         eng = self.eng
         S = eng.num_slots
         dev = eng.device
+        by_rid = {r.rid: r for r in reqs}
         pool = SlotPool(S, max_seq=eng.max_seq)
         paged = eng.block_size is not None
         cache = eng.zeroed_cache()
@@ -244,10 +275,16 @@ class DispatchCore:
             return chunk_steps[c]
 
         sched = SlotScheduler(eng.policy)
+        quotas_on = bool(eng.policy.class_quotas)
         results: List[RequestResult] = []
         occupancy: List[int] = []
+        occ_by_class: Dict[str, List[int]] = {}
         admissions_while_busy = dropped = failed = unfinished = 0
         nonfinite = ticks = gen_tokens = 0
+        # overload state: the stashed progress of preempted requests
+        # (rid -> _Stash) and the fault / recovery counters
+        stash: Dict[int, _Stash] = {}
+        preempted = dispatch_retries = torn_repaired = resumed_tokens = 0
         wd = StepWatchdog(name=eng.name) if clock == "wall" else None
 
         def register_blocks(st) -> None:
@@ -268,6 +305,13 @@ class DispatchCore:
             tables_np[st.sid, :] = 0          # retired row writes to trash
             tables_dirty = True
 
+        def free_slot(st) -> None:
+            if paged and st.block_table is not None:
+                release_blocks(st)
+            pool.free(st.sid)
+            index[st.sid] = 0
+            tokens[st.sid, 0] = 0
+
         hits_of = {}                          # rid -> shared prefix blocks
 
         def retire(st, status: str) -> None:
@@ -276,13 +320,75 @@ class DispatchCore:
                 arrival_s=st.arrival_s, admit_s=st.admit_s,
                 first_token_s=st.first_token_s, finish_s=now, slot=st.sid,
                 dropped=status == "dropped", status=status,
-                priority=st.priority, deadline_s=st.deadline_s,
+                priority=st.priority, preemptions=st.preemptions,
+                deadline_s=st.deadline_s,
                 shared_blocks=hits_of.get(st.rid, 0)))
+            free_slot(st)
+
+        def retire_queued(req: EngineRequest, status: str,
+                          admit_s: float) -> None:
+            # a request that holds no slot: it keeps what a preemption
+            # stashed (tokens, admission and first-token times)
+            s_res = stash.pop(req.rid, None)
+            results.append(RequestResult(
+                rid=req.rid, tokens=list(s_res.generated) if s_res else [],
+                arrival_s=req.arrival_s,
+                admit_s=s_res.admit_s if s_res else admit_s,
+                first_token_s=s_res.first_token_s if s_res else -1.0,
+                finish_s=now, slot=-1, dropped=status == "dropped",
+                status=status, priority=req.priority,
+                preemptions=s_res.preemptions if s_res else 0,
+                deadline_s=req.deadline_s))
+
+        def eff_req(req: EngineRequest) -> EngineRequest:
+            """The request as (re-)admission sees it: a preempted request
+            resumes with its stashed tokens appended to the prompt
+            (teacher-forced: the exact-resume mechanism) and its token
+            budget reduced by the same count, so its cache claim is
+            invariant under preemption."""
+            s_res = stash.get(req.rid)
+            if s_res is None or not s_res.generated:
+                return req
+            return dataclasses.replace(
+                req, prompt=req.prompt + tuple(s_res.generated),
+                max_new_tokens=req.max_new_tokens - len(s_res.generated))
+
+        def block_cost(req: EngineRequest) -> int:
+            return self._block_cost(eff_req(req))
+
+        def preempt(st) -> None:
+            """Evict a live slot with exact-resume semantics: release its
+            blocks, stash its host progress, requeue the original
+            request.  No device state survives: resume rebuilds it."""
+            nonlocal preempted
+            preempted += 1
+            rid = st.rid                      # pool.free() scrubs it
+            stash[rid] = _Stash(
+                generated=list(st.generated or []),
+                first_token_s=st.first_token_s, admit_s=st.admit_s,
+                preemptions=st.preemptions + 1, retries=st.retries)
+            free_slot(st)
+            sched.push(by_rid[rid])
+
+        def fail(st) -> None:
+            """Retire a slot fault recovery gave up on."""
+            nonlocal failed
+            failed += 1
+            retire(st, "failed")
+
+        def scrub(st) -> None:
+            # the tick that sampled non-finite logits wrote its non-finite
+            # K/V at the slot's frontier: zero the slot's private rows in
+            # place, so that a later tenant's reads past its own frontier
+            # (masked to a zero weight, and 0 * NaN is NaN) never meet
+            # them.  Shared prefix blocks were written by clean chunks.
             if paged:
-                release_blocks(st)
-            pool.free(st.sid)
-            index[st.sid] = 0
-            tokens[st.sid, 0] = 0
+                rows = [b for b in st.block_table if bpool.refcounts[b] == 1]
+            else:
+                rows = [st.sid]
+            for name, t in cache.items():
+                if name != "block_tables":
+                    t[:, rows] = 0
 
         i, now = 0, 0.0
         t0 = time.perf_counter()
@@ -298,34 +404,72 @@ class DispatchCore:
             # 2) admit into free slots — mid-flight, no drain barrier
             generating = any(s.active and not s.in_prefill
                              for s in pool.slots)
+            if preemption and sched.pending:
+                # slot or block pressure and a pending head of strictly
+                # higher class: evict the lowest-class slot (latest
+                # deadline first) until the head fits or no victim of a
+                # lower class is left; equal classes never preempt, so
+                # batch cannot thrash batch
+                head = sched.pending[0]
+                hrank = bt.priority_rank(head.priority)
+                for _ in range(S):
+                    slot_pressed = pool.active_count >= S
+                    block_pressed = (paged and block_cost(head)
+                                     > bpool.free_blocks)
+                    if not (slot_pressed or block_pressed):
+                        break
+                    victims = [s for s in pool.active_slots()
+                               if bt.priority_rank(s.priority) > hrank]
+                    if not victims:
+                        break
+                    preempt(max(victims, key=lambda s: (
+                        bt.priority_rank(s.priority), s.deadline_s, s.sid)))
+            abc = None
+            if quotas_on:
+                # the quotas' denominators: the slots each class holds
+                abc = {}
+                for s in pool.active_slots():
+                    abc[s.priority] = abc.get(s.priority, 0) + 1
             cohort = sched.admit(
                 now, pool.free_count, next_arrival,
-                cost_fn=self._block_cost if paged else None,
-                budget=bpool.free_blocks if paged else None)
+                cost_fn=block_cost if paged else None,
+                budget=bpool.free_blocks if paged else None,
+                active_by_class=abc)
             admitted = 0
             for req in cohort:
                 if drop_missed_deadlines and now > req.deadline_s:
                     # expired while queued: retire without taking a slot
-                    results.append(RequestResult(
-                        rid=req.rid, tokens=[], arrival_s=req.arrival_s,
-                        admit_s=now, first_token_s=-1.0, finish_s=now,
-                        slot=-1, dropped=True, status="dropped",
-                        priority=req.priority, deadline_s=req.deadline_s))
+                    # (a preempted request keeps what it had generated)
+                    retire_queued(req, "dropped", now)
                     dropped += 1
                     continue
                 admitted += 1
-                st = pool.alloc(req.rid, req.prompt, req.max_new_tokens,
+                s_res = stash.get(req.rid)
+                eff = eff_req(req)
+                st = pool.alloc(req.rid, eff.prompt, eff.max_new_tokens,
                                 now=now, arrival_s=req.arrival_s,
                                 deadline_s=req.deadline_s,
                                 priority=req.priority)
+                if s_res is not None:
+                    # exact resume: the stashed tokens ride the prompt
+                    # (teacher-forced), the generated list starts from
+                    # them, and the admission and first-token times
+                    # survive the eviction
+                    st.generated = list(s_res.generated)
+                    st.max_new = req.max_new_tokens
+                    st.first_token_s = s_res.first_token_s
+                    st.admit_s = s_res.admit_s
+                    st.preemptions = s_res.preemptions
+                    st.retries = s_res.retries
+                    del stash[req.rid]
                 if paged:
                     # build the slot's block table: ref every shared
                     # prefix block (their prefill chunks are skipped
                     # entirely), alloc the rest privately — the admission
                     # decision priced exactly this claim
-                    keys = self._prefix_keys(req)
-                    hits = self._usable_hits(req, keys)
-                    need = -(-(len(req.prompt) + req.max_new_tokens)
+                    keys = self._prefix_keys(eff)
+                    hits = self._usable_hits(eff, keys)
+                    need = -(-(len(eff.prompt) + eff.max_new_tokens)
                              // eng.block_size)
                     table = []
                     for j in range(hits):
@@ -345,6 +489,8 @@ class DispatchCore:
                     shared_hits += hits
                     skipped_tokens += hits * eng.block_size
                     blocks_demanded += need
+                if s_res is not None:
+                    resumed_tokens += len(st.prompt) - st.pos
                 index[st.sid] = st.pos
                 left = len(st.prompt) - 1 - st.pos
                 if eng.prefill_chunk and left > 0:
@@ -359,7 +505,8 @@ class DispatchCore:
                 admissions_while_busy += admitted
             if tables_dirty:
                 # push the host table mirror before any dispatch this
-                # tick writes or reads through it
+                # tick writes or reads through it, in place: the captured
+                # steps stay bound to the cache's tensors
                 cache["block_tables"].copy_(torch.from_numpy(tables_np))
                 tables_dirty = False
             # 3) idle: nothing active -> jump to the next event
@@ -371,7 +518,7 @@ class DispatchCore:
                         "admission declined a non-empty pending queue "
                         f"({len(sched.pending)} requests) with an idle "
                         "pool and no future arrival; check the policy "
-                        "configuration")
+                        "/ class_quotas configuration")
                 target = next_arrival if next_arrival is not None else now
                 if clock == "wall":
                     gap = target - (time.perf_counter() - t0)
@@ -402,20 +549,65 @@ class DispatchCore:
             # 5) one fused slot-masked step: every ready slot, one token
             active = np.array([s.active and s.chunk_left == 0
                                for s in pool.slots], bool)
+            ready = [int(s) for s in np.where(active)[0]]
+            torn: List[int] = []
+            if fault_plan is not None and paged and ready:
+                # fault: tear the victims' device table rows (all-trash)
+                # just before the dispatch, IN PLACE — a new tensor would
+                # bind the captured tick anew.  The host mirror stays
+                # clean: the audit below rebuilds from it, and the mirror
+                # is pushed again before the next dispatch.
+                torn = fault_plan.torn_rows(ticks, ready)
+                if torn:
+                    torn_np = tables_np.copy()
+                    torn_np[torn, :] = 0
+                    cache["block_tables"].copy_(torch.from_numpy(torn_np))
+                    tables_dirty = True
+            if fault_plan is not None:
+                # dispatch faults resolve first, so a failed attempt
+                # launches nothing: each charges the culprit's retry
+                # budget, and past max_retries the culprit retires as
+                # failed and the retry goes on without it — one poisoned
+                # slot never takes down the cohort
+                attempt = 0
+                while ready:
+                    culprit = fault_plan.dispatch_fault(ticks, attempt,
+                                                        ready)
+                    if culprit is None:
+                        break
+                    dispatch_retries += 1
+                    attempt += 1
+                    st = pool.slots[culprit]
+                    st.retries += 1
+                    if st.retries > max_retries:
+                        fail(st)
+                        active[culprit] = False
+                        ready.remove(culprit)
             nxt = None
-            if active.any():
+            if ready:
                 # the captured step's outputs are static buffers that the
                 # next tick overwrites: read here, within this tick
                 nxt_d, cache, new_index = step(
                     eng.params, torch.as_tensor(tokens, device=dev), cache,
                     torch.as_tensor(index, device=dev),
                     torch.as_tensor(active, device=dev))
-                nxt = nxt_d.cpu().numpy()        # waits for the step
+                nxt = nxt_d.cpu().numpy().copy()   # waits for the step
                 index = new_index.cpu().numpy().copy()
+                if fault_plan is not None:
+                    # fault: poison the victims' samples, at the finite
+                    # guard's observable surface (its -1 sentinel)
+                    for sid in fault_plan.nonfinite_slots(ticks, ready):
+                        nxt[sid] = -1
             elif clock == "wall" and dev.type == "cuda":
                 torch.cuda.synchronize(dev)      # charge chunk time here
             ticks += 1
             occupancy.append(pool.active_count)
+            held = {}
+            for s in pool.active_slots():
+                held[s.priority] = held.get(s.priority, 0) + 1
+                occ_by_class.setdefault(s.priority, [0] * (ticks - 1))
+            for c, occ in occ_by_class.items():
+                occ.append(held.get(c, 0))
             if paged:
                 used = bpool.used_blocks
                 peak_used = max(peak_used, used)
@@ -431,8 +623,17 @@ class DispatchCore:
                 dt = tick_s(pool.active_count) if callable(tick_s) \
                     else tick_s
                 now += dt
-            # 6) host bookkeeping: teacher-force prefill, collect samples,
-            #    retire finished slots for immediate reuse
+            # 6) host bookkeeping: audit torn rows, teacher-force prefill,
+            #    collect samples, retire finished slots for immediate reuse
+            for sid in torn:
+                # the torn row sent this tick's K/V write to trash and
+                # attended garbage: the slot's device state can no longer
+                # be trusted, so the tenant is rebuilt from scratch by
+                # preemption (exact resume keeps its output bit for bit)
+                st = pool.slots[sid]
+                if st.active:                    # not retired by fail()
+                    torn_repaired += 1
+                    preempt(st)
             for st in pool.active_slots():
                 if drop_missed_deadlines and now > st.deadline_s:
                     dropped += 1
@@ -449,12 +650,17 @@ class DispatchCore:
                 tok = int(nxt[st.sid])
                 if tok < 0:
                     # the finite guard's sentinel: this row's logits went
-                    # NaN/Inf.  Rebuilding the slot needs preemption with
-                    # exact resume (ROADMAP queue 1, item 12), so the
-                    # request retires as failed.
+                    # NaN/Inf.  The sample is garbage and the cache row
+                    # suspect: rebuild the slot by preemption (a transient
+                    # fault recomputes clean, bit for bit); a slot that
+                    # keeps faulting exhausts its retries and fails
                     nonfinite += 1
-                    failed += 1
-                    retire(st, "failed")
+                    scrub(st)
+                    st.retries += 1
+                    if st.retries > max_retries:
+                        fail(st)
+                    else:
+                        preempt(st)
                     continue
                 st.generated.append(tok)
                 gen_tokens += 1
@@ -475,20 +681,19 @@ class DispatchCore:
                     retire(st, "unfinished")
                 for req in list(sched.pending) + reqs[i:]:
                     unfinished += 1
-                    results.append(RequestResult(
-                        rid=req.rid, tokens=[], arrival_s=req.arrival_s,
-                        admit_s=-1.0, first_token_s=-1.0, finish_s=now,
-                        slot=-1, status="unfinished", priority=req.priority,
-                        deadline_s=req.deadline_s))
+                    retire_queued(req, "unfinished", -1.0)
                 sched.pending.clear()
                 i = len(reqs)
                 break
 
         return DispatchOutcome(
-            results=results, occupancy=occupancy, ticks=ticks,
+            results=results, occupancy=occupancy,
+            occ_by_class=occ_by_class, ticks=ticks,
             gen_tokens=gen_tokens,
             admissions_while_busy=admissions_while_busy, dropped=dropped,
             failed=failed, unfinished=unfinished, nonfinite=nonfinite,
+            preempted=preempted, dispatch_retries=dispatch_retries,
+            torn_repaired=torn_repaired, resumed_tokens=resumed_tokens,
             stuck_ticks=wd.slow_steps if wd is not None else 0,
             kv_bytes=sum(t.numel() * t.element_size()
                          for t in cache.values()),

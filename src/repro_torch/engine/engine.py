@@ -15,8 +15,15 @@ Port of ``repro/engine/engine.py`` for one model with greedy sampling:
 - With ``prefill_chunk=c``, a newly admitted slot's prompt (all but the
   last token) is written by the chunked prefill step, ``c`` tokens per
   tick, concurrently with other slots' decoding.
-- Admission consults the shared ``core.batching.AdmissionPolicy``;
-  retired slots return to the pool the same tick they finish.
+- Admission consults the shared ``core.batching.AdmissionPolicy``
+  (class-first, with per-class slot quotas metered against the slots
+  each class holds); retired slots return to the pool the same tick they
+  finish.
+- Overload: ``serve(preemption=True)`` evicts a slot of strictly lower
+  class under slot or block pressure and resumes it exactly, and
+  ``serve(fault_plan=...)`` injects a seeded ``FaultPlan``'s failures,
+  which the recovery (always on) retries, rebuilds or, past
+  ``max_retries``, retires as ``failed``.
 
 ``reference_outputs`` is the sequential per-token loop (batch 1, same
 decode math, contiguous cache) the engine must match bit for bit, paged
@@ -40,6 +47,7 @@ from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.engine.dispatch import (DispatchCore, EngineRequest,
                                          ExecutorBackend, RequestResult,
                                          SingleDeviceExecutor)
+from repro_torch.engine.faults import FaultPlan
 from repro_torch.engine.slots import RequestTooLong
 from repro_torch.models import registry as R
 from repro_torch.runtime import steps as ST
@@ -75,10 +83,26 @@ class EngineReport:
     prefill_tokens_skipped: int = 0   # prompt tokens served from shared blocks
     leaked_blocks: int = 0            # pool deficit at drain (must be 0)
     effective_concurrency: float = 0.0  # mean active requests per tick
-    failed: int = 0                   # requests retired on non-finite logits
+    # overload robustness (serve(preemption=..., fault_plan=...)):
+    preempted: int = 0                # eviction events (exact resume each)
+    failed: int = 0                   # requests retired by fault recovery
     unfinished: int = 0               # requests retired by the tick cap
+    dispatch_retries: int = 0         # failed fused-step dispatch attempts
     nonfinite_samples: int = 0        # sentinel tokens caught by the guard
+    torn_rows_repaired: int = 0       # block-table rows audited + rebuilt
+    resumed_prefill_tokens: int = 0   # tokens the resumes teacher-forced
     stuck_ticks: int = 0              # wall-clock stragglers (watchdog)
+    # per-SLO-class tails; goodput counts only completed requests that
+    # met their deadline
+    class_p99_latency_s: Dict[str, float] = dataclasses.field(
+        default_factory=dict)
+    class_mean_ttft_s: Dict[str, float] = dataclasses.field(
+        default_factory=dict)
+    class_p99_ttft_s: Dict[str, float] = dataclasses.field(
+        default_factory=dict)
+    # active slots of each class, per tick (what a class quota caps)
+    class_occupancy: Dict[str, List[int]] = dataclasses.field(
+        default_factory=dict)
     goodput_tokens_per_s: float = 0.0
     slo_attainment: float = 0.0       # ok-and-on-time / all requests
     latency_per_token_s: float = 0.0  # mean over ok requests
@@ -103,9 +127,11 @@ class Engine:
     ``device="cpu"`` to serve on the CPU with the kernels' plain versions.
     ``params`` must already lie on that device.
 
-    The JAX engine's other options — temperature sampling, speculation,
-    multiplexing, a sharded backend — raise ``NotImplementedError``
-    naming their ROADMAP item."""
+    ``policy=AdmissionPolicy(class_quotas={...})`` caps the slots each
+    SLO class may hold; ``serve(preemption=..., fault_plan=...,
+    max_retries=...)`` runs the overload paths.  The JAX engine's other
+    options — temperature sampling, speculation, multiplexing, a sharded
+    backend — raise ``NotImplementedError`` naming their ROADMAP item."""
 
     def __init__(self, cfg: ArchConfig, params, *,
                  mode: QuantMode = FP,
@@ -229,7 +255,8 @@ class Engine:
               max_ticks: Optional[int] = None,
               drop_missed_deadlines: bool = False,
               preemption: bool = False,
-              fault_plan=None) -> EngineReport:
+              fault_plan: Optional[FaultPlan] = None,
+              max_retries: int = 3) -> EngineReport:
         """Serve a whole request trace; return per-request outputs and
         achieved latency / throughput / occupancy.
 
@@ -237,13 +264,24 @@ class Engine:
         ``tick_s(active_count)``) — deterministic.  ``clock="wall"``: the
         measured host clock, every tick ending in a wait for the card.
         ``drop_missed_deadlines=True`` retires a slot the tick its deadline
-        passes."""
+        passes.
+
+        ``preemption=True`` lets admission-time pressure (no free slot,
+        or a paged block claim the pool cannot cover) evict the active
+        slot of strictly lower SLO class than the pending head, latest
+        deadline first.  The victim's blocks are released, its host
+        progress stashed, and it re-enters the pending queue; on
+        re-admission its ``prompt + generated-so-far`` is teacher-forced
+        through the chunk steps ``warmup`` captured, so the resumed
+        output is bit for bit the never-preempted output.
+
+        ``fault_plan`` injects a :class:`FaultPlan`'s failures at their
+        ticks; the recovery (always on) retries failed dispatches,
+        rebuilds a slot that samples the non-finite sentinel or loses a
+        torn block-table row, and retires a slot still faulting after
+        ``max_retries`` recovery attempts as ``failed``."""
         if clock not in ("virtual", "wall"):
             raise ValueError(f"clock must be 'virtual' or 'wall': {clock!r}")
-        if preemption:
-            raise _not_ported("preemption with exact resume", "12")
-        if fault_plan is not None:
-            raise _not_ported("fault injection", "12")
         for r in requests:
             if r.max_new_tokens <= 0:
                 raise ValueError(
@@ -266,7 +304,9 @@ class Engine:
         with torch.inference_mode():
             out = DispatchCore(self).run(
                 reqs, clock=clock, tick_s=tick_s, max_ticks=max_ticks,
-                drop_missed_deadlines=drop_missed_deadlines)
+                drop_missed_deadlines=drop_missed_deadlines,
+                preemption=preemption, fault_plan=fault_plan,
+                max_retries=max_retries)
         results = sorted(out.results, key=lambda r: r.rid)
         occupancy = out.occupancy
         lat = [r.latency_s for r in results if r.status == "ok"]
@@ -276,6 +316,11 @@ class Engine:
                 if r.status == "ok" and r.finish_s <= r.deadline_s]
         lat_tok = [r.latency_s / len(r.tokens) for r in results
                    if r.status == "ok" and r.tokens]
+        by_class: Dict[str, List[RequestResult]] = {}
+        for r in results:
+            by_class.setdefault(r.priority, []).append(r)
+        cls_ttft = {c: [r.ttft_s for r in rs if r.emitted]
+                    for c, rs in sorted(by_class.items())}
         return EngineReport(
             results=results, ticks=out.ticks,
             generated_tokens=out.gen_tokens,
@@ -304,8 +349,20 @@ class Engine:
             leaked_blocks=out.leaked_blocks,
             effective_concurrency=(sum(occupancy) / len(occupancy)
                                    if occupancy else 0.0),
-            failed=out.failed, unfinished=out.unfinished,
-            nonfinite_samples=out.nonfinite, stuck_ticks=out.stuck_ticks,
+            preempted=out.preempted, failed=out.failed,
+            unfinished=out.unfinished,
+            dispatch_retries=out.dispatch_retries,
+            nonfinite_samples=out.nonfinite,
+            torn_rows_repaired=out.torn_repaired,
+            resumed_prefill_tokens=out.resumed_tokens,
+            stuck_ticks=out.stuck_ticks,
+            class_p99_latency_s={
+                c: bt.p99([r.latency_s for r in rs if r.status == "ok"])
+                for c, rs in sorted(by_class.items())},
+            class_mean_ttft_s={c: (float(np.mean(ts)) if ts else 0.0)
+                               for c, ts in cls_ttft.items()},
+            class_p99_ttft_s={c: bt.p99(ts) for c, ts in cls_ttft.items()},
+            class_occupancy=out.occ_by_class,
             goodput_tokens_per_s=sum(len(r.tokens) for r in good) / dur,
             slo_attainment=(len(good) / len(results) if results else 0.0),
             latency_per_token_s=(float(np.mean(lat_tok))

@@ -10,7 +10,12 @@ decode loop at that batch (captured as a CUDA graph), then size a slot
 pool at that batch and drive the continuous-batching ``Engine`` (its tick
 captured likewise) against a pseudo-Poisson request stream under the wall
 clock — or, with ``--sim``, the virtual-time ``BatchQueue``
-simulator (same admission policy, no model execution).  The KV cache is
+simulator (same admission policy, no model execution).  The overload
+flags work as the reference's: ``--interactive-frac`` splits the trace
+into two SLO classes by a hash of the rid, ``--batch-quota`` caps the
+slots the batch class holds, ``--preemption`` evicts batch slots for
+interactive requests with exact resume, and ``--fault-seed`` /
+``--n-faults`` inject a seeded ``FaultPlan``.  The KV cache is
 bf16 (``starcoder2-3b`` leaves ``kv_quant`` off, as the reference's CLI
 does); ``--quant w8a8`` runs every projection through the int8 x int8
 kernel, the LM head staying weight-only int8.
@@ -50,8 +55,7 @@ UNPORTED = {
     "models": 14, "model_quota": 14,
     "block_size": 17, "num_blocks": 17, "shared_prefix_len": 17,
     "temperature": 10,
-    "interactive_frac": 12, "batch_quota": 12, "arrival": 12,
-    "preemption": 12, "fault_seed": 12, "n_faults": 12,
+    "arrival": 12,
     "spec_k": 14, "draft": 14, "draft_layers": 14,
     "replicas": 14, "tp": 14,
 }
@@ -151,6 +155,20 @@ def build_parser() -> argparse.ArgumentParser:
                     help="engine: chunked-prefill bucket cap (0 = "
                          "per-token prefill)")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--interactive-frac", type=float, default=1.0,
+                    help="engine: share of requests in the interactive "
+                         "SLO class (the rest are batch), split by a "
+                         "hash of the rid")
+    ap.add_argument("--batch-quota", type=int, default=0,
+                    help="engine: most slots the batch class may hold at "
+                         "once (0 = no quota)")
+    ap.add_argument("--preemption", action="store_true",
+                    help="engine: evict a lower-class slot for a "
+                         "higher-class request, resumed exactly")
+    ap.add_argument("--fault-seed", type=int, default=None,
+                    help="engine: inject FaultPlan.random(seed) failures")
+    ap.add_argument("--n-faults", type=int, default=8,
+                    help="engine: faults in the --fault-seed plan")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the card; 'cpu' runs the "
                          "kernels' plain versions)")
@@ -163,16 +181,11 @@ def build_parser() -> argparse.ArgumentParser:
     unported.add_argument("--num-blocks", type=int, default=0)
     unported.add_argument("--shared-prefix-len", type=int, default=0)
     unported.add_argument("--temperature", type=float, default=0.0)
-    unported.add_argument("--interactive-frac", type=float, default=1.0)
-    unported.add_argument("--batch-quota", type=int, default=0)
     unported.add_argument("--arrival", default="poisson",
                           choices=["poisson", "mmpp", "diurnal"])
     unported.add_argument("--spec-k", type=int, default=0)
     unported.add_argument("--draft", default=None)
     unported.add_argument("--draft-layers", type=int, default=0)
-    unported.add_argument("--preemption", action="store_true")
-    unported.add_argument("--fault-seed", type=int, default=None)
-    unported.add_argument("--n-faults", type=int, default=8)
     unported.add_argument("--replicas", type=int, default=1)
     unported.add_argument("--tp", type=int, default=1)
     return ap
@@ -195,6 +208,7 @@ class ServeRun:
     engine: Optional[E.Engine] = None
     report: Optional[E.EngineReport] = None
     requests: List[E.EngineRequest] = dataclasses.field(default_factory=list)
+    fault_plan: Optional[E.FaultPlan] = None
 
 
 def run(args: argparse.Namespace) -> ServeRun:
@@ -208,6 +222,10 @@ def run(args: argparse.Namespace) -> ServeRun:
             return ServeRun(code=1)
     if args.arch is None:
         print("[serve] need --arch")
+        return ServeRun(code=1)
+    frac = args.interactive_frac
+    if not 0.0 <= frac <= 1.0:
+        print(f"[engine] --interactive-frac must be in [0, 1]: {frac}")
         return ServeRun(code=1)
     device = resolve_device(args.device)
     mode = {"fp": FP, "w8a16": W8A16, "w8a8": W8A8}[args.quant]
@@ -279,7 +297,9 @@ def run(args: argparse.Namespace) -> ServeRun:
 
     # ---- the live continuous-batching engine -------------------------
     num_slots = ST.bucket_batch(max(batch, 1))
-    policy = bt.AdmissionPolicy(model.service_time, max_batch=num_slots)
+    quotas = {"batch": args.batch_quota} if args.batch_quota else None
+    policy = bt.AdmissionPolicy(model.service_time, max_batch=num_slots,
+                                class_quotas=quotas)
     try:
         eng = E.Engine(cfg, params, mode=mode, num_slots=num_slots,
                        max_seq=args.prompt_len + args.gen_tokens,
@@ -290,14 +310,23 @@ def run(args: argparse.Namespace) -> ServeRun:
         print(f"[engine] config rejected: {e}")
         return out
     out.engine = eng
+    # rid-hash class split, stable under any n (the reference's rule)
+    priority = ("interactive" if frac >= 1.0 else
+                (lambda rid: "interactive"
+                 if (rid * 2654435761) % 1000 < frac * 1000 else "batch"))
     reqs = E.synthetic_requests(
         args.n_requests, rate_per_s=args.rate, vocab=cfg.vocab,
         prompt_len=args.prompt_len, max_new_tokens=args.gen_tokens,
-        deadline_s=deadline, seed=args.seed)
+        deadline_s=deadline, seed=args.seed, priority=priority)
     out.requests = reqs
+    plan = (E.FaultPlan.random(args.fault_seed, n_faults=args.n_faults,
+                               num_slots=num_slots)
+            if args.fault_seed is not None else None)
+    out.fault_plan = plan
     eng.warmup()         # build and load before the clock starts: the
     try:                 # measured p99 is serving, not set-up
-        rep = eng.serve(reqs, clock="wall")
+        rep = eng.serve(reqs, clock="wall", preemption=args.preemption,
+                        fault_plan=plan)
     except E.RequestTooLong as e:
         print(f"[engine] request rejected at admission: {e}")
         return out
@@ -318,9 +347,29 @@ def run(args: argparse.Namespace) -> ServeRun:
     print(f"[engine] time-to-first-token {rep.mean_ttft_s*1e3:.2f} ms mean "
           f"/ {rep.p99_ttft_s*1e3:.2f} ms p99 "
           f"(prefill chunk {rep.prefill_chunk or 'off'})")
-    if rep.dropped or rep.failed or rep.unfinished:
-        print(f"[engine] retirement: {rep.dropped} dropped, {rep.failed} "
+    if len(rep.class_p99_latency_s) > 1:
+        print(f"[engine] goodput {rep.goodput_tokens_per_s:,.0f} tok/s "
+              f"({rep.slo_attainment:.1%} of requests made their "
+              f"deadline)")
+        for cls in bt.PRIORITY_CLASSES:
+            if cls not in rep.class_p99_latency_s:
+                continue
+            print(f"[engine]   {cls:11s} "
+                  f"p99 {rep.class_p99_latency_s[cls]*1e3:8.2f} ms, "
+                  f"ttft {rep.class_mean_ttft_s[cls]*1e3:.2f} ms mean / "
+                  f"{rep.class_p99_ttft_s[cls]*1e3:.2f} ms p99")
+    if (rep.preempted or rep.dropped or rep.failed or rep.unfinished
+            or args.preemption or plan is not None):
+        print(f"[engine] retirement: {rep.preempted} preemptions "
+              f"(exact resume), {rep.dropped} dropped, {rep.failed} "
               f"failed, {rep.unfinished} unfinished")
+    if plan is not None:
+        print(f"[engine] faults: {len(plan.fired)} fired "
+              f"({rep.dispatch_retries} dispatch retries, "
+              f"{rep.nonfinite_samples} non-finite samples caught, "
+              f"{rep.torn_rows_repaired} torn rows repaired, "
+              f"{rep.leaked_blocks} leaked blocks, "
+              f"{rep.stuck_ticks} stuck ticks)")
     out.code = 0
     return out
 

@@ -6,7 +6,9 @@ which path each caller takes, rmsnorm's row invariance, and the slot
 tick, the decode loop and the chunk step captured as CUDA graphs
 (bitwise the eager steps, the one-pass chunk bitwise the per-token one,
 recaptured on other tensors, holding their workspace, engines taking
-turns capturing once each, a failed capture raising), at small shapes.
+turns capturing once each, a failed capture raising), and a paged serve
+through preemption and injected faults equal to its control serve, at
+small shapes.
 
 Every test here is marked ``gpu`` and skips without a CUDA device; the
 module imports no JAX, so it also runs where only the port is installed:
@@ -1061,3 +1063,54 @@ else:
     res = subprocess.run([sys.executable, "-c", code], env=env,
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0 and "raised:" in res.stdout, res.stderr
+
+
+def _overload_captures(eng):
+    steps = [eng.backend.slot_step(eng.cfg, mode=W8A16, temperature=0.0)]
+    steps += [eng.backend.chunk_step(eng.cfg, mode=W8A16, chunk=c)
+              for c in (1, 2, 4)]
+    return [s.captured.captures for s in steps]
+
+
+def test_paged_overload_serve_on_card_equals_control(cuda):
+    """Reduced starcoder2-3b on the card, paged, two classes through a
+    pool of 8 usable blocks against 12 worst-case: preemption and one
+    fault of each kind (a dispatch fault retried twice, a non-finite
+    sample, a torn block-table row torn in place).  Every fault fires,
+    every request equals a control serve with neither (and the control
+    the sequential reference), the resumes replay the warmed-up chunk
+    graphs, and neither serve captures anything or reaches a plain
+    version."""
+    cfg = dataclasses.replace(get_config("starcoder2-3b").reduced(),
+                              kv_quant=True)
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    params = quantize_tree(R.init(gen, cfg, device=cuda), min_size=2048)
+    reqs = E.synthetic_requests(
+        12, rate_per_s=500.0, vocab=cfg.vocab, prompt_len=6,
+        max_new_tokens=6,
+        priority=lambda rid: "batch" if rid % 2 else "interactive")
+    eng = E.Engine(cfg, params, mode=W8A16, num_slots=4, max_seq=12,
+                   prefill_chunk=4, block_size=4, num_blocks=9)
+    eng.warmup()
+    bound = _overload_captures(eng)
+    table = eng.zeroed_cache()["block_tables"]
+    control = eng.serve(reqs)
+    plan = E.FaultPlan([E.Fault(tick=4, kind="dispatch", slot=1, repeat=2),
+                        E.Fault(tick=6, kind="nan_logits", slot=2),
+                        E.Fault(tick=8, kind="torn_table", slot=0)])
+    A.decode_attention_int8_paged_ref.calls = K.qmatmul_w8a16_ref.calls = 0
+    rep = eng.serve(reqs, preemption=True, fault_plan=plan)
+    assert A.decode_attention_int8_paged_ref.calls == 0
+    assert K.qmatmul_w8a16_ref.calls == 0
+    assert _overload_captures(eng) == bound
+    assert eng.zeroed_cache()["block_tables"] is table
+    assert {kind for _, kind, _ in plan.fired} == {
+        "dispatch", "nan_logits", "torn_table"}
+    assert rep.dispatch_retries == 2 and rep.nonfinite_samples == 1
+    assert rep.torn_rows_repaired == 1
+    # at least one eviction by block pressure, besides the two repairs
+    assert rep.preempted > rep.nonfinite_samples + rep.torn_rows_repaired
+    assert rep.failed == 0 and rep.leaked_blocks == 0
+    assert rep.outputs() == control.outputs()
+    assert control.outputs() == E.reference_outputs(
+        cfg, params, reqs, mode=W8A16, max_seq=eng.max_seq)

@@ -2,7 +2,7 @@
 CPU at reduced size: the reference CLI's single-model path end to end —
 quantize, the service curve through ``forward``, the Table 4 batch choice,
 the decode loop, and the engine under the wall clock or the ``--sim``
-simulator — and its refusals."""
+simulator, the overload flags — and its refusals."""
 import pytest
 import torch
 
@@ -65,12 +65,9 @@ def test_serve_unattainable_deadline_returns_one(capsys):
 UNPORTED = [("--models", "starcoder2-3b,starcoder2-3b"),
             ("--model-quota", "starcoder2-3b=2"), ("--block-size", "8"),
             ("--num-blocks", "9"), ("--shared-prefix-len", "2"),
-            ("--temperature", "0.7"), ("--interactive-frac", "0.5"),
-            ("--batch-quota", "2"), ("--arrival", "mmpp"),
+            ("--temperature", "0.7"), ("--arrival", "mmpp"),
             ("--spec-k", "2"), ("--draft", "starcoder2-3b"),
-            ("--draft-layers", "1"), ("--preemption", None),
-            ("--fault-seed", "3"), ("--n-faults", "2"),
-            ("--replicas", "2"), ("--tp", "2")]
+            ("--draft-layers", "1"), ("--replicas", "2"), ("--tp", "2")]
 
 
 def test_unported_flag_list_covers_the_table():
@@ -84,6 +81,41 @@ def test_unported_flag_returns_one(flag, value, capsys):
     assert serve.main(BASE + extra) == 1
     out = capsys.readouterr().out
     assert f"{flag}: not ported yet (ROADMAP queue 1, item" in out
+    assert "[quant]" not in out                # refused before any work
+
+
+OVERLOAD = ["--interactive-frac", "0.5", "--batch-quota", "1",
+            "--preemption", "--fault-seed", "3", "--n-faults", "4"]
+
+
+def test_serve_overload_flags(capsys):
+    """The five overload flags through the CLI: two SLO classes by the
+    rid hash, the batch quota, preemption and a seeded fault plan, with
+    its retirement and faults lines; every request retires once, and
+    every ok one equals the sequential reference (bf16 cache)."""
+    from repro_torch import engine as E
+    res = serve.run(serve.parse_args(BASE + ["--n-requests", "12"]
+                                     + OVERLOAD))
+    assert res.code == 0
+    out = capsys.readouterr().out
+    assert "[engine] retirement:" in out and "[engine] faults:" in out
+    assert "interactive" in out and "batch" in out
+    rep, reqs = res.report, res.requests
+    assert {r.priority for r in reqs} == {"interactive", "batch"}
+    assert res.engine.policy.class_quotas == {"batch": 1}
+    assert res.fault_plan is not None and len(res.fault_plan) == 4
+    assert sorted(r.rid for r in rep.results) == [r.rid for r in reqs]
+    want = E.reference_outputs(res.cfg, res.params, reqs, mode=res.mode,
+                               max_seq=res.engine.max_seq, device="cpu")
+    assert all(r.tokens == want[r.rid] for r in rep.results
+               if r.status == "ok")
+
+
+@pytest.mark.parametrize("frac", ["1.5", "-0.1"])
+def test_serve_interactive_frac_outside_unit_returns_one(frac, capsys):
+    assert serve.main(BASE + ["--interactive-frac", frac]) == 1
+    out = capsys.readouterr().out
+    assert "--interactive-frac must be in [0, 1]" in out
     assert "[quant]" not in out                # refused before any work
 
 
