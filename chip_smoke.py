@@ -88,7 +88,24 @@ Phases, each of which fails the run (non-zero exit, no result line):
    compared with ``reference_outputs`` (bf16 cache) on the card; then one
    more w8a16 run with the overload flags (``--interactive-frac 0.5
    --batch-quota 4 --preemption --fault-seed 3 --n-faults 4``), which
-   must exit 0 and print its retirement and faults lines.
+   must exit 0 and print its retirement and faults lines;
+8. dense: the other three dense configs at full width, one at a time
+   (mistral-nemo-12b, internlm2-20b, qwen1.5-32b; each freed before the
+   next), W8A16 weights from the streamed init
+   (``registry.init_quantized``; its peak memory printed, qwen1.5-32b's
+   under 45 GB), each served on the contiguous bf16 cache (8 slots, 8
+   requests of a 16-token prompt whose first 8 tokens all share, 16 new
+   tokens, chunked prefill of 4, Poisson at 20/s), equal to
+   ``reference_outputs``, then on a paged bf16 cache of blocks of 8 (16
+   usable blocks against 32) with every token equal to the contiguous
+   serve's and no block leaked; the captured steady tick, contiguous and
+   paged, against its floor (the int8 weights it reads at 3.35 TB/s);
+   qwen1.5-32b also on the int8 cache (``kv_quant=True``: both decode
+   attention kernels at G = 1), equal to ``reference_outputs``; then the
+   serve CLI at full mistral-nemo-12b width with ``--block-size 16
+   --num-blocks 25 --shared-prefix-len 16`` (24 usable blocks against 48),
+   exit 0, its service curve on the mma path and flash attention at
+   H = 32, four of its requests equal to ``reference_outputs``.
 
 The kernel phase holds both of ``qmatmul_w8a16``'s kernels (the GEMV and
 the ``mma.sync`` bf16 tensor-core path) at every projection and the LM
@@ -112,22 +129,29 @@ paged: blocks of 16), beside their times before the split redesign; every
 row of every case is checked bitwise equal launched alone and in its
 batch, in a 48- and a 4,096-slot cache (paged: through 4- and 256-entry
 tables), and at valid_len on either side of the split's chunk and tile
-edges.  Then ``rmsnorm``'s rows at d = 3072 are checked bitwise at B = 1,
-8 and 16.  The tick breakdowns check that a tick launches 181
+edges.  At the dense configs' shapes it holds ``qmatmul_w8a16`` (both
+kernels: w_gate with the silu drain, w_down, the untied LM heads) and
+the two decode attention kernels at (KV, G) = (40, 1), (8, 4) and (8,
+6), each timed beside its plain version, its library call and its bound.
+Then ``rmsnorm``'s rows at d = 3072, 5120 and 6144 are checked bitwise at
+B = 1, 8 and 16.  The tick breakdowns check that a tick launches 181
 ``qmatmul_w8a16`` GEMVs (under W8A8, at 16 slots: 180 ``qmatmul_w8a8``
 launches and the LM head's GEMV) and no more ``cudaLaunchKernel`` calls
 than before the redesigns.
 
 ``--only attention`` / ``--only long_tick`` / ``--only w8a8`` / ``--only
-graphs`` run just the two attention kernel phases, the long-context
-ticks, ``qmatmul_w8a8``'s kernel phase and the W8A8 tick, or the five
-eager tick breakdowns and the graph phase, and ``--src DIR`` takes the port from
+graphs`` / ``--only dense`` run just the two attention kernel phases, the
+long-context ticks, ``qmatmul_w8a8``'s kernel phase and the W8A8 tick,
+the five eager tick breakdowns and the graph phase, or the dense
+family's kernel rows, rmsnorm widths and phase 8, and ``--src DIR``
+takes the port from
 another checkout's ``src/`` (so the same phases time a parent commit's
 kernels); such a partial run prints no result line.
 
 It prints the card's name and power limit, a JSON line with every
 kernel's numbers (qmatmul_w8a16's with both paths under ``paths``, the
-attention kernels' long-context case under ``long_context``), and,
+attention kernels' long-context case under ``long_context``, the rows at
+the dense configs' shapes under ``dense``), the whole run's time, and,
 last, ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
 without the repo's ``src/repro_torch`` beside it, it exits non-zero and
 prints no result.
@@ -1151,28 +1175,35 @@ def flash_phase(flush):
     return worst, fwd
 
 
-def rmsnorm_phase() -> None:
-    """layers.rmsnorm at d = 3072 (f32 and bf16 x): every row of B = 8 and
-    B = 16 calls bit-for-bit equal to the row normalised alone (B = 1); a
-    row reduction on the card must not take its layout from the batch."""
+RMSNORM_WIDTHS = (3072, 5120, 6144)    # starcoder2's d, then the RMSNorm
+                                       # configs' (mistral-nemo and
+                                       # qwen1.5, internlm2)
+
+
+def rmsnorm_phase(widths=RMSNORM_WIDTHS) -> None:
+    """layers.rmsnorm at each d of ``widths`` (f32 and bf16 x): every row of
+    B = 8 and B = 16 calls bit-for-bit equal to the row normalised alone
+    (B = 1); a row reduction on the card must not take its layout from
+    the batch."""
     import torch
     from repro_torch.models import layers as L
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 6)
-    p = {"scale": 1 + 0.1 * torch.randn((3072,), generator=gen,
-                                        device="cuda")}
-    for dtype in (torch.float32, torch.bfloat16):
-        x = (torch.randn((16, 3072), generator=gen, device="cuda")
-             * 3).to(dtype)
-        full = L.rmsnorm(p, x)
-        ok = torch.equal(L.rmsnorm(p, x[:8]), full[:8]) and all(
-            torch.equal(L.rmsnorm(p, x[i:i + 1])[0], full[i])
-            for i in range(16))
-        if not ok or not torch.isfinite(full).all():
-            raise AssertionError(f"rmsnorm {dtype}: rows of B = 8 / 16 are "
-                                 f"not bitwise equal to B = 1")
-    print("rmsnorm: d = 3072, f32 and bf16: rows of B = 1, 8 and 16 bitwise "
-          "equal")
+    for d in widths:
+        p = {"scale": 1 + 0.1 * torch.randn((d,), generator=gen,
+                                            device="cuda")}
+        for dtype in (torch.float32, torch.bfloat16):
+            x = (torch.randn((16, d), generator=gen, device="cuda")
+                 * 3).to(dtype)
+            full = L.rmsnorm(p, x)
+            ok = torch.equal(L.rmsnorm(p, x[:8]), full[:8]) and all(
+                torch.equal(L.rmsnorm(p, x[i:i + 1])[0], full[i])
+                for i in range(16))
+            if not ok or not torch.isfinite(full).all():
+                raise AssertionError(f"rmsnorm d={d} {dtype}: rows of B = "
+                                     f"8 / 16 are not bitwise equal to B = 1")
+    print(f"rmsnorm: d = {', '.join(map(str, widths))}, f32 and bf16: rows "
+          f"of B = 1, 8 and 16 bitwise equal")
 
 
 # ---------------------------------------------------------------------------
@@ -1181,18 +1212,18 @@ def rmsnorm_phase() -> None:
 
 def build_model():
     """Full-width starcoder2-3b with random weights from SEED, quantized
-    to W8A16 on the card."""
+    to W8A16 on the card as they are drawn (``registry.init_quantized``,
+    bitwise ``quantize_tree(init(...), min_size=2048)``)."""
     import torch
     from repro_torch.configs import get_config
-    from repro_torch.core.quant import quantize_tree, tree_weight_bytes
+    from repro_torch.core.quant import tree_weight_bytes
     from repro_torch.models import registry as R
 
     cfg = dataclasses.replace(get_config("starcoder2-3b"), kv_quant=True)
     t0 = time.perf_counter()
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     with torch.inference_mode():
-        params = quantize_tree(R.init(gen, cfg, device="cuda"),
-                               min_size=2048)
+        params = R.init_quantized(gen, cfg, min_size=2048, device="cuda")
     torch.cuda.synchronize()
     print(f"slice: {cfg.name} full width ({cfg.n_layers} layers, "
           f"d={cfg.d_model}), W8A16 weights {tree_weight_bytes(params)} "
@@ -1244,14 +1275,14 @@ def mma_free(label, launches) -> None:
                              f"mma path: {launches}")
 
 
-def check_served(label, cfg, rep, reqs) -> None:
+def check_served(label, cfg, rep, reqs, max_new=MAX_NEW) -> None:
     outs = rep.outputs()
     if len(rep.results) != len(reqs):
         raise AssertionError(f"{label}: {len(rep.results)} results for "
                              f"{len(reqs)} requests")
     for r in rep.results:
         toks = outs[r.rid]
-        if (r.status != "ok" or len(toks) != MAX_NEW
+        if (r.status != "ok" or len(toks) != max_new
                 or not all(0 <= t < cfg.vocab for t in toks)):
             raise AssertionError(f"{label}: request {r.rid}: status "
                                  f"{r.status}, tokens {toks}")
@@ -1607,18 +1638,8 @@ def serve_phase():
 
     real_curve = serve.measure_service_curve
     curve_paths = {}
-
-    def curve(*args, **kwargs):
-        from repro_torch.kernels import qmatmul as K
-        before = dict(K.qmatmul_w8a16.launches_by_path)
-        try:
-            return real_curve(*args, **kwargs)
-        finally:
-            for path, n in K.qmatmul_w8a16.launches_by_path.items():
-                curve_paths[path] = n - before[path]
-
     counts = {}
-    serve.measure_service_curve = curve
+    serve.measure_service_curve = counted_curve(real_curve, curve_paths)
     try:
         for quant in ("w8a16", "w8a8"):
             counts[quant], res = serve_run(quant, curve_paths)
@@ -1637,18 +1658,33 @@ def serve_phase():
     return counts
 
 
-def serve_run(quant, curve_paths, flags=()):
-    """One serve launcher run, counters zeroed just before and read just
-    after, and checked: (its kernel launches, its ServeRun).  With the
-    overload ``flags`` the run must print its retirement and faults
-    lines, and every request retire once (a fault may fail one)."""
+def counted_curve(real_curve, curve_paths):
+    """``real_curve`` (``serve.measure_service_curve``), writing into
+    ``curve_paths`` qmatmul_w8a16's launches by path during each call."""
+    def curve(*args, **kwargs):
+        from repro_torch.kernels import qmatmul as K
+        before = dict(K.qmatmul_w8a16.launches_by_path)
+        try:
+            return real_curve(*args, **kwargs)
+        finally:
+            for path, n in K.qmatmul_w8a16.launches_by_path.items():
+                curve_paths[path] = n - before[path]
+    return curve
+
+
+def serve_run(quant, curve_paths, flags=(), base=SERVE_ARGS, label=None):
+    """One serve launcher run of ``base`` arguments, counters zeroed just
+    before and read just after, and checked: (its kernel launches, its
+    ServeRun).  With the overload ``flags`` the run must print its
+    retirement and faults lines, and every request retire once (a fault
+    may fail one)."""
     import contextlib
     import io
 
     from repro_torch.launch import serve
 
-    label = f"serve {quant}" + (" overload" if flags else "")
-    argv = SERVE_ARGS + ["--quant", quant] + list(flags)
+    label = label or f"serve {quant}" + (" overload" if flags else "")
+    argv = list(base) + ["--quant", quant] + list(flags)
     print(f"{label}: python -m repro_torch.launch.serve {' '.join(argv)}")
     t0 = time.perf_counter()
     zero_counts()
@@ -2352,7 +2388,480 @@ def forward_breakdown(label: str, res) -> None:
                      f"tokens", lambda: prefill(res.params, batch), 3)
 
 
-PHASES = ("attention", "long_tick", "w8a8", "graphs")
+# ---------------------------------------------------------------------------
+# the rest of the dense family
+# ---------------------------------------------------------------------------
+
+# the three other dense configs, smallest first: each is built at full
+# width from the streamed init, served, timed and freed before the next
+DENSE_ARCHS = ("mistral-nemo-12b", "internlm2-20b", "qwen1.5-32b")
+DENSE_REQUESTS = 8
+DENSE_PROMPT = 16
+DENSE_NEW = 16
+DENSE_MAX_SEQ = DENSE_PROMPT + DENSE_NEW
+# the paged serve: blocks of 8, so the 8-token shared prefix is a whole
+# block the 16-token prompts can share (the last prompt token must land in
+# a private block); 16 usable blocks, four requests' rows, against 32 for
+# the contiguous equivalent.  Arrivals at 20/s spread past a tenant's
+# prefill (four chunk passes), so later requests find the prefix block
+DENSE_BLOCK = 8
+DENSE_SHARED = DENSE_BLOCK
+DENSE_NUM_BLOCKS = 1 + 4 * (DENSE_MAX_SEQ // DENSE_BLOCK)
+DENSE_RATE_PER_S = 20.0
+# qwen1.5-32b's 35.2 GB of int8 weights must come from an init whose peak
+# stays below this (its f32 tree alone is 141 GB)
+DENSE_PEAK_BYTES = {"qwen1.5-32b": 45e9}
+# the decode attention kernels' rows at the dense configs' (KV heads, G):
+# qwen1.5-32b, mistral-nemo-12b, internlm2-20b
+DENSE_HEADS = ((40, 1), (8, 4), (8, 6))
+# the serve CLI at full mistral-nemo-12b width with the paged bf16 cache:
+# 16 slots x 3 blocks of 16 = 48 blocks worst case, 24 usable; prompts of
+# 32 tokens whose first block all requests share, arriving at 10/s (at the
+# default 200/s all 16 arrive before the first tenant's 8 chunks have
+# written its prefix block, and none shares it).  The deadline leaves the
+# Table 4 policy the largest measured batch: a 12 B model's batch-16
+# prefill is about 4x starcoder2-3b's, whose modeled p99 was 244 ms
+DENSE_SERVE_ARGS = ["--arch", "mistral-nemo-12b", "--rate", "10",
+                    "--max-batch",
+                    str(SERVE_MAX_BATCH), "--seq", str(SERVE_SEQ),
+                    "--decode-tokens", "16", "--n-requests", "16",
+                    "--prompt-len", "32", "--gen-tokens", "16",
+                    "--prefill-chunk", str(PREFILL_CHUNK), "--deadline-ms",
+                    "2000", "--seed", str(SEED), "--block-size", "16",
+                    "--num-blocks", "25", "--shared-prefix-len", "16"]
+DENSE_CLI_COMPARE = 4       # requests of the CLI run held to the reference
+
+
+def dense_qmatmul_rows(flush):
+    """qmatmul_w8a16 at the dense configs' new shapes: w_gate with the silu
+    drain, w_down (qwen1.5-32b's K = 27,392 split by the GEMV's plan) and
+    each untied LM head (f32 out), through both kernels at M = 1 and a
+    tick's 8 rows, held against the plain version (bf16_close); the GEMV's
+    rows of M = 8 and 16 launches equal to the rows alone at each w_down;
+    both kernels timed at M = 8 beside the plain version, F.linear on bf16
+    weights and the bound.  Returns (worst error, {shape: numbers})."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.configs import get_config
+    from repro_torch.core.quant import quantize_weight
+    from repro_torch.kernels import qmatmul as K
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
+    rows, worst = {}, 0.0
+    for arch in DENSE_ARCHS:
+        c = get_config(arch)
+        for name, k, n, act, odt in (
+                ("w_gate", c.d_model, c.d_ff, "silu", torch.bfloat16),
+                ("w_down", c.d_ff, c.d_model, "none", torch.bfloat16),
+                ("lm_head", c.d_model, c.vocab, "none", torch.float32)):
+            wf = torch.randn((k, n), generator=gen, device="cuda") * k ** -0.5
+            q = quantize_weight(wf)
+            del wf
+            w, ws = q.values, q.scale.reshape(-1).contiguous()
+            label = f"{arch} {name}"
+            if name == "w_down":
+                gemv_rows_check(label, torch.randn(
+                    (2 * NUM_SLOTS, k), generator=gen, device="cuda").to(
+                    torch.bfloat16), w, ws, None, act, odt)
+            errs = []
+            for m in (1, NUM_SLOTS):
+                x = torch.randn((m, k), generator=gen,
+                                device="cuda").to(torch.bfloat16)
+                ref = K.qmatmul_w8a16_ref(x, w, ws, activation=act,
+                                          out_dtype=odt)
+                errs.append(w8a16_check(f"{label} M={m}", x, w, ws, None,
+                                        act, odt, ref))
+            err = max(e for e, _ in errs)
+            ratio = max(r for _, r in errs)
+            worst = max(worst, err)
+            ms = {path: time_ms(lambda: K.qmatmul_w8a16_on_path(
+                path, x, w, ws, activation=act, out_dtype=odt), 20, flush)
+                for path in K.W8A16_PATHS}
+            plain = time_ms(lambda: K.qmatmul_w8a16_ref(
+                x, w, ws, activation=act, out_dtype=odt), 3, flush)
+            w_lib = (w.float() * ws).to(torch.bfloat16).t()
+            lib = time_ms(lambda: F.linear(x, w_lib), 20, flush)
+            del w_lib
+            m = NUM_SLOTS
+            nbytes = (x.numel() * 2 + w.numel() + ws.numel() * 4
+                      + m * n * torch.empty(0, dtype=odt).element_size())
+            bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+            ops_ms = 2 * m * k * n / BF16_OPS_PER_S * 1e3
+            plan = K.gemv_split_plan(k, n)
+            rows[label] = {
+                "K": k, "N": n, "activation": act, "M": m,
+                "ms": ms["gemv"], "mma_ms": ms["mma"], "plain_ms": plain,
+                "bound_ms": max(bytes_ms, ops_ms),
+                "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+                "library_ms": lib, "max_abs_err": err}
+            print(f"  qmatmul_w8a16 {label:24s} K={k:5d} N={n:6d} act={act:4s}"
+                  f" max_abs_err={err:.3e} err/tol={ratio:.3f} (M = 1 and "
+                  f"{m}, both paths) gemv_ms={ms['gemv']:.4f} "
+                  f"mma_ms={ms['mma']:.4f} plain_ms={plain:.4f} "
+                  f"library_ms={lib:.4f} bound_ms={max(bytes_ms, ops_ms):.4f}"
+                  f" (M = {m}; GEMV plan {plan.strips} strips x "
+                  f"{plan.splits} splits)")
+            del q, w, ws
+    print(f"  qmatmul_w8a16 at the dense shapes: both paths within "
+          f"bf16_close; GEMV rows of M = {NUM_SLOTS} and {2 * NUM_SLOTS} "
+          f"launches equal to the rows alone at each w_down")
+    zero_counts()
+    return worst, rows
+
+
+def dense_attention_rows(flush):
+    """The two decode attention kernels at the dense configs' (KV heads,
+    G) of DENSE_HEADS, at the dense serves' tick: B = 8 ragged rows of a
+    DENSE_MAX_SEQ-slot cache (paged: blocks of DENSE_BLOCK through shuffled
+    tables): against the plain version, the paged kernel bitwise equal to
+    the contiguous one on the gathered view, every row bitwise equal to the
+    row launched alone, timed beside SDPA and the bound.  Returns (worst
+    error, {contiguous rows}, {paged rows})."""
+    import torch
+    from repro_torch.kernels import decode_attention as A
+
+    hd, s, bs = 128, DENSE_MAX_SEQ, DENSE_BLOCK
+    mb, b = s // bs, NUM_SLOTS
+    nb = b * mb + 1
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 8)
+    cpu_gen = torch.Generator().manual_seed(SEED + 8)
+    vls = [0, 1, 5, 17, s - 1, s, s // 2, 12][:b]
+    vl = torch.tensor(vls, dtype=torch.int32, device="cuda")
+    worst, contig, paged = 0.0, {}, {}
+    for kvh, g in DENSE_HEADS:
+        key = f"KV={kvh} G={g}"
+        q = torch.randn((b, kvh, g, hd), generator=gen,
+                        device="cuda").to(torch.bfloat16)
+        k, v, ks, vs = _attn_cache(gen, (b, s, kvh, hd))
+        label = f"decode_attention_int8 {key} B={b} S={s}"
+        out = A.decode_attention_int8(q, k, v, ks, vs, vl)
+        err = _attn_close(label, out, A.decode_attention_int8_ref(
+            q, k, v, ks, vs, vl))
+        _rows_alone(label, out, lambda r: A.decode_attention_int8(
+            q[r:r + 1], k[r:r + 1], v[r:r + 1], ks[r:r + 1], vs[r:r + 1],
+            vl[r:r + 1]), b)
+        contig[key] = _attn_numbers(
+            label, b, vls, False, err,
+            time_ms(lambda: A.decode_attention_int8(q, k, v, ks, vs, vl), 20,
+                    flush),
+            time_ms(lambda: A.decode_attention_int8_ref(q, k, v, ks, vs, vl),
+                    3, flush),
+            _sdpa_ms(flush, q, (k.float() * ks).to(torch.bfloat16)
+                     .transpose(1, 2), (v.float() * vs).to(torch.bfloat16)
+                     .transpose(1, 2), vl, s), q, 0)
+        contig[key]["max_abs_err"] = err
+        worst = max(worst, err)
+        pk, pv, pks, pvs = _attn_cache(gen, (nb, bs, kvh, hd))
+        tables = _paged_tables(cpu_gen, vls, mb, nb, bs)
+        label = f"decode_attention_int8_paged {key} B={b} bs={bs} MB={mb}"
+        out = A.decode_attention_int8_paged(q, pk, pv, pks, pvs, vl, tables)
+        err = _attn_close(label, out, A.decode_attention_int8_paged_ref(
+            q, pk, pv, pks, pvs, vl, tables))
+        gathered = [A.paged_gather(c, tables).contiguous()
+                    for c in (pk, pv, pks, pvs)]
+        if not torch.equal(out, A.decode_attention_int8(q, *gathered, vl)):
+            raise AssertionError(f"{label}: not bitwise equal to the "
+                                 f"contiguous kernel on the gathered view")
+        _rows_alone(label, out, lambda r: A.decode_attention_int8_paged(
+            q[r:r + 1], pk, pv, pks, pvs, vl[r:r + 1], tables[r:r + 1]), b)
+        gk, gv, gks, gvs = gathered
+        paged[key] = _attn_numbers(
+            label, b, vls, False, err,
+            time_ms(lambda: A.decode_attention_int8_paged(
+                q, pk, pv, pks, pvs, vl, tables), 20, flush),
+            time_ms(lambda: A.decode_attention_int8_paged_ref(
+                q, pk, pv, pks, pvs, vl, tables), 3, flush),
+            _sdpa_ms(flush, q, (gk.float() * gks).to(torch.bfloat16)
+                     .transpose(1, 2), (gv.float() * gvs).to(torch.bfloat16)
+                     .transpose(1, 2), vl, s), q, tables.numel() * 4)
+        paged[key]["max_abs_err"] = err
+        worst = max(worst, err)
+    print("  decode attention at the dense configs' G: "
+          + "; ".join(f"{key}: ms {contig[key]['ms']:.4f} / paged "
+                      f"{paged[key]['ms']:.4f} against bound "
+                      f"{contig[key]['bound_ms']:.5f} / "
+                      f"{paged[key]['bound_ms']:.5f}"
+                      for key in contig)
+          + "; every row bitwise equal alone and in its batch, the paged "
+          "kernel bitwise the contiguous one on the gathered view")
+    zero_counts()
+    return worst, contig, paged
+
+
+def build_dense_model(arch):
+    """Full-width ``arch`` with random weights from SEED through the
+    streamed init (``registry.init_quantized``: each layer and table
+    quantized as it is drawn), on the card: (cfg, params).  Prints its
+    shape, its int8 weight bytes, the init's time and the peak memory
+    allocated, which must stay under DENSE_PEAK_BYTES where one is set."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.quant import tree_weight_bytes
+    from repro_torch.models import registry as R
+
+    cfg = get_config(arch)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    with torch.inference_mode():
+        params = R.init_quantized(gen, cfg, min_size=2048, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    nbytes = tree_weight_bytes(params)
+    print(f"dense {arch}: full width ({cfg.n_layers} layers, d="
+          f"{cfg.d_model}, {cfg.n_heads} q-heads / {cfg.n_kv_heads} kv-heads"
+          f" of {cfg.head_dim}, ff={cfg.d_ff} gated {cfg.activation}, vocab="
+          f"{cfg.vocab} untied, {cfg.norm}), W8A16 weights {nbytes} bytes, "
+          f"streamed init+quantize {init_s:.1f}s, "
+          f"torch.cuda.max_memory_allocated {peak} bytes ({peak / 1e9:.2f} "
+          f"GB; {before} allocated before)")
+    limit = DENSE_PEAK_BYTES.get(arch)
+    if limit is not None and peak >= limit:
+        raise AssertionError(f"dense {arch}: the init's peak {peak} bytes is "
+                             f"not under {limit:.0f}")
+    return cfg, params
+
+
+def dense_serve(label, cfg, params, reqs, **kw):
+    """One engine of the dense serves (NUM_SLOTS slots of DENSE_MAX_SEQ,
+    chunked prefill of PREFILL_CHUNK; ``kw`` pages it), warmed up, then a
+    wall-clock serve of ``reqs`` with the counters zeroed just before and
+    read just after: no capture inside it, no plain version, no mma
+    launch, the GEMV launched, and the decode attention kernels launched
+    exactly when the cache is int8.  Returns (engine, report, launches)."""
+    from repro_torch import engine as E
+    from repro_torch.core.qlinear import W8A16
+
+    eng = E.Engine(cfg, params, mode=W8A16, num_slots=NUM_SLOTS,
+                   max_seq=DENSE_MAX_SEQ, prefill_chunk=PREFILL_CHUNK, **kw)
+    bound = warm(label, eng, reqs[:1])
+    zero_counts()
+    rep = eng.serve(reqs, clock="wall")
+    launches, plain_calls = read_counts()
+    same_captures(label, eng, bound)
+    print(f"{label}: served {len(rep.results)} requests in {rep.ticks} "
+          f"ticks, {rep.generated_tokens} tokens, wall {rep.wall_s:.3f}s, "
+          f"decoded tok/s {rep.generated_tokens / rep.wall_s:.1f}, ms/tick "
+          f"{1e3 * rep.wall_s / rep.ticks:.2f}, p99 latency "
+          f"{rep.p99_latency_s:.3f}s, mean ttft {rep.mean_ttft_s:.3f}s, "
+          f"kv_hbm_bytes {rep.kv_hbm_bytes}")
+    print(f"{label}: kernel launches {launches}, plain-version calls "
+          f"{plain_calls}")
+    attn = ("decode_attention_int8", "decode_attention_int8_paged")
+    if launches["qmatmul_w8a16"] <= 0 or any(
+            (launches[k] > 0) != cfg.kv_quant for k in attn):
+        raise AssertionError(f"{label}: launches {launches} (int8 cache: "
+                             f"{cfg.kv_quant})")
+    mma_free(label, launches)
+    if any(plain_calls.values()):
+        raise AssertionError(f"{label}: the CUDA path reached a plain "
+                             f"version: {plain_calls}")
+    check_served(label, cfg, rep, reqs, max_new=DENSE_NEW)
+    return eng, rep, launches
+
+
+def dense_tick(cfg, params, label, block_size=0):
+    """The captured steady tick of the dense serves: NUM_SLOTS rows at
+    position DENSE_MAX_SEQ / 2 of the bf16 cache (paged: every row on
+    blocks of its own), its launches per replay (7 GEMVs a layer and the
+    head), then wall, device busy and launch calls over replays, beside
+    the floor: the int8 weights a tick reads (every layer and the head;
+    the embedding table only gathers a row per slot) at 3.35 TB/s."""
+    import torch
+    from repro_torch.core.qlinear import W8A16
+    from repro_torch.core.quant import tree_weight_bytes
+    from repro_torch.models import registry as R
+    from repro_torch.runtime import steps as ST
+
+    S, max_seq = NUM_SLOTS, DENSE_MAX_SEQ
+    graphed = ST.jit_slot_decode_step(ST.make_slot_decode_step(
+        cfg, mode=W8A16))
+    with torch.inference_mode():
+        if block_size:
+            mb = max_seq // block_size
+            cache = R.init_paged_cache(cfg, S, max_seq, block_size,
+                                       S * mb + 1, device="cuda")
+            cache["block_tables"].copy_(torch.arange(
+                1, S * mb + 1, dtype=torch.int32).reshape(S, mb))
+        else:
+            cache = R.init_cache(cfg, S, max_seq, device="cuda")
+        toks = torch.ones((S, 1), dtype=torch.int32, device="cuda")
+        idx = torch.full((S,), max_seq // 2, dtype=torch.int32,
+                         device="cuda")
+        active = torch.ones((S,), dtype=torch.bool, device="cuda")
+        t0 = time.perf_counter()
+        graphed(params, toks, cache, idx, active)[0].cpu()
+        capture_s = time.perf_counter() - t0
+        zero_counts()
+        graphed(params, toks, cache, idx, active)[0].cpu()
+    launches, plain = read_counts()
+    gemv = 7 * cfg.n_layers + 1
+    if (launches["qmatmul_w8a16[gemv]"] != gemv or any(plain.values())
+            or launches["decode_attention_int8"]
+            or launches["decode_attention_int8_paged"]):
+        raise AssertionError(f"{label}: a replay launched {launches} "
+                             f"({gemv} GEMVs expected), plain {plain}")
+    res = device_breakdown(
+        label, f"captured steady-state slot tick ({S} active rows at "
+        f"position {max_seq // 2} of {max_seq}, bf16 cache"
+        f"{', blocks of ' + str(block_size) if block_size else ''})",
+        lambda: graphed(params, toks, cache, idx, active)[0].cpu(), 10)
+    read = tree_weight_bytes(params) - (
+        tree_weight_bytes(params["embed"]) if "unembed" in params else 0)
+    floor = read / HBM_BYTES_PER_S * 1e3
+    index_ms = sum(ms for key, ms in res["by_kernel"].items()
+                   if "index" in key or "gather" in key)
+    busy = res["busy"]
+    print(f"{label}: {launches['qmatmul_w8a16[gemv]']} GEMVs a replay; "
+          f"capture {capture_s:.2f} s; wall {res['wall']:.2f} ms, device "
+          f"busy {'not measured' if busy is None else f'{busy:.3f} ms'}, "
+          f"cudaGraphLaunch {res['graph_launches']:.0f}, cudaLaunchKernel "
+          f"{res['launch_calls']:.0f} a tick; floor {floor:.3f} ms (the "
+          f"{read} bytes of int8 weights a tick reads at 3.35 TB/s): wall / "
+          f"floor {res['wall'] / floor:.2f}; indexing kernels (the cache "
+          f"writes{' and the per-row gathers' if block_size else ''}) "
+          f"{index_ms:.3f} ms of device time")
+    graphed.captured.release()
+
+
+def dense_model_phase(arch):
+    """One dense config at full width: built by the streamed init, then a
+    contiguous bf16 serve held to ``reference_outputs``, a paged bf16
+    serve of the same trace (fewer usable blocks than the contiguous
+    equivalent, a shared prefix block) whose every token equals the
+    contiguous serve's with no block leaked, the captured steady tick
+    contiguous and paged against its floor, and for qwen1.5-32b a serve
+    on the int8 cache (``kv_quant=True``: both decode attention kernels at
+    G = 1) held to ``reference_outputs``.  Everything it built is freed
+    before it returns its launch counts."""
+    import torch
+    from repro_torch import engine as E
+    from repro_torch.runtime import steps as ST
+
+    t0 = time.perf_counter()
+    cfg, params = build_dense_model(arch)
+    reqs = E.synthetic_requests(
+        DENSE_REQUESTS, rate_per_s=DENSE_RATE_PER_S, vocab=cfg.vocab,
+        prompt_len=DENSE_PROMPT, max_new_tokens=DENSE_NEW,
+        shared_prefix_len=DENSE_SHARED, seed=SEED)
+    out = {"arch": arch}
+    label = f"dense {arch}"
+    eng, rep, out["launches"] = dense_serve(f"{label} contiguous", cfg,
+                                            params, reqs)
+    compare_with_reference(f"{label} contiguous", cfg, params, eng, reqs,
+                           rep.outputs())
+    contig = rep.outputs()
+    del eng
+    eng, rep, _ = dense_serve(f"{label} paged", cfg, params, reqs,
+                              block_size=DENSE_BLOCK,
+                              num_blocks=DENSE_NUM_BLOCKS)
+    print(f"{label} paged: block_size {rep.block_size}, num_blocks "
+          f"{rep.num_blocks} ({rep.num_blocks - 1} usable against "
+          f"{NUM_SLOTS * eng.max_blocks} for the contiguous equivalent), "
+          f"peak_blocks_used {rep.peak_blocks_used}, leaked_blocks "
+          f"{rep.leaked_blocks}, shared_block_hits {rep.shared_block_hits}, "
+          f"prefill_tokens_skipped {rep.prefill_tokens_skipped}")
+    if rep.outputs() != contig:
+        raise AssertionError(f"{label} paged: tokens differ from the "
+                             f"contiguous serve's")
+    if rep.leaked_blocks or rep.peak_blocks_used > rep.num_blocks - 1:
+        raise AssertionError(f"{label} paged: block accounting: peak "
+                             f"{rep.peak_blocks_used}, leaked "
+                             f"{rep.leaked_blocks}")
+    print(f"{label} paged: every token of {len(contig)} requests equal to "
+          f"the contiguous serve's")
+    del eng
+    ST.clear_step_cache()
+    torch_cuda_empty()
+    dense_tick(cfg, params, f"{label} tick")
+    dense_tick(cfg, params, f"{label} paged tick", DENSE_BLOCK)
+    if arch == "qwen1.5-32b":
+        qcfg = dataclasses.replace(cfg, kv_quant=True)
+        eng, rep, out["int8_launches"] = dense_serve(
+            f"{label} int8 cache", qcfg, params, reqs)
+        compare_with_reference(f"{label} int8 cache", qcfg, params, eng,
+                               reqs, rep.outputs())
+        del eng
+    ST.clear_step_cache()
+    del params
+    torch_cuda_empty()
+    print(f"{label}: phase {time.perf_counter() - t0:.1f}s; "
+          f"{torch.cuda.memory_allocated()} bytes left allocated")
+    return out
+
+
+def dense_cli_phase():
+    """The serve CLI at full mistral-nemo-12b width with the paged bf16
+    cache (DENSE_SERVE_ARGS): exit 0, the service curve's forward on the
+    mma path and flash attention (H = 32), the decode loop and the paged
+    engine, no block leaked, and DENSE_CLI_COMPARE requests (the first to
+    share the prefix block among them) equal to ``reference_outputs``."""
+    from repro_torch.launch import serve
+
+    real_curve = serve.measure_service_curve
+    curve_paths = {}
+    serve.measure_service_curve = counted_curve(real_curve, curve_paths)
+    try:
+        launches, res = serve_run("w8a16", curve_paths,
+                                  base=DENSE_SERVE_ARGS,
+                                  label="serve mistral-nemo-12b paged")
+    finally:
+        serve.measure_service_curve = real_curve
+    label = "serve mistral-nemo-12b paged"
+    rep = res.report
+    print(f"{label}: {rep.num_slots} slots, block_size {rep.block_size}, "
+          f"num_blocks {rep.num_blocks}, peak_blocks_used "
+          f"{rep.peak_blocks_used}, leaked_blocks {rep.leaked_blocks}, "
+          f"shared_block_hits {rep.shared_block_hits}")
+    worst = rep.num_slots * res.engine.max_blocks
+    if (rep.block_size != 16 or rep.leaked_blocks
+            or rep.num_blocks - 1 >= worst):
+        raise AssertionError(f"{label}: block_size {rep.block_size}, "
+                             f"{rep.num_blocks} blocks against a worst case "
+                             f"of {worst}, {rep.leaked_blocks} leaked")
+    sharers = [r.rid for r in rep.results if r.shared_blocks]
+    rids = sharers[:1] + [r.rid for r in rep.results
+                          if r.rid not in sharers[:1]]
+    rids = set(rids[:DENSE_CLI_COMPARE])
+    compare_with_reference(label, res.cfg, res.params, res.engine,
+                           [r for r in res.requests if r.rid in rids],
+                           rep.outputs())
+    del res
+    torch_cuda_empty()
+    return launches
+
+
+def dense_kernel_rows(flush):
+    """The kernel rows at the dense configs' shapes (the kernel phase's
+    part of the dense family): {"qmatmul": (worst error, rows),
+    "attention": (worst error, contiguous rows, paged rows)}."""
+    print("dense: the kernels at the dense configs' shapes")
+    out = {"qmatmul": dense_qmatmul_rows(flush),
+           "attention": dense_attention_rows(flush)}
+    torch_cuda_empty()
+    return out
+
+
+def dense_phase():
+    """Each dense config served at full width, one at a time, then the
+    serve CLI on mistral-nemo-12b, paged: {"runs": [...], "cli":
+    launches}."""
+    from repro_torch.runtime import steps as ST
+
+    ST.clear_step_cache()      # graphs of the serve phase hold its params
+    torch_cuda_empty()
+    t0 = time.perf_counter()
+    runs = [dense_model_phase(arch) for arch in DENSE_ARCHS]
+    cli = dense_cli_phase()
+    print(f"dense: {len(runs)} configs and the serve CLI in "
+          f"{time.perf_counter() - t0:.1f}s")
+    return {"runs": runs, "cli": cli}
+
+
+PHASES = ("attention", "long_tick", "w8a8", "graphs", "dense")
 
 
 def parse_args(argv):
@@ -2365,13 +2874,15 @@ def parse_args(argv):
     ap.add_argument("--only", choices=PHASES, action="append",
                     help="run only this phase (repeatable): the two decode "
                          "attention kernel phases, the long-context ticks, "
-                         "qmatmul_w8a8's kernel phase and the W8A8 tick, or "
+                         "qmatmul_w8a8's kernel phase and the W8A8 tick, "
                          "the five eager tick breakdowns and the graph "
-                         "phase; prints no result line")
+                         "phase, or the dense family at full width; prints "
+                         "no result line")
     return ap.parse_args(argv)
 
 
 def main(argv=None) -> int:
+    t_run = time.perf_counter()
     args = parse_args(sys.argv[1:] if argv is None else argv)
     try:
         import torch
@@ -2422,7 +2933,13 @@ def main(argv=None) -> int:
             paged_attention_phase(flush)
         if "w8a8" in args.only:
             qmatmul_w8a8_phase(flush)
+        if "dense" in args.only:
+            dense_kernel_rows(flush)
         del flush_buf
+        warnings.filterwarnings("ignore", message=".*straggler.*")
+        if "dense" in args.only:
+            rmsnorm_phase(RMSNORM_WIDTHS[1:])
+            dense_phase()
         if {"long_tick", "w8a8", "graphs"} & set(args.only):
             cfg, params = build_model()
         if "graphs" in args.only:
@@ -2445,6 +2962,7 @@ def main(argv=None) -> int:
     p_err, p_tick, p_long = paged_attention_phase(flush)
     w8_err, w8_fwd, w8_lib, w8_ticks = qmatmul_w8a8_phase(flush)
     f_err, f_fwd = flash_phase(flush)
+    dense_rows = dense_kernel_rows(flush)
     del flush_buf
     rmsnorm_phase()
 
@@ -2463,6 +2981,7 @@ def main(argv=None) -> int:
     del params
     torch_cuda_empty()
     serve_launches = serve_phase()
+    dense = dense_phase()
 
     tick_basis = (f"one {{}} of {NUM_SLOTS} rows at full width: the sum "
                   f"over that tick's launches")
@@ -2519,6 +3038,40 @@ def main(argv=None) -> int:
         row["long_context"] = {
             **numbers(t), "basis": f"one launch of {NUM_SLOTS} rows of "
             f"valid_len {LONG_VALID} ({LONG_SLOTS}-slot rows)"}
+    # the dense family's rows: each kernel at the other dense configs'
+    # shapes, and its launches in their runs
+    runs = {run["arch"]: run for run in dense["runs"]}
+    qwen = runs["qwen1.5-32b"]["int8_launches"]
+    q_dense_err, q_dense = dense_rows["qmatmul"]
+    a_dense_err, a_dense, p_dense = dense_rows["attention"]
+    kernels[0]["dense"] = {
+        **q_dense, "max_abs_err": q_dense_err,
+        "launches": {arch: run["launches"]["qmatmul_w8a16"]
+                     for arch, run in runs.items()},
+        "basis": f"one launch of {NUM_SLOTS} rows at each shape (GEMV in "
+                 f"ms, the mma path in mma_ms); launches: each config's "
+                 f"contiguous bf16 serve"}
+    for row, dense_t, name in ((kernels[1], a_dense, "decode_attention_int8"),
+                               (kernels[2], p_dense,
+                                "decode_attention_int8_paged")):
+        row["dense"] = {
+            **{key: {**numbers(t), "max_abs_err": t["max_abs_err"]}
+               for key, t in dense_t.items()},
+            "max_abs_err": a_dense_err, "launches": qwen[name],
+            "basis": f"one launch of {NUM_SLOTS} ragged rows of "
+                     f"{DENSE_MAX_SEQ} slots at each (KV, G); launches: "
+                     f"qwen1.5-32b's int8-cache serve (G = 1)"}
+    kernels[4]["dense"] = {"launches": dense["cli"]["flash_attention_bhsd"],
+                           "basis": "the serve CLI's run on mistral-nemo-12b "
+                                    "(H = 32)"}
+    dense_numbers = list(q_dense.values()) + [
+        t for d in (a_dense, p_dense) for t in d.values()]
+    if any(not math.isfinite(t[key]) for t in dense_numbers
+           for key in ("ms", "plain_ms", "bound_ms", "library_ms")):
+        return fail("a dense kernel row is not finite")
+    if min(qwen["decode_attention_int8"], qwen["decode_attention_int8_paged"],
+           dense["cli"]["flash_attention_bhsd"]) <= 0:
+        return fail("a kernel of a dense path never launched")
     for k in kernels + list(w8a16_paths.values()):
         for key in ("ms", "plain_ms", "bound_ms", "library_ms"):
             if not math.isfinite(k[key]):
@@ -2528,6 +3081,7 @@ def main(argv=None) -> int:
             return fail(f"{k.get('name', 'qmatmul_w8a16 path')}: no launch "
                         f"on its path")
     print(json.dumps({"kernels": kernels}))
+    print(f"chip_smoke: whole run {time.perf_counter() - t_run:.1f}s")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

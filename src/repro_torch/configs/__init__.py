@@ -1,11 +1,12 @@
-"""Architecture configs ported so far.  ``get_config(name)`` is the
-registry entry point; the other families' arch files arrive with their
-model modules (ROADMAP queue 1, item 13)."""
+"""Architecture configs ported so far: the four dense ones.
+``get_config(name)`` is the registry entry point; the other families'
+arch files arrive with their model modules (ROADMAP queue 1, item 13)."""
 from repro_torch.configs.base import (ArchConfig, get_config, register,
                                       list_archs, SHAPES, ShapeSpec)
 
 # import for registration side effects
-from repro_torch.configs import starcoder2_3b  # noqa: F401
+from repro_torch.configs import (  # noqa: F401
+    starcoder2_3b, mistral_nemo_12b, internlm2_20b, qwen1_5_32b)
 
 __all__ = ["ArchConfig", "get_config", "register", "list_archs", "SHAPES",
            "ShapeSpec"]

@@ -16,7 +16,7 @@ from __future__ import annotations
 
 import dataclasses
 import re
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -91,10 +91,20 @@ def quantize_weight(w: torch.Tensor, bits: int = 8) -> QTensor:
     return quantize(w, bits=bits, axis=(w.ndim - 2,))
 
 
-def quantize_embedding(w: torch.Tensor, bits: int = 8) -> QTensor:
+def quantize_embedding(w: torch.Tensor, bits: int = 8,
+                       row_chunk: Optional[int] = None) -> QTensor:
     """Per-row (per-vocab-entry) quantization for embedding tables: gathers
-    dequantize row-wise, and the tied LM head folds scales per output."""
-    return quantize(w, bits=bits, axis=tuple(range(1, w.ndim)))
+    dequantize row-wise, and the tied LM head folds scales per output.
+    ``row_chunk`` quantizes ``row_chunk`` rows at a time into the result,
+    so the f32 temporaries are a chunk's, not the table's; every row
+    reduces on its own, so the bits are the same either way."""
+    axis = tuple(range(1, w.ndim))
+    if row_chunk is None or w.shape[0] <= row_chunk:
+        return quantize(w, bits=bits, axis=axis)
+    parts = [quantize(w[r:r + row_chunk], bits=bits, axis=axis)
+             for r in range(0, w.shape[0], row_chunk)]
+    return QTensor(values=torch.cat([p.values for p in parts]),
+                   scale=torch.cat([p.scale for p in parts]), bits=bits)
 
 
 def _default_quant_predicate(path_str: str, leaf) -> bool:
@@ -109,14 +119,18 @@ def _default_quant_predicate(path_str: str, leaf) -> bool:
 
 
 def quantize_tree(params, bits: int = 8, min_size: int = 4096,
-                  predicate=None):
+                  predicate=None, *, prefix: str = "",
+                  row_chunk: Optional[int] = None):
     """Post-training quantization of a nested dict/list parameter tree.
 
     Matmul weights (path allowlist, >= ``min_size`` elements) become
     QTensors; everything else is returned as is.  Path strings join dict
     keys and list indices with '.', so a layer weight reads
-    ``layers.3.attn.wq.w``.  ``predicate(path_str, leaf) -> bool``
-    overrides the allowlist."""
+    ``layers.3.attn.wq.w``; ``prefix`` is the path of ``params`` inside a
+    larger tree (``"layers.3"`` for one layer's subtree), so a subtree
+    quantizes as it would inside the whole.  ``predicate(path_str, leaf)
+    -> bool`` overrides the allowlist.  ``row_chunk``: embedding tables
+    quantize that many rows at a time (:func:`quantize_embedding`)."""
     def walk(node, path):
         if isinstance(node, dict):
             return {k: walk(v, path + (str(k),)) for k, v in node.items()}
@@ -132,9 +146,9 @@ def quantize_tree(params, bits: int = 8, min_size: int = 4096,
         if not do_q:
             return node
         if "table" in path_str:
-            return quantize_embedding(node, bits=bits)
+            return quantize_embedding(node, bits=bits, row_chunk=row_chunk)
         return quantize_weight(node, bits=bits)
-    return walk(params, ())
+    return walk(params, tuple(prefix.split(".")) if prefix else ())
 
 
 def tree_weight_bytes(params) -> int:

@@ -8,7 +8,8 @@ Port of ``repro/engine/engine.py`` for one model with greedy sampling:
   step (active mask folded into sampling and index advance), which on
   the card replays a CUDA graph captured over that cache
   (``runtime/steps.py::jit_slot_decode_step``).
-- With ``block_size=bs`` the rows are paged: ``num_blocks`` physical KV
+- With ``block_size=bs`` the rows are paged (the int8 cache or the bf16
+  one, as ``cfg.kv_quant`` says): ``num_blocks`` physical KV
   blocks of ``bs`` positions behind per-slot block tables, with
   refcounted sharing of whole prompt-prefix blocks (a hit skips their
   prefill) and admission priced in blocks against the pool.
@@ -28,8 +29,9 @@ Port of ``repro/engine/engine.py`` for one model with greedy sampling:
 ``reference_outputs`` is the sequential per-token loop (batch 1, same
 decode math, contiguous cache) the engine must match bit for bit, paged
 or not: every kernel and plain version computes a row independently of
-the batch it sits in, and the paged kernel reads a row in the very order
-the contiguous one does.
+the batch it sits in, the paged kernel reads a row in the very order
+the contiguous one does, and the bf16 cache's attention reads a row
+gathered through its table as the contiguous row.
 """
 from __future__ import annotations
 
@@ -171,8 +173,6 @@ class Engine:
                 raise ValueError(
                     f"family {cfg.family!r} (window={cfg.window}) does "
                     f"not support the paged KV cache")
-            if not cfg.kv_quant:
-                raise _not_ported("the paged bf16 KV cache", "17")
         self.cfg, self.params = cfg, params
         self.mode = mode
         self.temperature = temperature

@@ -16,14 +16,22 @@ into two SLO classes by a hash of the rid, ``--batch-quota`` caps the
 slots the batch class holds, ``--preemption`` evicts batch slots for
 interactive requests with exact resume, and ``--fault-seed`` /
 ``--n-faults`` inject a seeded ``FaultPlan``.  The KV cache is
-bf16 (``starcoder2-3b`` leaves ``kv_quant`` off, as the reference's CLI
-does); ``--quant w8a8`` runs every projection through the int8 x int8
-kernel, the LM head staying weight-only int8.
+bf16 (the dense configs leave ``kv_quant`` off, as the reference's CLI
+does); ``--block-size`` pages it (``--num-blocks`` sizes the pool) and
+``--shared-prefix-len`` gives every request the same leading prompt
+tokens, whose full blocks the paged engine shares.  ``--quant w8a16``
+and ``w8a8`` draw the weights layer by layer, each quantized as it is
+drawn (``registry.init_quantized``: the int8 tree of
+``quantize_tree(init(...))`` without the f32 one, so qwen1.5-32b fits
+the card); ``--quant w8a8`` runs every projection through the int8 x
+int8 kernel, the LM head staying weight-only int8.
 
   python -m repro_torch.launch.serve --arch starcoder2-3b --reduced \\
       --deadline-ms 50 --rate 200                  # on the card
   python -m repro_torch.launch.serve --arch starcoder2-3b --reduced \\
       --device cpu                                 # plain versions, CPU
+  python -m repro_torch.launch.serve --arch qwen1.5-32b --reduced \\
+      --device cpu --block-size 4 --shared-prefix-len 4   # paged, CPU
 
 The reference's other serving options stay in the parser; given a value
 other than their default, each prints which ROADMAP item will port it and
@@ -45,7 +53,7 @@ from repro_torch.configs import get_config
 from repro_torch.configs.base import ArchConfig, ShapeSpec
 from repro_torch.core import batching as bt
 from repro_torch.core.qlinear import FP, W8A8, W8A16, QuantMode
-from repro_torch.core.quant import quantize_tree, tree_weight_bytes
+from repro_torch.core.quant import QTensor, tree_weight_bytes
 from repro_torch.device import resolve_device
 from repro_torch.models import registry as R
 from repro_torch.runtime import steps as ST
@@ -53,7 +61,6 @@ from repro_torch.runtime import steps as ST
 # flag -> ROADMAP queue 1 item that will port it
 UNPORTED = {
     "models": 14, "model_quota": 14,
-    "block_size": 17, "num_blocks": 17, "shared_prefix_len": 17,
     "temperature": 10,
     "arrival": 12,
     "spec_k": 14, "draft": 14, "draft_layers": 14,
@@ -154,6 +161,16 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--prefill-chunk", type=int, default=0,
                     help="engine: chunked-prefill bucket cap (0 = "
                          "per-token prefill)")
+    ap.add_argument("--block-size", type=int, default=0,
+                    help="engine: paged KV cache block size in positions "
+                         "(power of two; 0 = contiguous slot rows)")
+    ap.add_argument("--num-blocks", type=int, default=0,
+                    help="engine: physical KV blocks incl. the reserved "
+                         "trash block (0 = every slot can hold a full "
+                         "row privately)")
+    ap.add_argument("--shared-prefix-len", type=int, default=0,
+                    help="engine: identical leading prompt tokens across "
+                         "requests (paged mode shares their KV blocks)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--interactive-frac", type=float, default=1.0,
                     help="engine: share of requests in the interactive "
@@ -177,9 +194,6 @@ def build_parser() -> argparse.ArgumentParser:
     unported.add_argument("--models", default=None, metavar="A,B")
     unported.add_argument("--model-quota", action="append", default=[],
                           metavar="TAG=N")
-    unported.add_argument("--block-size", type=int, default=0)
-    unported.add_argument("--num-blocks", type=int, default=0)
-    unported.add_argument("--shared-prefix-len", type=int, default=0)
     unported.add_argument("--temperature", type=float, default=0.0)
     unported.add_argument("--arrival", default="poisson",
                           choices=["poisson", "mmpp", "diurnal"])
@@ -193,6 +207,17 @@ def build_parser() -> argparse.ArgumentParser:
 
 def parse_args(argv=None) -> argparse.Namespace:
     return build_parser().parse_args(argv)
+
+
+def _f32_bytes(params) -> int:
+    """Bytes of the f32 tree an int8 one was quantized from."""
+    if isinstance(params, dict):
+        return sum(_f32_bytes(v) for v in params.values())
+    if isinstance(params, (list, tuple)):
+        return sum(_f32_bytes(v) for v in params)
+    if isinstance(params, QTensor):
+        return params.values.numel() * 4
+    return params.numel() * params.element_size()
 
 
 @dataclasses.dataclass
@@ -227,6 +252,10 @@ def run(args: argparse.Namespace) -> ServeRun:
     if not 0.0 <= frac <= 1.0:
         print(f"[engine] --interactive-frac must be in [0, 1]: {frac}")
         return ServeRun(code=1)
+    if not 0 <= args.shared_prefix_len <= args.prompt_len:
+        print(f"[engine] --shared-prefix-len must be in [0, --prompt-len="
+              f"{args.prompt_len}]: {args.shared_prefix_len}")
+        return ServeRun(code=1)
     device = resolve_device(args.device)
     mode = {"fp": FP, "w8a16": W8A16, "w8a8": W8A8}[args.quant]
     cfg = get_config(args.arch)
@@ -234,12 +263,14 @@ def run(args: argparse.Namespace) -> ServeRun:
         cfg = cfg.reduced()
     with torch.inference_mode():
         gen = torch.Generator(device=device).manual_seed(args.seed)
-        params = R.init(gen, cfg, device=device)
         if mode.enabled:
-            fp_bytes = tree_weight_bytes(params)
-            params = quantize_tree(params, min_size=2048)
-            print(f"[quant] {args.arch} weights {fp_bytes / 1e6:.1f} MB -> "
+            params = R.init_quantized(gen, cfg, min_size=2048,
+                                      device=device)
+            print(f"[quant] {args.arch} weights "
+                  f"{_f32_bytes(params) / 1e6:.1f} MB -> "
                   f"{tree_weight_bytes(params) / 1e6:.1f} MB ({args.quant})")
+        else:
+            params = R.init(gen, cfg, device=device)
     out = ServeRun(code=1, cfg=cfg, params=params, mode=mode)
 
     prefill = ST.make_prefill_step(cfg, mode=mode)
@@ -305,6 +336,8 @@ def run(args: argparse.Namespace) -> ServeRun:
                        max_seq=args.prompt_len + args.gen_tokens,
                        policy=policy,
                        prefill_chunk=args.prefill_chunk or None,
+                       block_size=args.block_size or None,
+                       num_blocks=args.num_blocks or None,
                        device=device)
     except ValueError as e:
         print(f"[engine] config rejected: {e}")
@@ -317,7 +350,8 @@ def run(args: argparse.Namespace) -> ServeRun:
     reqs = E.synthetic_requests(
         args.n_requests, rate_per_s=args.rate, vocab=cfg.vocab,
         prompt_len=args.prompt_len, max_new_tokens=args.gen_tokens,
-        deadline_s=deadline, seed=args.seed, priority=priority)
+        deadline_s=deadline, seed=args.seed,
+        shared_prefix_len=args.shared_prefix_len, priority=priority)
     out.requests = reqs
     plan = (E.FaultPlan.random(args.fault_seed, n_faults=args.n_faults,
                                num_slots=num_slots)
@@ -347,6 +381,16 @@ def run(args: argparse.Namespace) -> ServeRun:
     print(f"[engine] time-to-first-token {rep.mean_ttft_s*1e3:.2f} ms mean "
           f"/ {rep.p99_ttft_s*1e3:.2f} ms p99 "
           f"(prefill chunk {rep.prefill_chunk or 'off'})")
+    if rep.block_size:
+        print(f"[engine] paged KV: {rep.num_blocks} blocks x "
+              f"{rep.block_size} positions, {rep.kv_hbm_bytes/1e6:.2f} MB "
+              f"resident; peak {rep.peak_blocks_used} blocks used "
+              f"({rep.mean_block_util:.1%} mean util); "
+              f"{rep.shared_block_hits} shared-prefix block hits "
+              f"({rep.shared_hit_rate:.1%} of demand, "
+              f"{rep.prefill_tokens_skipped} prefill tokens skipped); "
+              f"{rep.leaked_blocks} leaked blocks; effective concurrency "
+              f"{rep.effective_concurrency:.1f}")
     if len(rep.class_p99_latency_s) > 1:
         print(f"[engine] goodput {rep.goodput_tokens_per_s:,.0f} tok/s "
               f"({rep.slo_attainment:.1%} of requests made their "

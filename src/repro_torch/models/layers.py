@@ -6,9 +6,8 @@ Conventions (as in ``repro/models/layers.py``):
 - plain functions over param dicts of tensors;
 - every matmul routes through :func:`repro_torch.core.qlinear.linear`;
 - the KV cache keeps the reference's (B, S, KV, hd) layout — int8 with
-  scales (B, S, KV, 1), or bf16 — or, int8 only, its paged
-  (NB, bs, KV, hd) physical blocks behind per-row block tables, and is
-  written in place.
+  scales (B, S, KV, 1), or bf16 — or its paged (NB, bs, KV, hd)
+  physical blocks behind per-row block tables, and is written in place.
 
 Not ported yet: sliding-window ring caches and cross-attention (ROADMAP
 queue 1, item 13).
@@ -136,6 +135,23 @@ def cache_write(c: Tensor, new: Tensor, idx) -> None:
         c[idx] = new
 
 
+def tree_sum(x: Tensor) -> Tensor:
+    """Sum over the last dim in one fixed pairwise order: zero-padded to a
+    power of two, then halves added until one is left.  Each output is
+    the same chain of f32 adds whatever the other dims hold, on any
+    device; a matmul or a ``sum`` picks its reduction layout from the
+    whole shape on the card (cuBLAS, the reduction kernels), so a row's
+    bits could depend on the batch."""
+    n = x.shape[-1]
+    width = 1 << (n - 1).bit_length()
+    if width != n:
+        x = F.pad(x, (0, width - n))
+    while x.shape[-1] > 1:
+        half = x.shape[-1] // 2
+        x = x[..., :half] + x[..., half:]
+    return x[..., 0]
+
+
 def bf16_cache_attention(q: Tensor, ck: Tensor, cv: Tensor,
                          valid_len: Tensor) -> Tensor:
     """One-token GQA attention against a bf16 cache, the reference's einsum
@@ -143,19 +159,22 @@ def bf16_cache_attention(q: Tensor, ck: Tensor, cv: Tensor,
     cache (B, S, KV, hd), slots below ``valid_len`` (B,) take part; f32
     out (B, KV, G, hd).  q, the cache and the probabilities are rounded to
     bf16 and multiplied in f32, so no reduced-precision (tf32, bf16)
-    product or sum enters.  Plain PyTorch: the reference has no kernel
-    here."""
+    product or sum enters; the products are summed by :func:`tree_sum`,
+    so a row's bits do not depend on the batch, the G or the KV heads
+    beside it (the engine's parity with its batch-1 reference).  Plain
+    PyTorch: the reference has no kernel here."""
     hd = q.shape[-1]
     smax = ck.shape[1]
-    qf = q.to(torch.bfloat16).float()
-    kf = ck.to(torch.bfloat16).float().permute(0, 2, 3, 1)   # (B, KV, hd, S)
-    scores = torch.matmul(qf, kf) * hd ** -0.5               # (B, KV, G, S)
+    qf = q.to(torch.bfloat16).float()[:, :, :, None, :]     # (B, KV, G, 1, hd)
+    kf = ck.to(torch.bfloat16).float().permute(0, 2, 1, 3)  # (B, KV, S, hd)
+    scores = tree_sum(qf * kf[:, :, None]) * hd ** -0.5     # (B, KV, G, S)
     valid = (torch.arange(smax, device=q.device)[None, :]
-             < valid_len.reshape(-1, 1))                     # (B, S)
+             < valid_len.reshape(-1, 1))                    # (B, S)
     scores = torch.where(valid[:, None, None, :], scores, NEG_INF)
     probs = torch.softmax(scores, dim=-1)
-    vf = cv.to(torch.bfloat16).float().permute(0, 2, 1, 3)   # (B, KV, S, hd)
-    return torch.matmul(probs.to(torch.bfloat16).float(), vf)
+    pf = probs.to(torch.bfloat16).float()[:, :, :, None, :]  # (B, KV, G, 1, S)
+    vf = cv.to(torch.bfloat16).float().permute(0, 2, 3, 1)   # (B, KV, hd, S)
+    return tree_sum(pf * vf[:, :, None])                     # (B, KV, G, hd)
 
 
 def attention(p: dict, x: Tensor, cfg: AttnConfig, *,

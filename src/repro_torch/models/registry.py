@@ -2,6 +2,7 @@
 
 Uniform API per family, as in ``repro/models/registry.py``:
     init(gen, cfg, dtype, device) -> params
+    init_quantized(gen, cfg, *, min_size, dtype, device) -> int8 params
     forward(params, tokens, cfg, *, mode, remat) -> logits
     init_cache(cfg, batch, s_max, device) -> cache
     init_paged_cache(cfg, num_slots, s_max, block_size, num_blocks,
@@ -36,6 +37,15 @@ def init(gen: torch.Generator, cfg: ArchConfig, dtype=torch.float32,
     return module_for(cfg).init(gen, cfg, dtype, device)
 
 
+def init_quantized(gen: torch.Generator, cfg: ArchConfig, *,
+                   min_size: int = 2048, dtype=torch.float32, device=None):
+    """``quantize_tree(init(gen, cfg, dtype, device), min_size=min_size)``
+    bit for bit, quantizing each layer and table as it is drawn: peak
+    memory is the int8 tree plus one f32 layer or table."""
+    return module_for(cfg).init_quantized(gen, cfg, min_size=min_size,
+                                          dtype=dtype, device=device)
+
+
 def apply_forward(params, cfg: ArchConfig, batch: dict, *,
                   mode: QuantMode = FP, remat: bool = True):
     """batch: dict from ``cfg.input_specs`` (tokens only: the ported
@@ -58,9 +68,9 @@ def apply_decode(params, cfg: ArchConfig, batch: dict, cache, *,
 
 def supports_paging(cfg: ArchConfig) -> bool:
     """True when the family can serve from a paged (block-table) KV
-    cache: it must have a growing positional KV frontier and full
-    attention (a sliding window's ring overwrite has no stable position
-    -> block mapping)."""
+    cache, int8 or bf16: it must have a growing positional KV frontier
+    and full attention (a sliding window's ring overwrite has no stable
+    position -> block mapping)."""
     return (cfg.window is None
             and hasattr(module_for(cfg), "init_paged_cache"))
 

@@ -1,9 +1,10 @@
-"""Dense decoder-only LM (starcoder2): the full-sequence forward and the
-decode step.
+"""Dense decoder-only LM (starcoder2, mistral-nemo, internlm2, qwen1.5):
+the full-sequence forward and the decode step.
 
-Structure: embedding -> a loop over decoder layers -> final norm -> (tied)
-unembed.  One decoder layer = norm -> GQA attention -> residual -> norm ->
-MLP -> residual.  Quantization mode threads through every matmul.
+Structure: embedding -> a loop over decoder layers -> final norm -> (tied
+or untied) unembed.  One decoder layer = norm (LayerNorm or RMSNorm) ->
+GQA attention -> residual -> norm -> MLP (plain or gated) -> residual.
+Quantization mode threads through every matmul.
 
 Layout differences from ``repro/models/transformer.py``, where PyTorch
 idiom asks for them:
@@ -29,6 +30,7 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.qlinear import FP, QuantMode
+from repro_torch.core.quant import quantize_tree
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
 
@@ -100,6 +102,14 @@ def init_layer(gen, cfg: ArchConfig, dtype, device) -> dict:
     }
 
 
+def _table(gen, cfg: ArchConfig, dtype, device) -> dict:
+    """A (V, D) embedding table, N(0, 1/D)."""
+    t = torch.empty((cfg.vocab, cfg.d_model), dtype=torch.float32,
+                    device=device)
+    t.normal_(generator=gen)
+    return {"table": t.mul_(cfg.d_model ** -0.5).to(dtype)}
+
+
 def init(gen: torch.Generator, cfg: ArchConfig, dtype=torch.float32,
          device=None) -> dict:
     """Random params from ``gen`` (its device must be ``device``'s type).
@@ -107,19 +117,48 @@ def init(gen: torch.Generator, cfg: ArchConfig, dtype=torch.float32,
     that compare with the reference copy its params over instead
     (``models/bridge.py``)."""
     device = resolve_device(device)
-
-    def table():
-        t = torch.empty((cfg.vocab, cfg.d_model), dtype=torch.float32,
-                        device=device)
-        t.normal_(generator=gen)
-        return {"table": (t * cfg.d_model ** -0.5).to(dtype)}
-
-    params = {"embed": table(),
+    params = {"embed": _table(gen, cfg, dtype, device),
               "layers": [init_layer(gen, cfg, dtype, device)
                          for _ in range(cfg.n_layers)],
               "ln_f": _norm(cfg, dtype, device)}
     if not cfg.tie_embeddings:
-        params["unembed"] = table()
+        params["unembed"] = _table(gen, cfg, dtype, device)
+    return params
+
+
+# rows of a table quantized at a time by init_quantized (f32 temporaries
+# of 8,192 x d_model, 0.2 GB at d = 6,144)
+TABLE_ROW_CHUNK = 8192
+
+
+def init_quantized(gen: torch.Generator, cfg: ArchConfig, *,
+                   min_size: int = 2048, dtype=torch.float32,
+                   device=None) -> dict:
+    """``quantize_tree(init(gen, cfg, dtype, device), min_size=min_size)``,
+    bit for bit, without the whole f32 tree: the draws come in ``init``'s
+    order (the embedding table, layers 0 to L-1, ``ln_f``, the unembedding
+    table) and each layer's subtree and each table is quantized as soon
+    as it is drawn, under the path it has in the whole tree
+    (``layers.{i}.attn.wq.w``, ``embed.table``), so the same leaves are
+    quantized.  Peak memory is the int8 tree plus one f32 layer or one f32
+    table (quantized TABLE_ROW_CHUNK rows at a time): full-width
+    qwen1.5-32b's 35 GB of int8 weights come from a tree of 141 GB in
+    f32."""
+    device = resolve_device(device)
+
+    def quantized(tree, prefix):
+        return quantize_tree(tree, min_size=min_size, prefix=prefix,
+                             row_chunk=TABLE_ROW_CHUNK)
+
+    params = {"embed": quantized(_table(gen, cfg, dtype, device), "embed"),
+              "layers": []}
+    for i in range(cfg.n_layers):
+        params["layers"].append(
+            quantized(init_layer(gen, cfg, dtype, device), f"layers.{i}"))
+    params["ln_f"] = _norm(cfg, dtype, device)      # 1-D: never quantized
+    if not cfg.tie_embeddings:
+        params["unembed"] = quantized(_table(gen, cfg, dtype, device),
+                                      "unembed")
     return params
 
 
@@ -180,12 +219,12 @@ def init_cache(cfg: ArchConfig, batch: int, s_max: int,
 
 def init_paged_cache(cfg: ArchConfig, num_slots: int, s_max: int,
                      block_size: int, num_blocks: int, device=None) -> dict:
-    """Paged int8 KV cache: physical blocks (L, NB, bs, KV, hd) with f32
-    scales (L, NB, bs, KV, 1), plus a per-slot block table
-    (num_slots, s_max // bs) int32.  Block 0 is the reserved trash block
-    every unallocated entry points at.  Only full attention pages (a
-    window's ring overwrite has no stable position to map through a
-    table)."""
+    """Paged KV cache: physical blocks (L, NB, bs, KV, hd), with
+    ``cfg.kv_quant`` int8 with f32 scales (L, NB, bs, KV, 1), else bf16 k
+    and v, plus a per-slot block table (num_slots, s_max // bs) int32.
+    Block 0 is the reserved trash block every unallocated entry points
+    at.  Only full attention pages (a window's ring overwrite has no
+    stable position to map through a table)."""
     if cfg.window:
         raise ValueError("paged KV cache requires full attention "
                          f"(window=None), got window={cfg.window}")
@@ -193,21 +232,22 @@ def init_paged_cache(cfg: ArchConfig, num_slots: int, s_max: int,
         raise ValueError(f"s_max={s_max} must tile into whole blocks of "
                          f"{block_size}")
     _check_supported(cfg)
-    if not cfg.kv_quant:
-        raise NotImplementedError(
-            "the paged bf16 KV cache is not ported yet (ROADMAP queue 1, "
-            "item 17); the port pages the int8 cache (kv_quant=True)")
     device = resolve_device(device)
     shape = (cfg.n_layers, num_blocks, block_size, cfg.n_kv_heads,
              cfg.head_dim)
+    tables = torch.zeros((num_slots, s_max // block_size), dtype=torch.int32,
+                         device=device)
+    if not cfg.kv_quant:
+        return {"k": torch.zeros(shape, dtype=torch.bfloat16, device=device),
+                "v": torch.zeros(shape, dtype=torch.bfloat16, device=device),
+                "block_tables": tables}
     return {"k": torch.zeros(shape, dtype=torch.int8, device=device),
             "v": torch.zeros(shape, dtype=torch.int8, device=device),
             "k_scale": torch.zeros(shape[:-1] + (1,), dtype=torch.float32,
                                    device=device),
             "v_scale": torch.zeros(shape[:-1] + (1,), dtype=torch.float32,
                                    device=device),
-            "block_tables": torch.zeros((num_slots, s_max // block_size),
-                                        dtype=torch.int32, device=device)}
+            "block_tables": tables}
 
 
 def paged_block_axes(cache: dict) -> dict:

@@ -48,7 +48,8 @@ SID, START = 1, 6              # the chunk's slot and frontier
 TABLES = [[1, 2, 3, 4], [1, 5, 6, 7], [8, 9, 10, 11]]
 NUM_BLOCKS = 12
 # name -> (paged, kv_quant)
-CACHES = {"int8": (False, True), "paged": (True, True), "bf16": (False, False)}
+CACHES = {"int8": (False, True), "paged": (True, True), "bf16": (False, False),
+          "paged_bf16": (True, False)}
 
 
 @pytest.fixture(autouse=True)

@@ -1,6 +1,8 @@
 """The port on the card: each CUDA kernel against its plain version (both
-of qmatmul_w8a16's paths and both of qmatmul_w8a8's), the engine,
-contiguous and paged, int8 and bf16 cache, bit-for-bit against its
+of qmatmul_w8a16's paths and both of qmatmul_w8a8's; the decode attention
+kernels at G = 1, 4, 6 and 12, the silu drain at the dense configs' MLP
+shapes), the engine, contiguous and paged, int8 and bf16 cache (the
+other dense configs too), bit-for-bit against its
 sequential reference, the serve launcher's forward through its kernels,
 which path each caller takes, rmsnorm's row invariance, and the slot
 tick, the decode loop and the chunk step captured as CUDA graphs
@@ -30,7 +32,7 @@ import torch
 from repro_torch import engine as E
 from repro_torch.configs import get_config
 from repro_torch.core.qlinear import W8A8, W8A16
-from repro_torch.core.quant import quantize_tree, quantize_weight
+from repro_torch.core.quant import QTensor, quantize_tree, quantize_weight
 from repro_torch.kernels import decode_attention as A
 from repro_torch.kernels import counts
 from repro_torch.kernels import flash_attention as FA
@@ -160,6 +162,36 @@ def test_qmatmul_w8a16_mma_rows_are_batch_invariant(cuda):
                 assert torch.equal(part, full[i:i + 17]), (m, i)
 
 
+# the other dense configs' gated MLP at full width: w_gate + silu of
+# internlm2-20b, mistral-nemo-12b and qwen1.5-32b, and qwen1.5-32b's w_down
+# (K = 27,392, split in four by the GEMV's plan)
+DENSE_KN = ((6144, 16384, "silu"), (5120, 14336, "silu"),
+            (5120, 27392, "silu"), (27392, 5120, "none"))
+
+
+@pytest.mark.parametrize("k,n,act", DENSE_KN)
+def test_qmatmul_w8a16_dense_mlp_shapes_match_plain(cuda, k, n, act):
+    """Both paths at the dense configs' MLP shapes, M = 1 and 8 (a tick)
+    and 32 (a forward), bf16 out, against the plain version; the GEMV's
+    rows of an M = 8 launch equal the rows launched alone."""
+    g = torch.Generator(device=cuda).manual_seed(k + n)
+    q = quantize_weight(torch.randn((k, n), generator=g, device=cuda)
+                        * k ** -0.5)
+    w, s = q.values, q.scale.reshape(-1).contiguous()
+    for m in (1, 8, 32):
+        x = torch.randn((m, k), generator=g, device=cuda).to(torch.bfloat16)
+        want = K.qmatmul_w8a16_ref(x, w, s, activation=act)
+        for path in K.W8A16_PATHS:
+            got = K.qmatmul_w8a16_on_path(path, x, w, s, activation=act)
+            assert _close(got, want, torch.bfloat16), (m, path)
+        if m == 8:
+            full = K.qmatmul_w8a16(x, w, s, activation=act)
+            for i in range(m):
+                one = K.qmatmul_w8a16(x[i:i + 1].contiguous(), w, s,
+                                      activation=act)
+                assert torch.equal(one[0], full[i]), i
+
+
 def test_qmatmul_w8a16_mma_refuses_f32_x(cuda):
     x = torch.zeros((4, 16), device=cuda)
     w = torch.zeros((16, 8), dtype=torch.int8, device=cuda)
@@ -207,7 +239,7 @@ def test_rmsnorm_rows_are_batch_invariant_on_card(cuda, dtype):
 
 
 @pytest.mark.parametrize("append", [False, True])
-@pytest.mark.parametrize("g_heads", [1, 12])
+@pytest.mark.parametrize("g_heads", [1, 4, 6, 12])
 def test_decode_attention_kernel_matches_plain(cuda, g_heads, append):
     """Ragged valid_len including 0 and a full row, more than one slot
     tile (S=300), with and without the append column."""
@@ -282,7 +314,7 @@ def _paged_case(cuda, g, seed, b=4, bs=16, mb=20, kvh=2, hd=128):
 
 
 @pytest.mark.parametrize("append", [False, True])
-@pytest.mark.parametrize("g_heads", [1, 12])
+@pytest.mark.parametrize("g_heads", [1, 4, 6, 12])
 def test_paged_kernel_matches_plain(cuda, g_heads, append):
     """The paged kernel against its plain version: the same f32 online
     softmax against a dense one, as for the contiguous kernel (1e-4
@@ -671,6 +703,97 @@ def test_bf16_engine_on_card_equals_reference(cuda):
     rep = eng.serve(reqs)
     assert rep.outputs() == E.reference_outputs(
         cfg, params, reqs, mode=W8A16, max_seq=eng.max_seq)
+
+
+@pytest.mark.parametrize("kvh,g", [(40, 1), (8, 4), (8, 6), (2, 12)])
+def test_bf16_cache_attention_rows_are_batch_invariant_on_card(cuda, kvh, g):
+    """The bf16 cache's attention (plain PyTorch, summed by
+    ``layers.tree_sum``) at the dense configs' head groupings: each row of
+    an 8-row call equals the row computed alone, bit for bit."""
+    gen = torch.Generator(device=cuda).manual_seed(kvh + g)
+    b, s, hd = 8, 48, 128
+    q = torch.randn((b, kvh, g, hd), generator=gen, device=cuda)
+    ck = torch.randn((b, s, kvh, hd), generator=gen,
+                     device=cuda).to(torch.bfloat16)
+    cv = torch.randn((b, s, kvh, hd), generator=gen,
+                     device=cuda).to(torch.bfloat16)
+    vl = torch.tensor([1, 5, 17, 48, 30, 2, 47, 16], dtype=torch.int32,
+                      device=cuda)
+    full = L.bf16_cache_attention(q, ck, cv, vl)
+    for r in range(b):
+        one = L.bf16_cache_attention(q[r:r + 1], ck[r:r + 1], cv[r:r + 1],
+                                     vl[r:r + 1])
+        assert torch.equal(one[0], full[r]), r
+
+
+# the other dense configs at reduced size with their own head grouping
+# (tests/test_torch_dense_family.py holds them against the JAX package)
+DENSE_QUIRKS = {
+    "internlm2-20b": dict(d_model=384, n_heads=12, n_kv_heads=2),
+    "mistral-nemo-12b": dict(d_model=320, n_heads=8, n_kv_heads=2),
+    "qwen1.5-32b": dict(d_model=512, n_heads=16, n_kv_heads=16),
+}
+
+
+@pytest.mark.parametrize("arch", ["starcoder2-3b"] + list(DENSE_QUIRKS))
+def test_streamed_init_equals_quantize_tree_on_card(cuda, arch):
+    """On the card too, ``registry.init_quantized`` gives the bits of
+    ``quantize_tree(init(...), min_size=2048)`` from the same seed, its
+    tables quantized a chunk of rows at a time."""
+    cfg = get_config(arch).reduced()
+    whole = quantize_tree(R.init(torch.Generator(device=cuda).manual_seed(5),
+                                 cfg, device=cuda), min_size=2048)
+    old = R.module_for(cfg).TABLE_ROW_CHUNK
+    R.module_for(cfg).TABLE_ROW_CHUNK = 100
+    try:
+        streamed = R.init_quantized(
+            torch.Generator(device=cuda).manual_seed(5), cfg, device=cuda)
+    finally:
+        R.module_for(cfg).TABLE_ROW_CHUNK = old
+    flat = []
+
+    def leaves(a, b):
+        if isinstance(a, dict):
+            assert a.keys() == b.keys()
+            for k in a:
+                leaves(a[k], b[k])
+        elif isinstance(a, list):
+            assert len(a) == len(b)
+            for x, y in zip(a, b):
+                leaves(x, y)
+        else:
+            flat.append((a, b))
+
+    leaves(whole, streamed)
+    for a, b in flat:
+        assert type(a) is type(b)
+        pairs = ([(a.values, b.values), (a.scale, b.scale)]
+                 if isinstance(a, QTensor) else [(a, b)])
+        for x, y in pairs:
+            assert x.dtype == y.dtype and torch.equal(x, y)
+
+
+@pytest.mark.parametrize("arch", list(DENSE_QUIRKS))
+def test_dense_bf16_engines_on_card_equal_reference(cuda, arch):
+    """A reduced dense config on the bf16 cache on the card, weights from
+    the streamed init: 12 requests through 4 slots with chunked prefill,
+    contiguous and paged (blocks of 4, a shared prefix block, a pool below
+    the worst case), every token equal to the sequential batch-1
+    reference, no block leaked."""
+    cfg = dataclasses.replace(get_config(arch).reduced(),
+                              **DENSE_QUIRKS[arch])
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    params = R.init_quantized(gen, cfg, device=cuda)
+    reqs = E.synthetic_requests(12, rate_per_s=2000.0, vocab=cfg.vocab,
+                                prompt_len=6, max_new_tokens=5,
+                                shared_prefix_len=4)
+    kw = dict(mode=W8A16, num_slots=4, max_seq=16, prefill_chunk=4)
+    want = E.reference_outputs(cfg, params, reqs, mode=W8A16, max_seq=16)
+    assert E.Engine(cfg, params, **kw).serve(reqs).outputs() == want
+    rep = E.Engine(cfg, params, block_size=4, num_blocks=10,
+                   **kw).serve(reqs)
+    assert rep.outputs() == want
+    assert rep.leaked_blocks == 0 and rep.shared_block_hits > 0
 
 
 @pytest.mark.parametrize("batch", [1, 2])

@@ -403,10 +403,64 @@ def test_engine_warmup_leaves_serving_unchanged(setup):
     assert eng.serve(reqs).outputs() == before
 
 
-def test_paged_bf16_cache_names_its_roadmap_item(setup):
+def test_paged_bf16_decode_step_equals_contiguous_bitwise(setup):
+    """The paged bf16 cache: the same tokens decoded into shuffled physical
+    blocks and into contiguous rows, one token a step and then causal
+    passes of three (as the chunk step runs), give bit-identical logits,
+    and the rows gathered through the tables equal the contiguous rows
+    byte for byte up to each frontier."""
     _, cfg, params = setup
-    with pytest.raises(NotImplementedError, match="item 17"):
-        E.Engine(cfg, params["w8a16"][1], mode=W8A16, num_slots=2,
-                 max_seq=16, block_size=8, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 17"):
-        R.init_paged_cache(cfg, 2, 16, 8, 5, device="cpu")
+    tp = params["w8a16"][1]
+    b, smax, bs = 3, 16, 4
+    nb = b * (smax // bs) + 2
+    tables = np.random.default_rng(2).permutation(np.arange(1, nb))[
+        :b * (smax // bs)].reshape(b, smax // bs).astype(np.int32)
+    paged = R.init_paged_cache(cfg, b, smax, bs, nb, device="cpu")
+    assert set(paged) == {"k", "v", "block_tables"}
+    assert paged["k"].dtype == torch.bfloat16
+    assert paged["k"].shape == (cfg.n_layers, nb, bs, cfg.n_kv_heads,
+                                cfg.head_dim)
+    paged["block_tables"].copy_(torch.from_numpy(tables))
+    contig = R.init_cache(cfg, b, smax, device="cpu")
+    rng = np.random.default_rng(3)
+    pos = torch.tensor([0, 5, 2], dtype=torch.int32)
+    for s in (1, 1, 3, 1, 3):
+        toks = torch.from_numpy(_tokens(int(rng.integers(1 << 30)), b, s,
+                                        cfg.vocab))
+        lp, _ = R.apply_decode(tp, cfg, {"tokens": toks, "cache_index": pos},
+                               paged, mode=W8A16, causal=True)
+        lc, _ = R.apply_decode(tp, cfg, {"tokens": toks, "cache_index": pos},
+                               contig, mode=W8A16, causal=True)
+        assert torch.equal(lp, lc)
+        pos = pos + s
+    for key in ("k", "v"):
+        for layer in range(cfg.n_layers):
+            got = paged[key][layer][torch.from_numpy(tables).long()].reshape(
+                b, smax, cfg.n_kv_heads, cfg.head_dim)
+            for r in range(b):
+                n = int(pos[r])
+                assert torch.equal(got[r, :n], contig[key][layer][r, :n])
+
+
+def test_paged_bf16_engine_equals_contiguous_bitwise(setup):
+    """The engine on the paged bf16 cache — 24 requests sharing a prompt
+    block, through 4 slots and a pool below the worst case — gives every
+    request the tokens of the contiguous bf16 engine and of the sequential
+    reference, bit for bit; it shares prefix blocks, leaks none, and
+    counts the bf16 leaves in its resident bytes."""
+    _, cfg, params = setup
+    tp = params["w8a16"][1]
+    reqs = E.synthetic_requests(24, rate_per_s=2000.0, vocab=cfg.vocab,
+                                prompt_len=PROMPT, max_new_tokens=GEN,
+                                shared_prefix_len=4)
+    kw = dict(mode=W8A16, num_slots=4, max_seq=PROMPT + GEN,
+              prefill_chunk=4, device="cpu")
+    contig = E.Engine(cfg, tp, **kw).serve(reqs)
+    eng = E.Engine(cfg, tp, block_size=4, num_blocks=9, **kw)
+    rep = eng.serve(reqs)
+    assert rep.outputs() == contig.outputs() == E.reference_outputs(
+        cfg, tp, reqs, mode=W8A16, max_seq=eng.max_seq, device="cpu")
+    assert rep.shared_block_hits > 0 and rep.leaked_blocks == 0
+    assert rep.peak_blocks_used <= 8
+    assert rep.kv_hbm_bytes == 2 * cfg.n_layers * 9 * 4 * cfg.n_kv_heads \
+        * cfg.head_dim * 2 + 4 * (eng.max_seq // 4) * 4

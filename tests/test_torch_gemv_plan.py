@@ -4,12 +4,12 @@ on the CPU.
 The GEMV cuts K into ranges, one per block of a column strip, and adds
 their partial sums in range order in the same launch.  The plan is
 computed by the wrapper and passed to the kernel; what the kernel relies
-on is checked here, for every (K, N) of full-width starcoder2-3b and one
-ragged shape: the plan depends on (K, N) alone, never on M (a row's bits
-must not depend on the batch); its ranges are G-aligned, in order, and
-cover [0, K) exactly once; and an 8-row decode tick puts at least one
-block on each of the card's 132 SMs, or all of N's strips where those
-alone are more.
+on is checked here, for every (K, N) of the four full-width dense
+configs and one ragged shape: the plan depends on (K, N) alone, never on
+M (a row's bits must not depend on the batch); its ranges are G-aligned,
+in order, and cover [0, K) exactly once; and an 8-row decode tick puts
+at least one block on each of the card's 132 SMs, or all of N's strips
+where those alone are more.
 """
 import pytest
 
@@ -19,16 +19,23 @@ from repro_torch.kernels import qmatmul as K
 SMS = 132
 
 
-def _projections():
-    """(name, K, N) of each W8A16 matmul of full-width starcoder2-3b."""
-    c = get_config("starcoder2-3b")
+def _projections(arch):
+    """(name, K, N) of each W8A16 matmul of a full-width dense config
+    (w_gate has w_up's shape, and the untied head the tied one's)."""
+    c = get_config(arch)
     d, qd, kvd = c.d_model, c.n_heads * c.head_dim, c.n_kv_heads * c.head_dim
     return [("wq", d, qd), ("wk|wv", d, kvd), ("wo", qd, d),
             ("w_up", d, c.d_ff), ("w_down", c.d_ff, d),
-            ("lm_head", d, c.vocab), ("ragged", 3088, 260)]
+            ("lm_head", d, c.vocab)]
 
 
-SHAPES = _projections()
+# starcoder2-3b, one ragged shape, then the other dense configs: K =
+# 27,392, 16,384, 14,336 (w_down), 6,144, 5,120 and 4,096 (mistral-nemo's
+# wo), N up to 152,064 (qwen1.5-32b's head)
+DENSE = ("internlm2-20b", "mistral-nemo-12b", "qwen1.5-32b")
+SHAPES = _projections("starcoder2-3b") + [("ragged", 3088, 260)] + [
+    (f"{arch}:{name}", k, n) for arch in DENSE
+    for name, k, n in _projections(arch)]
 
 
 @pytest.mark.parametrize("name,k,n", SHAPES, ids=[s[0] for s in SHAPES])
@@ -58,7 +65,7 @@ def test_split_plan(name, k, n):
     blocks = plan.strips * plan.splits      # one row slab at M = 8
     if plan.strips < SMS:
         assert blocks >= SMS
-    if name == "lm_head":          # its strips alone fill the card 5.8 times
+    if name.endswith("lm_head"):   # its strips alone fill the card 5.8+ times
         assert plan.splits == 1
 
 

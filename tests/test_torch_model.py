@@ -192,8 +192,7 @@ def test_decode_rows_match_batch_one_bitwise(setup):
 def test_unported_paths_name_their_roadmap_item(setup):
     _, tcfg, _, _, _ = setup
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        R.init_paged_cache(dataclasses.replace(tcfg, kv_quant=False), 1, 8,
-                           4, 3, device="cpu")
+        R.init_cache(dataclasses.replace(tcfg, window=8), 1, 8, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         R.module_for(dataclasses.replace(tcfg, family="moe"))
     with pytest.raises(NotImplementedError, match="ROADMAP"):

@@ -2,7 +2,8 @@
 CPU at reduced size: the reference CLI's single-model path end to end —
 quantize, the service curve through ``forward``, the Table 4 batch choice,
 the decode loop, and the engine under the wall clock or the ``--sim``
-simulator, the overload flags — and its refusals."""
+simulator, the overload flags, the paged bf16 cache (--block-size,
+--num-blocks, --shared-prefix-len) — and its refusals."""
 import pytest
 import torch
 
@@ -63,8 +64,7 @@ def test_serve_unattainable_deadline_returns_one(capsys):
 
 
 UNPORTED = [("--models", "starcoder2-3b,starcoder2-3b"),
-            ("--model-quota", "starcoder2-3b=2"), ("--block-size", "8"),
-            ("--num-blocks", "9"), ("--shared-prefix-len", "2"),
+            ("--model-quota", "starcoder2-3b=2"),
             ("--temperature", "0.7"), ("--arrival", "mmpp"),
             ("--spec-k", "2"), ("--draft", "starcoder2-3b"),
             ("--draft-layers", "1"), ("--replicas", "2"), ("--tp", "2")]
@@ -82,6 +82,88 @@ def test_unported_flag_returns_one(flag, value, capsys):
     out = capsys.readouterr().out
     assert f"{flag}: not ported yet (ROADMAP queue 1, item" in out
     assert "[quant]" not in out                # refused before any work
+
+
+def _served_as_reference(res):
+    """Every request of a run ok, with the sequential batch-1 reference's
+    tokens (bf16 cache): returns the run's outputs."""
+    from repro_torch import engine as E
+    assert res.code == 0
+    rep = res.report
+    assert all(r.status == "ok" for r in rep.results)
+    assert sorted(r.rid for r in rep.results) == sorted(
+        r.rid for r in res.requests)
+    assert rep.outputs() == E.reference_outputs(
+        res.cfg, res.params, res.requests, mode=res.mode,
+        max_seq=res.engine.max_seq, device="cpu")
+    return rep.outputs()
+
+
+@pytest.fixture(scope="module")
+def contiguous_run():
+    """BASE with 8 requests sharing their first 4 prompt tokens, served
+    from contiguous rows: what the paged runs are held to."""
+    return serve.run(serve.parse_args(
+        BASE + ["--n-requests", "8", "--shared-prefix-len", "4"]))
+
+
+def test_serve_block_size_pages_the_bf16_cache(contiguous_run, capsys):
+    """--block-size 4: the engine serves from the paged bf16 cache (every
+    slot's full row in the default pool), with the reference's tokens and
+    the contiguous run's, and prints its paged KV line."""
+    res = serve.run(serve.parse_args(
+        BASE + ["--n-requests", "8", "--shared-prefix-len", "4",
+                "--block-size", "4"]))
+    out = capsys.readouterr().out
+    assert "[engine] paged KV:" in out and "0 leaked blocks" in out
+    eng, rep = res.engine, res.report
+    assert eng.block_size == 4 and rep.block_size == 4
+    assert eng.num_blocks == eng.num_slots * eng.max_seq // 4 + 1
+    assert res.engine._cache["k"].dtype == torch.bfloat16
+    assert rep.leaked_blocks == 0
+    assert _served_as_reference(res) == _served_as_reference(contiguous_run)
+
+
+def test_serve_num_blocks_below_the_worst_case(contiguous_run):
+    """--num-blocks 7 with blocks of 4: 6 usable blocks, against 4 slots x
+    3 blocks a row, so admission waits for blocks; every request still
+    gets the reference's tokens and the contiguous run's, and no block
+    leaks."""
+    res = serve.run(serve.parse_args(
+        BASE + ["--n-requests", "8", "--shared-prefix-len", "4",
+                "--block-size", "4", "--num-blocks", "7"]))
+    rep = res.report
+    assert rep.num_blocks == 7 and rep.peak_blocks_used <= 6
+    assert rep.leaked_blocks == 0
+    assert _served_as_reference(res) == _served_as_reference(contiguous_run)
+
+
+def test_serve_shared_prefix_len_on_a_dense_arch(capsys):
+    """--shared-prefix-len 4 on reduced qwen1.5-32b (RMSNorm, the gated
+    SiLU MLP, an untied head, qkv bias), paged with blocks of 4: every
+    request's prompt opens with the same 4 tokens, and the paged run's
+    tokens equal the reference's and the contiguous run's of the same
+    trace."""
+    args = ["--arch", "qwen1.5-32b"] + BASE[2:] + [
+        "--n-requests", "8", "--shared-prefix-len", "4"]
+    contig = serve.run(serve.parse_args(args))
+    paged = serve.run(serve.parse_args(args + ["--block-size", "4",
+                                               "--num-blocks", "9"]))
+    assert "[quant] qwen1.5-32b weights" in capsys.readouterr().out
+    assert len({r.prompt[:4] for r in paged.requests}) == 1
+    assert len({r.prompt for r in paged.requests}) == 8
+    assert paged.report.leaked_blocks == 0
+    assert _served_as_reference(paged) == _served_as_reference(contig)
+
+
+@pytest.mark.parametrize("flags,message", [
+    (["--shared-prefix-len", "6"], "--shared-prefix-len must be in"),
+    (["--block-size", "3"], "config rejected: block_size must be a power"),
+    (["--num-blocks", "9"], "config rejected: num_blocks needs block_size"),
+])
+def test_serve_paging_flags_refuse_bad_values(flags, message, capsys):
+    assert serve.main(BASE + flags) == 1
+    assert message in capsys.readouterr().out
 
 
 OVERLOAD = ["--interactive-frac", "0.5", "--batch-quota", "1",
