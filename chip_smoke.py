@@ -75,21 +75,43 @@ Phases, each of which fails the run (non-zero exit, no result line):
    capture holds: the 8-row tick, captured first, replays equal to the
    eager tick after the 16-row captures grew the capture stream's
    workspace, with every arrival counter back at 0;
-7. serve: the serve launcher (``repro_torch.launch.serve.run``) at full
+7. sampling: the port's threefry PRNG on the card against its CPU
+   results (keys of PRNGKey(0) and PRNGKey(7) and ``fold_in`` over
+   positions 0 .. 4,095 bitwise; random bits and uniform draws bitwise,
+   Gumbel noise within 4 ulps, at V = 49,152, 131,072 and 152,064), each
+   row of ``temperature_sample_rows`` bitwise alone and in an 8-row
+   batch, and the sampler's time eager and captured; full-width
+   starcoder2-3b sampled at t = 0.8 with ``PRNGKey(1)``: the slice's
+   trace served contiguous (equal to the sampled ``reference_outputs``
+   for 8 requests) and paged, and the same requests in two classes at
+   100/s served paged under block pressure with preemption (at least one
+   eviction, no leak), each equal to the contiguous serve token for token
+   (warmed up, counted, no capture inside); the captured sampled tick
+   bitwise the eager one and timed against the captured greedy tick,
+   with the sampler's share of its device time; the captured sampled
+   decode loop bitwise the eager one, with tok/s; then mistral-nemo-12b
+   at full width (vocabulary 131,072, bf16 cache), one contiguous sampled
+   serve equal to its sampled reference, freed after;
+8. serve: the serve launcher (``repro_torch.launch.serve.run``) at full
    starcoder2-3b width with the bf16 KV cache, once with ``--quant w8a16``
    and once with ``--quant w8a8``: the service curve through the
-   full-sequence forward (flash attention; under w8a16 every
-   qmatmul_w8a16 launch of it on the mma path, counted around the curve
-   alone), the Table 4 batch choice, the decode loop and a wall-clock
-   ``Engine.serve`` (no mma launch in either; the loop and the engine's
-   tick and chunks captured as CUDA graphs), counters zeroed just
-   before each run and read just after, then where one 16 x 32-token
-   prefill spends its time; the w8a16 run's first three requests are
-   compared with ``reference_outputs`` (bf16 cache) on the card; then one
-   more w8a16 run with the overload flags (``--interactive-frac 0.5
-   --batch-quota 4 --preemption --fault-seed 3 --n-faults 4``), which
-   must exit 0 and print its retirement and faults lines;
-8. dense: the other three dense configs at full width, one at a time
+   full-sequence forward captured as a CUDA graph per batch (flash
+   attention; under w8a16 every qmatmul_w8a16 launch of it on the mma
+   path, counted around the curve alone), the Table 4 batch choice, the
+   decode loop and a wall-clock ``Engine.serve`` (no mma launch in
+   either; the loop and the engine's tick and chunks captured as CUDA
+   graphs), counters zeroed just before each run and read just after,
+   then where one 16 x 32-token prefill spends its time, and the curve's
+   forward eager against captured at each batch (logits bitwise; wall
+   and device busy of each; the eager curve's Table 4 choice beside the
+   run's); the w8a16 run's first three requests are compared with
+   ``reference_outputs`` (bf16 cache) on the card; then one more w8a16
+   run with the overload flags (``--interactive-frac 0.5 --batch-quota 4
+   --preemption --fault-seed 3 --n-faults 4``), which must exit 0 and
+   print its retirement and faults lines, and one with ``--temperature
+   0.8``, which must exit 0 with every request equal to the sampled
+   ``reference_outputs`` under ``PRNGKey(seed + 1)``;
+9. dense: the other three dense configs at full width, one at a time
    (mistral-nemo-12b, internlm2-20b, qwen1.5-32b; each freed before the
    next), W8A16 weights from the streamed init
    (``registry.init_quantized``; its peak memory printed, qwen1.5-32b's
@@ -105,7 +127,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
    serve CLI at full mistral-nemo-12b width with ``--block-size 16
    --num-blocks 25 --shared-prefix-len 16`` (24 usable blocks against 48),
    exit 0, its service curve on the mma path and flash attention at
-   H = 32, four of its requests equal to ``reference_outputs``.
+   H = 32 (eager against captured as in phase 8), four of its requests
+   equal to ``reference_outputs``.
 
 The kernel phase holds both of ``qmatmul_w8a16``'s kernels (the GEMV and
 the ``mma.sync`` bf16 tensor-core path) at every projection and the LM
@@ -140,10 +163,11 @@ launches and the LM head's GEMV) and no more ``cudaLaunchKernel`` calls
 than before the redesigns.
 
 ``--only attention`` / ``--only long_tick`` / ``--only w8a8`` / ``--only
-graphs`` / ``--only dense`` run just the two attention kernel phases, the
-long-context ticks, ``qmatmul_w8a8``'s kernel phase and the W8A8 tick,
-the five eager tick breakdowns and the graph phase, or the dense
-family's kernel rows, rmsnorm widths and phase 8, and ``--src DIR``
+graphs`` / ``--only dense`` / ``--only sampling`` run just the two
+attention kernel phases, the long-context ticks, ``qmatmul_w8a8``'s
+kernel phase and the W8A8 tick, the five eager tick breakdowns and the
+graph phase, the dense family's kernel rows, rmsnorm widths and phase 9,
+or phase 7 and the sampled serve CLI run, and ``--src DIR``
 takes the port from
 another checkout's ``src/`` (so the same phases time a parent commit's
 kernels); such a partial run prints no result line.
@@ -1327,7 +1351,8 @@ def step_captures(eng):
     bucket its chunks can take)."""
     from repro_torch.runtime import steps as ST
     be = eng.backend
-    steps = [be.slot_step(eng.cfg, mode=eng.mode, temperature=0.0)]
+    steps = [be.slot_step(eng.cfg, mode=eng.mode,
+                          temperature=eng.temperature)]
     steps += [be.chunk_step(eng.cfg, mode=eng.mode, chunk=c)
               for c in sorted({ST.bucket_batch(n)
                                for n in range(1, eng.prefill_chunk + 1)})]
@@ -1648,6 +1673,8 @@ def serve_phase():
             del res
         torch_cuda_empty()
         serve_run("w8a16", curve_paths, SERVE_OVERLOAD_FLAGS)
+        torch_cuda_empty()
+        sampled_cli_run(curve_paths)
     finally:
         serve.measure_service_curve = real_curve
     compare_with_reference("serve w8a16", w8a16.cfg, w8a16.params,
@@ -1669,6 +1696,7 @@ def counted_curve(real_curve, curve_paths):
         finally:
             for path, n in K.qmatmul_w8a16.launches_by_path.items():
                 curve_paths[path] = n - before[path]
+    curve.__wrapped__ = real_curve
     return curve
 
 
@@ -1730,7 +1758,7 @@ def serve_run(quant, curve_paths, flags=(), base=SERVE_ARGS, label=None):
     if quant == "w8a8" and curve_paths["mma"]:
         raise AssertionError(f"{label}: the W8A8 forward took qmatmul_w8a16's "
                              f"mma path: {curve_paths}")
-    if flags:
+    if "--fault-seed" in flags:
         lines = [ln for ln in out.getvalue().splitlines()
                  if ln.startswith(("[engine] retirement:",
                                    "[engine] faults:"))]
@@ -1755,6 +1783,7 @@ def serve_run(quant, curve_paths, flags=(), base=SERVE_ARGS, label=None):
     launches["curve_mma"] = curve_paths["mma"]
     if not flags:
         forward_breakdown(label, res)
+        curve_check(label, res, serve.parse_args(argv))
     return launches, res
 
 
@@ -1766,11 +1795,12 @@ def torch_cuda_empty() -> None:
     torch.cuda.empty_cache()
 
 
-def device_breakdown(label: str, what: str, fn, reps: int):
+def device_breakdown(label: str, what: str, fn, reps: int,
+                     detail: bool = True):
     """Where one call of ``fn`` spends its time: host wall clock per call
     (each ending in a wait for the card) over ``reps`` calls, then the
     device's busy time, its largest kernels and the host's largest ops
-    from torch.profiler over ``reps`` more.  Returns, per call, ``wall``
+    (``detail``) from torch.profiler over ``reps`` more.  Returns, per call, ``wall``
     ms, ``busy`` ms (None where the profiler reported no device time),
     ``launch_calls`` (cudaLaunchKernel), ``graph_launches``
     (cudaGraphLaunch) and ``by_kernel`` ({kernel: device ms})."""
@@ -1810,6 +1840,11 @@ def device_breakdown(label: str, what: str, fn, reps: int):
     print(f"{label}: {what} wall {wall_ms:.2f} ms, device busy "
           f"{busy_ms:.3f} ms ({100 * busy_ms / wall_ms:.1f}%), idle "
           f"{100 * (1 - busy_ms / wall_ms):.1f}%")
+    out["busy"] = busy_ms
+    out["by_kernel"] = {e.key: e.self_device_time_total / 1e3 / reps
+                        for e in events}
+    if not detail:
+        return out
     for us, key in sorted(((e.self_device_time_total, e.key)
                            for e in events), reverse=True)[:6]:
         print(f"  device time per call {us / 1e3 / reps:.3f} ms: "
@@ -1820,9 +1855,6 @@ def device_breakdown(label: str, what: str, fn, reps: int):
                               for e in host), reverse=True)[:8]:
         print(f"  host time per call {us / 1e3 / reps:.3f} ms in "
               f"{n // reps} calls: {key[:60]}")
-    out["busy"] = busy_ms
-    out["by_kernel"] = {e.key: e.self_device_time_total / 1e3 / reps
-                        for e in events}
     return out
 
 
@@ -2375,6 +2407,66 @@ def graph_phase(cfg, params) -> None:
                              "nothing")
 
 
+def curve_check(label: str, res, args) -> None:
+    """The service curve's forward eager against captured
+    (``runtime/steps.py::jit_prefill_step``, what the launcher measured
+    with) at each batch of the run's curve: the captured logits
+    ``torch.equal`` to the eager ones on random tokens, each form's wall
+    and device busy per call (the same method as the tick breakdowns, 3
+    calls each), then the curve and the Table 4 batch the launcher's own
+    measurement gives through the eager step, beside the run's captured
+    curve and choice."""
+    import torch
+    from repro_torch.core import batching as bt
+    from repro_torch.launch import serve
+    from repro_torch.runtime import steps as ST
+
+    eager = ST.make_prefill_step(res.cfg, mode=res.mode)
+    graphed = ST.jit_prefill_step(eager)
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    for b in sorted(res.curve):
+        with torch.inference_mode():
+            batch = {"tokens": torch.randint(
+                0, res.cfg.vocab, (b, args.seq), generator=g,
+                device="cuda", dtype=torch.int32)}
+            want = eager(res.params, batch)
+            got = graphed(res.params, batch)
+            if not torch.equal(got, want):
+                raise AssertionError(f"{label}: the captured forward's "
+                                     f"logits at batch {b} differ from the "
+                                     f"eager forward's")
+            del want
+        what = f"forward of {b} x {args.seq} tokens"
+        e = device_breakdown(f"{label} curve b={b} eager", what,
+                             lambda: eager(res.params, batch), 3, False)
+        c = device_breakdown(f"{label} curve b={b} captured", what,
+                             lambda: graphed(res.params, batch), 3, False)
+        busy = ("not measured" if e["busy"] is None or c["busy"] is None
+                else f"{e['busy']:.3f} / {c['busy']:.3f} ms")
+        print(f"{label} curve b={b}: captured logits bitwise the eager "
+              f"forward's; eager / captured wall {e['wall']:.2f} / "
+              f"{c['wall']:.2f} ms, device busy {busy}, cudaLaunchKernel "
+              f"{e['launch_calls']:.0f} / {c['launch_calls']:.0f}")
+    if graphed.captured.captures != len(res.curve):
+        raise AssertionError(f"{label}: {graphed.captured.captures} "
+                             f"captures for {len(res.curve)} batches")
+    graphed.captured.release()
+    measure = getattr(serve.measure_service_curve, "__wrapped__",
+                      serve.measure_service_curve)
+    model, curve = measure(eager, res.params, res.cfg, seq=args.seq,
+                           max_batch=args.max_batch, device="cuda")
+    batch = min(bt.choose_batch(model, args.deadline_ms * 1e-3,
+                                args.max_batch), max(curve))
+    print(f"{label}: service curve eager "
+          + "  ".join(f"b={b}: {t * 1e3:.2f} ms" for b, t in
+                      sorted(curve.items()))
+          + f" (chosen batch {batch}); captured (the run's) "
+          + "  ".join(f"b={b}: {t * 1e3:.2f} ms" for b, t in
+                      sorted(res.curve.items()))
+          + f" (chosen batch {res.batch})")
+    torch_cuda_empty()
+
+
 def forward_breakdown(label: str, res) -> None:
     """Where the service curve's largest prefill spends its time: one
     full-sequence forward of SERVE_MAX_BATCH x SERVE_SEQ tokens."""
@@ -2386,6 +2478,408 @@ def forward_breakdown(label: str, res) -> None:
                                    dtype=torch.int32, device="cuda")}
     device_breakdown(label, f"prefill of {SERVE_MAX_BATCH} x {SERVE_SEQ} "
                      f"tokens", lambda: prefill(res.params, batch), 3)
+
+
+# ---------------------------------------------------------------------------
+# sampling phase
+# ---------------------------------------------------------------------------
+
+SAMPLE_TEMP = 0.8
+# the vocabularies the dense family samples over: starcoder2-3b,
+# mistral-nemo-12b and qwen1.5-32b
+SAMPLE_VOCABS = (49152, 131072, 152064)
+SAMPLE_SEEDS = (0, 7)
+SAMPLE_POSITIONS = 4096     # fold_in over positions 0 .. 4,095
+# the positions whose keys' draws are held against the CPU at every
+# vocabulary (all 4,096 keys at V = 152,064 are 623 M draws)
+SAMPLE_ROWS = (0, 1, 2, 17, 1023, 2048, 4094, 4095)
+GUMBEL_ULPS = 4             # the bound of tests/test_torch_sampling.py
+SAMPLE_COMPARE = 8          # requests of a serve held to its reference
+
+
+def sampler_step(temperature):
+    """``temperature_sample_rows`` behind a ``CapturedStep`` (no params,
+    no cache), so that it can be timed captured as it runs in a tick."""
+    from repro_torch.runtime import steps as ST
+    from repro_torch.runtime.graphs import CapturedStep
+    return CapturedStep(lambda params, cache, logits, keys: (
+        ST.temperature_sample_rows(logits, keys, temperature),))
+
+
+def prng_phase():
+    """The port's threefry PRNG on the card against its CPU results: for
+    PRNGKey(0) and PRNGKey(7), fold_in over positions 0 .. 4,095 bitwise;
+    at each vocabulary of SAMPLE_VOCABS, one key over (V,) and over (8,
+    V) and the 8 keys of SAMPLE_ROWS over (V,) each: random_bits and
+    uniform(tiny, 1) bitwise, gumbel within GUMBEL_ULPS ulps of max(|g|,
+    1); then temperature_sample_rows on 8 rows of random f32 logits, each
+    row bitwise launched alone and in the batch, with the sampler's
+    device time eager and captured."""
+    import numpy as np
+    import torch
+    from repro_torch.runtime import prng as P
+    from repro_torch.runtime import steps as ST
+
+    t0 = time.perf_counter()
+    tiny = float(torch.finfo(torch.float32).tiny)
+    worst = 0.0
+    exact = total = 0
+    rows = torch.tensor(SAMPLE_ROWS)
+    with torch.inference_mode():
+        for seed in SAMPLE_SEEDS:
+            kc, kg = P.PRNGKey(seed), P.PRNGKey(seed, device="cuda")
+            pos = torch.arange(SAMPLE_POSITIONS, dtype=torch.int32)
+            keys_c, keys_g = P.fold_in(kc, pos), P.fold_in(kg, pos.cuda())
+            if not torch.equal(keys_g.cpu(), keys_c):
+                raise AssertionError(f"prng: fold_in(PRNGKey({seed}), 0 .. "
+                                     f"{SAMPLE_POSITIONS - 1}) differs on "
+                                     f"the card")
+            for vocab in SAMPLE_VOCABS:
+                for c, d, shape in (
+                        (kc, kg, (vocab,)), (kc, kg, (len(rows), vocab)),
+                        (keys_c[rows], keys_g[rows.cuda()],
+                         (len(rows), vocab))):
+                    case = (f"PRNGKey({seed}) {tuple(c.shape)} keys over "
+                            f"{shape}")
+                    if not torch.equal(P.random_bits(d, shape).cpu(),
+                                       P.random_bits(c, shape)):
+                        raise AssertionError(f"prng: {case}: random_bits "
+                                             f"differ on the card")
+                    uc = P.uniform(c, shape, tiny, 1.0)
+                    ug = P.uniform(d, shape, tiny, 1.0).cpu()
+                    if not torch.equal(ug.view(torch.int32),
+                                       uc.view(torch.int32)):
+                        raise AssertionError(f"prng: {case}: uniform "
+                                             f"differs on the card")
+                    gc = P.gumbel(c, shape).double()
+                    gg = P.gumbel(d, shape).cpu().double()
+                    unit = torch.from_numpy(np.spacing(np.maximum(
+                        gc.abs().float().numpy(), np.float32(1))))
+                    ulps = float(((gg - gc).abs() / unit).max())
+                    worst = max(worst, ulps)
+                    exact += int((gg == gc).sum())
+                    total += gg.numel()
+                    if not torch.isfinite(gg).all() or ulps > GUMBEL_ULPS:
+                        raise AssertionError(f"prng: {case}: gumbel "
+                                             f"{ulps} ulps from the CPU's")
+    print(f"prng: fold_in over {SAMPLE_POSITIONS} positions of PRNGKey"
+          f"{SAMPLE_SEEDS}, random_bits and uniform(tiny, 1) at V = "
+          f"{SAMPLE_VOCABS} (one key over (V,) and (8, V), 8 fold_in keys "
+          f"over (V,)): bitwise the CPU's; gumbel within {worst:.1f} ulps "
+          f"of max(|g|, 1) (bound {GUMBEL_ULPS}), {exact} of {total} draws "
+          f"bitwise")
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    key = P.PRNGKey(SEED + 1, device="cuda")
+    keys = P.fold_in(key, rows.cuda())
+    for vocab in SAMPLE_VOCABS:
+        with torch.inference_mode():
+            logits = torch.randn((len(rows), 1, vocab), generator=g,
+                                 device="cuda") * 3
+            batch = ST.temperature_sample_rows(logits, keys, SAMPLE_TEMP)
+            alone = torch.cat([ST.temperature_sample_rows(
+                logits[r:r + 1], keys[r:r + 1], SAMPLE_TEMP)
+                for r in range(len(rows))])
+            cpu = ST.temperature_sample_rows(logits.cpu(), keys.cpu(),
+                                             SAMPLE_TEMP)
+        if not torch.equal(batch, alone):
+            raise AssertionError(f"sampler V={vocab}: rows differ alone "
+                                 f"and in the batch")
+        captured = sampler_step(SAMPLE_TEMP)
+        with torch.inference_mode():
+            if not torch.equal(captured({}, {}, logits, keys)[0], batch):
+                raise AssertionError(f"sampler V={vocab}: the captured "
+                                     f"sampler differs from the eager one")
+        what = f"temperature_sample_rows over ({len(rows)}, {vocab})"
+        e = device_breakdown(f"sampler V={vocab} eager", what,
+                             lambda: ST.temperature_sample_rows(
+                                 logits, keys, SAMPLE_TEMP), 10, False)
+        c = device_breakdown(f"sampler V={vocab} captured", what,
+                             lambda: captured({}, {}, logits, keys), 10,
+                             False)
+        print(f"sampler V={vocab}: {len(rows)} rows bitwise alone and in "
+              f"the batch; {int((cpu == batch.cpu()).sum())} of "
+              f"{len(rows)} equal to the CPU's draw; eager / captured wall "
+              f"{e['wall']:.3f} / {c['wall']:.3f} ms, "
+              f"cudaLaunchKernel {e['launch_calls']:.0f} / "
+              f"{c['launch_calls']:.0f}")
+        SAMPLER_MS[vocab] = c["busy"]
+        captured.release()
+    print(f"prng: phase {time.perf_counter() - t0:.1f}s")
+
+
+# vocabulary -> the captured sampler's device ms over NUM_SLOTS rows
+SAMPLER_MS = {}
+
+
+def sampled_engine(cfg, params, **kw):
+    from repro_torch import engine as E
+    from repro_torch.core.qlinear import W8A16
+    from repro_torch.runtime import prng as P
+    return E.Engine(cfg, params, mode=W8A16, num_slots=NUM_SLOTS,
+                    prefill_chunk=PREFILL_CHUNK, temperature=SAMPLE_TEMP,
+                    rng=P.PRNGKey(SEED + 1, device="cuda"), **kw)
+
+
+def compare_sampled(label, cfg, params, eng, reqs, outs) -> None:
+    """The engine's tokens for ``reqs`` against the sequential batch-1
+    ``reference_outputs`` under the engine's temperature and key, on the
+    card: equal token for token (both run the same ops on the card, so a
+    difference is a fault, not a near-tie)."""
+    from repro_torch import engine as E
+    from repro_torch.core.qlinear import W8A16
+
+    t0 = time.perf_counter()
+    margins = {}
+    ref = E.reference_outputs(cfg, params, reqs, mode=W8A16,
+                              max_seq=eng.max_seq,
+                              temperature=eng.temperature, rng=eng.rng,
+                              margins=margins)
+    bad = [rid for rid, toks in ref.items() if outs[rid] != toks]
+    if bad:
+        raise AssertionError(f"{label}: requests {bad} differ from the "
+                             f"sampled reference_outputs")
+    print(f"{label}: {len(ref)} requests {sorted(ref)} equal the sampled "
+          f"reference_outputs (t = {eng.temperature}, fold_in(PRNGKey("
+          f"{SEED + 1}), position)) token for token on the card; smallest "
+          f"perturbed top-2 gap {min(min(v) for v in margins.values()):.3e}"
+          f"; reference {time.perf_counter() - t0:.1f}s")
+
+
+def sampled_tick_phase(cfg, params) -> None:
+    """The captured steady tick greedy against sampled (NUM_SLOTS rows at
+    max_seq / 2 of the slice's cache): one sampled tick captured against
+    eager on two copies of a random cache (tokens, indices, every cache
+    leaf equal), the launch counts of a replay the greedy tick's, then
+    wall, device busy and launch calls of each, and the sampler's share
+    of the sampled tick's device time (the captured sampler alone, timed
+    by the prng phase)."""
+    import torch
+    from repro_torch.core.qlinear import W8A16
+    from repro_torch.runtime import prng as P
+    from repro_torch.runtime import steps as ST
+
+    S, max_seq = NUM_SLOTS, PROMPT_LEN + MAX_NEW
+    key = P.PRNGKey(SEED + 1, device="cuda")
+    eager = ST.make_slot_decode_step(cfg, mode=W8A16,
+                                     temperature=SAMPLE_TEMP)
+    ticks = {t: ST.jit_slot_decode_step(ST.make_slot_decode_step(
+        cfg, mode=W8A16, temperature=t)) for t in (0.0, SAMPLE_TEMP)}
+    cache = _random_cache(cfg, S, max_seq, 0)
+    other = {k: v.clone() for k, v in cache.items()}
+    toks, idx, active, _ = _graph_tick_inputs(S, max_seq, 0, cfg.vocab)[0]
+    with torch.inference_mode():
+        args = [x.cuda() for x in (toks, idx, active)]
+        want, _, i_e = eager(params, args[0], cache, *args[1:], key)
+        zero_counts()
+        got, _, i_g = ticks[SAMPLE_TEMP](params, args[0], other, *args[1:],
+                                         key)
+        torch.cuda.synchronize()
+        zero_counts()
+        ticks[SAMPLE_TEMP](params, args[0], other, *args[1:], key)
+        sampled_launches, _ = read_counts()
+    if not (torch.equal(got, want) and torch.equal(i_g, i_e)) or any(
+            not torch.equal(other[k], cache[k]) for k in cache):
+        raise AssertionError("sampled tick: the captured tick differs from "
+                             "the eager one")
+    del cache, other
+    cache = _random_cache(cfg, S, max_seq, 0)
+    with torch.inference_mode():
+        toks = torch.ones((S, 1), dtype=torch.int32, device="cuda")
+        idx = torch.full((S,), max_seq // 2, dtype=torch.int32,
+                         device="cuda")
+        active = torch.ones((S,), dtype=torch.bool, device="cuda")
+    res = {}
+    for t, graphed in ticks.items():
+        extra = (key,) if t else ()
+        res[t] = device_breakdown(
+            f"sampled tick t={t}", f"captured steady-state slot tick ({S} "
+            f"rows at position {max_seq // 2} of {max_seq})",
+            lambda: graphed(params, toks, cache, idx, active, *extra)[0]
+            .cpu(), 10, False)
+        graphed.captured.release()
+    greedy, sampled = res[0.0], res[SAMPLE_TEMP]
+    share = ("not measured" if not (sampled["busy"]
+                                    and SAMPLER_MS.get(cfg.vocab))
+             else f"{SAMPLER_MS[cfg.vocab]:.3f} ms, "
+                  f"{100 * SAMPLER_MS[cfg.vocab] / sampled['busy']:.1f}%")
+    busy = ("not measured" if greedy["busy"] is None
+            or sampled["busy"] is None
+            else f"{greedy['busy']:.3f} / {sampled['busy']:.3f} ms")
+    print(f"sampled tick: a captured sampled tick bitwise the eager one "
+          f"(tokens, indices, {len(cache)} cache leaves); launches per "
+          f"replay {sampled_launches}; greedy / sampled per tick: wall "
+          f"{greedy['wall']:.2f} / {sampled['wall']:.2f} ms, device busy "
+          f"{busy}, cudaGraphLaunch {greedy['graph_launches']:.0f} / "
+          f"{sampled['graph_launches']:.0f}, cudaLaunchKernel "
+          f"{greedy['launch_calls']:.0f} / {sampled['launch_calls']:.0f}; "
+          f"the sampler's share of the sampled tick's device time {share}")
+    del cache
+    torch_cuda_empty()
+
+
+def sampled_loop_phase(cfg, params) -> None:
+    """The decode loop sampled (NUM_SLOTS rows, LOOP_TOKENS tokens, the
+    slice's int8 cache): captured bitwise the eager loop, then tok/s of
+    the captured loop greedy and sampled, host clock over TIMED_LOOPS
+    loops each ending in a wait."""
+    import torch
+    from repro_torch.core.qlinear import W8A16
+    from repro_torch.models import registry as R
+    from repro_torch.runtime import prng as P
+    from repro_torch.runtime import steps as ST
+
+    b, max_seq = NUM_SLOTS, PROMPT_LEN + MAX_NEW
+    key = P.PRNGKey(SEED + 1, device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    tps = {}
+    with torch.inference_mode():
+        toks = torch.randint(1, cfg.vocab, (b, 1), generator=g,
+                             device="cuda", dtype=torch.int32)
+        for t in (0.0, SAMPLE_TEMP):
+            extra = (key,) if t else ()
+            loop = ST.make_decode_loop(cfg, mode=W8A16,
+                                       num_tokens=LOOP_TOKENS, temperature=t)
+            graphed = ST.jit_decode_loop(loop)
+            cache = R.init_cache(cfg, b, max_seq, device="cuda")
+            got = graphed(params, toks, cache, 0, *extra)[0].clone()
+            if t:
+                want, _ = loop(params, toks, R.init_cache(
+                    cfg, b, max_seq, device="cuda"), 0, key)
+                if not torch.equal(got, want):
+                    raise AssertionError("sampled loop: the captured loop "
+                                         "differs from the eager one")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(TIMED_LOOPS):
+                graphed(params, toks, cache, 0, *extra)
+            torch.cuda.synchronize()
+            tps[t] = b * LOOP_TOKENS * TIMED_LOOPS / (time.perf_counter()
+                                                      - t0)
+            graphed.captured.release()
+    print(f"sampled loop: batch {b}, {LOOP_TOKENS} tokens, int8 cache of "
+          f"{max_seq}: the captured sampled loop bitwise the eager one; "
+          f"captured tok/s greedy {tps[0.0]:.1f}, sampled "
+          f"{tps[SAMPLE_TEMP]:.1f}")
+
+
+def sampled_serves(cfg, params) -> None:
+    """Full-width starcoder2-3b sampled (W8A16, int8 cache, t =
+    SAMPLE_TEMP, rng PRNGKey(SEED + 1)) on the slice's trace (24
+    requests, prompt 16, 32 new, 400/s): contiguous (8 slots, chunks of
+    4), held to the sampled ``reference_outputs``; paged (blocks of 16,
+    every row's blocks in the pool), token for token the contiguous
+    serve; then the same requests as the overload phase's two classes at
+    OVERLOAD_CONTIG_RATE_PER_S (interactive ones keep arriving while batch
+    ones hold blocks) served paged under block pressure (OVERLOAD_BLOCKS
+    blocks) with preemption: token for token the contiguous serve (a key
+    is a function of the position alone, so arrival times and evictions
+    change no token), preempted > 0, no leaked block, and its preempted
+    requests held to the reference too.  Each serve warmed up, counted,
+    no capture inside it."""
+    from repro_torch import engine as E
+
+    max_seq = PROMPT_LEN + MAX_NEW
+    slice_reqs = E.synthetic_requests(N_REQUESTS, rate_per_s=400.0,
+                                      vocab=cfg.vocab, prompt_len=PROMPT_LEN,
+                                      max_new_tokens=MAX_NEW, seed=SEED)
+    runs = {}
+    for label, reqs, kw, serve_kw, path in (
+            ("sampled contiguous", slice_reqs, {}, {},
+             ("qmatmul_w8a16", "decode_attention_int8")),
+            ("sampled paged", slice_reqs, {"block_size": PAGED_BLOCK}, {},
+             ("qmatmul_w8a16", "decode_attention_int8_paged")),
+            ("sampled preempting",
+             overload_trace(cfg, OVERLOAD_CONTIG_RATE_PER_S),
+             {"block_size": PAGED_BLOCK, "num_blocks": OVERLOAD_BLOCKS},
+             {"preemption": True},
+             ("qmatmul_w8a16", "decode_attention_int8_paged"))):
+        eng = sampled_engine(cfg, params, max_seq=max_seq, **kw)
+        bound = warm(label, eng, reqs[:2])
+        rep = overload_serve(label, eng, reqs, bound, path, **serve_kw)
+        check_served(label, cfg, rep, reqs)
+        runs[label] = (eng, rep)
+        if label == "sampled contiguous":
+            compare_sampled(label, cfg, params, eng, reqs[:SAMPLE_COMPARE],
+                            rep.outputs())
+            want = rep.outputs()
+        elif rep.outputs() != want:
+            raise AssertionError(f"{label}: tokens differ from the "
+                                 f"contiguous sampled serve's")
+        else:
+            print(f"{label}: every token of {len(want)} requests equal to "
+                  f"the contiguous sampled serve's")
+    eng, rep = runs["sampled preempting"]
+    if rep.preempted <= 0 or rep.leaked_blocks:
+        raise AssertionError(f"sampled preempting: preempted "
+                             f"{rep.preempted}, leaked {rep.leaked_blocks}")
+    done = {r.rid for r in slice_reqs[:SAMPLE_COMPARE]}
+    victims = [r for r in reqs if r.rid not in done and any(
+        x.rid == r.rid and x.preemptions for x in rep.results)]
+    print(f"sampled preempting: preempted requests (rid: preemptions) "
+          f"{ {r.rid: r.preemptions for r in rep.results if r.preemptions} }")
+    if victims:
+        compare_sampled("sampled preempting", cfg, params, eng,
+                        victims[:4], rep.outputs())
+    del runs, eng
+    torch_cuda_empty()
+
+
+def sampled_dense_phase() -> None:
+    """mistral-nemo-12b at full width (vocabulary 131,072, bf16 cache)
+    sampled: one contiguous serve of the dense trace, held to its sampled
+    ``reference_outputs``; freed before it returns."""
+    from repro_torch import engine as E
+    from repro_torch.runtime import steps as ST
+
+    t0 = time.perf_counter()
+    arch = "mistral-nemo-12b"
+    cfg, params = build_dense_model(arch)
+    reqs = E.synthetic_requests(
+        DENSE_REQUESTS, rate_per_s=DENSE_RATE_PER_S, vocab=cfg.vocab,
+        prompt_len=DENSE_PROMPT, max_new_tokens=DENSE_NEW,
+        shared_prefix_len=DENSE_SHARED, seed=SEED)
+    label = f"sampled {arch}"
+    eng = sampled_engine(cfg, params, max_seq=DENSE_MAX_SEQ)
+    bound = warm(label, eng, reqs[:1])
+    rep = overload_serve(label, eng, reqs, bound, ("qmatmul_w8a16",))
+    check_served(label, cfg, rep, reqs, max_new=DENSE_NEW)
+    compare_sampled(label, cfg, params, eng, reqs, rep.outputs())
+    del eng
+    ST.clear_step_cache()
+    del params
+    torch_cuda_empty()
+    print(f"{label}: phase {time.perf_counter() - t0:.1f}s")
+
+
+def sampled_cli_run(curve_paths) -> None:
+    """The serve CLI at full starcoder2-3b width with ``--temperature``:
+    exit 0, and every request equal to the sampled ``reference_outputs``
+    under the engine's key (PRNGKey(seed + 1)) on the card."""
+    import torch
+    from repro_torch.runtime import prng as P
+
+    t = str(SAMPLE_TEMP)
+    _, res = serve_run("w8a16", curve_paths, ["--temperature", t],
+                       label="serve w8a16 sampled")
+    if not (res.engine.temperature == SAMPLE_TEMP and torch.equal(
+            res.engine.rng.cpu(), P.PRNGKey(SEED + 1))):
+        raise AssertionError("serve w8a16 sampled: the engine does not "
+                             "sample with PRNGKey(seed + 1)")
+    compare_sampled("serve w8a16 sampled", res.cfg, res.params, res.engine,
+                    res.requests, res.report.outputs())
+    del res
+    torch_cuda_empty()
+
+
+def sampling_phase(cfg, params) -> None:
+    """The sampling phase on the slice's model: the PRNG on the card, the
+    sampled serves, the captured sampled tick and decode loop."""
+    t0 = time.perf_counter()
+    prng_phase()
+    sampled_serves(cfg, params)
+    sampled_tick_phase(cfg, params)
+    sampled_loop_phase(cfg, params)
+    print(f"sampling: starcoder2-3b part {time.perf_counter() - t0:.1f}s")
 
 
 # ---------------------------------------------------------------------------
@@ -2861,7 +3355,7 @@ def dense_phase():
     return {"runs": runs, "cli": cli}
 
 
-PHASES = ("attention", "long_tick", "w8a8", "graphs", "dense")
+PHASES = ("attention", "long_tick", "w8a8", "graphs", "dense", "sampling")
 
 
 def parse_args(argv):
@@ -2876,8 +3370,10 @@ def parse_args(argv):
                          "attention kernel phases, the long-context ticks, "
                          "qmatmul_w8a8's kernel phase and the W8A8 tick, "
                          "the five eager tick breakdowns and the graph "
-                         "phase, or the dense family at full width; prints "
-                         "no result line")
+                         "phase, the dense family at full width, or "
+                         "sampling (the PRNG, the sampled serves, tick and "
+                         "loop, mistral-nemo-12b and the CLI sampled); "
+                         "prints no result line")
     return ap.parse_args(argv)
 
 
@@ -2940,7 +3436,7 @@ def main(argv=None) -> int:
         if "dense" in args.only:
             rmsnorm_phase(RMSNORM_WIDTHS[1:])
             dense_phase()
-        if {"long_tick", "w8a8", "graphs"} & set(args.only):
+        if {"long_tick", "w8a8", "graphs", "sampling"} & set(args.only):
             cfg, params = build_model()
         if "graphs" in args.only:
             tick_breakdown(cfg, params, NUM_SLOTS, PROMPT_LEN + MAX_NEW)
@@ -2953,7 +3449,23 @@ def main(argv=None) -> int:
             w8a8_tick_phase(cfg, params)
         if "graphs" in args.only:
             graph_phase(cfg, params)
-        print("chip_smoke: partial run passed; no result line")
+        if "sampling" in args.only:
+            sampling_phase(cfg, params)
+            from repro_torch.launch import serve
+            from repro_torch.runtime import steps as ST
+            ST.clear_step_cache()
+            del params
+            torch_cuda_empty()
+            sampled_dense_phase()
+            real_curve, curve_paths = serve.measure_service_curve, {}
+            serve.measure_service_curve = counted_curve(real_curve,
+                                                        curve_paths)
+            try:
+                sampled_cli_run(curve_paths)
+            finally:
+                serve.measure_service_curve = real_curve
+        print(f"chip_smoke: partial run passed in "
+              f"{time.perf_counter() - t_run:.1f}s; no result line")
         return 0
     print("kernels: each CUDA kernel against its plain version on the card")
     q_err, q_paths = qmatmul_phase(flush)
@@ -2976,10 +3488,12 @@ def main(argv=None) -> int:
     long_tick_phase(cfg, params)
     w8a8_tick_phase(cfg, params)
     graph_phase(cfg, params)
+    sampling_phase(cfg, params)
     from repro_torch.runtime import steps as ST
     ST.clear_step_cache()           # the engines' captured tick and cache
     del params
     torch_cuda_empty()
+    sampled_dense_phase()
     serve_launches = serve_phase()
     dense = dense_phase()
 

@@ -1,5 +1,5 @@
 """Continuous-batching slot engine (single model, contiguous or paged
-slots, greedy sampling) — see ``engine.py`` and ``dispatch.py``.
+slots, greedy or temperature sampling) — see ``engine.py`` and ``dispatch.py``.
 
 Overload robustness (``faults`` + ``serve(preemption=...,
 fault_plan=...)``): SLO-class admission with per-class slot quotas,

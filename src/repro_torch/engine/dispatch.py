@@ -1,9 +1,10 @@
 """Dispatch core: the tick loop behind the Engine's policy face.
 
-The port of ``repro/engine/dispatch.py`` for ONE model lane with greedy
-sampling, on contiguous slots or on the paged KV cache, with the
-reference's overload paths (SLO-class quotas, preemption with exact
-resume, fault injection and recovery):
+The port of ``repro/engine/dispatch.py`` for ONE model lane, greedy or
+sampled (the tick passes the engine's key to a sampled step), on
+contiguous slots or on the paged KV cache, with the reference's overload
+paths (SLO-class quotas, preemption with exact resume, fault injection
+and recovery):
 
 - ``Engine`` (engine.py) — policy + reporting: request validation,
   admission policy configuration, and ``EngineReport`` assembly.
@@ -590,7 +591,7 @@ class DispatchCore:
                 nxt_d, cache, new_index = step(
                     eng.params, torch.as_tensor(tokens, device=dev), cache,
                     torch.as_tensor(index, device=dev),
-                    torch.as_tensor(active, device=dev))
+                    torch.as_tensor(active, device=dev), *eng.step_keys())
                 nxt = nxt_d.cpu().numpy().copy()   # waits for the step
                 index = new_index.cpu().numpy().copy()
                 if fault_plan is not None:

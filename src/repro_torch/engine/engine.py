@@ -1,6 +1,7 @@
 """The continuous-batching engine: one fused slot-masked step per tick.
 
-Port of ``repro/engine/engine.py`` for one model with greedy sampling:
+Port of ``repro/engine/engine.py`` for one model, greedy or sampled at
+one engine-wide temperature:
 
 - The KV cache is a fixed pool of ``num_slots`` rows of ``max_seq``
   positions, owned by the engine and zeroed in place for each run; every
@@ -16,6 +17,11 @@ Port of ``repro/engine/engine.py`` for one model with greedy sampling:
 - With ``prefill_chunk=c``, a newly admitted slot's prompt (all but the
   last token) is written by the chunked prefill step, ``c`` tokens per
   tick, concurrently with other slots' decoding.
+- ``temperature=t, rng=key`` samples every row at ``t`` with the key
+  ``fold_in(rng, position)`` (``runtime/steps.py``; the threefry keys of
+  ``runtime/prng.py``): a key depends on the row's position alone, so a
+  sampled request's tokens do not depend on its slot, its tick, the rows
+  beside it or a preemption's resume.
 - Admission consults the shared ``core.batching.AdmissionPolicy``
   (class-first, with per-class slot quotas metered against the slots
   each class holds); retired slots return to the pool the same tick they
@@ -27,11 +33,12 @@ Port of ``repro/engine/engine.py`` for one model with greedy sampling:
   ``max_retries``, retires as ``failed``.
 
 ``reference_outputs`` is the sequential per-token loop (batch 1, same
-decode math, contiguous cache) the engine must match bit for bit, paged
-or not: every kernel and plain version computes a row independently of
-the batch it sits in, the paged kernel reads a row in the very order
-the contiguous one does, and the bf16 cache's attention reads a row
-gathered through its table as the contiguous row.
+decode math and sampler, contiguous cache) the engine must match bit
+for bit, paged or not: every kernel and plain version computes a row
+independently of the batch it sits in, the paged kernel reads a row in
+the very order the contiguous one does, the bf16 cache's attention
+reads a row gathered through its table as the contiguous row, and the
+sampler is elementwise up to its argmax along the vocabulary.
 """
 from __future__ import annotations
 
@@ -52,6 +59,7 @@ from repro_torch.engine.dispatch import (DispatchCore, EngineRequest,
 from repro_torch.engine.faults import FaultPlan
 from repro_torch.engine.slots import RequestTooLong
 from repro_torch.models import registry as R
+from repro_torch.runtime import prng as P
 from repro_torch.runtime import steps as ST
 
 
@@ -129,11 +137,14 @@ class Engine:
     ``device="cpu"`` to serve on the CPU with the kernels' plain versions.
     ``params`` must already lie on that device.
 
+    ``temperature=t`` (> 0) samples with ``rng``, a threefry key (a JAX
+    key's two uint32 words: ``runtime/prng.py::PRNGKey``, or
+    ``np.asarray`` of ``jax.random.PRNGKey``), which it then needs.
     ``policy=AdmissionPolicy(class_quotas={...})`` caps the slots each
     SLO class may hold; ``serve(preemption=..., fault_plan=...,
     max_retries=...)`` runs the overload paths.  The JAX engine's other
-    options — temperature sampling, speculation, multiplexing, a sharded
-    backend — raise ``NotImplementedError`` naming their ROADMAP item."""
+    options — speculation, multiplexing, a sharded backend — raise
+    ``NotImplementedError`` naming their ROADMAP item."""
 
     def __init__(self, cfg: ArchConfig, params, *,
                  mode: QuantMode = FP,
@@ -143,15 +154,16 @@ class Engine:
                  device: DeviceLike = None,
                  block_size: Optional[int] = None,
                  num_blocks: Optional[int] = None,
-                 temperature: float = 0.0,
+                 temperature: float = 0.0, rng=None,
                  spec_k: int = 0,
                  models=None,
                  backend: Optional[ExecutorBackend] = None,
                  name: Optional[str] = None):
         if models is not None:
             raise _not_ported("multi-model multiplexing", "14")
-        if temperature > 0.0:
-            raise _not_ported("temperature sampling", "10")
+        if temperature > 0.0 and rng is None:
+            raise ValueError("temperature sampling needs an rng key: "
+                             "Engine(..., temperature=t, rng=key)")
         if spec_k:
             raise _not_ported("speculative decoding", "14")
         self.device = resolve_device(device)
@@ -176,6 +188,10 @@ class Engine:
         self.cfg, self.params = cfg, params
         self.mode = mode
         self.temperature = temperature
+        # the key lives on the engine's device for good: the captured tick
+        # copies it from there into its static input at each call
+        self.rng = (P.as_key(rng, self.device) if temperature > 0.0
+                    else None)
         self.name = name
         # the pool size rounds up the bucket ladder, the cache length to 16
         # (paged: to whole blocks as well)
@@ -201,6 +217,11 @@ class Engine:
             else SingleDeviceExecutor()
         self.backend.validate(self)
         self._cache: Optional[dict] = None
+
+    def step_keys(self) -> tuple:
+        """The slot step's trailing arguments: ``(rng,)`` when the engine
+        samples, none when it is greedy."""
+        return () if self.rng is None else (self.rng,)
 
     def zeroed_cache(self) -> dict:
         """The engine's KV cache (paged: with its block tables), all zeros:
@@ -240,7 +261,8 @@ class Engine:
             step(self.params, torch.zeros((S, 1), dtype=torch.int32,
                                           device=dev), cache,
                  torch.zeros((S,), dtype=torch.int32, device=dev),
-                 torch.zeros((S,), dtype=torch.bool, device=dev))
+                 torch.zeros((S,), dtype=torch.bool, device=dev),
+                 *self.step_keys())
             for n in range(1, (self.prefill_chunk or 0) + 1):
                 c = ST.bucket_batch(n)
                 chunk = self.backend.chunk_step(self.cfg, mode=self.mode,
@@ -377,17 +399,27 @@ def reference_outputs(cfg: ArchConfig, params,
                       requests: Sequence[EngineRequest], *,
                       mode: QuantMode = FP, max_seq: int = 64,
                       device: DeviceLike = None,
+                      temperature: float = 0.0, rng=None,
                       margins: Optional[Dict[int, List[float]]] = None
                       ) -> Dict[int, List[int]]:
     """The sequential per-token reference loop: each request alone at
     batch 1, prompt teacher-forced a token at a time, then greedy
     generation — the bit-for-bit baseline the engine must reproduce.
 
+    With ``temperature > 0`` the token after position p is drawn with the
+    key ``fold_in(rng, p)`` by the engine's own sampler
+    (``steps.temperature_sample_rows`` at batch 1), the schedule the slot
+    tick and the decode loop use.
+
     When ``margins`` is a dict, ``margins[rid]`` receives the gap between
-    the two largest logits at each generated token (how near a tie the
-    greedy choice was)."""
+    the two largest scores at each generated token (how near a tie the
+    choice was): the logits, or when sampling the perturbed scores
+    ``logits / t + gumbel``."""
+    if temperature > 0.0 and rng is None:
+        raise ValueError("temperature sampling needs an rng key")
     device = resolve_device(device)
     decode = ST.make_decode_step(cfg, mode=mode)
+    key = P.as_key(rng, device) if temperature > 0.0 else None
     out: Dict[int, List[int]] = {}
     with torch.inference_mode():
         for r in sorted(requests, key=lambda x: x.rid):
@@ -406,10 +438,15 @@ def reference_outputs(cfg: ArchConfig, params,
                      "cache_index": pos}, cache)
                 pos += 1
                 if pos >= len(feed):
-                    tok = int(ST.greedy_sample(logits)[0])
+                    if key is not None:
+                        scores = ST.sampling_scores(
+                            logits, P.fold_in(key, [pos - 1]), temperature)
+                    else:
+                        scores = logits[:, -1].float()
+                    tok = int(torch.argmax(scores[0]))
                     gen.append(tok)
                     if margins is not None:
-                        top2 = torch.topk(logits[0, -1].float(), 2).values
+                        top2 = torch.topk(scores[0], 2).values
                         gaps.append(float(top2[0] - top2[1]))
             out[r.rid] = gen
             if margins is not None:

@@ -598,9 +598,11 @@ template <typename OT, bool COPY16>
 cudaError_t launch_mma_kernel(const void* x, const void* w, const void* w_scale, const void* bias,
                        void* out, int M, int K, int N, int act, cudaStream_t stream) {
   const auto kernel = qmatmul_w8a16_mma_kernel<OT, COPY16>;
-  const cudaError_t err =
+  // once per process, at the first launch: the eager call or a capture's
+  // warm-up, so that no capture records it
+  static const cudaError_t sized =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, TC_SMEM);
-  if (err != cudaSuccess) return err;
+  if (sized != cudaSuccess) return sized;
   const dim3 grid((M + TC_BM - 1) / TC_BM, (N + TC_BN - 1) / TC_BN);
   kernel<<<grid, TC_THREADS, TC_SMEM, stream>>>(
       static_cast<const __nv_bfloat16*>(x), static_cast<const int8_t*>(w),

@@ -3,19 +3,24 @@ path, end to end on one card.
 
 Init a model from a seed, post-training int8 quantization, measure the
 prefill service-time curve through the full-sequence ``forward`` (every
-attention layer through the flash-attention kernel; ``--max-batch`` joins
-the measured set, so batch selection interpolates), pick the largest batch
+attention layer through the flash-attention kernel), captured as a CUDA
+graph per measured batch (``runtime/steps.py::jit_prefill_step``, the
+reference's jitted prefill; ``--max-batch`` joins the measured set, so
+batch selection interpolates), pick the largest batch
 meeting the p99 deadline (the paper's Table 4 policy), time the multi-token
 decode loop at that batch (captured as a CUDA graph), then size a slot
 pool at that batch and drive the continuous-batching ``Engine`` (its tick
 captured likewise) against a pseudo-Poisson request stream under the wall
 clock — or, with ``--sim``, the virtual-time ``BatchQueue``
-simulator (same admission policy, no model execution).  The overload
-flags work as the reference's: ``--interactive-frac`` splits the trace
-into two SLO classes by a hash of the rid, ``--batch-quota`` caps the
-slots the batch class holds, ``--preemption`` evicts batch slots for
-interactive requests with exact resume, and ``--fault-seed`` /
-``--n-faults`` inject a seeded ``FaultPlan``.  The KV cache is
+simulator (same admission policy, no model execution).
+``--temperature t`` makes the engine sample every row at ``t`` with the
+key ``PRNGKey(seed + 1)`` and the reference's ``fold_in(rng, position)``
+schedule (the decode loop's tok/s stays greedy, as the reference's).
+The overload flags work as the reference's: ``--interactive-frac``
+splits the trace into two SLO classes by a hash of the rid,
+``--batch-quota`` caps the slots the batch class holds, ``--preemption``
+evicts batch slots for interactive requests with exact resume, and
+``--fault-seed`` / ``--n-faults`` inject a seeded ``FaultPlan``.  The KV cache is
 bf16 (the dense configs leave ``kv_quant`` off, as the reference's CLI
 does); ``--block-size`` pages it (``--num-blocks`` sizes the pool) and
 ``--shared-prefix-len`` gives every request the same leading prompt
@@ -32,6 +37,8 @@ int8 kernel, the LM head staying weight-only int8.
       --device cpu                                 # plain versions, CPU
   python -m repro_torch.launch.serve --arch qwen1.5-32b --reduced \\
       --device cpu --block-size 4 --shared-prefix-len 4   # paged, CPU
+  python -m repro_torch.launch.serve --arch starcoder2-3b --reduced \\
+      --device cpu --temperature 0.8                 # sampled, CPU
 
 The reference's other serving options stay in the parser; given a value
 other than their default, each prints which ROADMAP item will port it and
@@ -57,11 +64,11 @@ from repro_torch.core.quant import QTensor, tree_weight_bytes
 from repro_torch.device import resolve_device
 from repro_torch.models import registry as R
 from repro_torch.runtime import steps as ST
+from repro_torch.runtime.prng import PRNGKey
 
 # flag -> ROADMAP queue 1 item that will port it
 UNPORTED = {
     "models": 14, "model_quota": 14,
-    "temperature": 10,
     "arrival": 12,
     "spec_k": 14, "draft": 14, "draft_layers": 14,
     "replicas": 14, "tp": 14,
@@ -83,7 +90,10 @@ def measure_service_curve(step_fn, params, cfg: ArchConfig, *, seq: int,
     ``max_batch`` joins the measured set: the model is an interpolation
     over the whole batch range ``choose_batch`` searches, never an
     extrapolation beyond what was measured.  Each time is host clock
-    around TIMED_CALLS calls, each ending in a wait for the card."""
+    around TIMED_CALLS calls, each ending in a wait for the card, after
+    one warm-up call: for a captured step (:func:`jit_prefill_step`)
+    that call captures the batch's graph, so the timed calls are
+    replays."""
     device = resolve_device(device)
     batches = sorted(set(CURVE_BATCHES) | {int(max_batch)})
     times = {}
@@ -172,6 +182,9 @@ def build_parser() -> argparse.ArgumentParser:
                     help="engine: identical leading prompt tokens across "
                          "requests (paged mode shares their KV blocks)")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--temperature", type=float, default=0.0,
+                    help="engine: per-row sampling temperature (0 = "
+                         "greedy), keys from PRNGKey(seed + 1)")
     ap.add_argument("--interactive-frac", type=float, default=1.0,
                     help="engine: share of requests in the interactive "
                          "SLO class (the rest are batch), split by a "
@@ -194,7 +207,6 @@ def build_parser() -> argparse.ArgumentParser:
     unported.add_argument("--models", default=None, metavar="A,B")
     unported.add_argument("--model-quota", action="append", default=[],
                           metavar="TAG=N")
-    unported.add_argument("--temperature", type=float, default=0.0)
     unported.add_argument("--arrival", default="poisson",
                           choices=["poisson", "mmpp", "diurnal"])
     unported.add_argument("--spec-k", type=int, default=0)
@@ -273,7 +285,7 @@ def run(args: argparse.Namespace) -> ServeRun:
             params = R.init(gen, cfg, device=device)
     out = ServeRun(code=1, cfg=cfg, params=params, mode=mode)
 
-    prefill = ST.make_prefill_step(cfg, mode=mode)
+    prefill = ST.jit_prefill_step(ST.make_prefill_step(cfg, mode=mode))
     model, curve = measure_service_curve(prefill, params, cfg, seq=args.seq,
                                          max_batch=args.max_batch,
                                          device=device)
@@ -338,6 +350,9 @@ def run(args: argparse.Namespace) -> ServeRun:
                        prefill_chunk=args.prefill_chunk or None,
                        block_size=args.block_size or None,
                        num_blocks=args.num_blocks or None,
+                       temperature=args.temperature,
+                       rng=(PRNGKey(args.seed + 1)
+                            if args.temperature > 0 else None),
                        device=device)
     except ValueError as e:
         print(f"[engine] config rejected: {e}")

@@ -3,10 +3,12 @@ reference's ``jax.jit`` with the KV cache donated (one compiled shape
 over buffers updated in place).
 
 :class:`CapturedStep` wraps ``fn(params, cache, *inputs) -> outputs``:
-``cache`` a dict of tensors that ``fn`` updates in place, ``inputs`` and
-``outputs`` tuples of tensors.  It keeps one graph per binding: the
-params and cache leaves (by identity) and the inputs' shapes and dtypes
-it was called with.  On the card, the first call of a binding:
+``cache`` a dict of tensors that ``fn`` updates in place (empty for a
+step without one, which then runs on its first input's device),
+``inputs`` and ``outputs`` tuples of tensors.  It keeps one graph per
+binding: the params and cache leaves (by identity) and the inputs'
+shapes and dtypes it was called with.  On the card, the first call of a
+binding:
 
 1. allocates a static buffer for each input on the cache's device and
    copies the inputs in;
@@ -182,7 +184,8 @@ class CapturedStep:
               inputs) -> Binding:
         while len(self._bindings) >= self.max_bindings:
             self._bindings.popitem(last=False)
-        device = next(iter(cache.values())).device
+        # a step with no cache (the prefill) runs where its inputs lie
+        device = next(iter(cache.values()) if cache else iter(inputs)).device
         b = Binding(leaves, cache,
                      tuple(x.to(device, copy=True) for x in inputs))
         self.captures += 1

@@ -12,22 +12,30 @@ wrappers capture the slot tick, the decode loop and the chunk step over
 static buffers and the caller's cache and replay them, bit for bit the
 eager steps they wrap, and ``cached_slot_decode_step`` and
 ``cached_prefill_chunk_step`` memoize the captured tick and chunk step as
-the reference memoizes its compiled ones.  Under W8A16 the chunk step
-prefills a chunk in one (1, n) decode pass whose cache bytes are the
-per-token path's (:func:`make_prefill_chunk_step`; the per-token
-reference is :func:`make_per_token_chunk_step`).  The prefill step
-stays eager (ROADMAP queue 1, item 6).
+the reference memoizes its compiled ones; ``jit_prefill_step`` captures
+the full-sequence forward, a graph per batch shape.  Under W8A16 the
+chunk step prefills a chunk in one (1, n) decode pass whose cache bytes
+are the per-token path's (:func:`make_prefill_chunk_step`; the per-token
+reference is :func:`make_per_token_chunk_step`).
+
+With ``temperature > 0`` the decode loop and the slot tick sample
+(:func:`temperature_sample`, :func:`temperature_sample_rows`) with the
+reference's key schedule, ``fold_in(rng, position)`` on the threefry
+keys of ``runtime/prng.py``; the captured forms take the key as one more
+graph input.
 """
 from __future__ import annotations
 
 from typing import Callable
 
+import numpy as np
 import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.qlinear import FP, QuantMode
 from repro_torch.core.quant import QTensor
 from repro_torch.models import registry as R
+from repro_torch.runtime import prng as P
 from repro_torch.runtime.graphs import MAX_BINDINGS, CapturedStep
 
 
@@ -36,6 +44,28 @@ def make_prefill_step(cfg: ArchConfig, *, mode: QuantMode = FP) -> Callable:
         # inference: no remat needed (no backward pass)
         return R.apply_forward(params, cfg, batch, mode=mode, remat=False)
     return prefill_step
+
+
+def jit_prefill_step(step: Callable) -> Callable:
+    """A prefill step (:func:`make_prefill_step`) captured as CUDA graphs
+    (the reference's ``jax.jit`` of it): ``step(params, batch) -> logits``
+    with ``batch["tokens"]`` (B, S) on the params' device.  Each tokens
+    shape has a graph of its own, captured at its first call (the service
+    curve's warm-up call), so every later call of that shape replays it;
+    the logits are a static buffer that the next call of that shape
+    overwrites.  ``graphed.binding(params, batch)`` is the binding such a
+    call replays (``CapturedStep.binding``)."""
+    captured = CapturedStep(
+        lambda params, cache, tokens: (step(params, {"tokens": tokens}),))
+
+    def graphed(params, batch):
+        logits, = captured(params, {}, batch["tokens"])
+        return logits
+
+    graphed.captured = captured
+    graphed.binding = lambda params, batch: captured.binding(
+        params, {}, batch["tokens"])
+    return graphed
 
 
 def make_decode_step(cfg: ArchConfig, *, mode: QuantMode = FP) -> Callable:
@@ -79,26 +109,72 @@ def greedy_sample(logits: torch.Tensor) -> torch.Tensor:
     return torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
 
 
+def _scaled(logits: torch.Tensor, temperature: float) -> torch.Tensor:
+    """The last position's f32 logits over the temperature, as the
+    reference's jitted steps compute ``x / t``: XLA rewrites a division by
+    a constant as a multiply by its f32 reciprocal.  Every sampler here
+    multiplies so, the sequential reference's too, and the engine equals
+    that reference bit for bit."""
+    inv = float(np.float32(1.0) / np.float32(temperature))
+    return logits[:, -1].float() * inv
+
+
+def sampling_scores(logits: torch.Tensor, keys: torch.Tensor,
+                    temperature: float) -> torch.Tensor:
+    """The scores a sampled row takes the argmax of: ``logits[:, -1] / t``
+    plus row r's Gumbel noise from ``keys[r]`` (B, V) f32 — what
+    ``margins`` of a sampled reference measures the top-2 gap of."""
+    last = _scaled(logits, temperature)
+    return P.gumbel(keys, last.shape) + last
+
+
+def temperature_sample(logits: torch.Tensor, key: torch.Tensor,
+                       temperature: float = 1.0) -> torch.Tensor:
+    """``jax.random.categorical(key, logits[:, -1] / t)``: ONE key for the
+    whole (B, V) draw, as the reference's decode loop samples its
+    lockstep batch."""
+    return P.categorical(key, _scaled(logits, temperature)).to(torch.int32)
+
+
+def temperature_sample_rows(logits: torch.Tensor, keys: torch.Tensor,
+                            temperature: float = 1.0) -> torch.Tensor:
+    """Per-row temperature sampling: row r draws with ``keys[r]`` (keys
+    (B, 2)), the slot engine's schedule.  A row's draw is bitwise
+    :func:`temperature_sample` of that row alone at batch 1 with the same
+    key, and the same whatever rows sit beside it: every op is
+    elementwise, then an argmax along the vocabulary (first index among
+    ties)."""
+    return torch.argmax(sampling_scores(logits, keys, temperature),
+                        dim=-1).to(torch.int32)
+
+
+def _needs_rng(temperature: float, rng, call: str) -> None:
+    if temperature > 0.0 and rng is None:
+        raise ValueError(f"temperature sampling needs an rng key: {call}")
+
+
 def make_decode_loop(cfg: ArchConfig, *, mode: QuantMode = FP,
                      num_tokens: int, temperature: float = 0.0) -> Callable:
-    """Multi-token greedy decode of a lockstep batch.
+    """Multi-token decode of a lockstep batch.
 
-    Returns ``loop(params, tokens, cache, cache_index) -> (out, cache)``
-    with ``tokens`` (B, 1) int32 seed, ``cache_index`` the position of
-    the first step, and ``out`` (B, num_tokens) int32 generated tokens;
-    the cache is updated in place.  The reference scans the steps inside
-    one jit; here they are a Python loop over the same decode step.
+    Returns ``loop(params, tokens, cache, cache_index, rng=None) -> (out,
+    cache)`` with ``tokens`` (B, 1) int32 seed, ``cache_index`` the
+    position of the first step, and ``out`` (B, num_tokens) int32
+    generated tokens; the cache is updated in place.  With the default
+    ``temperature=0.0`` sampling is greedy (``rng`` ignored);
+    ``temperature > 0`` draws from :func:`temperature_sample` with the
+    per-step key ``fold_in(rng, cache_index + step)``, and a missing
+    ``rng`` raises ValueError.  The reference scans the steps inside one
+    jit; here they are a Python loop over the same decode step.
     ``cache_index`` is an int, or a device tensor of one or B values (all
     equal: the batch is in lockstep), which runs the decode step's
     per-row form with every row at that place, as the captured loop does
     (:func:`jit_decode_loop`); both forms give the same bits."""
-    if temperature > 0.0:
-        raise NotImplementedError(
-            "temperature sampling is not ported yet (ROADMAP queue 1, "
-            "item 10)")
     decode = make_decode_step(cfg, mode=mode)
 
-    def loop(params, tokens, cache, cache_index):
+    def loop(params, tokens, cache, cache_index, rng=None):
+        _needs_rng(temperature, rng,
+                   "loop(params, tokens, cache, cache_index, rng)")
         if isinstance(cache_index, torch.Tensor):
             idx = cache_index.reshape(-1).expand(tokens.shape[0])
         else:
@@ -107,39 +183,48 @@ def make_decode_loop(cfg: ArchConfig, *, mode: QuantMode = FP,
         for _ in range(num_tokens):
             logits, cache = decode(params, {"tokens": tok,
                                             "cache_index": idx}, cache)
-            nxt = greedy_sample(logits)
+            if temperature > 0.0:
+                pos = idx[0] if isinstance(idx, torch.Tensor) else idx
+                nxt = temperature_sample(logits, P.fold_in(rng, pos),
+                                         temperature)
+            else:
+                nxt = greedy_sample(logits)
             out.append(nxt)
             tok, idx = nxt[:, None], idx + 1
         return torch.stack(out, dim=1), cache
 
+    loop.temperature = temperature
     return loop
 
 
 def jit_decode_loop(loop: Callable) -> Callable:
     """A decode loop captured as one CUDA graph over its cache (the
     reference's ``jax.jit`` with the cache donated): ``loop(params,
-    tokens, cache, cache_index) -> (out, cache)`` as
+    tokens, cache, cache_index, rng=None) -> (out, cache)`` as
     :func:`make_decode_loop`'s, with ``cache_index`` an int or a tensor
-    of one or B values.  The start position lives in a static buffer, so
-    one graph serves every start; ``out`` is a static buffer that the
-    next call overwrites.  ``graphed.binding(params, tokens, cache,
-    cache_index)`` is the binding such a call replays
-    (``CapturedStep.binding``)."""
+    of one or B values.  The start position and, when the loop samples,
+    the key live in static buffers, so one graph serves every start and
+    every key; ``out`` is a static buffer that the next call overwrites.
+    ``graphed.binding(params, tokens, cache, cache_index, rng=None)`` is
+    the binding such a call replays (``CapturedStep.binding``)."""
+    sampled = loop.temperature > 0.0
     captured = CapturedStep(
-        lambda params, cache, tokens, start: loop(params, tokens, cache,
-                                                  start)[:1])
+        lambda params, cache, tokens, start, *rng: loop(
+            params, tokens, cache, start, *rng)[:1])
 
-    def inputs(tokens, cache_index):
-        return tokens, torch.as_tensor(cache_index,
-                                       dtype=torch.int32).reshape(-1)
+    def inputs(tokens, cache_index, rng):
+        _needs_rng(loop.temperature, rng,
+                   "loop(params, tokens, cache, cache_index, rng)")
+        start = torch.as_tensor(cache_index, dtype=torch.int32).reshape(-1)
+        return (tokens, start) + ((rng,) if sampled else ())
 
-    def graphed(params, tokens, cache, cache_index):
-        out, = captured(params, cache, *inputs(tokens, cache_index))
+    def graphed(params, tokens, cache, cache_index, rng=None):
+        out, = captured(params, cache, *inputs(tokens, cache_index, rng))
         return out, cache
 
     graphed.captured = captured
-    graphed.binding = lambda params, tokens, cache, cache_index: \
-        captured.binding(params, cache, *inputs(tokens, cache_index))
+    graphed.binding = lambda params, tokens, cache, cache_index, rng=None: \
+        captured.binding(params, cache, *inputs(tokens, cache_index, rng))
     return graphed
 
 
@@ -150,23 +235,32 @@ def make_slot_decode_step(cfg: ArchConfig, *, mode: QuantMode = FP,
 
     Returns ``step(params, tokens, cache, slot_index, active) ->
     (next_tokens, cache, slot_index)`` with ``tokens`` (S, 1) int32,
-    ``slot_index`` (S,) int32 per-slot positions and ``active`` (S,) bool.
-    Inactive rows emit 0 and keep their index; a row whose logits hold a
-    NaN/Inf emits the sentinel -1.  Inactive rows still write their k/v at
-    their frozen index, which no read can see (every read is masked at the
-    row's own frontier); on a paged cache they write through their table,
-    into trash block 0 once the row is retired."""
-    if temperature > 0.0:
-        raise NotImplementedError(
-            "temperature sampling is not ported yet (ROADMAP queue 1, "
-            "item 10)")
+    ``slot_index`` (S,) int32 per-slot positions and ``active`` (S,) bool;
+    with ``temperature > 0`` the step takes a trailing ``rng`` key and
+    row r draws with ``fold_in(rng, slot_index[r])``
+    (:func:`temperature_sample_rows`), the per-row form of
+    :func:`make_decode_loop`'s schedule.  Inactive rows emit 0 and keep
+    their index; a row whose logits hold a NaN/Inf emits the sentinel -1.
+    Inactive rows still write their k/v at their frozen index, which no
+    read can see (every read is masked at the row's own frontier); on a
+    paged cache they write through their table, into trash block 0 once
+    the row is retired."""
     decode = make_decode_step(cfg, mode=mode)
 
-    def step(params, tokens, cache, slot_index, active):
+    def step(params, tokens, cache, slot_index, active, *rng):
+        if len(rng) != (temperature > 0.0):
+            raise TypeError(
+                "a sampled slot step takes a trailing rng key, a greedy "
+                "one none: step(params, tokens, cache, slot_index, active"
+                + (", rng)" if temperature > 0.0 else ")"))
         logits, cache = decode(
             params, {"tokens": tokens, "cache_index": slot_index}, cache)
         cache = R.mask_inactive_slots(cfg, cache, cache, active)
-        nxt = greedy_sample(logits)
+        if temperature > 0.0:
+            nxt = temperature_sample_rows(
+                logits, P.fold_in(rng[0], slot_index), temperature)
+        else:
+            nxt = greedy_sample(logits)
         finite = torch.isfinite(logits[:, -1].float()).all(dim=-1)
         nxt = torch.where(finite, nxt, torch.full_like(nxt, -1))
         nxt = torch.where(active, nxt, torch.zeros_like(nxt))
@@ -178,26 +272,31 @@ def make_slot_decode_step(cfg: ArchConfig, *, mode: QuantMode = FP,
 def jit_slot_decode_step(step: Callable) -> Callable:
     """A slot tick captured as one CUDA graph over its cache (the
     reference's ``jax.jit`` with the cache donated): ``step(params,
-    tokens, cache, slot_index, active) -> (next_tokens, cache,
-    slot_index)`` as :func:`make_slot_decode_step`'s.  ``next_tokens``
-    and the new ``slot_index`` are static buffers that the next call
-    overwrites; a paged cache's ``block_tables`` is read where it lies, so
-    the caller updates it in place.  ``graphed.binding(params, tokens,
-    cache, slot_index, active)`` is the binding such a call replays
+    tokens, cache, slot_index, active[, rng]) -> (next_tokens, cache,
+    slot_index)`` as :func:`make_slot_decode_step`'s.  A sampled step's
+    key is a graph input like the others, copied into a static buffer at
+    each call, so one graph serves any key.  ``next_tokens`` and the new
+    ``slot_index`` are static buffers that the next call overwrites; a
+    paged cache's ``block_tables`` is read where it lies, so the caller
+    updates it in place.  ``graphed.binding(params, tokens, cache,
+    slot_index, active[, rng])`` is the binding such a call replays
     (``CapturedStep.binding``)."""
-    def body(params, cache, tokens, slot_index, active):
-        nxt, _, new_index = step(params, tokens, cache, slot_index, active)
+    def body(params, cache, tokens, slot_index, active, *rng):
+        nxt, _, new_index = step(params, tokens, cache, slot_index, active,
+                                 *rng)
         return nxt, new_index
 
     captured = CapturedStep(body)
 
-    def graphed(params, tokens, cache, slot_index, active):
-        nxt, new_index = captured(params, cache, tokens, slot_index, active)
+    def graphed(params, tokens, cache, slot_index, active, *rng):
+        nxt, new_index = captured(params, cache, tokens, slot_index, active,
+                                  *rng)
         return nxt, cache, new_index
 
     graphed.captured = captured
-    graphed.binding = lambda params, tokens, cache, slot_index, active: \
-        captured.binding(params, cache, tokens, slot_index, active)
+    graphed.binding = lambda params, tokens, cache, slot_index, active, \
+        *rng: captured.binding(params, cache, tokens, slot_index, active,
+                               *rng)
     return graphed
 
 

@@ -8,9 +8,12 @@ which path each caller takes, rmsnorm's row invariance, and the slot
 tick, the decode loop and the chunk step captured as CUDA graphs
 (bitwise the eager steps, the one-pass chunk bitwise the per-token one,
 recaptured on other tensors, holding their workspace, engines taking
-turns capturing once each, a failed capture raising), and a paged serve
-through preemption and injected faults equal to its control serve, at
-small shapes.
+turns capturing once each, a failed capture raising), a paged serve
+through preemption and injected faults equal to its control serve, the
+threefry PRNG and the sampler on the card (bitwise the CPU's, rows
+bitwise alone and in a batch), the captured sampled tick and a sampled
+engine, and the service curve's forward captured (bitwise the eager
+one), at small shapes.
 
 Every test here is marked ``gpu`` and skips without a CUDA device; the
 module imports no JAX, so it also runs where only the port is installed:
@@ -1237,3 +1240,129 @@ def test_paged_overload_serve_on_card_equals_control(cuda):
     assert rep.outputs() == control.outputs()
     assert control.outputs() == E.reference_outputs(
         cfg, params, reqs, mode=W8A16, max_seq=eng.max_seq)
+
+
+# ---------------------------------------------------------------------------
+# temperature sampling and the captured service-curve forward
+# ---------------------------------------------------------------------------
+
+def test_prng_on_card_equals_cpu(cuda):
+    """The threefry keys and draws on the card against the CPU's: fold_in
+    over 4,096 positions, random_bits and uniform bitwise at the dense
+    vocabularies, gumbel within 4 ulps of max(|g|, 1) (the bound of
+    tests/test_torch_sampling.py)."""
+    from repro_torch.runtime import prng as P
+    tiny = float(torch.finfo(torch.float32).tiny)
+    for seed in (0, 7):
+        kc, kg = P.PRNGKey(seed), P.PRNGKey(seed, device=cuda)
+        pos = torch.arange(4096, dtype=torch.int32)
+        keys_c, keys_g = P.fold_in(kc, pos), P.fold_in(kg, pos.to(cuda))
+        assert torch.equal(keys_g.cpu(), keys_c)
+        for vocab in (49152, 131072, 152064):
+            for c, g, shape in ((kc, kg, (2, vocab)),
+                                (keys_c[:4], keys_g[:4], (4, vocab))):
+                assert torch.equal(P.random_bits(g, shape).cpu(),
+                                   P.random_bits(c, shape))
+                assert torch.equal(
+                    P.uniform(g, shape, tiny, 1.0).cpu().view(torch.int32),
+                    P.uniform(c, shape, tiny, 1.0).view(torch.int32))
+                gc = P.gumbel(c, shape).double()
+                gg = P.gumbel(g, shape).cpu().double()
+                unit = torch.from_numpy(np.spacing(np.maximum(
+                    gc.abs().float().numpy(), np.float32(1))))
+                assert ((gg - gc).abs() <= 4 * unit).all()
+
+
+@pytest.mark.parametrize("vocab", [49152, 152064])
+def test_sampled_rows_alone_equal_the_batch_on_card(cuda, vocab):
+    """temperature_sample_rows on the card: each of 8 rows drawn alone
+    (batch 1) equals the same row in the 8-row batch, bitwise."""
+    from repro_torch.runtime import prng as P
+    g = torch.Generator(device=cuda).manual_seed(vocab)
+    logits = torch.randn((8, 1, vocab), generator=g, device=cuda) * 3
+    keys = P.fold_in(P.PRNGKey(1, device=cuda),
+                     torch.tensor([0, 5, 17, 99, 1023, 2048, 4000, 4095],
+                                  device=cuda))
+    with torch.inference_mode():
+        batch = ST.temperature_sample_rows(logits, keys, 0.8)
+        for r in range(8):
+            one = ST.temperature_sample_rows(logits[r:r + 1], keys[r:r + 1],
+                                             0.8)
+            assert one[0] == batch[r], r
+
+
+@pytest.mark.parametrize("kind", ["contiguous", "paged"])
+def test_captured_sampled_tick_equals_eager(cuda, kind):
+    """The sampled tick captured against eager over six ticks of the
+    schedule: next tokens, indices and every cache leaf bitwise; one
+    capture whatever the key (the key is a graph input)."""
+    from repro_torch.runtime import prng as P
+    cfg, params, mode, cache, sched = _graph_case(cuda, kind)
+    eager = ST.make_slot_decode_step(cfg, mode=mode, temperature=0.8)
+    graphed = ST.jit_slot_decode_step(ST.make_slot_decode_step(
+        cfg, mode=mode, temperature=0.8))
+    other = _clone(cache)
+    with torch.inference_mode():
+        for t, tick in enumerate(sched):
+            key = P.PRNGKey(3 + t % 2, device=cuda)
+            if tick["tables"] is not None:
+                for c in (cache, other):
+                    c["block_tables"].copy_(torch.from_numpy(tick["tables"]))
+            args = tick_args(tick, cuda)
+            n_e, _, i_e = eager(params, args[0], cache, args[1], args[2], key)
+            n_g, _, i_g = graphed(params, args[0], other, args[1], args[2],
+                                  key)
+            assert torch.equal(n_g, n_e) and torch.equal(i_g, i_e), t
+            for name in cache:
+                assert torch.equal(other[name], cache[name]), (t, name)
+    assert graphed.captured.captures == 1
+
+
+def test_sampled_engine_on_card_equals_reference(cuda):
+    """A sampled engine on the card (chunked prefill, paged) equals the
+    sampled sequential reference under the same key, and serves through
+    the graphs its warm-up captured."""
+    from repro_torch.runtime import prng as P
+    cfg = dataclasses.replace(get_config("starcoder2-3b").reduced(),
+                              kv_quant=True)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    params = quantize_tree(R.init(gen, cfg, device=cuda), min_size=2048)
+    reqs = E.synthetic_requests(12, rate_per_s=2000.0, vocab=cfg.vocab,
+                                prompt_len=5, max_new_tokens=6)
+    key = P.PRNGKey(9)
+    eng = E.Engine(cfg, params, mode=W8A16, num_slots=4, max_seq=16,
+                   prefill_chunk=4, block_size=4, temperature=0.8, rng=key)
+    eng.warmup()
+    step = eng.backend.slot_step(cfg, mode=W8A16, temperature=0.8)
+    captures = step.captured.captures
+    rep = eng.serve(reqs)
+    assert step.captured.captures == captures
+    assert rep.outputs() == E.reference_outputs(
+        cfg, params, reqs, mode=W8A16, max_seq=eng.max_seq, temperature=0.8,
+        rng=key)
+
+
+@pytest.mark.parametrize("mode", [W8A16, W8A8, None],
+                         ids=["w8a16", "w8a8", "fp"])
+def test_captured_forward_equals_eager(cuda, mode):
+    """The service curve's forward through ``jit_prefill_step`` at batches
+    1, 4 and 16 of 32 tokens: the logits bitwise the eager forward's (the
+    mma path's shared-memory setting made once, before any capture), a
+    graph per batch, none more on a second pass."""
+    from repro_torch.core.qlinear import FP
+    cfg = get_config("starcoder2-3b").reduced()
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    params = R.init(gen, cfg, device=cuda)
+    if mode is not None:
+        params = quantize_tree(params, min_size=2048)
+    eager = ST.make_prefill_step(cfg, mode=mode or FP)
+    graphed = ST.jit_prefill_step(eager)
+    with torch.inference_mode():
+        for _ in range(2):
+            for b in (1, 4, 16):
+                toks = torch.randint(0, cfg.vocab, (b, 32), generator=gen,
+                                     device=cuda, dtype=torch.int32)
+                want = eager(params, {"tokens": toks})
+                got = graphed(params, {"tokens": toks})
+                assert torch.equal(got, want), b
+    assert graphed.captured.captures == graphed.captured.bindings == 3

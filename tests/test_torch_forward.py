@@ -312,12 +312,6 @@ def test_decode_loop_equals_per_token_loop(setup, mode):
         assert torch.equal(cache_a[name], cache_b[name])
 
 
-def test_decode_loop_temperature_names_its_roadmap_item(setup):
-    _, cfg, _ = setup
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ST.make_decode_loop(cfg, num_tokens=2, temperature=0.5)
-
-
 def test_input_specs_match_reference():
     jcfg, cfg = _cfgs()
     for kind in ("train", "prefill", "decode"):

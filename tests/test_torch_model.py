@@ -195,5 +195,3 @@ def test_unported_paths_name_their_roadmap_item(setup):
         R.init_cache(dataclasses.replace(tcfg, window=8), 1, 8, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         R.module_for(dataclasses.replace(tcfg, family="moe"))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ST.make_slot_decode_step(tcfg, mode=W8A16, temperature=0.7)

@@ -7,10 +7,9 @@ The bar is the engine's usual one: bit for bit its own sequential
 reference, now through evictions, re-admissions and injected faults; and,
 on one trace under one ``FaultPlan``, the JAX engine's tokens, statuses,
 preemptions and fired faults.  The reduced starcoder2-3b has W8A16 weights
-bridged from the JAX package's init and an int8 KV cache.
-
-``test_sampled_resume_parity`` (sampled decoding through a resume) waits
-for temperature sampling (ROADMAP queue 1, item 10)."""
+bridged from the JAX package's init and an int8 KV cache.  Sampled
+decoding keeps the bar through resumes and faults: its keys are
+``fold_in(rng, position)``, a function of the position alone."""
 import dataclasses
 import warnings
 
@@ -35,6 +34,7 @@ from repro_torch.core import batching as bt
 from repro_torch.core.qlinear import W8A16
 from repro_torch.engine.faults import FAULT_KINDS, Fault, FaultPlan
 from repro_torch.models import bridge
+from repro_torch.runtime.prng import PRNGKey
 
 from test_torch_model import to_numpy
 
@@ -250,6 +250,27 @@ class TestPreemption:
         victims = [r for r in rep.results if r.preemptions]
         assert victims and all(r.priority == "batch" for r in victims)
 
+    @pytest.mark.parametrize("pressure", ["blocks", "slots"])
+    def test_sampled_resume_parity(self, dense_setup, pressure):
+        """Position-derived sampling keys make resume exact for sampled
+        decoding too, not just greedy: under block pressure (paged, 8
+        usable blocks) or slot pressure (two contiguous slots), on the
+        two-class trace the greedy preemption tests serve."""
+        cfg, params = dense_setup
+        rng = PRNGKey(7)
+        reqs = E.synthetic_requests(
+            10, rate_per_s=2000.0, vocab=cfg.vocab, prompt_len=3,
+            max_new_tokens=5, priority=_two_class)
+        want = E.reference_outputs(cfg, params, reqs, mode=W8A16,
+                                   max_seq=MAX_SEQ, device="cpu",
+                                   temperature=0.8, rng=rng)
+        kw = ({"block_size": 4, "num_blocks": 9} if pressure == "blocks"
+              else {"num_slots": 2})
+        eng = _engine(cfg, params, temperature=0.8, rng=rng, **kw)
+        rep = eng.serve(reqs, preemption=True)
+        assert rep.outputs() == want
+        assert rep.preempted > 0 and rep.leaked_blocks == 0
+
     def test_uniform_class_never_preempts(self, dense_setup):
         """Preemption only evicts a *strictly* lower class than the
         waiting head: a single-class trace can never preempt, with the
@@ -421,6 +442,32 @@ class TestFaultInjection:
         assert rep.outputs() == want
         assert rep.torn_rows_repaired >= 1
         assert rep.leaked_blocks == 0
+
+    @pytest.mark.parametrize("block_size", [None, 4])
+    def test_sampled_faults_recover_bitwise(self, dense_setup, block_size):
+        """A sampled engine under a transient dispatch fault, a non-finite
+        sample and (paged) a torn table row: every request equals the
+        sampled reference, nothing leaks."""
+        cfg, params = dense_setup
+        rng = PRNGKey(3)
+        reqs = E.synthetic_requests(
+            10, rate_per_s=2000.0, vocab=cfg.vocab, prompt_len=3,
+            max_new_tokens=5, priority=_two_class)
+        want = E.reference_outputs(cfg, params, reqs, mode=W8A16,
+                                   max_seq=MAX_SEQ, device="cpu",
+                                   temperature=0.8, rng=rng)
+        faults = [Fault(tick=4, kind="dispatch", slot=0, repeat=2),
+                  Fault(tick=6, kind="nan_logits", slot=1)]
+        if block_size:
+            faults.append(Fault(tick=8, kind="torn_table", slot=2))
+        plan = FaultPlan(faults)
+        eng = _engine(cfg, params, block_size=block_size, temperature=0.8,
+                      rng=rng)
+        rep = eng.serve(reqs, preemption=True, fault_plan=plan)
+        assert len(plan.fired) == sum(f.repeat for f in faults)
+        assert rep.outputs() == want
+        assert rep.failed == 0 and rep.leaked_blocks == 0
+        assert rep.nonfinite_samples >= 1
 
     def test_torn_row_leaves_the_binding_alone(self, dense_setup, trace):
         """The tear is written into the cache's block-table tensor in

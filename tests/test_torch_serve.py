@@ -65,7 +65,7 @@ def test_serve_unattainable_deadline_returns_one(capsys):
 
 UNPORTED = [("--models", "starcoder2-3b,starcoder2-3b"),
             ("--model-quota", "starcoder2-3b=2"),
-            ("--temperature", "0.7"), ("--arrival", "mmpp"),
+            ("--arrival", "mmpp"),
             ("--spec-k", "2"), ("--draft", "starcoder2-3b"),
             ("--draft-layers", "1"), ("--replicas", "2"), ("--tp", "2")]
 
@@ -213,3 +213,63 @@ def test_serve_defaults_to_the_card():
         pytest.skip("a CUDA device is present")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         serve.main(["--arch", "starcoder2-3b", "--reduced"])
+
+
+@pytest.mark.parametrize("paging", [[], ["--block-size", "4"]],
+                         ids=["contiguous", "paged"])
+def test_serve_temperature_samples_as_the_reference(paging, capsys):
+    """--temperature 0.8: the engine samples with PRNGKey(seed + 1) and
+    the fold_in(rng, position) schedule: every request equals the sampled
+    reference_outputs under that key (bf16 cache), and the run's tokens
+    are not the greedy ones; the decode loop's tok/s stays greedy."""
+    from repro_torch import engine as E
+    from repro_torch.runtime.prng import PRNGKey
+    res = serve.run(serve.parse_args(BASE + ["--n-requests", "8",
+                                             "--temperature", "0.8"]
+                                     + paging))
+    assert res.code == 0
+    assert "[decode]" in capsys.readouterr().out
+    eng, rep = res.engine, res.report
+    assert eng.temperature == 0.8
+    assert torch.equal(eng.rng, PRNGKey(1))           # --seed 0, plus 1
+    assert all(r.status == "ok" for r in rep.results)
+    kw = dict(mode=res.mode, max_seq=eng.max_seq, device="cpu")
+    want = E.reference_outputs(res.cfg, res.params, res.requests,
+                               temperature=0.8, rng=PRNGKey(1), **kw)
+    assert rep.outputs() == want
+    assert want != E.reference_outputs(res.cfg, res.params, res.requests,
+                                       **kw)
+    if paging:
+        assert rep.block_size == 4 and rep.leaked_blocks == 0
+
+
+def test_service_curve_captures_one_graph_per_batch():
+    """``jit_prefill_step`` under ``measure_service_curve``: one binding
+    per measured batch, captured by the warm-up call, none more on a
+    second curve; each batch's logits bitwise the eager forward's."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.qlinear import W8A16
+    from repro_torch.models import registry as R
+    from repro_torch.runtime import steps as ST
+    from repro_torch.runtime.graphs import MAX_BINDINGS
+
+    assert len(serve.CURVE_BATCHES) + 1 <= MAX_BINDINGS
+    cfg = get_config("starcoder2-3b").reduced()
+    with torch.inference_mode():
+        params = R.init_quantized(torch.Generator().manual_seed(0), cfg,
+                                  min_size=2048, device="cpu")
+    eager = ST.make_prefill_step(cfg, mode=W8A16)
+    prefill = ST.jit_prefill_step(eager)
+    for _ in range(2):
+        _, curve = serve.measure_service_curve(prefill, params, cfg, seq=8,
+                                               max_batch=4, device="cpu")
+        assert sorted(curve) == [1, 4, 16]
+        assert prefill.captured.captures == prefill.captured.bindings == 3
+    g = torch.Generator().manual_seed(1)
+    with torch.inference_mode():
+        for b in sorted(curve):
+            batch = {"tokens": torch.randint(0, cfg.vocab, (b, 8),
+                                             generator=g, dtype=torch.int32)}
+            assert prefill.binding(params, batch) is not None
+            assert torch.equal(prefill(params, batch), eager(params, batch))
+    assert prefill.captured.captures == 3
