@@ -128,7 +128,27 @@ Phases, each of which fails the run (non-zero exit, no result line):
    --num-blocks 25 --shared-prefix-len 16`` (24 usable blocks against 48),
    exit 0, its service curve on the mma path and flash attention at
    H = 32 (eager against captured as in phase 8), four of its requests
-   equal to ``reference_outputs``.
+   equal to ``reference_outputs``;
+10. moe: qwen2-moe-a2.7b at full width (24 layers, 60 routed experts
+   top-4 and 4 shared, vocab 151,936 tied).  First ``qmatmul_w8a16``'s
+   expert-stacked entry at a tick's shapes (60 experts x 8 rows: w_gate
+   with the silu drain, w_up, w_down) and the serve CLI curve's (3, 12
+   and 48 rows an expert) against its plain version, every row bitwise
+   alone and in its batch, a stack of one bitwise the 2-D GEMV, timed at
+   8 and 48 rows beside ``torch.bmm`` on bf16 experts and the bound, and
+   the router's GEMV (2048 x 60, f32); the router's softmax and stable
+   top-4 rows bitwise alone and in a batch; then the model from the
+   streamed init (peak under 20 GB), served as the dense configs are
+   (contiguous bf16 held to ``reference_outputs``, paged held to
+   contiguous with no leak, the int8 cache held to
+   ``reference_outputs``), the captured chunk pass bitwise the per-token
+   steps (every token routed alone; bf16 contiguous and int8 paged),
+   the captured steady tick on both caches against the floors of every
+   expert's weights and of the experts its tokens route to, with the
+   device time by part, and the serve CLI with the dense CLI's flags
+   (its curve's forward routes with capacity 3 and drops tokens; the
+   captured forward bitwise the eager one; four requests equal to
+   ``reference_outputs``).
 
 The kernel phase holds both of ``qmatmul_w8a16``'s kernels (the GEMV and
 the ``mma.sync`` bf16 tensor-core path) at every projection and the LM
@@ -163,11 +183,12 @@ launches and the LM head's GEMV) and no more ``cudaLaunchKernel`` calls
 than before the redesigns.
 
 ``--only attention`` / ``--only long_tick`` / ``--only w8a8`` / ``--only
-graphs`` / ``--only dense`` / ``--only sampling`` run just the two
-attention kernel phases, the long-context ticks, ``qmatmul_w8a8``'s
-kernel phase and the W8A8 tick, the five eager tick breakdowns and the
-graph phase, the dense family's kernel rows, rmsnorm widths and phase 9,
-or phase 7 and the sampled serve CLI run, and ``--src DIR``
+graphs`` / ``--only dense`` / ``--only sampling`` / ``--only moe`` run
+just the two attention kernel phases, the long-context ticks,
+``qmatmul_w8a8``'s kernel phase and the W8A8 tick, the five eager tick
+breakdowns and the graph phase, the dense family's kernel rows, rmsnorm
+widths and phase 9, phase 7 and the sampled serve CLI run, or phase
+10, and ``--src DIR``
 takes the port from
 another checkout's ``src/`` (so the same phases time a parent commit's
 kernels); such a partial run prints no result line.
@@ -175,7 +196,9 @@ kernels); such a partial run prints no result line.
 It prints the card's name and power limit, a JSON line with every
 kernel's numbers (qmatmul_w8a16's with both paths under ``paths``, the
 attention kernels' long-context case under ``long_context``, the rows at
-the dense configs' shapes under ``dense``), the whole run's time, and,
+the dense configs' shapes under ``dense``, qmatmul_w8a16's expert-stacked
+entry under ``experts`` and each kernel's MoE launches under ``moe``),
+the whole run's time, and,
 last, ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
 without the repo's ``src/repro_torch`` beside it, it exits non-zero and
 prints no result.
@@ -1262,7 +1285,7 @@ def _counted():
     from repro_torch.kernels import qmatmul as K
     return ((K.qmatmul_w8a16, A.decode_attention_int8,
              A.decode_attention_int8_paged, K.qmatmul_w8a8,
-             FA.flash_attention_bhsd),
+             FA.flash_attention_bhsd, K.qmatmul_w8a16_experts),
             (K.qmatmul_w8a16_ref, A.decode_attention_int8_ref,
              A.decode_attention_int8_paged_ref, K.qmatmul_w8a8_ref,
              FA.flash_attention_ref))
@@ -1752,9 +1775,12 @@ def serve_run(quant, curve_paths, flags=(), base=SERVE_ARGS, label=None):
     if outside:
         raise AssertionError(f"{label}: the decode loop or the engine took "
                              f"qmatmul_w8a16's mma path {outside} times")
-    if quant == "w8a16" and (curve_paths["gemv"] or curve_paths["mma"] <= 0):
+    if quant == "w8a16" and (
+            curve_paths["gemv"] != router_gemvs(res.cfg, curve_paths["mma"])
+            or curve_paths["mma"] <= 0):
         raise AssertionError(f"{label}: the service curve's forward must "
-                             f"launch only the mma path: {curve_paths}")
+                             f"launch only the mma path (an MoE router the "
+                             f"GEMV): {curve_paths}")
     if quant == "w8a8" and curve_paths["mma"]:
         raise AssertionError(f"{label}: the W8A8 forward took qmatmul_w8a16's "
                              f"mma path: {curve_paths}")
@@ -1785,6 +1811,23 @@ def serve_run(quant, curve_paths, flags=(), base=SERVE_ARGS, label=None):
         forward_breakdown(label, res)
         curve_check(label, res, serve.parse_args(argv))
     return launches, res
+
+
+def gemvs_per_layer(cfg) -> int:
+    """qmatmul_w8a16's GEMV launches of one decode step per layer (every
+    projection int8): the attention's four, the (shared) MLP's two or
+    three, and an MoE layer's router."""
+    return 4 + (3 if cfg.gated_mlp else 2) + (cfg.family == "moe")
+
+
+def router_gemvs(cfg, mma: int) -> int:
+    """The GEMV launches of the W8A16 forwards that made ``mma`` mma-path
+    launches: an MoE layer's router runs on the GEMV (f32 x), one a layer;
+    a dense forward launches none."""
+    if cfg.family != "moe":
+        return 0
+    per_forward = (gemvs_per_layer(cfg) - 1) * cfg.n_layers + 1
+    return mma // per_forward * cfg.n_layers
 
 
 def torch_cuda_empty() -> None:
@@ -1863,7 +1906,7 @@ EAGER_TICKS = {}
 
 
 def tick_breakdown(cfg, params, num_slots: int, max_seq: int,
-                   block_size: int = 0, ticks: int = 10,
+                   block_size: int = 0, ticks: int = 5,
                    label: str = "tick", mode: str = "w8a16") -> None:
     """Where one steady-state slot tick's time goes: all slots active at a
     mid-sequence position, through the eager step.  ``block_size``: the same tick on a paged
@@ -2216,7 +2259,10 @@ CHUNK_CASES = (
     ("long chunk", NUM_SLOTS, LONG_SLOTS, 0, "w8a16", True, 3, 2046),
     ("bf16 chunk", SERVE_MAX_BATCH, SERVE_SEQ, 0, "w8a16", False, 5, 9),
     ("w8a8 chunk", SERVE_MAX_BATCH, SERVE_SEQ, 0, "w8a8", False, 5, 9))
-CHUNK_REPS = 5
+# reps of each chunk breakdown: at 5, torch.profiler's bookkeeping of the
+# per-token eager chunk's 6,000-13,500 launches a call took 197 of the
+# graph phase's 300 s (PERF.md, Findings)
+CHUNK_REPS = 2
 
 
 def graph_chunk_case(cfg, params, label, S, max_seq, block_size, mode,
@@ -2227,10 +2273,11 @@ def graph_chunk_case(cfg, params, label, S, max_seq, block_size, mode,
     eager step (under W8A16 one pass) and the captured step (one graph
     per n_valid), each on its copy of one random cache, every cache leaf
     ``torch.equal`` to the per-token step's; a replay's launch counts the
-    eager one pass's (under W8A16: 6 x layers GEMVs and one paged
-    attention launch a layer, where the per-token step launches n
-    times that); then a full chunk's wall, device busy and launch calls
-    three ways.  Returns the breakdowns by way."""
+    eager one pass's (under W8A16: ``gemvs_per_layer`` x layers GEMVs,
+    an MoE layer's three expert stacks and one paged attention launch a
+    layer, where the per-token step launches n times that); then a full
+    chunk's wall, device busy and launch calls three ways.  Returns the
+    breakdowns by way."""
     import torch
     from repro_torch.core.qlinear import W8A8, W8A16
     from repro_torch.runtime import steps as ST
@@ -2286,12 +2333,14 @@ def graph_chunk_case(cfg, params, label, S, max_seq, block_size, mode,
                                          f"from the per-token step's")
         if any(plain.values()):
             raise AssertionError(f"{label}: a plain version ran: {plain}")
-        projections = 6 * cfg.n_layers
+        projections = gemvs_per_layer(cfg) * cfg.n_layers
         key = "qmatmul_w8a16[gemv]" if one_pass else "qmatmul_w8a8"
         passes = 1 if one_pass else n
+        stacks = 3 * cfg.n_layers if cfg.family == "moe" else 0
         if (per_graph != per_eager and one_pass) \
                 or per_graph[key] != passes * projections \
                 or per_tok[key] != n * projections \
+                or per_graph["qmatmul_w8a16_experts"] != passes * stacks \
                 or per_graph["qmatmul_w8a16[mma]"] \
                 or (kv_quant and per_graph["decode_attention_int8_paged"]
                     != passes * cfg.n_layers):
@@ -2903,8 +2952,9 @@ DENSE_SHARED = DENSE_BLOCK
 DENSE_NUM_BLOCKS = 1 + 4 * (DENSE_MAX_SEQ // DENSE_BLOCK)
 DENSE_RATE_PER_S = 20.0
 # qwen1.5-32b's 35.2 GB of int8 weights must come from an init whose peak
-# stays below this (its f32 tree alone is 141 GB)
-DENSE_PEAK_BYTES = {"qwen1.5-32b": 45e9}
+# stays below this (its f32 tree alone is 141 GB); qwen2-moe-a2.7b's 14.0 GB
+# from one under 20 GB (its f32 tree is 56 GB, one f32 layer 2.28 GB)
+PEAK_BYTES = {"qwen1.5-32b": 45e9, "qwen2-moe-a2.7b": 20e9}
 # the decode attention kernels' rows at the dense configs' (KV heads, G):
 # qwen1.5-32b, mistral-nemo-12b, internlm2-20b
 DENSE_HEADS = ((40, 1), (8, 4), (8, 6))
@@ -3087,7 +3137,8 @@ def build_dense_model(arch):
     streamed init (``registry.init_quantized``: each layer and table
     quantized as it is drawn), on the card: (cfg, params).  Prints its
     shape, its int8 weight bytes, the init's time and the peak memory
-    allocated, which must stay under DENSE_PEAK_BYTES where one is set."""
+    allocated (and what was allocated before the init), which must stay
+    under PEAK_BYTES where one is set."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.core.quant import tree_weight_bytes
@@ -3105,17 +3156,21 @@ def build_dense_model(arch):
     init_s = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated()
     nbytes = tree_weight_bytes(params)
-    print(f"dense {arch}: full width ({cfg.n_layers} layers, d="
+    experts = (f"{cfg.n_experts} experts top-{cfg.top_k} + "
+               f"{cfg.n_shared_experts} shared, " if cfg.n_experts else "")
+    print(f"{cfg.family} {arch}: full width ({cfg.n_layers} layers, d="
           f"{cfg.d_model}, {cfg.n_heads} q-heads / {cfg.n_kv_heads} kv-heads"
-          f" of {cfg.head_dim}, ff={cfg.d_ff} gated {cfg.activation}, vocab="
-          f"{cfg.vocab} untied, {cfg.norm}), W8A16 weights {nbytes} bytes, "
-          f"streamed init+quantize {init_s:.1f}s, "
+          f" of {cfg.head_dim}, {experts}ff={cfg.d_ff} gated "
+          f"{cfg.activation}, vocab={cfg.vocab} "
+          f"{'tied' if cfg.tie_embeddings else 'untied'}, {cfg.norm}), W8A16 "
+          f"weights {nbytes} bytes, streamed init+quantize {init_s:.1f}s, "
           f"torch.cuda.max_memory_allocated {peak} bytes ({peak / 1e9:.2f} "
           f"GB; {before} allocated before)")
-    limit = DENSE_PEAK_BYTES.get(arch)
+    limit = PEAK_BYTES.get(arch)
     if limit is not None and peak >= limit:
-        raise AssertionError(f"dense {arch}: the init's peak {peak} bytes is "
-                             f"not under {limit:.0f}")
+        raise AssertionError(f"{cfg.family} {arch}: the init's peak {peak} "
+                             f"bytes ({before} allocated before it) is not "
+                             f"under {limit:.0f}")
     return cfg, params
 
 
@@ -3124,8 +3179,9 @@ def dense_serve(label, cfg, params, reqs, **kw):
     chunked prefill of PREFILL_CHUNK; ``kw`` pages it), warmed up, then a
     wall-clock serve of ``reqs`` with the counters zeroed just before and
     read just after: no capture inside it, no plain version, no mma
-    launch, the GEMV launched, and the decode attention kernels launched
-    exactly when the cache is int8.  Returns (engine, report, launches)."""
+    launch, the GEMV launched, the decode attention kernels launched
+    exactly when the cache is int8 and the experts' stacked GEMV exactly
+    for an MoE config.  Returns (engine, report, launches)."""
     from repro_torch import engine as E
     from repro_torch.core.qlinear import W8A16
 
@@ -3146,9 +3202,10 @@ def dense_serve(label, cfg, params, reqs, **kw):
           f"{plain_calls}")
     attn = ("decode_attention_int8", "decode_attention_int8_paged")
     if launches["qmatmul_w8a16"] <= 0 or any(
-            (launches[k] > 0) != cfg.kv_quant for k in attn):
+            (launches[k] > 0) != cfg.kv_quant for k in attn) or (
+            (launches["qmatmul_w8a16_experts"] > 0) != (cfg.family == "moe")):
         raise AssertionError(f"{label}: launches {launches} (int8 cache: "
-                             f"{cfg.kv_quant})")
+                             f"{cfg.kv_quant}, family {cfg.family})")
     mma_free(label, launches)
     if any(plain_calls.values()):
         raise AssertionError(f"{label}: the CUDA path reached a plain "
@@ -3355,7 +3412,399 @@ def dense_phase():
     return {"runs": runs, "cli": cli}
 
 
-PHASES = ("attention", "long_tick", "w8a8", "graphs", "dense", "sampling")
+# ---------------------------------------------------------------------------
+# the MoE family
+# ---------------------------------------------------------------------------
+
+MOE_ARCH = "qwen2-moe-a2.7b"
+# the serve CLI on qwen2-moe-a2.7b: the dense CLI's flags (paged bf16
+# cache, prompts of 32 sharing their first block, 10/s)
+MOE_SERVE_ARGS = ["--arch", MOE_ARCH] + DENSE_SERVE_ARGS[2:]
+MOE_CLI_COMPARE = 4         # requests of the CLI run held to the reference
+MOE_ROUTE_ROWS = 16         # rows of the routing check's batch
+# the parts of a tick's device time, by kernel name (the first that
+# matches): "the rest" is the norms, elementwise ops and copies, and on the
+# bf16 cache its attention, which is plain PyTorch there
+MOE_TICK_PARTS = {
+    "experts' GEMVs": ("qmatmul_w8a16_experts_kernel",),
+    "other GEMVs": ("qmatmul_w8a16_kernel",),
+    "decode attention kernels": ("decode_attention",),
+    "sort, softmax, scan, index and gather (routing, cache writes)": (
+        "sort", "softmax", "scan", "index", "gather", "scatter")}
+
+
+def moe_curve_rows() -> tuple:
+    """The experts' stacked GEMV's rows in the serve CLI's curve: each of
+    the curve's b rows of SERVE_SEQ tokens gives every expert its
+    capacity's rows, ceil(SERVE_SEQ * k / E * capacity_factor) = 3 at
+    qwen2-moe-a2.7b, so M = 3, 12 and 48 at b = 1, 4 and 16."""
+    from repro_torch.configs import get_config
+
+    c = get_config(MOE_ARCH)
+    cap = math.ceil(SERVE_SEQ * c.top_k / c.n_experts * c.capacity_factor)
+    return tuple(b * cap for b in (1, 4, SERVE_MAX_BATCH))
+
+
+def moe_qmatmul_rows(flush):
+    """qmatmul_w8a16 at qwen2-moe-a2.7b's shapes: the experts' stacked GEMV
+    over its 60 experts (w_gate with the silu drain, w_up, w_down) at a
+    tick's 8 rows each and at the serve CLI curve's rows
+    (``moe_curve_rows``: 3, 12 and 48, the last six 8-row slabs), and
+    the 2-D GEMV for the router (2048 x 60, f32 x and out) at 8 rows.
+    Each held against its plain version (bf16_close), every row bitwise
+    alone and in its batch; at 8 rows a stack of one bitwise the 2-D
+    GEMV on that expert; at 8 rows (the tick) and at the curve's largest
+    (its b = 16 forward) timed beside the plain version, its library
+    call (``torch.bmm`` on the bf16-dequantized experts; ``F.linear``
+    for the router) and the bound (bytes at 3.35 TB/s).  Returns (worst
+    error, {name: tick numbers}, {name: forward numbers})."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.configs import get_config
+    from repro_torch.core.quant import quantize_weight
+    from repro_torch.kernels import qmatmul as K
+
+    c = get_config(MOE_ARCH)
+    e, m = c.n_experts, NUM_SLOTS
+    curve = moe_curve_rows()
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 11)
+    rows, fwd, worst = {}, {}, 0.0
+    for name, k, n, act in (("w_gate", c.d_model, c.d_ff, "silu"),
+                            ("w_up", c.d_model, c.d_ff, "none"),
+                            ("w_down", c.d_ff, c.d_model, "none")):
+        q = quantize_weight(torch.randn((e, k, n), generator=gen,
+                                        device="cuda") * k ** -0.5)
+        w, ws = q.values, q.scale
+        kw = dict(activation=act, out_dtype=torch.bfloat16)
+        wd = (w.float() * ws).to(torch.bfloat16)
+        plan = K.gemv_experts_plan(e, k, n)
+        for mm in (m,) + curve:
+            x = torch.randn((e, mm, k), generator=gen, device="cuda").to(
+                torch.bfloat16)
+            out = K.qmatmul_w8a16_experts(x, w, ws, **kw)
+            ref = K.qmatmul_w8a16_experts_ref(x, w, ws, **kw)
+            torch.cuda.synchronize()
+            if out.shape != ref.shape or not torch.isfinite(out).all():
+                raise AssertionError(f"moe experts {name} M={mm}: bad output")
+            err, ratio = bf16_close(out, ref, f32_out=False)
+            if ratio > 1.0:
+                raise AssertionError(f"moe experts {name} M={mm}: the "
+                                     f"stacked GEMV disagrees with its plain "
+                                     f"version (err/tol={ratio:.3f})")
+            for r in range(mm):
+                one = K.qmatmul_w8a16_experts(x[:, r:r + 1].contiguous(), w,
+                                              ws, **kw)
+                if not torch.equal(one[:, 0], out[:, r]):
+                    raise AssertionError(f"moe experts {name} M={mm}: row "
+                                         f"{r} differs launched alone")
+            if mm == m:
+                one = K.qmatmul_w8a16_experts(x[:1], w[:1], ws[:1], **kw)
+                if not torch.equal(one[0], K.qmatmul_w8a16(
+                        x[0], w[0], ws[0].reshape(-1).contiguous(), **kw)):
+                    raise AssertionError(f"moe experts {name}: a stack of "
+                                         f"one is not the 2-D GEMV's launch")
+            worst = max(worst, err)
+            print(f"  qmatmul_w8a16_experts {name:6s} E={e} M={mm:2d} "
+                  f"K={k:5d} N={n:5d} act={act:4s} max_abs_err={err:.3e} "
+                  f"err/tol={ratio:.3f}; every row bitwise alone")
+            if mm not in (m, curve[-1]):
+                continue
+            ms = time_ms(lambda: K.qmatmul_w8a16_experts(x, w, ws, **kw), 20,
+                         flush)
+            plain = time_ms(lambda: K.qmatmul_w8a16_experts_ref(x, w, ws,
+                                                                **kw),
+                            1, flush)
+            lib = time_ms(lambda: torch.bmm(x, wd), 20, flush)
+            nbytes = (x.numel() * 2 + w.numel() + ws.numel() * 4
+                      + e * mm * n * 2)
+            bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+            ops_ms = 2 * e * mm * k * n / BF16_OPS_PER_S * 1e3
+            (rows if mm == m else fwd)[name] = {
+                "E": e, "M": mm, "K": k, "N": n, "activation": act,
+                "ms": ms, "plain_ms": plain,
+                "bound_ms": max(bytes_ms, ops_ms),
+                "bound_by": ("bytes" if bytes_ms >= ops_ms
+                             else "operations"),
+                "library_ms": lib, "max_abs_err": err}
+            print(f"  qmatmul_w8a16_experts {name:6s} E={e} M={mm:2d} "
+                  f"ms={ms:.4f} plain_ms={plain:.4f} bmm_ms={lib:.4f} "
+                  f"bound_ms={max(bytes_ms, ops_ms):.4f} "
+                  f"({nbytes / ms / 1e6:.0f} GB/s; plan {plan.strips} strips "
+                  f"x {plan.splits} splits x {e} experts)")
+            del x, out, ref
+        del q, w, ws, wd
+    # the router: the 2-D GEMV at N = 60 (one ragged strip), f32 x and out
+    q = quantize_weight(torch.randn((c.d_model, e), generator=gen,
+                                    device="cuda") * c.d_model ** -0.5)
+    w, ws = q.values, q.scale.reshape(-1).contiguous()
+    x = torch.randn((2 * m, c.d_model), generator=gen, device="cuda")
+    gemv_rows_check("router", x, w, ws, None, "none", torch.float32)
+    x = x[:m].contiguous()
+    out = K.qmatmul_w8a16(x, w, ws, out_dtype=torch.float32)
+    err, ratio = bf16_close(out, K.qmatmul_w8a16_ref(
+        x, w, ws, out_dtype=torch.float32), f32_out=True)
+    if ratio > 1.0:
+        raise AssertionError(f"moe router: the GEMV disagrees with its "
+                             f"plain version (err/tol={ratio:.3f})")
+    worst = max(worst, err)
+    ms = time_ms(lambda: K.qmatmul_w8a16(x, w, ws, out_dtype=torch.float32),
+                 20, flush)
+    plain = time_ms(lambda: K.qmatmul_w8a16_ref(
+        x, w, ws, out_dtype=torch.float32), 3, flush)
+    wf = w.float() * ws
+    lib = time_ms(lambda: F.linear(x, wf.t()), 20, flush)
+    nbytes = x.numel() * 4 + w.numel() + ws.numel() * 4 + m * e * 4
+    rows["router"] = {"E": 1, "M": m, "K": c.d_model, "N": e,
+                      "activation": "none", "ms": ms, "plain_ms": plain,
+                      "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+                      "bound_by": "bytes", "library_ms": lib,
+                      "max_abs_err": err}
+    print(f"  qmatmul_w8a16 router K={c.d_model} N={e} f32 x/out "
+          f"max_abs_err={err:.3e} err/tol={ratio:.3f} ms={ms:.4f} "
+          f"plain_ms={plain:.4f} library_ms={lib:.4f} bound_ms="
+          f"{rows['router']['bound_ms']:.5f}; rows of M = {m} and {2 * m} "
+          f"launches equal to the rows alone")
+    print(f"  qmatmul_w8a16_experts at qwen2-moe-a2.7b's shapes (M = {m} "
+          f"and {', '.join(map(str, curve))}): within bf16_close, every row "
+          f"bitwise alone and in its batch, a stack of one bitwise the 2-D "
+          f"GEMV")
+    zero_counts()
+    return worst, rows, fwd
+
+
+def moe_route_rows() -> None:
+    """The MoE router's softmax over 60, its stable top-4 and the
+    renormalisation on the card: every row of a 16-row batch bitwise the
+    row routed alone; a tie goes to the lower expert index."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.quant import quantize_weight
+    from repro_torch.models import moe as M
+
+    c = get_config(MOE_ARCH)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 12)
+    router = {"w": quantize_weight(torch.randn(
+        (c.d_model, c.n_experts), generator=gen, device="cuda")
+        * c.d_model ** -0.5)}
+    x = torch.randn((MOE_ROUTE_ROWS, 1, c.d_model), generator=gen,
+                    device="cuda").to(torch.bfloat16)
+    top_p, top_e = M.route(router, x, c.top_k)
+    for r in range(MOE_ROUTE_ROWS):
+        p1, e1 = M.route(router, x[r:r + 1], c.top_k)
+        if not (torch.equal(p1[0], top_p[r]) and torch.equal(e1[0],
+                                                             top_e[r])):
+            raise AssertionError(f"moe routing: row {r} differs routed "
+                                 f"alone")
+    _, ties = M.route({"w": torch.zeros((c.d_model, c.n_experts),
+                                        device="cuda")}, x, c.top_k)
+    if not (ties == torch.arange(c.top_k, device="cuda")).all():
+        raise AssertionError(f"moe routing: ties not to the lower index: "
+                             f"{ties[0].tolist()}")
+    print(f"moe routing: softmax over {c.n_experts}, stable top-{c.top_k} "
+          f"and the renormalisation: every row of {MOE_ROUTE_ROWS} bitwise "
+          f"the row routed alone; ties to the lower index")
+
+
+def moe_tick(cfg, params, label):
+    """The captured steady tick of the MoE serves (NUM_SLOTS rows at
+    DENSE_MAX_SEQ / 2 of the config's cache): its launches per replay (the
+    GEMV 8 a layer and the head, the experts' stack 3 a layer), wall,
+    device busy and torch.profiler's split (MOE_TICK_PARTS), beside two
+    floors at 3.35 TB/s: the int8 weights the tick reads (every expert,
+    the reference's formulation) and those its tokens route to (each
+    layer's distinct experts, counted on the tick's own routing)."""
+    import torch
+    from repro_torch.core.qlinear import W8A16
+    from repro_torch.core.quant import tree_weight_bytes
+    from repro_torch.models import moe as M
+    from repro_torch.models import registry as R
+    from repro_torch.runtime import steps as ST
+
+    S, max_seq = NUM_SLOTS, DENSE_MAX_SEQ
+    graphed = ST.jit_slot_decode_step(ST.make_slot_decode_step(
+        cfg, mode=W8A16))
+    g = torch.Generator(device="cuda").manual_seed(SEED + 13)
+    with torch.inference_mode():
+        cache = R.init_cache(cfg, S, max_seq, device="cuda")
+        toks = torch.randint(1, cfg.vocab, (S, 1), generator=g,
+                             device="cuda", dtype=torch.int32)
+        idx = torch.full((S,), max_seq // 2, dtype=torch.int32,
+                         device="cuda")
+        active = torch.ones((S,), dtype=torch.bool, device="cuda")
+        # the tick's routing, from an eager step on a copy of the cache
+        chosen = []
+        real_route = M.route
+
+        def route(router, x, k):
+            out = real_route(router, x, k)
+            chosen.append(out[1].reshape(-1))
+            return out
+
+        M.route = route
+        try:
+            ST.make_slot_decode_step(cfg, mode=W8A16)(
+                params, toks, {k: v.clone() for k, v in cache.items()},
+                idx, active)
+        finally:
+            M.route = real_route
+        routed = [len(set(c.tolist())) for c in chosen]
+        t0 = time.perf_counter()
+        graphed(params, toks, cache, idx, active)[0].cpu()
+        capture_s = time.perf_counter() - t0
+        zero_counts()
+        graphed(params, toks, cache, idx, active)[0].cpu()
+    launches, plain = read_counts()
+    gemv = gemvs_per_layer(cfg) * cfg.n_layers + 1
+    if (launches["qmatmul_w8a16[gemv]"] != gemv
+            or launches["qmatmul_w8a16_experts"] != 3 * cfg.n_layers
+            or any(plain.values())):
+        raise AssertionError(f"{label}: a replay launched {launches} ({gemv} "
+                             f"GEMVs, {3 * cfg.n_layers} stacks expected), "
+                             f"plain {plain}")
+    res = device_breakdown(
+        label, f"captured steady-state slot tick ({S} active rows at "
+        f"position {max_seq // 2} of {max_seq}, "
+        f"{'int8' if cfg.kv_quant else 'bf16'} cache)",
+        lambda: graphed(params, toks, cache, idx, active)[0].cpu(), 10)
+    read = tree_weight_bytes(params)
+    stack = sum(tree_weight_bytes(lp["moe"]["experts"])
+                for lp in params["layers"])
+    per_expert = stack / cfg.n_layers / cfg.n_experts
+    routed_bytes = read - stack + sum(routed) * per_expert
+    floor = read / HBM_BYTES_PER_S * 1e3
+    routed_floor = routed_bytes / HBM_BYTES_PER_S * 1e3
+    split = dict.fromkeys(MOE_TICK_PARTS, 0.0)
+    for key, ms in res["by_kernel"].items():
+        part = next((p for p, names in MOE_TICK_PARTS.items()
+                     if any(n in key.lower() for n in names)), "the rest")
+        split[part] = split.get(part, 0.0) + ms
+    busy = res["busy"]
+    print(f"{label}: {launches['qmatmul_w8a16[gemv]']} GEMVs and "
+          f"{launches['qmatmul_w8a16_experts']} expert stacks a replay; "
+          f"capture {capture_s:.2f} s; wall {res['wall']:.2f} ms, device "
+          f"busy {'not measured' if busy is None else f'{busy:.3f} ms'}, "
+          f"cudaGraphLaunch {res['graph_launches']:.0f}, cudaLaunchKernel "
+          f"{res['launch_calls']:.0f} a tick; device time by part: "
+          + ", ".join(f"{k} {v:.3f} ms" for k, v in split.items()))
+    print(f"{label}: floors at 3.35 TB/s: {floor:.3f} ms (the {read} bytes "
+          f"of int8 weights the tick reads, every expert) and "
+          f"{routed_floor:.3f} ms (the {routed_bytes:.0f} bytes its tokens "
+          f"route to: {sum(routed) / cfg.n_layers:.1f} of {cfg.n_experts} "
+          f"experts a layer on average); wall / floor "
+          f"{res['wall'] / floor:.2f} and {res['wall'] / routed_floor:.2f}")
+    graphed.captured.release()
+    return {"wall": res["wall"], "busy": busy, "split": split,
+            "floor": floor, "routed_floor": routed_floor}
+
+
+def moe_cli_phase():
+    """The serve CLI at full qwen2-moe-a2.7b width (MOE_SERVE_ARGS, the
+    paged bf16 cache): exit 0, the service curve's forward on the mma
+    path but for each layer's router (the GEMV), the experts' stacked
+    GEMV and flash attention (H = 16), the captured forward bitwise the
+    eager one at each curve batch (tokens dropped at capacity 3 of 32
+    tokens), no block leaked, and MOE_CLI_COMPARE requests (the first to
+    share the prefix block among them) equal to ``reference_outputs``."""
+    from repro_torch.launch import serve
+
+    real_curve = serve.measure_service_curve
+    curve_paths = {}
+    serve.measure_service_curve = counted_curve(real_curve, curve_paths)
+    label = f"serve {MOE_ARCH} paged"
+    try:
+        launches, res = serve_run("w8a16", curve_paths, base=MOE_SERVE_ARGS,
+                                  label=label)
+    finally:
+        serve.measure_service_curve = real_curve
+    rep = res.report
+    if launches["qmatmul_w8a16_experts"] <= 0 or rep.leaked_blocks:
+        raise AssertionError(f"{label}: launches {launches}, "
+                             f"{rep.leaked_blocks} leaked blocks")
+    sharers = [r.rid for r in rep.results if r.shared_blocks]
+    rids = sharers[:1] + [r.rid for r in rep.results
+                          if r.rid not in sharers[:1]]
+    rids = set(rids[:MOE_CLI_COMPARE])
+    compare_with_reference(label, res.cfg, res.params, res.engine,
+                           [r for r in res.requests if r.rid in rids],
+                           rep.outputs())
+    del res
+    torch_cuda_empty()
+    return launches
+
+
+def moe_phase(flush):
+    """qwen2-moe-a2.7b at full width: the kernel rows at its shapes and
+    the routing check, then the model from the streamed init (its peak
+    under PEAK_BYTES), a contiguous bf16 serve held to
+    ``reference_outputs``, a paged one held to it, an int8-cache serve
+    held to ``reference_outputs``, the captured chunk pass bitwise the
+    per-token steps (bf16 contiguous, int8 paged), the captured steady
+    tick on each cache against its two floors, then the serve CLI.  Returns the kernel
+    rows and the launches of each run."""
+    import torch
+    from repro_torch import engine as E
+    from repro_torch.runtime import steps as ST
+
+    t0 = time.perf_counter()
+    print(f"moe: the kernels at {MOE_ARCH}'s shapes")
+    err, rows, fwd_rows = moe_qmatmul_rows(flush)
+    moe_route_rows()
+    ST.clear_step_cache()
+    torch_cuda_empty()
+    cfg, params = build_dense_model(MOE_ARCH)
+    reqs = E.synthetic_requests(
+        DENSE_REQUESTS, rate_per_s=DENSE_RATE_PER_S, vocab=cfg.vocab,
+        prompt_len=DENSE_PROMPT, max_new_tokens=DENSE_NEW,
+        shared_prefix_len=DENSE_SHARED, seed=SEED)
+    out = {"rows": rows, "forward_rows": fwd_rows, "max_abs_err": err}
+    label = f"moe {MOE_ARCH}"
+    eng, rep, out["launches"] = dense_serve(f"{label} contiguous", cfg,
+                                            params, reqs)
+    compare_with_reference(f"{label} contiguous", cfg, params, eng, reqs,
+                           rep.outputs())
+    contig = rep.outputs()
+    del eng
+    eng, rep, _ = dense_serve(f"{label} paged", cfg, params, reqs,
+                              block_size=DENSE_BLOCK,
+                              num_blocks=DENSE_NUM_BLOCKS)
+    print(f"{label} paged: block_size {rep.block_size}, num_blocks "
+          f"{rep.num_blocks}, peak_blocks_used {rep.peak_blocks_used}, "
+          f"leaked_blocks {rep.leaked_blocks}, shared_block_hits "
+          f"{rep.shared_block_hits}")
+    if rep.outputs() != contig or rep.leaked_blocks:
+        raise AssertionError(f"{label} paged: tokens differ from the "
+                             f"contiguous serve's, or {rep.leaked_blocks} "
+                             f"blocks leaked")
+    print(f"{label} paged: every token of {len(contig)} requests equal to "
+          f"the contiguous serve's")
+    del eng
+    qcfg = dataclasses.replace(cfg, kv_quant=True)
+    eng, rep, out["int8_launches"] = dense_serve(f"{label} int8 cache", qcfg,
+                                                 params, reqs)
+    compare_with_reference(f"{label} int8 cache", qcfg, params, eng, reqs,
+                           rep.outputs())
+    del eng
+    ST.clear_step_cache()
+    torch_cuda_empty()
+    graph_chunk_case(cfg, params, f"{label} chunk", NUM_SLOTS,
+                     DENSE_MAX_SEQ, 0, "w8a16", False, 3, 13)
+    graph_chunk_case(cfg, params, f"{label} paged int8 chunk", NUM_SLOTS,
+                     DENSE_MAX_SEQ, DENSE_BLOCK, "w8a16", True, 3, 5)
+    out["tick"] = moe_tick(cfg, params, f"{label} tick")
+    out["int8_tick"] = moe_tick(qcfg, params, f"{label} int8 tick")
+    ST.clear_step_cache()
+    del params
+    torch_cuda_empty()
+    out["cli"] = moe_cli_phase()
+    ST.clear_step_cache()           # the CLI engine's graphs hold its params
+    torch_cuda_empty()
+    print(f"moe: phase {time.perf_counter() - t0:.1f}s; "
+          f"{torch.cuda.memory_allocated()} bytes left allocated")
+    return out
+
+
+PHASES = ("attention", "long_tick", "w8a8", "graphs", "dense", "sampling",
+          "moe")
 
 
 def parse_args(argv):
@@ -3370,10 +3819,12 @@ def parse_args(argv):
                          "attention kernel phases, the long-context ticks, "
                          "qmatmul_w8a8's kernel phase and the W8A8 tick, "
                          "the five eager tick breakdowns and the graph "
-                         "phase, the dense family at full width, or "
+                         "phase, the dense family at full width, "
                          "sampling (the PRNG, the sampled serves, tick and "
-                         "loop, mistral-nemo-12b and the CLI sampled); "
-                         "prints no result line")
+                         "loop, mistral-nemo-12b and the CLI sampled), or "
+                         "the MoE family (qwen2-moe-a2.7b's kernel rows, "
+                         "serves, chunk pass, tick and CLI); prints no "
+                         "result line")
     return ap.parse_args(argv)
 
 
@@ -3431,7 +3882,6 @@ def main(argv=None) -> int:
             qmatmul_w8a8_phase(flush)
         if "dense" in args.only:
             dense_kernel_rows(flush)
-        del flush_buf
         warnings.filterwarnings("ignore", message=".*straggler.*")
         if "dense" in args.only:
             rmsnorm_phase(RMSNORM_WIDTHS[1:])
@@ -3464,6 +3914,13 @@ def main(argv=None) -> int:
                 sampled_cli_run(curve_paths)
             finally:
                 serve.measure_service_curve = real_curve
+        if "moe" in args.only:          # last, as in the whole run
+            from repro_torch.runtime import steps as ST
+            ST.clear_step_cache()       # starcoder's graphs and weights go
+            params = None               # first, as in the whole run
+            torch_cuda_empty()
+            moe_phase(flush)
+        del flush_buf
         print(f"chip_smoke: partial run passed in "
               f"{time.perf_counter() - t_run:.1f}s; no result line")
         return 0
@@ -3475,7 +3932,6 @@ def main(argv=None) -> int:
     w8_err, w8_fwd, w8_lib, w8_ticks = qmatmul_w8a8_phase(flush)
     f_err, f_fwd = flash_phase(flush)
     dense_rows = dense_kernel_rows(flush)
-    del flush_buf
     rmsnorm_phase()
 
     # the tick watchdog flags chunked-prefill ticks as stragglers; they
@@ -3496,6 +3952,8 @@ def main(argv=None) -> int:
     sampled_dense_phase()
     serve_launches = serve_phase()
     dense = dense_phase()
+    moe = moe_phase(flush)
+    del flush_buf
 
     tick_basis = (f"one {{}} of {NUM_SLOTS} rows at full width: the sum "
                   f"over that tick's launches")
@@ -3578,6 +4036,47 @@ def main(argv=None) -> int:
     kernels[4]["dense"] = {"launches": dense["cli"]["flash_attention_bhsd"],
                            "basis": "the serve CLI's run on mistral-nemo-12b "
                                     "(H = 32)"}
+    # the MoE family: qmatmul_w8a16's expert-stacked entry (one layer's
+    # three stacks summed), the router's 2-D GEMV among its shapes
+    def layer_sum(by_name):
+        stacks = [by_name[name] for name in ("w_gate", "w_up", "w_down")]
+        sums = {key: sum(t[key] for t in stacks)
+                for key in ("ms", "plain_ms", "bound_ms", "library_ms")}
+        return {**sums, "bound_by": (
+            "bytes" if all(t["bound_by"] == "bytes" for t in stacks)
+            else "operations")}
+
+    fwd_m = moe_curve_rows()[-1]
+    kernels[0]["experts"] = {
+        **layer_sum(moe["rows"]), "max_abs_err": moe["max_abs_err"],
+        "launches": moe["launches"]["qmatmul_w8a16_experts"],
+        "shapes": moe["rows"],
+        "forward": {**layer_sum(moe["forward_rows"]),
+                    "shapes": moe["forward_rows"],
+                    "basis": f"one MoE layer's three stacked launches at "
+                             f"{fwd_m} rows an expert (the serve CLI "
+                             f"curve's {SERVE_MAX_BATCH} x {SERVE_SEQ}-token "
+                             f"forward), summed"},
+        "basis": f"one MoE layer's three stacked launches over "
+                 f"{MOE_ARCH}'s 60 experts x {NUM_SLOTS} rows (a tick), "
+                 f"summed; library torch.bmm on bf16-dequantized experts; "
+                 f"launches: the contiguous bf16 serve"}
+    kernels[1]["moe"] = {
+        "launches": moe["int8_launches"]["decode_attention_int8"],
+        "basis": f"{MOE_ARCH}'s int8-cache serve (KV 16, G 1)"}
+    kernels[2]["moe"] = {
+        "launches": moe["int8_launches"]["decode_attention_int8_paged"],
+        "basis": f"{MOE_ARCH}'s int8-cache serve's chunk passes"}
+    kernels[4]["moe"] = {"launches": moe["cli"]["flash_attention_bhsd"],
+                         "basis": f"the serve CLI's run on {MOE_ARCH} "
+                                  f"(H = 16)"}
+    if min(kernels[0]["experts"]["launches"], kernels[1]["moe"]["launches"],
+           kernels[2]["moe"]["launches"], kernels[4]["moe"]["launches"]) <= 0:
+        return fail("a kernel of the MoE path never launched")
+    if any(not math.isfinite(t[key]) for t in (
+            *moe["rows"].values(), *moe["forward_rows"].values())
+           for key in ("ms", "plain_ms", "bound_ms", "library_ms")):
+        return fail("an MoE kernel row is not finite")
     dense_numbers = list(q_dense.values()) + [
         t for d in (a_dense, p_dense) for t in d.values()]
     if any(not math.isfinite(t[key]) for t in dense_numbers

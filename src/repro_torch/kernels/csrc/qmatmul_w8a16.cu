@@ -9,7 +9,11 @@
 // wrapper in kernels/qmatmul.py, by path):
 //
 // 1. qmatmul_w8a16 -- the GEMV below, for a decode tick's few rows and for
-//    every launch whose rows must not depend on the path.
+//    every launch whose rows must not depend on the path; and
+//    qmatmul_w8a16_experts, the same GEMV over a stack of matrices (the MoE
+//    layer's routed experts, in every caller: repro/models/moe.py's emm is a
+//    plain einsum outside any Pallas kernel, ported here so that its rows
+//    do not depend on the batch and the experts' choice stays on the card).
 // 2. qmatmul_w8a16_mma -- mma.sync on the bf16 tensor cores, for the
 //    full-sequence forward's hundreds of rows (see its own note further
 //    down).  Its sums are added in another order than the GEMV's, so a row
@@ -57,8 +61,19 @@
 // stage, reading one word of w per row; the two halves of a warp read
 // neighbouring rows, on distinct banks.
 //
+// A stack of E matrices (the MoE layer's experts, repro/models/moe.py's
+// emm): x (E, M, K), w (E, K, N), w_scale (E, N), no bias, out (E, M, N).  qmatmul_w8a16_experts_kernel runs with gridDim.z = E: a
+// block of expert e offsets every pointer (its workspace and its counters
+// too) by e's matrices and runs the same body, so the whole stack is one
+// launch, and a stack of one is launched as the 2-D kernel.  The wrapper's
+// plan for a stack (kernels/qmatmul.py::gemv_experts_plan) counts
+// E x strips blocks against the wave: the 60 experts of qwen2-moe-a2.7b
+// fill it with one split, so a stack of them needs no workspace.  At a
+// tick the stack holds every expert's rows, zero where no token was
+// routed, so it reads all the experts' weights.
+//
 // Rows are independent: the plan, the stages, the slices and every add are
-// fixed by (K, N), so row m's arithmetic depends only on row m of x and on
+// fixed by (E, K, N), so row m's arithmetic depends only on row m of x and on
 // w, never on M or on the other rows.  The serving engine's bit-for-bit
 // parity with its batch-1 sequential reference depends on that.  M larger
 // than MT is covered by gridDim.y, one MT-row slab per block row, with the
@@ -117,16 +132,30 @@ __device__ __forceinline__ float s8_to_f32(unsigned u) {
   return static_cast<float>(static_cast<int8_t>(u >> (8 * J)));
 }
 
-template <typename XT, typename OT, bool COPY16>
-__global__ void __launch_bounds__(THREADS, 3)
-qmatmul_w8a16_kernel(const XT* __restrict__ x, const int8_t* __restrict__ w,
-                     const float* __restrict__ w_scale, const float* __restrict__ bias,
-                     OT* __restrict__ out, int M, int K, int N, int act, int splits,
-                     int split_rows, float* __restrict__ work, int* __restrict__ counters) {
+// The GEMV's body, for the block (blockIdx.x, blockIdx.y) of one matrix;
+// STACK: the matrix is expert blockIdx.z of a stack, so every pointer is
+// first offset by that expert's matrices.
+template <typename XT, typename OT, bool COPY16, bool STACK>
+__device__ __forceinline__ void gemv(const XT* __restrict__ x, const int8_t* __restrict__ w,
+                                     const float* __restrict__ w_scale,
+                                     const float* __restrict__ bias, OT* __restrict__ out,
+                                     int M, int K, int N, int act, int splits, int split_rows,
+                                     float* __restrict__ work, int* __restrict__ counters) {
   using S = Smem<XT>;
   __shared__ __align__(16) unsigned char smem[S::BYTES];
   __shared__ int ticket;
 
+  if (STACK) {
+    const size_t e = blockIdx.z;
+    x += e * M * K;
+    w += e * K * N;
+    w_scale += e * N;
+    out += e * M * N;
+    if (splits > 1) {
+      work += e * splits * M * N;
+      counters += e * gridDim.y * (gridDim.x / splits);
+    }
+  }
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int tn = tid % TN, ks = tid / TN;
   const int strip = blockIdx.x / splits, split = blockIdx.x % splits;
@@ -275,14 +304,39 @@ qmatmul_w8a16_kernel(const XT* __restrict__ x, const int8_t* __restrict__ w,
   }
 }
 
+// One matrix, and a stack of them (one launch, gridDim.z = E): the same
+// body, two names, so that a profile tells the experts' launches apart.
+template <typename XT, typename OT, bool COPY16>
+__global__ void __launch_bounds__(THREADS, 3)
+qmatmul_w8a16_kernel(const XT* __restrict__ x, const int8_t* __restrict__ w,
+                     const float* __restrict__ w_scale, const float* __restrict__ bias,
+                     OT* __restrict__ out, int M, int K, int N, int act, int splits,
+                     int split_rows, float* __restrict__ work, int* __restrict__ counters) {
+  gemv<XT, OT, COPY16, false>(x, w, w_scale, bias, out, M, K, N, act, splits, split_rows, work,
+                              counters);
+}
+
+template <typename XT, typename OT, bool COPY16>
+__global__ void __launch_bounds__(THREADS, 3)
+qmatmul_w8a16_experts_kernel(const XT* __restrict__ x, const int8_t* __restrict__ w,
+                             const float* __restrict__ w_scale, const float* __restrict__ bias,
+                             OT* __restrict__ out, int M, int K, int N, int act, int splits,
+                             int split_rows, float* __restrict__ work,
+                             int* __restrict__ counters) {
+  gemv<XT, OT, COPY16, true>(x, w, w_scale, bias, out, M, K, N, act, splits, split_rows, work,
+                             counters);
+}
+
 template <typename XT, typename OT>
 void launch(const void* x, const void* w, const void* w_scale, const void* bias, void* out,
-            int M, int K, int N, int act, int splits, int split_rows, void* work, void* counters,
-            cudaStream_t stream) {
-  const dim3 grid((N + BN - 1) / BN * splits, (M + MT - 1) / MT);
+            int E, int M, int K, int N, int act, int splits, int split_rows, void* work,
+            void* counters, cudaStream_t stream) {
+  const dim3 grid((N + BN - 1) / BN * splits, (M + MT - 1) / MT, E);
   const bool copy16 = N % 16 == 0 && reinterpret_cast<uintptr_t>(w) % 16 == 0;
-  const auto kernel = copy16 ? qmatmul_w8a16_kernel<XT, OT, true>
-                             : qmatmul_w8a16_kernel<XT, OT, false>;
+  const auto kernel = E > 1 ? (copy16 ? qmatmul_w8a16_experts_kernel<XT, OT, true>
+                                      : qmatmul_w8a16_experts_kernel<XT, OT, false>)
+                            : (copy16 ? qmatmul_w8a16_kernel<XT, OT, true>
+                                      : qmatmul_w8a16_kernel<XT, OT, false>);
   kernel<<<grid, THREADS, 0, stream>>>(
       static_cast<const XT*>(x), static_cast<const int8_t*>(w),
       static_cast<const float*>(w_scale), static_cast<const float*>(bias),
@@ -627,24 +681,45 @@ cudaError_t launch_mma(const void* x, const void* w, const void* w_scale, const 
 // 0, when splits > 1 (the kernel leaves them 0).  Returns
 // cudaGetLastError() after the launch, so a refused launch is reported to
 // the caller.
+static int launch_gemv(const void* x, int x_bf16, const void* w, const void* w_scale,
+                       const void* bias, void* out, int out_bf16, int E, int M, int K, int N,
+                       int act, int splits, int split_rows, void* work, void* counters,
+                       void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (x_bf16 && out_bf16)
+    launch<__nv_bfloat16, __nv_bfloat16>(x, w, w_scale, bias, out, E, M, K, N, act, splits,
+                                         split_rows, work, counters, s);
+  else if (x_bf16)
+    launch<__nv_bfloat16, float>(x, w, w_scale, bias, out, E, M, K, N, act, splits,
+                                 split_rows, work, counters, s);
+  else if (out_bf16)
+    launch<float, __nv_bfloat16>(x, w, w_scale, bias, out, E, M, K, N, act, splits,
+                                 split_rows, work, counters, s);
+  else
+    launch<float, float>(x, w, w_scale, bias, out, E, M, K, N, act, splits, split_rows, work,
+                         counters, s);
+  return static_cast<int>(cudaGetLastError());
+}
+
 extern "C" int qmatmul_w8a16(const void* x, int x_bf16, const void* w, const void* w_scale,
                              const void* bias, void* out, int out_bf16, int M, int K, int N,
                              int act, int splits, int split_rows, void* work, void* counters,
                              void* stream) {
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (x_bf16 && out_bf16)
-    launch<__nv_bfloat16, __nv_bfloat16>(x, w, w_scale, bias, out, M, K, N, act, splits,
-                                         split_rows, work, counters, s);
-  else if (x_bf16)
-    launch<__nv_bfloat16, float>(x, w, w_scale, bias, out, M, K, N, act, splits, split_rows,
-                                 work, counters, s);
-  else if (out_bf16)
-    launch<float, __nv_bfloat16>(x, w, w_scale, bias, out, M, K, N, act, splits, split_rows,
-                                 work, counters, s);
-  else
-    launch<float, float>(x, w, w_scale, bias, out, M, K, N, act, splits, split_rows, work,
-                         counters, s);
-  return static_cast<int>(cudaGetLastError());
+  return launch_gemv(x, x_bf16, w, w_scale, bias, out, out_bf16, 1, M, K, N, act, splits,
+                     split_rows, work, counters, stream);
+}
+
+// The GEMV over a stack of E matrices (the experts' entry): the same
+// arguments, without bias, with every tensor stacked on a leading E axis
+// (see the note on stacks above), under the stack's plan, with a workspace
+// of splits * E * M * N f32 and one counter per (expert, slab, strip) when
+// splits > 1.
+extern "C" int qmatmul_w8a16_experts(const void* x, int x_bf16, const void* w,
+                                     const void* w_scale, void* out, int out_bf16, int E, int M,
+                                     int K, int N, int act, int splits, int split_rows,
+                                     void* work, void* counters, void* stream) {
+  return launch_gemv(x, x_bf16, w, w_scale, nullptr, out, out_bf16, E, M, K, N, act, splits,
+                     split_rows, work, counters, stream);
 }
 
 // The tensor-core kernel: x bf16 only, K % 8 == 0, N % 4 == 0, x 16-byte and

@@ -62,6 +62,23 @@ def qmatmul(x: torch.Tensor, w, bias: Optional[torch.Tensor] = None, *,
     return out.reshape(*lead, n)
 
 
+def qmatmul_experts(x: torch.Tensor, w: QTensor, *,
+                    activation: str = "none",
+                    out_dtype=torch.bfloat16) -> torch.Tensor:
+    """act(x[e] @ dequant(w[e])) for a stack of experts: ``x`` (E, M, K)
+    bf16/f32, ``w`` a QTensor (E, K, N) with one scale per (expert,
+    column), out (E, M, N).  On the card one launch of the GEMV over the
+    stack (``qmatmul.qmatmul_w8a16_experts``), on the CPU its plain
+    version."""
+    if x.is_cuda:
+        return _k.qmatmul_w8a16_experts(x.contiguous(), w.values, w.scale,
+                                        activation=activation,
+                                        out_dtype=out_dtype)
+    return _k.qmatmul_w8a16_experts_ref(x, w.values, w.scale,
+                                        activation=activation,
+                                        out_dtype=out_dtype)
+
+
 def qmatmul_dynamic(x: torch.Tensor, w, bias: Optional[torch.Tensor] = None,
                     *, activation: str = "none",
                     out_dtype=torch.bfloat16) -> torch.Tensor:

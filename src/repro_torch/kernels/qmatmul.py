@@ -20,6 +20,13 @@ does not depend on how many rows are in the batch — a plain CPU
 ``x @ w`` does not have that property.  Each call adds one to
 ``qmatmul_w8a16_ref.calls``.
 
+``qmatmul_w8a16_experts`` launches the same GEMV over a stack of E
+matrices, one launch for the stack (the MoE layer's routed experts: the
+port of ``repro/models/moe.py``'s ``emm``, a plain einsum there), under
+:func:`gemv_experts_plan` (a function of (E, K, N) alone); each launch
+adds one to ``qmatmul_w8a16_experts.launches``.  Its plain version
+``qmatmul_w8a16_experts_ref`` is ``qmatmul_w8a16_ref`` per expert.
+
 ``qmatmul_w8a8`` (int8 activations with one scale per tensor, int8
 weights, int32 accumulation) launches ``csrc/qmatmul_w8a8.cu``, the port
 of ``repro/kernels/qmatmul.py::qmatmul_w8a8``: its GEMV for a decode
@@ -85,6 +92,18 @@ def qmatmul_w8a16_ref(x: torch.Tensor, w: torch.Tensor,
 
 
 qmatmul_w8a16_ref.calls = 0
+
+
+def qmatmul_w8a16_experts_ref(x: torch.Tensor, w: torch.Tensor,
+                              w_scale: torch.Tensor, *,
+                              activation: str = "none",
+                              out_dtype=torch.bfloat16) -> torch.Tensor:
+    """A stack of E products, x (E, M, K) x dequantized w (E, K, N) with
+    scales of E x N values: :func:`qmatmul_w8a16_ref` per expert."""
+    scales = w_scale.reshape(w.shape[0], -1)
+    return torch.stack([
+        qmatmul_w8a16_ref(x[e], w[e], scales[e], activation=activation,
+                          out_dtype=out_dtype) for e in range(w.shape[0])])
 
 
 def qmatmul_w8a8_ref(x: torch.Tensor, w: torch.Tensor, x_scale: torch.Tensor,
@@ -156,10 +175,10 @@ class GemvPlan:
                 for s in range(self.splits)]
 
 
-def _split_plan(k: int, n: int, bn: int, g: int) -> GemvPlan:
+def _split_plan(k: int, n: int, bn: int, g: int, stack: int = 1) -> GemvPlan:
     strips = -(-n // bn)
-    splits = max(1, min(GEMV_TARGET_BLOCKS // strips, k // GEMV_MIN_ROWS,
-                        GEMV_MAX_SPLITS))
+    splits = max(1, min(GEMV_TARGET_BLOCKS // (strips * stack),
+                        k // GEMV_MIN_ROWS, GEMV_MAX_SPLITS))
     rows = -(-k // splits)
     rows += -rows % g
     return GemvPlan(k, n, strips, -(-k // rows), rows)
@@ -175,6 +194,18 @@ def gemv_split_plan(k: int, n: int) -> GemvPlan:
 
 
 @functools.lru_cache(maxsize=None)
+def gemv_experts_plan(e: int, k: int, n: int) -> GemvPlan:
+    """The GEMV's split of K for a stack of E (K, N) weights: the stack's
+    E x strips blocks count against the wave, so E = 1 is
+    :func:`gemv_split_plan` and qwen2-moe-a2.7b's 60 experts take one
+    split (no workspace)."""
+    if e <= 0:
+        raise ValueError(f"a stack needs E >= 1, got {e}")
+    gemv_split_plan(k, n)                    # the GEMV's shape checks
+    return _split_plan(k, n, GEMV_BN, GEMV_G, e)
+
+
+@functools.lru_cache(maxsize=None)
 def w8a8_split_plan(k: int, n: int) -> GemvPlan:
     """``qmatmul_w8a8``'s GEMV's split of K for a (K, N) weight: ranges of
     a multiple of ``W8A8_G`` rows (the last ends at K)."""
@@ -184,10 +215,11 @@ def w8a8_split_plan(k: int, n: int) -> GemvPlan:
     return _split_plan(k, n, W8A8_BN, W8A8_G)
 
 
-def _launch(plan: GemvPlan, m: int, slab: int):
+def _launch(plan: GemvPlan, m: int, slab: int, stack: int = 1):
     if plan.splits == 1:
         return plan, 0, 0
-    return plan, plan.splits * m * plan.n, -(-m // slab) * plan.strips
+    return (plan, plan.splits * stack * m * plan.n,
+            stack * -(-m // slab) * plan.strips)
 
 
 @functools.lru_cache(maxsize=None)
@@ -196,6 +228,14 @@ def gemv_launch(m: int, k: int, n: int):
     rows: the plan does not depend on m, the scratch does (none for one
     split)."""
     return _launch(gemv_split_plan(k, n), m, GEMV_MT)
+
+
+@functools.lru_cache(maxsize=None)
+def gemv_experts_launch(e: int, m: int, k: int, n: int):
+    """(plan, workspace f32 elements, counters) of one launch over a stack
+    of E matrices with m rows each: each expert has its own share of the
+    scratch."""
+    return _launch(gemv_experts_plan(e, k, n), m, GEMV_MT, e)
 
 
 @functools.lru_cache(maxsize=None)
@@ -211,17 +251,21 @@ def _lib():
     process: ``{path: fn}``."""
     lib = _build.load("qmatmul_w8a16")
     gemv, mma = lib.qmatmul_w8a16, lib.qmatmul_w8a16_mma
+    experts = lib.qmatmul_w8a16_experts
     gemv.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
                      ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                      ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                      ctypes.c_int, ctypes.c_int, ctypes.c_int,
                      ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
+    # the GEMV's arguments without bias, with E after out_bf16
+    experts.argtypes = (gemv.argtypes[:4] + gemv.argtypes[5:7]
+                        + [ctypes.c_int] + gemv.argtypes[7:])
     mma.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
                     ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                     ctypes.c_void_p]
-    gemv.restype = mma.restype = ctypes.c_int
-    return {"gemv": gemv, "mma": mma}
+    gemv.restype = mma.restype = experts.restype = ctypes.c_int
+    return {"gemv": gemv, "mma": mma, "experts": experts}
 
 
 def qmatmul_w8a16(x: torch.Tensor, w: torch.Tensor, w_scale: torch.Tensor,
@@ -309,6 +353,70 @@ def qmatmul_w8a16_on_path(path: str, x: torch.Tensor, w: torch.Tensor,
 qmatmul_w8a16.launches = 0
 qmatmul_w8a16.launches_by_path = dict.fromkeys(W8A16_PATHS, 0)
 counts.register(qmatmul_w8a16)
+
+
+def qmatmul_w8a16_experts(x: torch.Tensor, w: torch.Tensor,
+                          w_scale: torch.Tensor, *, activation: str = "none",
+                          out_dtype=torch.bfloat16) -> torch.Tensor:
+    """act(x[e] @ dequant(w[e])) for every expert e, on the card, in one
+    launch of the GEMV over the stack (:func:`gemv_experts_plan`): a
+    row's bits depend on its own row of x and on w[e] alone, never on M,
+    on the other rows or on the other experts, and a stack of one is the
+    2-D GEMV's launch bit for bit.
+
+    x: (E, M, K) bf16/f32 with K % 8 == 0; w: (E, K, N) int8 with
+    N % 4 == 0; w_scale: E x N f32 values ((E, N) or the quantizer's
+    (E, 1, N)); out: (E, M, N) ``out_dtype`` (bf16/f32).  All CUDA
+    tensors, contiguous, on one device.  Each launch adds one to
+    ``qmatmul_w8a16_experts.launches``."""
+    if activation not in ACTIVATIONS:
+        raise ValueError(f"unknown activation {activation!r}")
+    if x.ndim != 3 or w.ndim != 3 or x.shape[0] != w.shape[0] or \
+            x.shape[2] != w.shape[1]:
+        raise ValueError(f"shapes x{tuple(x.shape)} @ w{tuple(w.shape)}: "
+                         f"a stack needs x (E, M, K) and w (E, K, N)")
+    e, m, k = x.shape
+    n = w.shape[2]
+    if x.dtype not in _FLOAT_TYPES or out_dtype not in _FLOAT_TYPES:
+        raise ValueError(f"x {x.dtype} / out {out_dtype} must be f32 or bf16")
+    if w.dtype != torch.int8 or n % 4 or k % 8:
+        raise ValueError(f"w must be int8 with K % 8 == 0 and N % 4 == 0, "
+                         f"got {w.dtype} K={k} N={n}")
+    if w_scale.dtype != torch.float32 or w_scale.numel() != e * n:
+        raise ValueError("w_scale must hold E x N f32 values")
+    if not x.is_cuda:
+        raise ValueError("qmatmul_w8a16_experts launches a CUDA kernel: x "
+                         "must be a CUDA tensor (CPU tensors go to "
+                         "qmatmul_w8a16_experts_ref)")
+    for t in (x, w, w_scale):
+        if t.device != x.device or not t.is_contiguous():
+            raise ValueError("qmatmul_w8a16_experts needs contiguous tensors "
+                             "on x's device")
+    if w.data_ptr() % 4 or x.data_ptr() % 16:
+        raise ValueError("w must be 4-byte and x 16-byte aligned")
+    out = torch.empty((e, m, n), dtype=out_dtype, device=x.device)
+    if m == 0 or e == 0:
+        return out
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    plan, work_elems, n_counters = gemv_experts_launch(e, m, k, n)
+    work = counters = None
+    if plan.splits > 1:
+        work, counters = scratch.get(x.device, stream, work_elems, n_counters)
+    err = _lib()["experts"](
+        x.data_ptr(), int(x.dtype == torch.bfloat16), w.data_ptr(),
+        w_scale.data_ptr(), out.data_ptr(),
+        int(out_dtype == torch.bfloat16), e, m, k, n,
+        ACTIVATIONS.index(activation), plan.splits, plan.split_rows, work,
+        counters, stream)
+    if err:
+        raise RuntimeError(f"qmatmul_w8a16_experts launch failed: CUDA "
+                           f"error {err}")
+    qmatmul_w8a16_experts.launches += 1
+    return out
+
+
+qmatmul_w8a16_experts.launches = 0
+counts.register(qmatmul_w8a16_experts)
 
 
 # The W8A8 wrapper's two kernels: rows up to W8A8_GEMV_MAX_ROWS go to the

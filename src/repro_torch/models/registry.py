@@ -1,4 +1,4 @@
-"""Family -> model module dispatch (dense subset).
+"""Family -> model module dispatch (the dense and MoE families).
 
 Uniform API per family, as in ``repro/models/registry.py``:
     init(gen, cfg, dtype, device) -> params
@@ -10,8 +10,8 @@ Uniform API per family, as in ``repro/models/registry.py``:
     decode_step(params, tokens, cache, cache_index, cfg, *, mode)
         -> (logits, cache)
 
-Only the dense family is ported; the others arrive with their model
-modules (ROADMAP queue 1, item 13).
+The dense and MoE families are ported; the others arrive with their
+model modules (ROADMAP queue 1, item 13).
 """
 from __future__ import annotations
 
@@ -19,9 +19,9 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.qlinear import FP, QuantMode
-from repro_torch.models import transformer
+from repro_torch.models import moe, transformer
 
-_MODULES = {"dense": transformer}
+_MODULES = {"dense": transformer, "moe": moe}
 
 
 def module_for(cfg: ArchConfig):
@@ -104,6 +104,6 @@ def mask_inactive_slots(cfg: ArchConfig, old_cache: dict, new_cache: dict,
                         active):
     """Slot-engine isolation hook.  KV caches need nothing: stale positional
     entries are invisible behind each row's ``valid_len`` frontier, so the
-    dense family returns ``new_cache`` unchanged."""
+    dense and MoE families return ``new_cache`` unchanged."""
     module_for(cfg)
     return new_cache

@@ -4,7 +4,11 @@ the full-sequence forward and the decode step.
 Structure: embedding -> a loop over decoder layers -> final norm -> (tied
 or untied) unembed.  One decoder layer = norm (LayerNorm or RMSNorm) ->
 GQA attention -> residual -> norm -> MLP (plain or gated) -> residual.
-Quantization mode threads through every matmul.
+Quantization mode threads through every matmul.  The MoE family
+(``models/moe.py``) is the same model with another FFN: ``init``,
+``init_quantized``, ``forward`` and ``decode_step`` take the layer's
+init and FFN as functions (``layer=``, ``ffn=``; the dense ones by
+default).
 
 Layout differences from ``repro/models/transformer.py``, where PyTorch
 idiom asks for them:
@@ -80,26 +84,32 @@ def _norm(cfg: ArchConfig, dtype, device) -> dict:
     return p
 
 
-def init_layer(gen, cfg: ArchConfig, dtype, device) -> dict:
+def init_mlp(gen, d: int, f: int, *, gated: bool, dtype, device) -> dict:
+    """A (gated) MLP of width ``f`` (the reference's ``L.init_mlp``)."""
+    kw = dict(dtype=dtype, device=device)
+    mlp = {"w_up": _linear(gen, d, f, bias=False, **kw),
+           "w_down": _linear(gen, f, d, bias=False, scale=f ** -0.5, **kw)}
+    if gated:
+        mlp["w_gate"] = _linear(gen, d, f, bias=False, **kw)
+    return mlp
+
+
+def init_attention(gen, cfg: ArchConfig, dtype, device) -> dict:
     d, h, kvh, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     kw = dict(dtype=dtype, device=device)
-    mlp = {"w_up": _linear(gen, d, cfg.d_ff, bias=False, **kw),
-           "w_down": _linear(gen, cfg.d_ff, d, bias=False,
-                             scale=cfg.d_ff ** -0.5, **kw)}
-    if cfg.gated_mlp:
-        mlp["w_gate"] = _linear(gen, d, cfg.d_ff, bias=False, **kw)
-    return {
-        "ln_attn": _norm(cfg, dtype, device),
-        "attn": {
-            "wq": _linear(gen, d, h * hd, bias=cfg.qkv_bias, **kw),
+    return {"wq": _linear(gen, d, h * hd, bias=cfg.qkv_bias, **kw),
             "wk": _linear(gen, d, kvh * hd, bias=cfg.qkv_bias, **kw),
             "wv": _linear(gen, d, kvh * hd, bias=cfg.qkv_bias, **kw),
             "wo": _linear(gen, h * hd, d, bias=False,
-                          scale=(h * hd) ** -0.5, **kw),
-        },
-        "ln_mlp": _norm(cfg, dtype, device),
-        "mlp": mlp,
-    }
+                          scale=(h * hd) ** -0.5, **kw)}
+
+
+def init_layer(gen, cfg: ArchConfig, dtype, device) -> dict:
+    mlp = init_mlp(gen, cfg.d_model, cfg.d_ff, gated=cfg.gated_mlp,
+                   dtype=dtype, device=device)
+    return {"ln_attn": _norm(cfg, dtype, device),
+            "attn": init_attention(gen, cfg, dtype, device),
+            "ln_mlp": _norm(cfg, dtype, device), "mlp": mlp}
 
 
 def _table(gen, cfg: ArchConfig, dtype, device) -> dict:
@@ -111,14 +121,14 @@ def _table(gen, cfg: ArchConfig, dtype, device) -> dict:
 
 
 def init(gen: torch.Generator, cfg: ArchConfig, dtype=torch.float32,
-         device=None) -> dict:
-    """Random params from ``gen`` (its device must be ``device``'s type).
-    Same distributions as the reference's ``init``, other numbers: tests
-    that compare with the reference copy its params over instead
-    (``models/bridge.py``)."""
+         device=None, *, layer=init_layer) -> dict:
+    """Random params from ``gen`` (its device must be ``device``'s type),
+    each decoder layer drawn by ``layer``.  Same distributions as the
+    reference's ``init``, other numbers: tests that compare with the
+    reference copy its params over instead (``models/bridge.py``)."""
     device = resolve_device(device)
     params = {"embed": _table(gen, cfg, dtype, device),
-              "layers": [init_layer(gen, cfg, dtype, device)
+              "layers": [layer(gen, cfg, dtype, device)
                          for _ in range(cfg.n_layers)],
               "ln_f": _norm(cfg, dtype, device)}
     if not cfg.tie_embeddings:
@@ -133,7 +143,7 @@ TABLE_ROW_CHUNK = 8192
 
 def init_quantized(gen: torch.Generator, cfg: ArchConfig, *,
                    min_size: int = 2048, dtype=torch.float32,
-                   device=None) -> dict:
+                   device=None, layer=init_layer) -> dict:
     """``quantize_tree(init(gen, cfg, dtype, device), min_size=min_size)``,
     bit for bit, without the whole f32 tree: the draws come in ``init``'s
     order (the embedding table, layers 0 to L-1, ``ln_f``, the unembedding
@@ -154,7 +164,7 @@ def init_quantized(gen: torch.Generator, cfg: ArchConfig, *,
               "layers": []}
     for i in range(cfg.n_layers):
         params["layers"].append(
-            quantized(init_layer(gen, cfg, dtype, device), f"layers.{i}"))
+            quantized(layer(gen, cfg, dtype, device), f"layers.{i}"))
     params["ln_f"] = _norm(cfg, dtype, device)      # 1-D: never quantized
     if not cfg.tie_embeddings:
         params["unembed"] = quantized(_table(gen, cfg, dtype, device),
@@ -166,15 +176,26 @@ def init_quantized(gen: torch.Generator, cfg: ArchConfig, *,
 # full-sequence forward
 # ---------------------------------------------------------------------------
 
+def dense_ffn(lp: dict, h: Tensor, cfg: ArchConfig, *, mode: QuantMode,
+              per_token: bool = False) -> Tensor:
+    """The dense layer's FFN, ``lp["mlp"]``.  ``per_token`` (the tokens of
+    a row are to be taken one at a time, as the per-token chunk step
+    would) changes nothing here: every row of the MLP is computed on its
+    own."""
+    return L.mlp(lp["mlp"], h, gated=cfg.gated_mlp,
+                 activation=cfg.activation, mode=mode)
+
+
 def forward(params: dict, tokens: Tensor, cfg: ArchConfig, *,
-            mode: QuantMode = FP, remat: bool = True) -> Tensor:
+            mode: QuantMode = FP, remat: bool = True,
+            ffn=dense_ffn) -> Tensor:
     """Full-sequence forward (prefill): tokens (B, S) -> logits (B, S, V)
     f32.  Every attention layer runs the flash-attention kernel, causal
     (and windowed for a windowed config).  Under W8A16 every projection
     and the LM head take the tensor-core kernel (``w8a16_path="mma"``):
     this forward's rows need not match a decode step's bits.  ``remat``
     is the reference's rematerialization switch for training; it has no
-    effect here."""
+    effect here.  ``ffn(lp, h, cfg, mode=...)`` is each layer's FFN."""
     if mode.enabled and not mode.w8a8:
         mode = dataclasses.replace(mode, w8a16_path="mma")
     b, s = tokens.shape
@@ -186,8 +207,7 @@ def forward(params: dict, tokens: Tensor, cfg: ArchConfig, *,
         h = norm_apply(cfg, lp["ln_attn"], x)
         x = x + L.attention(lp["attn"], h, acfg, mode=mode, rope=rope)
         h = norm_apply(cfg, lp["ln_mlp"], x)
-        x = x + L.mlp(lp["mlp"], h, gated=cfg.gated_mlp,
-                      activation=cfg.activation, mode=mode)
+        x = x + ffn(lp, h, cfg, mode=mode)
     x = norm_apply(cfg, params["ln_f"], x)
     head = params.get("unembed", params["embed"])
     return L.unembed(head, x, path=mode.w8a16_path)
@@ -272,7 +292,7 @@ def decode_positions(cache_index, b: int, s: int, device) -> Tensor:
 
 def decode_step(params: dict, tokens: Tensor, cache: dict, cache_index,
                 cfg: ArchConfig, *, mode: QuantMode = FP,
-                logits: bool = True, causal: bool = False
+                logits: bool = True, causal: bool = False, ffn=dense_ffn
                 ) -> Tuple[Optional[Tensor], dict]:
     """One decode step: tokens (B, s) -> logits (B, s, V) f32, with the
     cache updated in place (and returned, for the reference's signature).
@@ -286,8 +306,11 @@ def decode_step(params: dict, tokens: Tensor, cache: dict, cache_index,
     the slots below ``cache_index + s``, the reference's form; with
     ``causal=True`` it attends those below its own ``cache_index + j +
     1``, as the one-token step at its place does (the chunk step's one
-    pass, ``runtime/steps.py``).  ``logits=False`` skips the final norm
-    and LM head (chunked prefill discards them) and returns None.
+    pass, ``runtime/steps.py``), and each layer's ``ffn`` takes the s
+    tokens of a row one at a time (``per_token``: an MoE layer routes
+    each alone, as the one-token step does).  ``logits=False`` skips the
+    final norm and LM head (chunked prefill discards them) and returns
+    None.
 
     A cache with ``block_tables`` (B, MB) is paged (:func:`init_paged_cache`
     with the slots' tables, or rows of them; or a contiguous cache's
@@ -338,8 +361,7 @@ def decode_step(params: dict, tokens: Tensor, cache: dict, cache_index,
                             kv_cache=kv, cache_index=write_idx,
                             valid_len=valid_len, block_tables=tables)
         h = norm_apply(cfg, lp["ln_mlp"], x)
-        x = x + L.mlp(lp["mlp"], h, gated=cfg.gated_mlp,
-                      activation=cfg.activation, mode=mode)
+        x = x + ffn(lp, h, cfg, mode=mode, per_token=causal and s > 1)
     if not logits:
         return None, cache
     x = norm_apply(cfg, params["ln_f"], x)

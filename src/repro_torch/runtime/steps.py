@@ -335,10 +335,20 @@ def make_per_token_chunk_step(cfg: ArchConfig, *, mode: QuantMode = FP,
     return step
 
 
+def _leaves(node):
+    for child in node.values():
+        if isinstance(child, dict):
+            yield from _leaves(child)
+        else:
+            yield child
+
+
 def _projections_quantized(params) -> bool:
-    """True when every projection of every layer is an int8 ``QTensor``."""
-    return all(isinstance(lin["w"], QTensor) for lp in params["layers"]
-               for block in (lp["attn"], lp["mlp"]) for lin in block.values())
+    """True when every projection of every layer is an int8 ``QTensor``:
+    every weight leaf of a layer but the 1-D norm scales and biases."""
+    return all(isinstance(w, QTensor) for lp in params["layers"]
+               for w in _leaves(lp)
+               if isinstance(w, QTensor) or getattr(w, "ndim", 0) >= 2)
 
 
 def make_prefill_chunk_step(cfg: ArchConfig, *, mode: QuantMode = FP,

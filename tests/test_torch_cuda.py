@@ -12,8 +12,10 @@ turns capturing once each, a failed capture raising), a paged serve
 through preemption and injected faults equal to its control serve, the
 threefry PRNG and the sampler on the card (bitwise the CPU's, rows
 bitwise alone and in a batch), the captured sampled tick and a sampled
-engine, and the service curve's forward captured (bitwise the eager
-one), at small shapes.
+engine, the service curve's forward captured (bitwise the eager
+one), and the MoE family (the experts' stacked GEMV against its plain
+version and the 2-D GEMV, the router's rows, the engine on reduced
+qwen2-moe-a2.7b), at small shapes.
 
 Every test here is marked ``gpu`` and skips without a CUDA device; the
 module imports no JAX, so it also runs where only the port is installed:
@@ -1366,3 +1368,100 @@ def test_captured_forward_equals_eager(cuda, mode):
                 got = graphed(params, {"tokens": toks})
                 assert torch.equal(got, want), b
     assert graphed.captured.captures == graphed.captured.bindings == 3
+
+
+# the expert stacks' edges: one expert (the 2-D GEMV's launch), a stack
+# whose plan splits K (a workspace share per expert), M across two row
+# slabs, N % 16 == 4 (4-byte weight copies, a ragged strip), and
+# qwen2-moe-a2.7b's gate, up and down shapes at a tick's 8 rows
+EXPERT_CASES = ((1, 11, 264, 96), (6, 11, 512, 100), (16, 3, 128, 64),
+                (60, 8, 2048, 1408), (60, 8, 1408, 2048))
+
+
+@pytest.mark.parametrize("e,m,k,n", EXPERT_CASES)
+def test_qmatmul_w8a16_experts_matches_plain(cuda, e, m, k, n):
+    """The GEMV over a stack of experts against its plain version (silu
+    drain and none, bf16 and f32 x and out), within ``_close``; a stack
+    of one expert bitwise the 2-D GEMV's launch on it (a stack of E has
+    its own split plan, so its rows may differ from that launch by f32
+    rounding); expert 0's rows bitwise unchanged when the other experts'
+    rows change; each row bitwise alone and in its batch."""
+    g = torch.Generator(device=cuda).manual_seed(e + k)
+    q = quantize_weight(torch.randn((e, k, n), generator=g, device=cuda))
+    w, s = q.values, q.scale
+    for x_dtype, out_dtype, act in ((torch.bfloat16, torch.bfloat16, "silu"),
+                                    (torch.float32, torch.float32, "none")):
+        x = torch.randn((e, m, k), generator=g, device=cuda).to(x_dtype)
+        launches = K.qmatmul_w8a16_experts.launches
+        got = K.qmatmul_w8a16_experts(x, w, s, activation=act,
+                                      out_dtype=out_dtype)
+        assert K.qmatmul_w8a16_experts.launches == launches + 1
+        want = K.qmatmul_w8a16_experts_ref(x, w, s, activation=act,
+                                           out_dtype=out_dtype)
+        assert _close(got, want, out_dtype), (x_dtype, act)
+        for i in range(0, e, max(1, e // 4)):
+            one = K.qmatmul_w8a16_experts(x[i:i + 1].contiguous(), w[i:i + 1],
+                                          s[i:i + 1], activation=act,
+                                          out_dtype=out_dtype)
+            assert torch.equal(one[0], K.qmatmul_w8a16(
+                x[i], w[i], s[i].reshape(-1).contiguous(), activation=act,
+                out_dtype=out_dtype)), i
+        if e > 1:
+            other = x.clone()
+            other[1:] = torch.randn(other[1:].shape, generator=g,
+                                    device=cuda).to(x_dtype)
+            assert torch.equal(K.qmatmul_w8a16_experts(
+                other, w, s, activation=act, out_dtype=out_dtype)[0], got[0])
+        for r in (0, m - 1):
+            one = K.qmatmul_w8a16_experts(x[:, r:r + 1].contiguous(), w, s,
+                                          activation=act,
+                                          out_dtype=out_dtype)
+            assert torch.equal(one[:, 0], got[:, r]), r
+
+
+def test_moe_route_rows_are_batch_invariant_on_card(cuda):
+    """The router's softmax, the stable top-k and the renormalisation of
+    qwen2-moe-a2.7b's 60 experts: each row's bits alone equal its bits in
+    a batch of 16, and ties go to the lower expert index."""
+    from repro_torch.models import moe as M
+    g = torch.Generator(device=cuda).manual_seed(2)
+    q = quantize_weight(torch.randn((2048, 60), generator=g, device=cuda)
+                        * 2048 ** -0.5)
+    x = torch.randn((16, 1, 2048), generator=g, device=cuda).to(
+        torch.bfloat16)
+    top_p, top_e = M.route({"w": q}, x, 4)
+    for r in range(16):
+        p1, e1 = M.route({"w": q}, x[r:r + 1], 4)
+        assert torch.equal(p1[0], top_p[r]) and torch.equal(e1[0], top_e[r])
+    _, ties = M.route({"w": torch.zeros((2048, 60), device=cuda)}, x, 4)
+    assert (ties == torch.arange(4, device=cuda)).all()
+
+
+def test_moe_engines_on_card_equal_reference(cuda):
+    """Reduced qwen2-moe-a2.7b with its int8 router (16 experts, top-4,
+    G = 1) on the card, weights from the streamed init: 12 requests
+    through 4 slots with chunked prefill (one causal pass a chunk, every
+    token routed alone), contiguous and paged on the bf16 cache and
+    contiguous on the int8 cache, every token equal to the sequential
+    batch-1 reference, the experts' GEMV launched, no block leaked."""
+    cfg = dataclasses.replace(get_config("qwen2-moe-a2.7b").reduced(),
+                              n_experts=16, top_k=4, n_heads=16,
+                              n_kv_heads=16, d_ff=64, capacity_factor=1.25)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    params = R.init_quantized(gen, cfg, device=cuda)
+    assert isinstance(params["layers"][0]["moe"]["router"]["w"], QTensor)
+    reqs = E.synthetic_requests(12, rate_per_s=2000.0, vocab=cfg.vocab,
+                                prompt_len=6, max_new_tokens=5,
+                                shared_prefix_len=4)
+    kw = dict(mode=W8A16, num_slots=4, max_seq=16, prefill_chunk=4)
+    want = E.reference_outputs(cfg, params, reqs, mode=W8A16, max_seq=16)
+    launches = K.qmatmul_w8a16_experts.launches
+    assert E.Engine(cfg, params, **kw).serve(reqs).outputs() == want
+    assert K.qmatmul_w8a16_experts.launches > launches
+    rep = E.Engine(cfg, params, block_size=4, num_blocks=10,
+                   **kw).serve(reqs)
+    assert rep.outputs() == want
+    assert rep.leaked_blocks == 0 and rep.shared_block_hits > 0
+    qcfg = dataclasses.replace(cfg, kv_quant=True)
+    assert E.Engine(qcfg, params, **kw).serve(reqs).outputs() == \
+        E.reference_outputs(qcfg, params, reqs, mode=W8A16, max_seq=16)

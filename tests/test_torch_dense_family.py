@@ -131,8 +131,12 @@ def test_arch_file_matches_reference(arch):
 
 
 def test_the_four_dense_configs_are_registered():
-    assert list_archs() == sorted(["starcoder2-3b", "internlm2-20b",
-                                   "mistral-nemo-12b", "qwen1.5-32b"])
+    """The four dense configs, beside the MoE family's qwen2-moe-a2.7b
+    (tests/test_torch_moe.py), are the port's registered configs."""
+    dense = ["starcoder2-3b", "internlm2-20b", "mistral-nemo-12b",
+             "qwen1.5-32b"]
+    assert all(get_config(a).family == "dense" for a in dense)
+    assert list_archs() == sorted(dense + ["qwen2-moe-a2.7b"])
 
 
 @pytest.mark.parametrize("arch", ARCHS + ["starcoder2-3b"])
