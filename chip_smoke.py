@@ -92,7 +92,23 @@ Phases, each of which fails the run (non-zero exit, no result line):
    decode loop bitwise the eager one, with tok/s; then mistral-nemo-12b
    at full width (vocabulary 131,072, bf16 cache), one contiguous sampled
    serve equal to its sampled reference, freed after;
-8. serve: the serve launcher (``repro_torch.launch.serve.run``) at full
+8. spec: full-width starcoder2-3b speculating (``Engine(spec_k=3,
+   ...)``: a draft proposes 3 tokens a slot, one verify step scores
+   them, the host commits the accepted run and rewinds the rest), on the
+   slice's trace with a full-depth self-draft (every proposal accepted:
+   4 tokens an emitting dispatch) and a 1-layer one, greedy and sampled
+   (t = 0.8, ``PRNGKey(1)``), and on the paged slice's geometry at 20/s
+   with the 1-layer one (no leak, prefix blocks shared): each warmed up
+   and counted (no capture inside, no plain version, no mma launch),
+   every token equal to a non-speculative control serve of the same
+   trace, three requests of each 1-layer serve held to
+   ``reference_outputs``; then the captured verify and propose steps
+   bitwise their eager forms and timed against the captured tick.  The
+   serve phase adds a w8a16 CLI run with ``--spec-k 3 --draft-layers
+   1`` equal to its non-speculative w8a16 run, and the MoE phase a
+   speculative serve of qwen2-moe-a2.7b (1-layer self-draft) equal to
+   its contiguous serve;
+9. serve: the serve launcher (``repro_torch.launch.serve.run``) at full
    starcoder2-3b width with the bf16 KV cache, once with ``--quant w8a16``
    and once with ``--quant w8a8``: the service curve through the
    full-sequence forward captured as a CUDA graph per batch (flash
@@ -111,7 +127,7 @@ Phases, each of which fails the run (non-zero exit, no result line):
    print its retirement and faults lines, and one with ``--temperature
    0.8``, which must exit 0 with every request equal to the sampled
    ``reference_outputs`` under ``PRNGKey(seed + 1)``;
-9. dense: the other three dense configs at full width, one at a time
+10. dense: the other three dense configs at full width, one at a time
    (mistral-nemo-12b, internlm2-20b, qwen1.5-32b; each freed before the
    next), W8A16 weights from the streamed init
    (``registry.init_quantized``; its peak memory printed, qwen1.5-32b's
@@ -127,9 +143,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
    serve CLI at full mistral-nemo-12b width with ``--block-size 16
    --num-blocks 25 --shared-prefix-len 16`` (24 usable blocks against 48),
    exit 0, its service curve on the mma path and flash attention at
-   H = 32 (eager against captured as in phase 8), four of its requests
+   H = 32 (eager against captured as in phase 9), four of its requests
    equal to ``reference_outputs``;
-10. moe: qwen2-moe-a2.7b at full width (24 layers, 60 routed experts
+11. moe: qwen2-moe-a2.7b at full width (24 layers, 60 routed experts
    top-4 and 4 shared, vocab 151,936 tied).  First ``qmatmul_w8a16``'s
    expert-stacked entry at a tick's shapes (60 experts x 8 rows: w_gate
    with the silu drain, w_up, w_down) and the serve CLI curve's (3, 12
@@ -183,12 +199,13 @@ launches and the LM head's GEMV) and no more ``cudaLaunchKernel`` calls
 than before the redesigns.
 
 ``--only attention`` / ``--only long_tick`` / ``--only w8a8`` / ``--only
-graphs`` / ``--only dense`` / ``--only sampling`` / ``--only moe`` run
-just the two attention kernel phases, the long-context ticks,
-``qmatmul_w8a8``'s kernel phase and the W8A8 tick, the five eager tick
-breakdowns and the graph phase, the dense family's kernel rows, rmsnorm
-widths and phase 9, phase 7 and the sampled serve CLI run, or phase
-10, and ``--src DIR``
+graphs`` / ``--only dense`` / ``--only sampling`` / ``--only spec`` /
+``--only moe`` run just the two attention kernel phases, the
+long-context ticks, ``qmatmul_w8a8``'s kernel phase and the W8A8 tick,
+the five eager tick breakdowns and the graph phase, the dense family's
+kernel rows, rmsnorm widths and phase 10, phase 7 and the sampled serve
+CLI run, phase 8 with its CLI run and qwen2-moe-a2.7b's speculative
+serve, or phase 11, and ``--src DIR``
 takes the port from
 another checkout's ``src/`` (so the same phases time a parent commit's
 kernels); such a partial run prints no result line.
@@ -197,7 +214,8 @@ It prints the card's name and power limit, a JSON line with every
 kernel's numbers (qmatmul_w8a16's with both paths under ``paths``, the
 attention kernels' long-context case under ``long_context``, the rows at
 the dense configs' shapes under ``dense``, qmatmul_w8a16's expert-stacked
-entry under ``experts`` and each kernel's MoE launches under ``moe``),
+entry under ``experts``, each kernel's MoE launches under ``moe`` and
+its launches in the speculative serves under ``spec``),
 the whole run's time, and,
 last, ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
 without the repo's ``src/repro_torch`` beside it, it exits non-zero and
@@ -1371,14 +1389,24 @@ def compare_with_reference(label, cfg, params, eng, reqs, outs) -> None:
 
 def step_captures(eng):
     """The captures of the engine's memoized tick and chunk steps (every
-    bucket its chunks can take)."""
+    bucket its chunks can take) and, speculating, of its verify and
+    propose steps and the draft's chunk steps."""
     from repro_torch.runtime import steps as ST
+
+    def buckets(cap):
+        return sorted({ST.bucket_batch(n) for n in range(1, cap + 1)})
+
     be = eng.backend
     steps = [be.slot_step(eng.cfg, mode=eng.mode,
                           temperature=eng.temperature)]
     steps += [be.chunk_step(eng.cfg, mode=eng.mode, chunk=c)
-              for c in sorted({ST.bucket_batch(n)
-                               for n in range(1, eng.prefill_chunk + 1)})]
+              for c in buckets(eng.prefill_chunk)]
+    if eng.spec_k:
+        steps += [be.verify_step(eng.cfg, mode=eng.mode, k=eng.spec_k,
+                                 temperature=eng.temperature),
+                  be.propose_step(eng.dcfg, mode=eng.mode, k=eng.spec_k)]
+        steps += [be.chunk_step(eng.dcfg, mode=eng.mode, chunk=c)
+                  for c in buckets(eng.draft_cap)]
     return [s.captured.captures for s in steps]
 
 
@@ -1391,9 +1419,11 @@ def warm(label, eng, reqs):
     bound = step_captures(eng)
     eng.serve(reqs, clock="wall")
     same_captures(f"{label} first-call serve", eng, bound)
-    print(f"{label}: warm-up captured the tick and "
-          f"{sum(bound[1:])} chunk graphs (one per chunk length); a "
-          f"first-call serve captured none")
+    what = ("verify, propose and chunk graphs (one per chunk length, the "
+            "draft's and the target's)" if eng.spec_k else
+            "the tick and chunk graphs (one per chunk length)")
+    print(f"{label}: warm-up captured {what}, {sum(bound)} captures of "
+          f"their memoized steps so far; a first-call serve captured none")
     return bound
 
 
@@ -1698,6 +1728,7 @@ def serve_phase():
         serve_run("w8a16", curve_paths, SERVE_OVERLOAD_FLAGS)
         torch_cuda_empty()
         sampled_cli_run(curve_paths)
+        counts["spec"] = spec_cli_run(curve_paths, w8a16.report.outputs())
     finally:
         serve.measure_service_curve = real_curve
     compare_with_reference("serve w8a16", w8a16.cfg, w8a16.params,
@@ -2932,6 +2963,297 @@ def sampling_phase(cfg, params) -> None:
 
 
 # ---------------------------------------------------------------------------
+# speculation phase
+# ---------------------------------------------------------------------------
+
+SPEC_K = 3                  # proposals a slot per verify round
+SPEC_DRAFT_LAYERS = 1       # the self-draft's depth, but for the full one
+# the paged speculative serve: the paged slice's geometry (prompt 32
+# sharing 16, blocks of 16, 24 usable blocks) at 20/s, which spreads
+# arrivals past a tenant's prefill (its prefix block is registered, so
+# later requests share it) without the 2/s trace's 12 s of waiting
+SPEC_PAGED_RATE_PER_S = 20.0
+SPEC_TIMED = 5              # captured calls a timing (host clock, profiler)
+
+
+def spec_serve(label, eng, reqs, control, path):
+    """A speculating engine warmed up (verify, propose, the draft's
+    catch-up chunks and the target's chunks captured), then one
+    wall-clock serve with the counters zeroed just before and read just
+    after: no capture, no plain version, no mma launch, every kernel of
+    ``path`` launched, every token equal to the ``control`` serve's.
+    Returns (report, launches)."""
+    bound = warm(label, eng, reqs[:2])
+    zero_counts()
+    rep = eng.serve(reqs, clock="wall")
+    launches, plain_calls = read_counts()
+    same_captures(label, eng, bound)
+    mma_free(label, launches)
+    if any(plain_calls.values()):
+        raise AssertionError(f"{label}: the CUDA path reached a plain "
+                             f"version: {plain_calls}")
+    if any(launches[k] <= 0 for k in path):
+        raise AssertionError(f"{label}: a kernel of the path never "
+                             f"launched: {launches}")
+    check_served(label, eng.cfg, rep, reqs)
+    if rep.outputs() != control.outputs():
+        bad = [rid for rid, toks in rep.outputs().items()
+               if toks != control.outputs()[rid]]
+        raise AssertionError(f"{label}: requests {bad} differ from the "
+                             f"non-speculative control serve")
+    print(f"{label}: k={rep.spec_k}, {eng.dcfg.name} draft: "
+          f"{len(rep.results)} requests in {rep.ticks} ticks (control "
+          f"{control.ticks}), {rep.generated_tokens} tokens, "
+          f"accepted_per_dispatch {rep.accepted_per_dispatch:.3f}, wall "
+          f"{rep.wall_s:.3f}s (control {control.wall_s:.3f}s), decoded "
+          f"tok/s {rep.generated_tokens / rep.wall_s:.1f} (control "
+          f"{control.generated_tokens / control.wall_s:.1f}), ms/tick "
+          f"{1e3 * rep.wall_s / rep.ticks:.2f} (control "
+          f"{1e3 * control.wall_s / control.ticks:.2f}), mean ttft "
+          f"{rep.mean_ttft_s:.3f}s (control {control.mean_ttft_s:.3f}s), "
+          f"p99 latency {rep.p99_latency_s:.3f}s, latency per token "
+          f"{1e3 * rep.latency_per_token_s:.2f} ms, leaked_blocks "
+          f"{rep.leaked_blocks}, shared_block_hits {rep.shared_block_hits}")
+    print(f"{label}: every token of {len(rep.results)} requests equal to "
+          f"the control serve's; kernel launches {launches}")
+    return rep, launches
+
+
+def spec_step_times(cfg, params) -> None:
+    """The captured verify (k + 1 positions of NUM_SLOTS rows at
+    max_seq / 2, every row feeding all of them) and the captured propose
+    (k steps of the 1-layer self-draft), each first bitwise its eager
+    form on copies of one random cache (samples or proposals, indices,
+    every cache leaf), then their wall, device busy and launch calls
+    beside the captured tick's on the same cache."""
+    import torch
+    from repro_torch.core.qlinear import W8A16
+    from repro_torch.models import registry as R
+    from repro_torch.runtime import steps as ST
+
+    S, max_seq = NUM_SLOTS, PROMPT_LEN + MAX_NEW
+    dcfg = R.draft_config(cfg, SPEC_DRAFT_LAYERS)
+    dparams = R.draft_params(cfg, params, SPEC_DRAFT_LAYERS)
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    with torch.inference_mode():
+        toks = torch.randint(1, cfg.vocab, (S, SPEC_K + 1), generator=g,
+                             device="cuda", dtype=torch.int32)
+        idx = torch.full((S,), max_seq // 2, dtype=torch.int32,
+                         device="cuda")
+        n_tok = torch.full((S,), SPEC_K + 1, dtype=torch.int32,
+                           device="cuda")
+        active = torch.ones((S,), dtype=torch.bool, device="cuda")
+    steps = {
+        "tick": (cfg, params, ST.make_slot_decode_step(cfg, mode=W8A16),
+                 ST.jit_slot_decode_step, (toks[:, :1].contiguous(), idx,
+                                           active)),
+        "verify": (cfg, params, ST.make_verify_step(cfg, mode=W8A16,
+                                                    k=SPEC_K),
+                   ST.jit_verify_step, (toks, idx, n_tok, active)),
+        "propose": (dcfg, dparams, ST.make_draft_propose_step(
+            dcfg, mode=W8A16, k=SPEC_K), ST.jit_draft_propose_step,
+            (toks[:, :1].contiguous(), idx, active))}
+    res = {}
+    for name, (c, p, eager, jit, args) in steps.items():
+        cache = _random_cache(c, S, max_seq, 0)
+        other = {k: v.clone() for k, v in cache.items()}
+        graphed = jit(eager)
+        with torch.inference_mode():
+            want, _, i_e = eager(p, args[0], cache, *args[1:])
+            zero_counts()
+            got, _, i_g = graphed(p, args[0], other, *args[1:])
+            torch.cuda.synchronize()
+            zero_counts()
+            graphed(p, args[0], other, *args[1:])
+            launches, _ = read_counts()
+        if not (torch.equal(got, want) and torch.equal(i_g, i_e)) or any(
+                not torch.equal(other[k], cache[k]) for k in cache):
+            raise AssertionError(f"spec {name}: the captured step differs "
+                                 f"from the eager one")
+        res[name] = device_breakdown(
+            f"spec {name}", f"captured {name} ({S} rows at position "
+            f"{max_seq // 2} of {max_seq}, k = {SPEC_K}, {c.n_layers} "
+            f"layers)", lambda: graphed(p, args[0], other, *args[1:])[0]
+            .cpu(), SPEC_TIMED, False)
+        res[name]["launches"] = launches
+        graphed.captured.release()
+        del cache, other
+    tick = res["tick"]
+    for name in ("verify", "propose"):
+        r = res[name]
+        busy = ("not measured" if r["busy"] is None or tick["busy"] is None
+                else f"{r['busy']:.3f} ms ({r['busy'] / tick['busy']:.2f}x "
+                     f"the tick's {tick['busy']:.3f})")
+        print(f"spec {name}: captured bitwise the eager step; wall "
+              f"{r['wall']:.2f} ms ({r['wall'] / tick['wall']:.2f}x the "
+              f"captured tick's {tick['wall']:.2f}), device busy {busy}, "
+              f"cudaGraphLaunch {r['graph_launches']:.0f}, cudaLaunchKernel "
+              f"{r['launch_calls']:.0f}; launches per replay "
+              f"{r['launches']}")
+    torch_cuda_empty()
+
+
+def spec_phase(cfg, params):
+    """Full-width starcoder2-3b (W8A16, int8 cache, 8 slots, chunks of 4)
+    speculating with k = 3: on the slice's trace (24 requests of 16 + 32
+    tokens, 400/s) a full-depth self-draft (every proposal accepted: 32
+    tokens a request in rounds of k + 1) and a 1-layer one, greedy and
+    sampled (t = SAMPLE_TEMP, PRNGKey(SEED + 1)), and the 1-layer one
+    paged (the paged slice's geometry at SPEC_PAGED_RATE_PER_S): each
+    served warmed up and counted, equal token for token to the
+    non-speculative control serve of the same trace and engine settings,
+    and requests of each held to ``reference_outputs``; then the captured
+    verify and propose steps timed against the captured tick.  Returns
+    the launches of the contiguous and the paged 1-layer serves."""
+    from repro_torch import engine as E
+    from repro_torch.core.qlinear import W8A16
+    from repro_torch.runtime import prng as P
+    from repro_torch.runtime import steps as ST
+
+    t0 = time.perf_counter()
+    reqs = E.synthetic_requests(N_REQUESTS, rate_per_s=400.0,
+                                vocab=cfg.vocab, prompt_len=PROMPT_LEN,
+                                max_new_tokens=MAX_NEW, seed=SEED)
+    paged_reqs = E.synthetic_requests(
+        N_REQUESTS, rate_per_s=SPEC_PAGED_RATE_PER_S, vocab=cfg.vocab,
+        prompt_len=PAGED_PROMPT_LEN, shared_prefix_len=PAGED_SHARED_PREFIX,
+        max_new_tokens=MAX_NEW, seed=SEED)
+    contig = ("qmatmul_w8a16", "decode_attention_int8",
+              "decode_attention_int8_paged")
+    paged = ("qmatmul_w8a16", "decode_attention_int8_paged")
+    key = P.PRNGKey(SEED + 1, device="cuda")
+    one = dict(draft_layers=SPEC_DRAFT_LAYERS)
+    groups = (
+        ("greedy", reqs, dict(max_seq=PROMPT_LEN + MAX_NEW), contig,
+         (("full-depth", dict(draft_layers=cfg.n_layers)),
+          ("1-layer", one))),
+        ("sampled", reqs, dict(max_seq=PROMPT_LEN + MAX_NEW,
+                               temperature=SAMPLE_TEMP, rng=key), contig,
+         (("1-layer", one),)),
+        ("paged", paged_reqs, dict(max_seq=PAGED_PROMPT_LEN + MAX_NEW,
+                                   block_size=PAGED_BLOCK,
+                                   num_blocks=PAGED_NUM_BLOCKS), paged,
+         (("1-layer", one),)))
+    out = {}
+    for group, trace, kw, path, drafts in groups:
+        control = E.Engine(cfg, params, mode=W8A16, num_slots=NUM_SLOTS,
+                           prefill_chunk=PREFILL_CHUNK, **kw)
+        warm(f"spec {group} control", control, trace[:2])
+        ctl = control.serve(trace, clock="wall")
+        check_served(f"spec {group} control", cfg, ctl, trace)
+        del control
+        for name, draft in drafts:
+            label = f"spec {group} {name}"
+            eng = E.Engine(cfg, params, mode=W8A16, num_slots=NUM_SLOTS,
+                           prefill_chunk=PREFILL_CHUNK, spec_k=SPEC_K,
+                           **draft, **kw)
+            rep, launches = spec_serve(label, eng, trace, ctl, path)
+            if name == "full-depth" and (
+                    rep.accepted_per_dispatch != SPEC_K + 1):
+                raise AssertionError(f"{label}: accepted_per_dispatch "
+                                     f"{rep.accepted_per_dispatch}, not "
+                                     f"{SPEC_K + 1}: a proposal of the "
+                                     f"target itself was rejected")
+            if group == "paged" and (rep.leaked_blocks
+                                     or rep.shared_block_hits <= 0):
+                raise AssertionError(f"{label}: leaked "
+                                     f"{rep.leaked_blocks}, shared hits "
+                                     f"{rep.shared_block_hits}")
+            if name == "1-layer":
+                out[group] = launches
+                if group == "sampled":
+                    compare_sampled(label, cfg, params, eng,
+                                    trace[:N_COMPARE], rep.outputs())
+                else:
+                    compare_with_reference(label, cfg, params, eng,
+                                           trace[:N_COMPARE], rep.outputs())
+            del eng
+        ST.clear_step_cache()
+        torch_cuda_empty()
+    spec_step_times(cfg, params)
+    print(f"spec: starcoder2-3b part {time.perf_counter() - t0:.1f}s")
+    return out
+
+
+def spec_cli_run(curve_paths, control=None):
+    """The serve CLI at full starcoder2-3b width with ``--spec-k 3
+    --draft-layers 1``: exit 0, every request ok and equal to the
+    non-speculative w8a16 run's tokens (``control``, the same flags
+    less these two) or, without it, three of them to
+    ``reference_outputs``.  Returns its launches."""
+    label = "serve w8a16 speculative"
+    launches, res = serve_run(
+        "w8a16", curve_paths, ["--spec-k", str(SPEC_K), "--draft-layers",
+                               str(SPEC_DRAFT_LAYERS)], label=label)
+    rep = res.report
+    if rep.spec_k != SPEC_K or not res.engine.dcfg.name.endswith(
+            f"-draft{SPEC_DRAFT_LAYERS}"):
+        raise AssertionError(f"{label}: spec_k {rep.spec_k}, draft "
+                             f"{res.engine.dcfg}")
+    print(f"{label}: accepted_per_dispatch {rep.accepted_per_dispatch:.3f}, "
+          f"{rep.ticks} ticks, decoded tok/s {rep.tokens_per_s:.1f}, mean "
+          f"ttft {rep.mean_ttft_s:.3f}s")
+    if control is not None:
+        if rep.outputs() != control:
+            raise AssertionError(f"{label}: tokens differ from the "
+                                 f"non-speculative w8a16 run's")
+        print(f"{label}: every token of {len(control)} requests equal to "
+              f"the non-speculative w8a16 run's")
+    else:
+        compare_with_reference(label, res.cfg, res.params, res.engine,
+                               res.requests[:N_COMPARE], rep.outputs())
+    del res
+    torch_cuda_empty()
+    return launches
+
+
+def spec_moe_only() -> None:
+    """``--only spec`` without the MoE phase: qwen2-moe-a2.7b from the
+    streamed init, its contiguous serve as the control, then
+    :func:`moe_spec_serve`."""
+    from repro_torch import engine as E
+    from repro_torch.runtime import steps as ST
+
+    ST.clear_step_cache()
+    torch_cuda_empty()
+    cfg, params = build_dense_model(MOE_ARCH)
+    reqs = E.synthetic_requests(
+        DENSE_REQUESTS, rate_per_s=DENSE_RATE_PER_S, vocab=cfg.vocab,
+        prompt_len=DENSE_PROMPT, max_new_tokens=DENSE_NEW,
+        shared_prefix_len=DENSE_SHARED, seed=SEED)
+    label = f"moe {MOE_ARCH}"
+    eng, rep, _ = dense_serve(f"{label} contiguous", cfg, params, reqs)
+    del eng
+    moe_spec_serve(label, cfg, params, reqs, rep.outputs())
+    del params
+    torch_cuda_empty()
+
+
+def moe_spec_serve(label, cfg, params, reqs, control):
+    """qwen2-moe-a2.7b (bf16 cache) speculating with a 1-layer self-draft
+    on the dense trace, served as the dense serves are and equal token
+    for token to ``control`` (the contiguous serve's outputs).  Returns
+    its launches."""
+    from repro_torch.runtime import steps as ST
+
+    label = f"{label} speculative"
+    eng, rep, launches = dense_serve(label, cfg, params, reqs,
+                                     spec_k=SPEC_K,
+                                     draft_layers=SPEC_DRAFT_LAYERS)
+    if rep.outputs() != control:
+        raise AssertionError(f"{label}: tokens differ from the contiguous "
+                             f"serve's")
+    print(f"{label}: k={rep.spec_k}, {eng.dcfg.name} draft, "
+          f"accepted_per_dispatch {rep.accepted_per_dispatch:.3f}, "
+          f"{rep.ticks} ticks; every token of {len(control)} requests equal "
+          f"to the contiguous serve's")
+    del eng
+    ST.clear_step_cache()
+    torch_cuda_empty()
+    return launches
+
+
+# ---------------------------------------------------------------------------
 # the rest of the dense family
 # ---------------------------------------------------------------------------
 
@@ -3764,6 +4086,7 @@ def moe_phase(flush):
                            rep.outputs())
     contig = rep.outputs()
     del eng
+    out["spec_launches"] = moe_spec_serve(label, cfg, params, reqs, contig)
     eng, rep, _ = dense_serve(f"{label} paged", cfg, params, reqs,
                               block_size=DENSE_BLOCK,
                               num_blocks=DENSE_NUM_BLOCKS)
@@ -3804,7 +4127,7 @@ def moe_phase(flush):
 
 
 PHASES = ("attention", "long_tick", "w8a8", "graphs", "dense", "sampling",
-          "moe")
+          "spec", "moe")
 
 
 def parse_args(argv):
@@ -3821,7 +4144,10 @@ def parse_args(argv):
                          "the five eager tick breakdowns and the graph "
                          "phase, the dense family at full width, "
                          "sampling (the PRNG, the sampled serves, tick and "
-                         "loop, mistral-nemo-12b and the CLI sampled), or "
+                         "loop, mistral-nemo-12b and the CLI sampled), "
+                         "speculation (starcoder2-3b's speculative serves "
+                         "and steps, the CLI with --spec-k, "
+                         "qwen2-moe-a2.7b's speculative serve), or "
                          "the MoE family (qwen2-moe-a2.7b's kernel rows, "
                          "serves, chunk pass, tick and CLI); prints no "
                          "result line")
@@ -3886,7 +4212,8 @@ def main(argv=None) -> int:
         if "dense" in args.only:
             rmsnorm_phase(RMSNORM_WIDTHS[1:])
             dense_phase()
-        if {"long_tick", "w8a8", "graphs", "sampling"} & set(args.only):
+        if {"long_tick", "w8a8", "graphs", "sampling", "spec"} & set(
+                args.only):
             cfg, params = build_model()
         if "graphs" in args.only:
             tick_breakdown(cfg, params, NUM_SLOTS, PROMPT_LEN + MAX_NEW)
@@ -3901,19 +4228,28 @@ def main(argv=None) -> int:
             graph_phase(cfg, params)
         if "sampling" in args.only:
             sampling_phase(cfg, params)
+        if "spec" in args.only:
+            spec_phase(cfg, params)
+        if {"sampling", "spec"} & set(args.only):
             from repro_torch.launch import serve
             from repro_torch.runtime import steps as ST
             ST.clear_step_cache()
             del params
             torch_cuda_empty()
-            sampled_dense_phase()
+            if "sampling" in args.only:
+                sampled_dense_phase()
             real_curve, curve_paths = serve.measure_service_curve, {}
             serve.measure_service_curve = counted_curve(real_curve,
                                                         curve_paths)
             try:
-                sampled_cli_run(curve_paths)
+                if "sampling" in args.only:
+                    sampled_cli_run(curve_paths)
+                if "spec" in args.only:
+                    spec_cli_run(curve_paths)
             finally:
                 serve.measure_service_curve = real_curve
+        if "spec" in args.only and "moe" not in args.only:
+            spec_moe_only()             # the MoE phase runs it otherwise
         if "moe" in args.only:          # last, as in the whole run
             from repro_torch.runtime import steps as ST
             ST.clear_step_cache()       # starcoder's graphs and weights go
@@ -3945,6 +4281,7 @@ def main(argv=None) -> int:
     w8a8_tick_phase(cfg, params)
     graph_phase(cfg, params)
     sampling_phase(cfg, params)
+    spec = spec_phase(cfg, params)
     from repro_torch.runtime import steps as ST
     ST.clear_step_cache()           # the engines' captured tick and cache
     del params
@@ -3960,8 +4297,8 @@ def main(argv=None) -> int:
     fwd_basis = (f"one full-width forward of {SERVE_MAX_BATCH} x "
                  f"{SERVE_SEQ} tokens (the service curve's largest "
                  f"prefill): the sum over its launches")
-    flash_runs = sum(c["flash_attention_bhsd"]
-                     for c in serve_launches.values())
+    flash_runs = sum(serve_launches[quant]["flash_attention_bhsd"]
+                     for quant in ("w8a16", "w8a8"))
 
     def numbers(t):
         return {"ms": t["ms"], "plain_ms": t["plain_ms"],
@@ -4070,6 +4407,30 @@ def main(argv=None) -> int:
     kernels[4]["moe"] = {"launches": moe["cli"]["flash_attention_bhsd"],
                          "basis": f"the serve CLI's run on {MOE_ARCH} "
                                   f"(H = 16)"}
+    # speculation (k = SPEC_K, the 1-layer self-draft): the launches of
+    # each kernel in the speculative serves and the speculative CLI run
+    spec_basis = (f"k = {SPEC_K}, {SPEC_DRAFT_LAYERS}-layer self-draft, "
+                  f"starcoder2-3b")
+    kernels[0]["spec"] = {
+        "launches": spec["greedy"]["qmatmul_w8a16"],
+        "experts_launches": moe["spec_launches"]["qmatmul_w8a16_experts"],
+        "basis": f"the contiguous slice's trace served speculating "
+                 f"({spec_basis}); experts: {MOE_ARCH}'s speculative "
+                 f"serve"}
+    kernels[1]["spec"] = {"launches": spec["greedy"]["decode_attention_int8"],
+                          "basis": f"the contiguous slice's trace served "
+                                   f"speculating ({spec_basis})"}
+    kernels[2]["spec"] = {
+        "launches": spec["paged"]["decode_attention_int8_paged"],
+        "basis": f"the paged slice's geometry at {SPEC_PAGED_RATE_PER_S:g}/s "
+                 f"served speculating ({spec_basis})"}
+    kernels[4]["spec"] = {
+        "launches": serve_launches["spec"]["flash_attention_bhsd"],
+        "basis": f"the serve CLI's run with --spec-k {SPEC_K} "
+                 f"--draft-layers {SPEC_DRAFT_LAYERS}"}
+    if min(kernels[i]["spec"]["launches"] for i in (0, 1, 2, 4)) <= 0 or \
+            kernels[0]["spec"]["experts_launches"] <= 0:
+        return fail("a kernel of a speculative path never launched")
     if min(kernels[0]["experts"]["launches"], kernels[1]["moe"]["launches"],
            kernels[2]["moe"]["launches"], kernels[4]["moe"]["launches"]) <= 0:
         return fail("a kernel of the MoE path never launched")

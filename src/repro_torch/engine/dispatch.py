@@ -4,7 +4,8 @@ The port of ``repro/engine/dispatch.py`` for ONE model lane, greedy or
 sampled (the tick passes the engine's key to a sampled step), on
 contiguous slots or on the paged KV cache, with the reference's overload
 paths (SLO-class quotas, preemption with exact resume, fault injection
-and recovery):
+and recovery) and its speculative decoding (a draft proposes, one verify
+step scores, the host commits the accepted run and rewinds the rest):
 
 - ``Engine`` (engine.py) — policy + reporting: request validation,
   admission policy configuration, and ``EngineReport`` assembly.
@@ -22,8 +23,8 @@ the token chain alone: the reference's prime-source and model-tag seeds
 belong to families and lanes not ported yet.
 
 Not ported yet, and refused with an error naming their ROADMAP item where
-a caller asks for them: prime families (queue 1, item 13), speculation,
-multiplexing and the sharded executor (item 14).
+a caller asks for them: prime families (queue 1, item 13), multiplexing
+and the sharded executor (item 14).
 """
 from __future__ import annotations
 
@@ -117,8 +118,8 @@ class ExecutorBackend:
     step providers, each returning a callable with the signature of the
     corresponding ``runtime.steps.make_*_step``.  Backends provide STEPS,
     not state: every device buffer is owned by the core that calls them.
-    The reference's prime, verify and propose providers arrive with their
-    features (ROADMAP queue 1, items 13 and 14)."""
+    The reference's prime provider arrives with its families (ROADMAP
+    queue 1, item 13)."""
 
     kind: str = "abstract"
 
@@ -133,13 +134,20 @@ class ExecutorBackend:
                    chunk: int) -> Callable:
         raise NotImplementedError
 
+    def verify_step(self, cfg: ArchConfig, *, mode: QuantMode, k: int,
+                    temperature: float) -> Callable:
+        raise NotImplementedError
+
+    def propose_step(self, dcfg: ArchConfig, *, mode: QuantMode,
+                     k: int) -> Callable:
+        raise NotImplementedError
+
 
 class SingleDeviceExecutor(ExecutorBackend):
-    """The one-card step set: the slot tick and the chunk step captured
-    as CUDA graphs and memoized process-wide
-    (``runtime/steps.py::cached_slot_decode_step``,
-    ``cached_prefill_chunk_step``), as the reference's executor hands out
-    its compiled steps."""
+    """The one-card step set: the slot tick, the chunk step and the
+    speculative verify and propose steps, captured as CUDA graphs and
+    memoized process-wide (``runtime/steps.py::cached_*``), as the
+    reference's executor hands out its compiled steps."""
 
     kind = "single"
 
@@ -149,6 +157,13 @@ class SingleDeviceExecutor(ExecutorBackend):
 
     def chunk_step(self, cfg, *, mode, chunk):
         return ST.cached_prefill_chunk_step(cfg, mode=mode, chunk=chunk)
+
+    def verify_step(self, cfg, *, mode, k, temperature):
+        return ST.cached_verify_step(cfg, mode=mode, k=k,
+                                     temperature=temperature)
+
+    def propose_step(self, dcfg, *, mode, k):
+        return ST.cached_draft_propose_step(dcfg, mode=mode, k=k)
 
 
 class ShardedExecutor(ExecutorBackend):
@@ -169,6 +184,10 @@ class DispatchOutcome:
     occ_by_class: Dict[str, List[int]]   # active slots per class, per tick
     ticks: int = 0
     gen_tokens: int = 0
+    # row-ticks that committed >= 1 token: gen_tokens / emit_dispatches
+    # is exactly 1.0 without speculation and the mean accepted run plus
+    # its bonus sample with it
+    emit_dispatches: int = 0
     admissions_while_busy: int = 0
     dropped: int = 0
     failed: int = 0
@@ -193,12 +212,25 @@ class DispatchOutcome:
 
 class DispatchCore:
     """The tick loop: ingest -> (preempt) -> admit -> chunk prefill ->
-    (fault injection) -> one fused slot step -> host bookkeeping (and
+    (speculating: draft catch-up and propose) -> (fault injection) -> one
+    fused slot step, or one verify step -> host bookkeeping (and
     recovery), repeated until the trace drains.  One
     instance per ``serve`` call; the pool and the host token / index
-    mirrors are built fresh for every run, and the device cache is the
-    engine's, zeroed in place (``Engine.zeroed_cache``), so the captured
-    tick stays bound to it from run to run."""
+    mirrors are built fresh for every run, and the device caches are the
+    engine's, zeroed in place (``Engine.zeroed_cache``,
+    ``zeroed_draft_cache``), so the captured steps stay bound to them from
+    run to run.
+
+    Speculation (``Engine(spec_k=k, ...)``): each generating slot's draft
+    cache (contiguous: the draft never pages) is caught up to the slot's
+    committed frontier by the draft's chunk steps, the draft proposes k
+    greedy tokens for every such slot in one propose step, and the
+    target's verify step replaces the fused tick, scoring each ready
+    row's next input and its proposals.  The host commits the accepted
+    run and the bonus sample, then rewinds the row's index to its
+    committed frontier: the rejected tail's k/v writes are overwritten
+    before any read sees them.  So the committed stream is bit for bit
+    the non-speculative one, whatever the draft proposes."""
 
     def __init__(self, eng):
         self.eng = eng
@@ -269,11 +301,29 @@ class DispatchCore:
                                      temperature=eng.temperature)
         chunk_steps = {}
 
-        def chunk_step(c: int):
-            if c not in chunk_steps:
-                chunk_steps[c] = eng.backend.chunk_step(
-                    eng.cfg, mode=eng.mode, chunk=c)
-            return chunk_steps[c]
+        def chunk_step(c: int, cfg: ArchConfig = eng.cfg):
+            # memoized per (config, bucket): the target's, or the draft's
+            if (cfg, c) not in chunk_steps:
+                chunk_steps[cfg, c] = eng.backend.chunk_step(
+                    cfg, mode=eng.mode, chunk=c)
+            return chunk_steps[cfg, c]
+
+        spec_k = eng.spec_k
+        if spec_k:
+            verify = eng.backend.verify_step(
+                eng.cfg, mode=eng.mode, k=spec_k,
+                temperature=eng.temperature)
+            propose = eng.backend.propose_step(eng.dcfg, mode=eng.mode,
+                                               k=spec_k)
+            dcache = eng.zeroed_draft_cache()
+            # per tick: each slot's usable proposals (0 = the slot does
+            # not speculate this tick), the draft's proposals, and the
+            # verify payload (the next input, then the proposals) with
+            # the count of its tokens each row really feeds
+            krow = np.zeros((S,), np.int32)
+            props = np.zeros((S, spec_k), np.int32)
+            tok_mat = np.zeros((S, spec_k + 1), np.int32)
+            n_tok = np.zeros((S,), np.int32)
 
         sched = SlotScheduler(eng.policy)
         quotas_on = bool(eng.policy.class_quotas)
@@ -281,7 +331,7 @@ class DispatchCore:
         occupancy: List[int] = []
         occ_by_class: Dict[str, List[int]] = {}
         admissions_while_busy = dropped = failed = unfinished = 0
-        nonfinite = ticks = gen_tokens = 0
+        nonfinite = ticks = gen_tokens = emit_dispatches = 0
         # overload state: the stashed progress of preempted requests
         # (rid -> _Stash) and the fault / recovery counters
         stash: Dict[int, _Stash] = {}
@@ -390,6 +440,65 @@ class DispatchCore:
             for name, t in cache.items():
                 if name != "block_tables":
                     t[:, rows] = 0
+
+        def recover_nonfinite(st) -> None:
+            # the finite guard's sentinel: this row's logits went NaN/Inf.
+            # The sample is garbage and the cache row suspect: rebuild the
+            # slot by preemption (a transient fault recomputes clean, bit
+            # for bit); a slot that keeps faulting exhausts its retries
+            # and fails
+            nonlocal nonfinite
+            nonfinite += 1
+            scrub(st)
+            st.retries += 1
+            if st.retries > max_retries:
+                fail(st)
+            else:
+                preempt(st)
+
+        def commit_verified(st, row) -> int:
+            """The speculative commit of one verified row: walk its fed
+            positions, keeping the accepted proposals and the bonus
+            sample after the last, then rewind the row's index to its
+            committed frontier.  Returns 1 when the row committed a
+            token (an emitting dispatch), else 0."""
+            nonlocal gen_tokens
+            nt = int(n_tok[st.sid])
+            if (row[:nt] < 0).any():
+                # a sentinel anywhere in the fed range poisons the whole
+                # round: the proposals in flight are uncommitted state, so
+                # recovery rebuilds from the last committed token, as in
+                # the non-speculative engine
+                recover_nonfinite(st)
+                return 0
+            pos0, committed = st.pos, 0
+            for j in range(nt):
+                st.pos += 1
+                if paged:
+                    register_blocks(st)
+                if st.pos < len(st.prompt):        # still prefilling
+                    tokens[st.sid, 0] = st.prompt[st.pos]
+                    break
+                tok = int(row[j])
+                st.generated.append(tok)
+                gen_tokens += 1
+                committed += 1
+                if st.first_token_s < 0:
+                    st.first_token_s = now
+                if st.done() or (j + 1 < nt
+                                 and tok != int(tok_mat[st.sid, j + 1])):
+                    break
+            index[st.sid] = st.pos          # the rewind past rejections
+            if committed and krow[st.sid] > 0:
+                # the draft consumed [next input, d_1 .. d_{k-1}]; its
+                # committed-valid prefix is 1 + the accepted count
+                # (capped at k - 1)
+                st.draft_pos = pos0 + 1 + min(committed - 1, spec_k - 1)
+            if st.done():
+                retire(st, "ok")
+            elif committed:
+                tokens[st.sid, 0] = st.generated[-1]
+            return int(committed > 0)
 
         i, now = 0, 0.0
         t0 = time.perf_counter()
@@ -547,7 +656,51 @@ class DispatchCore:
                     register_blocks(st)
                 if st.chunk_left == 0:
                     tokens[st.sid, 0] = st.prompt[st.pos]
+            if spec_k:
+                # 4.5) speculative draft: catch each generating slot's
+                #      draft cache up to its committed frontier (teacher-
+                #      forced through the draft's chunk steps: this also
+                #      rebuilds the draft after admission, a resume or a
+                #      slot's reuse), then propose spec_k greedy tokens for
+                #      every such slot in one propose step.  Draft steps
+                #      see no fault injection: a wrong proposal can only
+                #      be rejected.
+                krow[:] = 0
+                for st in pool.active_slots():
+                    if st.chunk_left > 0 or st.pos < len(st.prompt) - 1:
+                        continue
+                    k_row = min(spec_k, st.max_new - len(st.generated) - 1,
+                                eng.max_seq - 1 - st.pos)
+                    if k_row <= 0:
+                        continue
+                    krow[st.sid] = k_row
+                    n_prompt = len(st.prompt)
+                    while st.draft_pos < st.pos:
+                        n = min(st.pos - st.draft_pos, eng.draft_cap)
+                        c = ST.bucket_batch(n)
+                        buf = np.zeros((c,), np.int32)
+                        for t in range(n):
+                            # the committed history: prompt, then the
+                            # tokens generated since this tenancy's
+                            # admission, which end at position pos
+                            p = st.draft_pos + t
+                            buf[t] = (st.prompt[p] if p < n_prompt
+                                      else st.generated[p - st.pos - 1])
+                        dcache = chunk_step(c, eng.dcfg)(
+                            eng.dparams, buf, dcache, st.sid, st.draft_pos,
+                            n)
+                        st.draft_pos += n
+                d_active = krow > 0
+                if d_active.any():
+                    d_index = np.array([s.draft_pos for s in pool.slots],
+                                       np.int32)
+                    props_d, dcache, _ = propose(
+                        eng.dparams, torch.as_tensor(tokens, device=dev),
+                        dcache, torch.as_tensor(d_index, device=dev),
+                        torch.as_tensor(d_active, device=dev))
+                    props = props_d.cpu().numpy().copy()
             # 5) one fused slot-masked step: every ready slot, one token
+            #    (speculating: one verify step, 1 + krow tokens a row)
             active = np.array([s.active and s.chunk_left == 0
                                for s in pool.slots], bool)
             ready = [int(s) for s in np.where(active)[0]]
@@ -587,16 +740,35 @@ class DispatchCore:
             nxt = None
             if ready:
                 # the captured step's outputs are static buffers that the
-                # next tick overwrites: read here, within this tick
-                nxt_d, cache, new_index = step(
-                    eng.params, torch.as_tensor(tokens, device=dev), cache,
-                    torch.as_tensor(index, device=dev),
-                    torch.as_tensor(active, device=dev), *eng.step_keys())
+                # next tick overwrites: read here, within this tick, and
+                # before the rewind below writes the host index
+                if spec_k:
+                    # the verify payload: each ready row's next input, then
+                    # its usable proposals
+                    tok_mat[:] = 0
+                    tok_mat[:, 0] = tokens[:, 0]
+                    for sid in ready:
+                        kr = int(krow[sid])
+                        tok_mat[sid, 1:1 + kr] = props[sid, :kr]
+                    n_tok = np.where(active, 1 + krow, 0).astype(np.int32)
+                    nxt_d, cache, new_index = verify(
+                        eng.params, torch.as_tensor(tok_mat, device=dev),
+                        cache, torch.as_tensor(index, device=dev),
+                        torch.as_tensor(n_tok, device=dev),
+                        torch.as_tensor(active, device=dev),
+                        *eng.step_keys())
+                else:
+                    nxt_d, cache, new_index = step(
+                        eng.params, torch.as_tensor(tokens, device=dev),
+                        cache, torch.as_tensor(index, device=dev),
+                        torch.as_tensor(active, device=dev),
+                        *eng.step_keys())
                 nxt = nxt_d.cpu().numpy().copy()   # waits for the step
                 index = new_index.cpu().numpy().copy()
                 if fault_plan is not None:
                     # fault: poison the victims' samples, at the finite
-                    # guard's observable surface (its -1 sentinel)
+                    # guard's observable surface (its -1 sentinel; a
+                    # verify row: every position)
                     for sid in fault_plan.nonfinite_slots(ticks, ready):
                         nxt[sid] = -1
             elif clock == "wall" and dev.type == "cuda":
@@ -642,6 +814,9 @@ class DispatchCore:
                     continue
                 if st.chunk_left > 0:              # mid-chunk: no sample
                     continue
+                if spec_k:
+                    emit_dispatches += commit_verified(st, nxt[st.sid])
+                    continue
                 st.pos += 1
                 if paged:
                     register_blocks(st)
@@ -650,21 +825,11 @@ class DispatchCore:
                     continue
                 tok = int(nxt[st.sid])
                 if tok < 0:
-                    # the finite guard's sentinel: this row's logits went
-                    # NaN/Inf.  The sample is garbage and the cache row
-                    # suspect: rebuild the slot by preemption (a transient
-                    # fault recomputes clean, bit for bit); a slot that
-                    # keeps faulting exhausts its retries and fails
-                    nonfinite += 1
-                    scrub(st)
-                    st.retries += 1
-                    if st.retries > max_retries:
-                        fail(st)
-                    else:
-                        preempt(st)
+                    recover_nonfinite(st)
                     continue
                 st.generated.append(tok)
                 gen_tokens += 1
+                emit_dispatches += 1
                 if st.first_token_s < 0:
                     st.first_token_s = now
                 if st.done():
@@ -690,7 +855,7 @@ class DispatchCore:
         return DispatchOutcome(
             results=results, occupancy=occupancy,
             occ_by_class=occ_by_class, ticks=ticks,
-            gen_tokens=gen_tokens,
+            gen_tokens=gen_tokens, emit_dispatches=emit_dispatches,
             admissions_while_busy=admissions_while_busy, dropped=dropped,
             failed=failed, unfinished=unfinished, nonfinite=nonfinite,
             preempted=preempted, dispatch_retries=dispatch_retries,

@@ -31,6 +31,12 @@ one engine-wide temperature:
   ``serve(fault_plan=...)`` injects a seeded ``FaultPlan``'s failures,
   which the recovery (always on) retries, rebuilds or, past
   ``max_retries``, retires as ``failed``.
+- Speculation: ``spec_k=k`` with a draft (``draft_layers=n``, the
+  target's first n layers, or ``draft=(dcfg, dparams)``) turns every
+  generating tick into a draft proposal of k greedy tokens and one
+  verify step on the target; the committed tokens are bit for bit the
+  non-speculative engine's, greedy or sampled, whatever the draft
+  proposes (``engine/dispatch.py``).
 
 ``reference_outputs`` is the sequential per-token loop (batch 1, same
 decode math and sampler, contiguous cache) the engine must match bit
@@ -43,7 +49,7 @@ sampler is elementwise up to its argmax along the vocabulary.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, List, Optional, Sequence, Union
+from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -115,10 +121,26 @@ class EngineReport:
         default_factory=dict)
     goodput_tokens_per_s: float = 0.0
     slo_attainment: float = 0.0       # ok-and-on-time / all requests
-    latency_per_token_s: float = 0.0  # mean over ok requests
+    # speculative decoding (Engine(spec_k=..., draft=...|draft_layers=...))
+    spec_k: int = 0                   # proposal depth (0 = not speculating)
+    accepted_per_dispatch: float = 0.0  # committed tokens per emitting
+                                        # row-tick: exactly 1.0 without
+                                        # speculation, the mean accepted
+                                        # run plus its bonus with it
+    latency_per_token_s: float = 0.0  # mean over ok requests of
+                                      # latency_s / emitted tokens
 
     def outputs(self) -> Dict[int, List[int]]:
         return {r.rid: r.tokens for r in self.results}
+
+
+def _check_params_device(params, device: torch.device, what: str) -> None:
+    table = params["embed"]["table"]
+    table_dev = (table.values if isinstance(table, QTensor)
+                 else table).device
+    if table_dev.type != device.type:
+        raise ValueError(f"{what} lie on {table_dev}, the engine runs on "
+                         f"{device}")
 
 
 def _not_ported(what: str, item: str) -> NotImplementedError:
@@ -142,9 +164,19 @@ class Engine:
     ``np.asarray`` of ``jax.random.PRNGKey``), which it then needs.
     ``policy=AdmissionPolicy(class_quotas={...})`` caps the slots each
     SLO class may hold; ``serve(preemption=..., fault_plan=...,
-    max_retries=...)`` runs the overload paths.  The JAX engine's other
-    options — speculation, multiplexing, a sharded backend — raise
-    ``NotImplementedError`` naming their ROADMAP item."""
+    max_retries=...)`` runs the overload paths.
+
+    ``spec_k=k`` (> 0) speculates with exactly one draft:
+    ``draft_layers=n`` (a self-draft, the target's first n layers, no
+    second checkpoint) or ``draft=(dcfg, dparams)`` (another model of the
+    same vocabulary, its params on the engine's device).  Target and
+    draft must both keep their whole decode state as positional KV
+    (``registry.supports_speculation``).  The draft's cache is contiguous
+    whatever the target's, of the draft config's KV kind (a self-draft's:
+    the target's).
+
+    The JAX engine's other options — multiplexing, a sharded backend —
+    raise ``NotImplementedError`` naming their ROADMAP item."""
 
     def __init__(self, cfg: ArchConfig, params, *,
                  mode: QuantMode = FP,
@@ -156,6 +188,8 @@ class Engine:
                  num_blocks: Optional[int] = None,
                  temperature: float = 0.0, rng=None,
                  spec_k: int = 0,
+                 draft: Optional[Tuple[ArchConfig, dict]] = None,
+                 draft_layers: Optional[int] = None,
                  models=None,
                  backend: Optional[ExecutorBackend] = None,
                  name: Optional[str] = None):
@@ -164,16 +198,45 @@ class Engine:
         if temperature > 0.0 and rng is None:
             raise ValueError("temperature sampling needs an rng key: "
                              "Engine(..., temperature=t, rng=key)")
-        if spec_k:
-            raise _not_ported("speculative decoding", "14")
+        if spec_k < 0:
+            raise ValueError(f"spec_k must be >= 0, got {spec_k}")
+        if spec_k == 0 and (draft is not None or draft_layers is not None):
+            raise ValueError("a draft model needs spec_k >= 1: "
+                             "Engine(..., spec_k=k, draft=... or "
+                             "draft_layers=...)")
         self.device = resolve_device(device)
-        table = params["embed"]["table"]
-        table_dev = (table.values if isinstance(table, QTensor)
-                     else table).device
-        if table_dev.type != self.device.type:
-            raise ValueError(f"params lie on {table_dev}, the engine runs "
-                             f"on {self.device}")
+        _check_params_device(params, self.device, "params")
         R.module_for(cfg)
+        self.spec_k = spec_k
+        self.dcfg = self.dparams = None
+        if spec_k:
+            if (draft is None) == (draft_layers is None):
+                raise ValueError(
+                    "speculative decoding needs exactly one of "
+                    "draft=(cfg, params) or draft_layers=n "
+                    "(truncated-layer self-draft)")
+            if not R.supports_speculation(cfg):
+                raise ValueError(
+                    f"family {cfg.family!r} (window={cfg.window}) does not "
+                    f"support speculative decoding: the target's decode "
+                    f"state must be rewindable positional KV")
+            if draft is not None:
+                dcfg, dparams = draft
+                if not R.supports_speculation(dcfg):
+                    raise ValueError(
+                        f"draft family {dcfg.family!r} "
+                        f"(window={dcfg.window}) cannot draft: its decode "
+                        f"state must be rewindable positional KV")
+                if dcfg.vocab != cfg.vocab:
+                    raise ValueError(
+                        f"draft vocab {dcfg.vocab} != target vocab "
+                        f"{cfg.vocab}: proposals would not be token-"
+                        f"compatible")
+                _check_params_device(dparams, self.device, "draft params")
+            else:
+                dcfg = R.draft_config(cfg, draft_layers)
+                dparams = R.draft_params(cfg, params, draft_layers)
+            self.dcfg, self.dparams = dcfg, dparams
         if num_blocks is not None and block_size is None:
             raise ValueError("num_blocks needs block_size: paged mode is "
                              "enabled by Engine(..., block_size=...)")
@@ -211,12 +274,21 @@ class Engine:
             self.num_blocks = 0
         self.prefill_chunk = (ST.bucket_batch(prefill_chunk)
                               if prefill_chunk else None)
+        # the draft's catch-up chunk cap: a tick's gap is at most 1 (after
+        # a full accept), but admission and a resume feed whole prompts.
+        # The draft's rows are spec_k positions longer, rounded up to 16:
+        # a row proposes spec_k tokens from as late as max_seq - 3, whose
+        # writes run up to spec_k - 3 past the last position a request
+        # can use (the reference clamps them into the row)
+        self.draft_cap = (self.prefill_chunk or 16) if spec_k else 0
+        self.draft_seq = self.max_seq + 16 * -(-spec_k // 16)
         self.policy = policy or bt.AdmissionPolicy(
             lambda b: 0.0, max_batch=self.num_slots, max_wait_s=0.0)
         self.backend = backend if backend is not None \
             else SingleDeviceExecutor()
         self.backend.validate(self)
         self._cache: Optional[dict] = None
+        self._draft_cache: Optional[dict] = None
 
     def step_keys(self) -> tuple:
         """The slot step's trailing arguments: ``(rng,)`` when the engine
@@ -243,6 +315,20 @@ class Engine:
                     t.zero_()
         return self._cache
 
+    def zeroed_draft_cache(self) -> dict:
+        """The draft model's cache (speculating engines), all zeros, as
+        :meth:`zeroed_cache`: contiguous rows of ``draft_seq``
+        positions."""
+        with torch.inference_mode():
+            if self._draft_cache is None:
+                self._draft_cache = R.init_cache(
+                    self.dcfg, self.num_slots, self.draft_seq,
+                    device=self.device)
+            else:
+                for t in self._draft_cache.values():
+                    t.zero_()
+        return self._draft_cache
+
     def warmup(self) -> None:
         """Run the slot step once (and, with chunked prefill, the chunk
         step once for every chunk length it can be given: ``n`` tokens in
@@ -251,23 +337,44 @@ class Engine:
         first tick to serving, not to building and loading the kernels,
         the libraries' first-call set-up or, on the card, the capture of
         the steps' graphs: the next ``serve`` zeroes the cache in place
-        and replays those graphs."""
+        and replays those graphs.  A speculating engine never runs the
+        slot step: it runs the verify step in its place, and the propose
+        step and the draft's chunk step (every n up to ``draft_cap``) on
+        the draft's cache."""
         S = self.num_slots
         dev = self.device
+
+        def zeros(*shape, dtype=torch.int32):
+            return torch.zeros(shape, dtype=dtype, device=dev)
+
+        def chunks(cfg, params, cache, cap):
+            for n in range(1, cap + 1):
+                c = ST.bucket_batch(n)
+                self.backend.chunk_step(cfg, mode=self.mode, chunk=c)(
+                    params, [0] * c, cache, 0, 0, n)
+
         with torch.inference_mode():
             cache = self.zeroed_cache()
-            step = self.backend.slot_step(self.cfg, mode=self.mode,
-                                          temperature=self.temperature)
-            step(self.params, torch.zeros((S, 1), dtype=torch.int32,
-                                          device=dev), cache,
-                 torch.zeros((S,), dtype=torch.int32, device=dev),
-                 torch.zeros((S,), dtype=torch.bool, device=dev),
-                 *self.step_keys())
-            for n in range(1, (self.prefill_chunk or 0) + 1):
-                c = ST.bucket_batch(n)
-                chunk = self.backend.chunk_step(self.cfg, mode=self.mode,
-                                                chunk=c)
-                chunk(self.params, [0] * c, cache, 0, 0, n)
+            if self.spec_k:
+                k = self.spec_k
+                verify = self.backend.verify_step(
+                    self.cfg, mode=self.mode, k=k,
+                    temperature=self.temperature)
+                verify(self.params, zeros(S, k + 1), cache, zeros(S),
+                       zeros(S), zeros(S, dtype=torch.bool),
+                       *self.step_keys())
+                dcache = self.zeroed_draft_cache()
+                propose = self.backend.propose_step(self.dcfg,
+                                                    mode=self.mode, k=k)
+                propose(self.dparams, zeros(S, 1), dcache, zeros(S),
+                        zeros(S, dtype=torch.bool))
+                chunks(self.dcfg, self.dparams, dcache, self.draft_cap)
+            else:
+                step = self.backend.slot_step(self.cfg, mode=self.mode,
+                                              temperature=self.temperature)
+                step(self.params, zeros(S, 1), cache, zeros(S),
+                     zeros(S, dtype=torch.bool), *self.step_keys())
+            chunks(self.cfg, self.params, cache, self.prefill_chunk or 0)
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
 
@@ -387,6 +494,9 @@ class Engine:
             class_occupancy=out.occ_by_class,
             goodput_tokens_per_s=sum(len(r.tokens) for r in good) / dur,
             slo_attainment=(len(good) / len(results) if results else 0.0),
+            spec_k=self.spec_k,
+            accepted_per_dispatch=(out.gen_tokens / out.emit_dispatches
+                                   if out.emit_dispatches else 0.0),
             latency_per_token_s=(float(np.mean(lat_tok))
                                  if lat_tok else 0.0))
 

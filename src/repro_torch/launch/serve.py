@@ -20,7 +20,12 @@ The overload flags work as the reference's: ``--interactive-frac``
 splits the trace into two SLO classes by a hash of the rid,
 ``--batch-quota`` caps the slots the batch class holds, ``--preemption``
 evicts batch slots for interactive requests with exact resume, and
-``--fault-seed`` / ``--n-faults`` inject a seeded ``FaultPlan``.  The KV cache is
+``--fault-seed`` / ``--n-faults`` inject a seeded ``FaultPlan``.
+``--spec-k k`` speculates with a draft: ``--draft-layers n`` (the
+target's first n layers) or ``--draft ARCH`` (another registered arch of
+the same vocabulary, drawn from ``seed + 2`` in the target's mode,
+reduced with ``--reduced``); the engine then prints how many tokens each
+dispatch committed.  The KV cache is
 bf16 (the dense configs leave ``kv_quant`` off, as the reference's CLI
 does); ``--block-size`` pages it (``--num-blocks`` sizes the pool) and
 ``--shared-prefix-len`` gives every request the same leading prompt
@@ -39,6 +44,8 @@ int8 kernel, the LM head staying weight-only int8.
       --device cpu --block-size 4 --shared-prefix-len 4   # paged, CPU
   python -m repro_torch.launch.serve --arch starcoder2-3b --reduced \\
       --device cpu --temperature 0.8                 # sampled, CPU
+  python -m repro_torch.launch.serve --arch starcoder2-3b --reduced \\
+      --device cpu --spec-k 3 --draft-layers 1       # speculative, CPU
 
 The reference's other serving options stay in the parser; given a value
 other than their default, each prints which ROADMAP item will port it and
@@ -70,7 +77,6 @@ from repro_torch.runtime.prng import PRNGKey
 UNPORTED = {
     "models": 14, "model_quota": 14,
     "arrival": 12,
-    "spec_k": 14, "draft": 14, "draft_layers": 14,
     "replicas": 14, "tp": 14,
 }
 CURVE_BATCHES = (1, 4, 16)    # measured batch sizes, with --max-batch
@@ -199,6 +205,17 @@ def build_parser() -> argparse.ArgumentParser:
                     help="engine: inject FaultPlan.random(seed) failures")
     ap.add_argument("--n-faults", type=int, default=8,
                     help="engine: faults in the --fault-seed plan")
+    ap.add_argument("--spec-k", type=int, default=0,
+                    help="engine: speculative decoding proposal depth "
+                         "(0 = off); needs --draft or --draft-layers")
+    ap.add_argument("--draft", default=None,
+                    help="engine: draft arch name (e.g. starcoder2-3b) "
+                         "for cross-model speculative decoding; "
+                         "inherits --reduced, drawn from --seed + 2")
+    ap.add_argument("--draft-layers", type=int, default=0,
+                    help="engine: truncated-layer self-draft depth (the "
+                         "target's own first n layers, no second "
+                         "checkpoint; 0 = off)")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the card; 'cpu' runs the "
                          "kernels' plain versions)")
@@ -209,9 +226,6 @@ def build_parser() -> argparse.ArgumentParser:
                           metavar="TAG=N")
     unported.add_argument("--arrival", default="poisson",
                           choices=["poisson", "mmpp", "diurnal"])
-    unported.add_argument("--spec-k", type=int, default=0)
-    unported.add_argument("--draft", default=None)
-    unported.add_argument("--draft-layers", type=int, default=0)
     unported.add_argument("--replicas", type=int, default=1)
     unported.add_argument("--tp", type=int, default=1)
     return ap
@@ -230,6 +244,16 @@ def _f32_bytes(params) -> int:
     if isinstance(params, QTensor):
         return params.values.numel() * 4
     return params.numel() * params.element_size()
+
+
+def _init_params(cfg: ArchConfig, mode: QuantMode, seed: int, device):
+    """Random weights from ``seed``: int8, drawn layer by layer, under a
+    quantized mode (``registry.init_quantized``), else f32."""
+    with torch.inference_mode():
+        gen = torch.Generator(device=device).manual_seed(seed)
+        if mode.enabled:
+            return R.init_quantized(gen, cfg, min_size=2048, device=device)
+        return R.init(gen, cfg, device=device)
 
 
 @dataclasses.dataclass
@@ -273,16 +297,11 @@ def run(args: argparse.Namespace) -> ServeRun:
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
-    with torch.inference_mode():
-        gen = torch.Generator(device=device).manual_seed(args.seed)
-        if mode.enabled:
-            params = R.init_quantized(gen, cfg, min_size=2048,
-                                      device=device)
-            print(f"[quant] {args.arch} weights "
-                  f"{_f32_bytes(params) / 1e6:.1f} MB -> "
-                  f"{tree_weight_bytes(params) / 1e6:.1f} MB ({args.quant})")
-        else:
-            params = R.init(gen, cfg, device=device)
+    params = _init_params(cfg, mode, args.seed, device)
+    if mode.enabled:
+        print(f"[quant] {args.arch} weights "
+              f"{_f32_bytes(params) / 1e6:.1f} MB -> "
+              f"{tree_weight_bytes(params) / 1e6:.1f} MB ({args.quant})")
     out = ServeRun(code=1, cfg=cfg, params=params, mode=mode)
 
     prefill = ST.jit_prefill_step(ST.make_prefill_step(cfg, mode=mode))
@@ -343,6 +362,18 @@ def run(args: argparse.Namespace) -> ServeRun:
     quotas = {"batch": args.batch_quota} if args.batch_quota else None
     policy = bt.AdmissionPolicy(model.service_time, max_batch=num_slots,
                                 class_quotas=quotas)
+    draft = None
+    if args.draft:
+        # a cross-model draft: a checkpoint of its own, in the target's
+        # mode, so that both serve alike
+        try:
+            dcfg = get_config(args.draft)
+        except KeyError as e:
+            print(f"[engine] config rejected: --draft: {e}")
+            return out
+        if args.reduced:
+            dcfg = dcfg.reduced()
+        draft = (dcfg, _init_params(dcfg, mode, args.seed + 2, device))
     try:
         eng = E.Engine(cfg, params, mode=mode, num_slots=num_slots,
                        max_seq=args.prompt_len + args.gen_tokens,
@@ -353,6 +384,8 @@ def run(args: argparse.Namespace) -> ServeRun:
                        temperature=args.temperature,
                        rng=(PRNGKey(args.seed + 1)
                             if args.temperature > 0 else None),
+                       spec_k=args.spec_k, draft=draft,
+                       draft_layers=args.draft_layers or None,
                        device=device)
     except ValueError as e:
         print(f"[engine] config rejected: {e}")
@@ -396,6 +429,12 @@ def run(args: argparse.Namespace) -> ServeRun:
     print(f"[engine] time-to-first-token {rep.mean_ttft_s*1e3:.2f} ms mean "
           f"/ {rep.p99_ttft_s*1e3:.2f} ms p99 "
           f"(prefill chunk {rep.prefill_chunk or 'off'})")
+    if rep.spec_k:
+        print(f"[engine] speculative: k={rep.spec_k} "
+              f"({eng.dcfg.name} draft), "
+              f"{rep.accepted_per_dispatch:.2f} tokens committed per "
+              f"dispatch, {rep.latency_per_token_s*1e3:.2f} ms/token "
+              f"mean (outputs bit-for-bit the non-speculative stream)")
     if rep.block_size:
         print(f"[engine] paged KV: {rep.num_blocks} blocks x "
               f"{rep.block_size} positions, {rep.kv_hbm_bytes/1e6:.2f} MB "

@@ -230,3 +230,6 @@ def decode_step(params: dict, tokens: Tensor, cache: dict, cache_index,
 init_cache = TF.init_cache
 init_paged_cache = TF.init_paged_cache
 paged_block_axes = TF.paged_block_axes
+# the MoE tree has the dense one's {embed, layers, ln_f[, unembed]} shape,
+# so the self-draft's view of the first layers applies as it is
+draft_params = TF.draft_params

@@ -9,6 +9,8 @@ Uniform API per family, as in ``repro/models/registry.py``:
                      device) -> cache (families that page)
     decode_step(params, tokens, cache, cache_index, cfg, *, mode)
         -> (logits, cache)
+    draft_params(params, n_layers) -> the self-draft's view (families
+                                      that speculate)
 
 The dense and MoE families are ported; the others arrive with their
 model modules (ROADMAP queue 1, item 13).
@@ -16,6 +18,8 @@ model modules (ROADMAP queue 1, item 13).
 from __future__ import annotations
 
 import torch
+
+import dataclasses
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.qlinear import FP, QuantMode
@@ -107,3 +111,50 @@ def mask_inactive_slots(cfg: ArchConfig, old_cache: dict, new_cache: dict,
     dense and MoE families return ``new_cache`` unchanged."""
     module_for(cfg)
     return new_cache
+
+
+# families whose decode state a rewind of ``cache_index`` cannot restore:
+# recurrent state that advances through every fed token (ssm, hybrid), or
+# a primed cross-attention that the verify scan does not carry (encdec,
+# vlm).  Not ported; answered here without reaching their refusal.
+_UNREWINDABLE = ("ssm", "hybrid", "encdec", "vlm")
+
+
+def supports_speculation(cfg: ArchConfig) -> bool:
+    """True when the family can serve as the target (or the draft) of
+    draft-and-verify speculative decoding: its whole decode state must be
+    positional KV behind a ``valid_len`` frontier, so a rejected
+    speculative tail is rewound by resetting the slot's index — the
+    stale writes are overwritten before any read can see them.  That
+    excludes the recurrent and primed families and sliding-window
+    attention (the ring overwrites the positions a rewind must
+    restore)."""
+    return (cfg.window is None and cfg.family not in _UNREWINDABLE
+            and hasattr(module_for(cfg), "draft_params"))
+
+
+def supports_self_draft(cfg: ArchConfig) -> bool:
+    """True when the family can draft for itself with a truncated-layer
+    view of its own params (no second checkpoint)."""
+    return supports_speculation(cfg)
+
+
+def draft_config(cfg: ArchConfig, n_layers: int) -> ArchConfig:
+    """The self-draft model's config: the target's, cut to its first
+    ``n_layers`` layers, named ``<name>-draft<n>`` (a config of its own,
+    so its memoized steps are its own)."""
+    if not 1 <= n_layers <= cfg.n_layers:
+        raise ValueError(
+            f"draft_layers must be in [1, n_layers={cfg.n_layers}], "
+            f"got {n_layers}")
+    return dataclasses.replace(cfg, name=f"{cfg.name}-draft{n_layers}",
+                               n_layers=n_layers)
+
+
+def draft_params(cfg: ArchConfig, params, n_layers: int):
+    """The self-draft model's params: the target's first ``n_layers``
+    layers, the rest shared by reference (zero extra weight memory)."""
+    if not supports_self_draft(cfg):
+        raise ValueError(f"family {cfg.family!r} (window={cfg.window}) "
+                         f"does not support self-draft speculation")
+    return module_for(cfg).draft_params(params, n_layers)

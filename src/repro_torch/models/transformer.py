@@ -172,6 +172,16 @@ def init_quantized(gen: torch.Generator, cfg: ArchConfig, *,
     return params
 
 
+def draft_params(params: dict, n_layers: int) -> dict:
+    """The truncated-layer *self-draft* view: the first ``n_layers``
+    layers, with the embedding, the final norm and the (tied) head the
+    target's own objects.  A shared view, no copy: the layer list is a
+    new list over the same layer dicts, so every tensor (int8 values and
+    scales alike) is the target's.  At ``n_layers == cfg.n_layers`` the
+    draft computes what the target computes."""
+    return dict(params, layers=params["layers"][:n_layers])
+
+
 # ---------------------------------------------------------------------------
 # full-sequence forward
 # ---------------------------------------------------------------------------

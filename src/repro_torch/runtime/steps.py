@@ -23,6 +23,13 @@ With ``temperature > 0`` the decode loop and the slot tick sample
 reference's key schedule, ``fold_in(rng, position)`` on the threefry
 keys of ``runtime/prng.py``; the captured forms take the key as one more
 graph input.
+
+Speculative decoding's two steps, :func:`make_verify_step` (the target
+scores up to k+1 fed tokens a slot) and :func:`make_draft_propose_step`
+(the draft proposes k), are the reference's scans of the one-token slot
+step, unrolled into ``k + 1`` and ``k`` calls of it; each is captured as
+one graph (:func:`jit_verify_step`, :func:`jit_draft_propose_step`) and
+memoized (:func:`cached_verify_step`, :func:`cached_draft_propose_step`).
 """
 from __future__ import annotations
 
@@ -300,6 +307,129 @@ def jit_slot_decode_step(step: Callable) -> Callable:
     return graphed
 
 
+def make_verify_step(cfg: ArchConfig, *, mode: QuantMode = FP, k: int,
+                     temperature: float = 0.0) -> Callable:
+    """One speculative *verify* tick: teacher-force up to ``k + 1`` tokens
+    a slot through the target model, sampling after every position.
+
+    Returns ``step(params, tokens, cache, slot_index, n_tokens, active[,
+    rng]) -> (samples, cache, slot_index)`` with ``tokens`` (S, k+1)
+    int32 (a row's next input, then its draft's proposals), ``n_tokens``
+    (S,) int32 how many leading tokens each row really feeds (1 for a row
+    that does not speculate this tick, up to k+1) and ``samples`` (S,
+    k+1) int32 the sample drawn after each position.  A sampled step
+    (``temperature > 0``) takes a trailing ``rng`` and draws position j
+    of row r with ``fold_in(rng, slot_index[r] + j)``.
+
+    The reference scans the one-token slot step; here the scan is
+    unrolled: ``k + 1`` calls of :func:`make_slot_decode_step`'s step,
+    position j with ``active & (j < n_tokens)`` as its active mask.  So
+    every position is an ordinary (S, 1) tick, and ``samples[r, j]`` and
+    every cache byte are bit for bit those of ``j + 1`` non-speculative
+    ticks fed the same tokens (every op computes a row the same whatever
+    the rows beside it).  Past ``n_tokens[r]`` row r's index stays
+    frozen: those positions write at the row's frozen frontier, which
+    the next real feed overwrites before any read sees it (the engine's
+    rewind), and emit 0.  A position whose logits hold a NaN/Inf emits
+    the -1 sentinel there."""
+    slot = make_slot_decode_step(cfg, mode=mode, temperature=temperature)
+
+    def step(params, tokens, cache, slot_index, n_tokens, active, *rng):
+        if len(rng) != (temperature > 0.0):
+            raise TypeError(
+                "a sampled verify step takes a trailing rng key, a greedy "
+                "one none: step(params, tokens, cache, slot_index, "
+                "n_tokens, active" + (", rng)" if temperature > 0.0
+                                      else ")"))
+        idx, samples = slot_index, []
+        for j in range(k + 1):
+            nxt, cache, idx = slot(params, tokens[:, j:j + 1], cache, idx,
+                                   active & (n_tokens > j), *rng)
+            samples.append(nxt)
+        return torch.stack(samples, dim=1), cache, idx
+
+    return step
+
+
+def jit_verify_step(step: Callable) -> Callable:
+    """A verify step captured as one CUDA graph over its cache (the
+    reference's ``jax.jit`` with the cache donated): ``step(params,
+    tokens, cache, slot_index, n_tokens, active[, rng]) -> (samples,
+    cache, slot_index)`` as :func:`make_verify_step`'s.  ``samples`` and
+    the new ``slot_index`` are static buffers that the next call
+    overwrites; ``graphed.binding(...)`` (the call's arguments) is the
+    binding such a call replays."""
+    def body(params, cache, tokens, slot_index, n_tokens, active, *rng):
+        samples, _, new_index = step(params, tokens, cache, slot_index,
+                                     n_tokens, active, *rng)
+        return samples, new_index
+
+    captured = CapturedStep(body)
+
+    def graphed(params, tokens, cache, slot_index, n_tokens, active, *rng):
+        samples, new_index = captured(params, cache, tokens, slot_index,
+                                      n_tokens, active, *rng)
+        return samples, cache, new_index
+
+    graphed.captured = captured
+    graphed.binding = lambda params, tokens, cache, slot_index, n_tokens, \
+        active, *rng: captured.binding(params, cache, tokens, slot_index,
+                                       n_tokens, active, *rng)
+    return graphed
+
+
+def make_draft_propose_step(cfg: ArchConfig, *, mode: QuantMode = FP,
+                            k: int) -> Callable:
+    """One speculative *propose* tick: the draft model extends every
+    active slot by ``k`` greedy tokens.
+
+    Returns ``step(params, tokens, cache, slot_index, active) ->
+    (proposals, cache, slot_index)`` with ``tokens`` (S, 1) int32 each
+    row's committed next input and ``proposals`` (S, k) int32 the draft's
+    greedy continuation, each fed back as the next step's input: ``k``
+    calls of the greedy one-token slot step.  The draft is greedy
+    whatever the target samples with: its proposals are guesses the
+    verify step scores, so they move the acceptance rate and never the
+    committed output.  A row whose logits go non-finite proposes 0 in
+    place of the -1 sentinel, a wrong guess that can only be rejected;
+    inactive rows propose 0."""
+    slot = make_slot_decode_step(cfg, mode=mode)
+
+    def step(params, tokens, cache, slot_index, active):
+        tok, idx, props = tokens, slot_index, []
+        for _ in range(k):
+            nxt, cache, idx = slot(params, tok, cache, idx, active)
+            nxt = torch.clamp_min(nxt, 0)
+            props.append(nxt)
+            tok = nxt[:, None]
+        return torch.stack(props, dim=1), cache, idx
+
+    return step
+
+
+def jit_draft_propose_step(step: Callable) -> Callable:
+    """A propose step captured as one CUDA graph over the draft's cache:
+    ``step(params, tokens, cache, slot_index, active) -> (proposals,
+    cache, slot_index)`` as :func:`make_draft_propose_step`'s, its
+    outputs static buffers as :func:`jit_verify_step`'s."""
+    def body(params, cache, tokens, slot_index, active):
+        props, _, new_index = step(params, tokens, cache, slot_index,
+                                   active)
+        return props, new_index
+
+    captured = CapturedStep(body)
+
+    def graphed(params, tokens, cache, slot_index, active):
+        props, new_index = captured(params, cache, tokens, slot_index,
+                                    active)
+        return props, cache, new_index
+
+    graphed.captured = captured
+    graphed.binding = lambda params, tokens, cache, slot_index, active: \
+        captured.binding(params, cache, tokens, slot_index, active)
+    return graphed
+
+
 def make_per_token_chunk_step(cfg: ArchConfig, *, mode: QuantMode = FP,
                               chunk: int) -> Callable:
     """Chunked prefill for ONE slot, one token at a time: the reference
@@ -500,6 +630,22 @@ def cached_prefill_chunk_step(cfg: ArchConfig, *, mode: QuantMode = FP,
     return _cached(("prefill_chunk", cfg, mode, chunk),
                    lambda: jit_prefill_chunk_step(make_prefill_chunk_step(
                        cfg, mode=mode, chunk=chunk)))
+
+
+def cached_verify_step(cfg: ArchConfig, *, mode: QuantMode = FP, k: int,
+                       temperature: float = 0.0) -> Callable:
+    """Memoized ``jit_verify_step(make_verify_step(...))``."""
+    return _cached(("verify", cfg, mode, k, temperature),
+                   lambda: jit_verify_step(make_verify_step(
+                       cfg, mode=mode, k=k, temperature=temperature)))
+
+
+def cached_draft_propose_step(cfg: ArchConfig, *, mode: QuantMode = FP,
+                              k: int) -> Callable:
+    """Memoized ``jit_draft_propose_step(make_draft_propose_step(...))``."""
+    return _cached(("draft_propose", cfg, mode, k),
+                   lambda: jit_draft_propose_step(make_draft_propose_step(
+                       cfg, mode=mode, k=k)))
 
 
 def clear_step_cache() -> None:

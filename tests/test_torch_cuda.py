@@ -13,9 +13,12 @@ through preemption and injected faults equal to its control serve, the
 threefry PRNG and the sampler on the card (bitwise the CPU's, rows
 bitwise alone and in a batch), the captured sampled tick and a sampled
 engine, the service curve's forward captured (bitwise the eager
-one), and the MoE family (the experts' stacked GEMV against its plain
+one), the MoE family (the experts' stacked GEMV against its plain
 version and the 2-D GEMV, the router's rows, the engine on reduced
-qwen2-moe-a2.7b), at small shapes.
+qwen2-moe-a2.7b), and speculative decoding (the captured verify and
+propose steps bitwise their eager forms, the verify step bitwise k + 1
+captured ticks, a speculating engine equal to its control), at small
+shapes.
 
 Every test here is marked ``gpu`` and skips without a CUDA device; the
 module imports no JAX, so it also runs where only the port is installed:
@@ -1465,3 +1468,150 @@ def test_moe_engines_on_card_equal_reference(cuda):
     qcfg = dataclasses.replace(cfg, kv_quant=True)
     assert E.Engine(qcfg, params, **kw).serve(reqs).outputs() == \
         E.reference_outputs(qcfg, params, reqs, mode=W8A16, max_seq=16)
+
+
+# ---------------------------------------------------------------------------
+# speculative decoding: the captured verify and propose steps
+# ---------------------------------------------------------------------------
+
+SPEC_K = 3
+
+
+def _verify_rounds(sched, vocab, seed=0, max_seq=16):
+    """A verify round per tick of the schedule: each row's next input and
+    k proposals (random), each row feeding its own count of them (one
+    row at 1, its next input alone), inactive rows as the tick's; every
+    row's index at most max_seq - k - 2, so that its writes (up to its
+    frozen frontier, index + n_tok) stay inside the row."""
+    rng = np.random.default_rng(seed)
+    rounds = []
+    for t, tick in enumerate(sched):
+        n_tok = ((np.arange(len(tick["active"])) + t) % (SPEC_K + 1)
+                 + 1).astype(np.int32)
+        index = np.minimum(tick["index"], max_seq - SPEC_K - 2)
+        rounds.append(dict(tick, n_tok=n_tok, index=index,
+                           tokens=rng.integers(1, vocab, (
+                               len(n_tok), SPEC_K + 1)).astype(np.int32)))
+    return rounds
+
+
+def _round_args(rnd, device):
+    return tuple(torch.from_numpy(rnd[k]).to(device)
+                 for k in ("tokens", "index", "n_tok", "active"))
+
+
+@pytest.mark.parametrize("sampled", [False, True], ids=["greedy", "sampled"])
+@pytest.mark.parametrize("kind", ["contiguous", "paged"])
+def test_captured_verify_equals_eager(cuda, kind, sampled):
+    """The verify step captured as one graph against its eager form over
+    six rounds (rows retiring and admitted between them; paged: table
+    rows changed in place): samples, indices and every cache leaf
+    bitwise; one capture, whatever the round's counts and key."""
+    from repro_torch.runtime import prng as P
+    cfg, params, mode, cache, sched = _graph_case(cuda, kind)
+    t = 0.8 if sampled else 0.0
+    eager = ST.make_verify_step(cfg, mode=mode, k=SPEC_K, temperature=t)
+    graphed = ST.jit_verify_step(ST.make_verify_step(
+        cfg, mode=mode, k=SPEC_K, temperature=t))
+    other = _clone(cache)
+    with torch.inference_mode():
+        for i, rnd in enumerate(_verify_rounds(sched, cfg.vocab)):
+            keys = (P.PRNGKey(3 + i % 2, device=cuda),) if sampled else ()
+            if rnd["tables"] is not None:
+                for c in (cache, other):
+                    c["block_tables"].copy_(torch.from_numpy(rnd["tables"]))
+            args = _round_args(rnd, cuda)
+            s_e, _, i_e = eager(params, args[0], cache, *args[1:], *keys)
+            s_g, _, i_g = graphed(params, args[0], other, *args[1:], *keys)
+            assert torch.equal(s_g, s_e) and torch.equal(i_g, i_e), i
+            for name in cache:
+                assert torch.equal(other[name], cache[name]), (i, name)
+    assert graphed.captured.captures == 1
+
+
+def test_captured_propose_equals_eager(cuda):
+    """The propose step captured against eager over six rounds: the
+    proposals, indices and every cache leaf bitwise; one capture."""
+    cfg, params, mode, cache, sched = _graph_case(cuda, "contiguous")
+    eager = ST.make_draft_propose_step(cfg, mode=mode, k=SPEC_K)
+    graphed = ST.jit_draft_propose_step(ST.make_draft_propose_step(
+        cfg, mode=mode, k=SPEC_K))
+    other = _clone(cache)
+    with torch.inference_mode():
+        for i, rnd in enumerate(_verify_rounds(sched, cfg.vocab)):
+            tokens, index, _, active = _round_args(rnd, cuda)
+            tok = tokens[:, :1].contiguous()
+            p_e, _, i_e = eager(params, tok, cache, index, active)
+            p_g, _, i_g = graphed(params, tok, other, index, active)
+            assert torch.equal(p_g, p_e) and torch.equal(i_g, i_e), i
+            for name in cache:
+                assert torch.equal(other[name], cache[name]), (i, name)
+    assert graphed.captured.captures == 1
+
+
+@pytest.mark.parametrize("kind", ["contiguous", "paged"])
+def test_captured_verify_equals_k_plus_1_captured_ticks(cuda, kind):
+    """The captured verify step against k + 1 replays of the captured
+    slot tick (position j active where j < n_tokens) on a copy of the
+    cache: samples, indices and every cache leaf bitwise."""
+    cfg, params, mode, cache, sched = _graph_case(cuda, kind)
+    verify = ST.jit_verify_step(ST.make_verify_step(cfg, mode=mode,
+                                                    k=SPEC_K))
+    tick = ST.jit_slot_decode_step(ST.make_slot_decode_step(cfg, mode=mode))
+    other = _clone(cache)
+    col = torch.empty((4, 1), dtype=torch.int32, device=cuda)
+    with torch.inference_mode():
+        for i, rnd in enumerate(_verify_rounds(sched, cfg.vocab, seed=1)):
+            if rnd["tables"] is not None:
+                for c in (cache, other):
+                    c["block_tables"].copy_(torch.from_numpy(rnd["tables"]))
+            tokens, index, n_tok, active = _round_args(rnd, cuda)
+            s_v, _, i_v = verify(params, tokens, cache, index, n_tok, active)
+            idx, samples = index, []
+            for j in range(SPEC_K + 1):
+                col.copy_(tokens[:, j:j + 1])
+                nxt, _, idx = tick(params, col, other, idx,
+                                   active & (n_tok > j))
+                samples.append(nxt.clone())
+                idx = idx.clone()
+            assert torch.equal(s_v, torch.stack(samples, 1)), i
+            assert torch.equal(i_v, idx), i
+            for name in cache:
+                assert torch.equal(other[name], cache[name]), (i, name)
+    assert verify.captured.captures == tick.captured.captures == 1
+
+
+def test_speculative_engine_on_card_equals_control(cuda):
+    """Reduced starcoder2-3b on the card, int8 cache, paged, chunked
+    prefill: a speculating engine (1-layer self-draft, k = 3; greedy and
+    sampled) equals its non-speculative control and the sequential
+    reference, serving through the graphs its warm-up captured (a second
+    serve captures none)."""
+    from repro_torch.runtime import prng as P
+    cfg = dataclasses.replace(get_config("starcoder2-3b").reduced(),
+                              kv_quant=True)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    params = quantize_tree(R.init(gen, cfg, device=cuda), min_size=2048)
+    reqs = E.synthetic_requests(16, rate_per_s=2000.0, vocab=cfg.vocab,
+                                prompt_len=6, max_new_tokens=8,
+                                shared_prefix_len=4)
+    for t, key in ((0.0, None), (0.8, P.PRNGKey(9))):
+        kw = dict(mode=W8A16, num_slots=4, max_seq=16, prefill_chunk=4,
+                  block_size=4, temperature=t, rng=key)
+        control = E.Engine(cfg, params, **kw).serve(reqs)
+        eng = E.Engine(cfg, params, spec_k=SPEC_K, draft_layers=1, **kw)
+        eng.warmup()
+        be = eng.backend
+        steps = [be.verify_step(cfg, mode=W8A16, k=SPEC_K, temperature=t),
+                 be.propose_step(eng.dcfg, mode=W8A16, k=SPEC_K),
+                 be.chunk_step(eng.dcfg, mode=W8A16, chunk=4)]
+        bound = [s.captured.captures for s in steps]
+        rep = eng.serve(reqs)
+        assert rep.outputs() == eng.serve(reqs).outputs()
+        assert [s.captured.captures for s in steps] == bound
+        assert rep.outputs() == control.outputs() == E.reference_outputs(
+            cfg, params, reqs, mode=W8A16, max_seq=eng.max_seq,
+            temperature=t, rng=key)
+        assert rep.leaked_blocks == 0
+        if not t:
+            assert rep.accepted_per_dispatch > 1.0

@@ -204,9 +204,8 @@ def test_engine_rejects_oversized_request(setup):
 
 def test_unported_options_name_their_roadmap_item(setup):
     _, cfg, _, params, _ = setup
-    for kw in ({"spec_k": 2}, {"models": {"a": (cfg, params)}}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            _engine(cfg, params, **kw)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        _engine(cfg, params, models={"a": (cfg, params)})
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         E.ShardedExecutor(tp=2)
 

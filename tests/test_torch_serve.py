@@ -3,7 +3,8 @@ CPU at reduced size: the reference CLI's single-model path end to end —
 quantize, the service curve through ``forward``, the Table 4 batch choice,
 the decode loop, and the engine under the wall clock or the ``--sim``
 simulator, the overload flags, the paged bf16 cache (--block-size,
---num-blocks, --shared-prefix-len) — and its refusals."""
+--num-blocks, --shared-prefix-len), speculation (--spec-k with
+--draft-layers or --draft) — and its refusals."""
 import pytest
 import torch
 
@@ -65,9 +66,7 @@ def test_serve_unattainable_deadline_returns_one(capsys):
 
 UNPORTED = [("--models", "starcoder2-3b,starcoder2-3b"),
             ("--model-quota", "starcoder2-3b=2"),
-            ("--arrival", "mmpp"),
-            ("--spec-k", "2"), ("--draft", "starcoder2-3b"),
-            ("--draft-layers", "1"), ("--replicas", "2"), ("--tp", "2")]
+            ("--arrival", "mmpp"), ("--replicas", "2"), ("--tp", "2")]
 
 
 def test_unported_flag_list_covers_the_table():
@@ -273,3 +272,44 @@ def test_service_curve_captures_one_graph_per_batch():
             assert prefill.binding(params, batch) is not None
             assert torch.equal(prefill(params, batch), eager(params, batch))
     assert prefill.captured.captures == 3
+
+
+@pytest.mark.parametrize("draft", [["--draft-layers", "1"],
+                                   ["--draft", "starcoder2-3b"]],
+                         ids=["draft-layers", "draft"])
+def test_serve_spec_k_commits_the_non_speculative_stream(contiguous_run,
+                                                         draft, capsys):
+    """--spec-k 3 with a 1-layer self-draft, or with a cross-model draft
+    (starcoder2-3b reduced, drawn from seed + 2): every request equals
+    the non-speculative run's tokens and the sequential reference's, and
+    the engine prints its speculative line."""
+    res = serve.run(serve.parse_args(
+        BASE + ["--n-requests", "8", "--shared-prefix-len", "4",
+                "--spec-k", "3"] + draft))
+    out = capsys.readouterr().out
+    name = ("starcoder2-3b-reduced-draft1" if draft[0] == "--draft-layers"
+            else "starcoder2-3b-reduced")
+    assert f"[engine] speculative: k=3 ({name} draft)" in out
+    assert "tokens committed per dispatch" in out
+    assert res.report.spec_k == 3 and res.engine.dcfg.name == name
+    assert res.report.accepted_per_dispatch >= 1.0
+    assert _served_as_reference(res) == contiguous_run.report.outputs()
+    if draft[0] == "--draft":
+        # a checkpoint of its own, int8 like the target's
+        assert res.engine.dparams["layers"][0] is not \
+            res.params["layers"][0]
+
+
+@pytest.mark.parametrize("flags", [
+    ["--spec-k", "3"], ["--draft-layers", "1"],
+    ["--spec-k", "3", "--draft-layers", "1", "--draft", "starcoder2-3b"],
+    ["--spec-k", "3", "--draft-layers", "9"],
+    ["--spec-k", "3", "--draft", "no-such-arch"]],
+    ids=["no-draft", "no-spec-k", "two-drafts", "too-deep", "unknown"])
+def test_serve_spec_k_refuses_a_bad_draft(flags, capsys):
+    """--spec-k without a draft, a draft without --spec-k, both draft
+    sources, a self-draft deeper than the model or a draft arch the
+    registry does not know: the configuration is refused and the run
+    exits 1."""
+    assert serve.main(BASE + flags) == 1
+    assert "[engine] config rejected:" in capsys.readouterr().out
