@@ -147,23 +147,30 @@ Phases, each of which fails the run (non-zero exit, no result line):
    equal to ``reference_outputs``;
 11. moe: qwen2-moe-a2.7b at full width (24 layers, 60 routed experts
    top-4 and 4 shared, vocab 151,936 tied).  First ``qmatmul_w8a16``'s
-   expert-stacked entry at a tick's shapes (60 experts x 8 rows: w_gate
-   with the silu drain, w_up, w_down) and the serve CLI curve's (3, 12
-   and 48 rows an expert) against its plain version, every row bitwise
-   alone and in its batch, a stack of one bitwise the 2-D GEMV, timed at
-   8 and 48 rows beside ``torch.bmm`` on bf16 experts and the bound, and
-   the router's GEMV (2048 x 60, f32); the router's softmax and stable
-   top-4 rows bitwise alone and in a batch; then the model from the
-   streamed init (peak under 20 GB), served as the dense configs are
-   (contiguous bf16 held to ``reference_outputs``, paged held to
+   two expert-stacked entries against their plain version: the GEMV at a
+   tick's shapes (60 experts x 8 rows: w_gate with the silu drain, w_up,
+   w_down), all live and under the live mask of a tick's routing (8
+   tokens through ``moe.route``/``dispatch``/``live_rows``; bitwise the
+   all-live launch on the zero rows it skips), and the tensor-core entry
+   at the serve CLI curve's 3, 12 and 48 rows an expert; every row
+   bitwise alone and in its batch, a stack of one bitwise the 2-D launch
+   on its path; the routed tick timed beside the all-live launch,
+   ``torch.bmm`` on bf16 experts and two bounds (every expert's bytes,
+   the live experts'), the curve's 48 rows on the tensor-core entry
+   beside the GEMV, ``torch.bmm`` and the bound; and the router's GEMV
+   (2048 x 60, f32); the router's softmax and stable top-4 rows bitwise
+   alone and in a batch; then the model from the streamed init (peak
+   under 20 GB), served as the dense configs are (contiguous bf16 held
+   to ``reference_outputs``, greedy and sampled, paged held to
    contiguous with no leak, the int8 cache held to
    ``reference_outputs``), the captured chunk pass bitwise the per-token
    steps (every token routed alone; bf16 contiguous and int8 paged),
    the captured steady tick on both caches against the floors of every
    expert's weights and of the experts its tokens route to, with the
    device time by part, and the serve CLI with the dense CLI's flags
-   (its curve's forward routes with capacity 3 and drops tokens; the
-   captured forward bitwise the eager one; four requests equal to
+   (its curve's forward routes with capacity 3 and drops tokens, its
+   experts on the tensor-core entry and no decode step's; the captured
+   forward bitwise the eager one; four requests equal to
    ``reference_outputs``).
 
 The kernel phase holds both of ``qmatmul_w8a16``'s kernels (the GEMV and
@@ -214,7 +221,9 @@ It prints the card's name and power limit, a JSON line with every
 kernel's numbers (qmatmul_w8a16's with both paths under ``paths``, the
 attention kernels' long-context case under ``long_context``, the rows at
 the dense configs' shapes under ``dense``, qmatmul_w8a16's expert-stacked
-entry under ``experts``, each kernel's MoE launches under ``moe`` and
+entries under ``experts`` (the routed tick's GEMV, the forward's
+tensor-core entry under ``forward``), each kernel's MoE launches under
+``moe`` and
 its launches in the speculative serves under ``spec``),
 the whole run's time, and,
 last, ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
@@ -1310,32 +1319,33 @@ def _counted():
 
 
 def zero_counts() -> None:
-    from repro_torch.kernels import qmatmul as K
     kernels, plains = _counted()
     for fn in kernels:
         fn.launches = 0
-    for path in K.qmatmul_w8a16.launches_by_path:
-        K.qmatmul_w8a16.launches_by_path[path] = 0
+        for path in getattr(fn, "launches_by_path", {}):
+            fn.launches_by_path[path] = 0
     for fn in plains:
         fn.calls = 0
 
 
 def read_counts():
     """(kernel launches, plain-version calls) since :func:`zero_counts`;
-    qmatmul_w8a16's launches also by path, as ``qmatmul_w8a16[<path>]``."""
-    from repro_torch.kernels import qmatmul as K
+    qmatmul_w8a16's and its experts' launches also by path, as
+    ``qmatmul_w8a16[<path>]`` and ``qmatmul_w8a16_experts[<path>]``."""
     kernels, plains = _counted()
     launches = {f.__name__: f.launches for f in kernels}
-    for path, n in K.qmatmul_w8a16.launches_by_path.items():
-        launches[f"qmatmul_w8a16[{path}]"] = n
+    for f in kernels:
+        for path, n in getattr(f, "launches_by_path", {}).items():
+            launches[f"{f.__name__}[{path}]"] = n
     return launches, {f.__name__: f.calls for f in plains}
 
 
 def mma_free(label, launches) -> None:
-    """The engine's steps and the decode loop run the GEMV only: their
-    rows must not depend on the batch, and the mma path's differ from the
-    GEMV's by f32 rounding."""
-    if launches["qmatmul_w8a16[mma]"]:
+    """The engine's steps and the decode loop run the GEMV only (the
+    experts' too): their rows must not depend on the batch, and the mma
+    path's differ from the GEMV's by f32 rounding."""
+    if launches["qmatmul_w8a16[mma]"] or \
+            launches["qmatmul_w8a16_experts[mma]"]:
         raise AssertionError(f"{label}: a decode step took qmatmul_w8a16's "
                              f"mma path: {launches}")
 
@@ -1741,15 +1751,19 @@ def serve_phase():
 
 def counted_curve(real_curve, curve_paths):
     """``real_curve`` (``serve.measure_service_curve``), writing into
-    ``curve_paths`` qmatmul_w8a16's launches by path during each call."""
+    ``curve_paths`` qmatmul_w8a16's launches by path during each call
+    (``<path>``) and its experts' (``experts[<path>]``)."""
     def curve(*args, **kwargs):
         from repro_torch.kernels import qmatmul as K
         before = dict(K.qmatmul_w8a16.launches_by_path)
+        experts = dict(K.qmatmul_w8a16_experts.launches_by_path)
         try:
             return real_curve(*args, **kwargs)
         finally:
             for path, n in K.qmatmul_w8a16.launches_by_path.items():
                 curve_paths[path] = n - before[path]
+            for path, n in K.qmatmul_w8a16_experts.launches_by_path.items():
+                curve_paths[f"experts[{path}]"] = n - experts[path]
     curve.__wrapped__ = real_curve
     return curve
 
@@ -1802,17 +1816,23 @@ def serve_run(quant, curve_paths, flags=(), base=SERVE_ARGS, label=None):
     if any(plain_calls.values()):
         raise AssertionError(f"{label}: the CUDA path reached a plain "
                              f"version: {plain_calls}")
-    outside = launches["qmatmul_w8a16[mma]"] - curve_paths["mma"]
-    if outside:
+    outside = (launches["qmatmul_w8a16[mma]"] - curve_paths["mma"],
+               launches["qmatmul_w8a16_experts[mma]"]
+               - curve_paths["experts[mma]"])
+    if any(outside):
         raise AssertionError(f"{label}: the decode loop or the engine took "
-                             f"qmatmul_w8a16's mma path {outside} times")
+                             f"the mma path {outside} times (2-D, experts)")
+    routers = router_gemvs(res.cfg, curve_paths["mma"])
     if quant == "w8a16" and (
-            curve_paths["gemv"] != router_gemvs(res.cfg, curve_paths["mma"])
-            or curve_paths["mma"] <= 0):
+            curve_paths["gemv"] != routers or curve_paths["mma"] <= 0
+            or curve_paths["experts[gemv]"]
+            or curve_paths["experts[mma]"] != 3 * routers):
         raise AssertionError(f"{label}: the service curve's forward must "
                              f"launch only the mma path (an MoE router the "
-                             f"GEMV): {curve_paths}")
-    if quant == "w8a8" and curve_paths["mma"]:
+                             f"GEMV, its experts the stacked mma entry, 3 "
+                             f"a layer): {curve_paths}")
+    if quant == "w8a8" and (curve_paths["mma"]
+                            or curve_paths["experts[mma]"]):
         raise AssertionError(f"{label}: the W8A8 forward took qmatmul_w8a16's "
                              f"mma path: {curve_paths}")
     if "--fault-seed" in flags:
@@ -1838,6 +1858,7 @@ def serve_run(quant, curve_paths, flags=(), base=SERVE_ARGS, label=None):
                              f"{rep.failed}, dropped {rep.dropped}, "
                              f"unfinished {rep.unfinished}")
     launches["curve_mma"] = curve_paths["mma"]
+    launches["curve_experts_mma"] = curve_paths["experts[mma]"]
     if not flags:
         forward_breakdown(label, res)
         curve_check(label, res, serve.parse_args(argv))
@@ -3767,19 +3788,73 @@ def moe_curve_rows() -> tuple:
     return tuple(b * cap for b in (1, 4, SERVE_MAX_BATCH))
 
 
+def moe_tick_live(c, gen):
+    """The live mask of one MoE layer at a tick: NUM_SLOTS tokens routed
+    by a random int8 router through ``moe.route`` and ``moe.dispatch``
+    (capacity 1 a token), ``moe.live_rows`` of the (E, NUM_SLOTS) stack,
+    as ``moe_ffn`` builds it."""
+    import torch
+    from repro_torch.core.quant import quantize_weight
+    from repro_torch.models import moe as M
+
+    e = c.n_experts
+    router = {"w": quantize_weight(torch.randn(
+        (c.d_model, e), generator=gen, device="cuda") * c.d_model ** -0.5)}
+    toks = torch.randn((NUM_SLOTS, 1, c.d_model), generator=gen,
+                       device="cuda").to(torch.bfloat16)
+    _, top_e = M.route(router, toks, c.top_k)
+    cap = math.ceil(c.top_k / e * c.capacity_factor)
+    place, keep = M.dispatch(top_e, cap, e)
+    return M.live_rows(place, keep, e, NUM_SLOTS * cap)
+
+
+def moe_stack_check(label, path, x, w, ws, kw):
+    """One expert-stacked entry (``path``) against its plain version
+    (bf16_close), every row bitwise alone and in its batch, a stack of
+    one bitwise the 2-D launch on the same path.  Returns (output, error,
+    err / tol)."""
+    import torch
+    from repro_torch.kernels import qmatmul as K
+
+    out = K.qmatmul_w8a16_experts(x, w, ws, path=path, **kw)
+    ref = K.qmatmul_w8a16_experts_ref(x, w, ws, **kw)
+    torch.cuda.synchronize()
+    if out.shape != ref.shape or not torch.isfinite(out).all():
+        raise AssertionError(f"{label}: bad output")
+    err, ratio = bf16_close(out, ref, f32_out=False)
+    if ratio > 1.0:
+        raise AssertionError(f"{label}: disagrees with its plain version "
+                             f"(err/tol={ratio:.3f})")
+    for r in range(x.shape[1]):
+        one = K.qmatmul_w8a16_experts(x[:, r:r + 1].contiguous(), w, ws,
+                                      path=path, **kw)
+        if not torch.equal(one[:, 0], out[:, r]):
+            raise AssertionError(f"{label}: row {r} differs launched alone")
+    one = K.qmatmul_w8a16_experts(x[:1], w[:1], ws[:1], path=path, **kw)
+    if not torch.equal(one[0], K.qmatmul_w8a16_on_path(
+            path, x[0], w[0], ws[0].reshape(-1).contiguous(), **kw)):
+        raise AssertionError(f"{label}: a stack of one is not the 2-D "
+                             f"launch on its path")
+    return out, err, ratio
+
+
 def moe_qmatmul_rows(flush):
-    """qmatmul_w8a16 at qwen2-moe-a2.7b's shapes: the experts' stacked GEMV
-    over its 60 experts (w_gate with the silu drain, w_up, w_down) at a
-    tick's 8 rows each and at the serve CLI curve's rows
-    (``moe_curve_rows``: 3, 12 and 48, the last six 8-row slabs), and
-    the 2-D GEMV for the router (2048 x 60, f32 x and out) at 8 rows.
-    Each held against its plain version (bf16_close), every row bitwise
-    alone and in its batch; at 8 rows a stack of one bitwise the 2-D
-    GEMV on that expert; at 8 rows (the tick) and at the curve's largest
-    (its b = 16 forward) timed beside the plain version, its library
-    call (``torch.bmm`` on the bf16-dequantized experts; ``F.linear``
-    for the router) and the bound (bytes at 3.35 TB/s).  Returns (worst
-    error, {name: tick numbers}, {name: forward numbers})."""
+    """qmatmul_w8a16 at qwen2-moe-a2.7b's shapes, over its 60 experts
+    (w_gate with the silu drain, w_up, w_down): the GEMV entry at a
+    tick's 8 rows each, all live and under the live mask of a tick's
+    routing (``moe_tick_live``: the masked launch bitwise the all-live
+    one on the routed stack, whose dead rows are zero), and the
+    tensor-core entry at the serve CLI curve's rows (``moe_curve_rows``:
+    3, 12 and 48); each held to its plain version, every row bitwise
+    alone and in its batch, a stack of one bitwise the 2-D launch on its
+    path.  Timed beside the plain version and the library call
+    (``torch.bmm`` on the bf16-dequantized experts; ``F.linear`` for the
+    router): the tick's routed launch beside the all-live one, bound by
+    the live experts' bytes and by every expert's; the curve's largest
+    (its b = 16 forward) on the tensor-core entry beside the GEMV's.
+    Then the 2-D GEMV for the router (2048 x 60, f32 x and out) at 8
+    rows.  Returns (worst error, {name: tick numbers}, {name: forward
+    numbers})."""
     import torch
     import torch.nn.functional as F
     from repro_torch.configs import get_config
@@ -3790,7 +3865,11 @@ def moe_qmatmul_rows(flush):
     e, m = c.n_experts, NUM_SLOTS
     curve = moe_curve_rows()
     gen = torch.Generator(device="cuda").manual_seed(SEED + 11)
+    live = moe_tick_live(c, gen)
+    n_live = int(live.any(1).sum())
     rows, fwd, worst = {}, {}, 0.0
+    print(f"  a tick's routing ({m} tokens, top-{c.top_k}): {n_live} of {e} "
+          f"experts live, {int(live.sum())} live rows of {live.numel()}")
     for name, k, n, act in (("w_gate", c.d_model, c.d_ff, "silu"),
                             ("w_up", c.d_model, c.d_ff, "none"),
                             ("w_down", c.d_ff, c.d_model, "none")):
@@ -3800,60 +3879,93 @@ def moe_qmatmul_rows(flush):
         kw = dict(activation=act, out_dtype=torch.bfloat16)
         wd = (w.float() * ws).to(torch.bfloat16)
         plan = K.gemv_experts_plan(e, k, n)
-        for mm in (m,) + curve:
+        w_bytes = w.numel() + ws.numel() * 4
+        # the tick: the GEMV, all live, then the routed stack under its mask
+        x = torch.randn((e, m, k), generator=gen, device="cuda").to(
+            torch.bfloat16)
+        _, err, ratio = moe_stack_check(f"moe experts {name} M={m} gemv",
+                                        "gemv", x, w, ws, kw)
+        xr = torch.where(live.bool()[..., None], x, torch.zeros(
+            (), dtype=x.dtype, device="cuda"))
+        routed = K.qmatmul_w8a16_experts(xr, w, ws, live=live, **kw)
+        if not torch.equal(routed, K.qmatmul_w8a16_experts(xr, w, ws, **kw)):
+            raise AssertionError(f"moe experts {name}: the masked GEMV is not "
+                                 f"the all-live launch on the routed stack")
+        r_err, r_ratio = bf16_close(routed, K.qmatmul_w8a16_experts_ref(
+            xr, w, ws, live=live, **kw), f32_out=False)
+        if r_ratio > 1.0:
+            raise AssertionError(f"moe experts {name}: the masked GEMV "
+                                 f"disagrees with its plain version "
+                                 f"(err/tol={r_ratio:.3f})")
+        worst = max(worst, err, r_err)
+        print(f"  qmatmul_w8a16_experts {name:6s} gemv E={e} M={m:2d} "
+              f"K={k:5d} N={n:5d} act={act:4s} max_abs_err={err:.3e} "
+              f"err/tol={ratio:.3f}, routed {r_err:.3e} / {r_ratio:.3f}; "
+              f"every row bitwise alone; the masked launch bitwise the "
+              f"all-live one")
+        ms = time_ms(lambda: K.qmatmul_w8a16_experts(xr, w, ws, live=live,
+                                                     **kw), 20, flush)
+        all_ms = time_ms(lambda: K.qmatmul_w8a16_experts(xr, w, ws, **kw),
+                         20, flush)
+        plain = time_ms(lambda: K.qmatmul_w8a16_experts_ref(
+            xr, w, ws, live=live, **kw), 1, flush)
+        lib = time_ms(lambda: torch.bmm(xr, wd), 20, flush)
+        out_bytes = e * m * n * 2
+        every_ms = max((x.numel() * 2 + w_bytes + out_bytes)
+                       / HBM_BYTES_PER_S * 1e3,
+                       2 * e * m * k * n / BF16_OPS_PER_S * 1e3)
+        live_bytes = n_live * (m * k * 2 + w_bytes // e) + out_bytes
+        bytes_ms = live_bytes / HBM_BYTES_PER_S * 1e3
+        ops_ms = 2 * n_live * m * k * n / BF16_OPS_PER_S * 1e3
+        rows[name] = {
+            "E": e, "M": m, "K": k, "N": n, "activation": act,
+            "live_experts": n_live, "ms": ms, "all_live_ms": all_ms,
+            "plain_ms": plain, "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "every_expert_bound_ms": every_ms, "library_ms": lib,
+            "max_abs_err": max(err, r_err)}
+        print(f"  qmatmul_w8a16_experts {name:6s} gemv E={e} M={m:2d} "
+              f"routed ms={ms:.4f} (all live {all_ms:.4f}) plain_ms="
+              f"{plain:.4f} bmm_ms={lib:.4f} bound_ms={max(bytes_ms, ops_ms):.4f}"
+              f" ({n_live} live experts; every expert {every_ms:.4f}; "
+              f"{live_bytes / ms / 1e6:.0f} GB/s of the live bytes; plan "
+              f"{plan.strips} strips x {plan.splits} splits x {e} experts)")
+        del x, xr, routed
+        # the forward: the tensor-core entry at the curve's rows
+        for mm in curve:
             x = torch.randn((e, mm, k), generator=gen, device="cuda").to(
                 torch.bfloat16)
-            out = K.qmatmul_w8a16_experts(x, w, ws, **kw)
-            ref = K.qmatmul_w8a16_experts_ref(x, w, ws, **kw)
-            torch.cuda.synchronize()
-            if out.shape != ref.shape or not torch.isfinite(out).all():
-                raise AssertionError(f"moe experts {name} M={mm}: bad output")
-            err, ratio = bf16_close(out, ref, f32_out=False)
-            if ratio > 1.0:
-                raise AssertionError(f"moe experts {name} M={mm}: the "
-                                     f"stacked GEMV disagrees with its plain "
-                                     f"version (err/tol={ratio:.3f})")
-            for r in range(mm):
-                one = K.qmatmul_w8a16_experts(x[:, r:r + 1].contiguous(), w,
-                                              ws, **kw)
-                if not torch.equal(one[:, 0], out[:, r]):
-                    raise AssertionError(f"moe experts {name} M={mm}: row "
-                                         f"{r} differs launched alone")
-            if mm == m:
-                one = K.qmatmul_w8a16_experts(x[:1], w[:1], ws[:1], **kw)
-                if not torch.equal(one[0], K.qmatmul_w8a16(
-                        x[0], w[0], ws[0].reshape(-1).contiguous(), **kw)):
-                    raise AssertionError(f"moe experts {name}: a stack of "
-                                         f"one is not the 2-D GEMV's launch")
+            _, err, ratio = moe_stack_check(
+                f"moe experts {name} M={mm} mma", "mma", x, w, ws, kw)
             worst = max(worst, err)
-            print(f"  qmatmul_w8a16_experts {name:6s} E={e} M={mm:2d} "
+            print(f"  qmatmul_w8a16_experts {name:6s} mma  E={e} M={mm:2d} "
                   f"K={k:5d} N={n:5d} act={act:4s} max_abs_err={err:.3e} "
-                  f"err/tol={ratio:.3f}; every row bitwise alone")
-            if mm not in (m, curve[-1]):
+                  f"err/tol={ratio:.3f}; every row bitwise alone, a stack "
+                  f"of one bitwise the 2-D mma path")
+            if mm != curve[-1]:
                 continue
-            ms = time_ms(lambda: K.qmatmul_w8a16_experts(x, w, ws, **kw), 20,
-                         flush)
+            ms = time_ms(lambda: K.qmatmul_w8a16_experts(x, w, ws, path="mma",
+                                                         **kw), 20, flush)
+            gemv_ms = time_ms(lambda: K.qmatmul_w8a16_experts(x, w, ws, **kw),
+                              20, flush)
             plain = time_ms(lambda: K.qmatmul_w8a16_experts_ref(x, w, ws,
                                                                 **kw),
                             1, flush)
             lib = time_ms(lambda: torch.bmm(x, wd), 20, flush)
-            nbytes = (x.numel() * 2 + w.numel() + ws.numel() * 4
-                      + e * mm * n * 2)
-            bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+            bytes_ms = ((x.numel() * 2 + w_bytes + e * mm * n * 2)
+                        / HBM_BYTES_PER_S * 1e3)
             ops_ms = 2 * e * mm * k * n / BF16_OPS_PER_S * 1e3
-            (rows if mm == m else fwd)[name] = {
+            fwd[name] = {
                 "E": e, "M": mm, "K": k, "N": n, "activation": act,
-                "ms": ms, "plain_ms": plain,
+                "ms": ms, "gemv_ms": gemv_ms, "plain_ms": plain,
                 "bound_ms": max(bytes_ms, ops_ms),
-                "bound_by": ("bytes" if bytes_ms >= ops_ms
-                             else "operations"),
+                "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
                 "library_ms": lib, "max_abs_err": err}
-            print(f"  qmatmul_w8a16_experts {name:6s} E={e} M={mm:2d} "
-                  f"ms={ms:.4f} plain_ms={plain:.4f} bmm_ms={lib:.4f} "
-                  f"bound_ms={max(bytes_ms, ops_ms):.4f} "
-                  f"({nbytes / ms / 1e6:.0f} GB/s; plan {plan.strips} strips "
-                  f"x {plan.splits} splits x {e} experts)")
-            del x, out, ref
+            print(f"  qmatmul_w8a16_experts {name:6s} mma  E={e} M={mm:2d} "
+                  f"ms={ms:.4f} (the GEMV {gemv_ms:.4f}) plain_ms="
+                  f"{plain:.4f} bmm_ms={lib:.4f} bound_ms="
+                  f"{max(bytes_ms, ops_ms):.4f}")
+            del x
         del q, w, ws, wd
     # the router: the 2-D GEMV at N = 60 (one ragged strip), f32 x and out
     q = quantize_weight(torch.randn((c.d_model, e), generator=gen,
@@ -3886,10 +3998,11 @@ def moe_qmatmul_rows(flush):
           f"plain_ms={plain:.4f} library_ms={lib:.4f} bound_ms="
           f"{rows['router']['bound_ms']:.5f}; rows of M = {m} and {2 * m} "
           f"launches equal to the rows alone")
-    print(f"  qmatmul_w8a16_experts at qwen2-moe-a2.7b's shapes (M = {m} "
-          f"and {', '.join(map(str, curve))}): within bf16_close, every row "
+    print(f"  qmatmul_w8a16_experts at qwen2-moe-a2.7b's shapes (the GEMV "
+          f"at M = {m}, all live and routed; the mma entry at M = "
+          f"{', '.join(map(str, curve))}): within bf16_close, every row "
           f"bitwise alone and in its batch, a stack of one bitwise the 2-D "
-          f"GEMV")
+          f"launch on its path")
     zero_counts()
     return worst, rows, fwd
 
@@ -3930,7 +4043,9 @@ def moe_route_rows() -> None:
 def moe_tick(cfg, params, label):
     """The captured steady tick of the MoE serves (NUM_SLOTS rows at
     DENSE_MAX_SEQ / 2 of the config's cache): its launches per replay (the
-    GEMV 8 a layer and the head, the experts' stack 3 a layer), wall,
+    GEMV 8 a layer and the head, the experts' stacked GEMV 3 a layer, each
+    under the layer's live mask, which skips the experts no token routed
+    to), wall,
     device busy and torch.profiler's split (MOE_TICK_PARTS), beside two
     floors at 3.35 TB/s: the int8 weights the tick reads (every expert,
     the reference's formulation) and those its tokens route to (each
@@ -3978,7 +4093,8 @@ def moe_tick(cfg, params, label):
     launches, plain = read_counts()
     gemv = gemvs_per_layer(cfg) * cfg.n_layers + 1
     if (launches["qmatmul_w8a16[gemv]"] != gemv
-            or launches["qmatmul_w8a16_experts"] != 3 * cfg.n_layers
+            or launches["qmatmul_w8a16_experts[gemv]"] != 3 * cfg.n_layers
+            or launches["qmatmul_w8a16_experts[mma]"]
             or any(plain.values())):
         raise AssertionError(f"{label}: a replay launched {launches} ({gemv} "
                              f"GEMVs, {3 * cfg.n_layers} stacks expected), "
@@ -4058,19 +4174,23 @@ def moe_phase(flush):
     """qwen2-moe-a2.7b at full width: the kernel rows at its shapes and
     the routing check, then the model from the streamed init (its peak
     under PEAK_BYTES), a contiguous bf16 serve held to
-    ``reference_outputs``, a paged one held to it, an int8-cache serve
+    ``reference_outputs``, the same sampled (t = SAMPLE_TEMP) held to the
+    sampled reference on MOE_CLI_COMPARE requests, the speculative serve
+    held to the greedy one, a paged one held to it, an int8-cache serve
     held to ``reference_outputs``, the captured chunk pass bitwise the
     per-token steps (bf16 contiguous, int8 paged), the captured steady
     tick on each cache against its two floors, then the serve CLI.  Returns the kernel
     rows and the launches of each run."""
     import torch
     from repro_torch import engine as E
+    from repro_torch.runtime import prng as P
     from repro_torch.runtime import steps as ST
 
     t0 = time.perf_counter()
     print(f"moe: the kernels at {MOE_ARCH}'s shapes")
     err, rows, fwd_rows = moe_qmatmul_rows(flush)
     moe_route_rows()
+    print(f"moe: kernel rows and routing {time.perf_counter() - t0:.1f}s")
     ST.clear_step_cache()
     torch_cuda_empty()
     cfg, params = build_dense_model(MOE_ARCH)
@@ -4085,6 +4205,12 @@ def moe_phase(flush):
     compare_with_reference(f"{label} contiguous", cfg, params, eng, reqs,
                            rep.outputs())
     contig = rep.outputs()
+    del eng
+    eng, rep, _ = dense_serve(f"{label} sampled", cfg, params, reqs,
+                              temperature=SAMPLE_TEMP,
+                              rng=P.PRNGKey(SEED + 1, device="cuda"))
+    compare_sampled(f"{label} sampled", cfg, params, eng,
+                    reqs[:MOE_CLI_COMPARE], rep.outputs())
     del eng
     out["spec_launches"] = moe_spec_serve(label, cfg, params, reqs, contig)
     eng, rep, _ = dense_serve(f"{label} paged", cfg, params, reqs,
@@ -4375,29 +4501,45 @@ def main(argv=None) -> int:
                                     "(H = 32)"}
     # the MoE family: qmatmul_w8a16's expert-stacked entry (one layer's
     # three stacks summed), the router's 2-D GEMV among its shapes
-    def layer_sum(by_name):
+    def layer_sum(by_name, extra=()):
         stacks = [by_name[name] for name in ("w_gate", "w_up", "w_down")]
         sums = {key: sum(t[key] for t in stacks)
-                for key in ("ms", "plain_ms", "bound_ms", "library_ms")}
+                for key in ("ms", "plain_ms", "bound_ms", "library_ms")
+                + tuple(extra)}
         return {**sums, "bound_by": (
             "bytes" if all(t["bound_by"] == "bytes" for t in stacks)
             else "operations")}
 
     fwd_m = moe_curve_rows()[-1]
+    live = moe["rows"]["w_gate"]["live_experts"]
     kernels[0]["experts"] = {
-        **layer_sum(moe["rows"]), "max_abs_err": moe["max_abs_err"],
+        **layer_sum(moe["rows"], ("all_live_ms", "every_expert_bound_ms")),
+        "max_abs_err": moe["max_abs_err"], "live_experts": live,
         "launches": moe["launches"]["qmatmul_w8a16_experts"],
+        "launches_by_path": {
+            "gemv": moe["launches"]["qmatmul_w8a16_experts[gemv]"],
+            "mma": moe["cli"]["curve_experts_mma"]},
         "shapes": moe["rows"],
-        "forward": {**layer_sum(moe["forward_rows"]),
+        "forward": {**layer_sum(moe["forward_rows"], ("gemv_ms",)),
+                    "entry": "qmatmul_w8a16_experts_mma",
+                    "launches": moe["cli"]["curve_experts_mma"],
                     "shapes": moe["forward_rows"],
-                    "basis": f"one MoE layer's three stacked launches at "
-                             f"{fwd_m} rows an expert (the serve CLI "
-                             f"curve's {SERVE_MAX_BATCH} x {SERVE_SEQ}-token "
-                             f"forward), summed"},
-        "basis": f"one MoE layer's three stacked launches over "
-                 f"{MOE_ARCH}'s 60 experts x {NUM_SLOTS} rows (a tick), "
-                 f"summed; library torch.bmm on bf16-dequantized experts; "
-                 f"launches: the contiguous bf16 serve"}
+                    "basis": f"one MoE layer's three stacked launches on "
+                             f"the tensor-core entry at {fwd_m} rows an "
+                             f"expert (the serve CLI curve's "
+                             f"{SERVE_MAX_BATCH} x {SERVE_SEQ}-token "
+                             f"forward), summed; gemv_ms: the GEMV entry "
+                             f"at the same rows; launches: the CLI run's "
+                             f"service curve"},
+        "basis": f"one MoE layer's three stacked GEMV launches over "
+                 f"{MOE_ARCH}'s 60 experts x {NUM_SLOTS} rows (a tick) "
+                 f"under the live mask of a tick's routing ({live} experts "
+                 f"live), summed; all_live_ms: the same launches without "
+                 f"the mask; bound_ms: the live experts' bytes, "
+                 f"every_expert_bound_ms: every expert's; library torch.bmm "
+                 f"on bf16-dequantized experts; launches: the contiguous "
+                 f"bf16 serve (launches_by_path: its GEMV stacks, the CLI "
+                 f"curve's mma stacks)"}
     kernels[1]["moe"] = {
         "launches": moe["int8_launches"]["decode_attention_int8"],
         "basis": f"{MOE_ARCH}'s int8-cache serve (KV 16, G 1)"}
@@ -4431,8 +4573,10 @@ def main(argv=None) -> int:
     if min(kernels[i]["spec"]["launches"] for i in (0, 1, 2, 4)) <= 0 or \
             kernels[0]["spec"]["experts_launches"] <= 0:
         return fail("a kernel of a speculative path never launched")
-    if min(kernels[0]["experts"]["launches"], kernels[1]["moe"]["launches"],
-           kernels[2]["moe"]["launches"], kernels[4]["moe"]["launches"]) <= 0:
+    if min(kernels[0]["experts"]["launches"],
+           *kernels[0]["experts"]["launches_by_path"].values(),
+           kernels[1]["moe"]["launches"], kernels[2]["moe"]["launches"],
+           kernels[4]["moe"]["launches"]) <= 0:
         return fail("a kernel of the MoE path never launched")
     if any(not math.isfinite(t[key]) for t in (
             *moe["rows"].values(), *moe["forward_rows"].values())

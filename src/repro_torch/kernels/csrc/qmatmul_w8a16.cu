@@ -11,13 +11,16 @@
 // 1. qmatmul_w8a16 -- the GEMV below, for a decode tick's few rows and for
 //    every launch whose rows must not depend on the path; and
 //    qmatmul_w8a16_experts, the same GEMV over a stack of matrices (the MoE
-//    layer's routed experts, in every caller: repro/models/moe.py's emm is a
-//    plain einsum outside any Pallas kernel, ported here so that its rows
-//    do not depend on the batch and the experts' choice stays on the card).
+//    layer's routed experts at every decode step: repro/models/moe.py's
+//    emm is a plain einsum outside any Pallas kernel, ported here so that
+//    its rows do not depend on the batch and the experts' choice stays on
+//    the card), which skips the experts no row was routed to.
 // 2. qmatmul_w8a16_mma -- mma.sync on the bf16 tensor cores, for the
 //    full-sequence forward's hundreds of rows (see its own note further
-//    down).  Its sums are added in another order than the GEMV's, so a row
-//    differs from the GEMV's row by f32 rounding.
+//    down); and qmatmul_w8a16_experts_mma, the same body over a stack of
+//    experts at the forward, reading each expert once.  Its sums are added
+//    in another order than the GEMV's, so a row differs from the GEMV's
+//    row by f32 rounding.
 //
 // Path 1, the GEMV.
 //
@@ -62,15 +65,32 @@
 // neighbouring rows, on distinct banks.
 //
 // A stack of E matrices (the MoE layer's experts, repro/models/moe.py's
-// emm): x (E, M, K), w (E, K, N), w_scale (E, N), no bias, out (E, M, N).  qmatmul_w8a16_experts_kernel runs with gridDim.z = E: a
-// block of expert e offsets every pointer (its workspace and its counters
-// too) by e's matrices and runs the same body, so the whole stack is one
-// launch, and a stack of one is launched as the 2-D kernel.  The wrapper's
-// plan for a stack (kernels/qmatmul.py::gemv_experts_plan) counts
-// E x strips blocks against the wave: the 60 experts of qwen2-moe-a2.7b
-// fill it with one split, so a stack of them needs no workspace.  At a
-// tick the stack holds every expert's rows, zero where no token was
-// routed, so it reads all the experts' weights.
+// emm): x (E, M, K), w (E, K, N), w_scale (E, N), no bias, out (E, M, N).
+// qmatmul_w8a16_experts_kernel runs with gridDim.z = E: a block of expert
+// e offsets every pointer (its workspace and its counters too) by e's
+// matrices and runs the same body, so the whole stack is one launch.  The
+// wrapper's plan for a stack (kernels/qmatmul.py::gemv_experts_plan)
+// counts E x strips blocks against the wave: the 60 experts of
+// qwen2-moe-a2.7b fill it with one split, so a stack of them needs no
+// workspace.
+//
+// The stack's live mask.  At a tick the stack holds every expert's rows,
+// zero where no token was routed (a tick's 8 tokens reach ~25 of 60
+// experts a layer), and reading every expert's weights would cost twice
+// what the routed ones need.  So the stack takes a mask live (E, M) of
+// uint8 flags, one per (expert, row), built on the card by the caller
+// (models/moe.py) from the routing: a block whose MT-row slab holds no
+// live row stores act(+0.0) on its tile and returns before any copy of w
+// (at a tick a slab is a whole expert, so an unrouted expert costs only
+// its stores).  act(+0.0) is what the body computes for an all-zero row:
+// its sums start at +0 and every product added is +0 or -0, so they stay
+// +0.
+// The decision depends on the slab's flags alone, so every split of a
+// dead slab returns together, takes no ticket and leaves its counters
+// at 0.  A dead row in a live slab is computed with its slab (its FMAs
+// are not skipped, so a live row's instructions are as without the mask)
+// and stored as act(+0.0), so a dead row's output never depends on what
+// its row of x holds.  No mask (nullptr) means every row is live.
 //
 // Rows are independent: the plan, the stages, the slices and every add are
 // fixed by (E, K, N), so row m's arithmetic depends only on row m of x and on
@@ -134,13 +154,15 @@ __device__ __forceinline__ float s8_to_f32(unsigned u) {
 
 // The GEMV's body, for the block (blockIdx.x, blockIdx.y) of one matrix;
 // STACK: the matrix is expert blockIdx.z of a stack, so every pointer is
-// first offset by that expert's matrices.
+// first offset by that expert's matrices, and live (E, M) flags its rows
+// (nullptr: all live; see the note on the stack's live mask above).
 template <typename XT, typename OT, bool COPY16, bool STACK>
 __device__ __forceinline__ void gemv(const XT* __restrict__ x, const int8_t* __restrict__ w,
                                      const float* __restrict__ w_scale,
                                      const float* __restrict__ bias, OT* __restrict__ out,
                                      int M, int K, int N, int act, int splits, int split_rows,
-                                     float* __restrict__ work, int* __restrict__ counters) {
+                                     float* __restrict__ work, int* __restrict__ counters,
+                                     const uint8_t* __restrict__ live) {
   using S = Smem<XT>;
   __shared__ __align__(16) unsigned char smem[S::BYTES];
   __shared__ int ticket;
@@ -151,6 +173,7 @@ __device__ __forceinline__ void gemv(const XT* __restrict__ x, const int8_t* __r
     w += e * K * N;
     w_scale += e * N;
     out += e * M * N;
+    if (live != nullptr) live += e * M;
     if (splits > 1) {
       work += e * splits * M * N;
       counters += e * gridDim.y * (gridDim.x / splits);
@@ -160,6 +183,19 @@ __device__ __forceinline__ void gemv(const XT* __restrict__ x, const int8_t* __r
   const int tn = tid % TN, ks = tid / TN;
   const int strip = blockIdx.x / splits, split = blockIdx.x % splits;
   const int n0 = strip * BN, m0 = blockIdx.y * MT;
+  if (STACK && live != nullptr &&
+      !__syncthreads_or(tid < MT && m0 + tid < M && live[m0 + tid])) {
+    // a dead slab: its tile is act(+0.0), stored once (by split 0)
+    if (split == 0) {
+      const float v = activate(0.f, act);
+#pragma unroll
+      for (int h = 0; h < OPT; ++h) {
+        const int o = tid + h * THREADS, m = m0 + o / BN, c = n0 + o % BN;
+        if (m < M && c < N) store(out + (size_t)m * N + c, v);
+      }
+    }
+    return;
+  }
   const int kb = split * split_rows, ke = min(K, kb + split_rows);
   const int nst = (ke - kb + BK - 1) / BK;  // stages of this block's range
   float* xf = reinterpret_cast<float*>(smem + (S::RING > S::RED ? S::RING : S::RED));
@@ -251,7 +287,7 @@ __device__ __forceinline__ void gemv(const XT* __restrict__ x, const int8_t* __r
   __syncthreads();
   float sum[OPT];
   int row[OPT], col[OPT];
-  bool live[OPT];
+  bool inside[OPT];
 #pragma unroll
   for (int h = 0; h < OPT; ++h) {
     const int o = tid + h * THREADS, m = o / BN, c = o % BN;
@@ -261,13 +297,13 @@ __device__ __forceinline__ void gemv(const XT* __restrict__ x, const int8_t* __r
     sum[h] = s;
     row[h] = m0 + m;
     col[h] = n0 + c;
-    live[h] = row[h] < M && col[h] < N;
+    inside[h] = row[h] < M && col[h] < N;
   }
 
   if (splits > 1) {  // the splits of this tile: the last block to arrive adds them
 #pragma unroll
     for (int h = 0; h < OPT; ++h)
-      if (live[h]) work[((size_t)split * M + row[h]) * N + col[h]] = sum[h];
+      if (inside[h]) work[((size_t)split * M + row[h]) * N + col[h]] = sum[h];
     __threadfence();
     __syncthreads();
     int* counter = counters + blockIdx.y * (gridDim.x / splits) + strip;
@@ -278,7 +314,7 @@ __device__ __forceinline__ void gemv(const XT* __restrict__ x, const int8_t* __r
     const size_t stride = (size_t)M * N;  // one split's partials
 #pragma unroll
     for (int h = 0; h < OPT; ++h) {
-      if (!live[h]) continue;
+      if (!inside[h]) continue;
       const float* p = work + (size_t)row[h] * N + col[h];
       float s = 0.f;
       int q = 0;
@@ -297,23 +333,28 @@ __device__ __forceinline__ void gemv(const XT* __restrict__ x, const int8_t* __r
   }
 #pragma unroll
   for (int h = 0; h < OPT; ++h) {
-    if (!live[h]) continue;
+    if (!inside[h]) continue;
     float s = sum[h];
+    if (STACK && live != nullptr && !live[row[h]]) s = 0.f;  // a dead row: act(+0.0)
     if (bias != nullptr) s += bias[col[h]];
     store(out + (size_t)row[h] * N + col[h], activate(s, act));
   }
 }
 
-// One matrix, and a stack of them (one launch, gridDim.z = E): the same
-// body, two names, so that a profile tells the experts' launches apart.
+// One matrix, and a stack of them (one launch, gridDim.z = E, with the
+// stack's live mask): the same body, two names, so that a profile tells
+// the experts' launches apart.  A stack of one runs the stack's kernel
+// with gridDim.z = 1, whose arithmetic is the 2-D kernel's.  The 2-D
+// kernel takes live (null, unread) only so that both share one signature.
 template <typename XT, typename OT, bool COPY16>
 __global__ void __launch_bounds__(THREADS, 3)
 qmatmul_w8a16_kernel(const XT* __restrict__ x, const int8_t* __restrict__ w,
                      const float* __restrict__ w_scale, const float* __restrict__ bias,
                      OT* __restrict__ out, int M, int K, int N, int act, int splits,
-                     int split_rows, float* __restrict__ work, int* __restrict__ counters) {
+                     int split_rows, float* __restrict__ work, int* __restrict__ counters,
+                     const uint8_t* __restrict__ live) {
   gemv<XT, OT, COPY16, false>(x, w, w_scale, bias, out, M, K, N, act, splits, split_rows, work,
-                              counters);
+                              counters, live);
 }
 
 template <typename XT, typename OT, bool COPY16>
@@ -322,18 +363,19 @@ qmatmul_w8a16_experts_kernel(const XT* __restrict__ x, const int8_t* __restrict_
                              const float* __restrict__ w_scale, const float* __restrict__ bias,
                              OT* __restrict__ out, int M, int K, int N, int act, int splits,
                              int split_rows, float* __restrict__ work,
-                             int* __restrict__ counters) {
+                             int* __restrict__ counters, const uint8_t* __restrict__ live) {
   gemv<XT, OT, COPY16, true>(x, w, w_scale, bias, out, M, K, N, act, splits, split_rows, work,
-                             counters);
+                             counters, live);
 }
 
+// stack: the experts' kernel over gridDim.z = E (else E == 1, the 2-D one)
 template <typename XT, typename OT>
 void launch(const void* x, const void* w, const void* w_scale, const void* bias, void* out,
-            int E, int M, int K, int N, int act, int splits, int split_rows, void* work,
-            void* counters, cudaStream_t stream) {
+            bool stack, int E, int M, int K, int N, int act, int splits, int split_rows,
+            void* work, void* counters, const void* live, cudaStream_t stream) {
   const dim3 grid((N + BN - 1) / BN * splits, (M + MT - 1) / MT, E);
   const bool copy16 = N % 16 == 0 && reinterpret_cast<uintptr_t>(w) % 16 == 0;
-  const auto kernel = E > 1 ? (copy16 ? qmatmul_w8a16_experts_kernel<XT, OT, true>
+  const auto kernel = stack ? (copy16 ? qmatmul_w8a16_experts_kernel<XT, OT, true>
                                       : qmatmul_w8a16_experts_kernel<XT, OT, false>)
                             : (copy16 ? qmatmul_w8a16_kernel<XT, OT, true>
                                       : qmatmul_w8a16_kernel<XT, OT, false>);
@@ -341,7 +383,7 @@ void launch(const void* x, const void* w, const void* w_scale, const void* bias,
       static_cast<const XT*>(x), static_cast<const int8_t*>(w),
       static_cast<const float*>(w_scale), static_cast<const float*>(bias),
       static_cast<OT*>(out), M, K, N, act, splits, split_rows, static_cast<float*>(work),
-      static_cast<int*>(counters));
+      static_cast<int*>(counters), static_cast<const uint8_t*>(live));
 }
 
 // Path 2, mma.sync on the bf16 tensor cores, for the full-sequence forward.
@@ -353,8 +395,8 @@ void launch(const void* x, const void* w, const void* w_scale, const void* bias,
 // w in shared memory for TC_BM rows and multiplies on the tensor cores:
 //
 // - A block owns a TC_BM x TC_BN output tile; each of its eight warps a
-//   TC_WM x TC_WN piece, as TC_MI x TC_NI m16n8k16 products (bf16 in, f32
-//   sums in registers).  K is walked in TC_BK-deep stages through a ring of
+//   WM x TC_WN piece, as MI x TC_NI m16n8k16 products (bf16 in, f32 sums
+//   in registers; WM and MI follow from the M tile, TcTile).  K is walked in TC_BK-deep stages through a ring of
 //   TC_STAGES buffers of shared memory, filled by cp.async TC_STAGES - 1
 //   stages ahead (one barrier per stage).
 // - x's tile lies as in memory (row-major, k contiguous), the A fragment's
@@ -399,36 +441,59 @@ void launch(const void* x, const void* w, const void* w_scale, const void* bias,
 // depend only on row m of x and on w, never on M or on the other rows.
 // They do differ from the GEMV's bits: the engine, whose parity with its
 // batch-1 reference needs one path for every M, never takes this kernel.
+//
+// A stack of E matrices (the MoE layer's experts at the full-sequence
+// forward, qmatmul_w8a16_experts_mma): the same body over gridDim.z = E,
+// each block offsetting its pointers by expert blockIdx.z's matrices, with
+// an M tile of TC_BM_STACK = 64 rows.  An expert holds a forward's
+// capacity rows (3 a batch row of 32 tokens at qwen2-moe-a2.7b: 3, 12 and
+// 48 on the serve CLI's curve), so one M tile covers each and every
+// expert's weight tile is read from device memory once; the GEMV's 8-row
+// slabs read it once a slab (six times at 48 rows).  The tile's height
+// changes no row's arithmetic: an m16n8k16 product computes each output
+// from its own row of A, the stages and their IEEE adds are K's, so a
+// stack of one is bitwise the 2-D kernel on that expert.  The live mask
+// is the GEMV's: an (expert, M tile) with no live row stores act(+0.0)
+// and returns before any copy (an all-zero row's sums are +0 and its
+// scale is >= 0), and a dead row is stored as act(+0.0).
 
-constexpr int TC_BM = 128;                       // output rows per block
+constexpr int TC_BM = 128;                       // output rows per block (one matrix)
+constexpr int TC_BM_STACK = 64;                  // ... in a stack of experts
 constexpr int TC_BN = 128;                       // output columns per block
 constexpr int TC_BK = 128;                       // k per stage
 constexpr int TC_STAGES = 3;                     // shared-memory ring of x and int8 w
 constexpr int TC_WARPS_M = 2, TC_WARPS_N = 4;    // the block's warp grid
 constexpr int TC_MIN_BLOCKS = 1;                 // blocks per SM the registers allow
 constexpr int TC_THREADS = 32 * TC_WARPS_M * TC_WARPS_N;
-constexpr int TC_WM = TC_BM / TC_WARPS_M;        // rows per warp
 constexpr int TC_WN = TC_BN / TC_WARPS_N;        // columns per warp
-constexpr int TC_MI = TC_WM / 16;                // m16 tiles per warp
 constexpr int TC_NI = TC_WN / 8;                 // n8 tiles per warp
 constexpr int TC_X_ROW = TC_BK * 2;              // bytes of a row of x's tile
 constexpr int TC_B_ROW = TC_BN * 2;              // bytes of a row of the bf16 w tile
-constexpr int TC_X_BYTES = TC_BM * TC_X_ROW;     // one stage of x (bf16)
 constexpr int TC_W_BYTES = TC_BK * TC_BN;        // one stage of w (int8)
 constexpr int TC_B_BYTES = TC_BK * TC_B_ROW;     // one converted stage of w (bf16)
-constexpr int TC_STAGE = TC_X_BYTES + TC_W_BYTES;
-constexpr int TC_SMEM = TC_STAGES * TC_STAGE + 2 * TC_B_BYTES;
-constexpr int TC_X_COPIES = TC_X_BYTES / 16 / TC_THREADS;  // 16-byte copies per thread
-constexpr int TC_W_COPIES = TC_W_BYTES / 16 / TC_THREADS;  // ... and conversions
+constexpr int TC_W_COPIES = TC_W_BYTES / 16 / TC_THREADS;  // 16-byte copies per thread
 constexpr int TC_X_RSTEP = TC_THREADS / (TC_X_ROW / 16);   // rows between a thread's copies
 constexpr int TC_W_RSTEP = TC_THREADS / (TC_BN / 16);
+constexpr int TC_C_ROW = TC_BN + 8;  // f32 per row of the drain's tile (padded: no bank conflicts)
 static_assert(TC_X_ROW % 128 == 0 && TC_BN == 128, "whole 128-byte rows; int8 w's are 128 bytes");
 static_assert(TC_NI % 2 == 0, "B fragments in pairs of n8 tiles");
-static_assert(TC_X_COPIES * 16 * TC_THREADS == TC_X_BYTES &&
-                  TC_W_COPIES * 16 * TC_THREADS == TC_W_BYTES,
-              "tiles in whole copies");
+static_assert(TC_W_COPIES * 16 * TC_THREADS == TC_W_BYTES, "w's tile in whole copies");
 static_assert(TC_STAGES >= 3, "a stage is converted one ahead of its products");
-static_assert(TC_SMEM <= 227 * 1024, "shared memory of one block");
+
+// The sizes that follow from an M tile of BM rows.
+template <int BM>
+struct TcTile {
+  static constexpr int WM = BM / TC_WARPS_M;                // rows per warp
+  static constexpr int MI = WM / 16;                        // m16 tiles per warp
+  static constexpr int X_BYTES = BM * TC_X_ROW;             // one stage of x (bf16)
+  static constexpr int STAGE = X_BYTES + TC_W_BYTES;
+  static constexpr int SMEM = TC_STAGES * STAGE + 2 * TC_B_BYTES;
+  static constexpr int X_COPIES = X_BYTES / 16 / TC_THREADS;  // 16-byte copies per thread
+  static_assert(MI >= 1 && MI * 16 == WM, "whole m16 tiles per warp");
+  static_assert(X_COPIES * 16 * TC_THREADS == X_BYTES, "x's tile in whole copies");
+  static_assert(SMEM <= 227 * 1024, "shared memory of one block");
+  static_assert(BM * TC_C_ROW * 4 <= SMEM, "the drain's tile fits the ring");
+};
 
 // Byte offset of 16-byte chunk c of row r of a shared tile of ROW-byte rows.
 template <int ROW>
@@ -459,25 +524,49 @@ __device__ __forceinline__ void store4(__nv_bfloat16* p, const float (&v)[4]) {
       make_uint2(*reinterpret_cast<const unsigned*>(&lo), *reinterpret_cast<const unsigned*>(&hi));
 }
 
-constexpr int TC_C_ROW = TC_BN + 8;  // f32 per row of the drain's tile (padded: no bank conflicts)
-static_assert(TC_BM * TC_C_ROW * 4 <= TC_SMEM, "the drain's tile fits the ring");
-
+// The tensor-core body, for the block (blockIdx.x, blockIdx.y) of one
+// matrix, a BM x TC_BN tile of out; STACK: the matrix is expert blockIdx.z
+// of a stack, its rows flagged by live (E, M) (nullptr: all live).
 // COPY16: N % 16 == 0, so w is copied in 16-byte pieces (else 4-byte ones).
-template <typename OT, bool COPY16>
-__global__ void __launch_bounds__(TC_THREADS, TC_MIN_BLOCKS)
-qmatmul_w8a16_mma_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ w,
-                         const float* __restrict__ w_scale, const float* __restrict__ bias,
-                         OT* __restrict__ out, int M, int K, int N, int act) {
-  // TC_STAGES stages of (TC_BM rows of x, TC_BK rows of int8 w), then two
+template <int BM, typename OT, bool COPY16, bool STACK>
+__device__ __forceinline__ void mma_body(const __nv_bfloat16* __restrict__ x,
+                                         const int8_t* __restrict__ w,
+                                         const float* __restrict__ w_scale,
+                                         const float* __restrict__ bias, OT* __restrict__ out,
+                                         int M, int K, int N, int act,
+                                         const uint8_t* __restrict__ live) {
+  using T = TcTile<BM>;
+  constexpr int MI = T::MI;
+  // TC_STAGES stages of (BM rows of x, TC_BK rows of int8 w), then two
   // bf16 tiles of w
   extern __shared__ __align__(128) uint8_t smem[];
-  auto x_tile = [&](int s) { return smem + s * TC_STAGE; };
-  auto w_tile = [&](int s) { return smem + s * TC_STAGE + TC_X_BYTES; };
-  auto b_tile = [&](int s) { return smem + TC_STAGES * TC_STAGE + s * TC_B_BYTES; };
+  auto x_tile = [&](int s) { return smem + s * T::STAGE; };
+  auto w_tile = [&](int s) { return smem + s * T::STAGE + T::X_BYTES; };
+  auto b_tile = [&](int s) { return smem + TC_STAGES * T::STAGE + s * TC_B_BYTES; };
 
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
-  const int m0 = blockIdx.x * TC_BM;  // blocks of one column strip run together,
+  const int m0 = blockIdx.x * BM;     // blocks of one column strip run together,
   const int n0 = blockIdx.y * TC_BN;  // so its weights come from L2 after the first
+  if (STACK) {
+    const size_t e = blockIdx.z;
+    x += e * M * K;
+    w += e * K * N;
+    w_scale += e * N;
+    out += e * M * N;
+    if (live != nullptr) {
+      live += e * M;
+      if (!__syncthreads_or(tid < BM && m0 + tid < M && live[m0 + tid])) {
+        // a dead tile: act(+0.0) on its rows, nothing loaded
+        const float a0 = activate(0.f, act);
+        const float v[4] = {a0, a0, a0, a0};
+        for (int i = tid; i < BM * (TC_BN / 4); i += TC_THREADS) {
+          const int r = m0 + i / (TC_BN / 4), col = n0 + 4 * (i % (TC_BN / 4));
+          if (r < M && col < N) store4(out + (size_t)r * N + col, v);
+        }
+        return;
+      }
+    }
+  }
   const int wm = warp / TC_WARPS_N, wn = warp % TC_WARPS_N;
   const int ktiles = (K + TC_BK - 1) / TC_BK;
   const unsigned c43 = 0x43434343u;
@@ -496,7 +585,7 @@ qmatmul_w8a16_mma_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __re
     const int k0 = kt * TC_BK;
     const bool kx = k0 + 8 * xc < K;  // K % 8 == 0: a copy is all in or out
 #pragma unroll
-    for (int i = 0; i < TC_X_COPIES; ++i) {
+    for (int i = 0; i < T::X_COPIES; ++i) {
       const bool ok = kx && m0 + xr + i * TC_X_RSTEP < M;
       cp_async16(x_tile(s) + swz<TC_X_ROW>(xr + i * TC_X_RSTEP, xc),
                  ok ? xp + (size_t)i * TC_X_RSTEP * K + k0 : x, ok);
@@ -540,9 +629,9 @@ qmatmul_w8a16_mma_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __re
     }
   };
 
-  float acc[TC_MI][TC_NI][4];
+  float acc[MI][TC_NI][4];
 #pragma unroll
-  for (int i = 0; i < TC_MI; ++i)
+  for (int i = 0; i < MI; ++i)
 #pragma unroll
     for (int j = 0; j < TC_NI; ++j)
 #pragma unroll
@@ -568,17 +657,17 @@ qmatmul_w8a16_mma_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __re
 
     const uint8_t* xs = x_tile(kt % TC_STAGES);
     const uint8_t* bs = b_tile(kt % 2);
-    float part[TC_MI][TC_NI][4];  // this stage's products, summed from zero
+    float part[MI][TC_NI][4];  // this stage's products, summed from zero
 #pragma unroll
     for (int ks = 0; ks < TC_BK / 16; ++ks) {
       // A of m16 tile mi: rows lane % 16, k-chunk 2 ks + lane / 16.  B of
       // n8 tiles 2 p, 2 p + 1 (ldmatrix.trans): matrix q = lane / 8 holds
       // k 8 (q % 2) .. + 7 of the warp's column chunk 2 p + q / 2.
-      unsigned a[TC_MI][4], b[TC_NI][2];
+      unsigned a[MI][4], b[TC_NI][2];
 #pragma unroll
-      for (int mi = 0; mi < TC_MI; ++mi)
+      for (int mi = 0; mi < MI; ++mi)
         ldmatrix_x4(a[mi],
-                    xs + swz<TC_X_ROW>(wm * TC_WM + mi * 16 + lane % 16, 2 * ks + lane / 16));
+                    xs + swz<TC_X_ROW>(wm * T::WM + mi * 16 + lane % 16, 2 * ks + lane / 16));
 #pragma unroll
       for (int p = 0; p < TC_NI / 2; ++p) {
         unsigned r[4];
@@ -590,7 +679,7 @@ qmatmul_w8a16_mma_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __re
         b[2 * p + 1][1] = r[3];
       }
 #pragma unroll
-      for (int mi = 0; mi < TC_MI; ++mi)
+      for (int mi = 0; mi < MI; ++mi)
 #pragma unroll
         for (int ni = 0; ni < TC_NI; ++ni) {
           if (ks == 0)
@@ -600,7 +689,7 @@ qmatmul_w8a16_mma_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __re
         }
     }
 #pragma unroll
-    for (int i = 0; i < TC_MI; ++i)
+    for (int i = 0; i < MI; ++i)
 #pragma unroll
       for (int j = 0; j < TC_NI; ++j)
 #pragma unroll
@@ -613,12 +702,12 @@ qmatmul_w8a16_mma_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __re
   float* ct = reinterpret_cast<float*>(smem);
   const int g = lane / 4, t = lane % 4;
 #pragma unroll
-  for (int mi = 0; mi < TC_MI; ++mi)
+  for (int mi = 0; mi < MI; ++mi)
 #pragma unroll
     for (int ni = 0; ni < TC_NI; ++ni)
 #pragma unroll
       for (int half = 0; half < 2; ++half) {
-        const int r = wm * TC_WM + mi * 16 + g + 8 * half, c = wn * TC_WN + ni * 8 + 2 * t;
+        const int r = wm * T::WM + mi * 16 + g + 8 * half, c = wn * TC_WN + ni * 8 + 2 * t;
         *reinterpret_cast<float2*>(ct + r * TC_C_ROW + c) =
             make_float2(acc[mi][ni][2 * half], acc[mi][ni][2 * half + 1]);
       }
@@ -635,33 +724,76 @@ qmatmul_w8a16_mma_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __re
   __syncthreads();
   if (!col_ok) return;
 #pragma unroll 1
-  for (int r = tid / (TC_BN / 4); r < TC_BM && m0 + r < M; r += TC_THREADS / (TC_BN / 4)) {
+  for (int r = tid / (TC_BN / 4); r < BM && m0 + r < M; r += TC_THREADS / (TC_BN / 4)) {
     const float4 a = *reinterpret_cast<const float4*>(ct + r * TC_C_ROW + c);
     float v[4] = {a.x, a.y, a.z, a.w};
+    const bool dead = STACK && live != nullptr && !live[m0 + r];  // stored as act(+0.0)
 #pragma unroll
     for (int q = 0; q < 4; ++q) {
-      v[q] *= sc[q];
-      if (bias != nullptr) v[q] += bi[q];
+      if (dead) {
+        v[q] = 0.f;
+      } else {
+        v[q] *= sc[q];
+        if (bias != nullptr) v[q] += bi[q];
+      }
       v[q] = activate(v[q], act);
     }
     store4(out + (size_t)(m0 + r) * N + col, v);
   }
 }
 
+// One matrix (TC_BM-row tiles), and a stack of them (TC_BM_STACK-row
+// tiles, gridDim.z = E): the same body, two names.
+template <typename OT, bool COPY16>
+__global__ void __launch_bounds__(TC_THREADS, TC_MIN_BLOCKS)
+qmatmul_w8a16_mma_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ w,
+                         const float* __restrict__ w_scale, const float* __restrict__ bias,
+                         OT* __restrict__ out, int M, int K, int N, int act) {
+  mma_body<TC_BM, OT, COPY16, false>(x, w, w_scale, bias, out, M, K, N, act, nullptr);
+}
+
+template <typename OT, bool COPY16>
+__global__ void __launch_bounds__(TC_THREADS, TC_MIN_BLOCKS)
+qmatmul_w8a16_experts_mma_kernel(const __nv_bfloat16* __restrict__ x,
+                                 const int8_t* __restrict__ w,
+                                 const float* __restrict__ w_scale, OT* __restrict__ out, int M,
+                                 int K, int N, int act, const uint8_t* __restrict__ live) {
+  mma_body<TC_BM_STACK, OT, COPY16, true>(x, w, w_scale, nullptr, out, M, K, N, act, live);
+}
+
+// Each launcher allows its kernel's dynamic shared memory (above 48 KB)
+// once per process, at the first launch: the eager call or a capture's
+// warm-up, so that no capture records it.
 template <typename OT, bool COPY16>
 cudaError_t launch_mma_kernel(const void* x, const void* w, const void* w_scale, const void* bias,
-                       void* out, int M, int K, int N, int act, cudaStream_t stream) {
+                              void* out, int M, int K, int N, int act, cudaStream_t stream) {
   const auto kernel = qmatmul_w8a16_mma_kernel<OT, COPY16>;
-  // once per process, at the first launch: the eager call or a capture's
-  // warm-up, so that no capture records it
+  constexpr int SMEM = TcTile<TC_BM>::SMEM;
   static const cudaError_t sized =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, TC_SMEM);
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
   if (sized != cudaSuccess) return sized;
   const dim3 grid((M + TC_BM - 1) / TC_BM, (N + TC_BN - 1) / TC_BN);
-  kernel<<<grid, TC_THREADS, TC_SMEM, stream>>>(
+  kernel<<<grid, TC_THREADS, SMEM, stream>>>(
       static_cast<const __nv_bfloat16*>(x), static_cast<const int8_t*>(w),
       static_cast<const float*>(w_scale), static_cast<const float*>(bias), static_cast<OT*>(out),
       M, K, N, act);
+  return cudaGetLastError();
+}
+
+template <typename OT, bool COPY16>
+cudaError_t launch_experts_mma_kernel(const void* x, const void* w, const void* w_scale,
+                                      const void* live, void* out, int E, int M, int K, int N,
+                                      int act, cudaStream_t stream) {
+  const auto kernel = qmatmul_w8a16_experts_mma_kernel<OT, COPY16>;
+  constexpr int SMEM = TcTile<TC_BM_STACK>::SMEM;
+  static const cudaError_t sized =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
+  if (sized != cudaSuccess) return sized;
+  const dim3 grid((M + TC_BM_STACK - 1) / TC_BM_STACK, (N + TC_BN - 1) / TC_BN, E);
+  kernel<<<grid, TC_THREADS, SMEM, stream>>>(
+      static_cast<const __nv_bfloat16*>(x), static_cast<const int8_t*>(w),
+      static_cast<const float*>(w_scale), static_cast<OT*>(out), M, K, N, act,
+      static_cast<const uint8_t*>(live));
   return cudaGetLastError();
 }
 
@@ -673,6 +805,16 @@ cudaError_t launch_mma(const void* x, const void* w, const void* w_scale, const 
              : launch_mma_kernel<OT, false>(x, w, w_scale, bias, out, M, K, N, act, stream);
 }
 
+template <typename OT>
+cudaError_t launch_experts_mma(const void* x, const void* w, const void* w_scale,
+                               const void* live, void* out, int E, int M, int K, int N, int act,
+                               cudaStream_t stream) {
+  return N % 16 == 0 ? launch_experts_mma_kernel<OT, true>(x, w, w_scale, live, out, E, M, K, N,
+                                                           act, stream)
+                     : launch_experts_mma_kernel<OT, false>(x, w, w_scale, live, out, E, M, K,
+                                                            N, act, stream);
+}
+
 }  // namespace
 
 // Plain C entry point, bound with ctypes: the GEMV under the split plan
@@ -682,22 +824,22 @@ cudaError_t launch_mma(const void* x, const void* w, const void* w_scale, const 
 // cudaGetLastError() after the launch, so a refused launch is reported to
 // the caller.
 static int launch_gemv(const void* x, int x_bf16, const void* w, const void* w_scale,
-                       const void* bias, void* out, int out_bf16, int E, int M, int K, int N,
-                       int act, int splits, int split_rows, void* work, void* counters,
-                       void* stream) {
+                       const void* bias, void* out, int out_bf16, bool stack, int E, int M,
+                       int K, int N, int act, int splits, int split_rows, void* work,
+                       void* counters, const void* live, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (x_bf16 && out_bf16)
-    launch<__nv_bfloat16, __nv_bfloat16>(x, w, w_scale, bias, out, E, M, K, N, act, splits,
-                                         split_rows, work, counters, s);
+    launch<__nv_bfloat16, __nv_bfloat16>(x, w, w_scale, bias, out, stack, E, M, K, N, act,
+                                         splits, split_rows, work, counters, live, s);
   else if (x_bf16)
-    launch<__nv_bfloat16, float>(x, w, w_scale, bias, out, E, M, K, N, act, splits,
-                                 split_rows, work, counters, s);
+    launch<__nv_bfloat16, float>(x, w, w_scale, bias, out, stack, E, M, K, N, act, splits,
+                                 split_rows, work, counters, live, s);
   else if (out_bf16)
-    launch<float, __nv_bfloat16>(x, w, w_scale, bias, out, E, M, K, N, act, splits,
-                                 split_rows, work, counters, s);
+    launch<float, __nv_bfloat16>(x, w, w_scale, bias, out, stack, E, M, K, N, act, splits,
+                                 split_rows, work, counters, live, s);
   else
-    launch<float, float>(x, w, w_scale, bias, out, E, M, K, N, act, splits, split_rows, work,
-                         counters, s);
+    launch<float, float>(x, w, w_scale, bias, out, stack, E, M, K, N, act, splits, split_rows,
+                         work, counters, live, s);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -705,21 +847,22 @@ extern "C" int qmatmul_w8a16(const void* x, int x_bf16, const void* w, const voi
                              const void* bias, void* out, int out_bf16, int M, int K, int N,
                              int act, int splits, int split_rows, void* work, void* counters,
                              void* stream) {
-  return launch_gemv(x, x_bf16, w, w_scale, bias, out, out_bf16, 1, M, K, N, act, splits,
-                     split_rows, work, counters, stream);
+  return launch_gemv(x, x_bf16, w, w_scale, bias, out, out_bf16, false, 1, M, K, N, act, splits,
+                     split_rows, work, counters, nullptr, stream);
 }
 
 // The GEMV over a stack of E matrices (the experts' entry): the same
 // arguments, without bias, with every tensor stacked on a leading E axis
-// (see the note on stacks above), under the stack's plan, with a workspace
-// of splits * E * M * N f32 and one counter per (expert, slab, strip) when
-// splits > 1.
+// and live (E, M) uint8 flags or null (see the notes on stacks above),
+// under the stack's plan, with a workspace of splits * E * M * N f32 and
+// one counter per (expert, slab, strip) when splits > 1.
 extern "C" int qmatmul_w8a16_experts(const void* x, int x_bf16, const void* w,
-                                     const void* w_scale, void* out, int out_bf16, int E, int M,
-                                     int K, int N, int act, int splits, int split_rows,
-                                     void* work, void* counters, void* stream) {
-  return launch_gemv(x, x_bf16, w, w_scale, nullptr, out, out_bf16, E, M, K, N, act, splits,
-                     split_rows, work, counters, stream);
+                                     const void* w_scale, const void* live, void* out,
+                                     int out_bf16, int E, int M, int K, int N, int act,
+                                     int splits, int split_rows, void* work, void* counters,
+                                     void* stream) {
+  return launch_gemv(x, x_bf16, w, w_scale, nullptr, out, out_bf16, true, E, M, K, N, act,
+                     splits, split_rows, work, counters, live, stream);
 }
 
 // The tensor-core kernel: x bf16 only, K % 8 == 0, N % 4 == 0, x 16-byte and
@@ -732,5 +875,19 @@ extern "C" int qmatmul_w8a16_mma(const void* x, const void* w, const void* w_sca
   const cudaError_t err =
       out_bf16 ? launch_mma<__nv_bfloat16>(x, w, w_scale, bias, out, M, K, N, act, s)
                : launch_mma<float>(x, w, w_scale, bias, out, M, K, N, act, s);
+  return static_cast<int>(err);
+}
+
+// The tensor-core kernel over a stack of E matrices (the experts' entry at
+// the forward): x (E, M, K) bf16, w (E, K, N), w_scale (E, N), live (E, M)
+// uint8 flags or null, no bias, out (E, M, N); the 2-D entry's conditions.
+extern "C" int qmatmul_w8a16_experts_mma(const void* x, const void* w, const void* w_scale,
+                                         const void* live, void* out, int out_bf16, int E,
+                                         int M, int K, int N, int act, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const cudaError_t err =
+      out_bf16
+          ? launch_experts_mma<__nv_bfloat16>(x, w, w_scale, live, out, E, M, K, N, act, s)
+          : launch_experts_mma<float>(x, w, w_scale, live, out, E, M, K, N, act, s);
   return static_cast<int>(err);
 }

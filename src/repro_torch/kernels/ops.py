@@ -63,18 +63,23 @@ def qmatmul(x: torch.Tensor, w, bias: Optional[torch.Tensor] = None, *,
 
 
 def qmatmul_experts(x: torch.Tensor, w: QTensor, *,
+                    live: Optional[torch.Tensor] = None, path: str = "gemv",
                     activation: str = "none",
                     out_dtype=torch.bfloat16) -> torch.Tensor:
     """act(x[e] @ dequant(w[e])) for a stack of experts: ``x`` (E, M, K)
     bf16/f32, ``w`` a QTensor (E, K, N) with one scale per (expert,
-    column), out (E, M, N).  On the card one launch of the GEMV over the
-    stack (``qmatmul.qmatmul_w8a16_experts``), on the CPU its plain
-    version."""
+    column), ``live`` (E, M) uint8 or None (a dead row's output is
+    ``act(0)``), out (E, M, N).  On the card one launch over the stack
+    through the kernel ``path`` names (``qmatmul.qmatmul_w8a16_experts``),
+    on the CPU its plain version whatever the path is."""
+    if path not in _k.W8A16_PATHS:
+        raise ValueError(f"unknown path {path!r}")
     if x.is_cuda:
         return _k.qmatmul_w8a16_experts(x.contiguous(), w.values, w.scale,
+                                        live=live, path=path,
                                         activation=activation,
                                         out_dtype=out_dtype)
-    return _k.qmatmul_w8a16_experts_ref(x, w.values, w.scale,
+    return _k.qmatmul_w8a16_experts_ref(x, w.values, w.scale, live=live,
                                         activation=activation,
                                         out_dtype=out_dtype)
 

@@ -20,12 +20,17 @@ does not depend on how many rows are in the batch — a plain CPU
 ``x @ w`` does not have that property.  Each call adds one to
 ``qmatmul_w8a16_ref.calls``.
 
-``qmatmul_w8a16_experts`` launches the same GEMV over a stack of E
+``qmatmul_w8a16_experts`` launches either kernel over a stack of E
 matrices, one launch for the stack (the MoE layer's routed experts: the
-port of ``repro/models/moe.py``'s ``emm``, a plain einsum there), under
-:func:`gemv_experts_plan` (a function of (E, K, N) alone); each launch
-adds one to ``qmatmul_w8a16_experts.launches``.  Its plain version
-``qmatmul_w8a16_experts_ref`` is ``qmatmul_w8a16_ref`` per expert.
+port of ``repro/models/moe.py``'s ``emm``, a plain einsum there): the
+GEMV under :func:`gemv_experts_plan` (a function of (E, K, N) alone) for
+the decode steps, the tensor-core kernel, reading each expert once, for
+the forward.  A ``live`` mask (E, M) flags the rows the routing filled:
+a slab or tile with no live row loads nothing and every dead row is
+``act(0)``.  Each launch adds one to ``qmatmul_w8a16_experts.launches``
+and to its path's count in ``.launches_by_path``.  Its plain version
+``qmatmul_w8a16_experts_ref`` is ``qmatmul_w8a16_ref`` per expert, with
+the dead rows ``act(0)``.
 
 ``qmatmul_w8a8`` (int8 activations with one scale per tensor, int8
 weights, int32 accumulation) launches ``csrc/qmatmul_w8a8.cu``, the port
@@ -96,14 +101,22 @@ qmatmul_w8a16_ref.calls = 0
 
 def qmatmul_w8a16_experts_ref(x: torch.Tensor, w: torch.Tensor,
                               w_scale: torch.Tensor, *,
+                              live: Optional[torch.Tensor] = None,
                               activation: str = "none",
                               out_dtype=torch.bfloat16) -> torch.Tensor:
     """A stack of E products, x (E, M, K) x dequantized w (E, K, N) with
-    scales of E x N values: :func:`qmatmul_w8a16_ref` per expert."""
+    scales of E x N values: :func:`qmatmul_w8a16_ref` per expert.  Where
+    ``live`` (E, M) is 0 the row is dead and its output is ``act(0)``,
+    whatever its row of x holds (None: every row is live)."""
     scales = w_scale.reshape(w.shape[0], -1)
-    return torch.stack([
+    out = torch.stack([
         qmatmul_w8a16_ref(x[e], w[e], scales[e], activation=activation,
                           out_dtype=out_dtype) for e in range(w.shape[0])])
+    if live is None:
+        return out
+    dead = activate(torch.zeros((), dtype=torch.float32, device=x.device),
+                    activation).to(out_dtype)
+    return torch.where(live.bool()[..., None], out, dead)
 
 
 def qmatmul_w8a8_ref(x: torch.Tensor, w: torch.Tensor, x_scale: torch.Tensor,
@@ -251,21 +264,26 @@ def _lib():
     process: ``{path: fn}``."""
     lib = _build.load("qmatmul_w8a16")
     gemv, mma = lib.qmatmul_w8a16, lib.qmatmul_w8a16_mma
-    experts = lib.qmatmul_w8a16_experts
+    experts, experts_mma = (lib.qmatmul_w8a16_experts,
+                            lib.qmatmul_w8a16_experts_mma)
     gemv.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
                      ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                      ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                      ctypes.c_int, ctypes.c_int, ctypes.c_int,
                      ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
-    # the GEMV's arguments without bias, with E after out_bf16
-    experts.argtypes = (gemv.argtypes[:4] + gemv.argtypes[5:7]
-                        + [ctypes.c_int] + gemv.argtypes[7:])
+    # the GEMV's arguments with live in bias's place, and E after out_bf16
+    experts.argtypes = (gemv.argtypes[:7] + [ctypes.c_int]
+                        + gemv.argtypes[7:])
     mma.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
                     ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                     ctypes.c_void_p]
-    gemv.restype = mma.restype = experts.restype = ctypes.c_int
-    return {"gemv": gemv, "mma": mma, "experts": experts}
+    # the mma kernel's arguments with live in bias's place, E after out_bf16
+    experts_mma.argtypes = mma.argtypes[:6] + [ctypes.c_int] + mma.argtypes[6:]
+    for fn in (gemv, mma, experts, experts_mma):
+        fn.restype = ctypes.c_int
+    return {"gemv": gemv, "mma": mma, "experts": experts,
+            "experts_mma": experts_mma}
 
 
 def qmatmul_w8a16(x: torch.Tensor, w: torch.Tensor, w_scale: torch.Tensor,
@@ -356,19 +374,29 @@ counts.register(qmatmul_w8a16)
 
 
 def qmatmul_w8a16_experts(x: torch.Tensor, w: torch.Tensor,
-                          w_scale: torch.Tensor, *, activation: str = "none",
+                          w_scale: torch.Tensor, *,
+                          live: Optional[torch.Tensor] = None,
+                          path: str = "gemv", activation: str = "none",
                           out_dtype=torch.bfloat16) -> torch.Tensor:
     """act(x[e] @ dequant(w[e])) for every expert e, on the card, in one
-    launch of the GEMV over the stack (:func:`gemv_experts_plan`): a
-    row's bits depend on its own row of x and on w[e] alone, never on M,
-    on the other rows or on the other experts, and a stack of one is the
-    2-D GEMV's launch bit for bit.
+    launch over the stack through the kernel ``path`` names (one of
+    ``W8A16_PATHS``): the GEMV (:func:`gemv_experts_plan`) or the
+    tensor-core kernel (bf16 x only), whose rows differ from the GEMV's by
+    f32 rounding.  On either path a row's bits depend on its own row of x
+    and on w[e] alone, never on M, on the other rows or on the other
+    experts, and a stack of one is the 2-D launch on that path bit for
+    bit.
 
     x: (E, M, K) bf16/f32 with K % 8 == 0; w: (E, K, N) int8 with
     N % 4 == 0; w_scale: E x N f32 values ((E, N) or the quantizer's
-    (E, 1, N)); out: (E, M, N) ``out_dtype`` (bf16/f32).  All CUDA
+    (E, 1, N)); live: (E, M) uint8, 0 where a row is dead (its output is
+    ``act(0)``; a slab or tile of dead rows loads nothing), or None (every
+    row live); out: (E, M, N) ``out_dtype`` (bf16/f32).  All CUDA
     tensors, contiguous, on one device.  Each launch adds one to
-    ``qmatmul_w8a16_experts.launches``."""
+    ``qmatmul_w8a16_experts.launches`` and to
+    ``qmatmul_w8a16_experts.launches_by_path[path]``."""
+    if path not in W8A16_PATHS:
+        raise ValueError(f"unknown path {path!r}")
     if activation not in ACTIVATIONS:
         raise ValueError(f"unknown activation {activation!r}")
     if x.ndim != 3 or w.ndim != 3 or x.shape[0] != w.shape[0] or \
@@ -379,11 +407,19 @@ def qmatmul_w8a16_experts(x: torch.Tensor, w: torch.Tensor,
     n = w.shape[2]
     if x.dtype not in _FLOAT_TYPES or out_dtype not in _FLOAT_TYPES:
         raise ValueError(f"x {x.dtype} / out {out_dtype} must be f32 or bf16")
+    if path == "mma" and x.dtype != torch.bfloat16:
+        raise ValueError(f"the mma path takes bf16 x, got {x.dtype}")
     if w.dtype != torch.int8 or n % 4 or k % 8:
         raise ValueError(f"w must be int8 with K % 8 == 0 and N % 4 == 0, "
                          f"got {w.dtype} K={k} N={n}")
     if w_scale.dtype != torch.float32 or w_scale.numel() != e * n:
         raise ValueError("w_scale must hold E x N f32 values")
+    if live is not None:
+        if live.shape != (e, m) or live.dtype != torch.uint8:
+            raise ValueError(f"live must be (E, M) = {(e, m)} uint8, got "
+                             f"{tuple(live.shape)} {live.dtype}")
+        if live.device != x.device or not live.is_contiguous():
+            raise ValueError("live must be contiguous on x's device")
     if not x.is_cuda:
         raise ValueError("qmatmul_w8a16_experts launches a CUDA kernel: x "
                          "must be a CUDA tensor (CPU tensors go to "
@@ -398,24 +434,33 @@ def qmatmul_w8a16_experts(x: torch.Tensor, w: torch.Tensor,
     if m == 0 or e == 0:
         return out
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    plan, work_elems, n_counters = gemv_experts_launch(e, m, k, n)
-    work = counters = None
-    if plan.splits > 1:
-        work, counters = scratch.get(x.device, stream, work_elems, n_counters)
-    err = _lib()["experts"](
-        x.data_ptr(), int(x.dtype == torch.bfloat16), w.data_ptr(),
-        w_scale.data_ptr(), out.data_ptr(),
-        int(out_dtype == torch.bfloat16), e, m, k, n,
-        ACTIVATIONS.index(activation), plan.splits, plan.split_rows, work,
-        counters, stream)
+    live_ptr = live.data_ptr() if live is not None else None
+    out_bf16 = int(out_dtype == torch.bfloat16)
+    act = ACTIVATIONS.index(activation)
+    if path == "gemv":
+        plan, work_elems, n_counters = gemv_experts_launch(e, m, k, n)
+        work = counters = None
+        if plan.splits > 1:
+            work, counters = scratch.get(x.device, stream, work_elems,
+                                         n_counters)
+        err = _lib()["experts"](
+            x.data_ptr(), int(x.dtype == torch.bfloat16), w.data_ptr(),
+            w_scale.data_ptr(), live_ptr, out.data_ptr(), out_bf16, e, m, k,
+            n, act, plan.splits, plan.split_rows, work, counters, stream)
+    else:
+        err = _lib()["experts_mma"](
+            x.data_ptr(), w.data_ptr(), w_scale.data_ptr(), live_ptr,
+            out.data_ptr(), out_bf16, e, m, k, n, act, stream)
     if err:
-        raise RuntimeError(f"qmatmul_w8a16_experts launch failed: CUDA "
-                           f"error {err}")
+        raise RuntimeError(f"qmatmul_w8a16_experts ({path}) launch failed: "
+                           f"CUDA error {err}")
     qmatmul_w8a16_experts.launches += 1
+    qmatmul_w8a16_experts.launches_by_path[path] += 1
     return out
 
 
 qmatmul_w8a16_experts.launches = 0
+qmatmul_w8a16_experts.launches_by_path = dict.fromkeys(W8A16_PATHS, 0)
 counts.register(qmatmul_w8a16_experts)
 
 

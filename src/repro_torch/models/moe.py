@@ -23,13 +23,17 @@ Where the port differs from the reference, and why:
   the k terms first to last in f32, so a row's bits do not depend on
   the rows beside it (a ``sum`` picks its reduction layout from the
   shape on the card); the combine rounds once, to the activations' dtype;
-- the experts' products run on the W8A16 GEMV over the stack under every
-  mode, as the reference's ``emm`` ignores ``mode`` (under W8A8 only the
-  attention's and the shared MLP's activations are quantized), and the
-  router is the W8A16 GEMV with f32 activations (``mode=FP``, a QTensor
-  weight).  The gate's activation is the GEMV's fused drain, on the f32
-  sums, where the reference rounds the product to the activations' dtype
-  first;
+- the experts' products run on the W8A16 kernels over the stack under
+  every mode, as the reference's ``emm`` ignores ``mode`` (under W8A8 only
+  the attention's and the shared MLP's activations are quantized): the
+  GEMV at every decode step, the tensor-core kernel at the full-sequence
+  forward (``mode.w8a16_path``, which ``transformer`` sets per caller;
+  under W8A8 the GEMV).  A ``live`` mask of the stack's rows that the
+  routing filled goes with them, so the kernels skip the experts no token
+  was routed to.  The router is the W8A16 GEMV with f32 activations
+  (``mode=FP``, a QTensor weight).  The gate's activation is the kernels'
+  fused drain, on the f32 sums, where the reference rounds the product to
+  the activations' dtype first;
 - with ``per_token`` (the chunk step's causal pass) each token of a row is
   routed alone, with the capacity of one token, as the reference's chunk
   step scans its one-token decode step.
@@ -152,11 +156,25 @@ def dispatch(top_e: Tensor, cap: int, e: int):
     return place, keep
 
 
-def _experts(w, t: Tensor, activation: str = "none") -> Tensor:
-    """(E, M, K) x (E, K, N) -> (E, M, N) in t's dtype."""
+def live_rows(place: Tensor, keep: Tensor, e: int, rows: int) -> Tensor:
+    """The (E, rows) uint8 mask of the dispatch stack's rows that a kept
+    assignment fills (:func:`dispatch`'s ``place`` where ``keep``), written
+    on the device as the stack itself is (dropped ones on a trash row), so
+    a captured step records it with static shapes."""
+    live = torch.zeros(e * rows + 1, dtype=torch.uint8, device=place.device)
+    live.index_fill_(0, torch.where(keep, place, e * rows).reshape(-1), 1)
+    return live[:e * rows].view(e, rows)
+
+
+def _experts(w, t: Tensor, activation: str = "none", *,
+             live: Optional[Tensor] = None, path: str = "gemv") -> Tensor:
+    """(E, M, K) x (E, K, N) -> (E, M, N) in t's dtype; a QTensor stack
+    through the kernel ``path`` names, its dead rows (``live`` 0)
+    ``act(0)``.  The plain bf16 product reads ``t`` as it is (its dead rows
+    are zero)."""
     if isinstance(w, QTensor):
-        return kops.qmatmul_experts(t, w, activation=activation,
-                                    out_dtype=t.dtype)
+        return kops.qmatmul_experts(t, w, live=live, path=path,
+                                    activation=activation, out_dtype=t.dtype)
     y = torch.matmul(t.to(torch.bfloat16).float(),
                      w.to(torch.bfloat16).float())
     return activate(y, activation).to(t.dtype)
@@ -184,10 +202,11 @@ def moe_ffn(p: dict, x: Tensor, cfg: ArchConfig, *, mode: QuantMode = FP,
     buf.index_copy_(0, torch.where(keep, place, e * rows).reshape(-1),
                     x.repeat_interleave(k, dim=1).reshape(-1, d))
     disp = buf[:e * rows].view(e, rows, d)
+    kw = dict(live=live_rows(place, keep, e, rows), path=mode.w8a16_path)
     ex = p["experts"]
-    h = (_experts(ex["w_gate"], disp, cfg.activation)
-         * _experts(ex["w_up"], disp))
-    out = _experts(ex["w_down"], h).reshape(e * rows, d)
+    h = (_experts(ex["w_gate"], disp, cfg.activation, **kw)
+         * _experts(ex["w_up"], disp, **kw))
+    out = _experts(ex["w_down"], h, **kw).reshape(e * rows, d)
     gathered = out.index_select(0, place.reshape(-1)).reshape(b, s, k, d)
     weight = (top_p * keep.reshape(b, s, k)).to(x.dtype)
     out = _sum_in_order((gathered * weight[..., None]).transpose(-1, -2))

@@ -13,9 +13,10 @@ through preemption and injected faults equal to its control serve, the
 threefry PRNG and the sampler on the card (bitwise the CPU's, rows
 bitwise alone and in a batch), the captured sampled tick and a sampled
 engine, the service curve's forward captured (bitwise the eager
-one), the MoE family (the experts' stacked GEMV against its plain
-version and the 2-D GEMV, the router's rows, the engine on reduced
-qwen2-moe-a2.7b), and speculative decoding (the captured verify and
+one), the MoE family (the experts' stacked GEMV and tensor-core kernel
+against their plain version and the 2-D launches, the live mask, the
+router's rows, the forward's path, the engine greedy and sampled on
+reduced qwen2-moe-a2.7b), and speculative decoding (the captured verify and
 propose steps bitwise their eager forms, the verify step bitwise k + 1
 captured ticks, a speculating engine equal to its control), at small
 shapes.
@@ -1420,6 +1421,212 @@ def test_qmatmul_w8a16_experts_matches_plain(cuda, e, m, k, n):
                                           activation=act,
                                           out_dtype=out_dtype)
             assert torch.equal(one[:, 0], got[:, r]), r
+
+
+def _masks(e, m, g, device):
+    """A live mask of (E, M) flags: each row live with probability 1/2,
+    expert 0 all dead, expert 1 all live but for its second 8-row slab
+    (where it has one), so the launch has dead slabs of a live expert."""
+    live = (torch.rand((e, m), generator=g, device=device) < 0.5).to(
+        torch.uint8)
+    live[0] = 0
+    if e > 1:
+        live[1] = 1
+        live[1, 8:16] = 0
+    return live
+
+
+def _zero_dead(x, live):
+    """x with its dead rows +0, as the dispatch stack holds them."""
+    return torch.where(live.bool()[..., None], x, torch.zeros(
+        (), dtype=x.dtype, device=x.device))
+
+
+def _routed_stack(g, device):
+    """qwen2-moe-a2.7b's tick stack as ``moe_ffn`` builds it: 8 tokens
+    routed by a random int8 router through ``moe.route``/``dispatch``
+    (capacity 1), scattered into the (60, 8, 2048) dispatch stack, and
+    ``moe.live_rows`` of it."""
+    from repro_torch.models import moe as M
+    c = get_config("qwen2-moe-a2.7b")
+    e, d, k = c.n_experts, c.d_model, c.top_k
+    router = {"w": quantize_weight(torch.randn(
+        (d, e), generator=g, device=device) * d ** -0.5)}
+    x = torch.randn((8, 1, d), generator=g, device=device).to(torch.bfloat16)
+    _, top_e = M.route(router, x, k)
+    place, keep = M.dispatch(top_e, 1, e)
+    buf = x.new_zeros((e * 8 + 1, d))
+    buf.index_copy_(0, torch.where(keep, place, e * 8).reshape(-1),
+                    x.repeat_interleave(k, dim=1).reshape(-1, d))
+    return buf[:e * 8].view(e, 8, d), M.live_rows(place, keep, e, 8)
+
+
+# the live mask's cases: EXPERT_CASES under a random mask, and the routed
+# (60, 8) stack of a tick at w_gate's shape
+MASK_CASES = EXPERT_CASES + ((60, 8, 2048, 1408, "routed"),)
+# (x, out, activation) of the masked launches: the gate's silu, sigmoid
+# (whose act(+0.0) is 0.5; bf16 out, as an f32 sigmoid's slope near 0 is
+# steeper than _close's f32 tolerance allows at K = 2048) and none in f32
+LIVE_DRAINS = ((torch.bfloat16, torch.bfloat16, "silu"),
+               (torch.float32, torch.bfloat16, "sigmoid"),
+               (torch.float32, torch.float32, "none"))
+
+
+@pytest.mark.parametrize("case", MASK_CASES,
+                         ids=[f"{c[0]}x{c[1]}x{c[2]}x{c[3]}"
+                              + ("-routed" if len(c) > 4 else "")
+                              for c in MASK_CASES])
+def test_qmatmul_w8a16_experts_live_mask(cuda, case):
+    """The GEMV over a stack with a live mask: where the dead rows of x
+    are zero (the dispatch stack's case) every row bitwise the launch
+    without the mask and within ``_close`` of the plain version; a dead
+    slab's tile act(+0.0) (sigmoid: 0.5); where the dead rows of x are
+    not zero, the live rows bitwise unchanged and the dead ones act(+0.0);
+    each row bitwise alone (its own flag) and in its batch; the arrival
+    counters 0 after a masked launch whose plan splits K."""
+    e, m, k, n = case[:4]
+    g = torch.Generator(device=cuda).manual_seed(3 * e + k)
+    q = quantize_weight(torch.randn((e, k, n), generator=g, device=cuda))
+    w, s = q.values, q.scale
+    if len(case) > 4:
+        x0, live = _routed_stack(g, cuda)
+        assert 0 < int(live.any(1).sum()) < e
+    else:
+        live = _masks(e, m, g, cuda)
+    plan = K.gemv_experts_plan(e, k, n)
+    stream = torch.cuda.current_stream(cuda).cuda_stream
+    for x_dtype, out_dtype, act in LIVE_DRAINS:
+        if len(case) > 4:
+            x = x0.to(x_dtype)
+        else:
+            x = torch.randn((e, m, k), generator=g, device=cuda).to(x_dtype)
+        zeroed = _zero_dead(x, live)
+        kw = dict(activation=act, out_dtype=out_dtype)
+        got = K.qmatmul_w8a16_experts(zeroed, w, s, live=live, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(got, K.qmatmul_w8a16_experts(zeroed, w, s, **kw))
+        assert _close(got, K.qmatmul_w8a16_experts_ref(
+            zeroed, w, s, live=live, **kw), out_dtype)
+        dead = torch.full((), 0.5 if act == "sigmoid" else 0.0,
+                          device=cuda).to(out_dtype)
+        assert (got[~live.bool()] == dead).all()
+        if len(case) == 4:
+            assert (got[0] == dead).all()         # expert 0: dead slabs
+        if plan.splits > 1:
+            assert (scratch.held(x.device, stream)[1] == 0).all()
+        noisy = K.qmatmul_w8a16_experts(x, w, s, live=live, **kw)
+        full = K.qmatmul_w8a16_experts(x, w, s, **kw)
+        mask = live.bool()
+        assert torch.equal(noisy[mask], full[mask])
+        assert (noisy[~mask] == dead).all()
+        for r in (0, m - 1):
+            one = K.qmatmul_w8a16_experts(
+                x[:, r:r + 1].contiguous(), w, s,
+                live=live[:, r:r + 1].contiguous(), **kw)
+            assert torch.equal(one[:, 0], noisy[:, r]), r
+
+
+# the tensor-core entry's stacks: the serve CLI curve's 3, 12 and 48 rows
+# an expert, a stack across two 64-row tiles, N % 16 == 4 (4-byte weight
+# copies, a ragged strip), K % 128 == 16 (a ragged last stage)
+MMA_EXPERT_CASES = ((6, 3, 272, 100), (6, 12, 528, 264), (6, 48, 1408, 512),
+                    (4, 65, 272, 260), (3, 48, 2048, 1408))
+
+
+@pytest.mark.parametrize("e,m,k,n", MMA_EXPERT_CASES)
+def test_qmatmul_w8a16_experts_mma_matches_plain(cuda, e, m, k, n):
+    """The tensor-core kernel over a stack of experts (``path="mma"``)
+    within ``_close`` of the plain version (LIVE_DRAINS' activations and
+    out types); each row bitwise alone and in its batch; a stack of one
+    bitwise ``qmatmul_w8a16_on_path("mma")`` on that expert; with a live
+    mask bitwise the unmasked launch where the dead rows are zero, a dead
+    tile act(+0.0); counted on its path."""
+    g = torch.Generator(device=cuda).manual_seed(e + m + k)
+    q = quantize_weight(torch.randn((e, k, n), generator=g, device=cuda))
+    w, s = q.values, q.scale
+    x = torch.randn((e, m, k), generator=g, device=cuda).to(torch.bfloat16)
+    for _, out_dtype, act in LIVE_DRAINS:
+        kw = dict(activation=act, out_dtype=out_dtype)
+        before = dict(K.qmatmul_w8a16_experts.launches_by_path)
+        got = K.qmatmul_w8a16_experts(x, w, s, path="mma", **kw)
+        torch.cuda.synchronize()
+        assert K.qmatmul_w8a16_experts.launches_by_path == dict(
+            before, mma=before["mma"] + 1)
+        assert _close(got, K.qmatmul_w8a16_experts_ref(x, w, s, **kw),
+                      out_dtype), act
+        for r in (0, m // 2, m - 1):
+            one = K.qmatmul_w8a16_experts(x[:, r:r + 1].contiguous(), w, s,
+                                          path="mma", **kw)
+            assert torch.equal(one[:, 0], got[:, r]), r
+        for i in range(e):
+            one = K.qmatmul_w8a16_experts(x[i:i + 1].contiguous(),
+                                          w[i:i + 1], s[i:i + 1],
+                                          path="mma", **kw)
+            assert torch.equal(one[0], K.qmatmul_w8a16_on_path(
+                "mma", x[i], w[i], s[i].reshape(-1).contiguous(),
+                **kw)), i
+        live = _masks(e, m, g, cuda)
+        zeroed = _zero_dead(x, live)
+        masked = K.qmatmul_w8a16_experts(zeroed, w, s, live=live,
+                                         path="mma", **kw)
+        assert torch.equal(masked, K.qmatmul_w8a16_experts(
+            zeroed, w, s, path="mma", **kw))
+        dead = torch.full((), 0.5 if act == "sigmoid" else 0.0,
+                          device=cuda).to(out_dtype)
+        assert (masked[0] == dead).all()
+        assert (K.qmatmul_w8a16_experts(x, w, s, live=live, path="mma",
+                                        **kw)[~live.bool()] == dead).all()
+    with pytest.raises(ValueError, match="bf16"):
+        K.qmatmul_w8a16_experts(x.float(), w, s, path="mma")
+
+
+def test_moe_forward_takes_the_experts_mma_path(cuda):
+    """Reduced qwen2-moe-a2.7b on the card: the W8A16 forward launches
+    the experts' tensor-core kernel, three stacks a layer, and no GEMV
+    stack; a decode step the GEMV stacks only; the logits finite."""
+    cfg = dataclasses.replace(get_config("qwen2-moe-a2.7b").reduced(),
+                              n_experts=16, top_k=4, n_heads=16,
+                              n_kv_heads=16, d_ff=64, capacity_factor=1.25)
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    params = R.init_quantized(gen, cfg, device=cuda)
+    toks = torch.randint(1, cfg.vocab, (2, 12), generator=gen, device=cuda,
+                         dtype=torch.int32)
+    before = dict(K.qmatmul_w8a16_experts.launches_by_path)
+    with torch.inference_mode():
+        logits = ST.make_prefill_step(cfg, mode=W8A16)(params,
+                                                       {"tokens": toks})
+        torch.cuda.synchronize()
+        mid = dict(K.qmatmul_w8a16_experts.launches_by_path)
+        ST.make_decode_step(cfg, mode=W8A16)(
+            params, {"tokens": toks[:, :1], "cache_index": 3},
+            R.init_cache(cfg, 2, 16, device=cuda))
+        torch.cuda.synchronize()
+    after = K.qmatmul_w8a16_experts.launches_by_path
+    assert mid == dict(before, mma=before["mma"] + 3 * cfg.n_layers)
+    assert after == dict(mid, gemv=mid["gemv"] + 3 * cfg.n_layers)
+    assert torch.isfinite(logits).all()
+
+
+def test_sampled_moe_engine_on_card_equals_reference(cuda):
+    """Reduced qwen2-moe-a2.7b sampled on the card (t = 0.8, chunked
+    prefill, contiguous and paged): every token equal to the sampled
+    sequential reference under the same key."""
+    from repro_torch.runtime import prng as P
+    cfg = dataclasses.replace(get_config("qwen2-moe-a2.7b").reduced(),
+                              n_experts=16, top_k=4, n_heads=16,
+                              n_kv_heads=16, d_ff=64, capacity_factor=1.25)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    params = R.init_quantized(gen, cfg, device=cuda)
+    reqs = E.synthetic_requests(8, rate_per_s=2000.0, vocab=cfg.vocab,
+                                prompt_len=6, max_new_tokens=5,
+                                shared_prefix_len=4)
+    key = P.PRNGKey(3)
+    want = E.reference_outputs(cfg, params, reqs, mode=W8A16, max_seq=16,
+                               temperature=0.8, rng=key)
+    for paged in ({}, dict(block_size=4, num_blocks=10)):
+        eng = E.Engine(cfg, params, mode=W8A16, num_slots=4, max_seq=16,
+                       prefill_chunk=4, temperature=0.8, rng=key, **paged)
+        assert eng.serve(reqs).outputs() == want, paged
 
 
 def test_moe_route_rows_are_batch_invariant_on_card(cuda):

@@ -49,6 +49,7 @@ from repro_torch.core.qlinear import W8A8, W8A16
 from repro_torch.core.quant import QTensor, quantize_tree
 from repro_torch.kernels import ops
 from repro_torch.kernels import qmatmul as K
+from repro_torch.kernels.qmatmul import activate
 from repro_torch.launch import serve
 from repro_torch.models import bridge
 from repro_torch.models import layers as L
@@ -251,19 +252,69 @@ def test_experts_split_plan():
     (dict(scale=(4, 1, 12)), "E x N"),
     (dict(x_dtype=torch.float16), "f32 or bf16"),
     ({}, "CUDA"),
+    (dict(path="tc"), "unknown path"),
+    (dict(path="mma", x_dtype=torch.float32), "mma path takes bf16"),
+    (dict(live=torch.ones((4, 3), dtype=torch.uint8)), r"live must be \(E, M\)"),
+    (dict(live=torch.ones((4, 2), dtype=torch.bool)), r"live must be \(E, M\)"),
+    (dict(live=torch.ones((4, 2), dtype=torch.uint8, device="meta")),
+     "x's device"),
+    (dict(live=torch.ones((2, 4), dtype=torch.uint8).t()), "contiguous"),
 ])
 def test_experts_wrapper_checks_its_arguments(bad, match):
-    """The kernel's wrapper refuses what the kernel does not take, and a
-    CPU stack (the plain version's) before it would launch."""
+    """The kernel's wrapper refuses what the kernel does not take (a
+    live mask not (E, M) uint8, contiguous on x's device; f32 x on the
+    mma path), and a CPU stack (the plain version's) before it would
+    launch."""
     x = torch.zeros(bad.get("x", (4, 2, 64)),
                     dtype=bad.get("x_dtype", torch.bfloat16))
     w = torch.zeros((4, 64, 24), dtype=bad.get("w_dtype", torch.int8))
     scale = torch.ones(bad.get("scale", (4, 1, 24)))
     launches = K.qmatmul_w8a16_experts.launches
+    by_path = dict(K.qmatmul_w8a16_experts.launches_by_path)
     with pytest.raises(ValueError, match=match):
-        K.qmatmul_w8a16_experts(x, w, scale,
+        K.qmatmul_w8a16_experts(x, w, scale, live=bad.get("live"),
+                                path=bad.get("path", "gemv"),
                                 activation=bad.get("activation", "none"))
     assert K.qmatmul_w8a16_experts.launches == launches
+    assert K.qmatmul_w8a16_experts.launches_by_path == by_path
+
+
+@pytest.mark.parametrize("act", K.ACTIVATIONS)
+def test_experts_plain_version_writes_act0_on_dead_rows(act):
+    """``qmatmul_w8a16_experts_ref`` with a live mask: bitwise the
+    unmasked stack where the dead rows of x are zero (the dispatch stack's
+    case, what today's callers see), and where they are not, the live
+    rows unchanged and every dead row ``act(0)`` (sigmoid's 0.5); ops'
+    dispatch passes the mask to it on the CPU."""
+    gen = torch.Generator().manual_seed(7)
+    e, m, k, n = 4, 5, 64, 24
+    w = torch.randint(-127, 128, (e, k, n), generator=gen, dtype=torch.int8)
+    scale = torch.rand((e, 1, n), generator=gen) * 0.01 + 1e-3
+    live = (torch.rand((e, m), generator=gen) < 0.5).to(torch.uint8)
+    live[0] = 0                                   # a dead expert
+    live[1] = 1                                   # an expert all live
+    x = torch.randn((e, m, k), generator=gen).to(torch.bfloat16)
+    zeroed = x * live[..., None]
+    dead = activate(torch.zeros(()), act).to(torch.bfloat16)
+    for odt in (torch.bfloat16, torch.float32):
+        full = K.qmatmul_w8a16_experts_ref(zeroed, w, scale, activation=act,
+                                           out_dtype=odt)
+        assert torch.equal(K.qmatmul_w8a16_experts_ref(
+            zeroed, w, scale, live=live, activation=act, out_dtype=odt),
+            full)
+        got = K.qmatmul_w8a16_experts_ref(x, w, scale, live=live,
+                                          activation=act, out_dtype=odt)
+        want = K.qmatmul_w8a16_experts_ref(x, w, scale, activation=act,
+                                           out_dtype=odt)
+        mask = live.bool()
+        assert torch.equal(got[mask], want[mask])
+        assert (got[~mask] == dead.to(odt)).all()
+    if act == "sigmoid":
+        assert dead.item() == 0.5
+    assert torch.equal(
+        ops.qmatmul_experts(x, QTensor(w, scale), live=live, path="mma",
+                            activation=act),
+        K.qmatmul_w8a16_experts_ref(x, w, scale, live=live, activation=act))
 
 
 # ---------------------------------------------------------------------------
@@ -386,6 +437,109 @@ def test_dispatch_drops_in_the_references_order():
          0 * rows + 0, 1 * rows + 1],
         [2 * rows + 2, 0 * rows + 2, 2 * rows + 3, 1 * rows + 2,
          1 * rows + 3, 0 * rows + 3]]
+
+
+def test_live_rows_flag_the_kept_places():
+    """The live mask of the drop case above: exactly the places a kept
+    assignment fills, (E, B·cap) uint8; a dropped assignment's place (its
+    expert's first of the row) is live, as its expert's capacity there is
+    full."""
+    top_e = torch.tensor([[[0, 1], [0, 2], [0, 1]],
+                          [[2, 0], [2, 1], [1, 0]]])
+    place, keep = M.dispatch(top_e, cap=2, e=3)
+    live = M.live_rows(place, keep, 3, 4)
+    assert live.shape == (3, 4) and live.dtype == torch.uint8
+    want = torch.zeros(12, dtype=torch.uint8)
+    want[place[keep]] = 1
+    assert torch.equal(live.reshape(-1), want)
+    assert live.reshape(-1).tolist() == [1] * 9 + [0] + [1] * 2
+    assert (live.reshape(-1)[place[~keep]] == 1).all()
+
+
+@pytest.fixture
+def stacks(monkeypatch):
+    """Every ``ops.qmatmul_experts`` call as (path, live, x) and every
+    ``moe.dispatch`` result, in call order."""
+    seen = {"experts": [], "dispatch": []}
+    real, real_dispatch = ops.qmatmul_experts, M.dispatch
+
+    def spy(x, w, **kw):
+        seen["experts"].append((kw.get("path", "gemv"), kw.get("live"), x))
+        return real(x, w, **kw)
+
+    def dispatch(top_e, cap, e):
+        out = real_dispatch(top_e, cap, e)
+        seen["dispatch"].append(out)
+        return out
+
+    monkeypatch.setattr(ops, "qmatmul_experts", spy)
+    monkeypatch.setattr(M, "dispatch", dispatch)
+    return seen
+
+
+@pytest.mark.parametrize("case", ["decode", "sequence", "per_token"])
+def test_moe_ffn_live_mask_is_the_combines_kept_places(case, stacks):
+    """``moe_ffn`` hands its three expert stacks one live mask: a row
+    is live exactly where the combine gathers a kept assignment's place
+    (capacity drops in the sequence case, a token at a time per_token),
+    every dead row of the dispatch stack is zero, and every place the
+    combine gathers (a drop's too) is live."""
+    _, cfg = _cfgs()
+    _, tq = _params()
+    tp = tq["layers"][0]["moe"]
+    b, s = {"decode": (8, 1), "sequence": (2, 24), "per_token": (2, 24)}[case]
+    x = torch.from_numpy(np.random.default_rng(5).standard_normal(
+        (b, s, cfg.d_model)).astype(np.float32)).to(torch.bfloat16)
+    M.moe_ffn(tp, x, cfg, mode=W8A16, per_token=case == "per_token")
+    (place, keep), = stacks["dispatch"]
+    assert (not keep.all()) == (case == "sequence")
+    calls = stacks["experts"]
+    assert len(calls) == 3 and all(c[1] is calls[0][1] for c in calls)
+    live = calls[0][1]
+    e, rows = live.shape
+    assert (e, rows) == (cfg.n_experts, calls[0][2].shape[1])
+    want = torch.zeros(e * rows, dtype=torch.uint8)
+    want[place[keep]] = 1
+    assert torch.equal(live.reshape(-1), want)
+    assert (live.reshape(-1)[place] == 1).all()
+    dead = ~live.bool()
+    assert (calls[0][2][dead] == 0).all() and dead.any()
+
+
+@pytest.mark.parametrize("caller", ["forward", "forward_w8a8", "decode_step",
+                                    "chunk", "verify"])
+def test_experts_path_by_caller(caller, stacks):
+    """The full-sequence ``forward`` under W8A16 asks for the experts'
+    tensor-core kernel (``"mma"``) at every layer's three stacks; under
+    W8A8, and at the decode step, the chunk pass and the verify step,
+    every stack takes the GEMV, each with its live mask."""
+    _, cfg = _cfgs()
+    _, tq = _params()
+    mode = W8A8 if caller == "forward_w8a8" else W8A16
+    rng = np.random.default_rng(2)
+    toks = torch.from_numpy(rng.integers(1, cfg.vocab, (2, 5)).astype(
+        np.int32))
+    if caller.startswith("forward"):
+        ST.make_prefill_step(cfg, mode=mode)(tq, {"tokens": toks})
+    elif caller == "decode_step":
+        ST.make_decode_step(cfg, mode=mode)(
+            tq, {"tokens": toks[:, :1], "cache_index": 3},
+            R.init_cache(cfg, 2, MAX_SEQ, device="cpu"))
+    elif caller == "chunk":
+        ST.make_prefill_chunk_step(cfg, mode=mode, chunk=4)(
+            tq, toks[0, :4].numpy(), R.init_cache(cfg, 2, MAX_SEQ,
+                                                  device="cpu"), 1, 0, 3)
+    else:
+        ST.make_verify_step(cfg, mode=mode, k=2)(
+            tq, toks[:, :3], R.init_cache(cfg, 2, MAX_SEQ, device="cpu"),
+            torch.tensor([0, 4], dtype=torch.int32),
+            torch.tensor([3, 2], dtype=torch.int32),
+            torch.tensor([True, True]))
+    paths = [c[0] for c in stacks["experts"]]
+    want = "mma" if caller == "forward" else "gemv"
+    assert len(paths) % (3 * cfg.n_layers) == 0 and len(paths) > 0
+    assert set(paths) == {want}
+    assert all(c[1] is not None for c in stacks["experts"])
 
 
 # ---------------------------------------------------------------------------
