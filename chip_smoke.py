@@ -171,7 +171,31 @@ Phases, each of which fails the run (non-zero exit, no result line):
    (its curve's forward routes with capacity 3 and drops tokens, its
    experts on the tensor-core entry and no decode step's; the captured
    forward bitwise the eager one; four requests equal to
-   ``reference_outputs``).
+   ``reference_outputs``);
+12. encdec: whisper-medium at full width (24 encoder and 24 decoder
+   layers, d 1,024, 16 heads of 64, vocab 51,865 tied, 1,500 frames a
+   source).  First the kernels at its shapes: ``flash_attention_bhsd``
+   at BH = 16 (a prime) and 256 (the CLI curve's batch 16), not causal
+   over 1,500 frames and at Sq 32 against Skv 1,500 (the curve's
+   cross-attention), causal over 32 tokens (the curve's decoder);
+   ``qmatmul_w8a16`` at the prime's M = 1,500 (both kernels; the mma
+   path's rows alone and in slices of 17), the curve's M = 24,000 and
+   512 (mma), a tick's M = 8, and on the LM head padded from 51,865 to
+   51,868 columns (the first 51,865 against the plain version of the
+   unpadded head, the padding exactly 0), each timed beside its plain
+   version, its library call and its bound; then the model from the
+   streamed init, served contiguous (each of 8 requests primed from its
+   own frames at admission: exactly its primes' mma and flash launches,
+   the GEMV otherwise) and held to ``reference_outputs``, served paged
+   (the dense serves' pool, then a pool as large as the contiguous
+   cache) with every token equal to the contiguous serve's and no leak,
+   each serve's ticks (and, in ``--only encdec``, a profiled serve's
+   device busy); the
+   captured prime and the captured steady tick timed (the tick bitwise
+   the eager one; the plain cross-attention's share of it; its floor:
+   weights, cross k/v and self k/v it reads); then the serve CLI with
+   ``--arch whisper-medium`` (its curve's forward encodes 1,500 frames a
+   row; four requests equal to ``reference_outputs``).
 
 The kernel phase holds both of ``qmatmul_w8a16``'s kernels (the GEMV and
 the ``mma.sync`` bf16 tensor-core path) at every projection and the LM
@@ -207,12 +231,12 @@ than before the redesigns.
 
 ``--only attention`` / ``--only long_tick`` / ``--only w8a8`` / ``--only
 graphs`` / ``--only dense`` / ``--only sampling`` / ``--only spec`` /
-``--only moe`` run just the two attention kernel phases, the
-long-context ticks, ``qmatmul_w8a8``'s kernel phase and the W8A8 tick,
-the five eager tick breakdowns and the graph phase, the dense family's
-kernel rows, rmsnorm widths and phase 10, phase 7 and the sampled serve
-CLI run, phase 8 with its CLI run and qwen2-moe-a2.7b's speculative
-serve, or phase 11, and ``--src DIR``
+``--only moe`` / ``--only encdec`` run just the two attention kernel
+phases, the long-context ticks, ``qmatmul_w8a8``'s kernel phase and the
+W8A8 tick, the five eager tick breakdowns and the graph phase, the dense
+family's kernel rows, rmsnorm widths and phase 10, phase 7 and the
+sampled serve CLI run, phase 8 with its CLI run and qwen2-moe-a2.7b's
+speculative serve, phase 11, or phase 12, and ``--src DIR``
 takes the port from
 another checkout's ``src/`` (so the same phases time a parent commit's
 kernels); such a partial run prints no result line.
@@ -224,7 +248,10 @@ the dense configs' shapes under ``dense``, qmatmul_w8a16's expert-stacked
 entries under ``experts`` (the routed tick's GEMV, the forward's
 tensor-core entry under ``forward``), each kernel's MoE launches under
 ``moe`` and
-its launches in the speculative serves under ``spec``),
+its launches in the speculative serves under ``spec``, and
+qmatmul_w8a16's and flash_attention_bhsd's rows at whisper-medium's
+shapes, their launches in its serves and the prime's and tick's times
+under ``encdec``),
 the whole run's time, and,
 last, ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
 without the repo's ``src/repro_torch`` beside it, it exits non-zero and
@@ -438,15 +465,15 @@ def bf16_close(out, ref, *, f32_out: bool):
     return float(err.max()), float((err / tol).max())
 
 
-def w8a16_check(label, x, w, ws, bias, act, odt, ref):
-    """qmatmul_w8a16 through each of its kernels on one input, held against
-    the plain version's ``ref`` with bf16_close.  Returns the worst
-    (max_abs_err, err / tol)."""
+def w8a16_check(label, x, w, ws, bias, act, odt, ref, paths=None):
+    """qmatmul_w8a16 through each of its kernels (or those of ``paths``)
+    on one input, held against the plain version's ``ref`` with
+    bf16_close.  Returns the worst (max_abs_err, err / tol)."""
     import torch
     from repro_torch.kernels import qmatmul as K
 
     worst = (0.0, 0.0)
-    for path in K.W8A16_PATHS:
+    for path in paths or K.W8A16_PATHS:
         out = K.qmatmul_w8a16_on_path(path, x, w, ws, bias, activation=act,
                                       out_dtype=odt)
         torch.cuda.synchronize()
@@ -503,6 +530,37 @@ def gemv_rows_check(label, x, w, ws, bias, act, odt) -> None:
                                      f"row alone")
 
 
+def w8a16_numbers(x, w, ws, bias, act, odt, paths, plain_iters, flush):
+    """One W8A16 shape's numbers: each of ``paths`` timed (20 launches),
+    the plain version (``plain_iters`` calls; nan for 0), ``F.linear`` on
+    the bf16-dequantized weights, and the bound: the larger of the bytes
+    (x, w, its scales, the bias and the output once each) over the memory
+    rate and 2 M K N over the bf16 peak."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import qmatmul as K
+
+    (m, k), n = x.shape, w.shape[1]
+    kw = dict(activation=act, out_dtype=odt)
+    ms = {path: time_ms(lambda: K.qmatmul_w8a16_on_path(
+        path, x, w, ws, bias, **kw), 20, flush) for path in paths}
+    plain = (time_ms(lambda: K.qmatmul_w8a16_ref(x, w, ws, bias, **kw),
+                     plain_iters, flush) if plain_iters else float("nan"))
+    w_lib = (w.float() * ws).to(torch.bfloat16).t()      # (N, K) view
+    b_lib = None if bias is None else bias.to(torch.bfloat16)
+    lib = time_ms(lambda: F.linear(x, w_lib, b_lib), 20, flush)
+    del w_lib
+    nbytes = (x.numel() * 2 + w.numel() + ws.numel() * 4
+              + (0 if bias is None else n * 4)
+              + m * n * torch.empty(0, dtype=odt).element_size())
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = 2 * m * k * n / BF16_OPS_PER_S * 1e3
+    return {"ms": ms, "plain_ms": plain, "library_ms": lib,
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "bytes_ms": bytes_ms, "ops_ms": ops_ms}
+
+
 def qmatmul_phase(flush):
     """qmatmul_w8a16 at every full-width projection and the LM head, through
     both kernels (the GEMV and the mma path), at M = 1, a decode tick's
@@ -514,7 +572,6 @@ def qmatmul_phase(flush):
     per-tick sum (M = 8) goes to the kernels line, and both paths'
     per-forward sums are printed on their own lines."""
     import torch
-    import torch.nn.functional as F
     from repro_torch.core.quant import quantize_weight
     from repro_torch.kernels import qmatmul as K
 
@@ -540,7 +597,6 @@ def qmatmul_phase(flush):
         w, ws = q.values, q.scale.reshape(-1).contiguous()
         bias = (torch.randn((n,), generator=gen, device="cuda") * 0.1
                 if has_bias else None)
-        w_lib = (w.float() * ws).to(torch.bfloat16).t()   # (N, K) view
         plan = K.gemv_split_plan(k, n)
         plans.append(f"{name} K={k} N={n}: {plan.strips} strips x "
                      f"{plan.splits} splits of {plan.split_rows} rows = "
@@ -565,22 +621,13 @@ def qmatmul_phase(flush):
             if m not in W8A16_PATH_ROWS:
                 print(line)
                 continue
-            ms = {path: time_ms(lambda: K.qmatmul_w8a16_on_path(
-                path, x, w, ws, bias, activation=act, out_dtype=odt), 20,
-                flush) for path in K.W8A16_PATHS}
-            plain = (time_ms(lambda: K.qmatmul_w8a16_ref(
-                x, w, ws, bias, activation=act, out_dtype=odt),
-                3 if m < SERVE_ROWS else 1, flush)
-                if m in (NUM_SLOTS, SERVE_ROWS) else float("nan"))
-            lib = time_ms(lambda: F.linear(x, w_lib, None if bias is None
-                                           else bias.to(torch.bfloat16)),
-                          20, flush)
-            nbytes = (x.numel() * 2 + w.numel() + ws.numel() * 4
-                      + (n * 4 if has_bias else 0)
-                      + m * n * torch.empty(0, dtype=odt).element_size())
-            bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-            ops_ms = 2 * m * k * n / BF16_OPS_PER_S * 1e3
-            bound = max(bytes_ms, ops_ms)
+            t = w8a16_numbers(
+                x, w, ws, bias, act, odt, K.W8A16_PATHS,
+                ((3 if m < SERVE_ROWS else 1) if m in (NUM_SLOTS, SERVE_ROWS)
+                 else 0), flush)
+            ms, plain, lib, bound = (t["ms"], t["plain_ms"],
+                                     t["library_ms"], t["bound_ms"])
+            bytes_ms, ops_ms = t["bytes_ms"], t["ops_ms"]
             print(f"{line} gemv_ms={ms['gemv']:.4f} mma_ms={ms['mma']:.4f} "
                   f"plain_ms={plain:.4f} library_ms={lib:.4f} "
                   f"bound_ms={bound:.4f}")
@@ -1399,16 +1446,21 @@ def compare_with_reference(label, cfg, params, eng, reqs, outs) -> None:
 
 def step_captures(eng):
     """The captures of the engine's memoized tick and chunk steps (every
-    bucket its chunks can take) and, speculating, of its verify and
-    propose steps and the draft's chunk steps."""
+    bucket its chunks can take), of its prime step (a family that
+    primes) and, speculating, of its verify and propose steps and the
+    draft's chunk steps."""
     from repro_torch.runtime import steps as ST
 
     def buckets(cap):
         return sorted({ST.bucket_batch(n) for n in range(1, cap + 1)})
 
+    from repro_torch.models import registry as R
+
     be = eng.backend
     steps = [be.slot_step(eng.cfg, mode=eng.mode,
                           temperature=eng.temperature)]
+    if R.needs_prime(eng.cfg):
+        steps.append(be.prime_step(eng.cfg, mode=eng.mode))
     steps += [be.chunk_step(eng.cfg, mode=eng.mode, chunk=c)
               for c in buckets(eng.prefill_chunk)]
     if eng.spec_k:
@@ -1432,6 +1484,8 @@ def warm(label, eng, reqs):
     what = ("verify, propose and chunk graphs (one per chunk length, the "
             "draft's and the target's)" if eng.spec_k else
             "the tick and chunk graphs (one per chunk length)")
+    if eng.cfg.family == "encdec":
+        what += " and the prime graph"
     print(f"{label}: warm-up captured {what}, {sum(bound)} captures of "
           f"their memoized steps so far; a first-call serve captured none")
     return bound
@@ -1816,12 +1870,20 @@ def serve_run(quant, curve_paths, flags=(), base=SERVE_ARGS, label=None):
     if any(plain_calls.values()):
         raise AssertionError(f"{label}: the CUDA path reached a plain "
                              f"version: {plain_calls}")
-    outside = (launches["qmatmul_w8a16[mma]"] - curve_paths["mma"],
+    # an encdec engine primes twice in its warm-up (the capture's warm-up
+    # run on a copy of the cache, then the first replay) and once a
+    # request
+    primes = (2 + len(res.requests)) if res.cfg.family == "encdec" else 0
+    prime_mma = (primes * prime_launches(res.cfg)["qmatmul_w8a16[mma]"]
+                 if primes else 0)
+    outside = (launches["qmatmul_w8a16[mma]"] - curve_paths["mma"]
+               - prime_mma,
                launches["qmatmul_w8a16_experts[mma]"]
                - curve_paths["experts[mma]"])
     if any(outside):
         raise AssertionError(f"{label}: the decode loop or the engine took "
-                             f"the mma path {outside} times (2-D, experts)")
+                             f"the mma path {outside} times (2-D, experts) "
+                             f"beyond its {primes} primes' {prime_mma}")
     routers = router_gemvs(res.cfg, curve_paths["mma"])
     if quant == "w8a16" and (
             curve_paths["gemv"] != routers or curve_paths["mma"] <= 0
@@ -1890,15 +1952,23 @@ def torch_cuda_empty() -> None:
     torch.cuda.empty_cache()
 
 
+# calls of each breakdown under torch.profiler: its bookkeeping costs
+# the host seconds for an eager call's thousands of ops and launches
+# (the whole run's breakdowns took minutes at 3-10 profiled calls),
+# while a call's device time varies by under 1% between calls
+PROFILED_CALLS = 1
+
+
 def device_breakdown(label: str, what: str, fn, reps: int,
                      detail: bool = True):
     """Where one call of ``fn`` spends its time: host wall clock per call
     (each ending in a wait for the card) over ``reps`` calls, then the
     device's busy time, its largest kernels and the host's largest ops
-    (``detail``) from torch.profiler over ``reps`` more.  Returns, per call, ``wall``
-    ms, ``busy`` ms (None where the profiler reported no device time),
-    ``launch_calls`` (cudaLaunchKernel), ``graph_launches``
-    (cudaGraphLaunch) and ``by_kernel`` ({kernel: device ms})."""
+    (``detail``) from torch.profiler over PROFILED_CALLS more.  Returns,
+    per call, ``wall`` ms, ``busy`` ms (None where the profiler reported
+    no device time), ``launch_calls`` (cudaLaunchKernel),
+    ``graph_launches`` (cudaGraphLaunch) and ``by_kernel`` ({kernel:
+    device ms})."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1906,6 +1976,7 @@ def device_breakdown(label: str, what: str, fn, reps: int,
         fn()
         torch.cuda.synchronize()
 
+    n = PROFILED_CALLS
     with torch.inference_mode():
         call()
         t0 = time.perf_counter()
@@ -1915,15 +1986,15 @@ def device_breakdown(label: str, what: str, fn, reps: int,
         warnings.filterwarnings("ignore", message=".*Profiler clears")
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
+            for _ in range(n):
                 call()
+    averages = prof.key_averages()
     # device-side events (kernels, copies) only: host ops carry the device
     # time of what they launched too
-    events = [e for e in prof.key_averages()
-              if str(e.device_type).endswith("CUDA")]
+    events = [e for e in averages if str(e.device_type).endswith("CUDA")]
     dev_us = sum(e.self_device_time_total for e in events)
     launch_calls, graph_launches = (
-        sum(e.count for e in prof.key_averages() if e.key == key) / reps
+        sum(e.count for e in averages if e.key == key) / n
         for key in ("cudaLaunchKernel", "cudaGraphLaunch"))
     out = {"wall": wall_ms, "busy": None, "launch_calls": launch_calls,
            "graph_launches": graph_launches, "by_kernel": {}}
@@ -1931,25 +2002,24 @@ def device_breakdown(label: str, what: str, fn, reps: int,
         print(f"{label}: {what} wall {wall_ms:.2f} ms, device busy not "
               f"measured (the profiler reported no device time)")
         return out
-    busy_ms = dev_us / 1e3 / reps
+    busy_ms = dev_us / 1e3 / n
     print(f"{label}: {what} wall {wall_ms:.2f} ms, device busy "
           f"{busy_ms:.3f} ms ({100 * busy_ms / wall_ms:.1f}%), idle "
           f"{100 * (1 - busy_ms / wall_ms):.1f}%")
     out["busy"] = busy_ms
-    out["by_kernel"] = {e.key: e.self_device_time_total / 1e3 / reps
+    out["by_kernel"] = {e.key: e.self_device_time_total / 1e3 / n
                         for e in events}
     if not detail:
         return out
     for us, key in sorted(((e.self_device_time_total, e.key)
                            for e in events), reverse=True)[:6]:
-        print(f"  device time per call {us / 1e3 / reps:.3f} ms: "
+        print(f"  device time per call {us / 1e3 / n:.3f} ms: "
               f"{key[:90]}")
-    host = [e for e in prof.key_averages()
-            if not str(e.device_type).endswith("CUDA")]
-    for us, n, key in sorted(((e.self_cpu_time_total, e.count, e.key)
-                              for e in host), reverse=True)[:8]:
-        print(f"  host time per call {us / 1e3 / reps:.3f} ms in "
-              f"{n // reps} calls: {key[:60]}")
+    host = [e for e in averages if not str(e.device_type).endswith("CUDA")]
+    for us, count, key in sorted(((e.self_cpu_time_total, e.count, e.key)
+                                  for e in host), reverse=True)[:8]:
+        print(f"  host time per call {us / 1e3 / n:.3f} ms in "
+              f"{count // n} calls: {key[:60]}")
     return out
 
 
@@ -2311,9 +2381,10 @@ CHUNK_CASES = (
     ("long chunk", NUM_SLOTS, LONG_SLOTS, 0, "w8a16", True, 3, 2046),
     ("bf16 chunk", SERVE_MAX_BATCH, SERVE_SEQ, 0, "w8a16", False, 5, 9),
     ("w8a8 chunk", SERVE_MAX_BATCH, SERVE_SEQ, 0, "w8a8", False, 5, 9))
-# reps of each chunk breakdown: at 5, torch.profiler's bookkeeping of the
-# per-token eager chunk's 6,000-13,500 launches a call took 197 of the
-# graph phase's 300 s (PERF.md, Findings)
+# wall-clock reps of each chunk breakdown (the profiler takes
+# PROFILED_CALLS): at 5 profiled reps, its bookkeeping of the per-token
+# eager chunk's 6,000-13,500 launches a call took 197 of the graph
+# phase's 300 s (PERF.md, Findings)
 CHUNK_REPS = 2
 
 
@@ -2508,13 +2579,34 @@ def graph_phase(cfg, params) -> None:
                              "nothing")
 
 
+def curve_batch(cfg, b: int, seq: int, gen=None) -> dict:
+    """A prefill batch of ``cfg.input_specs``: (b, seq) tokens and the
+    config's other inputs (encdec's frames), random from ``gen``, or
+    zeros without one."""
+    import torch
+    from repro_torch.configs.base import ShapeSpec
+
+    batch = {}
+    for name, (shape, dtype) in cfg.input_specs(
+            ShapeSpec("serve_curve", seq, b, "prefill")).items():
+        if gen is None:
+            batch[name] = torch.zeros(shape, dtype=dtype, device="cuda")
+        elif dtype == torch.int32:
+            batch[name] = torch.randint(0, cfg.vocab, shape, generator=gen,
+                                        device="cuda", dtype=dtype)
+        else:
+            batch[name] = torch.randn(shape, generator=gen,
+                                      device="cuda").to(dtype)
+    return batch
+
+
 def curve_check(label: str, res, args) -> None:
     """The service curve's forward eager against captured
     (``runtime/steps.py::jit_prefill_step``, what the launcher measured
     with) at each batch of the run's curve: the captured logits
     ``torch.equal`` to the eager ones on random tokens, each form's wall
-    and device busy per call (the same method as the tick breakdowns, 3
-    calls each), then the curve and the Table 4 batch the launcher's own
+    and device busy per call (the same method as the tick breakdowns:
+    wall over 3 calls, busy from PROFILED_CALLS), then the curve and the Table 4 batch the launcher's own
     measurement gives through the eager step, beside the run's captured
     curve and choice."""
     import torch
@@ -2527,9 +2619,7 @@ def curve_check(label: str, res, args) -> None:
     g = torch.Generator(device="cuda").manual_seed(SEED)
     for b in sorted(res.curve):
         with torch.inference_mode():
-            batch = {"tokens": torch.randint(
-                0, res.cfg.vocab, (b, args.seq), generator=g,
-                device="cuda", dtype=torch.int32)}
+            batch = curve_batch(res.cfg, b, args.seq, g)
             want = eager(res.params, batch)
             got = graphed(res.params, batch)
             if not torch.equal(got, want):
@@ -2571,12 +2661,10 @@ def curve_check(label: str, res, args) -> None:
 def forward_breakdown(label: str, res) -> None:
     """Where the service curve's largest prefill spends its time: one
     full-sequence forward of SERVE_MAX_BATCH x SERVE_SEQ tokens."""
-    import torch
     from repro_torch.runtime import steps as ST
 
     prefill = ST.make_prefill_step(res.cfg, mode=res.mode)
-    batch = {"tokens": torch.zeros((SERVE_MAX_BATCH, SERVE_SEQ),
-                                   dtype=torch.int32, device="cuda")}
+    batch = curve_batch(res.cfg, SERVE_MAX_BATCH, SERVE_SEQ)
     device_breakdown(label, f"prefill of {SERVE_MAX_BATCH} x {SERVE_SEQ} "
                      f"tokens", lambda: prefill(res.params, batch), 3)
 
@@ -3328,7 +3416,6 @@ def dense_qmatmul_rows(flush):
     both kernels timed at M = 8 beside the plain version, F.linear on bf16
     weights and the bound.  Returns (worst error, {shape: numbers})."""
     import torch
-    import torch.nn.functional as F
     from repro_torch.configs import get_config
     from repro_torch.core.quant import quantize_weight
     from repro_torch.kernels import qmatmul as K
@@ -3361,31 +3448,21 @@ def dense_qmatmul_rows(flush):
             err = max(e for e, _ in errs)
             ratio = max(r for _, r in errs)
             worst = max(worst, err)
-            ms = {path: time_ms(lambda: K.qmatmul_w8a16_on_path(
-                path, x, w, ws, activation=act, out_dtype=odt), 20, flush)
-                for path in K.W8A16_PATHS}
-            plain = time_ms(lambda: K.qmatmul_w8a16_ref(
-                x, w, ws, activation=act, out_dtype=odt), 3, flush)
-            w_lib = (w.float() * ws).to(torch.bfloat16).t()
-            lib = time_ms(lambda: F.linear(x, w_lib), 20, flush)
-            del w_lib
+            t = w8a16_numbers(x, w, ws, None, act, odt, K.W8A16_PATHS, 3,
+                              flush)
+            ms, plain, lib = t["ms"], t["plain_ms"], t["library_ms"]
             m = NUM_SLOTS
-            nbytes = (x.numel() * 2 + w.numel() + ws.numel() * 4
-                      + m * n * torch.empty(0, dtype=odt).element_size())
-            bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-            ops_ms = 2 * m * k * n / BF16_OPS_PER_S * 1e3
             plan = K.gemv_split_plan(k, n)
             rows[label] = {
                 "K": k, "N": n, "activation": act, "M": m,
                 "ms": ms["gemv"], "mma_ms": ms["mma"], "plain_ms": plain,
-                "bound_ms": max(bytes_ms, ops_ms),
-                "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+                "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
                 "library_ms": lib, "max_abs_err": err}
             print(f"  qmatmul_w8a16 {label:24s} K={k:5d} N={n:6d} act={act:4s}"
                   f" max_abs_err={err:.3e} err/tol={ratio:.3f} (M = 1 and "
                   f"{m}, both paths) gemv_ms={ms['gemv']:.4f} "
                   f"mma_ms={ms['mma']:.4f} plain_ms={plain:.4f} "
-                  f"library_ms={lib:.4f} bound_ms={max(bytes_ms, ops_ms):.4f}"
+                  f"library_ms={lib:.4f} bound_ms={t['bound_ms']:.4f}"
                   f" (M = {m}; GEMV plan {plan.strips} strips x "
                   f"{plan.splits} splits)")
             del q, w, ws
@@ -3522,7 +3599,8 @@ def dense_serve(label, cfg, params, reqs, **kw):
     chunked prefill of PREFILL_CHUNK; ``kw`` pages it), warmed up, then a
     wall-clock serve of ``reqs`` with the counters zeroed just before and
     read just after: no capture inside it, no plain version, no mma
-    launch, the GEMV launched, the decode attention kernels launched
+    launch (an encdec config: exactly its primes' mma and flash
+    launches), the GEMV launched, the decode attention kernels launched
     exactly when the cache is int8 and the experts' stacked GEMV exactly
     for an MoE config.  Returns (engine, report, launches)."""
     from repro_torch import engine as E
@@ -3549,7 +3627,16 @@ def dense_serve(label, cfg, params, reqs, **kw):
             (launches["qmatmul_w8a16_experts"] > 0) != (cfg.family == "moe")):
         raise AssertionError(f"{label}: launches {launches} (int8 cache: "
                              f"{cfg.kv_quant}, family {cfg.family})")
-    mma_free(label, launches)
+    if cfg.family == "encdec":
+        # one prime a request (none resumed): its encoder's and cross
+        # k/v's mma launches and flash launches, and no other
+        want = {k: n * len(reqs) for k, n in prime_launches(cfg).items()}
+        if any(launches[k] != n for k, n in want.items()):
+            raise AssertionError(f"{label}: launches {launches}, the primes "
+                                 f"of {len(reqs)} requests make {want}")
+        mma_free(label, dict(launches, **{"qmatmul_w8a16[mma]": 0}))
+    else:
+        mma_free(label, launches)
     if any(plain_calls.values()):
         raise AssertionError(f"{label}: the CUDA path reached a plain "
                              f"version: {plain_calls}")
@@ -4252,8 +4339,518 @@ def moe_phase(flush):
     return out
 
 
+# ---------------------------------------------------------------------------
+# the encdec family
+# ---------------------------------------------------------------------------
+
+ENC_ARCH = "whisper-medium"
+# the serve CLI at full whisper-medium width, contiguous bf16 cache: the
+# curve's forward encodes SERVE_MAX_BATCH x 1,500 frames beside its
+# tokens; 16 requests at 10/s, each primed from its own frames
+ENC_SERVE_ARGS = ["--arch", ENC_ARCH, "--rate", "10", "--max-batch",
+                  str(SERVE_MAX_BATCH), "--seq", str(SERVE_SEQ),
+                  "--decode-tokens", "16", "--n-requests", "16",
+                  "--prompt-len", "16", "--gen-tokens", "16",
+                  "--prefill-chunk", str(PREFILL_CHUNK), "--deadline-ms",
+                  "2000", "--seed", str(SEED)]
+ENC_CLI_COMPARE = 4         # requests of the CLI run held to the reference
+TIMED_PRIMES = 10           # captured primes a wall timing (host clock)
+
+
+def prime_launches(cfg) -> dict:
+    """The kernel launches of one prime of an encdec config: the encoder's
+    six projections and its flash attention a layer, and each decoder
+    layer's cross k and v, all on the tensor-core W8A16 kernel."""
+    return {"qmatmul_w8a16[mma]": 6 * cfg.n_enc_layers + 2 * cfg.n_layers,
+            "flash_attention_bhsd": cfg.n_enc_layers}
+
+
+def enc_flash_rows(flush):
+    """flash_attention_bhsd at whisper-medium's shapes, hd 64: the encoder
+    over 1,500 frames, not causal (BH = 16, one prime; BH = 256, the
+    serve CLI curve's batch 16), and the curve's decoder at the same BH:
+    its cross-attention (Sq 32 against Skv 1,500, not causal) and its
+    causal self-attention over 32 tokens; each against its plain version
+    (bf16_close) and timed beside SDPA and the bound (the score pairs
+    the mask keeps at the bf16 peak, or q, k, v and the output over the
+    memory rate).  Returns (worst error, {case: numbers})."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as FA
+
+    c = get_config(ENC_ARCH)
+    h, se, hd = c.n_heads, c.enc_seq, c.head_dim
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 17)
+    worst, rows = 0.0, {}
+    cases = []
+    for bh in (h, h * SERVE_MAX_BATCH):
+        cases += [(f"encoder BH={bh}", bh, se, se, False),
+                  (f"cross BH={bh}", bh, SERVE_SEQ, se, False),
+                  (f"self BH={bh}", bh, SERVE_SEQ, SERVE_SEQ, True)]
+    for label, bh, sq, skv, causal in cases:
+        q = torch.randn((bh, sq, hd), generator=gen,
+                        device="cuda").to(torch.bfloat16)
+        k, v = (torch.randn((bh, skv, hd), generator=gen, device="cuda")
+                .to(torch.bfloat16) for _ in range(2))
+        kw = dict(causal=causal)
+        out = FA.flash_attention_bhsd(q, k, v, **kw)
+        ref = FA.flash_attention_ref(q, k, v, **kw)
+        torch.cuda.synchronize()
+        if out.shape != ref.shape or not torch.isfinite(out).all():
+            raise AssertionError(f"flash {label}: bad output")
+        err, ratio = bf16_close(out, ref, f32_out=False)
+        del ref
+        if ratio > 1.0:
+            raise AssertionError(f"flash {label}: kernel disagrees with its "
+                                 f"plain version beyond tolerance "
+                                 f"(err/tol={ratio:.3f})")
+        worst = max(worst, err)
+        ms = time_ms(lambda: FA.flash_attention_bhsd(q, k, v, **kw), 20,
+                     flush)
+        plain = time_ms(lambda: FA.flash_attention_ref(q, k, v, **kw), 2,
+                        flush)
+        lib = time_ms(lambda: F.scaled_dot_product_attention(
+            q[None], k[None], v[None], is_causal=causal), 20, flush)
+        pairs = sq * (sq + 1) // 2 if causal else sq * skv
+        bytes_ms = (2 * sq + 2 * skv) * bh * hd * 2 / HBM_BYTES_PER_S * 1e3
+        ops_ms = 4 * bh * pairs * hd / BF16_OPS_PER_S * 1e3
+        rows[label] = {"BH": bh, "Sq": sq, "Skv": skv, "hd": hd,
+                       "causal": causal, "ms": ms, "plain_ms": plain,
+                       "bound_ms": max(bytes_ms, ops_ms),
+                       "bound_by": ("bytes" if bytes_ms >= ops_ms
+                                    else "operations"),
+                       "library_ms": lib, "max_abs_err": err}
+        print(f"  flash_attention_bhsd {label:14s} Sq={sq:4d} Skv={skv:4d} "
+              f"hd={hd} {'causal' if causal else 'not causal'} "
+              f"max_abs_err={err:.3e} err/tol={ratio:.3f} ms={ms:.4f} "
+              f"plain_ms={plain:.4f} library_ms={lib:.4f} (SDPA) bound_ms="
+              f"{max(bytes_ms, ops_ms):.5f} "
+              f"({rows[label]['bound_by']}; ms / bound "
+              f"{ms / max(bytes_ms, ops_ms):.1f})")
+        del q, k, v, out
+    FA.flash_attention_bhsd.launches = 0
+    FA.flash_attention_ref.calls = 0
+    return worst, rows
+
+
+def enc_qmatmul_rows(flush):
+    """qmatmul_w8a16 at whisper-medium's shapes (K 1,024 with N 1,024 and
+    4,096, K 4,096 with N 1,024), at every M its paths run: a prime's
+    1,500 rows (the encoder and the cross k/v) through both kernels, the
+    mma path's rows equal alone and in slices of 17; the serve CLI
+    curve's b = 16 forward on the mma path at its encoder's 16 x 1,500 =
+    24,000 rows and its decoder's 16 x 32 = 512; a tick's M = 8 through
+    both kernels; each against the plain version and timed on the path
+    that runs it.  Then the tied LM head, whose 51,865 columns the head
+    pads to 51,868: both kernels at M = 8 (a tick) and the mma path at M
+    = 512 (the curve's decoder), the first 51,865 columns of each against
+    the plain version of the unpadded head and the padding columns
+    exactly 0.  Returns (worst error, {shape: numbers})."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.quant import quantize_embedding
+    from repro_torch.core.quant import quantize_weight
+    from repro_torch.kernels import qmatmul as K
+    from repro_torch.models import layers as L
+
+    c = get_config(ENC_ARCH)
+    d, ff, se = c.d_model, c.d_ff, c.enc_seq
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 19)
+    rows, worst = {}, 0.0
+
+    def numbers(x, w, ws, act, odt, path, plain_iters):
+        t = w8a16_numbers(x, w, ws, None, act, odt, (path,), plain_iters,
+                          flush)
+        return {"K": x.shape[1], "N": w.shape[1], "M": x.shape[0],
+                "path": path, "activation": act, "ms": t["ms"][path],
+                "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+                "bound_by": t["bound_by"], "library_ms": t["library_ms"]}
+
+    # (M, the paths held to the plain version, the path timed)
+    ms_rows = ((se, K.W8A16_PATHS, "mma"),
+               (SERVE_MAX_BATCH * se, ("mma",), "mma"),
+               (SERVE_ROWS, ("mma",), "mma"),
+               (NUM_SLOTS, K.W8A16_PATHS, "gemv"))
+    for name, k, n, act in (("wq|wk|wv|wo", d, d, "none"),
+                            ("w_up", d, ff, "gelu"),
+                            ("w_down", ff, d, "none")):
+        q = quantize_weight(torch.randn((k, n), generator=gen,
+                                        device="cuda") * k ** -0.5)
+        w, ws = q.values, q.scale.reshape(-1).contiguous()
+        odt = torch.bfloat16
+        for m, paths, path in ms_rows:
+            x = torch.randn((m, k), generator=gen,
+                            device="cuda").to(torch.bfloat16)
+            ref = K.qmatmul_w8a16_ref(x, w, ws, activation=act,
+                                      out_dtype=odt)
+            err, ratio = w8a16_check(f"{name} M={m}", x, w, ws, None, act,
+                                     odt, ref, paths)
+            del ref
+            if m == se:
+                w8a16_rows_check(x, w, ws, None, act, odt)
+            worst = max(worst, err)
+            row = numbers(x, w, ws, act, odt, path, 3 if m == NUM_SLOTS
+                          else 1)
+            row["max_abs_err"] = err
+            rows[f"{name} M={m}"] = row
+            print(f"  qmatmul_w8a16 {name:11s} M={m:5d} K={k:4d} N={n:4d} "
+                  f"act={act:4s} max_abs_err={err:.3e} err/tol={ratio:.3f} "
+                  f"({', '.join(paths)}) {path}_ms={row['ms']:.4f} plain_ms="
+                  f"{row['plain_ms']:.4f} library_ms={row['library_ms']:.4f}"
+                  f" bound_ms={row['bound_ms']:.4f} ({row['bound_by']})")
+            del x
+        del q, w, ws
+    # the tied LM head: a (V, D) int8 table, its padded (D, Vp) head
+    v = c.vocab
+    table = quantize_embedding(torch.randn((v, d), generator=gen,
+                                           device="cuda") * d ** -0.5)
+    head = L.lm_head(table)
+    w, ws = head.values, head.scale
+    if w.shape != (d, v + (-v) % 4) or w[:, v:].any() or ws[v:].any():
+        raise AssertionError(f"lm_head: padded head {tuple(w.shape)} with "
+                             f"non-zero padding")
+    w_plain = table.values.t().contiguous()
+    s_plain = table.scale.reshape(-1).contiguous()
+    for m, paths in ((NUM_SLOTS, K.W8A16_PATHS), (SERVE_ROWS, ("mma",))):
+        x = torch.randn((m, d), generator=gen,
+                        device="cuda").to(torch.bfloat16)
+        ref = K.qmatmul_w8a16_ref(x, w_plain, s_plain,
+                                  out_dtype=torch.float32)
+        for path in paths:
+            out = K.qmatmul_w8a16_on_path(path, x, w, ws,
+                                          out_dtype=torch.float32)
+            torch.cuda.synchronize()
+            if out[:, v:].any() or not torch.isfinite(out).all():
+                raise AssertionError(f"lm_head M={m} ({path}): padding "
+                                     f"columns not 0, or not finite")
+            err, ratio = bf16_close(out[:, :v], ref, f32_out=True)
+            if ratio > 1.0:
+                raise AssertionError(f"lm_head M={m} ({path}): kernel "
+                                     f"disagrees with the unpadded head's "
+                                     f"plain version (err/tol={ratio:.3f})")
+            worst = max(worst, err)
+        path = "gemv" if m == NUM_SLOTS else "mma"
+        row = numbers(x, w, ws, "none", torch.float32, path, 1)
+        row.update(max_abs_err=err, vocab=v)
+        rows[f"lm_head M={m}"] = row
+        print(f"  qmatmul_w8a16 lm_head     M={m:4d} K={d:4d} N={v} (padded "
+              f"to {w.shape[1]}) max_abs_err={err:.3e} err/tol={ratio:.3f} "
+              f"({', '.join(paths)}) {path}_ms={row['ms']:.4f} plain_ms="
+              f"{row['plain_ms']:.4f} library_ms={row['library_ms']:.4f} "
+              f"bound_ms={row['bound_ms']:.4f} ({row['bound_by']})")
+        del ref
+    zero_counts()
+    return worst, rows
+
+
+def enc_prime_time(cfg, params, label):
+    """The captured prime (``runtime/steps.py::jit_prime_step``) into a
+    NUM_SLOTS-row cache: its launches a replay (prime_launches), then
+    wall, device busy and the device time of its flash attention, its
+    W8A16 projections and the rest, over TIMED_PRIMES replays into
+    rotating slots."""
+    import torch
+    from repro_torch.core.qlinear import W8A16
+    from repro_torch.models import registry as R
+    from repro_torch.runtime import steps as ST
+
+    graphed = ST.jit_prime_step(ST.make_prime_step(cfg, mode=W8A16))
+    g = torch.Generator(device="cuda").manual_seed(SEED + 21)
+    with torch.inference_mode():
+        cache = R.init_cache(cfg, NUM_SLOTS, DENSE_MAX_SEQ, device="cuda")
+        src = torch.randn((1, cfg.enc_seq, cfg.d_model), generator=g,
+                          device="cuda").to(torch.bfloat16)
+        t0 = time.perf_counter()
+        graphed(params, src, cache, 0, cfg.enc_seq)
+        torch.cuda.synchronize()
+        capture_s = time.perf_counter() - t0
+        zero_counts()
+        graphed(params, src, cache, 1, cfg.enc_seq - 2)
+        torch.cuda.synchronize()
+    launches, plain = read_counts()
+    want = prime_launches(cfg)
+    if any(launches[k] != n for k, n in want.items()) or \
+            launches["qmatmul_w8a16[gemv]"] or any(plain.values()):
+        raise AssertionError(f"{label}: a replay launched {launches} "
+                             f"({want} expected), plain {plain}")
+    if cache["xlen"][:2].tolist() != [cfg.enc_seq, cfg.enc_seq - 2]:
+        raise AssertionError(f"{label}: xlen {cache['xlen'].tolist()}")
+    turn = iter(range(10 ** 6))
+    res = device_breakdown(
+        label, f"captured prime (1 x {cfg.enc_seq} frames: {cfg.n_enc_layers}"
+        f" encoder layers and {cfg.n_layers} layers' cross k/v)",
+        lambda: graphed(params, src, cache, next(turn) % NUM_SLOTS,
+                        cfg.enc_seq), TIMED_PRIMES)
+    split = {"flash attention": 0.0, "qmatmul_w8a16 mma": 0.0,
+             "the rest": 0.0}
+    for key, ms in res["by_kernel"].items():
+        part = ("flash attention" if "flash" in key else
+                "qmatmul_w8a16 mma" if "qmatmul" in key else "the rest")
+        split[part] += ms
+    print(f"{label}: {launches['qmatmul_w8a16[mma]']} mma launches and "
+          f"{launches['flash_attention_bhsd']} flash launches a replay; "
+          f"capture {capture_s:.2f} s; device time by part: "
+          + ", ".join(f"{k} {v:.3f} ms" for k, v in split.items()))
+    graphed.captured.release()
+    return {"wall": res["wall"], "busy": res["busy"], "split": split}
+
+
+def enc_tick_time(cfg, params, label):
+    """The captured steady tick of the encdec serves: NUM_SLOTS rows at
+    DENSE_MAX_SEQ / 2, each primed (xlen 1,500, 1,499 and 1,498 in turn):
+    its launches a replay (8 GEMVs a decoder layer and the head), wall,
+    device busy and the device time of its GEMVs against the rest, and
+    the cross-attention alone (``layers.cross_cache_attention``, plain
+    PyTorch, at the tick's shapes, times the decoder's layers) beside the
+    tick's busy time, against the floor of what it must read at 3.35
+    TB/s: the decoder's int8 weights but the cross wk / wv, the tied
+    head, each row's cross k/v up to its xlen and its self k/v."""
+    import torch
+    from repro_torch.core.qlinear import W8A16
+    from repro_torch.core.quant import tree_weight_bytes
+    from repro_torch.models import layers as L
+    from repro_torch.models import registry as R
+    from repro_torch.runtime import steps as ST
+
+    S, max_seq = NUM_SLOTS, DENSE_MAX_SEQ
+    graphed = ST.jit_slot_decode_step(ST.make_slot_decode_step(
+        cfg, mode=W8A16))
+    prime = ST.make_prime_step(cfg, mode=W8A16)
+    g = torch.Generator(device="cuda").manual_seed(SEED + 23)
+    with torch.inference_mode():
+        cache = R.init_cache(cfg, S, max_seq, device="cuda")
+        for sid in range(S):
+            prime(params, torch.randn((1, cfg.enc_seq, cfg.d_model),
+                                      generator=g, device="cuda").to(
+                torch.bfloat16), cache, sid, cfg.enc_seq - sid % 3)
+        toks = torch.randint(1, cfg.vocab, (S, 1), generator=g,
+                             device="cuda", dtype=torch.int32)
+        idx = torch.full((S,), max_seq // 2, dtype=torch.int32,
+                         device="cuda")
+        active = torch.ones((S,), dtype=torch.bool, device="cuda")
+        eager = ST.make_slot_decode_step(cfg, mode=W8A16)(
+            params, toks, {k: v.clone() for k, v in cache.items()}, idx,
+            active)[0].cpu()
+        t0 = time.perf_counter()
+        got = graphed(params, toks, cache, idx, active)[0].cpu()
+        capture_s = time.perf_counter() - t0
+        if not torch.equal(got, eager):
+            raise AssertionError(f"{label}: the captured tick's tokens "
+                                 f"differ from the eager tick's")
+        zero_counts()
+        graphed(params, toks, cache, idx, active)[0].cpu()
+    launches, plain = read_counts()
+    gemv = 8 * cfg.n_layers + 1
+    if (launches["qmatmul_w8a16[gemv]"] != gemv
+            or launches["qmatmul_w8a16[mma]"] or any(plain.values())
+            or launches["flash_attention_bhsd"]):
+        raise AssertionError(f"{label}: a replay launched {launches} "
+                             f"({gemv} GEMVs expected), plain {plain}")
+    res = device_breakdown(
+        label, f"captured steady-state slot tick ({S} active rows at "
+        f"position {max_seq // 2} of {max_seq}, bf16 cache, cross k/v of "
+        f"{cfg.enc_seq} frames a row)",
+        lambda: graphed(params, toks, cache, idx, active)[0].cpu(), 10)
+    gemv_ms = sum(ms for key, ms in res["by_kernel"].items()
+                  if "qmatmul" in key)
+    q = torch.randn((S, 1, cfg.n_heads, cfg.head_dim), generator=g,
+                    device="cuda").to(torch.bfloat16)
+    cross_ms = cfg.n_layers * time_ms(lambda: L.cross_cache_attention(
+        q, cache["xk"][0], cache["xv"][0], cache["xlen"]), 10,
+        lambda: None)
+    # what a tick must read: the decoder's weights less the cross wk / wv
+    # (a prime projected the source already), the tied head, each row's
+    # cross k/v up to its xlen and its self k/v up to its position
+    weights = tree_weight_bytes(params["embed"]) + sum(
+        tree_weight_bytes(lp) - tree_weight_bytes(lp["cross_attn"]["wk"])
+        - tree_weight_bytes(lp["cross_attn"]["wv"])
+        for lp in params["dec_layers"])
+    kv_row = cfg.n_layers * cfg.n_kv_heads * cfg.head_dim * 2 * 2
+    cross_bytes = int(cache["xlen"].sum()) * kv_row
+    self_bytes = int((idx + 1).sum()) * kv_row
+    read = weights + cross_bytes + self_bytes
+    floor = read / HBM_BYTES_PER_S * 1e3
+    busy = res["busy"]
+    share = ("not measured" if busy is None
+             else f"{100 * cross_ms / busy:.1f}% of the busy time")
+    print(f"{label}: {launches['qmatmul_w8a16[gemv]']} GEMVs a replay; "
+          f"capture {capture_s:.2f} s; wall {res['wall']:.2f} ms, device "
+          f"busy {'not measured' if busy is None else f'{busy:.3f} ms'}, "
+          f"cudaGraphLaunch {res['graph_launches']:.0f} a tick; the GEMVs "
+          f"{gemv_ms:.3f} ms of device time; the cross-attention alone "
+          f"(plain PyTorch, {cfg.n_layers} layers x {S} rows x "
+          f"{cfg.enc_seq} frames) {cross_ms:.3f} ms, {share}; floor "
+          f"{floor:.3f} ms (the {read} bytes a tick reads at 3.35 TB/s: "
+          f"{weights} of int8 weights and head, {cross_bytes} of cross k/v "
+          f"to each row's xlen, {self_bytes} of self k/v): wall / floor "
+          f"{res['wall'] / floor:.2f}, busy / floor "
+          f"{'not measured' if busy is None else f'{busy / floor:.2f}'}")
+    graphed.captured.release()
+    return {"wall": res["wall"], "busy": busy, "gemv_ms": gemv_ms,
+            "cross_ms": cross_ms, "floor": floor, "read_bytes": read,
+            "weight_bytes": weights, "cross_kv_bytes": cross_bytes}
+
+
+def enc_cli_phase():
+    """The serve CLI at full whisper-medium width (ENC_SERVE_ARGS): exit 0,
+    the service curve's forward (1,500 zero frames a row beside the
+    tokens) on the mma path and flash attention, the decode loop on a
+    zero cross k/v, the engine priming every request, and ENC_CLI_COMPARE
+    requests equal to ``reference_outputs``."""
+    from repro_torch.launch import serve
+
+    real_curve = serve.measure_service_curve
+    curve_paths = {}
+    serve.measure_service_curve = counted_curve(real_curve, curve_paths)
+    label = f"serve {ENC_ARCH}"
+    try:
+        launches, res = serve_run("w8a16", curve_paths, base=ENC_SERVE_ARGS,
+                                  label=label)
+    finally:
+        serve.measure_service_curve = real_curve
+    rep = res.report
+    if any(r.source is None for r in res.requests):
+        raise AssertionError(f"{label}: a request carries no source")
+    rids = {r.rid for r in res.requests[:ENC_CLI_COMPARE]}
+    compare_with_reference(label, res.cfg, res.params, res.engine,
+                           [r for r in res.requests if r.rid in rids],
+                           rep.outputs())
+    del res
+    torch_cuda_empty()
+    return launches
+
+
+def serve_busy(eng, reqs) -> float:
+    """Device busy ms of one more wall-clock serve of ``reqs`` on a warm
+    engine, from torch.profiler (None where it reports no device time)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        eng.serve(reqs, clock="wall")
+        torch.cuda.synchronize()
+    us = sum(e.self_device_time_total for e in prof.key_averages()
+             if str(e.device_type).endswith("CUDA"))
+    return us / 1e3 if us > 0 else None
+
+
+def enc_serve_line(label, rep, busy) -> dict:
+    """A serve's ticks, wall, tok/s and device busy share, printed."""
+    wall = rep.wall_s * 1e3
+    out = {"ticks": rep.ticks, "wall_ms": wall,
+           "tok_s": rep.generated_tokens / rep.wall_s, "busy_ms": busy,
+           "peak_blocks_used": rep.peak_blocks_used}
+    print(f"{label}: {rep.ticks} ticks, wall {wall:.1f} ms, "
+          f"{out['tok_s']:.1f} tok/s, {wall / rep.ticks:.2f} ms a tick; a "
+          f"profiled serve's device busy "
+          + ("not measured (profiled in --only encdec)" if busy is None
+             else f"{busy:.1f} ms ({busy / rep.ticks:.2f} ms a tick)")
+          + f"; peak blocks {rep.peak_blocks_used}")
+    return out
+
+
+def encdec_phase(flush, profile_serves=False):
+    """whisper-medium at full width (24 encoder and 24 decoder layers, d
+    1,024, 16 heads of 64, vocab 51,865 tied): the kernel rows at its
+    shapes, then the model from the streamed init, served contiguous
+    (every request primed at admission; launches counted, no capture
+    inside) and held to ``reference_outputs``, served paged (blocks of
+    DENSE_BLOCK, fewer than the contiguous equivalent) with every token
+    equal to the contiguous serve's and no block leaked, the captured
+    prime and the captured tick timed, then the serve CLI.  Returns the
+    kernel rows, the launches of each run and the times."""
+    import numpy as np
+    import torch
+    from repro_torch import engine as E
+    from repro_torch.models import registry as R
+    from repro_torch.runtime import steps as ST
+
+    t0 = time.perf_counter()
+    print(f"encdec: the kernels at {ENC_ARCH}'s shapes")
+    f_err, f_rows = enc_flash_rows(flush)
+    q_err, q_rows = enc_qmatmul_rows(flush)
+    print(f"encdec: kernel rows {time.perf_counter() - t0:.1f}s")
+    torch_cuda_empty()
+    cfg, params = build_dense_model(ENC_ARCH)
+    reqs = E.synthetic_requests(
+        DENSE_REQUESTS, rate_per_s=DENSE_RATE_PER_S, vocab=cfg.vocab,
+        prompt_len=DENSE_PROMPT, max_new_tokens=DENSE_NEW,
+        shared_prefix_len=DENSE_SHARED, seed=SEED,
+        source_shape=R.source_shape(cfg))
+    out = {"flash_rows": f_rows, "flash_err": f_err, "qmatmul_rows": q_rows,
+           "qmatmul_err": q_err}
+    label = f"encdec {ENC_ARCH}"
+    eng, rep, out["launches"] = dense_serve(f"{label} contiguous", cfg,
+                                            params, reqs)
+    print(f"{label} contiguous: the cross k/v of {eng.num_slots} slots "
+          f"{eng._cache['xk'].numel() * 4} bytes "
+          f"({eng._cache['xk'].numel() * 4 / eng.num_slots / 1e6:.1f} MB a "
+          f"slot); torch.cuda.max_memory_allocated "
+          f"{torch.cuda.max_memory_allocated()} bytes")
+    compare_with_reference(f"{label} contiguous", cfg, params, eng, reqs,
+                           rep.outputs())
+    contig = rep.outputs()
+    # where the paged serve's time goes: each serve's ticks (and, where
+    # ``profile_serves``, its device busy over one more serve), the paged
+    # one on the dense serves' pool and on a pool as large as the
+    # contiguous cache
+    def busy(eng):
+        return serve_busy(eng, reqs) if profile_serves else None
+
+    out["serves"] = {"contiguous": enc_serve_line(
+        f"{label} contiguous", rep, busy(eng))}
+    del eng
+    full_pool = 1 + NUM_SLOTS * (DENSE_MAX_SEQ // DENSE_BLOCK)
+    for key, nb in (("paged", DENSE_NUM_BLOCKS),
+                    ("paged, full pool", full_pool)):
+        eng, rep, launches = dense_serve(
+            f"{label} {key}", cfg, params, reqs, block_size=DENSE_BLOCK,
+            num_blocks=nb)
+        if key == "paged":
+            out["paged_launches"] = launches
+        print(f"{label} {key}: block_size {rep.block_size}, num_blocks "
+              f"{rep.num_blocks}, peak_blocks_used {rep.peak_blocks_used}, "
+              f"leaked_blocks {rep.leaked_blocks}, shared_block_hits "
+              f"{rep.shared_block_hits} (each request's own frames seed "
+              f"its prefix keys)")
+        if rep.outputs() != contig or rep.leaked_blocks:
+            raise AssertionError(f"{label} {key}: tokens differ from the "
+                                 f"contiguous serve's, or "
+                                 f"{rep.leaked_blocks} blocks leaked")
+        print(f"{label} {key}: every token of {len(contig)} requests equal "
+              f"to the contiguous serve's")
+        out["serves"][key] = enc_serve_line(f"{label} {key}", rep,
+                                            busy(eng))
+        del eng
+    src = reqs[0].source
+    t1 = time.perf_counter()
+    for _ in range(5):
+        hash((src.shape, np.asarray(src, np.float32).tobytes()))
+    out["seed_ms"] = (time.perf_counter() - t1) * 1e3 / 5
+    print(f"{label}: a source's prefix-key seed ({src.shape[0]} frames: "
+          f"its bytes copied and hashed) {out['seed_ms']:.2f} ms on the "
+          f"host, made once a source")
+    ST.clear_step_cache()
+    torch_cuda_empty()
+    print(f"encdec: serves {time.perf_counter() - t0:.1f}s")
+    out["prime"] = enc_prime_time(cfg, params, f"{label} prime")
+    out["tick"] = enc_tick_time(cfg, params, f"{label} tick")
+    print(f"encdec: prime and tick {time.perf_counter() - t0:.1f}s")
+    ST.clear_step_cache()
+    del params
+    torch_cuda_empty()
+    out["cli"] = enc_cli_phase()
+    ST.clear_step_cache()
+    torch_cuda_empty()
+    out["seconds"] = time.perf_counter() - t0
+    print(f"encdec: phase {out['seconds']:.1f}s; "
+          f"{torch.cuda.memory_allocated()} bytes left allocated")
+    return out
+
+
 PHASES = ("attention", "long_tick", "w8a8", "graphs", "dense", "sampling",
-          "spec", "moe")
+          "spec", "moe", "encdec")
 
 
 def parse_args(argv):
@@ -4273,10 +4870,11 @@ def parse_args(argv):
                          "loop, mistral-nemo-12b and the CLI sampled), "
                          "speculation (starcoder2-3b's speculative serves "
                          "and steps, the CLI with --spec-k, "
-                         "qwen2-moe-a2.7b's speculative serve), or "
+                         "qwen2-moe-a2.7b's speculative serve), "
                          "the MoE family (qwen2-moe-a2.7b's kernel rows, "
-                         "serves, chunk pass, tick and CLI); prints no "
-                         "result line")
+                         "serves, chunk pass, tick and CLI), or the encdec "
+                         "family (whisper-medium's kernel rows, serves, "
+                         "prime, tick and CLI); prints no result line")
     return ap.parse_args(argv)
 
 
@@ -4376,46 +4974,61 @@ def main(argv=None) -> int:
                 serve.measure_service_curve = real_curve
         if "spec" in args.only and "moe" not in args.only:
             spec_moe_only()             # the MoE phase runs it otherwise
-        if "moe" in args.only:          # last, as in the whole run
+        if {"moe", "encdec"} & set(args.only):   # last, as in the whole run
             from repro_torch.runtime import steps as ST
             ST.clear_step_cache()       # starcoder's graphs and weights go
             params = None               # first, as in the whole run
             torch_cuda_empty()
+        if "moe" in args.only:
             moe_phase(flush)
+        if "encdec" in args.only:
+            ST.clear_step_cache()
+            torch_cuda_empty()
+            encdec_phase(flush, profile_serves=True)
         del flush_buf
         print(f"chip_smoke: partial run passed in "
               f"{time.perf_counter() - t_run:.1f}s; no result line")
         return 0
+    def timed(fn, *a):
+        t = time.perf_counter()
+        out = fn(*a)
+        print(f"chip_smoke: {fn.__name__} {time.perf_counter() - t:.1f}s "
+              f"(run {time.perf_counter() - t_run:.1f}s)")
+        return out
+
     print("kernels: each CUDA kernel against its plain version on the card")
-    q_err, q_paths = qmatmul_phase(flush)
-    a_err, a_tick, a_long = attention_phase(flush,
-                                            max_seq + (-max_seq) % 16)
-    p_err, p_tick, p_long = paged_attention_phase(flush)
-    w8_err, w8_fwd, w8_lib, w8_ticks = qmatmul_w8a8_phase(flush)
-    f_err, f_fwd = flash_phase(flush)
-    dense_rows = dense_kernel_rows(flush)
-    rmsnorm_phase()
+    q_err, q_paths = timed(qmatmul_phase, flush)
+    a_err, a_tick, a_long = timed(attention_phase, flush,
+                                  max_seq + (-max_seq) % 16)
+    p_err, p_tick, p_long = timed(paged_attention_phase, flush)
+    w8_err, w8_fwd, w8_lib, w8_ticks = timed(qmatmul_w8a8_phase, flush)
+    f_err, f_fwd = timed(flash_phase, flush)
+    dense_rows = timed(dense_kernel_rows, flush)
+    timed(rmsnorm_phase)
 
     # the tick watchdog flags chunked-prefill ticks as stragglers; they
     # are counted in the report (stuck_ticks) rather than printed
     warnings.filterwarnings("ignore", message=".*straggler.*")
-    cfg, params = build_model()
-    launches = slice_phase(cfg, params)
-    paged_launches = paged_slice_phase(cfg, params)
-    overload_phase(cfg, params)
-    long_tick_phase(cfg, params)
-    w8a8_tick_phase(cfg, params)
-    graph_phase(cfg, params)
-    sampling_phase(cfg, params)
-    spec = spec_phase(cfg, params)
+    cfg, params = timed(build_model)
+    launches = timed(slice_phase, cfg, params)
+    paged_launches = timed(paged_slice_phase, cfg, params)
+    timed(overload_phase, cfg, params)
+    timed(long_tick_phase, cfg, params)
+    timed(w8a8_tick_phase, cfg, params)
+    timed(graph_phase, cfg, params)
+    timed(sampling_phase, cfg, params)
+    spec = timed(spec_phase, cfg, params)
     from repro_torch.runtime import steps as ST
     ST.clear_step_cache()           # the engines' captured tick and cache
     del params
     torch_cuda_empty()
-    sampled_dense_phase()
-    serve_launches = serve_phase()
-    dense = dense_phase()
-    moe = moe_phase(flush)
+    timed(sampled_dense_phase)
+    serve_launches = timed(serve_phase)
+    dense = timed(dense_phase)
+    moe = timed(moe_phase, flush)
+    ST.clear_step_cache()
+    torch_cuda_empty()
+    enc = timed(encdec_phase, flush)
     del flush_buf
 
     tick_basis = (f"one {{}} of {NUM_SLOTS} rows at full width: the sum "
@@ -4570,6 +5183,54 @@ def main(argv=None) -> int:
         "launches": serve_launches["spec"]["flash_attention_bhsd"],
         "basis": f"the serve CLI's run with --spec-k {SPEC_K} "
                  f"--draft-layers {SPEC_DRAFT_LAYERS}"}
+    # the encdec family: both kernels at whisper-medium's shapes, and
+    # their launches in its serves (each request primed: the encoder's
+    # flash attention and mma projections) and its CLI run
+    enc_serve = enc["launches"]
+    kernels[0]["encdec"] = {
+        "rows": enc["qmatmul_rows"], "max_abs_err": enc["qmatmul_err"],
+        "launches": enc_serve["qmatmul_w8a16"],
+        "launches_by_path": {"gemv": enc_serve["qmatmul_w8a16[gemv]"],
+                             "mma": enc_serve["qmatmul_w8a16[mma]"]},
+        "paged_launches": enc["paged_launches"]["qmatmul_w8a16"],
+        "cli_launches": enc["cli"]["qmatmul_w8a16"],
+        "prime": enc["prime"], "tick": enc["tick"],
+        "serves": enc["serves"],
+        "basis": f"one launch at each {ENC_ARCH} shape (M = 1,500: a "
+                 f"prime's encoder and cross k/v on the mma path; M = "
+                 f"{SERVE_MAX_BATCH * 1500} and {SERVE_ROWS}: the CLI "
+                 f"curve's b = {SERVE_MAX_BATCH} encoder and decoder on the "
+                 f"mma path; M = {NUM_SLOTS}: a tick's GEMV; the LM head "
+                 f"padded from 51,865 to 51,868 columns); serves: ticks, "
+                 f"wall and tok/s, contiguous, paged and paged on a full "
+                 f"pool (a profiled serve's device busy in --only encdec "
+                 f"only); launches: "
+                 f"the contiguous "
+                 f"serve of {DENSE_REQUESTS} primed requests (by path: the "
+                 f"ticks' and chunks' GEMV, the primes' mma), the paged "
+                 f"serve and the serve CLI's run; prime and tick: the "
+                 f"captured steps' wall, busy and split, in ms"}
+    kernels[4]["encdec"] = {
+        "rows": enc["flash_rows"], "max_abs_err": enc["flash_err"],
+        "launches": enc_serve["flash_attention_bhsd"],
+        "paged_launches": enc["paged_launches"]["flash_attention_bhsd"],
+        "cli_launches": enc["cli"]["flash_attention_bhsd"],
+        "basis": f"one launch at each {ENC_ARCH} shape, hd 64, at a "
+                 f"prime's BH = 16 and the CLI curve's BH = 256: the "
+                 f"encoder over 1,500 frames and the curve's "
+                 f"cross-attention (Sq {SERVE_SEQ} against Skv 1,500), not "
+                 f"causal, and its decoder's self-attention over "
+                 f"{SERVE_SEQ} tokens, causal; library SDPA; "
+                 f"launches: the contiguous serve's primes, the paged "
+                 f"serve's and the serve CLI's run"}
+    if min(kernels[0]["encdec"]["launches_by_path"].values()) <= 0 or min(
+            kernels[4]["encdec"][key]
+            for key in ("launches", "paged_launches", "cli_launches")) <= 0:
+        return fail("a kernel of the encdec path never launched")
+    if any(not math.isfinite(t[key]) for t in (
+            *enc["qmatmul_rows"].values(), *enc["flash_rows"].values())
+           for key in ("ms", "plain_ms", "bound_ms", "library_ms")):
+        return fail("an encdec kernel row is not finite")
     if min(kernels[i]["spec"]["launches"] for i in (0, 1, 2, 4)) <= 0 or \
             kernels[0]["spec"]["experts_launches"] <= 0:
         return fail("a kernel of a speculative path never launched")

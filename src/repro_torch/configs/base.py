@@ -5,7 +5,7 @@ exact published dimensions and registers it.  ``reduced()`` derives the
 small same-family variant used by CPU smoke tests.  ``model_flops``
 feeds roofline arithmetic.  ``input_specs`` gives the (shape, dtype) of
 every model input of a cell, as the JAX package's ``ShapeDtypeStruct``
-stand-ins do, for the token-only families.
+stand-ins do, for the token-only families and encdec.
 """
 from __future__ import annotations
 
@@ -164,21 +164,27 @@ class ArchConfig:
 
     def input_specs(self, shape: ShapeSpec
                     ) -> Dict[str, Tuple[Tuple[int, ...], torch.dtype]]:
-        """``{name: (shape, dtype)}`` of every model input of this cell.
-        The encoder-conditioned families' stub embeds come with those
-        families (ROADMAP queue 1, item 13)."""
-        if self.family in ("encdec", "vlm"):
+        """``{name: (shape, dtype)}`` of every model input of this cell:
+        the tokens, and the encdec family's stub frame embeddings.  The
+        vlm family's patch embeddings come with that family (ROADMAP
+        queue 1, item 13)."""
+        if self.family == "vlm":
             raise NotImplementedError(
                 f"input specs of family {self.family!r} are not ported yet "
                 f"(ROADMAP queue 1, item 13)")
         b, s = shape.global_batch, shape.seq_len
         i32 = torch.int32
         if shape.kind == "train":
-            return {"tokens": ((b, s), i32), "labels": ((b, s), i32)}
-        if shape.kind == "prefill":
-            return {"tokens": ((b, s), i32)}
-        # decode: one new token against an S-long cache
-        return {"tokens": ((b, 1), i32), "cache_index": ((), i32)}
+            specs = {"tokens": ((b, s), i32), "labels": ((b, s), i32)}
+        elif shape.kind == "prefill":
+            specs = {"tokens": ((b, s), i32)}
+        else:   # decode: one new token against an S-long cache
+            specs = {"tokens": ((b, 1), i32), "cache_index": ((), i32)}
+        if self.family == "encdec":
+            # stubbed conv-frontend output: precomputed frame embeddings
+            specs["encoder_embeds"] = ((b, self.enc_seq, self.d_model),
+                                       torch.bfloat16)
+        return specs
 
     def supports(self, shape: ShapeSpec) -> Tuple[bool, str]:
         """(runnable, reason-if-not) for an (arch x shape) cell."""

@@ -4,8 +4,10 @@ The port of ``repro/engine/dispatch.py`` for ONE model lane, greedy or
 sampled (the tick passes the engine's key to a sampled step), on
 contiguous slots or on the paged KV cache, with the reference's overload
 paths (SLO-class quotas, preemption with exact resume, fault injection
-and recovery) and its speculative decoding (a draft proposes, one verify
-step scores, the host commits the accepted run and rewinds the rest):
+and recovery), its speculative decoding (a draft proposes, one verify
+step scores, the host commits the accepted run and rewinds the rest) and
+its prime dispatch (encdec: a request's encoder runs once at admission,
+and again at every resume, writing the slot's cross k/v row):
 
 - ``Engine`` (engine.py) — policy + reporting: request validation,
   admission policy configuration, and ``EngineReport`` assembly.
@@ -19,12 +21,13 @@ physical KV blocks behind per-slot block tables: refcounted sharing of
 whole prompt-prefix blocks (a hit skips their prefill outright),
 block-cost admission against the pool's free blocks, and a host mirror
 of the tables pushed to the card when it changed.  Its prefix keys are
-the token chain alone: the reference's prime-source and model-tag seeds
-belong to families and lanes not ported yet.
+the token chain, seeded for a family that primes with the request's
+source bytes (the reference's model-tag seed belongs to lanes not ported
+yet).
 
 Not ported yet, and refused with an error naming their ROADMAP item where
-a caller asks for them: prime families (queue 1, item 13), multiplexing
-and the sharded executor (item 14).
+a caller asks for them: multiplexing and the sharded executor (queue 1,
+item 14).
 """
 from __future__ import annotations
 
@@ -42,6 +45,7 @@ from repro_torch.core.qlinear import QuantMode
 from repro_torch.engine.faults import FaultPlan
 from repro_torch.engine.scheduler import SlotScheduler
 from repro_torch.engine.slots import BlockPool, SlotPool
+from repro_torch.models import registry as R
 from repro_torch.runtime import steps as ST
 from repro_torch.runtime.watchdog import StepWatchdog
 
@@ -53,6 +57,12 @@ class EngineRequest:
     max_new_tokens: int
     arrival_s: float = 0.0
     deadline_s: float = float("inf")
+    # encdec: the request's source embeddings (src_len, d_model), encoder
+    # frames a prime dispatch turns into the slot's cross k/v row at
+    # admission.  src_len may be shorter than the static source length;
+    # the pad is masked behind the row's xlen.
+    source: Optional[np.ndarray] = dataclasses.field(
+        default=None, compare=False, repr=False)
     # SLO class (see core.batching.PRIORITY_CLASSES): admission orders
     # cohorts class-first, per-class slot quotas cap how many slots a
     # class may hold, and preemption only ever evicts a slot of strictly
@@ -117,9 +127,7 @@ class ExecutorBackend:
     """The narrow interface the dispatch core runs device work through:
     step providers, each returning a callable with the signature of the
     corresponding ``runtime.steps.make_*_step``.  Backends provide STEPS,
-    not state: every device buffer is owned by the core that calls them.
-    The reference's prime provider arrives with its families (ROADMAP
-    queue 1, item 13)."""
+    not state: every device buffer is owned by the core that calls them."""
 
     kind: str = "abstract"
 
@@ -142,10 +150,14 @@ class ExecutorBackend:
                      k: int) -> Callable:
         raise NotImplementedError
 
+    def prime_step(self, cfg: ArchConfig, *, mode: QuantMode) -> Callable:
+        raise NotImplementedError
+
 
 class SingleDeviceExecutor(ExecutorBackend):
-    """The one-card step set: the slot tick, the chunk step and the
-    speculative verify and propose steps, captured as CUDA graphs and
+    """The one-card step set: the slot tick, the chunk step, the
+    speculative verify and propose steps and the prime step, captured as
+    CUDA graphs and
     memoized process-wide (``runtime/steps.py::cached_*``), as the
     reference's executor hands out its compiled steps."""
 
@@ -164,6 +176,9 @@ class SingleDeviceExecutor(ExecutorBackend):
 
     def propose_step(self, dcfg, *, mode, k):
         return ST.cached_draft_propose_step(dcfg, mode=mode, k=k)
+
+    def prime_step(self, cfg, *, mode):
+        return ST.cached_prime_step(cfg, mode=mode)
 
 
 class ShardedExecutor(ExecutorBackend):
@@ -235,6 +250,10 @@ class DispatchCore:
     def __init__(self, eng):
         self.eng = eng
         self.bpool: Optional[BlockPool] = None
+        # id(source) -> (source, its key seed), for the run: pricing asks
+        # for a pending request's keys every tick, and the seed's bytes
+        # (6 MB for 1,500 frames) are copied and hashed once a source
+        self._source_seeds: Dict[int, Tuple[np.ndarray, Tuple]] = {}
 
     # -- paged-mode admission helpers (host-side) ----------------------
 
@@ -242,14 +261,30 @@ class DispatchCore:
         """Exact prefix hash chain, one key per FULL prompt block:
         ``key_j = (key_{j-1}, block_j_tokens)`` — nested tuples compared
         by value, so equal keys mean equal token prefixes (no hash
-        collisions by construction)."""
+        collisions by construction).  A family that primes seeds the
+        chain with the request's source bytes: its self k/v at any
+        position depends on the cross-attended source, so two prefixes
+        share only when source and tokens match."""
         bs = self.eng.block_size
         key: Tuple = ()
+        if R.needs_prime(self.eng.cfg):
+            key = self._source_seed(req.source)
         keys = []
         for j in range(len(req.prompt) // bs):
             key = (key, tuple(req.prompt[j * bs:(j + 1) * bs]))
             keys.append(key)
         return tuple(keys)
+
+    def _source_seed(self, source) -> Tuple:
+        """The key chain's seed for a source: its shape and f32 bytes,
+        made once a source object (the same object across a request's
+        resumes, since they copy the request, not its source)."""
+        hit = self._source_seeds.get(id(source))
+        if hit is None:
+            src = np.asarray(source, np.float32)
+            hit = self._source_seeds[id(source)] = (
+                source, (src.shape, src.tobytes()))
+        return hit[1]
 
     def _usable_hits(self, req: EngineRequest,
                      keys: Optional[Tuple] = None) -> int:
@@ -286,6 +321,7 @@ class DispatchCore:
         S = eng.num_slots
         dev = eng.device
         by_rid = {r.rid: r for r in reqs}
+        self._source_seeds = {}
         pool = SlotPool(S, max_seq=eng.max_seq)
         paged = eng.block_size is not None
         cache = eng.zeroed_cache()
@@ -299,6 +335,8 @@ class DispatchCore:
         index = np.zeros((S,), np.int32)
         step = eng.backend.slot_step(eng.cfg, mode=eng.mode,
                                      temperature=eng.temperature)
+        prime = (eng.backend.prime_step(eng.cfg, mode=eng.mode)
+                 if R.needs_prime(eng.cfg) else None)
         chunk_steps = {}
 
         def chunk_step(c: int, cfg: ArchConfig = eng.cfg):
@@ -432,14 +470,21 @@ class DispatchCore:
             # K/V at the slot's frontier: zero the slot's private rows in
             # place, so that a later tenant's reads past its own frontier
             # (masked to a zero weight, and 0 * NaN is NaN) never meet
-            # them.  Shared prefix blocks were written by clean chunks.
-            if paged:
-                rows = [b for b in st.block_table if bpool.refcounts[b] == 1]
-            else:
-                rows = [st.sid]
+            # them, and the slot's row of every slot-resident leaf (the
+            # resume re-primes it).  Shared prefix blocks were written by
+            # clean chunks.
+            blocks = (R.paged_block_axes(eng.cfg, cache) if paged else {})
+            axes = R.cache_batch_axes(eng.cfg, cache)
             for name, t in cache.items():
-                if name != "block_tables":
-                    t[:, rows] = 0
+                if name == "block_tables":
+                    continue
+                if name in blocks:
+                    axis = blocks[name]
+                    rows = [b for b in st.block_table
+                            if bpool.refcounts[b] == 1]
+                else:
+                    axis, rows = axes[name], [st.sid]
+                t[(slice(None),) * axis + (rows,)] = 0
 
         def recover_nonfinite(st) -> None:
             # the finite guard's sentinel: this row's logits went NaN/Inf.
@@ -599,6 +644,12 @@ class DispatchCore:
                     shared_hits += hits
                     skipped_tokens += hits * eng.block_size
                     blocks_demanded += need
+                if prime is not None:
+                    # prime dispatch: write the slot's cross k/v row and
+                    # its xlen frontier once, between other slots' ticks
+                    # (a resume re-primes: rebuilt, never trusted)
+                    src, n_valid = padded_source(eng.cfg, req)
+                    cache = prime(eng.params, src, cache, st.sid, n_valid)
                 if s_res is not None:
                     resumed_tokens += len(st.prompt) - st.pos
                 index[st.sid] = st.pos
@@ -869,3 +920,42 @@ class DispatchCore:
             leaked_blocks=((eng.num_blocks - 1) - bpool.free_blocks
                            if paged else 0), now=now,
             wall=time.perf_counter() - t0)
+
+
+# ---------------------------------------------------------------------------
+# source-embedding validation / padding (families that prime)
+# ---------------------------------------------------------------------------
+
+def validate_source(cfg: ArchConfig, req: EngineRequest) -> np.ndarray:
+    """The request's source as f32 (src_len, d_model), after the
+    reference's host-side checks: present, two-dimensional of width
+    d_model, and 0 < src_len <= the static source length."""
+    smax = R.source_len(cfg)
+    if req.source is None:
+        raise ValueError(
+            f"request {req.rid}: {cfg.family!r} serves against per-request "
+            f"source embeddings; EngineRequest.source must be "
+            f"(src_len <= {smax}, {cfg.d_model})")
+    src = np.asarray(req.source, np.float32)
+    if src.ndim != 2 or src.shape[1] != cfg.d_model:
+        raise ValueError(
+            f"request {req.rid}: source must be (src_len, {cfg.d_model}), "
+            f"got {src.shape}")
+    n = src.shape[0]
+    if not 0 < n <= smax:
+        raise ValueError(
+            f"request {req.rid}: source length {n} outside (0, {smax}]")
+    return src
+
+
+def padded_source(cfg: ArchConfig, req: EngineRequest
+                  ) -> Tuple[torch.Tensor, int]:
+    """One request's source padded with zeros to the static prime shape:
+    (1, source_len(cfg), d_model) bf16 on the host, and the count of real
+    positions.  The engine's prime dispatch and the sequential reference
+    both prime with it, so their inputs are the same bytes."""
+    src = validate_source(cfg, req)
+    n = src.shape[0]
+    buf = np.zeros((1, R.source_len(cfg), cfg.d_model), np.float32)
+    buf[0, :n] = src
+    return torch.from_numpy(buf).to(torch.bfloat16), n

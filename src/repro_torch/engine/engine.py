@@ -37,6 +37,10 @@ one engine-wide temperature:
   verify step on the target; the committed tokens are bit for bit the
   non-speculative engine's, greedy or sampled, whatever the draft
   proposes (``engine/dispatch.py``).
+- A family that primes (encdec) takes each request's ``source`` frames:
+  at admission, and again at a resume, a prime dispatch runs its encoder
+  once and writes the slot's row of cross k/v and its ``xlen`` frontier
+  (``runtime/steps.py::jit_prime_step``, one graph for every slot).
 
 ``reference_outputs`` is the sequential per-token loop (batch 1, same
 decode math and sampler, contiguous cache) the engine must match bit
@@ -61,7 +65,8 @@ from repro_torch.core.quant import QTensor
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.engine.dispatch import (DispatchCore, EngineRequest,
                                          ExecutorBackend, RequestResult,
-                                         SingleDeviceExecutor)
+                                         SingleDeviceExecutor, padded_source,
+                                         validate_source)
 from repro_torch.engine.faults import FaultPlan
 from repro_torch.engine.slots import RequestTooLong
 from repro_torch.models import registry as R
@@ -332,7 +337,8 @@ class Engine:
     def warmup(self) -> None:
         """Run the slot step once (and, with chunked prefill, the chunk
         step once for every chunk length it can be given: ``n`` tokens in
-        a chunk of ``bucket_batch(n)``, for n up to ``prefill_chunk``) on
+        a chunk of ``bucket_batch(n)``, for n up to ``prefill_chunk``; a
+        family that primes, the prime step once on a zero source) on
         the engine's cache, so that a wall-clock ``serve`` charges its
         first tick to serving, not to building and loading the kernels,
         the libraries' first-call set-up or, on the card, the capture of
@@ -355,6 +361,11 @@ class Engine:
 
         with torch.inference_mode():
             cache = self.zeroed_cache()
+            if R.needs_prime(self.cfg):
+                prime = self.backend.prime_step(self.cfg, mode=self.mode)
+                prime(self.params, torch.zeros(
+                    (1, R.source_len(self.cfg), self.cfg.d_model),
+                    dtype=torch.bfloat16), cache, 0, 0)
             if self.spec_k:
                 k = self.spec_k
                 verify = self.backend.verify_step(
@@ -408,9 +419,13 @@ class Engine:
         ticks; the recovery (always on) retries failed dispatches,
         rebuilds a slot that samples the non-finite sentinel or loses a
         torn block-table row, and retires a slot still faulting after
-        ``max_retries`` recovery attempts as ``failed``."""
+        ``max_retries`` recovery attempts as ``failed``.
+
+        A family that primes needs every request's ``source``; each is
+        checked before anything is admitted."""
         if clock not in ("virtual", "wall"):
             raise ValueError(f"clock must be 'virtual' or 'wall': {clock!r}")
+        primed = R.needs_prime(self.cfg)
         for r in requests:
             if r.max_new_tokens <= 0:
                 raise ValueError(
@@ -428,6 +443,8 @@ class Engine:
                     raise RequestTooLong(
                         f"request {r.rid} needs {nb} KV blocks > "
                         f"{self.num_blocks - 1} usable in the pool")
+            if primed:
+                validate_source(self.cfg, r)
         reqs = sorted(requests, key=lambda r: r.arrival_s)
         S = self.num_slots
         with torch.inference_mode():
@@ -521,6 +538,11 @@ def reference_outputs(cfg: ArchConfig, params,
     (``steps.temperature_sample_rows`` at batch 1), the schedule the slot
     tick and the decode loop use.
 
+    A family that primes (encdec) primes each request's cache with its
+    padded source through the engine's prime computation, at a pool of
+    one slot, and decodes with a (1,) index (the per-row form the
+    engine's slot rows take).
+
     When ``margins`` is a dict, ``margins[rid]`` receives the gap between
     the two largest scores at each generated token (how near a tie the
     choice was): the logits, or when sampling the perturbed scores
@@ -529,11 +551,16 @@ def reference_outputs(cfg: ArchConfig, params,
         raise ValueError("temperature sampling needs an rng key")
     device = resolve_device(device)
     decode = ST.make_decode_step(cfg, mode=mode)
+    prime = (ST.make_prime_step(cfg, mode=mode) if R.needs_prime(cfg)
+             else None)
     key = P.as_key(rng, device) if temperature > 0.0 else None
     out: Dict[int, List[int]] = {}
     with torch.inference_mode():
         for r in sorted(requests, key=lambda x: x.rid):
             cache = R.init_cache(cfg, 1, max_seq, device=device)
+            if prime is not None:
+                src, n_valid = padded_source(cfg, r)
+                cache = prime(params, src, cache, 0, n_valid)
             tok = None
             gen: List[int] = []
             gaps: List[float] = []
@@ -541,11 +568,13 @@ def reference_outputs(cfg: ArchConfig, params,
             pos = 0
             while len(gen) < r.max_new_tokens:
                 cur = feed[pos] if pos < len(feed) else tok
+                idx = (torch.tensor([pos], dtype=torch.int32, device=device)
+                       if prime is not None else pos)
                 logits, cache = decode(
                     params,
                     {"tokens": torch.tensor([[cur]], dtype=torch.int32,
                                             device=device),
-                     "cache_index": pos}, cache)
+                     "cache_index": idx}, cache)
                 pos += 1
                 if pos >= len(feed):
                     if key is not None:
@@ -569,6 +598,7 @@ def synthetic_requests(n: int, *, rate_per_s: float, vocab: int,
                        deadline_s: float = float("inf"),
                        seed: int = 0,
                        shared_prefix_len: int = 0,
+                       source_shape: Optional[Tuple[int, int]] = None,
                        priority: Union[str, Callable[[int], str]]
                        = "interactive") -> List[EngineRequest]:
     """Deterministic pseudo-Poisson request trace with synthetic prompts
@@ -576,8 +606,12 @@ def synthetic_requests(n: int, *, rate_per_s: float, vocab: int,
     ``synthetic_requests`` with the same arguments.
 
     ``shared_prefix_len=k`` makes the first ``k`` prompt tokens identical
-    across all requests; ``priority`` tags every request with an SLO class
-    (a string) or a per-request one (a ``rid -> class`` callable)."""
+    across all requests; ``source_shape=(source_len, d_model)`` attaches
+    per-request source frames for a family that primes (rid-seeded
+    gaussians whose length cycles through full, -1, -2, so a pool holds
+    rows of different ``xlen`` at once); ``priority`` tags every request
+    with an SLO class (a string) or a per-request one (a ``rid -> class``
+    callable)."""
     if not 0 <= shared_prefix_len <= prompt_len:
         raise ValueError(
             f"shared_prefix_len must be in [0, prompt_len={prompt_len}], "
@@ -591,10 +625,16 @@ def synthetic_requests(n: int, *, rate_per_s: float, vocab: int,
             if j < shared_prefix_len
             else (1 + (a.rid * 7 + 3 * j) % (vocab - 1))
             for j in range(prompt_len))
+        source = None
+        if source_shape is not None:
+            smax, d = source_shape
+            src_len = max(1, smax - a.rid % 3)
+            g = np.random.default_rng((seed + 1) * 1_000_003 + a.rid)
+            source = g.standard_normal((src_len, d)).astype(np.float32)
         reqs.append(EngineRequest(
             rid=a.rid, prompt=prompt, max_new_tokens=max_new_tokens,
             arrival_s=a.arrival_s,
             deadline_s=(a.arrival_s + deadline_s
                         if deadline_s != float("inf") else float("inf")),
-            priority=cls_of(a.rid)))
+            source=source, priority=cls_of(a.rid)))
     return reqs

@@ -34,7 +34,11 @@ and ``w8a8`` draw the weights layer by layer, each quantized as it is
 drawn (``registry.init_quantized``: the int8 tree of
 ``quantize_tree(init(...))`` without the f32 one, so qwen1.5-32b fits
 the card); ``--quant w8a8`` runs every projection through the int8 x
-int8 kernel, the LM head staying weight-only int8.
+int8 kernel, the LM head staying weight-only int8.  ``--arch
+whisper-medium`` serves the encdec family: the curve's forward encodes
+zero frames of the config's ``input_specs`` beside its tokens, the decode
+loop attends a zero cross k/v over the whole source, and every engine
+request carries its own source frames, primed into its slot at admission.
 
   python -m repro_torch.launch.serve --arch starcoder2-3b --reduced \\
       --deadline-ms 50 --rate 200                  # on the card
@@ -46,6 +50,8 @@ int8 kernel, the LM head staying weight-only int8.
       --device cpu --temperature 0.8                 # sampled, CPU
   python -m repro_torch.launch.serve --arch starcoder2-3b --reduced \\
       --device cpu --spec-k 3 --draft-layers 1       # speculative, CPU
+  python -m repro_torch.launch.serve --arch whisper-medium --reduced \\
+      --device cpu --block-size 4                    # encdec, paged, CPU
 
 The reference's other serving options stay in the parser; given a value
 other than their default, each prints which ROADMAP item will port it and
@@ -399,7 +405,8 @@ def run(args: argparse.Namespace) -> ServeRun:
         args.n_requests, rate_per_s=args.rate, vocab=cfg.vocab,
         prompt_len=args.prompt_len, max_new_tokens=args.gen_tokens,
         deadline_s=deadline, seed=args.seed,
-        shared_prefix_len=args.shared_prefix_len, priority=priority)
+        shared_prefix_len=args.shared_prefix_len,
+        source_shape=R.source_shape(cfg), priority=priority)
     out.requests = reqs
     plan = (E.FaultPlan.random(args.fault_seed, n_faults=args.n_faults,
                                num_slots=num_slots)

@@ -3,8 +3,9 @@
 ``params_from_numpy(tree)`` takes the reference's param tree with every
 leaf converted to numpy — a nested dict whose ``QTensor`` leaves are given
 as ``(values, scale)`` tuples — and returns the port's tree: the same
-dicts, with the stacked ``layers`` subtree (leading L axis) split into a
-list of per-layer dicts and each ``(values, scale)`` pair made a port
+dicts, with each stacked layer subtree (leading L axis: ``layers``, or
+encdec's ``enc_layers`` and ``dec_layers``) split into a list of
+per-layer dicts and each ``(values, scale)`` pair made a port
 ``QTensor``.  No JAX is imported: the JAX -> numpy step belongs to the
 caller (the tests do it).
 """
@@ -47,9 +48,16 @@ def _depth(node) -> int:
     return (node.values if isinstance(node, QTensor) else node).shape[0]
 
 
+# the subtrees the reference stacks on a leading layer axis
+STACKED = ("layers", "enc_layers", "dec_layers")
+
+
 def params_from_numpy(tree: dict, device: DeviceLike = None) -> dict:
     device = resolve_device(device)
     params = _convert(tree, device)
-    stacked = params.pop("layers")
-    params["layers"] = [_layer(stacked, i) for i in range(_depth(stacked))]
+    for name in STACKED:
+        if name in params:
+            stacked = params[name]
+            params[name] = [_layer(stacked, i)
+                            for i in range(_depth(stacked))]
     return params

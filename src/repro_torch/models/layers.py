@@ -7,10 +7,12 @@ Conventions (as in ``repro/models/layers.py``):
 - every matmul routes through :func:`repro_torch.core.qlinear.linear`;
 - the KV cache keeps the reference's (B, S, KV, hd) layout — int8 with
   scales (B, S, KV, 1), or bf16 — or its paged (NB, bs, KV, hd)
-  physical blocks behind per-row block tables, and is written in place.
+  physical blocks behind per-row block tables, and is written in place;
+- cross-attention (the encdec family) reads a source: projected from it
+  in the full-sequence form, or pre-projected per slot (``xk``, ``xv``
+  behind a per-row ``xlen`` frontier) in the decode form.
 
-Not ported yet: sliding-window ring caches and cross-attention (ROADMAP
-queue 1, item 13).
+Not ported yet: sliding-window ring caches (ROADMAP queue 1, item 13).
 """
 from __future__ import annotations
 
@@ -96,6 +98,7 @@ class AttnConfig:
     rope_theta: float = 10000.0
     window: Optional[int] = None     # sliding-window size (None = full)
     causal: bool = True
+    use_rope: bool = True
 
 
 def _expand_kv(k: Tensor, n_heads: int) -> Tensor:
@@ -135,21 +138,32 @@ def cache_write(c: Tensor, new: Tensor, idx) -> None:
         c[idx] = new
 
 
-def tree_sum(x: Tensor) -> Tensor:
-    """Sum over the last dim in one fixed pairwise order: zero-padded to a
-    power of two, then halves added until one is left.  Each output is
-    the same chain of f32 adds whatever the other dims hold, on any
-    device; a matmul or a ``sum`` picks its reduction layout from the
-    whole shape on the card (cuBLAS, the reduction kernels), so a row's
-    bits could depend on the batch."""
-    n = x.shape[-1]
-    width = 1 << (n - 1).bit_length()
-    if width != n:
-        x = F.pad(x, (0, width - n))
-    while x.shape[-1] > 1:
-        half = x.shape[-1] // 2
-        x = x[..., :half] + x[..., half:]
-    return x[..., 0]
+def tree_sum(x: Tensor, dim: int = -1) -> Tensor:
+    """Sum over ``dim`` in one fixed pairwise order: as if zero-padded to
+    a power of two, then halves added until one is left.  Each output is
+    the same chain of f32 adds whatever the other dims hold or how the
+    tensor lies in memory, on any device; a matmul or a ``sum`` picks its
+    reduction layout from the whole shape on the card (cuBLAS, the
+    reduction kernels), so a row's bits could depend on the batch.  A
+    ragged first level adds the zero padding without making it: the
+    places past the tail are ``x + 0.0``, as the padded sum has them."""
+    dim = dim % x.ndim
+    n = x.shape[dim]
+    half = (1 << (n - 1).bit_length()) // 2
+    if n > 1 and 2 * half != n:
+        k = n - half
+        shape = list(x.shape)
+        shape[dim] = half
+        out = x.new_empty(shape)
+        torch.add(x.narrow(dim, 0, k), x.narrow(dim, half, k),
+                  out=out.narrow(dim, 0, k))
+        torch.add(x.narrow(dim, k, half - k), 0.0,
+                  out=out.narrow(dim, k, half - k))
+        x = out
+    while x.shape[dim] > 1:
+        h = x.shape[dim] // 2
+        x = x.narrow(dim, 0, h) + x.narrow(dim, h, h)
+    return x.squeeze(dim)
 
 
 def bf16_cache_attention(q: Tensor, ck: Tensor, cv: Tensor,
@@ -177,17 +191,56 @@ def bf16_cache_attention(q: Tensor, ck: Tensor, cv: Tensor,
     return tree_sum(pf * vf[:, :, None])                     # (B, KV, G, hd)
 
 
+def cross_cache_attention(q: Tensor, xk: Tensor, xv: Tensor,
+                          xlen: Tensor) -> Tensor:
+    """Attention of q (B, s, H, hd) over a pre-projected source xk, xv (B,
+    Se, KV, hd), each batch row masked at its own frontier ``xlen`` (B,):
+    the reference's masked chunked path (``_chunked_attention`` with
+    ``kv_valid_len``, which its decode step takes for every primed
+    source).  f32 scores and probabilities from q and the source as they
+    are; the products are summed by :func:`tree_sum`, so a row's bits do
+    not depend on the batch.  The source is multiplied as it lies (a
+    bf16 operand of an f32 product is widened exactly in the kernel, with
+    no f32 copy of the source).  Out (B, s, H, hd) f32.  Plain PyTorch:
+    the reference runs no kernel here."""
+    b, s, h, hd = q.shape
+    se, kvh = xk.shape[1], xk.shape[2]
+    g = h // kvh
+    # products laid out (B, s, Se, KV, G, hd): the source broadcasts
+    # over s and G as it lies, and the sum over Se adds contiguous halves
+    qf = q.float().reshape(b, s, 1, kvh, g, hd)
+    scores = tree_sum(qf * xk[:, None, :, :, None, :]) * hd ** -0.5
+    scores = scores.permute(0, 1, 3, 4, 2).contiguous()     # (B, s, KV, G, Se)
+    valid = (torch.arange(se, device=q.device)[None, :]
+             < xlen.reshape(-1, 1))                          # (B, Se)
+    scores = torch.where(valid[:, None, None, None, :], scores, NEG_INF)
+    probs = torch.softmax(scores, dim=-1).permute(0, 1, 4, 2, 3)
+    out = tree_sum(probs[..., None] * xv[:, None, :, :, None, :], dim=2)
+    return out.reshape(b, s, h, hd)
+
+
 def attention(p: dict, x: Tensor, cfg: AttnConfig, *,
-              mode: QuantMode = FP, rope: Tuple[Tensor, Tensor],
+              mode: QuantMode = FP,
+              rope: Optional[Tuple[Tensor, Tensor]] = None,
               kv_cache: Optional[Tuple[Tensor, ...]] = None,
               cache_index=None, valid_len: Optional[Tensor] = None,
-              block_tables: Optional[Tensor] = None) -> Tensor:
-    """GQA attention in two modes.
+              block_tables: Optional[Tensor] = None,
+              source: Optional[Tensor] = None,
+              cross: Optional[Tuple[Tensor, Tensor, Tensor]] = None
+              ) -> Tensor:
+    """GQA attention in three modes.
 
     - Full sequence (``kv_cache=None``; prefill, the service curve): x is
-      (B, S, D), RoPE at ``rope`` (the positions 0..S-1), KV expanded to H
-      heads and the fused flash-attention kernel with ``cfg.causal`` and
-      ``cfg.window``.
+      (B, S, D), RoPE at ``rope`` (the positions 0..S-1) where
+      ``cfg.use_rope``, KV expanded to H heads and the fused
+      flash-attention kernel with ``cfg.causal`` and ``cfg.window``.  With
+      ``source`` (B, Se, D) k and v are projected from the source and the
+      kernel attends over all of it, not causal and without RoPE
+      (cross-attention).
+    - Cross-attention against a primed source: ``cross = (xk, xv, xlen)``,
+      the source's pre-projected k and v (B, Se, KV, hd) and each row's
+      frontier (B,) (:func:`cross_cache_attention`); only q and the output
+      projection run.
     - Decode (x is (B, s, D)) against one layer's cache: ``kv_cache`` is
       the int8 ``(k, v, k_scale, v_scale)`` or the bf16 ``(k, v)``;
       ``rope`` is :func:`rope_cos_sin` of the token positions and
@@ -215,13 +268,20 @@ def attention(p: dict, x: Tensor, cfg: AttnConfig, *,
     b, s, _ = x.shape
     h, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     q = linear(p["wq"], x, mode=mode).reshape(b, s, h, hd)
-    k = linear(p["wk"], x, mode=mode).reshape(b, s, kvh, hd)
-    v = linear(p["wv"], x, mode=mode).reshape(b, s, kvh, hd)
-    q = rotate(q, *rope)
-    k = rotate(k, *rope)
+    if cross is not None:
+        out = cross_cache_attention(q, *cross).to(x.dtype)
+        return linear(p["wo"], out.reshape(b, s, h * hd), mode=mode)
+    src = x if source is None else source
+    k = linear(p["wk"], src, mode=mode).reshape(b, src.shape[1], kvh, hd)
+    v = linear(p["wv"], src, mode=mode).reshape(b, src.shape[1], kvh, hd)
+    if cfg.use_rope and source is None:
+        q = rotate(q, *rope)
+        k = rotate(k, *rope)
     if kv_cache is None:
+        self_attn = source is None
         out = kops.flash_attention(q, _expand_kv(k, h), _expand_kv(v, h),
-                                   causal=cfg.causal, window=cfg.window)
+                                   causal=cfg.causal and self_attn,
+                                   window=cfg.window if self_attn else None)
         return linear(p["wo"], out.reshape(b, s, h * hd), mode=mode)
     g = h // kvh
     rows = b * s
@@ -300,17 +360,25 @@ def embed(p: dict, tokens: Tensor, compute_dtype=torch.bfloat16) -> Tensor:
 _HEADS = WeakIdKeyDictionary()
 
 
+# the head's columns are padded to a multiple of this (the W8A16 kernels'
+# N % 4 == 0)
+HEAD_ALIGN = 4
+
+
 def lm_head(table: QTensor) -> QTensor:
-    """The (D, V) int8 head of a quantized (V, D) table, with the table's
+    """The (D, Vp) int8 head of a quantized (V, D) table, with the table's
     per-row scales as per-column scales: a transposed, contiguous copy of
-    the values, made at the table's first use and kept for as long as the
-    table lives (the weights are not written after they are made).  A
-    decode step then reads the head and copies nothing."""
+    the values, its columns padded with zeros (values and scales) up to Vp,
+    the next multiple of HEAD_ALIGN (whisper's 51,865), as the reference's
+    wrapper pads N to its tile.  Made at the table's first use and kept for
+    as long as the table lives (the weights are not written after they are
+    made).  A decode step then reads the head and copies nothing."""
     head = _HEADS.get(table.values)
     if head is None:
+        pad = -table.values.shape[0] % HEAD_ALIGN
         head = _HEADS[table.values] = QTensor(
-            values=table.values.t().contiguous(),
-            scale=table.scale.reshape(-1))
+            values=F.pad(table.values.t(), (0, pad)).contiguous(),
+            scale=F.pad(table.scale.reshape(-1), (0, pad)))
     return head
 
 
@@ -320,10 +388,14 @@ def unembed(p: dict, x: Tensor, compute_dtype=torch.bfloat16, *,
     per-row scales are per-output-column scales of the head, so the head
     runs through the same weight-only int8 matmul as every W8A16
     projection (f32 out, through the kernel ``path`` names), on the
-    table's (D, V) head (:func:`lm_head`)."""
+    table's (D, Vp) head (:func:`lm_head`).  A padded head's logits are
+    cut back to the table's V columns; every column is computed on its
+    own, so the padding changes no logit's bits."""
     table = p["table"]
     if isinstance(table, QTensor):
-        return kops.qmatmul(x.to(compute_dtype), lm_head(table),
-                            out_dtype=torch.float32, path=path)
+        out = kops.qmatmul(x.to(compute_dtype), lm_head(table),
+                           out_dtype=torch.float32, path=path)
+        v = table.values.shape[0]
+        return out if out.shape[-1] == v else out[..., :v]
     return torch.matmul(x.to(compute_dtype).float(),
                         table.to(compute_dtype).float().t())

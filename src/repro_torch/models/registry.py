@@ -1,9 +1,10 @@
-"""Family -> model module dispatch (the dense and MoE families).
+"""Family -> model module dispatch (the dense, MoE and encdec families).
 
 Uniform API per family, as in ``repro/models/registry.py``:
     init(gen, cfg, dtype, device) -> params
     init_quantized(gen, cfg, *, min_size, dtype, device) -> int8 params
     forward(params, tokens, cfg, *, mode, remat) -> logits
+    forward(params, tokens, encoder_embeds, cfg, *, mode, remat) (encdec)
     init_cache(cfg, batch, s_max, device) -> cache
     init_paged_cache(cfg, num_slots, s_max, block_size, num_blocks,
                      device) -> cache (families that page)
@@ -11,21 +12,25 @@ Uniform API per family, as in ``repro/models/registry.py``:
         -> (logits, cache)
     draft_params(params, n_layers) -> the self-draft's view (families
                                       that speculate)
+    prime_slot(params, source, n_valid, cfg, *, mode) -> primed leaves
+                                      (families that prime: encdec)
+    cache_batch_axes(cache) -> {leaf: slot axis} (where not axis 1)
 
-The dense and MoE families are ported; the others arrive with their
-model modules (ROADMAP queue 1, item 13).
+The dense, MoE and encdec families are ported; the others arrive with
+their model modules (ROADMAP queue 1, item 13).
 """
 from __future__ import annotations
 
-import torch
-
 import dataclasses
+from typing import Optional
+
+import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.qlinear import FP, QuantMode
-from repro_torch.models import moe, transformer
+from repro_torch.models import encdec, moe, transformer
 
-_MODULES = {"dense": transformer, "moe": moe}
+_MODULES = {"dense": transformer, "moe": moe, "encdec": encdec}
 
 
 def module_for(cfg: ArchConfig):
@@ -52,10 +57,13 @@ def init_quantized(gen: torch.Generator, cfg: ArchConfig, *,
 
 def apply_forward(params, cfg: ArchConfig, batch: dict, *,
                   mode: QuantMode = FP, remat: bool = True):
-    """batch: dict from ``cfg.input_specs`` (tokens only: the ported
-    families take no modality embeds)."""
-    return module_for(cfg).forward(params, batch["tokens"], cfg, mode=mode,
-                                   remat=remat)
+    """batch: dict from ``cfg.input_specs`` (tokens, and encdec's
+    ``encoder_embeds``)."""
+    m = module_for(cfg)
+    if cfg.family == "encdec":
+        return m.forward(params, batch["tokens"], batch["encoder_embeds"],
+                         cfg, mode=mode, remat=remat)
+    return m.forward(params, batch["tokens"], cfg, mode=mode, remat=remat)
 
 
 def init_cache(cfg: ArchConfig, batch: int, s_max: int, device=None):
@@ -99,8 +107,12 @@ def paged_block_axes(cfg: ArchConfig, cache: dict) -> dict:
 
 
 def cache_batch_axes(cfg: ArchConfig, cache: dict) -> dict:
-    """Batch (slot) axis per cache leaf: right behind the layer axis."""
-    module_for(cfg)
+    """Batch (slot) axis per cache leaf: the module's ``cache_batch_axes``
+    where it has one (encdec: ``xlen`` and the block table lead with it),
+    else right behind the layer axis."""
+    m = module_for(cfg)
+    if hasattr(m, "cache_batch_axes"):
+        return m.cache_batch_axes(cache)
     return {k: 1 for k in cache}
 
 
@@ -113,11 +125,49 @@ def mask_inactive_slots(cfg: ArchConfig, old_cache: dict, new_cache: dict,
     return new_cache
 
 
+# ---------------------------------------------------------------------------
+# slot-engine contract: per-request primed state (encdec)
+# ---------------------------------------------------------------------------
+
+def needs_prime(cfg: ArchConfig) -> bool:
+    """True when the family decodes against per-request primed state
+    (encoder frames) that a prime dispatch writes into a slot row at
+    admission."""
+    return hasattr(module_for(cfg), "prime_slot")
+
+
+def source_len(cfg: ArchConfig) -> int:
+    """Static source length of a prime dispatch: how many frames one slot
+    row's primed cross k/v holds (0 for token-only families)."""
+    return cfg.enc_seq if cfg.family == "encdec" else 0
+
+
+def source_shape(cfg: ArchConfig) -> Optional[tuple]:
+    """(source_len, d_model) of one request's source embeddings, or None
+    for token-only families: the contract request generators build
+    sources against."""
+    if not needs_prime(cfg):
+        return None
+    return (source_len(cfg), cfg.d_model)
+
+
+def prime_slot(cfg: ArchConfig, params, source, n_valid, *,
+               mode: QuantMode = FP) -> dict:
+    """Run one request's encoder and return the slot-resident primed
+    leaves (the pre-projected cross k/v and the row's ``xlen``) that a
+    prime dispatch writes into the slot's row.  ``source`` is (1,
+    source_len(cfg), D) padded to the static length; ``n_valid`` is how
+    many positions are real (decode masks reads past it)."""
+    return module_for(cfg).prime_slot(params, source, n_valid, cfg,
+                                      mode=mode)
+
+
 # families whose decode state a rewind of ``cache_index`` cannot restore:
 # recurrent state that advances through every fed token (ssm, hybrid), or
-# a primed cross-attention that the verify scan does not carry (encdec,
-# vlm).  Not ported; answered here without reaching their refusal.
-_UNREWINDABLE = ("ssm", "hybrid", "encdec", "vlm")
+# a primed cross-attention that the verify scan does not carry (vlm;
+# encdec answers through needs_prime).  Not ported; answered here without
+# reaching their refusal.
+_UNREWINDABLE = ("ssm", "hybrid", "vlm")
 
 
 def supports_speculation(cfg: ArchConfig) -> bool:
@@ -130,6 +180,7 @@ def supports_speculation(cfg: ArchConfig) -> bool:
     attention (the ring overwrites the positions a rewind must
     restore)."""
     return (cfg.window is None and cfg.family not in _UNREWINDABLE
+            and not needs_prime(cfg)
             and hasattr(module_for(cfg), "draft_params"))
 
 

@@ -300,6 +300,40 @@ def decode_positions(cache_index, b: int, s: int, device) -> Tensor:
     return rows + torch.arange(s, dtype=torch.int32, device=device)
 
 
+def decode_frame(cache: dict, cache_index, b: int, s: int, causal: bool,
+                 device):
+    """Where ``s`` tokens of ``b`` rows written from ``cache_index`` go in
+    a (paged) KV cache with leaves ``k`` (L, B, S, ...) or (L, NB, bs,
+    ...): ``(positions, valid_len, write_idx, tables)`` — the (B, s)
+    positions (:func:`decode_positions`), each query row's frontier ((B,),
+    or (B, s) when ``causal`` and s > 1), the places to write (an int, or
+    index tensors for :func:`layers.cache_write`) and the cache's
+    ``block_tables`` or None (see :func:`decode_step`)."""
+    tables = cache.get("block_tables")
+    if tables is not None:
+        bs = cache["k"].shape[2]
+        s_alloc = tables.shape[1] * bs
+    else:
+        s_alloc = cache["k"].shape[2]
+    positions = decode_positions(cache_index, b, s, device)
+    if isinstance(cache_index, int):
+        valid_len = torch.full((b,), min(cache_index + s, s_alloc),
+                               dtype=torch.int32, device=device)
+        write_idx = cache_index
+    else:
+        valid_len = torch.clamp_max(cache_index.reshape(b).int() + s,
+                                    s_alloc)
+        write_idx = (torch.arange(b, device=device)[:, None],
+                     positions.long())
+    if causal and s > 1:
+        valid_len = torch.clamp_max(positions + 1, s_alloc)
+    if tables is not None:
+        pos = positions.long()
+        rows = torch.arange(b, device=device)[:, None]
+        write_idx = (tables[rows, pos // bs].long(), pos % bs)
+    return positions, valid_len, write_idx, tables
+
+
 def decode_step(params: dict, tokens: Tensor, cache: dict, cache_index,
                 cfg: ArchConfig, *, mode: QuantMode = FP,
                 logits: bool = True, causal: bool = False, ffn=dense_ffn
@@ -336,29 +370,8 @@ def decode_step(params: dict, tokens: Tensor, cache: dict, cache_index,
     if mode.w8a16_path != "gemv":
         mode = dataclasses.replace(mode, w8a16_path="gemv")
     b, s = tokens.shape
-    device = tokens.device
-    tables = cache.get("block_tables")
-    if tables is not None:
-        bs = cache["k"].shape[2]
-        s_alloc = tables.shape[1] * bs
-    else:
-        s_alloc = cache["k"].shape[2]
-    positions = decode_positions(cache_index, b, s, device)
-    if isinstance(cache_index, int):
-        valid_len = torch.full((b,), min(cache_index + s, s_alloc),
-                               dtype=torch.int32, device=device)
-        write_idx = cache_index
-    else:
-        valid_len = torch.clamp_max(cache_index.reshape(b).int() + s,
-                                    s_alloc)
-        write_idx = (torch.arange(b, device=device)[:, None],
-                     positions.long())
-    if causal and s > 1:
-        valid_len = torch.clamp_max(positions + 1, s_alloc)
-    if tables is not None:
-        pos = positions.long()
-        rows = torch.arange(b, device=device)[:, None]
-        write_idx = (tables[rows, pos // bs].long(), pos % bs)
+    positions, valid_len, write_idx, tables = decode_frame(
+        cache, cache_index, b, s, causal, tokens.device)
     acfg = attn_config(cfg)
     rope = L.rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta)
     x = L.embed(params["embed"], tokens)

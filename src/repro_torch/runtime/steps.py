@@ -24,6 +24,11 @@ reference's key schedule, ``fold_in(rng, position)`` on the threefry
 keys of ``runtime/prng.py``; the captured forms take the key as one more
 graph input.
 
+A family that primes (encdec) writes each request's cross k/v into its
+slot's row once, at admission, through :func:`make_prime_step`, captured
+as one graph for every slot (:func:`jit_prime_step`, memoized by
+:func:`cached_prime_step`); the tick and the chunk step read those rows.
+
 Speculative decoding's two steps, :func:`make_verify_step` (the target
 scores up to k+1 fed tokens a slot) and :func:`make_draft_propose_step`
 (the draft proposes k), are the reference's scans of the one-token slot
@@ -56,22 +61,31 @@ def make_prefill_step(cfg: ArchConfig, *, mode: QuantMode = FP) -> Callable:
 def jit_prefill_step(step: Callable) -> Callable:
     """A prefill step (:func:`make_prefill_step`) captured as CUDA graphs
     (the reference's ``jax.jit`` of it): ``step(params, batch) -> logits``
-    with ``batch["tokens"]`` (B, S) on the params' device.  Each tokens
-    shape has a graph of its own, captured at its first call (the service
-    curve's warm-up call), so every later call of that shape replays it;
-    the logits are a static buffer that the next call of that shape
+    with ``batch["tokens"]`` (B, S) (and encdec's
+    ``batch["encoder_embeds"]``) on the params' device.  Each set of input
+    shapes has a graph of its own, captured at its first call (the service
+    curve's warm-up call), so every later call of those shapes replays it;
+    the logits are a static buffer that the next call of those shapes
     overwrites.  ``graphed.binding(params, batch)`` is the binding such a
     call replays (``CapturedStep.binding``)."""
-    captured = CapturedStep(
-        lambda params, cache, tokens: (step(params, {"tokens": tokens}),))
+    names: list = []      # the batch's keys, in the inputs' order
+
+    def body(params, cache, *inputs):
+        return (step(params, dict(zip(names, inputs))),)
+
+    captured = CapturedStep(body)
+
+    def inputs(batch):
+        names[:] = sorted(batch)
+        return tuple(batch[k] for k in names)
 
     def graphed(params, batch):
-        logits, = captured(params, {}, batch["tokens"])
+        logits, = captured(params, {}, *inputs(batch))
         return logits
 
     graphed.captured = captured
     graphed.binding = lambda params, batch: captured.binding(
-        params, {}, batch["tokens"])
+        params, {}, *inputs(batch))
     return graphed
 
 
@@ -441,7 +455,8 @@ def make_per_token_chunk_step(cfg: ArchConfig, *, mode: QuantMode = FP,
     lockstep index) once per real token on a view of the slot's cache
     row, so the written bytes are the per-token path's; padding tokens
     past ``n_valid`` are never run.  A paged cache runs on the physical
-    pool with the slot's table row as a (1, MB) table."""
+    pool with the slot's table row as a (1, MB) table (and the slot's row
+    of every slot-resident leaf: encdec's primed cross k/v)."""
     decode = make_decode_step(cfg, mode=mode)
 
     def step(params, tokens, cache, sid: int, start: int, n_valid: int):
@@ -449,10 +464,13 @@ def make_per_token_chunk_step(cfg: ArchConfig, *, mode: QuantMode = FP,
             raise ValueError(f"chunk step of {chunk} got {len(tokens)} "
                              f"tokens")
         sid = int(sid)
+        axes = R.cache_batch_axes(cfg, cache)
         if "block_tables" in cache:
-            row = dict(cache, block_tables=cache["block_tables"][sid:sid + 1])
+            paged = R.paged_block_axes(cfg, cache)
+            row = {k: v if k in paged else v.narrow(axes[k], sid, 1)
+                   for k, v in cache.items() if k != "block_tables"}
+            row["block_tables"] = cache["block_tables"][sid:sid + 1]
         else:
-            axes = R.cache_batch_axes(cfg, cache)
             row = {k: v.narrow(axes[k], sid, 1) for k, v in cache.items()}
         toks = torch.as_tensor(tokens, dtype=torch.int32,
                                device=cache["k"].device)
@@ -474,9 +492,11 @@ def _leaves(node):
 
 
 def _projections_quantized(params) -> bool:
-    """True when every projection of every layer is an int8 ``QTensor``:
-    every weight leaf of a layer but the 1-D norm scales and biases."""
-    return all(isinstance(w, QTensor) for lp in params["layers"]
+    """True when every projection of every decoder layer (``layers``, or
+    encdec's ``dec_layers``) is an int8 ``QTensor``: every weight leaf of
+    a layer but the 1-D norm scales and biases."""
+    layers = params["layers"] if "layers" in params else params["dec_layers"]
+    return all(isinstance(w, QTensor) for lp in layers
                for w in _leaves(lp)
                if isinstance(w, QTensor) or getattr(w, "ndim", 0) >= 2)
 
@@ -511,7 +531,9 @@ def make_prefill_chunk_step(cfg: ArchConfig, *, mode: QuantMode = FP,
 
     The step reads the slot's row through a table, so no Python ``sid``
     narrows the cache: the paged cache's table row, or, on a contiguous
-    cache, ``[sid]`` over its leaves read as blocks of one slot row each.
+    cache, ``[sid]`` over its leaves read as blocks of one slot row each;
+    a family that primes reads its slot-resident leaves at ``slots =
+    sid`` (``encdec.decode_step``).
     On a paged cache it writes only positions ``start .. start + n_valid
     - 1``, which lie in blocks the slot owns privately — a shared prefix
     block is never written.  (The reference gathers the row into a
@@ -522,6 +544,7 @@ def make_prefill_chunk_step(cfg: ArchConfig, *, mode: QuantMode = FP,
     tensors, what :func:`jit_prefill_chunk_step` captures: ``toks`` the
     n real tokens (n,), ``sid`` and ``start`` (1,) int32."""
     decode = make_decode_step(cfg, mode=mode)
+    primed = R.needs_prime(cfg)
 
     def body(params, cache, toks, sid, start):
         if "block_tables" in cache:
@@ -529,6 +552,8 @@ def make_prefill_chunk_step(cfg: ArchConfig, *, mode: QuantMode = FP,
         else:
             table = sid.reshape(1, 1)
         view = dict(cache, block_tables=table)
+        if primed:
+            view["slots"] = sid
         n = toks.shape[0]
         if mode.enabled and not mode.w8a8 and _projections_quantized(params):
             decode(params, {"tokens": toks.reshape(1, n),
@@ -601,6 +626,74 @@ def jit_prefill_chunk_step(step: Callable) -> Callable:
     return graphed
 
 
+def make_prime_step(cfg: ArchConfig, *, mode: QuantMode = FP) -> Callable:
+    """Prime dispatch for ONE slot of the pool (encdec): run the request's
+    encoder once and write the pre-projected cross k/v and the row's
+    ``xlen`` frontier into the slot's row of the cache, in place.
+
+    Returns ``step(params, source, cache, sid, n_valid) -> cache`` with
+    ``source`` (1, source_len(cfg), D) bf16, the request's frames padded
+    to the static length, ``sid`` the slot row and ``n_valid`` how many
+    source positions are real: decode masks cross reads past it, so k/v
+    past ``n_valid`` (pad projections, a previous tenant's tail) is never
+    read.  Both the engine and the sequential reference prime with the
+    same padded source, so parity is exact.  ``step.body(params, cache,
+    source, sid, n_valid)`` is the step on device tensors (``sid`` and
+    ``n_valid`` (1,) int32), what :func:`jit_prime_step` captures: the
+    row is written by an index op on ``sid``, so one graph serves every
+    slot."""
+
+    def body(params, cache, source, sid, n_valid):
+        leaves = R.prime_slot(cfg, params, source, n_valid, mode=mode)
+        axes = R.cache_batch_axes(cfg, cache)
+        rows = sid.long()
+        for k, v in leaves.items():
+            cache[k].index_copy_(axes[k], rows, v.to(cache[k].dtype))
+        return ()
+
+    def step(params, source, cache, sid, n_valid):
+        dev = cache["xk"].device
+        body(params, cache, source.to(dev),
+             torch.tensor([int(sid)], dtype=torch.int32, device=dev),
+             torch.tensor([int(n_valid)], dtype=torch.int32, device=dev))
+        return cache
+
+    step.body = body
+    return step
+
+
+def jit_prime_step(step: Callable) -> Callable:
+    """A prime step captured as one CUDA graph over its cache (the
+    reference's ``jax.jit`` with the cache donated): ``step(params,
+    source, cache, sid, n_valid) -> cache`` as :func:`make_prime_step`'s.
+    The source and the packed ``[sid, n_valid]`` are copied into static
+    buffers (from pinned memory on the card), so one graph serves every
+    slot and every source; ``graphed.binding(params, source, cache)`` is
+    the binding such a call replays."""
+    def prime_body(params, cache, source, packed):
+        return step.body(params, cache, source, packed[:1], packed[1:2])
+
+    captured = CapturedStep(prime_body)
+
+    def inputs(source, cache, sid=0, n_valid=0):
+        source = torch.as_tensor(source, dtype=torch.bfloat16)
+        packed = torch.tensor([int(sid), int(n_valid)], dtype=torch.int32)
+        if cache["xk"].is_cuda:
+            if not source.is_cuda:
+                source = source.pin_memory()
+            packed = packed.pin_memory()
+        return source, packed
+
+    def graphed(params, source, cache, sid, n_valid):
+        captured(params, cache, *inputs(source, cache, sid, n_valid))
+        return cache
+
+    graphed.captured = captured
+    graphed.binding = lambda params, source, cache: captured.binding(
+        params, cache, *inputs(source, cache))
+    return graphed
+
+
 # Process-wide memo of the captured steps, keyed as the reference's
 # (``repro/runtime/steps.py`` ``_STEP_CACHE``) on the step's
 # specialization: engines over one config share one captured step, which
@@ -646,6 +739,12 @@ def cached_draft_propose_step(cfg: ArchConfig, *, mode: QuantMode = FP,
     return _cached(("draft_propose", cfg, mode, k),
                    lambda: jit_draft_propose_step(make_draft_propose_step(
                        cfg, mode=mode, k=k)))
+
+
+def cached_prime_step(cfg: ArchConfig, *, mode: QuantMode = FP) -> Callable:
+    """Memoized ``jit_prime_step(make_prime_step(...))``."""
+    return _cached(("prime", cfg, mode),
+                   lambda: jit_prime_step(make_prime_step(cfg, mode=mode)))
 
 
 def clear_step_cache() -> None:

@@ -16,10 +16,13 @@ engine, the service curve's forward captured (bitwise the eager
 one), the MoE family (the experts' stacked GEMV and tensor-core kernel
 against their plain version and the 2-D launches, the live mask, the
 router's rows, the forward's path, the engine greedy and sampled on
-reduced qwen2-moe-a2.7b), and speculative decoding (the captured verify and
+reduced qwen2-moe-a2.7b), speculative decoding (the captured verify and
 propose steps bitwise their eager forms, the verify step bitwise k + 1
-captured ticks, a speculating engine equal to its control), at small
-shapes.
+captured ticks, a speculating engine equal to its control), and the
+encdec family (the captured prime bitwise the eager one, the plain
+cross-attention's rows batch-invariant, the LM head padded to a multiple
+of 4 columns, the engine on reduced whisper-medium equal to its
+reference), at small shapes.
 
 Every test here is marked ``gpu`` and skips without a CUDA device; the
 module imports no JAX, so it also runs where only the port is installed:
@@ -1822,3 +1825,105 @@ def test_speculative_engine_on_card_equals_control(cuda):
         assert rep.leaked_blocks == 0
         if not t:
             assert rep.accepted_per_dispatch > 1.0
+
+
+# ---------------------------------------------------------------------------
+# the encdec family (whisper-medium): prime, cross-attention, padded head
+# ---------------------------------------------------------------------------
+
+def _whisper(cuda):
+    cfg = get_config("whisper-medium").reduced()
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    return cfg, R.init_quantized(gen, cfg, device=cuda)
+
+
+def test_encdec_captured_prime_equals_eager(cuda):
+    """Reduced whisper-medium on the card: the captured prime (one graph
+    for every slot) writes what the eager prime writes, every leaf
+    bitwise, the encoder's projections on the mma path and its attention
+    through flash_attention_bhsd."""
+    cfg, params = _whisper(cuda)
+    eager = ST.make_prime_step(cfg, mode=W8A16)
+    graphed = ST.jit_prime_step(eager)
+    a = R.init_cache(cfg, 4, 16, device=cuda)
+    b = R.init_cache(cfg, 4, 16, device=cuda)
+    g = torch.Generator(device=cuda).manual_seed(1)
+    mma, flash = (K.qmatmul_w8a16.launches_by_path["mma"],
+                  FA.flash_attention_bhsd.launches)
+    for sid, n in ((2, 16), (0, 9), (3, 1)):
+        src = torch.randn((1, cfg.enc_seq, cfg.d_model), generator=g,
+                          device=cuda).to(torch.bfloat16)
+        eager(params, src, a, sid, n)
+        graphed(params, src.cpu(), b, sid, n)
+    torch.cuda.synchronize()
+    for k in a:
+        assert torch.equal(a[k], b[k]), k
+    assert graphed.captured.captures == 1
+    assert a["xlen"].tolist() == [9, cfg.enc_seq, 16, 1]
+    assert K.qmatmul_w8a16.launches_by_path["mma"] > mma
+    assert FA.flash_attention_bhsd.launches > flash
+
+
+@pytest.mark.parametrize("se", [16, 1500])
+def test_cross_attention_rows_alone_equal_the_batch_on_card(cuda, se):
+    """The plain cross-attention's rows on the card do not depend on the
+    batch (``tree_sum``, a row-wise softmax): each of 8 rows alone equals
+    its row of the batch, bitwise, at whisper's 16 heads of 64."""
+    g = torch.Generator(device=cuda).manual_seed(se)
+    q = torch.randn((8, 1, 16, 64), generator=g, device=cuda).to(
+        torch.bfloat16)
+    xk, xv = (torch.randn((8, se, 16, 64), generator=g, device=cuda)
+              .to(torch.bfloat16) for _ in range(2))
+    xlen = torch.tensor([se, se - 1, 1, se // 2, se, 3, se - 2, 7],
+                        dtype=torch.int32, device=cuda).clamp_min(1)
+    full = L.cross_cache_attention(q, xk, xv, xlen)
+    for r in range(8):
+        one = L.cross_cache_attention(q[r:r + 1], xk[r:r + 1], xv[r:r + 1],
+                                      xlen[r:r + 1])
+        assert torch.equal(one[0], full[r]), r
+    want = L.cross_cache_attention(q.cpu(), xk.cpu(), xv.cpu(), xlen.cpu())
+    torch.testing.assert_close(full.cpu(), want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("vocab", [515, 51865])
+def test_padded_lm_head_on_card(cuda, vocab):
+    """A vocabulary that is no multiple of 4 runs through the W8A16
+    kernels on a head padded with zero columns: both paths' logits are
+    (.., V), within bf16_close-style f32 tolerance of the unpadded head's
+    plain version."""
+    g = torch.Generator(device=cuda).manual_seed(vocab)
+    d = 256
+    table = quantize_tree({"t": {"table": torch.randn(
+        (vocab, d), generator=g, device=cuda) * d ** -0.5}},
+        min_size=2048)["t"]
+    x = torch.randn((8, d), generator=g, device=cuda).to(torch.bfloat16)
+    want = K.qmatmul_w8a16_ref(x, table["table"].values.t().contiguous(),
+                               table["table"].scale.reshape(-1),
+                               out_dtype=torch.float32)
+    for path in K.W8A16_PATHS:
+        got = L.unembed(table, x, path=path)
+        assert got.shape == (8, vocab)
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("kind", ["contiguous", "paged"])
+def test_encdec_engine_on_card_equals_reference(cuda, kind):
+    """Reduced whisper-medium on the card: 10 requests with their own
+    frames (16, 15 or 14 long) through 4 slots with chunked prefill, each
+    primed at admission, greedy and sampled, every token equal to the
+    sequential batch-1 reference."""
+    from repro_torch.runtime import prng as P
+    cfg, params = _whisper(cuda)
+    reqs = E.synthetic_requests(10, rate_per_s=2000.0, vocab=cfg.vocab,
+                                prompt_len=6, max_new_tokens=5,
+                                source_shape=R.source_shape(cfg))
+    paged = dict(block_size=4) if kind == "paged" else {}
+    for t, key in ((0.0, None), (0.8, P.PRNGKey(3))):
+        eng = E.Engine(cfg, params, mode=W8A16, num_slots=4, max_seq=16,
+                       prefill_chunk=4, temperature=t, rng=key, **paged)
+        eng.warmup()
+        rep = eng.serve(reqs)
+        assert rep.outputs() == E.reference_outputs(
+            cfg, params, reqs, mode=W8A16, max_seq=16, temperature=t,
+            rng=key)
+        assert rep.leaked_blocks == 0

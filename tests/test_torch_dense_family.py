@@ -132,11 +132,13 @@ def test_arch_file_matches_reference(arch):
 
 def test_the_four_dense_configs_are_registered():
     """The four dense configs, beside the MoE family's qwen2-moe-a2.7b
-    (tests/test_torch_moe.py), are the port's registered configs."""
+    (tests/test_torch_moe.py) and the encdec family's whisper-medium
+    (tests/test_torch_encdec.py), are the port's registered configs."""
     dense = ["starcoder2-3b", "internlm2-20b", "mistral-nemo-12b",
              "qwen1.5-32b"]
     assert all(get_config(a).family == "dense" for a in dense)
-    assert list_archs() == sorted(dense + ["qwen2-moe-a2.7b"])
+    assert list_archs() == sorted(dense + ["qwen2-moe-a2.7b",
+                                           "whisper-medium"])
 
 
 @pytest.mark.parametrize("arch", ARCHS + ["starcoder2-3b"])

@@ -148,7 +148,7 @@ SUPPORT = {"starcoder2-3b": ("starcoder2-3b", {}, True),
            "windowed-moe": ("qwen2-moe-a2.7b", dict(window=8), False),
            "ssm": ("starcoder2-3b", dict(family="ssm"), False),
            "hybrid": ("starcoder2-3b", dict(family="hybrid"), False),
-           "encdec": ("starcoder2-3b", dict(family="encdec"), False),
+           "encdec": ("whisper-medium", {}, False),
            "vlm": ("starcoder2-3b", dict(family="vlm"), False)}
 
 
