@@ -196,6 +196,25 @@ Phases, each of which fails the run (non-zero exit, no result line):
    weights, cross k/v and self k/v it reads); then the serve CLI with
    ``--arch whisper-medium`` (its curve's forward encodes 1,500 frames a
    row; four requests equal to ``reference_outputs``).
+13. ssm: mamba2-1.3b at full width (48 layers, d 2,048, d_inner 4,096,
+   64 SSD heads of 64, state N 128, vocab 50,280 tied).  First
+   ``qmatmul_w8a16`` (both kernels at a tick's M = 8, the mma path at the
+   curve's M = 512, rows checked alone) and ``qmatmul_w8a8`` (M = 8 and
+   512, its int32 sums bitwise) at in_proj (K 2,048 x N 8,512) and
+   out_proj (K 4,096 x N 2,048), and the W8A16 head over 50,280 columns,
+   each timed beside its plain version, its library call and its bound;
+   then the model from the streamed init, the dense trace served greedy
+   and sampled, each equal to ``reference_outputs`` token for token; the
+   trace at once on 4 slots with two SLO classes, as a control and with
+   preemption, a non-finite sample and a failed dispatch, both equal to
+   the contiguous serve; the captured tick bitwise the eager one, the
+   freeze on the card (inactive rows' h and conv bitwise unchanged, one
+   of them at index 0), its launches, wall, busy and floor (weights and
+   the state read and written once), the freeze's masked writes timed
+   alone; the chunk step captured and per-token bitwise, its busy a
+   token against a token's floor; then the serve CLI with ``--arch
+   mamba2-1.3b`` under w8a16 (four requests equal to the reference) and
+   w8a8.
 
 The kernel phase holds both of ``qmatmul_w8a16``'s kernels (the GEMV and
 the ``mma.sync`` bf16 tensor-core path) at every projection and the LM
@@ -231,12 +250,13 @@ than before the redesigns.
 
 ``--only attention`` / ``--only long_tick`` / ``--only w8a8`` / ``--only
 graphs`` / ``--only dense`` / ``--only sampling`` / ``--only spec`` /
-``--only moe`` / ``--only encdec`` run just the two attention kernel
+``--only moe`` / ``--only encdec`` / ``--only ssm`` run just the two
+attention kernel
 phases, the long-context ticks, ``qmatmul_w8a8``'s kernel phase and the
 W8A8 tick, the five eager tick breakdowns and the graph phase, the dense
 family's kernel rows, rmsnorm widths and phase 10, phase 7 and the
 sampled serve CLI run, phase 8 with its CLI run and qwen2-moe-a2.7b's
-speculative serve, phase 11, or phase 12, and ``--src DIR``
+speculative serve, phase 11, phase 12 or phase 13, and ``--src DIR``
 takes the port from
 another checkout's ``src/`` (so the same phases time a parent commit's
 kernels); such a partial run prints no result line.
@@ -251,7 +271,9 @@ tensor-core entry under ``forward``), each kernel's MoE launches under
 its launches in the speculative serves under ``spec``, and
 qmatmul_w8a16's and flash_attention_bhsd's rows at whisper-medium's
 shapes, their launches in its serves and the prime's and tick's times
-under ``encdec``),
+under ``encdec``; qmatmul_w8a16's and qmatmul_w8a8's rows at
+mamba2-1.3b's shapes, their launches and the tick's and chunk's times
+under ``ssm``),
 the whole run's time, and,
 last, ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
 without the repo's ``src/repro_torch`` beside it, it exits non-zero and
@@ -1862,7 +1884,8 @@ def serve_run(quant, curve_paths, flags=(), base=SERVE_ARGS, label=None):
           f"{rep.stuck_ticks}")
     print(f"{label}: engine ms/tick {1e3 * rep.wall_s / rep.ticks:.1f}; "
           f"before the captured chunk: {BEFORE_CHUNK.get(label, 'not run')}")
-    need = ["flash_attention_bhsd"] + (["qmatmul_w8a8"]
+    need = (["flash_attention_bhsd"] if res.cfg.family != "ssm"
+            else ["qmatmul_w8a16"]) + (["qmatmul_w8a8"]
                                        if quant == "w8a8" else [])
     if any(launches[k] <= 0 for k in need):
         raise AssertionError(f"{label}: a kernel of the path never "
@@ -1930,7 +1953,10 @@ def serve_run(quant, curve_paths, flags=(), base=SERVE_ARGS, label=None):
 def gemvs_per_layer(cfg) -> int:
     """qmatmul_w8a16's GEMV launches of one decode step per layer (every
     projection int8): the attention's four, the (shared) MLP's two or
-    three, and an MoE layer's router."""
+    three, and an MoE layer's router; an SSD layer's in_proj and
+    out_proj."""
+    if cfg.family == "ssm":
+        return 2
     return 4 + (3 if cfg.gated_mlp else 2) + (cfg.family == "moe")
 
 
@@ -2403,10 +2429,11 @@ def graph_chunk_case(cfg, params, label, S, max_seq, block_size, mode,
     breakdowns by way."""
     import torch
     from repro_torch.core.qlinear import W8A8, W8A16
+    from repro_torch.models import registry as R
     from repro_torch.runtime import steps as ST
 
     qm = {"w8a16": W8A16, "w8a8": W8A8}[mode]
-    one_pass = mode == "w8a16"
+    one_pass = mode == "w8a16" and R.decodes_chunk_in_one_pass(cfg)
     ccfg = dataclasses.replace(cfg, kv_quant=kv_quant)
     cache = _random_cache(ccfg, S, max_seq, block_size)
     if block_size:
@@ -2457,7 +2484,7 @@ def graph_chunk_case(cfg, params, label, S, max_seq, block_size, mode,
         if any(plain.values()):
             raise AssertionError(f"{label}: a plain version ran: {plain}")
         projections = gemvs_per_layer(cfg) * cfg.n_layers
-        key = "qmatmul_w8a16[gemv]" if one_pass else "qmatmul_w8a8"
+        key = "qmatmul_w8a8" if mode == "w8a8" else "qmatmul_w8a16[gemv]"
         passes = 1 if one_pass else n
         stacks = 3 * cfg.n_layers if cfg.family == "moe" else 0
         if (per_graph != per_eager and one_pass) \
@@ -2811,9 +2838,9 @@ def sampled_engine(cfg, params, **kw):
 
 def compare_sampled(label, cfg, params, eng, reqs, outs) -> None:
     """The engine's tokens for ``reqs`` against the sequential batch-1
-    ``reference_outputs`` under the engine's temperature and key, on the
-    card: equal token for token (both run the same ops on the card, so a
-    difference is a fault, not a near-tie)."""
+    ``reference_outputs`` under the engine's temperature and key (greedy
+    at temperature 0), on the card: equal token for token (both run the
+    same ops on the card, so a difference is a fault, not a near-tie)."""
     from repro_torch import engine as E
     from repro_torch.core.qlinear import W8A16
 
@@ -2827,10 +2854,13 @@ def compare_sampled(label, cfg, params, eng, reqs, outs) -> None:
     if bad:
         raise AssertionError(f"{label}: requests {bad} differ from the "
                              f"sampled reference_outputs")
-    print(f"{label}: {len(ref)} requests {sorted(ref)} equal the sampled "
-          f"reference_outputs (t = {eng.temperature}, fold_in(PRNGKey("
-          f"{SEED + 1}), position)) token for token on the card; smallest "
-          f"perturbed top-2 gap {min(min(v) for v in margins.values()):.3e}"
+    how = (f"sampled reference_outputs (t = {eng.temperature}, fold_in("
+           f"PRNGKey({SEED + 1}), position))" if eng.temperature else
+           "greedy reference_outputs")
+    print(f"{label}: {len(ref)} requests {sorted(ref)} equal the {how} "
+          f"token for token on the card; smallest "
+          f"{'perturbed ' if eng.temperature else ''}top-2 gap "
+          f"{min(min(v) for v in margins.values()):.3e}"
           f"; reference {time.perf_counter() - t0:.1f}s")
 
 
@@ -3578,10 +3608,15 @@ def build_dense_model(arch):
     nbytes = tree_weight_bytes(params)
     experts = (f"{cfg.n_experts} experts top-{cfg.top_k} + "
                f"{cfg.n_shared_experts} shared, " if cfg.n_experts else "")
+    widths = (f"d_inner={cfg.d_inner}, {cfg.ssm_heads} SSD heads of "
+              f"{cfg.ssm_headdim}, state N={cfg.ssm_state}, conv width "
+              f"{cfg.conv_width}, chunk {cfg.ssm_chunk}"
+              if cfg.family == "ssm" else
+              f"{cfg.n_heads} q-heads / {cfg.n_kv_heads} kv-heads of "
+              f"{cfg.head_dim}, {experts}ff={cfg.d_ff} gated "
+              f"{cfg.activation}")
     print(f"{cfg.family} {arch}: full width ({cfg.n_layers} layers, d="
-          f"{cfg.d_model}, {cfg.n_heads} q-heads / {cfg.n_kv_heads} kv-heads"
-          f" of {cfg.head_dim}, {experts}ff={cfg.d_ff} gated "
-          f"{cfg.activation}, vocab={cfg.vocab} "
+          f"{cfg.d_model}, {widths}, vocab={cfg.vocab} "
           f"{'tied' if cfg.tie_embeddings else 'untied'}, {cfg.norm}), W8A16 "
           f"weights {nbytes} bytes, streamed init+quantize {init_s:.1f}s, "
           f"torch.cuda.max_memory_allocated {peak} bytes ({peak / 1e9:.2f} "
@@ -4849,8 +4884,486 @@ def encdec_phase(flush, profile_serves=False):
     return out
 
 
+# ---------------------------------------------------------------------------
+# the ssm family
+# ---------------------------------------------------------------------------
+
+SSM_ARCH = "mamba2-1.3b"
+# the serve CLI at full mamba2-1.3b width, contiguous (the family does not
+# page): the dense CLI's curve and engine geometry, 16 requests of 16 + 16
+# tokens at 10/s
+SSM_SERVE_ARGS = ["--arch", SSM_ARCH, "--rate", "10", "--max-batch",
+                  str(SERVE_MAX_BATCH), "--seq", str(SERVE_SEQ),
+                  "--decode-tokens", "16", "--n-requests", "16",
+                  "--prompt-len", "16", "--gen-tokens", "16",
+                  "--prefill-chunk", str(PREFILL_CHUNK), "--deadline-ms",
+                  "2000", "--seed", str(SEED)]
+SSM_CLI_COMPARE = 4         # requests of the CLI run held to the reference
+# the overload serve: the dense trace on 4 slots, its odd rids in the
+# batch class arriving at once, its even rids interactive SSM_LATE_S
+# later (while the batch class holds every slot), with preemption, a
+# non-finite sample and a failed dispatch: (kind, tick, slot)
+SSM_OVERLOAD_SLOTS = 4
+SSM_LATE_S = 0.05
+SSM_OVERLOAD_FAULTS = (("nan_logits", 6, 1), ("dispatch", 9, 2))
+# the W8A16 and W8A8 kernels at mamba2-1.3b's projections: (name, K, N)
+SSM_SHAPES = (("in_proj", 2048, 8512), ("out_proj", 4096, 2048))
+
+
+def ssm_qmatmul_rows(flush):
+    """qmatmul_w8a16 and qmatmul_w8a8 at mamba2-1.3b's shapes (SSM_SHAPES:
+    in_proj's N = 8,512 is 66.5 column tiles of 128, a width no earlier
+    family had): W8A16 at a tick's M = NUM_SLOTS through both kernels
+    (the GEMV timed, its rows equal alone) and at the CLI curve's M =
+    SERVE_ROWS on the mma path (its rows equal alone and in slices of
+    17), then the tied head (K 2,048 x N 50,280) the same way; W8A8 at
+    M = NUM_SLOTS (its GEMV) and SERVE_ROWS (mma.sync), the int32 sums
+    bitwise.  Each against its plain version and timed beside the bound
+    and a library call (``F.linear`` on bf16 weights; W8A8:
+    ``torch._int_mm`` + drain where the build takes the shape).  Returns
+    (worst W8A16 error, {shape: numbers}, worst W8A8 error, {shape:
+    numbers}, {M: one tick's or forward's W8A16 launches summed})."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.configs import get_config
+    from repro_torch.core.quant import quantize_embedding
+    from repro_torch.core.quant import quantize_weight
+    from repro_torch.kernels import qmatmul as K
+    from repro_torch.models import layers as L
+
+    c = get_config(SSM_ARCH)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 29)
+    rows, worst = {}, 0.0
+    keys = ("ms", "plain_ms", "bound_ms", "library_ms", "bytes_ms", "ops_ms")
+    # a tick's GEMVs (every layer's two and the head) and the curve's
+    # forward on the mma path, summed
+    per_m = {m: dict.fromkeys(keys, 0.0) for m in (NUM_SLOTS, SERVE_ROWS)}
+
+    def numbers(label, x, w, ws, odt, path, plain_iters, times, err,
+                ratio, paths):
+        t = w8a16_numbers(x, w, ws, None, "none", odt, (path,), plain_iters,
+                          flush)
+        row = {"K": x.shape[1], "N": w.shape[1], "M": x.shape[0],
+               "path": path, "ms": t["ms"][path], "plain_ms": t["plain_ms"],
+               "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+               "library_ms": t["library_ms"], "bytes_ms": t["bytes_ms"],
+               "ops_ms": t["ops_ms"], "max_abs_err": err, "err_tol": ratio}
+        for key in keys:
+            per_m[x.shape[0]][key] += times * row[key]
+        print(f"  qmatmul_w8a16 {label:9s} M={x.shape[0]:4d} K={x.shape[1]:4d}"
+              f" N={w.shape[1]:5d} max_abs_err={err:.3e} err/tol="
+              f"{ratio:.3f} ({', '.join(paths)}) {path}_ms={row['ms']:.4f} "
+              f"plain_ms={row['plain_ms']:.4f} library_ms="
+              f"{row['library_ms']:.4f} bound_ms={row['bound_ms']:.4f} "
+              f"({row['bound_by']})")
+        return row
+
+    for name, k, n in SSM_SHAPES:
+        q = quantize_weight(torch.randn((k, n), generator=gen,
+                                        device="cuda") * k ** -0.5)
+        w, ws = q.values, q.scale.reshape(-1).contiguous()
+        odt = torch.bfloat16
+        for m, paths, path in ((NUM_SLOTS, K.W8A16_PATHS, "gemv"),
+                               (SERVE_ROWS, ("mma",), "mma")):
+            x = torch.randn((m, k), generator=gen,
+                            device="cuda").to(torch.bfloat16)
+            ref = K.qmatmul_w8a16_ref(x, w, ws, out_dtype=odt)
+            err, ratio = w8a16_check(f"{name} M={m}", x, w, ws, None, "none",
+                                     odt, ref, paths)
+            del ref
+            if m == NUM_SLOTS:
+                gemv_rows_check(name, torch.randn(
+                    (2 * NUM_SLOTS, k), generator=gen, device="cuda").to(
+                    torch.bfloat16), w, ws, None, "none", odt)
+            else:
+                w8a16_rows_check(x, w, ws, None, "none", odt)
+            worst = max(worst, err)
+            rows[f"{name} M={m}"] = numbers(
+                name, x, w, ws, odt, path, 3 if m == NUM_SLOTS else 1,
+                c.n_layers, err, ratio, paths)
+        del q, w, ws
+    table = quantize_embedding(torch.randn((c.vocab, c.d_model),
+                                           generator=gen, device="cuda")
+                               * c.d_model ** -0.5)
+    head = L.lm_head(table)
+    w, ws = head.values, head.scale
+    if w.shape != (c.d_model, c.vocab):
+        raise AssertionError(f"lm_head: {tuple(w.shape)} for vocab "
+                             f"{c.vocab} (N % 4 == 0 needs no padding)")
+    for m, paths, path in ((NUM_SLOTS, K.W8A16_PATHS, "gemv"),
+                           (SERVE_ROWS, ("mma",), "mma")):
+        x = torch.randn((m, c.d_model), generator=gen,
+                        device="cuda").to(torch.bfloat16)
+        ref = K.qmatmul_w8a16_ref(x, w, ws, out_dtype=torch.float32)
+        err, ratio = w8a16_check(f"lm_head M={m}", x, w, ws, None, "none",
+                                 torch.float32, ref, paths)
+        del ref
+        worst = max(worst, err)
+        rows[f"lm_head M={m}"] = numbers("lm_head", x, w, ws, torch.float32,
+                                         path, 1, 1, err, ratio, paths)
+    del table, head, w, ws
+    for m, what in ((NUM_SLOTS, "tick"), (SERVE_ROWS, "forward")):
+        t = per_m[m]
+        print(f"  qmatmul_w8a16 per {SSM_ARCH} {what} (M = {m}: "
+              f"{c.n_layers} x (in_proj, out_proj) and the head): "
+              f"ms={t['ms']:.4f} bound_ms={t['bound_ms']:.4f} plain_ms="
+              f"{t['plain_ms']:.4f} library_ms={t['library_ms']:.4f}")
+    # qmatmul_w8a8 at the same projections (the head stays weight-only
+    # int8 under --quant w8a8)
+    w8_rows, w8_worst = {}, 0.0
+    for name, k, n in SSM_SHAPES:
+        x = torch.randint(-127, 128, (SERVE_ROWS, k), generator=gen,
+                          device="cuda", dtype=torch.int8)
+        w = torch.randint(-127, 128, (k, n), generator=gen, device="cuda",
+                          dtype=torch.int8)
+        xs = torch.rand((), generator=gen, device="cuda") * 0.05 + 1e-3
+        ws = torch.rand((n,), generator=gen, device="cuda") * 2e-3 + 1e-4
+        w_lib = (w.float() * ws).to(torch.bfloat16).t()
+        for m in (NUM_SLOTS, SERVE_ROWS):
+            xm = x[:m].contiguous()
+            label = f"{name} M={m} ({K.w8a8_path(m)})"
+            err, ratio, bitwise = w8a8_check(label, xm, w, xs, ws, None,
+                                             "none")
+            w8_worst = max(w8_worst, err)
+            kw = dict(out_dtype=torch.bfloat16)
+            ms = time_ms(lambda: K.qmatmul_w8a8(xm, w, xs, ws, **kw), 20,
+                         flush)
+            plain = time_ms(lambda: K.qmatmul_w8a8_ref(xm, w, xs, ws, **kw),
+                            1, flush)
+
+            def int_mm():
+                return (torch._int_mm(xm, w).float() * xs * ws).to(
+                    torch.bfloat16)
+
+            try:
+                int_mm()
+                lib_fn, lib_name = int_mm, "torch._int_mm + drain"
+            except RuntimeError:
+                lib_fn = lambda: F.linear(  # noqa: E731
+                    xm.to(torch.bfloat16) * xs.to(torch.bfloat16), w_lib)
+                lib_name = "F.linear, bf16 weights"
+            lib = time_ms(lib_fn, 20, flush)
+            bytes_ms = ((m * k + k * n + 4 + 4 * n + 2 * m * n)
+                        / HBM_BYTES_PER_S * 1e3)
+            ops_ms = 2 * m * k * n / INT8_OPS_PER_S * 1e3
+            row = {"K": k, "N": n, "M": m, "path": K.w8a8_path(m), "ms": ms,
+                   "plain_ms": plain, "bound_ms": max(bytes_ms, ops_ms),
+                   "bound_by": ("bytes" if bytes_ms >= ops_ms
+                                else "operations"),
+                   "library_ms": lib, "library": lib_name,
+                   "max_abs_err": err, "err_tol": ratio,
+                   "drain_bitwise": bitwise}
+            w8_rows[f"{name} M={m}"] = row
+            print(f"  qmatmul_w8a8 {name:9s} M={m:4d} K={k:4d} N={n:5d} "
+                  f"path={row['path']} int32_bitwise=True drain_bitwise="
+                  f"{bitwise} max_abs_err={err:.3e} err/tol={ratio:.3f} "
+                  f"ms={ms:.4f} plain_ms={plain:.4f} library_ms={lib:.4f} "
+                  f"({lib_name}) bound_ms={row['bound_ms']:.4f} "
+                  f"({row['bound_by']})")
+        del x, w, w_lib
+    zero_counts()
+    return worst, rows, w8_worst, w8_rows, per_m
+
+
+def ssm_state_bytes(cfg, rows: int) -> int:
+    """Bytes of ``rows`` slots' decode state: h (f32) and the conv tail
+    (bf16) of every layer."""
+    return rows * cfg.n_layers * (
+        cfg.ssm_heads * cfg.ssm_headdim * cfg.ssm_state * 4
+        + (cfg.conv_width - 1) * (cfg.d_inner + 2 * cfg.ssm_state) * 2)
+
+
+def ssm_tick(cfg, params, label):
+    """The captured steady tick of the ssm serves: NUM_SLOTS rows on a
+    random state, at DENSE_MAX_SEQ / 2: the captured tick's tokens and
+    every cache leaf bitwise the eager tick's, then the slot contract on
+    the card (half the rows inactive, one of them at index 0: their h and
+    conv bitwise unchanged by a captured tick, the active rows as in the
+    all-active tick), its launches a replay (2 GEMVs a layer and the
+    head, nothing else counted), wall, device busy and the split between
+    the GEMVs and the plain state update, the freeze's masked writes
+    timed alone, beside the floor: the int8 weights and head a tick reads
+    and the state read and written once, at 3.35 TB/s."""
+    import torch
+    from repro_torch.core.qlinear import W8A16
+    from repro_torch.core.quant import tree_weight_bytes
+    from repro_torch.runtime import steps as ST
+
+    S, max_seq = NUM_SLOTS, DENSE_MAX_SEQ
+    eager = ST.make_slot_decode_step(cfg, mode=W8A16)
+    graphed = ST.jit_slot_decode_step(ST.make_slot_decode_step(
+        cfg, mode=W8A16))
+    g = torch.Generator(device="cuda").manual_seed(SEED + 31)
+    cache = _random_cache(cfg, S, max_seq, 0)
+    with torch.inference_mode():
+        toks = torch.randint(1, cfg.vocab, (S, 1), generator=g,
+                             device="cuda", dtype=torch.int32)
+        idx = torch.full((S,), max_seq // 2, dtype=torch.int32,
+                         device="cuda")
+        active = torch.ones((S,), dtype=torch.bool, device="cuda")
+        start = {k: v.clone() for k, v in cache.items()}
+        want = {k: v.clone() for k, v in cache.items()}
+        nxt_e = eager(params, toks, want, idx, active)[0].cpu()
+        t0 = time.perf_counter()
+        nxt_g = graphed(params, toks, cache, idx, active)[0].cpu()
+        capture_s = time.perf_counter() - t0
+        if not torch.equal(nxt_g, nxt_e) or any(
+                not torch.equal(cache[k], want[k]) for k in cache):
+            raise AssertionError(f"{label}: the captured tick differs from "
+                                 f"the eager tick")
+        # the freeze and the scrub: rows 1, 3, 5, 7 inactive, row 1 at 0
+        half = torch.tensor([r % 2 == 0 for r in range(S)], device="cuda")
+        idx2 = idx.clone()
+        idx2[1] = 0
+        masked = {k: v.clone() for k, v in start.items()}
+        nxt_m = graphed(params, toks, masked, idx2, half)[0].cpu()
+        for k in masked:
+            if not torch.equal(masked[k][:, ~half], start[k][:, ~half]) or \
+                    not torch.equal(masked[k][:, half], want[k][:, half]):
+                raise AssertionError(f"{label}: {k}: an inactive row's state "
+                                     f"changed, or an active row's differs "
+                                     f"from the all-active tick")
+        if not torch.equal(nxt_m[half.cpu()], nxt_e[half.cpu()]) or \
+                nxt_m[~half.cpu()].any():
+            raise AssertionError(f"{label}: the masked tick's tokens")
+        del masked
+        zero_counts()
+        graphed(params, toks, cache, idx, active)[0].cpu()
+    launches, plain = read_counts()
+    gemv = gemvs_per_layer(cfg) * cfg.n_layers + 1
+    if (launches["qmatmul_w8a16[gemv]"] != gemv
+            or launches["qmatmul_w8a16"] != gemv or any(plain.values())
+            or sum(launches.values()) != 2 * gemv):
+        raise AssertionError(f"{label}: a replay launched {launches} "
+                             f"({gemv} GEMVs and nothing else expected), "
+                             f"plain {plain}")
+    print(f"{label}: the captured tick bitwise the eager one (tokens, h, "
+          f"conv); with rows 1, 3, 5, 7 inactive (row 1 at index 0) their "
+          f"h and conv bitwise unchanged and the active rows as in the "
+          f"all-active tick; capture {capture_s:.2f} s")
+    res = device_breakdown(
+        label, f"captured steady-state slot tick ({S} active rows at "
+        f"position {max_seq // 2}, random state)",
+        lambda: graphed(params, toks, cache, idx, active)[0].cpu(), 10)
+    gemv_ms = sum(ms for key, ms in res["by_kernel"].items()
+                  if "qmatmul" in key)
+    # the freeze alone: each layer's masked writes at the tick's shapes
+    with torch.inference_mode():
+        h, conv = cache["h"][0], cache["conv"][0]
+        new_h, new_conv = h.clone(), conv.clone()
+        rows_h = active.reshape(-1, 1, 1, 1)
+        rows_c = active.reshape(-1, 1, 1)
+        freeze_ms = cfg.n_layers * time_ms(lambda: (
+            torch.where(rows_h, new_h, h, out=h),
+            torch.where(rows_c, new_conv, conv, out=conv)), 10, lambda: None)
+        copy_ms = cfg.n_layers * time_ms(lambda: (
+            h.copy_(new_h), conv.copy_(new_conv)), 10, lambda: None)
+        del new_h, new_conv
+    # every layer and the head (the table's bytes, read as its (D, V)
+    # head); the embedding gathers only a row a slot
+    weights = tree_weight_bytes(params)
+    state = ssm_state_bytes(cfg, S)
+    read = weights + 2 * state
+    floor = read / HBM_BYTES_PER_S * 1e3
+    busy = res["busy"]
+    print(f"{label}: {launches['qmatmul_w8a16[gemv]']} GEMVs a replay; wall "
+          f"{res['wall']:.2f} ms, device busy "
+          f"{'not measured' if busy is None else f'{busy:.3f} ms'}, "
+          f"cudaGraphLaunch {res['graph_launches']:.0f}, cudaLaunchKernel "
+          f"{res['launch_calls']:.0f} a tick; the GEMVs {gemv_ms:.3f} ms of "
+          f"device time, the plain state update and the rest "
+          f"{'not measured' if busy is None else f'{busy - gemv_ms:.3f} ms'};"
+          f" the freeze's masked writes alone ({cfg.n_layers} layers x "
+          f"where(active, new, old) into h and conv) {freeze_ms:.3f} ms "
+          f"against {copy_ms:.3f} ms for plain copies")
+    print(f"{label}: floor {floor:.3f} ms (the {read} bytes a tick must "
+          f"move at 3.35 TB/s: {weights} of int8 weights and head, {state} "
+          f"of state ({state // S} a slot) read and written once): wall / "
+          f"floor {res['wall'] / floor:.2f}, busy / floor "
+          f"{'not measured' if busy is None else f'{busy / floor:.2f}'}")
+    graphed.captured.release()
+    return {"wall": res["wall"], "busy": busy, "gemv_ms": gemv_ms,
+            "freeze_ms": freeze_ms, "copy_ms": copy_ms, "floor": floor,
+            "read_bytes": read, "weight_bytes": weights,
+            "state_bytes": state, "launches": launches}
+
+
+def ssm_chunk(cfg, params, label):
+    """The chunk step of one slot (slot 3 from position 5, every n_valid
+    up to PREFILL_CHUNK): per-token eager and captured bitwise equal
+    (``graph_chunk_case``: under W8A16 too the ssm chunk runs token by
+    token, 2 GEMVs a layer a token), then a full chunk's captured busy a
+    token against the floor of one token: the int8 weights but the head
+    (the chunk discards its logits) and the slot's state read and
+    written once."""
+    from repro_torch.core.quant import tree_weight_bytes
+
+    res = graph_chunk_case(cfg, params, label, NUM_SLOTS, DENSE_MAX_SEQ, 0,
+                           "w8a16", False, 3, 5)
+    weights = tree_weight_bytes(params) - tree_weight_bytes(params["embed"])
+    read = weights + 2 * ssm_state_bytes(cfg, 1)
+    floor = read / HBM_BYTES_PER_S * 1e3
+    cap = res["captured"]
+    busy = cap["busy"]
+    per_token = None if busy is None else busy / PREFILL_CHUNK
+    print(f"{label}: a token's floor {floor:.3f} ms ({read} bytes: "
+          f"{weights} of int8 weights less the head, the slot's state read "
+          f"and written); captured chunk of {PREFILL_CHUNK}: wall "
+          f"{cap['wall']:.2f} ms, busy "
+          + ("not measured" if busy is None else
+             f"{busy:.3f} ms, {per_token:.3f} ms a token, "
+             f"{per_token / floor:.2f}x the floor"))
+    return {"wall": cap["wall"], "busy": busy, "floor": floor,
+            "read_bytes": read, "per_token_busy": per_token,
+            "eager_wall": res["per-token eager"]["wall"]}
+
+
+def ssm_overload(cfg, params, reqs, label, want):
+    """Preemption and fault recovery on the ssm state: the trace on
+    SSM_OVERLOAD_SLOTS slots, its odd rids in the batch class at 0 s, its
+    even rids interactive at SSM_LATE_S, served as a control (no
+    preemption, no fault), then with preemption and the
+    SSM_OVERLOAD_FAULTS (a non-finite sample scrubs the slot and resumes
+    it from position 0; a failed dispatch launches nothing): every
+    request of both equal to ``want`` (the contiguous serve's tokens),
+    preemptions and re-prefilled tokens above 0, every fault fired."""
+    from repro_torch import engine as E
+    from repro_torch.core.qlinear import W8A16
+
+    reqs = [dataclasses.replace(
+        r, arrival_s=0.0 if r.rid % 2 else SSM_LATE_S,
+        priority="batch" if r.rid % 2 else "interactive") for r in reqs]
+    eng = E.Engine(cfg, params, mode=W8A16, num_slots=SSM_OVERLOAD_SLOTS,
+                   max_seq=DENSE_MAX_SEQ, prefill_chunk=PREFILL_CHUNK)
+    bound = warm(label, eng, reqs[:1])
+    control = overload_serve(f"{label} control", eng, reqs, bound,
+                             ("qmatmul_w8a16",))
+    plan = E.FaultPlan([E.Fault(tick=t, kind=k, slot=s)
+                        for k, t, s in SSM_OVERLOAD_FAULTS])
+    rep = overload_serve(f"{label} preemption + faults", eng, reqs, bound,
+                         ("qmatmul_w8a16",), preemption=True,
+                         fault_plan=plan, max_retries=OVERLOAD_MAX_RETRIES)
+    for name, r in (("control", control), ("preemption + faults", rep)):
+        if r.outputs() != {rid: want[rid] for rid in r.outputs()} or len(
+                r.results) != len(reqs) or r.failed:
+            raise AssertionError(f"{label} {name}: tokens differ from the "
+                                 f"contiguous serve's, or a request failed")
+    if (rep.preempted < 2 or rep.nonfinite_samples != 1
+            or rep.dispatch_retries != 1 or rep.resumed_prefill_tokens <= 0
+            or len(plan.fired) != len(SSM_OVERLOAD_FAULTS)):
+        raise AssertionError(f"{label}: preempted {rep.preempted}, "
+                             f"nonfinite {rep.nonfinite_samples}, retries "
+                             f"{rep.dispatch_retries}, fired {plan.fired}")
+    same_as_control(f"{label} preemption + faults", rep, control)
+    print(f"{label}: control and the preempted, faulted serve both equal "
+          f"the contiguous serve token for token ({rep.preempted} "
+          f"preemptions, {rep.resumed_prefill_tokens} tokens re-prefilled "
+          f"from position 0, fired {plan.fired})")
+    return {"preempted": rep.preempted, "ticks": rep.ticks,
+            "control_ticks": control.ticks}
+
+
+def ssm_cli_phase():
+    """The serve CLI at full mamba2-1.3b width (SSM_SERVE_ARGS): under
+    --quant w8a16, exit 0, the service curve's chunked forward on the mma
+    path only, the decode loop and the engine on the GEMV, and
+    SSM_CLI_COMPARE requests equal to ``reference_outputs`` token for
+    token; then under --quant w8a8 (every projection on qmatmul_w8a8, the
+    head on the W8A16 GEMV).  Returns each run's launches."""
+    from repro_torch.launch import serve
+
+    real_curve = serve.measure_service_curve
+    curve_paths = {}
+    serve.measure_service_curve = counted_curve(real_curve, curve_paths)
+    out = {}
+    try:
+        for quant in ("w8a16", "w8a8"):
+            label = f"serve {SSM_ARCH} {quant}"
+            out[quant], res = serve_run(quant, curve_paths,
+                                        base=SSM_SERVE_ARGS, label=label)
+            if quant == "w8a16":
+                rep = res.report
+                reqs = res.requests[:SSM_CLI_COMPARE]
+                compare_sampled(label, res.cfg, res.params, res.engine,
+                                reqs, rep.outputs())
+            del res
+            torch_cuda_empty()
+    finally:
+        serve.measure_service_curve = real_curve
+    return out
+
+
+def ssm_phase(flush):
+    """mamba2-1.3b at full width (48 layers, d 2,048, d_inner 4,096, 64
+    SSD heads of 64, state N 128, conv width 4, vocab 50,280 tied): the
+    kernel rows at its shapes, then the model from the streamed init,
+    the dense trace served greedy and sampled (t = SAMPLE_TEMP), each
+    equal to ``reference_outputs`` token for token (no near-tie rule:
+    every op of the decode computes a row the same whatever the batch),
+    the overload serves against their control, the captured tick (with
+    the freeze and the scrub checked on the card) and the chunk step
+    against their floors, then the serve CLI under w8a16 and w8a8.
+    Returns the kernel rows, the launches of each run and the times."""
+    import torch
+    from repro_torch import engine as E
+    from repro_torch.runtime import prng as P
+    from repro_torch.runtime import steps as ST
+
+    t0 = time.perf_counter()
+    print(f"ssm: the kernels at {SSM_ARCH}'s shapes")
+    q_err, q_rows, w8_err, w8_rows, per_m = ssm_qmatmul_rows(flush)
+    print(f"ssm: kernel rows {time.perf_counter() - t0:.1f}s")
+    torch_cuda_empty()
+    cfg, params = build_dense_model(SSM_ARCH)
+    reqs = E.synthetic_requests(
+        DENSE_REQUESTS, rate_per_s=DENSE_RATE_PER_S, vocab=cfg.vocab,
+        prompt_len=DENSE_PROMPT, max_new_tokens=DENSE_NEW,
+        shared_prefix_len=DENSE_SHARED, seed=SEED)
+    out = {"qmatmul_rows": q_rows, "qmatmul_err": q_err,
+           "w8a8_rows": w8_rows, "w8a8_err": w8_err, "per_m": per_m}
+    label = f"ssm {SSM_ARCH}"
+    eng, rep, out["launches"] = dense_serve(f"{label} contiguous", cfg,
+                                            params, reqs)
+    print(f"{label} contiguous: the state of {eng.num_slots} slots "
+          f"{ssm_state_bytes(cfg, eng.num_slots)} bytes; "
+          f"torch.cuda.max_memory_allocated "
+          f"{torch.cuda.max_memory_allocated()} bytes")
+    compare_sampled(f"{label} contiguous", cfg, params, eng, reqs,
+                    rep.outputs())
+    contig = rep.outputs()
+    out["serves"] = {"greedy": {"ticks": rep.ticks, "tok_s":
+                                rep.generated_tokens / rep.wall_s}}
+    del eng
+    eng, rep, _ = dense_serve(f"{label} sampled", cfg, params, reqs,
+                              temperature=SAMPLE_TEMP,
+                              rng=P.PRNGKey(SEED + 1, device="cuda"))
+    compare_sampled(f"{label} sampled", cfg, params, eng, reqs,
+                    rep.outputs())
+    out["serves"]["sampled"] = {"ticks": rep.ticks, "tok_s":
+                                rep.generated_tokens / rep.wall_s}
+    del eng
+    out["overload"] = ssm_overload(cfg, params, reqs, f"{label} overload",
+                                   contig)
+    ST.clear_step_cache()
+    torch_cuda_empty()
+    print(f"ssm: serves {time.perf_counter() - t0:.1f}s")
+    out["tick"] = ssm_tick(cfg, params, f"{label} tick")
+    out["chunk"] = ssm_chunk(cfg, params, f"{label} chunk")
+    print(f"ssm: tick and chunk {time.perf_counter() - t0:.1f}s")
+    ST.clear_step_cache()
+    del params
+    torch_cuda_empty()
+    out["cli"] = ssm_cli_phase()
+    ST.clear_step_cache()
+    torch_cuda_empty()
+    out["seconds"] = time.perf_counter() - t0
+    print(f"ssm: phase {out['seconds']:.1f}s; "
+          f"{torch.cuda.memory_allocated()} bytes left allocated")
+    return out
+
+
 PHASES = ("attention", "long_tick", "w8a8", "graphs", "dense", "sampling",
-          "spec", "moe", "encdec")
+          "spec", "moe", "encdec", "ssm")
 
 
 def parse_args(argv):
@@ -4874,7 +5387,9 @@ def parse_args(argv):
                          "the MoE family (qwen2-moe-a2.7b's kernel rows, "
                          "serves, chunk pass, tick and CLI), or the encdec "
                          "family (whisper-medium's kernel rows, serves, "
-                         "prime, tick and CLI); prints no result line")
+                         "prime, tick and CLI), or the ssm family "
+                         "(mamba2-1.3b's kernel rows, serves, overload, "
+                         "tick, chunk and CLI); prints no result line")
     return ap.parse_args(argv)
 
 
@@ -4974,7 +5489,8 @@ def main(argv=None) -> int:
                 serve.measure_service_curve = real_curve
         if "spec" in args.only and "moe" not in args.only:
             spec_moe_only()             # the MoE phase runs it otherwise
-        if {"moe", "encdec"} & set(args.only):   # last, as in the whole run
+        if {"moe", "encdec", "ssm"} & set(args.only):   # last, as in the
+            # whole run
             from repro_torch.runtime import steps as ST
             ST.clear_step_cache()       # starcoder's graphs and weights go
             params = None               # first, as in the whole run
@@ -4985,6 +5501,10 @@ def main(argv=None) -> int:
             ST.clear_step_cache()
             torch_cuda_empty()
             encdec_phase(flush, profile_serves=True)
+        if "ssm" in args.only:
+            ST.clear_step_cache()
+            torch_cuda_empty()
+            ssm_phase(flush)
         del flush_buf
         print(f"chip_smoke: partial run passed in "
               f"{time.perf_counter() - t_run:.1f}s; no result line")
@@ -5029,6 +5549,9 @@ def main(argv=None) -> int:
     ST.clear_step_cache()
     torch_cuda_empty()
     enc = timed(encdec_phase, flush)
+    ST.clear_step_cache()
+    torch_cuda_empty()
+    ssm = timed(ssm_phase, flush)
     del flush_buf
 
     tick_basis = (f"one {{}} of {NUM_SLOTS} rows at full width: the sum "
@@ -5223,6 +5746,47 @@ def main(argv=None) -> int:
                  f"{SERVE_SEQ} tokens, causal; library SDPA; "
                  f"launches: the contiguous serve's primes, the paged "
                  f"serve's and the serve CLI's run"}
+    # the ssm family: both matmul kernels at mamba2-1.3b's shapes, and
+    # their launches in its serves (the GEMV) and CLI runs (the curve's
+    # mma path; every projection on qmatmul_w8a8 under --quant w8a8)
+    ssm_tick_t = ssm["per_m"][NUM_SLOTS]
+    kernels[0]["ssm"] = {
+        **numbers(ssm_tick_t), "rows": ssm["qmatmul_rows"],
+        "max_abs_err": ssm["qmatmul_err"],
+        "forward": {**numbers(ssm["per_m"][SERVE_ROWS]),
+                    "basis": f"one {SSM_ARCH} forward of {SERVE_MAX_BATCH} "
+                             f"x {SERVE_SEQ} tokens on the mma path: 48 x "
+                             f"(in_proj, out_proj) and the head, summed"},
+        "launches": ssm["launches"]["qmatmul_w8a16"],
+        "launches_by_path": {"gemv": ssm["launches"]["qmatmul_w8a16[gemv]"],
+                             "mma": ssm["cli"]["w8a16"]["curve_mma"]},
+        "cli_launches": ssm["cli"]["w8a16"]["qmatmul_w8a16"],
+        "tick": ssm["tick"], "chunk": ssm["chunk"],
+        "serves": ssm["serves"], "overload": ssm["overload"],
+        "basis": f"one {SSM_ARCH} tick of {NUM_SLOTS} rows on the GEMV: "
+                 f"48 x (in_proj K 2,048 x N 8,512, out_proj K 4,096 x N "
+                 f"2,048) and the head (N 50,280), summed; rows: each "
+                 f"shape at M = {NUM_SLOTS} (GEMV) and {SERVE_ROWS} (mma); "
+                 f"launches: the contiguous greedy serve of "
+                 f"{DENSE_REQUESTS} requests (by path: its GEMVs, the CLI "
+                 f"curve's mma), the w8a16 CLI run; tick and chunk: the "
+                 f"captured steps' wall, busy and floor, in ms"}
+    w8_ssm = ssm["w8a8_rows"]
+    kernels[3]["ssm"] = {
+        "rows": w8_ssm, "max_abs_err": ssm["w8a8_err"],
+        "launches": ssm["cli"]["w8a8"]["qmatmul_w8a8"],
+        "basis": f"one launch at each {SSM_ARCH} projection, M = "
+                 f"{NUM_SLOTS} (the GEMV) and {SERVE_ROWS} (mma.sync); "
+                 f"launches: the serve CLI's --quant w8a8 run"}
+    if min(kernels[0]["ssm"]["launches"], kernels[0]["ssm"]["cli_launches"],
+           *kernels[0]["ssm"]["launches_by_path"].values(),
+           kernels[3]["ssm"]["launches"]) <= 0:
+        return fail("a kernel of the ssm path never launched")
+    if any(not math.isfinite(t[key]) for t in (
+            *ssm["qmatmul_rows"].values(), *w8_ssm.values(),
+            ssm_tick_t, ssm["per_m"][SERVE_ROWS])
+           for key in ("ms", "plain_ms", "bound_ms", "library_ms")):
+        return fail("an ssm kernel row is not finite")
     if min(kernels[0]["encdec"]["launches_by_path"].values()) <= 0 or min(
             kernels[4]["encdec"][key]
             for key in ("launches", "paged_launches", "cli_launches")) <= 0:

@@ -39,6 +39,9 @@ whisper-medium`` serves the encdec family: the curve's forward encodes
 zero frames of the config's ``input_specs`` beside its tokens, the decode
 loop attends a zero cross k/v over the whole source, and every engine
 request carries its own source frames, primed into its slot at admission.
+``--arch mamba2-1.3b`` serves the ssm family: the curve's forward runs
+the chunked SSD scan, the decode loop and the engine the one-token state
+update (``--block-size`` and ``--spec-k`` are rejected for it).
 
   python -m repro_torch.launch.serve --arch starcoder2-3b --reduced \\
       --deadline-ms 50 --rate 200                  # on the card

@@ -1,4 +1,5 @@
-"""Family -> model module dispatch (the dense, MoE and encdec families).
+"""Family -> model module dispatch (the dense, MoE, encdec and ssm
+families).
 
 Uniform API per family, as in ``repro/models/registry.py``:
     init(gen, cfg, dtype, device) -> params
@@ -15,9 +16,11 @@ Uniform API per family, as in ``repro/models/registry.py``:
     prime_slot(params, source, n_valid, cfg, *, mode) -> primed leaves
                                       (families that prime: encdec)
     cache_batch_axes(cache) -> {leaf: slot axis} (where not axis 1)
+    mask_inactive_slots(old, new, active) -> cache (families with
+                                      non-positional state: ssm)
 
-The dense, MoE and encdec families are ported; the others arrive with
-their model modules (ROADMAP queue 1, item 13).
+The dense, MoE, encdec and ssm families are ported; the others arrive
+with their model modules (ROADMAP queue 1, item 13).
 """
 from __future__ import annotations
 
@@ -28,9 +31,10 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.qlinear import FP, QuantMode
-from repro_torch.models import encdec, moe, transformer
+from repro_torch.models import encdec, moe, ssm, transformer
 
-_MODULES = {"dense": transformer, "moe": moe, "encdec": encdec}
+_MODULES = {"dense": transformer, "moe": moe, "encdec": encdec,
+            "ssm": ssm}
 
 
 def module_for(cfg: ArchConfig):
@@ -118,11 +122,35 @@ def cache_batch_axes(cfg: ArchConfig, cache: dict) -> dict:
 
 def mask_inactive_slots(cfg: ArchConfig, old_cache: dict, new_cache: dict,
                         active):
-    """Slot-engine isolation hook.  KV caches need nothing: stale positional
-    entries are invisible behind each row's ``valid_len`` frontier, so the
-    dense and MoE families return ``new_cache`` unchanged."""
-    module_for(cfg)
+    """Slot-engine isolation hook, out of place: ``new_cache`` with the
+    inactive rows' *non-positional* state restored from ``old_cache``.
+
+    KV caches need nothing: stale positional entries are invisible behind
+    each row's ``valid_len`` frontier, so the dense, MoE and encdec
+    families return ``new_cache`` unchanged.  A recurrent family (ssm)
+    defines ``mask_inactive_slots`` in its module: its state has no
+    frontier to hide behind, so inactive rows are frozen bitwise.  The
+    port's decode steps write their cache in place, so the slot tick does
+    not call this hook: it hands the decode step its row mask as the cache
+    view's ``active`` (``runtime/steps.py``), and the module's step keeps
+    the same rule layer by layer."""
+    m = module_for(cfg)
+    if hasattr(m, "mask_inactive_slots"):
+        return m.mask_inactive_slots(old_cache, new_cache, active)
     return new_cache
+
+
+# families whose decode state is a recurrence: it advances one token per
+# call of the decode step, through every token fed
+RECURRENT = ("ssm", "hybrid")
+
+
+def decodes_chunk_in_one_pass(cfg: ArchConfig) -> bool:
+    """True when ``decode_step(..., causal=True)`` takes a row's s tokens
+    in one pass, bitwise s one-token steps (the chunk step's W8A16 path):
+    the positional-KV families.  A recurrent family's decode step takes
+    one token a row per call, so its chunk runs token by token."""
+    return cfg.family not in RECURRENT
 
 
 # ---------------------------------------------------------------------------
@@ -165,9 +193,9 @@ def prime_slot(cfg: ArchConfig, params, source, n_valid, *,
 # families whose decode state a rewind of ``cache_index`` cannot restore:
 # recurrent state that advances through every fed token (ssm, hybrid), or
 # a primed cross-attention that the verify scan does not carry (vlm;
-# encdec answers through needs_prime).  Not ported; answered here without
-# reaching their refusal.
-_UNREWINDABLE = ("ssm", "hybrid", "vlm")
+# encdec answers through needs_prime).  Answered here by family, so the
+# unported ones (hybrid, vlm) do not reach their refusal.
+_UNREWINDABLE = RECURRENT + ("vlm",)
 
 
 def supports_speculation(cfg: ArchConfig) -> bool:

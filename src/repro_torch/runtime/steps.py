@@ -265,7 +265,11 @@ def make_slot_decode_step(cfg: ArchConfig, *, mode: QuantMode = FP,
     Inactive rows still write their k/v at their frozen index, which no
     read can see (every read is masked at the row's own frontier); on a
     paged cache they write through their table, into trash block 0 once
-    the row is retired."""
+    the row is retired.  Non-positional state (ssm's ``h`` and conv tail)
+    has no frontier to hide behind: the decode step sees ``active`` as
+    the cache view's row mask and leaves an inactive row's state bitwise
+    as it was (the slot contract's freeze, ``registry.mask_inactive_slots``
+    done in place); the dense, MoE and encdec steps ignore it."""
     decode = make_decode_step(cfg, mode=mode)
 
     def step(params, tokens, cache, slot_index, active, *rng):
@@ -274,9 +278,9 @@ def make_slot_decode_step(cfg: ArchConfig, *, mode: QuantMode = FP,
                 "a sampled slot step takes a trailing rng key, a greedy "
                 "one none: step(params, tokens, cache, slot_index, active"
                 + (", rng)" if temperature > 0.0 else ")"))
-        logits, cache = decode(
-            params, {"tokens": tokens, "cache_index": slot_index}, cache)
-        cache = R.mask_inactive_slots(cfg, cache, cache, active)
+        logits, _ = decode(
+            params, {"tokens": tokens, "cache_index": slot_index},
+            dict(cache, active=active))
         if temperature > 0.0:
             nxt = temperature_sample_rows(
                 logits, P.fold_in(rng[0], slot_index), temperature)
@@ -473,7 +477,7 @@ def make_per_token_chunk_step(cfg: ArchConfig, *, mode: QuantMode = FP,
         else:
             row = {k: v.narrow(axes[k], sid, 1) for k, v in cache.items()}
         toks = torch.as_tensor(tokens, dtype=torch.int32,
-                               device=cache["k"].device)
+                               device=_device(cache))
         for i in range(int(n_valid)):
             decode(params, {"tokens": toks[i:i + 1].reshape(1, 1),
                             "cache_index": int(start) + i},
@@ -481,6 +485,12 @@ def make_per_token_chunk_step(cfg: ArchConfig, *, mode: QuantMode = FP,
         return cache
 
     return step
+
+
+def _device(cache: dict) -> torch.device:
+    """The device of a cache (any leaf's: a KV cache's or a recurrent
+    state's)."""
+    return next(iter(cache.values())).device
 
 
 def _leaves(node):
@@ -514,9 +524,12 @@ def make_prefill_chunk_step(cfg: ArchConfig, *, mode: QuantMode = FP,
     are never run, which leaves the cache exactly as unpadded prefill
     would.
 
-    Under W8A16, where every projection is a ``QTensor``, the chunk runs
-    as ONE decode pass of tokens (1, n_valid) at ``cache_index = start``,
-    causal (token i attends the slots below ``start + i + 1``): it writes
+    Under W8A16, where every projection is a ``QTensor`` and the family's
+    decode step takes a row's tokens in one pass
+    (``registry.decodes_chunk_in_one_pass``: the positional-KV families),
+    the chunk runs as ONE decode pass of tokens (1, n_valid) at
+    ``cache_index = start``, causal (token i attends the slots below
+    ``start + i + 1``): it writes
     every token's k/v, then attends each as a query row of its own
     (``layers.attention``), so the weights are read once per chunk.  Its
     bytes are still the per-token path's, because every op of that pass
@@ -526,14 +539,15 @@ def make_prefill_chunk_step(cfg: ArchConfig, *, mode: QuantMode = FP,
     ``q8`` and RoPE.  Otherwise the chunk runs the one-token decode step
     once per real token: under W8A8 one pass would quantize the n tokens'
     activations with one scale (``kernels/ops.py::qmatmul_dynamic``)
-    where the reference's scan quantizes each token alone, and under FP
-    ``torch.matmul`` promises no row invariance.
+    where the reference's scan quantizes each token alone, under FP
+    ``torch.matmul`` promises no row invariance, and a recurrent family
+    (ssm) steps its state one token per call.
 
     The step reads the slot's row through a table, so no Python ``sid``
     narrows the cache: the paged cache's table row, or, on a contiguous
     cache, ``[sid]`` over its leaves read as blocks of one slot row each;
-    a family that primes reads its slot-resident leaves at ``slots =
-    sid`` (``encdec.decode_step``).
+    slot-resident leaves are read (and a recurrent state written) at
+    ``slots = sid`` (``encdec.decode_step``, ``ssm.decode_step``).
     On a paged cache it writes only positions ``start .. start + n_valid
     - 1``, which lie in blocks the slot owns privately — a shared prefix
     block is never written.  (The reference gathers the row into a
@@ -544,18 +558,17 @@ def make_prefill_chunk_step(cfg: ArchConfig, *, mode: QuantMode = FP,
     tensors, what :func:`jit_prefill_chunk_step` captures: ``toks`` the
     n real tokens (n,), ``sid`` and ``start`` (1,) int32."""
     decode = make_decode_step(cfg, mode=mode)
-    primed = R.needs_prime(cfg)
+    one_pass = (mode.enabled and not mode.w8a8
+                and R.decodes_chunk_in_one_pass(cfg))
 
     def body(params, cache, toks, sid, start):
         if "block_tables" in cache:
             table = cache["block_tables"].index_select(0, sid)
         else:
             table = sid.reshape(1, 1)
-        view = dict(cache, block_tables=table)
-        if primed:
-            view["slots"] = sid
+        view = dict(cache, block_tables=table, slots=sid)
         n = toks.shape[0]
-        if mode.enabled and not mode.w8a8 and _projections_quantized(params):
+        if one_pass and _projections_quantized(params):
             decode(params, {"tokens": toks.reshape(1, n),
                             "cache_index": start}, view, logits=False,
                    causal=True)
@@ -572,7 +585,7 @@ def make_prefill_chunk_step(cfg: ArchConfig, *, mode: QuantMode = FP,
                              f"tokens")
         n = int(n_valid)
         if n:
-            dev = cache["k"].device
+            dev = _device(cache)
             body(params, cache,
                  torch.as_tensor(tokens[:n], dtype=torch.int32, device=dev),
                  torch.tensor([int(sid)], dtype=torch.int32, device=dev),
@@ -615,7 +628,7 @@ def jit_prefill_chunk_step(step: Callable) -> Callable:
             packed = torch.tensor([int(sid), int(start)]
                                   + [int(t) for t in tokens[:n]],
                                   dtype=torch.int32)
-            if cache["k"].is_cuda:
+            if _device(cache).type == "cuda":
                 packed = packed.pin_memory()
             captured(params, cache, packed)
         return cache

@@ -22,7 +22,9 @@ captured ticks, a speculating engine equal to its control), and the
 encdec family (the captured prime bitwise the eager one, the plain
 cross-attention's rows batch-invariant, the LM head padded to a multiple
 of 4 columns, the engine on reduced whisper-medium equal to its
-reference), at small shapes.
+reference), and the ssm family (the engine on reduced mamba2-1.3b equal
+to its reference, the captured tick's freeze and scrub), at small
+shapes.
 
 Every test here is marked ``gpu`` and skips without a CUDA device; the
 module imports no JAX, so it also runs where only the port is installed:
@@ -1927,3 +1929,64 @@ def test_encdec_engine_on_card_equals_reference(cuda, kind):
             cfg, params, reqs, mode=W8A16, max_seq=16, temperature=t,
             rng=key)
         assert rep.leaked_blocks == 0
+
+
+def _mamba(cuda):
+    cfg = get_config("mamba2-1.3b").reduced()
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    return cfg, R.init_quantized(gen, cfg, device=cuda)
+
+
+def test_ssm_engine_on_card_equals_reference(cuda):
+    """Reduced mamba2-1.3b on the card: 16 requests through 4 slots
+    (slot reuse), with and without chunked prefill, greedy and sampled,
+    every token equal to the sequential batch-1 reference."""
+    from repro_torch.runtime import prng as P
+    cfg, params = _mamba(cuda)
+    reqs = E.synthetic_requests(16, rate_per_s=3000.0, vocab=cfg.vocab,
+                                prompt_len=6, max_new_tokens=5)
+    for chunk in (4, None):
+        for t, key in ((0.0, None), (0.8, P.PRNGKey(3))):
+            eng = E.Engine(cfg, params, mode=W8A16, num_slots=4, max_seq=16,
+                           prefill_chunk=chunk, temperature=t, rng=key)
+            eng.warmup()
+            rep = eng.serve(reqs)
+            assert rep.outputs() == E.reference_outputs(
+                cfg, params, reqs, mode=W8A16, max_seq=16, temperature=t,
+                rng=key)
+            assert {r.slot for r in rep.results} == set(range(4))
+
+
+def test_ssm_captured_tick_freezes_inactive_rows_on_card(cuda):
+    """The captured ssm tick on the card: bitwise the eager tick, inactive
+    rows' h and conv bitwise unchanged (one of them at index 0, so not
+    scrubbed), and a new tenant at index 0 decoding as in a fresh pool."""
+    cfg, params = _mamba(cuda)
+    S = 4
+    eager = ST.make_slot_decode_step(cfg, mode=W8A16)
+    graphed = ST.jit_slot_decode_step(ST.make_slot_decode_step(
+        cfg, mode=W8A16))
+    g = torch.Generator(device=cuda).manual_seed(1)
+    cache = R.init_cache(cfg, S, 16, device=cuda)
+    cache["h"].normal_(generator=g)
+    cache["conv"].copy_(torch.randn(cache["conv"].shape, generator=g,
+                                    device=cuda))
+    toks = torch.tensor([[5], [1], [9], [2]], dtype=torch.int32, device=cuda)
+    idx = torch.tensor([2, 0, 3, 1], dtype=torch.int32, device=cuda)
+    active = torch.tensor([True, False, True, False], device=cuda)
+    want = {k: v.clone() for k, v in cache.items()}
+    got = {k: v.clone() for k, v in cache.items()}
+    n_e = eager(params, toks, want, idx, active)[0].clone()
+    n_g = graphed(params, toks, got, idx, active)[0].clone()
+    assert torch.equal(n_e, n_g)
+    for k in cache:
+        assert torch.equal(got[k], want[k])
+        assert torch.equal(got[k][:, ~active], cache[k][:, ~active])
+    only1 = torch.tensor([False, True, False, False], device=cuda)
+    zero = torch.zeros((S,), dtype=torch.int32, device=cuda)
+    fresh = R.init_cache(cfg, S, 16, device=cuda)
+    a = graphed(params, toks, got, zero, only1)[0].clone()
+    b = eager(params, toks, fresh, zero, only1)[0].clone()
+    assert int(a[1]) == int(b[1])
+    for k in cache:
+        assert torch.equal(got[k][:, 1], fresh[k][:, 1])

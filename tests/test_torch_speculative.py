@@ -72,9 +72,10 @@ def _one_thread():
 
 def _cfgs(arch):
     """(the JAX config, the port's): starcoder2-3b on the int8 cache;
-    qwen2-moe-a2.7b on the bf16 cache with an int8 router."""
-    fields = (dict(kv_quant=True) if arch == "starcoder2-3b"
-              else dict(QUIRKS, kv_quant=False))
+    qwen2-moe-a2.7b on the bf16 cache with an int8 router; mamba2-1.3b
+    (the refusals' recurrent family) as ``reduced()`` makes it."""
+    fields = {"starcoder2-3b": dict(kv_quant=True),
+              "mamba2-1.3b": {}}.get(arch, dict(QUIRKS, kv_quant=False))
     return tuple(dataclasses.replace(get(arch).reduced(), **fields)
                  for get in (jget_config, get_config))
 
@@ -146,7 +147,7 @@ SUPPORT = {"starcoder2-3b": ("starcoder2-3b", {}, True),
            "qwen2-moe-a2.7b": ("qwen2-moe-a2.7b", {}, True),
            "windowed-dense": ("starcoder2-3b", dict(window=8), False),
            "windowed-moe": ("qwen2-moe-a2.7b", dict(window=8), False),
-           "ssm": ("starcoder2-3b", dict(family="ssm"), False),
+           "ssm": ("mamba2-1.3b", {}, False),
            "hybrid": ("starcoder2-3b", dict(family="hybrid"), False),
            "encdec": ("whisper-medium", {}, False),
            "vlm": ("starcoder2-3b", dict(family="vlm"), False)}
@@ -195,10 +196,9 @@ def test_draft_params_is_a_shared_view(arch):
 
 
 def test_draft_params_refuses_non_speculative_families():
-    cfg = dataclasses.replace(get_config("starcoder2-3b").reduced(),
-                              family="ssm")
+    _, cfg, _, params = _setup("mamba2-1.3b")
     with pytest.raises(ValueError, match="self-draft"):
-        R.draft_params(cfg, {}, 1)
+        R.draft_params(cfg, params, 1)
 
 
 def test_spec_needs_exactly_one_draft_source():
@@ -218,19 +218,19 @@ def test_spec_needs_exactly_one_draft_source():
 
 
 def test_rejects_unrewindable_targets_and_drafts():
-    """A windowed target or draft is refused as not rewindable; so is a
-    recurrent draft; a recurrent target is still refused as an unported
-    family, as without speculation."""
+    """A windowed target or draft is refused as not rewindable; so are a
+    recurrent draft and a recurrent target (mamba2-1.3b with its own
+    params)."""
     _, cfg, _, params = _setup()
+    _, scfg, _, sparams = _setup("mamba2-1.3b")
     windowed = dataclasses.replace(cfg, window=8)
     with pytest.raises(ValueError, match="rewindable"):
         _engine(windowed, params, spec_k=2, draft_layers=1)
-    for bad in (windowed, dataclasses.replace(cfg, family="ssm")):
+    for bad, bad_params in ((windowed, params), (scfg, sparams)):
         with pytest.raises(ValueError, match="rewindable"):
-            _engine(cfg, params, spec_k=2, draft=(bad, params))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        _engine(dataclasses.replace(cfg, family="ssm"), params, spec_k=2,
-                draft_layers=1)
+            _engine(cfg, params, spec_k=2, draft=(bad, bad_params))
+    with pytest.raises(ValueError, match="rewindable"):
+        _engine(scfg, sparams, spec_k=2, draft_layers=1)
 
 
 def test_rejects_vocab_mismatch_and_a_draft_elsewhere():
