@@ -214,7 +214,27 @@ Phases, each of which fails the run (non-zero exit, no result line):
    alone; the chunk step captured and per-token bitwise, its busy a
    token against a token's floor; then the serve CLI with ``--arch
    mamba2-1.3b`` under w8a16 (four requests equal to the reference) and
-   w8a8.
+   w8a8, each run's captured curve bitwise the eager forward at every
+   batch (timed under w8a16 only).
+14. hybrid: recurrentgemma-9b at full width (38 layers: 12 groups of two
+   RG-LRU blocks and a local-attention block, 2 leftover RG-LRU blocks;
+   d 4,096, 16 query heads and 1 KV head of 256, window 2,048, vocab
+   256,000 tied).  First ``flash_attention_bhsd`` at head_dim 256 (the
+   kernel's HD = 256 instance: the CLI curve's BH = 16 x 1, 4, 16 at S =
+   32, and S = 4,096 where the window bites), then ``qmatmul_w8a16`` and
+   ``qmatmul_w8a8`` at its projections and the 256,000-column head, each
+   timed beside its plain version, its library call and its bound; then
+   the model from the streamed init, the dense trace served greedy and
+   sampled, each equal to ``reference_outputs`` token for token, the
+   overload serves against their control; the ring tick (8 rows at
+   positions 2,045-2,052 of a 2,048-slot ring): captured bitwise eager,
+   each row's logits and leaves bitwise its batch-1 step, the freeze on
+   the card, its launches, wall, busy and floor; the chunk step captured
+   and per-token bitwise; then the serve CLI with ``--arch
+   recurrentgemma-9b`` under w8a16 (four requests equal to the
+   reference) and w8a8 (the curve's RG-LRU gates and head on the mma
+   path, 53 launches a forward), each run's captured curve bitwise the
+   eager forward at every batch (timed under w8a16 only).
 
 The kernel phase holds both of ``qmatmul_w8a16``'s kernels (the GEMV and
 the ``mma.sync`` bf16 tensor-core path) at every projection and the LM
@@ -250,13 +270,14 @@ than before the redesigns.
 
 ``--only attention`` / ``--only long_tick`` / ``--only w8a8`` / ``--only
 graphs`` / ``--only dense`` / ``--only sampling`` / ``--only spec`` /
-``--only moe`` / ``--only encdec`` / ``--only ssm`` run just the two
+``--only moe`` / ``--only encdec`` / ``--only ssm`` / ``--only hybrid``
+run just the two
 attention kernel
 phases, the long-context ticks, ``qmatmul_w8a8``'s kernel phase and the
 W8A8 tick, the five eager tick breakdowns and the graph phase, the dense
 family's kernel rows, rmsnorm widths and phase 10, phase 7 and the
 sampled serve CLI run, phase 8 with its CLI run and qwen2-moe-a2.7b's
-speculative serve, phase 11, phase 12 or phase 13, and ``--src DIR``
+speculative serve, phase 11, 12, 13 or 14, and ``--src DIR``
 takes the port from
 another checkout's ``src/`` (so the same phases time a parent commit's
 kernels); such a partial run prints no result line.
@@ -273,7 +294,9 @@ qmatmul_w8a16's and flash_attention_bhsd's rows at whisper-medium's
 shapes, their launches in its serves and the prime's and tick's times
 under ``encdec``; qmatmul_w8a16's and qmatmul_w8a8's rows at
 mamba2-1.3b's shapes, their launches and the tick's and chunk's times
-under ``ssm``),
+under ``ssm``; the three kernels' rows at recurrentgemma-9b's shapes,
+flash's at head_dim 256, their launches and the ring tick's and chunk's
+times under ``hybrid``),
 the whole run's time, and,
 last, ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
 without the repo's ``src/repro_torch`` beside it, it exits non-zero and
@@ -1844,12 +1867,15 @@ def counted_curve(real_curve, curve_paths):
     return curve
 
 
-def serve_run(quant, curve_paths, flags=(), base=SERVE_ARGS, label=None):
+def serve_run(quant, curve_paths, flags=(), base=SERVE_ARGS, label=None,
+              curve_timing=True):
     """One serve launcher run of ``base`` arguments, counters zeroed just
     before and read just after, and checked: (its kernel launches, its
     ServeRun).  With the overload ``flags`` the run must print its
     retirement and faults lines, and every request retire once (a fault
-    may fail one)."""
+    may fail one).  Without them each batch's captured forward is held to
+    the eager one (``curve_check``), and with ``curve_timing`` the curve's
+    largest forward is broken down and both forms timed."""
     import contextlib
     import io
 
@@ -1916,10 +1942,15 @@ def serve_run(quant, curve_paths, flags=(), base=SERVE_ARGS, label=None):
                              f"launch only the mma path (an MoE router the "
                              f"GEMV, its experts the stacked mma entry, 3 "
                              f"a layer): {curve_paths}")
-    if quant == "w8a8" and (curve_paths["mma"]
-                            or curve_paths["experts[mma]"]):
-        raise AssertionError(f"{label}: the W8A8 forward took qmatmul_w8a16's "
-                             f"mma path: {curve_paths}")
+    per_forward = w8a8_forward_mma(res.cfg)
+    mma = curve_paths["mma"]
+    ok = (mma > 0 and mma % per_forward == 0 and not curve_paths["gemv"]
+          if per_forward else not mma)
+    if quant == "w8a8" and (curve_paths["experts[mma]"] or not ok):
+        raise AssertionError(f"{label}: the W8A8 forward's qmatmul_w8a16 "
+                             f"launches by path {curve_paths}, want "
+                             f"{per_forward} mma launches a forward and "
+                             f"{'no GEMV' if per_forward else 'no mma'}")
     if "--fault-seed" in flags:
         lines = [ln for ln in out.getvalue().splitlines()
                  if ln.startswith(("[engine] retirement:",
@@ -1945,8 +1976,9 @@ def serve_run(quant, curve_paths, flags=(), base=SERVE_ARGS, label=None):
     launches["curve_mma"] = curve_paths["mma"]
     launches["curve_experts_mma"] = curve_paths["experts[mma]"]
     if not flags:
-        forward_breakdown(label, res)
-        curve_check(label, res, serve.parse_args(argv))
+        if curve_timing:
+            forward_breakdown(label, res)
+        curve_check(label, res, serve.parse_args(argv), curve_timing)
     return launches, res
 
 
@@ -1958,6 +1990,29 @@ def gemvs_per_layer(cfg) -> int:
     if cfg.family == "ssm":
         return 2
     return 4 + (3 if cfg.gated_mlp else 2) + (cfg.family == "moe")
+
+
+def step_gemvs(cfg) -> int:
+    """qmatmul_w8a16's GEMV launches of one decode step's layers, the head
+    not counted: ``gemvs_per_layer`` a layer, or for the hybrid family a
+    recurrent block's five (its two input projections, the RG-LRU's two
+    gates and its output) and an attention block's four, each with its
+    MLP's three."""
+    if cfg.family == "hybrid":
+        mlp = 3 if cfg.gated_mlp else 2
+        groups, leftover = cfg.n_layers // 3, cfg.n_layers % 3
+        rec, attn = 5 + mlp, 4 + mlp
+        return groups * (2 * rec + attn) + leftover * rec
+    return gemvs_per_layer(cfg) * cfg.n_layers
+
+
+def w8a8_forward_mma(cfg) -> int:
+    """qmatmul_w8a16's mma launches of one W8A8 forward: the hybrid's
+    RG-LRU gates (W8A16 under every mode, two a recurrent block) and its
+    head; none for the other families, whose head takes the GEMV."""
+    if cfg.family != "hybrid":
+        return 0
+    return 2 * (2 * (cfg.n_layers // 3) + cfg.n_layers % 3) + 1
 
 
 def router_gemvs(cfg, mma: int) -> int:
@@ -2422,7 +2477,7 @@ def graph_chunk_case(cfg, params, label, S, max_seq, block_size, mode,
     eager step (under W8A16 one pass) and the captured step (one graph
     per n_valid), each on its copy of one random cache, every cache leaf
     ``torch.equal`` to the per-token step's; a replay's launch counts the
-    eager one pass's (under W8A16: ``gemvs_per_layer`` x layers GEMVs,
+    eager one pass's (under W8A16: ``step_gemvs`` GEMVs,
     an MoE layer's three expert stacks and one paged attention launch a
     layer, where the per-token step launches n times that); then a full
     chunk's wall, device busy and launch calls three ways.  Returns the
@@ -2483,7 +2538,7 @@ def graph_chunk_case(cfg, params, label, S, max_seq, block_size, mode,
                                          f"from the per-token step's")
         if any(plain.values()):
             raise AssertionError(f"{label}: a plain version ran: {plain}")
-        projections = gemvs_per_layer(cfg) * cfg.n_layers
+        projections = step_gemvs(cfg)
         key = "qmatmul_w8a8" if mode == "w8a8" else "qmatmul_w8a16[gemv]"
         passes = 1 if one_pass else n
         stacks = 3 * cfg.n_layers if cfg.family == "moe" else 0
@@ -2627,15 +2682,16 @@ def curve_batch(cfg, b: int, seq: int, gen=None) -> dict:
     return batch
 
 
-def curve_check(label: str, res, args) -> None:
+def curve_check(label: str, res, args, timing: bool = True) -> None:
     """The service curve's forward eager against captured
     (``runtime/steps.py::jit_prefill_step``, what the launcher measured
     with) at each batch of the run's curve: the captured logits
-    ``torch.equal`` to the eager ones on random tokens, each form's wall
-    and device busy per call (the same method as the tick breakdowns:
-    wall over 3 calls, busy from PROFILED_CALLS), then the curve and the Table 4 batch the launcher's own
-    measurement gives through the eager step, beside the run's captured
-    curve and choice."""
+    ``torch.equal`` to the eager ones on random tokens; with ``timing``
+    also each form's wall and device busy per call (the same method as
+    the tick breakdowns: wall over 3 calls, busy from PROFILED_CALLS),
+    then the curve and the Table 4 batch the launcher's own measurement
+    gives through the eager step, beside the run's captured curve and
+    choice."""
     import torch
     from repro_torch.core import batching as bt
     from repro_torch.launch import serve
@@ -2654,6 +2710,10 @@ def curve_check(label: str, res, args) -> None:
                                      f"logits at batch {b} differ from the "
                                      f"eager forward's")
             del want
+        if not timing:
+            print(f"{label} curve b={b}: captured logits bitwise the eager "
+                  f"forward's")
+            continue
         what = f"forward of {b} x {args.seq} tokens"
         e = device_breakdown(f"{label} curve b={b} eager", what,
                              lambda: eager(res.params, batch), 3, False)
@@ -2669,6 +2729,9 @@ def curve_check(label: str, res, args) -> None:
         raise AssertionError(f"{label}: {graphed.captured.captures} "
                              f"captures for {len(res.curve)} batches")
     graphed.captured.release()
+    if not timing:
+        torch_cuda_empty()
+        return
     measure = getattr(serve.measure_service_curve, "__wrapped__",
                       serve.measure_service_curve)
     model, curve = measure(eager, res.params, res.cfg, seq=args.seq,
@@ -3415,7 +3478,8 @@ DENSE_RATE_PER_S = 20.0
 # qwen1.5-32b's 35.2 GB of int8 weights must come from an init whose peak
 # stays below this (its f32 tree alone is 141 GB); qwen2-moe-a2.7b's 14.0 GB
 # from one under 20 GB (its f32 tree is 56 GB, one f32 layer 2.28 GB)
-PEAK_BYTES = {"qwen1.5-32b": 45e9, "qwen2-moe-a2.7b": 20e9}
+PEAK_BYTES = {"qwen1.5-32b": 45e9, "qwen2-moe-a2.7b": 20e9,
+              "recurrentgemma-9b": 16e9}
 # the decode attention kernels' rows at the dense configs' (KV heads, G):
 # qwen1.5-32b, mistral-nemo-12b, internlm2-20b
 DENSE_HEADS = ((40, 1), (8, 4), (8, 6))
@@ -3615,6 +3679,11 @@ def build_dense_model(arch):
               f"{cfg.n_heads} q-heads / {cfg.n_kv_heads} kv-heads of "
               f"{cfg.head_dim}, {experts}ff={cfg.d_ff} gated "
               f"{cfg.activation}")
+    if cfg.family == "hybrid":
+        widths += (f", blocks {'/'.join(cfg.block_pattern)} repeated and "
+                   f"{cfg.n_layers % 3} leftover rec, RG-LRU width "
+                   f"{cfg.rnn_width}, conv width {cfg.conv_width}, local "
+                   f"window {cfg.local_window}")
     print(f"{cfg.family} {arch}: full width ({cfg.n_layers} layers, d="
           f"{cfg.d_model}, {widths}, vocab={cfg.vocab} "
           f"{'tied' if cfg.tie_embeddings else 'untied'}, {cfg.norm}), W8A16 "
@@ -4906,23 +4975,23 @@ SSM_CLI_COMPARE = 4         # requests of the CLI run held to the reference
 SSM_OVERLOAD_SLOTS = 4
 SSM_LATE_S = 0.05
 SSM_OVERLOAD_FAULTS = (("nan_logits", 6, 1), ("dispatch", 9, 2))
-# the W8A16 and W8A8 kernels at mamba2-1.3b's projections: (name, K, N)
-SSM_SHAPES = (("in_proj", 2048, 8512), ("out_proj", 4096, 2048))
+# the W8A16 and W8A8 kernels at mamba2-1.3b's projections: (name, K, N,
+# launches of a decode step)
+SSM_SHAPES = (("in_proj", 2048, 8512, 48), ("out_proj", 4096, 2048, 48))
 
 
-def ssm_qmatmul_rows(flush):
-    """qmatmul_w8a16 and qmatmul_w8a8 at mamba2-1.3b's shapes (SSM_SHAPES:
-    in_proj's N = 8,512 is 66.5 column tiles of 128, a width no earlier
-    family had): W8A16 at a tick's M = NUM_SLOTS through both kernels
-    (the GEMV timed, its rows equal alone) and at the CLI curve's M =
-    SERVE_ROWS on the mma path (its rows equal alone and in slices of
-    17), then the tied head (K 2,048 x N 50,280) the same way; W8A8 at
-    M = NUM_SLOTS (its GEMV) and SERVE_ROWS (mma.sync), the int32 sums
-    bitwise.  Each against its plain version and timed beside the bound
-    and a library call (``F.linear`` on bf16 weights; W8A8:
-    ``torch._int_mm`` + drain where the build takes the shape).  Returns
-    (worst W8A16 error, {shape: numbers}, worst W8A8 error, {shape:
-    numbers}, {M: one tick's or forward's W8A16 launches summed})."""
+def family_qmatmul_rows(flush, arch, shapes, seed):
+    """qmatmul_w8a16 and qmatmul_w8a8 at ``arch``'s ``shapes`` ((name, K,
+    N, launches a decode step)): W8A16 at a tick's M = NUM_SLOTS through
+    both kernels (the GEMV timed, its rows equal alone) and at the CLI
+    curve's M = SERVE_ROWS on the mma path (its rows equal alone and in
+    slices of 17), then the tied head the same way; W8A8 at M = NUM_SLOTS
+    (its GEMV) and SERVE_ROWS (mma.sync), the int32 sums bitwise.  Each
+    against its plain version and timed beside the bound and a library
+    call (``F.linear`` on bf16 weights; W8A8: ``torch._int_mm`` + drain
+    where the build takes the shape).  Returns (worst W8A16 error, {shape:
+    numbers}, worst W8A8 error, {shape: numbers}, {M: one tick's or
+    forward's W8A16 launches summed})."""
     import torch
     import torch.nn.functional as F
     from repro_torch.configs import get_config
@@ -4931,8 +5000,8 @@ def ssm_qmatmul_rows(flush):
     from repro_torch.kernels import qmatmul as K
     from repro_torch.models import layers as L
 
-    c = get_config(SSM_ARCH)
-    gen = torch.Generator(device="cuda").manual_seed(SEED + 29)
+    c = get_config(arch)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
     rows, worst = {}, 0.0
     keys = ("ms", "plain_ms", "bound_ms", "library_ms", "bytes_ms", "ops_ms")
     # a tick's GEMVs (every layer's two and the head) and the curve's
@@ -4958,7 +5027,7 @@ def ssm_qmatmul_rows(flush):
               f"({row['bound_by']})")
         return row
 
-    for name, k, n in SSM_SHAPES:
+    for name, k, n, count in shapes:
         q = quantize_weight(torch.randn((k, n), generator=gen,
                                         device="cuda") * k ** -0.5)
         w, ws = q.values, q.scale.reshape(-1).contiguous()
@@ -4980,7 +5049,7 @@ def ssm_qmatmul_rows(flush):
             worst = max(worst, err)
             rows[f"{name} M={m}"] = numbers(
                 name, x, w, ws, odt, path, 3 if m == NUM_SLOTS else 1,
-                c.n_layers, err, ratio, paths)
+                count, err, ratio, paths)
         del q, w, ws
     table = quantize_embedding(torch.randn((c.vocab, c.d_model),
                                            generator=gen, device="cuda")
@@ -5004,14 +5073,15 @@ def ssm_qmatmul_rows(flush):
     del table, head, w, ws
     for m, what in ((NUM_SLOTS, "tick"), (SERVE_ROWS, "forward")):
         t = per_m[m]
-        print(f"  qmatmul_w8a16 per {SSM_ARCH} {what} (M = {m}: "
-              f"{c.n_layers} x (in_proj, out_proj) and the head): "
+        print(f"  qmatmul_w8a16 per {arch} {what} (M = {m}: "
+              + ", ".join(f"{count} x {name}" for name, _, _, count in shapes)
+              + " and the head): "
               f"ms={t['ms']:.4f} bound_ms={t['bound_ms']:.4f} plain_ms="
               f"{t['plain_ms']:.4f} library_ms={t['library_ms']:.4f}")
     # qmatmul_w8a8 at the same projections (the head stays weight-only
     # int8 under --quant w8a8)
     w8_rows, w8_worst = {}, 0.0
-    for name, k, n in SSM_SHAPES:
+    for name, k, n, _ in shapes:
         x = torch.randint(-127, 128, (SERVE_ROWS, k), generator=gen,
                           device="cuda", dtype=torch.int8)
         w = torch.randint(-127, 128, (k, n), generator=gen, device="cuda",
@@ -5073,33 +5143,39 @@ def ssm_state_bytes(cfg, rows: int) -> int:
         + (cfg.conv_width - 1) * (cfg.d_inner + 2 * cfg.ssm_state) * 2)
 
 
-def ssm_tick(cfg, params, label):
-    """The captured steady tick of the ssm serves: NUM_SLOTS rows on a
-    random state, at DENSE_MAX_SEQ / 2: the captured tick's tokens and
-    every cache leaf bitwise the eager tick's, then the slot contract on
-    the card (half the rows inactive, one of them at index 0: their h and
-    conv bitwise unchanged by a captured tick, the active rows as in the
-    all-active tick), its launches a replay (2 GEMVs a layer and the
-    head, nothing else counted), wall, device busy and the split between
-    the GEMVs and the plain state update, the freeze's masked writes
-    timed alone, beside the floor: the int8 weights and head a tick reads
-    and the state read and written once, at 3.35 TB/s."""
+def recurrent_tick(cfg, params, label, *, max_seq, positions, seed,
+                   state_bytes, ring_bytes=0, per_row=False, extra=None):
+    """The captured tick of a recurrent family on the card: NUM_SLOTS rows
+    of a ``max_seq`` cache with every leaf random, at ``positions``.  The
+    captured tick's tokens and every cache leaf bitwise the eager tick's;
+    with ``per_row``, the eager decode step's logits and leaves, row by
+    row, bitwise the row's batch-1 step (a lockstep index on the row
+    alone); the freeze (rows 1, 3, 5, 7 inactive, row 1 at index 0: their
+    recurrent state bitwise unchanged, the active rows as in the
+    all-active tick; a ring is positional and not frozen); a replay's
+    launches (every projection's GEMV and the head, nothing else
+    counted); then wall, device busy and the GEMVs' share beside the
+    floor: the int8 weights and head, ``state_bytes`` read and written
+    once and ``ring_bytes`` read once, at 3.35 TB/s.  ``extra(cache,
+    active)`` adds the family's own measurements to the result."""
     import torch
     from repro_torch.core.qlinear import W8A16
     from repro_torch.core.quant import tree_weight_bytes
+    from repro_torch.models import registry as R
     from repro_torch.runtime import steps as ST
 
-    S, max_seq = NUM_SLOTS, DENSE_MAX_SEQ
+    S = NUM_SLOTS
     eager = ST.make_slot_decode_step(cfg, mode=W8A16)
     graphed = ST.jit_slot_decode_step(ST.make_slot_decode_step(
         cfg, mode=W8A16))
-    g = torch.Generator(device="cuda").manual_seed(SEED + 31)
+    g = torch.Generator(device="cuda").manual_seed(seed)
     cache = _random_cache(cfg, S, max_seq, 0)
+    axes = R.cache_batch_axes(cfg, cache)
+    state = [k for k in cache if k not in ("k", "v")]
     with torch.inference_mode():
         toks = torch.randint(1, cfg.vocab, (S, 1), generator=g,
                              device="cuda", dtype=torch.int32)
-        idx = torch.full((S,), max_seq // 2, dtype=torch.int32,
-                         device="cuda")
+        idx = torch.tensor(positions, dtype=torch.int32, device="cuda")
         active = torch.ones((S,), dtype=torch.bool, device="cuda")
         start = {k: v.clone() for k, v in cache.items()}
         want = {k: v.clone() for k, v in cache.items()}
@@ -5111,43 +5187,115 @@ def ssm_tick(cfg, params, label):
                 not torch.equal(cache[k], want[k]) for k in cache):
             raise AssertionError(f"{label}: the captured tick differs from "
                                  f"the eager tick")
+        if per_row:
+            decode = ST.make_decode_step(cfg, mode=W8A16)
+            full = {k: v.clone() for k, v in start.items()}
+            logits, _ = decode(params, {"tokens": toks, "cache_index": idx},
+                               full)
+            if any(not torch.equal(full[k], want[k]) for k in full) or \
+                    not torch.equal(logits[:, -1].argmax(-1).int().cpu(),
+                                    nxt_e):
+                raise AssertionError(f"{label}: the decode step differs "
+                                     f"from the all-active tick")
+            for r in range(S):
+                row = {k: v.narrow(axes[k], r, 1).clone()
+                       for k, v in start.items()}
+                one, _ = decode(params, {"tokens": toks[r:r + 1],
+                                         "cache_index": positions[r]}, row)
+                if not torch.equal(one[0], logits[r]) or any(
+                        not torch.equal(row[k],
+                                        full[k].narrow(axes[k], r, 1))
+                        for k in row):
+                    raise AssertionError(f"{label}: row {r} at position "
+                                         f"{positions[r]} differs from its "
+                                         f"batch-1 step")
+                del row, one
+            del full, logits
         # the freeze and the scrub: rows 1, 3, 5, 7 inactive, row 1 at 0
         half = torch.tensor([r % 2 == 0 for r in range(S)], device="cuda")
+        on, off = half.nonzero()[:, 0], (~half).nonzero()[:, 0]
         idx2 = idx.clone()
         idx2[1] = 0
         masked = {k: v.clone() for k, v in start.items()}
         nxt_m = graphed(params, toks, masked, idx2, half)[0].cpu()
         for k in masked:
-            if not torch.equal(masked[k][:, ~half], start[k][:, ~half]) or \
-                    not torch.equal(masked[k][:, half], want[k][:, half]):
+            m = masked[k]
+            if not torch.equal(m.index_select(axes[k], on),
+                               want[k].index_select(axes[k], on)) or (
+                    k in state and not torch.equal(
+                        m.index_select(axes[k], off),
+                        start[k].index_select(axes[k], off))):
                 raise AssertionError(f"{label}: {k}: an inactive row's state "
-                                     f"changed, or an active row's differs "
+                                     f"changed, or an active row differs "
                                      f"from the all-active tick")
         if not torch.equal(nxt_m[half.cpu()], nxt_e[half.cpu()]) or \
                 nxt_m[~half.cpu()].any():
             raise AssertionError(f"{label}: the masked tick's tokens")
-        del masked
+        del masked, start, want
         zero_counts()
         graphed(params, toks, cache, idx, active)[0].cpu()
     launches, plain = read_counts()
-    gemv = gemvs_per_layer(cfg) * cfg.n_layers + 1
+    gemv = step_gemvs(cfg) + 1
     if (launches["qmatmul_w8a16[gemv]"] != gemv
             or launches["qmatmul_w8a16"] != gemv or any(plain.values())
             or sum(launches.values()) != 2 * gemv):
         raise AssertionError(f"{label}: a replay launched {launches} "
                              f"({gemv} GEMVs and nothing else expected), "
                              f"plain {plain}")
-    print(f"{label}: the captured tick bitwise the eager one (tokens, h, "
-          f"conv); with rows 1, 3, 5, 7 inactive (row 1 at index 0) their "
-          f"h and conv bitwise unchanged and the active rows as in the "
-          f"all-active tick; capture {capture_s:.2f} s")
+    where = (f"positions {positions[0]}-{positions[-1]}"
+             if len(set(positions)) > 1 else f"position {positions[0]}")
+    print(f"{label}: {S} rows at {where}: the captured tick bitwise the "
+          f"eager one (tokens and {len(cache)} cache leaves)"
+          + ("; each row's logits and leaves bitwise its batch-1 step"
+             if per_row else "")
+          + f"; with rows 1, 3, 5, 7 inactive (row 1 at index 0) their "
+          f"{', '.join(state)} bitwise unchanged and the active rows as in "
+          f"the all-active tick; capture {capture_s:.2f} s")
     res = device_breakdown(
-        label, f"captured steady-state slot tick ({S} active rows at "
-        f"position {max_seq // 2}, random state)",
-        lambda: graphed(params, toks, cache, idx, active)[0].cpu(), 10)
+        label, f"captured slot tick ({S} active rows at {where}, random "
+        f"state)", lambda: graphed(params, toks, cache, idx, active)[0].cpu(),
+        10)
     gemv_ms = sum(ms for key, ms in res["by_kernel"].items()
                   if "qmatmul" in key)
-    # the freeze alone: each layer's masked writes at the tick's shapes
+    out = extra(cache, active) if extra else {}
+    # every layer and the head (the table's bytes, read as its (D, V)
+    # head); the embedding gathers only a row a slot
+    weights = tree_weight_bytes(params)
+    read = weights + 2 * state_bytes + ring_bytes
+    floor = read / HBM_BYTES_PER_S * 1e3
+    weights_floor = weights / HBM_BYTES_PER_S * 1e3
+    busy = res["busy"]
+    print(f"{label}: {launches['qmatmul_w8a16[gemv]']} GEMVs a replay; wall "
+          f"{res['wall']:.2f} ms, device busy "
+          f"{'not measured' if busy is None else f'{busy:.3f} ms'}, "
+          f"cudaGraphLaunch {res['graph_launches']:.0f}, cudaLaunchKernel "
+          f"{res['launch_calls']:.0f} a tick; the GEMVs {gemv_ms:.3f} ms of "
+          f"device time"
+          + ("" if busy is None else
+             f" ({100 * gemv_ms / busy:.1f}%), the plain state update"
+             + (", ring attention" if ring_bytes else "")
+             + f" and the rest {busy - gemv_ms:.3f} ms"))
+    print(f"{label}: floor {floor:.3f} ms (the {read} bytes a tick must "
+          f"move at 3.35 TB/s: {weights} of int8 weights and head alone "
+          f"{weights_floor:.3f} ms, {state_bytes} of state ("
+          f"{state_bytes // S} a slot) read and written once"
+          + (f", {ring_bytes} of ring k/v read once" if ring_bytes else "")
+          + f"): wall / floor {res['wall'] / floor:.2f}, busy / floor "
+          f"{'not measured' if busy is None else f'{busy / floor:.2f}'}")
+    graphed.captured.release()
+    out.update({"wall": res["wall"], "busy": busy, "gemv_ms": gemv_ms,
+                "floor": floor, "weights_floor": weights_floor,
+                "read_bytes": read, "weight_bytes": weights,
+                "state_bytes": state_bytes, "ring_bytes": ring_bytes,
+                "launches": launches})
+    return out
+
+
+def ssm_freeze_time(cfg, label, cache, active) -> dict:
+    """The ssm tick's freeze alone: each layer's masked writes into h and
+    conv at the tick's shapes, timed beside plain copies."""
+    import torch
+
     with torch.inference_mode():
         h, conv = cache["h"][0], cache["conv"][0]
         new_h, new_conv = h.clone(), conv.clone()
@@ -5158,57 +5306,44 @@ def ssm_tick(cfg, params, label):
             torch.where(rows_c, new_conv, conv, out=conv)), 10, lambda: None)
         copy_ms = cfg.n_layers * time_ms(lambda: (
             h.copy_(new_h), conv.copy_(new_conv)), 10, lambda: None)
-        del new_h, new_conv
-    # every layer and the head (the table's bytes, read as its (D, V)
-    # head); the embedding gathers only a row a slot
-    weights = tree_weight_bytes(params)
-    state = ssm_state_bytes(cfg, S)
-    read = weights + 2 * state
-    floor = read / HBM_BYTES_PER_S * 1e3
-    busy = res["busy"]
-    print(f"{label}: {launches['qmatmul_w8a16[gemv]']} GEMVs a replay; wall "
-          f"{res['wall']:.2f} ms, device busy "
-          f"{'not measured' if busy is None else f'{busy:.3f} ms'}, "
-          f"cudaGraphLaunch {res['graph_launches']:.0f}, cudaLaunchKernel "
-          f"{res['launch_calls']:.0f} a tick; the GEMVs {gemv_ms:.3f} ms of "
-          f"device time, the plain state update and the rest "
-          f"{'not measured' if busy is None else f'{busy - gemv_ms:.3f} ms'};"
-          f" the freeze's masked writes alone ({cfg.n_layers} layers x "
-          f"where(active, new, old) into h and conv) {freeze_ms:.3f} ms "
-          f"against {copy_ms:.3f} ms for plain copies")
-    print(f"{label}: floor {floor:.3f} ms (the {read} bytes a tick must "
-          f"move at 3.35 TB/s: {weights} of int8 weights and head, {state} "
-          f"of state ({state // S} a slot) read and written once): wall / "
-          f"floor {res['wall'] / floor:.2f}, busy / floor "
-          f"{'not measured' if busy is None else f'{busy / floor:.2f}'}")
-    graphed.captured.release()
-    return {"wall": res["wall"], "busy": busy, "gemv_ms": gemv_ms,
-            "freeze_ms": freeze_ms, "copy_ms": copy_ms, "floor": floor,
-            "read_bytes": read, "weight_bytes": weights,
-            "state_bytes": state, "launches": launches}
+    print(f"{label}: the freeze's masked writes alone ({cfg.n_layers} "
+          f"layers x where(active, new, old) into h and conv) "
+          f"{freeze_ms:.3f} ms against {copy_ms:.3f} ms for plain copies")
+    return {"freeze_ms": freeze_ms, "copy_ms": copy_ms}
 
 
-def ssm_chunk(cfg, params, label):
+def ssm_tick(cfg, params, label):
+    """The captured steady tick of the ssm serves (``recurrent_tick``):
+    NUM_SLOTS rows at DENSE_MAX_SEQ / 2, its launches 2 GEMVs a layer and
+    the head, and the freeze's masked writes timed alone."""
+    return recurrent_tick(
+        cfg, params, label, max_seq=DENSE_MAX_SEQ,
+        positions=(DENSE_MAX_SEQ // 2,) * NUM_SLOTS, seed=SEED + 31,
+        state_bytes=ssm_state_bytes(cfg, NUM_SLOTS),
+        extra=lambda cache, active: ssm_freeze_time(cfg, label, cache, active))
+
+
+def recurrent_chunk(cfg, params, label, state_bytes: int):
     """The chunk step of one slot (slot 3 from position 5, every n_valid
     up to PREFILL_CHUNK): per-token eager and captured bitwise equal
-    (``graph_chunk_case``: under W8A16 too the ssm chunk runs token by
-    token, 2 GEMVs a layer a token), then a full chunk's captured busy a
-    token against the floor of one token: the int8 weights but the head
-    (the chunk discards its logits) and the slot's state read and
-    written once."""
+    (``graph_chunk_case``: under W8A16 too a recurrent chunk runs token by
+    token, ``step_gemvs`` GEMVs a token), then a full chunk's captured
+    busy a token against the floor of one token: the int8 weights but the
+    head (the chunk discards its logits) and ``state_bytes``, what a token
+    reads and writes of the slot's state (and ring)."""
     from repro_torch.core.quant import tree_weight_bytes
 
     res = graph_chunk_case(cfg, params, label, NUM_SLOTS, DENSE_MAX_SEQ, 0,
                            "w8a16", False, 3, 5)
     weights = tree_weight_bytes(params) - tree_weight_bytes(params["embed"])
-    read = weights + 2 * ssm_state_bytes(cfg, 1)
+    read = weights + state_bytes
     floor = read / HBM_BYTES_PER_S * 1e3
     cap = res["captured"]
     busy = cap["busy"]
     per_token = None if busy is None else busy / PREFILL_CHUNK
     print(f"{label}: a token's floor {floor:.3f} ms ({read} bytes: "
-          f"{weights} of int8 weights less the head, the slot's state read "
-          f"and written); captured chunk of {PREFILL_CHUNK}: wall "
+          f"{weights} of int8 weights less the head, {state_bytes} of the "
+          f"slot's state); captured chunk of {PREFILL_CHUNK}: wall "
           f"{cap['wall']:.2f} ms, busy "
           + ("not measured" if busy is None else
              f"{busy:.3f} ms, {per_token:.3f} ms a token, "
@@ -5218,8 +5353,8 @@ def ssm_chunk(cfg, params, label):
             "eager_wall": res["per-token eager"]["wall"]}
 
 
-def ssm_overload(cfg, params, reqs, label, want):
-    """Preemption and fault recovery on the ssm state: the trace on
+def recurrent_overload(cfg, params, reqs, label, want):
+    """Preemption and fault recovery on a recurrent state: the trace on
     SSM_OVERLOAD_SLOTS slots, its odd rids in the batch class at 0 s, its
     even rids interactive at SSM_LATE_S, served as a control (no
     preemption, no fault), then with preemption and the
@@ -5263,13 +5398,17 @@ def ssm_overload(cfg, params, reqs, label, want):
             "control_ticks": control.ticks}
 
 
-def ssm_cli_phase():
-    """The serve CLI at full mamba2-1.3b width (SSM_SERVE_ARGS): under
-    --quant w8a16, exit 0, the service curve's chunked forward on the mma
-    path only, the decode loop and the engine on the GEMV, and
-    SSM_CLI_COMPARE requests equal to ``reference_outputs`` token for
-    token; then under --quant w8a8 (every projection on qmatmul_w8a8, the
-    head on the W8A16 GEMV).  Returns each run's launches."""
+def family_cli_phase(arch, base, compare):
+    """The serve CLI at full ``arch`` width (``base`` arguments): under
+    --quant w8a16, exit 0, the service curve's forward on the mma path
+    only, the decode loop and the engine on the GEMV, and ``compare``
+    requests equal to ``reference_outputs`` token for token; then under
+    --quant w8a8 (every projection on qmatmul_w8a8; the W8A16 head, and
+    the hybrid's RG-LRU gates, on the mma path in the curve's forward
+    and on the GEMV in the decode loop).  Each run's captured curve is
+    held to the eager one bitwise at every batch; the w8a8 run's curve
+    is not broken down or re-timed eager, for the run's time limit.
+    Returns each run's launches."""
     from repro_torch.launch import serve
 
     real_curve = serve.measure_service_curve
@@ -5278,12 +5417,13 @@ def ssm_cli_phase():
     out = {}
     try:
         for quant in ("w8a16", "w8a8"):
-            label = f"serve {SSM_ARCH} {quant}"
-            out[quant], res = serve_run(quant, curve_paths,
-                                        base=SSM_SERVE_ARGS, label=label)
+            label = f"serve {arch} {quant}"
+            out[quant], res = serve_run(quant, curve_paths, base=base,
+                                        label=label,
+                                        curve_timing=quant == "w8a16")
             if quant == "w8a16":
                 rep = res.report
-                reqs = res.requests[:SSM_CLI_COMPARE]
+                reqs = res.requests[:compare]
                 compare_sampled(label, res.cfg, res.params, res.engine,
                                 reqs, rep.outputs())
             del res
@@ -5311,7 +5451,8 @@ def ssm_phase(flush):
 
     t0 = time.perf_counter()
     print(f"ssm: the kernels at {SSM_ARCH}'s shapes")
-    q_err, q_rows, w8_err, w8_rows, per_m = ssm_qmatmul_rows(flush)
+    q_err, q_rows, w8_err, w8_rows, per_m = family_qmatmul_rows(
+        flush, SSM_ARCH, SSM_SHAPES, SEED + 29)
     print(f"ssm: kernel rows {time.perf_counter() - t0:.1f}s")
     torch_cuda_empty()
     cfg, params = build_dense_model(SSM_ARCH)
@@ -5342,18 +5483,19 @@ def ssm_phase(flush):
     out["serves"]["sampled"] = {"ticks": rep.ticks, "tok_s":
                                 rep.generated_tokens / rep.wall_s}
     del eng
-    out["overload"] = ssm_overload(cfg, params, reqs, f"{label} overload",
-                                   contig)
+    out["overload"] = recurrent_overload(cfg, params, reqs,
+                                         f"{label} overload", contig)
     ST.clear_step_cache()
     torch_cuda_empty()
     print(f"ssm: serves {time.perf_counter() - t0:.1f}s")
     out["tick"] = ssm_tick(cfg, params, f"{label} tick")
-    out["chunk"] = ssm_chunk(cfg, params, f"{label} chunk")
+    out["chunk"] = recurrent_chunk(cfg, params, f"{label} chunk",
+                                   2 * ssm_state_bytes(cfg, 1))
     print(f"ssm: tick and chunk {time.perf_counter() - t0:.1f}s")
     ST.clear_step_cache()
     del params
     torch_cuda_empty()
-    out["cli"] = ssm_cli_phase()
+    out["cli"] = family_cli_phase(SSM_ARCH, SSM_SERVE_ARGS, SSM_CLI_COMPARE)
     ST.clear_step_cache()
     torch_cuda_empty()
     out["seconds"] = time.perf_counter() - t0
@@ -5362,8 +5504,205 @@ def ssm_phase(flush):
     return out
 
 
+# ---------------------------------------------------------------------------
+# the hybrid family
+# ---------------------------------------------------------------------------
+
+HYB_ARCH = "recurrentgemma-9b"
+# the serve CLI at full recurrentgemma-9b width, contiguous (the family does
+# not page): the ssm CLI's geometry
+HYB_SERVE_ARGS = ["--arch", HYB_ARCH] + SSM_SERVE_ARGS[2:]
+HYB_CLI_COMPARE = 4
+# the W8A16 and W8A8 kernels at recurrentgemma-9b's projections: (name, K,
+# N, launches of a decode step): 26 recurrent blocks' w_in_a, w_in_b, the
+# RG-LRU's two gates and w_out, and 12 attention blocks' wq and wo; their
+# wk and wv (one KV head of 256); 38 MLPs' w_gate and w_up, and w_down
+HYB_SHAPES = (("proj", 4096, 4096, 154), ("kv", 4096, 256, 24),
+              ("mlp_up", 4096, 12288, 76), ("mlp_down", 12288, 4096, 38))
+# flash_attention_bhsd at head_dim 256, causal, window 2,048: (BH, S) of
+# the CLI curve's forward (16 heads x b = 1, 4, 16 at S = 32) and of a
+# prompt where the window bites
+HYB_FLASH = ((16, SERVE_SEQ), (64, SERVE_SEQ), (256, SERVE_SEQ), (16, 4096))
+# the ring tick: NUM_SLOTS rows of a max_seq 4,096 cache (a 2,048-slot
+# ring) at positions straddling the window
+HYB_RING_SEQ = 4096
+HYB_RING_POS = (2045, 2046, 2047, 2048, 2049, 2050, 2051, 2052)
+
+
+def hybrid_flash_rows(flush):
+    """flash_attention_bhsd at recurrentgemma-9b's head_dim 256 (the
+    kernel's HD = 256 instance), causal with the model's window of 2,048:
+    the CLI curve's shapes (BH = 16 x b, S = 32) and S = 4,096 at BH = 16,
+    where the window masks half the keys of the later queries; each
+    against its plain version (bf16 out: bf16_close), timed beside its
+    bound (the pairs the window and the causal mask leave) and SDPA (an
+    explicit boolean mask where the window bites).  Returns (worst error,
+    {case: numbers})."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as FA
+
+    c = get_config(HYB_ARCH)
+    hd, window = c.head_dim, c.local_window
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 37)
+    rows, worst = {}, 0.0
+    for bh, s in HYB_FLASH:
+        q, k, v = (torch.randn((bh, s, hd), generator=gen, device="cuda")
+                   .to(torch.bfloat16) for _ in range(3))
+        kw = dict(causal=True, window=window)
+        out = FA.flash_attention_bhsd(q, k, v, **kw)
+        ref = FA.flash_attention_ref(q, k, v, **kw)
+        torch.cuda.synchronize()
+        if out.shape != ref.shape or not torch.isfinite(out).all():
+            raise AssertionError(f"flash hd {hd} BH={bh} S={s}: bad output")
+        err, ratio = bf16_close(out, ref, f32_out=False)
+        del out, ref
+        if ratio > 1.0:
+            raise AssertionError(
+                f"flash hd {hd} BH={bh} S={s}: kernel disagrees with its "
+                f"plain version beyond tolerance (err/tol={ratio:.3f})")
+        worst = max(worst, err)
+        pos = torch.arange(s, device="cuda")
+        valid = ((pos[None, :] <= pos[:, None])
+                 & (pos[None, :] > pos[:, None] - window))
+        pairs = int(valid.sum())
+        mask = valid if s > window else None
+        ms = time_ms(lambda: FA.flash_attention_bhsd(q, k, v, **kw), 20,
+                     flush)
+        plain = time_ms(lambda: FA.flash_attention_ref(q, k, v, **kw),
+                        1 if s > window else 3, flush)
+        lib = time_ms(lambda: F.scaled_dot_product_attention(
+            q[None], k[None], v[None], attn_mask=mask,
+            is_causal=mask is None), 20, flush)
+        bytes_ms = 4 * bh * s * hd * 2 / HBM_BYTES_PER_S * 1e3
+        ops_ms = 4 * bh * pairs * hd / BF16_OPS_PER_S * 1e3
+        row = {"BH": bh, "S": s, "hd": hd, "window": window, "ms": ms,
+               "plain_ms": plain, "bound_ms": max(bytes_ms, ops_ms),
+               "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+               "library_ms": lib, "bytes_ms": bytes_ms, "ops_ms": ops_ms,
+               "max_abs_err": err, "err_tol": ratio}
+        rows[f"BH={bh} S={s}"] = row
+        print(f"  flash_attention_bhsd BH={bh} S={s} hd={hd} causal "
+              f"window={window} ({pairs} pairs a head) max_abs_err="
+              f"{err:.3e} err/tol={ratio:.3f} ms={ms:.4f} plain_ms="
+              f"{plain:.4f} library_ms={lib:.4f} (SDPA"
+              f"{', boolean mask' if mask is not None else ', is_causal'}) "
+              f"bound_ms={row['bound_ms']:.5f} ({row['bound_by']})")
+        del q, k, v, valid, mask
+    zero_counts()
+    return worst, rows
+
+
+def hybrid_state_bytes(cfg, rows: int) -> int:
+    """Bytes of ``rows`` slots' recurrent state: every recurrent block's
+    RG-LRU h (f32) and conv tail (bf16)."""
+    w = cfg.rnn_width or cfg.d_model
+    blocks = 2 * (cfg.n_layers // 3) + cfg.n_layers % 3
+    return rows * blocks * w * (4 + 2 * (cfg.conv_width - 1))
+
+
+def hybrid_ring_bytes(cfg, positions, win: int) -> int:
+    """Bytes of ring k and v that one decode step reads for rows at
+    ``positions``: each row's valid slots, min(p + 1, win), in every
+    attention block."""
+    per_slot = 2 * cfg.n_kv_heads * cfg.head_dim * 2
+    return (cfg.n_layers // 3) * per_slot * sum(min(p + 1, win)
+                                                for p in positions)
+
+
+def hybrid_ring_tick(cfg, params, label):
+    """The ring on the card (``recurrent_tick``): NUM_SLOTS rows of a
+    max_seq HYB_RING_SEQ cache (a 2,048-slot ring) at HYB_RING_POS,
+    straddling the window, each row also held to its batch-1 step; the
+    floor counts the ring's valid slots read once."""
+    win = min(cfg.local_window, HYB_RING_SEQ)
+    return recurrent_tick(
+        cfg, params, label, max_seq=HYB_RING_SEQ, positions=HYB_RING_POS,
+        seed=SEED + 41, state_bytes=hybrid_state_bytes(cfg, NUM_SLOTS),
+        ring_bytes=hybrid_ring_bytes(cfg, HYB_RING_POS, win), per_row=True)
+
+
+def hybrid_phase(flush):
+    """recurrentgemma-9b at full width (38 layers: 12 groups of (rec, rec,
+    attn) and 2 leftover rec blocks; d 4,096, RG-LRU width 4,096, 16
+    query heads and 1 KV head of 256, window 2,048, d_ff 12,288, vocab
+    256,000 tied): flash attention at head_dim 256 and the matmul kernels
+    at its shapes, then the model from the streamed init, the dense trace
+    served greedy and sampled, each equal to ``reference_outputs`` token
+    for token, the overload serves against their control, the ring tick
+    (captured == eager, each row == its batch-1 step, the freeze) against
+    its floor, the chunk step, then the serve CLI under w8a16 and w8a8.
+    Returns the kernel rows, the launches of each run and the times."""
+    import torch
+    from repro_torch import engine as E
+    from repro_torch.runtime import prng as P
+    from repro_torch.runtime import steps as ST
+
+    t0 = time.perf_counter()
+    print(f"hybrid: the kernels at {HYB_ARCH}'s shapes")
+    f_err, f_rows = hybrid_flash_rows(flush)
+    q_err, q_rows, w8_err, w8_rows, per_m = family_qmatmul_rows(
+        flush, HYB_ARCH, HYB_SHAPES, SEED + 43)
+    print(f"hybrid: kernel rows {time.perf_counter() - t0:.1f}s")
+    torch_cuda_empty()
+    cfg, params = build_dense_model(HYB_ARCH)
+    reqs = E.synthetic_requests(
+        DENSE_REQUESTS, rate_per_s=DENSE_RATE_PER_S, vocab=cfg.vocab,
+        prompt_len=DENSE_PROMPT, max_new_tokens=DENSE_NEW,
+        shared_prefix_len=DENSE_SHARED, seed=SEED)
+    out = {"flash_rows": f_rows, "flash_err": f_err, "qmatmul_rows": q_rows,
+           "qmatmul_err": q_err, "w8a8_rows": w8_rows, "w8a8_err": w8_err,
+           "per_m": per_m}
+    label = f"hybrid {HYB_ARCH}"
+    eng, rep, out["launches"] = dense_serve(f"{label} contiguous", cfg,
+                                            params, reqs)
+    cache_bytes = sum(t.numel() * t.element_size()
+                      for t in eng._cache.values())
+    print(f"{label} contiguous: the state and {eng.max_seq}-slot ring of "
+          f"{eng.num_slots} slots {cache_bytes} bytes; "
+          f"torch.cuda.max_memory_allocated "
+          f"{torch.cuda.max_memory_allocated()} bytes")
+    compare_sampled(f"{label} contiguous", cfg, params, eng, reqs,
+                    rep.outputs())
+    contig = rep.outputs()
+    out["serves"] = {"greedy": {"ticks": rep.ticks, "tok_s":
+                                rep.generated_tokens / rep.wall_s}}
+    del eng
+    eng, rep, _ = dense_serve(f"{label} sampled", cfg, params, reqs,
+                              temperature=SAMPLE_TEMP,
+                              rng=P.PRNGKey(SEED + 1, device="cuda"))
+    compare_sampled(f"{label} sampled", cfg, params, eng, reqs,
+                    rep.outputs())
+    out["serves"]["sampled"] = {"ticks": rep.ticks, "tok_s":
+                                rep.generated_tokens / rep.wall_s}
+    del eng
+    out["overload"] = recurrent_overload(cfg, params, reqs,
+                                         f"{label} overload", contig)
+    ST.clear_step_cache()
+    torch_cuda_empty()
+    print(f"hybrid: serves {time.perf_counter() - t0:.1f}s")
+    out["tick"] = hybrid_ring_tick(cfg, params, f"{label} ring tick")
+    torch_cuda_empty()
+    # a token of the chunk (positions 5-8) reads its ring below it
+    out["chunk"] = recurrent_chunk(
+        cfg, params, f"{label} chunk", 2 * hybrid_state_bytes(cfg, 1)
+        + hybrid_ring_bytes(cfg, (5 + PREFILL_CHUNK // 2,), DENSE_MAX_SEQ))
+    print(f"hybrid: tick and chunk {time.perf_counter() - t0:.1f}s")
+    ST.clear_step_cache()
+    del params
+    torch_cuda_empty()
+    out["cli"] = family_cli_phase(HYB_ARCH, HYB_SERVE_ARGS, HYB_CLI_COMPARE)
+    ST.clear_step_cache()
+    torch_cuda_empty()
+    out["seconds"] = time.perf_counter() - t0
+    print(f"hybrid: phase {out['seconds']:.1f}s; "
+          f"{torch.cuda.memory_allocated()} bytes left allocated")
+    return out
+
+
 PHASES = ("attention", "long_tick", "w8a8", "graphs", "dense", "sampling",
-          "spec", "moe", "encdec", "ssm")
+          "spec", "moe", "encdec", "ssm", "hybrid")
 
 
 def parse_args(argv):
@@ -5387,9 +5726,12 @@ def parse_args(argv):
                          "the MoE family (qwen2-moe-a2.7b's kernel rows, "
                          "serves, chunk pass, tick and CLI), or the encdec "
                          "family (whisper-medium's kernel rows, serves, "
-                         "prime, tick and CLI), or the ssm family "
+                         "prime, tick and CLI), the ssm family "
                          "(mamba2-1.3b's kernel rows, serves, overload, "
-                         "tick, chunk and CLI); prints no result line")
+                         "tick, chunk and CLI), or the hybrid family "
+                         "(recurrentgemma-9b's flash rows at head_dim "
+                         "256, matmul rows, serves, overload, ring tick, "
+                         "chunk and CLI); prints no result line")
     return ap.parse_args(argv)
 
 
@@ -5489,7 +5831,7 @@ def main(argv=None) -> int:
                 serve.measure_service_curve = real_curve
         if "spec" in args.only and "moe" not in args.only:
             spec_moe_only()             # the MoE phase runs it otherwise
-        if {"moe", "encdec", "ssm"} & set(args.only):   # last, as in the
+        if {"moe", "encdec", "ssm", "hybrid"} & set(args.only):  # last, as in the
             # whole run
             from repro_torch.runtime import steps as ST
             ST.clear_step_cache()       # starcoder's graphs and weights go
@@ -5505,6 +5847,10 @@ def main(argv=None) -> int:
             ST.clear_step_cache()
             torch_cuda_empty()
             ssm_phase(flush)
+        if "hybrid" in args.only:
+            ST.clear_step_cache()
+            torch_cuda_empty()
+            hybrid_phase(flush)
         del flush_buf
         print(f"chip_smoke: partial run passed in "
               f"{time.perf_counter() - t_run:.1f}s; no result line")
@@ -5552,6 +5898,9 @@ def main(argv=None) -> int:
     ST.clear_step_cache()
     torch_cuda_empty()
     ssm = timed(ssm_phase, flush)
+    ST.clear_step_cache()
+    torch_cuda_empty()
+    hyb = timed(hybrid_phase, flush)
     del flush_buf
 
     tick_basis = (f"one {{}} of {NUM_SLOTS} rows at full width: the sum "
@@ -5787,6 +6136,61 @@ def main(argv=None) -> int:
             ssm_tick_t, ssm["per_m"][SERVE_ROWS])
            for key in ("ms", "plain_ms", "bound_ms", "library_ms")):
         return fail("an ssm kernel row is not finite")
+    # the hybrid family: flash attention at head_dim 256 and both matmul
+    # kernels at recurrentgemma-9b's shapes, their launches in its serves
+    # (the GEMV) and CLI runs (the curve's flash and mma path; every
+    # projection but the RG-LRU gates on qmatmul_w8a8 under --quant w8a8)
+    hyb_tick_t = hyb["per_m"][NUM_SLOTS]
+    kernels[0]["hybrid"] = {
+        **numbers(hyb_tick_t), "rows": hyb["qmatmul_rows"],
+        "max_abs_err": hyb["qmatmul_err"],
+        "forward": {**numbers(hyb["per_m"][SERVE_ROWS]),
+                    "basis": f"one {HYB_ARCH} forward of {SERVE_MAX_BATCH} "
+                             f"x {SERVE_SEQ} tokens on the mma path: every "
+                             f"projection, the RG-LRU gates and the head, "
+                             f"summed"},
+        "launches": hyb["launches"]["qmatmul_w8a16"],
+        "launches_by_path": {"gemv": hyb["launches"]["qmatmul_w8a16[gemv]"],
+                             "mma": hyb["cli"]["w8a16"]["curve_mma"]},
+        "cli_launches": hyb["cli"]["w8a16"]["qmatmul_w8a16"],
+        "tick": hyb["tick"], "chunk": hyb["chunk"],
+        "serves": hyb["serves"], "overload": hyb["overload"],
+        "basis": f"one {HYB_ARCH} tick of {NUM_SLOTS} rows on the GEMV: "
+                 f"{', '.join(f'{c} x {n} (K {k:,} x N {m:,})' for n, k, m, c in HYB_SHAPES)} "
+                 f"and the head (N 256,000), summed; rows: each shape at M "
+                 f"= {NUM_SLOTS} (GEMV) and {SERVE_ROWS} (mma); launches: "
+                 f"the contiguous greedy serve of {DENSE_REQUESTS} requests "
+                 f"(by path: its GEMVs, the CLI curve's mma), the w8a16 CLI "
+                 f"run; tick (the ring tick at {HYB_RING_SEQ} positions) and "
+                 f"chunk: the captured steps' wall, busy and floor, in ms"}
+    kernels[3]["hybrid"] = {
+        "rows": hyb["w8a8_rows"], "max_abs_err": hyb["w8a8_err"],
+        "launches": hyb["cli"]["w8a8"]["qmatmul_w8a8"],
+        "basis": f"one launch at each {HYB_ARCH} projection, M = "
+                 f"{NUM_SLOTS} (the GEMV) and {SERVE_ROWS} (mma.sync); "
+                 f"launches: the serve CLI's --quant w8a8 run"}
+    kernels[4]["hybrid"] = {
+        "rows": hyb["flash_rows"], "max_abs_err": hyb["flash_err"],
+        "launches": sum(hyb["cli"][q]["flash_attention_bhsd"]
+                        for q in ("w8a16", "w8a8")),
+        "basis": f"one launch at each {HYB_ARCH} shape, head_dim 256 (the "
+                 f"kernel's HD = 256 instance), causal, window 2,048: the "
+                 f"CLI curve's BH = 16 x b at S = {SERVE_SEQ} and BH = 16 at "
+                 f"S = 4,096 (the window bites); library SDPA (a boolean "
+                 f"mask at S = 4,096); launches: the serve CLI's w8a16 and "
+                 f"w8a8 runs"}
+    if min(kernels[0]["hybrid"]["launches"],
+           kernels[0]["hybrid"]["cli_launches"],
+           *kernels[0]["hybrid"]["launches_by_path"].values(),
+           kernels[3]["hybrid"]["launches"],
+           kernels[4]["hybrid"]["launches"]) <= 0:
+        return fail("a kernel of the hybrid path never launched")
+    if any(not math.isfinite(t[key]) for t in (
+            *hyb["qmatmul_rows"].values(), *hyb["w8a8_rows"].values(),
+            *hyb["flash_rows"].values(), hyb_tick_t,
+            hyb["per_m"][SERVE_ROWS])
+           for key in ("ms", "plain_ms", "bound_ms", "library_ms")):
+        return fail("a hybrid kernel row is not finite")
     if min(kernels[0]["encdec"]["launches_by_path"].values()) <= 0 or min(
             kernels[4]["encdec"][key]
             for key in ("launches", "paged_launches", "cli_launches")) <= 0:

@@ -41,7 +41,8 @@ one engine-wide temperature:
   at admission, and again at a resume, a prime dispatch runs its encoder
   once and writes the slot's row of cross k/v and its ``xlen`` frontier
   (``runtime/steps.py::jit_prime_step``, one graph for every slot).
-- A recurrent family (ssm) keeps a fixed-size state per slot: a row at
+- A recurrent family (ssm, hybrid) keeps a fixed-size state per slot
+  (the hybrid's local-attention ring beside it): a row at
   position 0 zeroes it first and a row the tick does not advance keeps
   it bitwise, so a reused, preempted or rebuilt slot re-prefills from
   position 0 into clean state; it refuses ``block_size`` and ``spec_k``

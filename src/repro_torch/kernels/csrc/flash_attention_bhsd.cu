@@ -4,7 +4,7 @@
 // Replaces the Pallas TPU kernel
 // repro/kernels/flash_attention.py::flash_attention_bhsd (body
 // _flash_kernel).  q is (BH, Sq, hd), k and v are (BH, Skv, hd), all bf16
-// with the heads already expanded to H; hd is a multiple of 8 up to 128.
+// with the heads already expanded to H; hd is a multiple of 8 up to 256.
 // A key at position kpos is seen by the query at position qpos when
 // kpos < kv_len, and (causal) kpos <= qpos, and (window > 0)
 // kpos > qpos - window.  Masked scores are -1e30 and their probabilities
@@ -18,19 +18,30 @@
 // scores, the probabilities and the running max / sum / context -- in
 // registers, and puts the products on the tensor cores:
 //
-// - One block owns one bh and BQ = 32 queries: two warps of 16 query rows
-//   each.  The TPU grid walks the KV blocks in order on one core, carrying
+// - One block owns one bh and BQ = 32 queries: two groups of 16 query
+//   rows.  The TPU grid walks the KV blocks in order on one core, carrying
 //   acc/m/l in VMEM scratch; here the KV sweep is a loop inside the block.
-//   At the serve shapes that is 384 blocks of 64 threads and 43 KB of
-//   shared memory, all resident at once on the 132 SMs (five fit on one).
+//   The kernel is templated on the largest head size it takes, HD = 128
+//   or 256.  At HD = 128 a group is one warp: at the serve shapes that is
+//   384 blocks of 64 threads and 43 KB of shared memory, all resident at
+//   once on the 132 SMs (five fit on one).  At HD = 256 (recurrentgemma's
+//   head_dim) a group is two warps, 128 threads a block: each warp of the
+//   pair computes the whole S = Q K^T over the 256 dims and the softmax
+//   (the same instructions on the same data, so the same bits in both),
+//   then P V for its own 128 context columns, so each thread keeps the
+//   hd-128 instance's 16 n8 tiles of context and spills nothing.  Its
+//   rows of 264 elements make Q and two buffers of K and V 84.5 KB of
+//   shared memory, above the 48 KB a static array may take: the shared
+//   memory is dynamic in both instances, its size set once per instance
+//   with cudaFuncSetAttribute.
 // - Q, the first K tile and the first V tile are issued together with
 //   cp.async; for longer sequences the next K/V tile is copied while the
 //   current one is used (two buffers).  Key tiles are BKV = 32 keys, the
 //   serve shapes' whole sequence, and a tile's products cover only the
 //   keys that exist (n8 tiles of scores, k16 steps of the context), so
 //   Skv = 32 computes no empty half tile.  hd is padded to 16 in shared
-//   memory with zeros (exact); rows are padded to 272 bytes so that
-//   ldmatrix's eight rows fall on distinct banks.
+//   memory with zeros (exact); rows are padded by 16 bytes (272 and 528
+//   bytes) so that ldmatrix's eight rows fall on distinct banks.
 // - S = Q K^T is mma.sync m16n8k16 (bf16 in, f32 sums) from ldmatrix
 //   fragments of Q and of K as it lies (k-contiguous).  The row max and
 //   sum are quad butterflies, so every lane holding a row has its bits.
@@ -58,14 +69,11 @@
 
 namespace {
 
-constexpr int MAX_HD = 128;
-constexpr int WARPS = 2;
-constexpr int THREADS = 32 * WARPS;
-constexpr int BQ = 16 * WARPS;      // queries per block: 16 rows per warp
+constexpr int BQ = 32;              // queries per block: two groups of 16 rows
 constexpr int BKV = 32;             // keys per tile
-constexpr int ROW = MAX_HD + 8;     // elements of a shared row: 272 bytes
 constexpr int NT_S = BKV / 8;       // n8 tiles of scores per tile
-constexpr int NT_O = MAX_HD / 8;    // n8 tiles of the context
+constexpr int CW = 128;             // context columns a warp owns
+constexpr int NT_O = CW / 8;        // n8 tiles of a warp's context
 constexpr float NEG_INF = -1e30f;
 constexpr unsigned FULL = 0xffffffffu;
 
@@ -101,6 +109,7 @@ __device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
 
 // rows [0, nrows) of a (rows, hd) bf16 matrix into shared rows of ROW
 // elements, hd padded to hd16 with zeros, rows from `valid` on zero.
+template <int ROW, int THREADS>
 __device__ __forceinline__ void copy_rows(__nv_bfloat16* dst, const __nv_bfloat16* src,
                                           const __nv_bfloat16* base, int valid, int nrows,
                                           int hd, int hd16, int tid) {
@@ -112,21 +121,37 @@ __device__ __forceinline__ void copy_rows(__nv_bfloat16* dst, const __nv_bfloat1
   }
 }
 
-template <typename OT>
-__global__ void __launch_bounds__(THREADS)
+// The shape of one instance: HD the largest head size, SPLIT warps a
+// 16-row group (each owning CW context columns), ROW the shared row.
+template <int HD>
+struct Shape {
+  static constexpr int SPLIT = HD / CW;
+  static constexpr int WARPS = 2 * SPLIT;
+  static constexpr int THREADS = 32 * WARPS;
+  static constexpr int ROW = HD + 8;
+  static constexpr int SMEM = (BQ + 4 * BKV) * ROW * 2;  // Q, 2 x K, 2 x V (bytes)
+};
+
+template <int HD, typename OT>
+__global__ void __launch_bounds__(Shape<HD>::THREADS)
 flash_attention_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                        const __nv_bfloat16* __restrict__ v, OT* __restrict__ out, int Sq,
                        int Skv, int hd, int kv_len, int causal, int window, float sm_scale) {
-  __shared__ __align__(16) __nv_bfloat16 sQ[BQ * ROW];
-  __shared__ __align__(16) __nv_bfloat16 sK[2][BKV * ROW];
-  __shared__ __align__(16) __nv_bfloat16 sV[2][BKV * ROW];
+  using SH = Shape<HD>;
+  constexpr int ROW = SH::ROW, THREADS = SH::THREADS;
+  extern __shared__ __align__(16) unsigned char smem[];
+  __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(smem);
+  __nv_bfloat16* const sK[2] = {sQ + BQ * ROW, sQ + (BQ + BKV) * ROW};
+  __nv_bfloat16* const sV[2] = {sQ + (BQ + 2 * BKV) * ROW, sQ + (BQ + 3 * BKV) * ROW};
 
   const int bh = blockIdx.x;
   const int q0 = blockIdx.y * BQ;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t = lane & 3;  // a fragment's row group and column pair
+  // this warp's 16-row group and its context columns [c0, c0 + CW)
+  const int group = warp / SH::SPLIT, c0 = CW * (warp % SH::SPLIT);
   const int hd16 = (hd + 15) & ~15;
-  const int ksteps = hd16 / 16, nt_o = hd / 8;
+  const int ksteps = hd16 / 16, nt_o = max(0, min(CW, hd - c0)) / 8;
   const __nv_bfloat16* qb = q + (size_t)bh * Sq * hd;
   const __nv_bfloat16* kb = k + (size_t)bh * Skv * hd;
   const __nv_bfloat16* vb = v + (size_t)bh * Skv * hd;
@@ -139,17 +164,17 @@ flash_attention_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16*
   const int t_begin = kv_begin / BKV;
   const int t_end = (kv_end + BKV - 1) / BKV;
   // the keys the rows of this warp may see
-  const int r0 = 16 * warp, w_first = q0 + r0;
+  const int r0 = 16 * group, w_first = q0 + r0;
   const int w_last = min(w_first + 15, Sq - 1);
   const int w_end = causal ? min(kv_len, w_last + 1) : kv_len;
   const int w_begin = window > 0 ? w_first - window + 1 : 0;
 
   auto load_tile = [&](int tile, int buf) {
     const int k0 = tile * BKV, nk = min(BKV, Skv - k0);
-    copy_rows(sK[buf], kb + (size_t)k0 * hd, k, nk, BKV, hd, hd16, tid);
-    copy_rows(sV[buf], vb + (size_t)k0 * hd, v, nk, BKV, hd, hd16, tid);
+    copy_rows<ROW, THREADS>(sK[buf], kb + (size_t)k0 * hd, k, nk, BKV, hd, hd16, tid);
+    copy_rows<ROW, THREADS>(sV[buf], vb + (size_t)k0 * hd, v, nk, BKV, hd, hd16, tid);
   };
-  copy_rows(sQ, qb + (size_t)q0 * hd, q, Sq - q0, BQ, hd, hd16, tid);
+  copy_rows<ROW, THREADS>(sQ, qb + (size_t)q0 * hd, q, Sq - q0, BQ, hd, hd16, tid);
   if (t_begin < t_end) load_tile(t_begin, 0);
   cp_async_commit();
 
@@ -177,7 +202,7 @@ flash_attention_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16*
 #pragma unroll
         for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
 #pragma unroll
-      for (int kk = 0; kk < MAX_HD / 16; ++kk) {
+      for (int kk = 0; kk < HD / 16; ++kk) {
         if (kk >= ksteps) break;
         unsigned a[4];
         ldmatrix_x4(a, sQ + (r0 + (lane & 15)) * ROW + 16 * kk + 8 * (lane >> 4));
@@ -244,7 +269,7 @@ flash_attention_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16*
           if (2 * np >= nt_o) break;
           unsigned b[4];
           ldmatrix_x4_trans(b, sV[buf] + (16 * kk + 8 * ((lane >> 3) & 1) + (lane & 7)) * ROW +
-                                   16 * np + 8 * (lane >> 4));
+                                   c0 + 16 * np + 8 * (lane >> 4));
 #pragma unroll
           for (int term = 0; term < 3; ++term) {
             const unsigned a[4] = {pa[0][term], pa[1][term], pa[2][term], pa[3][term]};
@@ -267,34 +292,52 @@ flash_attention_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16*
     const int qpos = w_first + g + 8 * h;
     if (qpos >= Sq) continue;
     const float denom = fmaxf(l[h], 1e-30f);
-    OT* o = out + ((size_t)bh * Sq + qpos) * hd + 2 * t;
+    OT* o = out + ((size_t)bh * Sq + qpos) * hd + c0 + 2 * t;
 #pragma unroll
     for (int j = 0; j < NT_O; ++j)
       if (j < nt_o) store2(o + 8 * j, acc[j][2 * h] / denom, acc[j][2 * h + 1] / denom);
   }
 }
 
-template <typename OT>
-void launch(const void* q, const void* k, const void* v, void* out, int BH, int Sq, int Skv,
-            int hd, int kv_len, int causal, int window, float sm_scale, cudaStream_t stream) {
+template <int HD, typename OT>
+int launch(const void* q, const void* k, const void* v, void* out, int BH, int Sq, int Skv,
+           int hd, int kv_len, int causal, int window, float sm_scale, cudaStream_t stream) {
+  using SH = Shape<HD>;
+  // the dynamic shared memory's ceiling, raised once per instance (not a
+  // stream operation, so a graph capture records nothing of it)
+  static const cudaError_t set = cudaFuncSetAttribute(
+      flash_attention_kernel<HD, OT>, cudaFuncAttributeMaxDynamicSharedMemorySize, SH::SMEM);
+  if (set != cudaSuccess) return static_cast<int>(set);
   const dim3 grid(BH, (Sq + BQ - 1) / BQ);
-  flash_attention_kernel<OT><<<grid, THREADS, 0, stream>>>(
+  flash_attention_kernel<HD, OT><<<grid, SH::THREADS, SH::SMEM, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<OT*>(out), Sq, Skv, hd, kv_len, causal,
       window, sm_scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename OT>
+int launch_hd(const void* q, const void* k, const void* v, void* out, int BH, int Sq, int Skv,
+              int hd, int kv_len, int causal, int window, float sm_scale, cudaStream_t stream) {
+  if (hd <= 128)
+    return launch<128, OT>(q, k, v, out, BH, Sq, Skv, hd, kv_len, causal, window, sm_scale,
+                           stream);
+  return launch<256, OT>(q, k, v, out, BH, Sq, Skv, hd, kv_len, causal, window, sm_scale,
+                         stream);
 }
 
 }  // namespace
 
-// Plain C entry point, bound with ctypes.  Returns cudaGetLastError() after
-// the launch, so a refused launch is reported to the caller.
+// Plain C entry point, bound with ctypes.  Returns the first CUDA error of
+// the launch (cudaGetLastError() after it), so a refused launch is
+// reported to the caller.  hd up to 128 takes the HD = 128 instance, up to
+// 256 the HD = 256 one.
 extern "C" int flash_attention_bhsd(const void* q, const void* k, const void* v, void* out,
                                     int out_bf16, int BH, int Sq, int Skv, int hd, int kv_len,
                                     int causal, int window, float sm_scale, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (out_bf16)
-    launch<__nv_bfloat16>(q, k, v, out, BH, Sq, Skv, hd, kv_len, causal, window, sm_scale, s);
-  else
-    launch<float>(q, k, v, out, BH, Sq, Skv, hd, kv_len, causal, window, sm_scale, s);
-  return static_cast<int>(cudaGetLastError());
+    return launch_hd<__nv_bfloat16>(q, k, v, out, BH, Sq, Skv, hd, kv_len, causal, window,
+                                    sm_scale, s);
+  return launch_hd<float>(q, k, v, out, BH, Sq, Skv, hd, kv_len, causal, window, sm_scale, s);
 }

@@ -30,7 +30,7 @@ import torch
 from repro_torch.kernels import _build, counts
 
 NEG_INF = -1e30
-MAX_HD = 128        # the kernel's largest head_dim (16 n8 tiles of the context)
+MAX_HD = 256        # the kernel's largest head_dim
 _OUT_TYPES = (torch.float32, torch.bfloat16)
 
 
@@ -83,7 +83,8 @@ def flash_attention_bhsd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Masked softmax attention on the card.
 
     q: (BH, Sq, hd), k, v: (BH, Skv, hd), all bf16, contiguous, on one
-    CUDA device, 16-byte aligned; hd a multiple of 8 up to 128; any Sq,
+    CUDA device, 16-byte aligned; hd a multiple of 8 up to 256 (above
+    128 the kernel's HD = 256 instance, 128 threads a block); any Sq,
     Skv and 0 <= kv_len <= Skv; ``window`` None or >= 1; out (BH, Sq, hd)
     ``out_dtype`` (bf16/f32)."""
     if not q.is_cuda:

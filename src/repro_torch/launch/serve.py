@@ -42,6 +42,11 @@ request carries its own source frames, primed into its slot at admission.
 ``--arch mamba2-1.3b`` serves the ssm family: the curve's forward runs
 the chunked SSD scan, the decode loop and the engine the one-token state
 update (``--block-size`` and ``--spec-k`` are rejected for it).
+``--arch recurrentgemma-9b`` serves the hybrid family: the curve's forward
+runs the RG-LRU scan and flash attention at head_dim 256 with the
+2,048-token window, the decode loop and the engine the one-token state
+update and the local-attention ring (``--block-size`` and ``--spec-k``
+are rejected for it too).
 
   python -m repro_torch.launch.serve --arch starcoder2-3b --reduced \\
       --deadline-ms 50 --rate 200                  # on the card

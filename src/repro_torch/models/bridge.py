@@ -3,8 +3,9 @@
 ``params_from_numpy(tree)`` takes the reference's param tree with every
 leaf converted to numpy — a nested dict whose ``QTensor`` leaves are given
 as ``(values, scale)`` tuples — and returns the port's tree: the same
-dicts, with each stacked layer subtree (leading L axis: ``layers``, or
-encdec's ``enc_layers`` and ``dec_layers``) split into a list of
+dicts, with each stacked layer subtree (leading L axis: ``layers``,
+encdec's ``enc_layers`` and ``dec_layers``, or the hybrid's ``groups`` of
+(rec0, rec1, attn) and ``leftover`` blocks) split into a list of
 per-layer dicts and each ``(values, scale)`` pair made a port
 ``QTensor``.  No JAX is imported: the JAX -> numpy step belongs to the
 caller (the tests do it).
@@ -49,7 +50,7 @@ def _depth(node) -> int:
 
 
 # the subtrees the reference stacks on a leading layer axis
-STACKED = ("layers", "enc_layers", "dec_layers")
+STACKED = ("layers", "enc_layers", "dec_layers", "groups", "leftover")
 
 
 def params_from_numpy(tree: dict, device: DeviceLike = None) -> dict:

@@ -12,7 +12,10 @@ Conventions (as in ``repro/models/layers.py``):
   in the full-sequence form, or pre-projected per slot (``xk``, ``xv``
   behind a per-row ``xlen`` frontier) in the decode form.
 
-Not ported yet: sliding-window ring caches (ROADMAP queue 1, item 13).
+A sliding-window ring is a contiguous cache whose rows the caller writes
+at ``position % window`` and reads below ``min(position + 1, window)``
+(the hybrid family, ``models/rglru.py``); the dense and MoE families'
+windowed configs are not ported yet (ROADMAP queue 1, item 13).
 """
 from __future__ import annotations
 

@@ -1,5 +1,5 @@
-"""Family -> model module dispatch (the dense, MoE, encdec and ssm
-families).
+"""Family -> model module dispatch (the dense, MoE, encdec, ssm and
+hybrid families).
 
 Uniform API per family, as in ``repro/models/registry.py``:
     init(gen, cfg, dtype, device) -> params
@@ -17,10 +17,10 @@ Uniform API per family, as in ``repro/models/registry.py``:
                                       (families that prime: encdec)
     cache_batch_axes(cache) -> {leaf: slot axis} (where not axis 1)
     mask_inactive_slots(old, new, active) -> cache (families with
-                                      non-positional state: ssm)
+                                      non-positional state: ssm, hybrid)
 
-The dense, MoE, encdec and ssm families are ported; the others arrive
-with their model modules (ROADMAP queue 1, item 13).
+The dense, MoE, encdec, ssm and hybrid families are ported; the vlm
+family arrives with its model module (ROADMAP queue 1, item 13).
 """
 from __future__ import annotations
 
@@ -31,10 +31,10 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.qlinear import FP, QuantMode
-from repro_torch.models import encdec, moe, ssm, transformer
+from repro_torch.models import encdec, moe, rglru, ssm, transformer
 
 _MODULES = {"dense": transformer, "moe": moe, "encdec": encdec,
-            "ssm": ssm}
+            "ssm": ssm, "hybrid": rglru}
 
 
 def module_for(cfg: ArchConfig):
@@ -127,8 +127,8 @@ def mask_inactive_slots(cfg: ArchConfig, old_cache: dict, new_cache: dict,
 
     KV caches need nothing: stale positional entries are invisible behind
     each row's ``valid_len`` frontier, so the dense, MoE and encdec
-    families return ``new_cache`` unchanged.  A recurrent family (ssm)
-    defines ``mask_inactive_slots`` in its module: its state has no
+    families return ``new_cache`` unchanged.  A recurrent family (ssm,
+    hybrid) defines ``mask_inactive_slots`` in its module: its state has no
     frontier to hide behind, so inactive rows are frozen bitwise.  The
     port's decode steps write their cache in place, so the slot tick does
     not call this hook: it hands the decode step its row mask as the cache
@@ -194,7 +194,7 @@ def prime_slot(cfg: ArchConfig, params, source, n_valid, *,
 # recurrent state that advances through every fed token (ssm, hybrid), or
 # a primed cross-attention that the verify scan does not carry (vlm;
 # encdec answers through needs_prime).  Answered here by family, so the
-# unported ones (hybrid, vlm) do not reach their refusal.
+# unported one (vlm) does not reach its refusal.
 _UNREWINDABLE = RECURRENT + ("vlm",)
 
 

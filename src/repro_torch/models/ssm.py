@@ -282,15 +282,46 @@ def _rows(mask: Tensor, like: Tensor) -> Tensor:
     return mask.reshape((-1,) + (1,) * (like.ndim - 1))
 
 
-def mask_inactive_slots(old: dict, new: dict, active: Tensor) -> dict:
-    """The slot contract's freeze, out of place: ``new`` with the inactive
-    rows' state restored from ``old`` bitwise (the reference's hook; the
-    batch axis of both leaves is 1, behind the layer axis).  The SSM state
-    has no ``valid_len`` frontier that could hide a clobbered row, so a
-    row the tick does not advance must keep it.  ``decode_step`` applies
-    the same rule in place, layer by layer."""
-    return {k: torch.where(_rows(active, new[k][0])[None], new[k], old[k])
-            for k in ("h", "conv")}
+def update_state(states: Tuple[Tensor, ...], fresh: Tensor,
+                 slots: Optional[Tensor], active: Optional[Tensor], step):
+    """The slot contract on one block's recurrent state, written in place
+    (this family's and the hybrid's decode steps): ``states`` the block's
+    cache tensors (rows first), read at the view's ``slots`` (else every
+    row), zeroed on the rows that are ``fresh`` (the scrub), handed to
+    ``step(state) -> (out, new_state)``, and the new state written back
+    at ``slots``, or where the tick's row mask ``active`` is set (the
+    freeze: an inactive row's element is its own old value), or whole.
+    Returns ``out``."""
+    old = states if slots is None else tuple(t[slots] for t in states)
+    out, new = step(tuple(torch.where(_rows(fresh, t), 0.0, t) for t in old))
+    for t, n in zip(states, new):
+        if slots is not None:
+            t.index_copy_(0, slots, n)
+        elif active is not None:
+            torch.where(_rows(active, n), n, t, out=t)
+        else:
+            t.copy_(n)
+    return out
+
+
+def mask_inactive_slots(old: dict, new: dict, active: Tensor,
+                        axes: Optional[dict] = None, skip=()) -> dict:
+    """The slot contract's freeze, out of place (the reference's hook):
+    ``new`` with the inactive rows' state restored from ``old`` bitwise.
+    ``axes`` gives each leaf's slot axis (default 1, behind the layer
+    axis, as this family's h and conv); the leaves in ``skip`` (a
+    positional cache, the hybrid's ring) keep ``new``'s.  A recurrent
+    state has no ``valid_len`` frontier that could hide a clobbered row,
+    so a row the tick does not advance must keep it.  ``decode_step``
+    applies the same rule in place, layer by layer."""
+    out = dict(new)
+    for name, t in new.items():
+        if name in skip:
+            continue
+        axis = 1 if axes is None else axes[name]
+        rows = active.reshape((1,) * axis + (-1,) + (1,) * (t.ndim - axis - 1))
+        out[name] = torch.where(rows, t, old[name])
+    return out
 
 
 def decode_step(params: dict, tokens: Tensor, cache: dict, cache_index,
@@ -332,25 +363,9 @@ def decode_step(params: dict, tokens: Tensor, cache: dict, cache_index,
         slots = slots.long()
     x = L.embed(params["embed"], tokens)
     for i, lp in enumerate(params["layers"]):
-        h_all, conv_all = cache["h"][i], cache["conv"][i]
-        h_old, conv_old = ((h_all, conv_all) if slots is None else
-                           (h_all[slots], conv_all[slots]))
-        h_in = torch.where(_rows(fresh, h_old), 0.0, h_old)
-        conv_in = torch.where(_rows(fresh, conv_old), 0.0, conv_old)
-        x, (new_h, new_conv) = ssd_layer(lp, x, cfg, mode=mode,
-                                         state=(h_in, conv_in))
-        if slots is not None:
-            h_all.index_copy_(0, slots, new_h)
-            conv_all.index_copy_(0, slots, new_conv)
-        elif active is not None:
-            # the freeze, written where the state lies: an inactive row's
-            # element is its own old value
-            torch.where(_rows(active, new_h), new_h, h_all, out=h_all)
-            torch.where(_rows(active, new_conv), new_conv, conv_all,
-                        out=conv_all)
-        else:
-            h_all.copy_(new_h)
-            conv_all.copy_(new_conv)
+        x = update_state((cache["h"][i], cache["conv"][i]), fresh, slots,
+                         active, lambda st: ssd_layer(lp, x, cfg, mode=mode,
+                                                      state=st))
     if not logits:
         return None, cache
     x = L.rmsnorm(params["ln_f"], x)

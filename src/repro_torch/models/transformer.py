@@ -53,11 +53,12 @@ def norm_apply(cfg: ArchConfig, p, x):
 
 
 def _check_supported(cfg: ArchConfig) -> None:
-    """The KV caches the port decodes from: full attention (no ring)."""
+    """The KV caches this module decodes from: full attention (no ring;
+    the hybrid family's local-attention ring is ``models/rglru.py``'s)."""
     if cfg.window is not None:
         raise NotImplementedError(
-            "sliding-window (ring) KV caches are not ported yet (ROADMAP "
-            "queue 1, item 13)")
+            "sliding-window (ring) KV caches of the dense and MoE families "
+            "are not ported yet (ROADMAP queue 1, item 13)")
 
 
 # ---------------------------------------------------------------------------

@@ -265,11 +265,12 @@ def make_slot_decode_step(cfg: ArchConfig, *, mode: QuantMode = FP,
     Inactive rows still write their k/v at their frozen index, which no
     read can see (every read is masked at the row's own frontier); on a
     paged cache they write through their table, into trash block 0 once
-    the row is retired.  Non-positional state (ssm's ``h`` and conv tail)
-    has no frontier to hide behind: the decode step sees ``active`` as
-    the cache view's row mask and leaves an inactive row's state bitwise
-    as it was (the slot contract's freeze, ``registry.mask_inactive_slots``
-    done in place); the dense, MoE and encdec steps ignore it."""
+    the row is retired.  Non-positional state (ssm's ``h`` and conv tail,
+    the hybrid's RG-LRU state and conv tails) has no frontier to hide
+    behind: the decode step sees ``active`` as the cache view's row mask
+    and leaves an inactive row's state bitwise as it was (the slot
+    contract's freeze, ``registry.mask_inactive_slots`` done in place);
+    the dense, MoE and encdec steps ignore it."""
     decode = make_decode_step(cfg, mode=mode)
 
     def step(params, tokens, cache, slot_index, active, *rng):
@@ -541,13 +542,14 @@ def make_prefill_chunk_step(cfg: ArchConfig, *, mode: QuantMode = FP,
     activations with one scale (``kernels/ops.py::qmatmul_dynamic``)
     where the reference's scan quantizes each token alone, under FP
     ``torch.matmul`` promises no row invariance, and a recurrent family
-    (ssm) steps its state one token per call.
+    (ssm, hybrid) steps its state one token per call.
 
     The step reads the slot's row through a table, so no Python ``sid``
     narrows the cache: the paged cache's table row, or, on a contiguous
     cache, ``[sid]`` over its leaves read as blocks of one slot row each;
     slot-resident leaves are read (and a recurrent state written) at
-    ``slots = sid`` (``encdec.decode_step``, ``ssm.decode_step``).
+    ``slots = sid`` (``encdec.decode_step``, ``ssm.decode_step``,
+    ``rglru.decode_step``).
     On a paged cache it writes only positions ``start .. start + n_valid
     - 1``, which lie in blocks the slot owns privately — a shared prefix
     block is never written.  (The reference gathers the row into a

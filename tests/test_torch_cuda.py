@@ -22,8 +22,10 @@ captured ticks, a speculating engine equal to its control), and the
 encdec family (the captured prime bitwise the eager one, the plain
 cross-attention's rows batch-invariant, the LM head padded to a multiple
 of 4 columns, the engine on reduced whisper-medium equal to its
-reference), and the ssm family (the engine on reduced mamba2-1.3b equal
-to its reference, the captured tick's freeze and scrub), at small
+reference), the ssm family (the engine on reduced mamba2-1.3b equal
+to its reference, the captured tick's freeze and scrub), and the hybrid
+family (flash attention at head_dim 256; the engine on reduced
+recurrentgemma-9b, its ring wrapped, equal to its reference), at small
 shapes.
 
 Every test here is marked ``gpu`` and skips without a CUDA device; the
@@ -678,6 +680,10 @@ FLASH_CASES = [
     (2, 200, 200, 128, True, None, None),         # several tiles each way
     (3, 45, 45, 24, True, None, None),            # hd not a multiple of 16
     (2, 50, 75, 64, False, 20, None),             # Skv not a multiple of 32
+    (16, 32, 32, 256, True, 2048, None),          # recurrentgemma's curve
+    (2, 200, 200, 256, True, 64, None),           # hd 256, the window bites
+    (2, 45, 70, 136, False, None, 60),            # hd 136: the HD = 256
+    (3, 40, 40, 200, True, None, None),           # instance, ragged columns
 ]
 
 
@@ -1990,3 +1996,27 @@ def test_ssm_captured_tick_freezes_inactive_rows_on_card(cuda):
     assert int(a[1]) == int(b[1])
     for k in cache:
         assert torch.equal(got[k][:, 1], fresh[k][:, 1])
+
+
+def test_hybrid_engine_on_card_equals_reference(cuda):
+    """Reduced recurrentgemma-9b on the card (8 layers: 2 groups and 2
+    leftover recurrent blocks; a 32-slot ring): 8 requests of 24 + 12
+    tokens (every one past the window) through 4 slots, with and without
+    chunked prefill, greedy and sampled, every token equal to the
+    sequential batch-1 reference."""
+    from repro_torch.runtime import prng as P
+    cfg = dataclasses.replace(get_config("recurrentgemma-9b").reduced(),
+                              n_layers=8)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    params = R.init_quantized(gen, cfg, device=cuda)
+    reqs = E.synthetic_requests(8, rate_per_s=3000.0, vocab=cfg.vocab,
+                                prompt_len=24, max_new_tokens=12)
+    for chunk in (4, None):
+        for t, key in ((0.0, None), (0.8, P.PRNGKey(3))):
+            eng = E.Engine(cfg, params, mode=W8A16, num_slots=4, max_seq=48,
+                           prefill_chunk=chunk, temperature=t, rng=key)
+            eng.warmup()
+            rep = eng.serve(reqs)
+            assert rep.outputs() == E.reference_outputs(
+                cfg, params, reqs, mode=W8A16, max_seq=48, temperature=t,
+                rng=key)

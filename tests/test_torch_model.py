@@ -194,4 +194,4 @@ def test_unported_paths_name_their_roadmap_item(setup):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         R.init_cache(dataclasses.replace(tcfg, window=8), 1, 8, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        R.module_for(dataclasses.replace(tcfg, family="hybrid"))
+        R.module_for(dataclasses.replace(tcfg, family="vlm"))

@@ -148,7 +148,7 @@ SUPPORT = {"starcoder2-3b": ("starcoder2-3b", {}, True),
            "windowed-dense": ("starcoder2-3b", dict(window=8), False),
            "windowed-moe": ("qwen2-moe-a2.7b", dict(window=8), False),
            "ssm": ("mamba2-1.3b", {}, False),
-           "hybrid": ("starcoder2-3b", dict(family="hybrid"), False),
+           "hybrid": ("recurrentgemma-9b", {}, False),
            "encdec": ("whisper-medium", {}, False),
            "vlm": ("starcoder2-3b", dict(family="vlm"), False)}
 
