@@ -235,6 +235,27 @@ Phases, each of which fails the run (non-zero exit, no result line):
    reference) and w8a8 (the curve's RG-LRU gates and head on the mma
    path, 53 launches a forward), each run's captured curve bitwise the
    eager forward at every batch (timed under w8a16 only).
+15. mixtral: mixtral-8x22b at full width and 8 of its 56 layers (d
+   6,144, 48 query and 8 KV heads of 128, 8 experts top-2 of d_ff
+   16,384, window 4,096, vocab 32,768 untied; 20.4 GB of int8, where 56
+   layers would need 141 GB).  First flash with the window (the curve's
+   BH = 48 x 1, 4, 16 at S = 32, and BH = 6 at S = 8,192 where it
+   bites), the two decode attention kernels over 8 rows of a 4,096-slot
+   int8 ring (the paged one through one-entry tables, bitwise the
+   contiguous one), ``qmatmul_w8a16`` and ``qmatmul_w8a8`` at its
+   projections and head, the expert stacks at a tick's routed rows and
+   the curve's rows, and the router, each timed beside its plain
+   version, its library call and its bound; then the model from the
+   streamed init (its peak under 40 GB), the dense trace on the int8 and
+   bf16 rings greedy and on the int8 ring sampled, each held to
+   ``reference_outputs``; the ring tick (8 rows at positions 4,093-4,100
+   of the 4,096-slot ring): captured bitwise eager, each row bitwise its
+   batch-1 step, its launches, wall, busy and floors; the chunk on the
+   wrapped ring from 4,090, 4,094 and 4,100, captured bitwise the
+   per-token steps; then the launcher's ``measure_service_curve`` (each
+   batch's captured forward bitwise the eager one) and
+   ``measure_decode_tps`` under w8a16 and w8a8 (the serve CLI itself
+   runs mixtral only ``--reduced``).
 
 The kernel phase holds both of ``qmatmul_w8a16``'s kernels (the GEMV and
 the ``mma.sync`` bf16 tensor-core path) at every projection and the LM
@@ -270,14 +291,14 @@ than before the redesigns.
 
 ``--only attention`` / ``--only long_tick`` / ``--only w8a8`` / ``--only
 graphs`` / ``--only dense`` / ``--only sampling`` / ``--only spec`` /
-``--only moe`` / ``--only encdec`` / ``--only ssm`` / ``--only hybrid``
-run just the two
+``--only moe`` / ``--only encdec`` / ``--only ssm`` / ``--only hybrid`` /
+``--only mixtral`` run just the two
 attention kernel
 phases, the long-context ticks, ``qmatmul_w8a8``'s kernel phase and the
 W8A8 tick, the five eager tick breakdowns and the graph phase, the dense
 family's kernel rows, rmsnorm widths and phase 10, phase 7 and the
 sampled serve CLI run, phase 8 with its CLI run and qwen2-moe-a2.7b's
-speculative serve, phase 11, 12, 13 or 14, and ``--src DIR``
+speculative serve, phase 11, 12, 13, 14 or 15, and ``--src DIR``
 takes the port from
 another checkout's ``src/`` (so the same phases time a parent commit's
 kernels); such a partial run prints no result line.
@@ -296,7 +317,9 @@ under ``encdec``; qmatmul_w8a16's and qmatmul_w8a8's rows at
 mamba2-1.3b's shapes, their launches and the tick's and chunk's times
 under ``ssm``; the three kernels' rows at recurrentgemma-9b's shapes,
 flash's at head_dim 256, their launches and the ring tick's and chunk's
-times under ``hybrid``),
+times under ``hybrid``; every kernel's rows at mixtral-8x22b's shapes,
+their launches in its serves and launcher runs, and the ring tick's,
+chunks', serves' and launcher's times under ``mixtral``),
 the whole run's time, and,
 last, ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
 without the repo's ``src/repro_torch`` beside it, it exits non-zero and
@@ -1985,11 +2008,14 @@ def serve_run(quant, curve_paths, flags=(), base=SERVE_ARGS, label=None,
 def gemvs_per_layer(cfg) -> int:
     """qmatmul_w8a16's GEMV launches of one decode step per layer (every
     projection int8): the attention's four, the (shared) MLP's two or
-    three, and an MoE layer's router; an SSD layer's in_proj and
-    out_proj."""
+    three (none for an MoE config without shared experts: mixtral), and
+    an MoE layer's router; an SSD layer's in_proj and out_proj."""
     if cfg.family == "ssm":
         return 2
-    return 4 + (3 if cfg.gated_mlp else 2) + (cfg.family == "moe")
+    mlp = 3 if cfg.gated_mlp else 2
+    if cfg.family == "moe" and not cfg.n_shared_experts:
+        mlp = 0
+    return 4 + mlp + (cfg.family == "moe")
 
 
 def step_gemvs(cfg) -> int:
@@ -3477,9 +3503,11 @@ DENSE_NUM_BLOCKS = 1 + 4 * (DENSE_MAX_SEQ // DENSE_BLOCK)
 DENSE_RATE_PER_S = 20.0
 # qwen1.5-32b's 35.2 GB of int8 weights must come from an init whose peak
 # stays below this (its f32 tree alone is 141 GB); qwen2-moe-a2.7b's 14.0 GB
-# from one under 20 GB (its f32 tree is 56 GB, one f32 layer 2.28 GB)
+# from one under 20 GB (its f32 tree is 56 GB, one f32 layer 2.28 GB);
+# mixtral-8x22b's 8 layers, 20.4 GB of int8, from one under 40 GB (one f32
+# layer is 9.7 GB)
 PEAK_BYTES = {"qwen1.5-32b": 45e9, "qwen2-moe-a2.7b": 20e9,
-              "recurrentgemma-9b": 16e9}
+              "recurrentgemma-9b": 16e9, "mixtral-8x22b": 40e9}
 # the decode attention kernels' rows at the dense configs' (KV heads, G):
 # qwen1.5-32b, mistral-nemo-12b, internlm2-20b
 DENSE_HEADS = ((40, 1), (8, 4), (8, 6))
@@ -3646,10 +3674,11 @@ def dense_attention_rows(flush):
     return worst, contig, paged
 
 
-def build_dense_model(arch):
+def build_dense_model(arch, n_layers=None):
     """Full-width ``arch`` with random weights from SEED through the
     streamed init (``registry.init_quantized``: each layer and table
-    quantized as it is drawn), on the card: (cfg, params).  Prints its
+    quantized as it is drawn), on the card: (cfg, params); ``n_layers``
+    cuts the depth (``dataclasses.replace``), never a width.  Prints its
     shape, its int8 weight bytes, the init's time and the peak memory
     allocated (and what was allocated before the init), which must stay
     under PEAK_BYTES where one is set."""
@@ -3658,7 +3687,9 @@ def build_dense_model(arch):
     from repro_torch.core.quant import tree_weight_bytes
     from repro_torch.models import registry as R
 
-    cfg = get_config(arch)
+    full = get_config(arch)
+    cfg = full if n_layers is None else dataclasses.replace(
+        full, n_layers=n_layers)
     torch.cuda.synchronize()
     before = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
@@ -3684,7 +3715,11 @@ def build_dense_model(arch):
                    f"{cfg.n_layers % 3} leftover rec, RG-LRU width "
                    f"{cfg.rnn_width}, conv width {cfg.conv_width}, local "
                    f"window {cfg.local_window}")
-    print(f"{cfg.family} {arch}: full width ({cfg.n_layers} layers, d="
+    depth = (f"{cfg.n_layers} layers" if n_layers is None else
+             f"{cfg.n_layers} of {full.n_layers} layers")
+    if cfg.window:
+        widths += f", sliding window {cfg.window}"
+    print(f"{cfg.family} {arch}: full width ({depth}, d="
           f"{cfg.d_model}, {widths}, vocab={cfg.vocab} "
           f"{'tied' if cfg.tie_embeddings else 'untied'}, {cfg.norm}), W8A16 "
           f"weights {nbytes} bytes, streamed init+quantize {init_s:.1f}s, "
@@ -3967,14 +4002,15 @@ MOE_TICK_PARTS = {
         "sort", "softmax", "scan", "index", "gather", "scatter")}
 
 
-def moe_curve_rows() -> tuple:
+def moe_curve_rows(arch=MOE_ARCH) -> tuple:
     """The experts' stacked GEMV's rows in the serve CLI's curve: each of
     the curve's b rows of SERVE_SEQ tokens gives every expert its
     capacity's rows, ceil(SERVE_SEQ * k / E * capacity_factor) = 3 at
-    qwen2-moe-a2.7b, so M = 3, 12 and 48 at b = 1, 4 and 16."""
+    qwen2-moe-a2.7b, so M = 3, 12 and 48 at b = 1, 4 and 16 (mixtral's 8
+    give M = 8, 32 and 128)."""
     from repro_torch.configs import get_config
 
-    c = get_config(MOE_ARCH)
+    c = get_config(arch)
     cap = math.ceil(SERVE_SEQ * c.top_k / c.n_experts * c.capacity_factor)
     return tuple(b * cap for b in (1, 4, SERVE_MAX_BATCH))
 
@@ -4029,8 +4065,9 @@ def moe_stack_check(label, path, x, w, ws, kw):
     return out, err, ratio
 
 
-def moe_qmatmul_rows(flush):
-    """qmatmul_w8a16 at qwen2-moe-a2.7b's shapes, over its 60 experts
+def moe_qmatmul_rows(flush, arch=MOE_ARCH, seed=SEED + 11):
+    """qmatmul_w8a16 at ``arch``'s shapes (qwen2-moe-a2.7b's 60 experts,
+    mixtral-8x22b's 8), over its experts
     (w_gate with the silu drain, w_up, w_down): the GEMV entry at a
     tick's 8 rows each, all live and under the live mask of a tick's
     routing (``moe_tick_live``: the masked launch bitwise the all-live
@@ -4043,7 +4080,7 @@ def moe_qmatmul_rows(flush):
     router): the tick's routed launch beside the all-live one, bound by
     the live experts' bytes and by every expert's; the curve's largest
     (its b = 16 forward) on the tensor-core entry beside the GEMV's.
-    Then the 2-D GEMV for the router (2048 x 60, f32 x and out) at 8
+    Then the 2-D GEMV for the router (d_model x E, f32 x and out) at 8
     rows.  Returns (worst error, {name: tick numbers}, {name: forward
     numbers})."""
     import torch
@@ -4052,10 +4089,10 @@ def moe_qmatmul_rows(flush):
     from repro_torch.core.quant import quantize_weight
     from repro_torch.kernels import qmatmul as K
 
-    c = get_config(MOE_ARCH)
+    c = get_config(arch)
     e, m = c.n_experts, NUM_SLOTS
-    curve = moe_curve_rows()
-    gen = torch.Generator(device="cuda").manual_seed(SEED + 11)
+    curve = moe_curve_rows(arch)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
     live = moe_tick_live(c, gen)
     n_live = int(live.any(1).sum())
     rows, fwd, worst = {}, {}, 0.0
@@ -4158,7 +4195,7 @@ def moe_qmatmul_rows(flush):
                   f"{max(bytes_ms, ops_ms):.4f}")
             del x
         del q, w, ws, wd
-    # the router: the 2-D GEMV at N = 60 (one ragged strip), f32 x and out
+    # the router: the 2-D GEMV at N = E (one ragged strip), f32 x and out
     q = quantize_weight(torch.randn((c.d_model, e), generator=gen,
                                     device="cuda") * c.d_model ** -0.5)
     w, ws = q.values, q.scale.reshape(-1).contiguous()
@@ -4189,7 +4226,7 @@ def moe_qmatmul_rows(flush):
           f"plain_ms={plain:.4f} library_ms={lib:.4f} bound_ms="
           f"{rows['router']['bound_ms']:.5f}; rows of M = {m} and {2 * m} "
           f"launches equal to the rows alone")
-    print(f"  qmatmul_w8a16_experts at qwen2-moe-a2.7b's shapes (the GEMV "
+    print(f"  qmatmul_w8a16_experts at {arch}'s shapes (the GEMV "
           f"at M = {m}, all live and routed; the mma entry at M = "
           f"{', '.join(map(str, curve))}): within bf16_close, every row "
           f"bitwise alone and in its batch, a stack of one bitwise the 2-D "
@@ -5529,11 +5566,10 @@ HYB_RING_SEQ = 4096
 HYB_RING_POS = (2045, 2046, 2047, 2048, 2049, 2050, 2051, 2052)
 
 
-def hybrid_flash_rows(flush):
-    """flash_attention_bhsd at recurrentgemma-9b's head_dim 256 (the
-    kernel's HD = 256 instance), causal with the model's window of 2,048:
-    the CLI curve's shapes (BH = 16 x b, S = 32) and S = 4,096 at BH = 16,
-    where the window masks half the keys of the later queries; each
+def flash_rows(flush, arch, cases, window, seed):
+    """flash_attention_bhsd at ``arch``'s head_dim, causal with the
+    model's ``window``, at ``cases`` ((BH, S): the CLI curve's shapes and
+    one where the window masks the keys of the later queries); each
     against its plain version (bf16 out: bf16_close), timed beside its
     bound (the pairs the window and the causal mask leave) and SDPA (an
     explicit boolean mask where the window bites).  Returns (worst error,
@@ -5543,11 +5579,10 @@ def hybrid_flash_rows(flush):
     from repro_torch.configs import get_config
     from repro_torch.kernels import flash_attention as FA
 
-    c = get_config(HYB_ARCH)
-    hd, window = c.head_dim, c.local_window
-    gen = torch.Generator(device="cuda").manual_seed(SEED + 37)
+    hd = get_config(arch).head_dim
+    gen = torch.Generator(device="cuda").manual_seed(seed)
     rows, worst = {}, 0.0
-    for bh, s in HYB_FLASH:
+    for bh, s in cases:
         q, k, v = (torch.randn((bh, s, hd), generator=gen, device="cuda")
                    .to(torch.bfloat16) for _ in range(3))
         kw = dict(causal=True, window=window)
@@ -5636,12 +5671,16 @@ def hybrid_phase(flush):
     Returns the kernel rows, the launches of each run and the times."""
     import torch
     from repro_torch import engine as E
+    from repro_torch.configs import get_config
     from repro_torch.runtime import prng as P
     from repro_torch.runtime import steps as ST
 
     t0 = time.perf_counter()
     print(f"hybrid: the kernels at {HYB_ARCH}'s shapes")
-    f_err, f_rows = hybrid_flash_rows(flush)
+    # flash at head_dim 256 (the kernel's HD = 256 instance) with the
+    # 2,048 window: the curve's BH = 16 x b at S = 32, and S = 4,096
+    f_err, f_rows = flash_rows(flush, HYB_ARCH, HYB_FLASH,
+                               get_config(HYB_ARCH).local_window, SEED + 37)
     q_err, q_rows, w8_err, w8_rows, per_m = family_qmatmul_rows(
         flush, HYB_ARCH, HYB_SHAPES, SEED + 43)
     print(f"hybrid: kernel rows {time.perf_counter() - t0:.1f}s")
@@ -5701,8 +5740,407 @@ def hybrid_phase(flush):
     return out
 
 
+# ---------------------------------------------------------------------------
+# mixtral-8x22b: the MoE family over a sliding-window KV ring
+# ---------------------------------------------------------------------------
+
+MIX_ARCH = "mixtral-8x22b"
+# the depth the card holds: 8 of 56 layers at full width, 20.4 GB of int8
+# (56 layers would be 141 GB)
+MIX_LAYERS = 8
+# the W8A16 and W8A8 kernels at mixtral-8x22b's projections: (name, K, N,
+# launches of an 8-layer decode step): wq and wo, and wk and wv (8 KV
+# heads of 128); the experts and the router through moe_qmatmul_rows
+MIX_SHAPES = (("proj", 6144, 6144, 2 * MIX_LAYERS),
+              ("kv", 6144, 1024, 2 * MIX_LAYERS))
+# flash_attention_bhsd at head_dim 128, causal, window 4,096: (BH, S) of
+# the curve's forward (48 heads x b = 1, 4, 16 at S = 32) and of a prompt
+# where the window bites
+MIX_FLASH = ((48, SERVE_SEQ), (192, SERVE_SEQ), (768, SERVE_SEQ), (6, 8192))
+# the ring tick: NUM_SLOTS rows of a max_seq 8,192 cache (a 4,096-slot
+# ring) at positions straddling the ring's end; the chunk from positions
+# before, across and past it
+MIX_RING_SEQ = 8192
+MIX_RING_POS = tuple(range(4093, 4093 + NUM_SLOTS))
+MIX_CHUNK_STARTS = (4090, 4094, 4100)
+MIX_DECODE_TOKENS = 16      # the launcher's decode loop (the CLI's default)
+
+
+def mixtral_attention_rows(flush):
+    """decode_attention_int8 at mixtral-8x22b's (KV 8, G 6, hd 128) over
+    NUM_SLOTS rows of a 4,096-slot int8 ring at the ring tick's valid
+    lengths (min(p + 1, 4,096) for p in MIX_RING_POS), and
+    decode_attention_int8_paged at the chunk step's read of it (each row
+    through a one-entry table over the contiguous rows read as blocks of
+    4,096 slots): each against its plain version, the paged launch
+    bitwise the contiguous one, every row bitwise launched alone, timed
+    beside SDPA and the bound.  Returns (worst error, contiguous numbers,
+    paged numbers)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import decode_attention as A
+
+    c = get_config(MIX_ARCH)
+    kvh, g, hd = c.n_kv_heads, c.n_heads // c.n_kv_heads, c.head_dim
+    s, b = c.window, NUM_SLOTS
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 53)
+    vls = [min(p + 1, s) for p in MIX_RING_POS]
+    vl = torch.tensor(vls, dtype=torch.int32, device="cuda")
+    q = torch.randn((b, kvh, g, hd), generator=gen,
+                    device="cuda").to(torch.bfloat16)
+    k, v, ks, vs = _attn_cache(gen, (b, s, kvh, hd))
+    label = f"decode_attention_int8 {MIX_ARCH} KV={kvh} G={g} B={b} S={s}"
+    out = A.decode_attention_int8(q, k, v, ks, vs, vl)
+    err = _attn_close(label, out, A.decode_attention_int8_ref(
+        q, k, v, ks, vs, vl))
+    _rows_alone(label, out, lambda r: A.decode_attention_int8(
+        q[r:r + 1], k[r:r + 1], v[r:r + 1], ks[r:r + 1], vs[r:r + 1],
+        vl[r:r + 1]), b)
+    kd = (k.float() * ks).to(torch.bfloat16).transpose(1, 2)
+    vd = (v.float() * vs).to(torch.bfloat16).transpose(1, 2)
+    lib = _sdpa_ms(flush, q, kd, vd, vl, s)
+    contig = _attn_numbers(
+        label, b, vls, False, err,
+        time_ms(lambda: A.decode_attention_int8(q, k, v, ks, vs, vl), 20,
+                flush),
+        time_ms(lambda: A.decode_attention_int8_ref(q, k, v, ks, vs, vl), 3,
+                flush), lib, q, 0)
+    contig["max_abs_err"] = err
+    tables = torch.arange(b, dtype=torch.int32, device="cuda")[:, None]
+    plabel = f"decode_attention_int8_paged {MIX_ARCH} one-entry tables"
+    pout = A.decode_attention_int8_paged(q, k, v, ks, vs, vl, tables)
+    perr = _attn_close(plabel, pout, A.decode_attention_int8_paged_ref(
+        q, k, v, ks, vs, vl, tables))
+    if not torch.equal(pout, out):
+        raise AssertionError(f"{plabel}: not bitwise the contiguous kernel")
+    _rows_alone(plabel, pout, lambda r: A.decode_attention_int8_paged(
+        q[r:r + 1], k, v, ks, vs, vl[r:r + 1], tables[r:r + 1]), b)
+    paged = _attn_numbers(
+        plabel, b, vls, False, perr,
+        time_ms(lambda: A.decode_attention_int8_paged(
+            q, k, v, ks, vs, vl, tables), 20, flush),
+        time_ms(lambda: A.decode_attention_int8_paged_ref(
+            q, k, v, ks, vs, vl, tables), 3, flush), lib, q, b * 4)
+    paged["max_abs_err"] = perr
+    print(f"  decode attention on {MIX_ARCH}'s ring: every row bitwise "
+          f"alone and in its batch, the paged kernel through one-entry "
+          f"tables bitwise the contiguous one")
+    del q, k, v, ks, vs, kd, vd, out, pout
+    zero_counts()
+    return max(err, perr), contig, paged
+
+
+def ring_bytes(cfg, positions, win: int) -> int:
+    """Bytes of int8 ring k and v and their f32 scales that one decode
+    step reads for rows at ``positions``: each row's valid slots, min(p +
+    1, win), in every layer."""
+    per_slot = 2 * cfg.n_kv_heads * (cfg.head_dim + 4)
+    return cfg.n_layers * per_slot * sum(min(p + 1, win) for p in positions)
+
+
+def mixtral_ring_tick(cfg, params, label):
+    """The captured tick on the int8 ring at full width: NUM_SLOTS rows at
+    MIX_RING_POS of a MIX_RING_SEQ cache (a 4,096-slot ring) filled at
+    random, straddling the ring's end.  The captured tick's tokens and
+    every cache leaf bitwise the eager tick's; the decode step's logits
+    and leaves row by row bitwise the row's batch-1 step (a lockstep
+    index on the row alone); a replay's launches (the attention's four
+    and the router's GEMV a layer and the head, three expert stacks and a
+    decode attention launch a layer, nothing else counted); then wall,
+    busy and torch.profiler's split (MOE_TICK_PARTS) beside two floors at
+    3.35 TB/s: every int8 weight the tick reads (the embedding table only
+    gathers), and with the experts only those its tokens route to (the
+    tick's own routing), each plus the ring's valid slots."""
+    import torch
+    from repro_torch.core.qlinear import W8A16
+    from repro_torch.core.quant import tree_weight_bytes
+    from repro_torch.models import moe as M
+    from repro_torch.runtime import steps as ST
+
+    S, L = NUM_SLOTS, cfg.n_layers
+    eager = ST.make_slot_decode_step(cfg, mode=W8A16)
+    graphed = ST.jit_slot_decode_step(ST.make_slot_decode_step(
+        cfg, mode=W8A16))
+    decode = ST.make_decode_step(cfg, mode=W8A16)
+    g = torch.Generator(device="cuda").manual_seed(SEED + 47)
+    cache = _random_cache(cfg, S, MIX_RING_SEQ, 0)
+    win = cache["k"].shape[2]
+    if win != min(MIX_RING_SEQ, cfg.window):
+        raise AssertionError(f"{label}: a ring of {win} slots")
+    chosen = []
+    with torch.inference_mode():
+        toks = torch.randint(1, cfg.vocab, (S, 1), generator=g,
+                             device="cuda", dtype=torch.int32)
+        idx = torch.tensor(MIX_RING_POS, dtype=torch.int32, device="cuda")
+        active = torch.ones((S,), dtype=torch.bool, device="cuda")
+        start = {k: v.clone() for k, v in cache.items()}
+        want = {k: v.clone() for k, v in cache.items()}
+        real_route = M.route
+
+        def route(router, x, k):
+            out = real_route(router, x, k)
+            chosen.append(out[1].reshape(-1))
+            return out
+
+        M.route = route
+        try:
+            nxt_e = eager(params, toks, want, idx, active)[0].cpu()
+        finally:
+            M.route = real_route
+        routed = [len(set(c.tolist())) for c in chosen]
+        t0 = time.perf_counter()
+        nxt_g = graphed(params, toks, cache, idx, active)[0].cpu()
+        capture_s = time.perf_counter() - t0
+        if not torch.equal(nxt_g, nxt_e) or any(
+                not torch.equal(cache[k], want[k]) for k in cache):
+            raise AssertionError(f"{label}: the captured tick differs from "
+                                 f"the eager tick")
+        full = {k: v.clone() for k, v in start.items()}
+        logits, _ = decode(params, {"tokens": toks, "cache_index": idx},
+                           full)
+        if any(not torch.equal(full[k], want[k]) for k in full) or \
+                not torch.equal(logits[:, -1].argmax(-1).int().cpu(), nxt_e):
+            raise AssertionError(f"{label}: the decode step differs from "
+                                 f"the tick")
+        for r, p in enumerate(MIX_RING_POS):
+            row = {k: v[:, r:r + 1].clone() for k, v in start.items()}
+            one, _ = decode(params, {"tokens": toks[r:r + 1],
+                                     "cache_index": p}, row)
+            if not torch.equal(one[0], logits[r]) or any(
+                    not torch.equal(row[k], full[k][:, r:r + 1])
+                    for k in row):
+                raise AssertionError(f"{label}: row {r} at position {p} "
+                                     f"differs from its batch-1 step")
+            del row, one
+        written = [p % win for p in MIX_RING_POS]
+        for r, slot in enumerate(written):
+            if torch.equal(full["k"][:, r, slot], start["k"][:, r, slot]):
+                raise AssertionError(f"{label}: row {r} did not write its "
+                                     f"ring slot {slot}")
+        del full, logits, start, want
+        zero_counts()
+        graphed(params, toks, cache, idx, active)[0].cpu()
+    launches, plain = read_counts()
+    gemv = gemvs_per_layer(cfg) * L + 1
+    if (launches["qmatmul_w8a16[gemv]"] != gemv
+            or launches["qmatmul_w8a16_experts[gemv]"] != 3 * L
+            or launches["decode_attention_int8"] != L
+            or launches["qmatmul_w8a16[mma]"]
+            or launches["qmatmul_w8a16_experts[mma]"]
+            or launches["decode_attention_int8_paged"]
+            or any(plain.values())):
+        raise AssertionError(f"{label}: a replay launched {launches} ({gemv} "
+                             f"GEMVs, {3 * L} stacks, {L} attention "
+                             f"launches expected), plain {plain}")
+    print(f"{label}: {S} rows at positions {MIX_RING_POS[0]}-"
+          f"{MIX_RING_POS[-1]} of a {win}-slot int8 ring (written at slots "
+          f"{written}): the captured tick bitwise the eager one (tokens and "
+          f"{len(cache)} cache leaves), each row's logits and leaves bitwise "
+          f"its batch-1 step; capture {capture_s:.2f} s; a replay launches "
+          f"{launches}")
+    res = device_breakdown(
+        label, f"captured slot tick ({S} active rows across the ring's end, "
+        f"random ring)", lambda: graphed(params, toks, cache, idx,
+                                         active)[0].cpu(), 10)
+    read = tree_weight_bytes(params) - tree_weight_bytes(params["embed"])
+    stack = sum(tree_weight_bytes(lp["moe"]["experts"])
+                for lp in params["layers"])
+    per_expert = stack / L / cfg.n_experts
+    routed_bytes = read - stack + sum(routed) * per_expert
+    ring = ring_bytes(cfg, MIX_RING_POS, win)
+    floor = (read + ring) / HBM_BYTES_PER_S * 1e3
+    routed_floor = (routed_bytes + ring) / HBM_BYTES_PER_S * 1e3
+    split = dict.fromkeys(MOE_TICK_PARTS, 0.0)
+    for key, ms in res["by_kernel"].items():
+        part = next((p for p, names in MOE_TICK_PARTS.items()
+                     if any(n in key.lower() for n in names)), "the rest")
+        split[part] = split.get(part, 0.0) + ms
+    busy = res["busy"]
+    print(f"{label}: wall {res['wall']:.2f} ms, device busy "
+          f"{'not measured' if busy is None else f'{busy:.3f} ms'}, "
+          f"cudaGraphLaunch {res['graph_launches']:.0f}, cudaLaunchKernel "
+          f"{res['launch_calls']:.0f} a tick; device time by part: "
+          + ", ".join(f"{k} {v:.3f} ms" for k, v in split.items()))
+    print(f"{label}: floors at 3.35 TB/s: {routed_floor:.3f} ms (the "
+          f"{routed_bytes:.0f} bytes of int8 weights its tokens route to, "
+          f"{sum(routed) / L:.2f} of {cfg.n_experts} experts a layer, and "
+          f"the ring's {ring} bytes) and {floor:.3f} ms (every expert: "
+          f"{read} bytes); wall / floor {res['wall'] / routed_floor:.2f} "
+          f"and {res['wall'] / floor:.2f}, busy / floor "
+          + ("not measured" if busy is None else
+             f"{busy / routed_floor:.2f}"))
+    graphed.captured.release()
+    return {"wall": res["wall"], "busy": busy, "split": split,
+            "floor": routed_floor, "every_expert_floor": floor,
+            "live_experts": sum(routed) / L, "ring_bytes": ring,
+            "launches": launches}
+
+
+def mixtral_launcher(cfg, params):
+    """The serve launcher's own measurements on the 8-layer model (the
+    CLI at full depth would need 141 GB of weights): under w8a16 and
+    w8a8, ``serve.measure_service_curve`` through the captured forward
+    (``jit_prefill_step``: a graph per batch, b = 1, 4 and 16 of
+    SERVE_SEQ tokens), its launches counted (flash attention with the
+    window; w8a16: the projections, the experts' tensor-core entry and
+    the head on the mma path, the routers on the GEMV; w8a8:
+    qmatmul_w8a8 for the attention, the GEMV for the rest), each batch's
+    captured logits bitwise the eager forward's (``curve_check``), then
+    ``serve.measure_decode_tps`` (the captured decode loop, no mma
+    launch) at the Table 4 batch.  Returns {quant: launches and
+    times}."""
+    import torch
+    from repro_torch.core import batching as bt
+    from repro_torch.core.qlinear import W8A8, W8A16
+    from repro_torch.launch import serve
+    from repro_torch.runtime import steps as ST
+
+    args = serve.parse_args(["--seq", str(SERVE_SEQ), "--max-batch",
+                             str(SERVE_MAX_BATCH), "--deadline-ms", "2000"])
+    out = {}
+    for quant, mode in (("w8a16", W8A16), ("w8a8", W8A8)):
+        label = f"mixtral launcher {quant}"
+        prefill = ST.jit_prefill_step(ST.make_prefill_step(cfg, mode=mode))
+        zero_counts()
+        model, curve = serve.measure_service_curve(
+            prefill, params, cfg, seq=SERVE_SEQ, max_batch=SERVE_MAX_BATCH,
+            device="cuda")
+        torch.cuda.synchronize()
+        curve_launches, plain = read_counts()
+        captures = prefill.captured.captures
+        prefill.captured.release()
+        batch = min(bt.choose_batch(model, args.deadline_ms * 1e-3,
+                                    args.max_batch), max(curve))
+        want_mma = mode is W8A16
+        if (captures != len(curve) or any(plain.values())
+                or curve_launches["flash_attention_bhsd"] <= 0
+                or (curve_launches["qmatmul_w8a16[mma]"] > 0) != want_mma
+                or (curve_launches["qmatmul_w8a16_experts[mma]"] > 0)
+                != want_mma
+                or (curve_launches["qmatmul_w8a8"] > 0) == want_mma
+                or batch < 1):
+            raise AssertionError(f"{label}: {captures} captures for "
+                                 f"{len(curve)} batches, chosen batch "
+                                 f"{batch}, curve launches "
+                                 f"{curve_launches}, plain {plain}")
+        curve_check(label, serve.ServeRun(code=0, cfg=cfg, params=params,
+                                          mode=mode, curve=curve),
+                    args, timing=False)
+        zero_counts()
+        bb, tps, dt = serve.measure_decode_tps(
+            cfg, params, mode, batch, s_max=max(SERVE_SEQ * 2, 64),
+            num_tokens=MIX_DECODE_TOKENS, device="cuda")
+        loop_launches, plain = read_counts()
+        mma_free(label, loop_launches)
+        if any(plain.values()) or loop_launches[
+                "qmatmul_w8a16_experts[gemv]"] <= 0:
+            raise AssertionError(f"{label}: decode loop launches "
+                                 f"{loop_launches}, plain {plain}")
+        print(f"{label}: service curve "
+              + "  ".join(f"b={b}: {t * 1e3:.2f} ms" for b, t in
+                          sorted(curve.items()))
+              + f" (captured forwards; chosen batch {batch} at a 2,000 ms "
+              f"deadline); curve launches {curve_launches}; decode loop "
+              f"batch {batch} (bucket {bb}) {MIX_DECODE_TOKENS} steps in "
+              f"{dt * 1e3:.1f} ms -> {tps:.1f} tok/s; its launches "
+              f"{loop_launches}")
+        out[quant] = {"curve_ms": {b: t * 1e3 for b, t in curve.items()},
+                      "batch": batch, "decode_tok_s": tps,
+                      "curve_launches": curve_launches,
+                      "loop_launches": loop_launches}
+        torch_cuda_empty()
+    return out
+
+
+def mixtral_phase(flush):
+    """mixtral-8x22b at full width and 8 of 56 layers (d 6,144, 48 query
+    and 8 KV heads of 128, 8 experts top-2 of d_ff 16,384, no shared
+    expert, window 4,096, vocab 32,768 untied): the kernels at its shapes
+    (qmatmul_w8a16's GEMV and mma paths at its projections and head, the
+    expert stacks at a tick's routed rows and the curve's forward rows,
+    the router; qmatmul_w8a8; the decode attention kernels over a
+    4,096-slot ring; flash with the window), then the model from the
+    streamed init (its peak under PEAK_BYTES), the dense trace served on
+    the int8 ring and the bf16 ring greedy (``compare_with_reference``:
+    the MoE near-tie rule) and on the int8 ring sampled
+    (``compare_sampled``), the ring tick across the ring's end, the
+    captured chunk on the wrapped ring (starts MIX_CHUNK_STARTS, token by
+    token, bitwise the per-token steps), then the launcher's curve and
+    decode loop under w8a16 and w8a8.  Returns the kernel rows, the
+    launches of each run and the times."""
+    import torch
+    from repro_torch import engine as E
+    from repro_torch.configs import get_config
+    from repro_torch.runtime import prng as P
+    from repro_torch.runtime import steps as ST
+
+    t0 = time.perf_counter()
+    cut = f"{MIX_LAYERS} of 56 layers"
+    print(f"mixtral: the kernels at {MIX_ARCH}'s shapes (full width)")
+    f_err, f_rows = flash_rows(flush, MIX_ARCH, MIX_FLASH,
+                               get_config(MIX_ARCH).window, SEED + 51)
+    a_err, a_row, p_row = mixtral_attention_rows(flush)
+    q_err, q_rows, w8_err, w8_rows, per_m = family_qmatmul_rows(
+        flush, MIX_ARCH, MIX_SHAPES, SEED + 49)
+    e_err, e_rows, e_fwd = moe_qmatmul_rows(flush, MIX_ARCH, SEED + 55)
+    print(f"mixtral: kernel rows {time.perf_counter() - t0:.1f}s")
+    torch_cuda_empty()
+    cfg, params = build_dense_model(MIX_ARCH, MIX_LAYERS)
+    qcfg = dataclasses.replace(cfg, kv_quant=True)
+    reqs = E.synthetic_requests(
+        DENSE_REQUESTS, rate_per_s=DENSE_RATE_PER_S, vocab=cfg.vocab,
+        prompt_len=DENSE_PROMPT, max_new_tokens=DENSE_NEW,
+        shared_prefix_len=DENSE_SHARED, seed=SEED)
+    out = {"flash_rows": f_rows, "flash_err": f_err, "attention": a_row,
+           "paged_attention": p_row, "attention_err": a_err,
+           "qmatmul_rows": q_rows, "qmatmul_err": q_err,
+           "w8a8_rows": w8_rows, "w8a8_err": w8_err, "per_m": per_m,
+           "expert_rows": e_rows, "expert_forward_rows": e_fwd,
+           "experts_err": e_err, "serves": {}}
+    label = f"mixtral {MIX_ARCH} ({cut})"
+    for name, c, kw in (("int8", qcfg, {}), ("bf16", cfg, {}),
+                        ("sampled", qcfg, dict(
+                            temperature=SAMPLE_TEMP,
+                            rng=P.PRNGKey(SEED + 1, device="cuda")))):
+        eng, rep, launches = dense_serve(f"{label} {name} ring", c, params,
+                                         reqs, **kw)
+        if name == "sampled":
+            compare_sampled(f"{label} {name} ring", c, params, eng, reqs,
+                            rep.outputs())
+        else:
+            compare_with_reference(f"{label} {name} ring", c, params, eng,
+                                   reqs, rep.outputs())
+        out["serves"][name] = {"ticks": rep.ticks, "wall_s": rep.wall_s,
+                               "tok_s": rep.generated_tokens / rep.wall_s,
+                               "launches": launches}
+        del eng
+    ST.clear_step_cache()
+    torch_cuda_empty()
+    print(f"mixtral: serves {time.perf_counter() - t0:.1f}s")
+    out["tick"] = mixtral_ring_tick(qcfg, params, f"{label} ring tick")
+    torch_cuda_empty()
+    out["chunk"] = {}
+    for start in MIX_CHUNK_STARTS:
+        res = graph_chunk_case(cfg, params, f"{label} ring chunk from "
+                               f"{start}", NUM_SLOTS, MIX_RING_SEQ, 0,
+                               "w8a16", True, 3, start)
+        out["chunk"][start] = {way: {"wall": r["wall"], "busy": r["busy"]}
+                               for way, r in res.items()}
+        torch_cuda_empty()
+    print(f"mixtral: tick and chunk {time.perf_counter() - t0:.1f}s")
+    ST.clear_step_cache()
+    out["launcher"] = mixtral_launcher(cfg, params)
+    ST.clear_step_cache()
+    del params
+    torch_cuda_empty()
+    out["seconds"] = time.perf_counter() - t0
+    print(f"mixtral: phase {out['seconds']:.1f}s ({cut}); "
+          f"{torch.cuda.memory_allocated()} bytes left allocated")
+    return out
+
+
 PHASES = ("attention", "long_tick", "w8a8", "graphs", "dense", "sampling",
-          "spec", "moe", "encdec", "ssm", "hybrid")
+          "spec", "moe", "encdec", "ssm", "hybrid", "mixtral")
 
 
 def parse_args(argv):
@@ -5731,7 +6169,11 @@ def parse_args(argv):
                          "tick, chunk and CLI), or the hybrid family "
                          "(recurrentgemma-9b's flash rows at head_dim "
                          "256, matmul rows, serves, overload, ring tick, "
-                         "chunk and CLI); prints no result line")
+                         "chunk and CLI), or mixtral-8x22b at full width "
+                         "and 8 of 56 layers (kernel rows, serves on the "
+                         "int8 and bf16 rings, ring tick, wrapped chunk, "
+                         "the launcher's curve and decode loop); prints no "
+                         "result line")
     return ap.parse_args(argv)
 
 
@@ -5831,8 +6273,8 @@ def main(argv=None) -> int:
                 serve.measure_service_curve = real_curve
         if "spec" in args.only and "moe" not in args.only:
             spec_moe_only()             # the MoE phase runs it otherwise
-        if {"moe", "encdec", "ssm", "hybrid"} & set(args.only):  # last, as in the
-            # whole run
+        if {"moe", "encdec", "ssm", "hybrid", "mixtral"} & set(
+                args.only):             # last, as in the whole run
             from repro_torch.runtime import steps as ST
             ST.clear_step_cache()       # starcoder's graphs and weights go
             params = None               # first, as in the whole run
@@ -5851,6 +6293,10 @@ def main(argv=None) -> int:
             ST.clear_step_cache()
             torch_cuda_empty()
             hybrid_phase(flush)
+        if "mixtral" in args.only:
+            ST.clear_step_cache()
+            torch_cuda_empty()
+            mixtral_phase(flush)
         del flush_buf
         print(f"chip_smoke: partial run passed in "
               f"{time.perf_counter() - t_run:.1f}s; no result line")
@@ -5901,6 +6347,9 @@ def main(argv=None) -> int:
     ST.clear_step_cache()
     torch_cuda_empty()
     hyb = timed(hybrid_phase, flush)
+    ST.clear_step_cache()
+    torch_cuda_empty()
+    mix = timed(mixtral_phase, flush)
     del flush_buf
 
     tick_basis = (f"one {{}} of {NUM_SLOTS} rows at full width: the sum "
@@ -6191,6 +6640,97 @@ def main(argv=None) -> int:
             hyb["per_m"][SERVE_ROWS])
            for key in ("ms", "plain_ms", "bound_ms", "library_ms")):
         return fail("a hybrid kernel row is not finite")
+    # mixtral-8x22b (full width, 8 of 56 layers): every kernel at its
+    # shapes, their launches in its serves (the GEMV, the experts' GEMV,
+    # the int8 ring's decode attention and the chunks' one-entry-table
+    # reads) and in the launcher's curves and decode loops
+    mix_basis = f"{MIX_ARCH} at full width, {MIX_LAYERS} of 56 layers"
+    mix_serve = mix["serves"]["int8"]["launches"]
+    mix_l = mix["launcher"]
+    kernels[0]["mixtral"] = {
+        **numbers(mix["per_m"][NUM_SLOTS]), "rows": mix["qmatmul_rows"],
+        "max_abs_err": max(mix["qmatmul_err"], mix["experts_err"]),
+        "forward": {**numbers(mix["per_m"][SERVE_ROWS]),
+                    "basis": f"one forward of {SERVE_MAX_BATCH} x "
+                             f"{SERVE_SEQ} tokens on the mma path: "
+                             f"{MIX_LAYERS} x (wq, wk, wv, wo) and the "
+                             f"head, summed"},
+        "experts": {**layer_sum(mix["expert_rows"],
+                                ("all_live_ms", "every_expert_bound_ms")),
+                    "live_experts": mix["expert_rows"]["w_gate"][
+                        "live_experts"],
+                    "shapes": mix["expert_rows"],
+                    "forward": {**layer_sum(mix["expert_forward_rows"],
+                                            ("gemv_ms",)),
+                                "shapes": mix["expert_forward_rows"]},
+                    "launches": mix_serve["qmatmul_w8a16_experts"]},
+        "launches": mix_serve["qmatmul_w8a16"],
+        "launches_by_path": {
+            "gemv": mix_serve["qmatmul_w8a16[gemv]"],
+            "mma": mix_l["w8a16"]["curve_launches"]["qmatmul_w8a16[mma]"]},
+        "tick": {k: v for k, v in mix["tick"].items() if k != "launches"},
+        "chunk": mix["chunk"],
+        "serves": {k: {kk: vv for kk, vv in v.items() if kk != "launches"}
+                   for k, v in mix["serves"].items()},
+        "launcher": {q: {k: v for k, v in r.items()
+                         if k in ("curve_ms", "batch", "decode_tok_s")}
+                     for q, r in mix_l.items()},
+        "basis": f"one {MIX_ARCH} tick of {NUM_SLOTS} rows on the GEMV: "
+                 f"{', '.join(f'{c} x {n} (K {k:,} x N {m:,})' for n, k, m, c in MIX_SHAPES)} "
+                 f"and the head (N 32,768), summed ({mix_basis}); experts: "
+                 f"one layer's three stacked launches over 8 experts at a "
+                 f"tick's routed rows (GEMV) and the curve's b = "
+                 f"{SERVE_MAX_BATCH} forward rows (mma), summed; launches: "
+                 f"the int8-ring greedy serve of {DENSE_REQUESTS} requests "
+                 f"(by path: its GEMVs, the launcher's w8a16 curve's mma); "
+                 f"tick (the ring tick at positions {MIX_RING_POS[0]}-"
+                 f"{MIX_RING_POS[-1]} of a 4,096-slot ring) and chunk: the "
+                 f"captured steps' wall, busy and floor, in ms"}
+    kernels[1]["mixtral"] = {
+        **numbers(mix["attention"]), "max_abs_err": mix["attention_err"],
+        "launches": mix_serve["decode_attention_int8"],
+        "basis": f"one launch of {NUM_SLOTS} rows of a 4,096-slot int8 ring "
+                 f"(KV 8, G 6, hd 128) at the ring tick's valid lengths; "
+                 f"library SDPA on the dequantized ring; launches: the "
+                 f"int8-ring greedy serve ({mix_basis})"}
+    kernels[2]["mixtral"] = {
+        **numbers(mix["paged_attention"]),
+        "max_abs_err": mix["attention_err"],
+        "launches": mix_serve["decode_attention_int8_paged"],
+        "basis": f"the chunk step's read of the ring: one launch of "
+                 f"{NUM_SLOTS} rows, each through a one-entry table over "
+                 f"the contiguous 4,096-slot rows; launches: the int8-ring "
+                 f"greedy serve's chunks ({mix_basis})"}
+    kernels[3]["mixtral"] = {
+        "rows": mix["w8a8_rows"], "max_abs_err": mix["w8a8_err"],
+        "launches": (mix_l["w8a8"]["curve_launches"]["qmatmul_w8a8"]
+                     + mix_l["w8a8"]["loop_launches"]["qmatmul_w8a8"]),
+        "basis": f"one launch at each {MIX_ARCH} attention projection, M = "
+                 f"{NUM_SLOTS} (the GEMV) and {SERVE_ROWS} (mma.sync); "
+                 f"launches: the launcher's w8a8 curve and decode loop "
+                 f"({mix_basis})"}
+    kernels[4]["mixtral"] = {
+        "rows": mix["flash_rows"], "max_abs_err": mix["flash_err"],
+        "launches": sum(mix_l[q]["curve_launches"]["flash_attention_bhsd"]
+                        for q in ("w8a16", "w8a8")),
+        "basis": f"one launch at each {MIX_ARCH} shape, head_dim 128, "
+                 f"causal, window 4,096: the curve's BH = 48 x b at S = "
+                 f"{SERVE_SEQ} and BH = 6 at S = 8,192 (the window bites); "
+                 f"library SDPA (a boolean mask at S = 8,192); launches: "
+                 f"the launcher's w8a16 and w8a8 curves ({mix_basis})"}
+    if min(kernels[0]["mixtral"]["launches"],
+           kernels[0]["mixtral"]["experts"]["launches"],
+           *kernels[0]["mixtral"]["launches_by_path"].values(),
+           *(kernels[i]["mixtral"]["launches"] for i in range(1, 5))) <= 0:
+        return fail("a kernel of the mixtral path never launched")
+    if any(not math.isfinite(t[key]) for t in (
+            *mix["qmatmul_rows"].values(), *mix["w8a8_rows"].values(),
+            *mix["flash_rows"].values(), *mix["expert_rows"].values(),
+            *mix["expert_forward_rows"].values(), mix["attention"],
+            mix["paged_attention"], mix["per_m"][NUM_SLOTS],
+            mix["per_m"][SERVE_ROWS])
+           for key in ("ms", "plain_ms", "bound_ms", "library_ms")):
+        return fail("a mixtral kernel row is not finite")
     if min(kernels[0]["encdec"]["launches_by_path"].values()) <= 0 or min(
             kernels[4]["encdec"][key]
             for key in ("launches", "paged_launches", "cli_launches")) <= 0:

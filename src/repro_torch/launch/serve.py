@@ -46,7 +46,13 @@ update (``--block-size`` and ``--spec-k`` are rejected for it).
 runs the RG-LRU scan and flash attention at head_dim 256 with the
 2,048-token window, the decode loop and the engine the one-token state
 update and the local-attention ring (``--block-size`` and ``--spec-k``
-are rejected for it too).
+are rejected for it too).  ``--arch mixtral-8x22b`` serves the MoE family
+over a sliding-window KV ring of min(4,096, the engine's ``max_seq``)
+slots: the curve's forward runs flash attention with the window, the
+decode loop and the engine write each position at its ring slot
+(``--block-size`` and ``--spec-k`` are rejected for it, as in the
+reference); at full depth its 141 GB of int8 weights do not fit one
+80 GB card, so the CLI serves it ``--reduced``.
 
   python -m repro_torch.launch.serve --arch starcoder2-3b --reduced \\
       --deadline-ms 50 --rate 200                  # on the card
@@ -60,6 +66,8 @@ are rejected for it too).
       --device cpu --spec-k 3 --draft-layers 1       # speculative, CPU
   python -m repro_torch.launch.serve --arch whisper-medium --reduced \\
       --device cpu --block-size 4                    # encdec, paged, CPU
+  python -m repro_torch.launch.serve --arch mixtral-8x22b --reduced \\
+      --device cpu --prompt-len 72                   # the ring wraps, CPU
 
 The reference's other serving options stay in the parser; given a value
 other than their default, each prints which ROADMAP item will port it and

@@ -13,9 +13,9 @@ Conventions (as in ``repro/models/layers.py``):
   behind a per-row ``xlen`` frontier) in the decode form.
 
 A sliding-window ring is a contiguous cache whose rows the caller writes
-at ``position % window`` and reads below ``min(position + 1, window)``
-(the hybrid family, ``models/rglru.py``); the dense and MoE families'
-windowed configs are not ported yet (ROADMAP queue 1, item 13).
+at ``position % window`` and reads below ``min(position + 1, window)``:
+the hybrid family's bf16 ring (``models/rglru.py``) and a windowed dense
+or MoE config's int8 or bf16 one (mixtral; ``models/transformer.py``).
 """
 from __future__ import annotations
 

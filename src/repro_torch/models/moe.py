@@ -1,14 +1,16 @@
-"""Mixture-of-Experts LM (qwen2-moe-a2.7b): the serving subset of
-``repro/models/moe.py``.
+"""Mixture-of-Experts LM (qwen2-moe-a2.7b, mixtral-8x22b): the serving
+subset of ``repro/models/moe.py``.
 
 A decoder layer is the dense one (``models/transformer.py``) with an MoE
 FFN in the place of the MLP: an f32 router -> the top-k experts of each
 token -> the tokens scattered into an (E, C, D) dispatch buffer per batch
 row (C = capacity) -> the experts' gated MLP, one launch per matrix over
 every expert (``kernels/ops.py::qmatmul_experts``) -> the weighted
-combine, plus the always-on shared MLP.  The KV caches, the attention and
-the layer loop are the dense family's: this module holds the FFN and the
-layer's init and hands them to ``transformer``'s functions.
+combine, plus the always-on shared MLP where the config has one
+(qwen2-moe's 4; mixtral has none, and an untied head).  The KV caches,
+the attention and the layer loop are the dense family's, mixtral's
+sliding-window ring included: this module holds the FFN and the layer's
+init and hands them to ``transformer``'s functions.
 
 Where the port differs from the reference, and why:
 - the batch rows' dispatch buffers are one (E, B·C, D) stack, expert
@@ -39,7 +41,7 @@ Where the port differs from the reference, and why:
   step scans its one-token decode step.
 
 Not ported yet: training's ``aux_load_balance_loss`` (ROADMAP queue 1,
-item 15) and ``draft_params`` for self-drafting (item 14).
+item 15).
 """
 from __future__ import annotations
 
@@ -108,7 +110,7 @@ def init_quantized(gen: torch.Generator, cfg: ArchConfig, *,
                    min_size: int = 2048, dtype=torch.float32,
                    device=None) -> dict:
     """``transformer.init_quantized`` with MoE layers: one f32 layer (2.28
-    GB at qwen2-moe-a2.7b's width) at a time, each leaf quantized under
+    GB at qwen2-moe-a2.7b's width, 9.7 GB at mixtral-8x22b's) at a time, each leaf quantized under
     its path in the whole tree (``layers.{i}.moe.experts.w_gate``,
     ``layers.{i}.moe.router.w``)."""
     return TF.init_quantized(gen, cfg, min_size=min_size, dtype=dtype,

@@ -19,8 +19,9 @@ Uniform API per family, as in ``repro/models/registry.py``:
     mask_inactive_slots(old, new, active) -> cache (families with
                                       non-positional state: ssm, hybrid)
 
-The dense, MoE, encdec, ssm and hybrid families are ported; the vlm
-family arrives with its model module (ROADMAP queue 1, item 13).
+The dense, MoE (a windowed config's KV ring too), encdec, ssm and hybrid
+families are ported; the vlm family arrives with its model module
+(ROADMAP queue 1, item 13).
 """
 from __future__ import annotations
 
@@ -148,9 +149,14 @@ RECURRENT = ("ssm", "hybrid")
 def decodes_chunk_in_one_pass(cfg: ArchConfig) -> bool:
     """True when ``decode_step(..., causal=True)`` takes a row's s tokens
     in one pass, bitwise s one-token steps (the chunk step's W8A16 path):
-    the positional-KV families.  A recurrent family's decode step takes
-    one token a row per call, so its chunk runs token by token."""
-    return cfg.family not in RECURRENT
+    the positional-KV families with full attention.  A recurrent family's
+    decode step takes one token a row per call, and a sliding window's
+    ring would be written before it is read: once the ring has wrapped,
+    the last token's write at ``(p + s - 1) % window`` overwrites position
+    ``p + s - 1 - window``, which the first token still attends.  Both
+    chunks run token by token, as the reference scans its one-token
+    step."""
+    return cfg.family not in RECURRENT and cfg.window is None
 
 
 # ---------------------------------------------------------------------------

@@ -1,5 +1,6 @@
 """Dense decoder-only LM (starcoder2, mistral-nemo, internlm2, qwen1.5):
-the full-sequence forward and the decode step.
+the full-sequence forward and the decode step.  The MoE configs
+(qwen2-moe, mixtral) run the same loops (``models/moe.py``).
 
 Structure: embedding -> a loop over decoder layers -> final norm -> (tied
 or untied) unembed.  One decoder layer = norm (LayerNorm or RMSNorm) ->
@@ -24,6 +25,16 @@ idiom asks for them:
   same rule: the new token's entry is written into its physical block
   before the kernel reads the row through its table (the reference
   attends with the append column and scatters after the scan).
+
+A windowed config (mixtral's 4,096) keeps a ring of ``min(s_max,
+window)`` slots, as the reference's ``init_cache``: position p is
+written at slot ``p % s_alloc`` (RoPE at the absolute position, so the
+ring's order does not matter to the scores) and a row reads the slots
+below ``min(p + 1, s_alloc)``; once the ring is full every slot is
+valid, and position p attends p and the ``window - 1`` positions before
+it, the full-sequence forward's sliding-window mask.  Paging and
+speculation refuse a window (``registry.py``), and a ring's chunk runs
+token by token (``registry.decodes_chunk_in_one_pass``).
 """
 from __future__ import annotations
 
@@ -50,15 +61,6 @@ def attn_config(cfg: ArchConfig) -> L.AttnConfig:
 
 def norm_apply(cfg: ArchConfig, p, x):
     return (L.layernorm if cfg.norm == "layernorm" else L.rmsnorm)(p, x)
-
-
-def _check_supported(cfg: ArchConfig) -> None:
-    """The KV caches this module decodes from: full attention (no ring;
-    the hybrid family's local-attention ring is ``models/rglru.py``'s)."""
-    if cfg.window is not None:
-        raise NotImplementedError(
-            "sliding-window (ring) KV caches of the dense and MoE families "
-            "are not ported yet (ROADMAP queue 1, item 13)")
 
 
 # ---------------------------------------------------------------------------
@@ -232,13 +234,14 @@ def init_cache(cfg: ArchConfig, batch: int, s_max: int,
                device=None) -> dict:
     """Stacked (L, B, S, KV, hd) KV cache: with ``cfg.kv_quant`` int8 with
     per-(token, head) f32 scales shaped (L, B, S, KV, 1), else bf16 k and
-    v."""
-    _check_supported(cfg)
+    v.  S is ``s_max``, or for a windowed config the ring's ``min(s_max,
+    cfg.window)`` slots."""
     device = resolve_device(device)
-    shape = (cfg.n_layers, batch, s_max, cfg.n_kv_heads, cfg.head_dim)
+    s_alloc = min(s_max, cfg.window) if cfg.window else s_max
+    shape = (cfg.n_layers, batch, s_alloc, cfg.n_kv_heads, cfg.head_dim)
     if not cfg.kv_quant:       # L * B rows of one layer's form, viewed as L
-        k, v = L.init_kv_cache(cfg.n_layers * batch, s_max, cfg.n_kv_heads,
-                               cfg.head_dim, device=device)
+        k, v = L.init_kv_cache(cfg.n_layers * batch, s_alloc,
+                               cfg.n_kv_heads, cfg.head_dim, device=device)
         return {"k": k.reshape(shape), "v": v.reshape(shape)}
     return {"k": torch.zeros(shape, dtype=torch.int8, device=device),
             "v": torch.zeros(shape, dtype=torch.int8, device=device),
@@ -262,7 +265,6 @@ def init_paged_cache(cfg: ArchConfig, num_slots: int, s_max: int,
     if s_max % block_size:
         raise ValueError(f"s_max={s_max} must tile into whole blocks of "
                          f"{block_size}")
-    _check_supported(cfg)
     device = resolve_device(device)
     shape = (cfg.n_layers, num_blocks, block_size, cfg.n_kv_heads,
              cfg.head_dim)
@@ -302,34 +304,55 @@ def decode_positions(cache_index, b: int, s: int, device) -> Tensor:
 
 
 def decode_frame(cache: dict, cache_index, b: int, s: int, causal: bool,
-                 device):
+                 device, *, ring: bool = False):
     """Where ``s`` tokens of ``b`` rows written from ``cache_index`` go in
     a (paged) KV cache with leaves ``k`` (L, B, S, ...) or (L, NB, bs,
     ...): ``(positions, valid_len, write_idx, tables)`` — the (B, s)
     positions (:func:`decode_positions`), each query row's frontier ((B,),
     or (B, s) when ``causal`` and s > 1), the places to write (an int, or
     index tensors for :func:`layers.cache_write`) and the cache's
-    ``block_tables`` or None (see :func:`decode_step`)."""
+    ``block_tables`` or None (see :func:`decode_step`).
+
+    With ``ring`` (a windowed config) the cache's S slots are a ring: a
+    row's s tokens are written from slot ``cache_index % S`` on, that
+    start clamped to ``S - s`` as the reference's ``dynamic_update_slice``
+    clamps it (s > 1 across the ring's end; one token never crosses it).
+    A ring takes no causal pass of s > 1: its last token's write would
+    overwrite a slot its first token still reads."""
     tables = cache.get("block_tables")
     if tables is not None:
         bs = cache["k"].shape[2]
         s_alloc = tables.shape[1] * bs
     else:
         s_alloc = cache["k"].shape[2]
+    if ring and causal and s > 1:
+        raise ValueError(
+            f"a ring's {s} tokens cannot take one causal pass: their "
+            f"writes precede every read (feed a windowed chunk one token "
+            f"per call)")
     positions = decode_positions(cache_index, b, s, device)
+    places = positions
     if isinstance(cache_index, int):
         valid_len = torch.full((b,), min(cache_index + s, s_alloc),
                                dtype=torch.int32, device=device)
         write_idx = cache_index
+        if ring:
+            write_idx = min(cache_index % s_alloc, s_alloc - s)
+            places = decode_positions(write_idx, b, s, device)
     else:
         valid_len = torch.clamp_max(cache_index.reshape(b).int() + s,
                                     s_alloc)
+        if ring:
+            start = cache_index.reshape(b).int() % s_alloc
+            places = decode_positions(
+                start if s == 1 else torch.clamp_max(start, s_alloc - s),
+                b, s, device)
         write_idx = (torch.arange(b, device=device)[:, None],
-                     positions.long())
+                     places.long())
     if causal and s > 1:
         valid_len = torch.clamp_max(positions + 1, s_alloc)
     if tables is not None:
-        pos = positions.long()
+        pos = places.long()
         rows = torch.arange(b, device=device)[:, None]
         write_idx = (tables[rows, pos // bs].long(), pos % bs)
     return positions, valid_len, write_idx, tables
@@ -366,13 +389,18 @@ def decode_step(params: dict, tokens: Tensor, cache: dict, cache_index,
 
     Every W8A16 matmul takes the GEMV (``w8a16_path="gemv"``), whatever
     the mode asks: a row's bits then do not depend on the batch, which
-    the engine's parity with its batch-1 reference needs."""
-    _check_supported(cfg)
+    the engine's parity with its batch-1 reference needs.
+
+    A windowed config's cache is a ring (:func:`init_cache`): token j is
+    written at slot ``(cache_index + j) % S`` (:func:`decode_frame`) and
+    attends the slots below ``min(cache_index + s, S)``, the reference's
+    frontier; ``causal=True`` with s > 1 raises there."""
     if mode.w8a16_path != "gemv":
         mode = dataclasses.replace(mode, w8a16_path="gemv")
     b, s = tokens.shape
     positions, valid_len, write_idx, tables = decode_frame(
-        cache, cache_index, b, s, causal, tokens.device)
+        cache, cache_index, b, s, causal, tokens.device,
+        ring=cfg.window is not None)
     acfg = attn_config(cfg)
     rope = L.rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta)
     x = L.embed(params["embed"], tokens)

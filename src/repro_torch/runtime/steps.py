@@ -527,7 +527,8 @@ def make_prefill_chunk_step(cfg: ArchConfig, *, mode: QuantMode = FP,
 
     Under W8A16, where every projection is a ``QTensor`` and the family's
     decode step takes a row's tokens in one pass
-    (``registry.decodes_chunk_in_one_pass``: the positional-KV families),
+    (``registry.decodes_chunk_in_one_pass``: the positional-KV families
+    with full attention),
     the chunk runs as ONE decode pass of tokens (1, n_valid) at
     ``cache_index = start``, causal (token i attends the slots below
     ``start + i + 1``): it writes
@@ -541,8 +542,13 @@ def make_prefill_chunk_step(cfg: ArchConfig, *, mode: QuantMode = FP,
     once per real token: under W8A8 one pass would quantize the n tokens'
     activations with one scale (``kernels/ops.py::qmatmul_dynamic``)
     where the reference's scan quantizes each token alone, under FP
-    ``torch.matmul`` promises no row invariance, and a recurrent family
-    (ssm, hybrid) steps its state one token per call.
+    ``torch.matmul`` promises no row invariance, a recurrent family
+    (ssm, hybrid) steps its state one token per call, and a sliding
+    window's ring (mixtral) must be read before it is written: one pass
+    writes all n columns first, and once the ring has wrapped the last
+    token's write at ``(start + n - 1) % window`` overwrites the position
+    ``start + n - 1 - window`` that token 0 still attends, so the ring's
+    chunk runs token by token as the reference's scan does.
 
     The step reads the slot's row through a table, so no Python ``sid``
     narrows the cache: the paged cache's table row, or, on a contiguous

@@ -25,8 +25,10 @@ of 4 columns, the engine on reduced whisper-medium equal to its
 reference), the ssm family (the engine on reduced mamba2-1.3b equal
 to its reference, the captured tick's freeze and scrub), and the hybrid
 family (flash attention at head_dim 256; the engine on reduced
-recurrentgemma-9b, its ring wrapped, equal to its reference), at small
-shapes.
+recurrentgemma-9b, its ring wrapped, equal to its reference), and
+mixtral's int8 ring (the captured tick across the end of a 4,096-slot
+ring at G = 6, each row bitwise its batch-1 step; the chunk across it
+bitwise the per-token steps), at small shapes.
 
 Every test here is marked ``gpu`` and skips without a CUDA device; the
 module imports no JAX, so it also runs where only the port is installed:
@@ -2020,3 +2022,71 @@ def test_hybrid_engine_on_card_equals_reference(cuda):
             assert rep.outputs() == E.reference_outputs(
                 cfg, params, reqs, mode=W8A16, max_seq=48, temperature=t,
                 rng=key)
+
+
+def _mixtral_ring(cuda):
+    """Reduced mixtral-8x22b at the full model's G = 6 and head_dim 128
+    (12 query and 2 KV heads) and window 4,096, an int8 ring, int8
+    weights from the streamed init."""
+    cfg = dataclasses.replace(get_config("mixtral-8x22b").reduced(),
+                              n_heads=12, n_kv_heads=2, head_dim=128,
+                              window=4096, kv_quant=True)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    return cfg, R.init_quantized(gen, cfg, device=cuda)
+
+
+def test_mixtral_ring_tick_on_card_equals_rows_alone(cuda):
+    """Reduced mixtral on the card at G = 6 over a 4,096-slot int8 ring
+    (max_seq 8,192) filled at random: 8 rows at positions 4,093-4,100
+    (across the ring's end) through the captured tick, bitwise the eager
+    tick (tokens and cache), each row's logits and leaves bitwise its
+    batch-1 step; a replay launches the contiguous decode attention kernel
+    once a layer.  Then the captured chunk step of slot 3 from 4,094
+    (across the end) bitwise the per-token steps."""
+    cfg, params = _mixtral_ring(cuda)
+    S, pos = 8, list(range(4093, 4101))
+    g = torch.Generator(device=cuda).manual_seed(1)
+    cache = R.init_cache(cfg, S, 8192, device=cuda)
+    assert cache["k"].shape[2] == 4096
+    for k, t in cache.items():
+        if t.dtype == torch.int8:
+            t.copy_(torch.randint(-127, 128, t.shape, generator=g,
+                                  device=cuda, dtype=torch.int8))
+        else:
+            t.copy_(torch.rand(t.shape, generator=g, device=cuda) * 0.04
+                    + 0.005)
+    toks = torch.randint(1, cfg.vocab, (S, 1), generator=g, device=cuda,
+                         dtype=torch.int32)
+    idx = torch.tensor(pos, dtype=torch.int32, device=cuda)
+    active = torch.ones((S,), dtype=torch.bool, device=cuda)
+    eager = ST.make_slot_decode_step(cfg, mode=W8A16)
+    graphed = ST.jit_slot_decode_step(ST.make_slot_decode_step(
+        cfg, mode=W8A16))
+    want, got = _clone(cache), _clone(cache)
+    n_e = eager(params, toks, want, idx, active)[0].clone()
+    n_g = graphed(params, toks, got, idx, active)[0].clone()
+    assert torch.equal(n_e, n_g)
+    for k in cache:
+        assert torch.equal(got[k], want[k]), k
+    decode = ST.make_decode_step(cfg, mode=W8A16)
+    full = _clone(cache)
+    logits, _ = decode(params, {"tokens": toks, "cache_index": idx}, full)
+    for r, p in enumerate(pos):
+        row = {k: v[:, r:r + 1].clone() for k, v in cache.items()}
+        one, _ = decode(params, {"tokens": toks[r:r + 1],
+                                 "cache_index": p}, row)
+        assert torch.equal(one[0], logits[r]), r
+        for k in row:
+            assert torch.equal(row[k], full[k][:, r:r + 1]), (r, k)
+    # a replay of the binding captured above
+    _, launched = _counted_call(graphed, params, toks, got, idx, active)
+    assert launched["decode_attention_int8"] == cfg.n_layers
+    assert "decode_attention_int8_paged" not in launched     # zeros left out
+    chunk = ST.jit_prefill_chunk_step(
+        ST.make_prefill_chunk_step(cfg, mode=W8A16, chunk=4))
+    per_token = ST.make_per_token_chunk_step(cfg, mode=W8A16, chunk=4)
+    a, b = _clone(cache), _clone(cache)
+    chunk(params, [5, 6, 7, 8], a, 3, 4094, 4)
+    per_token(params, [5, 6, 7, 8], b, 3, 4094, 4)
+    for k in cache:
+        assert torch.equal(a[k], b[k]), k

@@ -132,15 +132,17 @@ def test_arch_file_matches_reference(arch):
 
 def test_the_four_dense_configs_are_registered():
     """The four dense configs, beside the MoE family's qwen2-moe-a2.7b
-    (tests/test_torch_moe.py), the encdec family's whisper-medium
-    (tests/test_torch_encdec.py), the ssm family's mamba2-1.3b
-    (tests/test_torch_ssm.py) and the hybrid family's recurrentgemma-9b
-    (tests/test_torch_hybrid.py), are the port's registered configs."""
+    (tests/test_torch_moe.py) and mixtral-8x22b (tests/test_torch_mixtral.py),
+    the encdec family's whisper-medium (tests/test_torch_encdec.py), the
+    ssm family's mamba2-1.3b (tests/test_torch_ssm.py) and the hybrid
+    family's recurrentgemma-9b (tests/test_torch_hybrid.py), are the
+    port's registered configs."""
     dense = ["starcoder2-3b", "internlm2-20b", "mistral-nemo-12b",
              "qwen1.5-32b"]
     assert all(get_config(a).family == "dense" for a in dense)
     assert list_archs() == sorted(dense + ["qwen2-moe-a2.7b",
-                                           "whisper-medium", "mamba2-1.3b",
+                                           "mixtral-8x22b", "whisper-medium",
+                                           "mamba2-1.3b",
                                            "recurrentgemma-9b"])
 
 

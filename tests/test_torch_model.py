@@ -18,7 +18,7 @@ from repro.core.quant import QTensor as JQTensor
 from repro.core.quant import quantize_tree as jquantize_tree
 from repro.models import registry as JR
 from repro.models import transformer as JT
-from repro_torch.configs import get_config
+from repro_torch.configs import SHAPES, get_config
 from repro_torch.core.qlinear import W8A16
 from repro_torch.core.quant import QTensor, quantize_tree
 from repro_torch.models import bridge
@@ -191,7 +191,8 @@ def test_decode_rows_match_batch_one_bitwise(setup):
 
 def test_unported_paths_name_their_roadmap_item(setup):
     _, tcfg, _, _, _ = setup
+    vlm = dataclasses.replace(tcfg, family="vlm")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        R.init_cache(dataclasses.replace(tcfg, window=8), 1, 8, device="cpu")
+        vlm.input_specs(SHAPES["decode_32k"])
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        R.module_for(dataclasses.replace(tcfg, family="vlm"))
+        R.module_for(vlm)

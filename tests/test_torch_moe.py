@@ -579,13 +579,13 @@ def _record_routes(monkeypatch):
     return port, ref
 
 
-def _parted_rows(port, ref, parted):
+def _parted_rows(port, ref, parted, tie=MODEL_ROUTE_TIE):
     """``parted`` (B,) bool, batch rows whose history already differs from
     the reference's, updated in place with the rows any of whose tokens
     took another set of experts than the reference's in a layer of one
     step (the recorders' entries, emptied here).  Each such difference on
     a row not parted before that layer must sit at a reference near-tie
-    (MODEL_ROUTE_TIE)."""
+    (``tie``: MODEL_ROUTE_TIE unless a config's own is given)."""
     assert len(port) == len(ref) > 0
     b = len(parted)
     for got, (want, margin) in zip(port, ref):
@@ -593,7 +593,7 @@ def _parted_rows(port, ref, parted):
         # order of the combine's terms
         differ = (np.sort(got, axis=1) != np.sort(want, axis=1)).any(axis=1)
         fresh = differ & ~np.repeat(parted, len(differ) // b)
-        assert (margin[fresh] <= MODEL_ROUTE_TIE).all(), margin[fresh]
+        assert (margin[fresh] <= tie).all(), margin[fresh]
         parted |= differ.reshape(b, -1).any(axis=1)
     port.clear()
     ref.clear()
