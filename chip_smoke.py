@@ -494,14 +494,18 @@ def fail(msg: str) -> int:
 # timing
 # ---------------------------------------------------------------------------
 
-def time_ms(fn, iters: int, flush) -> float:
+def time_ms(fn, iters: int, flush, warmup: bool = True) -> float:
     """Mean device time of one call of ``fn``, from CUDA events around each
     of ``iters`` calls, each after an L2 flush (the serving path streams
     3 GB of weights per tick, so every weight read is cold).  The calls
     are queued behind a sleep kernel, so the card runs them back to back
-    and the events time the device, not the host's launch overhead."""
+    and the events time the device, not the host's launch overhead.
+    ``warmup=False`` skips the untimed first call: the plain versions,
+    plain PyTorch with nothing to compile, whose one call at a forward's
+    shapes takes up to seconds."""
     import torch
-    fn()                                          # warm up
+    if warmup:
+        fn()
     torch.cuda.synchronize()
     events = [(torch.cuda.Event(enable_timing=True),
                torch.cuda.Event(enable_timing=True)) for _ in range(iters)]
@@ -613,7 +617,8 @@ def w8a16_numbers(x, w, ws, bias, act, odt, paths, plain_iters, flush):
     ms = {path: time_ms(lambda: K.qmatmul_w8a16_on_path(
         path, x, w, ws, bias, **kw), 20, flush) for path in paths}
     plain = (time_ms(lambda: K.qmatmul_w8a16_ref(x, w, ws, bias, **kw),
-                     plain_iters, flush) if plain_iters else float("nan"))
+                     plain_iters, flush, warmup=False)
+             if plain_iters else float("nan"))
     w_lib = (w.float() * ws).to(torch.bfloat16).t()      # (N, K) view
     b_lib = None if bias is None else bias.to(torch.bfloat16)
     lib = time_ms(lambda: F.linear(x, w_lib, b_lib), 20, flush)
@@ -869,7 +874,7 @@ def attention_phase(flush, s_slots: int):
         ms = time_ms(lambda: A.decode_attention_int8(
             q, k, v, ks, vs, vl, k_new=kn, v_new=vn), 20, flush)
         plain = time_ms(lambda: A.decode_attention_int8_ref(
-            q, k, v, ks, vs, vl, k_new=kn, v_new=vn), 3, flush)
+            q, k, v, ks, vs, vl, k_new=kn, v_new=vn), 3, flush, warmup=False)
         lib = _sdpa_ms(flush, q, (k.float() * ks).to(torch.bfloat16)
                        .transpose(1, 2), (v.float() * vs).to(torch.bfloat16)
                        .transpose(1, 2), vl, s)
@@ -1048,7 +1053,8 @@ def paged_attention_phase(flush):
         ms = time_ms(lambda: A.decode_attention_int8_paged(
             q, k, v, ks, vs, vl, tables, k_new=kn, v_new=vn), 20, flush)
         plain = time_ms(lambda: A.decode_attention_int8_paged_ref(
-            q, k, v, ks, vs, vl, tables, k_new=kn, v_new=vn), 3, flush)
+            q, k, v, ks, vs, vl, tables, k_new=kn, v_new=vn), 3, flush,
+            warmup=False)
         lib = _sdpa_ms(flush, q, (gk.float() * gks).to(torch.bfloat16)
                        .transpose(1, 2), (gv.float() * gvs)
                        .to(torch.bfloat16).transpose(1, 2), vl, mb * bs)
@@ -1222,7 +1228,7 @@ def qmatmul_w8a8_phase(flush):
                 out_dtype=torch.bfloat16), 20, flush)
             plain = time_ms(lambda: K.qmatmul_w8a8_ref(
                 xm, w, xs, ws, bias, activation=act,
-                out_dtype=torch.bfloat16), 3, flush)
+                out_dtype=torch.bfloat16), 3, flush, warmup=False)
 
             def int_mm():
                 y = torch._int_mm(xm, w).float() * xs * ws
@@ -1326,7 +1332,7 @@ def flash_phase(flush):
         ms = time_ms(lambda: FA.flash_attention_bhsd(q, k, v, **kw), 20,
                      flush)
         plain = time_ms(lambda: FA.flash_attention_ref(q, k, v, **kw), 3,
-                        flush)
+                        flush, warmup=False)
         lib = time_ms(lambda: F.scaled_dot_product_attention(
             q[None], k[None], v[None], is_causal=True), 20, flush)
         kvl = s if kv_len is None else kv_len
@@ -1552,7 +1558,7 @@ def warm(label, eng, reqs):
     what = ("verify, propose and chunk graphs (one per chunk length, the "
             "draft's and the target's)" if eng.spec_k else
             "the tick and chunk graphs (one per chunk length)")
-    if eng.cfg.family == "encdec":
+    if cross_layers(eng.cfg):
         what += " and the prime graph"
     print(f"{label}: warm-up captured {what}, {sum(bound)} captures of "
           f"their memoized steps so far; a first-call serve captured none")
@@ -1942,10 +1948,10 @@ def serve_run(quant, curve_paths, flags=(), base=SERVE_ARGS, label=None,
     if any(plain_calls.values()):
         raise AssertionError(f"{label}: the CUDA path reached a plain "
                              f"version: {plain_calls}")
-    # an encdec engine primes twice in its warm-up (the capture's warm-up
-    # run on a copy of the cache, then the first replay) and once a
-    # request
-    primes = (2 + len(res.requests)) if res.cfg.family == "encdec" else 0
+    # a primed family's engine primes twice in its warm-up (the capture's
+    # warm-up run on a copy of the cache, then the first replay) and once
+    # a request
+    primes = (2 + len(res.requests)) if cross_layers(res.cfg) else 0
     prime_mma = (primes * prime_launches(res.cfg)["qmatmul_w8a16[mma]"]
                  if primes else 0)
     outside = (launches["qmatmul_w8a16[mma]"] - curve_paths["mma"]
@@ -2020,16 +2026,17 @@ def gemvs_per_layer(cfg) -> int:
 
 def step_gemvs(cfg) -> int:
     """qmatmul_w8a16's GEMV launches of one decode step's layers, the head
-    not counted: ``gemvs_per_layer`` a layer, or for the hybrid family a
-    recurrent block's five (its two input projections, the RG-LRU's two
-    gates and its output) and an attention block's four, each with its
-    MLP's three."""
+    not counted: ``gemvs_per_layer`` a layer and the q and o projections
+    of each layer's cross-attention (``cross_layers``: its k and v were
+    primed), or for the hybrid family a recurrent block's five (its two
+    input projections, the RG-LRU's two gates and its output) and an
+    attention block's four, each with its MLP's three."""
     if cfg.family == "hybrid":
         mlp = 3 if cfg.gated_mlp else 2
         groups, leftover = cfg.n_layers // 3, cfg.n_layers % 3
         rec, attn = 5 + mlp, 4 + mlp
         return groups * (2 * rec + attn) + leftover * rec
-    return gemvs_per_layer(cfg) * cfg.n_layers
+    return gemvs_per_layer(cfg) * cfg.n_layers + 2 * cross_layers(cfg)
 
 
 def w8a8_forward_mma(cfg) -> int:
@@ -3505,9 +3512,12 @@ DENSE_RATE_PER_S = 20.0
 # stays below this (its f32 tree alone is 141 GB); qwen2-moe-a2.7b's 14.0 GB
 # from one under 20 GB (its f32 tree is 56 GB, one f32 layer 2.28 GB);
 # mixtral-8x22b's 8 layers, 20.4 GB of int8, from one under 40 GB (one f32
-# layer is 9.7 GB)
+# layer is 9.7 GB); llama-3.2-vision-90b's 10 layers, 10.96 GB of int8,
+# from one under 25 GB (one f32 cross layer is 4.0 GB, one f32 table
+# 4.2 GB)
 PEAK_BYTES = {"qwen1.5-32b": 45e9, "qwen2-moe-a2.7b": 20e9,
-              "recurrentgemma-9b": 16e9, "mixtral-8x22b": 40e9}
+              "recurrentgemma-9b": 16e9, "mixtral-8x22b": 40e9,
+              "llama-3.2-vision-90b": 25e9}
 # the decode attention kernels' rows at the dense configs' (KV heads, G):
 # qwen1.5-32b, mistral-nemo-12b, internlm2-20b
 DENSE_HEADS = ((40, 1), (8, 4), (8, 6))
@@ -3631,7 +3641,7 @@ def dense_attention_rows(flush):
             time_ms(lambda: A.decode_attention_int8(q, k, v, ks, vs, vl), 20,
                     flush),
             time_ms(lambda: A.decode_attention_int8_ref(q, k, v, ks, vs, vl),
-                    3, flush),
+                    3, flush, warmup=False),
             _sdpa_ms(flush, q, (k.float() * ks).to(torch.bfloat16)
                      .transpose(1, 2), (v.float() * vs).to(torch.bfloat16)
                      .transpose(1, 2), vl, s), q, 0)
@@ -3656,7 +3666,7 @@ def dense_attention_rows(flush):
             time_ms(lambda: A.decode_attention_int8_paged(
                 q, pk, pv, pks, pvs, vl, tables), 20, flush),
             time_ms(lambda: A.decode_attention_int8_paged_ref(
-                q, pk, pv, pks, pvs, vl, tables), 3, flush),
+                q, pk, pv, pks, pvs, vl, tables), 3, flush, warmup=False),
             _sdpa_ms(flush, q, (gk.float() * gks).to(torch.bfloat16)
                      .transpose(1, 2), (gv.float() * gvs).to(torch.bfloat16)
                      .transpose(1, 2), vl, s), q, tables.numel() * 4)
@@ -3719,6 +3729,10 @@ def build_dense_model(arch, n_layers=None):
              f"{cfg.n_layers} of {full.n_layers} layers")
     if cfg.window:
         widths += f", sliding window {cfg.window}"
+    if cfg.family == "vlm":
+        widths += (f", a gated cross-attention over {cfg.n_patches} patches "
+                   f"in every {cfg.xattn_every}th layer ("
+                   f"{cfg.n_layers // cfg.xattn_every} of them)")
     print(f"{cfg.family} {arch}: full width ({depth}, d="
           f"{cfg.d_model}, {widths}, vocab={cfg.vocab} "
           f"{'tied' if cfg.tie_embeddings else 'untied'}, {cfg.norm}), W8A16 "
@@ -3738,7 +3752,7 @@ def dense_serve(label, cfg, params, reqs, **kw):
     chunked prefill of PREFILL_CHUNK; ``kw`` pages it), warmed up, then a
     wall-clock serve of ``reqs`` with the counters zeroed just before and
     read just after: no capture inside it, no plain version, no mma
-    launch (an encdec config: exactly its primes' mma and flash
+    launch (a primed config: exactly its primes' mma and flash
     launches), the GEMV launched, the decode attention kernels launched
     exactly when the cache is int8 and the experts' stacked GEMV exactly
     for an MoE config.  Returns (engine, report, launches)."""
@@ -3766,7 +3780,7 @@ def dense_serve(label, cfg, params, reqs, **kw):
             (launches["qmatmul_w8a16_experts"] > 0) != (cfg.family == "moe")):
         raise AssertionError(f"{label}: launches {launches} (int8 cache: "
                              f"{cfg.kv_quant}, family {cfg.family})")
-    if cfg.family == "encdec":
+    if cross_layers(cfg):
         # one prime a request (none resumed): its encoder's and cross
         # k/v's mma launches and flash launches, and no other
         want = {k: n * len(reqs) for k, n in prime_launches(cfg).items()}
@@ -3927,7 +3941,8 @@ def dense_cli_phase():
     try:
         launches, res = serve_run("w8a16", curve_paths,
                                   base=DENSE_SERVE_ARGS,
-                                  label="serve mistral-nemo-12b paged")
+                                  label="serve mistral-nemo-12b paged",
+                                  curve_timing=False)
     finally:
         serve.measure_service_curve = real_curve
     label = "serve mistral-nemo-12b paged"
@@ -4136,7 +4151,7 @@ def moe_qmatmul_rows(flush, arch=MOE_ARCH, seed=SEED + 11):
         all_ms = time_ms(lambda: K.qmatmul_w8a16_experts(xr, w, ws, **kw),
                          20, flush)
         plain = time_ms(lambda: K.qmatmul_w8a16_experts_ref(
-            xr, w, ws, live=live, **kw), 1, flush)
+            xr, w, ws, live=live, **kw), 1, flush, warmup=False)
         lib = time_ms(lambda: torch.bmm(xr, wd), 20, flush)
         out_bytes = e * m * n * 2
         every_ms = max((x.numel() * 2 + w_bytes + out_bytes)
@@ -4178,7 +4193,7 @@ def moe_qmatmul_rows(flush, arch=MOE_ARCH, seed=SEED + 11):
                               20, flush)
             plain = time_ms(lambda: K.qmatmul_w8a16_experts_ref(x, w, ws,
                                                                 **kw),
-                            1, flush)
+                            1, flush, warmup=False)
             lib = time_ms(lambda: torch.bmm(x, wd), 20, flush)
             bytes_ms = ((x.numel() * 2 + w_bytes + e * mm * n * 2)
                         / HBM_BYTES_PER_S * 1e3)
@@ -4212,7 +4227,7 @@ def moe_qmatmul_rows(flush, arch=MOE_ARCH, seed=SEED + 11):
     ms = time_ms(lambda: K.qmatmul_w8a16(x, w, ws, out_dtype=torch.float32),
                  20, flush)
     plain = time_ms(lambda: K.qmatmul_w8a16_ref(
-        x, w, ws, out_dtype=torch.float32), 3, flush)
+        x, w, ws, out_dtype=torch.float32), 3, flush, warmup=False)
     wf = w.float() * ws
     lib = time_ms(lambda: F.linear(x, wf.t()), 20, flush)
     nbytes = x.numel() * 4 + w.numel() + ws.numel() * 4 + m * e * 4
@@ -4379,7 +4394,7 @@ def moe_cli_phase():
     label = f"serve {MOE_ARCH} paged"
     try:
         launches, res = serve_run("w8a16", curve_paths, base=MOE_SERVE_ARGS,
-                                  label=label)
+                                  label=label, curve_timing=False)
     finally:
         serve.measure_service_curve = real_curve
     rep = res.report
@@ -4498,12 +4513,23 @@ ENC_CLI_COMPARE = 4         # requests of the CLI run held to the reference
 TIMED_PRIMES = 10           # captured primes a wall timing (host clock)
 
 
+def cross_layers(cfg) -> int:
+    """The layers of a config that cross-attend a primed source: every
+    decoder layer of an encdec config, a vlm config's last layer of each
+    group of ``xattn_every``; none elsewhere."""
+    if cfg.family == "encdec":
+        return cfg.n_layers
+    return cfg.n_layers // cfg.xattn_every if cfg.family == "vlm" else 0
+
+
 def prime_launches(cfg) -> dict:
-    """The kernel launches of one prime of an encdec config: the encoder's
-    six projections and its flash attention a layer, and each decoder
-    layer's cross k and v, all on the tensor-core W8A16 kernel."""
-    return {"qmatmul_w8a16[mma]": 6 * cfg.n_enc_layers + 2 * cfg.n_layers,
-            "flash_attention_bhsd": cfg.n_enc_layers}
+    """The kernel launches of one prime, all on the tensor-core W8A16
+    kernel: each cross layer's k and v, and for an encdec config its
+    encoder's six projections and flash attention a layer (a vlm
+    config's patches are the source: no attention)."""
+    enc = cfg.n_enc_layers if cfg.family == "encdec" else 0
+    return {"qmatmul_w8a16[mma]": 6 * enc + 2 * cross_layers(cfg),
+            "flash_attention_bhsd": enc}
 
 
 def enc_flash_rows(flush):
@@ -4511,24 +4537,34 @@ def enc_flash_rows(flush):
     over 1,500 frames, not causal (BH = 16, one prime; BH = 256, the
     serve CLI curve's batch 16), and the curve's decoder at the same BH:
     its cross-attention (Sq 32 against Skv 1,500, not causal) and its
-    causal self-attention over 32 tokens; each against its plain version
-    (bf16_close) and timed beside SDPA and the bound (the score pairs
-    the mask keeps at the bf16 peak, or q, k, v and the output over the
-    memory rate).  Returns (worst error, {case: numbers})."""
-    import torch
-    import torch.nn.functional as F
+    causal self-attention over 32 tokens (``source_flash_rows``).
+    Returns (worst error, {case: numbers})."""
     from repro_torch.configs import get_config
-    from repro_torch.kernels import flash_attention as FA
 
     c = get_config(ENC_ARCH)
-    h, se, hd = c.n_heads, c.enc_seq, c.head_dim
-    gen = torch.Generator(device="cuda").manual_seed(SEED + 17)
-    worst, rows = 0.0, {}
+    h, se = c.n_heads, c.enc_seq
     cases = []
     for bh in (h, h * SERVE_MAX_BATCH):
         cases += [(f"encoder BH={bh}", bh, se, se, False),
                   (f"cross BH={bh}", bh, SERVE_SEQ, se, False),
                   (f"self BH={bh}", bh, SERVE_SEQ, SERVE_SEQ, True)]
+    return source_flash_rows(flush, c.head_dim, cases, SEED + 17)
+
+
+def source_flash_rows(flush, hd, cases, seed):
+    """flash_attention_bhsd at ``cases`` ((label, BH, Sq, Skv, causal)) of
+    head_dim ``hd``, without a window: a primed family's attention over
+    its source, not causal, and its causal self-attention; each against
+    its plain version (bf16_close) and timed beside SDPA and the bound
+    (the score pairs the mask keeps at the bf16 peak, or q, k, v and the
+    output over the memory rate).  Returns (worst error, {case:
+    numbers})."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as FA
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    worst, rows = 0.0, {}
     for label, bh, sq, skv, causal in cases:
         q = torch.randn((bh, sq, hd), generator=gen,
                         device="cuda").to(torch.bfloat16)
@@ -4550,7 +4586,7 @@ def enc_flash_rows(flush):
         ms = time_ms(lambda: FA.flash_attention_bhsd(q, k, v, **kw), 20,
                      flush)
         plain = time_ms(lambda: FA.flash_attention_ref(q, k, v, **kw), 2,
-                        flush)
+                        flush, warmup=False)
         lib = time_ms(lambda: F.scaled_dot_product_attention(
             q[None], k[None], v[None], is_causal=causal), 20, flush)
         pairs = sq * (sq + 1) // 2 if causal else sq * skv
@@ -4685,7 +4721,7 @@ def enc_qmatmul_rows(flush):
     return worst, rows
 
 
-def enc_prime_time(cfg, params, label):
+def prime_time(cfg, params, label):
     """The captured prime (``runtime/steps.py::jit_prime_step``) into a
     NUM_SLOTS-row cache: its launches a replay (prime_launches), then
     wall, device busy and the device time of its flash attention, its
@@ -4698,16 +4734,17 @@ def enc_prime_time(cfg, params, label):
 
     graphed = ST.jit_prime_step(ST.make_prime_step(cfg, mode=W8A16))
     g = torch.Generator(device="cuda").manual_seed(SEED + 21)
+    src_len = R.source_len(cfg)
     with torch.inference_mode():
         cache = R.init_cache(cfg, NUM_SLOTS, DENSE_MAX_SEQ, device="cuda")
-        src = torch.randn((1, cfg.enc_seq, cfg.d_model), generator=g,
+        src = torch.randn((1, src_len, cfg.d_model), generator=g,
                           device="cuda").to(torch.bfloat16)
         t0 = time.perf_counter()
-        graphed(params, src, cache, 0, cfg.enc_seq)
+        graphed(params, src, cache, 0, src_len)
         torch.cuda.synchronize()
         capture_s = time.perf_counter() - t0
         zero_counts()
-        graphed(params, src, cache, 1, cfg.enc_seq - 2)
+        graphed(params, src, cache, 1, src_len - 2)
         torch.cuda.synchronize()
     launches, plain = read_counts()
     want = prime_launches(cfg)
@@ -4715,14 +4752,16 @@ def enc_prime_time(cfg, params, label):
             launches["qmatmul_w8a16[gemv]"] or any(plain.values()):
         raise AssertionError(f"{label}: a replay launched {launches} "
                              f"({want} expected), plain {plain}")
-    if cache["xlen"][:2].tolist() != [cfg.enc_seq, cfg.enc_seq - 2]:
+    if cache["xlen"][:2].tolist() != [src_len, src_len - 2]:
         raise AssertionError(f"{label}: xlen {cache['xlen'].tolist()}")
     turn = iter(range(10 ** 6))
+    what = (f"{cfg.n_enc_layers} encoder layers and {cfg.n_layers} layers'"
+            f" cross k/v" if cfg.family == "encdec" else
+            f"{cross_layers(cfg)} cross layers' k/v")
     res = device_breakdown(
-        label, f"captured prime (1 x {cfg.enc_seq} frames: {cfg.n_enc_layers}"
-        f" encoder layers and {cfg.n_layers} layers' cross k/v)",
+        label, f"captured prime (1 x {src_len} source rows: {what})",
         lambda: graphed(params, src, cache, next(turn) % NUM_SLOTS,
-                        cfg.enc_seq), TIMED_PRIMES)
+                        src_len), TIMED_PRIMES)
     split = {"flash attention": 0.0, "qmatmul_w8a16 mma": 0.0,
              "the rest": 0.0}
     for key, ms in res["by_kernel"].items():
@@ -4737,16 +4776,17 @@ def enc_prime_time(cfg, params, label):
     return {"wall": res["wall"], "busy": res["busy"], "split": split}
 
 
-def enc_tick_time(cfg, params, label):
-    """The captured steady tick of the encdec serves: NUM_SLOTS rows at
-    DENSE_MAX_SEQ / 2, each primed (xlen 1,500, 1,499 and 1,498 in turn):
-    its launches a replay (8 GEMVs a decoder layer and the head), wall,
-    device busy and the device time of its GEMVs against the rest, and
-    the cross-attention alone (``layers.cross_cache_attention``, plain
-    PyTorch, at the tick's shapes, times the decoder's layers) beside the
-    tick's busy time, against the floor of what it must read at 3.35
-    TB/s: the decoder's int8 weights but the cross wk / wv, the tied
-    head, each row's cross k/v up to its xlen and its self k/v."""
+def primed_tick_time(cfg, params, label):
+    """The captured steady tick of a primed family's serves: NUM_SLOTS
+    rows at DENSE_MAX_SEQ / 2, each primed (xlen the whole source, one
+    and two rows less in turn): its launches a replay (``step_gemvs`` and
+    the head), wall, device busy and the device time of its GEMVs against
+    the rest, and the cross-attention alone
+    (``layers.cross_cache_attention``, plain PyTorch, at the tick's
+    shapes, times the cross layers) beside the tick's busy time, against
+    the floor of what it must read at 3.35 TB/s: the layers' int8 weights
+    but the cross wk / wv, the head, each row's cross k/v up to its xlen
+    and its self k/v."""
     import torch
     from repro_torch.core.qlinear import W8A16
     from repro_torch.core.quant import tree_weight_bytes
@@ -4755,6 +4795,7 @@ def enc_tick_time(cfg, params, label):
     from repro_torch.runtime import steps as ST
 
     S, max_seq = NUM_SLOTS, DENSE_MAX_SEQ
+    src_len, n_cross = R.source_len(cfg), cross_layers(cfg)
     graphed = ST.jit_slot_decode_step(ST.make_slot_decode_step(
         cfg, mode=W8A16))
     prime = ST.make_prime_step(cfg, mode=W8A16)
@@ -4762,9 +4803,9 @@ def enc_tick_time(cfg, params, label):
     with torch.inference_mode():
         cache = R.init_cache(cfg, S, max_seq, device="cuda")
         for sid in range(S):
-            prime(params, torch.randn((1, cfg.enc_seq, cfg.d_model),
+            prime(params, torch.randn((1, src_len, cfg.d_model),
                                       generator=g, device="cuda").to(
-                torch.bfloat16), cache, sid, cfg.enc_seq - sid % 3)
+                torch.bfloat16), cache, sid, src_len - sid % 3)
         toks = torch.randint(1, cfg.vocab, (S, 1), generator=g,
                              device="cuda", dtype=torch.int32)
         idx = torch.full((S,), max_seq // 2, dtype=torch.int32,
@@ -4782,7 +4823,7 @@ def enc_tick_time(cfg, params, label):
         zero_counts()
         graphed(params, toks, cache, idx, active)[0].cpu()
     launches, plain = read_counts()
-    gemv = 8 * cfg.n_layers + 1
+    gemv = step_gemvs(cfg) + 1
     if (launches["qmatmul_w8a16[gemv]"] != gemv
             or launches["qmatmul_w8a16[mma]"] or any(plain.values())
             or launches["flash_attention_bhsd"]):
@@ -4791,25 +4832,28 @@ def enc_tick_time(cfg, params, label):
     res = device_breakdown(
         label, f"captured steady-state slot tick ({S} active rows at "
         f"position {max_seq // 2} of {max_seq}, bf16 cache, cross k/v of "
-        f"{cfg.enc_seq} frames a row)",
+        f"{src_len} source rows a row)",
         lambda: graphed(params, toks, cache, idx, active)[0].cpu(), 10)
     gemv_ms = sum(ms for key, ms in res["by_kernel"].items()
                   if "qmatmul" in key)
     q = torch.randn((S, 1, cfg.n_heads, cfg.head_dim), generator=g,
                     device="cuda").to(torch.bfloat16)
-    cross_ms = cfg.n_layers * time_ms(lambda: L.cross_cache_attention(
+    cross_ms = n_cross * time_ms(lambda: L.cross_cache_attention(
         q, cache["xk"][0], cache["xv"][0], cache["xlen"]), 10,
         lambda: None)
-    # what a tick must read: the decoder's weights less the cross wk / wv
-    # (a prime projected the source already), the tied head, each row's
+    # what a tick must read: the layers' weights less the cross wk / wv
+    # (a prime projected the source already), the head, each row's
     # cross k/v up to its xlen and its self k/v up to its position
-    weights = tree_weight_bytes(params["embed"]) + sum(
-        tree_weight_bytes(lp) - tree_weight_bytes(lp["cross_attn"]["wk"])
-        - tree_weight_bytes(lp["cross_attn"]["wv"])
-        for lp in params["dec_layers"])
-    kv_row = cfg.n_layers * cfg.n_kv_heads * cfg.head_dim * 2 * 2
-    cross_bytes = int(cache["xlen"].sum()) * kv_row
-    self_bytes = int((idx + 1).sum()) * kv_row
+    layers = params.get("dec_layers", params.get("layers"))
+    cross_key = "cross_attn" if cfg.family == "encdec" else "xattn"
+    weights = tree_weight_bytes(params.get("unembed", params["embed"])) + sum(
+        tree_weight_bytes(lp) - (
+            tree_weight_bytes(lp[cross_key]["wk"])
+            + tree_weight_bytes(lp[cross_key]["wv"]) if cross_key in lp
+            else 0) for lp in layers)
+    kv_row = cfg.n_kv_heads * cfg.head_dim * 2 * 2
+    cross_bytes = int(cache["xlen"].sum()) * kv_row * n_cross
+    self_bytes = int((idx + 1).sum()) * kv_row * cfg.n_layers
     read = weights + cross_bytes + self_bytes
     floor = read / HBM_BYTES_PER_S * 1e3
     busy = res["busy"]
@@ -4820,8 +4864,8 @@ def enc_tick_time(cfg, params, label):
           f"busy {'not measured' if busy is None else f'{busy:.3f} ms'}, "
           f"cudaGraphLaunch {res['graph_launches']:.0f} a tick; the GEMVs "
           f"{gemv_ms:.3f} ms of device time; the cross-attention alone "
-          f"(plain PyTorch, {cfg.n_layers} layers x {S} rows x "
-          f"{cfg.enc_seq} frames) {cross_ms:.3f} ms, {share}; floor "
+          f"(plain PyTorch, {n_cross} layers x {S} rows x "
+          f"{src_len} source rows) {cross_ms:.3f} ms, {share}; floor "
           f"{floor:.3f} ms (the {read} bytes a tick reads at 3.35 TB/s: "
           f"{weights} of int8 weights and head, {cross_bytes} of cross k/v "
           f"to each row's xlen, {self_bytes} of self k/v): wall / floor "
@@ -4847,7 +4891,7 @@ def enc_cli_phase():
     label = f"serve {ENC_ARCH}"
     try:
         launches, res = serve_run("w8a16", curve_paths, base=ENC_SERVE_ARGS,
-                                  label=label)
+                                  label=label, curve_timing=False)
     finally:
         serve.measure_service_curve = real_curve
     rep = res.report
@@ -4885,7 +4929,7 @@ def enc_serve_line(label, rep, busy) -> dict:
     print(f"{label}: {rep.ticks} ticks, wall {wall:.1f} ms, "
           f"{out['tok_s']:.1f} tok/s, {wall / rep.ticks:.2f} ms a tick; a "
           f"profiled serve's device busy "
-          + ("not measured (profiled in --only encdec)" if busy is None
+          + ("not measured (profiled in a --only run)" if busy is None
              else f"{busy:.1f} ms ({busy / rep.ticks:.2f} ms a tick)")
           + f"; peak blocks {rep.peak_blocks_used}")
     return out
@@ -4975,8 +5019,8 @@ def encdec_phase(flush, profile_serves=False):
     ST.clear_step_cache()
     torch_cuda_empty()
     print(f"encdec: serves {time.perf_counter() - t0:.1f}s")
-    out["prime"] = enc_prime_time(cfg, params, f"{label} prime")
-    out["tick"] = enc_tick_time(cfg, params, f"{label} tick")
+    out["prime"] = prime_time(cfg, params, f"{label} prime")
+    out["tick"] = primed_tick_time(cfg, params, f"{label} tick")
     print(f"encdec: prime and tick {time.perf_counter() - t0:.1f}s")
     ST.clear_step_cache()
     del params
@@ -5136,7 +5180,7 @@ def family_qmatmul_rows(flush, arch, shapes, seed):
             ms = time_ms(lambda: K.qmatmul_w8a8(xm, w, xs, ws, **kw), 20,
                          flush)
             plain = time_ms(lambda: K.qmatmul_w8a8_ref(xm, w, xs, ws, **kw),
-                            1, flush)
+                            1, flush, warmup=False)
 
             def int_mm():
                 return (torch._int_mm(xm, w).float() * xs * ws).to(
@@ -5456,8 +5500,7 @@ def family_cli_phase(arch, base, compare):
         for quant in ("w8a16", "w8a8"):
             label = f"serve {arch} {quant}"
             out[quant], res = serve_run(quant, curve_paths, base=base,
-                                        label=label,
-                                        curve_timing=quant == "w8a16")
+                                        label=label, curve_timing=False)
             if quant == "w8a16":
                 rep = res.report
                 reqs = res.requests[:compare]
@@ -5606,7 +5649,7 @@ def flash_rows(flush, arch, cases, window, seed):
         ms = time_ms(lambda: FA.flash_attention_bhsd(q, k, v, **kw), 20,
                      flush)
         plain = time_ms(lambda: FA.flash_attention_ref(q, k, v, **kw),
-                        1 if s > window else 3, flush)
+                        1 if s > window else 3, flush, warmup=False)
         lib = time_ms(lambda: F.scaled_dot_product_attention(
             q[None], k[None], v[None], attn_mask=mask,
             is_causal=mask is None), 20, flush)
@@ -5763,7 +5806,8 @@ MIX_FLASH = ((48, SERVE_SEQ), (192, SERVE_SEQ), (768, SERVE_SEQ), (6, 8192))
 MIX_RING_SEQ = 8192
 MIX_RING_POS = tuple(range(4093, 4093 + NUM_SLOTS))
 MIX_CHUNK_STARTS = (4090, 4094, 4100)
-MIX_DECODE_TOKENS = 16      # the launcher's decode loop (the CLI's default)
+LAUNCHER_DECODE_TOKENS = 16     # the launcher's decode loop (the CLI's
+                                # default)
 
 
 def mixtral_attention_rows(flush):
@@ -5804,7 +5848,7 @@ def mixtral_attention_rows(flush):
         time_ms(lambda: A.decode_attention_int8(q, k, v, ks, vs, vl), 20,
                 flush),
         time_ms(lambda: A.decode_attention_int8_ref(q, k, v, ks, vs, vl), 3,
-                flush), lib, q, 0)
+                flush, warmup=False), lib, q, 0)
     contig["max_abs_err"] = err
     tables = torch.arange(b, dtype=torch.int32, device="cuda")[:, None]
     plabel = f"decode_attention_int8_paged {MIX_ARCH} one-entry tables"
@@ -5820,7 +5864,8 @@ def mixtral_attention_rows(flush):
         time_ms(lambda: A.decode_attention_int8_paged(
             q, k, v, ks, vs, vl, tables), 20, flush),
         time_ms(lambda: A.decode_attention_int8_paged_ref(
-            q, k, v, ks, vs, vl, tables), 3, flush), lib, q, b * 4)
+            q, k, v, ks, vs, vl, tables), 3, flush, warmup=False),
+        lib, q, b * 4)
     paged["max_abs_err"] = perr
     print(f"  decode attention on {MIX_ARCH}'s ring: every row bitwise "
           f"alone and in its batch, the paged kernel through one-entry "
@@ -5976,19 +6021,19 @@ def mixtral_ring_tick(cfg, params, label):
             "launches": launches}
 
 
-def mixtral_launcher(cfg, params):
-    """The serve launcher's own measurements on the 8-layer model (the
-    CLI at full depth would need 141 GB of weights): under w8a16 and
-    w8a8, ``serve.measure_service_curve`` through the captured forward
+def launcher_run(cfg, params, name):
+    """The serve launcher's own measurements on a model cut in depth (the
+    CLI at full depth would not fit the card): under w8a16 and w8a8,
+    ``serve.measure_service_curve`` through the captured forward
     (``jit_prefill_step``: a graph per batch, b = 1, 4 and 16 of
-    SERVE_SEQ tokens), its launches counted (flash attention with the
-    window; w8a16: the projections, the experts' tensor-core entry and
-    the head on the mma path, the routers on the GEMV; w8a8:
-    qmatmul_w8a8 for the attention, the GEMV for the rest), each batch's
-    captured logits bitwise the eager forward's (``curve_check``), then
-    ``serve.measure_decode_tps`` (the captured decode loop, no mma
-    launch) at the Table 4 batch.  Returns {quant: launches and
-    times}."""
+    SERVE_SEQ tokens), its launches counted (flash attention; w8a16: the
+    projections and the head on the mma path, and an MoE config's
+    experts on their tensor-core entry and its routers on the GEMV; w8a8:
+    qmatmul_w8a8 for the attention, the GEMV for an MoE config's rest),
+    each batch's captured logits bitwise the eager forward's
+    (``curve_check``), then ``serve.measure_decode_tps`` (the captured
+    decode loop, no mma launch) at the Table 4 batch.  Returns {quant:
+    launches and times}."""
     import torch
     from repro_torch.core import batching as bt
     from repro_torch.core.qlinear import W8A8, W8A16
@@ -5998,8 +6043,9 @@ def mixtral_launcher(cfg, params):
     args = serve.parse_args(["--seq", str(SERVE_SEQ), "--max-batch",
                              str(SERVE_MAX_BATCH), "--deadline-ms", "2000"])
     out = {}
+    moe = cfg.family == "moe"
     for quant, mode in (("w8a16", W8A16), ("w8a8", W8A8)):
-        label = f"mixtral launcher {quant}"
+        label = f"{name} launcher {quant}"
         prefill = ST.jit_prefill_step(ST.make_prefill_step(cfg, mode=mode))
         zero_counts()
         model, curve = serve.measure_service_curve(
@@ -6016,7 +6062,7 @@ def mixtral_launcher(cfg, params):
                 or curve_launches["flash_attention_bhsd"] <= 0
                 or (curve_launches["qmatmul_w8a16[mma]"] > 0) != want_mma
                 or (curve_launches["qmatmul_w8a16_experts[mma]"] > 0)
-                != want_mma
+                != (want_mma and moe)
                 or (curve_launches["qmatmul_w8a8"] > 0) == want_mma
                 or batch < 1):
             raise AssertionError(f"{label}: {captures} captures for "
@@ -6029,11 +6075,12 @@ def mixtral_launcher(cfg, params):
         zero_counts()
         bb, tps, dt = serve.measure_decode_tps(
             cfg, params, mode, batch, s_max=max(SERVE_SEQ * 2, 64),
-            num_tokens=MIX_DECODE_TOKENS, device="cuda")
+            num_tokens=LAUNCHER_DECODE_TOKENS, device="cuda")
         loop_launches, plain = read_counts()
         mma_free(label, loop_launches)
-        if any(plain.values()) or loop_launches[
-                "qmatmul_w8a16_experts[gemv]"] <= 0:
+        if any(plain.values()) or loop_launches["qmatmul_w8a16[gemv]"] \
+                <= 0 or (loop_launches["qmatmul_w8a16_experts[gemv]"] > 0) \
+                != moe:
             raise AssertionError(f"{label}: decode loop launches "
                                  f"{loop_launches}, plain {plain}")
         print(f"{label}: service curve "
@@ -6041,7 +6088,7 @@ def mixtral_launcher(cfg, params):
                           sorted(curve.items()))
               + f" (captured forwards; chosen batch {batch} at a 2,000 ms "
               f"deadline); curve launches {curve_launches}; decode loop "
-              f"batch {batch} (bucket {bb}) {MIX_DECODE_TOKENS} steps in "
+              f"batch {batch} (bucket {bb}) {LAUNCHER_DECODE_TOKENS} steps in "
               f"{dt * 1e3:.1f} ms -> {tps:.1f} tok/s; its launches "
               f"{loop_launches}")
         out[quant] = {"curve_ms": {b: t * 1e3 for b, t in curve.items()},
@@ -6129,7 +6176,7 @@ def mixtral_phase(flush):
         torch_cuda_empty()
     print(f"mixtral: tick and chunk {time.perf_counter() - t0:.1f}s")
     ST.clear_step_cache()
-    out["launcher"] = mixtral_launcher(cfg, params)
+    out["launcher"] = launcher_run(cfg, params, "mixtral")
     ST.clear_step_cache()
     del params
     torch_cuda_empty()
@@ -6139,8 +6186,208 @@ def mixtral_phase(flush):
     return out
 
 
+# ---------------------------------------------------------------------------
+# the vlm family
+# ---------------------------------------------------------------------------
+
+VLM_ARCH = "llama-3.2-vision-90b"
+# the depth the card holds: 10 of 100 layers at full width, two groups of
+# five each ending in a cross layer, 10.96 GB of int8 (100 layers would be
+# 90.7 GB)
+VLM_LAYERS = 10
+# every x_gate, set in place of the reference's zero init (which would
+# keep the patches from every logit)
+VLM_GATE = 0.5
+# the W8A16 and W8A8 kernels at llama-3.2-vision-90b's projections: (name,
+# K, N, launches of a 10-layer decode step): wq and wo of every layer and
+# of each cross layer's cross-attention, wk and wv (8 KV heads of 128;
+# the cross layers' ran at the prime), the gated MLP's gate and up, down
+VLM_SHAPES = (("proj", 8192, 8192, 2 * VLM_LAYERS + 2 * VLM_LAYERS // 5),
+              ("kv", 8192, 1024, 2 * VLM_LAYERS),
+              ("gate|up", 8192, 28672, 2 * VLM_LAYERS),
+              ("down", 28672, 8192, VLM_LAYERS))
+
+
+def vlm_prime_rows(flush):
+    """qmatmul_w8a16 at a prime's M = 1,601 patches through a cross layer's
+    wk or wv (K 8,192 x N 1,024): both kernels against the plain version,
+    the mma path's rows equal alone and in slices of 17 (its last M tile
+    holds 65 rows past 12 of 128), timed on the mma path (the prime's)
+    beside the plain version, F.linear and the bound.  Returns (worst
+    error, numbers)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.quant import quantize_weight
+    from repro_torch.kernels import qmatmul as K
+
+    c = get_config(VLM_ARCH)
+    m, k, n = c.n_patches, c.d_model, c.n_kv_heads * c.head_dim
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 65)
+    q = quantize_weight(torch.randn((k, n), generator=gen, device="cuda")
+                        * k ** -0.5)
+    w, ws = q.values, q.scale.reshape(-1).contiguous()
+    x = torch.randn((m, k), generator=gen, device="cuda").to(torch.bfloat16)
+    odt = torch.bfloat16
+    ref = K.qmatmul_w8a16_ref(x, w, ws, out_dtype=odt)
+    err, ratio = w8a16_check(f"kv M={m}", x, w, ws, None, "none", odt, ref)
+    del ref
+    w8a16_rows_check(x, w, ws, None, "none", odt)
+    t = w8a16_numbers(x, w, ws, None, "none", odt, ("mma",), 1, flush)
+    row = {"K": k, "N": n, "M": m, "path": "mma", "ms": t["ms"]["mma"],
+           "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+           "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+           "max_abs_err": err, "err_tol": ratio}
+    print(f"  qmatmul_w8a16 prime kv M={m} K={k} N={n} max_abs_err="
+          f"{err:.3e} err/tol={ratio:.3f} (gemv, mma; mma rows alone and "
+          f"in slices of 17 equal) mma_ms={row['ms']:.4f} plain_ms="
+          f"{row['plain_ms']:.4f} library_ms={row['library_ms']:.4f} "
+          f"bound_ms={row['bound_ms']:.4f} ({row['bound_by']})")
+    zero_counts()
+    return err, row
+
+
+def sources_reach_logits(cfg, params, label) -> None:
+    """Two slots primed with different patches, fed the same token at the
+    same place: their logits differ (the open gate carries the patches),
+    while a slot primed again with the first slot's patches gives the
+    first slot's logits bitwise."""
+    import torch
+    from repro_torch.core.qlinear import W8A16
+    from repro_torch.models import registry as R
+    from repro_torch.runtime import steps as ST
+
+    prime = ST.make_prime_step(cfg, mode=W8A16)
+    decode = ST.make_decode_step(cfg, mode=W8A16)
+    g = torch.Generator(device="cuda").manual_seed(SEED + 67)
+    p = R.source_len(cfg)
+    with torch.inference_mode():
+        cache = R.init_cache(cfg, 3, DENSE_MAX_SEQ, device="cuda")
+        a, b = (torch.randn((1, p, cfg.d_model), generator=g,
+                            device="cuda").to(torch.bfloat16)
+                for _ in range(2))
+        for sid, src in ((0, a), (1, b), (2, a)):
+            prime(params, src, cache, sid, p)
+        toks = torch.full((3, 1), 7, dtype=torch.int32, device="cuda")
+        idx = torch.zeros((3,), dtype=torch.int32, device="cuda")
+        logits = decode(params, {"tokens": toks, "cache_index": idx},
+                        cache)[0].float()
+    gap = float((logits[0] - logits[1]).abs().max())
+    if gap == 0.0 or not torch.equal(logits[0], logits[2]):
+        raise AssertionError(f"{label}: two sources' logits differ by "
+                             f"{gap} (want > 0), or one source's rows "
+                             f"differ")
+    print(f"{label}: two sources' logits differ by up to {gap:.4f} at "
+          f"x_gate {VLM_GATE}; the same source's rows are bitwise equal")
+
+
+def vlm_phase(flush, profile_serves=False):
+    """llama-3.2-vision-90b at full width and 10 of 100 layers (d 8,192, 64
+    query and 8 KV heads of 128, gated SiLU MLP of 28,672, vocab 128,256
+    untied, a tanh-gated cross-attention over 1,601 patches in every 5th
+    layer): the kernels at its shapes (flash over the curve's tokens and,
+    not causal, over the patches; qmatmul_w8a16's GEMV and mma path at
+    its projections and head, and the mma path at a prime's 1,601 rows;
+    qmatmul_w8a8), then the model from the streamed init (its peak under
+    PEAK_BYTES) with every x_gate set to VLM_GATE, the patches shown to
+    reach the logits, the dense trace with sources served contiguous and
+    held to ``reference_outputs``, served paged with every token equal to
+    the contiguous serve's and no block leaked, the captured prime and
+    the captured tick timed against their floors, then the launcher's
+    curve and decode loop under w8a16 and w8a8.  Returns the kernel rows,
+    the launches of each run and the times."""
+    import torch
+    from repro_torch import engine as E
+    from repro_torch.configs import get_config
+    from repro_torch.models import registry as R
+    from repro_torch.runtime import steps as ST
+
+    t0 = time.perf_counter()
+    full = get_config(VLM_ARCH)
+    cut = f"{VLM_LAYERS} of {full.n_layers} layers"
+    print(f"vlm: the kernels at {VLM_ARCH}'s shapes (full width)")
+    cases = []
+    for b in (1, 4, SERVE_MAX_BATCH):
+        bh = full.n_heads * b
+        cases += [(f"self BH={bh}", bh, SERVE_SEQ, SERVE_SEQ, True),
+                  (f"cross BH={bh}", bh, SERVE_SEQ, full.n_patches, False)]
+    f_err, f_rows = source_flash_rows(flush, full.head_dim, cases, SEED + 61)
+    q_err, q_rows, w8_err, w8_rows, per_m = family_qmatmul_rows(
+        flush, VLM_ARCH, VLM_SHAPES, SEED + 63)
+    p_err, p_row = vlm_prime_rows(flush)
+    print(f"vlm: kernel rows {time.perf_counter() - t0:.1f}s")
+    torch_cuda_empty()
+    cfg, params = build_dense_model(VLM_ARCH, VLM_LAYERS)
+    with torch.inference_mode():
+        gates = [lp["x_gate"].fill_(VLM_GATE) for lp in params["layers"]
+                 if "x_gate" in lp]
+    print(f"vlm {VLM_ARCH}: {len(gates)} cross layers, every x_gate set to "
+          f"{VLM_GATE} (tanh {math.tanh(VLM_GATE):.4f}) in place of its zero "
+          f"init")
+    label = f"vlm {VLM_ARCH} ({cut})"
+    sources_reach_logits(cfg, params, label)
+    reqs = E.synthetic_requests(
+        DENSE_REQUESTS, rate_per_s=DENSE_RATE_PER_S, vocab=cfg.vocab,
+        prompt_len=DENSE_PROMPT, max_new_tokens=DENSE_NEW,
+        shared_prefix_len=DENSE_SHARED, seed=SEED,
+        source_shape=R.source_shape(cfg))
+    out = {"flash_rows": f_rows, "flash_err": f_err, "qmatmul_rows": q_rows,
+           "qmatmul_err": max(q_err, p_err), "prime_row": p_row,
+           "w8a8_rows": w8_rows, "w8a8_err": w8_err, "per_m": per_m}
+
+    def busy(eng):
+        return serve_busy(eng, reqs) if profile_serves else None
+
+    eng, rep, out["launches"] = dense_serve(f"{label} contiguous", cfg,
+                                            params, reqs)
+    slot_bytes = (eng._cache["xk"].numel() + eng._cache["xv"].numel()) * 2 \
+        // eng.num_slots
+    print(f"{label} contiguous: the cross k/v of one slot {slot_bytes} "
+          f"bytes ({slot_bytes / 1e6:.1f} MB); torch.cuda."
+          f"max_memory_allocated {torch.cuda.max_memory_allocated()} bytes")
+    compare_with_reference(f"{label} contiguous", cfg, params, eng, reqs,
+                           rep.outputs())
+    contig = rep.outputs()
+    out["slot_cross_bytes"] = slot_bytes
+    out["serves"] = {"contiguous": enc_serve_line(
+        f"{label} contiguous", rep, busy(eng))}
+    del eng
+    eng, rep, out["paged_launches"] = dense_serve(
+        f"{label} paged", cfg, params, reqs, block_size=DENSE_BLOCK,
+        num_blocks=DENSE_NUM_BLOCKS)
+    print(f"{label} paged: block_size {rep.block_size}, num_blocks "
+          f"{rep.num_blocks}, peak_blocks_used {rep.peak_blocks_used}, "
+          f"leaked_blocks {rep.leaked_blocks}, shared_block_hits "
+          f"{rep.shared_block_hits} (each request's own patches seed its "
+          f"prefix keys)")
+    if rep.outputs() != contig or rep.leaked_blocks:
+        raise AssertionError(f"{label} paged: tokens differ from the "
+                             f"contiguous serve's, or {rep.leaked_blocks} "
+                             f"blocks leaked")
+    print(f"{label} paged: every token of {len(contig)} requests equal to "
+          f"the contiguous serve's")
+    out["serves"]["paged"] = enc_serve_line(f"{label} paged", rep,
+                                            busy(eng))
+    del eng
+    ST.clear_step_cache()
+    torch_cuda_empty()
+    print(f"vlm: serves {time.perf_counter() - t0:.1f}s")
+    out["prime"] = prime_time(cfg, params, f"{label} prime")
+    out["tick"] = primed_tick_time(cfg, params, f"{label} tick")
+    print(f"vlm: prime and tick {time.perf_counter() - t0:.1f}s")
+    ST.clear_step_cache()
+    torch_cuda_empty()
+    out["launcher"] = launcher_run(cfg, params, "vlm")
+    ST.clear_step_cache()
+    del params
+    torch_cuda_empty()
+    out["seconds"] = time.perf_counter() - t0
+    print(f"vlm: phase {out['seconds']:.1f}s ({cut}); "
+          f"{torch.cuda.memory_allocated()} bytes left allocated")
+    return out
+
+
 PHASES = ("attention", "long_tick", "w8a8", "graphs", "dense", "sampling",
-          "spec", "moe", "encdec", "ssm", "hybrid", "mixtral")
+          "spec", "moe", "encdec", "ssm", "hybrid", "mixtral", "vlm")
 
 
 def parse_args(argv):
@@ -6172,8 +6419,11 @@ def parse_args(argv):
                          "chunk and CLI), or mixtral-8x22b at full width "
                          "and 8 of 56 layers (kernel rows, serves on the "
                          "int8 and bf16 rings, ring tick, wrapped chunk, "
-                         "the launcher's curve and decode loop); prints no "
-                         "result line")
+                         "the launcher's curve and decode loop), or "
+                         "llama-3.2-vision-90b at full width and 10 of 100 "
+                         "layers (kernel rows, serves contiguous and paged, "
+                         "prime, tick, the launcher's curve and decode "
+                         "loop); prints no result line")
     return ap.parse_args(argv)
 
 
@@ -6273,7 +6523,7 @@ def main(argv=None) -> int:
                 serve.measure_service_curve = real_curve
         if "spec" in args.only and "moe" not in args.only:
             spec_moe_only()             # the MoE phase runs it otherwise
-        if {"moe", "encdec", "ssm", "hybrid", "mixtral"} & set(
+        if {"moe", "encdec", "ssm", "hybrid", "mixtral", "vlm"} & set(
                 args.only):             # last, as in the whole run
             from repro_torch.runtime import steps as ST
             ST.clear_step_cache()       # starcoder's graphs and weights go
@@ -6297,6 +6547,10 @@ def main(argv=None) -> int:
             ST.clear_step_cache()
             torch_cuda_empty()
             mixtral_phase(flush)
+        if "vlm" in args.only:
+            ST.clear_step_cache()
+            torch_cuda_empty()
+            vlm_phase(flush, profile_serves=True)
         del flush_buf
         print(f"chip_smoke: partial run passed in "
               f"{time.perf_counter() - t_run:.1f}s; no result line")
@@ -6350,6 +6604,9 @@ def main(argv=None) -> int:
     ST.clear_step_cache()
     torch_cuda_empty()
     mix = timed(mixtral_phase, flush)
+    ST.clear_step_cache()
+    torch_cuda_empty()
+    vlm = timed(vlm_phase, flush)
     del flush_buf
 
     tick_basis = (f"one {{}} of {NUM_SLOTS} rows at full width: the sum "
@@ -6731,6 +6988,74 @@ def main(argv=None) -> int:
             mix["per_m"][SERVE_ROWS])
            for key in ("ms", "plain_ms", "bound_ms", "library_ms")):
         return fail("a mixtral kernel row is not finite")
+    # llama-3.2-vision-90b (full width, 10 of 100 layers): qmatmul_w8a16
+    # at its projections, head and prime, qmatmul_w8a8, and flash over the
+    # curve's tokens and patches; their launches in its serves (the
+    # ticks' and chunks' GEMV, the primes' mma) and the launcher's curves
+    # and decode loops
+    vlm_basis = f"{VLM_ARCH} at full width, {VLM_LAYERS} of 100 layers"
+    vlm_l = vlm["launcher"]
+    vlm_serve = vlm["launches"]
+    kernels[0]["vlm"] = {
+        **numbers(vlm["per_m"][NUM_SLOTS]), "rows": vlm["qmatmul_rows"],
+        "prime": vlm["prime_row"], "max_abs_err": vlm["qmatmul_err"],
+        "forward": {**numbers(vlm["per_m"][SERVE_ROWS]),
+                    "basis": f"one forward of {SERVE_MAX_BATCH} x "
+                             f"{SERVE_SEQ} tokens on the mma path: every "
+                             f"projection of {VLM_LAYERS} layers and the "
+                             f"head, summed (the cross k/v over the patches "
+                             f"not counted)"},
+        "launches": vlm_serve["qmatmul_w8a16"],
+        "launches_by_path": {"gemv": vlm_serve["qmatmul_w8a16[gemv]"],
+                             "mma": vlm_serve["qmatmul_w8a16[mma]"]},
+        "paged_launches": vlm["paged_launches"]["qmatmul_w8a16"],
+        "launcher_launches": {q: vlm_l[q]["curve_launches"]["qmatmul_w8a16"]
+                              + vlm_l[q]["loop_launches"]["qmatmul_w8a16"]
+                              for q in ("w8a16", "w8a8")},
+        "prime_step": vlm["prime"], "tick": vlm["tick"],
+        "serves": vlm["serves"], "slot_cross_bytes": vlm["slot_cross_bytes"],
+        "launcher": {q: {k: v for k, v in r.items()
+                         if k in ("curve_ms", "batch", "decode_tok_s")}
+                     for q, r in vlm_l.items()},
+        "basis": f"one {VLM_ARCH} tick of {NUM_SLOTS} rows on the GEMV: "
+                 f"{', '.join(f'{c} x {n} (K {k:,} x N {m:,})' for n, k, m, c in VLM_SHAPES)} "
+                 f"and the head (N 128,256), summed ({vlm_basis}); prime: "
+                 f"one wk / wv launch on the mma path at the prime's 1,601 "
+                 f"rows; launches: the contiguous serve of {DENSE_REQUESTS} "
+                 f"primed requests (by path: the ticks' and chunks' GEMV, "
+                 f"the primes' mma), the paged serve, the launcher's curves "
+                 f"and decode loops; prime_step and tick: the captured "
+                 f"steps' wall, busy, split and floor, in ms"}
+    kernels[3]["vlm"] = {
+        "rows": vlm["w8a8_rows"], "max_abs_err": vlm["w8a8_err"],
+        "launches": (vlm_l["w8a8"]["curve_launches"]["qmatmul_w8a8"]
+                     + vlm_l["w8a8"]["loop_launches"]["qmatmul_w8a8"]),
+        "basis": f"one launch at each {VLM_ARCH} projection, M = "
+                 f"{NUM_SLOTS} (the GEMV) and {SERVE_ROWS} (mma.sync); "
+                 f"launches: the launcher's w8a8 curve and decode loop "
+                 f"({vlm_basis})"}
+    kernels[4]["vlm"] = {
+        "rows": vlm["flash_rows"], "max_abs_err": vlm["flash_err"],
+        "launches": sum(vlm_l[q]["curve_launches"]["flash_attention_bhsd"]
+                        for q in ("w8a16", "w8a8")),
+        "basis": f"one launch at each {VLM_ARCH} shape, head_dim 128: the "
+                 f"curve's self-attention (Sq = Skv = {SERVE_SEQ}, causal) "
+                 f"and cross-attention (Sq {SERVE_SEQ} over Skv 1,601 "
+                 f"patches, not causal) at BH = 64 x b for b = 1, 4, "
+                 f"{SERVE_MAX_BATCH}; library SDPA; launches: the launcher's "
+                 f"w8a16 and w8a8 curves ({vlm_basis})"}
+    if min(kernels[0]["vlm"]["launches"],
+           *kernels[0]["vlm"]["launches_by_path"].values(),
+           kernels[0]["vlm"]["paged_launches"],
+           *kernels[0]["vlm"]["launcher_launches"].values(),
+           kernels[3]["vlm"]["launches"], kernels[4]["vlm"]["launches"]) <= 0:
+        return fail("a kernel of the vlm path never launched")
+    if any(not math.isfinite(t[key]) for t in (
+            *vlm["qmatmul_rows"].values(), *vlm["w8a8_rows"].values(),
+            *vlm["flash_rows"].values(), vlm["prime_row"],
+            vlm["per_m"][NUM_SLOTS], vlm["per_m"][SERVE_ROWS])
+           for key in ("ms", "plain_ms", "bound_ms", "library_ms")):
+        return fail("a vlm kernel row is not finite")
     if min(kernels[0]["encdec"]["launches_by_path"].values()) <= 0 or min(
             kernels[4]["encdec"][key]
             for key in ("launches", "paged_launches", "cli_launches")) <= 0:

@@ -5,7 +5,7 @@ exact published dimensions and registers it.  ``reduced()`` derives the
 small same-family variant used by CPU smoke tests.  ``model_flops``
 feeds roofline arithmetic.  ``input_specs`` gives the (shape, dtype) of
 every model input of a cell, as the JAX package's ``ShapeDtypeStruct``
-stand-ins do, for the token-only families and encdec.
+stand-ins do.
 """
 from __future__ import annotations
 
@@ -165,13 +165,8 @@ class ArchConfig:
     def input_specs(self, shape: ShapeSpec
                     ) -> Dict[str, Tuple[Tuple[int, ...], torch.dtype]]:
         """``{name: (shape, dtype)}`` of every model input of this cell:
-        the tokens, and the encdec family's stub frame embeddings.  The
-        vlm family's patch embeddings come with that family (ROADMAP
-        queue 1, item 13)."""
-        if self.family == "vlm":
-            raise NotImplementedError(
-                f"input specs of family {self.family!r} are not ported yet "
-                f"(ROADMAP queue 1, item 13)")
+        the tokens, the encdec family's stub frame embeddings and the vlm
+        family's stub patch embeddings."""
         b, s = shape.global_batch, shape.seq_len
         i32 = torch.int32
         if shape.kind == "train":
@@ -184,6 +179,10 @@ class ArchConfig:
             # stubbed conv-frontend output: precomputed frame embeddings
             specs["encoder_embeds"] = ((b, self.enc_seq, self.d_model),
                                        torch.bfloat16)
+        if self.family == "vlm":
+            # stubbed vision tower: precomputed patch embeddings
+            specs["vision_embeds"] = ((b, self.n_patches, self.d_model),
+                                      torch.bfloat16)
         return specs
 
     def supports(self, shape: ShapeSpec) -> Tuple[bool, str]:

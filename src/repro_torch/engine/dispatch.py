@@ -6,8 +6,9 @@ contiguous slots or on the paged KV cache, with the reference's overload
 paths (SLO-class quotas, preemption with exact resume, fault injection
 and recovery), its speculative decoding (a draft proposes, one verify
 step scores, the host commits the accepted run and rewinds the rest) and
-its prime dispatch (encdec: a request's encoder runs once at admission,
-and again at every resume, writing the slot's cross k/v row):
+its prime dispatch (encdec, vlm: a request's encoder runs, or its
+patches are projected, once at admission and again at every resume,
+writing the slot's cross k/v row):
 
 - ``Engine`` (engine.py) — policy + reporting: request validation,
   admission policy configuration, and ``EngineReport`` assembly.
@@ -57,10 +58,10 @@ class EngineRequest:
     max_new_tokens: int
     arrival_s: float = 0.0
     deadline_s: float = float("inf")
-    # encdec: the request's source embeddings (src_len, d_model), encoder
-    # frames a prime dispatch turns into the slot's cross k/v row at
-    # admission.  src_len may be shorter than the static source length;
-    # the pad is masked behind the row's xlen.
+    # encdec, vlm: the request's source embeddings (src_len, d_model),
+    # encoder frames or patch embeddings a prime dispatch turns into the
+    # slot's cross k/v row at admission.  src_len may be shorter than the
+    # static source length; the pad is masked behind the row's xlen.
     source: Optional[np.ndarray] = dataclasses.field(
         default=None, compare=False, repr=False)
     # SLO class (see core.batching.PRIORITY_CLASSES): admission orders

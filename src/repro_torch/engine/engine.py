@@ -37,10 +37,12 @@ one engine-wide temperature:
   verify step on the target; the committed tokens are bit for bit the
   non-speculative engine's, greedy or sampled, whatever the draft
   proposes (``engine/dispatch.py``).
-- A family that primes (encdec) takes each request's ``source`` frames:
-  at admission, and again at a resume, a prime dispatch runs its encoder
-  once and writes the slot's row of cross k/v and its ``xlen`` frontier
-  (``runtime/steps.py::jit_prime_step``, one graph for every slot).
+- A family that primes (encdec, vlm) takes each request's ``source``
+  (encdec's frames, vlm's patch embeddings): at admission, and again at
+  a resume, a prime dispatch runs the encoder (encdec) or projects the
+  patches (vlm) once and writes the slot's row of cross k/v and its
+  ``xlen`` frontier (``runtime/steps.py::jit_prime_step``, one graph for
+  every slot).
 - A recurrent family (ssm, hybrid) keeps a fixed-size state per slot
   (the hybrid's local-attention ring beside it): a row at
   position 0 zeroes it first and a row the tick does not advance keeps
@@ -544,9 +546,9 @@ def reference_outputs(cfg: ArchConfig, params,
     (``steps.temperature_sample_rows`` at batch 1), the schedule the slot
     tick and the decode loop use.
 
-    A family that primes (encdec) primes each request's cache with its
-    padded source through the engine's prime computation, at a pool of
-    one slot, and decodes with a (1,) index (the per-row form the
+    A family that primes (encdec, vlm) primes each request's cache with
+    its padded source through the engine's prime computation, at a pool
+    of one slot, and decodes with a (1,) index (the per-row form the
     engine's slot rows take).
 
     When ``margins`` is a dict, ``margins[rid]`` receives the gap between

@@ -52,7 +52,15 @@ slots: the curve's forward runs flash attention with the window, the
 decode loop and the engine write each position at its ring slot
 (``--block-size`` and ``--spec-k`` are rejected for it, as in the
 reference); at full depth its 141 GB of int8 weights do not fit one
-80 GB card, so the CLI serves it ``--reduced``.
+80 GB card, so the CLI serves it ``--reduced``.  ``--arch
+llama-3.2-vision-90b`` serves the vlm family: the curve's forward runs
+flash attention causal over the tokens and, every 5th layer, not causal
+over the zero patch embeddings of the config's ``input_specs``; the
+decode loop attends a zero cross k/v over every patch; every engine
+request carries its own patch embeddings, projected into its slot's
+cross k/v at admission (``--block-size`` pages the self-attention
+cache); at full depth its 90.7 GB of int8 weights do not fit one card
+either, so the CLI serves it ``--reduced``.
 
   python -m repro_torch.launch.serve --arch starcoder2-3b --reduced \\
       --deadline-ms 50 --rate 200                  # on the card
@@ -66,6 +74,8 @@ reference); at full depth its 141 GB of int8 weights do not fit one
       --device cpu --spec-k 3 --draft-layers 1       # speculative, CPU
   python -m repro_torch.launch.serve --arch whisper-medium --reduced \\
       --device cpu --block-size 4                    # encdec, paged, CPU
+  python -m repro_torch.launch.serve --arch llama-3.2-vision-90b \\
+      --reduced --device cpu --block-size 4          # vlm, paged, CPU
   python -m repro_torch.launch.serve --arch mixtral-8x22b --reduced \\
       --device cpu --prompt-len 72                   # the ring wraps, CPU
 

@@ -7,7 +7,11 @@ dicts, with each stacked layer subtree (leading L axis: ``layers``,
 encdec's ``enc_layers`` and ``dec_layers``, or the hybrid's ``groups`` of
 (rec0, rec1, attn) and ``leftover`` blocks) split into a list of
 per-layer dicts and each ``(values, scale)`` pair made a port
-``QTensor``.  No JAX is imported: the JAX -> numpy step belongs to the
+``QTensor``.  The vlm family's tree stacks twice — ``groups.plain``
+leads with (n_groups, xattn_every - 1), ``groups.xattn`` with n_groups —
+and comes out as ``models/vision.py`` lays it: one flat ``layers`` list,
+each group's plain layers then its cross layer, then the ``leftover``
+plain layers.  No JAX is imported: the JAX -> numpy step belongs to the
 caller (the tests do it).
 """
 from __future__ import annotations
@@ -53,12 +57,28 @@ def _depth(node) -> int:
 STACKED = ("layers", "enc_layers", "dec_layers", "groups", "leftover")
 
 
+def _split(stacked) -> list:
+    return [_layer(stacked, i) for i in range(_depth(stacked))]
+
+
+def _vlm_layers(groups: dict, leftover) -> list:
+    """The vlm tree's layers in order: each group's plain layers (its
+    second stacked axis), then its cross layer; then the leftover ones."""
+    layers = []
+    for g in range(_depth(groups["xattn"])):
+        layers += _split(_layer(groups["plain"], g))
+        layers.append(_layer(groups["xattn"], g))
+    return layers + (_split(leftover) if leftover is not None else [])
+
+
 def params_from_numpy(tree: dict, device: DeviceLike = None) -> dict:
     device = resolve_device(device)
     params = _convert(tree, device)
+    if "plain" in params.get("groups", {}):
+        params["layers"] = _vlm_layers(params.pop("groups"),
+                                       params.pop("leftover", None))
+        return params
     for name in STACKED:
         if name in params:
-            stacked = params[name]
-            params[name] = [_layer(stacked, i)
-                            for i in range(_depth(stacked))]
+            params[name] = _split(params[name])
     return params

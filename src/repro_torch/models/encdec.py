@@ -55,15 +55,6 @@ def _sinusoid(s: int, d: int, device) -> Tensor:
     return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
 
 
-def _forward_mode(mode: QuantMode) -> QuantMode:
-    """The full-sequence passes (``encode``, ``forward``, the cross k/v
-    projection) take the tensor-core W8A16 kernel, as
-    ``transformer.forward`` does."""
-    if mode.enabled and not mode.w8a8:
-        return dataclasses.replace(mode, w8a16_path="mma")
-    return mode
-
-
 # ---------------------------------------------------------------------------
 # init
 # ---------------------------------------------------------------------------
@@ -150,7 +141,7 @@ def encode(params: dict, frame_embeds: Tensor, cfg: ArchConfig, *,
     """frame_embeds (B, enc_seq, D), the stubbed frontend's output -> the
     encoder output (B, enc_seq, D) in its dtype.  ``remat`` is the
     reference's training switch; it has no effect here."""
-    mode = _forward_mode(mode)
+    mode = T.forward_mode(mode)
     b, s, d = frame_embeds.shape
     x = frame_embeds + _sinusoid(s, d, frame_embeds.device)[None].to(
         frame_embeds.dtype)
@@ -193,7 +184,7 @@ def forward(params: dict, tokens: Tensor, encoder_embeds: Tensor,
     kernel: the encoder's and the cross-attention not causal, the
     decoder's self-attention causal.  Under W8A16 every projection and
     the LM head take the tensor-core kernel."""
-    mode = _forward_mode(mode)
+    mode = T.forward_mode(mode)
     enc_out = encode(params, encoder_embeds, cfg, mode=mode)
     b, s = tokens.shape
     x = L.embed(params["embed"], tokens)
@@ -268,7 +259,7 @@ def _cross_kv(params: dict, enc_out: Tensor, cfg: ArchConfig, *,
               mode: QuantMode = FP) -> Tuple[Tensor, Tensor]:
     """Every decoder layer's cross k and v projected from the encoder
     output (B, Se, D): (L, B, Se, KV, hd) each, in enc_out's dtype."""
-    mode = _forward_mode(mode)
+    mode = T.forward_mode(mode)
     b, se, _ = enc_out.shape
     kvh, hd = cfg.n_kv_heads, cfg.head_dim
     xk, xv = [], []

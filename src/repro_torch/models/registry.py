@@ -1,11 +1,12 @@
-"""Family -> model module dispatch (the dense, MoE, encdec, ssm and
-hybrid families).
+"""Family -> model module dispatch (the dense, MoE, encdec, ssm, hybrid
+and vlm families).
 
 Uniform API per family, as in ``repro/models/registry.py``:
     init(gen, cfg, dtype, device) -> params
     init_quantized(gen, cfg, *, min_size, dtype, device) -> int8 params
     forward(params, tokens, cfg, *, mode, remat) -> logits
-    forward(params, tokens, encoder_embeds, cfg, *, mode, remat) (encdec)
+    forward(params, tokens, source_embeds, cfg, *, mode, remat) (encdec's
+                                      frames, vlm's patches)
     init_cache(cfg, batch, s_max, device) -> cache
     init_paged_cache(cfg, num_slots, s_max, block_size, num_blocks,
                      device) -> cache (families that page)
@@ -14,14 +15,13 @@ Uniform API per family, as in ``repro/models/registry.py``:
     draft_params(params, n_layers) -> the self-draft's view (families
                                       that speculate)
     prime_slot(params, source, n_valid, cfg, *, mode) -> primed leaves
-                                      (families that prime: encdec)
+                                      (families that prime: encdec, vlm)
     cache_batch_axes(cache) -> {leaf: slot axis} (where not axis 1)
     mask_inactive_slots(old, new, active) -> cache (families with
                                       non-positional state: ssm, hybrid)
 
-The dense, MoE (a windowed config's KV ring too), encdec, ssm and hybrid
-families are ported; the vlm family arrives with its model module
-(ROADMAP queue 1, item 13).
+Every family of the reference is ported: dense, MoE (a windowed
+config's KV ring too), encdec, ssm, hybrid and vlm.
 """
 from __future__ import annotations
 
@@ -32,17 +32,17 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.qlinear import FP, QuantMode
-from repro_torch.models import encdec, moe, rglru, ssm, transformer
+from repro_torch.models import (encdec, moe, rglru, ssm, transformer,
+                                vision)
 
 _MODULES = {"dense": transformer, "moe": moe, "encdec": encdec,
-            "ssm": ssm, "hybrid": rglru}
+            "ssm": ssm, "hybrid": rglru, "vlm": vision}
 
 
 def module_for(cfg: ArchConfig):
     if cfg.family not in _MODULES:
         raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet (ROADMAP queue 1, "
-            f"item 13); ported: {sorted(_MODULES)}")
+            f"unknown family {cfg.family!r}; ported: {sorted(_MODULES)}")
     return _MODULES[cfg.family]
 
 
@@ -63,10 +63,13 @@ def init_quantized(gen: torch.Generator, cfg: ArchConfig, *,
 def apply_forward(params, cfg: ArchConfig, batch: dict, *,
                   mode: QuantMode = FP, remat: bool = True):
     """batch: dict from ``cfg.input_specs`` (tokens, and encdec's
-    ``encoder_embeds``)."""
+    ``encoder_embeds`` or vlm's ``vision_embeds``)."""
     m = module_for(cfg)
     if cfg.family == "encdec":
         return m.forward(params, batch["tokens"], batch["encoder_embeds"],
+                         cfg, mode=mode, remat=remat)
+    if cfg.family == "vlm":
+        return m.forward(params, batch["tokens"], batch["vision_embeds"],
                          cfg, mode=mode, remat=remat)
     return m.forward(params, batch["tokens"], cfg, mode=mode, remat=remat)
 
@@ -113,8 +116,8 @@ def paged_block_axes(cfg: ArchConfig, cache: dict) -> dict:
 
 def cache_batch_axes(cfg: ArchConfig, cache: dict) -> dict:
     """Batch (slot) axis per cache leaf: the module's ``cache_batch_axes``
-    where it has one (encdec: ``xlen`` and the block table lead with it),
-    else right behind the layer axis."""
+    where it has one (encdec, vlm: ``xlen`` and the block table lead with
+    it), else right behind the layer axis."""
     m = module_for(cfg)
     if hasattr(m, "cache_batch_axes"):
         return m.cache_batch_axes(cache)
@@ -127,7 +130,7 @@ def mask_inactive_slots(cfg: ArchConfig, old_cache: dict, new_cache: dict,
     inactive rows' *non-positional* state restored from ``old_cache``.
 
     KV caches need nothing: stale positional entries are invisible behind
-    each row's ``valid_len`` frontier, so the dense, MoE and encdec
+    each row's ``valid_len`` frontier, so the dense, MoE, encdec and vlm
     families return ``new_cache`` unchanged.  A recurrent family (ssm,
     hybrid) defines ``mask_inactive_slots`` in its module: its state has no
     frontier to hide behind, so inactive rows are frozen bitwise.  The
@@ -160,20 +163,23 @@ def decodes_chunk_in_one_pass(cfg: ArchConfig) -> bool:
 
 
 # ---------------------------------------------------------------------------
-# slot-engine contract: per-request primed state (encdec)
+# slot-engine contract: per-request primed state (encdec, vlm)
 # ---------------------------------------------------------------------------
 
 def needs_prime(cfg: ArchConfig) -> bool:
     """True when the family decodes against per-request primed state
-    (encoder frames) that a prime dispatch writes into a slot row at
-    admission."""
+    (encdec's encoder frames, vlm's patch embeddings) that a prime
+    dispatch writes into a slot row at admission."""
     return hasattr(module_for(cfg), "prime_slot")
 
 
 def source_len(cfg: ArchConfig) -> int:
-    """Static source length of a prime dispatch: how many frames one slot
-    row's primed cross k/v holds (0 for token-only families)."""
-    return cfg.enc_seq if cfg.family == "encdec" else 0
+    """Static source length of a prime dispatch: how many frames (encdec)
+    or patches (vlm) one slot row's primed cross k/v holds (0 for
+    token-only families)."""
+    if cfg.family == "encdec":
+        return cfg.enc_seq
+    return cfg.n_patches if cfg.family == "vlm" else 0
 
 
 def source_shape(cfg: ArchConfig) -> Optional[tuple]:
@@ -187,21 +193,14 @@ def source_shape(cfg: ArchConfig) -> Optional[tuple]:
 
 def prime_slot(cfg: ArchConfig, params, source, n_valid, *,
                mode: QuantMode = FP) -> dict:
-    """Run one request's encoder and return the slot-resident primed
-    leaves (the pre-projected cross k/v and the row's ``xlen``) that a
-    prime dispatch writes into the slot's row.  ``source`` is (1,
+    """Prime one request (encdec: run its encoder; vlm: project its
+    patches) and return the slot-resident primed leaves (the
+    pre-projected cross k/v and the row's ``xlen``) that a prime dispatch
+    writes into the slot's row.  ``source`` is (1,
     source_len(cfg), D) padded to the static length; ``n_valid`` is how
     many positions are real (decode masks reads past it)."""
     return module_for(cfg).prime_slot(params, source, n_valid, cfg,
                                       mode=mode)
-
-
-# families whose decode state a rewind of ``cache_index`` cannot restore:
-# recurrent state that advances through every fed token (ssm, hybrid), or
-# a primed cross-attention that the verify scan does not carry (vlm;
-# encdec answers through needs_prime).  Answered here by family, so the
-# unported one (vlm) does not reach its refusal.
-_UNREWINDABLE = RECURRENT + ("vlm",)
 
 
 def supports_speculation(cfg: ArchConfig) -> bool:
@@ -213,7 +212,7 @@ def supports_speculation(cfg: ArchConfig) -> bool:
     excludes the recurrent and primed families and sliding-window
     attention (the ring overwrites the positions a rewind must
     restore)."""
-    return (cfg.window is None and cfg.family not in _UNREWINDABLE
+    return (cfg.window is None and cfg.family not in RECURRENT
             and not needs_prime(cfg)
             and hasattr(module_for(cfg), "draft_params"))
 

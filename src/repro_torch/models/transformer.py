@@ -63,6 +63,15 @@ def norm_apply(cfg: ArchConfig, p, x):
     return (L.layernorm if cfg.norm == "layernorm" else L.rmsnorm)(p, x)
 
 
+def forward_mode(mode: QuantMode) -> QuantMode:
+    """The mode of a full-sequence pass (``forward``; encdec's ``encode``
+    and the primed families' cross k/v projection): under W8A16 every
+    projection takes the tensor-core kernel (``w8a16_path="mma"``)."""
+    if mode.enabled and not mode.w8a8:
+        return dataclasses.replace(mode, w8a16_path="mma")
+    return mode
+
+
 # ---------------------------------------------------------------------------
 # init
 # ---------------------------------------------------------------------------
@@ -209,8 +218,7 @@ def forward(params: dict, tokens: Tensor, cfg: ArchConfig, *,
     this forward's rows need not match a decode step's bits.  ``remat``
     is the reference's rematerialization switch for training; it has no
     effect here.  ``ffn(lp, h, cfg, mode=...)`` is each layer's FFN."""
-    if mode.enabled and not mode.w8a8:
-        mode = dataclasses.replace(mode, w8a16_path="mma")
+    mode = forward_mode(mode)
     b, s = tokens.shape
     positions = torch.arange(s, device=tokens.device)[None, :]
     rope = L.rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta)

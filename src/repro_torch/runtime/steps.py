@@ -24,10 +24,11 @@ reference's key schedule, ``fold_in(rng, position)`` on the threefry
 keys of ``runtime/prng.py``; the captured forms take the key as one more
 graph input.
 
-A family that primes (encdec) writes each request's cross k/v into its
-slot's row once, at admission, through :func:`make_prime_step`, captured
-as one graph for every slot (:func:`jit_prime_step`, memoized by
-:func:`cached_prime_step`); the tick and the chunk step read those rows.
+A family that primes (encdec, vlm) writes each request's cross k/v into
+its slot's row once, at admission, through :func:`make_prime_step`,
+captured as one graph for every slot (:func:`jit_prime_step`, memoized
+by :func:`cached_prime_step`); the tick and the chunk step read those
+rows.
 
 Speculative decoding's two steps, :func:`make_verify_step` (the target
 scores up to k+1 fed tokens a slot) and :func:`make_draft_propose_step`
@@ -62,12 +63,13 @@ def jit_prefill_step(step: Callable) -> Callable:
     """A prefill step (:func:`make_prefill_step`) captured as CUDA graphs
     (the reference's ``jax.jit`` of it): ``step(params, batch) -> logits``
     with ``batch["tokens"]`` (B, S) (and encdec's
-    ``batch["encoder_embeds"]``) on the params' device.  Each set of input
-    shapes has a graph of its own, captured at its first call (the service
-    curve's warm-up call), so every later call of those shapes replays it;
-    the logits are a static buffer that the next call of those shapes
-    overwrites.  ``graphed.binding(params, batch)`` is the binding such a
-    call replays (``CapturedStep.binding``)."""
+    ``batch["encoder_embeds"]`` or vlm's ``batch["vision_embeds"]``) on
+    the params' device.  Each set of input shapes has a graph of its own,
+    captured at its first call (the service curve's warm-up call), so
+    every later call of those shapes replays it; the logits are a static
+    buffer that the next call of those shapes overwrites.
+    ``graphed.binding(params, batch)`` is the binding such a call replays
+    (``CapturedStep.binding``)."""
     names: list = []      # the batch's keys, in the inputs' order
 
     def body(params, cache, *inputs):
@@ -270,7 +272,7 @@ def make_slot_decode_step(cfg: ArchConfig, *, mode: QuantMode = FP,
     behind: the decode step sees ``active`` as the cache view's row mask
     and leaves an inactive row's state bitwise as it was (the slot
     contract's freeze, ``registry.mask_inactive_slots`` done in place);
-    the dense, MoE and encdec steps ignore it."""
+    the dense, MoE, encdec and vlm steps ignore it."""
     decode = make_decode_step(cfg, mode=mode)
 
     def step(params, tokens, cache, slot_index, active, *rng):
@@ -461,7 +463,7 @@ def make_per_token_chunk_step(cfg: ArchConfig, *, mode: QuantMode = FP,
     row, so the written bytes are the per-token path's; padding tokens
     past ``n_valid`` are never run.  A paged cache runs on the physical
     pool with the slot's table row as a (1, MB) table (and the slot's row
-    of every slot-resident leaf: encdec's primed cross k/v)."""
+    of every slot-resident leaf: encdec's and vlm's primed cross k/v)."""
     decode = make_decode_step(cfg, mode=mode)
 
     def step(params, tokens, cache, sid: int, start: int, n_valid: int):
@@ -505,7 +507,8 @@ def _leaves(node):
 def _projections_quantized(params) -> bool:
     """True when every projection of every decoder layer (``layers``, or
     encdec's ``dec_layers``) is an int8 ``QTensor``: every weight leaf of
-    a layer but the 1-D norm scales and biases."""
+    a layer but the 1-D norm scales and biases (and vlm's scalar
+    gates)."""
     layers = params["layers"] if "layers" in params else params["dec_layers"]
     return all(isinstance(w, QTensor) for lp in layers
                for w in _leaves(lp)
@@ -554,8 +557,8 @@ def make_prefill_chunk_step(cfg: ArchConfig, *, mode: QuantMode = FP,
     narrows the cache: the paged cache's table row, or, on a contiguous
     cache, ``[sid]`` over its leaves read as blocks of one slot row each;
     slot-resident leaves are read (and a recurrent state written) at
-    ``slots = sid`` (``encdec.decode_step``, ``ssm.decode_step``,
-    ``rglru.decode_step``).
+    ``slots = sid`` (``encdec.decode_step``, ``vision.decode_step``,
+    ``ssm.decode_step``, ``rglru.decode_step``).
     On a paged cache it writes only positions ``start .. start + n_valid
     - 1``, which lie in blocks the slot owns privately — a shared prefix
     block is never written.  (The reference gathers the row into a
@@ -648,21 +651,22 @@ def jit_prefill_chunk_step(step: Callable) -> Callable:
 
 
 def make_prime_step(cfg: ArchConfig, *, mode: QuantMode = FP) -> Callable:
-    """Prime dispatch for ONE slot of the pool (encdec): run the request's
-    encoder once and write the pre-projected cross k/v and the row's
-    ``xlen`` frontier into the slot's row of the cache, in place.
+    """Prime dispatch for ONE slot of the pool (encdec, vlm): run the
+    request's encoder (encdec) or take its patch embeddings (vlm) once,
+    and write the pre-projected cross k/v and the row's ``xlen``
+    frontier into the slot's row of the cache, in place.
 
     Returns ``step(params, source, cache, sid, n_valid) -> cache`` with
-    ``source`` (1, source_len(cfg), D) bf16, the request's frames padded
-    to the static length, ``sid`` the slot row and ``n_valid`` how many
-    source positions are real: decode masks cross reads past it, so k/v
-    past ``n_valid`` (pad projections, a previous tenant's tail) is never
-    read.  Both the engine and the sequential reference prime with the
-    same padded source, so parity is exact.  ``step.body(params, cache,
-    source, sid, n_valid)`` is the step on device tensors (``sid`` and
-    ``n_valid`` (1,) int32), what :func:`jit_prime_step` captures: the
-    row is written by an index op on ``sid``, so one graph serves every
-    slot."""
+    ``source`` (1, source_len(cfg), D) bf16, the request's frames or
+    patches padded to the static length, ``sid`` the slot row and
+    ``n_valid`` how many source positions are real: decode masks cross
+    reads past it, so k/v past ``n_valid`` (pad projections, a previous
+    tenant's tail) is never read.  Both the engine and the sequential
+    reference prime with the same padded source, so parity is exact.
+    ``step.body(params, cache, source, sid, n_valid)`` is the step on
+    device tensors (``sid`` and ``n_valid`` (1,) int32), what
+    :func:`jit_prime_step` captures: the row is written by an index op on
+    ``sid``, so one graph serves every slot."""
 
     def body(params, cache, source, sid, n_valid):
         leaves = R.prime_slot(cfg, params, source, n_valid, mode=mode)

@@ -2090,3 +2090,100 @@ def test_mixtral_ring_tick_on_card_equals_rows_alone(cuda):
     per_token(params, [5, 6, 7, 8], b, 3, 4094, 4)
     for k in cache:
         assert torch.equal(a[k], b[k]), k
+
+
+# ---------------------------------------------------------------------------
+# the vlm family (llama-3.2-vision-90b): prime, engine, one-pass chunk
+# ---------------------------------------------------------------------------
+
+def _vlm(cuda):
+    """Reduced llama-3.2-vision-90b on the card at 5 layers (two groups
+    and a leftover layer), the full model's head_dim 128 (8 query, 2 KV
+    heads) and 1,601 patches, int8 weights from the streamed init, every
+    x_gate set to 0.5 (its zero init would keep the patches from the
+    logits)."""
+    cfg = dataclasses.replace(get_config("llama-3.2-vision-90b").reduced(),
+                              n_layers=5, n_heads=8, n_kv_heads=2,
+                              head_dim=128, n_patches=1601)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    params = R.init_quantized(gen, cfg, device=cuda)
+    for lp in params["layers"]:
+        if "x_gate" in lp:
+            lp["x_gate"].fill_(0.5)
+    return cfg, params
+
+
+def test_vlm_captured_prime_equals_eager(cuda):
+    """The captured vlm prime (one graph for every slot) writes what the
+    eager prime writes, every leaf bitwise, the two groups' wk / wv over
+    1,601 patches on the mma path (no attention); two sources' primed
+    rows give other logits for the same token."""
+    cfg, params = _vlm(cuda)
+    eager = ST.make_prime_step(cfg, mode=W8A16)
+    graphed = ST.jit_prime_step(eager)
+    a = R.init_cache(cfg, 4, 16, device=cuda)
+    b = R.init_cache(cfg, 4, 16, device=cuda)
+    g = torch.Generator(device=cuda).manual_seed(1)
+    mma, flash = (K.qmatmul_w8a16.launches_by_path["mma"],
+                  FA.flash_attention_bhsd.launches)
+    for sid, n in ((2, 1601), (0, 1600), (3, 1)):
+        src = torch.randn((1, cfg.n_patches, cfg.d_model), generator=g,
+                          device=cuda).to(torch.bfloat16)
+        src[:, n:] = 0
+        eager(params, src, a, sid, n)
+        graphed(params, src.cpu(), b, sid, n)
+    torch.cuda.synchronize()
+    for k in a:
+        assert torch.equal(a[k], b[k]), k
+    assert graphed.captured.captures == 1
+    assert a["xlen"].tolist() == [1600, 1601, 1601, 1]
+    assert K.qmatmul_w8a16.launches_by_path["mma"] > mma
+    assert FA.flash_attention_bhsd.launches == flash
+    decode = ST.make_decode_step(cfg, mode=W8A16)
+    toks = torch.full((4, 1), 5, dtype=torch.int32, device=cuda)
+    logits, _ = decode(params, {"tokens": toks, "cache_index": torch.zeros(
+        (4,), dtype=torch.int32, device=cuda)}, _clone(a))
+    assert not torch.equal(logits[0], logits[2])
+
+
+@pytest.mark.parametrize("kind", ["contiguous", "paged"])
+def test_vlm_engine_on_card_equals_reference(cuda, kind):
+    """Reduced vlm on the card: 10 requests with their own patches (1,601,
+    1,600 or 1,599) through 4 slots with chunked prefill (the W8A16 chunk
+    in one causal pass), each primed at admission, every token equal to
+    the sequential batch-1 reference; then the captured one-pass chunk of
+    a primed slot bitwise the per-token steps."""
+    cfg, params = _vlm(cuda)
+    reqs = E.synthetic_requests(10, rate_per_s=2000.0, vocab=cfg.vocab,
+                                prompt_len=6, max_new_tokens=5,
+                                source_shape=R.source_shape(cfg))
+    paged = dict(block_size=4) if kind == "paged" else {}
+    eng = E.Engine(cfg, params, mode=W8A16, num_slots=4, max_seq=16,
+                   prefill_chunk=4, **paged)
+    eng.warmup()
+    rep = eng.serve(reqs)
+    assert rep.outputs() == E.reference_outputs(cfg, params, reqs,
+                                                mode=W8A16, max_seq=16)
+    assert rep.leaked_blocks == 0
+    # the chunk check on a cache of its own: slot 1 primed, every slot
+    # on blocks of its own (a retired slot's table points at the trash
+    # block, where one pass and the per-token steps alias)
+    if paged:
+        cache = R.init_paged_cache(cfg, 4, 16, 4, 17, device=cuda)
+        cache["block_tables"].copy_(torch.arange(
+            1, 17, dtype=torch.int32, device=cuda).reshape(4, 4))
+    else:
+        cache = R.init_cache(cfg, 4, 16, device=cuda)
+    src = torch.from_numpy(reqs[1].source).to(cuda, torch.bfloat16)
+    src = torch.nn.functional.pad(src, (0, 0, 0, cfg.n_patches
+                                        - src.shape[0]))[None]
+    ST.make_prime_step(cfg, mode=W8A16)(params, src, cache, 1,
+                                        reqs[1].source.shape[0])
+    chunk = ST.jit_prefill_chunk_step(
+        ST.make_prefill_chunk_step(cfg, mode=W8A16, chunk=4))
+    per_token = ST.make_per_token_chunk_step(cfg, mode=W8A16, chunk=4)
+    a, b = _clone(cache), _clone(cache)
+    chunk(params, [5, 6, 7, 8], a, 1, 2, 4)
+    per_token(params, [5, 6, 7, 8], b, 1, 2, 4)
+    for k in cache:
+        assert torch.equal(a[k], b[k]), k

@@ -134,8 +134,9 @@ def test_the_four_dense_configs_are_registered():
     """The four dense configs, beside the MoE family's qwen2-moe-a2.7b
     (tests/test_torch_moe.py) and mixtral-8x22b (tests/test_torch_mixtral.py),
     the encdec family's whisper-medium (tests/test_torch_encdec.py), the
-    ssm family's mamba2-1.3b (tests/test_torch_ssm.py) and the hybrid
-    family's recurrentgemma-9b (tests/test_torch_hybrid.py), are the
+    ssm family's mamba2-1.3b (tests/test_torch_ssm.py), the hybrid
+    family's recurrentgemma-9b (tests/test_torch_hybrid.py) and the vlm
+    family's llama-3.2-vision-90b (tests/test_torch_vision.py), are the
     port's registered configs."""
     dense = ["starcoder2-3b", "internlm2-20b", "mistral-nemo-12b",
              "qwen1.5-32b"]
@@ -143,7 +144,8 @@ def test_the_four_dense_configs_are_registered():
     assert list_archs() == sorted(dense + ["qwen2-moe-a2.7b",
                                            "mixtral-8x22b", "whisper-medium",
                                            "mamba2-1.3b",
-                                           "recurrentgemma-9b"])
+                                           "recurrentgemma-9b",
+                                           "llama-3.2-vision-90b"])
 
 
 @pytest.mark.parametrize("arch", ARCHS + ["starcoder2-3b"])

@@ -321,19 +321,18 @@ def test_input_specs_match_reference():
         for name, (shape, dtype) in mine.items():
             assert shape == ref[name].shape
             assert str(dtype).split(".")[-1] == str(ref[name].dtype)
-    # encdec adds its stub frame embeddings; vlm is not ported yet
-    for kind in ("train", "prefill", "decode"):
-        mine = dataclasses.replace(cfg, family="encdec").input_specs(
-            ShapeSpec("s", 32, 4, kind))
-        ref = dataclasses.replace(jcfg, family="encdec").input_specs(
-            JShapeSpec("s", 32, 4, kind))
-        assert mine.keys() == ref.keys() and "encoder_embeds" in mine
-        for name, (shape, dtype) in mine.items():
-            assert shape == ref[name].shape
-            assert str(dtype).split(".")[-1] == str(ref[name].dtype)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        dataclasses.replace(cfg, family="vlm").input_specs(
-            ShapeSpec("s", 8, 1, "prefill"))
+    # encdec adds its stub frame embeddings, vlm its stub patch embeddings
+    for family, extra in (("encdec", "encoder_embeds"),
+                          ("vlm", "vision_embeds")):
+        for kind in ("train", "prefill", "decode"):
+            mine = dataclasses.replace(cfg, family=family).input_specs(
+                ShapeSpec("s", 32, 4, kind))
+            ref = dataclasses.replace(jcfg, family=family).input_specs(
+                JShapeSpec("s", 32, 4, kind))
+            assert mine.keys() == ref.keys() and extra in mine
+            for name, (shape, dtype) in mine.items():
+                assert shape == ref[name].shape
+                assert str(dtype).split(".")[-1] == str(ref[name].dtype)
 
 
 # ---------------------------------------------------------------------------
