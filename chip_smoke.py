@@ -256,6 +256,30 @@ Phases, each of which fails the run (non-zero exit, no result line):
    batch's captured forward bitwise the eager one) and
    ``measure_decode_tps`` under w8a16 and w8a8 (the serve CLI itself
    runs mixtral only ``--reduced``).
+16. multiplex (in the whole run right after phase 8, on phase 3's
+   params): starcoder2-3b and qwen2-moe-a2.7b at full width (its
+   streamed init's own peak under 20 GB beside starcoder's 3 GB), W8A16
+   on the int8 KV cache, as lanes of one ``Engine(models=...)``: an
+   interleaved trace of 16 requests a lane (16 + 16 tokens, 400/s a lane,
+   8 leased slots, chunks of 4) under a class quota of 4 slots for the
+   starcoder2-3b lane, served contiguous and then paged (blocks of 16),
+   each lane's outputs exactly its dedicated engine's on its sub-trace
+   (and three requests a lane ``reference_outputs``'), no leak, the
+   lanes' occupancies summing to the engine's in every tick and the
+   quota never exceeded; the lanes' and the dedicated engines' captured
+   ticks and the multiplexed tick (both lanes) timed; the same trace
+   sampled (t = 0.8, ``PRNGKey(1)``), each lane exactly its dedicated
+   sampled engine; a hot-swap serve (virtual clock) that admits a second
+   starcoder2-3b lane (weights from seed + 1) and retires the first:
+   the retired lane's admitted requests finish, its later ones come back
+   refused, the new lane equals its dedicated engine, and no tick after
+   the admission captures a graph; a ``ReplicaRouter`` over two
+   starcoder2-3b engines sharing one weight tree (the same plan twice,
+   each replica exactly a dedicated engine on its sub-trace); then the
+   serve CLI with ``--models starcoder2-3b,qwen2-moe-a2.7b --model-quota
+   starcoder2-3b=4`` and with ``--replicas 2``, each exit 0 with its
+   per-model or per-replica lines.  Every serve is warmed up, captures
+   nothing, reaches no plain version and launches no mma path.
 
 The kernel phase holds both of ``qmatmul_w8a16``'s kernels (the GEMV and
 the ``mma.sync`` bf16 tensor-core path) at every projection and the LM
@@ -292,13 +316,13 @@ than before the redesigns.
 ``--only attention`` / ``--only long_tick`` / ``--only w8a8`` / ``--only
 graphs`` / ``--only dense`` / ``--only sampling`` / ``--only spec`` /
 ``--only moe`` / ``--only encdec`` / ``--only ssm`` / ``--only hybrid`` /
-``--only mixtral`` run just the two
+``--only mixtral`` / ``--only multiplex`` run just the two
 attention kernel
 phases, the long-context ticks, ``qmatmul_w8a8``'s kernel phase and the
 W8A8 tick, the five eager tick breakdowns and the graph phase, the dense
 family's kernel rows, rmsnorm widths and phase 10, phase 7 and the
 sampled serve CLI run, phase 8 with its CLI run and qwen2-moe-a2.7b's
-speculative serve, phase 11, 12, 13, 14 or 15, and ``--src DIR``
+speculative serve, phase 11, 12, 13, 14, 15 or 16, and ``--src DIR``
 takes the port from
 another checkout's ``src/`` (so the same phases time a parent commit's
 kernels); such a partial run prints no result line.
@@ -319,8 +343,12 @@ under ``ssm``; the three kernels' rows at recurrentgemma-9b's shapes,
 flash's at head_dim 256, their launches and the ring tick's and chunk's
 times under ``hybrid``; every kernel's rows at mixtral-8x22b's shapes,
 their launches in its serves and launcher runs, and the ring tick's,
-chunks', serves' and launcher's times under ``mixtral``),
-the whole run's time, and,
+chunks', serves' and launcher's times under ``mixtral``; each kernel's
+launches in the multiplexed, routed and ``--models`` runs under
+``multiplex``), and beside ``kernels`` the multiplex phase's numbers
+under ``multiplex`` (the serves' tok/s and occupancies, the ticks'
+wall and busy, the hot-swap's and the router's counts, the phase's
+seconds), the whole run's time, and,
 last, ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
 without the repo's ``src/repro_torch`` beside it, it exits non-zero and
 prints no result.
@@ -1518,32 +1546,38 @@ def compare_with_reference(label, cfg, params, eng, reqs, outs) -> None:
           f"{min(min(v) for v in margins.values()):.3e}")
 
 
-def step_captures(eng):
-    """The captures of the engine's memoized tick and chunk steps (every
-    bucket its chunks can take), of its prime step (a family that
-    primes) and, speculating, of its verify and propose steps and the
+def step_objects(eng):
+    """The engine's memoized steps, lane by lane: the tick and the chunk
+    step (every bucket its chunks can take), the prime step (a family
+    that primes) and, speculating, the verify and propose steps and the
     draft's chunk steps."""
+    from repro_torch.models import registry as R
     from repro_torch.runtime import steps as ST
 
     def buckets(cap):
         return sorted({ST.bucket_batch(n) for n in range(1, cap + 1)})
 
-    from repro_torch.models import registry as R
+    be, mode = eng.backend, eng.mode
+    steps = []
+    for ln in eng.lanes.values():
+        steps.append(be.slot_step(ln.cfg, mode=mode,
+                                  temperature=eng.temperature))
+        if R.needs_prime(ln.cfg):
+            steps.append(be.prime_step(ln.cfg, mode=mode))
+        steps += [be.chunk_step(ln.cfg, mode=mode, chunk=c)
+                  for c in buckets(eng.prefill_chunk)]
+        if ln.spec_k:
+            steps += [be.verify_step(ln.cfg, mode=mode, k=ln.spec_k,
+                                     temperature=eng.temperature),
+                      be.propose_step(ln.dcfg, mode=mode, k=ln.spec_k)]
+            steps += [be.chunk_step(ln.dcfg, mode=mode, chunk=c)
+                      for c in buckets(eng.draft_cap)]
+    return steps
 
-    be = eng.backend
-    steps = [be.slot_step(eng.cfg, mode=eng.mode,
-                          temperature=eng.temperature)]
-    if R.needs_prime(eng.cfg):
-        steps.append(be.prime_step(eng.cfg, mode=eng.mode))
-    steps += [be.chunk_step(eng.cfg, mode=eng.mode, chunk=c)
-              for c in buckets(eng.prefill_chunk)]
-    if eng.spec_k:
-        steps += [be.verify_step(eng.cfg, mode=eng.mode, k=eng.spec_k,
-                                 temperature=eng.temperature),
-                  be.propose_step(eng.dcfg, mode=eng.mode, k=eng.spec_k)]
-        steps += [be.chunk_step(eng.dcfg, mode=eng.mode, chunk=c)
-                  for c in buckets(eng.draft_cap)]
-    return [s.captured.captures for s in steps]
+
+def step_captures(eng):
+    """The captures of :func:`step_objects`' steps."""
+    return [s.captured.captures for s in step_objects(eng)]
 
 
 def warm(label, eng, reqs):
@@ -1897,14 +1931,15 @@ def counted_curve(real_curve, curve_paths):
 
 
 def serve_run(quant, curve_paths, flags=(), base=SERVE_ARGS, label=None,
-              curve_timing=True):
+              curve_timing=True, expect=()):
     """One serve launcher run of ``base`` arguments, counters zeroed just
     before and read just after, and checked: (its kernel launches, its
     ServeRun).  With the overload ``flags`` the run must print its
     retirement and faults lines, and every request retire once (a fault
     may fail one).  Without them each batch's captured forward is held to
     the eager one (``curve_check``), and with ``curve_timing`` the curve's
-    largest forward is broken down and both forms timed."""
+    largest forward is broken down and both forms timed.  Every line
+    prefix of ``expect`` must open a line of the run's output."""
     import contextlib
     import io
 
@@ -1929,6 +1964,11 @@ def serve_run(quant, curve_paths, flags=(), base=SERVE_ARGS, label=None,
     if res.code != 0 or res.batch < 1:
         raise AssertionError(f"{label}: exit code {res.code}, chosen "
                              f"batch {res.batch}")
+    printed = out.getvalue().splitlines()
+    missing = [e for e in expect
+               if not any(ln.startswith(e) for ln in printed)]
+    if missing:
+        raise AssertionError(f"{label}: no line opens with {missing}")
     rep = res.report
     print(f"{label}: engine {rep.num_slots} slots, {len(rep.results)} "
           f"requests in {rep.ticks} ticks, wall {rep.wall_s:.3f}s, "
@@ -3684,14 +3724,16 @@ def dense_attention_rows(flush):
     return worst, contig, paged
 
 
-def build_dense_model(arch, n_layers=None):
+def build_dense_model(arch, n_layers=None, beside=False):
     """Full-width ``arch`` with random weights from SEED through the
     streamed init (``registry.init_quantized``: each layer and table
     quantized as it is drawn), on the card: (cfg, params); ``n_layers``
     cuts the depth (``dataclasses.replace``), never a width.  Prints its
     shape, its int8 weight bytes, the init's time and the peak memory
     allocated (and what was allocated before the init), which must stay
-    under PEAK_BYTES where one is set."""
+    under PEAK_BYTES where one is set; ``beside`` (a model the caller
+    keeps on the card beside this one) holds the peak over what was
+    allocated before the init to it instead."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.core.quant import tree_weight_bytes
@@ -3738,9 +3780,9 @@ def build_dense_model(arch, n_layers=None):
           f"{'tied' if cfg.tie_embeddings else 'untied'}, {cfg.norm}), W8A16 "
           f"weights {nbytes} bytes, streamed init+quantize {init_s:.1f}s, "
           f"torch.cuda.max_memory_allocated {peak} bytes ({peak / 1e9:.2f} "
-          f"GB; {before} allocated before)")
+          f"GB; {before} allocated before, {peak - before} over it)")
     limit = PEAK_BYTES.get(arch)
-    if limit is not None and peak >= limit:
+    if limit is not None and peak - (before if beside else 0) >= limit:
         raise AssertionError(f"{cfg.family} {arch}: the init's peak {peak} "
                              f"bytes ({before} allocated before it) is not "
                              f"under {limit:.0f}")
@@ -6386,8 +6428,521 @@ def vlm_phase(flush, profile_serves=False):
     return out
 
 
+# ---------------------------------------------------------------------------
+# multiplexing and the replica router
+# ---------------------------------------------------------------------------
+
+MUX_LANES = ("starcoder2-3b", MOE_ARCH)    # the lane tags, first the slice's
+MUX_REQUESTS = 16          # a lane
+MUX_PROMPT = 16
+MUX_NEW = 16
+MUX_MAX_SEQ = MUX_PROMPT + MUX_NEW
+MUX_RATE_PER_S = 400.0     # a lane (the contiguous slice's rate)
+MUX_BLOCK = 16
+MUX_QUOTA = 4              # the starcoder2-3b lane's class_quotas entry
+MUX_COMPARE = 3            # requests a lane held to reference_outputs
+MUX_TIMED_TICKS = 10       # captured ticks a wall timing
+# hot-swap, on the virtual clock (1 ms a tick): a second starcoder2-3b
+# lane (weights from SEED + 1) is admitted at MUX_ADMIT_S and the first
+# lane retired at MUX_RETIRE_S; MUX_LATE requests arrive for it after
+MUX_SWAP_TAG = "starcoder2-3b-swap"
+MUX_ADMIT_S = 0.010
+MUX_RETIRE_S = 0.020
+MUX_SWAP_REQUESTS = 12     # each of the first two lanes
+MUX_SWAP_NEW_LANE = 8
+MUX_LATE = 4
+MUX_REPLICAS = 2
+MUX_SERVE_ARGS = (["--models", ",".join(MUX_LANES), "--model-quota",
+                   f"{MUX_LANES[0]}={MUX_QUOTA}"] + SERVE_ARGS[2:])
+# the router's CLI run: its decode loop is the serve phase's w8a16 run's,
+# timed there
+ROUTER_SERVE_ARGS = SERVE_ARGS + ["--replicas", str(MUX_REPLICAS),
+                                  "--decode-tokens", "0"]
+
+
+def card_line() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+
+
+def mux_requests(lanes, n, seed_of, *, rid_base=0, shift=0.0,
+                 rate=MUX_RATE_PER_S):
+    """``n`` requests for each (tag, cfg) of ``lanes``, in the lane's
+    vocabulary, prompts from ``seed_of(i)`` for lane i, rids offset by
+    ``rid_base + i * n`` and arrivals by ``shift``; merged by arrival."""
+    from repro_torch import engine as E
+
+    reqs = []
+    for i, (tag, cfg) in enumerate(lanes):
+        reqs += [dataclasses.replace(r, rid=r.rid + rid_base + i * n,
+                                     arrival_s=r.arrival_s + shift)
+                 for r in E.synthetic_requests(
+                     n, rate_per_s=rate, vocab=cfg.vocab,
+                     prompt_len=MUX_PROMPT, max_new_tokens=MUX_NEW,
+                     seed=seed_of(i), model=tag)]
+    return sorted(reqs, key=lambda r: r.arrival_s)
+
+
+def lane_requests(reqs, tag):
+    """A lane's requests, untagged: what its dedicated engine serves."""
+    return [dataclasses.replace(r, model=None) for r in reqs
+            if r.model == tag]
+
+
+def mux_engine(lanes=None, cfg=None, params=None, **kw):
+    """The phase's engine geometry, multiplexed (``lanes``) or for one
+    model."""
+    from repro_torch import engine as E
+    from repro_torch.core.qlinear import W8A16
+
+    geometry = dict(mode=W8A16, num_slots=NUM_SLOTS, max_seq=MUX_MAX_SEQ,
+                    prefill_chunk=PREFILL_CHUNK, **kw)
+    if lanes is not None:
+        return E.Engine(models=lanes, **geometry)
+    return E.Engine(cfg, params, **geometry)
+
+
+def mux_checked(label, lanes, rep, reqs) -> None:
+    """Every request ok, MUX_NEW tokens in its lane's vocabulary."""
+    if sorted(r.rid for r in rep.results) != sorted(r.rid for r in reqs):
+        raise AssertionError(f"{label}: {len(rep.results)} results for "
+                             f"{len(reqs)} requests")
+    for r in rep.results:
+        vocab = lanes[r.model][0].vocab if r.model else None
+        if (r.status != "ok" or len(r.tokens) != MUX_NEW
+                or not all(0 <= t < (vocab or 1 << 30) for t in r.tokens)):
+            raise AssertionError(f"{label}: request {r.rid} ({r.model}): "
+                                 f"status {r.status}, tokens {r.tokens}")
+
+
+def mux_serve(label, eng, reqs, need, **kw):
+    """``eng`` warmed up, then ``reqs`` served under the wall clock with
+    the counters zeroed just before and read just after: no capture
+    inside the serve, no plain version, no mma launch, every kernel of
+    ``need`` launched.  Returns (report, launches)."""
+    eng.warmup()
+    bound = step_captures(eng)
+    zero_counts()
+    rep = eng.serve(reqs, clock="wall", **kw)
+    launches, plain = read_counts()
+    same_captures(label, eng, bound)
+    mma_free(label, launches)
+    if any(plain.values()) or any(launches[k] <= 0 for k in need):
+        raise AssertionError(f"{label}: launches {launches} (need {need}), "
+                             f"plain-version calls {plain}")
+    print(f"{label}: {len(rep.results)} requests in {rep.ticks} ticks, "
+          f"{rep.generated_tokens} tokens, wall {rep.wall_s:.3f}s, decoded "
+          f"tok/s {rep.generated_tokens / rep.wall_s:.1f}, ms/tick "
+          f"{1e3 * rep.wall_s / rep.ticks:.2f}, mean occupancy "
+          f"{rep.mean_occupancy:.3f}; kernel launches {launches}")
+    return rep, launches
+
+
+def mux_tick_times(label, eng, deds, card):
+    """The captured steady tick of every lane (NUM_SLOTS rows at position
+    MUX_MAX_SEQ / 2 of its cache), alone and both lanes back to back (a
+    multiplexed tick), against each dedicated engine's captured tick on
+    its own cache: wall over MUX_TIMED_TICKS calls and device busy from
+    torch.profiler.  The steps are the engines' own bindings (no capture)."""
+    import torch
+
+    S = NUM_SLOTS
+    toks = torch.ones((S, 1), dtype=torch.int32, device="cuda")
+    idx = torch.full((S,), MUX_MAX_SEQ // 2, dtype=torch.int32,
+                     device="cuda")
+    active = torch.ones((S,), dtype=torch.bool, device="cuda")
+
+    def tick(*lanes):
+        def fn():
+            for ln in lanes:
+                out = ln.step(ln.params, toks, ln.cache, idx, active)[0]
+            out.cpu()
+        return fn
+
+    bound = step_captures(eng) + [c for d in deds.values()
+                                  for c in step_captures(d)]
+    what = f"captured tick ({S} rows at {MUX_MAX_SEQ // 2} of {MUX_MAX_SEQ})"
+    out = {"multiplexed": device_breakdown(
+        f"{label} both lanes", what, tick(*eng.lanes.values()),
+        MUX_TIMED_TICKS, False)}
+    for tag, ln in eng.lanes.items():
+        lane = device_breakdown(f"{label} lane {tag}", what, tick(ln),
+                                MUX_TIMED_TICKS, False)
+        ded = device_breakdown(f"{label} dedicated {tag}", what,
+                               tick(deds[tag].lanes[None]), MUX_TIMED_TICKS,
+                               False)
+        out[tag] = {"lane": lane, "dedicated": ded}
+    after = step_captures(eng) + [c for d in deds.values()
+                                  for c in step_captures(d)]
+    if after != bound:
+        raise AssertionError(f"{label}: timing the ticks captured a graph")
+
+    def ms(t):
+        busy = ("not measured" if t["busy"] is None
+                else f"{t['busy']:.3f} ms")
+        return f"wall {t['wall']:.2f} ms, busy {busy}"
+
+    tags = list(eng.lanes)
+    print(f"{label} ({card}): multiplexed tick (both lanes) "
+          f"{ms(out['multiplexed'])}; "
+          + "; ".join(f"{t}: lane {ms(out[t]['lane'])}, dedicated "
+                      f"{ms(out[t]['dedicated'])}" for t in tags))
+    return {k: ({kk: {"wall_ms": vv["wall"], "busy_ms": vv["busy"]}
+                 for kk, vv in v.items()} if k in tags else
+                {"wall_ms": v["wall"], "busy_ms": v["busy"]})
+            for k, v in out.items()}
+
+
+def mux_greedy(label, lanes, reqs, card, **kw):
+    """(a) for one cache kind (``kw``: paging): the interleaved trace
+    multiplexed under a class quota of MUX_QUOTA for the starcoder2-3b
+    lane, then each lane's sub-trace on a dedicated engine; each lane's
+    outputs exactly its dedicated engine's, no leak, the lanes'
+    occupancies summing to the engine's tick by tick and the quota never
+    exceeded.  Returns (numbers, the engines, the report)."""
+    from repro_torch.core import batching as bt
+
+    policy = bt.AdmissionPolicy(lambda b: 0.0, max_batch=NUM_SLOTS,
+                                max_wait_s=0.0,
+                                class_quotas={MUX_LANES[0]: MUX_QUOTA})
+    paged = bool(kw)
+    attn = "decode_attention_int8_paged" if paged else "decode_attention_int8"
+    need = ("qmatmul_w8a16[gemv]", "qmatmul_w8a16_experts[gemv]", attn,
+            "decode_attention_int8_paged")
+    eng = mux_engine(lanes, policy=policy, **kw)
+    rep, launches = mux_serve(label, eng, reqs, need)
+    mux_checked(label, lanes, rep, reqs)
+    occ = rep.model_occupancy
+    if any(n != sum(v[t] for v in occ.values())
+           for t, n in enumerate(rep.occupancy)) or rep.leaked_blocks:
+        raise AssertionError(f"{label}: the lanes' occupancies do not sum "
+                             f"to the engine's, or {rep.leaked_blocks} "
+                             f"blocks leaked")
+    if max(occ[MUX_LANES[0]]) > MUX_QUOTA:
+        raise AssertionError(f"{label}: the {MUX_LANES[0]} lane held "
+                             f"{max(occ[MUX_LANES[0]])} slots, quota "
+                             f"{MUX_QUOTA}")
+    deds, ded_tok_s = {}, {}
+    for tag, (cfg, params) in lanes.items():
+        ded = deds[tag] = mux_engine(cfg=cfg, params=params, **kw)
+        sub = lane_requests(reqs, tag)
+        drep, _ = mux_serve(f"{label} dedicated {tag}", ded, sub,
+                            need[:1] + (attn,))
+        ded_tok_s[tag] = drep.generated_tokens / drep.wall_s
+        if rep.outputs_for(tag) != drep.outputs():
+            raise AssertionError(f"{label}: lane {tag}'s outputs differ "
+                                 f"from its dedicated engine's")
+    tok_s = rep.generated_tokens / rep.wall_s
+    print(f"{label} ({card}): each lane's {MUX_REQUESTS} outputs equal its "
+          f"dedicated engine's token for token; 0 leaked blocks; per-model "
+          f"mean occupancy {rep.model_mean_occupancy} (sum "
+          f"{sum(rep.model_mean_occupancy.values()):.4f}, the engine's "
+          f"{rep.mean_occupancy:.4f}); {MUX_LANES[0]} at most "
+          f"{max(occ[MUX_LANES[0]])} slots (quota {MUX_QUOTA}); multiplexed "
+          f"{tok_s:.1f} tok/s against dedicated "
+          + ", ".join(f"{t} {v:.1f}" for t, v in ded_tok_s.items())
+          + " tok/s")
+    return {"tok_s": tok_s, "dedicated_tok_s": ded_tok_s,
+            "ticks": rep.ticks, "wall_s": rep.wall_s,
+            "mean_occupancy": rep.mean_occupancy,
+            "model_mean_occupancy": rep.model_mean_occupancy,
+            "model_peak": {t: max(v) for t, v in occ.items()},
+            "launches": launches}, eng, deds, rep
+
+
+def mux_sampled(label, lanes, reqs, card) -> dict:
+    """(b): the trace multiplexed at t = SAMPLE_TEMP with PRNGKey(SEED +
+    1), each lane exactly its dedicated sampled engine."""
+    from repro_torch.runtime import prng as P
+
+    kw = dict(temperature=SAMPLE_TEMP,
+              rng=P.PRNGKey(SEED + 1, device="cuda"))
+    need = ("qmatmul_w8a16[gemv]", "decode_attention_int8")
+    rep, _ = mux_serve(label, mux_engine(lanes, **kw), reqs, need)
+    mux_checked(label, lanes, rep, reqs)
+    for tag, (cfg, params) in lanes.items():
+        drep, _ = mux_serve(f"{label} dedicated {tag}",
+                            mux_engine(cfg=cfg, params=params, **kw),
+                            lane_requests(reqs, tag), need)
+        if rep.outputs_for(tag) != drep.outputs():
+            raise AssertionError(f"{label}: lane {tag}'s sampled outputs "
+                                 f"differ from its dedicated engine's")
+    print(f"{label} ({card}): t = {SAMPLE_TEMP}, PRNGKey({SEED + 1}): each "
+          f"lane's outputs equal its dedicated sampled engine's token for "
+          f"token; {rep.generated_tokens / rep.wall_s:.1f} tok/s")
+    return {"tok_s": rep.generated_tokens / rep.wall_s}
+
+
+def mux_hot_swap(label, lanes, contig, card) -> dict:
+    """(c): a live serve (virtual clock) admits a second starcoder2-3b
+    lane (weights from SEED + 1) at MUX_ADMIT_S and retires the first at
+    MUX_RETIRE_S.  The first lane's admitted requests finish with the
+    outputs ``contig`` (the contiguous multiplexed serve, same prompts)
+    gave them, every one of its requests that arrives after the
+    retirement comes back refused (no token, slot -1), the MoE lane's
+    equal ``contig``'s, the new lane's its dedicated engine's; the ticks
+    after the admission capture nothing."""
+    import torch
+    from repro_torch.models import registry as R
+
+    first, moe = MUX_LANES
+    cfg = lanes[first][0]
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    with torch.inference_mode():
+        swap_params = R.init_quantized(gen, cfg, min_size=2048,
+                                       device="cuda")
+    both = [(first, cfg), (moe, lanes[moe][0])]
+    reqs = (mux_requests(both, MUX_SWAP_REQUESTS, lambda i: SEED + i)
+            + mux_requests([(MUX_SWAP_TAG, cfg)], MUX_SWAP_NEW_LANE,
+                           lambda i: SEED + 2, rid_base=1000,
+                           shift=MUX_ADMIT_S)
+            + mux_requests([(first, cfg)], MUX_LATE, lambda i: SEED + 3,
+                           rid_base=2000, shift=MUX_RETIRE_S + 1e-3))
+    reqs.sort(key=lambda r: r.arrival_s)
+    eng = mux_engine(lanes)
+    eng.warmup()
+    after_admit = []
+
+    def admit(e):
+        e.admit_model(MUX_SWAP_TAG, cfg, swap_params)
+        steps = step_objects(e)
+        after_admit.append((steps, [s.captured.captures for s in steps]))
+
+    rep = eng.serve(reqs, clock="virtual", control=[
+        (MUX_ADMIT_S, admit),
+        (MUX_RETIRE_S, lambda e: e.retire_model(first))])
+    steps, bound = after_admit[0]
+    if [s.captured.captures for s in steps] != bound:
+        raise AssertionError(f"{label}: a tick after the admission "
+                             f"captured a graph")
+    by = {r.rid: r for r in rep.results}
+    if sorted(by) != sorted(r.rid for r in reqs):
+        raise AssertionError(f"{label}: not every request retired once")
+    # the multiplexed serve's rids for the same prompts: lane i's rid r
+    # there is i * MUX_REQUESTS + r, here i * MUX_SWAP_REQUESTS + r
+    want = contig.outputs()
+    done = refused = 0
+    for r in reqs:
+        got = by[r.rid]
+        if r.model == first:
+            if got.status == "refused":
+                refused += 1
+                if got.tokens or got.slot != -1:
+                    raise AssertionError(f"{label}: refused request {r.rid} "
+                                         f"has tokens or a slot")
+                continue
+            if got.status != "ok" or r.arrival_s > MUX_RETIRE_S or \
+                    got.tokens != want[r.rid]:
+                raise AssertionError(f"{label}: request {r.rid} of the "
+                                     f"retired lane: {got.status}")
+            done += 1
+        elif r.model == moe:
+            base = r.rid - MUX_SWAP_REQUESTS + MUX_REQUESTS
+            if got.status != "ok" or got.tokens != want[base]:
+                raise AssertionError(f"{label}: {moe} request {r.rid} "
+                                     f"differs from the multiplexed serve")
+    if not done or refused < MUX_LATE or rep.refused != refused:
+        raise AssertionError(f"{label}: {done} in-flight requests of the "
+                             f"retired lane finished, {refused} refused")
+    ded = mux_engine(cfg=cfg, params=swap_params)
+    dref = ded.serve(lane_requests(reqs, MUX_SWAP_TAG)).outputs()
+    if rep.outputs_for(MUX_SWAP_TAG) != dref or MUX_SWAP_TAG not in \
+            eng.lanes or first in eng.lanes:
+        raise AssertionError(f"{label}: the admitted lane's outputs differ "
+                             f"from its dedicated engine's, or the lanes "
+                             f"are {list(eng.lanes)}")
+    print(f"{label} ({card}): {MUX_SWAP_TAG} admitted at {MUX_ADMIT_S} s "
+          f"(warmed up at its admission; the later ticks captured "
+          f"nothing), {first} retired at {MUX_RETIRE_S} s: {done} of its "
+          f"requests finished as in the multiplexed serve, {refused} "
+          f"refused (no tokens, slot -1); the new lane's "
+          f"{MUX_SWAP_NEW_LANE} outputs equal its dedicated engine's; "
+          f"{rep.ticks} ticks; lanes now {list(eng.lanes)}")
+    return {"finished": done, "refused": refused, "ticks": rep.ticks}
+
+
+def mux_router(label, cfg, params, card) -> dict:
+    """(d): a ReplicaRouter over MUX_REPLICAS starcoder2-3b engines sharing
+    one weight tree: the same plan on two calls, the serve (wall clock,
+    each replica warmed up) placing requests as planned, each replica's
+    outputs exactly a dedicated engine's on its sub-trace."""
+    from repro_torch import engine as E
+
+    reqs = lane_requests(mux_requests([(MUX_LANES[0], cfg)], MUX_REQUESTS,
+                                      lambda i: SEED), MUX_LANES[0])
+    fleet = [mux_engine(cfg=cfg, params=params)
+             for _ in range(MUX_REPLICAS)]
+    router = E.ReplicaRouter(fleet)
+    plans = [router.route(reqs) for _ in range(2)]
+    seen = [({n: [r.rid for r in sub] for n, sub in p.assignments.items()},
+             [r.rid for r in p.refused],
+             [(d.rid, d.replica, d.now, d.capacity) for d in p.decisions])
+            for p in plans]
+    if seen[0] != seen[1] or seen[0][1]:
+        raise AssertionError(f"{label}: two route() calls disagree, or "
+                             f"refused {seen[0][1]}")
+    for eng in fleet:
+        eng.warmup()
+    bound = [step_captures(e) for e in fleet]
+    zero_counts()
+    rrep = router.serve(reqs, clock="wall")
+    launches, plain = read_counts()
+    if [step_captures(e) for e in fleet] != bound:
+        raise AssertionError(f"{label}: the routed serve captured a graph")
+    mma_free(label, launches)
+    need = ("qmatmul_w8a16[gemv]", "decode_attention_int8")
+    if any(plain.values()) or any(launches[k] <= 0 for k in need):
+        raise AssertionError(f"{label}: launches {launches}, plain-version "
+                             f"calls {plain}")
+    ded = mux_engine(cfg=cfg, params=params)
+    for name, sub in plans[0].assignments.items():
+        got = rrep.replicas[name].outputs()
+        if sorted(got) != sorted(r.rid for r in sub) or \
+                got != ded.serve(sub).outputs():
+            raise AssertionError(f"{label}: {name}'s outputs differ from a "
+                                 f"dedicated engine's on its sub-trace")
+    if rrep.leaked_blocks or any(r.status != "ok" for r in rrep.results):
+        raise AssertionError(f"{label}: a request failed or a block leaked")
+    print(f"{label} ({card}): {MUX_REPLICAS} replicas sharing one weight "
+          f"tree; the same plan on two route() calls; each replica's "
+          f"outputs equal a dedicated engine's on its sub-trace; fleet "
+          f"{rrep.tokens_per_s:.1f} tok/s over the slowest replica's "
+          f"{rrep.duration_s:.3f} s; per replica: "
+          + ", ".join(f"{n} {rrep.replica_requests[n]} requests, "
+                      f"occupancy {rrep.replica_occupancy[n]:.3f}, "
+                      f"{rrep.replicas[n].tokens_per_s:.1f} tok/s"
+                      for n in rrep.replica_names)
+          + f"; kernel launches {launches}")
+    return {"tok_s": rrep.tokens_per_s,
+            "replica_occupancy": rrep.replica_occupancy,
+            "replica_requests": rrep.replica_requests,
+            "launches": launches}
+
+
+def router_cli_run(card) -> dict:
+    """(e), second run: the serve CLI with ``--replicas 2`` at full
+    starcoder2-3b width: exit 0, its three router lines, every request
+    ok, no plain version."""
+    import contextlib
+    import io
+
+    from repro_torch.launch import serve
+
+    label = "serve replicas"
+    argv = ROUTER_SERVE_ARGS + ["--quant", "w8a16"]
+    print(f"{label}: python -m repro_torch.launch.serve {' '.join(argv)}")
+    t0 = time.perf_counter()
+    zero_counts()
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        res = serve.run(serve.parse_args(argv))
+    launches, plain = read_counts()
+    print(out.getvalue(), end="")
+    lines = [ln for ln in out.getvalue().splitlines()
+             if ln.startswith("[router]")]
+    rrep = res.router_report
+    if res.code != 0 or rrep is None or len(lines) != 3 or \
+            "per-replica occupancy" not in lines[-1]:
+        raise AssertionError(f"{label}: exit code {res.code}, router lines "
+                             f"{lines}")
+    if any(plain.values()) or launches["qmatmul_w8a16[gemv]"] <= 0 or \
+            launches["flash_attention_bhsd"] <= 0 or \
+            any(r.status != "ok" for r in rrep.results) or \
+            len(rrep.results) != len(res.requests):
+        raise AssertionError(f"{label}: launches {launches}, plain "
+                             f"{plain}, statuses "
+                             f"{[r.status for r in rrep.results]}")
+    print(f"{label} ({card}): run {time.perf_counter() - t0:.1f}s, exit 0, "
+          f"{len(res.fleet)} replicas; kernel launches {launches}")
+    return launches
+
+
+def multiplex_phase(cfg, params):
+    """Multiplexing and the replica router at full width: starcoder2-3b
+    (the slice's params) and qwen2-moe-a2.7b (the streamed init, its
+    init's own peak under PEAK_BYTES), both W8A16 on the int8 KV cache,
+    as lanes of one engine: (a) greedy, contiguous then paged, each lane
+    exactly its dedicated engine and MUX_COMPARE requests a lane
+    ``reference_outputs`` (contiguous), with the lanes' and the dedicated
+    engines' captured ticks timed; (b) sampled; (c) hot-swap; (d) the
+    router; (e) the serve CLI with ``--models`` and ``--model-quota``,
+    then with ``--replicas``.  Everything it allocates is freed before
+    it returns.  Returns its numbers."""
+    import torch
+    from repro_torch.launch import serve
+    from repro_torch.runtime import steps as ST
+
+    t0 = time.perf_counter()
+    card = card_line()
+    ST.clear_step_cache()          # earlier phases' graphs and bindings
+    torch_cuda_empty()
+    mcfg, mparams = build_dense_model(MOE_ARCH, beside=True)
+    mcfg = dataclasses.replace(mcfg, kv_quant=True)
+    first, moe = MUX_LANES
+    lanes = {first: (cfg, params), moe: (mcfg, mparams)}
+    reqs = mux_requests([(first, cfg), (moe, mcfg)], MUX_REQUESTS,
+                        lambda i: SEED + i)
+    out = {"card": card, "lanes": list(MUX_LANES)}
+    label = "multiplex"
+    out["contiguous"], eng, deds, contig = mux_greedy(
+        f"{label} contiguous", lanes, reqs, card)
+    out["tick"] = mux_tick_times(f"{label} tick", eng, deds, card)
+    for tag in lanes:
+        compare_with_reference(f"{label} {tag}", *lanes[tag], eng,
+                               lane_requests(reqs, tag)[:MUX_COMPARE],
+                               contig.outputs_for(tag))
+    del eng, deds
+    out["paged"], eng, deds, paged = mux_greedy(
+        f"{label} paged", lanes, reqs, card, block_size=MUX_BLOCK)
+    if paged.outputs() != contig.outputs():
+        raise AssertionError(f"{label} paged: outputs differ from the "
+                             f"contiguous serve's")
+    del eng, deds, paged
+    out["sampled"] = mux_sampled(f"{label} sampled", lanes, reqs, card)
+    out["hot_swap"] = mux_hot_swap(f"{label} hot-swap", lanes, contig, card)
+    out["router"] = mux_router(f"{label} router", cfg, params, card)
+    ST.clear_step_cache()
+    del lanes, mparams, contig
+    torch_cuda_empty()
+    real_curve, curve_paths = serve.measure_service_curve, {}
+    serve.measure_service_curve = counted_curve(real_curve, curve_paths)
+    try:
+        launches, res = serve_run(
+            "w8a16", curve_paths, base=MUX_SERVE_ARGS,
+            label="serve multiplexed", curve_timing=False,
+            expect=[f"[engine]   model {t}: p99" for t in MUX_LANES])
+        rep = res.report
+        peak = {t: max(v) for t, v in rep.model_occupancy.items()}
+        if peak[first] > MUX_QUOTA or \
+                launches["qmatmul_w8a16_experts[gemv]"] <= 0:
+            raise AssertionError(f"serve multiplexed: peak slots {peak} "
+                                 f"(quota {MUX_QUOTA}), launches "
+                                 f"{launches}")
+        print(f"serve multiplexed ({card}): exit 0, a report line a "
+              f"model, peak slots {peak} (quota {MUX_QUOTA} for {first})")
+        out["cli"] = {"launches": launches,
+                      "tok_s": rep.tokens_per_s,
+                      "model_mean_occupancy": rep.model_mean_occupancy}
+        del res, rep
+        ST.clear_step_cache()
+        torch_cuda_empty()
+        out["router_cli"] = {"launches": router_cli_run(card)}
+    finally:
+        serve.measure_service_curve = real_curve
+    ST.clear_step_cache()
+    torch_cuda_empty()
+    out["seconds"] = time.perf_counter() - t0
+    print(f"multiplex ({card}): phase {out['seconds']:.1f}s; "
+          f"{torch.cuda.memory_allocated()} bytes left allocated")
+    return out
+
+
 PHASES = ("attention", "long_tick", "w8a8", "graphs", "dense", "sampling",
-          "spec", "moe", "encdec", "ssm", "hybrid", "mixtral", "vlm")
+          "spec", "multiplex", "moe", "encdec", "ssm", "hybrid", "mixtral",
+          "vlm")
 
 
 def parse_args(argv):
@@ -6423,7 +6978,11 @@ def parse_args(argv):
                          "llama-3.2-vision-90b at full width and 10 of 100 "
                          "layers (kernel rows, serves contiguous and paged, "
                          "prime, tick, the launcher's curve and decode "
-                         "loop); prints no result line")
+                         "loop), or multiplexing (starcoder2-3b and "
+                         "qwen2-moe-a2.7b as lanes of one engine: greedy, "
+                         "sampled, hot-swap, the replica router, the CLI "
+                         "with --models and --replicas); prints no result "
+                         "line")
     return ap.parse_args(argv)
 
 
@@ -6485,8 +7044,8 @@ def main(argv=None) -> int:
         if "dense" in args.only:
             rmsnorm_phase(RMSNORM_WIDTHS[1:])
             dense_phase()
-        if {"long_tick", "w8a8", "graphs", "sampling", "spec"} & set(
-                args.only):
+        if {"long_tick", "w8a8", "graphs", "sampling", "spec",
+                "multiplex"} & set(args.only):
             cfg, params = build_model()
         if "graphs" in args.only:
             tick_breakdown(cfg, params, NUM_SLOTS, PROMPT_LEN + MAX_NEW)
@@ -6503,6 +7062,8 @@ def main(argv=None) -> int:
             sampling_phase(cfg, params)
         if "spec" in args.only:
             spec_phase(cfg, params)
+        if "multiplex" in args.only:
+            multiplex_phase(cfg, params)
         if {"sampling", "spec"} & set(args.only):
             from repro_torch.launch import serve
             from repro_torch.runtime import steps as ST
@@ -6584,6 +7145,7 @@ def main(argv=None) -> int:
     timed(graph_phase, cfg, params)
     timed(sampling_phase, cfg, params)
     spec = timed(spec_phase, cfg, params)
+    mux = timed(multiplex_phase, cfg, params)
     from repro_torch.runtime import steps as ST
     ST.clear_step_cache()           # the engines' captured tick and cache
     del params
@@ -7084,6 +7646,50 @@ def main(argv=None) -> int:
     if min(qwen["decode_attention_int8"], qwen["decode_attention_int8_paged"],
            dense["cli"]["flash_attention_bhsd"]) <= 0:
         return fail("a kernel of a dense path never launched")
+    # multiplexing: the launches of each kernel on its path in the
+    # multiplexed serves (lanes starcoder2-3b and qwen2-moe-a2.7b), the
+    # routed serve and the serve CLI's --models run
+    mux_basis = (f"lanes {' and '.join(MUX_LANES)} of one engine, "
+                 f"{MUX_REQUESTS} requests a lane, {NUM_SLOTS} leased slots")
+    mux_c, mux_p = mux["contiguous"]["launches"], mux["paged"]["launches"]
+    router_l, cli_l = mux["router"]["launches"], mux["cli"]["launches"]
+    kernels[0]["multiplex"] = {
+        "launches": mux_c["qmatmul_w8a16"],
+        "experts_launches": mux_c["qmatmul_w8a16_experts"],
+        "paged_launches": mux_p["qmatmul_w8a16"],
+        "router_launches": router_l["qmatmul_w8a16"],
+        "cli_launches": cli_l["qmatmul_w8a16"],
+        "basis": f"the contiguous and the paged multiplexed serves "
+                 f"({mux_basis}; experts: the {MOE_ARCH} lane's stacks), "
+                 f"the routed serve ({MUX_REPLICAS} starcoder2-3b replicas) "
+                 f"and the serve CLI's --models run"}
+    kernels[1]["multiplex"] = {
+        "launches": mux_c["decode_attention_int8"],
+        "router_launches": router_l["decode_attention_int8"],
+        "basis": f"the contiguous multiplexed serve's ticks ({mux_basis}) "
+                 f"and the routed serve's"}
+    kernels[2]["multiplex"] = {
+        "launches": mux_p["decode_attention_int8_paged"],
+        "contiguous_launches": mux_c["decode_attention_int8_paged"],
+        "basis": f"the paged multiplexed serve ({mux_basis}); "
+                 f"contiguous_launches: the contiguous one's chunks"}
+    kernels[4]["multiplex"] = {
+        "launches": cli_l["flash_attention_bhsd"],
+        "basis": "the serve CLI's --models run (its service curve, on the "
+                 "first lane)"}
+    if min(kernels[0]["multiplex"]["launches"],
+           kernels[0]["multiplex"]["experts_launches"],
+           kernels[0]["multiplex"]["paged_launches"],
+           kernels[0]["multiplex"]["router_launches"],
+           *(kernels[i]["multiplex"]["launches"] for i in (1, 2, 4)),
+           kernels[1]["multiplex"]["router_launches"]) <= 0:
+        return fail("a kernel of the multiplexed path never launched")
+    multiplex = {k: v for k, v in mux.items()
+                 if k not in ("cli", "router_cli")}
+    for k in ("contiguous", "paged", "router"):
+        multiplex[k] = {kk: vv for kk, vv in mux[k].items()
+                        if kk != "launches"}
+    multiplex["cli_tok_s"] = mux["cli"]["tok_s"]
     for k in kernels + list(w8a16_paths.values()):
         for key in ("ms", "plain_ms", "bound_ms", "library_ms"):
             if not math.isfinite(k[key]):
@@ -7092,7 +7698,7 @@ def main(argv=None) -> int:
         if k["launches"] <= 0:
             return fail(f"{k.get('name', 'qmatmul_w8a16 path')}: no launch "
                         f"on its path")
-    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"kernels": kernels, "multiplex": multiplex}))
     print(f"chip_smoke: whole run {time.perf_counter() - t_run:.1f}s")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

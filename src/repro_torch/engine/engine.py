@@ -1,7 +1,7 @@
 """The continuous-batching engine: one fused slot-masked step per tick.
 
-Port of ``repro/engine/engine.py`` for one model, greedy or sampled at
-one engine-wide temperature:
+Port of ``repro/engine/engine.py``, greedy or sampled at one
+engine-wide temperature, for one model or several:
 
 - The KV cache is a fixed pool of ``num_slots`` rows of ``max_seq``
   positions, owned by the engine and zeroed in place for each run; every
@@ -49,6 +49,13 @@ one engine-wide temperature:
   it bitwise, so a reused, preempted or rebuilt slot re-prefills from
   position 0 into clean state; it refuses ``block_size`` and ``spec_k``
   (no positions to page or rewind).
+- Multiplexing: ``Engine(models={tag: (cfg, params)})`` serves several
+  models as lanes of one engine (``engine/dispatch.py::_Lane``): each
+  lane its own steps, caches and pools, one fused step a lane a tick,
+  ``num_slots`` one lease budget across lanes, quotas by model and
+  class, and hot-swap (``admit_model``, ``retire_model``,
+  ``serve(control=...)``).  ``engine/router.py::ReplicaRouter`` places a
+  trace on several engines.
 
 ``reference_outputs`` is the sequential per-token loop (batch 1, same
 decode math and sampler, contiguous cache) the engine must match bit
@@ -61,7 +68,8 @@ sampler is elementwise up to its argmax along the vocabulary.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
+from typing import (Callable, Dict, List, Mapping, Optional, Sequence,
+                    Tuple, Union)
 
 import numpy as np
 import torch
@@ -73,8 +81,8 @@ from repro_torch.core.quant import QTensor
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.engine.dispatch import (DispatchCore, EngineRequest,
                                          ExecutorBackend, RequestResult,
-                                         SingleDeviceExecutor, padded_source,
-                                         validate_source)
+                                         SingleDeviceExecutor, _Lane,
+                                         padded_source, validate_source)
 from repro_torch.engine.faults import FaultPlan
 from repro_torch.engine.slots import RequestTooLong
 from repro_torch.models import registry as R
@@ -121,6 +129,9 @@ class EngineReport:
     torn_rows_repaired: int = 0       # block-table rows audited + rebuilt
     resumed_prefill_tokens: int = 0   # tokens the resumes teacher-forced
     stuck_ticks: int = 0              # wall-clock stragglers (watchdog)
+    # hot-swap (Engine.retire_model, serve(control=...)): requests whose
+    # lane was retired, or not admitted, when admission reached them
+    refused: int = 0
     # per-SLO-class tails; goodput counts only completed requests that
     # met their deadline
     class_p99_latency_s: Dict[str, float] = dataclasses.field(
@@ -142,9 +153,29 @@ class EngineReport:
                                         # run plus its bonus with it
     latency_per_token_s: float = 0.0  # mean over ok requests of
                                       # latency_s / emitted tokens
+    # multiplexing (Engine(models={...})): per-model tails, goodput and
+    # occupancy, empty on a single-model engine.  A lane's occupancy is
+    # its active slots over the shared lease budget (num_slots), so the
+    # lanes' fractions sum to mean_occupancy
+    model_p99_latency_s: Dict[str, float] = dataclasses.field(
+        default_factory=dict)
+    model_mean_ttft_s: Dict[str, float] = dataclasses.field(
+        default_factory=dict)
+    model_p99_ttft_s: Dict[str, float] = dataclasses.field(
+        default_factory=dict)
+    model_goodput_tokens_per_s: Dict[str, float] = dataclasses.field(
+        default_factory=dict)
+    model_mean_occupancy: Dict[str, float] = dataclasses.field(
+        default_factory=dict)
+    model_occupancy: Dict[str, List[int]] = dataclasses.field(
+        default_factory=dict)        # per-tick active slots of each lane
 
     def outputs(self) -> Dict[int, List[int]]:
         return {r.rid: r.tokens for r in self.results}
+
+    def outputs_for(self, model: Optional[str]) -> Dict[int, List[int]]:
+        """One lane's outputs: what a dedicated engine is held to."""
+        return {r.rid: r.tokens for r in self.results if r.model == model}
 
 
 def _check_params_device(params, device: torch.device, what: str) -> None:
@@ -156,21 +187,46 @@ def _check_params_device(params, device: torch.device, what: str) -> None:
                          f"{device}")
 
 
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP queue 1, "
-                               f"item {item})")
+def _what(tag: Optional[str], what: str) -> str:
+    return what if tag is None else f"model {tag!r}'s {what}"
+
+
+def _check_tag(tag) -> None:
+    if not isinstance(tag, str) or not tag:
+        raise ValueError(f"model tag must be a non-empty string, got {tag!r}")
+
+
+def _check_paging(tag: Optional[str], cfg: ArchConfig) -> None:
+    if not R.supports_paging(cfg):
+        raise ValueError(
+            f"family {cfg.family!r} (window={cfg.window}"
+            f"{'' if tag is None else f', model {tag!r}'}) does not "
+            f"support the paged KV cache")
 
 
 class Engine:
     """Continuous-batching serving engine over a slot-based KV cache.
 
-    ``Engine(cfg, params, mode=W8A16, num_slots=8, max_seq=..,
-    prefill_chunk=4).serve(requests)``; add ``block_size=bs`` (a power of
-    two) for the paged cache, and ``num_blocks`` to size its pool (default
-    ``num_slots * max_seq // bs + 1``: every slot can hold a full row,
-    plus the trash block).  ``device`` defaults to the card; pass
-    ``device="cpu"`` to serve on the CPU with the kernels' plain versions.
-    ``params`` must already lie on that device.
+    Single-model: ``Engine(cfg, params, mode=W8A16, num_slots=8,
+    max_seq=.., prefill_chunk=4).serve(requests)`` — one model lane
+    tagged ``None``, every request untagged.  Add ``block_size=bs`` (a
+    power of two) for the paged cache, and ``num_blocks`` to size its
+    pool (default ``num_slots * max_seq // bs + 1``: every slot can hold
+    a full row, plus the trash block).  ``device`` defaults to the card;
+    pass ``device="cpu"`` to serve on the CPU with the kernels' plain
+    versions.  ``params`` must already lie on that device.
+
+    Multiplexed: ``Engine(models={tag: (cfg, params)}, ...)`` — one lane
+    a model, each with its own steps, caches, slot pool and (paged) block
+    pool, whose requests name it in ``EngineRequest.model``.  A tick runs
+    one fused step a lane with ready slots, and ``num_slots`` is one
+    lease budget capping the active slots of all lanes together (each
+    lane's pool holds ``num_slots`` rows, so any lane may take the whole
+    budget).  Admission meters ``(model, class)``, model and class quota
+    keys through the same ``AdmissionPolicy``
+    (``class_quotas={"tag": n}`` caps a lane).  :meth:`admit_model` and
+    :meth:`retire_model` change the lanes, also on a live serve through
+    ``serve(control=...)``.
 
     ``temperature=t`` (> 0) samples with ``rng``, a threefry key (a JAX
     key's two uint32 words: ``runtime/prng.py::PRNGKey``, or
@@ -186,12 +242,16 @@ class Engine:
     draft must both keep their whole decode state as positional KV
     (``registry.supports_speculation``).  The draft's cache is contiguous
     whatever the target's, of the draft config's KV kind (a self-draft's:
-    the target's).
+    the target's).  A multiplexed engine takes ``draft_layers=n`` only:
+    each lane that can draft self-drafts, the others serve without
+    speculation.
 
-    The JAX engine's other options — multiplexing, a sharded backend —
-    raise ``NotImplementedError`` naming their ROADMAP item."""
+    The JAX engine's sharded backend raises ``NotImplementedError``
+    naming its ROADMAP item; ``name`` labels the engine in straggler
+    warnings and router reports."""
 
-    def __init__(self, cfg: ArchConfig, params, *,
+    def __init__(self, cfg: Optional[ArchConfig] = None, params=None, *,
+                 models: Optional[Dict[str, Tuple[ArchConfig, dict]]] = None,
                  mode: QuantMode = FP,
                  num_slots: int = 8, max_seq: int = 64,
                  policy: Optional[bt.AdmissionPolicy] = None,
@@ -203,11 +263,11 @@ class Engine:
                  spec_k: int = 0,
                  draft: Optional[Tuple[ArchConfig, dict]] = None,
                  draft_layers: Optional[int] = None,
-                 models=None,
                  backend: Optional[ExecutorBackend] = None,
                  name: Optional[str] = None):
-        if models is not None:
-            raise _not_ported("multi-model multiplexing", "14")
+        if (models is None) == (cfg is None):
+            raise ValueError("exactly one of Engine(cfg, params) or "
+                             "Engine(models={tag: (cfg, params)})")
         if temperature > 0.0 and rng is None:
             raise ValueError("temperature sampling needs an rng key: "
                              "Engine(..., temperature=t, rng=key)")
@@ -217,12 +277,29 @@ class Engine:
             raise ValueError("a draft model needs spec_k >= 1: "
                              "Engine(..., spec_k=k, draft=... or "
                              "draft_layers=...)")
+        self.multi = models is not None
+        if self.multi:
+            if not models:
+                raise ValueError("models must name at least one "
+                                 "(cfg, params) lane")
+            for tag in models:
+                _check_tag(tag)
+            if spec_k and draft is not None:
+                raise ValueError(
+                    "a multiplexed engine cannot take one explicit "
+                    "draft=(cfg, params) for every lane (vocabs differ); "
+                    "use draft_layers=n — each supporting lane self-drafts")
+            if spec_k and draft_layers is None:
+                raise ValueError("multiplexed speculation needs "
+                                 "draft_layers=n")
+            lane_cfgs = dict(models)
+        else:
+            lane_cfgs = {None: (cfg, params)}
         self.device = resolve_device(device)
-        _check_params_device(params, self.device, "params")
-        R.module_for(cfg)
-        self.spec_k = spec_k
-        self.dcfg = self.dparams = None
-        if spec_k:
+        for tag, (mcfg, mparams) in lane_cfgs.items():
+            _check_params_device(mparams, self.device, _what(tag, "params"))
+            R.module_for(mcfg)
+        if spec_k and not self.multi:
             if (draft is None) == (draft_layers is None):
                 raise ValueError(
                     "speculative decoding needs exactly one of "
@@ -246,10 +323,6 @@ class Engine:
                         f"{cfg.vocab}: proposals would not be token-"
                         f"compatible")
                 _check_params_device(dparams, self.device, "draft params")
-            else:
-                dcfg = R.draft_config(cfg, draft_layers)
-                dparams = R.draft_params(cfg, params, draft_layers)
-            self.dcfg, self.dparams = dcfg, dparams
         if num_blocks is not None and block_size is None:
             raise ValueError("num_blocks needs block_size: paged mode is "
                              "enabled by Engine(..., block_size=...)")
@@ -257,11 +330,9 @@ class Engine:
             if block_size < 1 or block_size & (block_size - 1):
                 raise ValueError(
                     f"block_size must be a power of two, got {block_size}")
-            if not R.supports_paging(cfg):
-                raise ValueError(
-                    f"family {cfg.family!r} (window={cfg.window}) does "
-                    f"not support the paged KV cache")
-        self.cfg, self.params = cfg, params
+            for tag, (mcfg, _) in lane_cfgs.items():
+                _check_paging(tag, mcfg)
+        self.spec_k = spec_k
         self.mode = mode
         self.temperature = temperature
         # the key lives on the engine's device for good: the captured tick
@@ -277,6 +348,8 @@ class Engine:
         self.block_size = block_size
         if block_size:
             self.max_blocks = self.max_seq // block_size
+            # a lane's pool: every slot can hold a full row privately,
+            # plus the trash block, unless num_blocks says otherwise
             self.num_blocks = (num_blocks if num_blocks is not None
                                else self.num_slots * self.max_blocks + 1)
             if self.num_blocks < 2:
@@ -300,8 +373,37 @@ class Engine:
         self.backend = backend if backend is not None \
             else SingleDeviceExecutor()
         self.backend.validate(self)
-        self._cache: Optional[dict] = None
-        self._draft_cache: Optional[dict] = None
+        self._draft = draft
+        self._draft_layers = draft_layers
+        self._epoch = 0                  # hot-swap admissions so far
+        self.lanes: Dict[Optional[str], _Lane] = {
+            tag: self._new_lane(tag, order, mcfg, mparams)
+            for order, (tag, (mcfg, mparams)) in enumerate(lane_cfgs.items())}
+        # the first lane's config, params and draft, where a caller of a
+        # single-model engine expects them
+        lane0 = next(iter(self.lanes.values()))
+        self.cfg, self.params = lane0.cfg, lane0.params
+        self.dcfg, self.dparams = lane0.dcfg, lane0.dparams
+
+    def _new_lane(self, tag, order, cfg, params) -> _Lane:
+        """A lane and its draft: the engine's draft, its self-draft of
+        ``draft_layers``, or none (not speculating, or a multiplexed lane
+        whose family cannot draft)."""
+        spec_k, dcfg, dparams = self.spec_k, None, None
+        if spec_k:
+            if self.multi and not R.supports_speculation(cfg):
+                spec_k = 0
+            elif self._draft is not None:
+                dcfg, dparams = self._draft
+            else:
+                dcfg = R.draft_config(cfg, self._draft_layers)
+                dparams = R.draft_params(cfg, params, self._draft_layers)
+        return _Lane(self, tag, order, cfg, params, spec_k, dcfg, dparams)
+
+    @property
+    def _cache(self) -> Optional[dict]:
+        """The first lane's cache, None before its first serve."""
+        return next(iter(self.lanes.values()))._cache
 
     def step_keys(self) -> tuple:
         """The slot step's trailing arguments: ``(rng,)`` when the engine
@@ -309,52 +411,67 @@ class Engine:
         return () if self.rng is None else (self.rng,)
 
     def zeroed_cache(self) -> dict:
-        """The engine's KV cache (paged: with its block tables), all zeros:
-        built at the first call, zeroed in place at every later one —
-        byte for byte a fresh cache, in the same tensors, which the
-        captured slot step stays bound to from one run to the next."""
-        with torch.inference_mode():
-            if self._cache is None:
-                S, dev = self.num_slots, self.device
-                if self.block_size:
-                    self._cache = R.init_paged_cache(
-                        self.cfg, S, self.max_seq, self.block_size,
-                        self.num_blocks, device=dev)
-                else:
-                    self._cache = R.init_cache(self.cfg, S, self.max_seq,
-                                               device=dev)
-            else:
-                for t in self._cache.values():
-                    t.zero_()
-        return self._cache
+        """The first lane's KV cache (a single-model engine's), all zeros:
+        :meth:`_Lane.zeroed_cache` — built at the first call, zeroed in
+        place at every later one, in the same tensors, which the captured
+        slot step stays bound to from one run to the next."""
+        return next(iter(self.lanes.values())).zeroed_cache()
 
-    def zeroed_draft_cache(self) -> dict:
-        """The draft model's cache (speculating engines), all zeros, as
-        :meth:`zeroed_cache`: contiguous rows of ``draft_seq``
-        positions."""
-        with torch.inference_mode():
-            if self._draft_cache is None:
-                self._draft_cache = R.init_cache(
-                    self.dcfg, self.num_slots, self.draft_seq,
-                    device=self.device)
-            else:
-                for t in self._draft_cache.values():
-                    t.zero_()
-        return self._draft_cache
+    # -- hot-swap: admit / retire a lane on a live engine ---------------
+
+    def admit_model(self, tag: str, cfg: ArchConfig, params) -> None:
+        """Admit a model lane; legal mid-serve (through
+        ``serve(control=...)``).  The lane's order follows the others', so
+        their global fault ids stay as they were, and its pools start
+        empty: no other lane drains or stalls.  Its steps are warmed up on
+        its own cache here (on the card, captured), so its ticks replay
+        from the first."""
+        if not self.multi:
+            raise ValueError("hot-swap needs a multiplexed engine: "
+                             "Engine(models={...})")
+        _check_tag(tag)
+        if tag in self.lanes:
+            raise ValueError(f"model {tag!r} is already admitted")
+        _check_params_device(params, self.device, _what(tag, "params"))
+        R.module_for(cfg)
+        if self.block_size is not None:
+            _check_paging(tag, cfg)
+        order = 1 + max((ln.order for ln in self.lanes.values()),
+                        default=-1)
+        lane = self._new_lane(tag, order, cfg, params)
+        self._epoch += 1
+        lane.epoch = self._epoch
+        self._warm(lane)
+        self.lanes[tag] = lane
+
+    def retire_model(self, tag: str) -> None:
+        """Mark a lane retiring: its in-flight slots finish as they would
+        have, and admission refuses every new request for it with the
+        typed ``refused`` status.  The serve removes the drained lane
+        when it ends."""
+        if tag not in self.lanes:
+            raise ValueError(
+                f"model {tag!r} is not admitted on this engine "
+                f"(lanes: {list(self.lanes)})")
+        self.lanes[tag].retiring = True
 
     def warmup(self) -> None:
-        """Run the slot step once (and, with chunked prefill, the chunk
-        step once for every chunk length it can be given: ``n`` tokens in
-        a chunk of ``bucket_batch(n)``, for n up to ``prefill_chunk``; a
-        family that primes, the prime step once on a zero source) on
-        the engine's cache, so that a wall-clock ``serve`` charges its
-        first tick to serving, not to building and loading the kernels,
-        the libraries' first-call set-up or, on the card, the capture of
-        the steps' graphs: the next ``serve`` zeroes the cache in place
-        and replays those graphs.  A speculating engine never runs the
-        slot step: it runs the verify step in its place, and the propose
-        step and the draft's chunk step (every n up to ``draft_cap``) on
-        the draft's cache."""
+        """For every lane, run the slot step once (and, with chunked
+        prefill, the chunk step once for every chunk length it can be
+        given: ``n`` tokens in a chunk of ``bucket_batch(n)``, for n up to
+        ``prefill_chunk``; a family that primes, the prime step once on a
+        zero source) on the lane's cache, so that a wall-clock ``serve``
+        charges its first tick to serving, not to building and loading
+        the kernels, the libraries' first-call set-up or, on the card,
+        the capture of the steps' graphs: the next ``serve`` zeroes the
+        caches in place and replays those graphs.  A speculating lane
+        never runs the slot step: it runs the verify step in its place,
+        and the propose step and the draft's chunk step (every n up to
+        ``draft_cap``) on the draft's cache."""
+        for ln in self.lanes.values():
+            self._warm(ln)
+
+    def _warm(self, ln: _Lane) -> None:
         S = self.num_slots
         dev = self.device
 
@@ -368,73 +485,104 @@ class Engine:
                     params, [0] * c, cache, 0, 0, n)
 
         with torch.inference_mode():
-            cache = self.zeroed_cache()
-            if R.needs_prime(self.cfg):
-                prime = self.backend.prime_step(self.cfg, mode=self.mode)
-                prime(self.params, torch.zeros(
-                    (1, R.source_len(self.cfg), self.cfg.d_model),
+            cache = ln.zeroed_cache()
+            if R.needs_prime(ln.cfg):
+                prime = self.backend.prime_step(ln.cfg, mode=self.mode)
+                prime(ln.params, torch.zeros(
+                    (1, R.source_len(ln.cfg), ln.cfg.d_model),
                     dtype=torch.bfloat16), cache, 0, 0)
-            if self.spec_k:
-                k = self.spec_k
+            if ln.spec_k:
+                k = ln.spec_k
                 verify = self.backend.verify_step(
-                    self.cfg, mode=self.mode, k=k,
+                    ln.cfg, mode=self.mode, k=k,
                     temperature=self.temperature)
-                verify(self.params, zeros(S, k + 1), cache, zeros(S),
+                verify(ln.params, zeros(S, k + 1), cache, zeros(S),
                        zeros(S), zeros(S, dtype=torch.bool),
                        *self.step_keys())
-                dcache = self.zeroed_draft_cache()
-                propose = self.backend.propose_step(self.dcfg,
+                dcache = ln.zeroed_draft_cache()
+                propose = self.backend.propose_step(ln.dcfg,
                                                     mode=self.mode, k=k)
-                propose(self.dparams, zeros(S, 1), dcache, zeros(S),
+                propose(ln.dparams, zeros(S, 1), dcache, zeros(S),
                         zeros(S, dtype=torch.bool))
-                chunks(self.dcfg, self.dparams, dcache, self.draft_cap)
+                chunks(ln.dcfg, ln.dparams, dcache, self.draft_cap)
             else:
-                step = self.backend.slot_step(self.cfg, mode=self.mode,
+                step = self.backend.slot_step(ln.cfg, mode=self.mode,
                                               temperature=self.temperature)
-                step(self.params, zeros(S, 1), cache, zeros(S),
+                step(ln.params, zeros(S, 1), cache, zeros(S),
                      zeros(S, dtype=torch.bool), *self.step_keys())
-            chunks(self.cfg, self.params, cache, self.prefill_chunk or 0)
+            chunks(ln.cfg, ln.params, cache, self.prefill_chunk or 0)
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
 
     def serve(self, requests: Sequence[EngineRequest], *,
               clock: str = "virtual",
-              tick_s: Union[float, Callable[[int], float]] = 1e-3,
+              tick_s: Union[float, Mapping,
+                            Callable[[int], float]] = 1e-3,
               max_ticks: Optional[int] = None,
               drop_missed_deadlines: bool = False,
               preemption: bool = False,
               fault_plan: Optional[FaultPlan] = None,
-              max_retries: int = 3) -> EngineReport:
+              max_retries: int = 3,
+              control: Sequence[Tuple[float, Callable]] = ()
+              ) -> EngineReport:
         """Serve a whole request trace; return per-request outputs and
         achieved latency / throughput / occupancy.
 
         ``clock="virtual"``: time advances ``tick_s`` per tick (or
-        ``tick_s(active_count)``) — deterministic.  ``clock="wall"``: the
-        measured host clock, every tick ending in a wait for the card.
+        ``tick_s(active_count)``) — deterministic; a Mapping ``tick_s``
+        ({lane tag: seconds}, every lane priced) charges each tick the
+        sum of the lanes it dispatched.  ``clock="wall"``: the measured
+        host clock, every tick ending in a wait for the card.
         ``drop_missed_deadlines=True`` retires a slot the tick its deadline
         passes.
 
         ``preemption=True`` lets admission-time pressure (no free slot,
-        or a paged block claim the pool cannot cover) evict the active
-        slot of strictly lower SLO class than the pending head, latest
-        deadline first.  The victim's blocks are released, its host
+        or a paged block claim the lane's pool cannot cover) evict the
+        active slot of strictly lower SLO class than the pending head,
+        latest deadline first.  The victim's blocks are released, its host
         progress stashed, and it re-enters the pending queue; on
         re-admission its ``prompt + generated-so-far`` is teacher-forced
         through the chunk steps ``warmup`` captured, so the resumed
         output is bit for bit the never-preempted output.
 
         ``fault_plan`` injects a :class:`FaultPlan`'s failures at their
-        ticks; the recovery (always on) retries failed dispatches,
+        ticks, each at a dense global slot id (``lane.order * num_slots +
+        sid``); the recovery (always on) retries failed dispatches,
         rebuilds a slot that samples the non-finite sentinel or loses a
         torn block-table row, and retires a slot still faulting after
         ``max_retries`` recovery attempts as ``failed``.
+
+        ``control`` schedules hot-swap operations on the live serve:
+        ``(time_s, fn)`` pairs, each ``fn(engine)`` run at the first tick
+        boundary past its time (closures over :meth:`admit_model` and
+        :meth:`retire_model`).  With a control schedule a request may name
+        a lane that is not admitted yet; one whose lane is retiring, or
+        still unknown, when admission reaches it comes back ``refused``.
 
         A family that primes needs every request's ``source``; each is
         checked before anything is admitted."""
         if clock not in ("virtual", "wall"):
             raise ValueError(f"clock must be 'virtual' or 'wall': {clock!r}")
-        primed = R.needs_prime(self.cfg)
+        if isinstance(tick_s, Mapping):
+            if clock != "virtual":
+                raise ValueError("per-lane tick_s mapping needs the "
+                                 "virtual clock")
+            missing = [t for t in self.lanes if t not in tick_s]
+            if missing:
+                raise ValueError(
+                    f"per-lane tick_s must price every lane; missing "
+                    f"{missing} (keys: {sorted(tick_s, key=repr)})")
+        for t_ctl, fn_ctl in control:
+            if not callable(fn_ctl):
+                raise ValueError(
+                    f"control entries must be (time_s, callable), got "
+                    f"({t_ctl!r}, {fn_ctl!r})")
         for r in requests:
+            lane = self.lanes.get(r.model)
+            if lane is None and not control:
+                raise ValueError(
+                    f"request {r.rid}: model {r.model!r} is not admitted "
+                    f"on this engine (lanes: {list(self.lanes)})")
             if r.max_new_tokens <= 0:
                 raise ValueError(
                     f"request {r.rid}: max_new_tokens must be positive "
@@ -451,8 +599,8 @@ class Engine:
                     raise RequestTooLong(
                         f"request {r.rid} needs {nb} KV blocks > "
                         f"{self.num_blocks - 1} usable in the pool")
-            if primed:
-                validate_source(self.cfg, r)
+            if lane is not None and R.needs_prime(lane.cfg):
+                validate_source(lane.cfg, r)
         reqs = sorted(requests, key=lambda r: r.arrival_s)
         S = self.num_slots
         with torch.inference_mode():
@@ -460,7 +608,12 @@ class Engine:
                 reqs, clock=clock, tick_s=tick_s, max_ticks=max_ticks,
                 drop_missed_deadlines=drop_missed_deadlines,
                 preemption=preemption, fault_plan=fault_plan,
-                max_retries=max_retries)
+                max_retries=max_retries, control=control)
+        # hot-swap: a retired lane that has drained leaves the engine (and
+        # its caches with it); the report still covers it
+        for tag in [t for t, ln in self.lanes.items()
+                    if ln.retiring and ln.pool.active_count == 0]:
+            del self.lanes[tag]
         results = sorted(out.results, key=lambda r: r.rid)
         occupancy = out.occupancy
         lat = [r.latency_s for r in results if r.status == "ok"]
@@ -475,6 +628,15 @@ class Engine:
             by_class.setdefault(r.priority, []).append(r)
         cls_ttft = {c: [r.ttft_s for r in rs if r.emitted]
                     for c, rs in sorted(by_class.items())}
+        # per-model tails, goodput and occupancy: multiplexed engines only
+        # (empty on a single-model engine)
+        by_model: Dict[str, List[RequestResult]] = {}
+        if self.multi:
+            by_model = {ln.tag: [] for ln in out.lanes}
+            for r in results:
+                by_model.setdefault(r.model, []).append(r)
+        mdl_ttft = {m: [r.ttft_s for r in rs if r.emitted]
+                    for m, rs in by_model.items()}
         return EngineReport(
             results=results, ticks=out.ticks,
             generated_tokens=out.gen_tokens,
@@ -510,6 +672,7 @@ class Engine:
             torn_rows_repaired=out.torn_repaired,
             resumed_prefill_tokens=out.resumed_tokens,
             stuck_ticks=out.stuck_ticks,
+            refused=out.refused,
             class_p99_latency_s={
                 c: bt.p99([r.latency_s for r in rs if r.status == "ok"])
                 for c, rs in sorted(by_class.items())},
@@ -523,7 +686,22 @@ class Engine:
             accepted_per_dispatch=(out.gen_tokens / out.emit_dispatches
                                    if out.emit_dispatches else 0.0),
             latency_per_token_s=(float(np.mean(lat_tok))
-                                 if lat_tok else 0.0))
+                                 if lat_tok else 0.0),
+            model_p99_latency_s={
+                m: bt.p99([r.latency_s for r in rs if r.status == "ok"])
+                for m, rs in by_model.items()},
+            model_mean_ttft_s={m: (float(np.mean(ts)) if ts else 0.0)
+                               for m, ts in mdl_ttft.items()},
+            model_p99_ttft_s={m: bt.p99(ts) for m, ts in mdl_ttft.items()},
+            model_goodput_tokens_per_s={
+                m: sum(len(r.tokens) for r in rs if r.status == "ok"
+                       and r.finish_s <= r.deadline_s) / dur
+                for m, rs in by_model.items()},
+            model_mean_occupancy={
+                t: (sum(v) / (len(v) * S) if v else 0.0)
+                for t, v in out.occ_by_lane.items()},
+            model_occupancy={t: list(v)
+                             for t, v in out.occ_by_lane.items()})
 
 
 # ---------------------------------------------------------------------------
@@ -608,7 +786,9 @@ def synthetic_requests(n: int, *, rate_per_s: float, vocab: int,
                        shared_prefix_len: int = 0,
                        source_shape: Optional[Tuple[int, int]] = None,
                        priority: Union[str, Callable[[int], str]]
-                       = "interactive") -> List[EngineRequest]:
+                       = "interactive",
+                       model: Union[None, str, Callable[[int], str]]
+                       = None) -> List[EngineRequest]:
     """Deterministic pseudo-Poisson request trace with synthetic prompts
     derived from the rid — byte-identical to the reference's
     ``synthetic_requests`` with the same arguments.
@@ -619,13 +799,15 @@ def synthetic_requests(n: int, *, rate_per_s: float, vocab: int,
     gaussians whose length cycles through full, -1, -2, so a pool holds
     rows of different ``xlen`` at once); ``priority`` tags every request
     with an SLO class (a string) or a per-request one (a ``rid -> class``
-    callable)."""
+    callable); ``model`` tags it with a multiplexed engine's lane (a
+    string, or a ``rid -> tag`` callable; None leaves it untagged)."""
     if not 0 <= shared_prefix_len <= prompt_len:
         raise ValueError(
             f"shared_prefix_len must be in [0, prompt_len={prompt_len}], "
             f"got {shared_prefix_len}")
     arr = bt.poisson_arrivals(rate_per_s, n, 0.0, seed)
     cls_of = priority if callable(priority) else (lambda rid: priority)
+    mdl_of = model if callable(model) else (lambda rid: model)
     reqs = []
     for a in arr:
         prompt = tuple(
@@ -644,5 +826,5 @@ def synthetic_requests(n: int, *, rate_per_s: float, vocab: int,
             arrival_s=a.arrival_s,
             deadline_s=(a.arrival_s + deadline_s
                         if deadline_s != float("inf") else float("inf")),
-            source=source, priority=cls_of(a.rid)))
+            source=source, priority=cls_of(a.rid), model=mdl_of(a.rid)))
     return reqs

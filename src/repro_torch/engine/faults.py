@@ -26,7 +26,11 @@ failure surface:
     repairs or evicts.
 
 Faults target *ticks* (the engine's deterministic time base), not wall
-clock, so plans compose with any trace.
+clock, so plans compose with any trace.  A slot is named by its dense
+global id ``lane.order * num_slots + sid`` (lane-major; a single-model
+engine's ids are its slot ids), so one plan strikes across the lanes of
+a multiplexed engine as it does on the JAX engine: ``FaultPlan.random(
+..., num_slots=lanes * num_slots)`` spreads its victims over every lane.
 """
 from __future__ import annotations
 

@@ -1,5 +1,5 @@
-"""Serving launcher: the port of ``repro/launch/serve.py``'s single-model
-path, end to end on one card.
+"""Serving launcher: the port of ``repro/launch/serve.py`` (all but
+``--arrival`` and ``--tp``), end to end on one card.
 
 Init a model from a seed, post-training int8 quantization, measure the
 prefill service-time curve through the full-sequence ``forward`` (every
@@ -61,6 +61,15 @@ request carries its own patch embeddings, projected into its slot's
 cross k/v at admission (``--block-size`` pages the self-attention
 cache); at full depth its 90.7 GB of int8 weights do not fit one card
 either, so the CLI serves it ``--reduced``.
+``--models a,b`` serves several registered archs as lanes of one engine
+(each arch name is its lane tag, its weights drawn from ``seed + i``):
+every lane gets its own ``--n-requests`` at ``--rate``, the service curve
+and the batch choice are measured on the first lane, and ``--model-quota
+TAG=N`` caps a lane's slots through the (model, class) quota keys
+``--batch-quota`` also uses; the report adds a line a model.
+``--replicas N`` serves the trace through ``engine/router.py``'s
+``ReplicaRouter`` over N engines that share the weights, and prints the
+fleet's and each replica's lines.
 
   python -m repro_torch.launch.serve --arch starcoder2-3b --reduced \\
       --deadline-ms 50 --rate 200                  # on the card
@@ -78,6 +87,10 @@ either, so the CLI serves it ``--reduced``.
       --reduced --device cpu --block-size 4          # vlm, paged, CPU
   python -m repro_torch.launch.serve --arch mixtral-8x22b --reduced \\
       --device cpu --prompt-len 72                   # the ring wraps, CPU
+  python -m repro_torch.launch.serve --models starcoder2-3b,qwen2-moe-a2.7b \\
+      --reduced --device cpu --model-quota starcoder2-3b=2   # two lanes, CPU
+  python -m repro_torch.launch.serve --arch starcoder2-3b --reduced \\
+      --device cpu --replicas 2                      # the router, CPU
 
 The reference's other serving options stay in the parser; given a value
 other than their default, each prints which ROADMAP item will port it and
@@ -106,11 +119,7 @@ from repro_torch.runtime import steps as ST
 from repro_torch.runtime.prng import PRNGKey
 
 # flag -> ROADMAP queue 1 item that will port it
-UNPORTED = {
-    "models": 14, "model_quota": 14,
-    "arrival": 12,
-    "replicas": 14, "tp": 14,
-}
+UNPORTED = {"arrival": 12, "tp": 14}
 CURVE_BATCHES = (1, 4, 16)    # measured batch sizes, with --max-batch
 TIMED_CALLS = 3               # timed calls per measurement, after one warm
 
@@ -187,6 +196,20 @@ def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog="python -m repro_torch.launch.serve")
     ap.add_argument("--arch", default=None,
                     help="single-model serving: one registry arch")
+    ap.add_argument("--models", default=None, metavar="A,B",
+                    help="multiplexing: comma-separated registry archs "
+                         "served as lanes of one engine (each arch name is "
+                         "its lane tag; instead of --arch); every lane "
+                         "gets its own --n-requests at --rate, and the "
+                         "service curve is measured on the first lane")
+    ap.add_argument("--model-quota", action="append", default=[],
+                    metavar="TAG=N",
+                    help="engine: cap one lane at N slots at once "
+                         "(repeatable; the (model, class) quota keys "
+                         "--batch-quota also uses)")
+    ap.add_argument("--replicas", type=int, default=1,
+                    help="fleet: serve through a ReplicaRouter over N "
+                         "engines sharing the weights (1 = one engine)")
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--quant", default="w8a16",
                     choices=["fp", "w8a16", "w8a8"])
@@ -253,18 +276,26 @@ def build_parser() -> argparse.ArgumentParser:
                          "kernels' plain versions)")
     unported = ap.add_argument_group(
         "not ported yet (each exits 1 when given a non-default value)")
-    unported.add_argument("--models", default=None, metavar="A,B")
-    unported.add_argument("--model-quota", action="append", default=[],
-                          metavar="TAG=N")
     unported.add_argument("--arrival", default="poisson",
                           choices=["poisson", "mmpp", "diurnal"])
-    unported.add_argument("--replicas", type=int, default=1)
     unported.add_argument("--tp", type=int, default=1)
     return ap
 
 
 def parse_args(argv=None) -> argparse.Namespace:
     return build_parser().parse_args(argv)
+
+
+def _parse_model_quotas(pairs) -> Dict[str, int]:
+    """``--model-quota TAG=N`` occurrences -> ``{tag: n}`` quota keys."""
+    quotas = {}
+    for p in pairs:
+        tag, _, n = p.partition("=")
+        if not tag or not n or not n.isdigit() or int(n) < 1:
+            raise ValueError(
+                f"--model-quota wants TAG=N with N >= 1, got {p!r}")
+        quotas[tag] = int(n)
+    return quotas
 
 
 def _f32_bytes(params) -> int:
@@ -302,6 +333,11 @@ class ServeRun:
     report: Optional[E.EngineReport] = None
     requests: List[E.EngineRequest] = dataclasses.field(default_factory=list)
     fault_plan: Optional[E.FaultPlan] = None
+    # --models: every lane's (cfg, params), the first lane's also above
+    lanes: Dict[str, tuple] = dataclasses.field(default_factory=dict)
+    # --replicas N > 1: the fleet (engine above is its first) and its report
+    fleet: List[E.Engine] = dataclasses.field(default_factory=list)
+    router_report: Optional[E.RouterReport] = None
 
 
 def run(args: argparse.Namespace) -> ServeRun:
@@ -313,8 +349,30 @@ def run(args: argparse.Namespace) -> ServeRun:
             print(f"[serve] --{flag.replace('_', '-')}: not ported yet "
                   f"(ROADMAP queue 1, item {item})")
             return ServeRun(code=1)
-    if args.arch is None:
-        print("[serve] need --arch")
+    if (args.models is None) == (args.arch is None):
+        print("[serve] need --arch or --models (exactly one)")
+        return ServeRun(code=1)
+    tags = ([t.strip() for t in args.models.split(",") if t.strip()]
+            if args.models else [args.arch])
+    if len(set(tags)) != len(tags):
+        print(f"[serve] --models tags must be unique: {args.models}")
+        return ServeRun(code=1)
+    try:
+        model_quotas = _parse_model_quotas(args.model_quota)
+    except ValueError as e:
+        print(f"[serve] {e}")
+        return ServeRun(code=1)
+    if unknown := set(model_quotas) - set(tags):
+        print(f"[serve] --model-quota names unknown lanes: "
+              f"{sorted(unknown)} (lanes: {tags})")
+        return ServeRun(code=1)
+    if args.replicas < 1:
+        print(f"[serve] --replicas must be >= 1 (got {args.replicas})")
+        return ServeRun(code=1)
+    if args.replicas > 1 and args.fault_seed is not None:
+        print("[serve] --fault-seed wants a single engine (--replicas 1): "
+              "a shared FaultPlan would replay the same fired list on "
+              "every replica")
         return ServeRun(code=1)
     frac = args.interactive_frac
     if not 0.0 <= frac <= 1.0:
@@ -326,15 +384,22 @@ def run(args: argparse.Namespace) -> ServeRun:
         return ServeRun(code=1)
     device = resolve_device(args.device)
     mode = {"fp": FP, "w8a16": W8A16, "w8a8": W8A8}[args.quant]
-    cfg = get_config(args.arch)
-    if args.reduced:
-        cfg = cfg.reduced()
-    params = _init_params(cfg, mode, args.seed, device)
-    if mode.enabled:
-        print(f"[quant] {args.arch} weights "
-              f"{_f32_bytes(params) / 1e6:.1f} MB -> "
-              f"{tree_weight_bytes(params) / 1e6:.1f} MB ({args.quant})")
-    out = ServeRun(code=1, cfg=cfg, params=params, mode=mode)
+    lanes = {}
+    for i, tag in enumerate(tags):
+        lcfg = get_config(tag)
+        if args.reduced:
+            lcfg = lcfg.reduced()
+        lparams = _init_params(lcfg, mode, args.seed + i, device)
+        if mode.enabled:
+            print(f"[quant] {tag} weights "
+                  f"{_f32_bytes(lparams) / 1e6:.1f} MB -> "
+                  f"{tree_weight_bytes(lparams) / 1e6:.1f} MB "
+                  f"({args.quant})")
+        lanes[tag] = (lcfg, lparams)
+    # the Table 4 curve and batch choice are measured on the first lane
+    cfg, params = lanes[tags[0]]
+    out = ServeRun(code=1, cfg=cfg, params=params, mode=mode,
+                   lanes=lanes if args.models else {})
 
     prefill = ST.jit_prefill_step(ST.make_prefill_step(cfg, mode=mode))
     model, curve = measure_service_curve(prefill, params, cfg, seq=args.seq,
@@ -391,9 +456,11 @@ def run(args: argparse.Namespace) -> ServeRun:
 
     # ---- the live continuous-batching engine -------------------------
     num_slots = ST.bucket_batch(max(batch, 1))
-    quotas = {"batch": args.batch_quota} if args.batch_quota else None
+    quotas = dict(model_quotas)
+    if args.batch_quota:
+        quotas["batch"] = args.batch_quota
     policy = bt.AdmissionPolicy(model.service_time, max_batch=num_slots,
-                                class_quotas=quotas)
+                                class_quotas=quotas or None)
     draft = None
     if args.draft:
         # a cross-model draft: a checkpoint of its own, in the target's
@@ -406,34 +473,55 @@ def run(args: argparse.Namespace) -> ServeRun:
         if args.reduced:
             dcfg = dcfg.reduced()
         draft = (dcfg, _init_params(dcfg, mode, args.seed + 2, device))
+    eng_kw = dict(mode=mode, num_slots=num_slots,
+                  max_seq=args.prompt_len + args.gen_tokens,
+                  policy=policy,
+                  prefill_chunk=args.prefill_chunk or None,
+                  block_size=args.block_size or None,
+                  num_blocks=args.num_blocks or None,
+                  temperature=args.temperature,
+                  rng=(PRNGKey(args.seed + 1)
+                       if args.temperature > 0 else None),
+                  spec_k=args.spec_k, draft=draft,
+                  draft_layers=args.draft_layers or None,
+                  device=device)
+
+    def build_engine(name=None):
+        if args.models:
+            return E.Engine(models=lanes, name=name, **eng_kw)
+        return E.Engine(cfg, params, name=name, **eng_kw)
+
     try:
-        eng = E.Engine(cfg, params, mode=mode, num_slots=num_slots,
-                       max_seq=args.prompt_len + args.gen_tokens,
-                       policy=policy,
-                       prefill_chunk=args.prefill_chunk or None,
-                       block_size=args.block_size or None,
-                       num_blocks=args.num_blocks or None,
-                       temperature=args.temperature,
-                       rng=(PRNGKey(args.seed + 1)
-                            if args.temperature > 0 else None),
-                       spec_k=args.spec_k, draft=draft,
-                       draft_layers=args.draft_layers or None,
-                       device=device)
+        fleet = [build_engine(f"replica{i}" if args.replicas > 1 else None)
+                 for i in range(args.replicas)]
     except ValueError as e:
         print(f"[engine] config rejected: {e}")
         return out
-    out.engine = eng
+    eng = out.engine = fleet[0]
     # rid-hash class split, stable under any n (the reference's rule)
     priority = ("interactive" if frac >= 1.0 else
                 (lambda rid: "interactive"
                  if (rid * 2654435761) % 1000 < frac * 1000 else "batch"))
-    reqs = E.synthetic_requests(
-        args.n_requests, rate_per_s=args.rate, vocab=cfg.vocab,
-        prompt_len=args.prompt_len, max_new_tokens=args.gen_tokens,
-        deadline_s=deadline, seed=args.seed,
-        shared_prefix_len=args.shared_prefix_len,
-        source_shape=R.source_shape(cfg), priority=priority)
+    # one sub-trace a lane, each in its lane's vocabulary and tagged with
+    # it, rids offset by lane so that the merged trace keys uniquely; the
+    # single-model trace is the one-lane case, as before
+    reqs = []
+    for i, tag in enumerate(tags):
+        lcfg = lanes[tag][0]
+        sub = E.synthetic_requests(
+            args.n_requests, rate_per_s=args.rate, vocab=lcfg.vocab,
+            prompt_len=args.prompt_len, max_new_tokens=args.gen_tokens,
+            deadline_s=deadline, seed=args.seed + i,
+            shared_prefix_len=args.shared_prefix_len,
+            source_shape=R.source_shape(lcfg), priority=priority,
+            model=tag if args.models else None)
+        reqs.extend(dataclasses.replace(r, rid=r.rid + i * args.n_requests)
+                    for r in sub)
+    reqs.sort(key=lambda r: r.arrival_s)
     out.requests = reqs
+    if args.replicas > 1:
+        out.fleet = fleet
+        return _serve_fleet(out, args, fleet, reqs, num_slots)
     plan = (E.FaultPlan.random(args.fault_seed, n_faults=args.n_faults,
                                num_slots=num_slots)
             if args.fault_seed is not None else None)
@@ -489,6 +577,16 @@ def run(args: argparse.Namespace) -> ServeRun:
                   f"p99 {rep.class_p99_latency_s[cls]*1e3:8.2f} ms, "
                   f"ttft {rep.class_mean_ttft_s[cls]*1e3:.2f} ms mean / "
                   f"{rep.class_p99_ttft_s[cls]*1e3:.2f} ms p99")
+    for tag in rep.model_p99_latency_s:
+        print(f"[engine]   model {tag}: "
+              f"p99 {rep.model_p99_latency_s[tag]*1e3:8.2f} ms, "
+              f"ttft {rep.model_mean_ttft_s[tag]*1e3:.2f} ms mean / "
+              f"{rep.model_p99_ttft_s[tag]*1e3:.2f} ms p99, "
+              f"goodput {rep.model_goodput_tokens_per_s[tag]:,.0f} tok/s, "
+              f"occupancy {rep.model_mean_occupancy[tag]:.1%} of the "
+              f"shared lease / {max(rep.model_occupancy[tag], default=0)} "
+              f"peak"
+              + (f" (quota {quotas[tag]})" if tag in quotas else ""))
     if (rep.preempted or rep.dropped or rep.failed or rep.unfinished
             or args.preemption or plan is not None):
         print(f"[engine] retirement: {rep.preempted} preemptions "
@@ -501,6 +599,34 @@ def run(args: argparse.Namespace) -> ServeRun:
               f"{rep.torn_rows_repaired} torn rows repaired, "
               f"{rep.leaked_blocks} leaked blocks, "
               f"{rep.stuck_ticks} stuck ticks)")
+    out.code = 0
+    return out
+
+
+def _serve_fleet(out: ServeRun, args, fleet, reqs, num_slots) -> ServeRun:
+    """``--replicas N``: the trace through a ``ReplicaRouter`` over the
+    fleet (each engine warmed up before the wall clock starts)."""
+    router = E.ReplicaRouter(fleet)
+    for member in fleet:
+        member.warmup()
+    try:
+        rrep = router.serve(reqs, clock="wall", preemption=args.preemption)
+    except E.RequestTooLong as e:
+        print(f"[engine] request rejected at admission: {e}")
+        return out
+    out.router_report = rrep
+    print(f"[router] {len(fleet)} replicas x {num_slots} slots x "
+          f"{fleet[0].max_seq} positions; {len(rrep.results)} requests, "
+          f"{rrep.refused} refused")
+    print(f"[router] fleet p99 {rrep.p99_latency_s*1e3:.2f} ms "
+          f"(deadline {args.deadline_ms} ms); "
+          f"{rrep.tokens_per_s:,.0f} tok/s decoded, goodput "
+          f"{rrep.goodput_tokens_per_s:,.0f} tok/s; "
+          f"ttft {rrep.mean_ttft_s*1e3:.2f} ms mean; "
+          f"{rrep.leaked_blocks} leaked blocks")
+    print("[router] per-replica occupancy: " + "  ".join(
+        f"{n}={rrep.replica_occupancy[n]:.1%}"
+        f"({rrep.replica_requests[n]} reqs)" for n in rrep.replica_names))
     out.code = 0
     return out
 

@@ -94,7 +94,11 @@ def capture_stream(device: torch.device) -> torch.cuda.Stream:
 
 
 # bindings a captured step keeps by default: a few engines (or lanes) of
-# one config taking turns
+# one config taking turns.  Every lane and every replica of one config
+# binds the memoized step anew (its own cache), so more than four in use
+# in turn would capture again at every call; chip_smoke.py's multiplex
+# phase keeps at most four of one config in use (two lanes of a
+# hot-swap, two replicas and a dedicated engine)
 MAX_BINDINGS = 4
 
 

@@ -203,9 +203,6 @@ def test_engine_rejects_oversized_request(setup):
 
 
 def test_unported_options_name_their_roadmap_item(setup):
-    _, cfg, _, params, _ = setup
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        _engine(cfg, params, models={"a": (cfg, params)})
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         E.ShardedExecutor(tp=2)
 

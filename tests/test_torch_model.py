@@ -189,13 +189,10 @@ def test_decode_rows_match_batch_one_bitwise(setup):
             assert torch.equal(rows[r][k][:, 0], cache[k][:, r])
 
 
-def test_unported_paths_name_their_roadmap_item(setup):
-    """Multiplexing and the sharded executor are not ported yet: asking
-    for either raises, naming its ROADMAP item."""
+def test_unported_paths_name_their_roadmap_item():
+    """The sharded executor is not ported yet: asking for it raises,
+    naming its ROADMAP item."""
     from repro_torch import engine as E
 
-    _, tcfg, _, _, tq = setup
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 14"):
-        E.Engine(tcfg, tq, mode=W8A16, device="cpu", models={"a": tq})
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 14"):
         E.ShardedExecutor()

@@ -4,7 +4,8 @@ quantize, the service curve through ``forward``, the Table 4 batch choice,
 the decode loop, and the engine under the wall clock or the ``--sim``
 simulator, the overload flags, the paged bf16 cache (--block-size,
 --num-blocks, --shared-prefix-len), speculation (--spec-k with
---draft-layers or --draft) — and its refusals."""
+--draft-layers or --draft), multiplexing (--models, --model-quota) and
+the replica router (--replicas) — and its refusals."""
 import pytest
 import torch
 
@@ -64,9 +65,7 @@ def test_serve_unattainable_deadline_returns_one(capsys):
     assert "unattainable" in capsys.readouterr().out
 
 
-UNPORTED = [("--models", "starcoder2-3b,starcoder2-3b"),
-            ("--model-quota", "starcoder2-3b=2"),
-            ("--arrival", "mmpp"), ("--replicas", "2"), ("--tp", "2")]
+UNPORTED = [("--arrival", "mmpp"), ("--tp", "2")]
 
 
 def test_unported_flag_list_covers_the_table():
@@ -313,3 +312,87 @@ def test_serve_spec_k_refuses_a_bad_draft(flags, capsys):
     exits 1."""
     assert serve.main(BASE + flags) == 1
     assert "[engine] config rejected:" in capsys.readouterr().out
+
+
+# ---------------------------------------------------------------------------
+# multiplexing and the replica router
+# ---------------------------------------------------------------------------
+
+MODELS = ["--models", "starcoder2-3b,qwen2-moe-a2.7b"] + BASE[2:]
+
+
+def test_serve_models_with_a_model_quota(capsys):
+    """--models a,b --model-quota a=2: two lanes of one engine, each
+    with its own sub-trace of --n-requests (rids offset by lane, weights
+    from seed + lane), the quota never exceeded in a tick, one report line
+    a model; each lane's tokens are its sequential reference's."""
+    from repro_torch import engine as E
+    res = serve.run(serve.parse_args(
+        MODELS + ["--model-quota", "starcoder2-3b=2"]))
+    assert res.code == 0
+    out = capsys.readouterr().out
+    tags = ("starcoder2-3b", "qwen2-moe-a2.7b")
+    for tag in tags:
+        assert f"[quant] {tag} weights" in out
+        assert f"[engine]   model {tag}: p99" in out
+    assert "(quota 2)" in out
+    eng, rep = res.engine, res.report
+    assert eng.multi and list(eng.lanes) == list(tags)
+    assert sorted(r.rid for r in rep.results) == list(range(12))
+    assert {r.model for r in rep.results if r.rid >= 6} == {tags[1]}
+    assert all(r.status == "ok" for r in rep.results)
+    assert max(rep.model_occupancy[tags[0]]) <= 2
+    for tag, (cfg, params) in res.lanes.items():
+        sub = [r for r in res.requests if r.model == tag]
+        assert rep.outputs_for(tag) == E.reference_outputs(
+            cfg, params, sub, mode=res.mode, max_seq=eng.max_seq,
+            device="cpu")
+
+
+def test_serve_replicas_prints_the_router_lines(capsys):
+    """--replicas 2: the trace through a ReplicaRouter over two engines
+    that share the weights; the fleet and per-replica lines, every
+    request served, each as the sequential reference."""
+    from repro_torch import engine as E
+    res = serve.run(serve.parse_args(BASE + ["--n-requests", "8",
+                                             "--replicas", "2"]))
+    assert res.code == 0
+    out = capsys.readouterr().out
+    assert "[router] 2 replicas x" in out and "0 refused" in out
+    assert "[router] per-replica occupancy: replica0=" in out
+    assert "replica1=" in out and "[engine]" not in out
+    rrep = res.router_report
+    assert [e.name for e in res.fleet] == ["replica0", "replica1"]
+    assert res.fleet[0].params is res.fleet[1].params
+    assert sum(rrep.replica_requests.values()) == 8
+    assert rrep.leaked_blocks == 0
+    assert rrep.outputs() == E.reference_outputs(
+        res.cfg, res.params, res.requests, mode=res.mode,
+        max_seq=res.engine.max_seq, device="cpu")
+
+
+ARCH = ["--arch", "starcoder2-3b"]
+
+
+@pytest.mark.parametrize("flags,message", [
+    (["--models", "starcoder2-3b,starcoder2-3b"],
+     "--models tags must be unique"),
+    (["--models", "starcoder2-3b", "--model-quota", "qwen2-moe-a2.7b=2"],
+     "--model-quota names unknown lanes"),
+    (ARCH + ["--model-quota", "starcoder2-3b=0"],
+     "--model-quota wants TAG=N"),
+    (ARCH + ["--model-quota", "starcoder2-3b"], "--model-quota wants TAG=N"),
+    (ARCH + ["--replicas", "0"], "--replicas must be >= 1"),
+    (ARCH + ["--replicas", "2", "--fault-seed", "3"],
+     "--fault-seed wants a single engine"),
+    (ARCH + ["--models", "starcoder2-3b,qwen2-moe-a2.7b"],
+     "need --arch or --models"),
+], ids=["duplicate-tags", "unknown-quota-lane", "quota-zero",
+        "quota-no-count", "zero-replicas", "faults-with-replicas",
+        "arch-and-models"])
+def test_serve_multiplex_flags_refuse_bad_values(flags, message, capsys):
+    """Each refusal exits 1 before any weight is drawn."""
+    assert serve.main(flags + BASE[2:]) == 1
+    out = capsys.readouterr().out
+    assert message in out
+    assert "[quant]" not in out
