@@ -70,8 +70,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
    a block edge), a 4,096-slot and the serve CLI's bf16 cache, and under
    W8A8: for every n_valid up to the chunk, the one-pass eager and the
    captured chunk bitwise equal to the eager per-token step (every cache
-   leaf), then a chunk's wall, device busy and launch calls three ways
-   (per-token eager, one-pass eager, captured); and the workspace a
+   leaf), then a chunk's wall three ways (per-token eager, one-pass
+   eager, captured) and the captured chunk's device busy and launch
+   calls; and the workspace a
    capture holds: the 8-row tick, captured first, replays equal to the
    eager tick after the 16-row captures grew the capture stream's
    workspace, with every arrival counter back at 0;
@@ -119,7 +120,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
    graphs), counters zeroed just before each run and read just after,
    then where one 16 x 32-token prefill spends its time, and the curve's
    forward eager against captured at each batch (logits bitwise; wall
-   and device busy of each; the eager curve's Table 4 choice beside the
+   of each, the captured one's device busy; the eager curve's Table 4
+   choice beside the
    run's); the w8a16 run's first three requests are compared with
    ``reference_outputs`` (bf16 cache) on the card; then one more w8a16
    run with the overload flags (``--interactive-frac 0.5 --batch-quota 4
@@ -145,8 +147,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
    exit 0, its service curve on the mma path and flash attention at
    H = 32 (eager against captured as in phase 9), four of its requests
    equal to ``reference_outputs``;
-11. moe: qwen2-moe-a2.7b at full width (24 layers, 60 routed experts
-   top-4 and 4 shared, vocab 151,936 tied).  First ``qmatmul_w8a16``'s
+11. moe: qwen2-moe-a2.7b at full width (60 routed experts top-4 and 4
+   shared, vocab 151,936 tied; its streamed init's peak held at all 24
+   layers, the serves at 8 of them, the CLI at 24).  First ``qmatmul_w8a16``'s
    two expert-stacked entries against their plain version: the GEMV at a
    tick's shapes (60 experts x 8 rows: w_gate with the silu drain, w_up,
    w_down), all live and under the live mask of a tick's routing (8
@@ -196,8 +199,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
    weights, cross k/v and self k/v it reads); then the serve CLI with
    ``--arch whisper-medium`` (its curve's forward encodes 1,500 frames a
    row; four requests equal to ``reference_outputs``).
-13. ssm: mamba2-1.3b at full width (48 layers, d 2,048, d_inner 4,096,
-   64 SSD heads of 64, state N 128, vocab 50,280 tied).  First
+13. ssm: mamba2-1.3b at full width (d 2,048, d_inner 4,096, 64 SSD
+   heads of 64, state N 128, vocab 50,280 tied; the serves, tick and
+   chunk at 16 of its 48 layers, the CLI at all 48).  First
    ``qmatmul_w8a16`` (both kernels at a tick's M = 8, the mma path at the
    curve's M = 512, rows checked alone) and ``qmatmul_w8a8`` (M = 8 and
    512, its int32 sums bitwise) at in_proj (K 2,048 x N 8,512) and
@@ -219,7 +223,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
 14. hybrid: recurrentgemma-9b at full width (38 layers: 12 groups of two
    RG-LRU blocks and a local-attention block, 2 leftover RG-LRU blocks;
    d 4,096, 16 query heads and 1 KV head of 256, window 2,048, vocab
-   256,000 tied).  First ``flash_attention_bhsd`` at head_dim 256 (the
+   256,000 tied; its streamed init's peak held at all 38 layers, the
+   serves, ring tick and chunk at 14: 4 groups and the 2 leftover
+   blocks; the CLI at 38).  First ``flash_attention_bhsd`` at head_dim
+   256 (the
    kernel's HD = 256 instance: the CLI curve's BH = 16 x 1, 4, 16 at S =
    32, and S = 4,096 where the window bites), then ``qmatmul_w8a16`` and
    ``qmatmul_w8a8`` at its projections and the 256,000-column head, each
@@ -280,6 +287,20 @@ Phases, each of which fails the run (non-zero exit, no result line):
    starcoder2-3b=4`` and with ``--replicas 2``, each exit 0 with its
    per-model or per-replica lines.  Every serve is warmed up, captures
    nothing, reaches no plain version and launches no mma path.
+17. sharded (in the whole run right after phase 16, on phase 3's
+   params): scale-out on the one card, ``Engine(backend=
+   ShardedExecutor(tp, devices=[card] * tp))``: phase 3's trace served
+   at tp 2 and tp 4 beside a single-device control (alive beside them,
+   so the graph budget must keep every engine's graphs), each serve's
+   outputs bitwise the control's, no capture in a serve, qmatmul_w8a16's
+   GEMV and both decode attention kernels launched; the captured tick
+   of each tp timed against the control's and the private pools of each
+   engine's graphs printed; tp 2 paged (blocks of 16, 13 blocks) with
+   preemption and sampling against its single-device control (every
+   request equal, 0 leaked); tp 2 speculating (k = 3, a 1-layer
+   self-draft) on 8 of the requests, equal to the control; the serve
+   CLI with ``--tp 2`` and with ``--replicas 2 --tp 2``, each exit 0,
+   every request ok and three held to ``reference_outputs``.
 
 The kernel phase holds both of ``qmatmul_w8a16``'s kernels (the GEMV and
 the ``mma.sync`` bf16 tensor-core path) at every projection and the LM
@@ -316,13 +337,15 @@ than before the redesigns.
 ``--only attention`` / ``--only long_tick`` / ``--only w8a8`` / ``--only
 graphs`` / ``--only dense`` / ``--only sampling`` / ``--only spec`` /
 ``--only moe`` / ``--only encdec`` / ``--only ssm`` / ``--only hybrid`` /
-``--only mixtral`` / ``--only multiplex`` run just the two
+``--only mixtral`` / ``--only multiplex`` / ``--only sharded`` run just
+the two
 attention kernel
 phases, the long-context ticks, ``qmatmul_w8a8``'s kernel phase and the
 W8A8 tick, the five eager tick breakdowns and the graph phase, the dense
 family's kernel rows, rmsnorm widths and phase 10, phase 7 and the
 sampled serve CLI run, phase 8 with its CLI run and qwen2-moe-a2.7b's
-speculative serve, phase 11, 12, 13, 14, 15 or 16, and ``--src DIR``
+speculative serve, phase 11, 12, 13, 14, 15, 16 or 17, and ``--src
+DIR``
 takes the port from
 another checkout's ``src/`` (so the same phases time a parent commit's
 kernels); such a partial run prints no result line.
@@ -345,7 +368,9 @@ times under ``hybrid``; every kernel's rows at mixtral-8x22b's shapes,
 their launches in its serves and launcher runs, and the ring tick's,
 chunks', serves' and launcher's times under ``mixtral``; each kernel's
 launches in the multiplexed, routed and ``--models`` runs under
-``multiplex``), and beside ``kernels`` the multiplex phase's numbers
+``multiplex``; the three kernels' launches in the tp 2 and tp 4 serves
+under ``sharded``, qmatmul_w8a16's with each tp's captured tick and
+tok/s), and beside ``kernels`` the multiplex phase's numbers
 under ``multiplex`` (the serves' tok/s and occupancies, the ticks'
 wall and busy, the hot-swap's and the router's counts, the phase's
 seconds), the whole run's time, and,
@@ -2114,15 +2139,17 @@ PROFILED_CALLS = 1
 
 
 def device_breakdown(label: str, what: str, fn, reps: int,
-                     detail: bool = True):
+                     detail: bool = True, profiled: bool = True):
     """Where one call of ``fn`` spends its time: host wall clock per call
     (each ending in a wait for the card) over ``reps`` calls, then the
     device's busy time, its largest kernels and the host's largest ops
-    (``detail``) from torch.profiler over PROFILED_CALLS more.  Returns,
-    per call, ``wall`` ms, ``busy`` ms (None where the profiler reported
-    no device time), ``launch_calls`` (cudaLaunchKernel),
-    ``graph_launches`` (cudaGraphLaunch) and ``by_kernel`` ({kernel:
-    device ms})."""
+    (``detail``) from torch.profiler over PROFILED_CALLS more, unless not
+    ``profiled`` (the wall clock alone: the profiler's bookkeeping of an
+    eager call's thousands of launches takes seconds, on the host).
+    Returns, per call, ``wall`` ms, ``busy`` ms (None where the profiler
+    reported no device time or did not run), ``launch_calls``
+    (cudaLaunchKernel), ``graph_launches`` (cudaGraphLaunch; both None
+    unprofiled) and ``by_kernel`` ({kernel: device ms})."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -2131,12 +2158,21 @@ def device_breakdown(label: str, what: str, fn, reps: int,
         torch.cuda.synchronize()
 
     n = PROFILED_CALLS
+    if not profiled:
+        # every call timed, as many as a profiled breakdown makes: a
+        # recurrent state the calls advance ends where it would
+        reps += n
     with torch.inference_mode():
         call()
         t0 = time.perf_counter()
         for _ in range(reps):
             call()
         wall_ms = (time.perf_counter() - t0) * 1e3 / reps
+        if not profiled:
+            print(f"{label}: {what} wall {wall_ms:.2f} ms, device busy "
+                  f"not measured (wall clock alone)")
+            return {"wall": wall_ms, "busy": None, "launch_calls": None,
+                    "graph_launches": None, "by_kernel": {}}
         warnings.filterwarnings("ignore", message=".*Profiler clears")
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
@@ -2553,8 +2589,9 @@ def graph_chunk_case(cfg, params, label, S, max_seq, block_size, mode,
     eager one pass's (under W8A16: ``step_gemvs`` GEMVs,
     an MoE layer's three expert stacks and one paged attention launch a
     layer, where the per-token step launches n times that); then a full
-    chunk's wall, device busy and launch calls three ways.  Returns the
-    breakdowns by way."""
+    chunk's wall three ways, and the captured chunk's device busy and
+    launch calls (an eager chunk is timed by the wall clock alone).
+    Returns the breakdowns by way."""
     import torch
     from repro_torch.core.qlinear import W8A8, W8A16
     from repro_torch.models import registry as R
@@ -2651,7 +2688,8 @@ def graph_chunk_case(cfg, params, label, S, max_seq, block_size, mode,
         res[way] = device_breakdown(
             f"{label} {way}", f"chunk of {PREFILL_CHUNK} tokens",
             lambda fn=fn, c=c: fn(params, toks, c, sid, start,
-                                  PREFILL_CHUNK), CHUNK_REPS)
+                                  PREFILL_CHUNK), CHUNK_REPS,
+            profiled=way == "captured")
     for name in cache:                 # the timed calls rewrote the same bytes
         if not (torch.equal(got[name], want[name])
                 and (not one_pass or torch.equal(one[name], want[name]))):
@@ -2661,11 +2699,14 @@ def graph_chunk_case(cfg, params, label, S, max_seq, block_size, mode,
     def ms(x):
         return "not measured" if x is None else f"{x:.3f} ms"
 
+    def calls(x):
+        return "not measured" if x is None else f"{x:.0f}"
+
     print(f"{label}: per chunk of {PREFILL_CHUNK}, "
           + "; ".join(f"{way} wall {r['wall']:.2f} ms, busy "
                       f"{ms(r['busy'])}, cudaLaunchKernel "
-                      f"{r['launch_calls']:.0f}, cudaGraphLaunch "
-                      f"{r['graph_launches']:.0f}"
+                      f"{calls(r['launch_calls'])}, cudaGraphLaunch "
+                      f"{calls(r['graph_launches'])}"
                       for way, r in res.items()))
     if res["captured"]["wall"] >= res["per-token eager"]["wall"]:
         raise AssertionError(f"{label}: the captured chunk is not faster "
@@ -2760,8 +2801,9 @@ def curve_check(label: str, res, args, timing: bool = True) -> None:
     (``runtime/steps.py::jit_prefill_step``, what the launcher measured
     with) at each batch of the run's curve: the captured logits
     ``torch.equal`` to the eager ones on random tokens; with ``timing``
-    also each form's wall and device busy per call (the same method as
-    the tick breakdowns: wall over 3 calls, busy from PROFILED_CALLS),
+    also each form's wall per call over 3 calls and the captured form's
+    device busy from PROFILED_CALLS (the eager form's, under the
+    profiler, cost seconds of host bookkeeping),
     then the curve and the Table 4 batch the launcher's own measurement
     gives through the eager step, beside the run's captured curve and
     choice."""
@@ -2789,15 +2831,16 @@ def curve_check(label: str, res, args, timing: bool = True) -> None:
             continue
         what = f"forward of {b} x {args.seq} tokens"
         e = device_breakdown(f"{label} curve b={b} eager", what,
-                             lambda: eager(res.params, batch), 3, False)
+                             lambda: eager(res.params, batch), 3, False,
+                             profiled=False)
         c = device_breakdown(f"{label} curve b={b} captured", what,
                              lambda: graphed(res.params, batch), 3, False)
-        busy = ("not measured" if e["busy"] is None or c["busy"] is None
-                else f"{e['busy']:.3f} / {c['busy']:.3f} ms")
+        busy = ("not measured" if c["busy"] is None
+                else f"{c['busy']:.3f} ms")
         print(f"{label} curve b={b}: captured logits bitwise the eager "
               f"forward's; eager / captured wall {e['wall']:.2f} / "
-              f"{c['wall']:.2f} ms, device busy {busy}, cudaLaunchKernel "
-              f"{e['launch_calls']:.0f} / {c['launch_calls']:.0f}")
+              f"{c['wall']:.2f} ms, captured device busy {busy}, "
+              f"cudaLaunchKernel {c['launch_calls']:.0f}")
     if graphed.captured.captures != len(res.curve):
         raise AssertionError(f"{label}: {graphed.captured.captures} "
                              f"captures for {len(res.curve)} batches")
@@ -3535,6 +3578,16 @@ def moe_spec_serve(label, cfg, params, reqs, control):
 # the three other dense configs, smallest first: each is built at full
 # width from the streamed init, served, timed and freed before the next
 DENSE_ARCHS = ("mistral-nemo-12b", "internlm2-20b", "qwen1.5-32b")
+# the depth that the MoE, ssm and hybrid phases serve, tick and hold to
+# their references at (widths are never cut): 8 of qwen2-moe-a2.7b's 24
+# layers, 16 of mamba2-1.3b's 48, and 14 of recurrentgemma-9b's 38 (4 of
+# its 12 groups and its 2 leftover blocks).  At full depth the whole run
+# took 1,311.7 s on an NVIDIA H100 80GB HBM3 at 700 W, over its 1,200 s
+# limit; these cuts save 39-64 s each there (PERF.md, Findings).  A config with a PEAK_BYTES limit has its full-depth
+# streamed init held to it first (``build_family_model``); the dense
+# configs, and every family's serve CLI run, keep their full depth
+FAMILY_LAYERS = {"qwen2-moe-a2.7b": 8, "mamba2-1.3b": 16,
+                 "recurrentgemma-9b": 14}
 DENSE_REQUESTS = 8
 DENSE_PROMPT = 16
 DENSE_NEW = 16
@@ -3787,6 +3840,18 @@ def build_dense_model(arch, n_layers=None, beside=False):
                              f"bytes ({before} allocated before it) is not "
                              f"under {limit:.0f}")
     return cfg, params
+
+
+def build_family_model(arch):
+    """``arch`` at full width and FAMILY_LAYERS depth from the streamed
+    init, for a family phase's serves, ticks and references; where
+    PEAK_BYTES sets a limit, the full-depth init is built first, its peak
+    held to the limit, and freed at once."""
+    if arch in PEAK_BYTES:
+        params = build_dense_model(arch)[1]
+        del params
+        torch_cuda_empty()
+    return build_dense_model(arch, FAMILY_LAYERS[arch])
 
 
 def dense_serve(label, cfg, params, reqs, **kw):
@@ -4478,7 +4543,7 @@ def moe_phase(flush):
     print(f"moe: kernel rows and routing {time.perf_counter() - t0:.1f}s")
     ST.clear_step_cache()
     torch_cuda_empty()
-    cfg, params = build_dense_model(MOE_ARCH)
+    cfg, params = build_family_model(MOE_ARCH)
     reqs = E.synthetic_requests(
         DENSE_REQUESTS, rate_per_s=DENSE_RATE_PER_S, vocab=cfg.vocab,
         prompt_len=DENSE_PROMPT, max_new_tokens=DENSE_NEW,
@@ -5577,7 +5642,7 @@ def ssm_phase(flush):
         flush, SSM_ARCH, SSM_SHAPES, SEED + 29)
     print(f"ssm: kernel rows {time.perf_counter() - t0:.1f}s")
     torch_cuda_empty()
-    cfg, params = build_dense_model(SSM_ARCH)
+    cfg, params = build_family_model(SSM_ARCH)
     reqs = E.synthetic_requests(
         DENSE_REQUESTS, rate_per_s=DENSE_RATE_PER_S, vocab=cfg.vocab,
         prompt_len=DENSE_PROMPT, max_new_tokens=DENSE_NEW,
@@ -5770,7 +5835,7 @@ def hybrid_phase(flush):
         flush, HYB_ARCH, HYB_SHAPES, SEED + 43)
     print(f"hybrid: kernel rows {time.perf_counter() - t0:.1f}s")
     torch_cuda_empty()
-    cfg, params = build_dense_model(HYB_ARCH)
+    cfg, params = build_family_model(HYB_ARCH)
     reqs = E.synthetic_requests(
         DENSE_REQUESTS, rate_per_s=DENSE_RATE_PER_S, vocab=cfg.vocab,
         prompt_len=DENSE_PROMPT, max_new_tokens=DENSE_NEW,
@@ -6940,8 +7005,235 @@ def multiplex_phase(cfg, params):
     return out
 
 
+SHARD_TPS = (2, 4)          # shards of the NUM_SLOTS pool on the one card
+SHARD_BLOCKS = OVERLOAD_BLOCKS   # the paged serve's pool: preemption bites
+SHARD_TIMED_TICKS = 10      # captured ticks a wall timing
+SHARD_CLI_ARGS = SERVE_ARGS + ["--decode-tokens", "0"]
+SHARD_NEED = ("qmatmul_w8a16[gemv]", "decode_attention_int8",
+              "decode_attention_int8_paged")
+SHARD_SPEC_REQUESTS = 8     # the speculating serve's share of the trace
+
+
+def graph_pool_bytes(eng):
+    """(reserved, allocated) bytes of the private pools that the graphs
+    bound to ``eng``'s caches hold (its steps' bindings on its cache or
+    on its shards' views of it)."""
+    ptrs = {t.untyped_storage().data_ptr() for ln in eng.lanes.values()
+            for c in (ln._cache, ln._draft_cache) if c for t in c.values()}
+    caps = {id(s.captured): s.captured for s in step_objects(eng)}
+    held = [b.pool_bytes for cap in caps.values()
+            for b in cap._bindings.values() if b.cache_leaves and
+            b.cache_leaves[0].untyped_storage().data_ptr() in ptrs]
+    return tuple(sum(p[i] for p in held) for i in (0, 1))
+
+
+def shard_engine(cfg, params, tp=1, **kw):
+    """The contiguous slice's engine geometry, its slot pool split into
+    ``tp`` shards on the card (``tp`` 1: the single-device executor)."""
+    from repro_torch import engine as E
+    from repro_torch.core.qlinear import W8A16
+
+    if tp > 1:
+        kw["backend"] = E.ShardedExecutor(
+            tp, devices=[torch_device()] * tp)
+    kw.setdefault("prefill_chunk", PREFILL_CHUNK)
+    return E.Engine(cfg, params, mode=W8A16, num_slots=NUM_SLOTS,
+                    max_seq=PROMPT_LEN + MAX_NEW, **kw)
+
+
+def torch_device():
+    import torch
+    return torch.device("cuda", torch.cuda.current_device())
+
+
+def shard_tick_times(label, engines, card) -> dict:
+    """The captured steady tick (NUM_SLOTS rows at position (PROMPT_LEN +
+    MAX_NEW) / 2, all active) of each engine of ``engines`` ({tp: engine},
+    tp 1 the single-device control) on its own cache: wall over
+    SHARD_TIMED_TICKS calls and device busy from torch.profiler.  The
+    steps are the engines' own bindings: no capture."""
+    import torch
+
+    S, pos = NUM_SLOTS, (PROMPT_LEN + MAX_NEW) // 2
+    toks = torch.ones((S, 1), dtype=torch.int32, device="cuda")
+    idx = torch.full((S,), pos, dtype=torch.int32, device="cuda")
+    active = torch.ones((S,), dtype=torch.bool, device="cuda")
+    bound = [step_captures(e) for e in engines.values()]
+    out = {}
+    for tp, eng in engines.items():
+        ln = eng.lanes[None]
+
+        def fn(ln=ln):
+            ln.step(ln.params, toks, ln.cache, idx, active)[0].cpu()
+
+        t = device_breakdown(f"{label} tp={tp}",
+                             f"captured tick ({S} rows at {pos})", fn,
+                             SHARD_TIMED_TICKS, False)
+        out[tp] = {"wall_ms": t["wall"], "busy_ms": t["busy"],
+                   "graph_launches": t["graph_launches"]}
+    if [step_captures(e) for e in engines.values()] != bound:
+        raise AssertionError(f"{label}: timing the ticks captured a graph")
+    one = out[1]
+    print(f"{label} ({card}): captured tick wall / busy ms: "
+          + "; ".join(f"tp={tp} {t['wall_ms']:.2f} / "
+                      + ("not measured" if t["busy_ms"] is None
+                         else f"{t['busy_ms']:.3f}")
+                      + f" ({t['wall_ms'] / one['wall_ms']:.2f}x tp=1)"
+                      for tp, t in out.items()))
+    return out
+
+
+def shard_cli_run(card, tp_args, control_cfg=None) -> dict:
+    """The serve CLI at full starcoder2-3b width with ``tp_args`` (``--tp
+    2``, with or without ``--replicas 2``): exit 0, its "sharded
+    executor" line, every request ok, kernels 1-3 launched and no plain
+    version; N_COMPARE requests held to ``reference_outputs``."""
+    import contextlib
+    import io
+
+    from repro_torch.launch import serve
+
+    argv = SHARD_CLI_ARGS + ["--quant", "w8a16"] + tp_args
+    label = f"serve {' '.join(tp_args)}"
+    print(f"{label}: python -m repro_torch.launch.serve {' '.join(argv)}")
+    t0 = time.perf_counter()
+    zero_counts()
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        res = serve.run(serve.parse_args(argv))
+    launches, plain = read_counts()
+    print(out.getvalue(), end="")
+    rep = res.router_report or res.report
+    if res.code != 0 or rep is None or \
+            "[serve] sharded executor: tp=2 " not in out.getvalue():
+        raise AssertionError(f"{label}: exit code {res.code}")
+    if any(plain.values()) or any(launches[k] <= 0 for k in SHARD_NEED[:1]) \
+            or any(r.status != "ok" for r in rep.results) or \
+            len(rep.results) != len(res.requests):
+        raise AssertionError(f"{label}: launches {launches}, plain "
+                             f"{plain}, statuses "
+                             f"{[r.status for r in rep.results]}")
+    reqs = sorted(res.requests, key=lambda r: r.rid)[:N_COMPARE]
+    compare_with_reference(label, res.cfg, res.params, res.engine, reqs,
+                           rep.outputs())
+    print(f"{label} ({card}): run {time.perf_counter() - t0:.1f}s, exit 0, "
+          f"{len(rep.results)} requests ok, {rep.tokens_per_s:.1f} tok/s; "
+          f"kernel launches {launches}")
+    return {"launches": launches, "tok_s": rep.tokens_per_s}
+
+
+def sharded_phase(cfg, params):
+    """Scale-out at full width on the one card: starcoder2-3b (the slice's
+    params, W8A16, int8 cache) on the contiguous slice's trace through
+    ``ShardedExecutor(tp, devices=[card] * tp)`` for tp in SHARD_TPS,
+    each serve's outputs bitwise the single-device control serve's (the
+    control alive beside it: the graph budget must keep every engine's
+    graphs), no capture in a serve, kernels 1-3 launched; the captured
+    tick of each tp against the control's; tp 2 paged (blocks of
+    PAGED_BLOCK, SHARD_BLOCKS of them) with preemption and sampling
+    against its single-device control; tp 2 speculating (k = SPEC_K, a
+    1-layer self-draft) on SHARD_SPEC_REQUESTS of the requests against
+    the control; the serve CLI with ``--tp
+    2`` and with ``--replicas 2 --tp 2``.  Everything it allocates is
+    freed before it returns.  Returns its numbers."""
+    from repro_torch import engine as E
+    from repro_torch.runtime import prng as P
+    from repro_torch.runtime import steps as ST
+
+    t0 = time.perf_counter()
+    card = card_line()
+    ST.clear_step_cache()
+    torch_cuda_empty()
+    reqs = E.synthetic_requests(N_REQUESTS, rate_per_s=400.0,
+                                vocab=cfg.vocab, prompt_len=PROMPT_LEN,
+                                max_new_tokens=MAX_NEW, seed=SEED)
+    out = {"card": card}
+    label = "sharded"
+    control = shard_engine(cfg, params)
+    crep, _ = mux_serve(f"{label} control", control, reqs, SHARD_NEED)
+    check_served(f"{label} control", cfg, crep, reqs)
+    out["control"] = {"tok_s": crep.generated_tokens / crep.wall_s,
+                      "ticks": crep.ticks}
+    engines = {1: control}
+    for tp in SHARD_TPS:
+        eng = engines[tp] = shard_engine(cfg, params, tp)
+        rep, launches = mux_serve(f"{label} tp={tp}", eng, reqs, SHARD_NEED)
+        if rep.outputs() != crep.outputs():
+            raise AssertionError(f"{label} tp={tp}: outputs differ from "
+                                 f"the single-device control's")
+        check_served(f"{label} tp={tp}", cfg, rep, reqs)
+        out[f"tp{tp}"] = {"tok_s": rep.generated_tokens / rep.wall_s,
+                          "ticks": rep.ticks, "launches": launches}
+        print(f"{label} tp={tp} ({card}): {len(reqs)} outputs bitwise the "
+              f"control's; {out[f'tp{tp}']['tok_s']:.1f} tok/s against the "
+              f"control's {out['control']['tok_s']:.1f}")
+    out["tick"] = shard_tick_times(f"{label} tick", engines, card)
+    out["pool_bytes"] = {tp: graph_pool_bytes(e) for tp, e in
+                         engines.items()}
+    print(f"{label} ({card}): the private pools of each engine's graphs "
+          f"(tick and chunks), reserved / allocated bytes: "
+          + "; ".join(f"tp={tp} {r} / {a}" for tp, (r, a) in
+                      out["pool_bytes"].items()))
+    del engines, eng
+    ST.clear_step_cache()
+    torch_cuda_empty()
+    # tp 2 paged, preempting, sampled, against its own control
+    preqs = overload_trace(cfg, OVERLOAD_RATE_PER_S)
+    kw = dict(block_size=PAGED_BLOCK, num_blocks=SHARD_BLOCKS,
+              temperature=SAMPLE_TEMP,
+              rng=P.PRNGKey(SEED + 1, device="cuda"))
+    reps = {}
+    for tp in (1, 2):
+        eng = shard_engine(cfg, params, tp, **kw)
+        reps[tp], _ = mux_serve(f"{label} paged tp={tp}", eng, preqs,
+                                SHARD_NEED[:1] + SHARD_NEED[2:],
+                                preemption=True)
+    same_as_control(f"{label} paged tp=2", reps[2], reps[1])
+    if reps[2].preempted <= 0 or reps[1].leaked_blocks or \
+            reps[2].leaked_blocks or \
+            any(r.status != "ok" for r in reps[2].results):
+        raise AssertionError(f"{label} paged tp=2: preempted "
+                             f"{reps[2].preempted}, leaked "
+                             f"{reps[2].leaked_blocks}")
+    out["paged"] = {"preempted": reps[2].preempted,
+                    "control_preempted": reps[1].preempted,
+                    "tok_s": reps[2].generated_tokens / reps[2].wall_s,
+                    "control_tok_s": reps[1].generated_tokens
+                    / reps[1].wall_s}
+    print(f"{label} paged tp=2 ({card}): {reps[2].preempted} preemptions "
+          f"(control {reps[1].preempted}), 0 leaked blocks, every request "
+          f"ok and equal to the control's")
+    del reps, eng
+    ST.clear_step_cache()
+    torch_cuda_empty()
+    # tp 2 speculating: the control's greedy tokens, whatever the draft
+    eng = shard_engine(cfg, params, 2, spec_k=SPEC_K,
+                       draft_layers=SPEC_DRAFT_LAYERS)
+    sreqs = reqs[:SHARD_SPEC_REQUESTS]
+    rep, _ = mux_serve(f"{label} spec tp=2", eng, sreqs, SHARD_NEED)
+    if rep.outputs() != {r.rid: crep.outputs()[r.rid] for r in sreqs}:
+        raise AssertionError(f"{label} spec tp=2: outputs differ from the "
+                             f"control's")
+    out["spec"] = {"tok_s": rep.generated_tokens / rep.wall_s,
+                   "accepted_per_dispatch": rep.accepted_per_dispatch}
+    print(f"{label} spec tp=2 ({card}): outputs bitwise the control's; "
+          f"{rep.accepted_per_dispatch:.3f} tokens a dispatch")
+    del eng, rep
+    ST.clear_step_cache()
+    torch_cuda_empty()
+    out["cli"] = shard_cli_run(card, ["--tp", "2"])
+    ST.clear_step_cache()
+    torch_cuda_empty()
+    out["router_cli"] = shard_cli_run(card, ["--replicas", "2", "--tp", "2"])
+    ST.clear_step_cache()
+    torch_cuda_empty()
+    out["seconds"] = time.perf_counter() - t0
+    print(f"sharded ({card}): phase {out['seconds']:.1f}s")
+    return out
+
+
 PHASES = ("attention", "long_tick", "w8a8", "graphs", "dense", "sampling",
-          "spec", "multiplex", "moe", "encdec", "ssm", "hybrid", "mixtral",
+          "spec", "multiplex", "sharded", "moe", "encdec", "ssm", "hybrid", "mixtral",
           "vlm")
 
 
@@ -6981,8 +7273,10 @@ def parse_args(argv):
                          "loop), or multiplexing (starcoder2-3b and "
                          "qwen2-moe-a2.7b as lanes of one engine: greedy, "
                          "sampled, hot-swap, the replica router, the CLI "
-                         "with --models and --replicas); prints no result "
-                         "line")
+                         "with --models and --replicas), or scale-out (tp 2 "
+                         "and 4 shards on the card against a control, "
+                         "paged, speculating, the CLI with --tp); prints "
+                         "no result line")
     return ap.parse_args(argv)
 
 
@@ -7045,7 +7339,7 @@ def main(argv=None) -> int:
             rmsnorm_phase(RMSNORM_WIDTHS[1:])
             dense_phase()
         if {"long_tick", "w8a8", "graphs", "sampling", "spec",
-                "multiplex"} & set(args.only):
+                "multiplex", "sharded"} & set(args.only):
             cfg, params = build_model()
         if "graphs" in args.only:
             tick_breakdown(cfg, params, NUM_SLOTS, PROMPT_LEN + MAX_NEW)
@@ -7064,6 +7358,8 @@ def main(argv=None) -> int:
             spec_phase(cfg, params)
         if "multiplex" in args.only:
             multiplex_phase(cfg, params)
+        if "sharded" in args.only:
+            sharded_phase(cfg, params)
         if {"sampling", "spec"} & set(args.only):
             from repro_torch.launch import serve
             from repro_torch.runtime import steps as ST
@@ -7146,6 +7442,7 @@ def main(argv=None) -> int:
     timed(sampling_phase, cfg, params)
     spec = timed(spec_phase, cfg, params)
     mux = timed(multiplex_phase, cfg, params)
+    shard = timed(sharded_phase, cfg, params)
     from repro_torch.runtime import steps as ST
     ST.clear_step_cache()           # the engines' captured tick and cache
     del params
@@ -7684,6 +7981,27 @@ def main(argv=None) -> int:
            *(kernels[i]["multiplex"]["launches"] for i in (1, 2, 4)),
            kernels[1]["multiplex"]["router_launches"]) <= 0:
         return fail("a kernel of the multiplexed path never launched")
+    # scale-out: each kernel's launches in the tp 2 and tp 4 serves of the
+    # contiguous slice's trace on the one card, with the captured tick of
+    # each tp against the single-device control's
+    shard_basis = (f"the contiguous slice's trace ({N_REQUESTS} requests, "
+                   f"{NUM_SLOTS} slots) through ShardedExecutor(tp) on the "
+                   f"one card; tick: the captured steady tick of "
+                   f"{NUM_SLOTS} rows, wall and busy ms, tp 1 the "
+                   f"single-device control")
+    for i, name in enumerate(SHARD_NEED):
+        kernels[i]["sharded"] = {
+            "launches": {f"tp{tp}": shard[f"tp{tp}"]["launches"][name]
+                         for tp in SHARD_TPS},
+            "basis": shard_basis}
+    kernels[0]["sharded"]["tick"] = {f"tp{tp}": t for tp, t in
+                                     shard["tick"].items()}
+    kernels[0]["sharded"]["tok_s"] = {
+        "control": shard["control"]["tok_s"],
+        **{f"tp{tp}": shard[f"tp{tp}"]["tok_s"] for tp in SHARD_TPS}}
+    if min(n for i in range(3)
+           for n in kernels[i]["sharded"]["launches"].values()) <= 0:
+        return fail("a kernel of the sharded path never launched")
     multiplex = {k: v for k, v in mux.items()
                  if k not in ("cli", "router_cli")}
     for k in ("contiguous", "paged", "router"):

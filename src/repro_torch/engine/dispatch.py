@@ -20,7 +20,8 @@ live serve):
 - ``DispatchCore`` (this module) — mechanism: the tick loop and slot
   accounting.  It returns raw counters (:class:`DispatchOutcome`).
 - ``ExecutorBackend`` — the narrow seam the core runs device steps
-  through; :class:`SingleDeviceExecutor` is the one-card step set.
+  through; :class:`SingleDeviceExecutor` is the one-card step set,
+  :class:`ShardedExecutor` its slot-axis split.
 
 Paged mode (``Engine(block_size=...)``) adds a :class:`BlockPool` of
 physical KV blocks a lane behind per-slot block tables: refcounted
@@ -31,8 +32,10 @@ prefix keys are the token chain, seeded with the request's source bytes
 for a family that primes and with the lane's tag on a multiplexed
 engine.
 
-Not ported yet, and refused with an error naming its ROADMAP item where
-a caller asks for it: the sharded executor (queue 1, item 14).
+:class:`ShardedExecutor` splits the slot pool into ``tp`` shards on the
+engine's device, bit for bit the single-device engine.  Not ported yet,
+and refused with an error naming its ROADMAP item where a caller asks for
+it: shards on more than one device (queue 1, item 14).
 """
 from __future__ import annotations
 
@@ -165,6 +168,18 @@ class ExecutorBackend:
     def prime_step(self, cfg: ArchConfig, *, mode: QuantMode) -> Callable:
         raise NotImplementedError
 
+    def shard_starts(self, num_slots: int) -> Tuple[int, ...]:
+        """The first slot of each shard of the pool: a single-slot step
+        (the chunk, the prime) runs on its slot's shard alone, so a
+        warm-up calls it once at each of these to bind every shard's
+        graphs."""
+        return (0,)
+
+    def shard_cache(self, cfg: ArchConfig, cache: dict) -> dict:
+        """``cache`` as this backend's steps take it, wrapped once where
+        a lane allocates it: the cache itself, or its shards' views."""
+        return cache
+
 
 class SingleDeviceExecutor(ExecutorBackend):
     """The one-card step set: the slot tick, the chunk step, the
@@ -194,13 +209,99 @@ class SingleDeviceExecutor(ExecutorBackend):
 
 
 class ShardedExecutor(ExecutorBackend):
-    """Slot-axis tensor-parallel step set — not ported yet."""
+    """The slot-axis split of the reference's tensor-parallel executor:
+    ``tp`` shards of the slot pool, each advancing ``num_slots / tp`` rows
+    with the same params (never copied), each row in the single-device
+    op order, so outputs are bit for bit the single-device engine's
+    (``runtime/steps.py::make_sharded_*``: shard i runs the memoized
+    captured step on its views of the engine's cache; a single-slot
+    dispatch, the chunk or the prime, runs on the slot's owner alone).
+
+    ``devices`` names where each shard runs; when not given, one entry a
+    visible card, and ``tp`` defaults to its length.  Every shard runs on
+    the engine's device: ``devices=[device] * tp`` runs ``tp`` shards on
+    one device, as the reference's tests force a host mesh of ``tp``
+    devices.  Shards on several cards (each shard's rows and a replica of
+    the weights on its own card, then the reference's merge of the paged
+    leaves) are not ported: a list naming more than one device, or a
+    device other than the engine's, raises ``NotImplementedError``
+    before anything is allocated."""
 
     kind = "sharded"
 
-    def __init__(self, tp: Optional[int] = None):
-        raise NotImplementedError(
-            "ShardedExecutor is not ported yet (ROADMAP queue 1, item 14)")
+    def __init__(self, tp: Optional[int] = None,
+                 devices: Optional[Sequence] = None):
+        if devices is None:
+            n = torch.cuda.device_count() if torch.cuda.is_available() \
+                else 0
+            if n == 0:
+                raise RuntimeError(
+                    "ShardedExecutor: no CUDA device is visible; name where "
+                    "the shards run with devices=[device] * tp (devices="
+                    "['cpu'] * tp runs them on the CPU)")
+            devices = [torch.device("cuda", i) for i in range(n)]
+        devices = [_shard_device(d) for d in devices]
+        self.tp = int(tp) if tp is not None else len(devices)
+        if self.tp < 1:
+            raise ValueError(f"tp must be >= 1, got {self.tp}")
+        if self.tp > len(devices):
+            raise ValueError(
+                f"tp={self.tp} exceeds the {len(devices)} device(s) given; "
+                f"run several shards on one device with "
+                f"devices=[device] * tp")
+        self.devices = devices[:self.tp]
+        if len(set(self.devices)) > 1:
+            raise NotImplementedError(
+                f"ShardedExecutor: shards on {len(set(self.devices))} "
+                f"devices are not ported yet (ROADMAP queue 1, item 14); "
+                f"run every shard on the engine's device with "
+                f"devices=[device] * tp")
+
+    def validate(self, eng) -> None:
+        if eng.num_slots % self.tp:
+            raise ValueError(
+                f"num_slots={eng.num_slots} must divide by tp={self.tp} "
+                f"(the pool shards along the slot axis)")
+        if self.devices[0] != _shard_device(eng.device):
+            raise NotImplementedError(
+                f"ShardedExecutor: shards on {self.devices[0]}, the engine "
+                f"on {eng.device}: shards off the engine's device are not "
+                f"ported yet (ROADMAP queue 1, item 14)")
+
+    def shard_starts(self, num_slots: int) -> Tuple[int, ...]:
+        return tuple(range(0, num_slots, num_slots // self.tp))
+
+    def shard_cache(self, cfg, cache):
+        return ST.ShardedCache(cfg, cache, self.tp)
+
+    def slot_step(self, cfg, *, mode, temperature):
+        return ST.cached_sharded_slot_decode_step(
+            cfg, mode=mode, temperature=temperature, tp=self.tp)
+
+    def chunk_step(self, cfg, *, mode, chunk):
+        return ST.cached_sharded_prefill_chunk_step(
+            cfg, mode=mode, chunk=chunk, tp=self.tp)
+
+    def verify_step(self, cfg, *, mode, k, temperature):
+        return ST.cached_sharded_verify_step(
+            cfg, mode=mode, k=k, temperature=temperature, tp=self.tp)
+
+    def propose_step(self, dcfg, *, mode, k):
+        return ST.cached_sharded_draft_propose_step(dcfg, mode=mode, k=k,
+                                                    tp=self.tp)
+
+    def prime_step(self, cfg, *, mode):
+        return ST.cached_sharded_prime_step(cfg, mode=mode, tp=self.tp)
+
+
+def _shard_device(device) -> torch.device:
+    """``device`` as a ``torch.device`` with its index (a bare ``"cuda"``
+    is the current card, or card 0 where none is visible)."""
+    d = torch.device(device)
+    if d.type == "cuda" and d.index is None:
+        d = torch.device("cuda", torch.cuda.current_device()
+                         if torch.cuda.is_available() else 0)
+    return d
 
 
 class _Lane:
@@ -246,12 +347,13 @@ class _Lane:
             if self._cache is None:
                 S, dev = eng.num_slots, eng.device
                 if eng.block_size:
-                    self._cache = R.init_paged_cache(
+                    cache = R.init_paged_cache(
                         self.cfg, S, eng.max_seq, eng.block_size,
                         eng.num_blocks, device=dev)
                 else:
-                    self._cache = R.init_cache(self.cfg, S, eng.max_seq,
-                                               device=dev)
+                    cache = R.init_cache(self.cfg, S, eng.max_seq,
+                                         device=dev)
+                self._cache = eng.backend.shard_cache(self.cfg, cache)
             else:
                 for t in self._cache.values():
                     t.zero_()
@@ -264,9 +366,10 @@ class _Lane:
         eng = self.eng
         with torch.inference_mode():
             if self._draft_cache is None:
-                self._draft_cache = R.init_cache(
-                    self.dcfg, eng.num_slots, eng.draft_seq,
-                    device=eng.device)
+                self._draft_cache = eng.backend.shard_cache(
+                    self.dcfg, R.init_cache(self.dcfg, eng.num_slots,
+                                            eng.draft_seq,
+                                            device=eng.device))
             else:
                 for t in self._draft_cache.values():
                     t.zero_()

@@ -49,6 +49,9 @@ engine-wide temperature, for one model or several:
   it bitwise, so a reused, preempted or rebuilt slot re-prefills from
   position 0 into clean state; it refuses ``block_size`` and ``spec_k``
   (no positions to page or rewind).
+- Scale-out: ``backend=ShardedExecutor(tp, devices=[device] * tp)``
+  splits the slot pool into ``tp`` shards, each advancing its rows with
+  the same weights, bit for bit the single-device engine.
 - Multiplexing: ``Engine(models={tag: (cfg, params)})`` serves several
   models as lanes of one engine (``engine/dispatch.py::_Lane``): each
   lane its own steps, caches and pools, one fused step a lane a tick,
@@ -246,9 +249,12 @@ class Engine:
     each lane that can draft self-drafts, the others serve without
     speculation.
 
-    The JAX engine's sharded backend raises ``NotImplementedError``
-    naming its ROADMAP item; ``name`` labels the engine in straggler
-    warnings and router reports."""
+    ``backend=ShardedExecutor(tp, devices=[device] * tp)`` splits the
+    slot pool into ``tp`` shards on the engine's device, bit for bit the
+    default single-device backend (``engine/dispatch.py``; shards on
+    several cards raise ``NotImplementedError`` naming their ROADMAP
+    item); every lane takes its steps from it.  ``name`` labels the
+    engine in straggler warnings and router reports."""
 
     def __init__(self, cfg: Optional[ArchConfig] = None, params=None, *,
                  models: Optional[Dict[str, Tuple[ArchConfig, dict]]] = None,
@@ -478,19 +484,24 @@ class Engine:
         def zeros(*shape, dtype=torch.int32):
             return torch.zeros(shape, dtype=dtype, device=dev)
 
+        # a single-slot step runs on its slot's shard alone: once a shard
+        starts = self.backend.shard_starts(S)
+
         def chunks(cfg, params, cache, cap):
-            for n in range(1, cap + 1):
-                c = ST.bucket_batch(n)
-                self.backend.chunk_step(cfg, mode=self.mode, chunk=c)(
-                    params, [0] * c, cache, 0, 0, n)
+            for sid in starts:
+                for n in range(1, cap + 1):
+                    c = ST.bucket_batch(n)
+                    self.backend.chunk_step(cfg, mode=self.mode, chunk=c)(
+                        params, [0] * c, cache, sid, 0, n)
 
         with torch.inference_mode():
             cache = ln.zeroed_cache()
             if R.needs_prime(ln.cfg):
                 prime = self.backend.prime_step(ln.cfg, mode=self.mode)
-                prime(ln.params, torch.zeros(
-                    (1, R.source_len(ln.cfg), ln.cfg.d_model),
-                    dtype=torch.bfloat16), cache, 0, 0)
+                for sid in starts:
+                    prime(ln.params, torch.zeros(
+                        (1, R.source_len(ln.cfg), ln.cfg.d_model),
+                        dtype=torch.bfloat16), cache, sid, 0)
             if ln.spec_k:
                 k = ln.spec_k
                 verify = self.backend.verify_step(

@@ -1,5 +1,5 @@
 """Serving launcher: the port of ``repro/launch/serve.py`` (all but
-``--arrival`` and ``--tp``), end to end on one card.
+``--arrival``), end to end on one card.
 
 Init a model from a seed, post-training int8 quantization, measure the
 prefill service-time curve through the full-sequence ``forward`` (every
@@ -69,7 +69,11 @@ TAG=N`` caps a lane's slots through the (model, class) quota keys
 ``--batch-quota`` also uses; the report adds a line a model.
 ``--replicas N`` serves the trace through ``engine/router.py``'s
 ``ReplicaRouter`` over N engines that share the weights, and prints the
-fleet's and each replica's lines.
+fleet's and each replica's lines.  ``--tp N`` serves each engine through
+``ShardedExecutor(tp=N, devices=[device] * N)``: N shards of its slot
+pool on the one ``--device``, bit for bit ``--tp 1`` (the single-device
+executor); it composes with ``--replicas`` (each replica its own sharded
+engine) and ``--models``.  Shards on several cards are not ported.
 
   python -m repro_torch.launch.serve --arch starcoder2-3b --reduced \\
       --deadline-ms 50 --rate 200                  # on the card
@@ -91,6 +95,8 @@ fleet's and each replica's lines.
       --reduced --device cpu --model-quota starcoder2-3b=2   # two lanes, CPU
   python -m repro_torch.launch.serve --arch starcoder2-3b --reduced \\
       --device cpu --replicas 2                      # the router, CPU
+  python -m repro_torch.launch.serve --arch starcoder2-3b --reduced \\
+      --device cpu --max-batch 4 --tp 2              # 2 shards, CPU
 
 The reference's other serving options stay in the parser; given a value
 other than their default, each prints which ROADMAP item will port it and
@@ -119,7 +125,7 @@ from repro_torch.runtime import steps as ST
 from repro_torch.runtime.prng import PRNGKey
 
 # flag -> ROADMAP queue 1 item that will port it
-UNPORTED = {"arrival": 12, "tp": 14}
+UNPORTED = {"arrival": 12}
 CURVE_BATCHES = (1, 4, 16)    # measured batch sizes, with --max-batch
 TIMED_CALLS = 3               # timed calls per measurement, after one warm
 
@@ -271,6 +277,10 @@ def build_parser() -> argparse.ArgumentParser:
                     help="engine: truncated-layer self-draft depth (the "
                          "target's own first n layers, no second "
                          "checkpoint; 0 = off)")
+    ap.add_argument("--tp", type=int, default=1,
+                    help="engine: serve through N shards of the slot pool "
+                         "on --device (ShardedExecutor, bit-identical to "
+                         "tp=1; the pool must divide by N)")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the card; 'cpu' runs the "
                          "kernels' plain versions)")
@@ -278,7 +288,6 @@ def build_parser() -> argparse.ArgumentParser:
         "not ported yet (each exits 1 when given a non-default value)")
     unported.add_argument("--arrival", default="poisson",
                           choices=["poisson", "mmpp", "diurnal"])
-    unported.add_argument("--tp", type=int, default=1)
     return ap
 
 
@@ -368,6 +377,10 @@ def run(args: argparse.Namespace) -> ServeRun:
         return ServeRun(code=1)
     if args.replicas < 1:
         print(f"[serve] --replicas must be >= 1 (got {args.replicas})")
+        return ServeRun(code=1)
+    if args.tp < 1:
+        print(f"[serve] --replicas and --tp must be >= 1 "
+              f"(got {args.replicas}, {args.tp})")
         return ServeRun(code=1)
     if args.replicas > 1 and args.fault_seed is not None:
         print("[serve] --fault-seed wants a single engine (--replicas 1): "
@@ -473,6 +486,12 @@ def run(args: argparse.Namespace) -> ServeRun:
         if args.reduced:
             dcfg = dcfg.reduced()
         draft = (dcfg, _init_params(dcfg, mode, args.seed + 2, device))
+    backend = None
+    if args.tp > 1:
+        backend = E.ShardedExecutor(tp=args.tp, devices=[device] * args.tp)
+        print(f"[serve] sharded executor: tp={args.tp} on {device} "
+              f"({args.tp} shards of a {num_slots}-slot pool), "
+              f"slot-axis sharding (bit-identical to tp=1)")
     eng_kw = dict(mode=mode, num_slots=num_slots,
                   max_seq=args.prompt_len + args.gen_tokens,
                   policy=policy,
@@ -484,7 +503,7 @@ def run(args: argparse.Namespace) -> ServeRun:
                        if args.temperature > 0 else None),
                   spec_k=args.spec_k, draft=draft,
                   draft_layers=args.draft_layers or None,
-                  device=device)
+                  device=device, backend=backend)
 
     def build_engine(name=None):
         if args.models:

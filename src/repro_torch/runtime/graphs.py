@@ -93,13 +93,15 @@ def capture_stream(device: torch.device) -> torch.cuda.Stream:
     return _CAPTURE_STREAMS[index]
 
 
-# bindings a captured step keeps by default: a few engines (or lanes) of
-# one config taking turns.  Every lane and every replica of one config
-# binds the memoized step anew (its own cache), so more than four in use
-# in turn would capture again at every call; chip_smoke.py's multiplex
-# phase keeps at most four of one config in use (two lanes of a
-# hot-swap, two replicas and a dedicated engine)
-MAX_BINDINGS = 4
+# bindings a captured step keeps by default: the engines (lanes,
+# replicas, shards) of one config taking turns.  Every lane, replica and
+# shard of one config binds the memoized step anew (its own cache or its
+# shard's views of one), so more in use in turn than kept would capture
+# again at every call.  Sixteen keeps a tp = 4 engine's four shards, its
+# single-device control and two tp = 4 replicas (13), or the multiplex
+# phase's lanes, replicas and dedicated engines (at most 4 of one config),
+# with room; a binding holds its graph's pool only while it is kept
+MAX_BINDINGS = 16
 
 
 class Binding:

@@ -36,6 +36,13 @@ scores up to k+1 fed tokens a slot) and :func:`make_draft_propose_step`
 step, unrolled into ``k + 1`` and ``k`` calls of it; each is captured as
 one graph (:func:`jit_verify_step`, :func:`jit_draft_propose_step`) and
 memoized (:func:`cached_verify_step`, :func:`cached_draft_propose_step`).
+
+Scale-out (the reference's ``make_sharded_*`` steps): each splits the
+slot pool into ``tp`` shards on one device, shard i running the memoized
+captured single-device step on its views of the cache
+(:class:`ShardedCache`), a single-slot step on the slot's owner alone, bit
+for bit the single-device step (``make_sharded_slot_decode_step`` and
+the rest, memoized by ``cached_sharded_*``).
 """
 from __future__ import annotations
 
@@ -626,6 +633,7 @@ def jit_prefill_chunk_step(step: Callable) -> Callable:
     def chunk_body(params, cache, packed):
         return step.body(params, cache, packed[2:], packed[:1], packed[1:2])
 
+    # a graph per n_valid of each engine, lane, replica or shard
     captured = CapturedStep(chunk_body, max_bindings=MAX_BINDINGS * chunk)
 
     def graphed(params, tokens, cache, sid, start, n_valid):
@@ -770,6 +778,282 @@ def cached_prime_step(cfg: ArchConfig, *, mode: QuantMode = FP) -> Callable:
     """Memoized ``jit_prime_step(make_prime_step(...))``."""
     return _cached(("prime", cfg, mode),
                    lambda: jit_prime_step(make_prime_step(cfg, mode=mode)))
+
+
+# ---------------------------------------------------------------------------
+# scale-out: the slot axis split into tp shards on the engine's device
+# ---------------------------------------------------------------------------
+
+class ShardedCache(dict):
+    """An engine cache split into ``tp`` shards on one device (the
+    reference's ``_sharded_cache_specs``, here as views): the cache's
+    leaves by name, as a dict, and ``views[i]``, shard ``i``'s view of
+    rows ``[i * n, (i + 1) * n)`` of the pool, ``n = S / tp``.  Every
+    slot-resident leaf is narrowed on its slot axis
+    (``registry.cache_batch_axes``) and the block table on axis 0; the
+    paged block leaves (``registry.paged_block_axes``) are passed whole,
+    the same tensors in every view.  Nothing is copied: a shard's step
+    writes the engine's cache in place, through its views.
+
+    The engine's lane wraps its cache once, where it allocates it
+    (``ShardedExecutor.shard_cache``), and the sharded steps take it
+    whole: a captured step binds a graph per set of tensors, so views
+    built anew each tick would capture a new graph each tick.
+
+    :meth:`run` calls a shard's step on its view, and checks the first
+    call of each step on each shard: the same step run eagerly on a copy
+    of the view's narrowed leaves must leave them with the same bytes.  A
+    write path that copies a strided view (a ``.contiguous()`` or a
+    ``.reshape()`` of a whole leaf) would write into a temporary and lose
+    the write; the check raises instead.  The eager run takes the shared
+    block leaves as they are (no copy of the pool): it writes there what
+    the step writes next, the same bytes at the same positions."""
+
+    def __init__(self, cfg: ArchConfig, cache: dict, tp: int):
+        super().__init__(cache)
+        paged = (R.paged_block_axes(cfg, cache)
+                 if "block_tables" in cache else {})
+        axes = dict(R.cache_batch_axes(cfg, cache), block_tables=0)
+        narrowed = [k for k in cache if k not in paged]
+        slots = cache[narrowed[0]].shape[axes[narrowed[0]]]
+        if slots % tp:
+            raise ValueError(f"num_slots={slots} must divide by tp={tp} "
+                             f"(the pool shards along the slot axis)")
+        self.tp, self.rows = tp, slots // tp
+        self.narrowed = tuple(narrowed)
+        self.views = [{k: (v if k in paged else
+                           v.narrow(axes[k], i * self.rows, self.rows))
+                       for k, v in cache.items()} for i in range(tp)]
+        self._checked: set = set()
+
+    def rows_of(self, i: int) -> slice:
+        """Shard ``i``'s rows of a per-row input."""
+        return slice(i * self.rows, (i + 1) * self.rows)
+
+    def run(self, label: str, i: int, real: Callable, eager: Callable):
+        """``real(view)`` on shard ``i``'s view; its first call for
+        ``label`` is held to ``eager(copy)``, with ``copy`` the view's
+        narrowed leaves cloned and its block leaves shared (see the
+        class's docstring).  Returns what ``real`` does."""
+        view = self.views[i]
+        if (label, i) in self._checked:
+            return real(view)
+        with torch.inference_mode():
+            want = {k: (v.clone() if k in self.narrowed else v)
+                    for k, v in view.items()}
+            eager(want)
+        out = real(view)
+        for k in self.narrowed:
+            if not _same_bytes(view[k], want[k]):
+                raise RuntimeError(
+                    f"shard {i}'s {label} step did not write {k!r} in "
+                    f"place: its write path copies the strided view of "
+                    f"rows {self.rows_of(i)} (a .contiguous() or "
+                    f".reshape() of the whole leaf), and the write would "
+                    f"be lost")
+        self._checked.add((label, i))
+        return out
+
+
+def _same_bytes(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Bitwise equality (a NaN equals itself, -0.0 is not 0.0)."""
+    return a.shape == b.shape and torch.equal(
+        a.contiguous().reshape(-1).view(torch.uint8),
+        b.contiguous().reshape(-1).view(torch.uint8))
+
+
+def _shards(cache: dict, tp: int) -> ShardedCache:
+    """``cache`` as the sharded steps take it: its engine's
+    :class:`ShardedCache` of ``tp`` shards."""
+    if not isinstance(cache, ShardedCache) or cache.tp != tp:
+        raise TypeError(f"a step of {tp} shards takes a ShardedCache of "
+                        f"{tp} shards (ShardedCache(cfg, cache, {tp}), as "
+                        f"ShardedExecutor.shard_cache builds it), not "
+                        f"{type(cache).__name__}")
+    return cache
+
+
+def _sharded_rows(label, tp, base, eager, params, cache, rows, rest, outs):
+    """Every shard's ``base(params, *rows_i, view_i, ...)`` in order on
+    the caller's stream, with ``rows`` the per-row inputs and ``rest`` the
+    trailing ones; the per-row outputs at ``outs`` joined in row order.
+    The shards share the split kernels' workspace (``kernels/scratch.py``),
+    so they must not run on concurrent streams."""
+    sv = _shards(cache, tp)
+    parts = []
+    for i in range(tp):
+        r = sv.rows_of(i)
+        lead = tuple(x[r] for x in rows)
+
+        def call(fn, view, lead=lead):
+            return fn(params, lead[0], view, *lead[1:], *rest)
+
+        out = sv.run(label, i, lambda v: call(base, v),
+                     lambda v: call(eager, v))
+        parts.append([out[j] for j in outs])
+    return [torch.cat([p[j] for p in parts]) for j in range(len(outs))]
+
+
+def _one_row(label, tp, base, eager, params, first, cache, sid, rest):
+    """A single-slot dispatch (the chunk or the prime step) on its owner
+    only: shard ``sid // n`` at its local row ``sid % n``, read from the
+    host-side ``sid`` (never from a device tensor, which would wait for
+    the card).  The reference runs every shard on a clamped local row and
+    masks or discards the others' writes; here the shards write one
+    shared block pool in place, so a non-owner's clamped row would write
+    real blocks of another slot."""
+    sv = _shards(cache, tp)
+    owner, local = divmod(int(sid), sv.rows)
+    sv.run(label, owner,
+           lambda v: base(params, first, v, local, *rest),
+           lambda v: eager(params, first, v, local, *rest))
+    return cache
+
+
+def make_sharded_slot_decode_step(cfg: ArchConfig, *, mode: QuantMode = FP,
+                                  temperature: float = 0.0,
+                                  tp: int = 1) -> Callable:
+    """The slot tick over ``tp`` shards of the pool on one device: the
+    signature of :func:`make_slot_decode_step`, each shard running the
+    memoized captured tick (:func:`cached_slot_decode_step`) on its rows
+    of the cache (:class:`ShardedCache`) and of ``tokens``, ``slot_index``
+    and ``active``, with the same params (never copied) and the same key.
+    Every op computes a row the same whatever the rows beside it, so the
+    next tokens, indices and cache bytes are bit for bit the single tick's
+    (as the reference's ``shard_map`` keeps each row's op order).  Each
+    shard's ``active`` freezes its own rows' recurrent state.
+
+    Paged: the block leaves are every shard's, written in place.  The
+    block tables partition the real blocks among the slots, so no two
+    shards write one real block in a tick, and the reference's
+    who-changed-it merge (``_merge_shard_writes``) is the identity on
+    every real block: no copy, no merge.  Only trash block 0 takes several
+    shards' writes (retired rows'), and no read sees it."""
+    base = cached_slot_decode_step(cfg, mode=mode, temperature=temperature)
+    eager = make_slot_decode_step(cfg, mode=mode, temperature=temperature)
+
+    def step(params, tokens, cache, slot_index, active, *rng):
+        nxt, idx = _sharded_rows("slot", tp, base, eager, params,
+                                 cache, (tokens, slot_index, active), rng,
+                                 (0, 2))
+        return nxt, cache, idx
+
+    step.captured = base.captured    # the graphs its shards replay
+    return step
+
+
+def make_sharded_verify_step(cfg: ArchConfig, *, mode: QuantMode = FP,
+                             k: int, temperature: float = 0.0,
+                             tp: int = 1) -> Callable:
+    """:func:`make_verify_step` over ``tp`` shards of the pool, each the
+    memoized captured verify on its rows (as
+    :func:`make_sharded_slot_decode_step`)."""
+    base = cached_verify_step(cfg, mode=mode, k=k, temperature=temperature)
+    eager = make_verify_step(cfg, mode=mode, k=k, temperature=temperature)
+
+    def step(params, tokens, cache, slot_index, n_tokens, active, *rng):
+        samples, idx = _sharded_rows(
+            "verify", tp, base, eager, params, cache,
+            (tokens, slot_index, n_tokens, active), rng, (0, 2))
+        return samples, cache, idx
+
+    step.captured = base.captured    # the graphs its shards replay
+    return step
+
+
+def make_sharded_draft_propose_step(cfg: ArchConfig, *,
+                                    mode: QuantMode = FP, k: int,
+                                    tp: int = 1) -> Callable:
+    """:func:`make_draft_propose_step` over ``tp`` shards of the draft's
+    (contiguous) cache, each the memoized captured propose on its rows."""
+    base = cached_draft_propose_step(cfg, mode=mode, k=k)
+    eager = make_draft_propose_step(cfg, mode=mode, k=k)
+
+    def step(params, tokens, cache, slot_index, active):
+        props, idx = _sharded_rows("propose", tp, base, eager, params,
+                                   cache, (tokens, slot_index, active), (),
+                                   (0, 2))
+        return props, cache, idx
+
+    step.captured = base.captured    # the graphs its shards replay
+    return step
+
+
+def make_sharded_prefill_chunk_step(cfg: ArchConfig, *,
+                                    mode: QuantMode = FP, chunk: int,
+                                    tp: int = 1) -> Callable:
+    """:func:`make_prefill_chunk_step` over ``tp`` shards: the slot's
+    owning shard alone runs the memoized captured chunk step on its view,
+    at its local row (:func:`_one_row`)."""
+    base = cached_prefill_chunk_step(cfg, mode=mode, chunk=chunk)
+    eager = make_prefill_chunk_step(cfg, mode=mode, chunk=chunk)
+
+    def step(params, tokens, cache, sid, start, n_valid):
+        return _one_row(f"chunk{chunk}", tp, base, eager, params,
+                        tokens, cache, sid, (start, n_valid))
+
+    step.captured = base.captured    # the graphs its shards replay
+    return step
+
+
+def make_sharded_prime_step(cfg: ArchConfig, *, mode: QuantMode = FP,
+                            tp: int = 1) -> Callable:
+    """:func:`make_prime_step` over ``tp`` shards: the slot's owning shard
+    alone runs the memoized captured prime on its view, at its local row
+    (:func:`_one_row`); a prime writes only slot-resident leaves."""
+    base = cached_prime_step(cfg, mode=mode)
+    eager = make_prime_step(cfg, mode=mode)
+
+    def step(params, source, cache, sid, n_valid):
+        return _one_row("prime", tp, base, eager, params, source,
+                        cache, sid, (n_valid,))
+
+    step.captured = base.captured    # the graphs its shards replay
+    return step
+
+
+def cached_sharded_slot_decode_step(cfg: ArchConfig, *,
+                                    mode: QuantMode = FP,
+                                    temperature: float = 0.0,
+                                    tp: int = 1) -> Callable:
+    """Memoized :func:`make_sharded_slot_decode_step` (key includes tp)."""
+    return _cached(("sharded_slot_decode", cfg, mode, temperature, tp),
+                   lambda: make_sharded_slot_decode_step(
+                       cfg, mode=mode, temperature=temperature, tp=tp))
+
+
+def cached_sharded_prefill_chunk_step(cfg: ArchConfig, *,
+                                      mode: QuantMode = FP, chunk: int,
+                                      tp: int = 1) -> Callable:
+    """Memoized :func:`make_sharded_prefill_chunk_step`."""
+    return _cached(("sharded_prefill_chunk", cfg, mode, chunk, tp),
+                   lambda: make_sharded_prefill_chunk_step(
+                       cfg, mode=mode, chunk=chunk, tp=tp))
+
+
+def cached_sharded_prime_step(cfg: ArchConfig, *, mode: QuantMode = FP,
+                              tp: int = 1) -> Callable:
+    """Memoized :func:`make_sharded_prime_step`."""
+    return _cached(("sharded_prime", cfg, mode, tp),
+                   lambda: make_sharded_prime_step(cfg, mode=mode, tp=tp))
+
+
+def cached_sharded_verify_step(cfg: ArchConfig, *, mode: QuantMode = FP,
+                               k: int, temperature: float = 0.0,
+                               tp: int = 1) -> Callable:
+    """Memoized :func:`make_sharded_verify_step`."""
+    return _cached(("sharded_verify", cfg, mode, k, temperature, tp),
+                   lambda: make_sharded_verify_step(
+                       cfg, mode=mode, k=k, temperature=temperature, tp=tp))
+
+
+def cached_sharded_draft_propose_step(cfg: ArchConfig, *,
+                                      mode: QuantMode = FP, k: int,
+                                      tp: int = 1) -> Callable:
+    """Memoized :func:`make_sharded_draft_propose_step`."""
+    return _cached(("sharded_draft_propose", cfg, mode, k, tp),
+                   lambda: make_sharded_draft_propose_step(
+                       cfg, mode=mode, k=k, tp=tp))
 
 
 def clear_step_cache() -> None:

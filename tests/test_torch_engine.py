@@ -203,8 +203,10 @@ def test_engine_rejects_oversized_request(setup):
 
 
 def test_unported_options_name_their_roadmap_item(setup):
+    """Shards on two cards: refused naming the ROADMAP item, before any
+    engine is built."""
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        E.ShardedExecutor(tp=2)
+        E.ShardedExecutor(devices=["cuda:0", "cuda:1"])
 
 
 def test_engine_defaults_to_the_card(setup):

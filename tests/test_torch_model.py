@@ -190,9 +190,9 @@ def test_decode_rows_match_batch_one_bitwise(setup):
 
 
 def test_unported_paths_name_their_roadmap_item():
-    """The sharded executor is not ported yet: asking for it raises,
-    naming its ROADMAP item."""
+    """Shards on more than one device are not ported yet: asking for them
+    raises, naming their ROADMAP item."""
     from repro_torch import engine as E
 
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 14"):
-        E.ShardedExecutor()
+        E.ShardedExecutor(devices=["cuda:0", "cuda:1"])

@@ -5,7 +5,7 @@ the decode loop, and the engine under the wall clock or the ``--sim``
 simulator, the overload flags, the paged bf16 cache (--block-size,
 --num-blocks, --shared-prefix-len), speculation (--spec-k with
 --draft-layers or --draft), multiplexing (--models, --model-quota) and
-the replica router (--replicas) — and its refusals."""
+the replica router (--replicas), scale-out (--tp) — and its refusals."""
 import pytest
 import torch
 
@@ -65,7 +65,7 @@ def test_serve_unattainable_deadline_returns_one(capsys):
     assert "unattainable" in capsys.readouterr().out
 
 
-UNPORTED = [("--arrival", "mmpp"), ("--tp", "2")]
+UNPORTED = [("--arrival", "mmpp")]
 
 
 def test_unported_flag_list_covers_the_table():
@@ -396,3 +396,59 @@ def test_serve_multiplex_flags_refuse_bad_values(flags, message, capsys):
     out = capsys.readouterr().out
     assert message in out
     assert "[quant]" not in out
+
+
+# -- --tp: the slot pool split into shards on --device -------------------
+
+def test_serve_tp_equals_the_reference(capsys):
+    """--tp 2: the engine serves through ShardedExecutor(2) on the CPU,
+    its outputs the sequential reference's, with the reference's line."""
+    res = serve.run(serve.parse_args(BASE + ["--tp", "2"]))
+    out = capsys.readouterr().out
+    assert "[serve] sharded executor: tp=2 on cpu" in out
+    assert res.engine.backend.kind == "sharded"
+    assert res.engine.backend.tp == 2
+    _served_as_reference(res)
+
+
+def test_serve_replicas_with_tp_equal_the_reference(capsys):
+    """--replicas 2 --tp 2: each replica its own sharded engine; every
+    routed request's tokens the sequential reference's."""
+    from repro_torch import engine as E
+    res = serve.run(serve.parse_args(BASE + ["--replicas", "2", "--tp",
+                                             "2"]))
+    assert res.code == 0
+    assert "[router] 2 replicas x" in capsys.readouterr().out
+    assert len(res.fleet) == 2 and all(
+        e.backend.kind == "sharded" and e.backend.tp == 2 for e in res.fleet)
+    rep = res.router_report
+    assert all(r.status == "ok" for r in rep.results)
+    assert rep.outputs() == E.reference_outputs(
+        res.cfg, res.params, res.requests, mode=res.mode,
+        max_seq=res.engine.max_seq, device="cpu")
+
+
+def test_serve_models_with_tp(capsys):
+    """--models with --tp 2: every lane of the engine serves through the
+    shards, each request ok."""
+    res = serve.run(serve.parse_args(
+        ["--models", "starcoder2-3b,qwen2-moe-a2.7b", "--tp", "2"]
+        + BASE[2:]))
+    assert res.code == 0
+    assert res.engine.backend.tp == 2 and len(res.engine.lanes) == 2
+    assert all(r.status == "ok" for r in res.report.results)
+    assert len(res.report.results) == 12
+
+
+@pytest.mark.parametrize("tp,message", [
+    ("0", "--replicas and --tp must be >= 1"),
+    ("3", "config rejected: num_slots=4 must divide by tp=3"),
+], ids=["zero", "does-not-divide"])
+def test_serve_tp_refuses_bad_values(tp, message, capsys):
+    """--tp 0 exits 1 before any work; a pool that does not divide into
+    the shards exits 1 when the engine is built (the reference's
+    refusals)."""
+    assert serve.main(BASE + ["--tp", tp]) == 1
+    out = capsys.readouterr().out
+    assert message in out
+    assert ("[quant]" in out) == (tp != "0")
