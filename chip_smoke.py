@@ -118,11 +118,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
    decode loop and a wall-clock ``Engine.serve`` (no mma launch in
    either; the loop and the engine's tick and chunks captured as CUDA
    graphs), counters zeroed just before each run and read just after,
-   then where one 16 x 32-token prefill spends its time, and the curve's
-   forward eager against captured at each batch (logits bitwise; wall
-   of each, the captured one's device busy; the eager curve's Table 4
-   choice beside the
-   run's); the w8a16 run's first three requests are compared with
+   then the curve's forward eager against captured at each batch
+   (logits bitwise); the w8a16 run's first three requests are compared with
    ``reference_outputs`` (bf16 cache) on the card; then one more w8a16
    run with the overload flags (``--interactive-frac 0.5 --batch-quota 4
    --preemption --fault-seed 3 --n-faults 4``), which must exit 0 and
@@ -219,7 +216,7 @@ Phases, each of which fails the run (non-zero exit, no result line):
    token against a token's floor; then the serve CLI with ``--arch
    mamba2-1.3b`` under w8a16 (four requests equal to the reference) and
    w8a8, each run's captured curve bitwise the eager forward at every
-   batch (timed under w8a16 only).
+   batch.
 14. hybrid: recurrentgemma-9b at full width (38 layers: 12 groups of two
    RG-LRU blocks and a local-attention block, 2 leftover RG-LRU blocks;
    d 4,096, 16 query heads and 1 KV head of 256, window 2,048, vocab
@@ -241,7 +238,7 @@ Phases, each of which fails the run (non-zero exit, no result line):
    recurrentgemma-9b`` under w8a16 (four requests equal to the
    reference) and w8a8 (the curve's RG-LRU gates and head on the mma
    path, 53 launches a forward), each run's captured curve bitwise the
-   eager forward at every batch (timed under w8a16 only).
+   eager forward at every batch.
 15. mixtral: mixtral-8x22b at full width and 8 of its 56 layers (d
    6,144, 48 query and 8 KV heads of 128, 8 experts top-2 of d_ff
    16,384, window 4,096, vocab 32,768 untied; 20.4 GB of int8, where 56
@@ -301,6 +298,25 @@ Phases, each of which fails the run (non-zero exit, no result line):
    self-draft) on 8 of the requests, equal to the control; the serve
    CLI with ``--tp 2`` and with ``--replicas 2 --tp 2``, each exit 0,
    every request ok and three held to ``reference_outputs``.
+18. train (last): the training path.  ``flash_attention_bhsd`` at the
+   training shape (BH = 8 x 24, S 128, hd 128, causal; and with a window
+   of 32): its forward against the plain version and the autograd
+   Function's dQ, dK, dV (``kernels/ops.py::flash_attention``, whose
+   backward is the plain ``flash_attention_bwd``) against autograd of the
+   plain version, one bf16 ulp each; both directions timed beside their
+   bounds and SDPA's.  Reduced starcoder2-3b: the loss and every grad
+   leaf on the card against the port on the CPU (loss 1e-3, each leaf 3%
+   in norm), 2 kernel launches and one backward call a layer.  Then the
+   train CLI (``launch.train``, in this process) at full starcoder2-3b
+   width and depth, f32 params, AdamW, ``--seq-len 128 --batch 8
+   --steps 12 --lr 1e-5``: exit 0 (the launcher's rule: the last 5
+   losses' mean below the first 5's), every loss finite, 720 flash
+   launches (30 layers x 2 x 12 steps: the forward and remat's
+   recompute), 360 backward calls, no plain version, no qmatmul, peak
+   allocated memory under 60 GB, ms a step and tokens/s printed; and a
+   reduced run killed at step 11 with ``--ckpt-every 5``, whose rerun
+   with ``--resume auto`` restores step 10 and exits 0 (checkpoints in a
+   temporary directory the phase removes).
 
 The kernel phase holds both of ``qmatmul_w8a16``'s kernels (the GEMV and
 the ``mma.sync`` bf16 tensor-core path) at every projection and the LM
@@ -337,14 +353,14 @@ than before the redesigns.
 ``--only attention`` / ``--only long_tick`` / ``--only w8a8`` / ``--only
 graphs`` / ``--only dense`` / ``--only sampling`` / ``--only spec`` /
 ``--only moe`` / ``--only encdec`` / ``--only ssm`` / ``--only hybrid`` /
-``--only mixtral`` / ``--only multiplex`` / ``--only sharded`` run just
-the two
+``--only mixtral`` / ``--only multiplex`` / ``--only sharded`` /
+``--only train`` run just the two
 attention kernel
 phases, the long-context ticks, ``qmatmul_w8a8``'s kernel phase and the
 W8A8 tick, the five eager tick breakdowns and the graph phase, the dense
 family's kernel rows, rmsnorm widths and phase 10, phase 7 and the
 sampled serve CLI run, phase 8 with its CLI run and qwen2-moe-a2.7b's
-speculative serve, phase 11, 12, 13, 14, 15, 16 or 17, and ``--src
+speculative serve, phase 11, 12, 13, 14, 15, 16, 17 or 18, and ``--src
 DIR``
 takes the port from
 another checkout's ``src/`` (so the same phases time a parent commit's
@@ -370,7 +386,9 @@ chunks', serves' and launcher's times under ``mixtral``; each kernel's
 launches in the multiplexed, routed and ``--models`` runs under
 ``multiplex``; the three kernels' launches in the tp 2 and tp 4 serves
 under ``sharded``, qmatmul_w8a16's with each tp's captured tick and
-tok/s), and beside ``kernels`` the multiplex phase's numbers
+tok/s; flash_attention_bhsd's launches in the train CLI's run, its
+gradient's calls, its rows at the training shape, the step's ms,
+tokens/s and peak memory under ``train``), and beside ``kernels`` the multiplex phase's numbers
 under ``multiplex`` (the serves' tok/s and occupancies, the ticks'
 wall and busy, the hot-swap's and the router's counts, the phase's
 seconds), the whole run's time, and,
@@ -547,29 +565,53 @@ def fail(msg: str) -> int:
 # timing
 # ---------------------------------------------------------------------------
 
+# the queue head start of time_ms: at most this long (the sleep kernel
+# spins SM clock cycles: SLEEP_CYCLES_PER_S at H100's ~2 GHz boost, so a
+# slower clock only lengthens it), and a first guess for calls whose
+# enqueue time was not measured
+HEAD_START_S = 0.1
+HEAD_START_GUESS_S = 0.01
+SLEEP_CYCLES_PER_S = 2e9
+
+
 def time_ms(fn, iters: int, flush, warmup: bool = True) -> float:
     """Mean device time of one call of ``fn``, from CUDA events around each
     of ``iters`` calls, each after an L2 flush (the serving path streams
     3 GB of weights per tick, so every weight read is cold).  The calls
     are queued behind a sleep kernel, so the card runs them back to back
-    and the events time the device, not the host's launch overhead.
-    ``warmup=False`` skips the untimed first call: the plain versions,
-    plain PyTorch with nothing to compile, whose one call at a forward's
-    shapes takes up to seconds."""
+    and the events time the device, not the host's launch overhead.  The
+    sleep lasts 4x the host time the iters calls take to queue (the
+    warm-up call's, plus 2 ms), or HEAD_START_GUESS_S without a warm-up;
+    if the card woke before the last call was queued, the timing is
+    taken again behind HEAD_START_S.  ``warmup=False`` skips the untimed
+    first call: the plain versions, plain PyTorch with nothing to compile,
+    whose one call at a forward's shapes takes up to seconds."""
     import torch
+    head = HEAD_START_GUESS_S
     if warmup:
-        fn()
-    torch.cuda.synchronize()
-    events = [(torch.cuda.Event(enable_timing=True),
-               torch.cuda.Event(enable_timing=True)) for _ in range(iters)]
-    torch.cuda._sleep(200_000_000)                # ~0.1 s of queue head start
-    for start, end in events:
+        t0 = time.perf_counter()
         flush()
-        start.record()
         fn()
-        end.record()
+        head = min(HEAD_START_S,
+                   0.002 + 4 * iters * (time.perf_counter() - t0))
     torch.cuda.synchronize()
-    return sum(s.elapsed_time(e) for s, e in events) / iters
+    while True:
+        events = [(torch.cuda.Event(enable_timing=True),
+                   torch.cuda.Event(enable_timing=True))
+                  for _ in range(iters)]
+        awake = torch.cuda.Event()
+        torch.cuda._sleep(int(head * SLEEP_CYCLES_PER_S))
+        awake.record()
+        for start, end in events:
+            flush()
+            start.record()
+            fn()
+            end.record()
+        queued_asleep = not awake.query()
+        torch.cuda.synchronize()
+        if queued_asleep or head >= HEAD_START_S:
+            return sum(s.elapsed_time(e) for s, e in events) / iters
+        head = HEAD_START_S
 
 
 # ---------------------------------------------------------------------------
@@ -1956,15 +1998,14 @@ def counted_curve(real_curve, curve_paths):
 
 
 def serve_run(quant, curve_paths, flags=(), base=SERVE_ARGS, label=None,
-              curve_timing=True, expect=()):
+              expect=()):
     """One serve launcher run of ``base`` arguments, counters zeroed just
     before and read just after, and checked: (its kernel launches, its
     ServeRun).  With the overload ``flags`` the run must print its
     retirement and faults lines, and every request retire once (a fault
     may fail one).  Without them each batch's captured forward is held to
-    the eager one (``curve_check``), and with ``curve_timing`` the curve's
-    largest forward is broken down and both forms timed.  Every line
-    prefix of ``expect`` must open a line of the run's output."""
+    the eager one (``curve_check``).  Every line prefix of ``expect`` must
+    open a line of the run's output."""
     import contextlib
     import io
 
@@ -2070,9 +2111,7 @@ def serve_run(quant, curve_paths, flags=(), base=SERVE_ARGS, label=None,
     launches["curve_mma"] = curve_paths["mma"]
     launches["curve_experts_mma"] = curve_paths["experts[mma]"]
     if not flags:
-        if curve_timing:
-            forward_breakdown(label, res)
-        curve_check(label, res, serve.parse_args(argv), curve_timing)
+        curve_check(label, res, serve.parse_args(argv))
     return launches, res
 
 
@@ -2796,20 +2835,13 @@ def curve_batch(cfg, b: int, seq: int, gen=None) -> dict:
     return batch
 
 
-def curve_check(label: str, res, args, timing: bool = True) -> None:
+def curve_check(label: str, res, args) -> None:
     """The service curve's forward eager against captured
     (``runtime/steps.py::jit_prefill_step``, what the launcher measured
     with) at each batch of the run's curve: the captured logits
-    ``torch.equal`` to the eager ones on random tokens; with ``timing``
-    also each form's wall per call over 3 calls and the captured form's
-    device busy from PROFILED_CALLS (the eager form's, under the
-    profiler, cost seconds of host bookkeeping),
-    then the curve and the Table 4 batch the launcher's own measurement
-    gives through the eager step, beside the run's captured curve and
-    choice."""
+    ``torch.equal`` to the eager ones on random tokens, one capture a
+    batch."""
     import torch
-    from repro_torch.core import batching as bt
-    from repro_torch.launch import serve
     from repro_torch.runtime import steps as ST
 
     eager = ST.make_prefill_step(res.cfg, mode=res.mode)
@@ -2825,54 +2857,13 @@ def curve_check(label: str, res, args, timing: bool = True) -> None:
                                      f"logits at batch {b} differ from the "
                                      f"eager forward's")
             del want
-        if not timing:
-            print(f"{label} curve b={b}: captured logits bitwise the eager "
-                  f"forward's")
-            continue
-        what = f"forward of {b} x {args.seq} tokens"
-        e = device_breakdown(f"{label} curve b={b} eager", what,
-                             lambda: eager(res.params, batch), 3, False,
-                             profiled=False)
-        c = device_breakdown(f"{label} curve b={b} captured", what,
-                             lambda: graphed(res.params, batch), 3, False)
-        busy = ("not measured" if c["busy"] is None
-                else f"{c['busy']:.3f} ms")
         print(f"{label} curve b={b}: captured logits bitwise the eager "
-              f"forward's; eager / captured wall {e['wall']:.2f} / "
-              f"{c['wall']:.2f} ms, captured device busy {busy}, "
-              f"cudaLaunchKernel {c['launch_calls']:.0f}")
+              f"forward's")
     if graphed.captured.captures != len(res.curve):
         raise AssertionError(f"{label}: {graphed.captured.captures} "
                              f"captures for {len(res.curve)} batches")
     graphed.captured.release()
-    if not timing:
-        torch_cuda_empty()
-        return
-    measure = getattr(serve.measure_service_curve, "__wrapped__",
-                      serve.measure_service_curve)
-    model, curve = measure(eager, res.params, res.cfg, seq=args.seq,
-                           max_batch=args.max_batch, device="cuda")
-    batch = min(bt.choose_batch(model, args.deadline_ms * 1e-3,
-                                args.max_batch), max(curve))
-    print(f"{label}: service curve eager "
-          + "  ".join(f"b={b}: {t * 1e3:.2f} ms" for b, t in
-                      sorted(curve.items()))
-          + f" (chosen batch {batch}); captured (the run's) "
-          + "  ".join(f"b={b}: {t * 1e3:.2f} ms" for b, t in
-                      sorted(res.curve.items()))
-          + f" (chosen batch {res.batch})")
     torch_cuda_empty()
-
-
-def forward_breakdown(label: str, res) -> None:
-    """Where the service curve's largest prefill spends its time: one
-    full-sequence forward of SERVE_MAX_BATCH x SERVE_SEQ tokens."""
-    from repro_torch.runtime import steps as ST
-
-    prefill = ST.make_prefill_step(res.cfg, mode=res.mode)
-    batch = curve_batch(res.cfg, SERVE_MAX_BATCH, SERVE_SEQ)
-    device_breakdown(label, f"prefill of {SERVE_MAX_BATCH} x {SERVE_SEQ} "
-                     f"tokens", lambda: prefill(res.params, batch), 3)
 
 
 # ---------------------------------------------------------------------------
@@ -4048,8 +4039,7 @@ def dense_cli_phase():
     try:
         launches, res = serve_run("w8a16", curve_paths,
                                   base=DENSE_SERVE_ARGS,
-                                  label="serve mistral-nemo-12b paged",
-                                  curve_timing=False)
+                                  label="serve mistral-nemo-12b paged")
     finally:
         serve.measure_service_curve = real_curve
     label = "serve mistral-nemo-12b paged"
@@ -4501,7 +4491,7 @@ def moe_cli_phase():
     label = f"serve {MOE_ARCH} paged"
     try:
         launches, res = serve_run("w8a16", curve_paths, base=MOE_SERVE_ARGS,
-                                  label=label, curve_timing=False)
+                                  label=label)
     finally:
         serve.measure_service_curve = real_curve
     rep = res.report
@@ -4998,7 +4988,7 @@ def enc_cli_phase():
     label = f"serve {ENC_ARCH}"
     try:
         launches, res = serve_run("w8a16", curve_paths, base=ENC_SERVE_ARGS,
-                                  label=label, curve_timing=False)
+                                  label=label)
     finally:
         serve.measure_service_curve = real_curve
     rep = res.report
@@ -5594,9 +5584,8 @@ def family_cli_phase(arch, base, compare):
     --quant w8a8 (every projection on qmatmul_w8a8; the W8A16 head, and
     the hybrid's RG-LRU gates, on the mma path in the curve's forward
     and on the GEMV in the decode loop).  Each run's captured curve is
-    held to the eager one bitwise at every batch; the w8a8 run's curve
-    is not broken down or re-timed eager, for the run's time limit.
-    Returns each run's launches."""
+    held to the eager one bitwise at every batch.  Returns each run's
+    launches."""
     from repro_torch.launch import serve
 
     real_curve = serve.measure_service_curve
@@ -5607,7 +5596,7 @@ def family_cli_phase(arch, base, compare):
         for quant in ("w8a16", "w8a8"):
             label = f"serve {arch} {quant}"
             out[quant], res = serve_run(quant, curve_paths, base=base,
-                                        label=label, curve_timing=False)
+                                        label=label)
             if quant == "w8a16":
                 rep = res.report
                 reqs = res.requests[:compare]
@@ -6177,8 +6166,7 @@ def launcher_run(cfg, params, name):
                                  f"{batch}, curve launches "
                                  f"{curve_launches}, plain {plain}")
         curve_check(label, serve.ServeRun(code=0, cfg=cfg, params=params,
-                                          mode=mode, curve=curve),
-                    args, timing=False)
+                                          mode=mode, curve=curve), args)
         zero_counts()
         bb, tps, dt = serve.measure_decode_tps(
             cfg, params, mode, batch, s_max=max(SERVE_SEQ * 2, 64),
@@ -6977,7 +6965,7 @@ def multiplex_phase(cfg, params):
     try:
         launches, res = serve_run(
             "w8a16", curve_paths, base=MUX_SERVE_ARGS,
-            label="serve multiplexed", curve_timing=False,
+            label="serve multiplexed",
             expect=[f"[engine]   model {t}: p99" for t in MUX_LANES])
         rep = res.report
         peak = {t: max(v) for t, v in rep.model_occupancy.items()}
@@ -7232,9 +7220,317 @@ def sharded_phase(cfg, params):
     return out
 
 
+# ---------------------------------------------------------------------------
+# train phase: the training path on the card
+# ---------------------------------------------------------------------------
+
+TRAIN_ARCH = "starcoder2-3b"
+TRAIN_SEQ = 128
+TRAIN_BATCH = 8
+TRAIN_STEPS = 12            # the CLI run at full width and depth
+TRAIN_LR = 1e-5             # (20 warm-up steps: 5e-7 .. 6e-6 over the run)
+TRAIN_PEAK_BYTES = 60e9     # params, grads, AdamW's m and v: 48.5 GB in f32
+# (BH, window) of the kernel rows at the training shape: 8 rows x 24
+# heads, S 128, hd 128, causal; and with a window of 32
+TRAIN_FLASH = ((TRAIN_BATCH * 24, None), (TRAIN_BATCH * 24, 32))
+# the model-level check at reduced size: the card's loss and every grad
+# leaf against the port's on the CPU (plain versions).  Both round the
+# bf16 activations and weight grads at the same places; f32 sums in other
+# orders part them by a bf16 ulp here and there, as against the JAX
+# package (tests/test_torch_train.py: loss 3e-4, grads 0.09-1.34%)
+TRAIN_LOSS_ATOL = 1e-3
+TRAIN_GRAD_RTOL = 0.03
+TRAIN_RESUME_STEPS = 12     # the reduced kill-and-resume run
+TRAIN_CKPT_EVERY = 5
+
+
+def train_flash_rows(flush):
+    """flash_attention_bhsd at the training shape and a windowed case: the
+    forward against its plain version (bf16_close), the autograd
+    Function's dQ, dK, dV (``ops.flash_attention``, whose backward is
+    ``flash_attention_bwd``) against autograd of the plain version
+    (bf16_close each), and the times of both directions against their
+    bounds and SDPA's (forward; forward + backward's backward half)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import ops
+
+    s, hd = TRAIN_SEQ, 128
+    scale = hd ** -0.5
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 36)
+    rows, worst = {}, 0.0
+    for bh, window in TRAIN_FLASH:
+        # (1, S, BH, hd): ops.flash_attention's layout, one row of BH heads
+        q4, k4, v4, do4 = (torch.randn((1, s, bh, hd), generator=gen,
+                                       device="cuda").to(torch.bfloat16)
+                           for _ in range(4))
+        q, k, v, do = (t[0].transpose(0, 1).contiguous()
+                       for t in (q4, k4, v4, do4))
+        kw = dict(causal=True, window=window)
+        out = FA.flash_attention_bhsd(q, k, v, **kw)
+        ref = FA.flash_attention_ref(q, k, v, **kw)
+        err, ratio = bf16_close(out, ref, f32_out=False)
+        leaves = [t.clone().requires_grad_(True) for t in (q4, k4, v4)]
+        got = torch.autograd.grad(ops.flash_attention(*leaves, **kw),
+                                  leaves, do4)
+        got = [g[0].transpose(0, 1) for g in got]
+        plain_leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        plain_out = FA.flash_attention_ref(*plain_leaves, **kw)
+        want = torch.autograd.grad(plain_out, plain_leaves, do,
+                                   retain_graph=True)
+        torch.cuda.synchronize()
+        for name, g, w in zip(("dq", "dk", "dv"), got, want):
+            if g.shape != w.shape or not torch.isfinite(g).all():
+                raise AssertionError(f"train flash BH={bh}: bad {name}")
+            e, r = bf16_close(g, w, f32_out=False)
+            err, ratio = max(err, e), max(ratio, r)
+        worst = max(worst, err)
+        if ratio > 1.0:
+            raise AssertionError(
+                f"train flash BH={bh} window={window}: the forward or the "
+                f"gradient disagrees with the plain version beyond "
+                f"tolerance (err/tol={ratio:.3f})")
+        qpos = torch.arange(s)[:, None]
+        kpos = torch.arange(s)[None, :]
+        valid = kpos <= qpos
+        if window is not None:
+            valid &= kpos > qpos - window
+        pairs = int(valid.sum())
+        mask = valid.to("cuda") if window is not None else None
+        sq, sk, sv = (t[0].transpose(0, 1)[None].contiguous()
+                      .requires_grad_(True) for t in (q4, k4, v4))
+        sdo = do[None]
+        sdpa_out = F.scaled_dot_product_attention(
+            sq, sk, sv, attn_mask=mask, is_causal=mask is None)
+        fwd = {
+            "ms": time_ms(lambda: FA.flash_attention_bhsd(q, k, v, **kw),
+                          20, flush),
+            "plain_ms": time_ms(lambda: FA.flash_attention_ref(q, k, v,
+                                                               **kw),
+                                5, flush, warmup=False),
+            "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
+                sq, sk, sv, attn_mask=mask, is_causal=mask is None), 20,
+                flush),
+            "bytes_ms": 4 * bh * s * hd * 2 / HBM_BYTES_PER_S * 1e3,
+            "ops_ms": 4 * bh * pairs * hd / BF16_OPS_PER_S * 1e3}
+        # backward: q, k, v and dO read, dQ, dK, dV written (bf16); five
+        # products over the valid (query, key) pairs: S again, dV, dP,
+        # dQ, dK
+        bwd = {
+            "ms": time_ms(lambda: FA.flash_attention_bwd(q, k, v, do, **kw),
+                          20, flush),
+            "plain_ms": time_ms(lambda: torch.autograd.grad(
+                plain_out, plain_leaves, do, retain_graph=True), 5, flush,
+                warmup=False),
+            "library_ms": time_ms(lambda: torch.autograd.grad(
+                sdpa_out, (sq, sk, sv), sdo, retain_graph=True), 20, flush),
+            "bytes_ms": 7 * bh * s * hd * 2 / HBM_BYTES_PER_S * 1e3,
+            "ops_ms": 10 * bh * pairs * hd / BF16_OPS_PER_S * 1e3}
+        for t in (fwd, bwd):
+            t["bound_ms"] = max(t["bytes_ms"], t["ops_ms"])
+            t["bound_by"] = ("bytes" if t["bytes_ms"] >= t["ops_ms"]
+                             else "operations")
+        label = f"BH={bh} S={s} hd={hd} causal window={window}"
+        rows[label] = {"forward": fwd, "backward": bwd, "max_abs_err": err}
+        for what, t in (("forward (kernel)", fwd),
+                        ("backward (flash_attention_bwd)", bwd)):
+            print(f"  train flash {label} {what}: ms={t['ms']:.4f} "
+                  f"plain_ms={t['plain_ms']:.4f} library_ms="
+                  f"{t['library_ms']:.4f} (SDPA) bound_ms="
+                  f"{t['bound_ms']:.5f} ({t['bound_by']})")
+        print(f"  train flash {label}: max_abs_err={err:.3e} (forward, dQ, "
+              f"dK, dV) err/tol={ratio:.3f}")
+    return worst, rows
+
+
+def train_model_check():
+    """Reduced starcoder2-3b: the loss and every grad leaf on the card
+    (the kernel's forward, the Function's gradient, remat) against the
+    port on the CPU (plain versions) on the same weights and batch; on the
+    card 2 kernel launches a layer (forward and remat recompute), one
+    backward call a layer, no plain forward."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLMData
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.models import registry as R
+    from repro_torch.optim.optimizers import tree_leaves, tree_map
+    from repro_torch.runtime import steps as ST
+
+    cfg = get_config(TRAIN_ARCH).reduced()
+    cpu = R.init(torch.Generator().manual_seed(SEED), cfg, device="cpu")
+    card = tree_map(lambda t: t.to("cuda"), cpu)
+    tokens, labels = SyntheticLMData(cfg.vocab, 32, 4,
+                                     seed=SEED).batch_at(0)
+    out = {}
+    for dev, params in (("cpu", cpu), ("cuda", card)):
+        leaves = tree_leaves(params)
+        for p in leaves:
+            p.requires_grad_(True)
+        batch = {"tokens": torch.from_numpy(tokens).to(dev),
+                 "labels": torch.from_numpy(labels).to(dev)}
+        zero_counts()
+        FA.flash_attention_bwd.calls = 0
+        loss = ST.make_loss_fn(cfg)(params, batch)
+        grads = torch.autograd.grad(loss, leaves)
+        launches, plain = read_counts()
+        out[dev] = (float(loss.detach()), [g.float().cpu() for g in grads],
+                    launches["flash_attention_bhsd"],
+                    plain["flash_attention_ref"], FA.flash_attention_bwd.calls)
+    loss, grads, n, ref_calls, bwd = out["cuda"]
+    if (n, ref_calls, bwd) != (2 * cfg.n_layers, 0, cfg.n_layers):
+        raise AssertionError(f"train model: kernel launches {n}, plain "
+                             f"calls {ref_calls}, backward calls {bwd}; want "
+                             f"{2 * cfg.n_layers}, 0, {cfg.n_layers}")
+    dloss = abs(loss - out["cpu"][0])
+    worst = max(float((g - w).norm() / w.norm())
+                for g, w in zip(grads, out["cpu"][1]))
+    print(f"train model: reduced {TRAIN_ARCH} ({cfg.n_layers} layers, d="
+          f"{cfg.d_model}), loss card {loss:.6f} cpu {out['cpu'][0]:.6f} "
+          f"(|diff| {dloss:.2e}, tol {TRAIN_LOSS_ATOL}); {len(grads)} grad "
+          f"leaves, worst ||g_card - g_cpu|| / ||g_cpu|| {worst:.4f} (tol "
+          f"{TRAIN_GRAD_RTOL}); {n} kernel launches, {bwd} backward calls, "
+          f"0 plain forwards")
+    if dloss > TRAIN_LOSS_ATOL or worst > TRAIN_GRAD_RTOL or not all(
+            torch.isfinite(g).all() for g in grads):
+        raise AssertionError("train model: the card's loss or gradients "
+                             "disagree with the CPU's beyond tolerance")
+    return {"loss_diff": dloss, "grad_rel_err": worst}
+
+
+def train_cli_run():
+    """The train launcher at full width and depth (30 layers, d 3,072, f32
+    params, AdamW), in this process so that the counts are read around
+    it: exit 0, every loss finite, 2 flash launches a layer a step (the
+    forward and remat's recompute), one backward call a layer a step, no
+    plain version and no qmatmul, peak memory under TRAIN_PEAK_BYTES."""
+    import statistics
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.launch import train as TR
+
+    argv = ["--arch", TRAIN_ARCH, "--seq-len", str(TRAIN_SEQ), "--batch",
+            str(TRAIN_BATCH), "--steps", str(TRAIN_STEPS), "--lr",
+            str(TRAIN_LR), "--log-every", "1"]
+    print(f"train: python -m repro_torch.launch.train {' '.join(argv)}")
+    torch_cuda_empty()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    FA.flash_attention_bwd.calls = 0
+    t0 = time.perf_counter()
+    run = TR.train(argv)
+    wall = time.perf_counter() - t0
+    launches, plain = read_counts()
+    bwd = FA.flash_attention_bwd.calls
+    peak = torch.cuda.max_memory_allocated()
+    layers = get_config(TRAIN_ARCH).n_layers
+    step_ms = 1e3 * statistics.median(run.step_seconds[1:])
+    tok_s = TRAIN_BATCH * TRAIN_SEQ / (step_ms / 1e3)
+    print(f"train: exit code {run.rc}, {len(run.losses)} steps in "
+          f"{wall:.1f}s (init included), losses "
+          f"{[round(x, 4) for x in run.losses]}; step ms (median of steps "
+          f"1-{TRAIN_STEPS - 1}) {step_ms:.1f}, first step "
+          f"{1e3 * run.step_seconds[0]:.1f}; tokens/s {tok_s:.1f}; peak "
+          f"allocated {peak} bytes (limit {TRAIN_PEAK_BYTES:.0f}); "
+          f"flash_attention_bhsd launches {launches['flash_attention_bhsd']}"
+          f" (want {2 * layers * TRAIN_STEPS}), flash_attention_bwd calls "
+          f"{bwd} (want {layers * TRAIN_STEPS}), plain-version calls "
+          f"{plain}")
+    others = {k: n for k, n in launches.items()
+              if n and k != "flash_attention_bhsd"}
+    if run.rc != 0 or not all(math.isfinite(x) for x in run.losses) or \
+            len(run.losses) != TRAIN_STEPS:
+        raise AssertionError(f"train: exit code {run.rc}, losses "
+                             f"{run.losses}")
+    if (launches["flash_attention_bhsd"] != 2 * layers * TRAIN_STEPS
+            or bwd != layers * TRAIN_STEPS or any(plain.values())
+            or others):
+        raise AssertionError(f"train: launches {launches}, backward calls "
+                             f"{bwd}, plain calls {plain}")
+    if peak >= TRAIN_PEAK_BYTES:
+        raise AssertionError(f"train: peak allocated {peak} bytes, limit "
+                             f"{TRAIN_PEAK_BYTES:.0f}")
+    torch_cuda_empty()
+    return {"rc": run.rc, "losses": run.losses, "step_ms": step_ms,
+            "first_step_ms": 1e3 * run.step_seconds[0], "tok_s": tok_s,
+            "peak_bytes": peak, "wall_s": wall,
+            "launches": launches["flash_attention_bhsd"],
+            "backward_calls": bwd}
+
+
+class _Killed(Exception):
+    """The train loop's stand-in for a killed process."""
+
+
+def train_resume_check():
+    """Kill and resume through the launcher at --reduced on the card: a
+    run of TRAIN_RESUME_STEPS steps with a checkpoint every
+    TRAIN_CKPT_EVERY, killed when it asks for step 11's batch, leaves
+    step 10 committed; the rerun with --resume auto restores step 10,
+    runs steps 10-11 and exits 0.  The checkpoints go into a temporary
+    directory the phase removes."""
+    import shutil
+    import tempfile
+
+    from repro_torch.checkpoint import latest_step
+    from repro_torch.launch import train as TR
+
+    base = TR.SyntheticLMData
+
+    class Dying(base):
+        def batch_at(self, step, **kw):
+            if step == 11:
+                raise _Killed
+            return super().batch_at(step, **kw)
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    try:
+        args = ["--arch", TRAIN_ARCH, "--reduced", "--steps",
+                str(TRAIN_RESUME_STEPS), "--seq-len", "32", "--batch", "4",
+                "--ckpt-dir", tmp, "--ckpt-every", str(TRAIN_CKPT_EVERY),
+                "--log-every", "50"]
+        TR.SyntheticLMData = Dying
+        try:
+            TR.train(args)
+        except _Killed:
+            pass
+        else:
+            raise AssertionError("train resume: the run was not killed")
+        finally:
+            TR.SyntheticLMData = base
+        committed = latest_step(tmp)
+        run = TR.train(args + ["--resume", "auto"])
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"train resume: killed at step 11 with step {committed} "
+          f"committed; the resumed run started at data step "
+          f"{run.start_step}, exit code {run.rc}, losses {run.losses}")
+    if committed != 10 or run.start_step != 10 or run.rc != 0 or len(
+            run.losses) != 2 or not all(math.isfinite(x)
+                                        for x in run.losses):
+        raise AssertionError("train resume: want step 10 restored, two "
+                             "finite losses and exit code 0")
+    return {"restored_step": run.start_step, "losses": run.losses}
+
+
+def train_phase(flush):
+    """The training path: the kernel rows at the training shape, the
+    model-level check at reduced size, the CLI at full width and depth,
+    and the reduced kill and resume."""
+    err, rows = train_flash_rows(flush)
+    model = train_model_check()
+    cli = train_cli_run()
+    resume = train_resume_check()
+    return {"max_abs_err": err, "rows": rows, "model": model, "cli": cli,
+            "resume": resume}
+
+
 PHASES = ("attention", "long_tick", "w8a8", "graphs", "dense", "sampling",
           "spec", "multiplex", "sharded", "moe", "encdec", "ssm", "hybrid", "mixtral",
-          "vlm")
+          "vlm", "train")
 
 
 def parse_args(argv):
@@ -7275,7 +7571,11 @@ def parse_args(argv):
                          "sampled, hot-swap, the replica router, the CLI "
                          "with --models and --replicas), or scale-out (tp 2 "
                          "and 4 shards on the card against a control, "
-                         "paged, speculating, the CLI with --tp); prints "
+                         "paged, speculating, the CLI with --tp), or "
+                         "training (flash's forward and gradient at the "
+                         "training shape, the reduced model against the "
+                         "CPU, the train CLI at full starcoder2-3b width "
+                         "and depth, the reduced kill and resume); prints "
                          "no result line")
     return ap.parse_args(argv)
 
@@ -7408,6 +7708,12 @@ def main(argv=None) -> int:
             ST.clear_step_cache()
             torch_cuda_empty()
             vlm_phase(flush, profile_serves=True)
+        if "train" in args.only:            # last, as in the whole run
+            from repro_torch.runtime import steps as ST
+            ST.clear_step_cache()
+            params = None
+            torch_cuda_empty()
+            train_phase(flush)
         del flush_buf
         print(f"chip_smoke: partial run passed in "
               f"{time.perf_counter() - t_run:.1f}s; no result line")
@@ -7466,6 +7772,9 @@ def main(argv=None) -> int:
     ST.clear_step_cache()
     torch_cuda_empty()
     vlm = timed(vlm_phase, flush)
+    ST.clear_step_cache()
+    torch_cuda_empty()
+    train = timed(train_phase, flush)
     del flush_buf
 
     tick_basis = (f"one {{}} of {NUM_SLOTS} rows at full width: the sum "
@@ -7915,6 +8224,29 @@ def main(argv=None) -> int:
             vlm["per_m"][NUM_SLOTS], vlm["per_m"][SERVE_ROWS])
            for key in ("ms", "plain_ms", "bound_ms", "library_ms")):
         return fail("a vlm kernel row is not finite")
+    # training (full-width starcoder2-3b, AdamW): flash's launches in the
+    # train CLI's run (the forward and remat's recompute, 2 a layer a
+    # step), its gradient's calls, and its rows at the training shape
+    tcli = train["cli"]
+    kernels[4]["train"] = {
+        "launches": tcli["launches"], "backward_calls": tcli["backward_calls"],
+        "max_abs_err": train["max_abs_err"], "rows": train["rows"],
+        "step_ms": tcli["step_ms"], "tok_s": tcli["tok_s"],
+        "peak_bytes": tcli["peak_bytes"], "losses": tcli["losses"],
+        "model": train["model"], "resume": train["resume"],
+        "basis": f"rows: one launch (forward) and one flash_attention_bwd "
+                 f"call (backward, plain PyTorch) at BH = {TRAIN_BATCH} x 24, "
+                 f"S = {TRAIN_SEQ}, hd 128, causal, and with a window of 32; "
+                 f"library SDPA (its backward half timed alone); launches: "
+                 f"the train CLI's {TRAIN_STEPS} steps at full width and "
+                 f"depth (30 layers x 2 a step), backward_calls its "
+                 f"gradient's; step_ms: the median step, host clock"}
+    if min(tcli["launches"], tcli["backward_calls"]) <= 0:
+        return fail("a kernel of the train path never launched")
+    if any(not math.isfinite(t[key]) for row in train["rows"].values()
+           for t in (row["forward"], row["backward"])
+           for key in ("ms", "plain_ms", "bound_ms", "library_ms")):
+        return fail("a train kernel row is not finite")
     if min(kernels[0]["encdec"]["launches_by_path"].values()) <= 0 or min(
             kernels[4]["encdec"][key]
             for key in ("launches", "paged_launches", "cli_launches")) <= 0:

@@ -10,30 +10,33 @@ added (:func:`recorded`) and adds it again on every replay with
 :func:`add`: the counts stay the number of launches that ran.
 
 A record maps ``name`` (the wrapper's ``.launches``) and ``name[path]``
-(its ``.launches_by_path[path]``) to a count.
+(its ``.launches_by_path[path]``) to a count.  An entry point that runs
+plain PyTorch in place of a kernel (the attention gradient,
+``flash_attention.flash_attention_bwd``) counts its ``.calls`` instead,
+registered with ``attr="calls"``.
 """
 from __future__ import annotations
 
 import contextlib
-from typing import Callable, Dict, Iterator
+from typing import Callable, Dict, Iterator, Tuple
 
 Counts = Dict[str, int]
 
-_COUNTED: Dict[str, Callable] = {}
+_COUNTED: Dict[str, Tuple[Callable, str]] = {}
 
 
-def register(fn: Callable) -> Callable:
-    """Count ``fn.launches`` (and ``fn.launches_by_path``, if it has one)
+def register(fn: Callable, attr: str = "launches") -> Callable:
+    """Count ``fn.<attr>`` (and ``fn.launches_by_path``, if it has one)
     in every record."""
-    _COUNTED[fn.__name__] = fn
+    _COUNTED[fn.__name__] = (fn, attr)
     return fn
 
 
 def snapshot() -> Counts:
     """Every registered wrapper's counts as they stand."""
     out = {}
-    for name, fn in _COUNTED.items():
-        out[name] = fn.launches
+    for name, (fn, attr) in _COUNTED.items():
+        out[name] = getattr(fn, attr)
         for path, n in getattr(fn, "launches_by_path", {}).items():
             out[f"{name}[{path}]"] = n
     return out
@@ -50,11 +53,11 @@ def add(delta: Counts, times: int = 1) -> None:
     it back)."""
     for key, n in delta.items():
         name, _, path = key.partition("[")
-        fn = _COUNTED[name]
+        fn, attr = _COUNTED[name]
         if path:
             fn.launches_by_path[path[:-1]] += n * times
         else:
-            fn.launches += n * times
+            setattr(fn, attr, getattr(fn, attr) + n * times)
 
 
 @contextlib.contextmanager

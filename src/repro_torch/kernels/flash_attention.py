@@ -15,6 +15,14 @@ probabilities set to 0 (a row with no valid key gives 0), and the f32
 context cast to ``out_dtype``.  Each call adds one to
 ``flash_attention_ref.calls``.
 
+``flash_attention_bwd`` is the attention's gradient, for training
+(``kernels/ops.py::flash_attention`` is a ``torch.autograd.Function``
+whose backward calls it).  The reference has no backward kernel (it
+differentiates its forward with ``jax.grad``), so this is plain PyTorch
+on either device: it recomputes the masked probabilities in f32 and
+never calls ``flash_attention_ref``.  Each call adds one to
+``flash_attention_bwd.calls``.
+
 Shapes: q (BH, Sq, hd); k, v (BH, Skv, hd), heads already expanded to H.
 The key at position kpos is seen by the query at qpos when kpos < kv_len,
 and (causal) kpos <= qpos, and (window) kpos > qpos - window.
@@ -41,6 +49,16 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         out_dtype=torch.bfloat16) -> torch.Tensor:
     """Dense masked softmax attention, f32 inside."""
     flash_attention_ref.calls += 1
+    p = _probabilities(q, k, causal, window, kv_len, sm_scale)
+    return torch.matmul(p, v.float()).to(out_dtype)
+
+
+flash_attention_ref.calls = 0
+
+
+def _probabilities(q, k, causal, window, kv_len, sm_scale) -> torch.Tensor:
+    """The masked softmax P (BH, Sq, Skv) f32, 0 where a key is masked (a
+    row with no valid key is all 0)."""
     _, sq, hd = q.shape
     skv = k.shape[1]
     kv_len = skv if kv_len is None else kv_len
@@ -54,11 +72,38 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if window is not None:
         mask = mask & (kpos > qpos - window)
     s = torch.where(mask, s, NEG_INF)
-    p = torch.where(mask, torch.softmax(s, dim=-1), 0.0)
-    return torch.matmul(p, v.float()).to(out_dtype)
+    return torch.where(mask, torch.softmax(s, dim=-1), 0.0)
 
 
-flash_attention_ref.calls = 0
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        dout: torch.Tensor, *, causal: bool = True,
+                        window: Optional[int] = None,
+                        kv_len: Optional[int] = None,
+                        sm_scale: Optional[float] = None):
+    """(dq, dk, dv) of the masked attention for the output's gradient
+    ``dout`` (BH, Sq, hd), each in its input's dtype; f32 inside:
+
+        P = softmax(scale·Q Kᵀ) under the masks, 0 where masked
+        dV = Pᵀ dO;  dP = dO Vᵀ;  D = rowsum(dO ⊙ O) = rowsum(P ⊙ dP)
+        dS = P ⊙ (dP − D);  dQ = scale·dS K;  dK = scale·dSᵀ Q
+
+    D is taken in its second form, from the recomputed f32 P, so no
+    rounding of the (bf16) output enters it.  A query row with no valid
+    key has P = 0, so its dQ is 0 and it adds nothing to dK and dV."""
+    flash_attention_bwd.calls += 1
+    hd = q.shape[-1]
+    sm_scale = hd ** -0.5 if sm_scale is None else sm_scale
+    p = _probabilities(q, k, causal, window, kv_len, sm_scale)
+    do = dout.float()
+    dv = torch.matmul(p.transpose(1, 2), do)
+    dp = torch.matmul(do, v.float().transpose(1, 2))
+    ds = p * (dp - (p * dp).sum(dim=-1, keepdim=True))
+    dq = torch.matmul(ds, k.float()) * sm_scale
+    dk = torch.matmul(ds.transpose(1, 2), q.float()) * sm_scale
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+flash_attention_bwd.calls = 0
 
 
 @functools.lru_cache(maxsize=None)
@@ -131,3 +176,4 @@ def flash_attention_bhsd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 flash_attention_bhsd.launches = 0
 counts.register(flash_attention_bhsd)
+counts.register(flash_attention_bwd, attr="calls")

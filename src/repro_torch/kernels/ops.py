@@ -132,13 +132,37 @@ def decode_attention(q, k, v, k_scale, v_scale, valid_len, *,
     return out.to(out_dtype)
 
 
+class _FlashAttention(torch.autograd.Function):
+    """Fused attention (BH, S, hd) with its gradient: the forward is the
+    kernel on a CUDA tensor (its plain version on a CPU one); the backward
+    is ``flash_attention.flash_attention_bwd``, which recomputes the
+    probabilities from the saved q, k and v."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, kv_len, sm_scale, out_dtype):
+        fn = (_fa.flash_attention_bhsd if q.is_cuda
+              else _fa.flash_attention_ref)
+        ctx.save_for_backward(q, k, v)
+        ctx.masks = dict(causal=causal, window=window, kv_len=kv_len,
+                         sm_scale=sm_scale)
+        return fn(q, k, v, causal=causal, window=window, kv_len=kv_len,
+                  sm_scale=sm_scale, out_dtype=out_dtype)
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v = ctx.saved_tensors
+        dq, dk, dv = _fa.flash_attention_bwd(q, k, v, dout, **ctx.masks)
+        return dq, dk, dv, None, None, None, None, None
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: Optional[int] = None,
                     out_dtype=None) -> torch.Tensor:
     """Fused attention over a whole sequence.  q: (B, Sq, H, hd); k, v:
     (B, Skv, H, hd) (KV already expanded to H heads); out (B, Sq, H, hd)
     in ``out_dtype`` (default q's).  Every key is valid (kv_len = Skv) and
-    the scores are scaled by hd**-0.5."""
+    the scores are scaled by hd**-0.5.  Differentiable: autograd reaches
+    q, k and v through ``flash_attention.flash_attention_bwd``."""
     b, sq, h, hd = q.shape
     skv = k.shape[1]
     out_dtype = out_dtype or q.dtype
@@ -146,7 +170,6 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     qr = q.transpose(1, 2).reshape(b * h, sq, hd).contiguous()
     kr = k.transpose(1, 2).reshape(b * h, skv, hd).contiguous()
     vr = v.transpose(1, 2).reshape(b * h, skv, hd).contiguous()
-    fn = _fa.flash_attention_bhsd if qr.is_cuda else _fa.flash_attention_ref
-    out = fn(qr, kr, vr, causal=causal, window=window, kv_len=skv,
-             sm_scale=hd ** -0.5, out_dtype=out_dtype)
+    out = _FlashAttention.apply(qr, kr, vr, causal, window, skv,
+                                hd ** -0.5, out_dtype)
     return out.reshape(b, h, sq, hd).transpose(1, 2)

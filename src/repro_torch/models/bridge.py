@@ -13,6 +13,14 @@ and comes out as ``models/vision.py`` lays it: one flat ``layers`` list,
 each group's plain layers then its cross layer, then the ``leftover``
 plain layers.  No JAX is imported: the JAX -> numpy step belongs to the
 caller (the tests do it).
+
+``opt_state_from_numpy(state)`` carries an optimizer's state across the
+same way: the reference's ``AdamWState`` or ``AdafactorState`` with every
+leaf numpy (any NamedTuple with those fields) becomes the port's.
+AdamW's m, v and master mirror the params, so their stacked layers are
+split as ``params_from_numpy`` splits them; Adafactor's moments stay
+stacked, the layout the port's Adafactor keeps
+(``optim/optimizers.py::adafactor_init``).
 """
 from __future__ import annotations
 
@@ -82,3 +90,17 @@ def params_from_numpy(tree: dict, device: DeviceLike = None) -> dict:
         if name in params:
             params[name] = _split(params[name])
     return params
+
+
+def opt_state_from_numpy(state, device: DeviceLike = None):
+    from repro_torch.optim import AdafactorState, AdamWState
+    device = resolve_device(device)
+    step = torch.tensor(np.asarray(state.step), dtype=torch.int32,
+                        device=device)
+    if hasattr(state, "m"):
+        def split(tree):
+            return None if tree is None else params_from_numpy(tree, device)
+        return AdamWState(step, split(state.m), split(state.v),
+                          split(state.master))
+    return AdafactorState(step, _convert(state.vr, device),
+                          _convert(state.vc, device))

@@ -42,6 +42,7 @@ import dataclasses
 from typing import Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.qlinear import FP, QuantMode
@@ -198,6 +199,13 @@ def draft_params(params: dict, n_layers: int) -> dict:
 # full-sequence forward
 # ---------------------------------------------------------------------------
 
+def _records_grad(tree) -> bool:
+    """True when a tensor of ``tree`` (a layer's params) requires grad."""
+    if isinstance(tree, dict):
+        return any(_records_grad(v) for v in tree.values())
+    return isinstance(tree, torch.Tensor) and tree.requires_grad
+
+
 def dense_ffn(lp: dict, h: Tensor, cfg: ArchConfig, *, mode: QuantMode,
               per_token: bool = False) -> Tensor:
     """The dense layer's FFN, ``lp["mlp"]``.  ``per_token`` (the tokens of
@@ -216,19 +224,33 @@ def forward(params: dict, tokens: Tensor, cfg: ArchConfig, *,
     (and windowed for a windowed config).  Under W8A16 every projection
     and the LM head take the tensor-core kernel (``w8a16_path="mma"``):
     this forward's rows need not match a decode step's bits.  ``remat``
-    is the reference's rematerialization switch for training; it has no
-    effect here.  ``ffn(lp, h, cfg, mode=...)`` is each layer's FFN."""
+    is the reference's rematerialization for training (``jax.checkpoint``
+    with ``nothing_saveable`` around each layer): where autograd records
+    a layer (grad enabled and a weight of it requiring grad), the layer
+    runs under ``torch.utils.checkpoint`` and keeps only its input, so its
+    activations (and the f32 copies of its bf16-rounded weights,
+    ``core/qlinear.py``) are recomputed in the backward pass; the values
+    are the same either way.  ``ffn(lp, h, cfg, mode=...)`` is each
+    layer's FFN."""
     mode = forward_mode(mode)
     b, s = tokens.shape
     positions = torch.arange(s, device=tokens.device)[None, :]
     rope = L.rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta)
     acfg = attn_config(cfg)
-    x = L.embed(params["embed"], tokens)
-    for lp in params["layers"]:
+
+    def layer(x, lp):
         h = norm_apply(cfg, lp["ln_attn"], x)
         x = x + L.attention(lp["attn"], h, acfg, mode=mode, rope=rope)
         h = norm_apply(cfg, lp["ln_mlp"], x)
-        x = x + ffn(lp, h, cfg, mode=mode)
+        return x + ffn(lp, h, cfg, mode=mode)
+
+    x = L.embed(params["embed"], tokens)
+    for lp in params["layers"]:
+        if remat and torch.is_grad_enabled() and _records_grad(lp):
+            x = checkpoint(layer, x, lp, use_reentrant=False,
+                           preserve_rng_state=False)
+        else:
+            x = layer(x, lp)
     x = norm_apply(cfg, params["ln_f"], x)
     head = params.get("unembed", params["embed"])
     return L.unembed(head, x, path=mode.w8a16_path)

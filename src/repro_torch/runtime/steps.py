@@ -1,7 +1,17 @@
-"""Serving steps: the prefill step (the full-sequence forward), the decode
-step and the multi-token decode loop, the continuous-batching slot tick,
-and chunked prefill of one slot — the serving subset of
-``repro/runtime/steps.py``.
+"""Train and serve steps: the LM loss and the train step, the prefill
+step (the full-sequence forward), the decode step and the multi-token
+decode loop, the continuous-batching slot tick, and chunked prefill of
+one slot — the port of ``repro/runtime/steps.py``.
+
+Training (:func:`make_train_step`) is the reference's loss -> grads ->
+clip -> optimizer on one device: the gradients come from
+``torch.autograd.grad`` over the param leaves, every attention layer's
+forward is the flash-attention kernel on the card and its gradient
+``kernels/flash_attention.py::flash_attention_bwd``, and the optimizer
+writes the params and its state in place (``optim/optimizers.py``).
+The dense family trains; the other families' training and the int8
+gradient exchange, which needs several cards, are refused (ROADMAP
+queue 1, item 15).
 
 The ``make_*`` builders run eagerly: the cache is a dict of tensors
 updated in place, and each step returns it to keep the reference's
@@ -46,7 +56,7 @@ the rest, memoized by ``cached_sharded_*``).
 """
 from __future__ import annotations
 
-from typing import Callable
+from typing import Callable, Optional
 
 import numpy as np
 import torch
@@ -55,8 +65,74 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.core.qlinear import FP, QuantMode
 from repro_torch.core.quant import QTensor
 from repro_torch.models import registry as R
+from repro_torch.optim import Optimizer, clip_by_global_norm
+from repro_torch.optim.optimizers import tree_leaves, tree_map
 from repro_torch.runtime import prng as P
 from repro_torch.runtime.graphs import MAX_BINDINGS, CapturedStep
+
+# the families whose training is ported
+TRAIN_FAMILIES = ("dense",)
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  z_loss: float = 1e-4) -> torch.Tensor:
+    """Mean CE in f32 + z-loss (the logit-norm stabilizer)."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    ce = torch.mean(lse - ll)
+    return ce + z_loss * torch.mean(torch.square(lse))
+
+
+def make_loss_fn(cfg: ArchConfig, *, mode: QuantMode = FP,
+                 remat: bool = True) -> Callable:
+    """``loss_fn(params, batch) -> ()`` f32: the forward
+    (``registry.apply_forward``) and :func:`cross_entropy` against
+    ``batch["labels"]``."""
+    if cfg.family not in TRAIN_FAMILIES:
+        raise NotImplementedError(
+            f"training the {cfg.family} family is not ported yet (ROADMAP "
+            f"queue 1, item 15); ported: {', '.join(TRAIN_FAMILIES)}")
+
+    def loss_fn(params, batch):
+        logits = R.apply_forward(params, cfg, batch, mode=mode, remat=remat)
+        return cross_entropy(logits, batch["labels"])
+    return loss_fn
+
+
+def make_train_step(cfg: ArchConfig, optimizer: Optimizer, *,
+                    mode: QuantMode = FP, remat: bool = True,
+                    max_grad_norm: float = 1.0,
+                    grad_compression: Optional[str] = None) -> Callable:
+    """Returns ``train_step(params, opt_state, batch, rng) -> (params,
+    opt_state, metrics)``: the loss and its gradients with respect to
+    every param leaf (each made to require grad at the first call), the
+    gradients clipped to a global norm of ``max_grad_norm``, and the
+    optimizer's update, written into ``params`` and ``opt_state`` in
+    place (both returned, as the reference returns their new values).
+    ``metrics``: ``loss`` and ``grad_norm``, () f32 tensors on the
+    params' device (reading them syncs).  ``rng`` is the reference's
+    key of the int8 exchange, which is not ported: it is not read."""
+    if grad_compression is not None:
+        raise NotImplementedError(
+            f"grad_compression={grad_compression!r}: the int8 gradient "
+            f"exchange runs across several cards and is not ported yet "
+            f"(ROADMAP queue 1, item 15)")
+    loss_fn = make_loss_fn(cfg, mode=mode, remat=remat)
+
+    def train_step(params, opt_state, batch, rng=None):
+        leaves = tree_leaves(params)
+        for p in leaves:
+            if not p.requires_grad:
+                p.requires_grad_(True)
+        loss = loss_fn(params, batch)
+        by_leaf = dict(zip(map(id, leaves),
+                           torch.autograd.grad(loss, leaves)))
+        grads = tree_map(lambda p: by_leaf[id(p)], params)
+        grads, gnorm = clip_by_global_norm(grads, max_grad_norm)
+        params, opt_state = optimizer.update(params, grads, opt_state)
+        return params, opt_state, {"loss": loss.detach(), "grad_norm": gnorm}
+    return train_step
 
 
 def make_prefill_step(cfg: ArchConfig, *, mode: QuantMode = FP) -> Callable:

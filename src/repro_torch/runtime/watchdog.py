@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import dataclasses
 import statistics
+import time
 from typing import List, Optional
 
 
@@ -49,3 +50,15 @@ class StepWatchdog:
     @property
     def median(self) -> float:
         return statistics.median(self._times) if self._times else 0.0
+
+
+class StepTimer:
+    """Wall time of a ``with`` block, in seconds, as ``.elapsed``."""
+
+    def __enter__(self):
+        self._t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        self.elapsed = time.perf_counter() - self._t0
+        return False

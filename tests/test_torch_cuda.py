@@ -54,6 +54,7 @@ from repro_torch.core.quant import QTensor, quantize_tree, quantize_weight
 from repro_torch.kernels import decode_attention as A
 from repro_torch.kernels import counts
 from repro_torch.kernels import flash_attention as FA
+from repro_torch.kernels import ops
 from repro_torch.kernels import qmatmul as K
 from repro_torch.kernels import scratch
 from repro_torch.models import layers as L
@@ -2187,3 +2188,83 @@ def test_vlm_engine_on_card_equals_reference(cuda, kind):
     per_token(params, [5, 6, 7, 8], b, 1, 2, 4)
     for k in cache:
         assert torch.equal(a[k], b[k]), k
+
+
+# ---------------------------------------------------------------------------
+# training: the attention's gradient and the train step on the card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("window", [None, 16])
+def test_flash_gradient_on_card_matches_plain(cuda, window):
+    """ops.flash_attention on the card (the kernel's forward, the
+    Function's backward flash_attention_bwd) against autograd of the plain
+    version, bf16: the forward and dQ, dK, dV within one bf16 ulp; the
+    backward runs no plain forward."""
+    g = torch.Generator(device=cuda).manual_seed(36)
+    q4, k4, v4, do4 = (torch.randn((2, 64, 4, 128), generator=g,
+                                   device=cuda).to(torch.bfloat16)
+                       for _ in range(4))
+    leaves = [t.clone().requires_grad_(True) for t in (q4, k4, v4)]
+    launches = FA.flash_attention_bhsd.launches
+    out = ops.flash_attention(*leaves, causal=True, window=window)
+    calls = FA.flash_attention_ref.calls
+    got = torch.autograd.grad(out, leaves, do4)
+    assert FA.flash_attention_bhsd.launches == launches + 1
+    assert FA.flash_attention_ref.calls == calls
+    bhsd = [t.transpose(1, 2).reshape(8, 64, 128) for t in (q4, k4, v4, do4)]
+    plain = [t.clone().requires_grad_(True) for t in bhsd[:3]]
+    ref = FA.flash_attention_ref(*plain, causal=True, window=window)
+    want = torch.autograd.grad(ref, plain, bhsd[3])
+    pairs = [(out.transpose(1, 2).reshape(8, 64, 128), ref)]
+    pairs += [(a.transpose(1, 2).reshape(8, 64, 128), b)
+              for a, b in zip(got, want)]
+    for a, b in pairs:
+        a, b = a.float(), b.float()
+        tol = 2.0 ** -7 * b.abs() + 1e-5 * b.pow(2).mean().sqrt()
+        assert ((a - b).abs() <= tol).all()
+
+
+def test_train_step_on_card(cuda):
+    """Reduced starcoder2-3b, three AdamW train steps on the card: finite,
+    falling losses, 2 flash launches a layer a step (remat), one backward
+    call a layer a step, no plain forward; the loss within 1e-3 and every
+    grad leaf within 3% of the port's on the CPU (the tolerances of
+    tests/test_torch_train.py against the JAX package)."""
+    from repro_torch.data import SyntheticLMData
+    from repro_torch.optim import make_optimizer
+    from repro_torch.optim.optimizers import tree_leaves, tree_map
+
+    cfg = get_config("starcoder2-3b").reduced()
+    cpu = R.init(torch.Generator().manual_seed(0), cfg, device="cpu")
+    card = tree_map(lambda t: t.to(cuda), cpu)
+    tokens, labels = SyntheticLMData(cfg.vocab, 32, 4).batch_at(0)
+    grads = {}
+    for dev, params in (("cpu", cpu), (cuda, card)):
+        leaves = tree_leaves(params)
+        for p in leaves:
+            p.requires_grad_(True)
+        batch = {"tokens": torch.from_numpy(tokens).to(dev),
+                 "labels": torch.from_numpy(labels).to(dev)}
+        loss = ST.make_loss_fn(cfg)(params, batch)
+        grads[str(dev)] = (float(loss.detach()), [
+            x.float().cpu() for x in torch.autograd.grad(loss, leaves)])
+    (lc, gc), (lg, gg) = grads["cpu"], grads[str(cuda)]
+    assert abs(lc - lg) <= 1e-3
+    for a, b in zip(gg, gc):
+        assert float((a - b).norm() / b.norm()) <= 0.03
+    opt = make_optimizer("adamw", lr=3e-3)
+    state = opt.init(card)
+    step = ST.make_train_step(cfg, opt)
+    launches = FA.flash_attention_bhsd.launches
+    bwd, calls = FA.flash_attention_bwd.calls, FA.flash_attention_ref.calls
+    losses = []
+    for t in range(3):
+        tokens, labels = SyntheticLMData(cfg.vocab, 32, 8).batch_at(t)
+        batch = {"tokens": torch.from_numpy(tokens).to(cuda),
+                 "labels": torch.from_numpy(labels).to(cuda)}
+        card, state, m = step(card, state, batch, None)
+        losses.append(float(m["loss"]))
+    assert all(np.isfinite(losses))
+    assert FA.flash_attention_bhsd.launches - launches == 6 * cfg.n_layers
+    assert FA.flash_attention_bwd.calls - bwd == 3 * cfg.n_layers
+    assert FA.flash_attention_ref.calls == calls
