@@ -298,7 +298,7 @@ Phases, each of which fails the run (non-zero exit, no result line):
    self-draft) on 8 of the requests, equal to the control; the serve
    CLI with ``--tp 2`` and with ``--replicas 2 --tp 2``, each exit 0,
    every request ok and three held to ``reference_outputs``.
-18. train (last): the training path.  ``flash_attention_bhsd`` at the
+18. train: the training path.  ``flash_attention_bhsd`` at the
    training shape (BH = 8 x 24, S 128, hd 128, causal; and with a window
    of 32): its forward against the plain version and the autograd
    Function's dQ, dK, dV (``kernels/ops.py::flash_attention``, whose
@@ -317,6 +317,22 @@ Phases, each of which fails the run (non-zero exit, no result line):
    reduced run killed at step 11 with ``--ckpt-every 5``, whose rerun
    with ``--resume auto`` restores step 10 and exits 0 (checkpoints in a
    temporary directory the phase removes).
+19. paper (last): the paper's six apps (MLP0/1, LSTM0/1, CNN0/1 at
+   Table 1 size).  Both int8 kernels at every distinct FC shape at its
+   app's batch (MLP0 2,000² at M 200, MLP1 1,118² at 168, LSTM0 2,084 x
+   4,168 at 64, LSTM1 1,376 x 2,752 at 96, CNN1's 3,700², 3,700 x 7,400,
+   7,400 x 3,700 and 3,700 x 1,000 at 32), each weight stored padded as
+   the apps store it (K to a multiple of 16, N of 4): ``ops.qmatmul`` on
+   the GEMV (f32 x) and the mma path (bf16 x) and ``ops.qmatmul_dynamic``
+   against the plain versions on the unpadded operands, the padded W8A8
+   call also by ``w8a8_check``, each timed beside its plain version, its
+   bound and a library call.  Each app built as the serve twin builds it:
+   its W8A16 and W8A8 forwards of 2 rows on the card against the same
+   forward on the CPU (1e-3 / 1e-2 relative L2), captured as a CUDA
+   graph bitwise its eager forward, 4 forwards' launches a mode.  Then
+   ``python -m repro_torch.examples.serve_quantized`` over the six apps
+   in this process (exit 0, a Table 4 line an app, every FC on the GEMV,
+   no plain version) and the quickstart twin (exit 0).
 
 The kernel phase holds both of ``qmatmul_w8a16``'s kernels (the GEMV and
 the ``mma.sync`` bf16 tensor-core path) at every projection and the LM
@@ -354,13 +370,13 @@ than before the redesigns.
 graphs`` / ``--only dense`` / ``--only sampling`` / ``--only spec`` /
 ``--only moe`` / ``--only encdec`` / ``--only ssm`` / ``--only hybrid`` /
 ``--only mixtral`` / ``--only multiplex`` / ``--only sharded`` /
-``--only train`` run just the two
+``--only train`` / ``--only paper`` run just the two
 attention kernel
 phases, the long-context ticks, ``qmatmul_w8a8``'s kernel phase and the
 W8A8 tick, the five eager tick breakdowns and the graph phase, the dense
 family's kernel rows, rmsnorm widths and phase 10, phase 7 and the
 sampled serve CLI run, phase 8 with its CLI run and qwen2-moe-a2.7b's
-speculative serve, phase 11, 12, 13, 14, 15, 16, 17 or 18, and ``--src
+speculative serve, phase 11, 12, 13, 14, 15, 16, 17, 18 or 19, and ``--src
 DIR``
 takes the port from
 another checkout's ``src/`` (so the same phases time a parent commit's
@@ -388,7 +404,10 @@ launches in the multiplexed, routed and ``--models`` runs under
 under ``sharded``, qmatmul_w8a16's with each tp's captured tick and
 tok/s; flash_attention_bhsd's launches in the train CLI's run, its
 gradient's calls, its rows at the training shape, the step's ms,
-tokens/s and peak memory under ``train``), and beside ``kernels`` the multiplex phase's numbers
+tokens/s and peak memory under ``train``; both int8 kernels' rows at the
+paper apps' FC shapes, their launches in the serve twin's run and the
+apps' forwards, and the apps' Table 4 rows under ``paper``), and beside
+``kernels`` the multiplex phase's numbers
 under ``multiplex`` (the serves' tok/s and occupancies, the ticks'
 wall and busy, the hot-swap's and the router's counts, the phase's
 seconds), the whole run's time, and,
@@ -567,10 +586,19 @@ def fail(msg: str) -> int:
 
 # the queue head start of time_ms: at most this long (the sleep kernel
 # spins SM clock cycles: SLEEP_CYCLES_PER_S at H100's ~2 GHz boost, so a
-# slower clock only lengthens it), and a first guess for calls whose
-# enqueue time was not measured
+# slower clock only lengthens it)
 HEAD_START_S = 0.1
-HEAD_START_GUESS_S = 0.01
+# the head start of a plain version's timing (time_ms's warmup=False calls
+# and timed_call): longer than the host takes to queue one plain call of a
+# forward's 512 rows
+PLAIN_HEAD_S = 0.05
+# calls a kernel or library timing averages (CUDA events, L2 flushed)
+TIMED_ITERS = 5
+# what time_ms cost this run (host seconds, its heads' sleep, the timings
+# it took again; "plain": the warmup=False calls), printed at the end of
+# a whole run to find timing work worth cutting
+TIME_MS_COST = {"calls": 0, "seconds": 0.0, "head_s": 0.0, "retaken": 0,
+                "plain_calls": 0, "plain_seconds": 0.0}
 SLEEP_CYCLES_PER_S = 2e9
 
 
@@ -580,22 +608,27 @@ def time_ms(fn, iters: int, flush, warmup: bool = True) -> float:
     3 GB of weights per tick, so every weight read is cold).  The calls
     are queued behind a sleep kernel, so the card runs them back to back
     and the events time the device, not the host's launch overhead.  The
-    sleep lasts 4x the host time the iters calls take to queue (the
-    warm-up call's, plus 2 ms), or HEAD_START_GUESS_S without a warm-up;
-    if the card woke before the last call was queued, the timing is
-    taken again behind HEAD_START_S.  ``warmup=False`` skips the untimed
-    first call: the plain versions, plain PyTorch with nothing to compile,
-    whose one call at a forward's shapes takes up to seconds."""
+    sleep lasts 2x the host time the iters calls take to queue (the
+    warm-up call's, plus 2 ms); if the card woke before the last call was
+    queued, the timing is taken again behind HEAD_START_S.
+    ``warmup=False`` skips the untimed first call and queues behind
+    PLAIN_HEAD_S, never taken again: the plain versions, plain PyTorch
+    with nothing to compile, whose one call at a forward's shapes takes
+    up to seconds (a retaken timing ran it twice more)."""
     import torch
-    head = HEAD_START_GUESS_S
+    t_call = time.perf_counter()
+    cost = TIME_MS_COST
+    cost["calls"] += 1
+    head = PLAIN_HEAD_S
     if warmup:
         t0 = time.perf_counter()
         flush()
         fn()
         head = min(HEAD_START_S,
-                   0.002 + 4 * iters * (time.perf_counter() - t0))
+                   0.002 + 2 * iters * (time.perf_counter() - t0))
     torch.cuda.synchronize()
     while True:
+        cost["head_s"] += head
         events = [(torch.cuda.Event(enable_timing=True),
                    torch.cuda.Event(enable_timing=True))
                   for _ in range(iters)]
@@ -609,14 +642,38 @@ def time_ms(fn, iters: int, flush, warmup: bool = True) -> float:
             end.record()
         queued_asleep = not awake.query()
         torch.cuda.synchronize()
-        if queued_asleep or head >= HEAD_START_S:
+        if queued_asleep or head >= HEAD_START_S or not warmup:
+            spent = time.perf_counter() - t_call
+            cost["seconds"] += spent
+            if not warmup:
+                cost["plain_calls"] += 1
+                cost["plain_seconds"] += spent
             return sum(s.elapsed_time(e) for s, e in events) / iters
+        cost["retaken"] += 1
         head = HEAD_START_S
 
 
 # ---------------------------------------------------------------------------
 # kernel phase
 # ---------------------------------------------------------------------------
+
+def timed_call(fn, flush):
+    """(``fn()``, the device ms of that one call), timed as ``time_ms``
+    times a plain version (an L2 flush, then CUDA events around the call,
+    queued behind PLAIN_HEAD_S): so the plain version's result that a
+    check compares with is also its timing, and it runs once."""
+    import torch
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(PLAIN_HEAD_S * SLEEP_CYCLES_PER_S))
+    flush()
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
 
 def bf16_close(out, ref, *, f32_out: bool):
     """(max |out - ref|, worst err / tol).  Tolerance: the kernel and the
@@ -697,9 +754,11 @@ def gemv_rows_check(label, x, w, ws, bias, act, odt) -> None:
                                      f"row alone")
 
 
-def w8a16_numbers(x, w, ws, bias, act, odt, paths, plain_iters, flush):
+def w8a16_numbers(x, w, ws, bias, act, odt, paths, plain_iters, flush,
+                  plain_ms=None):
     """One W8A16 shape's numbers: each of ``paths`` timed (20 launches),
-    the plain version (``plain_iters`` calls; nan for 0), ``F.linear`` on
+    the plain version (``plain_ms`` where the caller timed its check's
+    call, else ``plain_iters`` calls; nan for 0), ``F.linear`` on
     the bf16-dequantized weights, and the bound: the larger of the bytes
     (x, w, its scales, the bias and the output once each) over the memory
     rate and 2 M K N over the bf16 peak."""
@@ -710,13 +769,14 @@ def w8a16_numbers(x, w, ws, bias, act, odt, paths, plain_iters, flush):
     (m, k), n = x.shape, w.shape[1]
     kw = dict(activation=act, out_dtype=odt)
     ms = {path: time_ms(lambda: K.qmatmul_w8a16_on_path(
-        path, x, w, ws, bias, **kw), 20, flush) for path in paths}
-    plain = (time_ms(lambda: K.qmatmul_w8a16_ref(x, w, ws, bias, **kw),
+        path, x, w, ws, bias, **kw), TIMED_ITERS, flush) for path in paths}
+    plain = (plain_ms if plain_ms is not None else
+             time_ms(lambda: K.qmatmul_w8a16_ref(x, w, ws, bias, **kw),
                      plain_iters, flush, warmup=False)
              if plain_iters else float("nan"))
     w_lib = (w.float() * ws).to(torch.bfloat16).t()      # (N, K) view
     b_lib = None if bias is None else bias.to(torch.bfloat16)
-    lib = time_ms(lambda: F.linear(x, w_lib, b_lib), 20, flush)
+    lib = time_ms(lambda: F.linear(x, w_lib, b_lib), TIMED_ITERS, flush)
     del w_lib
     nbytes = (x.numel() * 2 + w.numel() + ws.numel() * 4
               + (0 if bias is None else n * 4)
@@ -776,8 +836,11 @@ def qmatmul_phase(flush):
         for m in (1,) + W8A16_PATH_ROWS:
             x = torch.randn((m, k), generator=gen,
                             device="cuda").to(torch.bfloat16)
-            ref = K.qmatmul_w8a16_ref(x, w, ws, bias, activation=act,
-                                      out_dtype=odt)
+            # at the forward's M the check's plain call is its timing
+            ref, plain_ms = timed_call(lambda: K.qmatmul_w8a16_ref(
+                x, w, ws, bias, activation=act, out_dtype=odt), flush) \
+                if m == SERVE_ROWS else (K.qmatmul_w8a16_ref(
+                    x, w, ws, bias, activation=act, out_dtype=odt), None)
             err, ratio = w8a16_check(f"{name} M={m}", x, w, ws, bias, act,
                                      odt, ref)
             worst_err, worst_ratio = max(worst_err, err), max(worst_ratio,
@@ -791,8 +854,7 @@ def qmatmul_phase(flush):
                 continue
             t = w8a16_numbers(
                 x, w, ws, bias, act, odt, K.W8A16_PATHS,
-                ((3 if m < SERVE_ROWS else 1) if m in (NUM_SLOTS, SERVE_ROWS)
-                 else 0), flush)
+                3 if m == NUM_SLOTS else 0, flush, plain_ms)
             ms, plain, lib, bound = (t["ms"], t["plain_ms"],
                                      t["library_ms"], t["bound_ms"])
             bytes_ms, ops_ms = t["bytes_ms"], t["ops_ms"]
@@ -918,7 +980,7 @@ def _sdpa_ms(flush, q, kd, vd, vl, s_slots):
     mask = (torch.arange(s_slots, device="cuda")[None, :]
             < vl[:, None])[:, None, None, :]
     return time_ms(lambda: F.scaled_dot_product_attention(
-        qd, kd, vd, attn_mask=mask, enable_gqa=True), 20, flush)
+        qd, kd, vd, attn_mask=mask, enable_gqa=True), TIMED_ITERS, flush)
 
 
 def _per_tick(t):
@@ -967,9 +1029,9 @@ def attention_phase(flush, s_slots: int):
             vl[r:r + 1], k_new=None if kn is None else kn[r:r + 1],
             v_new=None if vn is None else vn[r:r + 1]), b)
         ms = time_ms(lambda: A.decode_attention_int8(
-            q, k, v, ks, vs, vl, k_new=kn, v_new=vn), 20, flush)
+            q, k, v, ks, vs, vl, k_new=kn, v_new=vn), TIMED_ITERS, flush)
         plain = time_ms(lambda: A.decode_attention_int8_ref(
-            q, k, v, ks, vs, vl, k_new=kn, v_new=vn), 3, flush, warmup=False)
+            q, k, v, ks, vs, vl, k_new=kn, v_new=vn), 1, flush, warmup=False)
         lib = _sdpa_ms(flush, q, (k.float() * ks).to(torch.bfloat16)
                        .transpose(1, 2), (v.float() * vs).to(torch.bfloat16)
                        .transpose(1, 2), vl, s)
@@ -1146,9 +1208,10 @@ def paged_attention_phase(flush):
             k_new=None if kn is None else kn[r:r + 1],
             v_new=None if vn is None else vn[r:r + 1]), b)
         ms = time_ms(lambda: A.decode_attention_int8_paged(
-            q, k, v, ks, vs, vl, tables, k_new=kn, v_new=vn), 20, flush)
+            q, k, v, ks, vs, vl, tables, k_new=kn, v_new=vn), TIMED_ITERS,
+            flush)
         plain = time_ms(lambda: A.decode_attention_int8_paged_ref(
-            q, k, v, ks, vs, vl, tables, k_new=kn, v_new=vn), 3, flush,
+            q, k, v, ks, vs, vl, tables, k_new=kn, v_new=vn), 1, flush,
             warmup=False)
         lib = _sdpa_ms(flush, q, (gk.float() * gks).to(torch.bfloat16)
                        .transpose(1, 2), (gv.float() * gvs)
@@ -1209,13 +1272,15 @@ def _w8a8_threshold(K) -> int:
     return getattr(K, "W8A8_GEMV_MAX_ROWS", None) or K.W8A8_DP4A_MAX_ROWS
 
 
-def w8a8_check(label, x, w, xs, ws, bias, act):
+def w8a8_check(label, x, w, xs, ws, bias, act, flush=None):
     """qmatmul_w8a8 (the wrapper's own choice of kernel) on one input:
     its int32 sums bitwise equal to the plain version's (unit scales, no
     bias, no activation), its bf16 drain within one bf16 ulp (bf16_close),
     and, where the wrapper takes the tensor-core kernel, its bf16 output
     torch.equal to the same rows launched in slices that the GEMV takes.
-    Returns (max_abs_err, err / tol, drain bitwise)."""
+    Returns (max_abs_err, err / tol, drain bitwise), and with ``flush``
+    also the device ms of the plain call it compared with
+    (:func:`timed_call`): the row's plain time."""
     import torch
     from repro_torch.kernels import qmatmul as K
 
@@ -1225,7 +1290,9 @@ def w8a8_check(label, x, w, xs, ws, bias, act):
     acc_ref = K.qmatmul_w8a8_ref(x, w, one, ones)
     kw = dict(activation=act, out_dtype=torch.bfloat16)
     out = K.qmatmul_w8a8(x, w, xs, ws, bias, **kw)
-    ref = K.qmatmul_w8a8_ref(x, w, xs, ws, bias, **kw)
+    ref, plain_ms = (timed_call(lambda: K.qmatmul_w8a8_ref(
+        x, w, xs, ws, bias, **kw), flush) if flush is not None else
+        (K.qmatmul_w8a8_ref(x, w, xs, ws, bias, **kw), None))
     torch.cuda.synchronize()
     if float(acc_ref.abs().max()) >= 2 ** 24:
         raise AssertionError("int32 check: a sum is not exact in f32")
@@ -1249,7 +1316,9 @@ def w8a8_check(label, x, w, xs, ws, bias, act):
                     f"qmatmul_w8a8 {label}: rows {i}..{i + size - 1} of the "
                     f"tensor-core launch differ from the same rows through "
                     f"the GEMV")
-    return err, ratio, torch.equal(out, ref)
+    if flush is None:
+        return err, ratio, torch.equal(out, ref)
+    return err, ratio, torch.equal(out, ref), plain_ms
 
 
 def qmatmul_w8a8_phase(flush):
@@ -1310,7 +1379,10 @@ def qmatmul_w8a8_phase(flush):
                          SERVE_ROWS}):
             xm = x[:m].contiguous()
             label = f"{name} M={m} ({K.w8a8_path(m)})"
-            err, ratio, bitwise = w8a8_check(label, xm, w, xs, ws, bias, act)
+            # a timed row's plain time is its check's plain call
+            err, ratio, bitwise, *plain = w8a8_check(
+                label, xm, w, xs, ws, bias, act,
+                flush if m in per_m else None)
             worst_err = max(worst_err, err)
             if m not in per_m:
                 print(f"  qmatmul_w8a8 {name:7s} M={m:3d} K={k:5d} N={n:5d} "
@@ -1318,12 +1390,10 @@ def qmatmul_w8a8_phase(flush):
                       f"drain_bitwise={bitwise} max_abs_err={err:.3e} "
                       f"err/tol={ratio:.3f}")
                 continue
+            plain, = plain
             ms = time_ms(lambda: K.qmatmul_w8a8(
                 xm, w, xs, ws, bias, activation=act,
-                out_dtype=torch.bfloat16), 20, flush)
-            plain = time_ms(lambda: K.qmatmul_w8a8_ref(
-                xm, w, xs, ws, bias, activation=act,
-                out_dtype=torch.bfloat16), 3, flush, warmup=False)
+                out_dtype=torch.bfloat16), TIMED_ITERS, flush)
 
             def int_mm():
                 y = torch._int_mm(xm, w).float() * xs * ws
@@ -1340,7 +1410,7 @@ def qmatmul_w8a8_phase(flush):
                     None if bias is None else bias.to(torch.bfloat16))
                 lib_name = "F.linear, bf16 weights"
             library.add(lib_name)
-            lib = time_ms(lib_fn, 20, flush)
+            lib = time_ms(lib_fn, TIMED_ITERS, flush)
             nbytes = (m * k + k * n + 4 + 4 * n + (4 * n if has_bias else 0)
                       + 2 * m * n)
             bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
@@ -1360,7 +1430,7 @@ def qmatmul_w8a8_phase(flush):
             for path in K.W8A8_PATHS:
                 t = time_ms(lambda: K.qmatmul_w8a8_on_path(
                     path, xm, w, xs, ws, bias, activation=act,
-                    out_dtype=torch.bfloat16), 20, flush)
+                    out_dtype=torch.bfloat16), TIMED_ITERS, flush)
                 path_ms[m][path] += per_fwd * t
                 times.append(f"M={m} {path}={t:.4f}")
         print(f"  qmatmul_w8a8 {name:7s} paths: {' '.join(times)}")
@@ -1424,12 +1494,12 @@ def flash_phase(flush):
             raise AssertionError(f"flash BH={bh}: bad output")
         err, ratio = bf16_close(out, ref, f32_out=False)
         worst = max(worst, err)
-        ms = time_ms(lambda: FA.flash_attention_bhsd(q, k, v, **kw), 20,
-                     flush)
-        plain = time_ms(lambda: FA.flash_attention_ref(q, k, v, **kw), 3,
+        ms = time_ms(lambda: FA.flash_attention_bhsd(q, k, v, **kw),
+                     TIMED_ITERS, flush)
+        plain = time_ms(lambda: FA.flash_attention_ref(q, k, v, **kw), 1,
                         flush, warmup=False)
         lib = time_ms(lambda: F.scaled_dot_product_attention(
-            q[None], k[None], v[None], is_causal=True), 20, flush)
+            q[None], k[None], v[None], is_causal=True), TIMED_ITERS, flush)
         kvl = s if kv_len is None else kv_len
         qpos = torch.arange(s)[:, None]
         kpos = torch.arange(s)[None, :]
@@ -2175,6 +2245,8 @@ def torch_cuda_empty() -> None:
 # (the whole run's breakdowns took minutes at 3-10 profiled calls),
 # while a call's device time varies by under 1% between calls
 PROFILED_CALLS = 1
+# wall-clock calls of a breakdown of a captured step or of the sampler
+CAPTURED_REPS = 5
 
 
 def device_breakdown(label: str, what: str, fn, reps: int,
@@ -2361,7 +2433,7 @@ GRAPH_CASES = (
     ("w8a8 tick", SERVE_MAX_BATCH, PROMPT_LEN + MAX_NEW, 0, "w8a8"))
 LOOP_STARTS = (0, 5)
 LOOP_TOKENS = 16           # the serve CLI's --decode-tokens
-TIMED_LOOPS = 3
+TIMED_LOOPS = 1
 
 
 def _graph_tick_inputs(S: int, max_seq: int, mb: int, vocab: int):
@@ -2503,7 +2575,8 @@ def graph_tick_case(cfg, params, label, S, max_seq, block_size, mode):
     res = device_breakdown(
         f"{label} graph", f"captured steady-state slot tick ({S} active "
         f"rows at position {max_seq // 2} of {max_seq})",
-        lambda: graphed(params, toks, other, idx, active)[0].cpu(), 10)
+        lambda: graphed(params, toks, other, idx, active)[0].cpu(),
+        CAPTURED_REPS)
     with torch.inference_mode():
         # the breakdown's replays all wrote the same k/v at max_seq // 2
         # into the captured copy: one eager tick writes them into the other
@@ -2614,7 +2687,7 @@ CHUNK_CASES = (
 # PROFILED_CALLS): at 5 profiled reps, its bookkeeping of the per-token
 # eager chunk's 6,000-13,500 launches a call took 197 of the graph
 # phase's 300 s (PERF.md, Findings)
-CHUNK_REPS = 2
+CHUNK_REPS = 1
 
 
 def graph_chunk_case(cfg, params, label, S, max_seq, block_size, mode,
@@ -2978,10 +3051,11 @@ def prng_phase():
         what = f"temperature_sample_rows over ({len(rows)}, {vocab})"
         e = device_breakdown(f"sampler V={vocab} eager", what,
                              lambda: ST.temperature_sample_rows(
-                                 logits, keys, SAMPLE_TEMP), 10, False)
-        c = device_breakdown(f"sampler V={vocab} captured", what,
-                             lambda: captured({}, {}, logits, keys), 10,
+                                 logits, keys, SAMPLE_TEMP), CAPTURED_REPS,
                              False)
+        c = device_breakdown(f"sampler V={vocab} captured", what,
+                             lambda: captured({}, {}, logits, keys),
+                             CAPTURED_REPS, False)
         print(f"sampler V={vocab}: {len(rows)} rows bitwise alone and in "
               f"the batch; {int((cpu == batch.cpu()).sum())} of "
               f"{len(rows)} equal to the CPU's draw; eager / captured wall "
@@ -3084,7 +3158,7 @@ def sampled_tick_phase(cfg, params) -> None:
             f"sampled tick t={t}", f"captured steady-state slot tick ({S} "
             f"rows at position {max_seq // 2} of {max_seq})",
             lambda: graphed(params, toks, cache, idx, active, *extra)[0]
-            .cpu(), 10, False)
+            .cpu(), CAPTURED_REPS, False)
         graphed.captured.release()
     greedy, sampled = res[0.0], res[SAMPLE_TEMP]
     share = ("not measured" if not (sampled["busy"]
@@ -3722,10 +3796,10 @@ def dense_attention_rows(flush):
             vl[r:r + 1]), b)
         contig[key] = _attn_numbers(
             label, b, vls, False, err,
-            time_ms(lambda: A.decode_attention_int8(q, k, v, ks, vs, vl), 20,
-                    flush),
+            time_ms(lambda: A.decode_attention_int8(q, k, v, ks, vs, vl),
+                    TIMED_ITERS, flush),
             time_ms(lambda: A.decode_attention_int8_ref(q, k, v, ks, vs, vl),
-                    3, flush, warmup=False),
+                    1, flush, warmup=False),
             _sdpa_ms(flush, q, (k.float() * ks).to(torch.bfloat16)
                      .transpose(1, 2), (v.float() * vs).to(torch.bfloat16)
                      .transpose(1, 2), vl, s), q, 0)
@@ -3748,9 +3822,9 @@ def dense_attention_rows(flush):
         paged[key] = _attn_numbers(
             label, b, vls, False, err,
             time_ms(lambda: A.decode_attention_int8_paged(
-                q, pk, pv, pks, pvs, vl, tables), 20, flush),
+                q, pk, pv, pks, pvs, vl, tables), TIMED_ITERS, flush),
             time_ms(lambda: A.decode_attention_int8_paged_ref(
-                q, pk, pv, pks, pvs, vl, tables), 3, flush, warmup=False),
+                q, pk, pv, pks, pvs, vl, tables), 1, flush, warmup=False),
             _sdpa_ms(flush, q, (gk.float() * gks).to(torch.bfloat16)
                      .transpose(1, 2), (gv.float() * gvs).to(torch.bfloat16)
                      .transpose(1, 2), vl, s), q, tables.numel() * 4)
@@ -3940,7 +4014,8 @@ def dense_tick(cfg, params, label, block_size=0):
         label, f"captured steady-state slot tick ({S} active rows at "
         f"position {max_seq // 2} of {max_seq}, bf16 cache"
         f"{', blocks of ' + str(block_size) if block_size else ''})",
-        lambda: graphed(params, toks, cache, idx, active)[0].cpu(), 10)
+        lambda: graphed(params, toks, cache, idx, active)[0].cpu(),
+        CAPTURED_REPS)
     read = tree_weight_bytes(params) - (
         tree_weight_bytes(params["embed"]) if "unembed" in params else 0)
     floor = read / HBM_BYTES_PER_S * 1e3
@@ -4147,16 +4222,19 @@ def moe_tick_live(c, gen):
     return M.live_rows(place, keep, e, NUM_SLOTS * cap)
 
 
-def moe_stack_check(label, path, x, w, ws, kw):
+def moe_stack_check(label, path, x, w, ws, kw, flush=None):
     """One expert-stacked entry (``path``) against its plain version
     (bf16_close), every row bitwise alone and in its batch, a stack of
     one bitwise the 2-D launch on the same path.  Returns (output, error,
-    err / tol)."""
+    err / tol), and with ``flush`` also the device ms of the plain call
+    it compared with (:func:`timed_call`)."""
     import torch
     from repro_torch.kernels import qmatmul as K
 
     out = K.qmatmul_w8a16_experts(x, w, ws, path=path, **kw)
-    ref = K.qmatmul_w8a16_experts_ref(x, w, ws, **kw)
+    ref, plain_ms = (timed_call(lambda: K.qmatmul_w8a16_experts_ref(
+        x, w, ws, **kw), flush) if flush is not None else
+        (K.qmatmul_w8a16_experts_ref(x, w, ws, **kw), None))
     torch.cuda.synchronize()
     if out.shape != ref.shape or not torch.isfinite(out).all():
         raise AssertionError(f"{label}: bad output")
@@ -4174,7 +4252,9 @@ def moe_stack_check(label, path, x, w, ws, kw):
             path, x[0], w[0], ws[0].reshape(-1).contiguous(), **kw)):
         raise AssertionError(f"{label}: a stack of one is not the 2-D "
                              f"launch on its path")
-    return out, err, ratio
+    if flush is None:
+        return out, err, ratio
+    return out, err, ratio, plain_ms
 
 
 def moe_qmatmul_rows(flush, arch=MOE_ARCH, seed=SEED + 11):
@@ -4231,8 +4311,11 @@ def moe_qmatmul_rows(flush, arch=MOE_ARCH, seed=SEED + 11):
         if not torch.equal(routed, K.qmatmul_w8a16_experts(xr, w, ws, **kw)):
             raise AssertionError(f"moe experts {name}: the masked GEMV is not "
                                  f"the all-live launch on the routed stack")
-        r_err, r_ratio = bf16_close(routed, K.qmatmul_w8a16_experts_ref(
-            xr, w, ws, live=live, **kw), f32_out=False)
+        # the check's plain call is the row's plain time
+        routed_ref, plain = timed_call(lambda: K.qmatmul_w8a16_experts_ref(
+            xr, w, ws, live=live, **kw), flush)
+        r_err, r_ratio = bf16_close(routed, routed_ref, f32_out=False)
+        del routed_ref
         if r_ratio > 1.0:
             raise AssertionError(f"moe experts {name}: the masked GEMV "
                                  f"disagrees with its plain version "
@@ -4244,12 +4327,10 @@ def moe_qmatmul_rows(flush, arch=MOE_ARCH, seed=SEED + 11):
               f"every row bitwise alone; the masked launch bitwise the "
               f"all-live one")
         ms = time_ms(lambda: K.qmatmul_w8a16_experts(xr, w, ws, live=live,
-                                                     **kw), 20, flush)
+                                                     **kw), TIMED_ITERS, flush)
         all_ms = time_ms(lambda: K.qmatmul_w8a16_experts(xr, w, ws, **kw),
-                         20, flush)
-        plain = time_ms(lambda: K.qmatmul_w8a16_experts_ref(
-            xr, w, ws, live=live, **kw), 1, flush, warmup=False)
-        lib = time_ms(lambda: torch.bmm(xr, wd), 20, flush)
+                         TIMED_ITERS, flush)
+        lib = time_ms(lambda: torch.bmm(xr, wd), TIMED_ITERS, flush)
         out_bytes = e * m * n * 2
         every_ms = max((x.numel() * 2 + w_bytes + out_bytes)
                        / HBM_BYTES_PER_S * 1e3,
@@ -4275,8 +4356,10 @@ def moe_qmatmul_rows(flush, arch=MOE_ARCH, seed=SEED + 11):
         for mm in curve:
             x = torch.randn((e, mm, k), generator=gen, device="cuda").to(
                 torch.bfloat16)
-            _, err, ratio = moe_stack_check(
-                f"moe experts {name} M={mm} mma", "mma", x, w, ws, kw)
+            # at the curve's last M the check's plain call is the timing
+            _, err, ratio, *plain = moe_stack_check(
+                f"moe experts {name} M={mm} mma", "mma", x, w, ws, kw,
+                flush if mm == curve[-1] else None)
             worst = max(worst, err)
             print(f"  qmatmul_w8a16_experts {name:6s} mma  E={e} M={mm:2d} "
                   f"K={k:5d} N={n:5d} act={act:4s} max_abs_err={err:.3e} "
@@ -4285,13 +4368,12 @@ def moe_qmatmul_rows(flush, arch=MOE_ARCH, seed=SEED + 11):
             if mm != curve[-1]:
                 continue
             ms = time_ms(lambda: K.qmatmul_w8a16_experts(x, w, ws, path="mma",
-                                                         **kw), 20, flush)
+                                                         **kw), TIMED_ITERS,
+                         flush)
             gemv_ms = time_ms(lambda: K.qmatmul_w8a16_experts(x, w, ws, **kw),
-                              20, flush)
-            plain = time_ms(lambda: K.qmatmul_w8a16_experts_ref(x, w, ws,
-                                                                **kw),
-                            1, flush, warmup=False)
-            lib = time_ms(lambda: torch.bmm(x, wd), 20, flush)
+                              TIMED_ITERS, flush)
+            plain, = plain
+            lib = time_ms(lambda: torch.bmm(x, wd), TIMED_ITERS, flush)
             bytes_ms = ((x.numel() * 2 + w_bytes + e * mm * n * 2)
                         / HBM_BYTES_PER_S * 1e3)
             ops_ms = 2 * e * mm * k * n / BF16_OPS_PER_S * 1e3
@@ -4322,11 +4404,11 @@ def moe_qmatmul_rows(flush, arch=MOE_ARCH, seed=SEED + 11):
                              f"plain version (err/tol={ratio:.3f})")
     worst = max(worst, err)
     ms = time_ms(lambda: K.qmatmul_w8a16(x, w, ws, out_dtype=torch.float32),
-                 20, flush)
+                 TIMED_ITERS, flush)
     plain = time_ms(lambda: K.qmatmul_w8a16_ref(
-        x, w, ws, out_dtype=torch.float32), 3, flush, warmup=False)
+        x, w, ws, out_dtype=torch.float32), 1, flush, warmup=False)
     wf = w.float() * ws
-    lib = time_ms(lambda: F.linear(x, wf.t()), 20, flush)
+    lib = time_ms(lambda: F.linear(x, wf.t()), TIMED_ITERS, flush)
     nbytes = x.numel() * 4 + w.numel() + ws.numel() * 4 + m * e * 4
     rows["router"] = {"E": 1, "M": m, "K": c.d_model, "N": e,
                       "activation": "none", "ms": ms, "plain_ms": plain,
@@ -4443,7 +4525,8 @@ def moe_tick(cfg, params, label):
         label, f"captured steady-state slot tick ({S} active rows at "
         f"position {max_seq // 2} of {max_seq}, "
         f"{'int8' if cfg.kv_quant else 'bf16'} cache)",
-        lambda: graphed(params, toks, cache, idx, active)[0].cpu(), 10)
+        lambda: graphed(params, toks, cache, idx, active)[0].cpu(),
+        CAPTURED_REPS)
     read = tree_weight_bytes(params)
     stack = sum(tree_weight_bytes(lp["moe"]["experts"])
                 for lp in params["layers"])
@@ -4680,12 +4763,12 @@ def source_flash_rows(flush, hd, cases, seed):
                                  f"plain version beyond tolerance "
                                  f"(err/tol={ratio:.3f})")
         worst = max(worst, err)
-        ms = time_ms(lambda: FA.flash_attention_bhsd(q, k, v, **kw), 20,
-                     flush)
-        plain = time_ms(lambda: FA.flash_attention_ref(q, k, v, **kw), 2,
+        ms = time_ms(lambda: FA.flash_attention_bhsd(q, k, v, **kw),
+                     TIMED_ITERS, flush)
+        plain = time_ms(lambda: FA.flash_attention_ref(q, k, v, **kw), 1,
                         flush, warmup=False)
         lib = time_ms(lambda: F.scaled_dot_product_attention(
-            q[None], k[None], v[None], is_causal=causal), 20, flush)
+            q[None], k[None], v[None], is_causal=causal), TIMED_ITERS, flush)
         pairs = sq * (sq + 1) // 2 if causal else sq * skv
         bytes_ms = (2 * sq + 2 * skv) * bh * hd * 2 / HBM_BYTES_PER_S * 1e3
         ops_ms = 4 * bh * pairs * hd / BF16_OPS_PER_S * 1e3
@@ -4733,9 +4816,9 @@ def enc_qmatmul_rows(flush):
     gen = torch.Generator(device="cuda").manual_seed(SEED + 19)
     rows, worst = {}, 0.0
 
-    def numbers(x, w, ws, act, odt, path, plain_iters):
+    def numbers(x, w, ws, act, odt, path, plain_iters, plain_ms=None):
         t = w8a16_numbers(x, w, ws, None, act, odt, (path,), plain_iters,
-                          flush)
+                          flush, plain_ms)
         return {"K": x.shape[1], "N": w.shape[1], "M": x.shape[0],
                 "path": path, "activation": act, "ms": t["ms"][path],
                 "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
@@ -4756,16 +4839,18 @@ def enc_qmatmul_rows(flush):
         for m, paths, path in ms_rows:
             x = torch.randn((m, k), generator=gen,
                             device="cuda").to(torch.bfloat16)
-            ref = K.qmatmul_w8a16_ref(x, w, ws, activation=act,
-                                      out_dtype=odt)
+            # away from a tick's M the check's plain call is its timing
+            ref, plain_ms = timed_call(lambda: K.qmatmul_w8a16_ref(
+                x, w, ws, activation=act, out_dtype=odt), flush) \
+                if m != NUM_SLOTS else (K.qmatmul_w8a16_ref(
+                    x, w, ws, activation=act, out_dtype=odt), None)
             err, ratio = w8a16_check(f"{name} M={m}", x, w, ws, None, act,
                                      odt, ref, paths)
             del ref
             if m == se:
                 w8a16_rows_check(x, w, ws, None, act, odt)
             worst = max(worst, err)
-            row = numbers(x, w, ws, act, odt, path, 3 if m == NUM_SLOTS
-                          else 1)
+            row = numbers(x, w, ws, act, odt, path, 3, plain_ms)
             row["max_abs_err"] = err
             rows[f"{name} M={m}"] = row
             print(f"  qmatmul_w8a16 {name:11s} M={m:5d} K={k:4d} N={n:4d} "
@@ -4930,7 +5015,8 @@ def primed_tick_time(cfg, params, label):
         label, f"captured steady-state slot tick ({S} active rows at "
         f"position {max_seq // 2} of {max_seq}, bf16 cache, cross k/v of "
         f"{src_len} source rows a row)",
-        lambda: graphed(params, toks, cache, idx, active)[0].cpu(), 10)
+        lambda: graphed(params, toks, cache, idx, active)[0].cpu(),
+        CAPTURED_REPS)
     gemv_ms = sum(ms for key, ms in res["by_kernel"].items()
                   if "qmatmul" in key)
     q = torch.randn((S, 1, cfg.n_heads, cfg.head_dim), generator=g,
@@ -5187,9 +5273,9 @@ def family_qmatmul_rows(flush, arch, shapes, seed):
     per_m = {m: dict.fromkeys(keys, 0.0) for m in (NUM_SLOTS, SERVE_ROWS)}
 
     def numbers(label, x, w, ws, odt, path, plain_iters, times, err,
-                ratio, paths):
+                ratio, paths, plain_ms=None):
         t = w8a16_numbers(x, w, ws, None, "none", odt, (path,), plain_iters,
-                          flush)
+                          flush, plain_ms)
         row = {"K": x.shape[1], "N": w.shape[1], "M": x.shape[0],
                "path": path, "ms": t["ms"][path], "plain_ms": t["plain_ms"],
                "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
@@ -5214,7 +5300,10 @@ def family_qmatmul_rows(flush, arch, shapes, seed):
                                (SERVE_ROWS, ("mma",), "mma")):
             x = torch.randn((m, k), generator=gen,
                             device="cuda").to(torch.bfloat16)
-            ref = K.qmatmul_w8a16_ref(x, w, ws, out_dtype=odt)
+            # at the forward's M the check's plain call is its timing
+            ref, plain_ms = timed_call(lambda: K.qmatmul_w8a16_ref(
+                x, w, ws, out_dtype=odt), flush) if m == SERVE_ROWS else (
+                K.qmatmul_w8a16_ref(x, w, ws, out_dtype=odt), None)
             err, ratio = w8a16_check(f"{name} M={m}", x, w, ws, None, "none",
                                      odt, ref, paths)
             del ref
@@ -5226,8 +5315,8 @@ def family_qmatmul_rows(flush, arch, shapes, seed):
                 w8a16_rows_check(x, w, ws, None, "none", odt)
             worst = max(worst, err)
             rows[f"{name} M={m}"] = numbers(
-                name, x, w, ws, odt, path, 3 if m == NUM_SLOTS else 1,
-                count, err, ratio, paths)
+                name, x, w, ws, odt, path, 3, count, err, ratio, paths,
+                plain_ms)
         del q, w, ws
     table = quantize_embedding(torch.randn((c.vocab, c.d_model),
                                            generator=gen, device="cuda")
@@ -5241,13 +5330,15 @@ def family_qmatmul_rows(flush, arch, shapes, seed):
                            (SERVE_ROWS, ("mma",), "mma")):
         x = torch.randn((m, c.d_model), generator=gen,
                         device="cuda").to(torch.bfloat16)
-        ref = K.qmatmul_w8a16_ref(x, w, ws, out_dtype=torch.float32)
+        ref, plain_ms = timed_call(lambda: K.qmatmul_w8a16_ref(
+            x, w, ws, out_dtype=torch.float32), flush)
         err, ratio = w8a16_check(f"lm_head M={m}", x, w, ws, None, "none",
                                  torch.float32, ref, paths)
         del ref
         worst = max(worst, err)
         rows[f"lm_head M={m}"] = numbers("lm_head", x, w, ws, torch.float32,
-                                         path, 1, 1, err, ratio, paths)
+                                         path, 1, 1, err, ratio, paths,
+                                         plain_ms)
     del table, head, w, ws
     for m, what in ((NUM_SLOTS, "tick"), (SERVE_ROWS, "forward")):
         t = per_m[m]
@@ -5270,14 +5361,12 @@ def family_qmatmul_rows(flush, arch, shapes, seed):
         for m in (NUM_SLOTS, SERVE_ROWS):
             xm = x[:m].contiguous()
             label = f"{name} M={m} ({K.w8a8_path(m)})"
-            err, ratio, bitwise = w8a8_check(label, xm, w, xs, ws, None,
-                                             "none")
+            err, ratio, bitwise, plain = w8a8_check(label, xm, w, xs, ws,
+                                                    None, "none", flush)
             w8_worst = max(w8_worst, err)
             kw = dict(out_dtype=torch.bfloat16)
-            ms = time_ms(lambda: K.qmatmul_w8a8(xm, w, xs, ws, **kw), 20,
-                         flush)
-            plain = time_ms(lambda: K.qmatmul_w8a8_ref(xm, w, xs, ws, **kw),
-                            1, flush, warmup=False)
+            ms = time_ms(lambda: K.qmatmul_w8a8(xm, w, xs, ws, **kw),
+                         TIMED_ITERS, flush)
 
             def int_mm():
                 return (torch._int_mm(xm, w).float() * xs * ws).to(
@@ -5290,7 +5379,7 @@ def family_qmatmul_rows(flush, arch, shapes, seed):
                 lib_fn = lambda: F.linear(  # noqa: E731
                     xm.to(torch.bfloat16) * xs.to(torch.bfloat16), w_lib)
                 lib_name = "F.linear, bf16 weights"
-            lib = time_ms(lib_fn, 20, flush)
+            lib = time_ms(lib_fn, TIMED_ITERS, flush)
             bytes_ms = ((m * k + k * n + 4 + 4 * n + 2 * m * n)
                         / HBM_BYTES_PER_S * 1e3)
             ops_ms = 2 * m * k * n / INT8_OPS_PER_S * 1e3
@@ -5742,13 +5831,13 @@ def flash_rows(flush, arch, cases, window, seed):
                  & (pos[None, :] > pos[:, None] - window))
         pairs = int(valid.sum())
         mask = valid if s > window else None
-        ms = time_ms(lambda: FA.flash_attention_bhsd(q, k, v, **kw), 20,
-                     flush)
+        ms = time_ms(lambda: FA.flash_attention_bhsd(q, k, v, **kw),
+                     TIMED_ITERS, flush)
         plain = time_ms(lambda: FA.flash_attention_ref(q, k, v, **kw),
-                        1 if s > window else 3, flush, warmup=False)
+                        1, flush, warmup=False)
         lib = time_ms(lambda: F.scaled_dot_product_attention(
             q[None], k[None], v[None], attn_mask=mask,
-            is_causal=mask is None), 20, flush)
+            is_causal=mask is None), TIMED_ITERS, flush)
         bytes_ms = 4 * bh * s * hd * 2 / HBM_BYTES_PER_S * 1e3
         ops_ms = 4 * bh * pairs * hd / BF16_OPS_PER_S * 1e3
         row = {"BH": bh, "S": s, "hd": hd, "window": window, "ms": ms,
@@ -5941,9 +6030,9 @@ def mixtral_attention_rows(flush):
     lib = _sdpa_ms(flush, q, kd, vd, vl, s)
     contig = _attn_numbers(
         label, b, vls, False, err,
-        time_ms(lambda: A.decode_attention_int8(q, k, v, ks, vs, vl), 20,
-                flush),
-        time_ms(lambda: A.decode_attention_int8_ref(q, k, v, ks, vs, vl), 3,
+        time_ms(lambda: A.decode_attention_int8(q, k, v, ks, vs, vl),
+                TIMED_ITERS, flush),
+        time_ms(lambda: A.decode_attention_int8_ref(q, k, v, ks, vs, vl), 1,
                 flush, warmup=False), lib, q, 0)
     contig["max_abs_err"] = err
     tables = torch.arange(b, dtype=torch.int32, device="cuda")[:, None]
@@ -5958,9 +6047,9 @@ def mixtral_attention_rows(flush):
     paged = _attn_numbers(
         plabel, b, vls, False, perr,
         time_ms(lambda: A.decode_attention_int8_paged(
-            q, k, v, ks, vs, vl, tables), 20, flush),
+            q, k, v, ks, vs, vl, tables), TIMED_ITERS, flush),
         time_ms(lambda: A.decode_attention_int8_paged_ref(
-            q, k, v, ks, vs, vl, tables), 3, flush, warmup=False),
+            q, k, v, ks, vs, vl, tables), 1, flush, warmup=False),
         lib, q, b * 4)
     paged["max_abs_err"] = perr
     print(f"  decode attention on {MIX_ARCH}'s ring: every row bitwise "
@@ -6494,7 +6583,7 @@ MUX_RATE_PER_S = 400.0     # a lane (the contiguous slice's rate)
 MUX_BLOCK = 16
 MUX_QUOTA = 4              # the starcoder2-3b lane's class_quotas entry
 MUX_COMPARE = 3            # requests a lane held to reference_outputs
-MUX_TIMED_TICKS = 10       # captured ticks a wall timing
+MUX_TIMED_TICKS = 5        # captured ticks a wall timing
 # hot-swap, on the virtual clock (1 ms a tick): a second starcoder2-3b
 # lane (weights from SEED + 1) is admitted at MUX_ADMIT_S and the first
 # lane retired at MUX_RETIRE_S; MUX_LATE requests arrive for it after
@@ -6995,7 +7084,7 @@ def multiplex_phase(cfg, params):
 
 SHARD_TPS = (2, 4)          # shards of the NUM_SLOTS pool on the one card
 SHARD_BLOCKS = OVERLOAD_BLOCKS   # the paged serve's pool: preemption bites
-SHARD_TIMED_TICKS = 10      # captured ticks a wall timing
+SHARD_TIMED_TICKS = 5       # captured ticks a wall timing
 SHARD_CLI_ARGS = SERVE_ARGS + ["--decode-tokens", "0"]
 SHARD_NEED = ("qmatmul_w8a16[gemv]", "decode_attention_int8",
               "decode_attention_int8_paged")
@@ -7305,13 +7394,13 @@ def train_flash_rows(flush):
             sq, sk, sv, attn_mask=mask, is_causal=mask is None)
         fwd = {
             "ms": time_ms(lambda: FA.flash_attention_bhsd(q, k, v, **kw),
-                          20, flush),
+                          TIMED_ITERS, flush),
             "plain_ms": time_ms(lambda: FA.flash_attention_ref(q, k, v,
                                                                **kw),
-                                5, flush, warmup=False),
+                                1, flush, warmup=False),
             "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
-                sq, sk, sv, attn_mask=mask, is_causal=mask is None), 20,
-                flush),
+                sq, sk, sv, attn_mask=mask, is_causal=mask is None),
+                TIMED_ITERS, flush),
             "bytes_ms": 4 * bh * s * hd * 2 / HBM_BYTES_PER_S * 1e3,
             "ops_ms": 4 * bh * pairs * hd / BF16_OPS_PER_S * 1e3}
         # backward: q, k, v and dO read, dQ, dK, dV written (bf16); five
@@ -7319,12 +7408,13 @@ def train_flash_rows(flush):
         # dQ, dK
         bwd = {
             "ms": time_ms(lambda: FA.flash_attention_bwd(q, k, v, do, **kw),
-                          20, flush),
+                          TIMED_ITERS, flush),
             "plain_ms": time_ms(lambda: torch.autograd.grad(
-                plain_out, plain_leaves, do, retain_graph=True), 5, flush,
+                plain_out, plain_leaves, do, retain_graph=True), 1, flush,
                 warmup=False),
             "library_ms": time_ms(lambda: torch.autograd.grad(
-                sdpa_out, (sq, sk, sv), sdo, retain_graph=True), 20, flush),
+                sdpa_out, (sq, sk, sv), sdo, retain_graph=True),
+                TIMED_ITERS, flush),
             "bytes_ms": 7 * bh * s * hd * 2 / HBM_BYTES_PER_S * 1e3,
             "ops_ms": 10 * bh * pairs * hd / BF16_OPS_PER_S * 1e3}
         for t in (fwd, bwd):
@@ -7528,9 +7618,358 @@ def train_phase(flush):
             "resume": resume}
 
 
+# ---------------------------------------------------------------------------
+# the paper's six apps (MLP0/1, LSTM0/1, CNN0/1 at Table 1 size)
+# ---------------------------------------------------------------------------
+
+PAPER_APPS = ("MLP0", "MLP1", "LSTM0", "LSTM1", "CNN0", "CNN1")
+# every distinct FC shape of the six apps at its app's Table 1 batch:
+# (label, K, N, M, activation, launches a forward); MLP1 (K and N), LSTM0
+# (K) and CNN1 (K) are widths the kernels take only padded
+PAPER_SHAPES = (("MLP0", 2000, 2000, 200, "relu", 5),
+                ("MLP1", 1118, 1118, 168, "relu", 4),
+                ("LSTM0", 2084, 4168, 64, "none", 48),
+                ("LSTM1", 1376, 2752, 96, "none", 72),
+                ("CNN1 fc0", 3700, 3700, 32, "relu", 1),
+                ("CNN1 fc1", 3700, 7400, 32, "relu", 1),
+                ("CNN1 fc2", 7400, 3700, 32, "relu", 1),
+                ("CNN1 fc3", 3700, 1000, 32, "none", 1))
+PAPER_BATCH = 2            # rows of the apps' card-against-CPU forwards
+# card against CPU, relative L2 over an app's output: W8A16 adds the same
+# f32 products in other orders (the GEMV's split of K, cuDNN's f32 conv
+# algorithms, 72 deep in CNN1); W8A8 also requantizes every FC's input
+# with one scale a tensor, where a last-bit difference can move an int8
+# step (1/127 of the tensor's largest magnitude)
+PAPER_W8A16_RTOL = 1e-3
+PAPER_W8A8_RTOL = 1e-2
+PAPER_REQUESTS = 150       # the serve twin's default trace
+F32_OPS_PER_S = 67e12      # float32 outside the tensor cores
+
+
+def paper_qmatmul_rows(flush):
+    """Every distinct FC shape of the six apps at its app's batch, each
+    weight quantized and stored padded as the apps store it: through
+    ``ops.qmatmul`` on the GEMV (f32 x, the apps' path) and the mma path
+    (x cast to bf16), and ``ops.qmatmul_dynamic`` (W8A8), each against
+    its plain version on the card on the unpadded operands (f32 out:
+    bf16_close's 1e-5; W8A8 also by w8a8_check on the padded operands,
+    its int32 sums bitwise).  Each kernel timed on the padded operands
+    (the call adds x's pad and the output's slice), beside its plain
+    version, its bound (the logical shape's bytes, or its operations
+    over f32's peak for the GEMV's f32 products, bf16's for mma, int8's
+    for W8A8) and a library call (``F.linear`` on f32- or bf16-dequantized
+    weights; ``torch._int_mm`` + drain where the build takes the shape).
+    Returns (worst W8A16 error, worst W8A8 error, {label: rows}, {app:
+    W8A16 GEMV ms of one Table 1 batch's forward's FCs})."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.core.quant import quantize, quantize_weight
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import qmatmul as K
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 37)
+    rows, worst16, worst8 = {}, 0.0, 0.0
+    f32 = torch.float32
+    for label, k, n, m, act, count in PAPER_SHAPES:
+        q = quantize_weight(torch.randn((k, n), generator=gen,
+                                        device="cuda") * k ** -0.5)
+        u = q.unpadded()
+        kp, np_ = q.values.shape
+        if (kp % 16, np_ % 4, tuple(q.shape)) != (0, 0, (k, n)):
+            raise AssertionError(f"paper {label}: stored {kp} x {np_}")
+        b = torch.randn(n, generator=gen, device="cuda") * 0.1
+        bp = F.pad(b, (0, np_ - n))
+        ws = q.scale.reshape(-1)
+        x = torch.randn((m, k), generator=gen, device="cuda")
+        kw = dict(activation=act, out_dtype=f32)
+        row = {"K": k, "N": n, "M": m, "stored": [kp, np_],
+               "activation": act, "launches_a_forward": count}
+        for path, xd in (("gemv", x), ("mma", x.to(torch.bfloat16))):
+            out = ops.qmatmul(xd, q, b, path=path, **kw)
+            # the check's plain call is the row's plain time
+            ref, plain = timed_call(lambda: K.qmatmul_w8a16_ref(
+                xd, u.values, u.scale, b, **kw), flush)
+            if out.shape != (m, n) or not torch.isfinite(out).all():
+                raise AssertionError(f"paper {label} ({path}): bad output")
+            err, ratio = bf16_close(out, ref, f32_out=True)
+            if ratio > 1.0:
+                raise AssertionError(
+                    f"paper {label} ({path}): kernel disagrees with its "
+                    f"plain version beyond tolerance (err/tol={ratio:.3f})")
+            worst16 = max(worst16, err)
+            xp = F.pad(xd, (0, kp - k))
+            ms = time_ms(lambda: K.qmatmul_w8a16_on_path(
+                path, xp, q.values, ws, bp, **kw), TIMED_ITERS, flush)
+            w_lib = u.dequantize(xd.dtype).t()
+            lib = time_ms(lambda: F.linear(xd, w_lib, b.to(xd.dtype)),
+                          TIMED_ITERS, flush)
+            del w_lib
+            nbytes = (x.numel() * xd.element_size() + k * n + 8 * n
+                      + 4 * m * n)
+            bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+            ops_ms = 2 * m * k * n / (F32_OPS_PER_S if path == "gemv"
+                                      else BF16_OPS_PER_S) * 1e3
+            row[path] = {"ms": ms, "plain_ms": plain, "library_ms": lib,
+                         "bound_ms": max(bytes_ms, ops_ms),
+                         "bound_by": ("bytes" if bytes_ms >= ops_ms
+                                      else "operations"),
+                         "bytes_ms": bytes_ms, "ops_ms": ops_ms,
+                         "max_abs_err": err, "err_tol": ratio}
+        xq = quantize(x, bits=8, axis=None)
+        xqp = F.pad(xq.values, (0, kp - k))
+        xs = xq.scale.reshape(())
+        out = ops.qmatmul_dynamic(x, q, b, **kw)
+        ref, plain = timed_call(lambda: K.qmatmul_w8a8_ref(
+            xq.values, u.values, xs, u.scale, b, **kw), flush)
+        err8, ratio8 = bf16_close(out, ref, f32_out=True)
+        if out.shape != (m, n) or ratio8 > 1.0:
+            raise AssertionError(f"paper {label} (w8a8): kernel disagrees "
+                                 f"with its plain version (err/tol="
+                                 f"{ratio8:.3f})")
+        _, _, drain_bitwise = w8a8_check(f"paper {label}", xqp, q.values, xs,
+                                         ws, bp, act)
+        worst8 = max(worst8, err8)
+        ms = time_ms(lambda: K.qmatmul_w8a8(xqp, q.values, xs, ws, bp, **kw),
+                     TIMED_ITERS, flush)
+
+        def int_mm():
+            return K.activate((torch._int_mm(xqp, q.values).float() * xs
+                               * ws + bp), act)
+
+        try:
+            int_mm()
+            lib_fn, lib_name = int_mm, "torch._int_mm + drain"
+        except RuntimeError:
+            w_lib = u.dequantize(torch.bfloat16).t()
+            lib_fn = lambda: F.linear(  # noqa: E731
+                (xq.values.to(torch.bfloat16) * xs.to(torch.bfloat16)),
+                w_lib, b.to(torch.bfloat16))
+            lib_name = "F.linear, bf16 weights"
+        lib = time_ms(lib_fn, TIMED_ITERS, flush)
+        bytes_ms = (m * k + k * n + 4 + 8 * n + 4 * m * n) \
+            / HBM_BYTES_PER_S * 1e3
+        ops_ms = 2 * m * k * n / INT8_OPS_PER_S * 1e3
+        row["w8a8"] = {"ms": ms, "plain_ms": plain, "library_ms": lib,
+                       "library": lib_name, "path": K.w8a8_path(m),
+                       "bound_ms": max(bytes_ms, ops_ms),
+                       "bound_by": ("bytes" if bytes_ms >= ops_ms
+                                    else "operations"),
+                       "bytes_ms": bytes_ms, "ops_ms": ops_ms,
+                       "max_abs_err": err8, "err_tol": ratio8,
+                       "drain_bitwise": drain_bitwise}
+        rows[label] = row
+        print(f"  paper {label:8s} M={m:3d} K={k:4d} N={n:4d} stored "
+              f"{kp} x {np_}: "
+              + "; ".join(f"{p} ms={row[p]['ms']:.4f} plain_ms="
+                          f"{row[p]['plain_ms']:.3f} library_ms="
+                          f"{row[p]['library_ms']:.4f} bound_ms="
+                          f"{row[p]['bound_ms']:.4f} ({row[p]['bound_by']})"
+                          f" err/tol={row[p]['err_tol']:.3f}"
+                          for p in ("gemv", "mma", "w8a8"))
+              + f" (w8a8 {row['w8a8']['path']}, library {lib_name})")
+        del q, u, x, xq, xqp
+    per_app = {}
+    for label, *_, count in PAPER_SHAPES:
+        app = label.split()[0]
+        per_app[app] = per_app.get(app, 0.0) + count * rows[label]["gemv"][
+            "ms"]
+    print(f"  paper: W8A16 GEMV ms of one Table 1 batch's FCs a forward: "
+          + ", ".join(f"{a} {v:.3f}" for a, v in per_app.items()))
+    zero_counts()
+    return worst16, worst8, rows, per_app
+
+
+def paper_fcs(cfg) -> int:
+    """The int8 FC launches of one forward of a paper app."""
+    return {"mlp": len(cfg.widths), "lstm": 8 * cfg.n_cells,
+            "cnn": len(cfg.fc_tail)}[cfg.kind]
+
+
+def tree_cpu(node):
+    """A param tree (dicts, lists, QTensors with their padding) copied to
+    the CPU."""
+    import dataclasses
+
+    import torch
+    from repro_torch.core.quant import QTensor
+    if isinstance(node, dict):
+        return {k: tree_cpu(v) for k, v in node.items()}
+    if isinstance(node, list):
+        return [tree_cpu(v) for v in node]
+    if isinstance(node, QTensor):
+        return dataclasses.replace(node, values=node.values.cpu(),
+                                   scale=node.scale.cpu())
+    assert isinstance(node, torch.Tensor)
+    return node.cpu()
+
+
+def paper_app_check(name) -> dict:
+    """One app at Table 1 size, built as the serve twin builds it (seed 0,
+    quantized at ``min_size=1024``, every 2-D weight stored padded): its
+    W8A16 and W8A8 forwards of PAPER_BATCH rows on the card, eager and
+    captured (the replays bitwise the eager forward), against the same
+    forward on the CPU (the plain versions) on the same weights, within
+    PAPER_W8A16_RTOL / PAPER_W8A8_RTOL relative L2."""
+    import torch
+    from repro_torch.core.qlinear import W8A8, W8A16
+    from repro_torch.examples import serve_quantized as S
+    from repro_torch.models import paper_nets as PN
+
+    t0 = time.perf_counter()
+    cfg, params, _ = S.build(name, "cuda")
+    cpu = tree_cpu(params)
+    x = PN.app_input(cfg, PAPER_BATCH, device="cuda")
+    out = {"weights": PN.weight_count(params)}
+    for label, mode, tol in (("w8a16", W8A16, PAPER_W8A16_RTOL),
+                             ("w8a8", W8A8, PAPER_W8A8_RTOL)):
+        with torch.inference_mode():
+            eager = PN.apply_app(params, cfg, x, mode=mode).clone()
+            fwd = S.make_forward(cfg, mode)
+            first = fwd(params, x).clone()
+            second = fwd(params, x).clone()
+            torch.cuda.synchronize()
+            fwd.captured.release()
+            want = PN.apply_app(cpu, cfg, x.cpu(), mode=mode)
+        got = eager.cpu()
+        if got.shape != want.shape or not torch.isfinite(got).all():
+            raise AssertionError(f"paper {name} {label}: bad output "
+                                 f"{tuple(got.shape)}")
+        if not (torch.equal(first, eager) and torch.equal(second, eager)):
+            raise AssertionError(f"paper {name} {label}: the captured "
+                                 f"forward differs from the eager one")
+        rel = float((got - want).norm() / want.norm())
+        if not rel <= tol:
+            raise AssertionError(f"paper {name} {label}: card against CPU "
+                                 f"{rel:.3e} relative L2 (limit {tol})")
+        out[label] = rel
+    del params, cpu
+    torch_cuda_empty()
+    print(f"paper {name}: {out['weights']:,} weights, W8A16 and W8A8 "
+          f"forwards of {PAPER_BATCH} rows on the card against the CPU: "
+          f"{out['w8a16']:.3e} / {out['w8a8']:.3e} relative L2 (limits "
+          f"{PAPER_W8A16_RTOL} / {PAPER_W8A8_RTOL}); captured bitwise eager "
+          f"(two replays each); {time.perf_counter() - t0:.1f}s")
+    return out
+
+
+def paper_serve_run():
+    """``python -m repro_torch.examples.serve_quantized`` over the six
+    apps, in this process so that the counts are read around it (and each
+    app's numbers recorded from ``serve``): exit 0, a line per app, a
+    chosen batch of at least 1, every int8 FC on the W8A16 GEMV (no mma, no W8A8, no plain version),
+    its launches a whole number of forwards."""
+    from repro_torch.configs.paper_apps import PAPER_APP_CONFIGS
+    from repro_torch.examples import serve_quantized as S
+
+    argv = ["--apps", ",".join(PAPER_APPS), "--n-requests",
+            str(PAPER_REQUESTS)]
+    print(f"paper: python -m repro_torch.examples.serve_quantized "
+          f"{' '.join(argv)}")
+    real, results = S.serve, {}
+
+    def recorded(cfg, *a, **kw):
+        results[cfg.name] = r = real(cfg, *a, **kw)
+        return r
+
+    S.serve = recorded
+    zero_counts()
+    try:
+        t0 = time.perf_counter()
+        rc = S.main(argv)
+        wall = time.perf_counter() - t0
+    finally:
+        S.serve = real
+    launches, plain = read_counts()
+    fcs = sum(paper_fcs(PAPER_APP_CONFIGS[a]) for a in PAPER_APPS)
+    print(f"paper: serve twin exit code {rc} in {wall:.1f}s; launches "
+          f"{ {k: v for k, v in launches.items() if v} }, plain calls "
+          f"{plain}")
+    if rc != 0 or list(results) != list(PAPER_APPS):
+        raise AssertionError(f"paper: the serve twin gave {rc}, apps "
+                             f"{list(results)}")
+    if (launches["qmatmul_w8a16[gemv]"] <= 0
+            or launches["qmatmul_w8a16[gemv]"] % fcs
+            or launches["qmatmul_w8a16[mma]"] or launches["qmatmul_w8a8"]
+            or any(plain.values())):
+        raise AssertionError(f"paper: the serve twin's launches {launches} "
+                             f"({fcs} FCs a forward of each app), plain "
+                             f"{plain}")
+    for name, r in results.items():
+        print(f"paper {name}: Table 4 row on this card: curve "
+              + ", ".join(f"b={b} {1e3 * t:.4f} ms" for b, t in
+                          r["curve"].items())
+              + f"; batch {r['batch']} (paper {r['paper_batch']}), p99 "
+              f"{1e3 * r['p99']:.3f} ms (deadline "
+              f"{1e3 * r['deadline']:.1f} ms), {r['rps']:.1f} req/s, "
+              f"deadlines met {r['met']:.0%}")
+        if r["batch"] < 1 or not 0.0 <= r["met"] <= 1.0:
+            raise AssertionError(f"paper {name}: {r}")
+    return {"rc": rc, "wall_s": wall, "launches": launches,
+            "apps": {name: {"curve_ms": {str(b): 1e3 * t
+                                         for b, t in r["curve"].items()},
+                            "batch": r["batch"], "p99_ms": 1e3 * r["p99"],
+                            "deadline_ms": 1e3 * r["deadline"],
+                            "rps": r["rps"], "met": r["met"]}
+                     for name, r in results.items()}}
+
+
+def paper_quickstart_run():
+    """``python -m repro_torch.examples.quickstart`` on the card, in this
+    process: exit 0, with the reduced model's W8A16 forward on the mma
+    path."""
+    from repro_torch.examples import quickstart as Q
+
+    zero_counts()
+    t0 = time.perf_counter()
+    rc = Q.main([])
+    launches, plain = read_counts()
+    print(f"paper: quickstart twin exit code {rc} in "
+          f"{time.perf_counter() - t0:.1f}s; launches "
+          f"{ {k: v for k, v in launches.items() if v} }")
+    if rc != 0 or launches["qmatmul_w8a16[mma]"] <= 0 or any(plain.values()):
+        raise AssertionError(f"paper: quickstart exit code {rc}, launches "
+                             f"{launches}, plain {plain}")
+    return {"rc": rc, "launches": launches}
+
+
+def paper_phase(flush):
+    """The paper's six apps: the kernel rows at every FC shape, each app
+    on the card against the CPU and captured against eager (the W8A16
+    and W8A8 launches of those forwards counted), the serve twin over the
+    six, the quickstart twin."""
+    from repro_torch.configs.paper_apps import PAPER_APP_CONFIGS
+
+    err16, err8, rows, per_app = paper_qmatmul_rows(flush)
+    zero_counts()
+    checks = {name: paper_app_check(name) for name in PAPER_APPS}
+    launches, plain = read_counts()
+    fcs = sum(paper_fcs(PAPER_APP_CONFIGS[a]) for a in PAPER_APPS)
+    print(f"paper: the apps' forwards on the card launched "
+          f"{ {k: v for k, v in launches.items() if v} }; the plain "
+          f"versions ran {plain['qmatmul_w8a16_ref']} / "
+          f"{plain['qmatmul_w8a8_ref']} times (W8A16 / W8A8) in their CPU "
+          f"forwards ({fcs} FCs a forward of the six)")
+    # each mode: the eager forward, the capture's warm-up and two replays
+    # on the card, one forward on the CPU
+    if (launches["qmatmul_w8a16[gemv]"] != 4 * fcs
+            or launches["qmatmul_w8a8"] != 4 * fcs
+            or launches["qmatmul_w8a16[mma]"]
+            or plain["qmatmul_w8a16_ref"] != fcs
+            or plain["qmatmul_w8a8_ref"] != fcs):
+        raise AssertionError(f"paper: the apps' launches {launches}, plain "
+                             f"calls {plain} ({fcs} FCs a forward of the "
+                             f"six)")
+    serve = paper_serve_run()
+    quick = paper_quickstart_run()
+    return {"w8a16_err": err16, "w8a8_err": err8, "rows": rows,
+            "per_app_gemv_ms": per_app, "checks": checks,
+            "check_launches": launches, "serve": serve,
+            "quickstart": quick}
+
+
 PHASES = ("attention", "long_tick", "w8a8", "graphs", "dense", "sampling",
           "spec", "multiplex", "sharded", "moe", "encdec", "ssm", "hybrid", "mixtral",
-          "vlm", "train")
+          "vlm", "train", "paper")
 
 
 def parse_args(argv):
@@ -7575,8 +8014,11 @@ def parse_args(argv):
                          "training (flash's forward and gradient at the "
                          "training shape, the reduced model against the "
                          "CPU, the train CLI at full starcoder2-3b width "
-                         "and depth, the reduced kill and resume); prints "
-                         "no result line")
+                         "and depth, the reduced kill and resume), or the "
+                         "paper's six apps (the int8 kernels at every FC "
+                         "shape, each app on the card against the CPU and "
+                         "captured, the serve and quickstart twins); "
+                         "prints no result line")
     return ap.parse_args(argv)
 
 
@@ -7714,6 +8156,12 @@ def main(argv=None) -> int:
             params = None
             torch_cuda_empty()
             train_phase(flush)
+        if "paper" in args.only:            # after train, as in the whole run
+            from repro_torch.runtime import steps as ST
+            ST.clear_step_cache()
+            params = None
+            torch_cuda_empty()
+            paper_phase(flush)
         del flush_buf
         print(f"chip_smoke: partial run passed in "
               f"{time.perf_counter() - t_run:.1f}s; no result line")
@@ -7775,6 +8223,9 @@ def main(argv=None) -> int:
     ST.clear_step_cache()
     torch_cuda_empty()
     train = timed(train_phase, flush)
+    ST.clear_step_cache()
+    torch_cuda_empty()
+    paper = timed(paper_phase, flush)
     del flush_buf
 
     tick_basis = (f"one {{}} of {NUM_SLOTS} rows at full width: the sum "
@@ -8247,6 +8698,45 @@ def main(argv=None) -> int:
            for t in (row["forward"], row["backward"])
            for key in ("ms", "plain_ms", "bound_ms", "library_ms")):
         return fail("a train kernel row is not finite")
+    # the paper's six apps: both int8 kernels at every FC shape of the apps
+    # (at the app's Table 1 batch, each weight stored padded), their
+    # launches in the serve twin's run (the GEMV) and in the apps' W8A16
+    # and W8A8 forwards held against the CPU
+    paper_shapes = ", ".join(f"{label} M {m} (K {k:,} x N {n:,})"
+                             for label, k, n, m, _, _ in PAPER_SHAPES)
+    kernels[0]["paper"] = {
+        "rows": {label: {p: r[p] for p in ("gemv", "mma")}
+                 for label, r in paper["rows"].items()},
+        "max_abs_err": paper["w8a16_err"],
+        "launches": paper["serve"]["launches"]["qmatmul_w8a16"],
+        "check_launches": paper["check_launches"]["qmatmul_w8a16"],
+        "forward_gemv_ms": paper["per_app_gemv_ms"],
+        "apps": paper["serve"]["apps"],
+        "app_checks": paper["checks"],
+        "basis": f"one launch at each FC shape of the paper's six apps: "
+                 f"{paper_shapes}; GEMV on f32 x (the apps' path; bound by "
+                 f"f32's 67 TFLOP/s), mma on x cast to bf16, f32 out, on "
+                 f"the padded operands; library F.linear on f32 / bf16 "
+                 f"dequantized weights; launches: the serve twin's run over "
+                 f"the six apps (its curves' captured forwards), "
+                 f"check_launches: the apps' W8A16 forwards against the CPU; "
+                 f"apps: the serve twin's Table 4 rows (curve ms by batch, "
+                 f"chosen batch, p99, req/s, deadlines met)"}
+    kernels[3]["paper"] = {
+        "rows": {label: r["w8a8"] for label, r in paper["rows"].items()},
+        "max_abs_err": paper["w8a8_err"],
+        "launches": paper["check_launches"]["qmatmul_w8a8"],
+        "basis": f"one launch at each FC shape of the paper's six apps "
+                 f"({paper_shapes}), x quantized on the fly (one scale), "
+                 f"padded, f32 out; launches: the apps' W8A8 forwards (eager "
+                 f"and captured) against the CPU"}
+    if min(kernels[0]["paper"]["launches"], kernels[0]["paper"][
+            "check_launches"], kernels[3]["paper"]["launches"]) <= 0:
+        return fail("a kernel of the paper apps' path never launched")
+    if any(not math.isfinite(t[key]) for r in paper["rows"].values()
+           for t in (r["gemv"], r["mma"], r["w8a8"])
+           for key in ("ms", "plain_ms", "bound_ms", "library_ms")):
+        return fail("a paper kernel row is not finite")
     if min(kernels[0]["encdec"]["launches_by_path"].values()) <= 0 or min(
             kernels[4]["encdec"][key]
             for key in ("launches", "paged_launches", "cli_launches")) <= 0:
@@ -8349,6 +8839,10 @@ def main(argv=None) -> int:
             return fail(f"{k.get('name', 'qmatmul_w8a16 path')}: no launch "
                         f"on its path")
     print(json.dumps({"kernels": kernels, "multiplex": multiplex}))
+    c = TIME_MS_COST
+    print(f"chip_smoke: time_ms {c['calls']} calls, {c['seconds']:.1f}s "
+          f"(heads {c['head_s']:.1f}s, {c['retaken']} retaken; the plain "
+          f"versions' {c['plain_calls']} calls {c['plain_seconds']:.1f}s)")
     print(f"chip_smoke: whole run {time.perf_counter() - t_run:.1f}s")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -3,14 +3,22 @@
 Port of ``repro/core/quant.py``'s inference subset: symmetric int8
 quantization per tensor / per channel, the ``QTensor`` record (int values
 + f32 scales) consumed by ``kernels.ops.qmatmul`` and ``core.qlinear``,
-and post-training quantization of a parameter tree.
+its dequantization, post-training quantization of a parameter tree, and
+``bits_speed_factor`` (the paper's speed of each operand width, read by
+``core/perfmodel.py``).
+
+A 2-D weight is stored padded for the int8 kernels (:func:`pad_weight`):
+zero rows up to K rounded to ``KERNEL_K_ALIGN``, zero columns up to N
+rounded to ``KERNEL_N_ALIGN`` (scale 1.0), once, where it is quantized or
+bridged; the QTensor keeps its logical (K, N) as ``shape``.
 
 Quantization is bitwise equal to the JAX reference as it runs under jit:
 the scale is ``max(amax, 1e-8) * f32(1 / qmax)`` (XLA turns the
 reference's division by the constant qmax into that multiply), values are
 ``x / scale`` (a true division, never a multiply by the reciprocal)
-rounded half-to-even and clipped to the symmetric range.  Calibration and
-gradient compression are not ported yet (ROADMAP queue 1, item 15).
+rounded half-to-even and clipped to the symmetric range.  ``fake_quant``,
+calibration and gradient compression are not ported yet (ROADMAP queue 1,
+item 15).
 """
 from __future__ import annotations
 
@@ -19,6 +27,7 @@ import re
 from typing import Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 _QUANT_PATH_RE = re.compile(r"(\.w$|(^|\.)table$|experts.*w_(gate|up|down)$)")
 
@@ -37,21 +46,73 @@ class QTensor:
     ``values``  int8 data, shape S.
     ``scale``   f32 scale, broadcastable to S (per-tensor or per-channel).
     ``bits``    nominal bit width.
+    ``logical`` the (K, N) of a 2-D weight whose ``values`` and ``scale``
+                are padded for the kernels (:func:`pad_weight`), else None.
     Dequantization: ``values.float() * scale``.
     """
 
     values: torch.Tensor
     scale: torch.Tensor
     bits: int = 8
+    logical: Optional[Tuple[int, int]] = None
 
     @property
     def shape(self):
-        return self.values.shape
+        """The logical shape (the padded storage's is ``values.shape``)."""
+        if self.logical is None:
+            return self.values.shape
+        return torch.Size(self.logical)
+
+    def unpadded(self) -> "QTensor":
+        """This tensor without its kernel padding: views of the logical
+        rows and columns (itself when it has none)."""
+        if self.logical is None:
+            return self
+        k, n = self.logical
+        return QTensor(values=self.values[:k, :n], scale=self.scale[:, :n],
+                       bits=self.bits)
+
+    def dequantize(self, dtype=torch.float32) -> torch.Tensor:
+        q = self.unpadded()
+        return q.values.to(dtype) * q.scale.to(dtype)
 
     @property
     def nbytes_weights(self) -> int:
-        """Bytes of weight-memory traffic to stream this tensor once."""
-        return self.values.numel() * self.bits // 8 + self.scale.numel() * 4
+        """Bytes of weight-memory traffic to stream this tensor once (the
+        logical tensor's, as the reference counts them)."""
+        q = self.unpadded()
+        return q.values.numel() * self.bits // 8 + q.scale.numel() * 4
+
+
+def dequantize(q: QTensor, dtype=torch.float32) -> torch.Tensor:
+    return q.dequantize(dtype)
+
+
+# the shapes the int8 kernels take: K % 16 == 0 (qmatmul_w8a8; the W8A16
+# GEMV needs 8) and N % 4 == 0 (both)
+KERNEL_K_ALIGN = 16
+KERNEL_N_ALIGN = 4
+
+
+def pad_weight(q: QTensor) -> QTensor:
+    """A 2-D (K, N) weight with per-column scales, stored for the int8
+    kernels at any K and N: zero rows up to K rounded to
+    ``KERNEL_K_ALIGN``, zero columns up to N rounded to ``KERNEL_N_ALIGN``
+    with scale 1.0, and ``logical`` = (K, N).  Made once, where the weight
+    is quantized or bridged, so no call copies it; ``kernels/ops.py``
+    zero-pads x's last axis to the stored K and returns the first N
+    columns.  Anything else (already padded or aligned, a stack, a table's
+    per-row scales) is returned as is."""
+    if (q.logical is not None or q.values.ndim != 2
+            or tuple(q.scale.shape) != (1, q.values.shape[1])):
+        return q
+    k, n = q.values.shape
+    pk, pn = -k % KERNEL_K_ALIGN, -n % KERNEL_N_ALIGN
+    if not (pk or pn):
+        return q
+    return QTensor(values=F.pad(q.values, (0, pn, 0, pk)),
+                   scale=F.pad(q.scale.reshape(1, n), (0, pn), value=1.0),
+                   bits=q.bits, logical=(k, n))
 
 
 def compute_scale(x: torch.Tensor, bits: int = 8, axis=None) -> torch.Tensor:
@@ -87,8 +148,9 @@ def quantize(x: torch.Tensor, bits: int = 8, axis=None) -> QTensor:
 
 def quantize_weight(w: torch.Tensor, bits: int = 8) -> QTensor:
     """Per-output-channel quantization of a linear weight (..., d_in, d_out):
-    only the contraction axis d_in is reduced, so scales are (..., 1, d_out)."""
-    return quantize(w, bits=bits, axis=(w.ndim - 2,))
+    only the contraction axis d_in is reduced, so scales are (..., 1, d_out).
+    A 2-D weight is stored padded for the kernels (:func:`pad_weight`)."""
+    return pad_weight(quantize(w, bits=bits, axis=(w.ndim - 2,)))
 
 
 def quantize_embedding(w: torch.Tensor, bits: int = 8,
@@ -160,3 +222,13 @@ def tree_weight_bytes(params) -> int:
     if isinstance(params, QTensor):
         return params.nbytes_weights
     return params.numel() * params.element_size()
+
+
+def bits_speed_factor(w_bits: int, a_bits: int) -> float:
+    """Paper section 2: 8x8 full speed, 8x16 or 16x8 half, 16x16 quarter."""
+    f = 1.0
+    if w_bits > 8:
+        f *= 0.5
+    if a_bits > 8:
+        f *= 0.5
+    return f

@@ -8,19 +8,45 @@ imports from ``kernels/``.
   version.  There is no other path between them and no fallback.
 
 Unlike the TPU wrappers in ``repro/kernels/ops.py`` there is no padding of
-M/N/K to block multiples, nor of G and hd to sublane and lane tiles: the
-CUDA kernels mask their ragged edges themselves.
+M to block multiples, nor of G and hd to sublane and lane tiles: the CUDA
+kernels mask their ragged edges themselves.  The int8 matmuls take any K
+and N through weights stored padded (``core/quant.py::pad_weight``: zero
+rows up to K rounded to 16, zero columns up to N rounded to 4, scale 1.0,
+made once where the weight is quantized or bridged).  On the card
+:func:`qmatmul` zero-pads x's last axis to the stored K (W8A8: the int8
+x, after its scale is taken, so the scale is that of the unpadded x), pads
+the bias to the stored N once per bias tensor (``_padded_bias``), and
+returns the first N columns.  On the CPU the plain versions run on the
+unpadded views.
 """
 from __future__ import annotations
 
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
+from torch.utils.weak import WeakIdKeyDictionary
 
 from repro_torch.core.quant import QTensor, quantize
 from repro_torch.kernels import decode_attention as _da
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import qmatmul as _k
+
+
+# bias -> the same bias with zeros up to a padded weight's N, made at its
+# first use on the card and kept for as long as the bias lives (the
+# weights are not written after they are made)
+_PADDED_BIAS = WeakIdKeyDictionary()
+
+
+def _padded_bias(bias: Optional[torch.Tensor], n_pad: int):
+    if bias is None or bias.numel() == n_pad:
+        return bias
+    padded = _PADDED_BIAS.get(bias)
+    if padded is None:
+        padded = _PADDED_BIAS[bias] = F.pad(bias.reshape(-1),
+                                            (0, n_pad - bias.numel()))
+    return padded
 
 
 def qmatmul(x: torch.Tensor, w, bias: Optional[torch.Tensor] = None, *,
@@ -29,36 +55,43 @@ def qmatmul(x: torch.Tensor, w, bias: Optional[torch.Tensor] = None, *,
     """act((x @ dequant(w)) + bias) with int8 weights.
 
     ``x`` (..., K) bf16/f32; ``w`` a QTensor (K, N) with one scale per
-    column.  If ``x_q`` is given (``x`` quantized to int8 with one scale
-    for the whole tensor), the W8A8 integer path runs; otherwise
-    weight-only W8A16, on the card through the kernel ``path`` names (one
-    of ``qmatmul.W8A16_PATHS``; the plain version runs on the CPU
-    whatever it is)."""
+    column, stored padded where K or N is not a shape the kernels take
+    (see the module's docstring).  If ``x_q`` is given (``x`` quantized
+    to int8 with one scale for the whole tensor), the W8A8 integer path
+    runs; otherwise weight-only W8A16, on the card through the kernel
+    ``path`` names (one of ``qmatmul.W8A16_PATHS``; the plain version runs
+    on the CPU whatever it is)."""
     if path not in _k.W8A16_PATHS:
         raise ValueError(f"unknown path {path!r}")
     lead = x.shape[:-1]
-    n = w.shape[-1]
-    if x_q is not None:
-        xq2 = x_q.values.reshape(-1, x.shape[-1])
-        xs = x_q.scale.reshape(())
-        if xq2.is_cuda:
-            out = _k.qmatmul_w8a8(xq2.contiguous(), w.values, xs, w.scale,
-                                  bias, activation=activation,
-                                  out_dtype=out_dtype)
-        else:
-            out = _k.qmatmul_w8a8_ref(xq2, w.values, xs, w.scale, bias,
-                                      activation=activation,
+    k, n = w.shape[-2], w.shape[-1]
+    if x.shape[-1] != k:
+        raise ValueError(f"shapes x{tuple(x.shape)} @ w{tuple(w.shape)}")
+    x2 = x.reshape(-1, k) if x_q is None else x_q.values.reshape(-1, k)
+    if not x2.is_cuda:
+        q = w.unpadded()
+        if x_q is not None:
+            out = _k.qmatmul_w8a8_ref(x2, q.values, x_q.scale.reshape(()),
+                                      q.scale, bias, activation=activation,
                                       out_dtype=out_dtype)
-        return out.reshape(*lead, n)
-    x2 = x.reshape(-1, x.shape[-1])
-    if x2.is_cuda:
-        out = _k.qmatmul_w8a16_on_path(path, x2.contiguous(), w.values,
-                                       w.scale, bias, activation=activation,
+        else:
+            out = _k.qmatmul_w8a16_ref(x2, q.values, q.scale, bias,
+                                       activation=activation,
                                        out_dtype=out_dtype)
+        return out.reshape(*lead, n)
+    k_pad, n_pad = w.values.shape
+    x2 = F.pad(x2, (0, k_pad - k)) if k_pad != k else x2.contiguous()
+    bias = _padded_bias(bias, n_pad)
+    if x_q is not None:
+        out = _k.qmatmul_w8a8(x2, w.values, x_q.scale.reshape(()), w.scale,
+                              bias, activation=activation,
+                              out_dtype=out_dtype)
     else:
-        out = _k.qmatmul_w8a16_ref(x2, w.values, w.scale, bias,
-                                   activation=activation,
-                                   out_dtype=out_dtype)
+        out = _k.qmatmul_w8a16_on_path(path, x2, w.values, w.scale, bias,
+                                       activation=activation,
+                                       out_dtype=out_dtype)
+    if n_pad != n:
+        out = out[:, :n]
     return out.reshape(*lead, n)
 
 

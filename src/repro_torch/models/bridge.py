@@ -11,8 +11,12 @@ per-layer dicts and each ``(values, scale)`` pair made a port
 leads with (n_groups, xattn_every - 1), ``groups.xattn`` with n_groups —
 and comes out as ``models/vision.py`` lays it: one flat ``layers`` list,
 each group's plain layers then its cross layer, then the ``leftover``
-plain layers.  No JAX is imported: the JAX -> numpy step belongs to the
-caller (the tests do it).
+plain layers.  A paper app's tree (``models/paper_nets.py``) holds lists
+of layer dicts already (``layers``, ``cells``, ``convs``, ``fcs``): they
+stay lists.  Every 2-D QTensor is stored padded for the int8 kernels
+(``core/quant.py::pad_weight``), as the port's quantizer stores it.  No
+JAX is imported: the JAX -> numpy step belongs to the caller (the tests
+do it).
 
 ``opt_state_from_numpy(state)`` carries an optimizer's state across the
 same way: the reference's ``AdamWState`` or ``AdafactorState`` with every
@@ -29,20 +33,23 @@ from typing import Any
 import numpy as np
 import torch
 
-from repro_torch.core.quant import QTensor
+from repro_torch.core.quant import QTensor, pad_weight
 from repro_torch.device import DeviceLike, resolve_device
 
 
 def _leaf(x, device) -> Any:
     if isinstance(x, tuple):
         values, scale = x
-        return QTensor(values=_leaf(values, device), scale=_leaf(scale, device))
+        return pad_weight(QTensor(values=_leaf(values, device),
+                                  scale=_leaf(scale, device)))
     return torch.tensor(np.asarray(x), device=device)
 
 
 def _convert(node, device):
     if isinstance(node, dict):
         return {k: _convert(v, device) for k, v in node.items()}
+    if isinstance(node, list):
+        return [_convert(v, device) for v in node]
     return _leaf(node, device)
 
 
@@ -50,8 +57,9 @@ def _layer(node, i: int):
     if isinstance(node, dict):
         return {k: _layer(v, i) for k, v in node.items()}
     if isinstance(node, QTensor):
-        return QTensor(values=node.values[i].contiguous(),
-                       scale=node.scale[i].contiguous(), bits=node.bits)
+        return pad_weight(QTensor(values=node.values[i].contiguous(),
+                                  scale=node.scale[i].contiguous(),
+                                  bits=node.bits))
     return node[i].contiguous()
 
 
@@ -87,7 +95,7 @@ def params_from_numpy(tree: dict, device: DeviceLike = None) -> dict:
                                        params.pop("leftover", None))
         return params
     for name in STACKED:
-        if name in params:
+        if name in params and not isinstance(params[name], list):
             params[name] = _split(params[name])
     return params
 

@@ -135,6 +135,19 @@ def _close(got, want, out_dtype):
     return bool(((got - want).abs() <= rel * want.abs() + 1e-5 * rms).all())
 
 
+def _tree_cpu(node):
+    """A param tree (dicts, lists, QTensors with their padding) on the
+    CPU."""
+    if isinstance(node, dict):
+        return {k: _tree_cpu(v) for k, v in node.items()}
+    if isinstance(node, list):
+        return [_tree_cpu(v) for v in node]
+    if isinstance(node, QTensor):
+        return dataclasses.replace(node, values=node.values.cpu(),
+                                   scale=node.scale.cpu())
+    return node.cpu()
+
+
 @pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("k,n", MMA_KN)
 def test_qmatmul_w8a16_mma_matches_plain(cuda, k, n, out_dtype):
@@ -840,17 +853,7 @@ def test_forward_on_card_runs_its_kernels(cuda, batch):
     assert FA.flash_attention_ref.calls == K.qmatmul_w8a8_ref.calls == 0
     assert out.shape == (batch, 16, cfg.vocab) and torch.isfinite(out).all()
 
-    def to_cpu(node):
-        if isinstance(node, dict):
-            return {k: to_cpu(v) for k, v in node.items()}
-        if isinstance(node, list):
-            return [to_cpu(v) for v in node]
-        if isinstance(node, torch.Tensor):
-            return node.cpu()
-        return dataclasses.replace(node, values=node.values.cpu(),
-                                   scale=node.scale.cpu())
-
-    cpu = ST.make_prefill_step(cfg, mode=W8A8)(to_cpu(params),
+    cpu = ST.make_prefill_step(cfg, mode=W8A8)(_tree_cpu(params),
                                                {"tokens": toks.cpu()})
     assert float((out.cpu() - cpu).abs().max()) <= 0.2
 
@@ -2268,3 +2271,80 @@ def test_train_step_on_card(cuda):
     assert FA.flash_attention_bhsd.launches - launches == 6 * cfg.n_layers
     assert FA.flash_attention_bwd.calls - bwd == 3 * cfg.n_layers
     assert FA.flash_attention_ref.calls == calls
+
+
+# ---------------------------------------------------------------------------
+# the paper's apps: the int8 matmuls at any K and N, the apps captured
+# ---------------------------------------------------------------------------
+
+PAPER_KN = ((1118, 1118), (2084, 4168), (3700, 3700), (7400, 3700),
+            (37, 18))
+
+
+@pytest.mark.parametrize("k,n", PAPER_KN)
+def test_qmatmul_padded_weights_match_plain(cuda, k, n):
+    """Weights the kernels do not take as they are (K % 16, N % 4), stored
+    padded once by the quantizer: ops.qmatmul through the GEMV (f32 x),
+    the mma path (bf16 x) and ops.qmatmul_dynamic (W8A8) on the card
+    against the same calls on the CPU (the plain versions, unpadded), at
+    M = 3 and 40, with a bias and relu; W8A8's int32 sums bitwise."""
+    g = torch.Generator(device=cuda).manual_seed(k + n)
+    w = quantize_weight(torch.randn((k, n), generator=g, device=cuda)
+                        * k ** -0.5)
+    assert tuple(w.shape) == (k, n)
+    wc = _tree_cpu(w)
+    b = torch.randn(n, generator=g, device=cuda)
+    before = dict(K.qmatmul_w8a16.launches_by_path)
+    w8a8 = K.qmatmul_w8a8.launches
+    for m in (3, 40):
+        x = torch.randn((m, k), generator=g, device=cuda)
+        for path, xd in (("gemv", x), ("mma", x.bfloat16())):
+            got = ops.qmatmul(xd, w, b, activation="relu",
+                              out_dtype=torch.float32, path=path)
+            want = ops.qmatmul(xd.cpu(), wc, b.cpu(), activation="relu",
+                               out_dtype=torch.float32)
+            assert got.shape == (m, n)
+            assert _close(got.cpu(), want, torch.float32), (path, m)
+        got = ops.qmatmul_dynamic(x, w, b, out_dtype=torch.float32)
+        want = ops.qmatmul_dynamic(x.cpu(), wc, b.cpu(),
+                                   out_dtype=torch.float32)
+        assert torch.equal(got.cpu(), want), m
+    assert K.qmatmul_w8a16.launches_by_path["gemv"] - before["gemv"] == 2
+    assert K.qmatmul_w8a16.launches_by_path["mma"] - before["mma"] == 2
+    assert K.qmatmul_w8a8.launches - w8a8 == 2
+
+
+@pytest.mark.parametrize("kind", ["mlp", "lstm", "cnn"])
+def test_paper_app_on_card_captured_and_against_cpu(cuda, kind):
+    """A small paper app of unaligned widths, quantized on the card: its
+    forward captured as a CUDA graph is bitwise the eager one (W8A16 and
+    W8A8), and the card's eager forward agrees with the CPU's (plain
+    versions) on the same weights: W8A16 within 1e-4 of the largest
+    magnitude, W8A8 within 1e-3 relative L2."""
+    from repro_torch.configs.paper_apps import PaperAppConfig
+    from repro_torch.examples.serve_quantized import make_forward
+    from repro_torch.models import paper_nets as PN
+    cfg = {"mlp": PaperAppConfig("mlp", "mlp", 4, 7.0, widths=(36, 38, 36)),
+           "lstm": PaperAppConfig("lstm", "lstm", 4, 7.0, n_cells=2,
+                                  hidden=10),
+           "cnn": PaperAppConfig("cnn", "cnn", 4, 7.0, conv_channels=(12, 12),
+                                 spatial=5, fc_tail=(44, 36, 20))}[kind]
+    g = torch.Generator(device=cuda).manual_seed(0)
+    params = quantize_tree(PN.init_app(g, cfg, device=cuda), min_size=256)
+    cpu = _tree_cpu(params)
+    x = PN.app_input(cfg, batch=3, device=cuda)
+    for mode in (W8A16, W8A8):
+        with torch.inference_mode():
+            eager = PN.apply_app(params, cfg, x, mode=mode)
+            fwd = make_forward(cfg, mode)
+            fwd(params, x)
+            captured = fwd(params, x).clone()
+            want = PN.apply_app(cpu, cfg, x.cpu(), mode=mode)
+        assert fwd.captured.captures == 1
+        assert torch.equal(captured, eager), mode
+        got = eager.cpu()
+        if mode is W8A8:
+            assert float((got - want).norm() / want.norm()) <= 1e-3
+        else:
+            assert float((got - want).abs().max()
+                         / want.abs().max()) <= 1e-4
