@@ -18,9 +18,17 @@ data stream at its data step.  Without ``--device`` it runs on the card
 (and fails without one); ``--device cpu`` runs the kernels' plain
 versions on the CPU.
 
-The reference's mesh and sharding rules are not ported (ROADMAP queue 1,
-item 15): the model trains on one device.  ``--grad-compression int8``
-raises, naming that item.  The exit code is the reference's: 0 when the
+``--arch`` takes the token-only families (dense, moe, ssm, hybrid):
+
+    python -m repro_torch.launch.train --arch mamba2-1.3b --steps 10
+
+The batch is the synthetic stream's tokens and labels, as the
+reference's launcher builds it, so an encdec or vlm config, whose
+forward also reads source embeddings, is refused before anything is
+built (``runtime/steps.py::make_train_step`` trains those with a batch
+that carries them).  The reference's mesh and sharding rules are not
+ported (ROADMAP queue 1, item 15): the model trains on one device.
+``--grad-compression int8`` raises, naming that item.  The exit code is the reference's: 0 when the
 mean loss of the last 5 steps is below that of the first 5 (or the run
 resumed), else 1.
 """
@@ -43,6 +51,11 @@ from repro_torch.optim import cosine_schedule, make_optimizer
 from repro_torch.runtime import prng as P
 from repro_torch.runtime import steps as ST
 from repro_torch.runtime.watchdog import StepTimer, StepWatchdog
+
+
+# the families whose batch needs more than tokens and labels: the source
+# embeddings their forward reads (``configs/base.py::input_specs``)
+SOURCE_FAMILIES = {"encdec": "encoder_embeds", "vlm": "vision_embeds"}
 
 
 @dataclasses.dataclass
@@ -81,6 +94,14 @@ def parse_args(argv=None):
 def train(argv=None) -> TrainRun:
     args = parse_args(argv)
     cfg = get_config(args.arch)
+    if cfg.family in SOURCE_FAMILIES:
+        raise ValueError(
+            f"--arch {args.arch}: the {cfg.family} family's forward reads "
+            f"{SOURCE_FAMILIES[cfg.family]} besides the tokens, and this "
+            f"launcher's batch is the synthetic stream's tokens and labels "
+            f"alone (the reference's launcher builds no source embeddings "
+            f"either); train it through runtime.steps.make_train_step with "
+            f"a batch that carries them")
     if args.reduced:
         cfg = cfg.reduced()
     device = resolve_device(args.device)

@@ -140,18 +140,23 @@ def encode(params: dict, frame_embeds: Tensor, cfg: ArchConfig, *,
            mode: QuantMode = FP, remat: bool = True) -> Tensor:
     """frame_embeds (B, enc_seq, D), the stubbed frontend's output -> the
     encoder output (B, enc_seq, D) in its dtype.  ``remat`` is the
-    reference's training switch; it has no effect here."""
+    reference's rematerialization for training, each layer under
+    ``transformer.remat_call``."""
     mode = T.forward_mode(mode)
     b, s, d = frame_embeds.shape
     x = frame_embeds + _sinusoid(s, d, frame_embeds.device)[None].to(
         frame_embeds.dtype)
     acfg = _attn_cfg(cfg, causal=False)
-    for lp in params["enc_layers"]:
+
+    def layer(x, lp):
         h = L.layernorm(lp["ln_attn"], x)
         x = x + L.attention(lp["attn"], h, acfg, mode=mode)
         h = L.layernorm(lp["ln_mlp"], x)
-        x = x + L.mlp(lp["mlp"], h, gated=False, activation="gelu",
-                      mode=mode)
+        return x + L.mlp(lp["mlp"], h, gated=False, activation="gelu",
+                         mode=mode)
+
+    for lp in params["enc_layers"]:
+        x = T.remat_call(remat, layer, x, lp)
     return L.layernorm(params["ln_enc"], x)
 
 
@@ -183,15 +188,21 @@ def forward(params: dict, tokens: Tensor, encoder_embeds: Tensor,
     logits (B, S, V) f32.  Every attention runs the flash-attention
     kernel: the encoder's and the cross-attention not causal, the
     decoder's self-attention causal.  Under W8A16 every projection and
-    the LM head take the tensor-core kernel."""
+    the LM head take the tensor-core kernel.  ``remat`` checkpoints each
+    encoder and each decoder layer (``transformer.remat_call``), as the
+    reference's training forward does."""
     mode = T.forward_mode(mode)
-    enc_out = encode(params, encoder_embeds, cfg, mode=mode)
+    enc_out = encode(params, encoder_embeds, cfg, mode=mode, remat=remat)
     b, s = tokens.shape
     x = L.embed(params["embed"], tokens)
     pos = torch.arange(s, device=tokens.device) % DEC_POS_TABLE
     x = x + params["dec_pos"][pos][None].to(x.dtype)
+
+    def layer(x, lp, enc_out):
+        return _dec_layer(cfg, mode, lp, x, enc_out=enc_out)
+
     for lp in params["dec_layers"]:
-        x = _dec_layer(cfg, mode, lp, x, enc_out=enc_out)
+        x = T.remat_call(remat, layer, x, lp, enc_out)
     x = L.layernorm(params["ln_f"], x)
     return L.unembed(params["embed"], x, path=mode.w8a16_path)
 

@@ -1,5 +1,5 @@
-"""Mixture-of-Experts LM (qwen2-moe-a2.7b, mixtral-8x22b): the serving
-subset of ``repro/models/moe.py``.
+"""Mixture-of-Experts LM (qwen2-moe-a2.7b, mixtral-8x22b): the port of
+``repro/models/moe.py``.
 
 A decoder layer is the dense one (``models/transformer.py``) with an MoE
 FFN in the place of the MLP: an f32 router -> the top-k experts of each
@@ -40,8 +40,13 @@ Where the port differs from the reference, and why:
   routed alone, with the capacity of one token, as the reference's chunk
   step scans its one-token decode step.
 
-Not ported yet: training's ``aux_load_balance_loss`` (ROADMAP queue 1,
-item 15).
+Training differentiates the same FFN: the dispatch stack is a fresh
+buffer written by ``index_copy_`` (autograd carries x's gradient
+through it; the trash row is never read), and the router's logits reach
+the loss through the kept probabilities that weight the combine.
+:func:`aux_load_balance_loss`, the reference's Switch-style term, is a
+function of its own: the reference's loss does not add it, so the
+port's does not either.
 """
 from __future__ import annotations
 
@@ -217,6 +222,21 @@ def moe_ffn(p: dict, x: Tensor, cfg: ArchConfig, *, mode: QuantMode = FP,
         out = out + L.mlp(p["shared"], x, gated=cfg.gated_mlp,
                           activation=cfg.activation, mode=mode)
     return out
+
+
+def aux_load_balance_loss(p: dict, x: Tensor, cfg: ArchConfig) -> Tensor:
+    """The reference's Switch-style load-balance loss of one MoE FFN's
+    router ``p["router"]`` over x (B, S, D): E * sum_e f_e * P_e, f_e the
+    share of tokens whose most probable expert is e (ties to the lower
+    index, as ``jnp.argmax``) and P_e the mean router probability of e;
+    () f32, differentiable in the router and x through P."""
+    e = cfg.n_experts
+    xt = x.reshape(-1, x.shape[-1]).float()
+    logits = linear(p["router"], xt, mode=FP, compute_dtype=torch.float32)
+    probs = torch.softmax(logits, dim=-1)
+    top_e = torch.argmax(probs, dim=-1)
+    frac = torch.mean(torch.nn.functional.one_hot(top_e, e).float(), dim=0)
+    return e * torch.sum(frac * torch.mean(probs, dim=0))
 
 
 def layer_ffn(lp: dict, h: Tensor, cfg: ArchConfig, *, mode: QuantMode,

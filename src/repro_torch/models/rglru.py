@@ -271,18 +271,29 @@ def forward(params: dict, tokens: Tensor, cfg: ArchConfig, *,
     kernel (``w8a16_path="mma"``): under W8A16 every projection, and
     under W8A8 too the RG-LRU gates (W8A16 whatever the mode) and the
     head; the W8A8 kernels do not read the path.  ``remat`` is the
-    reference's training switch; it has no effect here."""
+    reference's rematerialization for training (``transformer.remat_call``)
+    around each group of the block pattern, and here around each leftover
+    block too (the reference leaves those out; the values are the same
+    either way), so every attention block's flash runs twice in a
+    training step."""
     if mode.enabled:
         mode = dataclasses.replace(mode, w8a16_path="mma")
     positions = torch.arange(tokens.shape[1], device=tokens.device)[None, :]
     rope = L.rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta)
-    x = L.embed(params["embed"], tokens)
-    for gp in params["groups"]:
+
+    def group(x, gp):
         x, _ = rec_block(gp["rec0"], x, cfg, mode=mode)
         x, _ = rec_block(gp["rec1"], x, cfg, mode=mode)
-        x = attn_block(gp["attn"], x, cfg, mode=mode, rope=rope)
+        return attn_block(gp["attn"], x, cfg, mode=mode, rope=rope)
+
+    def leftover(x, lp):
+        return rec_block(lp, x, cfg, mode=mode)[0]
+
+    x = L.embed(params["embed"], tokens)
+    for gp in params["groups"]:
+        x = T.remat_call(remat, group, x, gp)
     for lp in params.get("leftover", ()):
-        x, _ = rec_block(lp, x, cfg, mode=mode)
+        x = T.remat_call(remat, leftover, x, lp)
     x = L.rmsnorm(params["ln_f"], x)
     return L.unembed(params["embed"], x, path=mode.w8a16_path)
 

@@ -253,12 +253,17 @@ def forward(params: dict, tokens: Tensor, cfg: ArchConfig, *,
     logits (B, S, V) f32 through the chunked SSD.  Under W8A16 every
     projection and the head take the tensor-core kernel
     (``w8a16_path="mma"``), as ``transformer.forward``'s.  ``remat`` is
-    the reference's training switch; it has no effect here."""
+    the reference's rematerialization for training, each layer under
+    ``transformer.remat_call``."""
     if mode.enabled and not mode.w8a8:
         mode = dataclasses.replace(mode, w8a16_path="mma")
+
+    def layer(x, lp):
+        return ssd_layer(lp, x, cfg, mode=mode)[0]
+
     x = L.embed(params["embed"], tokens)
     for lp in params["layers"]:
-        x, _ = ssd_layer(lp, x, cfg, mode=mode)
+        x = T.remat_call(remat, layer, x, lp)
     x = L.rmsnorm(params["ln_f"], x)
     return L.unembed(params["embed"], x, path=mode.w8a16_path)
 

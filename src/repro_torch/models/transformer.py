@@ -203,7 +203,23 @@ def _records_grad(tree) -> bool:
     """True when a tensor of ``tree`` (a layer's params) requires grad."""
     if isinstance(tree, dict):
         return any(_records_grad(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return any(_records_grad(v) for v in tree)
     return isinstance(tree, torch.Tensor) and tree.requires_grad
+
+
+def remat_call(remat: bool, fn, x: Tensor, weights, *extra):
+    """``fn(x, weights, *extra)``, the reference's ``jax.checkpoint`` with
+    ``nothing_saveable`` where ``remat`` is on and autograd records the
+    call (grad enabled and a tensor of ``weights`` requiring grad): it
+    runs under ``torch.utils.checkpoint`` (non-reentrant) and keeps only
+    its inputs, so its activations are recomputed in the backward pass;
+    the values are the same either way.  Serving and captured forwards
+    never checkpoint."""
+    if remat and torch.is_grad_enabled() and _records_grad(weights):
+        return checkpoint(fn, x, weights, *extra, use_reentrant=False,
+                          preserve_rng_state=False)
+    return fn(x, weights, *extra)
 
 
 def dense_ffn(lp: dict, h: Tensor, cfg: ArchConfig, *, mode: QuantMode,
@@ -224,14 +240,10 @@ def forward(params: dict, tokens: Tensor, cfg: ArchConfig, *,
     (and windowed for a windowed config).  Under W8A16 every projection
     and the LM head take the tensor-core kernel (``w8a16_path="mma"``):
     this forward's rows need not match a decode step's bits.  ``remat``
-    is the reference's rematerialization for training (``jax.checkpoint``
-    with ``nothing_saveable`` around each layer): where autograd records
-    a layer (grad enabled and a weight of it requiring grad), the layer
-    runs under ``torch.utils.checkpoint`` and keeps only its input, so its
-    activations (and the f32 copies of its bf16-rounded weights,
-    ``core/qlinear.py``) are recomputed in the backward pass; the values
-    are the same either way.  ``ffn(lp, h, cfg, mode=...)`` is each
-    layer's FFN."""
+    is the reference's rematerialization for training, each layer under
+    :func:`remat_call`: its activations (and the f32 copies of its
+    bf16-rounded weights, ``core/qlinear.py``) are recomputed in the
+    backward pass.  ``ffn(lp, h, cfg, mode=...)`` is each layer's FFN."""
     mode = forward_mode(mode)
     b, s = tokens.shape
     positions = torch.arange(s, device=tokens.device)[None, :]
@@ -246,11 +258,7 @@ def forward(params: dict, tokens: Tensor, cfg: ArchConfig, *,
 
     x = L.embed(params["embed"], tokens)
     for lp in params["layers"]:
-        if remat and torch.is_grad_enabled() and _records_grad(lp):
-            x = checkpoint(layer, x, lp, use_reentrant=False,
-                           preserve_rng_state=False)
-        else:
-            x = layer(x, lp)
+        x = remat_call(remat, layer, x, lp)
     x = norm_apply(cfg, params["ln_f"], x)
     head = params.get("unembed", params["embed"])
     return L.unembed(head, x, path=mode.w8a16_path)

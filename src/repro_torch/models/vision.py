@@ -142,22 +142,37 @@ def forward(params: dict, tokens: Tensor, vision_embeds: Tensor,
     attention runs the flash-attention kernel: the self-attention causal,
     the cross-attention over the patches not causal.  Under W8A16 every
     projection and the LM head take the tensor-core kernel.  ``remat`` is
-    the reference's training switch; it has no effect here."""
+    the reference's rematerialization for training
+    (``transformer.remat_call``) around each group of ``xattn_every``
+    layers, and here around each leftover layer too (the reference leaves
+    those out; the values are the same either way), so every attention's
+    flash runs twice in a training step."""
     mode = T.forward_mode(mode)
     b, s = tokens.shape
     positions = torch.arange(s, device=tokens.device)[None, :]
     rope = L.rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta)
     acfg, xcfg = T.attn_config(cfg), _xattn_cfg(cfg)
+
+    def layers(x, lps, vision_embeds):
+        for lp in lps:
+            h = T.norm_apply(cfg, lp["ln_attn"], x)
+            x = x + L.attention(lp["attn"], h, acfg, mode=mode, rope=rope)
+            h = T.norm_apply(cfg, lp["ln_mlp"], x)
+            x = x + T.dense_ffn(lp, h, cfg, mode=mode)
+            if "xattn" in lp:
+                h = T.norm_apply(cfg, lp["ln_x"], x)
+                x = _gated(lp, x, L.attention(lp["xattn"], h, xcfg,
+                                              mode=mode,
+                                              source=vision_embeds))
+        return x
+
+    lps, every = params["layers"], cfg.xattn_every
+    grouped = n_groups(cfg) * every
+    chunks = ([lps[i:i + every] for i in range(0, grouped, every)]
+              + [[lp] for lp in lps[grouped:]])
     x = L.embed(params["embed"], tokens)
-    for lp in params["layers"]:
-        h = T.norm_apply(cfg, lp["ln_attn"], x)
-        x = x + L.attention(lp["attn"], h, acfg, mode=mode, rope=rope)
-        h = T.norm_apply(cfg, lp["ln_mlp"], x)
-        x = x + T.dense_ffn(lp, h, cfg, mode=mode)
-        if "xattn" in lp:
-            h = T.norm_apply(cfg, lp["ln_x"], x)
-            x = _gated(lp, x, L.attention(lp["xattn"], h, xcfg, mode=mode,
-                                          source=vision_embeds))
+    for chunk in chunks:
+        x = T.remat_call(remat, layers, x, chunk, vision_embeds)
     x = T.norm_apply(cfg, params["ln_f"], x)
     head = params.get("unembed", params["embed"])
     return L.unembed(head, x, path=mode.w8a16_path)

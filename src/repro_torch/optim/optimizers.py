@@ -160,40 +160,86 @@ class AdafactorState(NamedTuple):
 @dataclasses.dataclass(frozen=True)
 class _Stack:
     """The tensors that stand for one leaf of the reference's tree: the
-    same path in each dict of a layer list (the reference stacks them on
-    a leading layer axis), or one tensor outside such a list."""
+    same path in each dict of a layer list, stacked on the leading axes
+    ``lead`` as the reference stacks them (``(L,)``; the vlm's
+    ``(groups, per group)`` plain layers and ``(groups,)`` cross layers),
+    or one tensor outside such a list (``lead`` empty)."""
     tensors: tuple
-    stacked: bool
+    lead: tuple
 
     @property
     def shape(self) -> tuple:
-        shape = tuple(self.tensors[0].shape)
-        return (len(self.tensors),) + shape if self.stacked else shape
+        return self.lead + tuple(self.tensors[0].shape)
 
     def value(self) -> Tensor:
-        return (torch.stack(self.tensors) if self.stacked
-                else self.tensors[0])
+        if not self.lead:
+            return self.tensors[0]
+        return torch.stack(self.tensors).reshape(self.shape)
 
     def write(self, new: Tensor) -> None:
-        if self.stacked:
-            for t, row in zip(self.tensors, new):
-                t.copy_(row)
-        else:
+        if not self.lead:
             self.tensors[0].copy_(new)
+            return
+        rows = new.reshape((-1,) + tuple(self.tensors[0].shape))
+        for t, row in zip(self.tensors, rows):
+            t.copy_(row)
+
+
+def _signature(tree):
+    if isinstance(tree, dict):
+        return tuple((k, _signature(tree[k])) for k in sorted(tree))
+    if isinstance(tree, (list, tuple)):
+        return tuple(_signature(x) for x in tree)
+    return None
+
+
+def _layer_stacks(layers: list):
+    """A layer list in the reference's stacked layout: one stack of every
+    layer where they share one structure; else the reference's groups
+    (the vlm's plain layers and the cross layer closing each group): the
+    layers up to the last one whose structure differs from the first's
+    are G groups, G the count of that closing structure.  The closing
+    structure stacks on (G,) and each other structure on (G, per group),
+    as the reference's nested ``vmap`` lays them (``groups.xattn`` and
+    ``groups.plain``, the latter (G, 1) at one plain layer a group); the
+    layers after it (the leftover) stack on one axis."""
+    def stack(items, lead):
+        return tree_map(lambda *ts: _Stack(ts, lead), *items)
+
+    sigs = [_signature(x) for x in layers]
+    if len(set(sigs)) == 1:
+        return stack(layers, (len(layers),))
+    end = max(i for i, s in enumerate(sigs) if s != sigs[0]) + 1
+    closing = sigs[end - 1]
+    groups = sigs[:end].count(closing)
+    out = []
+    for sig in dict.fromkeys(sigs[:end]):
+        items = [x for x, s in zip(layers[:end], sigs) if s == sig]
+        if len(items) % groups:
+            raise ValueError(
+                f"a layer list of mixed structure is stacked as {groups} "
+                f"groups closed by one layer each, but one structure "
+                f"occurs {len(items)} times in them, not a multiple of "
+                f"{groups}")
+        out.append(stack(items, (groups,) if sig == closing
+                         else (groups, len(items) // groups)))
+    if end < len(layers):
+        out.append(stack(layers[end:], (len(layers) - end,)))
+    return out
 
 
 def _stacks(tree):
-    """``tree`` with each layer list (a list of dicts of one structure)
-    folded into one dict of :class:`_Stack` leaves, and every other
-    tensor a :class:`_Stack` of one: the reference's stacked layout."""
+    """``tree`` with each layer list (a list of dicts) folded into its
+    stacked form (:func:`_layer_stacks`), and every other tensor a
+    :class:`_Stack` of one: the reference's stacked layout."""
     if isinstance(tree, dict):
         return {k: _stacks(v) for k, v in tree.items()}
     if isinstance(tree, list) and tree and all(isinstance(x, dict)
                                                for x in tree):
-        return tree_map(lambda *ts: _Stack(ts, True), *tree)
+        return _layer_stacks(tree)
     if isinstance(tree, (list, tuple)):
         return type(tree)(_stacks(x) for x in tree)
-    return _Stack((tree,), False)
+    return _Stack((tree,), ())
 
 
 def _factored(shape) -> bool:
@@ -238,21 +284,31 @@ def adafactor_update(params, grads, state: AdafactorState, *,
                                tree_leaves(_stacks(grads)),
                                tree_leaves(state.vr),
                                tree_leaves(state.vc)):
+        # the reference's expressions, each temporary freed or reused as
+        # soon as it is spent (the same values: a stacked leaf, such as
+        # qwen2-moe's (L, 60, 2048, 1408) experts, is 5.5 GB a copy, and
+        # at most three copies are alive at once)
         g = gst.value().float()
-        g2 = torch.square(g) + eps
+        g2 = torch.square(g).add_(eps)
         if _factored(st.shape):
             vr.copy_(beta * vr + (1 - beta) * torch.mean(g2, dim=-1))
             vc.copy_(beta * vc + (1 - beta) * torch.mean(g2, dim=-2))
+            del g2
             r = vr / torch.mean(vr, dim=-1, keepdim=True)
             update = g / (torch.sqrt(r)[..., None]
                           * torch.sqrt(vc)[..., None, :])
         else:
             vr.copy_(beta * vr + (1 - beta) * g2)
+            del g2
             update = g / torch.sqrt(vr)
+        del g
         rms = torch.sqrt(torch.mean(torch.square(update)) + 1e-12)
-        update = update / torch.clamp(rms / clip_threshold, min=1.0)
+        update.div_(torch.clamp(rms / clip_threshold, min=1.0))
+        # pf - lr_t * update - lr_t * weight_decay * pf, left to right
         pf = st.value().float()
-        st.write(pf - lr_t * update - lr_t * weight_decay * pf)
+        new = torch.sub(pf, update.mul_(lr_t), out=update)
+        st.write(new.sub_(pf.mul_(lr_t * weight_decay)))
+        del update, new, pf        # before the next leaf's copies are made
     return params, state
 
 

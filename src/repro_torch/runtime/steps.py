@@ -9,9 +9,8 @@ clip -> optimizer on one device: the gradients come from
 forward is the flash-attention kernel on the card and its gradient
 ``kernels/flash_attention.py::flash_attention_bwd``, and the optimizer
 writes the params and its state in place (``optim/optimizers.py``).
-The dense family trains; the other families' training and the int8
-gradient exchange, which needs several cards, are refused (ROADMAP
-queue 1, item 15).
+Every family trains; the int8 gradient exchange, which needs several
+cards, is refused (ROADMAP queue 1, item 15).
 
 The ``make_*`` builders run eagerly: the cache is a dict of tensors
 updated in place, and each step returns it to keep the reference's
@@ -70,10 +69,6 @@ from repro_torch.optim.optimizers import tree_leaves, tree_map
 from repro_torch.runtime import prng as P
 from repro_torch.runtime.graphs import MAX_BINDINGS, CapturedStep
 
-# the families whose training is ported
-TRAIN_FAMILIES = ("dense",)
-
-
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
                   z_loss: float = 1e-4) -> torch.Tensor:
     """Mean CE in f32 + z-loss (the logit-norm stabilizer)."""
@@ -87,13 +82,10 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
 def make_loss_fn(cfg: ArchConfig, *, mode: QuantMode = FP,
                  remat: bool = True) -> Callable:
     """``loss_fn(params, batch) -> ()`` f32: the forward
-    (``registry.apply_forward``) and :func:`cross_entropy` against
-    ``batch["labels"]``."""
-    if cfg.family not in TRAIN_FAMILIES:
-        raise NotImplementedError(
-            f"training the {cfg.family} family is not ported yet (ROADMAP "
-            f"queue 1, item 15); ported: {', '.join(TRAIN_FAMILIES)}")
-
+    (``registry.apply_forward``, every family) and :func:`cross_entropy`
+    against ``batch["labels"]``.  The batch is ``cfg.input_specs``'s:
+    ``tokens`` and ``labels``, and the encdec family's
+    ``encoder_embeds`` or the vlm family's ``vision_embeds`` (bf16)."""
     def loss_fn(params, batch):
         logits = R.apply_forward(params, cfg, batch, mode=mode, remat=remat)
         return cross_entropy(logits, batch["labels"])

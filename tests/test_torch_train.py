@@ -400,20 +400,15 @@ def test_train_launcher_adafactor():
 
 
 def test_refusals_name_their_roadmap_item():
-    """The int8 gradient exchange and the other families' training are
-    refused, naming ROADMAP queue 1, item 15; without --device the
-    launcher needs the card."""
+    """The int8 gradient exchange is refused, naming ROADMAP queue 1,
+    item 15; without --device the launcher needs the card.  (Every
+    family trains: tests/test_torch_train_families.py.)"""
     with pytest.raises(NotImplementedError, match="item 15"):
         TR.main(LAUNCH + ["--grad-compression", "int8"])
     opt = make_optimizer("adamw", lr=1e-3)
     with pytest.raises(NotImplementedError, match="item 15"):
         ST.make_train_step(get_config("starcoder2-3b").reduced(), opt,
                            grad_compression="int8")
-    for arch in ("mamba2-1.3b", "qwen2-moe-a2.7b", "whisper-medium"):
-        with pytest.raises(NotImplementedError, match="item 15"):
-            ST.make_loss_fn(get_config(arch).reduced())
-    with pytest.raises(NotImplementedError, match="item 15"):
-        TR.main(["--arch", "mamba2-1.3b", "--reduced", "--device", "cpu"])
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             TR.main(LAUNCH[:-2])
